@@ -46,6 +46,12 @@ _SLOW_MODULES = {
 }
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the vitax_torch Hopper kernels "
+                   "have no CPU mode); skips where there is none")
+
+
 def pytest_collection_modifyitems(items):
     for item in items:
         mod = item.module.__name__.rsplit(".", 1)[-1]
