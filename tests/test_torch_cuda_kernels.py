@@ -1,12 +1,14 @@
 """The Hopper kernels of vitax_torch on a CUDA card: each against its plain
-twin, and the wrappers' argument checks. Needs torch only (no jax), so it
-runs on a machine with the card:
+twin, forward and backward, the autograd Functions, and the wrappers'
+argument checks. Needs torch only (no jax), so it runs on a machine with the
+card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Where there is no card every test skips (the CUDA kernels have no CPU mode).
 Tolerance: max|kernel - twin| <= 2e-2 * max(1, max|twin|) in bf16 (ulp 2^-8,
-same rounding points, sums in another order); 1e-5 for the fp32 LN.
+same rounding points, sums in another order), on every output; 1e-5 for the
+fp32 LN.
 """
 
 import pytest
@@ -17,12 +19,15 @@ from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 EPS = 1e-5
+BWD_NAMES = ("layer_norm_bwd", "fused_ln_qkvo_attention_bwd",
+             "fused_ln_mlp_bwd")
 
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twins' fp32 products
     return torch.device("cuda")
 
 
@@ -45,6 +50,22 @@ def _args(dev, batch, spq, seq, d, h, hd, m, seed=0):
     return ln, qkvo, mlp
 
 
+def _bwd_args(dev, batch, spq, seq, d, h, hd, m, seed=0, rows=None):
+    """Backward arguments; `rows` < spq cuts LN's and K2's x to a ragged
+    row count (K1 takes the padded stream only)."""
+    ln, qkvo, mlp = _args(dev, batch, spq, seq, d, h, hd, m, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    do = torch.randn((batch, spq, d), generator=g, device=dev).to(torch.bfloat16)
+    x, x_r, do_r = ln[0], ln[0], do
+    if rows is not None:
+        x_r, do_r = x[:, :rows].contiguous(), do[:, :rows].contiguous()
+    return {
+        "layer_norm_bwd": (x_r, ln[1], do_r, EPS),
+        "fused_ln_qkvo_attention_bwd": (x, *qkvo[1:6], do, *qkvo[7:]),
+        "fused_ln_mlp_bwd": (x_r, *mlp[1:6], do_r, EPS),
+    }
+
+
 def _assert_close(out, ref, tol=2e-2):
     assert out.shape == ref.shape and out.dtype == ref.dtype
     assert torch.isfinite(out).all()
@@ -58,6 +79,19 @@ SHAPES = [(2, 16, 10, 128, 2, 64, 256), (3, 200, 197, 768, 12, 64, 3072),
           (2, 584, 577, 768, 12, 64, 3072), (2, 40, 33, 256, 8, 32, 512),
           (1, 64, 50, 256, 2, 128, 512)]
 
+# backward: ViT-B/16 at train_cli's b32 and at b8 (spq 200), the token-drop
+# geometry at keep 0.5 (1 + 98 tokens -> spq 104), a ragged row count
+# (3 images x 197 rows for LN and K2, 3 images for K1), spq 584, the test
+# config and head_dim 32 / 128
+BWD_SHAPES = [(32, 200, 197, 768, 12, 64, 3072, None),
+              (8, 200, 197, 768, 12, 64, 3072, None),
+              (8, 104, 99, 768, 12, 64, 3072, None),
+              (3, 200, 197, 768, 12, 64, 3072, 197),
+              (2, 584, 577, 768, 12, 64, 3072, None),
+              (2, 16, 10, 128, 2, 64, 256, None),
+              (2, 40, 33, 256, 8, 32, 512, 37),
+              (1, 64, 50, 256, 2, 128, 512, None)]
+
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernels_match_plain_twins(dev, shape):
@@ -69,9 +103,63 @@ def test_kernels_match_plain_twins(dev, shape):
                       ck.fused_ln_qkvo_attention_ref(*qkvo))
         _assert_close(ck.fused_ln_mlp(*mlp), ck.fused_ln_mlp_ref(*mlp))
         torch.cuda.synchronize()
-    assert ck.launch_counts() == {"layer_norm": 1,
-                                  "fused_ln_qkvo_attention": 1,
-                                  "fused_ln_mlp": 1}
+    counts = ck.launch_counts()
+    assert {k: counts[k] for k in ("layer_norm", "fused_ln_qkvo_attention",
+                                   "fused_ln_mlp")} == {
+        "layer_norm": 1, "fused_ln_qkvo_attention": 1, "fused_ln_mlp": 1}
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_backward_kernels_match_plain_twins(dev, shape):
+    args = _bwd_args(dev, *shape[:7], rows=shape[7])
+    ck.reset_launch_counts()
+    for name in BWD_NAMES:
+        with torch.no_grad():
+            outs = getattr(ck, name)(*args[name])
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(*args[name])
+        assert len(outs) == len(refs)
+        for out, ref in zip(outs, refs):
+            _assert_close(out, ref)
+        del outs, refs
+    assert {k: v for k, v in ck.launch_counts().items()
+            if k in BWD_NAMES} == dict.fromkeys(BWD_NAMES, 1)
+
+
+def test_backward_kernels_are_deterministic(dev):
+    args = _bwd_args(dev, 8, 200, 197, 768, 12, 64, 3072)
+    for name in BWD_NAMES:
+        with torch.no_grad():
+            a = getattr(ck, name)(*args[name])
+            b = getattr(ck, name)(*args[name])
+        for u, v in zip(a, b):
+            assert torch.equal(u, v), name
+
+
+def test_autograd_functions_launch_both_kernels(dev):
+    ln, qkvo, mlp = _args(dev, 2, 200, 197, 768, 12, 64, 3072)
+    leaves = {}
+
+    def req(key, t):
+        leaves[key] = t.detach().clone().requires_grad_()
+        return leaves[key]
+
+    ck.reset_launch_counts()
+    x = req("x", ln[0])
+    y = ck.layer_norm(x, req("g", ln[1]), req("b", ln[2]), EPS)
+    y = ck.fused_ln_qkvo_attention(y, *(req(k, t) for k, t in zip(
+        ("g1", "b1", "wqkv", "bqkv", "wo", "bo"), qkvo[1:7])), *qkvo[7:])
+    y = ck.fused_ln_mlp(y, *(req(k, t) for k, t in zip(
+        ("g2", "b2", "w1", "fb1", "w2", "fb2"), mlp[1:7])), EPS)
+    assert type(y.grad_fn).__name__ == "FusedLnMlpFnBackward"
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert ck.launch_counts() == dict.fromkeys(
+        ("layer_norm", "fused_ln_qkvo_attention", "fused_ln_mlp")
+        + BWD_NAMES, 1)
+    for key, t in leaves.items():
+        assert t.grad is not None and t.grad.dtype == t.dtype, key
+        assert t.grad.shape == t.shape and torch.isfinite(t.grad).all(), key
 
 
 def test_fp32_layer_norm_and_ragged_rows(dev):
@@ -79,6 +167,10 @@ def test_fp32_layer_norm_and_ragged_rows(dev):
     g, b = torch.rand(768, device=dev) + 0.5, torch.randn(768, device=dev)
     _assert_close(ck.layer_norm(x, g, b, EPS), ck.layer_norm_ref(x, g, b, EPS),
                   tol=1e-5)
+    dy = torch.randn_like(x)
+    for out, ref in zip(ck.layer_norm_bwd(x, g, dy, EPS),
+                        ck.layer_norm_bwd_ref(x, g, dy, EPS)):
+        _assert_close(out, ref, tol=1e-4)
     ln, _, mlp = _args(dev, 3, 197, 197, 768, 12, 64, 3072)
     with torch.inference_mode():
         _assert_close(ck.layer_norm(*ln), ck.layer_norm_ref(*ln))
@@ -88,8 +180,9 @@ def test_fp32_layer_norm_and_ragged_rows(dev):
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     ln, qkvo, mlp = _args(dev, 2, 16, 10, 128, 2, 64, 256)
     x = qkvo[0]
-    with pytest.raises(RuntimeError, match="forward-only"):
-        ck.fused_ln_mlp(x.clone().requires_grad_(), *mlp[1:])
+    # an input that needs grad goes through the autograd Function
+    out = ck.fused_ln_mlp(x.clone().requires_grad_(), *mlp[1:])
+    assert type(out.grad_fn).__name__ == "FusedLnMlpFnBackward"
     with pytest.raises(ValueError, match="contiguous"):
         ck.layer_norm(x.transpose(0, 1), *ln[1:])
     with pytest.raises(TypeError):
@@ -98,3 +191,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ck.fused_ln_qkvo_attention(x[:, :10].contiguous(), *qkvo[1:])
     with pytest.raises(ValueError, match="not CUDA"):
         ck.fused_ln_mlp(x, *mlp[1:3], mlp[3].cpu(), *mlp[4:])
+    with pytest.raises(TypeError):
+        ck.fused_ln_mlp_bwd(x, *mlp[1:6], x.float(), EPS)
+    with pytest.raises(ValueError):
+        ck.fused_ln_qkvo_attention_bwd(x, *qkvo[1:6], x[:1].contiguous(),
+                                       *qkvo[7:])

@@ -41,7 +41,9 @@ def test_no_source_names_jax_or_vitax():
 def test_kernel_sources_and_build_dir():
     from vitax_torch.kernels import build
     names = {p.name for p in build.sources()}
-    assert {"layernorm.cu", "ln_mlp.cu", "ln_qkvo_attention.cu"} <= names
+    assert {"layernorm.cu", "ln_mlp.cu", "ln_qkvo_attention.cu",
+            "layernorm_bwd.cu", "ln_mlp_bwd.cu",
+            "ln_qkvo_attention_bwd.cu"} <= names
     # the library is built inside the checkout, under an ignored directory
     rel = build.library_path().relative_to(ROOT)
     assert rel.parts[0] == "build"

@@ -113,9 +113,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                     t["b2"], EPS)
     ck.fused_ln_qkvo_attention(t["x"], t["gamma"], t["beta"], t["wqkv"],
                                t["bqkv"], t["wo"], t["bo"], EPS, SEQ, H, HD)
+    ck.layer_norm_bwd(t["x"], t["gamma"], t["x"], EPS)
+    ck.fused_ln_mlp_bwd(t["x"], t["gamma"], t["beta"], t["w1"], t["b1"],
+                        t["w2"], t["x"], EPS)
+    ck.fused_ln_qkvo_attention_bwd(t["x"], t["gamma"], t["beta"], t["wqkv"],
+                                   t["bqkv"], t["wo"], t["x"], EPS, SEQ, H,
+                                   HD)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
-                                  "fused_ln_mlp": 0}
+                                  "fused_ln_mlp": 0, "layer_norm_bwd": 0,
+                                  "fused_ln_qkvo_attention_bwd": 0,
+                                  "fused_ln_mlp_bwd": 0}
 
 
 def test_hopper_gates():

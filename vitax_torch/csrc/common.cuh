@@ -26,6 +26,29 @@ __device__ __forceinline__ bf16 from_float<bf16>(float v) {
 template <>
 __device__ __forceinline__ float from_float<float>(float v) { return v; }
 
+// Four neighbouring values <-> fp32 (8-byte bf16 or 16-byte fp32 vectors;
+// the element offset must be a multiple of 4).
+__device__ __forceinline__ void load4(const bf16* p, float v[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) v[t] = __bfloat162float(b[t]);
+}
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 raw = *reinterpret_cast<const float4*>(p);
+  v[0] = raw.x, v[1] = raw.y, v[2] = raw.z, v[3] = raw.w;
+}
+__device__ __forceinline__ void store4(bf16* p, const float v[4]) {
+  uint2 raw;
+  bf16* b = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) b[t] = __float2bfloat16(v[t]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -1,61 +1,148 @@
-// Tiled bf16 GEMM with fp32 accumulation and a fused epilogue: the projection
-// products inside the fused attention and MLP halves (the TPU kernels compute
-// them in their own bodies with jnp.dot(..., preferred_element_type=f32)).
+// Tiled bf16 GEMM with fp32 accumulation and a fused epilogue: the products
+// inside the fused attention and MLP halves, forward and backward (the TPU
+// kernels compute them in their own bodies with jnp.dot / dot_general(...,
+// preferred_element_type=f32)).
 //
-// C[M,N] = epilogue(A[M,K] @ B[K,N]), A and B row-major bf16 (B is the weight
-// in the JAX [in, out] layout, so no transpose is ever made).
+// Three operand layouts, all row-major bf16 in memory, none transposed in
+// device memory:
+//   kNN  C[M,N] = A[M,K]   @ B[K,N]    forward projections (B = weight [in,out])
+//   kNT  C[M,N] = A[M,K]   @ B[N,K]^T  backward dx-path: do·Woᵀ, do·W2ᵀ, dqkv·Wqkvᵀ, dh1·W1ᵀ
+//   kTN  C[M,N] = A[K,M]^T @ B[K,N]    weight grads: xnᵀ·dqkv, attnᵀ·do, xnᵀ·dh1, h1ᵀ·do
+// kTN contracts over all B·spq rows, so K is ragged (3·200 = 600 is not a
+// multiple of the 32-deep K tile): the K loop masks its tail by zero-filling
+// the rows past K. kNN and kNT need K % 32 == 0 (D, M, 3·H·Hd, H·Hd all are).
 //
 // Bound on the H100: the tensor cores at the ViT-B/16 shapes (M = B*spq rows,
 // K and N 768..3072: ~380 flops a byte). Design of this first version: WMMA
 // 16x16x16 bf16 tiles (mma.sync on Hopper), a 128x128x32 block tile in 8
 // warps of 64x32, and a two-stage cp.async ring so the next K tile loads while
-// the current one multiplies. It does not reach wgmma/TMA rates; that is work
-// for a later PR. The epilogue stages each 16x16 accumulator through a
-// per-warp shared buffer, adds the fp32 bias, applies GELU or the residual,
-// and writes 16-byte bf16 vectors with the ragged row edge masked.
+// the current one multiplies. It does not reach wgmma/TMA rates; that is left
+// for later work. The epilogue stages each 16x16 accumulator through a
+// per-warp shared buffer (aliasing the operand ring, free by then), applies
+// the epilogue and writes 16-byte vectors with the ragged row edge masked.
+//
+// The weight grads have small outputs (768x768 is 36 block tiles for 132 SMs)
+// and a long K (all rows), so kTN splits K over gridDim.z: each split writes
+// an fp32 partial to a workspace and a second pass adds the partials in split
+// order. No float atomics: two runs give the same bits.
 #pragma once
 
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace vitax {
 
+enum Layout : int { kNN = 0, kNT = 1, kTN = 2 };
+
 enum Epilogue : int {
   kBias = 0,          // C = bf16(acc + bias)
   kBiasGelu = 1,      // C = bf16(gelu_erf(acc + bias)), GELU in fp32
   kBiasResidual = 2,  // C = R + bf16(acc + bias), the add in bf16
+  kBiasGeluAux = 3,   // F = acc + bias (fp32), C = bf16(gelu_erf(F))
+  kStore = 4,         // C = bf16(acc)
+  kStoreF32 = 5,      // F = acc (fp32; with split K, F is the partial of split z)
+  kGeluGrad = 6,      // C = bf16(acc * gelu_erf'(Aux)), Aux fp32 [M,N]
 };
 
 constexpr int kGemmBM = 128;
 constexpr int kGemmBN = 128;
 constexpr int kGemmBK = 32;
 constexpr int kGemmThreads = 256;
-constexpr int kGemmALd = kGemmBK + 8;  // padded rows: fewer bank conflicts
-constexpr int kGemmBLd = kGemmBN + 8;
+constexpr int kGemmKLd = kGemmBK + 8;   // tiles stored [rows][32 of K], padded
+constexpr int kGemmMNLd = kGemmBN + 8;  // tiles stored [32 of K][128], padded
+constexpr int kGemmStage = kGemmBM * kGemmKLd;  // >= kGemmBK * kGemmMNLd
+// blocks to aim for when splitting K: two waves of the H100's 132 SMs
+constexpr int kSplitKTargetBlocks = 264;
 
 __device__ __forceinline__ float gelu_erf(float a) {
   return 0.5f * a * (1.0f + erff(a * 0.70710678118654752f));
 }
 
-// Requires K % 32 == 0 and N % 8 == 0 (checked by the Python wrapper).
-template <int EPI>
+// d/da of gelu_erf: Phi(a) + a * phi(a), in fp32 (the TPU's _gelu_grad).
+__device__ __forceinline__ float gelu_erf_grad(float a) {
+  const float phi = 0.5f * (1.0f + erff(a * 0.70710678118654752f));
+  const float pdf = expf(-0.5f * a * a) * 0.3989422804014327f;
+  return phi + a * pdf;
+}
+
+// Loads of one K step into shared memory. A tile: [128 rows of M][32 of K]
+// (kNN, kNT) or [32 of K][128 of M] (kTN). B tile: [32 of K][128 of N] (kNN,
+// kTN) or [128 of N][32 of K] (kNT). Rows past M/N and K rows past k_end are
+// zero-filled.
+template <int LAYOUT>
+__device__ __forceinline__ void gemm_load_tile(bf16* As, bf16* Bs, const bf16* __restrict__ A,
+                                               const bf16* __restrict__ B, int bm, int bn,
+                                               int k0, int k_end, int M, int N, int K) {
+  const int tid = threadIdx.x;
+  if (LAYOUT == kTN) {
+#pragma unroll
+    for (int i = tid; i < kGemmBK * kGemmBM / 8; i += kGemmThreads) {
+      const int r = i / (kGemmBM / 8);
+      const int c = (i % (kGemmBM / 8)) * 8;
+      const bool ok = k0 + r < k_end && bm + c < M;
+      const bf16* src = A + (ok ? static_cast<size_t>(k0 + r) * M + bm + c : 0);
+      cp_async16(&As[r * kGemmMNLd + c], src, ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll
+    for (int i = tid; i < kGemmBM * kGemmBK / 8; i += kGemmThreads) {
+      const int r = i / (kGemmBK / 8);
+      const int c = (i % (kGemmBK / 8)) * 8;
+      const bool ok = bm + r < M && k0 + c < k_end;
+      const bf16* src = A + (ok ? static_cast<size_t>(bm + r) * K + k0 + c : 0);
+      cp_async16(&As[r * kGemmKLd + c], src, ok ? 16 : 0);
+    }
+  }
+  if (LAYOUT == kNT) {
+#pragma unroll
+    for (int i = tid; i < kGemmBN * kGemmBK / 8; i += kGemmThreads) {
+      const int r = i / (kGemmBK / 8);
+      const int c = (i % (kGemmBK / 8)) * 8;
+      const bool ok = bn + r < N && k0 + c < k_end;
+      const bf16* src = B + (ok ? static_cast<size_t>(bn + r) * K + k0 + c : 0);
+      cp_async16(&Bs[r * kGemmKLd + c], src, ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll
+    for (int i = tid; i < kGemmBK * kGemmBN / 8; i += kGemmThreads) {
+      const int r = i / (kGemmBN / 8);
+      const int c = (i % (kGemmBN / 8)) * 8;
+      const bool ok = k0 + r < k_end && bn + c < N;
+      const bf16* src = B + (ok ? static_cast<size_t>(k0 + r) * N + bn + c : 0);
+      cp_async16(&Bs[r * kGemmMNLd + c], src, ok ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+}
+
+// Requires N % 8 == 0 and M % 8 == 0 for kTN (checked by the wrappers), and
+// K % 32 == 0 for kNN/kNT. blockIdx.z is the K split: K rows
+// [z*k_chunk, min(K, (z+1)*k_chunk)); F then points at split z's partial.
+template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                      const float* __restrict__ bias, const bf16* __restrict__ R,
-                     bf16* __restrict__ C, int M, int N, int K) {
+                     const float* __restrict__ Aux, bf16* __restrict__ C, float* __restrict__ F,
+                     int M, int N, int K, int k_chunk) {
   using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[2][kGemmBM * kGemmALd];
-  __shared__ __align__(128) bf16 Bs[2][kGemmBK * kGemmBLd];
-  __shared__ __align__(128) float Cs[kGemmThreads / 32][16 * 16];
+  using ALayout = typename std::conditional<LAYOUT == kTN, wmma::col_major, wmma::row_major>::type;
+  using BLayout = typename std::conditional<LAYOUT == kNT, wmma::col_major, wmma::row_major>::type;
+  __shared__ __align__(128) bf16 smem[4 * kGemmStage];  // A[2], B[2]; Cs after the loop
+  bf16* As[2] = {smem, smem + kGemmStage};
+  bf16* Bs[2] = {smem + 2 * kGemmStage, smem + 3 * kGemmStage};
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   const int bm = blockIdx.y * kGemmBM;
   const int bn = blockIdx.x * kGemmBN;
   const int wm = (warp / 4) * 64;
   const int wn = (warp % 4) * 32;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  if (EPI == kStoreF32) F += static_cast<size_t>(blockIdx.z) * M * N;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
@@ -63,47 +150,37 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  auto load_tile = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = tid; i < kGemmBM * kGemmBK / 8; i += kGemmThreads) {
-      const int r = i / (kGemmBK / 8);
-      const int c = (i % (kGemmBK / 8)) * 8;
-      const int gr = bm + r;
-      const bf16* src = A + static_cast<size_t>(gr < M ? gr : 0) * K + k0 + c;
-      cp_async16(&As[stage][r * kGemmALd + c], src, gr < M ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = tid; i < kGemmBK * kGemmBN / 8; i += kGemmThreads) {
-      const int r = i / (kGemmBN / 8);
-      const int c = (i % (kGemmBN / 8)) * 8;
-      const int gc = bn + c;
-      const bf16* src = B + static_cast<size_t>(k0 + r) * N + (gc < N ? gc : 0);
-      cp_async16(&Bs[stage][r * kGemmBLd + c], src, gc < N ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  const int nk = K / kGemmBK;
-  load_tile(0, 0);
+  const int nk = k_end > k_begin ? (k_end - k_begin + kGemmBK - 1) / kGemmBK : 0;
+  if (nk > 0) gemm_load_tile<LAYOUT>(As[0], Bs[0], A, B, bm, bn, k_begin, k_end, M, N, K);
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
-      load_tile((kt + 1) & 1, (kt + 1) * kGemmBK);
+      gemm_load_tile<LAYOUT>(As[(kt + 1) & 1], Bs[(kt + 1) & 1], A, B, bm, bn,
+                             k_begin + (kt + 1) * kGemmBK, k_end, M, N, K);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int s = kt & 1;
+    const bf16* as = As[kt & 1];
+    const bf16* bs = Bs[kt & 1];
 #pragma unroll
     for (int kk = 0; kk < kGemmBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], &As[s][(wm + i * 16) * kGemmALd + kk], kGemmALd);
+      for (int i = 0; i < 4; ++i) {
+        if (LAYOUT == kTN)
+          wmma::load_matrix_sync(a[i], as + kk * kGemmMNLd + wm + i * 16, kGemmMNLd);
+        else
+          wmma::load_matrix_sync(a[i], as + (wm + i * 16) * kGemmKLd + kk, kGemmKLd);
+      }
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[s][kk * kGemmBLd + wn + j * 16], kGemmBLd);
+      for (int j = 0; j < 2; ++j) {
+        if (LAYOUT == kNT)
+          wmma::load_matrix_sync(b[j], bs + (wn + j * 16) * kGemmKLd + kk, kGemmKLd);
+        else
+          wmma::load_matrix_sync(b[j], bs + kk * kGemmMNLd + wn + j * 16, kGemmMNLd);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -112,7 +189,7 @@ __global__ void __launch_bounds__(kGemmThreads)
     __syncthreads();  // the next iteration's load overwrites this stage
   }
 
-  float* cs = Cs[warp];
+  float* cs = reinterpret_cast<float*>(smem) + warp * 256;  // the ring is free now
   const int r = lane / 2;
   const int c0 = (lane % 2) * 8;
 #pragma unroll
@@ -125,36 +202,127 @@ __global__ void __launch_bounds__(kGemmThreads)
       const int gc = bn + wn + j * 16 + c0;
       if (gr < M && gc < N) {
         const size_t off = static_cast<size_t>(gr) * N + gc;
-        uint4 out_u;
-        uint4 res_u = make_uint4(0, 0, 0, 0);
-        if (EPI == kBiasResidual) res_u = *reinterpret_cast<const uint4*>(R + off);
-        bf16* out = reinterpret_cast<bf16*>(&out_u);
-        const bf16* res = reinterpret_cast<const bf16*>(&res_u);
+        const float* v = cs + r * 16 + c0;
+        if (EPI == kStoreF32 || EPI == kBiasGeluAux) {
+          float4 lo, hi;
+          float* f = reinterpret_cast<float*>(&lo);
+          float* g = reinterpret_cast<float*>(&hi);
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const float v = cs[r * 16 + c0 + t] + bias[gc + t];
-          if (EPI == kBias) {
-            out[t] = __float2bfloat16(v);
-          } else if (EPI == kBiasGelu) {
-            out[t] = __float2bfloat16(gelu_erf(v));
-          } else {
-            const float yb = __bfloat162float(__float2bfloat16(v));
-            out[t] = __float2bfloat16(__bfloat162float(res[t]) + yb);
+          for (int t = 0; t < 4; ++t) {
+            f[t] = v[t] + (EPI == kBiasGeluAux ? bias[gc + t] : 0.f);
+            g[t] = v[t + 4] + (EPI == kBiasGeluAux ? bias[gc + t + 4] : 0.f);
           }
+          *reinterpret_cast<float4*>(F + off) = lo;
+          *reinterpret_cast<float4*>(F + off + 4) = hi;
         }
-        *reinterpret_cast<uint4*>(C + off) = out_u;
+        if (EPI != kStoreF32) {
+          uint4 out_u;
+          uint4 res_u = make_uint4(0, 0, 0, 0);
+          if (EPI == kBiasResidual) res_u = *reinterpret_cast<const uint4*>(R + off);
+          float aux[8];
+          if (EPI == kGeluGrad) {
+            const float4 a0 = *reinterpret_cast<const float4*>(Aux + off);
+            const float4 a1 = *reinterpret_cast<const float4*>(Aux + off + 4);
+            aux[0] = a0.x, aux[1] = a0.y, aux[2] = a0.z, aux[3] = a0.w;
+            aux[4] = a1.x, aux[5] = a1.y, aux[6] = a1.z, aux[7] = a1.w;
+          }
+          bf16* out = reinterpret_cast<bf16*>(&out_u);
+          const bf16* res = reinterpret_cast<const bf16*>(&res_u);
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            if (EPI == kStore) {
+              out[t] = __float2bfloat16(v[t]);
+            } else if (EPI == kGeluGrad) {
+              out[t] = __float2bfloat16(v[t] * gelu_erf_grad(aux[t]));
+            } else {
+              const float a = v[t] + bias[gc + t];
+              if (EPI == kBias) {
+                out[t] = __float2bfloat16(a);
+              } else if (EPI == kBiasGelu || EPI == kBiasGeluAux) {
+                out[t] = __float2bfloat16(gelu_erf(a));
+              } else {  // kBiasResidual
+                const float yb = __bfloat162float(__float2bfloat16(a));
+                out[t] = __float2bfloat16(__bfloat162float(res[t]) + yb);
+              }
+            }
+          }
+          *reinterpret_cast<uint4*>(C + off) = out_u;
+        }
       }
       __syncwarp();
     }
   }
 }
 
+// out[i] = sum over s of part[s][i], s in order (the second pass of split K).
+template <int kDummy = 0>
+__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                  size_t count, int splits) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < count;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += part[z * count + i];
+    out[i] = s;
+  }
+}
+
+// K splits of a weight-grad product [M,N] over K rows: enough blocks for two
+// waves, each split at least 256 rows deep.
+inline int gemm_tn_splits(int M, int N, int K) {
+  const int tiles = ((M + kGemmBM - 1) / kGemmBM) * ((N + kGemmBN - 1) / kGemmBN);
+  int s = 1;
+  while (s < 16 && tiles * s < kSplitKTargetBlocks && K / (2 * s) >= 256) s *= 2;
+  return s;
+}
+
+// fp32 workspace a weight-grad product needs (0 without a split).
+inline size_t gemm_tn_workspace(int M, int N, int K) {
+  const int s = gemm_tn_splits(M, N, K);
+  return s > 1 ? static_cast<size_t>(s) * M * N : 0;
+}
+
+template <int LAYOUT, int EPI>
+cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, const bf16* R,
+                             const float* Aux, bf16* C, float* F, int M, int N, int K,
+                             int splits, cudaStream_t stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  const int k_chunk = (K + splits * kGemmBK - 1) / (splits * kGemmBK) * kGemmBK;
+  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
+  gemm_bf16_kernel<LAYOUT, EPI>
+      <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, R, Aux, C, F, M, N, K, k_chunk);
+  return cudaGetLastError();
+}
+
+// Forward products: C[M,N] = epilogue(A[M,K] @ B[K,N]); F is the fp32
+// pre-activation output of kBiasGeluAux.
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, const bf16* R, bf16* C,
-                        int M, int N, int K, cudaStream_t stream) {
-  if (M == 0) return cudaSuccess;
-  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  gemm_bf16_kernel<EPI><<<grid, kGemmThreads, 0, stream>>>(A, B, bias, R, C, M, N, K);
+                        int M, int N, int K, cudaStream_t stream, float* F = nullptr) {
+  return launch_gemm_impl<kNN, EPI>(A, B, bias, R, nullptr, C, F, M, N, K, 1, stream);
+}
+
+// dx-path products: C[M,N] = epilogue(A[M,K] @ B[N,K]^T), epilogue kStore
+// (bf16 C), kStoreF32 (fp32 F) or kGeluGrad (bf16 C, fp32 Aux [M,N]).
+template <int EPI>
+cudaError_t launch_gemm_nt(const bf16* A, const bf16* B, const float* Aux, bf16* C, float* F,
+                           int M, int N, int K, cudaStream_t stream) {
+  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, Aux, C, F, M, N, K, 1, stream);
+}
+
+// Weight grads: F[M,N] = A[K,M]^T @ B[K,N] in fp32, over K = all rows
+// (ragged). ws holds gemm_tn_workspace(M, N, K) floats.
+inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float* ws, int M, int N,
+                                  int K, cudaStream_t stream) {
+  const int splits = gemm_tn_splits(M, N, K);
+  if (splits == 1)
+    return launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, nullptr, F, M, N, K,
+                                            1, stream);
+  cudaError_t e = launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, nullptr, ws,
+                                                   M, N, K, splits, stream);
+  if (e != cudaSuccess) return e;
+  const size_t count = static_cast<size_t>(M) * N;
+  const int blocks = static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
+  sum_splits_kernel<0><<<blocks, 256, 0, stream>>>(ws, F, count, splits);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 // Row LayerNorm with fp32 statistics: the device half of the LN kernel, and
-// the LN1/LN2 prologue of the fused attention and MLP halves.
+// the LN1/LN2 prologue of the fused attention and MLP halves; and its
+// backward, which also serves the LN tails of the fused halves' backwards.
 #pragma once
 
+#include "colsum.cuh"
 #include "common.cuh"
 
 namespace vitax {
@@ -65,6 +67,102 @@ cudaError_t launch_layer_norm(const T* x, const float* gamma, const float* beta,
   layer_norm_rows_kernel<T><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(x, gamma, beta, y, n, d,
                                                                        eps);
   return cudaGetLastError();
+}
+
+// LN backward, the row half: statistics recomputed in fp32, then
+//   dx = rstd * (dyg - mean(dyg) - xhat * mean(dyg * xhat)),  dyg = dy * gamma
+// (the TPU's _ln_bwd_kernel, and the LN tails of the fused halves'
+// backwards). With R (K2's residual), dx = R + TX(dx_ln), the add in TX.
+// Writes each row's mean and rstd for the dγ/dβ pass. One warp per row, four
+// values a lane (d % 4 == 0); the re-reads of the row hit L1.
+template <typename TX, typename TD>
+__global__ void __launch_bounds__(256)
+    layer_norm_bwd_rows_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
+                               const TD* __restrict__ dy, const TX* __restrict__ R,
+                               TX* __restrict__ dx, float* __restrict__ mean_out,
+                               float* __restrict__ rstd_out, int n, int d, float eps) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n) return;
+  const size_t base = static_cast<size_t>(row) * d;
+  const float inv_d = 1.0f / static_cast<float>(d);
+
+  float s = 0.f;
+  for (int i = lane * 4; i < d; i += 128) {
+    float v[4];
+    load4(x + base + i, v);
+    s += (v[0] + v[1]) + (v[2] + v[3]);
+  }
+  const float mean = warp_sum(s) * inv_d;
+  float q = 0.f;
+  for (int i = lane * 4; i < d; i += 128) {
+    float v[4];
+    load4(x + base + i, v);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) q += (v[t] - mean) * (v[t] - mean);
+  }
+  const float rstd = rsqrtf(warp_sum(q) * inv_d + eps);
+
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = lane * 4; i < d; i += 128) {
+    float v[4], g[4], dv[4];
+    load4(x + base + i, v);
+    load4(gamma + i, g);
+    load4(dy + base + i, dv);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float dyg = dv[t] * g[t];
+      s1 += dyg;
+      s2 += dyg * ((v[t] - mean) * rstd);
+    }
+  }
+  const float m1 = warp_sum(s1) * inv_d;
+  const float m2 = warp_sum(s2) * inv_d;
+
+  for (int i = lane * 4; i < d; i += 128) {
+    float v[4], g[4], dv[4], r[4], out[4];
+    load4(x + base + i, v);
+    load4(gamma + i, g);
+    load4(dy + base + i, dv);
+    if (R != nullptr) load4(R + base + i, r);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float xhat = (v[t] - mean) * rstd;
+      const float dxl = rstd * (dv[t] * g[t] - m1 - xhat * m2);
+      out[t] = R != nullptr ? r[t] + to_float(from_float<TX>(dxl)) : dxl;
+    }
+    store4(dx + base + i, out);
+  }
+  if (lane == 0) {
+    mean_out[row] = mean;
+    rstd_out[row] = rstd;
+  }
+}
+
+// fp32 workspace of one LN backward: per-row mean and rstd, then the dβ and
+// dγ partials.
+inline size_t layer_norm_bwd_workspace(int n, int d) {
+  return 2 * static_cast<size_t>(n) + 2 * colsum_workspace(n, d);
+}
+
+// dx (TX), dγ = Σ dy·x̂ and dβ = Σ dy (fp32 [d]) of a row LN over x [n, d];
+// R (optional) is added to dx in TX. d % 4 == 0.
+template <typename TX, typename TD>
+cudaError_t launch_layer_norm_bwd(const TX* x, const float* gamma, const TD* dy, const TX* R,
+                                  TX* dx, float* dgamma, float* dbeta, float* ws, int n, int d,
+                                  float eps, cudaStream_t stream) {
+  float* mean = ws;
+  float* rstd = ws + n;
+  if (n > 0) {
+    constexpr int kRowsPerBlock = 8;
+    const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
+    layer_norm_bwd_rows_kernel<TX, TD><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
+        x, gamma, dy, R, dx, mean, rstd, n, d, eps);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return launch_colsum_pair<TD, TX, true>(dy, x, mean, rstd, dbeta, dgamma, ws + 2 * n, n, d,
+                                          stream);
 }
 
 }  // namespace vitax

@@ -1,9 +1,10 @@
 """Build and load the Hopper kernels of `vitax_torch/csrc/`.
 
-All `csrc/*.cu` files are compiled by one `nvcc` call into a shared library
-with a plain C interface, which is loaded with `ctypes` (no PyTorch headers in
-the build, so it takes seconds, not minutes). The library lands in the
-checkout's `build/vitax_torch_kernels/` (listed in `.gitignore`), named by a hash of
+Each `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, which is loaded with `ctypes` (no PyTorch headers in the build,
+so it takes seconds, not minutes). The library lands in the checkout's
+`build/vitax_torch_kernels/` (listed in `.gitignore`), named by a hash of
 the sources and flags, so an edit to any source rebuilds it at first use.
 
 Nothing here runs at import time: `load()` builds on the first call, and a
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vitax_torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -31,10 +32,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # 64-bit device addresses are not cut to 32 bits)
 SIGNATURES = {
     "vitax_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "vitax_ln_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _F, _P],
-    "vitax_ln_qkvo_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "vitax_ln_mlp_fwd": [_P] * 10 + [_I, _I, _I, _F, _P],
+    "vitax_ln_qkvo_attention_fwd": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    "vitax_layer_norm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
+    "vitax_ln_mlp_bwd": [_P] * 20 + [_I, _I, _I, _F, _I, _P],
+    "vitax_ln_qkvo_attention_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
+}
+# workspace sizes (fp32 elements) of the backward entry points: host code
+WORKSPACE_SIGNATURES = {
+    "vitax_layer_norm_bwd_ws": [_I, _I],
+    "vitax_ln_mlp_bwd_ws": [_I, _I, _I],
+    "vitax_ln_qkvo_attention_bwd_ws": [_I, _I, _I],
 }
 
 _lib = None
@@ -69,19 +77,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the current sources exists."""
+    """Compile the kernels unless a library of the current sources exists:
+    one nvcc per source in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{_digest()}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+        objs.append(obj)
+    log, failed = [], []
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{text[-3000:]}")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+    (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -95,6 +124,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in WORKSPACE_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         lib.vitax_error_string.argtypes = [ctypes.c_int]
         lib.vitax_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -17,11 +17,12 @@ a list of per-layer dicts instead of `[L, ...]`-stacked leaves:
      "classifier": {"kernel" [D,C], "bias" [C]}}
 
 `params_from_jax` turns vitax's pytree (as numpy arrays) into this layout, so
-both packages compute the same function. `apply` is the deterministic
-(eval) forward: with `fused_qkv` and `fused_mlp` each encoder block is two
-fused kernels on a residual stream padded once to a multiple of 8 rows; with
-them off, it is plain PyTorch ops. Training (dropout, token dropping,
-gradients) comes with the training port.
+both packages compute the same function. `apply` is the forward, eval or
+train: with `fused_qkv` and `fused_mlp` each encoder block is two fused
+kernels on a residual stream padded once to a multiple of 8 rows (under
+autograd, their backward kernels run through `torch.autograd.Function`s);
+with them off, it is plain PyTorch ops. Train mode adds token dropping and
+dropout, with their random numbers drawn from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from vitax_torch.ops import cuda_kernels as ck
 from vitax_torch.ops.attention import multi_head_attention_bhsd
 from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm
-from vitax_torch.ops.mlp import mlp_ref
+from vitax_torch.ops.mlp import gelu_exact
 from vitax_torch.ops.patchify import patchify_matmul
 
 Params = Dict[str, Any]
@@ -97,6 +98,34 @@ def init_params(gen: torch.Generator, cfg: ViTConfig,
     }
 
 
+def reinit_classifier(params: Params, gen: torch.Generator, num_classes: int
+                      ) -> Params:
+    """Re-initialize the classification head for a new class count (vitax's
+    reinit_classifier, the reference's head re-init on class mismatch)."""
+    kernel = params["classifier"]["kernel"]
+    d = kernel.shape[0]
+    t = torch.empty((d, num_classes), dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, std=1.0, a=-2.0, b=2.0, generator=gen)
+    new = dict(params)
+    new["classifier"] = {
+        "kernel": (t * d ** -0.5).to(device=kernel.device, dtype=kernel.dtype),
+        "bias": torch.zeros(num_classes, dtype=kernel.dtype,
+                            device=kernel.device)}
+    return new
+
+
+def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+             deterministic: bool) -> torch.Tensor:
+    """Inverted dropout, plain ops (every preset has rate 0). The mask is
+    drawn from `gen` on its own device."""
+    if deterministic or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=gen.device) < keep
+    mask = mask.to(x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -147,6 +176,13 @@ def _merged_qkv(p: Params, dt: torch.dtype):
     return wqkv, bqkv
 
 
+def _attention_gate():
+    """The fused attention half's gate; under autograd also its backward
+    kernel's (the MLP half's backward has its forward's constraints)."""
+    return (ck.qkv_attention_bwd_supported if torch.is_grad_enabled()
+            else ck.qkv_attention_supported)
+
+
 def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
                            seq_len: Optional[int] = None
                            ) -> Optional[torch.Tensor]:
@@ -160,7 +196,7 @@ def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
     h, hd = cfg.num_heads, cfg.head_dim
     p = lp["attn"]
     wqkv, bqkv = _merged_qkv(p, dt)
-    if not ck.qkv_attention_supported(x, wqkv, h):
+    if not _attention_gate()(x, wqkv, h):
         return None
     wo = p["out"]["kernel"].to(dt).reshape(h * hd, d)
     spq = (s + 7) // 8 * 8
@@ -188,8 +224,9 @@ def _fused_block_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
+           gen: Optional[torch.Generator] = None, deterministic: bool = True,
            seq_len: Optional[int] = None) -> torch.Tensor:
-    """Pre-LN encoder block, deterministic."""
+    """Pre-LN encoder block (vitax's _block)."""
     h = _fused_block_attention(x, lp, cfg, seq_len) if cfg.fused_qkv else None
     if h is None and seq_len is not None:
         # the plain attention has no sequence mask: pad K/V would leak
@@ -199,8 +236,8 @@ def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
         h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], LN_EPS,
                        use_kernels=cfg.use_pallas)
         h = _attention(h, lp["attn"], cfg)
-    x = x + h
-    if cfg.fused_mlp:
+    x = x + _dropout(h, cfg.dropout_rate, gen, deterministic)
+    if cfg.fused_mlp and (deterministic or cfg.dropout_rate <= 0.0):
         y = _fused_block_mlp(x, lp, cfg)
         if y is not None:
             return y
@@ -209,9 +246,13 @@ def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
                            "kernel; gate mismatch in apply()")
     h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], LN_EPS,
                    use_kernels=cfg.use_pallas)
+    # MlpBlock with its two dropouts, fp32 sums and GELU (ops/mlp.py:mlp_ref)
+    dt = x.dtype
     mlp = lp["mlp"]
-    return x + mlp_ref(h, mlp["fc1"]["kernel"], mlp["fc1"]["bias"],
-                       mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
+    h1 = matmul_f32(h, mlp["fc1"]["kernel"].to(dt)) + mlp["fc1"]["bias"].float()
+    h1 = _dropout(gelu_exact(h1).to(dt), cfg.dropout_rate, gen, deterministic)
+    h2 = matmul_f32(h1, mlp["fc2"]["kernel"].to(dt)) + mlp["fc2"]["bias"].float()
+    return x + _dropout(h2.to(dt), cfg.dropout_rate, gen, deterministic)
 
 
 def embed(params: Params, images: torch.Tensor, cfg: ViTConfig
@@ -230,18 +271,48 @@ def embed(params: Params, images: torch.Tensor, cfg: ViTConfig
     return (tokens.float() + params["pos_embedding"].float()).to(cfg.dtype)
 
 
-def _padded_stream_len(x: torch.Tensor, params: Params, cfg: ViTConfig
-                       ) -> Optional[int]:
+def drop_tokens(x: torch.Tensor, gen: Optional[torch.Generator],
+                keep_ratio: float, n_pinned: int = 1,
+                idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """PatchDropout/FLIP token dropping (train only; vitax's drop_tokens).
+
+    Keeps the first `n_pinned` tokens (cls) plus a uniform-random
+    round(keep_ratio·n) subset of the other n tokens per image, in their
+    original order: [B, n_pinned + k, D]. The subset is drawn from `gen`, or
+    given as `idx` [B, n_pinned + k] (the gathered positions, pins included),
+    so a test can hand both packages the same kept tokens."""
+    b, s, d = x.shape
+    n_pinned = max(1, min(n_pinned, s))
+    n = s - n_pinned
+    if n <= 0:
+        return x
+    k = max(1, min(n, int(round(keep_ratio * n))))
+    if k >= n:
+        return x
+    if idx is None:
+        noise = torch.rand((b, n), generator=gen, device=gen.device)
+        keep = torch.sort(torch.argsort(noise, dim=1)[:, :k], dim=1).values
+        pins = torch.arange(n_pinned, device=keep.device).expand(b, n_pinned)
+        idx = torch.cat([pins, keep + n_pinned], dim=1)
+    idx = idx.to(device=x.device, dtype=torch.long)
+    return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, d))
+
+
+def _padded_stream_len(x: torch.Tensor, params: Params, cfg: ViTConfig,
+                       deterministic: bool = True) -> Optional[int]:
     """spq if the whole encoder can run on one [B, spq, D] stream padded once,
     else None. Requires both fused kernels (the plain attention has no
-    sequence mask), so the gates mirror _fused_block_attention/_mlp."""
+    sequence mask) and no active dropout, so the gates mirror
+    _fused_block_attention/_mlp (under autograd, with the backward gate)."""
     b, s, d = x.shape
     spq = (s + 7) // 8 * 8
     if spq == s or not (cfg.fused_qkv and cfg.fused_mlp):
         return None
+    if not (deterministic or cfg.dropout_rate <= 0.0):
+        return None
     h, hd = cfg.num_heads, cfg.head_dim
     wqkv = torch.empty((d, 3 * h * hd), device="meta")
-    if not ck.qkv_attention_supported(x, wqkv, h):
+    if not _attention_gate()(x, wqkv, h):
         return None
     mlp = params["layers"][0]["mlp"]
     if not ck.ln_mlp_supported(x, mlp["fc1"]["kernel"], mlp["fc2"]["kernel"]):
@@ -249,21 +320,38 @@ def _padded_stream_len(x: torch.Tensor, params: Params, cfg: ViTConfig
     return spq
 
 
-def apply(params: Params, images: torch.Tensor, cfg: ViTConfig
+def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
+          train: bool = False, gen: Optional[torch.Generator] = None
           ) -> torch.Tensor:
-    """Eval forward: NHWC images [B,H,W,3] → fp32 logits [B, num_classes]."""
+    """Forward: NHWC images [B,H,W,3] → fp32 logits [B, num_classes].
+    `train` turns on token dropping (cfg.token_keep < 1) and dropout, whose
+    random numbers come from `gen`."""
     if cfg.int8_mlp or cfg.int8_attn or cfg.int4_mlp or cfg.int4_attn:
         raise NotImplementedError(
             "the int8/int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, "
             "K3/K4/K11)")
+    if cfg.remat:
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: block rematerialization is not ported yet "
+            "(ROADMAP Queue 1 item 3); with both fused kernels vitax picks "
+            "no remat, as the port does")
+    deterministic = not train or cfg.dropout_rate <= 0.0
     x = embed(params, images, cfg)
+    if train and cfg.token_keep < 1.0:
+        if gen is None:
+            raise ValueError("token_keep < 1.0 requires a generator in "
+                             "training")
+        x = drop_tokens(x, gen, cfg.token_keep)
+    x = _dropout(x, cfg.dropout_rate, gen, deterministic)
+    if deterministic:
+        gen = None
     seq_len = None
-    spq = _padded_stream_len(x, params, cfg)
+    spq = _padded_stream_len(x, params, cfg, deterministic)
     if spq is not None:
         seq_len = x.shape[1]
         x = F.pad(x, (0, 0, 0, spq - seq_len))
     for lp in params["layers"]:
-        x = _block(x, lp, cfg, seq_len)
+        x = _block(x, lp, cfg, gen, deterministic, seq_len)
     # pad rows (if any) carry confined garbage; the head reads only cls
     x = layer_norm(x, params["encoder_norm"]["scale"],
                    params["encoder_norm"]["bias"], LN_EPS,

@@ -1,16 +1,24 @@
-"""Hand-written Hopper kernels of the serving path, each beside its plain
-PyTorch version (counterpart of vitax/ops/pallas_kernels.py).
+"""Hand-written Hopper kernels of the serving and training paths, each beside
+its plain PyTorch version (counterpart of vitax/ops/pallas_kernels.py).
 
-| wrapper                   | CUDA source (csrc/)     | replaces (pallas_kernels.py) |
-|---------------------------|-------------------------|------------------------------|
-| `layer_norm`              | layernorm.cu            | `_ln_fwd_kernel` :267        |
-| `fused_ln_qkvo_attention` | ln_qkvo_attention.cu    | `_ln_qkvo_fwd_kernel` :2640  |
-| `fused_ln_mlp`            | ln_mlp.cu               | `_ln_mlp_fwd_kernel` :587    |
+| wrapper                       | CUDA source (csrc/)        | replaces (pallas_kernels.py) |
+|-------------------------------|----------------------------|------------------------------|
+| `layer_norm`                  | layernorm.cu               | `_ln_fwd_kernel` :267        |
+| `fused_ln_qkvo_attention`     | ln_qkvo_attention.cu       | `_ln_qkvo_fwd_kernel` :2640  |
+| `fused_ln_mlp`                | ln_mlp.cu                  | `_ln_mlp_fwd_kernel` :587    |
+| `layer_norm_bwd`              | layernorm_bwd.cu           | `_ln_bwd_kernel` :278        |
+| `fused_ln_qkvo_attention_bwd` | ln_qkvo_attention_bwd.cu   | `_ln_qkvo_bwd_kernel` :2898  |
+| `fused_ln_mlp_bwd`            | ln_mlp_bwd.cu              | `_ln_mlp_bwd_kernel` :1308   |
 
-A wrapper given CPU tensors returns its `*_ref` (the CPU tests run those). A
-wrapper given CUDA tensors launches its kernel or raises: there is no
-fallback. Forward only: with grad mode on and an input that requires grad,
-a CUDA call raises (the autograd Functions come with the backward kernels).
+A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
+those). A wrapper given CUDA tensors launches its kernel or raises: there is
+no fallback. With grad mode on and an input that requires grad, the three
+forward wrappers go through a `torch.autograd.Function` (`LayerNormFn`,
+`FusedLnQkvoAttentionFn`, `FusedLnMlpFn`) whose backward is the matching
+`*_bwd` wrapper. As vitax's custom VJPs, each Function saves only its inputs
+and recomputes the rest in the backward; its grads come back in the dtypes
+of the Pallas VJPs (weight grads in the weight's dtype, LN and bias grads in
+fp32).
 
 Each wrapper counts its launches in a plain int attribute, `wrapper.launches`,
 incremented once per launch of its kernel and nowhere else, so a run can
@@ -30,10 +38,13 @@ import torch
 from vitax_torch.kernels import build
 from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm_ref
-from vitax_torch.ops.mlp import gelu_exact
+from vitax_torch.ops.mlp import gelu_exact, gelu_exact_grad
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt into (227 KB)
 ATTN_HEAD_DIMS = (32, 64, 128)
+
+_BF = torch.bfloat16
+_F32 = torch.float32
 
 
 # =============================================================================
@@ -55,12 +66,6 @@ def _check_cuda(name: str, tensors: dict, dtypes: dict) -> torch.device:
                             f"{dtypes[key]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in tensors.values()):
-        raise RuntimeError(
-            f"{name}: the Hopper kernel is forward-only; its backward comes "
-            "with the training port (ROADMAP Queue 2). Run under "
-            "torch.no_grad() / torch.inference_mode().")
     return dev
 
 
@@ -74,6 +79,14 @@ def _check_shape(name: str, key: str, t: torch.Tensor, shape: tuple) -> None:
                          f"expected {tuple(shape)}")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _workspace(floats: int, dev: torch.device) -> torch.Tensor:
+    return torch.empty(max(int(floats), 1), dtype=_F32, device=dev)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
@@ -81,6 +94,25 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def _ln_stats(x32: torch.Tensor, eps: float):
+    """(x̂, rstd) of fp32 rows, as the TPU kernels recompute them."""
+    mu = x32.mean(dim=-1, keepdim=True)
+    xc = x32 - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return xc * rstd, rstd
+
+
+def _ln_bwd_tail(dy32: torch.Tensor, xhat: torch.Tensor, rstd: torch.Tensor,
+                 gamma: torch.Tensor):
+    """LN backward on fp32 rows [N, D]: (dx, dγ = Σ dy·x̂, dβ = Σ dy)."""
+    dyg = dy32 * gamma.float()
+    m1 = dyg.mean(dim=-1, keepdim=True)
+    m2 = (dyg * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * (dyg - m1 - xhat * m2)
+    return dx, (dy32 * xhat).sum(dim=0), dy32.sum(dim=0)
 
 
 # =============================================================================
@@ -98,12 +130,13 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
     """LN over the last dim, fp32 statistics; any leading shape; x.dtype out.
     scale/bias fp32 [D]."""
+    if _needs_grad(x, scale, bias):
+        return LayerNormFn.apply(x, scale, bias, eps)
     if not x.is_cuda:
         return layer_norm_ref(x, scale, bias, eps)
     d = x.shape[-1]
     dev = _check_cuda("layer_norm", {"x": x, "scale": scale, "bias": bias},
-                      {"x": x.dtype, "scale": torch.float32,
-                       "bias": torch.float32})
+                      {"x": x.dtype, "scale": _F32, "bias": _F32})
     if not layernorm_supported(x):
         raise ValueError(f"layer_norm: unsupported shape/dtype "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -122,8 +155,66 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 layer_norm.launches = 0
 
 
+def layer_norm_bwd_ref(x, gamma, dy, eps):
+    """(dx, dγ, dβ) of the row LN, statistics recomputed in fp32
+    (pallas_kernels.py:281-304); dx in x.dtype, dγ/dβ fp32 [D]."""
+    d = x.shape[-1]
+    xhat, rstd = _ln_stats(x.reshape(-1, d).float(), eps)
+    dx, dg, db = _ln_bwd_tail(dy.reshape(-1, d).float(), xhat, rstd, gamma)
+    return dx.to(x.dtype).reshape(x.shape), dg, db
+
+
+def layer_norm_bwd(x, gamma, dy, eps):
+    """Backward of `layer_norm`: dx (x's shape and dtype), dγ and dβ (fp32
+    [D]). x, dy: [..., D] of one dtype; gamma fp32 [D]."""
+    if not x.is_cuda:
+        return layer_norm_bwd_ref(x, gamma, dy, eps)
+    d = x.shape[-1]
+    dev = _check_cuda("layer_norm_bwd", {"x": x, "gamma": gamma, "dy": dy},
+                      {"x": x.dtype, "gamma": _F32, "dy": x.dtype})
+    if not layernorm_supported(x):
+        raise ValueError(f"layer_norm_bwd: unsupported shape/dtype "
+                         f"{tuple(x.shape)} {x.dtype}")
+    _check_shape("layer_norm_bwd", "gamma", gamma, (d,))
+    _check_shape("layer_norm_bwd", "dy", dy, tuple(x.shape))
+    n = x.numel() // d
+    lib = build.load()
+    dx = torch.empty_like(x)
+    dg = torch.empty(d, dtype=_F32, device=dev)
+    db = torch.empty(d, dtype=_F32, device=dev)
+    ws = _workspace(lib.vitax_layer_norm_bwd_ws(n, d), dev)
+    rc = lib.vitax_layer_norm_bwd(
+        x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dg.data_ptr(), db.data_ptr(), ws.data_ptr(), n, d, eps,
+        int(x.dtype == torch.bfloat16), _stream(dev))
+    build.check(rc, "layer_norm_bwd")
+    layer_norm_bwd.launches += 1
+    return dx, dg, db
+
+
+layer_norm_bwd.launches = 0
+
+
+class LayerNormFn(torch.autograd.Function):
+    """`layer_norm` with the LN backward kernel (the custom VJP of vitax's
+    layer_norm, pallas_kernels.py:365-383): saves (x, γ)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        ctx.bias_dtype = bias.dtype
+        return layer_norm(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dg, db = layer_norm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dg.to(scale.dtype), db.to(ctx.bias_dtype), None
+
+
 # =============================================================================
-# K2 — fused LN2 + fc1 + GELU + fc2 + residual (forward)
+# K2 — fused LN2 + fc1 + GELU + fc2 + residual
 # =============================================================================
 
 def ln_mlp_supported(x, w1, w2) -> bool:
@@ -152,28 +243,28 @@ def fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps):
 def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps):
     """out = x + fc2(GELU_exact(fc1(LN(x)))) for x [..., D]; x.dtype out.
     Weights bf16 [D,M], [M,D]; gamma/beta/b1/b2 fp32."""
+    if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
+        return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps)
     if not x.is_cuda:
         return fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps)
-    bf = torch.bfloat16
-    f32 = torch.float32
     dev = _check_cuda(
         "fused_ln_mlp",
         {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
          "b2": b2},
-        {"x": bf, "gamma": f32, "beta": f32, "w1": bf, "b1": f32, "w2": bf,
-         "b2": f32})
+        {"x": _BF, "gamma": _F32, "beta": _F32, "w1": _BF, "b1": _F32,
+         "w2": _BF, "b2": _F32})
     d = x.shape[-1]
     m = w1.shape[1]
     x2 = x.view(-1, d)
     if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
         raise ValueError(f"fused_ln_mlp: unsupported shapes x {tuple(x.shape)}"
                          f" w1 {tuple(w1.shape)} w2 {tuple(w2.shape)}")
-    for key, t, n in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m),
+    for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m),
                       ("b2", b2, d)):
-        _check_shape("fused_ln_mlp", key, t, (n,))
+        _check_shape("fused_ln_mlp", key, t, (k,))
     n = x2.shape[0]
     xn = torch.empty_like(x2)
-    h1 = torch.empty((n, m), dtype=bf, device=dev)
+    h1 = torch.empty((n, m), dtype=_BF, device=dev)
     out = torch.empty_like(x2)
     rc = build.load().vitax_ln_mlp_fwd(
         x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
@@ -187,16 +278,118 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps):
 fused_ln_mlp.launches = 0
 
 
+def fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
+    """(dx, dγ, dβ, dW1, db1, dW2, db2) of K2 with the TPU kernel's rounding
+    points (pallas_kernels.py:1322-1372): dh1 = bf16(dh1f·gelu'(a1)), db1
+    over the rounded dh1, dx = do + bf16(dx_ln) in x.dtype. Grads of the
+    weights and vectors in fp32."""
+    dt = x.dtype
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    do2 = do.reshape(-1, d)
+    xhat, rstd = _ln_stats(x2.float(), eps)
+    xn = (xhat * gamma.float() + beta.float()).to(dt)
+    a1 = matmul_f32(xn, w1) + b1.float()
+    h1 = gelu_exact(a1).to(dt)
+    dh1 = (matmul_f32(do2, w2.t()) * gelu_exact_grad(a1)).to(dt)
+    dw2 = matmul_f32(h1.t(), do2)
+    db2 = do2.float().sum(dim=0)
+    dw1 = matmul_f32(xn.t(), dh1)
+    db1 = dh1.float().sum(dim=0)
+    dxn = matmul_f32(dh1, w1.t())
+    dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
+    dx = do2 + dxln.to(dt) if residual else dxln.to(dt)
+    return dx.reshape(x.shape), dg, dbe, dw1, db1, dw2, db2
+
+
+def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
+    """Backward of `fused_ln_mlp` (residual=False: of the block without the
+    residual add): dx (x's shape, bf16) and fp32 dγ, dβ [D], dW1 [D,M],
+    db1 [M], dW2 [M,D], db2 [D]."""
+    if not x.is_cuda:
+        return fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                    residual)
+    dev = _check_cuda(
+        "fused_ln_mlp_bwd",
+        {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
+         "do": do},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "w1": _BF, "b1": _F32,
+         "w2": _BF, "do": _BF})
+    d = x.shape[-1]
+    m = w1.shape[1]
+    x2 = x.view(-1, d)
+    if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
+        raise ValueError(f"fused_ln_mlp_bwd: unsupported shapes x "
+                         f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 "
+                         f"{tuple(w2.shape)}")
+    for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m)):
+        _check_shape("fused_ln_mlp_bwd", key, t, (k,))
+    _check_shape("fused_ln_mlp_bwd", "do", do, tuple(x.shape))
+    n = x2.shape[0]
+    lib = build.load()
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=_F32, device=dev)
+
+    def bf(*shape):
+        return torch.empty(shape, dtype=_BF, device=dev)
+
+    dx, dg, dbe, dw1, db1, dw2, db2 = (bf(n, d), f32(d), f32(d), f32(d, m),
+                                       f32(m), f32(m, d), f32(d))
+    xn, a1, h1, dh1, dxn = bf(n, d), f32(n, m), bf(n, m), bf(n, m), f32(n, d)
+    ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
+    rc = lib.vitax_ln_mlp_bwd(*(t.data_ptr() for t in (
+        x2, gamma, beta, w1, b1, w2, do, dx, dg, dbe, dw1, db1, dw2, db2, xn,
+        a1, h1, dh1, dxn, ws)), n, d, m, eps, int(residual), _stream(dev))
+    build.check(rc, "fused_ln_mlp_bwd")
+    fused_ln_mlp_bwd.launches += 1
+    return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
+
+
+fused_ln_mlp_bwd.launches = 0
+
+
+class FusedLnMlpFn(torch.autograd.Function):
+    """`fused_ln_mlp` with the K2 backward kernel (vitax's _ln_mlp_2d custom
+    VJP, pallas_kernels.py:1652-1673): saves (x, γ, β, W1, b1, W2)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2)
+        ctx.eps = eps
+        ctx.b2_dtype = b2.dtype
+        return fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, gamma, beta, w1, b1, w2 = ctx.saved_tensors
+        dx, dg, dbe, dw1, db1, dw2, db2 = fused_ln_mlp_bwd(
+            x, gamma, beta, w1, b1, w2, do.contiguous(), ctx.eps)
+        return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw1.to(w1.dtype),
+                db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
+                None)
+
+
 # =============================================================================
-# K1 — fused LN1 + QKV + attention core + out-projection (forward)
+# K1 — fused LN1 + QKV + attention core + out-projection
 # =============================================================================
 
 def attention_smem_bytes(spq: int, head_dim: int, warps: int = 1) -> int:
-    """Shared memory of one attention-core block (ln_qkvo_attention.cu)."""
+    """Shared memory of one forward attention-core block (attention.cuh)."""
     rows = (spq + 15) // 16 * 16
     sw = max(rows, head_dim)
     return (2 * rows * head_dim * 2
             + warps * (16 * head_dim * 2 + 16 * sw * 4 + 16 * rows * 2))
+
+
+def attention_bwd_smem_bytes(spq: int, head_dim: int, warps: int = 1) -> int:
+    """Shared memory of one query-tile block of the attention-core backward
+    (ln_qkvo_attention_bwd.cu: attn_bwd_smem_bytes)."""
+    rows = (spq + 15) // 16 * 16
+    sw = max(rows, head_dim)
+    per_warp = (2 * 16 * head_dim * 2 + 16 * sw * 4 + 16 * rows * 2
+                + 16 * 16 * 4 + 16 * 4)
+    return 2 * rows * head_dim * 2 + warps * per_warp
 
 
 def qkv_attention_supported(x, wqkv, heads) -> bool:
@@ -216,30 +409,53 @@ def qkv_attention_supported(x, wqkv, heads) -> bool:
             and attention_smem_bytes(spq, hd) <= SMEM_LIMIT)
 
 
+def qkv_attention_bwd_supported(x, wqkv, heads) -> bool:
+    """Gate of the fused attention half in training: the forward's gate and
+    the attention-core backward's own shared memory."""
+    if not qkv_attention_supported(x, wqkv, heads):
+        return False
+    spq = (x.shape[1] + 7) // 8 * 8
+    hd = wqkv.shape[1] // 3 // heads
+    return attention_bwd_smem_bytes(spq, hd) <= SMEM_LIMIT
+
+
+def _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim):
+    """qkv → per-head q, k, v [B,H,spq,Hd], fp32 softmax p (cols ≥ seq_len
+    exactly 0) and the bf16 head outputs o, as _attn_core_recompute
+    (pallas_kernels.py:2814-2843)."""
+    dt = xn.dtype
+    b, spq, _ = xn.shape
+    hhd = heads * head_dim
+    qkv = (matmul_f32(xn, wqkv) + bqkv.float()).to(dt)
+    q, k, v = (qkv[..., i * hhd:(i + 1) * hhd]
+               .reshape(b, spq, heads, head_dim).transpose(1, 2)
+               for i in range(3))
+    s = matmul_f32(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(head_dim))
+    if seq_len < spq:
+        col = torch.arange(spq, device=xn.device)
+        s = torch.where(col < seq_len, s, torch.full_like(s, -1e30))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    o = matmul_f32(p.to(dt), v).to(dt)
+    return q, k, v, p, o
+
+
+def _heads_to_rows(t):
+    """[B, H, spq, Hd] → [B·spq, H·Hd], heads side by side."""
+    b, h, spq, hd = t.shape
+    return t.transpose(1, 2).reshape(b * spq, h * hd)
+
+
 def fused_ln_qkvo_attention_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
                                 seq_len, heads, head_dim):
     """LN1 → qkv → per-head softmax(qkᵀ/√hd, cols ≥ seq_len masked)·v →
     out-projection, with the TPU kernel's rounding points
     (pallas_kernels.py:2646-2686). x [B, spq, D] → [B, spq, D], no residual."""
-    dt = x.dtype
     b, spq, d = x.shape
-    hhd = heads * head_dim
-    scale = 1.0 / math.sqrt(head_dim)
     xn = layer_norm_ref(x, gamma, beta, eps)
-    qkv = (matmul_f32(xn, wqkv) + bqkv.float()).to(dt)
-    q, k, v = (qkv[..., i * hhd:(i + 1) * hhd]
-               .reshape(b, spq, heads, head_dim).transpose(1, 2)
-               for i in range(3))
-    s = matmul_f32(q, k.transpose(-1, -2)) * scale
-    if seq_len < spq:
-        col = torch.arange(spq, device=x.device)
-        s = torch.where(col < seq_len, s, torch.full_like(s, -1e30))
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
-    o = matmul_f32(p.to(dt), v).to(dt)
-    attn = o.transpose(1, 2).reshape(b, spq, hhd)
-    return (matmul_f32(attn, wo) + bo.float()).to(dt)
+    *_, o = _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim)
+    attn = _heads_to_rows(o)
+    return (matmul_f32(attn, wo) + bo.float()).to(x.dtype).view(b, spq, d)
 
 
 def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
@@ -248,34 +464,27 @@ def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
     x [B, spq, D] bf16 (pad rows past seq_len allowed), wqkv [D, 3·H·Hd]
     columns [q heads | k heads | v heads], wo [H·Hd, D] bf16; gamma, beta,
     bqkv, bo fp32. Returns [B, spq, D] without the residual."""
+    if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
+        return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                            eps, seq_len, heads, head_dim)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
                                            eps, seq_len, heads, head_dim)
-    bf = torch.bfloat16
-    f32 = torch.float32
     dev = _check_cuda(
         "fused_ln_qkvo_attention",
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
          "wo": wo, "bo": bo},
-        {"x": bf, "gamma": f32, "beta": f32, "wqkv": bf, "bqkv": f32,
-         "wo": bf, "bo": f32})
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "bo": _F32})
     b, spq, d = x.shape
     hhd = heads * head_dim
-    if (spq % 8 or not 0 < seq_len <= spq
-            or not qkv_attention_supported(x, wqkv, heads)
-            or hhd != wqkv.shape[1] // 3):
-        raise ValueError(
-            f"fused_ln_qkvo_attention: unsupported shapes x {tuple(x.shape)} "
-            f"wqkv {tuple(wqkv.shape)} seq_len {seq_len} heads {heads} "
-            f"head_dim {head_dim}")
-    for key, t, shape in (("gamma", gamma, (d,)), ("beta", beta, (d,)),
-                          ("bqkv", bqkv, (3 * hhd,)), ("wo", wo, (hhd, d)),
-                          ("bo", bo, (d,))):
-        _check_shape("fused_ln_qkvo_attention", key, t, shape)
+    _check_qkvo("fused_ln_qkvo_attention", x, gamma, beta, wqkv, bqkv, wo,
+                seq_len, heads, head_dim, qkv_attention_supported)
+    _check_shape("fused_ln_qkvo_attention", "bo", bo, (d,))
     n = b * spq
-    xn = torch.empty((n, d), dtype=bf, device=dev)
-    qkv = torch.empty((n, 3 * hhd), dtype=bf, device=dev)
-    attn = torch.empty((n, hhd), dtype=bf, device=dev)
+    xn = torch.empty((n, d), dtype=_BF, device=dev)
+    qkv = torch.empty((n, 3 * hhd), dtype=_BF, device=dev)
+    attn = torch.empty((n, hhd), dtype=_BF, device=dev)
     out = torch.empty_like(x)
     rc = build.load().vitax_ln_qkvo_attention_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
@@ -289,4 +498,125 @@ def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
 
 fused_ln_qkvo_attention.launches = 0
 
-KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp)
+
+def _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, gate):
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    if (spq % 8 or not 0 < seq_len <= spq or not gate(x, wqkv, heads)
+            or hhd != wqkv.shape[1] // 3):
+        raise ValueError(
+            f"{name}: unsupported shapes x {tuple(x.shape)} wqkv "
+            f"{tuple(wqkv.shape)} seq_len {seq_len} heads {heads} head_dim "
+            f"{head_dim}")
+    for key, t, shape in (("gamma", gamma, (d,)), ("beta", beta, (d,)),
+                          ("bqkv", bqkv, (3 * hhd,)), ("wo", wo, (hhd, d))):
+        _check_shape(name, key, t, shape)
+
+
+def fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                                    seq_len, heads, head_dim):
+    """(dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) of K1 with the TPU kernel's
+    rounding points (pallas_kernels.py:2911-2956, _attn_core_grads
+    :2846-2895): dattn, ds, dq, dk, dv in x.dtype; dx in x.dtype; the rest
+    fp32."""
+    dt = x.dtype
+    b, spq, d = x.shape
+    scale = 1.0 / math.sqrt(head_dim)
+    x2 = x.reshape(-1, d)
+    do2 = do.reshape(-1, d)
+    xhat, rstd = _ln_stats(x2.float(), eps)
+    xn = (xhat * gamma.float() + beta.float()).to(dt)
+    q, k, v, p, o = _qkvo_core(xn.view(b, spq, d), wqkv, bqkv, seq_len, heads,
+                               head_dim)
+    dattn = matmul_f32(do2, wo.t()).to(dt)
+    dwo = matmul_f32(_heads_to_rows(o).t(), do2)
+    dbo = do2.float().sum(dim=0)
+    d_o = dattn.view(b, spq, heads, head_dim).transpose(1, 2)
+    dp = matmul_f32(d_o, v.transpose(-1, -2))
+    dd = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - dd)).to(dt)
+    dq = (matmul_f32(ds, k) * scale).to(dt)
+    dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(dt)
+    dv = matmul_f32(p.to(dt).transpose(-1, -2), d_o).to(dt)
+    dqkv = torch.cat([_heads_to_rows(t) for t in (dq, dk, dv)], dim=1)
+    dxn = matmul_f32(dqkv, wqkv.t())
+    dw = matmul_f32(xn.t(), dqkv)
+    db = dqkv.float().sum(dim=0)
+    dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
+    return dxln.to(dt).view(b, spq, d), dg, dbe, dw, db, dwo, dbo
+
+
+def fused_ln_qkvo_attention_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                                seq_len, heads, head_dim):
+    """Backward of `fused_ln_qkvo_attention`: dx [B, spq, D] bf16 and fp32
+    dγ, dβ [D], dWqkv [D, 3·H·Hd], dbqkv [3·H·Hd], dWo [H·Hd, D], dbo [D]."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                               do, eps, seq_len, heads,
+                                               head_dim)
+    dev = _check_cuda(
+        "fused_ln_qkvo_attention_bwd",
+        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
+         "wo": wo, "do": do},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "do": _BF})
+    _check_qkvo("fused_ln_qkvo_attention_bwd", x, gamma, beta, wqkv, bqkv, wo,
+                seq_len, heads, head_dim, qkv_attention_bwd_supported)
+    _check_shape("fused_ln_qkvo_attention_bwd", "do", do, tuple(x.shape))
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    n = b * spq
+    rows = (spq + 15) // 16 * 16
+    lib = build.load()
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=_F32, device=dev)
+
+    def bf(*shape):
+        return torch.empty(shape, dtype=_BF, device=dev)
+
+    dx, dg, dbe = torch.empty_like(x), f32(d), f32(d)
+    dw, db, dwo, dbo = f32(d, 3 * hhd), f32(3 * hhd), f32(hhd, d), f32(d)
+    xn, qkv, attn, dattn = bf(n, d), bf(n, 3 * hhd), bf(n, hhd), bf(n, hhd)
+    p, ds = bf(b, heads, rows, rows), bf(b, heads, rows, rows)
+    dqkv, dxn = bf(n, 3 * hhd), f32(n, d)
+    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd), dev)
+    rc = lib.vitax_ln_qkvo_attention_bwd(*(t.data_ptr() for t in (
+        x, gamma, beta, wqkv, bqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, xn,
+        qkv, attn, dattn, p, ds, dqkv, dxn, ws)), b, spq, d, seq_len, heads,
+        head_dim, eps, 1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, "fused_ln_qkvo_attention_bwd")
+    fused_ln_qkvo_attention_bwd.launches += 1
+    return dx, dg, dbe, dw, db, dwo, dbo
+
+
+fused_ln_qkvo_attention_bwd.launches = 0
+
+
+class FusedLnQkvoAttentionFn(torch.autograd.Function):
+    """`fused_ln_qkvo_attention` with the K1 backward kernel (vitax's
+    fused_ln_qkvo_attention custom VJP, pallas_kernels.py:3209-3300): saves
+    (x, γ, β, Wqkv, bqkv, Wo)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
+                head_dim):
+        ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wo)
+        ctx.meta = (eps, seq_len, heads, head_dim)
+        ctx.bo_dtype = bo.dtype
+        return fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                       seq_len, heads, head_dim)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
+        dx, dg, dbe, dw, db, dwo, dbo = fused_ln_qkvo_attention_bwd(
+            x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
+        return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw.to(wqkv.dtype),
+                db.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(ctx.bo_dtype),
+                None, None, None, None)
+
+
+KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
+           fused_ln_qkvo_attention_bwd, fused_ln_mlp_bwd)

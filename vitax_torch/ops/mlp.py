@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from vitax_torch.ops.common import matmul_f32
@@ -11,6 +13,15 @@ from vitax_torch.ops.common import matmul_f32
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
     return (0.5 * x32 * (1.0 + torch.erf(x32 * 2.0 ** -0.5))).to(x.dtype)
+
+
+def gelu_exact_grad(a: torch.Tensor) -> torch.Tensor:
+    """d/da GELU_exact in fp32: Phi(a) + a·phi(a) (vitax's _gelu_grad,
+    pallas_kernels.py:577-584)."""
+    a = a.float()
+    phi = 0.5 * (1.0 + torch.erf(a * 2.0 ** -0.5))
+    pdf = torch.exp(-0.5 * a * a) * (2.0 * math.pi) ** -0.5
+    return phi + a * pdf
 
 
 def mlp_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
