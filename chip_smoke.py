@@ -34,7 +34,29 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              a stated relative band; the key biases, whose exact grad is 0,
              within that band of their layer's query-bias grad); then a
              device-timed train step (forward, backward, SGD on a resident
-             batch) with kernels and plain.
+             batch) with kernels and plain;
+6. int8    — the W8A8 tiers: `train_cli --int8-grad` (b16@224, b32, 8 steps
+             and one eval epoch; exact counts: per step 12 launches of each
+             int8 forward and backward kernel and none of K1/K2's, the eval
+             epoch's int8 forwards), `train_cli --int8` (int8 forwards with
+             K1/K2's bf16 backwards) and `eval_cli --int8` at b64, counters
+             set to 0 just before each run and read just after; logits and
+             the grads of every parameter for one batch on the int8 kernel
+             path, the int8 twin path (the same autograd Functions with the
+             four int8 wrappers swapped for their plain twins) and the bf16
+             kernel path; then a device-timed train step on all three.
+
+Phase 3 also holds the four int8 kernels (K3, K4, forward and backward)
+against their twins: forward at b64 spq 200, b8 spq 200, b8 spq 584 and the
+ragged rows; backward at b32 spq 200, b8 spq 200, spq 104, b8 spq 584 and
+the ragged rows. Besides the bf16 tolerance, each int8 kernel's codes, read
+back from its scratch, are held to the twin's (the weights' the same bits,
+each activation code tensor within its CODE_BAND of moved codes), and each
+output's relative distance to the twin to INT8_REL; a bf16 stand-in (the
+twin with every quantizer replaced by a rounding to bf16, as a kernel that
+skipped quantization would compute) must land outside INT8_REL on every
+output that quantization reaches, so the band is shown to tell the two
+apart in every run.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -68,9 +90,21 @@ KERNEL_INFO = {
                                     "vitax/ops/pallas_kernels.py:2898"),
     "fused_ln_mlp_bwd": ("vitax_torch/csrc/ln_mlp_bwd.cu",
                          "vitax/ops/pallas_kernels.py:1308"),
+    "fused_ln_qkvo_attention_int8": ("vitax_torch/csrc/ln_qkvo_attention_int8.cu",
+                                     "vitax/ops/pallas_kernels.py:2690"),
+    "fused_ln_mlp_int8": ("vitax_torch/csrc/ln_mlp_int8.cu",
+                          "vitax/ops/pallas_kernels.py:683"),
+    "fused_ln_qkvo_attention_int8_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:2977"),
+    "fused_ln_mlp_int8_bwd": ("vitax_torch/csrc/ln_mlp_int8_bwd.cu",
+                              "vitax/ops/pallas_kernels.py:1122"),
 }
 BWD_KERNELS = ("layer_norm_bwd", "fused_ln_qkvo_attention_bwd",
-               "fused_ln_mlp_bwd")
+               "fused_ln_mlp_bwd", "fused_ln_qkvo_attention_int8_bwd",
+               "fused_ln_mlp_int8_bwd")
+INT8_KERNELS = ("fused_ln_qkvo_attention_int8", "fused_ln_mlp_int8",
+                "fused_ln_qkvo_attention_int8_bwd", "fused_ln_mlp_int8_bwd")
 
 D, HEADS, HEAD_DIM, MLP = 768, 12, 64, 3072      # ViT-B/16
 EPS = 1e-5
@@ -96,7 +130,12 @@ CASES = [("b64 spq200 (eval_cli)", 64, 200, 197),
 BWD_CASES = [("b32 spq200 (train_cli)", 32, 200, 197),
              ("b8 spq200", 8, 200, 197),
              ("b16 spq104 (keep 0.5)", 16, 104, 99),
+             ("b8 spq584", 8, 584, 577),
              ("ragged", 3, 200, 197)]
+# the halves that take a ragged row count (LN and the MLP's); the attention
+# halves take the padded stream only
+RAGGED_OK = ("layer_norm", "fused_ln_mlp", "fused_ln_mlp_int8",
+             "layer_norm_bwd", "fused_ln_mlp_bwd", "fused_ln_mlp_int8_bwd")
 TRAIN_ARGS = ["--model-arch", "b16", "--image-size", "224",
               "--dataset", "Synthetic", "--synthetic-samples", "256",
               "--batch-size", "32", "--lr", "0.03", "--wd", "0",
@@ -107,6 +146,51 @@ TRAIN_STEPS, TRAIN_BATCH = 8, 32
 # round at the same points; one-ulp flips in 12 layers of forward and
 # backward leave a few % of relative distance in the smallest grads.
 GRAD_BAND = 5e-2
+# int8 kernel path vs int8 twin path: the same rounding points and the same
+# quantization grid; logits are held to the bf16 pair's band. Besides the
+# bf16 flips above, a value on a .5 tie quantizes one step apart (a share of
+# ~1e-6 of the activation codes, card test), and one moved code in a row of
+# xq moves the keys and values of a whole image, so the smallest grads (the
+# last layers' query/key kernels, 4.4e-2 already for the bf16 pair) move
+# further: 6.8e-2 measured on the card, held to 1e-1. int8 vs bf16 kernel
+# paths: the W8A8 quantization itself (8-bit codes of every projection's
+# operands, ~0.4 % rms a product, over 12 layers forward and the dx-path
+# backward). These model-level bands show that the int8 path runs and stays
+# near its twin; they cannot tell a kernel that skipped quantization apart,
+# since 12 layers amplify the moved codes to nearly the quantization's own
+# distance: the twin path with _bf16_stand_in's quantizers lands at
+# ‖Δlogits‖/‖t‖ 2.27e-2 and a median per-tensor grad distance of 2.06e-2,
+# the int8 kernel path at 1.66e-2 and 1.25e-2 (on the card). Phase 3 tells
+# them apart, kernel by kernel.
+INT8_GRAD_BAND = 1e-1
+QUANT_LOGIT_BAND = 0.25
+QUANT_GRAD_BAND = 0.25
+# int8 kernel vs int8 twin, per output: ‖k − t‖ / ‖t‖ <= INT8_REL. Measured
+# on the card: at most 2.0e-3 (K3 backward's dx at spq 584), where the bf16
+# stand-in lands at 1.08e-2 or more (the W8A8 quantization noise); the band
+# sits between the two, 2.5x above the one and 2.2x below the other.
+INT8_REL = 5e-3
+# codes moved from the twin's: (largest step, share) per activation code
+# tensor. xq quantizes the LN output, which the kernel and the twin compute
+# to the last ulp or two, so a code moves one step, and only on a .5 tie:
+# <= 2.2e-6 measured, except K4 backward's xq, which quantizes the bf16-
+# rounded LN output: where the rounding of a row's max flips, the row's
+# scale moves by 2^-8 and ~15 % of its codes with it (3.2e-5 at b8 spq 584,
+# one row; a row of the ragged case's 591 is 2.5e-4). h1q and dh1q quantize
+# GELU values of a1 the same way (<= 3e-5), but where an xq code moved, its
+# row's a1 and row max move with it, and a code two steps. aq quantizes sums
+# with cancellation (p·v over the keys), whose last bits depend on the order
+# of the sum, up to 1.4e-3; dqq the core's dqkv, which is rounded to bf16, so
+# a flipped last bit of a value and of its row's max can move a code two
+# steps: 1.6e-3 measured (on the card). doq quantizes the bf16 input do: the
+# same bits. A kernel that skipped quantization would move most codes.
+CODE_BAND = {"xq": (1, 1e-3), "h1q": (2, 1e-3), "dh1q": (2, 1e-3),
+             "aq": (2, 5e-3), "dqq": (2, 5e-3), "doq": (0, 0.0)}
+
+
+def _expect(**launches):
+    """Every kernel's expected launch count: the given ones, else 0."""
+    return {**dict.fromkeys(KERNEL_INFO, 0), **launches}
 
 
 def _median_ms(fn, warmup=3, iters=25):
@@ -158,15 +242,12 @@ def _calls(ck, t, seq_len):
             t["bo"], EPS, seq_len, HEADS, HEAD_DIM)
     mlp = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], t["b2"],
            EPS)
-    return {
-        "layer_norm": (lambda: ck.layer_norm(*ln),
-                       lambda: ck.layer_norm_ref(*ln)),
-        "fused_ln_qkvo_attention": (
-            lambda: ck.fused_ln_qkvo_attention(*qkvo),
-            lambda: ck.fused_ln_qkvo_attention_ref(*qkvo)),
-        "fused_ln_mlp": (lambda: ck.fused_ln_mlp(*mlp),
-                         lambda: ck.fused_ln_mlp_ref(*mlp)),
-    }
+    args = {"layer_norm": ln, "fused_ln_qkvo_attention": qkvo,
+            "fused_ln_mlp": mlp, "fused_ln_qkvo_attention_int8": qkvo,
+            "fused_ln_mlp_int8": mlp}
+    return {name: (lambda f=getattr(ck, name), a=a: f(*a),
+                   lambda f=getattr(ck, name + "_ref"), a=a: f(*a), a)
+            for name, a in args.items()}
 
 
 def check_kernels():
@@ -177,19 +258,21 @@ def check_kernels():
     stats = {name: {"max_abs_err": 0.0} for name in KERNEL_INFO}
     for i, (label, batch, rows, seq_len) in enumerate(CASES):
         t = _inputs(batch, rows, seed=i)
-        for name, (kern, plain) in _calls(ck, t, seq_len).items():
-            if label == "ragged" and name != "fused_ln_qkvo_attention":
+        for name, (kern, plain, args) in _calls(ck, t, seq_len).items():
+            if label == "ragged" and name in RAGGED_OK:
                 # rows not a multiple of 8 per image: 3*197 = 591 rows
                 t_r = dict(t, x=t["x"][:, :seq_len].contiguous())
-                kern, plain = _calls(ck, t_r, seq_len)[name]
+                kern, plain, args = _calls(ck, t_r, seq_len)[name]
             with torch.inference_mode():
                 out = kern()
                 torch.cuda.synchronize()
                 ref = plain()
+                if name in INT8_KERNELS:
+                    _check_int8(ck, name, label, args, (out,), (ref,), stats)
             err = (out.float() - ref.float()).abs().max().item()
             bound = TOL * max(1.0, ref.float().abs().max().item())
             finite = bool(torch.isfinite(out).all())
-            print(f"  {name:24s} {label:22s} {tuple(out.shape)} "
+            print(f"  {name:28s} {label:22s} {tuple(out.shape)} "
                   f"max|k-ref| {err:.3e} <= {bound:.3e}: "
                   f"{'ok' if err <= bound and finite else 'FAIL'}", flush=True)
             if not (finite and err <= bound):
@@ -199,7 +282,7 @@ def check_kernels():
             if i <= 2:
                 with torch.inference_mode():
                     k_ms, p_ms = _median_ms(kern), _median_ms(plain)
-                print(f"  {name:24s} {label:22s} kernel {k_ms:.4f} ms  "
+                print(f"  {name:28s} {label:22s} kernel {k_ms:.4f} ms  "
                       f"plain {p_ms:.4f} ms (median of 25)", flush=True)
                 if i == 0:
                     stats[name].update(ms=k_ms, plain_ms=p_ms)
@@ -211,18 +294,20 @@ def check_kernels():
 def _bwd_calls(ck, t, seq_len, ragged):
     """backward kernel name -> (kernel call, plain call) on inputs t."""
     x, do = t["x"], t["do"]
-    if ragged:  # rows not a multiple of 8 per image: LN and K2 only
+    if ragged:  # rows not a multiple of 8 per image: LN, K2 and K4 only
         x, do = x[:, :seq_len].contiguous(), do[:, :seq_len].contiguous()
+    qkvo = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"],
+            t["do"], EPS, seq_len, HEADS, HEAD_DIM)
+    mlp = (x, t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], do, EPS)
     args = {
         "layer_norm_bwd": (x, t["gamma"], do, EPS),
-        "fused_ln_qkvo_attention_bwd": (
-            t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"],
-            t["do"], EPS, seq_len, HEADS, HEAD_DIM),
-        "fused_ln_mlp_bwd": (x, t["gamma"], t["beta"], t["w1"], t["b1"],
-                             t["w2"], do, EPS),
+        "fused_ln_qkvo_attention_bwd": qkvo,
+        "fused_ln_mlp_bwd": mlp,
+        "fused_ln_qkvo_attention_int8_bwd": qkvo,
+        "fused_ln_mlp_int8_bwd": mlp,
     }
     return {name: (lambda f=getattr(ck, name), a=a: f(*a),
-                   lambda f=getattr(ck, name + "_ref"), a=a: f(*a))
+                   lambda f=getattr(ck, name + "_ref"), a=a: f(*a), a)
             for name, a in args.items()}
 
 
@@ -239,11 +324,13 @@ def check_bwd_kernels(stats):
         t["do"] = torch.randn(t["x"].shape, generator=g,
                               device="cuda").to(torch.bfloat16)
         calls = _bwd_calls(ck, t, seq_len, label == "ragged")
-        for name, (kern, plain) in calls.items():
+        for name, (kern, plain, args) in calls.items():
             with torch.no_grad():
                 outs = kern()
                 torch.cuda.synchronize()
                 refs = plain()
+                if name in INT8_KERNELS:
+                    _check_int8(ck, name, label, args, outs, refs, stats)
             errs = []
             for out, ref in zip(outs, refs):
                 err = (out.float() - ref.float()).abs().max().item()
@@ -263,7 +350,7 @@ def check_bwd_kernels(stats):
             with torch.no_grad():
                 k_ms = _median_ms(kern, warmup=2, iters=10)
                 p_ms = _median_ms(plain, warmup=1, iters=5)
-            print(f"  {name:28s} {label:22s} max|k-ref| per output "
+            print(f"  {name:32s} {label:22s} max|k-ref| per output "
                   f"[{' '.join(errs)}]: ok; kernel {k_ms:.4f} ms  plain "
                   f"{p_ms:.4f} ms (medians of 10 / 5)", flush=True)
             if i == 0:
@@ -271,6 +358,92 @@ def check_bwd_kernels(stats):
         del t, calls
         torch.cuda.empty_cache()
     return stats
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+@contextlib.contextmanager
+def _bf16_stand_in(ck):
+    """The int8 twins as a kernel that skipped quantization would compute
+    them: every quantizer the twins call returns its input rounded to bf16
+    with a scale of 1, so each s8 product becomes a product of bf16 values
+    (exact in fp64), and the rest of each twin is unchanged."""
+    import torch
+    names = ("quant_rows", "quant_cols_host", "quant_rows_host")
+    saved = {n: getattr(ck, n) for n in names}
+
+    def bf(x):
+        return x.float().to(torch.bfloat16).float()
+
+    ck.quant_rows = lambda x: (bf(x), torch.ones_like(x[..., :1]))
+    ck.quant_cols_host = lambda w: (bf(w), torch.ones_like(bf(w)[0]))
+    ck.quant_rows_host = lambda w: (bf(w), torch.ones_like(bf(w)[:, 0]))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(ck, n, f)
+
+
+def _code_moves(kern, twin):
+    """An int8 kernel's codes (its scratch) against its twin's: the
+    weights' codes and scales must be the same bits; for each activation
+    code tensor, (largest step, share of codes moved)."""
+    import torch
+    moves = {}
+    for key, (q, s) in twin.items():
+        qk, sk = kern[key]
+        if key.startswith("w"):
+            if not (torch.equal(qk, q) and torch.equal(sk, s)):
+                raise AssertionError(f"weight codes {key} differ from the "
+                                     "twin's")
+            continue
+        d = (qk.long() - q.long()).abs()
+        moves[key] = (d.max().item(), d.float().mean().item())
+    return moves
+
+
+def _check_int8(ck, name, label, args, outs, refs, stats):
+    """Phase 3, the int8 kernels beyond the bf16 tolerance: their codes
+    against the twin's; every output within INT8_REL of the twin, and the
+    bf16 stand-in outside it wherever quantization reaches (every output but
+    the backward's Σ do, which no quantizer touches)."""
+    sk, st = {}, {}
+    getattr(ck, name)(*args, scratch=sk)
+    getattr(ck, name + "_ref")(*args, scratch=st)
+    with _bf16_stand_in(ck):
+        stand = getattr(ck, name + "_ref")(*args)
+    if not isinstance(stand, tuple):
+        stand = (stand,)
+    moves = _code_moves(sk, st)
+    r_k = [_rel(o, r) for o, r in zip(outs, refs)]
+    r_s = [_rel(o, r) for o, r in zip(stand, refs)]
+    reached = r_s[:-1] if name.endswith("_bwd") else r_s
+    # the stand-in against the bf16 tolerance alone: max error over bound
+    tol_s = max((o.float() - r.float()).abs().max().item()
+                / (TOL * max(1.0, r.float().abs().max().item()))
+                for o, r in zip(stand, refs))
+    print(f"  {name:32s} {label:22s} codes moved (max step, share) "
+          + " ".join(f"{k} {m[0]} {m[1]:.2e}" for k, m in moves.items())
+          + f"; ‖k−t‖/‖t‖ per output [{' '.join(f'{r:.2e}' for r in r_k)}]"
+          f" <= {INT8_REL}; bf16 stand-in [{' '.join(f'{r:.2e}' for r in r_s)}]"
+          f", its max error {tol_s:.2f}x the bf16 tolerance", flush=True)
+    st_ = stats[name]
+    st_["worst_rel"] = max(st_.get("worst_rel", 0.0), *r_k)
+    st_["stand_in_min_rel"] = min(st_.get("stand_in_min_rel", 1.0), *reached)
+    for key, (top, share) in moves.items():
+        max_step, max_share = CODE_BAND[key]
+        if top > max_step or share > max_share:
+            raise AssertionError(f"{name} {label}: codes {key} moved {share} "
+                                 f"(largest step {top})")
+    if max(r_k) > INT8_REL:
+        raise AssertionError(f"{name} {label}: {max(r_k)} from the twin")
+    if min(reached) <= INT8_REL:
+        raise AssertionError(f"{name} {label}: the bf16 stand-in lands "
+                             f"within INT8_REL ({min(reached)})")
 
 
 class _Tee(io.TextIOBase):
@@ -315,9 +488,9 @@ def run_slice():
     result, n_img, rate = _run_eval(EVAL_ARGS)
     counts = ck.launch_counts()
     batches = math.ceil(256 / 64)
-    expect = {"layer_norm": batches, "fused_ln_qkvo_attention": 12 * batches,
-              "fused_ln_mlp": 12 * batches,
-              **dict.fromkeys(BWD_KERNELS, 0)}  # inference: no backward
+    expect = _expect(layer_norm=batches,
+                     fused_ln_qkvo_attention=12 * batches,
+                     fused_ln_mlp=12 * batches)  # inference: no backward
     print(f"slice: eval_cli kernels {result} {n_img} images {rate:.0f} img/s "
           f"launches {counts}", flush=True)
     if n_img != 256 or counts != expect:
@@ -399,8 +572,7 @@ def run_train_slice(exp_root):
     from vitax_torch.data import get_dataloader
     from vitax_torch.models import vit
     from vitax_torch.ops import cuda_kernels as ck
-    from vitax_torch.train import (create_train_state, make_train_step,
-                                   param_leaves, sgd_momentum)
+    from vitax_torch.train import param_leaves
     from vitax_torch.utils.memory import named_leaves
 
     args = TRAIN_ARGS + ["--exp-root", exp_root]
@@ -408,12 +580,12 @@ def run_train_slice(exp_root):
     losses, valid, rate = _run_train(args)
     counts = ck.launch_counts()
     eval_batches = math.ceil(256 / TRAIN_BATCH)
-    expect = {"layer_norm": TRAIN_STEPS + eval_batches,
-              "fused_ln_qkvo_attention": 12 * (TRAIN_STEPS + eval_batches),
-              "fused_ln_mlp": 12 * (TRAIN_STEPS + eval_batches),
-              "layer_norm_bwd": TRAIN_STEPS,
-              "fused_ln_qkvo_attention_bwd": 12 * TRAIN_STEPS,
-              "fused_ln_mlp_bwd": 12 * TRAIN_STEPS}
+    expect = _expect(layer_norm=TRAIN_STEPS + eval_batches,
+                     fused_ln_qkvo_attention=12 * (TRAIN_STEPS + eval_batches),
+                     fused_ln_mlp=12 * (TRAIN_STEPS + eval_batches),
+                     layer_norm_bwd=TRAIN_STEPS,
+                     fused_ln_qkvo_attention_bwd=12 * TRAIN_STEPS,
+                     fused_ln_mlp_bwd=12 * TRAIN_STEPS)
     print(f"train: train_cli kernels losses {[round(v, 4) for v in losses]} "
           f"valid {valid} {rate:.0f} img/s (epoch loop, host-fed) launches "
           f"{counts}", flush=True)
@@ -444,21 +616,10 @@ def run_train_slice(exp_root):
     g_p = _grads(params, images, labels, plain)
     g_32 = _grads(params, images, labels, plain.replace(dtype=torch.float32))
 
-    def rel(a, b):
-        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-
-    # The key biases' exact gradient is 0 (softmax is shift-invariant along
-    # the keys: Σ_k ds = 0), so both bf16 paths return rounding noise there
-    # and a relative distance means nothing: each is held instead to
-    # GRAD_BAND times its layer's query-bias grad on the plain bf16 path.
+    rels, key_ratio = _grad_distances(names, g_k, g_p)
     by_name = dict(zip(names, range(len(names))))
-    rels = sorted(((rel(g_k[i], g_p[i]), n) for n, i in by_name.items()
-                   if not n.endswith("attn/key/bias")), reverse=True)
-    key_ratio = max(
-        (g_k[i].norm() / g_p[by_name[n.replace("/key/", "/query/")]].norm())
-        .item() for n, i in by_name.items() if n.endswith("attn/key/bias"))
-    d_k = max(rel(g_k[by_name[n]], g_32[by_name[n]]) for _, n in rels)
-    d_p = max(rel(g_p[by_name[n]], g_32[by_name[n]]) for _, n in rels)
+    d_k = max(_rel(g_k[by_name[n]], g_32[by_name[n]]) for _, n in rels)
+    d_p = max(_rel(g_p[by_name[n]], g_32[by_name[n]]) for _, n in rels)
     finite = all(bool(torch.isfinite(g).all()) for g in g_k)
     print(f"train: grads of {len(names)} tensors; worst |g_kernel - "
           f"g_plain_bf16| / |g_plain_bf16|: " + ", ".join(
@@ -471,21 +632,180 @@ def run_train_slice(exp_root):
     del g_k, g_p, g_32
 
     # device-timed train step on a resident batch: forward, backward, SGD
-    images = images.bfloat16()
-    runs = []  # (path, ms) in run order
-    for name, c in (("plain", plain), ("kernels", cfg), ("kernels", cfg),
-                    ("plain", plain)):
+    runs = _time_steps(params, images.bfloat16(), labels,
+                       (("plain", plain), ("kernels", cfg), ("kernels", cfg),
+                        ("plain", plain)))
+    return counts, {k: min(ms for n, ms in runs if n == k)
+                    for k in ("kernels", "plain")}
+
+
+def _grad_distances(names, g_a, g_b):
+    """Per-tensor ‖g_a − g_b‖ / ‖g_b‖, worst first, without the key biases;
+    and the key biases' worst ‖g_a‖ / ‖g_b of the layer's query bias‖. The
+    key biases' exact gradient is 0 (softmax is shift-invariant along the
+    keys: Σ_k ds = 0), so both paths return rounding noise there and a
+    relative distance means nothing."""
+    by_name = dict(zip(names, range(len(names))))
+    rels = sorted(((_rel(g_a[i], g_b[i]), n) for n, i in by_name.items()
+                   if not n.endswith("attn/key/bias")), reverse=True)
+    key_ratio = max(
+        (g_a[i].norm() / g_b[by_name[n.replace("/key/", "/query/")]].norm())
+        .item() for n, i in by_name.items() if n.endswith("attn/key/bias"))
+    return rels, key_ratio
+
+
+def _time_steps(params, images, labels, paths, iters=10):
+    """Median CUDA-event time of a train step (forward, backward, SGD) on a
+    resident batch for each (name, cfg, [context]) in run order."""
+    import torch
+    from vitax_torch.train import (create_train_state, make_train_step,
+                                   sgd_momentum)
+    runs = []
+    for name, c, *ctx in paths:
         opt, sched = sgd_momentum(params, 0.03, 1000, 0.1)
         state = create_train_state(params, opt, sched, torch.Generator())
         step = make_train_step(c, opt, sched)
-        runs.append((name, _median_ms(lambda: step(state, images, labels),
-                                      warmup=2, iters=10)))
-    print("train: step b32 (fwd+bwd+SGD, median of 10, CUDA events), in run "
-          "order: " + ", ".join(
-              f"{k} {ms:.2f} ms = {TRAIN_BATCH * 1e3 / ms:.0f} img/s"
+        with (ctx[0] if ctx else contextlib.nullcontext()):
+            runs.append((name, _median_ms(lambda: step(state, images, labels),
+                                          warmup=2, iters=iters)))
+    print(f"train: step b{len(labels)} (fwd+bwd+SGD, median of {iters}, CUDA "
+          "events), in run order: " + ", ".join(
+              f"{k} {ms:.2f} ms = {len(labels) * 1e3 / ms:.0f} img/s"
               for k, ms in runs), flush=True)
-    return counts, {k: min(ms for n, ms in runs if n == k)
-                    for k in ("kernels", "plain")}
+    return runs
+
+
+@contextlib.contextmanager
+def _int8_twins(ck):
+    """The int8 twin path on the card: the four int8 wrappers, which the
+    model and the autograd Functions call by their module names, are
+    swapped for routes to their plain twins; the Functions keep their tier
+    logic (int8 forward; int8 or bf16 backward)."""
+    saved = {n: getattr(ck, n) for n in INT8_KERNELS}
+
+    def route(name, fn_cls):
+        ref = getattr(ck, name + "_ref")
+
+        def fwd(*args, int8_grad=False):
+            if ck._needs_grad(*args[:7]):
+                return fn_cls.apply(*args, True, int8_grad)
+            return ref(*args)
+        return fwd
+
+    ck.fused_ln_qkvo_attention_int8 = route("fused_ln_qkvo_attention_int8",
+                                            ck.FusedLnQkvoAttentionFn)
+    ck.fused_ln_mlp_int8 = route("fused_ln_mlp_int8", ck.FusedLnMlpFn)
+    ck.fused_ln_qkvo_attention_int8_bwd = \
+        ck.fused_ln_qkvo_attention_int8_bwd_ref
+    ck.fused_ln_mlp_int8_bwd = ck.fused_ln_mlp_int8_bwd_ref
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(ck, n, f)
+
+
+def run_int8_slice(exp_root):
+    """Phase 6: the W8A8 tiers through train_cli and eval_cli with exact
+    launch counts; logits and full-width grads on the int8 kernel path, the
+    int8 twin path and the bf16 kernel path; a device-timed train step."""
+    import torch
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import vit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.train import param_leaves
+    from vitax_torch.utils.memory import named_leaves
+
+    fwd = TRAIN_STEPS + math.ceil(256 / TRAIN_BATCH)  # steps + eval batches
+    int8_fwd = dict(layer_norm=fwd, fused_ln_qkvo_attention_int8=12 * fwd,
+                    fused_ln_mlp_int8=12 * fwd, layer_norm_bwd=TRAIN_STEPS)
+    expects = {
+        "--int8-grad": _expect(
+            **int8_fwd, fused_ln_qkvo_attention_int8_bwd=12 * TRAIN_STEPS,
+            fused_ln_mlp_int8_bwd=12 * TRAIN_STEPS),
+        "--int8": _expect(**int8_fwd,
+                          fused_ln_qkvo_attention_bwd=12 * TRAIN_STEPS,
+                          fused_ln_mlp_bwd=12 * TRAIN_STEPS),
+    }
+    counts = {}
+    for flag, expect in expects.items():
+        ck.reset_launch_counts()
+        losses, valid, rate = _run_train(TRAIN_ARGS + ["--exp-root", exp_root,
+                                                       flag])
+        counts[flag] = ck.launch_counts()
+        print(f"int8: train_cli {flag} losses {[round(v, 4) for v in losses]} "
+              f"valid {valid} {rate:.0f} img/s (epoch loop, host-fed) "
+              f"launches {counts[flag]}", flush=True)
+        if counts[flag] != expect:
+            raise AssertionError(f"expected launches {expect}")
+
+    ck.reset_launch_counts()
+    result, n_img, rate = _run_eval(EVAL_ARGS + ["--int8"])
+    batches = math.ceil(256 / 64)
+    expect = _expect(layer_norm=batches,
+                     fused_ln_qkvo_attention_int8=12 * batches,
+                     fused_ln_mlp_int8=12 * batches)
+    print(f"int8: eval_cli --int8 {result} {n_img} images {rate:.0f} img/s "
+          f"launches {ck.launch_counts()}", flush=True)
+    if n_img != 256 or ck.launch_counts() != expect:
+        raise AssertionError(f"expected 256 images and launches {expect}")
+
+    cfg = arch_config("b16", image_size=224, num_classes=10,
+                      dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True,
+                      int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                      int8_attn_grad=True)
+    bf16 = cfg.replace(int8_mlp=False, int8_attn=False, int8_mlp_grad=False,
+                       int8_attn_grad=False)
+    params = vit.init_params(set_seed(0), cfg, "cuda")
+    batch = next(iter(get_dataloader("Synthetic", split="train",
+                                     image_size=224, batch_size=TRAIN_BATCH,
+                                     num_samples=256, seed=0)))
+    images = torch.from_numpy(batch.images).cuda().bfloat16()
+    labels = torch.from_numpy(batch.labels).cuda()
+    with torch.inference_mode():
+        lk = vit.apply(params, images, cfg)
+        with _int8_twins(ck):
+            lt = vit.apply(params, images, cfg)
+        lb = vit.apply(params, images, bf16)
+    d_t, d_b = (lk - lt).abs().max().item(), (lk - lb).abs().max().item()
+    band_t = LOGIT_BAND * max(1.0, lt.abs().max().item())
+    band_b = QUANT_LOGIT_BAND * max(1.0, lb.abs().max().item())
+    print(f"int8: logits {tuple(lk.shape)} max|int8 kernel - int8 twin| "
+          f"{d_t:.3e} <= {band_t:.3e}; max|int8 kernel - bf16 kernel| "
+          f"{d_b:.3e} <= {band_b:.3e}", flush=True)
+    if not (torch.isfinite(lk).all() and d_t <= band_t and d_b <= band_b):
+        raise AssertionError("int8 logits outside their bands")
+
+    names = [n for n, _ in named_leaves(params)]
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    g_k = _grads(params, images, labels, cfg)
+    with _int8_twins(ck):
+        g_t = _grads(params, images, labels, cfg)
+    g_b = _grads(params, images, labels, bf16)
+    rels_t, key_t = _grad_distances(names, g_k, g_t)
+    rels_b, key_b = _grad_distances(names, g_k, g_b)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    print(f"int8: grads of {len(names)} tensors; worst |g_int8_kernel - "
+          f"g_int8_twin| / |g_int8_twin|: " + ", ".join(
+              f"{r:.3e} ({n})" for r, n in rels_t[:3])
+          + f" <= {INT8_GRAD_BAND}, "
+          f"key biases {key_t:.3e}; worst |g_int8_kernel - g_bf16_kernel| / "
+          f"|g_bf16_kernel|: " + ", ".join(
+              f"{r:.3e} ({n})" for r, n in rels_b[:3])
+          + f" <= {QUANT_GRAD_BAND}, key biases {key_b:.3e}", flush=True)
+    if (not finite or rels_t[0][0] > INT8_GRAD_BAND or key_t > INT8_GRAD_BAND
+            or rels_b[0][0] > QUANT_GRAD_BAND or key_b > QUANT_GRAD_BAND):
+        raise AssertionError("int8 grads outside their bands")
+    del g_k, g_t, g_b
+
+    runs = _time_steps(params, images, labels, (
+        ("bf16 kernels", bf16), ("int8 kernels", cfg), ("int8 kernels", cfg),
+        ("bf16 kernels", bf16), ("int8 twins", cfg, _int8_twins(ck))))
+    return counts["--int8-grad"], {k: min(ms for n, ms in runs if n == k)
+                                   for k, _ in runs}
 
 
 def main() -> int:
@@ -513,6 +833,11 @@ def main() -> int:
     print("kernels vs plain (bf16):", flush=True)
     stats = check_kernels()
     check_bwd_kernels(stats)
+    print(f"int8 kernels vs twin, worst ‖k−t‖/‖t‖ of any output and case <= "
+          f"{INT8_REL}; the bf16 stand-in's nearest (outputs quantization "
+          f"reaches): " + ", ".join(
+              f"{n} {stats[n]['worst_rel']:.3e} / {stats[n]['stand_in_min_rel']:.3e}"
+              for n in INT8_KERNELS), flush=True)
     eval_counts, rate, rate_p = run_slice()
     print(f"eval img/s b16@224 bf16: kernels {rate:.0f}, plain {rate_p:.0f} "
           f"[{card}]", flush=True)
@@ -524,11 +849,22 @@ def main() -> int:
     print(f"train step img/s b16@224 bf16 b32: kernels "
           f"{TRAIN_BATCH * 1e3 / step_ms['kernels']:.0f}, plain "
           f"{TRAIN_BATCH * 1e3 / step_ms['plain']:.0f} [{card}]", flush=True)
+    try:
+        counts_i8, step_i8 = run_int8_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("train step img/s b16@224 b32: " + ", ".join(
+        f"{k} {TRAIN_BATCH * 1e3 / ms:.0f}" for k, ms in step_i8.items())
+        + f" [{card}]", flush=True)
 
-    # launches: the train slice (every kernel runs there); the eval slice's
-    # forward counts are printed in phase 4
+    # launches: the bf16 kernels' from the bf16 train slice, the int8
+    # kernels' from the --int8-grad train slice (each runs every kernel of
+    # its tier); the eval slices' forward counts are printed in phases 4, 6
     table = [dict(name=name, route="cuda", source=src, replaces=rep,
-                  launches=counts[name], **stats[name])
+                  launches=(counts_i8 if name in INT8_KERNELS
+                            else counts)[name],
+                  **{k: stats[name][k] for k in ("max_abs_err", "ms",
+                                                 "plain_ms")})
              for name, (src, rep) in KERNEL_INFO.items()]
     print(card)
     print(json.dumps({"kernels": table}))

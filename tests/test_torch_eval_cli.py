@@ -60,7 +60,8 @@ def test_both_eval_clis_agree_on_an_npz(npz_path):
     assert out["acc5"] == pytest.approx(ref["acc5"], abs=1e-6)
 
 
-@pytest.mark.parametrize("extra", [["--int8"], ["--n-gpu", "2"],
+@pytest.mark.parametrize("extra", [["--checkpoint-path", "save/checkpoints"],
+                                   ["--n-gpu", "2"],
                                    ["--checkpoint-path", "w.pth"]])
 def test_unported_options_raise(extra):
     argv = ["--dataset", "Synthetic", "--model-arch", "tiny",

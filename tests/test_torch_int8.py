@@ -1,0 +1,520 @@
+"""The W8A8 tiers of vitax_torch (`--int8`, `--int8-grad`) against vitax's.
+
+The quantizers and the int8 GELU against vitax's own functions; the plain
+twins of the four int8 kernels (K3/K4 forward and int8-grad backward,
+vitax_torch/ops/cuda_kernels.py) against vitax's Pallas kernels in interpret
+mode; the `--int8`-alone backward against the bf16 one; `vit.apply`, three
+train steps and the CLIs with the int8 flags. The kernels themselves are
+held against these twins on the card (tests/test_torch_cuda_kernels.py,
+chip_smoke.py).
+
+Shapes: D 128, H 2 (head_dim 64), M 256, spq 16 with seq_len 10 (the
+padded stream), batch 1 and 3, ragged rows (3 x 10) for K4. Tolerances,
+max|port - vitax| <= tol * max(1, max|vitax|) per output: fp32 1e-4 for
+activations and vector grads, 1e-3 for weight grads; bf16 2e-2. Both sides
+quantize on the same grid, so an output moves past rounding noise only
+where a code moves one step; the tests count such codes.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from vitax.core.config import arch_config as j_arch  # noqa: E402
+from vitax.models import vit as jvit  # noqa: E402
+from vitax.ops import pallas_kernels as pk  # noqa: E402
+from vitax.train import (create_train_state as j_state,  # noqa: E402
+                         make_train_step as j_step, onecycle_lr as j_lr,
+                         onecycle_momentum as j_mom, sgd_momentum as j_sgd)
+from vitax_torch import eval_cli, train_cli  # noqa: E402
+from vitax_torch.core.config import arch_config as t_arch  # noqa: E402
+from vitax_torch.models import vit as tvit  # noqa: E402
+from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
+from vitax_torch.ops import mlp as tmlp  # noqa: E402
+from vitax_torch.ops import quant  # noqa: E402
+from vitax_torch.train import (create_train_state as t_state,  # noqa: E402
+                               make_train_step as t_step,
+                               sgd_momentum as t_sgd)
+
+D, H, HD, M, SPQ, SEQ, EPS = 128, 2, 64, 256, 16, 10, 1e-5
+TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+# share of the activation codes of LN+quant that may sit one step away from
+# vitax's (the LN sums are taken in another order, which can move a value
+# across a .5 tie); no code may move two steps
+CODE_SHARE = 1e-3
+INT8 = dict(int8_mlp=True, int8_attn=True)
+INT8_GRAD = dict(INT8, int8_mlp_grad=True, int8_attn_grad=True)
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(pk, "_INTERPRET", True)
+
+
+def _arrays(seed, batch, rows):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return dict(x=n(batch, rows, D) * 1.5 + 0.3, do=n(batch, rows, D),
+                gamma=1 + n(D, scale=0.1), beta=n(D, scale=0.1),
+                wqkv=n(D, 3 * H * HD, scale=D ** -0.5),
+                bqkv=n(3 * H * HD, scale=0.1),
+                wo=n(H * HD, D, scale=(H * HD) ** -0.5), bo=n(D, scale=0.1),
+                w1=n(D, M, scale=D ** -0.5), b1=n(M, scale=0.1),
+                w2=n(M, D, scale=M ** -0.5), b2=n(D, scale=0.1))
+
+
+_MATS = ("x", "do", "wqkv", "wo", "w1", "w2")
+_MLP = ("x", "gamma", "beta", "w1", "b1", "w2", "b2")
+_QKVO = ("x", "gamma", "beta", "wqkv", "bqkv", "wo", "bo")
+
+
+def _both(arrays, dtype):
+    j = {k: jnp.asarray(v, getattr(jnp, dtype) if k in _MATS else jnp.float32)
+         for k, v in arrays.items()}
+    t = {k: torch.from_numpy(v).to(getattr(torch, dtype) if k in _MATS
+                                   else torch.float32)
+         for k, v in arrays.items()}
+    return j, t
+
+
+def _close(ref, out, tol, what):
+    ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+    out = out.float().numpy().reshape(ref.shape)
+    bound = tol * max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(out - ref).max())
+    assert err <= bound, f"{what}: max error {err:.3e} > {bound:.3e}"
+
+
+MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+QKVO_GRADS = ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwo", "dbo")
+
+
+def _check_all(refs, outs, dtype, names):
+    """Weight grads (sums over all rows) at the looser tolerance."""
+    small, weights = TOL[dtype]
+    assert len(refs) == len(outs) == len(names)
+    for name, r, o in zip(names, refs, outs):
+        _close(r, o, weights if name.startswith("dw") else small, name)
+
+
+@jax.jit
+def _vitax_ln_codes(x, gamma, beta):
+    """The LN1/LN2 prologue of vitax's int8 kernels (pallas_kernels.py:
+    2699-2706), compiled as the interpret-mode kernels are."""
+    x = x.reshape(-1, D).astype(jnp.float32)
+    mu = jnp.mean(x, axis=-1, keepdims=True)
+    xc = x - mu
+    var = jnp.mean(xc * xc, axis=-1, keepdims=True)
+    return pk._quant_rows(xc * jax.lax.rsqrt(var + EPS) * gamma + beta)[0]
+
+
+def _moved_codes(j, t):
+    """|vitax's codes - the twin's| of the LN output, each package with its
+    own LN arithmetic."""
+    xhat, _ = ck._ln_stats(t["x"].reshape(-1, D).float(), EPS)
+    q_t = quant.quant_rows(ck._affine(xhat, t["gamma"], t["beta"]))[0]
+    q_j = _vitax_ln_codes(j["x"], j["gamma"], j["beta"])
+    return np.abs(np.asarray(q_j, np.int32) - q_t.numpy().astype(np.int32))
+
+
+# ---------------------------------------------------------------- (a), (b)
+
+def _tie_matrix():
+    """Rows (and columns) whose max |x| is 127, so the step is 1 and every
+    k + 0.5 below is a tie that half-to-even rounding must send to even."""
+    ties = np.arange(-126.5, 127.0, 1.0, dtype=np.float32)  # 254 values
+    m = np.zeros((254, 256), np.float32)
+    m[:, 0] = 127.0
+    m[:, 1] = -127.0
+    m[:, 2:] = np.stack([np.roll(ties, i) for i in range(254)])
+    return m
+
+
+@pytest.mark.parametrize("name", ["_quant_rows", "_quant_cols",
+                                  "_quant_cols_host", "_quant_rows_host"])
+@pytest.mark.parametrize("data", ["random", "ties"])
+def test_quantizers_match_vitax_exactly(name, data):
+    if data == "ties":
+        x = _tie_matrix()
+        if "cols" in name:
+            x = np.ascontiguousarray(x.T)
+    else:
+        rng = np.random.default_rng(0)
+        x = (rng.standard_normal((64, 96))
+             * rng.uniform(0.01, 5.0, (64, 1))).astype(np.float32)
+    q_j, s_j = getattr(pk, name)(jnp.asarray(x))
+    q_t, s_t = getattr(quant, name.lstrip("_"))(torch.from_numpy(x))
+    assert q_t.dtype == torch.int8
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_array_equal(s_t.numpy().ravel(),
+                                  np.asarray(s_j).ravel())
+    if data == "ties":  # half to even: 0.5 -> 0, 1.5 -> 2, -2.5 -> -2
+        body = q_t.numpy()[2:] if "cols" in name else q_t.numpy()[:, 2:]
+        assert {0, 2, -2} <= set(np.unique(body).tolist())
+        assert np.all(body % 2 == 0)
+
+
+@pytest.mark.parametrize("name", ["gelu_q", "gelu_grad_q"])
+def test_int8_gelu_matches_vitax(name):
+    """fp32, vitax's compiled as its kernels run it; |Δ| <= 1e-6·max(1, |a|):
+    one-ulp differences in exp and rsqrt, scaled by a (and by 1.702a(1 − σ)
+    in the derivative). Measured 3.6e-7."""
+    a = np.random.default_rng(1).standard_normal(20000).astype(np.float32) * 5
+    ref = np.asarray(jax.jit(getattr(pk, "_" + name))(jnp.asarray(a)))
+    out = getattr(tmlp, name)(torch.from_numpy(a)).numpy()
+    assert out.dtype == np.float32
+    assert np.all(np.abs(out - ref) <= 1e-6 * np.maximum(1.0, np.abs(a)))
+
+
+# ---------------------------------------------------------------- (c)
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,rows", [(3, SPQ), (3, SEQ)])
+def test_fused_ln_mlp_int8_ref_matches_pallas(dtype, batch, rows):
+    j, t = _both(_arrays(1, batch, rows), dtype)
+    ref = pk.fused_ln_mlp(*(j[k] for k in _MLP), EPS, int8=True)
+    out = ck.fused_ln_mlp_int8_ref(*(t[k] for k in _MLP), EPS)
+    assert out.shape == t["x"].shape and out.dtype == t["x"].dtype
+    _close(ref, out, TOL[dtype][0], "out")
+    torch.testing.assert_close(ck.fused_ln_mlp_int8(*(t[k] for k in _MLP),
+                                                    EPS), out, rtol=0, atol=0)
+    moved = _moved_codes(j, t)
+    assert moved.max() <= 1 and moved.mean() <= CODE_SHARE, moved.mean()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_fused_ln_qkvo_attention_int8_ref_matches_pallas(dtype, batch):
+    """The padded stream: seq_len 10 < spq 16, pad rows holding garbage."""
+    j, t = _both(_arrays(2, batch, SPQ), dtype)
+    ref = pk.fused_ln_qkvo_attention(*(j[k] for k in _QKVO), EPS, SEQ, H, HD,
+                                     True)
+    args = (*(t[k] for k in _QKVO), EPS, SEQ, H, HD)
+    out = ck.fused_ln_qkvo_attention_int8_ref(*args)
+    assert out.shape == t["x"].shape and out.dtype == t["x"].dtype
+    _close(ref, out, TOL[dtype][0], "out")
+    torch.testing.assert_close(ck.fused_ln_qkvo_attention_int8(*args), out,
+                               rtol=0, atol=0)
+    moved = _moved_codes(j, t)
+    assert moved.max() <= 1 and moved.mean() <= CODE_SHARE, moved.mean()
+
+
+# ---------------------------------------------------------------- (d)
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,rows", [(3, SPQ), (3, SEQ), (1, SPQ)])
+def test_fused_ln_mlp_int8_bwd_ref_matches_pallas(dtype, batch, rows):
+    j, t = _both(_arrays(3, batch, rows), dtype)
+    n = batch * rows
+    # vitax pads the rows to its row block with zeros; a zero row with a
+    # zero cotangent quantizes to zero codes and adds nothing to any grad
+    npad = pk._ln_mlp_pad(n, int8=True)
+
+    def pad(a):
+        return jnp.pad(a.reshape(n, D), ((0, npad - n), (0, 0)))
+
+    ref = pk._ln_mlp_bwd_int8_call(pad(j["x"]), j["gamma"], j["beta"],
+                                   j["w1"], j["b1"], j["w2"], pad(j["do"]),
+                                   EPS, True)
+    ref = (ref[0][:n], *ref[1:])
+    args = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"],
+            t["do"], EPS)
+    out = ck.fused_ln_mlp_int8_bwd_ref(*args)
+    assert out[0].shape == t["x"].shape and out[0].dtype == t["x"].dtype
+    assert all(o.dtype == torch.float32 for o in out[1:])
+    _check_all(ref, out, dtype, MLP_GRADS)
+    for a, b in zip(out, ck.fused_ln_mlp_int8_bwd(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,seq_len", [(1, SEQ), (3, SEQ), (2, SPQ)])
+def test_fused_ln_qkvo_attention_int8_bwd_ref_matches_pallas(dtype, batch,
+                                                             seq_len):
+    j, t = _both(_arrays(4, batch, SPQ), dtype)
+    keys = _QKVO[:6]
+    ref = pk._fused_ln_qkvo_bwd(EPS, seq_len, H, HD, True, True, False,
+                                False, False, None,
+                                tuple(j[k] for k in keys), j["do"])
+    args = (*(t[k] for k in keys), t["do"], EPS, seq_len, H, HD)
+    out = ck.fused_ln_qkvo_attention_int8_bwd_ref(*args)
+    assert out[0].shape == t["x"].shape and out[0].dtype == t["x"].dtype
+    assert all(o.dtype == torch.float32 for o in out[1:])
+    _check_all(ref, out, dtype, QKVO_GRADS)
+    for a, b in zip(out, ck.fused_ln_qkvo_attention_int8_bwd(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+_WEIGHT_CODES = {
+    "fused_ln_mlp_int8": dict(w1q=("_quant_cols_host", "w1"),
+                              w2q=("_quant_cols_host", "w2")),
+    "fused_ln_mlp_int8_bwd": dict(w1r=("_quant_rows_host", "w1"),
+                                  w2r=("_quant_rows_host", "w2"),
+                                  w1c=("_quant_cols_host", "w1")),
+    "fused_ln_qkvo_attention_int8": dict(w8=("_quant_cols_host", "wqkv"),
+                                         wo8=("_quant_cols_host", "wo")),
+    "fused_ln_qkvo_attention_int8_bwd": dict(
+        w8=("_quant_cols_host", "wqkv"), w8r=("_quant_rows_host", "wqkv"),
+        wo8r=("_quant_rows_host", "wo")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WEIGHT_CODES))
+def test_int8_wrappers_hand_out_the_codes(name):
+    """A wrapper's `scratch` receives the (codes, scale) pairs of its
+    kernel, here of its twin on CPU tensors (the card compares the two):
+    the weights' equal vitax's quantizers bit for bit; xq within CODE_SHARE
+    of vitax's LN codes; doq equal to vitax's quantized do; every activation
+    code tensor int8 [rows, width] with one fp32 scale a row."""
+    j, t = _both(_arrays(8, 3, SPQ), "float32")
+    keys = _MLP if "mlp" in name else _QKVO
+    args = [t[k] for k in keys]
+    if name.endswith("_bwd"):
+        args = args[:6] + [t["do"]]
+    args += [EPS] if "mlp" in name else [EPS, SEQ, H, HD]
+    scratch = {}
+    getattr(ck, name)(*args, scratch=scratch)
+    for key, (fn, w) in _WEIGHT_CODES[name].items():
+        q_j, s_j = getattr(pk, fn)(j[w])
+        q, s = scratch.pop(key)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(q_j))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(s_j).ravel())
+    n = 3 * SPQ
+    for key, (q, s) in scratch.items():
+        assert q.dtype == torch.int8 and q.shape[0] == n, key
+        assert s.dtype == torch.float32 and s.shape == (n,), key
+    moved = np.abs(scratch["xq"][0].numpy().astype(np.int32)
+                   - np.asarray(_vitax_ln_codes(j["x"], j["gamma"], j["beta"]),
+                                np.int32))
+    assert moved.max() <= 1 and moved.mean() <= CODE_SHARE, moved.mean()
+    if "doq" in scratch:
+        q_j, s_j = pk._quant_rows(j["do"].reshape(n, D))
+        np.testing.assert_array_equal(scratch["doq"][0].numpy(),
+                                      np.asarray(q_j))
+
+
+# ---------------------------------------------------------------- (e)
+
+@pytest.mark.parametrize("half", ["mlp", "attention"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_alone_keeps_the_bf16_backward(half, dtype):
+    """`--int8` without `--int8-grad`: under a linear loss the grads of the
+    int8 forward equal the bf16 tier's exactly (vitax's own requirement,
+    tests/test_pallas_kernels.py:254-313), and through the Functions the
+    int8-grad backward differs from them."""
+    _, t = _both(_arrays(5, 3, SPQ), dtype)
+    keys, extra = (_MLP, (EPS,)) if half == "mlp" else \
+        (_QKVO, (EPS, SEQ, H, HD))
+    fused = {"mlp": (ck.fused_ln_mlp, ck.fused_ln_mlp_int8),
+             "attention": (ck.fused_ln_qkvo_attention,
+                           ck.fused_ln_qkvo_attention_int8)}[half]
+    c = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        t["x"].shape).astype(np.float32))
+
+    def grads(fn, **kw):
+        leaves = [t[k].clone().requires_grad_() for k in keys]
+        out = fn(*leaves, *extra, **kw)
+        (out.float() * c).sum().backward()
+        return [leaf.grad for leaf in leaves]
+
+    ref = grads(fused[0])
+    for a, b in zip(grads(fused[1], int8_grad=False), ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(grads(fused[1], int8_grad=True), ref))
+
+
+# ---------------------------------------------------------------- (f), (g)
+
+SMALL = dict(emb_dim=D, mlp_dim=M, num_heads=H, num_layers=2)
+
+
+def _cfgs(dtype, image=48, patch=16, **kw):
+    kw = dict(fused_qkv=True, fused_mlp=True, use_pallas=True,
+              patch_size=(patch, patch), **SMALL, **kw)
+    return (j_arch("tiny", image, 10).replace(dtype=getattr(jnp, dtype), **kw),
+            t_arch("tiny", image, 10).replace(dtype=getattr(torch, dtype),
+                                               **kw))
+
+
+def _weights(jc):
+    p = jax.tree.map(np.asarray, jvit.init_params(jax.random.PRNGKey(0), jc))
+    rng = np.random.default_rng(0)
+    return jax.tree.map(
+        lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(np.float32),
+        p)
+
+
+def _images(batch, image=48, seed=1):
+    return np.random.default_rng(seed).uniform(
+        -1, 1, (batch, image, image, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_forward_matches_vitax(dtype):
+    """eval mode at spq 16 (seq 10): the padded stream through K3 and K4."""
+    jc, tc = _cfgs(dtype, **INT8)
+    w = _weights(jc)
+    img = _images(3)
+    ref = jvit.apply(jax.tree.map(jnp.asarray, w), jnp.asarray(img, jc.dtype),
+                     jc)
+    with torch.inference_mode():
+        out = tvit.apply(tvit.params_from_jax(w),
+                         torch.from_numpy(img).to(tc.dtype), tc)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
+                               rtol=TOL[dtype][0], atol=TOL[dtype][0])
+
+
+def _vitax_layout(tree):
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return t.detach().float().numpy()
+
+    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = jax.tree.map(lambda *a: np.stack(a),
+                                 *[conv(lp) for lp in tree["layers"]])
+    return out
+
+
+def test_three_int8_grad_train_steps_match_vitax():
+    """All four int8 flags (the `--int8-grad` configuration) on a stream
+    vitax does not hand off (K5 takes spq <= 128): image 48 at patch 4,
+    145 tokens -> spq 152. fp32: losses 5e-3 relative, params
+    2e-3·max(1, |p|). Wider than the bf16 tier's 1e-4/1e-3: the LN, the
+    softmax and the GELU round in the last ulp differently in XLA and torch
+    (rsqrt, exp, sum order), and where a value sits on a .5 tie its code moves
+    one step; over 2 layers x 3 steps a few such codes (one in 4e4 per
+    quantized tensor) move the loss by up to 9.5e-4 relative and the params
+    by 4e-4 (measured)."""
+    jc, tc = _cfgs("float32", patch=4, **INT8_GRAD)
+    w = _weights(jc)
+    rng = np.random.default_rng(7)
+    batches = [(_images(2, seed=10 + i),
+                rng.integers(0, 10, 2).astype(np.int32)) for i in range(3)]
+    total, pct, lr, wd = 10, 0.2, 0.003, 1e-4
+    tx = j_sgd(j_lr(lr, total, pct), momentum_schedule=j_mom(total, pct),
+               weight_decay=wd)
+    state = j_state(jax.tree.map(jnp.asarray, w), tx, jax.random.PRNGKey(1))
+    step = j_step(jc, tx, donate=False)
+    j_losses = []
+    for img, lab in batches:
+        state, m = step(state, jnp.asarray(img), jnp.asarray(lab))
+        j_losses.append(float(m["loss"]))
+    params = tvit.params_from_jax(w)
+    opt, sched = t_sgd(params, lr, total, pct, weight_decay=wd)
+    tstate = t_state(params, opt, sched, torch.Generator().manual_seed(1))
+    tstep = t_step(tc, opt, sched)
+    t_losses = [float(tstep(tstate, torch.from_numpy(img),
+                            torch.from_numpy(lab))[1]["loss"])
+                for img, lab in batches]
+    np.testing.assert_allclose(t_losses, j_losses, rtol=5e-3)
+    ref = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(np.asarray, state.params))[0]
+    out = dict(jax.tree_util.tree_flatten_with_path(
+        _vitax_layout(tstate.params))[0])
+    for path, r in ref:
+        bound = 2e-3 * max(1.0, float(np.abs(r).max()))
+        assert np.abs(out[path] - r).max() <= bound, \
+            jax.tree_util.keystr(path)
+
+
+# ---------------------------------------------------------------- (h)
+
+def test_handoff_row_gate_matches_vitax():
+    for b in (1, 2, 3, 5, 8, 32, 64, 128, 256, 320, 384):
+        for spq in (8, 16, 24, 104, 152, 200, 584):
+            assert tvit._vitax_mlp_rows_divide(b * spq) == \
+                pk.block_handoff_supported(np.empty((b, spq, 8))), (b, spq)
+
+
+@pytest.mark.parametrize("flags", [dict(INT8_GRAD), dict(INT8_GRAD,
+                                                          int8_dw=True)])
+def test_unported_int8_paths_raise_naming_their_item(flags):
+    """The padded stream at spq 16 <= 128 with all four int8 flags is where
+    vitax takes the K5 handoff; int8_dw raises wherever it is set."""
+    jc, tc = _cfgs("float32", **flags)
+    params = tvit.params_from_jax(_weights(jc))
+    with pytest.raises(NotImplementedError, match="int8_dw and K5"):
+        tvit.apply(params, torch.from_numpy(_images(2)), tc)
+
+
+TINY = ["--dataset", "Synthetic", "--model-arch", "tiny", "--num-workers", "0",
+        "--dtype", "float32", "--fused-qkv", "--fused-mlp"]
+
+
+def test_train_cli_int8_grad_runs_the_int8_twins(tmp_path, monkeypatch):
+    """`--int8-grad` at image 224 (spq 200, no handoff) maps all four int8
+    flags and trains through the int8 forward and backward twins."""
+    calls = dict.fromkeys(("fused_ln_mlp_int8_ref",
+                           "fused_ln_mlp_int8_bwd_ref",
+                           "fused_ln_qkvo_attention_int8_ref",
+                           "fused_ln_qkvo_attention_int8_bwd_ref"), 0)
+    for name in calls:
+        fn = getattr(ck, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(ck, name, counted)
+    out = train_cli.main(TINY + [
+        "--image-size", "224", "--batch-size", "4", "--synthetic-samples", "8",
+        "--train-steps", "2", "--warmup-steps", "0", "--int8-grad",
+        "--exp-root", str(tmp_path)])
+    losses = out["epochs"][0]["train"]["losses"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    # 3 layers: 2 steps forward and backward, and 2 eval batches forward
+    assert calls == {"fused_ln_mlp_int8_ref": 12,
+                     "fused_ln_mlp_int8_bwd_ref": 6,
+                     "fused_ln_qkvo_attention_int8_ref": 12,
+                     "fused_ln_qkvo_attention_int8_bwd_ref": 6}
+
+
+def test_train_cli_int8_flag_map():
+    import argparse
+    ns = argparse.Namespace(model_arch="b16", image_size=224, num_classes=10,
+                            dtype="bfloat16", fused_qkv=None, fused_mlp=None,
+                            token_keep=1.0, no_pallas=False, int8=False,
+                            int8_grad=True, int8_dw=False)
+    cfg = train_cli.model_config_from_cli(ns, on_gpu=True)
+    assert (cfg.int8_mlp, cfg.int8_attn, cfg.int8_mlp_grad,
+            cfg.int8_attn_grad, cfg.int8_dw) == (True,) * 4 + (False,)
+    ns.int8_grad, ns.int8 = False, True
+    cfg = train_cli.model_config_from_cli(ns, on_gpu=True)
+    assert cfg.int8_mlp and cfg.int8_attn and not cfg.int8_mlp_grad
+
+
+@pytest.mark.parametrize("flags", [["--int8-dw"], ["--int8-grad"]])
+def test_train_cli_unported_int8_paths_raise(flags, tmp_path):
+    """`--int8-dw` anywhere; `--int8-grad` at image 32 (spq 8 <= 128), where
+    vitax would take the K5 handoff."""
+    with pytest.raises(NotImplementedError, match="int8_dw and K5"):
+        train_cli.main(TINY + ["--image-size", "32", "--batch-size", "4",
+                               "--synthetic-samples", "8", "--exp-root",
+                               str(tmp_path)] + flags)
+
+
+def test_eval_cli_int8_serves_through_the_int8_twin(monkeypatch):
+    seen = []
+    fn = ck.fused_ln_mlp_int8_ref
+    monkeypatch.setattr(ck, "fused_ln_mlp_int8_ref",
+                        lambda *a, **k: seen.append(1) or fn(*a, **k))
+    out = eval_cli.main(TINY + ["--image-size", "32", "--batch-size", "8",
+                                "--synthetic-samples", "8", "--int8"])
+    assert len(seen) == 3 and np.isfinite(out["loss"])
+
+
+@pytest.mark.parametrize("tag", ["int8-dw", "int4", "int4-grad",
+                                 "tokdrop-0.5"])
+def test_convergence_harness_names_the_item_of_unported_tags(tag):
+    from vitax_torch.scripts import int8_convergence as harness
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        harness.main(["bf16", tag])
+    assert set(harness.CONFIGS) == {"bf16", "int8-fwd", "int8-full"}

@@ -119,11 +119,21 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ck.fused_ln_qkvo_attention_bwd(t["x"], t["gamma"], t["beta"], t["wqkv"],
                                    t["bqkv"], t["wo"], t["x"], EPS, SEQ, H,
                                    HD)
+    mlp = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"])
+    qkvo = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"])
+    ck.fused_ln_mlp_int8(*mlp, t["b2"], EPS)
+    ck.fused_ln_mlp_int8_bwd(*mlp, t["x"], EPS)
+    ck.fused_ln_qkvo_attention_int8(*qkvo, t["bo"], EPS, SEQ, H, HD)
+    ck.fused_ln_qkvo_attention_int8_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
                                   "fused_ln_qkvo_attention_bwd": 0,
-                                  "fused_ln_mlp_bwd": 0}
+                                  "fused_ln_mlp_bwd": 0,
+                                  "fused_ln_qkvo_attention_int8": 0,
+                                  "fused_ln_mlp_int8": 0,
+                                  "fused_ln_qkvo_attention_int8_bwd": 0,
+                                  "fused_ln_mlp_int8_bwd": 0}
 
 
 def test_hopper_gates():

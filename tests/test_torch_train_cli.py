@@ -156,7 +156,7 @@ def test_npz_checkpoint_with_another_head_is_reinitialized(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--export-pth"], ["--n-gpu", "2"], ["--n-model", "2"], ["--device-prep"],
-    ["--int8"], ["--int4"], ["--int8-dw"], ["--save-acts"],
+    ["--int4-attn"], ["--int4"], ["--int8-dw"], ["--save-acts"],
     ["--remat", "full"], ["--remat", "selective"],
     ["--checkpoint-path", "weights/model.pth"],
 ])

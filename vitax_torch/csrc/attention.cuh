@@ -1,6 +1,9 @@
 // The attention core of K1's forward (per image and head: scores, exact fp32
 // softmax over the whole row, P·V), shared by the forward kernel and by the
-// recompute in the backward. Design notes: ln_qkvo_attention.cu.
+// recompute in the backward, and by K3 (the int8 tier), whose forward takes
+// the fp32 P·V (OutT = float: vitax never rounds the int8 kernel's attn to
+// bf16 before quantizing it, pallas_kernels.py:2732-2737). Design notes:
+// ln_qkvo_attention.cu.
 #pragma once
 
 #include <mma.h>
@@ -102,8 +105,8 @@ __device__ __forceinline__ void attn_softmax_row(float* srow, int L, int seq_len
   for (int c = lane; c < L; c += 32) srow[c] *= inv;
 }
 
-template <int HD>
-__global__ void attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+template <int HD, typename OutT>
+__global__ void attention_core_kernel(const bf16* __restrict__ qkv, OutT* __restrict__ out,
                                       int spq, int seq_len, int heads, float scale) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -160,12 +163,9 @@ __global__ void attention_core_kernel(const bf16* __restrict__ qkv, bf16* __rest
     const int r = i / kVecs;
     const int c = (i % kVecs) * 8;
     if (q0 + r >= spq) continue;
-    uint4 o_u;
-    bf16* o = reinterpret_cast<bf16*>(&o_u);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) o[t] = __float2bfloat16(S[r * HD + c + t]);
-    *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * spq + q0 + r) * hhd + h * HD + c) =
-        o_u;
+    OutT* dst = out + (static_cast<size_t>(b) * spq + q0 + r) * hhd + h * HD + c;
+    store4(dst, S + r * HD + c);
+    store4(dst + 4, S + r * HD + c + 4);
   }
 }
 
@@ -179,27 +179,27 @@ inline int attn_pick_warps(int spq, SmemFn smem_bytes) {
   return w;
 }
 
-template <int HD>
-cudaError_t launch_attention_core(const bf16* qkv, bf16* out, int b, int spq, int seq_len,
+template <int HD, typename OutT>
+cudaError_t launch_attention_core(const bf16* qkv, OutT* out, int b, int spq, int seq_len,
                                   int heads, float scale, cudaStream_t stream) {
   const int warps = attn_pick_warps(spq, [&](int w) { return attn_smem_bytes(spq, HD, w); });
   const size_t smem = attn_smem_bytes(spq, HD, warps);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(attention_core_kernel<HD>,
+  cudaError_t e = cudaFuncSetAttribute(attention_core_kernel<HD, OutT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int tiles = (spq + 15) / 16;
   const dim3 grid((tiles + warps - 1) / warps, heads, b);
-  attention_core_kernel<HD><<<grid, 32 * warps, smem, stream>>>(qkv, out, spq, seq_len, heads,
-                                                                scale);
+  attention_core_kernel<HD, OutT><<<grid, 32 * warps, smem, stream>>>(qkv, out, spq, seq_len,
+                                                                      heads, scale);
   return cudaGetLastError();
 }
 
-// The core for head_dim 32, 64 or 128.
-inline cudaError_t launch_attention_core_hd(const bf16* qkv, bf16* out, int b, int spq,
-                                            int seq_len, int heads, int head_dim, float scale,
-                                            cudaStream_t stream) {
+// The core for head_dim 32, 64 or 128; out is bf16 or fp32 [b·spq, heads·hd].
+template <typename OutT>
+cudaError_t launch_attention_core_hd(const bf16* qkv, OutT* out, int b, int spq, int seq_len,
+                                     int heads, int head_dim, float scale, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
       return launch_attention_core<32>(qkv, out, b, spq, seq_len, heads, scale, stream);

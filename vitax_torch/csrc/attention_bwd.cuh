@@ -1,0 +1,274 @@
+// The attention-core backward of the fused attention half (K1's and K3's:
+// vitax's _attn_core_grads, pallas_kernels.py:2846-2895), in two passes,
+// query tiles then key tiles. Design notes: ln_qkvo_attention_bwd.cu.
+#pragma once
+
+#include "attention.cuh"
+
+namespace vitax {
+
+__host__ __device__ inline size_t attn_bwd_warp_bytes(int spq, int hd) {
+  const size_t L = attn_rows_padded(spq);
+  const size_t sw = L > static_cast<size_t>(hd) ? L : hd;
+  // Qs, dOs bf16 [16, hd]; S fp32 [16, sw]; Ds bf16 [16, L]; stage fp32
+  // [16, 16]; dd fp32 [16]
+  return 2 * 16 * hd * 2 + 16 * sw * 4 + 16 * L * 2 + 16 * 16 * 4 + 16 * 4;
+}
+
+__host__ __device__ inline size_t attn_bwd_smem_bytes(int spq, int hd, int warps) {
+  const size_t L = attn_rows_padded(spq);
+  return 2 * L * hd * 2 + warps * attn_bwd_warp_bytes(spq, hd);
+}
+
+template <int HD>
+__global__ void attention_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ attn,
+                                       const bf16* __restrict__ dattn, bf16* __restrict__ P,
+                                       bf16* __restrict__ DS, bf16* __restrict__ dqkv, int spq,
+                                       int seq_len, int heads, float scale) {
+  using namespace nvcuda;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int L = attn_rows_padded(spq);
+  const int sw = L > HD ? L : HD;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int hhd = heads * HD;
+  const size_t row_stride = 3 * static_cast<size_t>(hhd);
+  const size_t row0 = static_cast<size_t>(b) * spq;
+  const bf16* base = qkv + row0 * row_stride;
+
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + L * HD;
+  unsigned char* mine = smem + 2 * static_cast<size_t>(L) * HD * 2 +
+                        warp * attn_bwd_warp_bytes(spq, HD);
+  bf16* Qs = reinterpret_cast<bf16*>(mine);
+  bf16* dOs = Qs + 16 * HD;
+  float* S = reinterpret_cast<float*>(dOs + 16 * HD);
+  bf16* Ds = reinterpret_cast<bf16*>(S + 16 * sw);
+  float* stage = reinterpret_cast<float*>(Ds + 16 * L);
+  float* dd = stage + 256;
+
+  attn_stage_kv<HD>(base, row_stride, hhd, h, spq, L, Ks, Vs);
+  const int q0 = (blockIdx.x * warps + warp) * 16;
+  attn_load_tile16<HD>(base, row_stride, h * HD, q0, spq, Qs);
+  attn_load_tile16<HD>(dattn + row0 * hhd, hhd, h * HD, q0, spq, dOs);
+  __syncthreads();
+  if (q0 >= spq) return;  // no block-wide barrier follows
+
+  // P: exact fp32 softmax rows, as the forward; dd = rowsum(fp32(dO) fp32(O))
+  attn_scores<HD>(Qs, Ks, L, S, sw);
+  const bf16* o_rows = attn + row0 * hhd + h * HD;
+  for (int r = 0; r < 16; ++r) {
+    attn_softmax_row(S + r * sw, L, seq_len, scale);
+    float acc = 0.f;
+    if (q0 + r < spq) {
+      for (int c = lane; c < HD; c += 32)
+        acc += __bfloat162float(dOs[r * HD + c]) *
+               __bfloat162float(o_rows[static_cast<size_t>(q0 + r) * hhd + c]);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) dd[r] = acc;
+  }
+  __syncwarp();
+
+  // dp = dO V^T one 16x16 key tile at a time; ds = bf16(P (dp - dd))
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> da[HD / 16];
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k) wmma::load_matrix_sync(da[k], dOs + k * 16, HD);
+  for (int j = 0; j < L / 16; ++j) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+    for (int k = 0; k < HD / 16; ++k) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> vb;
+      wmma::load_matrix_sync(vb, Vs + j * 16 * HD + k * 16, HD);
+      wmma::mma_sync(acc, da[k], vb, acc);
+    }
+    wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
+    __syncwarp();
+    for (int i = lane; i < 256; i += 32) {
+      const int r = i / 16;
+      const int c = j * 16 + i % 16;
+      const float ds = q0 + r < spq ? S[r * sw + c] * (stage[i] - dd[r]) : 0.f;
+      Ds[r * L + c] = __float2bfloat16(ds);
+    }
+    __syncwarp();
+  }
+
+  // bf16 P and ds rows of this tile (pad rows zero) for the key-tile pass
+  const size_t tile_off = (static_cast<size_t>(b * heads + h) * L + q0) * L;
+  for (int i = lane; i < 16 * (L / 8); i += 32) {
+    const int r = i / (L / 8);
+    const int c = (i % (L / 8)) * 8;
+    uint4 pv;
+    bf16* pp = reinterpret_cast<bf16*>(&pv);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) pp[t] = __float2bfloat16(q0 + r < spq ? S[r * sw + c + t] : 0.f);
+    *reinterpret_cast<uint4*>(P + tile_off + r * L + c) = pv;
+    *reinterpret_cast<uint4*>(DS + tile_off + r * L + c) =
+        *reinterpret_cast<const uint4*>(Ds + r * L + c);
+  }
+  __syncwarp();
+
+  // dq = bf16((ds K) scale), staged through S (free now) as fp32 [16, HD]
+#pragma unroll
+  for (int n = 0; n < HD / 16; ++n) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int k = 0; k < L / 16; ++k) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> sa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kb;
+      wmma::load_matrix_sync(sa, Ds + k * 16, L);
+      wmma::load_matrix_sync(kb, Ks + k * 16 * HD + n * 16, HD);
+      wmma::mma_sync(acc, sa, kb, acc);
+    }
+    wmma::store_matrix_sync(S + n * 16, acc, HD, wmma::mem_row_major);
+  }
+  __syncwarp();
+  constexpr int kVecs = HD / 8;
+  for (int i = lane; i < 16 * kVecs; i += 32) {
+    const int r = i / kVecs;
+    const int c = (i % kVecs) * 8;
+    if (q0 + r >= spq) continue;
+    uint4 o_u;
+    bf16* o = reinterpret_cast<bf16*>(&o_u);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) o[t] = __float2bfloat16(S[r * HD + c + t] * scale);
+    *reinterpret_cast<uint4*>(dqkv + (row0 + q0 + r) * row_stride + h * HD + c) = o_u;
+  }
+}
+
+constexpr int kKvWarps = 4;
+
+template <int HD>
+__global__ void __launch_bounds__(32 * kKvWarps)
+    attention_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dattn,
+                            const bf16* __restrict__ P, const bf16* __restrict__ DS,
+                            bf16* __restrict__ dqkv, int spq, int heads, float scale) {
+  using namespace nvcuda;
+  __shared__ __align__(128) bf16 Qs[16 * HD];
+  __shared__ __align__(128) bf16 dOs[16 * HD];
+  __shared__ __align__(128) float stage[kKvWarps][256];
+  const int L = attn_rows_padded(spq);
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int hhd = heads * HD;
+  const size_t row_stride = 3 * static_cast<size_t>(hhd);
+  const size_t row0 = static_cast<size_t>(b) * spq;
+  const int k0 = (blockIdx.x * kKvWarps + warp) * 16;
+  const bool active = k0 < L;
+  const bf16* Pg = P + static_cast<size_t>(b * heads + h) * L * L;
+  const bf16* Dg = DS + static_cast<size_t>(b * heads + h) * L * L;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[HD / 16], dv[HD / 16];
+#pragma unroll
+  for (int n = 0; n < HD / 16; ++n) {
+    wmma::fill_fragment(dk[n], 0.0f);
+    wmma::fill_fragment(dv[n], 0.0f);
+  }
+  constexpr int kVecs = HD / 8;
+  for (int qc = 0; qc < L; qc += 16) {
+    __syncthreads();  // the previous chunk has been consumed
+    for (int i = threadIdx.x; i < 2 * 16 * kVecs; i += blockDim.x) {
+      const int which = i / (16 * kVecs);
+      const int r = (i % (16 * kVecs)) / kVecs;
+      const int c = (i % kVecs) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (qc + r < spq) {
+        const bf16* src = which == 0 ? qkv + (row0 + qc + r) * row_stride + h * HD + c
+                                     : dattn + (row0 + qc + r) * hhd + h * HD + c;
+        v = *reinterpret_cast<const uint4*>(src);
+      }
+      *reinterpret_cast<uint4*>((which == 0 ? Qs : dOs) + r * HD + c) = v;
+    }
+    __syncthreads();
+    if (active) {
+      // ds^T and P^T tiles [16 keys, 16 queries], read column-major
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> dsT, pT;
+      wmma::load_matrix_sync(dsT, Dg + static_cast<size_t>(qc) * L + k0, L);
+      wmma::load_matrix_sync(pT, Pg + static_cast<size_t>(qc) * L + k0, L);
+#pragma unroll
+      for (int n = 0; n < HD / 16; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> qb, ob;
+        wmma::load_matrix_sync(qb, Qs + n * 16, HD);
+        wmma::load_matrix_sync(ob, dOs + n * 16, HD);
+        wmma::mma_sync(dk[n], dsT, qb, dk[n]);
+        wmma::mma_sync(dv[n], pT, ob, dv[n]);
+      }
+    }
+  }
+  if (!active) return;
+  float* st = stage[warp];
+  const int r = lane / 2;
+  const int c0 = (lane % 2) * 8;
+#pragma unroll
+  for (int n = 0; n < HD / 16; ++n) {
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      if (which == 0)
+        wmma::store_matrix_sync(st, dk[n], 16, wmma::mem_row_major);
+      else
+        wmma::store_matrix_sync(st, dv[n], 16, wmma::mem_row_major);
+      __syncwarp();
+      if (k0 + r < spq) {
+        uint4 o_u;
+        bf16* o = reinterpret_cast<bf16*>(&o_u);
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          o[t] = __float2bfloat16(which == 0 ? st[r * 16 + c0 + t] * scale : st[r * 16 + c0 + t]);
+        *reinterpret_cast<uint4*>(dqkv + (row0 + k0 + r) * row_stride + (1 + which) * hhd +
+                                  h * HD + n * 16 + c0) = o_u;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_attention_bwd(const bf16* qkv, const bf16* attn, const bf16* dattn, bf16* P,
+                                 bf16* DS, bf16* dqkv, int b, int spq, int seq_len, int heads,
+                                 float scale, cudaStream_t stream) {
+  const int warps = attn_pick_warps(spq, [&](int w) { return attn_bwd_smem_bytes(spq, HD, w); });
+  const size_t smem = attn_bwd_smem_bytes(spq, HD, warps);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(attention_bwd_q_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int tiles = (spq + 15) / 16;
+  attention_bwd_q_kernel<HD><<<dim3((tiles + warps - 1) / warps, heads, b), 32 * warps, smem,
+                               stream>>>(qkv, attn, dattn, P, DS, dqkv, spq, seq_len, heads,
+                                         scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attention_bwd_kv_kernel<HD><<<dim3((tiles + kKvWarps - 1) / kKvWarps, heads, b),
+                                32 * kKvWarps, 0, stream>>>(qkv, dattn, P, DS, dqkv, spq, heads,
+                                                            scale);
+  return cudaGetLastError();
+}
+
+// The backward core for head_dim 32, 64 or 128.
+inline cudaError_t launch_attention_bwd_hd(const bf16* qkv, const bf16* attn, const bf16* dattn,
+                                           bf16* P, bf16* DS, bf16* dqkv, int b, int spq,
+                                           int seq_len, int heads, int head_dim, float scale,
+                                           cudaStream_t stream) {
+  switch (head_dim) {
+    case 32:
+      return launch_attention_bwd<32>(qkv, attn, dattn, P, DS, dqkv, b, spq, seq_len, heads,
+                                      scale, stream);
+    case 64:
+      return launch_attention_bwd<64>(qkv, attn, dattn, P, DS, dqkv, b, spq, seq_len, heads,
+                                      scale, stream);
+    case 128:
+      return launch_attention_bwd<128>(qkv, attn, dattn, P, DS, dqkv, b, spq, seq_len, heads,
+                                       scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace vitax

@@ -68,6 +68,20 @@ __device__ __forceinline__ float gelu_erf_grad(float a) {
   return phi + a * pdf;
 }
 
+// The int8 tiers' GELU: a * sigmoid(1.702 a), the sigmoid written as the TPU
+// kernels write it, rsqrt(1 + exp(-1.702 a))^2 (_gelu_q / _sigmoid_1702,
+// pallas_kernels.py:547-561), and its derivative s (1 + 1.702 a (1 - s))
+// (_gelu_grad_q :564-571).
+__device__ __forceinline__ float sigmoid_1702(float a) {
+  const float r = rsqrtf(1.0f + expf(a * -1.702f));
+  return r * r;
+}
+__device__ __forceinline__ float gelu_q(float a) { return a * sigmoid_1702(a); }
+__device__ __forceinline__ float gelu_grad_q(float a) {
+  const float s = sigmoid_1702(a);
+  return s * (1.0f + 1.702f * a * (1.0f - s));
+}
+
 // Loads of one K step into shared memory. A tile: [128 rows of M][32 of K]
 // (kNN, kNT) or [32 of K][128 of M] (kTN). B tile: [32 of K][128 of N] (kNN,
 // kTN) or [128 of N][32 of K] (kNT). Rows past M/N and K rows past k_end are
@@ -323,6 +337,196 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
   const size_t count = static_cast<size_t>(M) * N;
   const int blocks = static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
   sum_splits_kernel<0><<<blocks, 256, 0, stream>>>(ws, F, count, splits);
+  return cudaGetLastError();
+}
+
+// =============================================================================
+// s8 x s8 -> s32 products of the W8A8 tiers (K3, K4; the TPU kernels'
+// dot_general(int8, int8, preferred_element_type=int32)), dequantized in the
+// epilogue in the TPU kernels' order: f32(acc) * s_row[m] * s_col[n] (+ bias).
+//
+// One layout: C[M,N] = A[M,K] @ B[N,K]^T, both int8 row-major. mma.sync's
+// int8 shape takes only .row.col, i.e. B with K contiguous, so the forward
+// products' column-quantized weights are stored [N,K] by their quantizer
+// (once per call), and the backward's row-quantized weights, contracted over
+// their columns, already are [N,K]: every int8 product of the slice is this
+// one layout. K % 16 == 0 (16-byte rows for cp.async), N % 2 == 0.
+//
+// Design of this first version: mma.sync.m16n8k32.s8 from PTX (WMMA's s8
+// tiles are 16 deep, and their loads want 32-byte-aligned K offsets, which a
+// 16-byte K step breaks), the same 128x128 block tile and 8 warps of 64x32 as
+// the bf16 GEMM, 64-deep K tiles in a two-stage cp.async ring. Shared rows
+// are padded to 80 bytes, which makes the 32-bit fragment loads (row g, bytes
+// 4t of each 16-row tile) hit 32 distinct banks. The epilogue works on the
+// accumulator registers directly (two neighbouring columns a thread) and
+// writes bf16x2 / float2. The int32 sums are exact (|acc| <= 127^2 K), so two
+// runs give the same bits. Bound on the H100: the tensor cores, as the bf16
+// GEMM; mma.sync does not reach the int8 wgmma rate (later work).
+// =============================================================================
+
+enum EpilogueS8 : int {
+  kS8Bf16 = 0,       // C = bf16(acc*sr*sc (+ bias))
+  kS8F32 = 1,        // F = acc*sr*sc (+ bias)
+  kS8GeluQF32 = 2,   // F = gelu_q(acc*sr*sc + bias)
+  kS8GeluQAux = 3,   // F = acc*sr*sc + bias, C = bf16(gelu_q(F))
+  kS8Residual = 4,   // C = R + bf16(acc*sr*sc + bias), the add in bf16
+  kS8GeluQGrad = 5,  // F = acc*sr*sc * gelu_grad_q(Aux), C = bf16(F)
+};
+
+constexpr int kS8BK = 64;          // K bytes a stage
+constexpr int kS8Ld = kS8BK + 16;  // shared row pitch in bytes
+constexpr int kS8Tile = kGemmBM * kS8Ld;
+
+__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One K stage: A rows [bm, bm+128) and B rows [bn, bn+128), bytes [k0, k0+64)
+// of each, zero past M, N and K.
+__device__ __forceinline__ void gemm_s8_load_tile(int8_t* As, int8_t* Bs,
+                                                  const int8_t* __restrict__ A,
+                                                  const int8_t* __restrict__ B, int bm, int bn,
+                                                  int k0, int M, int N, int K) {
+#pragma unroll
+  for (int i = threadIdx.x; i < kGemmBM * (kS8BK / 16); i += kGemmThreads) {
+    const int r = i / (kS8BK / 16);
+    const int c = (i % (kS8BK / 16)) * 16;
+    const bool ka = k0 + c < K;
+    const bool oa = ka && bm + r < M;
+    const bool ob = ka && bn + r < N;
+    cp_async16(As + r * kS8Ld + c, A + (oa ? static_cast<size_t>(bm + r) * K + k0 + c : 0),
+               oa ? 16 : 0);
+    cp_async16(Bs + r * kS8Ld + c, B + (ob ? static_cast<size_t>(bn + r) * K + k0 + c : 0),
+               ob ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(kGemmThreads)
+    gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
+                   const float* __restrict__ sr, const float* __restrict__ sc,
+                   const float* __restrict__ bias, const bf16* __restrict__ R,
+                   const float* __restrict__ Aux, bf16* __restrict__ C, float* __restrict__ F,
+                   int M, int N, int K) {
+  __shared__ __align__(128) int8_t smem[4 * kS8Tile];  // A[2], B[2]
+  int8_t* As[2] = {smem, smem + kS8Tile};
+  int8_t* Bs[2] = {smem + 2 * kS8Tile, smem + 3 * kS8Tile};
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // fragment row group
+  const int t = lane % 4;  // thread in group
+  const int bm = blockIdx.y * kGemmBM;
+  const int bn = blockIdx.x * kGemmBN;
+  const int wm = (warp / 4) * 64;
+  const int wn = (warp % 4) * 32;
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+
+  const int nk = (K + kS8BK - 1) / kS8BK;
+  if (nk > 0) gemm_s8_load_tile(As[0], Bs[0], A, B, bm, bn, 0, M, N, K);
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      gemm_s8_load_tile(As[(kt + 1) & 1], Bs[(kt + 1) & 1], A, B, bm, bn, (kt + 1) * kS8BK, M, N,
+                        K);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int8_t* as = As[kt & 1];
+    const int8_t* bs = Bs[kt & 1];
+#pragma unroll
+    for (int ks = 0; ks < kS8BK; ks += 32) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int8_t* p = as + (wm + i * 16 + g) * kS8Ld + ks + t * 4;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kS8Ld);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kS8Ld + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t* p = bs + (wn + j * 8 + g) * kS8Ld + ks + t * 4;
+        b[j][0] = *reinterpret_cast<const uint32_t*>(p);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8_16832(acc[i][j], a[i], b[j]);
+    }
+    __syncthreads();  // the next iteration's load overwrites this stage
+  }
+
+  // accumulator c[2h], c[2h+1]: row g + 8h, columns 2t, 2t+1 of each 16x8 tile
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = bm + wm + i * 16 + g + 8 * h;
+      if (row >= M) continue;
+      const float srow = sr[row];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = bn + wn + j * 8 + 2 * t;
+        if (col >= N) continue;
+        const size_t off = static_cast<size_t>(row) * N + col;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = static_cast<float>(acc[i][j][2 * h + e]) * srow * sc[col + e];
+          if (EPI != kS8GeluQGrad && bias != nullptr) v[e] += bias[col + e];
+        }
+        if (EPI == kS8F32 || EPI == kS8GeluQF32 || EPI == kS8GeluQAux || EPI == kS8GeluQGrad) {
+          float f[2] = {v[0], v[1]};
+          if (EPI == kS8GeluQF32) f[0] = gelu_q(v[0]), f[1] = gelu_q(v[1]);
+          if (EPI == kS8GeluQGrad) {
+            const float2 a = *reinterpret_cast<const float2*>(Aux + off);
+            f[0] = v[0] * gelu_grad_q(a.x);
+            f[1] = v[1] * gelu_grad_q(a.y);
+          }
+          *reinterpret_cast<float2*>(F + off) = make_float2(f[0], f[1]);
+          v[0] = f[0], v[1] = f[1];
+        }
+        if (EPI == kS8Bf16 || EPI == kS8GeluQAux || EPI == kS8Residual || EPI == kS8GeluQGrad) {
+          float o[2] = {v[0], v[1]};
+          if (EPI == kS8GeluQAux) o[0] = gelu_q(v[0]), o[1] = gelu_q(v[1]);
+          if (EPI == kS8Residual) {
+            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(R + off);
+            o[0] = __bfloat162float(r.x) + __bfloat162float(__float2bfloat16(v[0]));
+            o[1] = __bfloat162float(r.y) + __bfloat162float(__float2bfloat16(v[1]));
+          }
+          *reinterpret_cast<__nv_bfloat162*>(C + off) = __floats2bfloat162_rn(o[0], o[1]);
+        }
+      }
+    }
+  }
+}
+
+// C/F[M,N] = epilogue(f32(A[M,K] @ B[N,K]^T) * sr[M] * sc[N] (+ bias[N])).
+// bias may be null (no bias); R, Aux, C, F as the epilogue reads/writes them.
+template <int EPI>
+cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* B, const float* sr, const float* sc,
+                           const float* bias, const bf16* R, const float* Aux, bf16* C, float* F,
+                           int M, int N, int K, cudaStream_t stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (K % 16 || N % 2) return cudaErrorInvalidValue;
+  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+  gemm_s8_kernel<EPI>
+      <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, Aux, C, F, M, N, K);
   return cudaGetLastError();
 }
 

@@ -5,6 +5,7 @@
 
 #include "colsum.cuh"
 #include "common.cuh"
+#include "quant.cuh"
 
 namespace vitax {
 
@@ -66,6 +67,94 @@ cudaError_t launch_layer_norm(const T* x, const float* gamma, const float* beta,
   const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
   layer_norm_rows_kernel<T><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(x, gamma, beta, y, n, d,
                                                                        eps);
+  return cudaGetLastError();
+}
+
+// The LN1/LN2 prologue of the W8A8 halves: the row LN of
+// layer_norm_rows_kernel (same statistics, same expression for xn), then the
+// row's int8 codes q and scale s (quant.cuh), quantized from the fp32 xn
+// (K3 forward and backward, K4 forward: _quant_rows(xn32),
+// pallas_kernels.py:2706, :3015, :708) or, with FROM_BF16, from the
+// bf16-rounded xn (K4 backward, :1155). xn_out, if not null, receives
+// bf16(xn) for the weight-grad products. One warp a row; the row is read
+// four times (statistics twice, amax, codes), all but the first from L1.
+template <bool FROM_BF16>
+__global__ void __launch_bounds__(256)
+    layer_norm_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                            const float* __restrict__ beta, int8_t* __restrict__ q,
+                            float* __restrict__ s, bf16* __restrict__ xn_out, int n, int d,
+                            float eps) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n) return;
+  const bf16* xr = x + static_cast<size_t>(row) * d;
+
+  float sum = 0.f;
+  for (int i = lane * 8; i < d; i += 256) {
+    float v[8];
+    load8(xr + i, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum += v[e];
+  }
+  const float mean = warp_sum(sum) / static_cast<float>(d);
+  float sq = 0.f;
+  for (int i = lane * 8; i < d; i += 256) {
+    float v[8];
+    load8(xr + i, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float c = v[e] - mean;
+      sq += c * c;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(d) + eps);
+
+  // xn of 8 neighbouring columns, as the quantizer sees them
+  auto xn8 = [&](int i, float y[8]) {
+    float v[8];
+    load8(xr + i, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float xhat = (v[e] - mean) * rstd;
+      y[e] = xhat * gamma[i + e] + beta[i + e];
+      if (FROM_BF16) y[e] = __bfloat162float(__float2bfloat16(y[e]));
+    }
+  };
+  float amax = 0.f;
+  for (int i = lane * 8; i < d; i += 256) {
+    float y[8];
+    xn8(i, y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(y[e]));
+  }
+  const float2 sr = quant_scale(warp_max(amax));
+  const size_t base = static_cast<size_t>(row) * d;
+  for (int i = lane * 8; i < d; i += 256) {
+    float y[8];
+    xn8(i, y);
+    __align__(8) int8_t o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = quant_i8(y[e], sr.y);
+    *reinterpret_cast<uint2*>(q + base + i) = *reinterpret_cast<const uint2*>(o);
+    if (xn_out != nullptr) {
+      store4(xn_out + base + i, y);
+      store4(xn_out + base + i + 4, y + 4);
+    }
+  }
+  if (lane == 0) s[row] = sr.x;
+}
+
+// d % 8 == 0.
+template <bool FROM_BF16>
+cudaError_t launch_layer_norm_quant(const bf16* x, const float* gamma, const float* beta,
+                                    int8_t* q, float* s, bf16* xn_out, int n, int d, float eps,
+                                    cudaStream_t stream) {
+  if (n == 0) return cudaSuccess;
+  if (d % 8) return cudaErrorInvalidValue;
+  constexpr int kRowsPerBlock = 8;
+  layer_norm_quant_kernel<FROM_BF16>
+      <<<(n + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
+          x, gamma, beta, q, s, xn_out, n, d, eps);
   return cudaGetLastError();
 }
 

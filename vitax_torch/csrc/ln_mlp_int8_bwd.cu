@@ -1,0 +1,107 @@
+// K4 backward under int8_grad, the fused LN-MLP half: replaces
+// _ln_mlp_bwd_int8_kernel (vitax/ops/pallas_kernels.py:1122), reached
+// through _ln_mlp_2d_int8g_bwd (:1859) -> _ln_mlp_bwd_int8_call (pallas_call
+// at :1820), with int8_dw off. In the order of the Pallas body
+// (:1134-1224), the SwitchBack split (int8 dx-path, bf16 weight grads):
+//
+//   xn     = bf16(LN2(x)); xq, sxq = quant_rows(f32(xn))   from the bf16-
+//            rounded xn (:1155; the forward quantizes the fp32 one)
+//   a1     = f32(xq W1c) sxq s1c + b1                       fc1 recompute
+//   doq, sdo = quant_rows(do)
+//   dh1_32 = f32(doq W2r^T) sdo s2r * gelu_grad_q(a1); dh1 = bf16(dh1_32)
+//   h1     = bf16(gelu_q(a1))
+//   dW2 = h1^T do, db2 = Σ do;  dW1 = xn^T dh1, db1 = Σ dh1_32 (fp32)
+//   dh1q, sd = quant_rows(dh1_32);  dxn = f32(dh1q W1r^T) sd s1r
+//   LN tail: dx = do + bf16(dx_ln), dγ = Σ dxn x̂, dβ = Σ dxn
+//
+// The first launches quantize the weights (quant.cuh): W1c/s1c, W1 per
+// output column, as [M, D]; W2r/s2r and W1r/s1r, W2 and W1 per row,
+// contracted over their columns, as they are ([M, D], [D, M]).
+// Weight and vector grads come out in fp32, as the TPU kernel's outputs.
+//
+// Bound on the H100: the five products (three s8, two bf16 kTN), on the
+// tensor cores. This first design is the multi-launch form of the bf16
+// backward (ln_mlp_bwd.cu) with the s8 GEMM and the row quantizer swapped in:
+// a1 and dh1_32 (fp32 [N, M]) and the codes go through device memory, the
+// weight grads are split-K kTN products with an ordered second pass and the
+// vector grads two-pass column sums: no float atomics, two runs give the
+// same bits.
+#include "gemm.cuh"
+#include "layernorm.cuh"
+
+// Inputs x, dout bf16 [n, d], gamma, beta fp32 [d], b1 [m], w1 bf16 [d, m],
+// w2 bf16 [m, d]. Outputs dx (bf16 [n, d]) and fp32 dgamma, dbeta [d], dw1
+// [d, m], db1 [m], dw2 [m, d], db2 [d]. Scratch: w1r int8 [d, m], s1r [d],
+// w2r int8 [m, d], s2r [m], w1c int8 [m, d], s1c [m], xn bf16 [n,d], xq int8
+// [n,d], sx [n], a1 fp32 [n,m], h1 bf16 [n,m], doq int8 [n,d], sdo [n], dh1f
+// fp32 [n,m], dh1 bf16 [n,m], dh1q int8 [n,m], sdh [n], dxn fp32 [n,d], ws
+// fp32 vitax_ln_mlp_bwd_ws(n, d, m).
+extern "C" int vitax_ln_mlp_int8_bwd(
+    const void* x, const void* gamma, const void* beta, const void* b1, const void* w1,
+    const void* w2, const void* dout, void* dx, void* dgamma, void* dbeta, void* dw1, void* db1,
+    void* dw2, void* db2, void* w1r, void* s1r, void* w2r, void* s2r, void* w1c, void* s1c,
+    void* xn, void* xq, void* sx, void* a1, void* h1, void* doq, void* sdo, void* dh1f,
+    void* dh1, void* dh1q, void* sdh, void* dxn, void* ws, int n, int d, int m, float eps,
+    void* stream) {
+  using vitax::bf16;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* w1b = static_cast<const bf16*>(w1);
+  cudaError_t e = vitax::launch_quant_weight_rows(w1b, static_cast<int8_t*>(w1r),
+                                                  static_cast<float*>(s1r), d, m, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(w2), static_cast<int8_t*>(w2r),
+                                      static_cast<float*>(s2r), m, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_cols_t(w1b, static_cast<int8_t*>(w1c), static_cast<float*>(s1c),
+                                        d, m, st);
+  if (e != cudaSuccess) return e;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* dob = static_cast<const bf16*>(dout);
+  auto* xnb = static_cast<bf16*>(xn);
+  auto* xqi = static_cast<int8_t*>(xq);
+  auto* sxf = static_cast<float*>(sx);
+  auto* a1f = static_cast<float*>(a1);
+  auto* h1b = static_cast<bf16*>(h1);
+  auto* doqi = static_cast<int8_t*>(doq);
+  auto* sdof = static_cast<float*>(sdo);
+  auto* dh1ff = static_cast<float*>(dh1f);
+  auto* dh1b = static_cast<bf16*>(dh1);
+  auto* dh1qi = static_cast<int8_t*>(dh1q);
+  auto* sdhf = static_cast<float*>(sdh);
+  auto* dxnf = static_cast<float*>(dxn);
+  auto* wsf = static_cast<float*>(ws);
+
+  e = vitax::launch_layer_norm_quant<true>(
+      xb, static_cast<const float*>(gamma), static_cast<const float*>(beta), xqi, sxf, xnb, n, d,
+      eps, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8GeluQAux>(
+      xqi, static_cast<const int8_t*>(w1c), sxf, static_cast<const float*>(s1c),
+      static_cast<const float*>(b1), nullptr, nullptr, h1b, a1f, n, m, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_rows(dob, doqi, sdof, n, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8GeluQGrad>(doqi, static_cast<const int8_t*>(w2r), sdof,
+                                                 static_cast<const float*>(s2r), nullptr, nullptr,
+                                                 a1f, dh1b, dh1ff, n, m, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_tn(h1b, dob, static_cast<float*>(dw2), wsf, m, d, n, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(dob, static_cast<float*>(db2), wsf, n, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_tn(xnb, dh1b, static_cast<float*>(dw1), wsf, d, m, n, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const float*>(dh1ff), static_cast<float*>(db1), wsf, n, m,
+                           st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_rows(static_cast<const float*>(dh1ff), dh1qi, sdhf, n, m, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8F32>(dh1qi, static_cast<const int8_t*>(w1r), sdhf,
+                                           static_cast<const float*>(s1r), nullptr, nullptr,
+                                           nullptr, nullptr, dxnf, n, d, m, st);
+  if (e != cudaSuccess) return e;
+  return vitax::launch_layer_norm_bwd<bf16, float>(
+      xb, static_cast<const float*>(gamma), dxnf, dob,
+      static_cast<bf16*>(dx), static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d,
+      eps, st);
+}

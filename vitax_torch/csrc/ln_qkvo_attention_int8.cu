@@ -1,0 +1,75 @@
+// K3, the W8A8 forward of the fused LN-QKVO attention half: replaces
+// _ln_qkvo_fwd_int8_kernel (vitax/ops/pallas_kernels.py:2690), the int8
+// branch of fused_ln_qkvo_attention (:3111, pallas_call at :3163). In the
+// order of the Pallas body (:2699-2742):
+//
+//   xq, sx = quant_rows(LN1(x))                   from the fp32 LN output
+//   qkv    = bf16(f32(xq Wq) sx sw + bqkv)        Wq per output column
+//   per head: the bf16 core with fp32 softmax (K1's), attn = p·v in fp32,
+//             never rounded to bf16
+//   aq, sa = quant_rows(attn)
+//   out    = bf16(f32(aq Woq) sa swo + bo)        no residual
+//
+// Wqkv and Wo are quantized per output column (sw, swo) by the first
+// launches (quant.cuh), written as [N, K], gemm.cuh's s8 layout. x is
+// [B, spq, D] with the padded stream's pad rows; pad keys are masked by
+// seq_len.
+//
+// Bound on the H100: the two s8 projections on the tensor cores, and the
+// attention core (attention.cuh: whole-row softmax in shared memory, WMMA
+// bf16; the same core as K1's, here writing fp32 attn). Design of this first
+// version, five launches on one stream after the weights' quantization: LN
+// with a quantizing epilogue, the s8 QKV GEMM, the core, the row quantizer
+// over attn (a row spans all heads, i.e. 12 blocks of the core, so its amax
+// cannot be taken inside one), and the s8 out-projection. xq, qkv, fp32 attn and aq go through device memory
+// where the TPU kernel keeps them in VMEM.
+#include "attention.cuh"
+#include "gemm.cuh"
+#include "layernorm.cuh"
+
+// Inputs x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16 [d, 3hhd], bqkv
+// [3hhd], wo bf16 [hhd, d], bo [d]; output out bf16 [b·spq, d]. Scratch:
+// w8t int8 [3hhd, d], sw [3hhd], wo8t int8 [d, hhd], swo [d], xq int8
+// [n, d], sx [n], qkv bf16 [n, 3hhd], attn fp32 [n, hhd], aq int8 [n, hhd],
+// sa [n].
+extern "C" int vitax_ln_qkvo_attention_int8_fwd(
+    const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
+    const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo, void* xq,
+    void* sx, void* qkv, void* attn, void* aq, void* sa, void* out, int b, int spq, int d,
+    int seq_len, int heads, int head_dim, float eps, float scale, void* stream) {
+  using vitax::bf16;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int n = b * spq;
+  const int hhd = heads * head_dim;
+  auto* xqi = static_cast<int8_t*>(xq);
+  auto* sxf = static_cast<float*>(sx);
+  auto* qkvb = static_cast<bf16*>(qkv);
+  auto* attnf = static_cast<float*>(attn);
+  auto* aqi = static_cast<int8_t*>(aq);
+  auto* saf = static_cast<float*>(sa);
+  if (n == 0) return cudaSuccess;
+  cudaError_t e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wqkv),
+                                                    static_cast<int8_t*>(w8t),
+                                                    static_cast<float*>(sw), d, 3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8t),
+                                        static_cast<float*>(swo), hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_layer_norm_quant<false>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), xqi, sxf, nullptr, n, d, eps, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
+                                            static_cast<const float*>(sw),
+                                            static_cast<const float*>(bqkv), nullptr, nullptr,
+                                            qkvb, nullptr, n, 3 * hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_attention_core_hd(qkvb, attnf, b, spq, seq_len, heads, head_dim, scale, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_rows(static_cast<const float*>(attnf), aqi, saf, n, hhd, st);
+  if (e != cudaSuccess) return e;
+  return vitax::launch_gemm_s8<vitax::kS8Bf16>(
+      aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
+      static_cast<const float*>(bo), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
+      hhd, st);
+}

@@ -1,0 +1,128 @@
+// K3 backward under int8_grad, the fused LN-QKVO attention half: replaces
+// _ln_qkvo_bwd_int8_kernel (vitax/ops/pallas_kernels.py:2977), the int8
+// branch of _fused_ln_qkvo_bwd (:3232, pallas_call at :3252), with int8_dw
+// and int4_grad off. In the order of the Pallas body (:3003-3088), the
+// SwitchBack split (int8 recompute and dx-path, bf16 core grads and weight
+// grads):
+//
+//   recompute: xn32 = LN1(x), xn = bf16(xn32); xq, sx = quant_rows(xn32)
+//              qkv = bf16(f32(xq Wq) sx sw + bqkv); the core with bf16 attn
+//              (_attn_core_recompute :2814 rounds it, unlike the forward)
+//   doq, sdo = quant_rows(do); dattn = bf16(f32(doq Wor^T) sdo swor)
+//   dWo = attn^T do, dbo = Σ do
+//   dqkv = the core grads (bf16, K1's query-tile and key-tile passes)
+//   dqq, sdq = quant_rows(dqkv); dxn = f32(dqq Wr^T) sdq swr
+//   dW = xn^T dqkv, db = Σ f32(dqkv)
+//   LN tail: dx = bf16(dx_ln), dγ = Σ dxn x̂, dβ = Σ dxn
+//
+// The first launches quantize the weights (quant.cuh): Wq/sw, Wqkv per
+// output column, as [3HHd, D]; Wr/swr and Wor/swor, Wqkv and Wo per row,
+// contracted over their columns, as they are. Weight and vector grads come
+// out in fp32, as the TPU kernel's outputs.
+//
+// Bound on the H100: the projections (three s8, two bf16 kTN) on the tensor
+// cores, and the attention core's recompute and backward. This first design
+// is the multi-launch K1 backward (ln_qkvo_attention_bwd.cu, whose design
+// notes cover the core's two passes) with the s8 GEMM, the quantizing LN and
+// the row quantizer swapped in. No float atomics: two runs give the same
+// bits.
+#include "attention_bwd.cuh"
+#include "gemm.cuh"
+#include "layernorm.cuh"
+
+// Inputs x, dout bf16 [n, d], gamma, beta fp32 [d], bqkv [3hhd], wqkv bf16
+// [d, 3hhd], wo bf16 [hhd, d]. Outputs dx (bf16 [n, d]) and fp32 dgamma,
+// dbeta [d], dwqkv [d, 3hhd], dbqkv [3hhd], dwo [hhd, d], dbo [d]. Scratch
+// (bf16 unless noted): w8t int8 [3hhd, d], sw fp32 [3hhd], w8r int8
+// [d, 3hhd], swr fp32 [d], wo8r int8 [hhd, d], swor fp32 [hhd], xn [n,d],
+// xq int8 [n,d], sx fp32 [n], qkv [n,3hhd], attn [n,hhd], doq int8 [n,d], sdo
+// fp32 [n], dattn [n,hhd], p and ds [b,heads,L,L] with L = round_up(spq, 16),
+// dqkv [n,3hhd], dqq int8 [n,3hhd], sdq fp32 [n], dxn fp32 [n,d], ws fp32
+// vitax_ln_qkvo_attention_bwd_ws(n, d, hhd).
+extern "C" int vitax_ln_qkvo_attention_int8_bwd(
+    const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
+    const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
+    void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
+    void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
+    void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws, int b,
+    int spq, int d, int seq_len, int heads, int head_dim, float eps, float scale,
+    void* stream) {
+  using vitax::bf16;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int n = b * spq;
+  const int hhd = heads * head_dim;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* dob = static_cast<const bf16*>(dout);
+  auto* xnb = static_cast<bf16*>(xn);
+  auto* xqi = static_cast<int8_t*>(xq);
+  auto* sxf = static_cast<float*>(sx);
+  auto* qkvb = static_cast<bf16*>(qkv);
+  auto* attnb = static_cast<bf16*>(attn);
+  auto* doqi = static_cast<int8_t*>(doq);
+  auto* sdof = static_cast<float*>(sdo);
+  auto* dattnb = static_cast<bf16*>(dattn);
+  auto* dqkvb = static_cast<bf16*>(dqkv);
+  auto* dqqi = static_cast<int8_t*>(dqq);
+  auto* sdqf = static_cast<float*>(sdq);
+  auto* dxnf = static_cast<float*>(dxn);
+  auto* wsf = static_cast<float*>(ws);
+  if (n == 0) return cudaErrorInvalidValue;
+
+  const auto* wqkvb = static_cast<const bf16*>(wqkv);
+  cudaError_t e = vitax::launch_quant_weight_cols_t(wqkvb, static_cast<int8_t*>(w8t),
+                                                    static_cast<float*>(sw), d, 3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(wqkvb, static_cast<int8_t*>(w8r), static_cast<float*>(swr),
+                                      d, 3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8r),
+                                      static_cast<float*>(swor), hhd, d, st);
+  if (e != cudaSuccess) return e;
+
+  // recompute LN1 (+ codes), qkv (s8) and the attention core
+  e = vitax::launch_layer_norm_quant<false>(
+      xb, static_cast<const float*>(gamma), static_cast<const float*>(beta), xqi, sxf, xnb, n, d,
+      eps, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
+                                            static_cast<const float*>(sw),
+                                            static_cast<const float*>(bqkv), nullptr, nullptr,
+                                            qkvb, nullptr, n, 3 * hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_attention_core_hd(qkvb, attnb, b, spq, seq_len, heads, head_dim, scale, st);
+  if (e != cudaSuccess) return e;
+
+  // out-projection grads: dattn in s8, dWo and dbo over the bf16 do
+  e = vitax::launch_quant_rows(dob, doqi, sdof, n, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(doqi, static_cast<const int8_t*>(wo8r), sdof,
+                                            static_cast<const float*>(swor), nullptr, nullptr,
+                                            nullptr, dattnb, nullptr, n, hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, n, d, st);
+  if (e != cudaSuccess) return e;
+
+  // attention-core grads -> dqkv
+  e = vitax::launch_attention_bwd_hd(qkvb, attnb, dattnb, static_cast<bf16*>(p),
+                                     static_cast<bf16*>(ds), dqkvb, b, spq, seq_len, heads,
+                                     head_dim, scale, st);
+  if (e != cudaSuccess) return e;
+
+  // QKV projection grads (dxn in s8) and the LN tail
+  e = vitax::launch_quant_rows(static_cast<const bf16*>(dqkvb), dqqi, sdqf, n, 3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8F32>(dqqi, static_cast<const int8_t*>(w8r), sdqf,
+                                           static_cast<const float*>(swr), nullptr, nullptr,
+                                           nullptr, nullptr, dxnf, n, d, 3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, 3 * hhd, n, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n,
+                           3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  return vitax::launch_layer_norm_bwd<bf16, float>(
+      xb, static_cast<const float*>(gamma), dxnf, nullptr, static_cast<bf16*>(dx),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d, eps, st);
+}

@@ -37,6 +37,10 @@ SIGNATURES = {
     "vitax_layer_norm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
     "vitax_ln_mlp_bwd": [_P] * 20 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_qkvo_attention_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
+    "vitax_ln_mlp_int8_fwd": [_P] * 17 + [_I, _I, _I, _F, _P],
+    "vitax_ln_mlp_int8_bwd": [_P] * 33 + [_I, _I, _I, _F, _P],
+    "vitax_ln_qkvo_attention_int8_fwd": [_P] * 18 + [_I] * 6 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_int8_bwd": [_P] * 35 + [_I] * 6 + [_F, _F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {

@@ -20,9 +20,11 @@ a list of per-layer dicts instead of `[L, ...]`-stacked leaves:
 both packages compute the same function. `apply` is the forward, eval or
 train: with `fused_qkv` and `fused_mlp` each encoder block is two fused
 kernels on a residual stream padded once to a multiple of 8 rows (under
-autograd, their backward kernels run through `torch.autograd.Function`s);
-with them off, it is plain PyTorch ops. Train mode adds token dropping and
-dropout, with their random numbers drawn from an explicit `torch.Generator`.
+autograd, their backward kernels run through `torch.autograd.Function`s),
+in bf16 or, with `int8_attn`/`int8_mlp` (and their `_grad` flags), in the
+W8A8 tiers; with them off, it is plain PyTorch ops. Train mode adds token
+dropping and dropout, with their random numbers drawn from an explicit
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -201,9 +203,14 @@ def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
     wo = p["out"]["kernel"].to(dt).reshape(h * hd, d)
     spq = (s + 7) // 8 * 8
     xp = x if seq_len is not None else F.pad(x, (0, 0, 0, spq - s))
-    out = ck.fused_ln_qkvo_attention(
-        xp.contiguous(), lp["ln1"]["scale"].float(), lp["ln1"]["bias"].float(),
-        wqkv, bqkv, wo, p["out"]["bias"].float(), LN_EPS, s, h, hd)
+    args = (xp.contiguous(), lp["ln1"]["scale"].float(),
+            lp["ln1"]["bias"].float(), wqkv, bqkv, wo,
+            p["out"]["bias"].float(), LN_EPS, s, h, hd)
+    if cfg.int8_attn:  # W8A8 projections (vitax/models/vit.py:247-252)
+        out = ck.fused_ln_qkvo_attention_int8(*args,
+                                              int8_grad=cfg.int8_attn_grad)
+    else:
+        out = ck.fused_ln_qkvo_attention(*args)
     if seq_len is None:
         out = out[:, :s]
     return out.to(dt)
@@ -217,10 +224,12 @@ def _fused_block_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig
     w2 = lp["mlp"]["fc2"]["kernel"].to(x.dtype)
     if not ck.ln_mlp_supported(x, w1, w2):
         return None
-    return ck.fused_ln_mlp(
-        x.contiguous(), lp["ln2"]["scale"].float(), lp["ln2"]["bias"].float(),
-        w1, lp["mlp"]["fc1"]["bias"].float(), w2,
-        lp["mlp"]["fc2"]["bias"].float(), LN_EPS)
+    args = (x.contiguous(), lp["ln2"]["scale"].float(),
+            lp["ln2"]["bias"].float(), w1, lp["mlp"]["fc1"]["bias"].float(),
+            w2, lp["mlp"]["fc2"]["bias"].float(), LN_EPS)
+    if cfg.int8_mlp:  # W8A8 fc1/fc2 (vitax/models/vit.py:289-298)
+        return ck.fused_ln_mlp_int8(*args, int8_grad=cfg.int8_mlp_grad)
+    return ck.fused_ln_mlp(*args)
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
@@ -320,16 +329,54 @@ def _padded_stream_len(x: torch.Tensor, params: Params, cfg: ViTConfig,
     return spq
 
 
+def _takes_int8_handoff(x: torch.Tensor, cfg: ViTConfig,
+                        deterministic: bool) -> bool:
+    """Whether vitax's auto gate takes the int8 block handoff (K5,
+    fused_block_int8_handoff) for the padded stream x [B, spq, D]
+    (vitax/models/vit.py:504-516): no dropout, all four int8 flags, no
+    int4 or save-acts, and short sequences (spq <= 128, the token-drop
+    phase) or streams of >= 51200 rows; then its row-block check
+    (_vitax_mlp_rows_divide)."""
+    b, spq, _ = x.shape
+    if not (deterministic and cfg.int8_attn and cfg.int8_mlp
+            and cfg.int8_attn_grad and cfg.int8_mlp_grad
+            and not (cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad)
+            and not cfg.fused_mlp_save
+            and (spq <= 128 or b * spq >= 51200)):
+        return False
+    return _vitax_mlp_rows_divide(b * spq)
+
+
+def _vitax_mlp_rows_divide(n: int) -> bool:
+    """vitax's block_handoff_supported (pallas_kernels.py:3852-3859): the
+    int8 MLP row block that its TPU geometry derives for n rows
+    (_mlp_block_rows :427 with its default of 2 chunks, _ln_mlp_rows :1393)
+    divides n."""
+    base = 256
+    if n >= 32768:
+        base = 1024
+        if n % base:
+            base = next((c for c in (1280, 960, 768, 640, 512)
+                         if n % c == 0 and n % (2 * c) == 0), 1024)
+    rows = min(base, (n + 15) // 16 * 16)
+    while rows > 16 and n % rows:
+        rows //= 2
+    return n % rows == 0
+
+
 def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
           train: bool = False, gen: Optional[torch.Generator] = None
           ) -> torch.Tensor:
     """Forward: NHWC images [B,H,W,3] → fp32 logits [B, num_classes].
     `train` turns on token dropping (cfg.token_keep < 1) and dropout, whose
     random numbers come from `gen`."""
-    if cfg.int8_mlp or cfg.int8_attn or cfg.int4_mlp or cfg.int4_attn:
+    if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
         raise NotImplementedError(
-            "the int8/int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, "
-            "K3/K4/K11)")
+            "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, K11)")
+    if cfg.int8_dw:
+        raise NotImplementedError(
+            "int8_dw: the per-block int8 weight-grad products are not ported "
+            "yet (ROADMAP Queue 2, int8_dw and K5)")
     if cfg.remat:
         raise NotImplementedError(
             f"remat={cfg.remat!r}: block rematerialization is not ported yet "
@@ -350,6 +397,11 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     if spq is not None:
         seq_len = x.shape[1]
         x = F.pad(x, (0, 0, 0, spq - seq_len))
+        if _takes_int8_handoff(x, cfg, deterministic):
+            raise NotImplementedError(
+                f"B {x.shape[0]} x spq {spq}: vitax runs the int8 block "
+                "handoff here, which is not ported yet (ROADMAP Queue 2, "
+                "int8_dw and K5)")
     for lp in params["layers"]:
         x = _block(x, lp, cfg, gen, deterministic, seq_len)
     # pad rows (if any) carry confined garbage; the head reads only cls

@@ -1,24 +1,36 @@
 """Hand-written Hopper kernels of the serving and training paths, each beside
 its plain PyTorch version (counterpart of vitax/ops/pallas_kernels.py).
 
-| wrapper                       | CUDA source (csrc/)        | replaces (pallas_kernels.py) |
-|-------------------------------|----------------------------|------------------------------|
-| `layer_norm`                  | layernorm.cu               | `_ln_fwd_kernel` :267        |
-| `fused_ln_qkvo_attention`     | ln_qkvo_attention.cu       | `_ln_qkvo_fwd_kernel` :2640  |
-| `fused_ln_mlp`                | ln_mlp.cu                  | `_ln_mlp_fwd_kernel` :587    |
-| `layer_norm_bwd`              | layernorm_bwd.cu           | `_ln_bwd_kernel` :278        |
-| `fused_ln_qkvo_attention_bwd` | ln_qkvo_attention_bwd.cu   | `_ln_qkvo_bwd_kernel` :2898  |
-| `fused_ln_mlp_bwd`            | ln_mlp_bwd.cu              | `_ln_mlp_bwd_kernel` :1308   |
+wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
+(pallas_kernels.py):
+
+- `layer_norm` -> layernorm.cu -> `_ln_fwd_kernel` :267
+- `fused_ln_qkvo_attention` -> ln_qkvo_attention.cu -> `_ln_qkvo_fwd_kernel`
+  :2640
+- `fused_ln_mlp` -> ln_mlp.cu -> `_ln_mlp_fwd_kernel` :587
+- `layer_norm_bwd` -> layernorm_bwd.cu -> `_ln_bwd_kernel` :278
+- `fused_ln_qkvo_attention_bwd` -> ln_qkvo_attention_bwd.cu ->
+  `_ln_qkvo_bwd_kernel` :2898
+- `fused_ln_mlp_bwd` -> ln_mlp_bwd.cu -> `_ln_mlp_bwd_kernel` :1308
+- `fused_ln_qkvo_attention_int8` -> ln_qkvo_attention_int8.cu ->
+  `_ln_qkvo_fwd_int8_kernel` :2690 (K3)
+- `fused_ln_mlp_int8` -> ln_mlp_int8.cu -> `_ln_mlp_fwd_int8_kernel` :683
+  (K4)
+- `fused_ln_qkvo_attention_int8_bwd` -> ln_qkvo_attention_int8_bwd.cu ->
+  `_ln_qkvo_bwd_int8_kernel` :2977
+- `fused_ln_mlp_int8_bwd` -> ln_mlp_int8_bwd.cu -> `_ln_mlp_bwd_int8_kernel`
+  :1122
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
-no fallback. With grad mode on and an input that requires grad, the three
-forward wrappers go through a `torch.autograd.Function` (`LayerNormFn`,
-`FusedLnQkvoAttentionFn`, `FusedLnMlpFn`) whose backward is the matching
-`*_bwd` wrapper. As vitax's custom VJPs, each Function saves only its inputs
-and recomputes the rest in the backward; its grads come back in the dtypes
-of the Pallas VJPs (weight grads in the weight's dtype, LN and bias grads in
-fp32).
+no fallback. With grad mode on and an input that requires grad, the forward
+wrappers go through a `torch.autograd.Function` (`LayerNormFn`,
+`FusedLnQkvoAttentionFn`, `FusedLnMlpFn`, the last two for both tiers)
+whose backward is the matching `*_bwd` wrapper: the int8 one under
+`int8_grad`, else the bf16 one. As vitax's custom VJPs, each Function
+saves only its inputs and recomputes the rest in the backward; its grads
+come back in the dtypes of the Pallas VJPs (weight grads in the weight's
+dtype, LN and bias grads in fp32).
 
 Each wrapper counts its launches in a plain int attribute, `wrapper.launches`,
 incremented once per launch of its kernel and nowhere else, so a run can
@@ -38,7 +50,10 @@ import torch
 from vitax_torch.kernels import build
 from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm_ref
-from vitax_torch.ops.mlp import gelu_exact, gelu_exact_grad
+from vitax_torch.ops.mlp import (gelu_exact, gelu_exact_grad, gelu_grad_q,
+                                 gelu_q)
+from vitax_torch.ops.quant import (int_mm, quant_cols_host, quant_rows,
+                                   quant_rows_host)
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt into (227 KB)
 ATTN_HEAD_DIMS = (32, 64, 128)
@@ -85,6 +100,18 @@ def _needs_grad(*tensors) -> bool:
 
 def _workspace(floats: int, dev: torch.device) -> torch.Tensor:
     return torch.empty(max(int(floats), 1), dtype=_F32, device=dev)
+
+
+def _f32(dev, *shape):
+    return torch.empty(shape, dtype=_F32, device=dev)
+
+
+def _bf(dev, *shape):
+    return torch.empty(shape, dtype=_BF, device=dev)
+
+
+def _i8(dev, *shape):
+    return torch.empty(shape, dtype=torch.int8, device=dev)
 
 
 def reset_launch_counts() -> None:
@@ -244,7 +271,8 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps):
     """out = x + fc2(GELU_exact(fc1(LN(x)))) for x [..., D]; x.dtype out.
     Weights bf16 [D,M], [M,D]; gamma/beta/b1/b2 fp32."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
-        return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps)
+        return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, False,
+                                  False)
     if not x.is_cuda:
         return fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps)
     dev = _check_cuda(
@@ -327,16 +355,11 @@ def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
     _check_shape("fused_ln_mlp_bwd", "do", do, tuple(x.shape))
     n = x2.shape[0]
     lib = build.load()
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=_F32, device=dev)
-
-    def bf(*shape):
-        return torch.empty(shape, dtype=_BF, device=dev)
-
-    dx, dg, dbe, dw1, db1, dw2, db2 = (bf(n, d), f32(d), f32(d), f32(d, m),
-                                       f32(m), f32(m, d), f32(d))
-    xn, a1, h1, dh1, dxn = bf(n, d), f32(n, m), bf(n, m), bf(n, m), f32(n, d)
+    dx, dg, dbe = _bf(dev, n, d), _f32(dev, d), _f32(dev, d)
+    dw1, db1, dw2, db2 = (_f32(dev, d, m), _f32(dev, m), _f32(dev, m, d),
+                          _f32(dev, d))
+    xn, h1, dh1 = _bf(dev, n, d), _bf(dev, n, m), _bf(dev, n, m)
+    a1, dxn = _f32(dev, n, m), _f32(dev, n, d)
     ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
     rc = lib.vitax_ln_mlp_bwd(*(t.data_ptr() for t in (
         x2, gamma, beta, w1, b1, w2, do, dx, dg, dbe, dw1, db1, dw2, db2, xn,
@@ -350,24 +373,31 @@ fused_ln_mlp_bwd.launches = 0
 
 
 class FusedLnMlpFn(torch.autograd.Function):
-    """`fused_ln_mlp` with the K2 backward kernel (vitax's _ln_mlp_2d custom
-    VJP, pallas_kernels.py:1652-1673): saves (x, γ, β, W1, b1, W2)."""
+    """The fused MLP half with its backward kernel, saving (x, γ, β, W1, b1,
+    W2), as vitax's custom VJPs: `int8` picks the W8A8 forward (K4) and
+    `int8_grad` the W8A8 dx-path backward (K4 bwd, _ln_mlp_2d_int8g
+    :1845-1865); `int8` alone keeps the bf16 backward of the bf16 function
+    (_ln_mlp_2d_int8 :1779-1801), as does the bf16 tier (_ln_mlp_2d
+    :1652-1673)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_grad):
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2)
         ctx.eps = eps
+        ctx.int8_grad = int8 and int8_grad
         ctx.b2_dtype = b2.dtype
-        return fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps)
+        fwd = fused_ln_mlp_int8 if int8 else fused_ln_mlp
+        return fwd(x, gamma, beta, w1, b1, w2, b2, eps)
 
     @staticmethod
     def backward(ctx, do):
         x, gamma, beta, w1, b1, w2 = ctx.saved_tensors
-        dx, dg, dbe, dw1, db1, dw2, db2 = fused_ln_mlp_bwd(
+        bwd = fused_ln_mlp_int8_bwd if ctx.int8_grad else fused_ln_mlp_bwd
+        dx, dg, dbe, dw1, db1, dw2, db2 = bwd(
             x, gamma, beta, w1, b1, w2, do.contiguous(), ctx.eps)
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw1.to(w1.dtype),
                 db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
-                None)
+                None, None, None)
 
 
 # =============================================================================
@@ -419,25 +449,45 @@ def qkv_attention_bwd_supported(x, wqkv, heads) -> bool:
     return attention_bwd_smem_bytes(spq, hd) <= SMEM_LIMIT
 
 
-def _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim):
-    """qkv → per-head q, k, v [B,H,spq,Hd], fp32 softmax p (cols ≥ seq_len
-    exactly 0) and the bf16 head outputs o, as _attn_core_recompute
-    (pallas_kernels.py:2814-2843)."""
-    dt = xn.dtype
-    b, spq, _ = xn.shape
+def _attn_core(qkv, seq_len, heads, head_dim):
+    """qkv [B, spq, 3·H·Hd] → per-head q, k, v [B,H,spq,Hd], fp32 softmax p
+    (cols ≥ seq_len exactly 0) and the fp32 head outputs p·v, as
+    _attn_core_recompute (pallas_kernels.py:2814-2843) before its cast."""
+    b, spq, _ = qkv.shape
     hhd = heads * head_dim
-    qkv = (matmul_f32(xn, wqkv) + bqkv.float()).to(dt)
     q, k, v = (qkv[..., i * hhd:(i + 1) * hhd]
                .reshape(b, spq, heads, head_dim).transpose(1, 2)
                for i in range(3))
     s = matmul_f32(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(head_dim))
     if seq_len < spq:
-        col = torch.arange(spq, device=xn.device)
+        col = torch.arange(spq, device=qkv.device)
         s = torch.where(col < seq_len, s, torch.full_like(s, -1e30))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e * (1.0 / e.sum(dim=-1, keepdim=True))
-    o = matmul_f32(p.to(dt), v).to(dt)
-    return q, k, v, p, o
+    return q, k, v, p, matmul_f32(p.to(qkv.dtype), v)
+
+
+def _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim):
+    """xn → qkv → the attention core with bf16 head outputs o."""
+    qkv = (matmul_f32(xn, wqkv) + bqkv.float()).to(xn.dtype)
+    q, k, v, p, o32 = _attn_core(qkv, seq_len, heads, head_dim)
+    return q, k, v, p, o32.to(xn.dtype)
+
+
+def _attn_core_grads(q, k, v, p, o, dattn, scale):
+    """dqkv [B·spq, 3·H·Hd] of the attention core, with the TPU rounding
+    points (_attn_core_grads, pallas_kernels.py:2846-2895): ds, dq, dk, dv
+    in the compute dtype. dattn [B·spq, H·Hd]."""
+    dt = q.dtype
+    b, h, spq, hd = q.shape
+    d_o = dattn.view(b, spq, h, hd).transpose(1, 2)
+    dp = matmul_f32(d_o, v.transpose(-1, -2))
+    dd = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - dd)).to(dt)
+    dq = (matmul_f32(ds, k) * scale).to(dt)
+    dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(dt)
+    dv = matmul_f32(p.to(dt).transpose(-1, -2), d_o).to(dt)
+    return torch.cat([_heads_to_rows(t) for t in (dq, dk, dv)], dim=1)
 
 
 def _heads_to_rows(t):
@@ -466,7 +516,8 @@ def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
     bqkv, bo fp32. Returns [B, spq, D] without the residual."""
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
-                                            eps, seq_len, heads, head_dim)
+                                            eps, seq_len, heads, head_dim,
+                                            False, False)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
                                            eps, seq_len, heads, head_dim)
@@ -532,14 +583,7 @@ def fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
     dattn = matmul_f32(do2, wo.t()).to(dt)
     dwo = matmul_f32(_heads_to_rows(o).t(), do2)
     dbo = do2.float().sum(dim=0)
-    d_o = dattn.view(b, spq, heads, head_dim).transpose(1, 2)
-    dp = matmul_f32(d_o, v.transpose(-1, -2))
-    dd = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
-    ds = (p * (dp - dd)).to(dt)
-    dq = (matmul_f32(ds, k) * scale).to(dt)
-    dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(dt)
-    dv = matmul_f32(p.to(dt).transpose(-1, -2), d_o).to(dt)
-    dqkv = torch.cat([_heads_to_rows(t) for t in (dq, dk, dv)], dim=1)
+    dqkv = _attn_core_grads(q, k, v, p, o, dattn, scale)
     dxn = matmul_f32(dqkv, wqkv.t())
     dw = matmul_f32(xn.t(), dqkv)
     db = dqkv.float().sum(dim=0)
@@ -569,18 +613,13 @@ def fused_ln_qkvo_attention_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
     n = b * spq
     rows = (spq + 15) // 16 * 16
     lib = build.load()
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=_F32, device=dev)
-
-    def bf(*shape):
-        return torch.empty(shape, dtype=_BF, device=dev)
-
-    dx, dg, dbe = torch.empty_like(x), f32(d), f32(d)
-    dw, db, dwo, dbo = f32(d, 3 * hhd), f32(3 * hhd), f32(hhd, d), f32(d)
-    xn, qkv, attn, dattn = bf(n, d), bf(n, 3 * hhd), bf(n, hhd), bf(n, hhd)
-    p, ds = bf(b, heads, rows, rows), bf(b, heads, rows, rows)
-    dqkv, dxn = bf(n, 3 * hhd), f32(n, d)
+    dx, dg, dbe = torch.empty_like(x), _f32(dev, d), _f32(dev, d)
+    dw, db = _f32(dev, d, 3 * hhd), _f32(dev, 3 * hhd)
+    dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
+    xn, qkv, attn, dattn = (_bf(dev, n, d), _bf(dev, n, 3 * hhd),
+                            _bf(dev, n, hhd), _bf(dev, n, hhd))
+    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    dqkv, dxn = _bf(dev, n, 3 * hhd), _f32(dev, n, d)
     ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd), dev)
     rc = lib.vitax_ln_qkvo_attention_bwd(*(t.data_ptr() for t in (
         x, gamma, beta, wqkv, bqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, xn,
@@ -595,28 +634,383 @@ fused_ln_qkvo_attention_bwd.launches = 0
 
 
 class FusedLnQkvoAttentionFn(torch.autograd.Function):
-    """`fused_ln_qkvo_attention` with the K1 backward kernel (vitax's
-    fused_ln_qkvo_attention custom VJP, pallas_kernels.py:3209-3300): saves
-    (x, γ, β, Wqkv, bqkv, Wo)."""
+    """The fused attention half with its backward kernel, saving (x, γ, β,
+    Wqkv, bqkv, Wo), as vitax's fused_ln_qkvo_attention custom VJP
+    (pallas_kernels.py:3209-3300): `int8` picks the W8A8 forward (K3) and
+    `int8_grad` the W8A8 backward (K3 bwd, :3246-3299); otherwise the
+    backward is the bf16 one (K1 bwd, :3300)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
-                head_dim):
+                head_dim, int8, int8_grad):
         ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wo)
         ctx.meta = (eps, seq_len, heads, head_dim)
+        ctx.int8_grad = int8 and int8_grad
         ctx.bo_dtype = bo.dtype
-        return fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
-                                       seq_len, heads, head_dim)
+        fwd = fused_ln_qkvo_attention_int8 if int8 else fused_ln_qkvo_attention
+        return fwd(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
+                   head_dim)
 
     @staticmethod
     def backward(ctx, do):
         x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
-        dx, dg, dbe, dw, db, dwo, dbo = fused_ln_qkvo_attention_bwd(
+        bwd = (fused_ln_qkvo_attention_int8_bwd if ctx.int8_grad
+               else fused_ln_qkvo_attention_bwd)
+        dx, dg, dbe, dw, db, dwo, dbo = bwd(
             x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw.to(wqkv.dtype),
                 db.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(ctx.bo_dtype),
-                None, None, None, None)
+                None, None, None, None, None, None)
+
+
+# =============================================================================
+# W8A8 tiers of both halves: K4 (MLP) and K3 (attention), forward and the
+# int8 dx-path backward. The kernels take the bf16 weights and quantize
+# them in their first launches (csrc/quant.cuh; vitax does it in XLA outside
+# its kernels), into scratch the wrappers allocate; the twins quantize with
+# ops/quant.py, whose divisions give the same codes. The s8 products need
+# K % 16, which the bf16 gates' K % 32 implies, so the same gates serve both
+# tiers.
+# =============================================================================
+
+def _affine(xhat, gamma, beta):
+    """x̂·γ + β as one fused multiply-add, as XLA (and nvcc) contract it:
+    torch.addcmul rounds once. The int8 twins quantize this value, and one
+    rounding more or less can move a code across a .5 tie."""
+    return torch.addcmul(beta.float(), xhat, gamma.float())
+
+
+def _keep(scratch, **pairs):
+    """Hands the (codes, scale) pairs of an int8 kernel or twin to a caller
+    that asked for them (chip_smoke.py and the card tests hold the kernels'
+    codes against the twins'), scales flattened to one per row or column."""
+    if scratch is not None:
+        scratch.update({k: (q, s.reshape(-1)) for k, (q, s) in pairs.items()})
+
+
+def _dequant(acc, s_row, s_col, bias=None):
+    """f32(acc)·s_row·s_col (+ bias), the TPU kernels' order, the bias add
+    fused with the last multiply as XLA contracts it."""
+    t = acc * s_row
+    return t * s_col if bias is None else torch.addcmul(bias.float(), t, s_col)
+
+
+def fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
+                          scratch=None):
+    """K4 forward with the TPU kernel's rounding points
+    (_ln_mlp_fwd_int8_kernel, pallas_kernels.py:692-721): xq from the fp32
+    LN output, a1 = f32(xq·W1q)·sx·s1 + b1, h1q from gelu_q(a1) in fp32,
+    y = f32(h1q·W2q)·sh·s2 + b2, out = x + bf16(y) in x.dtype. A `scratch`
+    dict receives every (codes, scale) pair, as the kernel's wrapper fills
+    it."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    w1q, s1 = quant_cols_host(w1)
+    w2q, s2 = quant_cols_host(w2)
+    xhat, _ = _ln_stats(x2.float(), eps)
+    xq, sx = quant_rows(_affine(xhat, gamma, beta))
+    a1 = _dequant(int_mm(xq, w1q), sx, s1, b1)
+    h1q, sh = quant_rows(gelu_q(a1))
+    y = _dequant(int_mm(h1q, w2q), sh, s2, b2)
+    _keep(scratch, w1q=(w1q, s1), w2q=(w2q, s2), xq=(xq, sx), h1q=(h1q, sh))
+    return (x2 + y.to(x.dtype)).reshape(x.shape)
+
+
+def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
+                      *, scratch=None):
+    """`fused_ln_mlp` with W8A8 fc1 and fc2 and the sigmoid GELU (K4).
+    Under autograd the backward is K4's int8 dx-path backward with
+    `int8_grad`, else the bf16 K2 backward. A `scratch` dict receives the
+    codes and scales the kernel wrote, keyed and laid out as the twin's."""
+    if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
+        return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, True,
+                                  int8_grad)
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps,
+                                     scratch=scratch)
+    dev = _check_cuda(
+        "fused_ln_mlp_int8",
+        {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
+         "b2": b2},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "w1": _BF, "b1": _F32,
+         "w2": _BF, "b2": _F32})
+    d = x.shape[-1]
+    m = w1.shape[1]
+    x2 = x.view(-1, d)
+    if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
+        raise ValueError(f"fused_ln_mlp_int8: unsupported shapes x "
+                         f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 "
+                         f"{tuple(w2.shape)}")
+    for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m),
+                      ("b2", b2, d)):
+        _check_shape("fused_ln_mlp_int8", key, t, (k,))
+    n = x2.shape[0]
+    w1t, s1 = _i8(dev, m, d), _f32(dev, m)  # per column, as [N, K]
+    w2t, s2 = _i8(dev, d, m), _f32(dev, d)
+    xq, h1q = _i8(dev, n, d), _i8(dev, n, m)
+    sx, sh = _f32(dev, n), _f32(dev, n)
+    g = _f32(dev, n, m)
+    out = torch.empty_like(x2)
+    rc = build.load().vitax_ln_mlp_int8_fwd(*(t.data_ptr() for t in (
+        x2, gamma, beta, w1, b1, w2, b2, w1t, s1, w2t, s2, xq, sx, g, h1q, sh,
+        out)), n, d, m, eps, _stream(dev))
+    build.check(rc, "fused_ln_mlp_int8")
+    fused_ln_mlp_int8.launches += 1
+    _keep(scratch, w1q=(w1t.t(), s1), w2q=(w2t.t(), s2), xq=(xq, sx),
+          h1q=(h1q, sh))
+    return out.view(x.shape)
+
+
+fused_ln_mlp_int8.launches = 0
+
+
+def fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
+                              scratch=None):
+    """(dx, dγ, dβ, dW1, db1, dW2, db2) of K4 under int8_grad with the TPU
+    kernel's rounding points (_ln_mlp_bwd_int8_kernel, pallas_kernels.py:
+    1134-1224, int8_dw off): xq from the bf16-rounded xn (the forward
+    quantizes fp32), the fc1 recompute on the column-quantized W1,
+    dh1f = f32(doq·W2rᵀ)·sdo·s2r, dh1_32 = dh1f·gelu_grad_q(a1),
+    dxn = f32(dh1q·W1rᵀ)·sd·s1r; dW1, dW2 bf16 products; db1 = Σ dh1_32."""
+    dt = x.dtype
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    do2 = do.reshape(-1, d)
+    w1r, s1r = quant_rows_host(w1)
+    w2r, s2r = quant_rows_host(w2)
+    w1c, s1c = quant_cols_host(w1)
+    xhat, rstd = _ln_stats(x2.float(), eps)
+    xn = _affine(xhat, gamma, beta).to(dt)
+    xq, sxq = quant_rows(xn.float())
+    a1 = _dequant(int_mm(xq, w1c), sxq, s1c, b1)
+    doq, sdo = quant_rows(do2.float())
+    dh1f = _dequant(int_mm(doq, w2r.t()), sdo, s2r)
+    h1 = gelu_q(a1).to(dt)
+    dh1_32 = dh1f * gelu_grad_q(a1)
+    dh1 = dh1_32.to(dt)
+    dh1q, sd = quant_rows(dh1_32)
+    dw2 = matmul_f32(h1.t(), do2)
+    dw1 = matmul_f32(xn.t(), dh1)
+    dxn = _dequant(int_mm(dh1q, w1r.t()), sd, s1r)
+    dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
+    _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c, s1c),
+          xq=(xq, sxq), doq=(doq, sdo), dh1q=(dh1q, sd))
+    return ((do2 + dxln.to(dt)).reshape(x.shape), dg, dbe, dw1,
+            dh1_32.sum(dim=0), dw2, do2.float().sum(dim=0))
+
+
+def fused_ln_mlp_int8_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                          scratch=None):
+    """Backward of `fused_ln_mlp_int8` under int8_grad: dx (x's shape, bf16)
+    and fp32 dγ, dβ [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                         scratch=scratch)
+    dev = _check_cuda(
+        "fused_ln_mlp_int8_bwd",
+        {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
+         "do": do},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "w1": _BF, "b1": _F32,
+         "w2": _BF, "do": _BF})
+    d = x.shape[-1]
+    m = w1.shape[1]
+    x2 = x.view(-1, d)
+    if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
+        raise ValueError(f"fused_ln_mlp_int8_bwd: unsupported shapes x "
+                         f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 "
+                         f"{tuple(w2.shape)}")
+    for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m)):
+        _check_shape("fused_ln_mlp_int8_bwd", key, t, (k,))
+    _check_shape("fused_ln_mlp_int8_bwd", "do", do, tuple(x.shape))
+    n = x2.shape[0]
+    lib = build.load()
+    w1r, s1r = _i8(dev, d, m), _f32(dev, d)  # per row
+    w2r, s2r = _i8(dev, m, d), _f32(dev, m)
+    w1c, s1c = _i8(dev, m, d), _f32(dev, m)  # per column, as [N, K]
+    dx, dg, dbe = torch.empty_like(x2), _f32(dev, d), _f32(dev, d)
+    dw1, db1 = _f32(dev, d, m), _f32(dev, m)
+    dw2, db2 = _f32(dev, m, d), _f32(dev, d)
+    xn, h1, dh1 = _bf(dev, n, d), _bf(dev, n, m), _bf(dev, n, m)
+    a1, dh1f, dxn = _f32(dev, n, m), _f32(dev, n, m), _f32(dev, n, d)
+    xq, doq, dh1q = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, m)
+    sx, sdo, sdh = _f32(dev, n), _f32(dev, n), _f32(dev, n)
+    ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
+    rc = lib.vitax_ln_mlp_int8_bwd(*(t.data_ptr() for t in (
+        x2, gamma, beta, b1, w1, w2, do, dx, dg, dbe, dw1, db1, dw2, db2, w1r,
+        s1r, w2r, s2r, w1c, s1c, xn, xq, sx, a1, h1, doq, sdo, dh1f, dh1, dh1q,
+        sdh, dxn, ws)), n, d, m, eps, _stream(dev))
+    build.check(rc, "fused_ln_mlp_int8_bwd")
+    fused_ln_mlp_int8_bwd.launches += 1
+    _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c.t(), s1c),
+          xq=(xq, sx), doq=(doq, sdo), dh1q=(dh1q, sdh))
+    return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
+
+
+fused_ln_mlp_int8_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                     seq_len, heads, head_dim, *,
+                                     scratch=None):
+    """K3 forward with the TPU kernel's rounding points
+    (_ln_qkvo_fwd_int8_kernel, pallas_kernels.py:2699-2742): xq from the
+    fp32 LN output, qkv = bf16(f32(xq·Wq)·sx·sw + b), the bf16 core with
+    fp32 softmax, attn the fp32 heads' p·v (never rounded) quantized per
+    row, out = bf16(f32(aq·Woq)·sa·swo + bo), no residual."""
+    dt = x.dtype
+    b, spq, d = x.shape
+    w8, sw = quant_cols_host(wqkv)
+    wo8, swo = quant_cols_host(wo)
+    xhat, _ = _ln_stats(x.reshape(-1, d).float(), eps)
+    xq, sx = quant_rows(_affine(xhat, gamma, beta))
+    qkv = _dequant(int_mm(xq, w8), sx, sw, bqkv).to(dt)
+    *_, o32 = _attn_core(qkv.view(b, spq, -1), seq_len, heads, head_dim)
+    aq, sa = quant_rows(_heads_to_rows(o32))
+    y = _dequant(int_mm(aq, wo8), sa, swo, bo)
+    _keep(scratch, w8=(w8, sw), wo8=(wo8, swo), xq=(xq, sx), aq=(aq, sa))
+    return y.to(dt).view(b, spq, d)
+
+
+def fused_ln_qkvo_attention_int8(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                 seq_len, heads, head_dim, int8_grad=False, *,
+                                 scratch=None):
+    """`fused_ln_qkvo_attention` with W8A8 QKV and out-projections (K3); the
+    attention core stays bf16 with fp32 softmax. Under autograd the
+    backward is K3's int8 backward with `int8_grad`, else the bf16 K1
+    backward. `scratch`: as `fused_ln_mlp_int8`'s."""
+    if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
+        return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                            eps, seq_len, heads, head_dim,
+                                            True, int8_grad)
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                                bo, eps, seq_len, heads,
+                                                head_dim, scratch=scratch)
+    dev = _check_cuda(
+        "fused_ln_qkvo_attention_int8",
+        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
+         "wo": wo, "bo": bo},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "bo": _F32})
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    _check_qkvo("fused_ln_qkvo_attention_int8", x, gamma, beta, wqkv, bqkv, wo,
+                seq_len, heads, head_dim, qkv_attention_supported)
+    _check_shape("fused_ln_qkvo_attention_int8", "bo", bo, (d,))
+    n = b * spq
+    w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
+    wo8t, swo = _i8(dev, d, hhd), _f32(dev, d)
+    xq, aq = _i8(dev, n, d), _i8(dev, n, hhd)
+    sx, sa = _f32(dev, n), _f32(dev, n)
+    qkv, attn = _bf(dev, n, 3 * hhd), _f32(dev, n, hhd)
+    out = torch.empty_like(x)
+    ptrs = (t.data_ptr() for t in (x, gamma, beta, wqkv, bqkv, wo, bo, w8t,
+                                   sw, wo8t, swo, xq, sx, qkv, attn, aq, sa,
+                                   out))
+    rc = build.load().vitax_ln_qkvo_attention_int8_fwd(
+        *ptrs, b, spq, d, seq_len, heads, head_dim, eps,
+        1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, "fused_ln_qkvo_attention_int8")
+    fused_ln_qkvo_attention_int8.launches += 1
+    _keep(scratch, w8=(w8t.t(), sw), wo8=(wo8t.t(), swo), xq=(xq, sx),
+          aq=(aq, sa))
+    return out
+
+
+fused_ln_qkvo_attention_int8.launches = 0
+
+
+def fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
+                                         eps, seq_len, heads, head_dim, *,
+                                         scratch=None):
+    """(dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) of K3 under int8_grad with the
+    TPU kernel's rounding points (_ln_qkvo_bwd_int8_kernel, pallas_kernels.py:
+    3003-3088, int8_dw off): the int8 qkv recompute from the fp32 LN output,
+    the core recomputed with bf16 attn, dattn = bf16(f32(doq·Wo_rᵀ)·sdo·swor),
+    the bf16 core grads, dxn = f32(dqq·W_rᵀ)·sdq·swr; dW, dWo bf16 products."""
+    dt = x.dtype
+    b, spq, d = x.shape
+    x2 = x.reshape(-1, d)
+    do2 = do.reshape(-1, d)
+    w8, sw = quant_cols_host(wqkv)
+    w8r, swr = quant_rows_host(wqkv)
+    wo8r, swor = quant_rows_host(wo)
+    xhat, rstd = _ln_stats(x2.float(), eps)
+    xn32 = _affine(xhat, gamma, beta)
+    xn = xn32.to(dt)
+    xq, sx = quant_rows(xn32)
+    qkv = _dequant(int_mm(xq, w8), sx, sw, bqkv).to(dt)
+    q, k, v, p, o32 = _attn_core(qkv.view(b, spq, -1), seq_len, heads,
+                                 head_dim)
+    o = o32.to(dt)
+    doq, sdo = quant_rows(do2.float())
+    dattn = _dequant(int_mm(doq, wo8r.t()), sdo, swor).to(dt)
+    dwo = matmul_f32(_heads_to_rows(o).t(), do2)
+    dqkv = _attn_core_grads(q, k, v, p, o, dattn, 1.0 / math.sqrt(head_dim))
+    dqq, sdq = quant_rows(dqkv.float())
+    dxn = _dequant(int_mm(dqq, w8r.t()), sdq, swr)
+    dw = matmul_f32(xn.t(), dqkv)
+    dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
+    _keep(scratch, w8=(w8, sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
+          xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
+    return (dxln.to(dt).view(b, spq, d), dg, dbe, dw, dqkv.float().sum(dim=0),
+            dwo, do2.float().sum(dim=0))
+
+
+def fused_ln_qkvo_attention_int8_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                                     seq_len, heads, head_dim, *,
+                                     scratch=None):
+    """Backward of `fused_ln_qkvo_attention_int8` under int8_grad: dx
+    [B, spq, D] bf16 and fp32 dγ, dβ [D], dWqkv [D, 3·H·Hd], dbqkv
+    [3·H·Hd], dWo [H·Hd, D], dbo [D]."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv,
+                                                    wo, do, eps, seq_len,
+                                                    heads, head_dim,
+                                                    scratch=scratch)
+    dev = _check_cuda(
+        "fused_ln_qkvo_attention_int8_bwd",
+        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
+         "wo": wo, "do": do},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "do": _BF})
+    _check_qkvo("fused_ln_qkvo_attention_int8_bwd", x, gamma, beta, wqkv, bqkv,
+                wo, seq_len, heads, head_dim, qkv_attention_bwd_supported)
+    _check_shape("fused_ln_qkvo_attention_int8_bwd", "do", do, tuple(x.shape))
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    n = b * spq
+    rows = (spq + 15) // 16 * 16
+    lib = build.load()
+    w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
+    w8r, swr = _i8(dev, d, 3 * hhd), _f32(dev, d)
+    wo8r, swor = _i8(dev, hhd, d), _f32(dev, hhd)
+    dx, dg, dbe = torch.empty_like(x), _f32(dev, d), _f32(dev, d)
+    dw, db = _f32(dev, d, 3 * hhd), _f32(dev, 3 * hhd)
+    dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
+    xn, qkv, attn, dattn = (_bf(dev, n, d), _bf(dev, n, 3 * hhd),
+                            _bf(dev, n, hhd), _bf(dev, n, hhd))
+    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    dqkv, dxn = _bf(dev, n, 3 * hhd), _f32(dev, n, d)
+    xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, 3 * hhd)
+    sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
+    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd), dev)
+    rc = lib.vitax_ln_qkvo_attention_int8_bwd(*(t.data_ptr() for t in (
+        x, gamma, beta, bqkv, wqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, w8t,
+        sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p,
+        ds, dqkv, dqq, sdq, dxn, ws)), b, spq, d, seq_len, heads, head_dim,
+        eps, 1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, "fused_ln_qkvo_attention_int8_bwd")
+    fused_ln_qkvo_attention_int8_bwd.launches += 1
+    _keep(scratch, w8=(w8t.t(), sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
+          xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
+    return dx, dg, dbe, dw, db, dwo, dbo
+
+
+fused_ln_qkvo_attention_int8_bwd.launches = 0
 
 
 KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
-           fused_ln_qkvo_attention_bwd, fused_ln_mlp_bwd)
+           fused_ln_qkvo_attention_bwd, fused_ln_mlp_bwd,
+           fused_ln_qkvo_attention_int8, fused_ln_mlp_int8,
+           fused_ln_qkvo_attention_int8_bwd, fused_ln_mlp_int8_bwd)

@@ -7,7 +7,8 @@ plan), trains with SGD(momentum 0.9) + OneCycle sized to the planned total,
 validates every epoch with top-1/top-5 on the val split, saves `current` and
 `best` (by val acc1) and resumes exactly from `--resume`. On a CUDA card the
 fused kernels are on by default, forward and backward (`--no-fused-qkv`,
-`--no-fused-mlp` and `--no-pallas` turn them off).
+`--no-fused-mlp` and `--no-pallas` turn them off); `--int8` runs their W8A8
+forward with the bf16 backward, `--int8-grad` the W8A8 backward too.
 
 Run: `python -m vitax_torch.train_cli --dataset Synthetic --model-arch b16 \
           --image-size 224 --batch-size 32 --lr 0.03 --wd 0`
@@ -47,8 +48,8 @@ def _reject_unported(config) -> None:
          "Queue 1 item 11"),
         (config.device_prep, "--device-prep", "on-device preprocessing",
          "Queue 1 item 7"),
-        (config.int8 or config.int8_grad or config.int8_dw,
-         "--int8/--int8-grad/--int8-dw", "the int8 kernels", "Queue 2 K3/K4"),
+        (config.int8_dw, "--int8-dw", "the per-block int8 dW products",
+         "Queue 2 int8_dw and K5"),
         (config.int4 or config.int4_attn or config.int4_grad,
          "--int4/--int4-attn/--int4-grad", "the int4 kernels", "Queue 2 K11"),
         (config.save_acts, "--save-acts", "the save-acts kernels",
@@ -64,13 +65,20 @@ def _reject_unported(config) -> None:
 
 def model_config_from_cli(config, on_gpu: bool):
     """CLI flags → ViTConfig. The fused kernels default on where the device
-    is CUDA; their gates keep the plain path for shapes they do not take."""
+    is CUDA; their gates keep the plain path for shapes they do not take.
+    `--int8-dw` implies `--int8-grad` implies `--int8`, as in vitax
+    (vitax/train_cli.py:132-153)."""
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+    int8_dw = getattr(config, "int8_dw", False)
+    int8_grad = getattr(config, "int8_grad", False) or int8_dw
+    int8 = getattr(config, "int8", False) or int8_grad
     return arch_config(
         config.model_arch, image_size=config.image_size,
         num_classes=config.num_classes, dtype=dtype,
         fused_qkv=on_gpu if config.fused_qkv is None else config.fused_qkv,
         fused_mlp=on_gpu if config.fused_mlp is None else config.fused_mlp,
+        int8_mlp=int8, int8_attn=int8, int8_mlp_grad=int8_grad,
+        int8_attn_grad=int8_grad, int8_dw=int8_dw,
         token_keep=config.token_keep,
         use_pallas=False if config.no_pallas else None)
 
