@@ -43,22 +43,45 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              set to 0 just before each run and read just after; logits and
              the grads of every parameter for one batch on the int8 kernel
              path, the int8 twin path (the same autograd Functions with the
-             four int8 wrappers swapped for their plain twins) and the bf16
-             kernel path; then a device-timed train step on all three.
+             int8 wrappers swapped for their plain twins) and the bf16
+             kernel path; then a device-timed train step on all three;
+7. fast     — vitax's fastest recipe (scripts/FT_CIFAR100_fast.sh:
+             --int8-dw --token-keep 0.5 --token-keep-schedule 0.9, b768,
+             dense tail b192): `train_cli --int8-dw --token-keep 0.5
+             --token-keep-schedule 0.5` at b32 over a drop epoch (spq 104:
+             12 launches a step of each K5 half and none of K3/K4's forward)
+             and a dense epoch (spq 200: K3/K4 forward), int8_dw backwards in
+             both, exact counts per epoch; `train_cli` with the recipe's own
+             flags on 1536 images (9 drop epochs of 2 b768 steps, a dense
+             one of 8 b192 steps; its b768 eval batches, 153600 rows, take
+             K5 too), exact counts per epoch; logits and
+             full-width grads of the
+             handoff + int8_dw path against its twin path; device-timed steps
+             at b768 keep 0.5 and b192 dense, int8_dw and int8_grad in turns.
 
-Phase 3 also holds the four int8 kernels (K3, K4, forward and backward)
-against their twins: forward at b64 spq 200, b8 spq 200, b8 spq 584 and the
-ragged rows; backward at b32 spq 200, b8 spq 200, spq 104, b8 spq 584 and
-the ragged rows. Besides the bf16 tolerance, each int8 kernel's codes, read
+Phase 3 also holds the int8 kernels (K3, K4, forward and backward, their
+int8_dw backwards and K5's two halves) against their twins: forward at b64
+spq 200, b8 spq 200, b8 spq 584, the ragged rows and the drop phase's b32
+spq 104; backward at b32 spq 200, b8 spq 200, spq 104 (b16 and b32), b8 spq
+584 and the ragged rows (int8_dw at b32 spq 200, b32 spq 104 and the ragged
+rows); K5 at b32 spq 104 and b8 spq 200, the attention half packing its own
+input (the first block) and taking a pack, its output held by the half's
+own contribution (out − in). Besides the bf16 tolerance, each int8 kernel's codes, read
 back from its scratch, are held to the twin's (the weights' the same bits,
 each activation code tensor within its CODE_BAND of moved codes), and each
 output's relative distance to the twin to INT8_REL; a bf16 stand-in (the
 twin with every quantizer replaced by a rounding to bf16, as a kernel that
 skipped quantization would compute) must land outside INT8_REL on every
 output that quantization reaches, so the band is shown to tell the two
-apart in every run.
+apart in every run. The int8_dw backwards must also land within INT8_REL
+where the int8_grad kernel's bf16 weight grads land outside it (dW, dWo,
+dW1, dW2), so the band shows that their weight grads are int8.
 
-The line before the last is the JSON kernel table; the last line is
+The line before the last is the JSON kernel table (each kernel's time at
+the main path's shape beside its bound: the larger of its bytes over 3.35
+TB/s and its operations over 989 TFLOP/s bf16, 1979 TOP/s s8, 67 TFLOP/s
+fp32; and the time of F.layer_norm, forward and backward, for LN); the
+last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
 """
@@ -99,12 +122,27 @@ KERNEL_INFO = {
         "vitax/ops/pallas_kernels.py:2977"),
     "fused_ln_mlp_int8_bwd": ("vitax_torch/csrc/ln_mlp_int8_bwd.cu",
                               "vitax/ops/pallas_kernels.py:1122"),
+    # K5 and the int8_dw branches of K3's and K4's backwards
+    "fused_ln_qkvo_attention_int8_ho": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_ho.cu",
+        "vitax/ops/pallas_kernels.py:3669"),
+    "fused_ln_mlp_int8_ho": ("vitax_torch/csrc/ln_mlp_int8_ho.cu",
+                             "vitax/ops/pallas_kernels.py:3732"),
+    "fused_ln_qkvo_attention_int8_dw_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:3041"),
+    "fused_ln_mlp_int8_dw_bwd": ("vitax_torch/csrc/ln_mlp_int8_bwd.cu",
+                                 "vitax/ops/pallas_kernels.py:1173"),
 }
+DW_KERNELS = ("fused_ln_qkvo_attention_int8_dw_bwd",
+              "fused_ln_mlp_int8_dw_bwd")
+HO_KERNELS = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
 BWD_KERNELS = ("layer_norm_bwd", "fused_ln_qkvo_attention_bwd",
                "fused_ln_mlp_bwd", "fused_ln_qkvo_attention_int8_bwd",
-               "fused_ln_mlp_int8_bwd")
+               "fused_ln_mlp_int8_bwd") + DW_KERNELS
 INT8_KERNELS = ("fused_ln_qkvo_attention_int8", "fused_ln_mlp_int8",
-                "fused_ln_qkvo_attention_int8_bwd", "fused_ln_mlp_int8_bwd")
+                "fused_ln_qkvo_attention_int8_bwd", "fused_ln_mlp_int8_bwd"
+                ) + HO_KERNELS + DW_KERNELS
 
 D, HEADS, HEAD_DIM, MLP = 768, 12, 64, 3072      # ViT-B/16
 EPS = 1e-5
@@ -124,18 +162,25 @@ PLAIN_FLAGS = ["--no-pallas", "--no-fused-qkv", "--no-fused-mlp"]
 CASES = [("b64 spq200 (eval_cli)", 64, 200, 197),
          ("b8 spq200", 8, 200, 197),
          ("b8 spq584", 8, 584, 577),
-         ("ragged", 3, 200, 197)]
+         ("ragged", 3, 200, 197),
+         ("b32 spq104 (keep 0.5)", 32, 104, 99)]
+DROP_CASE = "b32 spq104 (keep 0.5)"  # the fast recipe's drop phase at b32
 # backward: the first is train_cli's (timed); keep 0.5 drops 196 patch tokens
 # to 98 (+ cls = 99, spq 104); "ragged" cuts LN's and K2's rows to 3 x 197
 BWD_CASES = [("b32 spq200 (train_cli)", 32, 200, 197),
              ("b8 spq200", 8, 200, 197),
              ("b16 spq104 (keep 0.5)", 16, 104, 99),
              ("b8 spq584", 8, 584, 577),
-             ("ragged", 3, 200, 197)]
+             ("ragged", 3, 200, 197),
+             ("b32 spq104 (keep 0.5)", 32, 104, 99)]
+# the int8_dw backwards run at train_cli's dense and drop-phase b32 and on
+# the ragged rows (K4: groups 128, 128, 128, 128, 79)
+DW_CASES = ("b32 spq200 (train_cli)", "b32 spq104 (keep 0.5)", "ragged")
 # the halves that take a ragged row count (LN and the MLP's); the attention
 # halves take the padded stream only
 RAGGED_OK = ("layer_norm", "fused_ln_mlp", "fused_ln_mlp_int8",
-             "layer_norm_bwd", "fused_ln_mlp_bwd", "fused_ln_mlp_int8_bwd")
+             "layer_norm_bwd", "fused_ln_mlp_bwd", "fused_ln_mlp_int8_bwd",
+             "fused_ln_mlp_int8_dw_bwd")
 TRAIN_ARGS = ["--model-arch", "b16", "--image-size", "224",
               "--dataset", "Synthetic", "--synthetic-samples", "256",
               "--batch-size", "32", "--lr", "0.03", "--wd", "0",
@@ -184,8 +229,17 @@ INT8_REL = 5e-3
 # a flipped last bit of a value and of its row's max can move a code two
 # steps: 1.6e-3 measured (on the card). doq quantizes the bf16 input do: the
 # same bits. A kernel that skipped quantization would move most codes.
+# int8_dw's column codes quantize a folded operand per column over a group:
+# h1c (h1·sdo) and xnc (K4's bf16 xn·sdh, K3's fp32 xn·sdq) move like h1q
+# and xq (<= 1.8e-4 measured, one step), atc (K3's bf16 attn recompute ·
+# sdo) like aq (3.6e-4). K5's packed outputs quantize LN of the bf16 r1/r2
+# the kernel computed: xq2 moves where an aq code moved r1 by one bf16 ulp
+# (4.6e-4), xqn, given the twin's r1, not at all (card tests, b32 spq 104 and
+# b8 spq 200).
 CODE_BAND = {"xq": (1, 1e-3), "h1q": (2, 1e-3), "dh1q": (2, 1e-3),
-             "aq": (2, 5e-3), "dqq": (2, 5e-3), "doq": (0, 0.0)}
+             "aq": (2, 5e-3), "dqq": (2, 5e-3), "doq": (0, 0.0),
+             "h1c": (2, 1e-3), "xnc": (2, 1e-3), "atc": (2, 5e-3),
+             "xq2": (2, 5e-3), "xqn": (1, 1e-3)}
 
 
 def _expect(**launches):
@@ -279,16 +333,45 @@ def check_kernels():
                 raise AssertionError(f"{name} {label}: max error {err} "
                                      f"exceeds {bound} (finite={finite})")
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            if i <= 2:
+            if i <= 2 or label == DROP_CASE and name in INT8_KERNELS:
                 with torch.inference_mode():
                     k_ms, p_ms = _median_ms(kern), _median_ms(plain)
                 print(f"  {name:28s} {label:22s} kernel {k_ms:.4f} ms  "
                       f"plain {p_ms:.4f} ms (median of 25)", flush=True)
                 if i == 0:
-                    stats[name].update(ms=k_ms, plain_ms=p_ms)
+                    stats[name].update(ms=k_ms, plain_ms=p_ms,
+                                       shape=(batch, rows))
+                if label == DROP_CASE:  # K3 + K4 against K5 at b32 spq 104
+                    stats[name]["drop_ms"] = k_ms
+            if i == 0 and name == "layer_norm":
+                stats[name]["library_ms"] = _layer_norm_library_ms(*args)
         del t
         torch.cuda.empty_cache()
     return stats
+
+
+def _layer_norm_library_ms(x, gamma, beta, eps):
+    """One PyTorch call that computes the row LN: F.layer_norm (γ, β cast
+    to the input's dtype beforehand)."""
+    import torch
+    import torch.nn.functional as F
+    g, b = gamma.to(x.dtype), beta.to(x.dtype)
+    with torch.inference_mode():
+        return _median_ms(lambda: F.layer_norm(x, (x.shape[-1],), g, b, eps))
+
+
+def _layer_norm_bwd_library_ms(x, gamma, dy, eps):
+    """The LN backward as PyTorch's autograd of F.layer_norm computes it: one
+    torch.autograd.grad call for (dx, dγ, dβ)."""
+    import torch
+    import torch.nn.functional as F
+    xr = x.detach().requires_grad_()
+    g = gamma.to(x.dtype).requires_grad_()
+    b = torch.zeros_like(g).requires_grad_()
+    y = F.layer_norm(xr, (x.shape[-1],), g, b, eps)
+    return _median_ms(lambda: torch.autograd.grad(y, (xr, g, b), dy,
+                                                  retain_graph=True),
+                      warmup=2, iters=10)
 
 
 def _bwd_calls(ck, t, seq_len, ragged):
@@ -305,6 +388,8 @@ def _bwd_calls(ck, t, seq_len, ragged):
         "fused_ln_mlp_bwd": mlp,
         "fused_ln_qkvo_attention_int8_bwd": qkvo,
         "fused_ln_mlp_int8_bwd": mlp,
+        "fused_ln_qkvo_attention_int8_dw_bwd": qkvo,
+        "fused_ln_mlp_int8_dw_bwd": mlp,
     }
     return {name: (lambda f=getattr(ck, name), a=a: f(*a),
                    lambda f=getattr(ck, name + "_ref"), a=a: f(*a), a)
@@ -325,6 +410,8 @@ def check_bwd_kernels(stats):
                               device="cuda").to(torch.bfloat16)
         calls = _bwd_calls(ck, t, seq_len, label == "ragged")
         for name, (kern, plain, args) in calls.items():
+            if name in DW_KERNELS and label not in DW_CASES:
+                continue
             with torch.no_grad():
                 outs = kern()
                 torch.cuda.synchronize()
@@ -354,7 +441,10 @@ def check_bwd_kernels(stats):
                   f"[{' '.join(errs)}]: ok; kernel {k_ms:.4f} ms  plain "
                   f"{p_ms:.4f} ms (medians of 10 / 5)", flush=True)
             if i == 0:
-                stats[name].update(ms=k_ms, plain_ms=p_ms)
+                stats[name].update(ms=k_ms, plain_ms=p_ms,
+                                   shape=(batch, rows))
+            if i == 0 and name == "layer_norm_bwd":
+                stats[name]["library_ms"] = _layer_norm_bwd_library_ms(*args)
         del t, calls
         torch.cuda.empty_cache()
     return stats
@@ -372,13 +462,14 @@ def _bf16_stand_in(ck):
     with a scale of 1, so each s8 product becomes a product of bf16 values
     (exact in fp64), and the rest of each twin is unchanged."""
     import torch
-    names = ("quant_rows", "quant_cols_host", "quant_rows_host")
+    names = ("quant_rows", "quant_cols", "quant_cols_host", "quant_rows_host")
     saved = {n: getattr(ck, n) for n in names}
 
     def bf(x):
         return x.float().to(torch.bfloat16).float()
 
     ck.quant_rows = lambda x: (bf(x), torch.ones_like(x[..., :1]))
+    ck.quant_cols = lambda x: (bf(x), torch.ones_like(x[:1]))
     ck.quant_cols_host = lambda w: (bf(w), torch.ones_like(bf(w)[0]))
     ck.quant_rows_host = lambda w: (bf(w), torch.ones_like(bf(w)[:, 0]))
     try:
@@ -434,6 +525,19 @@ def _check_int8(ck, name, label, args, outs, refs, stats):
     st_ = stats[name]
     st_["worst_rel"] = max(st_.get("worst_rel", 0.0), *r_k)
     st_["stand_in_min_rel"] = min(st_.get("stand_in_min_rel", 1.0), *reached)
+    if name in DW_KERNELS:
+        # the int8_grad kernel's bf16 weight grads against the int8_dw twin:
+        # outside INT8_REL on dW and dWo (dW1 and dW2), or the dW is not int8
+        plain_dw = getattr(ck, name.replace("_dw", ""))(*args)
+        r_bf = [_rel(plain_dw[i], refs[i]) for i in (3, 5)]
+        print(f"  {name:32s} {label:22s} bf16-dW kernel (int8_grad) vs "
+              f"int8_dw twin, dW and dWo/dW1 and dW2 [{r_bf[0]:.2e} "
+              f"{r_bf[1]:.2e}] > {INT8_REL}; kernel vs twin [{r_k[3]:.2e} "
+              f"{r_k[5]:.2e}]", flush=True)
+        st_["bf16_dw_min_rel"] = min(st_.get("bf16_dw_min_rel", 1.0), *r_bf)
+        if min(r_bf) <= INT8_REL:
+            raise AssertionError(f"{name} {label}: the bf16 weight grads land "
+                                 f"within INT8_REL of the int8 ones")
     for key, (top, share) in moves.items():
         max_step, max_share = CODE_BAND[key]
         if top > max_step or share > max_share:
@@ -444,6 +548,104 @@ def _check_int8(ck, name, label, args, outs, refs, stats):
     if min(reached) <= INT8_REL:
         raise AssertionError(f"{name} {label}: the bf16 stand-in lands "
                              f"within INT8_REL ({min(reached)})")
+
+
+# K5 at the drop phase's b32 spq 104 (timed) and at b8 spq 200
+HO_CASES = [(DROP_CASE, 32, 104, 99), ("b8 spq200", 8, 200, 197)]
+
+
+def _check_ho(ck, name, label, args, base, stats):
+    """One K5 kernel against its twin: the stream out (r1 or r2) within the
+    bf16 tolerance; the half's own contribution, out − in (the residual
+    dominates the stream), within INT8_REL of the twin's, the bf16 stand-in
+    outside it; every code it wrote, the packed output too, within its
+    CODE_BAND (weights the same bits)."""
+    import torch
+    sk, st = {}, {}
+    with torch.no_grad():
+        out = getattr(ck, name)(*args, scratch=sk)[0].float()
+        torch.cuda.synchronize()
+        ref = getattr(ck, name + "_ref")(*args, scratch=st)[0].float()
+        with _bf16_stand_in(ck):
+            stand = getattr(ck, name + "_ref")(*args)[0].float()
+    base = base.float().reshape(ref.shape)
+    err = (out - ref).abs().max().item()
+    bound = TOL * max(1.0, ref.abs().max().item())
+    r_k, r_s = _rel(out - base, ref - base), _rel(stand - base, ref - base)
+    moves = _code_moves(sk, st)
+    print(f"  {name:32s} {label:22s} max|k-ref| {err:.3e} <= {bound:.3e}; "
+          f"‖Δk−Δt‖/‖Δt‖ {r_k:.2e} <= {INT8_REL}, bf16 stand-in {r_s:.2e}; "
+          "codes moved (max step, share) "
+          + " ".join(f"{k} {m[0]} {m[1]:.2e}" for k, m in moves.items()),
+          flush=True)
+    st_ = stats[name]
+    st_["max_abs_err"] = max(st_["max_abs_err"], err)
+    st_["worst_rel"] = max(st_.get("worst_rel", 0.0), r_k)
+    st_["stand_in_min_rel"] = min(st_.get("stand_in_min_rel", 1.0), r_s)
+    if not (torch.isfinite(out).all() and err <= bound):
+        raise AssertionError(f"{name} {label}: max error {err} > {bound}")
+    for key, (top, share) in moves.items():
+        max_step, max_share = CODE_BAND[key]
+        if top > max_step or share > max_share:
+            raise AssertionError(f"{name} {label}: codes {key} moved {share} "
+                                 f"(largest step {top})")
+    if r_k > INT8_REL or r_s <= INT8_REL:
+        raise AssertionError(f"{name} {label}: {r_k} from the twin, the "
+                             f"stand-in {r_s}")
+
+
+def check_handoff_kernels(stats):
+    """Phase 3, K5: the attention half packing its own input (the first
+    block) and from the twin's pack, and the MLP half on the twin's
+    attention outputs, each against its twin (`_check_ho`); times at the
+    drop phase's b32 spq 104, the first block's pack included."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in HO_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    for i, (label, batch, rows, seq_len) in enumerate(HO_CASES):
+        t = _inputs(batch, rows, seed=30 + i)
+        g = torch.Generator(device="cuda").manual_seed(40 + i)
+        ln2 = (1.0 + 0.1 * torch.randn(D, generator=g, device="cuda"),
+               0.1 * torch.randn(D, generator=g, device="cuda"))
+        ln1 = (t["gamma"], t["beta"])
+        with torch.no_grad():
+            xq, sx = ck.pack_rows(t["x"], *ln1, EPS)
+        weights = (t["wqkv"], t["bqkv"], t["wo"], t["bo"], EPS, seq_len,
+                   HEADS, HEAD_DIM)
+        first = (t["x"], None, None, *ln1, *ln2, *weights)
+        later = (t["x"], xq, sx, *ln1, *ln2, *weights)
+        with torch.no_grad():
+            r1, xq2, sx2 = ck.fused_ln_qkvo_attention_int8_ho_ref(*later)
+        # the next block's LN1: this one's, as good as any
+        mlp = (r1, xq2, sx2, *ln1, t["w1"], t["b1"], t["w2"], t["b2"], EPS)
+        for name, args, base in (
+                ("fused_ln_qkvo_attention_int8_ho", first, t["x"]),
+                ("fused_ln_qkvo_attention_int8_ho", later, t["x"]),
+                ("fused_ln_mlp_int8_ho", mlp, r1)):
+            _check_ho(ck, name, label, args, base, stats)
+        if label != DROP_CASE:
+            continue
+        # timed: a later block's attention half (11 of 12 blocks), whose
+        # input comes packed
+        for name, args in (("fused_ln_qkvo_attention_int8_ho", later),
+                           ("fused_ln_mlp_int8_ho", mlp)):
+            with torch.no_grad():
+                k_ms = _median_ms(lambda f=getattr(ck, name): f(*args),
+                                  warmup=2, iters=10)
+                p_ms = _median_ms(lambda f=getattr(ck, name + "_ref"):
+                                  f(*args), warmup=1, iters=5)
+            print(f"  {name:32s} {label:22s} kernel {k_ms:.4f} ms  plain "
+                  f"{p_ms:.4f} ms (medians of 10 / 5)", flush=True)
+            stats[name].update(ms=k_ms, plain_ms=p_ms, shape=(batch, rows))
+        del t
+        torch.cuda.empty_cache()
+    k5 = sum(stats[n]["ms"] for n in HO_KERNELS)
+    k34 = sum(stats[n]["drop_ms"] for n in ("fused_ln_qkvo_attention_int8",
+                                            "fused_ln_mlp_int8"))
+    print(f"  K5 pair {k5:.4f} ms against K3 + K4 forward {k34:.4f} ms at "
+          f"{DROP_CASE}", flush=True)
+    return stats
 
 
 class _Tee(io.TextIOBase):
@@ -540,12 +742,12 @@ def run_slice():
     return counts, rate, rate_p
 
 
-def _run_train(args):
+def _run_train(args, steps=TRAIN_STEPS):
     from vitax_torch import train_cli
     out = train_cli.main(args)
     losses = [v for e in out["epochs"] for v in e["train"]["losses"]]
     valid = out["epochs"][-1]["valid"]
-    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"train losses {losses}")
     if not all(math.isfinite(v) for v in valid.values()):
         raise AssertionError(f"valid metrics {valid}")
@@ -553,13 +755,16 @@ def _run_train(args):
     return losses, valid, out["epochs"][-1]["train"]["img_per_s"]
 
 
-def _grads(params, images, labels, cfg):
+def _grads(params, images, labels, cfg, seed=None):
+    """Grads of every parameter for one batch in train mode; `seed`: the
+    token dropping's generator (a CPU one, as train_cli's)."""
     import torch
     from vitax_torch.models import vit
     from vitax_torch.train import cross_entropy, param_leaves
     leaves = param_leaves(params)
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
     loss = cross_entropy(vit.apply(params, images.to(cfg.dtype), cfg,
-                                   train=True), labels)
+                                   train=True, gen=gen), labels)
     return [g.float() for g in torch.autograd.grad(loss, leaves)]
 
 
@@ -677,27 +882,26 @@ def _time_steps(params, images, labels, paths, iters=10):
 
 @contextlib.contextmanager
 def _int8_twins(ck):
-    """The int8 twin path on the card: the four int8 wrappers, which the
-    model and the autograd Functions call by their module names, are
-    swapped for routes to their plain twins; the Functions keep their tier
-    logic (int8 forward; int8 or bf16 backward)."""
+    """The int8 twin path on the card: the int8 wrappers, which the model
+    and the autograd Functions call by their module names, are swapped for
+    routes to their plain twins; the Functions keep their tier logic (int8
+    forward; int8, int8_dw or bf16 backward; K5's block)."""
     saved = {n: getattr(ck, n) for n in INT8_KERNELS}
 
     def route(name, fn_cls):
         ref = getattr(ck, name + "_ref")
 
-        def fwd(*args, int8_grad=False):
+        def fwd(*args, int8_grad=False, int8_dw=False):
             if ck._needs_grad(*args[:7]):
-                return fn_cls.apply(*args, True, int8_grad)
+                return fn_cls.apply(*args, True, int8_grad, int8_dw)
             return ref(*args)
         return fwd
 
     ck.fused_ln_qkvo_attention_int8 = route("fused_ln_qkvo_attention_int8",
                                             ck.FusedLnQkvoAttentionFn)
     ck.fused_ln_mlp_int8 = route("fused_ln_mlp_int8", ck.FusedLnMlpFn)
-    ck.fused_ln_qkvo_attention_int8_bwd = \
-        ck.fused_ln_qkvo_attention_int8_bwd_ref
-    ck.fused_ln_mlp_int8_bwd = ck.fused_ln_mlp_int8_bwd_ref
+    for name in INT8_KERNELS[2:]:  # the backwards and K5's halves
+        setattr(ck, name, getattr(ck, name + "_ref"))
     try:
         yield
     finally:
@@ -808,6 +1012,254 @@ def run_int8_slice(exp_root):
                                    for k, _ in runs}
 
 
+# Phase 7: vitax's fast recipe (scripts/FT_CIFAR100_fast.sh: --int8-dw
+# --token-keep 0.5 --token-keep-schedule 0.9 --batch-size 768
+# --dense-batch-size 192); train_cli at b32 over one drop and one dense epoch
+FAST_STEPS = 16
+FAST_ARGS = [str(FAST_STEPS) if prev == "--train-steps" else a
+             for prev, a in zip([None] + TRAIN_ARGS, TRAIN_ARGS)] + [
+    "--int8-dw", "--token-keep", "0.5", "--token-keep-schedule", "0.5"]
+# the recipe's own flags, cut to 1536 Synthetic images and 26 steps (a 500-
+# step warmup needs a longer run): 2 steps of b768 an epoch, 8 of b192 in
+# the dense tail, so 9 drop epochs and 1 dense (vitax's plan, train_cli's);
+# its eval batches (b768, 153600 rows) take the handoff too, as vitax's
+# auto gate does at >= 51200 rows
+RECIPE_ARGS = ["--model-arch", "b16", "--image-size", "224", "--dataset",
+               "Synthetic", "--synthetic-samples", "1536", "--num-classes",
+               "100", "--num-workers", "4", "--seed", "0", "--lr", "0.03",
+               "--wd", "0.0", "--warmup-steps", "2", "--train-steps", "26",
+               "--int8-dw", "--token-keep", "0.5", "--token-keep-schedule",
+               "0.9", "--batch-size", "768", "--dense-batch-size", "192"]
+
+
+@contextlib.contextmanager
+def _epoch_launches(ck, log):
+    """Records the launches of each train and eval epoch of train_cli.main
+    (its module-level train_epoch and valid_epoch, wrapped)."""
+    from vitax_torch import train_cli
+    saved = train_cli.train_epoch, train_cli.valid_epoch
+
+    def wrap(kind, fn):
+        def run(*a, **k):
+            before = ck.launch_counts()
+            out = fn(*a, **k)
+            after = ck.launch_counts()
+            log.append((kind, {n: after[n] - before[n] for n in after}))
+            return out
+        return run
+
+    train_cli.train_epoch = wrap("train", saved[0])
+    train_cli.valid_epoch = wrap("valid", saved[1])
+    try:
+        yield
+    finally:
+        train_cli.train_epoch, train_cli.valid_epoch = saved
+
+
+def run_fast_recipe(exp_root):
+    """Phase 7: `train_cli --int8-dw --token-keep 0.5 --token-keep-schedule
+    0.5` at b32 (a drop epoch at spq 104 through K5, a dense epoch at spq 200
+    through K3/K4, int8_dw backwards in both) with exact launch counts per
+    epoch; logits and full-width grads of the handoff + int8_dw path against
+    its twin path; device-timed steps at the recipe's batches."""
+    import torch
+    from vitax_torch import train_cli
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import vit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.train import param_leaves
+    from vitax_torch.utils.memory import named_leaves
+
+    log = []
+    ck.reset_launch_counts()
+    with _epoch_launches(ck, log):
+        losses, valid, rate = _run_train(FAST_ARGS + ["--exp-root", exp_root],
+                                         steps=FAST_STEPS)
+    counts = ck.launch_counts()
+    steps, layers, evals = TRAIN_STEPS, 12, math.ceil(256 / TRAIN_BATCH)
+    dw = dict(fused_ln_qkvo_attention_int8_dw_bwd=layers * steps,
+              fused_ln_mlp_int8_dw_bwd=layers * steps)
+    step = dict(layer_norm=steps, layer_norm_bwd=steps, **dw)
+    drop = _expect(**step, fused_ln_qkvo_attention_int8_ho=layers * steps,
+                   fused_ln_mlp_int8_ho=layers * steps)
+    dense = _expect(**step, fused_ln_qkvo_attention_int8=layers * steps,
+                    fused_ln_mlp_int8=layers * steps)
+    evl = _expect(layer_norm=evals,
+                  fused_ln_qkvo_attention_int8=layers * evals,
+                  fused_ln_mlp_int8=layers * evals)
+    expect = [("train", drop), ("valid", evl), ("train", dense),
+              ("valid", evl)]
+    print(f"fast: train_cli {' '.join(FAST_ARGS[-5:])} losses "
+          f"{[round(v, 4) for v in losses]} valid {valid} {rate:.0f} img/s "
+          "(dense epoch loop, host-fed); launches per epoch: " + "; ".join(
+              f"{kind} {{{', '.join(f'{k}: {v}' for k, v in c.items() if v)}}}"
+              for kind, c in log), flush=True)
+    if log != expect or counts != {k: sum(c[k] for _, c in expect)
+                                   for k in counts}:
+        raise AssertionError(f"expected launches per epoch {expect}")
+
+    # the recipe's own flags: K5 in every drop-phase step, int8_dw in every
+    # backward, the dense tail at b192 through K3/K4
+    recipe_log = []
+    ck.reset_launch_counts()
+    with _epoch_launches(ck, recipe_log):
+        out = train_cli.main(RECIPE_ARGS + ["--exp-root", exp_root])
+    shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
+    losses = [v for e in out["epochs"] for v in e["train"]["losses"]]
+
+    def per_step(n, k5):
+        fwd = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho") \
+            if k5 else ("fused_ln_qkvo_attention_int8", "fused_ln_mlp_int8")
+        return _expect(layer_norm=n, layer_norm_bwd=n,
+                       **dict.fromkeys(fwd + DW_KERNELS, layers * n))
+
+    recipe_eval = _expect(layer_norm=2, fused_ln_qkvo_attention_int8_ho=24,
+                          fused_ln_mlp_int8_ho=24)
+    expect = ([("train", per_step(2, True)), ("valid", recipe_eval)] * 9
+              + [("train", per_step(8, False)), ("valid", recipe_eval)])
+    print("fast: train_cli with the recipe's flags (" + " ".join(
+        RECIPE_ARGS[-9:]) + f") {len(losses)} steps, losses finite "
+          f"{all(map(math.isfinite, losses))}; img/s per epoch (host-fed) "
+          + ", ".join(f"{e['train']['img_per_s']:.0f}" for e in out["epochs"])
+          + f"; launches per epoch as expected {recipe_log == expect}",
+          flush=True)
+    if (recipe_log != expect or len(losses) != 26
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"the recipe's run: launches {recipe_log}")
+
+    cfg = arch_config("b16", image_size=224, num_classes=10,
+                      dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True,
+                      int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                      int8_attn_grad=True, int8_dw=True, token_keep=0.5)
+    params = vit.init_params(set_seed(0), cfg, "cuda")
+    batch = next(iter(get_dataloader("Synthetic", split="train",
+                                     image_size=224, batch_size=TRAIN_BATCH,
+                                     num_samples=256, seed=0)))
+    images = torch.from_numpy(batch.images).cuda().bfloat16()
+    labels = torch.from_numpy(batch.labels).cuda()
+    with torch.inference_mode():
+        ck.reset_launch_counts()
+        lk = vit.apply(params, images, cfg, train=True,
+                       gen=torch.Generator().manual_seed(3))
+        if ck.launch_counts()["fused_ln_mlp_int8_ho"] != 12:
+            raise AssertionError("the drop phase did not run K5")
+        with _int8_twins(ck):
+            lt = vit.apply(params, images, cfg, train=True,
+                           gen=torch.Generator().manual_seed(3))
+    d_t = (lk - lt).abs().max().item()
+    band_t = LOGIT_BAND * max(1.0, lt.abs().max().item())
+    print(f"fast: logits (keep 0.5, handoff) {tuple(lk.shape)} max|kernel - "
+          f"twin| {d_t:.3e} <= {band_t:.3e}", flush=True)
+    if not (torch.isfinite(lk).all() and d_t <= band_t):
+        raise AssertionError("fast-recipe logits outside the bf16 band")
+    names = [n for n, _ in named_leaves(params)]
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    ck.reset_launch_counts()
+    g_k = _grads(params, images, labels, cfg, seed=3)
+    ran = {k: v for k, v in ck.launch_counts().items() if v}
+    with _int8_twins(ck):
+        g_t = _grads(params, images, labels, cfg, seed=3)
+    rels, key_t = _grad_distances(names, g_k, g_t)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    print(f"fast: grads of {len(names)} tensors (launches {ran}); worst "
+          f"|g_kernel - g_twin| / |g_twin|: " + ", ".join(
+              f"{r:.3e} ({n})" for r, n in rels[:3])
+          + f" <= {INT8_GRAD_BAND}, key biases {key_t:.3e}", flush=True)
+    if (ran != dict(layer_norm=1, layer_norm_bwd=1,
+                    **dict.fromkeys(HO_KERNELS + DW_KERNELS, 12))
+            or not finite or rels[0][0] > INT8_GRAD_BAND
+            or key_t > INT8_GRAD_BAND):
+        raise AssertionError("fast-recipe grads outside their band")
+    del g_k, g_t
+
+    # device-timed steps on a resident batch at the recipe's own batches:
+    # b768 in the drop phase, b192 in the dense tail; int8_dw against the
+    # int8_grad backward, in turns
+    g = torch.Generator(device="cuda").manual_seed(5)
+    grad_tier = dict(int8_dw=False)
+    times = {}
+    for b, keep, iters in ((768, 0.5, 5), (192, 1.0, 10)):
+        imgs = torch.randn((b, 224, 224, 3), generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+        labs = torch.randint(0, 10, (b,), generator=g, device="cuda")
+        c = cfg.replace(token_keep=keep)
+        runs = _time_steps(params, imgs, labs, (
+            ("int8-dw", c), ("int8-grad", c.replace(**grad_tier)),
+            ("int8-grad", c.replace(**grad_tier)), ("int8-dw", c)),
+            iters=iters)
+        for name in ("int8-dw", "int8-grad"):
+            times[f"b{b} keep {keep} {name}"] = min(
+                ms for n, ms in runs if n == name)
+        del imgs, labs
+        torch.cuda.empty_cache()
+    return counts, times
+
+
+# ---------------------------------------------------------------- bounds
+PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
+HBM = 3.35e12  # bytes/s
+
+
+def _work(name, batch, rows):
+    """(bytes, {type: operations}) that `name` must move and do at x
+    [batch, rows, 768] (rows = spq, or the ragged row count): each input
+    read once, each output written once; the attention core over the padded
+    rows."""
+    n = batch * rows
+    hhd = HEADS * HEAD_DIM
+    act, w_attn, w_mlp = 2 * n * D, 2 * 4 * D * hhd, 2 * 2 * D * MLP
+    qkv, out = 2 * n * D * 3 * hhd, 2 * n * hhd * D
+    core, mlp = 4 * batch * HEADS * rows * rows * HEAD_DIM, 4 * n * D * MLP
+    vec_attn, vec_mlp = 4 * (4 * D + 3 * hhd), 4 * (4 * D + MLP)
+    dw_attn, dw_mlp = 4 * 4 * D * hhd, 4 * 2 * D * MLP  # fp32 grads out
+    packed = n * D + 4 * n  # int8 codes and an fp32 scale a row
+    table = {
+        "layer_norm": (2 * act + 8 * D, {"f32": 8 * n * D}),
+        "layer_norm_bwd": (3 * act + 12 * D, {"f32": 12 * n * D}),
+        "fused_ln_qkvo_attention": (2 * act + w_attn + vec_attn,
+                                    {"bf16": qkv + core + out}),
+        "fused_ln_mlp": (2 * act + w_mlp + vec_mlp, {"bf16": mlp}),
+        "fused_ln_qkvo_attention_bwd": (
+            3 * act + w_attn + dw_attn + 2 * vec_attn,
+            {"bf16": 3 * qkv + 2 * out + 3 * core}),
+        "fused_ln_mlp_bwd": (3 * act + w_mlp + dw_mlp + 2 * vec_mlp,
+                             {"bf16": 2.5 * mlp}),
+        "fused_ln_qkvo_attention_int8": (2 * act + w_attn + vec_attn,
+                                         {"s8": qkv + out, "bf16": core}),
+        "fused_ln_mlp_int8": (2 * act + w_mlp + vec_mlp, {"s8": mlp}),
+        "fused_ln_qkvo_attention_int8_bwd": (
+            3 * act + w_attn + dw_attn + 2 * vec_attn,
+            {"s8": 2 * qkv + out, "bf16": qkv + out + 3 * core}),
+        "fused_ln_mlp_int8_bwd": (3 * act + w_mlp + dw_mlp + 2 * vec_mlp,
+                                  {"s8": 1.5 * mlp, "bf16": mlp}),
+        "fused_ln_qkvo_attention_int8_dw_bwd": (
+            3 * act + w_attn + dw_attn + 2 * vec_attn,
+            {"s8": 3 * qkv + 2 * out, "bf16": 3 * core}),
+        "fused_ln_mlp_int8_dw_bwd": (3 * act + w_mlp + dw_mlp + 2 * vec_mlp,
+                                     {"s8": 2.5 * mlp}),
+        # K5: x (r1) and its pack in, r1 (r2) and its pack out
+        "fused_ln_qkvo_attention_int8_ho": (
+            2 * act + 2 * packed + w_attn + vec_attn,
+            {"s8": qkv + out, "bf16": core}),
+        "fused_ln_mlp_int8_ho": (2 * act + 2 * packed + w_mlp + vec_mlp,
+                                 {"s8": mlp}),
+    }
+    return table[name]
+
+
+def _bound(name, shape):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and the
+    operations over their types' peaks."""
+    nbytes, ops = _work(name, *shape)
+    t_bytes = nbytes / HBM
+    t_ops = sum(v / PEAK[k] for k, v in ops.items())
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -833,11 +1285,15 @@ def main() -> int:
     print("kernels vs plain (bf16):", flush=True)
     stats = check_kernels()
     check_bwd_kernels(stats)
+    check_handoff_kernels(stats)
     print(f"int8 kernels vs twin, worst ‖k−t‖/‖t‖ of any output and case <= "
           f"{INT8_REL}; the bf16 stand-in's nearest (outputs quantization "
           f"reaches): " + ", ".join(
               f"{n} {stats[n]['worst_rel']:.3e} / {stats[n]['stand_in_min_rel']:.3e}"
-              for n in INT8_KERNELS), flush=True)
+              for n in INT8_KERNELS) + "; the int8_grad kernel's bf16 dW "
+          "against the int8_dw twin, nearest: " + ", ".join(
+              f"{n} {stats[n]['bf16_dw_min_rel']:.3e}" for n in DW_KERNELS),
+          flush=True)
     eval_counts, rate, rate_p = run_slice()
     print(f"eval img/s b16@224 bf16: kernels {rate:.0f}, plain {rate_p:.0f} "
           f"[{card}]", flush=True)
@@ -856,16 +1312,39 @@ def main() -> int:
     print("train step img/s b16@224 b32: " + ", ".join(
         f"{k} {TRAIN_BATCH * 1e3 / ms:.0f}" for k, ms in step_i8.items())
         + f" [{card}]", flush=True)
+    try:
+        counts_fast, step_fast = run_fast_recipe(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("fast recipe step (fwd+bwd+SGD, resident batch): " + ", ".join(
+        f"{k} {ms:.2f} ms = {int(k.split()[0][1:]) * 1e3 / ms:.0f} img/s"
+        for k, ms in step_fast.items()) + f" [{card}]", flush=True)
 
-    # launches: the bf16 kernels' from the bf16 train slice, the int8
-    # kernels' from the --int8-grad train slice (each runs every kernel of
-    # its tier); the eval slices' forward counts are printed in phases 4, 6
-    table = [dict(name=name, route="cuda", source=src, replaces=rep,
-                  launches=(counts_i8 if name in INT8_KERNELS
-                            else counts)[name],
-                  **{k: stats[name][k] for k in ("max_abs_err", "ms",
-                                                 "plain_ms")})
-             for name, (src, rep) in KERNEL_INFO.items()]
+    # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
+    # from the --int8-grad train slice, K5's and the int8_dw backwards' from
+    # the fast recipe's (each runs every kernel of its tier); the eval
+    # slices' forward counts are printed in phases 4, 6 and 7. Times at the
+    # main path's shapes: forward b64 spq 200 (serving), backward b32 spq
+    # 200, K5 b32 spq 104 (the drop phase)
+    def launches(name):
+        if name in HO_KERNELS + DW_KERNELS:
+            return counts_fast[name]
+        return (counts_i8 if name in INT8_KERNELS else counts)[name]
+
+    table = []
+    for name, (src, rep) in KERNEL_INFO.items():
+        bound_ms, bound_by = _bound(name, stats[name]["shape"])
+        table.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=launches(name),
+            **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms")},
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=stats[name].get("library_ms")))
+    print("kernel table: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
+        f"{r['bound_by']}, x{r['ms'] / r['bound_ms']:.1f}) at "
+        "b{} rows {}".format(*stats[r["name"]]["shape"]) for r in table),
+        flush=True)
     print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

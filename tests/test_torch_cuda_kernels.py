@@ -316,3 +316,128 @@ def test_int8_autograd_picks_the_backward_of_its_tier(dev):
                                           "fused_ln_mlp_bwd")
         assert {k: v for k, v in ck.launch_counts().items() if v} == \
             dict.fromkeys(INT8_FWD + bwd, 1)
+
+
+# ---------------------------------------------------------------------------
+# int8_dw (per-group int8 weight grads) and the int8 block handoff (K5): the
+# same tolerance on every output; the codes each kernel wrote against the
+# twin's (the column codes of int8_dw and the packed outputs of K5 quantize
+# values that differ from the twin's by the bf16 flips above, hence the
+# bands of aq/h1q).
+
+DW_NAMES = ("fused_ln_qkvo_attention_int8_dw_bwd", "fused_ln_mlp_int8_dw_bwd")
+HO_NAMES = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
+CODE_BAND.update({"h1c": (2, 1e-3), "xnc": (2, 1e-3), "atc": (2, 5e-3),
+                  "xq2": (2, 5e-3), "xqn": (2, 5e-3)})
+
+
+def _codes_within_band(name, sk, st):
+    assert sk.keys() == st.keys(), name
+    for key, (q, s) in st.items():
+        qk, s_k = sk[key]
+        assert qk.dtype == torch.int8 and qk.shape == q.shape, (name, key)
+        assert s_k.shape == s.shape, (name, key)
+        if key.startswith("w") or key == "doq":
+            assert torch.equal(qk, q) and torch.equal(s_k, s), (name, key)
+            continue
+        d = (qk.long() - q.long()).abs()
+        print(f"{name} {key}: {d.float().mean().item():.2e} of codes moved, "
+              f"max {d.max().item()} step")
+        max_step, max_share = CODE_BAND[key]
+        assert d.max().item() <= max_step, (name, key)
+        assert d.float().mean().item() <= max_share, (name, key)
+
+
+# (batch, spq, seq_len, rows): train_cli's dense b32 and drop-phase b32 spq
+# 104, K4's ragged rows (3 x 197: groups 128, 128, 128, 128, 79)
+DW_SHAPES = [(32, 200, 197, None), (32, 104, 99, None), (3, 200, 197, 197)]
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_int8_dw_backward_kernels_match_plain_twins(dev, shape):
+    args = _int8_args(dev, *shape)
+    names = DW_NAMES[1:] if shape[3] is not None else DW_NAMES
+    ck.reset_launch_counts()
+    for name in names:
+        a = args[name.replace("_dw", "")]
+        sk, st = {}, {}
+        with torch.no_grad():
+            outs = getattr(ck, name)(*a, scratch=sk)
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(*a, scratch=st)
+        for out, ref in zip(outs, refs):
+            _assert_close(out, ref)
+        _codes_within_band(name, sk, st)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(names, 1)
+
+
+def test_int8_dw_backward_kernels_are_deterministic(dev):
+    args = _int8_args(dev, 8, 200, 197, None)
+    for name in DW_NAMES:
+        with torch.no_grad():
+            a = getattr(ck, name)(*args[name.replace("_dw", "")])
+            b = getattr(ck, name)(*args[name.replace("_dw", "")])
+        for u, v in zip(a, b):
+            assert torch.equal(u, v), name
+
+
+def _ho_args(dev, batch, spq, seq):
+    _, qkvo, mlp = _args(dev, batch, spq, seq, 768, 12, 64, 3072, seed=5)
+    x, g1, be1, wqkv, bqkv, wo, bo = qkvo[:7]
+    g2, be2 = 1 + 0.1 * g1.clone() - 0.1, be1.flip(0).contiguous()
+    attn = (x, None, None, g1, be1, g2, be2, wqkv, bqkv, wo, bo, EPS, seq, 12,
+            64)
+    return attn, mlp[3:7]
+
+
+@pytest.mark.parametrize("shape", [(32, 104, 99), (8, 200, 197)])
+@pytest.mark.parametrize("pack", [True, False])
+def test_handoff_kernels_match_plain_twins(dev, shape, pack):
+    """K5's two kernels: the attention half packing its own input (the first
+    block) or taking the twin's pack, then the MLP half on the attention
+    half's outputs; r1/r2 within the tolerance, the packed codes within
+    their band, every scratch code as K3's/K4's."""
+    attn, (w1, b1, w2, b2) = _ho_args(dev, *shape)
+    if not pack:
+        xq, sx = ck.pack_rows(attn[0], attn[3], attn[4], EPS)
+        attn = (attn[0], xq, sx, *attn[3:])
+    ck.reset_launch_counts()
+    sk, st = {}, {}
+    with torch.no_grad():
+        r1, xq2, sx2 = ck.fused_ln_qkvo_attention_int8_ho(*attn, scratch=sk)
+        torch.cuda.synchronize()
+        r1_t, xq2_t, sx2_t = ck.fused_ln_qkvo_attention_int8_ho_ref(
+            *attn, scratch=st)
+    _assert_close(r1, r1_t)
+    _codes_within_band("fused_ln_qkvo_attention_int8_ho", sk, st)
+    # the MLP half on the same input: the twin's packed r1
+    mlp = (r1_t, xq2_t, sx2_t, attn[5], attn[6], w1, b1, w2, b2, EPS)
+    sk, st = {}, {}
+    with torch.no_grad():
+        r2, _, _ = ck.fused_ln_mlp_int8_ho(*mlp, scratch=sk)
+        torch.cuda.synchronize()
+        r2_t, _, _ = ck.fused_ln_mlp_int8_ho_ref(*mlp, scratch=st)
+    _assert_close(r2, r2_t)
+    _codes_within_band("fused_ln_mlp_int8_ho", sk, st)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(HO_NAMES, 1)
+
+
+@pytest.mark.parametrize("int8_dw", [True, False])
+def test_handoff_block_autograd_launches_its_kernels(dev, int8_dw):
+    attn, (w1, b1, w2, b2) = _ho_args(dev, 4, 104, 99)
+    x, _, _, g1, be1, g2, be2, wqkv, bqkv, wo, bo = attn[:11]
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (x, g1, be1, wqkv, bqkv, wo, bo, g2, be2, w1, b1, w2, b2)]
+    ck.reset_launch_counts()
+    r2, xqn, sxn = ck.fused_block_int8_handoff(
+        leaves[0], None, None, *leaves[1:], g1, be1, EPS, 99, 12, 64, int8_dw)
+    assert not (xqn.requires_grad or sxn.requires_grad)
+    r2.float().square().mean().backward()
+    torch.cuda.synchronize()
+    bwd = DW_NAMES if int8_dw else INT8_BWD
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(HO_NAMES + bwd, 1)
+    for t in leaves:
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()

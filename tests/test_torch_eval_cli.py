@@ -53,7 +53,7 @@ def test_both_eval_clis_agree_on_an_npz(npz_path):
             "--synthetic-samples", "20", "--num-workers", "0",
             "--dtype", "float32", "--checkpoint-path", npz_path]
     ref = j_eval.main(argv)
-    out = t_eval.main(argv)
+    out = t_eval.main(argv, device="cpu")
     np.testing.assert_allclose(out["loss"], ref["loss"], rtol=1e-4,
                                atol=1e-4)
     assert out["acc1"] == pytest.approx(ref["acc1"], abs=1e-6)
@@ -68,4 +68,15 @@ def test_unported_options_raise(extra):
             "--image-size", "32", "--batch-size", "8",
             "--synthetic-samples", "8"] + extra
     with pytest.raises(NotImplementedError):
-        t_eval.main(argv)
+        t_eval.main(argv, device="cpu")
+
+
+def test_main_needs_the_card_unless_asked_for_the_cpu():
+    """No silent CPU fallback: without a card `main` raises, unless the
+    caller passes device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: main() would evaluate on it")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        t_eval.main(["--dataset", "Synthetic", "--model-arch", "tiny",
+                     "--image-size", "32", "--batch-size", "8",
+                     "--synthetic-samples", "8"])

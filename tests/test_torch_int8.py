@@ -251,6 +251,107 @@ def test_fused_ln_qkvo_attention_int8_bwd_ref_matches_pallas(dtype, batch,
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _vitax_mlp_dw_group(n, padded):
+    """vitax's int8_dw group of K4's backward over n rows: one grid step's
+    chunk, _ln_mlp_rows // _bwd_chunks (pallas_kernels.py:1393, :1405), n
+    first padded to its row block off the handoff path."""
+    if padded:
+        n = pk._ln_mlp_pad(n, int8=True)
+    rows = pk._ln_mlp_rows(n, int8=True)
+    return rows // pk._bwd_chunks(rows)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,rows", [(3, SPQ), (3, SEQ), (8, SPQ)])
+def test_fused_ln_mlp_int8_dw_bwd_ref_matches_pallas(dtype, batch, rows):
+    """int8_dw (per-group int8 dW1, dW2 with row-scale folding) at vitax's
+    group, from its own geometry: 3 x 16 and the ragged 3 x 10 rows pad to
+    one row block of 2 chunks (16 rows: groups 16, 16, 16 and 16, 14), and
+    8 x 16 = 128 rows to 2 chunks of 64."""
+    j, t = _both(_arrays(13, batch, rows), dtype)
+    n = batch * rows
+    npad = pk._ln_mlp_pad(n, int8=True)
+
+    def pad(a):
+        return jnp.pad(a.reshape(n, D), ((0, npad - n), (0, 0)))
+
+    ref = pk._ln_mlp_bwd_int8_call(pad(j["x"]), j["gamma"], j["beta"],
+                                   j["w1"], j["b1"], j["w2"], pad(j["do"]),
+                                   EPS, True, int8_dw=True)
+    ref = (ref[0][:n], *ref[1:])
+    args = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"],
+            t["do"], EPS)
+    group = _vitax_mlp_dw_group(n, True)
+    out = ck.fused_ln_mlp_int8_bwd_ref(*args, int8_dw=True, group=group)
+    assert all(o.dtype == torch.float32 for o in out[1:])
+    _check_all(ref, out, dtype, MLP_GRADS)
+    # the bf16-product twin is further off: the dW is int8
+    bf = ck.fused_ln_mlp_int8_bwd_ref(*args)
+    assert not torch.equal(bf[3], out[3]) and not torch.equal(bf[5], out[5])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,seq_len", [(1, SEQ), (3, SEQ), (4, SPQ)])
+def test_fused_ln_qkvo_attention_int8_dw_bwd_ref_matches_pallas(dtype, batch,
+                                                                seq_len):
+    """int8_dw (per-group int8 dWqkv, dWo) at vitax's group, whole images:
+    tile·spq rows (_qkvo_bwd_tile: 4 at spq 16, halved until it divides
+    the batch), the port's own rule too."""
+    j, t = _both(_arrays(14, batch, SPQ), dtype)
+    keys = _QKVO[:6]
+    ref = pk._fused_ln_qkvo_bwd(EPS, seq_len, H, HD, True, True, True,
+                                False, False, None,
+                                tuple(j[k] for k in keys), j["do"])
+    group = pk._qkvo_bwd_tile(batch, SPQ) * SPQ
+    assert group == ck.qkvo_dw_group(batch, SPQ)
+    args = (*(t[k] for k in keys), t["do"], EPS, seq_len, H, HD)
+    out = ck.fused_ln_qkvo_attention_int8_bwd_ref(*args, int8_dw=True,
+                                                  group=group)
+    assert all(o.dtype == torch.float32 for o in out[1:])
+    _check_all(ref, out, dtype, QKVO_GRADS)
+    for a, b in zip(out, ck.fused_ln_qkvo_attention_int8_dw_bwd(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["fused_ln_mlp_int8_dw_bwd",
+                                  "fused_ln_qkvo_attention_int8_dw_bwd"])
+def test_int8_dw_wrappers_hand_out_the_column_codes(name):
+    """The int8_dw wrappers' `scratch` adds the column codes of the folded
+    operands (h1c, xnc for K4; atc, xnc for K3) as [rows, width] int8, with
+    one fp32 scale a column a group, each code tensor equal to vitax's
+    _quant_cols of the same folded group."""
+    _, t = _both(_arrays(15, 3, SPQ), "float32")
+    mlp = "mlp" in name
+    keys = _MLP[:6] if mlp else _QKVO[:6]
+    args = [t[k] for k in keys] + [t["do"]] + (
+        [EPS] if mlp else [EPS, SEQ, H, HD])
+    scratch = {}
+    getattr(ck, name)(*args, scratch=scratch)
+    n = 3 * SPQ
+    group = ck.MLP_DW_GROUP if mlp else ck.qkvo_dw_group(3, SPQ)
+    groups = -(-n // group)
+    pairs = (("h1c", "doq", M), ("xnc", "dh1q", D)) if mlp else \
+        (("atc", "doq", H * HD), ("xnc", "dqq", D))
+    for key, _, width in pairs:
+        q, s = scratch[key]
+        assert q.dtype == torch.int8 and q.shape == (n, width), key
+        assert s.dtype == torch.float32 and s.shape == (groups * width,), key
+    # the first group of the MLP's h1c from vitax's quantizer: h1·sdo
+    if mlp:
+        xhat, _ = ck._ln_stats(t["x"].reshape(n, D), EPS)
+        xn = ck._affine(xhat, t["gamma"], t["beta"])
+        xq, sx = quant.quant_rows(xn)
+        w1c, s1c = quant.quant_cols_host(t["w1"])
+        a1 = ck._dequant(quant.int_mm(xq, w1c), sx, s1c, t["b1"])
+        h1 = tmlp.gelu_q(a1)
+        sdo = scratch["doq"][1].reshape(n, 1)
+        q_j, s_j = pk._quant_cols(jnp.asarray((h1 * sdo)[:group].numpy()))
+        np.testing.assert_array_equal(scratch["h1c"][0][:group].numpy(),
+                                      np.asarray(q_j))
+        np.testing.assert_array_equal(scratch["h1c"][1][:M].numpy(),
+                                      np.asarray(s_j).ravel())
+
+
 _WEIGHT_CODES = {
     "fused_ln_mlp_int8": dict(w1q=("_quant_cols_host", "w1"),
                               w2q=("_quant_cols_host", "w2")),
@@ -393,7 +494,25 @@ def test_three_int8_grad_train_steps_match_vitax():
     one step; over 2 layers x 3 steps a few such codes (one in 4e4 per
     quantized tensor) move the loss by up to 9.5e-4 relative and the params
     by 4e-4 (measured)."""
-    jc, tc = _cfgs("float32", patch=4, **INT8_GRAD)
+    _three_train_steps(INT8_GRAD, patch=4)
+
+
+@pytest.mark.parametrize("patch", [4, 16], ids=["spq152", "spq16-handoff"])
+def test_three_int8_dw_train_steps_match_vitax(patch, monkeypatch):
+    """`--int8-dw` (all four int8 flags and the per-group int8 dW): at spq
+    152 through K3/K4, and at image 48 patch 16 (10 tokens, spq 16) through
+    the K5 handoff, with vitax's int8_dw groups (K3 whole images, the port's
+    rule too; K4 a grid step's chunk of the padded or, on the handoff, the
+    unpadded rows). The same bands as the --int8-grad steps, for the same
+    reason."""
+    n = 2 * (152 if patch == 4 else 16)
+    monkeypatch.setattr(ck, "MLP_DW_GROUP",
+                        _vitax_mlp_dw_group(n, padded=patch == 4))
+    _three_train_steps(dict(INT8_GRAD, int8_dw=True), patch=patch)
+
+
+def _three_train_steps(flags, patch):
+    jc, tc = _cfgs("float32", patch=patch, **flags)
     w = _weights(jc)
     rng = np.random.default_rng(7)
     batches = [(_images(2, seed=10 + i),
@@ -427,22 +546,27 @@ def test_three_int8_grad_train_steps_match_vitax():
 
 # ---------------------------------------------------------------- (h)
 
-def test_handoff_row_gate_matches_vitax():
-    for b in (1, 2, 3, 5, 8, 32, 64, 128, 256, 320, 384):
-        for spq in (8, 16, 24, 104, 152, 200, 584):
-            assert tvit._vitax_mlp_rows_divide(b * spq) == \
-                pk.block_handoff_supported(np.empty((b, spq, 8))), (b, spq)
-
-
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("flags", [dict(INT8_GRAD), dict(INT8_GRAD,
-                                                          int8_dw=True)])
-def test_unported_int8_paths_raise_naming_their_item(flags):
-    """The padded stream at spq 16 <= 128 with all four int8 flags is where
-    vitax takes the K5 handoff; int8_dw raises wherever it is set."""
-    jc, tc = _cfgs("float32", **flags)
-    params = tvit.params_from_jax(_weights(jc))
-    with pytest.raises(NotImplementedError, match="int8_dw and K5"):
-        tvit.apply(params, torch.from_numpy(_images(2)), tc)
+                                                          int8_dw=True)],
+                         ids=["int8-grad", "int8-dw"])
+def test_int8_handoff_forward_matches_vitax(flags, dtype):
+    """The padded stream at spq 16 <= 128 with all four int8 flags, where
+    both packages take the K5 handoff (eval mode; int8_dw changes only the
+    backward): logits against vitax's, max|Δ| <= TOL·max(1, max|logit|).
+    bf16 and int8 round both paths at many places: the port's handoff lands
+    2.6e-2 from vitax's handoff here (max|logit| 2.8), its non-handoff path
+    1.9e-2 from vitax's, while each package's two paths sit 5.4e-2 to 5.9e-2
+    apart (measured)."""
+    jc, tc = _cfgs(dtype, **flags)
+    w = _weights(jc)
+    img = _images(2)
+    ref = jvit.apply(jax.tree.map(jnp.asarray, w), jnp.asarray(img, jc.dtype),
+                     jc)
+    with torch.inference_mode():
+        out = tvit.apply(tvit.params_from_jax(w),
+                         torch.from_numpy(img).to(tc.dtype), tc)
+    _close(ref, out, TOL[dtype][0], "logits")
 
 
 TINY = ["--dataset", "Synthetic", "--model-arch", "tiny", "--num-workers", "0",
@@ -467,7 +591,7 @@ def test_train_cli_int8_grad_runs_the_int8_twins(tmp_path, monkeypatch):
     out = train_cli.main(TINY + [
         "--image-size", "224", "--batch-size", "4", "--synthetic-samples", "8",
         "--train-steps", "2", "--warmup-steps", "0", "--int8-grad",
-        "--exp-root", str(tmp_path)])
+        "--exp-root", str(tmp_path)], device="cpu")
     losses = out["epochs"][0]["train"]["losses"]
     assert len(losses) == 2 and all(np.isfinite(losses))
     # 3 layers: 2 steps forward and backward, and 2 eval batches forward
@@ -491,14 +615,36 @@ def test_train_cli_int8_flag_map():
     assert cfg.int8_mlp and cfg.int8_attn and not cfg.int8_mlp_grad
 
 
-@pytest.mark.parametrize("flags", [["--int8-dw"], ["--int8-grad"]])
-def test_train_cli_unported_int8_paths_raise(flags, tmp_path):
-    """`--int8-dw` anywhere; `--int8-grad` at image 32 (spq 8 <= 128), where
-    vitax would take the K5 handoff."""
-    with pytest.raises(NotImplementedError, match="int8_dw and K5"):
-        train_cli.main(TINY + ["--image-size", "32", "--batch-size", "4",
-                               "--synthetic-samples", "8", "--exp-root",
-                               str(tmp_path)] + flags)
+@pytest.mark.parametrize("flag", ["--int8-dw", "--int8-grad"])
+def test_train_cli_int8_grad_tiers_hand_off_short_streams(flag, tmp_path,
+                                                          monkeypatch):
+    """`--int8-grad` and `--int8-dw` at image 32 (spq 8 <= 128): the train
+    steps and the eval batches run K5's twins, and the backward the int8
+    twin of their tier."""
+    names = ("fused_ln_qkvo_attention_int8_ho_ref",
+             "fused_ln_qkvo_attention_int8_dw_bwd_ref",
+             "fused_ln_qkvo_attention_int8_bwd_ref")
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(ck, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(ck, name, counted)
+    out = train_cli.main(TINY + [
+        "--image-size", "32", "--batch-size", "4", "--synthetic-samples", "8",
+        "--train-steps", "2", "--warmup-steps", "0", "--exp-root",
+        str(tmp_path), flag], device="cpu")
+    losses = out["epochs"][0]["train"]["losses"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    # 3 layers: 2 train steps and 2 eval batches forward, 2 steps backward
+    # (the int8_dw twin calls the int8 backward twin with int8_dw on)
+    dw = flag == "--int8-dw"
+    assert calls == {"fused_ln_qkvo_attention_int8_ho_ref": 12,
+                     "fused_ln_qkvo_attention_int8_dw_bwd_ref": 6 * dw,
+                     "fused_ln_qkvo_attention_int8_bwd_ref": 6}
 
 
 def test_eval_cli_int8_serves_through_the_int8_twin(monkeypatch):
@@ -507,14 +653,40 @@ def test_eval_cli_int8_serves_through_the_int8_twin(monkeypatch):
     monkeypatch.setattr(ck, "fused_ln_mlp_int8_ref",
                         lambda *a, **k: seen.append(1) or fn(*a, **k))
     out = eval_cli.main(TINY + ["--image-size", "32", "--batch-size", "8",
-                                "--synthetic-samples", "8", "--int8"])
+                                "--synthetic-samples", "8", "--int8"],
+                        device="cpu")
     assert len(seen) == 3 and np.isfinite(out["loss"])
 
 
-@pytest.mark.parametrize("tag", ["int8-dw", "int4", "int4-grad",
-                                 "tokdrop-0.5"])
+@pytest.mark.parametrize("tag", ["int4", "int4-grad"])
 def test_convergence_harness_names_the_item_of_unported_tags(tag):
     from vitax_torch.scripts import int8_convergence as harness
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
         harness.main(["bf16", tag])
-    assert set(harness.CONFIGS) == {"bf16", "int8-fwd", "int8-full"}
+    assert set(harness.CONFIGS) == {"bf16", "int8-fwd", "int8-full",
+                                    "int8-dw", "tokdrop-0.5", "tokdrop-0.75"}
+
+
+def _vitax_harness_configs():
+    """CONFIGS of scripts/int8_convergence.py, read from its source (the
+    script trains when it is imported)."""
+    import ast
+    import pathlib
+    src = pathlib.Path(pk.__file__).resolve().parents[2] / "scripts" / \
+        "int8_convergence.py"
+    for node in ast.parse(src.read_text()).body:
+        if isinstance(node, ast.Assign) and node.targets[0].id == "CONFIGS":
+            return eval(compile(ast.Expression(node.value), str(src), "eval"),
+                        {"dict": dict})
+    raise AssertionError("no CONFIGS in the vitax harness")
+
+
+@pytest.mark.parametrize("tag", ["int8-dw", "tokdrop-0.5", "tokdrop-0.75"])
+def test_convergence_harness_tags_are_vitaxs(tag):
+    """The tags ported with int8_dw and K5 carry vitax's definitions, and
+    the harness accepts them (here it then stops: no card)."""
+    from vitax_torch.scripts import int8_convergence as harness
+    assert harness.CONFIGS[tag] == _vitax_harness_configs()[tag]
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            harness.main(["bf16", tag])

@@ -125,6 +125,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ck.fused_ln_mlp_int8_bwd(*mlp, t["x"], EPS)
     ck.fused_ln_qkvo_attention_int8(*qkvo, t["bo"], EPS, SEQ, H, HD)
     ck.fused_ln_qkvo_attention_int8_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
+    ck.fused_ln_mlp_int8_dw_bwd(*mlp, t["x"], EPS)
+    ck.fused_ln_qkvo_attention_int8_dw_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
+    ln = (t["gamma"], t["beta"])
+    r1, xq, sx = ck.fused_ln_qkvo_attention_int8_ho(
+        t["x"], None, None, *ln, *ln, t["wqkv"], t["bqkv"], t["wo"], t["bo"],
+        EPS, SEQ, H, HD)
+    ck.fused_ln_mlp_int8_ho(r1, xq, sx, *ln, t["w1"], t["b1"], t["w2"],
+                            t["b2"], EPS)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -133,7 +141,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_ln_qkvo_attention_int8": 0,
                                   "fused_ln_mlp_int8": 0,
                                   "fused_ln_qkvo_attention_int8_bwd": 0,
-                                  "fused_ln_mlp_int8_bwd": 0}
+                                  "fused_ln_mlp_int8_bwd": 0,
+                                  "fused_ln_qkvo_attention_int8_ho": 0,
+                                  "fused_ln_mlp_int8_ho": 0,
+                                  "fused_ln_qkvo_attention_int8_dw_bwd": 0,
+                                  "fused_ln_mlp_int8_dw_bwd": 0}
 
 
 def test_hopper_gates():

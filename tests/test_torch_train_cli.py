@@ -79,7 +79,8 @@ def _run(tmp_path, name, extra=()):
     return train_cli.main(TINY + [
         "--batch-size", "8", "--synthetic-samples", "16", "--train-steps", "4",
         "--lr", "0.01", "--warmup-steps", "2", "--fused-qkv", "--fused-mlp",
-        "--exp-name", name, "--exp-root", str(tmp_path / name), *extra])
+        "--exp-name", name, "--exp-root", str(tmp_path / name), *extra],
+        device="cpu")
 
 
 def test_two_epoch_run_writes_current_and_best(tmp_path):
@@ -147,7 +148,7 @@ def test_npz_checkpoint_with_another_head_is_reinitialized(tmp_path, capsys):
     out = train_cli.main(TINY + [
         "--batch-size", "8", "--synthetic-samples", "8", "--train-steps", "1",
         "--warmup-steps", "0", "--num-classes", "12", "--checkpoint-path", path,
-        "--exp-root", str(tmp_path)])
+        "--exp-root", str(tmp_path)], device="cpu")
     assert "re-initializing classifier head for 12 classes" in \
         capsys.readouterr().out
     head = out["state"].params["classifier"]["kernel"]
@@ -156,14 +157,14 @@ def test_npz_checkpoint_with_another_head_is_reinitialized(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--export-pth"], ["--n-gpu", "2"], ["--n-model", "2"], ["--device-prep"],
-    ["--int4-attn"], ["--int4"], ["--int8-dw"], ["--save-acts"],
+    ["--int4-attn"], ["--int4"], ["--save-acts"],
     ["--remat", "full"], ["--remat", "selective"],
     ["--checkpoint-path", "weights/model.pth"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(TINY + ["--synthetic-samples", "8", "--exp-root",
-                               str(tmp_path)] + flags)
+                               str(tmp_path)] + flags, device="cpu")
 
 
 def test_model_config_from_cli_defaults_the_kernels_to_the_card():
@@ -178,3 +179,13 @@ def test_model_config_from_cli_defaults_the_kernels_to_the_card():
     ns.no_pallas, ns.fused_qkv = True, False
     plain = train_cli.model_config_from_cli(ns, on_gpu=True)
     assert plain.use_pallas is False and not plain.fused_qkv
+
+
+def test_main_needs_the_card_unless_asked_for_the_cpu(tmp_path):
+    """No silent CPU fallback: without a card `main` raises, unless the
+    caller passes device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: main() would train on it")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        train_cli.main(TINY + ["--synthetic-samples", "8", "--exp-root",
+                               str(tmp_path)])

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from vitax_torch.core.config import num_classes_for_dataset
 from vitax_torch.utils.experiment import process_config
 
@@ -147,3 +149,16 @@ def print_config(config) -> None:
     for k, v in sorted(vars(config).items()):
         print(f"{k}: {v}")
     print("-------------------------")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The CLIs' device: the card unless the caller asks for the CPU
+    (`device="cpu"`, as the CPU tests do). Without a card and without that
+    request it raises: the port does not fall back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card: the vitax_torch CLIs run on the card; pass "
+                "device='cpu' to main() to run the plain path on the CPU")
+        device = "cuda"
+    return torch.device(device)

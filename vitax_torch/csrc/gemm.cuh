@@ -362,15 +362,25 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // writes bf16x2 / float2. The int32 sums are exact (|acc| <= 127^2 K), so two
 // runs give the same bits. Bound on the H100: the tensor cores, as the bf16
 // GEMM; mma.sync does not reach the int8 wgmma rate (later work).
+//
+// kS8GroupF32 is the int8_dw weight grad (dw_int8.cuh): K is the rows of the
+// batch cut into groups of gp = group_stages * 64 (each zero-padded to a whole
+// number of K stages); after a group's last stage the int32 accumulator is
+// folded into an fp32 one, F += f32(acc) * sr[z][m] (the group's column
+// scales, one per output row m), and cleared. Groups fold in order and the
+// product is a separate rounding (__fmul_rn, never contracted into the add),
+// as the plain twin adds them: no split, no atomics, the same bits each run.
 // =============================================================================
 
 enum EpilogueS8 : int {
-  kS8Bf16 = 0,       // C = bf16(acc*sr*sc (+ bias))
-  kS8F32 = 1,        // F = acc*sr*sc (+ bias)
-  kS8GeluQF32 = 2,   // F = gelu_q(acc*sr*sc + bias)
-  kS8GeluQAux = 3,   // F = acc*sr*sc + bias, C = bf16(gelu_q(F))
-  kS8Residual = 4,   // C = R + bf16(acc*sr*sc + bias), the add in bf16
-  kS8GeluQGrad = 5,  // F = acc*sr*sc * gelu_grad_q(Aux), C = bf16(F)
+  kS8Bf16 = 0,         // C = bf16(acc*sr*sc (+ bias))
+  kS8F32 = 1,          // F = acc*sr*sc (+ bias)
+  kS8GeluQF32 = 2,     // F = gelu_q(acc*sr*sc + bias)
+  kS8GeluQAux = 3,     // F = acc*sr*sc + bias, C = bf16(gelu_q(F))
+  kS8Residual = 4,     // C = R + bf16(acc*sr*sc + bias), the add in bf16
+  kS8GeluQGrad = 5,    // F = acc*sr*sc * gelu_grad_q(Aux), C = bf16(F)
+  kS8ResidualF32 = 6,  // C = bf16(f32(R) + acc*sr*sc + bias), the add in fp32
+  kS8GroupF32 = 7,     // F = sum over groups z of f32(acc_z) * sr[z*M + m]
 };
 
 constexpr int kS8BK = 64;          // K bytes a stage
@@ -412,7 +422,8 @@ __global__ void __launch_bounds__(kGemmThreads)
                    const float* __restrict__ sr, const float* __restrict__ sc,
                    const float* __restrict__ bias, const bf16* __restrict__ R,
                    const float* __restrict__ Aux, bf16* __restrict__ C, float* __restrict__ F,
-                   int M, int N, int K) {
+                   int M, int N, int K, int group_stages) {
+  constexpr bool kGroups = EPI == kS8GroupF32;
   __shared__ __align__(128) int8_t smem[4 * kS8Tile];  // A[2], B[2]
   int8_t* As[2] = {smem, smem + kS8Tile};
   int8_t* Bs[2] = {smem + 2 * kS8Tile, smem + 3 * kS8Tile};
@@ -426,12 +437,13 @@ __global__ void __launch_bounds__(kGemmThreads)
   const int wn = (warp % 4) * 32;
 
   int acc[4][4][4];
+  float facc[4][4][4];  // kGroups only; dead otherwise
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0, facc[i][j][r] = 0.f;
 
   const int nk = (K + kS8BK - 1) / kS8BK;
   if (nk > 0) gemm_s8_load_tile(As[0], Bs[0], A, B, bm, bn, 0, M, N, K);
@@ -469,6 +481,23 @@ __global__ void __launch_bounds__(kGemmThreads)
         for (int j = 0; j < 4; ++j) mma_s8_16832(acc[i][j], a[i], b[j]);
     }
     __syncthreads();  // the next iteration's load overwrites this stage
+    if (kGroups && (kt + 1) % group_stages == 0) {  // the end of group z
+      const int z = kt / group_stages;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = bm + wm + i * 16 + g + 8 * h;
+          const float s = row < M ? sr[static_cast<size_t>(z) * M + row] : 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              facc[i][j][2 * h + e] += __fmul_rn(static_cast<float>(acc[i][j][2 * h + e]), s);
+              acc[i][j][2 * h + e] = 0;
+            }
+        }
+    }
   }
 
   // accumulator c[2h], c[2h+1]: row g + 8h, columns 2t, 2t+1 of each 16x8 tile
@@ -478,6 +507,16 @@ __global__ void __launch_bounds__(kGemmThreads)
     for (int h = 0; h < 2; ++h) {
       const int row = bm + wm + i * 16 + g + 8 * h;
       if (row >= M) continue;
+      if (kGroups) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = bn + wn + j * 8 + 2 * t;
+          if (col < N)
+            *reinterpret_cast<float2*>(F + static_cast<size_t>(row) * N + col) =
+                make_float2(facc[i][j][2 * h], facc[i][j][2 * h + 1]);
+        }
+        continue;
+      }
       const float srow = sr[row];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -501,13 +540,19 @@ __global__ void __launch_bounds__(kGemmThreads)
           *reinterpret_cast<float2*>(F + off) = make_float2(f[0], f[1]);
           v[0] = f[0], v[1] = f[1];
         }
-        if (EPI == kS8Bf16 || EPI == kS8GeluQAux || EPI == kS8Residual || EPI == kS8GeluQGrad) {
+        if (EPI == kS8Bf16 || EPI == kS8GeluQAux || EPI == kS8Residual || EPI == kS8GeluQGrad ||
+            EPI == kS8ResidualF32) {
           float o[2] = {v[0], v[1]};
           if (EPI == kS8GeluQAux) o[0] = gelu_q(v[0]), o[1] = gelu_q(v[1]);
           if (EPI == kS8Residual) {
             const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(R + off);
             o[0] = __bfloat162float(r.x) + __bfloat162float(__float2bfloat16(v[0]));
             o[1] = __bfloat162float(r.y) + __bfloat162float(__float2bfloat16(v[1]));
+          }
+          if (EPI == kS8ResidualF32) {
+            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(R + off);
+            o[0] = __fadd_rn(__bfloat162float(r.x), v[0]);
+            o[1] = __fadd_rn(__bfloat162float(r.y), v[1]);
           }
           *reinterpret_cast<__nv_bfloat162*>(C + off) = __floats2bfloat162_rn(o[0], o[1]);
         }
@@ -523,10 +568,24 @@ cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* B, const float* sr, co
                            const float* bias, const bf16* R, const float* Aux, bf16* C, float* F,
                            int M, int N, int K, cudaStream_t stream) {
   if (M == 0 || N == 0) return cudaSuccess;
-  if (K % 16 || N % 2) return cudaErrorInvalidValue;
+  if (K % 16 || N % 2 || EPI == kS8GroupF32) return cudaErrorInvalidValue;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   gemm_s8_kernel<EPI>
-      <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, Aux, C, F, M, N, K);
+      <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, Aux, C, F, M, N, K, 0);
+  return cudaGetLastError();
+}
+
+// The int8_dw product: F[M,N] = sum over groups z of f32(A_z @ B_z^T) * s[z*M + m],
+// A [M, K] and B [N, K] int8 with K = groups * gp, group z the K columns
+// [z*gp, (z+1)*gp) (zero past its rows); gp % 64 == 0.
+inline cudaError_t launch_gemm_s8_groups(const int8_t* A, const int8_t* B, const float* s,
+                                         float* F, int M, int N, int K, int gp,
+                                         cudaStream_t stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (gp <= 0 || gp % kS8BK || K % gp || N % 2) return cudaErrorInvalidValue;
+  const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
+  gemm_s8_kernel<kS8GroupF32><<<grid, kGemmThreads, 0, stream>>>(
+      A, B, s, nullptr, nullptr, nullptr, nullptr, nullptr, F, M, N, K, gp / kS8BK);
   return cudaGetLastError();
 }
 

@@ -75,14 +75,16 @@ cudaError_t launch_layer_norm(const T* x, const float* gamma, const float* beta,
 // row's int8 codes q and scale s (quant.cuh), quantized from the fp32 xn
 // (K3 forward and backward, K4 forward: _quant_rows(xn32),
 // pallas_kernels.py:2706, :3015, :708) or, with FROM_BF16, from the
-// bf16-rounded xn (K4 backward, :1155). xn_out, if not null, receives
-// bf16(xn) for the weight-grad products. One warp a row; the row is read
-// four times (statistics twice, amax, codes), all but the first from L1.
-template <bool FROM_BF16>
+// bf16-rounded xn (K4 backward, :1155). xn_out, if not null, receives xn for
+// the weight-grad products: bf16(xn), or with XN_F32 the fp32 xn (K3's
+// backward under int8_dw quantizes it per column, :3081). One warp a row; the
+// row is read four times (statistics twice, amax, codes), all but the first
+// from L1. Also the handoff's row pack (K5, _ln_quant_rows :3660).
+template <bool FROM_BF16, bool XN_F32>
 __global__ void __launch_bounds__(256)
     layer_norm_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                             const float* __restrict__ beta, int8_t* __restrict__ q,
-                            float* __restrict__ s, bf16* __restrict__ xn_out, int n, int d,
+                            float* __restrict__ s, void* __restrict__ xn_out, int n, int d,
                             float eps) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -137,22 +139,29 @@ __global__ void __launch_bounds__(256)
     for (int e = 0; e < 8; ++e) o[e] = quant_i8(y[e], sr.y);
     *reinterpret_cast<uint2*>(q + base + i) = *reinterpret_cast<const uint2*>(o);
     if (xn_out != nullptr) {
-      store4(xn_out + base + i, y);
-      store4(xn_out + base + i + 4, y + 4);
+      if (XN_F32) {
+        float* xo = static_cast<float*>(xn_out) + base + i;
+        store4(xo, y);
+        store4(xo + 4, y + 4);
+      } else {
+        bf16* xo = static_cast<bf16*>(xn_out) + base + i;
+        store4(xo, y);
+        store4(xo + 4, y + 4);
+      }
     }
   }
   if (lane == 0) s[row] = sr.x;
 }
 
-// d % 8 == 0.
-template <bool FROM_BF16>
+// d % 8 == 0. xn_out: null, bf16 [n, d], or with XN_F32 fp32 [n, d].
+template <bool FROM_BF16, bool XN_F32 = false>
 cudaError_t launch_layer_norm_quant(const bf16* x, const float* gamma, const float* beta,
-                                    int8_t* q, float* s, bf16* xn_out, int n, int d, float eps,
+                                    int8_t* q, float* s, void* xn_out, int n, int d, float eps,
                                     cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
   if (d % 8) return cudaErrorInvalidValue;
   constexpr int kRowsPerBlock = 8;
-  layer_norm_quant_kernel<FROM_BF16>
+  layer_norm_quant_kernel<FROM_BF16, XN_F32>
       <<<(n + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
           x, gamma, beta, q, s, xn_out, n, d, eps);
   return cudaGetLastError();

@@ -1,7 +1,7 @@
 // K4 backward under int8_grad, the fused LN-MLP half: replaces
 // _ln_mlp_bwd_int8_kernel (vitax/ops/pallas_kernels.py:1122), reached
 // through _ln_mlp_2d_int8g_bwd (:1859) -> _ln_mlp_bwd_int8_call (pallas_call
-// at :1820), with int8_dw off. In the order of the Pallas body
+// at :1820), with int8_dw off or on. In the order of the Pallas body
 // (:1134-1224), the SwitchBack split (int8 dx-path, bf16 weight grads):
 //
 //   xn     = bf16(LN2(x)); xq, sxq = quant_rows(f32(xn))   from the bf16-
@@ -14,18 +14,25 @@
 //   dh1q, sd = quant_rows(dh1_32);  dxn = f32(dh1q W1r^T) sd s1r
 //   LN tail: dx = do + bf16(dx_ln), dγ = Σ dxn x̂, dβ = Σ dxn
 //
+// With int8_dw the two weight grads are the per-group int8 products with
+// row-scale folding (:1173-1197; dw_int8.cuh), over groups of `group` rows
+// (the wrapper's: 128, the last one ragged):
+//   dW2 = Σ_z f32(quant_cols(h1_z sdo_z)^T doq_z) sh_z
+//   dW1 = Σ_z f32(quant_cols(xn_z sd_z)^T dh1q_z) sxn_z
+//
 // The first launches quantize the weights (quant.cuh): W1c/s1c, W1 per
 // output column, as [M, D]; W2r/s2r and W1r/s1r, W2 and W1 per row,
 // contracted over their columns, as they are ([M, D], [D, M]).
 // Weight and vector grads come out in fp32, as the TPU kernel's outputs.
 //
-// Bound on the H100: the five products (three s8, two bf16 kTN), on the
-// tensor cores. This first design is the multi-launch form of the bf16
-// backward (ln_mlp_bwd.cu) with the s8 GEMM and the row quantizer swapped in:
-// a1 and dh1_32 (fp32 [N, M]) and the codes go through device memory, the
-// weight grads are split-K kTN products with an ordered second pass and the
-// vector grads two-pass column sums: no float atomics, two runs give the
-// same bits.
+// Bound on the H100: the five products (three s8, and two bf16 kTN or, with
+// int8_dw, two s8), on the tensor cores. This first design is the
+// multi-launch form of the bf16 backward (ln_mlp_bwd.cu) with the s8 GEMM and
+// the row quantizer swapped in: a1 and dh1_32 (fp32 [N, M]) and the codes go
+// through device memory, the bf16 weight grads are split-K kTN products with
+// an ordered second pass and the vector grads two-pass column sums: no float
+// atomics, two runs give the same bits.
+#include "dw_int8.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
@@ -35,13 +42,16 @@
 // w2r int8 [m, d], s2r [m], w1c int8 [m, d], s1c [m], xn bf16 [n,d], xq int8
 // [n,d], sx [n], a1 fp32 [n,m], h1 bf16 [n,m], doq int8 [n,d], sdo [n], dh1f
 // fp32 [n,m], dh1 bf16 [n,m], dh1q int8 [n,m], sdh [n], dxn fp32 [n,d], ws
-// fp32 vitax_ln_mlp_bwd_ws(n, d, m).
+// fp32 vitax_ln_mlp_bwd_ws(n, d, m); with int8_dw (else null), kp = groups *
+// round_up(group, 64): h1ct int8 [m, kp], sh fp32 [groups, m], doqt int8
+// [d, kp], xnct int8 [d, kp], sxn fp32 [groups, d], dh1qt int8 [m, kp].
 extern "C" int vitax_ln_mlp_int8_bwd(
     const void* x, const void* gamma, const void* beta, const void* b1, const void* w1,
     const void* w2, const void* dout, void* dx, void* dgamma, void* dbeta, void* dw1, void* db1,
     void* dw2, void* db2, void* w1r, void* s1r, void* w2r, void* s2r, void* w1c, void* s1c,
     void* xn, void* xq, void* sx, void* a1, void* h1, void* doq, void* sdo, void* dh1f,
-    void* dh1, void* dh1q, void* sdh, void* dxn, void* ws, int n, int d, int m, float eps,
+    void* dh1, void* dh1q, void* sdh, void* dxn, void* ws, void* h1ct, void* sh, void* doqt,
+    void* xnct, void* sxn, void* dh1qt, int n, int d, int m, int group, int int8_dw, float eps,
     void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
@@ -85,17 +95,29 @@ extern "C" int vitax_ln_mlp_int8_bwd(
                                                  static_cast<const float*>(s2r), nullptr, nullptr,
                                                  a1f, dh1b, dh1ff, n, m, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(h1b, dob, static_cast<float*>(dw2), wsf, m, d, n, st);
-  if (e != cudaSuccess) return e;
+  if (!int8_dw) {
+    e = vitax::launch_gemm_tn(h1b, dob, static_cast<float*>(dw2), wsf, m, d, n, st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_gemm_tn(xnb, dh1b, static_cast<float*>(dw1), wsf, d, m, n, st);
+    if (e != cudaSuccess) return e;
+  }
   e = vitax::launch_colsum(dob, static_cast<float*>(db2), wsf, n, d, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(xnb, dh1b, static_cast<float*>(dw1), wsf, d, m, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const float*>(dh1ff), static_cast<float*>(db1), wsf, n, m,
                            st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_rows(static_cast<const float*>(dh1ff), dh1qi, sdhf, n, m, st);
   if (e != cudaSuccess) return e;
+  if (int8_dw) {
+    e = vitax::launch_dw_int8<bf16>(h1b, sdof, doqi, n, m, d, group, static_cast<int8_t*>(h1ct),
+                                    static_cast<float*>(sh), static_cast<int8_t*>(doqt),
+                                    static_cast<float*>(dw2), st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_dw_int8<bf16>(xnb, sdhf, dh1qi, n, d, m, group, static_cast<int8_t*>(xnct),
+                                    static_cast<float*>(sxn), static_cast<int8_t*>(dh1qt),
+                                    static_cast<float*>(dw1), st);
+    if (e != cudaSuccess) return e;
+  }
   e = vitax::launch_gemm_s8<vitax::kS8F32>(dh1qi, static_cast<const int8_t*>(w1r), sdhf,
                                            static_cast<const float*>(s1r), nullptr, nullptr,
                                            nullptr, nullptr, dxnf, n, d, m, st);

@@ -1,7 +1,7 @@
 // K3 backward under int8_grad, the fused LN-QKVO attention half: replaces
 // _ln_qkvo_bwd_int8_kernel (vitax/ops/pallas_kernels.py:2977), the int8
 // branch of _fused_ln_qkvo_bwd (:3232, pallas_call at :3252), with int8_dw
-// and int4_grad off. In the order of the Pallas body (:3003-3088), the
+// off or on and int4_grad off. In the order of the Pallas body (:3003-3088), the
 // SwitchBack split (int8 recompute and dx-path, bf16 core grads and weight
 // grads):
 //
@@ -15,18 +15,26 @@
 //   dW = xn^T dqkv, db = Σ f32(dqkv)
 //   LN tail: dx = bf16(dx_ln), dγ = Σ dxn x̂, dβ = Σ dxn
 //
+// With int8_dw the two weight grads are the per-group int8 products with
+// row-scale folding (:3041-3049, :3077-3084; dw_int8.cuh), over groups of
+// `group` rows (the wrapper's: whole images, tile*spq):
+//   dWo = Σ_z f32(quant_cols(attn_z sdo_z)^T doq_z) sat_z    attn the bf16 recompute
+//   dW  = Σ_z f32(quant_cols(xn32_z sdq_z)^T dqq_z) sxn_z    xn32 the fp32 LN output
+//
 // The first launches quantize the weights (quant.cuh): Wq/sw, Wqkv per
 // output column, as [3HHd, D]; Wr/swr and Wor/swor, Wqkv and Wo per row,
 // contracted over their columns, as they are. Weight and vector grads come
 // out in fp32, as the TPU kernel's outputs.
 //
-// Bound on the H100: the projections (three s8, two bf16 kTN) on the tensor
+// Bound on the H100: the projections (three s8, and two bf16 kTN or, with
+// int8_dw, two s8) on the tensor
 // cores, and the attention core's recompute and backward. This first design
 // is the multi-launch K1 backward (ln_qkvo_attention_bwd.cu, whose design
 // notes cover the core's two passes) with the s8 GEMM, the quantizing LN and
 // the row quantizer swapped in. No float atomics: two runs give the same
 // bits.
 #include "attention_bwd.cuh"
+#include "dw_int8.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
@@ -38,14 +46,18 @@
 // xq int8 [n,d], sx fp32 [n], qkv [n,3hhd], attn [n,hhd], doq int8 [n,d], sdo
 // fp32 [n], dattn [n,hhd], p and ds [b,heads,L,L] with L = round_up(spq, 16),
 // dqkv [n,3hhd], dqq int8 [n,3hhd], sdq fp32 [n], dxn fp32 [n,d], ws fp32
-// vitax_ln_qkvo_attention_bwd_ws(n, d, hhd).
+// vitax_ln_qkvo_attention_bwd_ws(n, d, hhd); with int8_dw (else null; xn is
+// then fp32 [n, d]), kp = groups * round_up(group, 64): atct int8 [hhd, kp],
+// sat fp32 [groups, hhd], doqt int8 [d, kp], xnct int8 [d, kp], sxn fp32
+// [groups, d], dqqt int8 [3hhd, kp].
 extern "C" int vitax_ln_qkvo_attention_int8_bwd(
     const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
     void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
     void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
-    void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws, int b,
-    int spq, int d, int seq_len, int heads, int head_dim, float eps, float scale,
+    void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws,
+    void* atct, void* sat, void* doqt, void* xnct, void* sxn, void* dqqt, int b, int spq, int d,
+    int seq_len, int heads, int head_dim, int group, int int8_dw, float eps, float scale,
     void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
@@ -53,7 +65,6 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
   const int hhd = heads * head_dim;
   const auto* xb = static_cast<const bf16*>(x);
   const auto* dob = static_cast<const bf16*>(dout);
-  auto* xnb = static_cast<bf16*>(xn);
   auto* xqi = static_cast<int8_t*>(xq);
   auto* sxf = static_cast<float*>(sx);
   auto* qkvb = static_cast<bf16*>(qkv);
@@ -79,10 +90,13 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
                                       static_cast<float*>(swor), hhd, d, st);
   if (e != cudaSuccess) return e;
 
-  // recompute LN1 (+ codes), qkv (s8) and the attention core
-  e = vitax::launch_layer_norm_quant<false>(
-      xb, static_cast<const float*>(gamma), static_cast<const float*>(beta), xqi, sxf, xnb, n, d,
-      eps, st);
+  // recompute LN1 (+ codes; xn for the weight grads, fp32 under int8_dw),
+  // qkv (s8) and the attention core
+  const auto* g32 = static_cast<const float*>(gamma);
+  const auto* be32 = static_cast<const float*>(beta);
+  e = int8_dw ? vitax::launch_layer_norm_quant<false, true>(xb, g32, be32, xqi, sxf, xn, n, d,
+                                                            eps, st)
+              : vitax::launch_layer_norm_quant<false>(xb, g32, be32, xqi, sxf, xn, n, d, eps, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
                                             static_cast<const float*>(sw),
@@ -99,7 +113,11 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
                                             static_cast<const float*>(swor), nullptr, nullptr,
                                             nullptr, dattnb, nullptr, n, hhd, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
+  e = int8_dw ? vitax::launch_dw_int8<bf16>(attnb, sdof, doqi, n, hhd, d, group,
+                                             static_cast<int8_t*>(atct), static_cast<float*>(sat),
+                                             static_cast<int8_t*>(doqt), static_cast<float*>(dwo),
+                                             st)
+              : vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, n, d, st);
   if (e != cudaSuccess) return e;
@@ -117,7 +135,12 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
                                            static_cast<const float*>(swr), nullptr, nullptr,
                                            nullptr, nullptr, dxnf, n, d, 3 * hhd, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, 3 * hhd, n, st);
+  e = int8_dw ? vitax::launch_dw_int8<float>(static_cast<const float*>(xn), sdqf, dqqi, n, d,
+                                              3 * hhd, group, static_cast<int8_t*>(xnct),
+                                              static_cast<float*>(sxn), static_cast<int8_t*>(dqqt),
+                                              static_cast<float*>(dwqkv), st)
+              : vitax::launch_gemm_tn(static_cast<const bf16*>(xn), dqkvb,
+                                      static_cast<float*>(dwqkv), wsf, d, 3 * hhd, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n,
                            3 * hhd, st);

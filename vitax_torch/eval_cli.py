@@ -2,9 +2,10 @@
 
 Builds the model from an arch preset (random weights from `--seed`, or an
 `.npz` checkpoint), evaluates top-1/top-5 and the loss on the val split with
-a weighted padded final batch, and prints the means and the img/s. On a CUDA
-card the fused kernels are on by default (`--no-fused-qkv`, `--no-fused-mlp`
-and `--no-pallas` turn them off).
+a weighted padded final batch, and prints the means and the img/s. It runs
+on the card unless the caller of `main` asks for the CPU (`device="cpu"`);
+on the card the fused kernels are on by default (`--no-fused-qkv`,
+`--no-fused-mlp` and `--no-pallas` turn them off).
 
 Run: `python -m vitax_torch.eval_cli --dataset Synthetic --model-arch b16 \
           --image-size 224 --batch-size 64`
@@ -45,7 +46,8 @@ def make_weighted_eval_step(cfg):
     return step_fn
 
 
-def main(argv=None):
+def main(argv=None, device=None):
+    """`device`: None for the card (raises without one), or "cpu"."""
     config = cli.get_eval_config(argv)
     cli.print_config(config)
     if config.n_gpu > 1:
@@ -54,7 +56,7 @@ def main(argv=None):
             "(ROADMAP Queue 1 item 11)")
     gen = set_seed(config.seed)
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = cli.resolve_device(device)
     on_gpu = device.type == "cuda"
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
     cfg = arch_config(config.model_arch, image_size=config.image_size,

@@ -21,8 +21,10 @@ both packages compute the same function. `apply` is the forward, eval or
 train: with `fused_qkv` and `fused_mlp` each encoder block is two fused
 kernels on a residual stream padded once to a multiple of 8 rows (under
 autograd, their backward kernels run through `torch.autograd.Function`s),
-in bf16 or, with `int8_attn`/`int8_mlp` (and their `_grad` flags), in the
-W8A8 tiers; with them off, it is plain PyTorch ops. Train mode adds token
+in bf16 or, with `int8_attn`/`int8_mlp` (and their `_grad` flags and
+`int8_dw`), in the W8A8 tiers, which on short or very long streams hand
+each block's packed int8 input over from the previous one (K5, vitax's auto
+gate); with them off, it is plain PyTorch ops. Train mode adds token
 dropping and dropout, with their random numbers drawn from an explicit
 `torch.Generator`.
 """
@@ -208,7 +210,8 @@ def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
             p["out"]["bias"].float(), LN_EPS, s, h, hd)
     if cfg.int8_attn:  # W8A8 projections (vitax/models/vit.py:247-252)
         out = ck.fused_ln_qkvo_attention_int8(*args,
-                                              int8_grad=cfg.int8_attn_grad)
+                                              int8_grad=cfg.int8_attn_grad,
+                                              int8_dw=cfg.int8_dw)
     else:
         out = ck.fused_ln_qkvo_attention(*args)
     if seq_len is None:
@@ -228,7 +231,8 @@ def _fused_block_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig
             lp["ln2"]["bias"].float(), w1, lp["mlp"]["fc1"]["bias"].float(),
             w2, lp["mlp"]["fc2"]["bias"].float(), LN_EPS)
     if cfg.int8_mlp:  # W8A8 fc1/fc2 (vitax/models/vit.py:289-298)
-        return ck.fused_ln_mlp_int8(*args, int8_grad=cfg.int8_mlp_grad)
+        return ck.fused_ln_mlp_int8(*args, int8_grad=cfg.int8_mlp_grad,
+                                    int8_dw=cfg.int8_dw)
     return ck.fused_ln_mlp(*args)
 
 
@@ -329,39 +333,40 @@ def _padded_stream_len(x: torch.Tensor, params: Params, cfg: ViTConfig,
     return spq
 
 
-def _takes_int8_handoff(x: torch.Tensor, cfg: ViTConfig,
-                        deterministic: bool) -> bool:
-    """Whether vitax's auto gate takes the int8 block handoff (K5,
-    fused_block_int8_handoff) for the padded stream x [B, spq, D]
-    (vitax/models/vit.py:504-516): no dropout, all four int8 flags, no
-    int4 or save-acts, and short sequences (spq <= 128, the token-drop
-    phase) or streams of >= 51200 rows; then its row-block check
-    (_vitax_mlp_rows_divide)."""
+def _int8_handoff(x: torch.Tensor, cfg: ViTConfig,
+                  deterministic: bool) -> bool:
+    """Whether the padded stream x [B, spq, D] runs the int8 block handoff
+    (K5): vitax's auto gate (vitax/models/vit.py:506-513): no dropout, all
+    four int8 flags, no int4 or save-acts, and short sequences (spq <= 128,
+    the token-drop phase) or streams of >= 51200 rows. The shapes were
+    checked by `_padded_stream_len`: K5's halves take what K3 and K4 take."""
     b, spq, _ = x.shape
-    if not (deterministic and cfg.int8_attn and cfg.int8_mlp
+    return (deterministic and cfg.int8_attn and cfg.int8_mlp
             and cfg.int8_attn_grad and cfg.int8_mlp_grad
             and not (cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad)
             and not cfg.fused_mlp_save
-            and (spq <= 128 or b * spq >= 51200)):
-        return False
-    return _vitax_mlp_rows_divide(b * spq)
+            and (spq <= 128 or b * spq >= 51200))
 
 
-def _vitax_mlp_rows_divide(n: int) -> bool:
-    """vitax's block_handoff_supported (pallas_kernels.py:3852-3859): the
-    int8 MLP row block that its TPU geometry derives for n rows
-    (_mlp_block_rows :427 with its default of 2 chunks, _ln_mlp_rows :1393)
-    divides n."""
-    base = 256
-    if n >= 32768:
-        base = 1024
-        if n % base:
-            base = next((c for c in (1280, 960, 768, 640, 512)
-                         if n % c == 0 and n % (2 * c) == 0), 1024)
-    rows = min(base, (n + 15) // 16 * 16)
-    while rows > 16 and n % rows:
-        rows //= 2
-    return n % rows == 0
+def _handoff_block(x: torch.Tensor, xq: Optional[torch.Tensor],
+                   sx: Optional[torch.Tensor], lp: Params, ln_next: Params,
+                   cfg: ViTConfig, seq_len: int):
+    """One block through K5 (vitax/models/vit.py:531-557): (x, xq, sx) →
+    (r2, xqn, sxn), ln_next the next block's LN1 (the encoder norm's for the
+    last block)."""
+    dt = x.dtype
+    d = x.shape[-1]
+    h, hd = cfg.num_heads, cfg.head_dim
+    p, mlp = lp["attn"], lp["mlp"]
+    wqkv, bqkv = _merged_qkv(p, dt)
+    return ck.fused_block_int8_handoff(
+        x, xq, sx, lp["ln1"]["scale"].float(), lp["ln1"]["bias"].float(),
+        wqkv, bqkv, p["out"]["kernel"].to(dt).reshape(h * hd, d),
+        p["out"]["bias"].float(), lp["ln2"]["scale"].float(),
+        lp["ln2"]["bias"].float(), mlp["fc1"]["kernel"].to(dt),
+        mlp["fc1"]["bias"].float(), mlp["fc2"]["kernel"].to(dt),
+        mlp["fc2"]["bias"].float(), ln_next["scale"].float(),
+        ln_next["bias"].float(), LN_EPS, seq_len, h, hd, cfg.int8_dw)
 
 
 def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
@@ -373,10 +378,6 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
         raise NotImplementedError(
             "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, K11)")
-    if cfg.int8_dw:
-        raise NotImplementedError(
-            "int8_dw: the per-block int8 weight-grad products are not ported "
-            "yet (ROADMAP Queue 2, int8_dw and K5)")
     if cfg.remat:
         raise NotImplementedError(
             f"remat={cfg.remat!r}: block rematerialization is not ported yet "
@@ -397,13 +398,18 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     if spq is not None:
         seq_len = x.shape[1]
         x = F.pad(x, (0, 0, 0, spq - seq_len))
-        if _takes_int8_handoff(x, cfg, deterministic):
-            raise NotImplementedError(
-                f"B {x.shape[0]} x spq {spq}: vitax runs the int8 block "
-                "handoff here, which is not ported yet (ROADMAP Queue 2, "
-                "int8_dw and K5)")
-    for lp in params["layers"]:
-        x = _block(x, lp, cfg, gen, deterministic, seq_len)
+    layers = params["layers"]
+    if spq is not None and _int8_handoff(x, cfg, deterministic):
+        # each block's epilogue packs the next one's LN1; the first block
+        # packs its own input (xq None)
+        xq = sx = None
+        for i, lp in enumerate(layers):
+            ln_next = (layers[i + 1]["ln1"] if i + 1 < len(layers)
+                       else params["encoder_norm"])
+            x, xq, sx = _handoff_block(x, xq, sx, lp, ln_next, cfg, seq_len)
+    else:
+        for lp in layers:
+            x = _block(x, lp, cfg, gen, deterministic, seq_len)
     # pad rows (if any) carry confined garbage; the head reads only cls
     x = layer_norm(x, params["encoder_norm"]["scale"],
                    params["encoder_norm"]["bias"], LN_EPS,

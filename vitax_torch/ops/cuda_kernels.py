@@ -20,6 +20,13 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   `_ln_qkvo_bwd_int8_kernel` :2977
 - `fused_ln_mlp_int8_bwd` -> ln_mlp_int8_bwd.cu -> `_ln_mlp_bwd_int8_kernel`
   :1122
+- `fused_ln_qkvo_attention_int8_dw_bwd`, `fused_ln_mlp_int8_dw_bwd` -> the
+  same two sources with `int8_dw` on (dw_int8.cuh) -> the `int8_dw` branches
+  of those kernels, :3041-3049 and :3077-3084, :1173-1197
+- `fused_ln_qkvo_attention_int8_ho` -> ln_qkvo_attention_int8_ho.cu ->
+  `_ln_qkvo_fwd_int8_ho_kernel` :3669 (K5)
+- `fused_ln_mlp_int8_ho` -> ln_mlp_int8_ho.cu -> `_ln_mlp_fwd_int8_ho_kernel`
+  :3732 (K5)
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -27,7 +34,9 @@ no fallback. With grad mode on and an input that requires grad, the forward
 wrappers go through a `torch.autograd.Function` (`LayerNormFn`,
 `FusedLnQkvoAttentionFn`, `FusedLnMlpFn`, the last two for both tiers)
 whose backward is the matching `*_bwd` wrapper: the int8 one under
-`int8_grad`, else the bf16 one. As vitax's custom VJPs, each Function
+`int8_grad` (its `int8_dw` variant under `int8_dw`), else the bf16 one; the
+int8 block handoff is `FusedBlockInt8HandoffFn`, whose backward is the two
+int8 backwards. As vitax's custom VJPs, each Function
 saves only its inputs and recomputes the rest in the backward; its grads
 come back in the dtypes of the Pallas VJPs (weight grads in the weight's
 dtype, LN and bias grads in fp32).
@@ -52,8 +61,8 @@ from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm_ref
 from vitax_torch.ops.mlp import (gelu_exact, gelu_exact_grad, gelu_grad_q,
                                  gelu_q)
-from vitax_torch.ops.quant import (int_mm, quant_cols_host, quant_rows,
-                                   quant_rows_host)
+from vitax_torch.ops.quant import (int_mm, quant_cols, quant_cols_host,
+                                   quant_rows, quant_rows_host)
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt into (227 KB)
 ATTN_HEAD_DIMS = (32, 64, 128)
@@ -272,7 +281,7 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps):
     Weights bf16 [D,M], [M,D]; gamma/beta/b1/b2 fp32."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
         return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, False,
-                                  False)
+                                  False, False)
     if not x.is_cuda:
         return fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps)
     dev = _check_cuda(
@@ -376,15 +385,16 @@ class FusedLnMlpFn(torch.autograd.Function):
     """The fused MLP half with its backward kernel, saving (x, γ, β, W1, b1,
     W2), as vitax's custom VJPs: `int8` picks the W8A8 forward (K4) and
     `int8_grad` the W8A8 dx-path backward (K4 bwd, _ln_mlp_2d_int8g
-    :1845-1865); `int8` alone keeps the bf16 backward of the bf16 function
-    (_ln_mlp_2d_int8 :1779-1801), as does the bf16 tier (_ln_mlp_2d
-    :1652-1673)."""
+    :1845-1865), with `int8_dw` its per-group int8 weight grads; `int8`
+    alone keeps the bf16 backward of the bf16 function (_ln_mlp_2d_int8
+    :1779-1801), as does the bf16 tier (_ln_mlp_2d :1652-1673)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_grad):
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_grad,
+                int8_dw):
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2)
         ctx.eps = eps
-        ctx.int8_grad = int8 and int8_grad
+        ctx.tier = (int8 and int8_grad, int8_dw)
         ctx.b2_dtype = b2.dtype
         fwd = fused_ln_mlp_int8 if int8 else fused_ln_mlp
         return fwd(x, gamma, beta, w1, b1, w2, b2, eps)
@@ -392,12 +402,14 @@ class FusedLnMlpFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         x, gamma, beta, w1, b1, w2 = ctx.saved_tensors
-        bwd = fused_ln_mlp_int8_bwd if ctx.int8_grad else fused_ln_mlp_bwd
+        int8_grad, int8_dw = ctx.tier
+        bwd = (fused_ln_mlp_bwd if not int8_grad else fused_ln_mlp_int8_dw_bwd
+               if int8_dw else fused_ln_mlp_int8_bwd)
         dx, dg, dbe, dw1, db1, dw2, db2 = bwd(
             x, gamma, beta, w1, b1, w2, do.contiguous(), ctx.eps)
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw1.to(w1.dtype),
                 db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
-                None, None, None)
+                None, None, None, None)
 
 
 # =============================================================================
@@ -517,7 +529,7 @@ def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
                                             eps, seq_len, heads, head_dim,
-                                            False, False)
+                                            False, False, False)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
                                            eps, seq_len, heads, head_dim)
@@ -637,15 +649,16 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
     """The fused attention half with its backward kernel, saving (x, γ, β,
     Wqkv, bqkv, Wo), as vitax's fused_ln_qkvo_attention custom VJP
     (pallas_kernels.py:3209-3300): `int8` picks the W8A8 forward (K3) and
-    `int8_grad` the W8A8 backward (K3 bwd, :3246-3299); otherwise the
-    backward is the bf16 one (K1 bwd, :3300)."""
+    `int8_grad` the W8A8 backward (K3 bwd, :3246-3299), with `int8_dw` its
+    per-group int8 weight grads; otherwise the backward is the bf16 one (K1
+    bwd, :3300)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
-                head_dim, int8, int8_grad):
+                head_dim, int8, int8_grad, int8_dw):
         ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wo)
         ctx.meta = (eps, seq_len, heads, head_dim)
-        ctx.int8_grad = int8 and int8_grad
+        ctx.tier = (int8 and int8_grad, int8_dw)
         ctx.bo_dtype = bo.dtype
         fwd = fused_ln_qkvo_attention_int8 if int8 else fused_ln_qkvo_attention
         return fwd(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
@@ -654,13 +667,15 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
-        bwd = (fused_ln_qkvo_attention_int8_bwd if ctx.int8_grad
-               else fused_ln_qkvo_attention_bwd)
+        int8_grad, int8_dw = ctx.tier
+        bwd = (fused_ln_qkvo_attention_bwd if not int8_grad
+               else fused_ln_qkvo_attention_int8_dw_bwd if int8_dw
+               else fused_ln_qkvo_attention_int8_bwd)
         dx, dg, dbe, dw, db, dwo, dbo = bwd(
             x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw.to(wqkv.dtype),
                 db.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(ctx.bo_dtype),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 # =============================================================================
@@ -695,6 +710,63 @@ def _dequant(acc, s_row, s_col, bias=None):
     return t * s_col if bias is None else torch.addcmul(bias.float(), t, s_col)
 
 
+# The int8_dw weight grads (Jetfire-style per-group int8 with row-scale
+# folding, pallas_kernels.py:1173-1197 and :3041-3084): the per-row codes of
+# the dx-path products (do, dh1, dqkv) are reused as one operand; their row
+# scales fold into the other operand before its per-column quantization over
+# a group of rows. The TPU's group is a grid step's row chunk; the port picks
+# its own: K4 fixed groups of MLP_DW_GROUP rows (the last one ragged), K3
+# whole images (`qkvo_dw_group`). The twins take the group as an argument.
+MLP_DW_GROUP = 128
+_DW_PAD = 64  # the kernels pad each group's rows to whole 64-deep s8 K stages
+
+
+def qkvo_dw_group(b: int, spq: int) -> int:
+    """Rows of one int8_dw group of K3's backward: tile·spq, whole images,
+    with vitax's tile rule (_qkvo_bwd_tile, pallas_kernels.py:3223): 4 at
+    spq <= 128, else 2, halved until it divides b."""
+    t = 4 if spq <= 128 else 2
+    while t > 1 and b % t:
+        t //= 2
+    return t * spq
+
+
+def _dw_int8(a, s_row, q, group):
+    """Σ over groups of `group` rows of f32(quant_cols(a_g·s_g)ᵀ·q_g)·s_col:
+    a [n, Wa] (bf16 or fp32 values), s_row [n, 1] the row scales of the codes
+    q [n, Wb]; int32 (exact) inside a group, fp32 across groups in order.
+    Returns (dW [Wa, Wb] fp32, (column codes [n, Wa], their scales
+    [groups·Wa]))."""
+    dw = torch.zeros((a.shape[1], q.shape[1]), dtype=_F32, device=a.device)
+    codes, scales = [], []
+    for r0 in range(0, a.shape[0], group):
+        rows = slice(r0, r0 + group)
+        ac, sc = quant_cols(a[rows].float() * s_row[rows])
+        dw = dw + int_mm(ac.t(), q[rows]) * sc.reshape(-1, 1)
+        codes.append(ac)
+        scales.append(sc.reshape(-1))
+    return dw, (torch.cat(codes), torch.cat(scales))
+
+
+def _dw_pad(group: int) -> int:
+    return -(-group // _DW_PAD) * _DW_PAD
+
+
+def _dw_layout(n: int, group: int):
+    """(groups, kp) of the kernels' transposed int8_dw operands [W, kp]:
+    each group's rows zero-padded to a multiple of _DW_PAD."""
+    groups = -(-n // group)
+    return groups, groups * _dw_pad(group)
+
+
+def _group_codes(qt, n, group):
+    """A kernel's transposed column codes qt [W, kp] in the twin's layout,
+    [n, W]."""
+    w = qt.shape[0]
+    return (qt.view(w, -1, _dw_pad(group))[:, :, :group].permute(1, 2, 0)
+            .reshape(-1, w)[:n])
+
+
 def fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
                           scratch=None):
     """K4 forward with the TPU kernel's rounding points
@@ -717,14 +789,15 @@ def fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
 
 
 def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
-                      *, scratch=None):
+                      int8_dw=False, *, scratch=None):
     """`fused_ln_mlp` with W8A8 fc1 and fc2 and the sigmoid GELU (K4).
     Under autograd the backward is K4's int8 dx-path backward with
-    `int8_grad`, else the bf16 K2 backward. A `scratch` dict receives the
-    codes and scales the kernel wrote, keyed and laid out as the twin's."""
+    `int8_grad` (with its int8 weight grads under `int8_dw`), else the bf16
+    K2 backward. A `scratch` dict receives the codes and scales the kernel
+    wrote, keyed and laid out as the twin's."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
         return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, True,
-                                  int8_grad)
+                                  int8_grad, int8_dw)
     if not x.is_cuda:
         return fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps,
                                      scratch=scratch)
@@ -765,13 +838,15 @@ fused_ln_mlp_int8.launches = 0
 
 
 def fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
-                              scratch=None):
+                              int8_dw=False, group=None, scratch=None):
     """(dx, dγ, dβ, dW1, db1, dW2, db2) of K4 under int8_grad with the TPU
     kernel's rounding points (_ln_mlp_bwd_int8_kernel, pallas_kernels.py:
-    1134-1224, int8_dw off): xq from the bf16-rounded xn (the forward
-    quantizes fp32), the fc1 recompute on the column-quantized W1,
+    1134-1224): xq from the bf16-rounded xn (the forward quantizes fp32),
+    the fc1 recompute on the column-quantized W1,
     dh1f = f32(doq·W2rᵀ)·sdo·s2r, dh1_32 = dh1f·gelu_grad_q(a1),
-    dxn = f32(dh1q·W1rᵀ)·sd·s1r; dW1, dW2 bf16 products; db1 = Σ dh1_32."""
+    dxn = f32(dh1q·W1rᵀ)·sd·s1r; db1 = Σ dh1_32. dW1, dW2: bf16 products,
+    or with `int8_dw` the per-group int8 products over `group` rows
+    (MLP_DW_GROUP by default; `_dw_int8`)."""
     dt = x.dtype
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
@@ -789,8 +864,14 @@ def fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
     dh1_32 = dh1f * gelu_grad_q(a1)
     dh1 = dh1_32.to(dt)
     dh1q, sd = quant_rows(dh1_32)
-    dw2 = matmul_f32(h1.t(), do2)
-    dw1 = matmul_f32(xn.t(), dh1)
+    if int8_dw:
+        group = group or MLP_DW_GROUP
+        dw2, h1c = _dw_int8(h1, sdo, doq, group)
+        dw1, xnc = _dw_int8(xn, sd, dh1q, group)
+        _keep(scratch, h1c=h1c, xnc=xnc)
+    else:
+        dw2 = matmul_f32(h1.t(), do2)
+        dw1 = matmul_f32(xn.t(), dh1)
     dxn = _dequant(int_mm(dh1q, w1r.t()), sd, s1r)
     dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c, s1c),
@@ -799,15 +880,19 @@ def fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
             dh1_32.sum(dim=0), dw2, do2.float().sum(dim=0))
 
 
-def fused_ln_mlp_int8_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
-                          scratch=None):
-    """Backward of `fused_ln_mlp_int8` under int8_grad: dx (x's shape, bf16)
-    and fp32 dγ, dβ [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]."""
-    if not x.is_cuda:
-        return fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
-                                         scratch=scratch)
+def fused_ln_mlp_int8_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
+                                 scratch=None):
+    """The twin of `fused_ln_mlp_int8_dw_bwd`: int8_dw at the port's group
+    (MLP_DW_GROUP rows)."""
+    return fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                     int8_dw=True, group=MLP_DW_GROUP,
+                                     scratch=scratch)
+
+
+def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
+                          scratch):
     dev = _check_cuda(
-        "fused_ln_mlp_int8_bwd",
+        name,
         {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
          "do": do},
         {"x": _BF, "gamma": _F32, "beta": _F32, "w1": _BF, "b1": _F32,
@@ -816,12 +901,11 @@ def fused_ln_mlp_int8_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
     m = w1.shape[1]
     x2 = x.view(-1, d)
     if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
-        raise ValueError(f"fused_ln_mlp_int8_bwd: unsupported shapes x "
-                         f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 "
-                         f"{tuple(w2.shape)}")
+        raise ValueError(f"{name}: unsupported shapes x {tuple(x.shape)} w1 "
+                         f"{tuple(w1.shape)} w2 {tuple(w2.shape)}")
     for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m)):
-        _check_shape("fused_ln_mlp_int8_bwd", key, t, (k,))
-    _check_shape("fused_ln_mlp_int8_bwd", "do", do, tuple(x.shape))
+        _check_shape(name, key, t, (k,))
+    _check_shape(name, "do", do, tuple(x.shape))
     n = x2.shape[0]
     lib = build.load()
     w1r, s1r = _i8(dev, d, m), _f32(dev, d)  # per row
@@ -835,18 +919,58 @@ def fused_ln_mlp_int8_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
     xq, doq, dh1q = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, m)
     sx, sdo, sdh = _f32(dev, n), _f32(dev, n), _f32(dev, n)
     ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
+    dw = [None] * 6
+    if int8_dw:
+        groups, kp = _dw_layout(n, MLP_DW_GROUP)
+        dw = [_i8(dev, m, kp), _f32(dev, groups, m), _i8(dev, d, kp),
+              _i8(dev, d, kp), _f32(dev, groups, d), _i8(dev, m, kp)]
     rc = lib.vitax_ln_mlp_int8_bwd(*(t.data_ptr() for t in (
         x2, gamma, beta, b1, w1, w2, do, dx, dg, dbe, dw1, db1, dw2, db2, w1r,
         s1r, w2r, s2r, w1c, s1c, xn, xq, sx, a1, h1, doq, sdo, dh1f, dh1, dh1q,
-        sdh, dxn, ws)), n, d, m, eps, _stream(dev))
-    build.check(rc, "fused_ln_mlp_int8_bwd")
-    fused_ln_mlp_int8_bwd.launches += 1
+        sdh, dxn, ws)), *(None if t is None else t.data_ptr() for t in dw),
+        n, d, m, MLP_DW_GROUP, int(int8_dw), eps, _stream(dev))
+    build.check(rc, name)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c.t(), s1c),
           xq=(xq, sx), doq=(doq, sdo), dh1q=(dh1q, sdh))
+    if int8_dw:
+        _keep(scratch, h1c=(_group_codes(dw[0], n, MLP_DW_GROUP), dw[1]),
+              xnc=(_group_codes(dw[3], n, MLP_DW_GROUP), dw[4]))
     return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
 
 
+def fused_ln_mlp_int8_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                          scratch=None):
+    """Backward of `fused_ln_mlp_int8` under int8_grad: dx (x's shape, bf16)
+    and fp32 dγ, dβ [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                         scratch=scratch)
+    out = _ln_mlp_int8_bwd_cuda("fused_ln_mlp_int8_bwd", x, gamma, beta, w1,
+                                b1, w2, do, eps, False, scratch)
+    fused_ln_mlp_int8_bwd.launches += 1
+    return out
+
+
 fused_ln_mlp_int8_bwd.launches = 0
+
+
+def fused_ln_mlp_int8_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                             scratch=None):
+    """`fused_ln_mlp_int8_bwd` under int8_dw: dW1 and dW2 are per-group int8
+    products with row-scale folding, over groups of MLP_DW_GROUP = 128 rows
+    (the last one ragged), int32 inside a group and fp32 across groups in
+    order. `scratch` also receives the column codes, h1c and xnc, as
+    [rows, width] with one scale a column a group."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do,
+                                            eps, scratch=scratch)
+    out = _ln_mlp_int8_bwd_cuda("fused_ln_mlp_int8_dw_bwd", x, gamma, beta,
+                                w1, b1, w2, do, eps, True, scratch)
+    fused_ln_mlp_int8_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_dw_bwd.launches = 0
 
 
 def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
@@ -872,16 +996,17 @@ def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
 
 
 def fused_ln_qkvo_attention_int8(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
-                                 seq_len, heads, head_dim, int8_grad=False, *,
-                                 scratch=None):
+                                 seq_len, heads, head_dim, int8_grad=False,
+                                 int8_dw=False, *, scratch=None):
     """`fused_ln_qkvo_attention` with W8A8 QKV and out-projections (K3); the
     attention core stays bf16 with fp32 softmax. Under autograd the
-    backward is K3's int8 backward with `int8_grad`, else the bf16 K1
-    backward. `scratch`: as `fused_ln_mlp_int8`'s."""
+    backward is K3's int8 backward with `int8_grad` (with its int8 weight
+    grads under `int8_dw`), else the bf16 K1 backward. `scratch`: as
+    `fused_ln_mlp_int8`'s."""
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
                                             eps, seq_len, heads, head_dim,
-                                            True, int8_grad)
+                                            True, int8_grad, int8_dw)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo,
                                                 bo, eps, seq_len, heads,
@@ -922,12 +1047,16 @@ fused_ln_qkvo_attention_int8.launches = 0
 
 def fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
                                          eps, seq_len, heads, head_dim, *,
+                                         int8_dw=False, group=None,
                                          scratch=None):
     """(dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) of K3 under int8_grad with the
     TPU kernel's rounding points (_ln_qkvo_bwd_int8_kernel, pallas_kernels.py:
-    3003-3088, int8_dw off): the int8 qkv recompute from the fp32 LN output,
-    the core recomputed with bf16 attn, dattn = bf16(f32(doq·Wo_rᵀ)·sdo·swor),
-    the bf16 core grads, dxn = f32(dqq·W_rᵀ)·sdq·swr; dW, dWo bf16 products."""
+    3003-3088): the int8 qkv recompute from the fp32 LN output, the core
+    recomputed with bf16 attn, dattn = bf16(f32(doq·Wo_rᵀ)·sdo·swor), the bf16
+    core grads, dxn = f32(dqq·W_rᵀ)·sdq·swr. dW, dWo: bf16 products, or with
+    `int8_dw` the per-group int8 products over `group` rows (by default
+    whole images, `qkvo_dw_group`): dWo from attn·sdo and doq, dW from the
+    fp32 xn·sdq and dqq."""
     dt = x.dtype
     b, spq, d = x.shape
     x2 = x.reshape(-1, d)
@@ -945,16 +1074,85 @@ def fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
     o = o32.to(dt)
     doq, sdo = quant_rows(do2.float())
     dattn = _dequant(int_mm(doq, wo8r.t()), sdo, swor).to(dt)
-    dwo = matmul_f32(_heads_to_rows(o).t(), do2)
     dqkv = _attn_core_grads(q, k, v, p, o, dattn, 1.0 / math.sqrt(head_dim))
     dqq, sdq = quant_rows(dqkv.float())
     dxn = _dequant(int_mm(dqq, w8r.t()), sdq, swr)
-    dw = matmul_f32(xn.t(), dqkv)
+    if int8_dw:
+        group = group or qkvo_dw_group(b, spq)
+        dwo, atc = _dw_int8(_heads_to_rows(o), sdo, doq, group)
+        dw, xnc = _dw_int8(xn32, sdq, dqq, group)
+        _keep(scratch, atc=atc, xnc=xnc)
+    else:
+        dwo = matmul_f32(_heads_to_rows(o).t(), do2)
+        dw = matmul_f32(xn.t(), dqkv)
     dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
     _keep(scratch, w8=(w8, sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
           xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
     return (dxln.to(dt).view(b, spq, d), dg, dbe, dw, dqkv.float().sum(dim=0),
             dwo, do2.float().sum(dim=0))
+
+
+def fused_ln_qkvo_attention_int8_dw_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
+                                            eps, seq_len, heads, head_dim, *,
+                                            scratch=None):
+    """The twin of `fused_ln_qkvo_attention_int8_dw_bwd`: int8_dw at the
+    port's group (`qkvo_dw_group`)."""
+    return fused_ln_qkvo_attention_int8_bwd_ref(
+        x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+        int8_dw=True, group=qkvo_dw_group(*x.shape[:2]), scratch=scratch)
+
+
+def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                           seq_len, heads, head_dim, int8_dw, scratch):
+    dev = _check_cuda(
+        name,
+        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
+         "wo": wo, "do": do},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "do": _BF})
+    _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, qkv_attention_bwd_supported)
+    _check_shape(name, "do", do, tuple(x.shape))
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    n = b * spq
+    rows = (spq + 15) // 16 * 16
+    lib = build.load()
+    w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
+    w8r, swr = _i8(dev, d, 3 * hhd), _f32(dev, d)
+    wo8r, swor = _i8(dev, hhd, d), _f32(dev, hhd)
+    dx, dg, dbe = torch.empty_like(x), _f32(dev, d), _f32(dev, d)
+    dw, db = _f32(dev, d, 3 * hhd), _f32(dev, 3 * hhd)
+    dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
+    # xn: bf16 for the bf16 weight grads, fp32 (xn32) under int8_dw
+    xn = (_f32 if int8_dw else _bf)(dev, n, d)
+    qkv, attn, dattn = (_bf(dev, n, 3 * hhd), _bf(dev, n, hhd),
+                        _bf(dev, n, hhd))
+    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    dqkv, dxn = _bf(dev, n, 3 * hhd), _f32(dev, n, d)
+    xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, 3 * hhd)
+    sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
+    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd), dev)
+    group = qkvo_dw_group(b, spq)
+    dwt = [None] * 6
+    if int8_dw:
+        groups, kp = _dw_layout(n, group)
+        dwt = [_i8(dev, hhd, kp), _f32(dev, groups, hhd), _i8(dev, d, kp),
+               _i8(dev, d, kp), _f32(dev, groups, d), _i8(dev, 3 * hhd, kp)]
+    rc = lib.vitax_ln_qkvo_attention_int8_bwd(*(t.data_ptr() for t in (
+        x, gamma, beta, bqkv, wqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, w8t,
+        sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p,
+        ds, dqkv, dqq, sdq, dxn, ws)),
+        *(None if t is None else t.data_ptr() for t in dwt), b, spq, d,
+        seq_len, heads, head_dim, group, int(int8_dw), eps,
+        1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    _keep(scratch, w8=(w8t.t(), sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
+          xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
+    if int8_dw:
+        _keep(scratch, atc=(_group_codes(dwt[0], n, group), dwt[1]),
+              xnc=(_group_codes(dwt[3], n, group), dwt[4]))
+    return dx, dg, dbe, dw, db, dwo, dbo
 
 
 def fused_ln_qkvo_attention_int8_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
@@ -968,49 +1166,299 @@ def fused_ln_qkvo_attention_int8_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
                                                     wo, do, eps, seq_len,
                                                     heads, head_dim,
                                                     scratch=scratch)
-    dev = _check_cuda(
-        "fused_ln_qkvo_attention_int8_bwd",
-        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
-         "wo": wo, "do": do},
-        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
-         "wo": _BF, "do": _BF})
-    _check_qkvo("fused_ln_qkvo_attention_int8_bwd", x, gamma, beta, wqkv, bqkv,
-                wo, seq_len, heads, head_dim, qkv_attention_bwd_supported)
-    _check_shape("fused_ln_qkvo_attention_int8_bwd", "do", do, tuple(x.shape))
-    b, spq, d = x.shape
-    hhd = heads * head_dim
-    n = b * spq
-    rows = (spq + 15) // 16 * 16
-    lib = build.load()
-    w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
-    w8r, swr = _i8(dev, d, 3 * hhd), _f32(dev, d)
-    wo8r, swor = _i8(dev, hhd, d), _f32(dev, hhd)
-    dx, dg, dbe = torch.empty_like(x), _f32(dev, d), _f32(dev, d)
-    dw, db = _f32(dev, d, 3 * hhd), _f32(dev, 3 * hhd)
-    dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
-    xn, qkv, attn, dattn = (_bf(dev, n, d), _bf(dev, n, 3 * hhd),
-                            _bf(dev, n, hhd), _bf(dev, n, hhd))
-    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
-    dqkv, dxn = _bf(dev, n, 3 * hhd), _f32(dev, n, d)
-    xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, 3 * hhd)
-    sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
-    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd), dev)
-    rc = lib.vitax_ln_qkvo_attention_int8_bwd(*(t.data_ptr() for t in (
-        x, gamma, beta, bqkv, wqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, w8t,
-        sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p,
-        ds, dqkv, dqq, sdq, dxn, ws)), b, spq, d, seq_len, heads, head_dim,
-        eps, 1.0 / math.sqrt(head_dim), _stream(dev))
-    build.check(rc, "fused_ln_qkvo_attention_int8_bwd")
+    out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int8_bwd", x, gamma,
+                                 beta, wqkv, bqkv, wo, do, eps, seq_len,
+                                 heads, head_dim, False, scratch)
     fused_ln_qkvo_attention_int8_bwd.launches += 1
-    _keep(scratch, w8=(w8t.t(), sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
-          xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
-    return dx, dg, dbe, dw, db, dwo, dbo
+    return out
 
 
 fused_ln_qkvo_attention_int8_bwd.launches = 0
 
 
+def fused_ln_qkvo_attention_int8_dw_bwd(x, gamma, beta, wqkv, bqkv, wo, do,
+                                        eps, seq_len, heads, head_dim, *,
+                                        scratch=None):
+    """`fused_ln_qkvo_attention_int8_bwd` under int8_dw: dWqkv and dWo are
+    per-group int8 products with row-scale folding, over groups of whole
+    images (`qkvo_dw_group`: tile·spq rows), int32 inside a group and fp32
+    across groups in order. `scratch` also receives the column codes, atc
+    and xnc, as [rows, width] with one scale a column a group."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int8_dw_bwd_ref(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            scratch=scratch)
+    out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int8_dw_bwd", x,
+                                 gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                                 heads, head_dim, True, scratch)
+    fused_ln_qkvo_attention_int8_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int8_dw_bwd.launches = 0
+
+
+# =============================================================================
+# K5 — the int8 block handoff (fused_block_int8_handoff, pallas_kernels.py:
+# 3863). On the padded stream with all four int8 flags, each half's epilogue
+# emits the next half's input already LN-normalized and quantized per row
+# (codes int8 [B·spq, D] and one fp32 scale a row; vitax carries 8 broadcast
+# scale lanes), and adds its residual in fp32: r1 = bf16(f32(x) + y) where
+# the non-handoff path adds bf16(y) in bf16, one rounding apart in bf16 and
+# the same in fp32 (ROADMAP Queue 3).
+# =============================================================================
+
+def pack_rows(x, gamma, beta, eps):
+    """LN (fp32 statistics) + per-row int8 of the fp32 LN output, the
+    handoff's packed form of a stream [..., D] (vitax's _ln_quant_rows
+    :3660 and pack_stream :3840): (codes [rows, D], scales [rows])."""
+    d = x.shape[-1]
+    xhat, _ = _ln_stats(x.reshape(-1, d).float(), eps)
+    q, s = quant_rows(_affine(xhat, gamma, beta))
+    return q, s.reshape(-1)
+
+
+def fused_ln_qkvo_attention_int8_ho_ref(x, xq, sx, g1, be1, g2, be2, wqkv,
+                                        bqkv, wo, bo, eps, seq_len, heads,
+                                        head_dim, *, scratch=None):
+    """K5's attention half with the TPU kernel's rounding points
+    (_ln_qkvo_fwd_int8_ho_kernel, pallas_kernels.py:3681-3729): K3's forward
+    from the packed LN1 (xq, sx), r1 = bf16(f32(x) + f32(aq·Woq)·sa·swo + bo),
+    then LN2(r1) packed: (r1 [B, spq, D], xq2 [B·spq, D], sx2 [B·spq]).
+    xq None: the first block, which packs x itself with (g1, be1) first."""
+    dt = x.dtype
+    b, spq, d = x.shape
+    if xq is None:
+        xq, sx = pack_rows(x, g1, be1, eps)
+    w8, sw = quant_cols_host(wqkv)
+    wo8, swo = quant_cols_host(wo)
+    qkv = _dequant(int_mm(xq, w8), sx.reshape(-1, 1), sw, bqkv).to(dt)
+    *_, o32 = _attn_core(qkv.view(b, spq, -1), seq_len, heads, head_dim)
+    aq, sa = quant_rows(_heads_to_rows(o32))
+    y = _dequant(int_mm(aq, wo8), sa, swo, bo)
+    r1 = (x.reshape(-1, d).float() + y).to(dt)
+    xq2, sx2 = pack_rows(r1, g2, be2, eps)
+    _keep(scratch, w8=(w8, sw), wo8=(wo8, swo), xq=(xq, sx), aq=(aq, sa),
+          xq2=(xq2, sx2))
+    return r1.view(b, spq, d), xq2, sx2
+
+
+def fused_ln_qkvo_attention_int8_ho(x, xq, sx, g1, be1, g2, be2, wqkv, bqkv,
+                                    wo, bo, eps, seq_len, heads, head_dim, *,
+                                    scratch=None):
+    """K5's attention half, forward only (its gradient is the block's,
+    `FusedBlockInt8HandoffFn`): x [B, spq, D] bf16 (the padded stream), its
+    packed LN1 xq int8 [B·spq, D] and sx fp32 [B·spq] (None: pack x here
+    with g1/be1), LN2's g2/be2, the K3 weights. Returns (r1, xq2, sx2), r1
+    with the residual added in fp32."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int8_ho_ref(
+            x, xq, sx, g1, be1, g2, be2, wqkv, bqkv, wo, bo, eps, seq_len,
+            heads, head_dim, scratch=scratch)
+    name = "fused_ln_qkvo_attention_int8_ho"
+    b, spq, d = x.shape
+    n = b * spq
+    pack = xq is None
+    if pack:
+        xq, sx = _i8(x.device, n, d), _f32(x.device, n)
+    dev = _check_cuda(
+        name,
+        {"x": x, "xq": xq, "sx": sx, "g1": g1, "be1": be1, "g2": g2,
+         "be2": be2, "wqkv": wqkv, "bqkv": bqkv, "wo": wo, "bo": bo},
+        {"x": _BF, "xq": torch.int8, "sx": _F32, "g1": _F32, "be1": _F32,
+         "g2": _F32, "be2": _F32, "wqkv": _BF, "bqkv": _F32, "wo": _BF,
+         "bo": _F32})
+    _check_qkvo(name, x, g2, be2, wqkv, bqkv, wo, seq_len, heads, head_dim,
+                qkv_attention_supported)
+    for key, t, shape in (("xq", xq, (n, d)), ("sx", sx, (n,)),
+                          ("g1", g1, (d,)), ("be1", be1, (d,)),
+                          ("bo", bo, (d,))):
+        _check_shape(name, key, t, shape)
+    hhd = heads * head_dim
+    w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
+    wo8t, swo = _i8(dev, d, hhd), _f32(dev, d)
+    qkv, attn = _bf(dev, n, 3 * hhd), _f32(dev, n, hhd)
+    aq, sa = _i8(dev, n, hhd), _f32(dev, n)
+    r1, xq2, sx2 = torch.empty_like(x), _i8(dev, n, d), _f32(dev, n)
+    ptrs = (t.data_ptr() for t in (x, xq, sx, g1, be1, g2, be2, wqkv, bqkv,
+                                   wo, bo, w8t, sw, wo8t, swo, qkv, attn, aq,
+                                   sa, r1, xq2, sx2))
+    rc = build.load().vitax_ln_qkvo_attention_int8_ho_fwd(
+        *ptrs, b, spq, d, seq_len, heads, head_dim, int(pack), eps,
+        1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    fused_ln_qkvo_attention_int8_ho.launches += 1
+    _keep(scratch, w8=(w8t.t(), sw), wo8=(wo8t.t(), swo), xq=(xq, sx),
+          aq=(aq, sa), xq2=(xq2, sx2))
+    return r1, xq2, sx2
+
+
+fused_ln_qkvo_attention_int8_ho.launches = 0
+
+
+def fused_ln_mlp_int8_ho_ref(x, xq, sx, gn, ben, w1, b1, w2, b2, eps, *,
+                             scratch=None):
+    """K5's MLP half with the TPU kernel's rounding points
+    (_ln_mlp_fwd_int8_ho_kernel, pallas_kernels.py:3741-3765): K4's forward
+    from the packed LN2 (xq, sx), r2 = bf16(f32(x) + f32(h1q·W2q)·sh·s2 + b2),
+    then the next block's LN1 (gn, ben) of r2 packed: (r2 [..., D],
+    xqn [rows, D], sxn [rows])."""
+    d = x.shape[-1]
+    w1q, s1 = quant_cols_host(w1)
+    w2q, s2 = quant_cols_host(w2)
+    a1 = _dequant(int_mm(xq, w1q), sx.reshape(-1, 1), s1, b1)
+    h1q, sh = quant_rows(gelu_q(a1))
+    y = _dequant(int_mm(h1q, w2q), sh, s2, b2)
+    r2 = (x.reshape(-1, d).float() + y).to(x.dtype)
+    xqn, sxn = pack_rows(r2, gn, ben, eps)
+    _keep(scratch, w1q=(w1q, s1), w2q=(w2q, s2), h1q=(h1q, sh),
+          xqn=(xqn, sxn))
+    return r2.reshape(x.shape), xqn, sxn
+
+
+def fused_ln_mlp_int8_ho(x, xq, sx, gn, ben, w1, b1, w2, b2, eps, *,
+                         scratch=None):
+    """K5's MLP half, forward only: x (= r1) [..., D] bf16 with its packed
+    LN2 (xq, sx) from the attention half, the next block's LN1 gn/ben (the
+    encoder norm's for the last block, whose packed output is not read), the
+    K4 weights. Returns (r2, xqn, sxn), r2 with the residual added in fp32."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_ho_ref(x, xq, sx, gn, ben, w1, b1, w2, b2,
+                                        eps, scratch=scratch)
+    name = "fused_ln_mlp_int8_ho"
+    dev = _check_cuda(
+        name,
+        {"x": x, "xq": xq, "sx": sx, "gn": gn, "ben": ben, "w1": w1, "b1": b1,
+         "w2": w2, "b2": b2},
+        {"x": _BF, "xq": torch.int8, "sx": _F32, "gn": _F32, "ben": _F32,
+         "w1": _BF, "b1": _F32, "w2": _BF, "b2": _F32})
+    d = x.shape[-1]
+    m = w1.shape[1]
+    x2 = x.view(-1, d)
+    n = x2.shape[0]
+    if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
+        raise ValueError(f"{name}: unsupported shapes x {tuple(x.shape)} w1 "
+                         f"{tuple(w1.shape)} w2 {tuple(w2.shape)}")
+    for key, t, shape in (("xq", xq, (n, d)), ("sx", sx, (n,)),
+                          ("gn", gn, (d,)), ("ben", ben, (d,)),
+                          ("b1", b1, (m,)), ("b2", b2, (d,))):
+        _check_shape(name, key, t, shape)
+    w1t, s1 = _i8(dev, m, d), _f32(dev, m)
+    w2t, s2 = _i8(dev, d, m), _f32(dev, d)
+    g, h1q, sh = _f32(dev, n, m), _i8(dev, n, m), _f32(dev, n)
+    out, xqn, sxn = torch.empty_like(x2), _i8(dev, n, d), _f32(dev, n)
+    rc = build.load().vitax_ln_mlp_int8_ho_fwd(*(t.data_ptr() for t in (
+        x2, xq, sx, gn, ben, w1, b1, w2, b2, w1t, s1, w2t, s2, g, h1q, sh,
+        out, xqn, sxn)), n, d, m, eps, _stream(dev))
+    build.check(rc, name)
+    fused_ln_mlp_int8_ho.launches += 1
+    _keep(scratch, w1q=(w1t.t(), s1), w2q=(w2t.t(), s2), h1q=(h1q, sh),
+          xqn=(xqn, sxn))
+    return out.view(x.shape), xqn, sxn
+
+
+fused_ln_mlp_int8_ho.launches = 0
+
+
+def _block_ho_forward(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2, be2, w1, b1,
+                      w2, b2, gn, ben, eps, seq_len, heads, head_dim, ref):
+    if ref:
+        attn, mlp = (fused_ln_qkvo_attention_int8_ho_ref,
+                     fused_ln_mlp_int8_ho_ref)
+    else:
+        attn, mlp = fused_ln_qkvo_attention_int8_ho, fused_ln_mlp_int8_ho
+    r1, xq2, sx2 = attn(x, xq, sx, g1, be1, g2, be2, wqkv, bqkv, wo, bo, eps,
+                        seq_len, heads, head_dim)
+    r2, xqn, sxn = mlp(r1, xq2, sx2, gn, ben, w1, b1, w2, b2, eps)
+    return r1, (r2, xqn, sxn)
+
+
+class FusedBlockInt8HandoffFn(torch.autograd.Function):
+    """One encoder block on the int8 handoff, (x, xq, sx) → (r2, xqn, sxn),
+    as vitax's fused_block_int8_handoff custom VJP (pallas_kernels.py:
+    3862-3928): the forward is K5's two kernels (`ref`: their twins); the
+    packed outputs are forward-only data (straight-through: no cotangent);
+    it saves x and r1, and the backward is K4's int8 backward on r1 with the
+    residual, then K3's on x, dx = dx_att + dr1, both with `int8_dw` as
+    configured (`ref`: the twins). xq, sx and the next block's LN1 gn/ben get
+    no gradient here (gn/ben get theirs from the next block)."""
+
+    @staticmethod
+    def forward(ctx, x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2, be2, w1, b1,
+                w2, b2, gn, ben, eps, seq_len, heads, head_dim, int8_dw, ref):
+        r1, out = _block_ho_forward(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
+                                    be2, w1, b1, w2, b2, gn, ben, eps, seq_len,
+                                    heads, head_dim, ref)
+        ctx.save_for_backward(x, r1, g1, be1, wqkv, bqkv, wo, g2, be2, w1, b1,
+                              w2)
+        ctx.meta = (eps, seq_len, heads, head_dim)
+        ctx.tier = (int8_dw, ref)
+        ctx.dtypes = (bo.dtype, b2.dtype)
+        ctx.mark_non_differentiable(out[1], out[2])
+        return out
+
+    @staticmethod
+    def backward(ctx, dr2, _dxqn, _dsxn):
+        x, r1, g1, be1, wqkv, bqkv, wo, g2, be2, w1, b1, w2 = ctx.saved_tensors
+        eps, seq_len, heads, head_dim = ctx.meta
+        int8_dw, ref = ctx.tier
+        if ref:
+            mlp_bwd = (fused_ln_mlp_int8_dw_bwd_ref if int8_dw
+                       else fused_ln_mlp_int8_bwd_ref)
+            attn_bwd = (fused_ln_qkvo_attention_int8_dw_bwd_ref if int8_dw
+                        else fused_ln_qkvo_attention_int8_bwd_ref)
+        else:
+            mlp_bwd = (fused_ln_mlp_int8_dw_bwd if int8_dw
+                       else fused_ln_mlp_int8_bwd)
+            attn_bwd = (fused_ln_qkvo_attention_int8_dw_bwd if int8_dw
+                        else fused_ln_qkvo_attention_int8_bwd)
+        dr1, dg2, dbe2, dw1, db1, dw2, db2 = mlp_bwd(
+            r1, g2, be2, w1, b1, w2, dr2.contiguous(), eps)
+        dxa, dg1, dbe1, dw, db, dwo, dbo = attn_bwd(
+            x, g1, be1, wqkv, bqkv, wo, dr1, eps, seq_len, heads, head_dim)
+        bo_dtype, b2_dtype = ctx.dtypes
+        return (dxa + dr1, None, None, dg1.to(g1.dtype), dbe1.to(be1.dtype),
+                dw.to(wqkv.dtype), db.to(bqkv.dtype), dwo.to(wo.dtype),
+                dbo.to(bo_dtype), dg2.to(g2.dtype), dbe2.to(be2.dtype),
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(b2_dtype), None, None, None, None, None, None, None,
+                None)
+
+
+def _block_ho(args, int8_dw, ref):
+    x, _, _, *params = args[:15]  # xq, sx and gn, ben get no gradient
+    if _needs_grad(x, *params):
+        return FusedBlockInt8HandoffFn.apply(*args, int8_dw, ref)
+    return _block_ho_forward(*args, ref)[1]
+
+
+def fused_block_int8_handoff(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2, be2,
+                             w1, b1, w2, b2, gn, ben, eps, seq_len, heads,
+                             head_dim, int8_dw):
+    """One encoder block on the int8 handoff (K5): x [B, spq, D] the padded
+    stream, (xq, sx) its packed LN1 (None for the first block), the block's
+    LN1/K3/LN2/K4 parameters, gn/ben the next block's LN1 (the encoder
+    norm's for the last). Returns (r2, xqn, sxn); under autograd through
+    `FusedBlockInt8HandoffFn`, whose backward is K4's and K3's int8
+    backwards (their `int8_dw` variants with `int8_dw`)."""
+    return _block_ho((x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2, be2, w1, b1,
+                      w2, b2, gn, ben, eps, seq_len, heads, head_dim),
+                     int8_dw, False)
+
+
+def fused_block_int8_handoff_ref(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
+                                 be2, w1, b1, w2, b2, gn, ben, eps, seq_len,
+                                 heads, head_dim, int8_dw):
+    """The plain twin of `fused_block_int8_handoff`: the forward twins of
+    K5's two kernels and, under autograd, the int8 backward twins."""
+    return _block_ho((x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2, be2, w1, b1,
+                      w2, b2, gn, ben, eps, seq_len, heads, head_dim),
+                     int8_dw, True)
+
+
 KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_bwd, fused_ln_mlp_bwd,
            fused_ln_qkvo_attention_int8, fused_ln_mlp_int8,
-           fused_ln_qkvo_attention_int8_bwd, fused_ln_mlp_int8_bwd)
+           fused_ln_qkvo_attention_int8_bwd, fused_ln_mlp_int8_bwd,
+           fused_ln_qkvo_attention_int8_ho, fused_ln_mlp_int8_ho,
+           fused_ln_qkvo_attention_int8_dw_bwd, fused_ln_mlp_int8_dw_bwd)

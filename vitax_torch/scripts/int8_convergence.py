@@ -19,9 +19,13 @@ terms; the port has no remat, and with both fused kernels vitax's CLIs pick
 none either).
 
 Tags: `bf16`, `int8-fwd` (`--int8`: W8A8 forward, bf16 backward),
-`int8-full` (`--int8-grad`). The default pair is `bf16 int8-full`. vitax's
-`int8-dw`, `int4`, `int4-grad` and `tokdrop-*` tags raise, naming the
-ROADMAP item that ports them.
+`int8-full` (`--int8-grad`), `int8-dw` (`--int8-dw`: per-group int8 weight
+grads too), and vitax's token-dropping tags on top of `int8-dw`,
+`tokdrop-0.5` (1 + 98 tokens, spq 104: the int8 block handoff, K5) and
+`tokdrop-0.75` (1 + 147 tokens, spq 152: no handoff); the held-out batch is
+full-sequence (the FLIP protocol). The default pair is `bf16 int8-full`.
+vitax's `int4` and `int4-grad` tags raise, naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -46,13 +50,16 @@ CONFIGS = {
     "int8-fwd": dict(int8_mlp=True, int8_attn=True),
     "int8-full": dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
                       int8_attn_grad=True),
+    "int8-dw": dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                    int8_attn_grad=True, int8_dw=True),
+    "tokdrop-0.5": dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                        int8_attn_grad=True, int8_dw=True, token_keep=0.5),
+    "tokdrop-0.75": dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                         int8_attn_grad=True, int8_dw=True, token_keep=0.75),
 }
 UNPORTED = {
-    "int8-dw": "Queue 2 int8_dw and K5",
     "int4": "Queue 2 K11",
     "int4-grad": "Queue 2 K11",
-    "tokdrop-0.5": "Queue 2 int8_dw and K5 (int8_dw, the handoff at spq 104)",
-    "tokdrop-0.75": "Queue 2 int8_dw and K5 (int8_dw)",
 }
 
 

@@ -8,7 +8,14 @@ validates every epoch with top-1/top-5 on the val split, saves `current` and
 `best` (by val acc1) and resumes exactly from `--resume`. On a CUDA card the
 fused kernels are on by default, forward and backward (`--no-fused-qkv`,
 `--no-fused-mlp` and `--no-pallas` turn them off); `--int8` runs their W8A8
-forward with the bf16 backward, `--int8-grad` the W8A8 backward too.
+forward with the bf16 backward, `--int8-grad` the W8A8 backward too, and
+`--int8-dw` its int8 weight grads; with `--int8-grad` the token-drop phase
+(spq <= 128) hands each block's packed input over (K5). It runs on the card
+unless the caller of `main` asks for the CPU (`device="cpu"`).
+
+vitax's fastest recipe (scripts/FT_CIFAR100_fast.sh) runs as it is:
+`... --int8-dw --token-keep 0.5 --token-keep-schedule 0.9 --batch-size 768
+--dense-batch-size 192`.
 
 Run: `python -m vitax_torch.train_cli --dataset Synthetic --model-arch b16 \
           --image-size 224 --batch-size 32 --lr 0.03 --wd 0`
@@ -48,8 +55,6 @@ def _reject_unported(config) -> None:
          "Queue 1 item 11"),
         (config.device_prep, "--device-prep", "on-device preprocessing",
          "Queue 1 item 7"),
-        (config.int8_dw, "--int8-dw", "the per-block int8 dW products",
-         "Queue 2 int8_dw and K5"),
         (config.int4 or config.int4_attn or config.int4_grad,
          "--int4/--int4-attn/--int4-grad", "the int4 kernels", "Queue 2 K11"),
         (config.save_acts, "--save-acts", "the save-acts kernels",
@@ -188,12 +193,13 @@ def _initial_params(config, cfg, gen, device):
     return out
 
 
-def main(argv=None):
+def main(argv=None, device=None):
+    """`device`: None for the card (raises without one), or "cpu"."""
     config = cli.get_train_config(argv)
     cli.print_config(config)
     _reject_unported(config)
     gen = set_seed(config.seed)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = cli.resolve_device(device)
     cfg = model_config_from_cli(config, device.type == "cuda")
     params = _initial_params(config, cfg, gen, device)
     n_params = log_model_layers(params, log=lambda *_: None)
