@@ -57,7 +57,30 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              K5 too), exact counts per epoch; logits and
              full-width grads of the
              handoff + int8_dw path against its twin path; device-timed steps
-             at b768 keep 0.5 and b192 dense, int8_dw and int8_grad in turns.
+             at b768 keep 0.5 and b192 dense, int8_dw and int8_grad in turns;
+8. resvit  — Res-ViT serving (scripts/ft_resvit.sh's b16 Res-ViT: --use_lora
+             True --lora_rank 48 --use_reslr True --block_size 4
+             --dynamic_start_layer 1 --dynamic_reserve_initials 2
+             --dynamic_active_target 0.4), the routers' final biases drawn at
+             random first (the init's keep bias 5.0 routes every token
+             active): `vitax_torch.resvit_eval_cli` on 256 Synthetic images at
+             b64 dense and `--compact-capacity` 0.625 and 0.5, each in bf16
+             and with `--int8`, `--compact-capacity 0.625 --n_kv_heads 4`,
+             and on the plain path (`--no-pallas --no-fused-qkv`), counters
+             set to 0 just before each run and read just after (exact counts
+             per batch: K1 1 and K8 11 when compacted, K3 1 + K8-int8 11 +
+             K4 12 with --int8, K7 12 with GQA; the LN kernel for the three
+             routers, the final norm and, off the int8 tier, the twelve MLP
+             halves); the routing maps of
+             the kernel and plain paths, the share that agrees; whole-model
+             logits with the kernel path's routing decisions replayed on the
+             plain path, within the bf16 band; device-timed forwards at b64.
+
+Phase 3 also holds the Res-ViT kernels against their twins: K7 (GQA in
+K1, 4 and 6 kv heads) at b64 spq 200; K8 (the rect attention half, bf16
+and int8) at b64 spq 200 with cpq 128 and 104 and on a ragged case, and
+against the square kernel (K1, K3) followed by the row gather, whose largest
+difference it prints (the same bits are expected).
 
 Phase 3 also holds the int8 kernels (K3, K4, forward and backward, their
 int8_dw backwards and K5's two halves) against their twins: forward at b64
@@ -133,7 +156,19 @@ KERNEL_INFO = {
         "vitax/ops/pallas_kernels.py:3041"),
     "fused_ln_mlp_int8_dw_bwd": ("vitax_torch/csrc/ln_mlp_int8_bwd.cu",
                                  "vitax/ops/pallas_kernels.py:1173"),
+    # Res-ViT serving: K7 (the kv_heads branch of K1's kernel) and K8
+    "fused_ln_qkvo_attention_gqa": ("vitax_torch/csrc/ln_qkvo_attention.cu",
+                                    "vitax/ops/pallas_kernels.py:2803"),
+    "fused_ln_qkvo_attention_rect": (
+        "vitax_torch/csrc/ln_qkvo_attention_rect.cu",
+        "vitax/ops/pallas_kernels.py:4033"),
+    "fused_ln_qkvo_attention_rect_int8": (
+        "vitax_torch/csrc/ln_qkvo_attention_rect_int8.cu",
+        "vitax/ops/pallas_kernels.py:4067"),
 }
+RESVIT_KERNELS = ("fused_ln_qkvo_attention_gqa",
+                  "fused_ln_qkvo_attention_rect",
+                  "fused_ln_qkvo_attention_rect_int8")
 DW_KERNELS = ("fused_ln_qkvo_attention_int8_dw_bwd",
               "fused_ln_mlp_int8_dw_bwd")
 HO_KERNELS = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
@@ -239,7 +274,7 @@ INT8_REL = 5e-3
 CODE_BAND = {"xq": (1, 1e-3), "h1q": (2, 1e-3), "dh1q": (2, 1e-3),
              "aq": (2, 5e-3), "dqq": (2, 5e-3), "doq": (0, 0.0),
              "h1c": (2, 1e-3), "xnc": (2, 1e-3), "atc": (2, 5e-3),
-             "xq2": (2, 5e-3), "xqn": (1, 1e-3)}
+             "xq2": (2, 5e-3), "xqn": (1, 1e-3), "xqk": (1, 1e-3)}
 
 
 def _expect(**launches):
@@ -645,6 +680,133 @@ def check_handoff_kernels(stats):
                                             "fused_ln_mlp_int8"))
     print(f"  K5 pair {k5:.4f} ms against K3 + K4 forward {k34:.4f} ms at "
           f"{DROP_CASE}", flush=True)
+    return stats
+
+
+# Res-ViT serving at b64 (spq 200, seq 197): K8 at capacity 0.625 (124 rows,
+# cpq 128; the timed case) and 0.5 (99, cpq 104), and a ragged case; K7 at
+# 4 (timed) and 6 kv heads
+RECT_CASES = [("b64 cap124 cpq128 (C 0.625)", 64, 200, 197, 124),
+              ("b64 cap99 cpq104 (C 0.5)", 64, 200, 197, 99),
+              ("ragged b3 cap37", 3, 200, 197, 37)]
+GQA_CASES = [("b64 spq200 kv4", 64, 200, 197, 4),
+             ("b64 spq200 kv6", 64, 200, 197, 6)]
+
+
+def _rect_inputs(t, cap, seq_len, seed):
+    """xc: `cap` of each image's first seq_len rows of t["x"], in random
+    order, zero-padded to round_up(cap, 8) rows (compact_routed_block's
+    form); and their indices."""
+    import torch
+    x = t["x"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.stack([torch.randperm(seq_len, generator=g, device="cuda")
+                       [:cap] for _ in range(x.shape[0])])
+    xc = torch.zeros((x.shape[0], (cap + 7) // 8 * 8, D), dtype=x.dtype,
+                     device="cuda")
+    xc[:, :cap] = torch.gather(x, 1, idx[..., None].expand(-1, -1, D))
+    return xc, idx
+
+
+def _hold(name, label, out, ref, stats):
+    """A kernel's output against its twin's, within the bf16 tolerance."""
+    import torch
+    err = (out.float() - ref.float()).abs().max().item()
+    bound = TOL * max(1.0, ref.float().abs().max().item())
+    finite = bool(torch.isfinite(out).all())
+    if not (finite and err <= bound and out.shape == ref.shape):
+        raise AssertionError(f"{name} {label}: max error {err} exceeds "
+                             f"{bound} (finite={finite})")
+    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    return err, bound
+
+
+def check_resvit_kernels(stats):
+    """Phase 3, Res-ViT: K8 (bf16, int8) against its twin and against the
+    square kernel + row gather, K8 int8 also by its codes and INT8_REL; K7
+    against its twin; times at the serving path's shapes."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in RESVIT_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    for i, (label, batch, rows, seq_len, cap) in enumerate(RECT_CASES):
+        t = _inputs(batch, rows, seed=50 + i)
+        xc, idx = _rect_inputs(t, cap, seq_len, seed=60 + i)
+        args = (xc, t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                t["wo"], t["bo"], EPS, seq_len, HEADS, HEAD_DIM)
+        for name, square in (("fused_ln_qkvo_attention_rect",
+                              ck.fused_ln_qkvo_attention),
+                             ("fused_ln_qkvo_attention_rect_int8",
+                              ck.fused_ln_qkvo_attention_int8)):
+            kern = lambda f=getattr(ck, name): f(*args)
+            plain = lambda f=getattr(ck, name + "_ref"): f(*args)
+            with torch.inference_mode():
+                out = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                err, bound = _hold(name, label, out, ref, stats)
+                full = square(*args[1:])
+                gathered = torch.gather(full, 1,
+                                        idx[..., None].expand(-1, -1, D))
+                sq = (out[:, :cap].float() - gathered.float()).abs().max()
+                sq = sq.item()
+                if "int8" in name:
+                    _check_int8(ck, name, label, args, (out,), (ref,), stats)
+            print(f"  {name:32s} {label:28s} {tuple(out.shape)} max|k-ref| "
+                  f"{err:.3e} <= {bound:.3e}; max|rect - square+gather| "
+                  f"{sq:.3e}", flush=True)
+            stats[name]["square_gather_max_diff"] = max(
+                stats[name].get("square_gather_max_diff", 0.0), sq)
+            if sq > bound:
+                raise AssertionError(f"{name} {label}: {sq} from the square "
+                                     "kernel + gather")
+            if i == 0:
+                with torch.inference_mode():
+                    k_ms = _median_ms(kern)
+                    p_ms = _median_ms(plain, warmup=1, iters=5)
+                    s_ms = _median_ms(lambda: square(*args[1:]))
+                print(f"  {name:32s} {label:28s} kernel {k_ms:.4f} ms  plain "
+                      f"{p_ms:.4f} ms  square kernel on all rows {s_ms:.4f}"
+                      " ms (medians of 25 / 5 / 25)", flush=True)
+                stats[name].update(ms=k_ms, plain_ms=p_ms, square_ms=s_ms,
+                                   shape=(batch, rows, xc.shape[1]))
+        del t, xc
+        torch.cuda.empty_cache()
+    name = "fused_ln_qkvo_attention_gqa"
+    for i, (label, batch, rows, seq_len, hkv) in enumerate(GQA_CASES):
+        t = _inputs(batch, rows, seed=70 + i)
+        g = torch.Generator(device="cuda").manual_seed(80 + i)
+        width = (HEADS + 2 * hkv) * HEAD_DIM
+        wqkv = (torch.randn((D, width), generator=g, device="cuda")
+                * D ** -0.5).to(torch.bfloat16)
+        bqkv = 0.02 * torch.randn(width, generator=g, device="cuda")
+        args = (t["x"], t["gamma"], t["beta"], wqkv, bqkv, t["wo"], t["bo"],
+                EPS, seq_len, HEADS, HEAD_DIM, hkv)
+        kern = lambda: ck.fused_ln_qkvo_attention_gqa(*args)
+        plain = lambda: ck.fused_ln_qkvo_attention_gqa_ref(*args)
+        with torch.inference_mode():
+            out = kern()
+            torch.cuda.synchronize()
+            err, bound = _hold(name, label, out, plain(), stats)
+        print(f"  {name:32s} {label:28s} {tuple(out.shape)} max|k-ref| "
+              f"{err:.3e} <= {bound:.3e}", flush=True)
+        if i == 0:
+            with torch.inference_mode():
+                k_ms = _median_ms(kern)
+                p_ms = _median_ms(plain, warmup=1, iters=5)
+            print(f"  {name:32s} {label:28s} kernel {k_ms:.4f} ms  plain "
+                  f"{p_ms:.4f} ms (medians of 25 / 5)", flush=True)
+            stats[name].update(ms=k_ms, plain_ms=p_ms,
+                               shape=(batch, rows, hkv))
+        del t
+        torch.cuda.empty_cache()
+    print(f"  K8 at {RECT_CASES[0][0]}: bf16 "
+          f"{stats['fused_ln_qkvo_attention_rect']['ms']:.4f} ms against the "
+          f"square K1 on all rows "
+          f"{stats['fused_ln_qkvo_attention_rect']['square_ms']:.4f} ms; int8 "
+          f"{stats['fused_ln_qkvo_attention_rect_int8']['ms']:.4f} ms against"
+          f" K3 {stats['fused_ln_qkvo_attention_rect_int8']['square_ms']:.4f}"
+          " ms", flush=True)
     return stats
 
 
@@ -1198,16 +1360,225 @@ def run_fast_recipe(exp_root):
     return counts, times
 
 
+# Phase 8: Res-ViT serving with scripts/ft_resvit.sh's model flags
+RESVIT_ARGS = ["--model-arch", "b16", "--image-size", "224", "--dataset",
+               "Synthetic", "--synthetic-samples", "256", "--batch-size",
+               "64", "--num-workers", "4", "--seed", "0", "--use_lora",
+               "True", "--lora_rank", "48", "--use_reslr", "True",
+               "--block_size", "4", "--dynamic_start_layer", "1",
+               "--dynamic_reserve_initials", "2", "--dynamic_active_target",
+               "0.4"]
+RESVIT_LAYERS, RESVIT_ROUTERS = 12, 3  # routers at layers 1, 5 and 9
+
+
+@contextlib.contextmanager
+def _random_router_biases():
+    """resvit.init_params with each router's final bias drawn from ±0.3
+    (`randomize_router_biases`): the init's keep bias 5.0 would route every
+    token active, and compaction would then test only overflow."""
+    from vitax_torch.models import resvit
+    from vitax_torch.scripts.profile_resvit import randomize_router_biases
+    init = resvit.init_params
+
+    def randomized(gen, cfg, device="cpu"):
+        params = init(gen, cfg, device)
+        randomize_router_biases(params)
+        return params
+
+    resvit.init_params = randomized
+    try:
+        yield
+    finally:
+        resvit.init_params = init
+
+
+def _run_resvit_eval(args):
+    from vitax_torch import resvit_eval_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        result = resvit_eval_cli.main(args)
+    m = re.search(r"\((\d+) images in ([\d.]+)s, (\d+) img/s\)",
+                  buf.getvalue())
+    if m is None or int(m.group(1)) != 256:
+        raise AssertionError("resvit_eval_cli did not report 256 images")
+    for k in ("loss", "acc1", "acc5", "non_low_rank_ratio",
+              "router_entropy"):
+        if not math.isfinite(result[k]):
+            raise AssertionError(f"res-vit eval metric {k} = {result[k]}")
+    return result, float(m.group(3))
+
+
+class _RouterLog:
+    """Records router_forward's outputs on one path and replays them, in
+    order, on another (tests/test_resvit_compact.py's forced router)."""
+
+    def __init__(self, resvit):
+        self.resvit, self.real, self.calls = resvit, resvit.router_forward, []
+
+    @contextlib.contextmanager
+    def record(self):
+        def rec(*a, **k):
+            out = self.real(*a, **k)
+            self.calls.append(out)
+            return out
+        self.resvit.router_forward = rec
+        try:
+            yield
+        finally:
+            self.resvit.router_forward = self.real
+
+    @contextlib.contextmanager
+    def replay(self):
+        calls = iter(self.calls)
+        self.resvit.router_forward = lambda *a, **k: next(calls)
+        try:
+            yield
+        finally:
+            self.resvit.router_forward = self.real
+
+
+def run_resvit_slice():
+    """Phase 8: resvit_eval_cli dense, compacted, --int8, GQA and plain with
+    exact launch counts; routing maps and replayed-routing logits against
+    the plain path; device-timed forwards at b64."""
+    import torch
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import resvit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.resvit_eval_cli import get_eval_config
+    from vitax_torch.resvit_train_cli import config_to_model_args
+
+    batches = math.ceil(256 / 64)
+    layers, routers = RESVIT_LAYERS, RESVIT_ROUTERS
+    ln_bf16 = (routers + 1 + layers) * batches  # routers, final norm, MLPs
+    ln_int8 = (routers + 1) * batches  # the MLP halves are K4's
+    compact = ["--compact-capacity", "0.625"]
+    bf16 = dict(layer_norm=ln_bf16)
+    int8 = dict(layer_norm=ln_int8, fused_ln_mlp_int8=layers * batches)
+    # a compacted model: the plain layer 0 takes the square kernel, the 11
+    # routed layers the rect one
+    rect = dict(fused_ln_qkvo_attention=batches,
+                fused_ln_qkvo_attention_rect=(layers - 1) * batches)
+    rect8 = dict(fused_ln_qkvo_attention_int8=batches,
+                 fused_ln_qkvo_attention_rect_int8=(layers - 1) * batches)
+    runs = [
+        ("dense", [], _expect(**bf16,
+                              fused_ln_qkvo_attention=layers * batches)),
+        ("dense --int8", ["--int8"], _expect(
+            **int8, fused_ln_qkvo_attention_int8=layers * batches)),
+        ("compact 0.625", compact, _expect(**bf16, **rect)),
+        ("compact 0.625 --int8", compact + ["--int8"],
+         _expect(**int8, **rect8)),
+        ("compact 0.5", ["--compact-capacity", "0.5"],
+         _expect(**bf16, **rect)),
+        ("compact 0.5 --int8", ["--compact-capacity", "0.5", "--int8"],
+         _expect(**int8, **rect8)),
+        ("compact 0.625 --n_kv_heads 4", compact + ["--n_kv_heads", "4"],
+         _expect(**bf16, fused_ln_qkvo_attention_gqa=layers * batches)),
+        ("plain", ["--no-pallas", "--no-fused-qkv"], _expect()),
+    ]
+    counts, rates, results = {}, {}, {}
+    with _random_router_biases():
+        for label, extra, expect in runs:
+            ck.reset_launch_counts()
+            result, rate = _run_resvit_eval(RESVIT_ARGS + extra)
+            counts[label] = ck.launch_counts()
+            rates[label], results[label] = rate, result
+            print(f"resvit: resvit_eval_cli {label}: acc1 {result['acc1']:.4f}"
+                  f" loss {result['loss']:.4f} active "
+                  f"{result['non_low_rank_ratio']:.4f} entropy "
+                  f"{result['router_entropy']:.4f}; {rate:.0f} img/s "
+                  "(host-fed); launches {" + ", ".join(
+                      f"{k}: {v}" for k, v in counts[label].items() if v)
+                  + "}", flush=True)
+            if counts[label] != expect:
+                raise AssertionError(f"expected launches {expect}")
+
+        cfg = config_to_model_args(get_eval_config(RESVIT_ARGS), "cuda")
+        params = resvit.init_params(set_seed(0), cfg, "cuda")
+    plain = cfg.replace(fused_qkv=False, fused_qkvo=False, fused_mlp=False,
+                        use_pallas=False)
+    batch = next(iter(get_dataloader("Synthetic", split="val", image_size=224,
+                                     batch_size=64, num_samples=256, seed=0)))
+    images = torch.from_numpy(batch.images).cuda().bfloat16()
+    log = _RouterLog(resvit)
+    agree = {}
+    with torch.inference_mode():
+        for label, c in (("dense", cfg),
+                         ("compact 0.625", cfg.replace(compact_capacity=0.625))):
+            _, aux_k = resvit.apply(params, images, c)
+            _, aux_p = resvit.apply(params, images, plain.replace(
+                compact_capacity=c.compact_capacity))
+            same = [(aux_k["routing_maps"][b] == aux_p["routing_maps"][b])
+                    .float().mean().item() for b in aux_k["routing_maps"]]
+            agree[label] = sum(same) / len(same)
+        c = cfg.replace(compact_capacity=0.625)
+        log.calls.clear()
+        with log.record():
+            lk, aux = resvit.apply(params, images, c)
+        with log.replay():
+            lp, _ = resvit.apply(params, images, plain.replace(
+                compact_capacity=0.625))
+        with log.replay():
+            l32, _ = resvit.apply(params, images.float(), plain.replace(
+                compact_capacity=0.625, dtype=torch.float32))
+    diff = (lk - lp).abs().max().item()
+    band = LOGIT_BAND * max(1.0, lp.abs().max().item())
+    active = aux["acts"][:, 2:, 1:].mean().item()
+    print("resvit: routing maps, kernel path vs plain path, share of keep "
+          "bits that agree: " + ", ".join(f"{k} {v:.5f}"
+                                          for k, v in agree.items())
+          + f"; compact 0.625 with the kernel path's routing replayed on the "
+          f"plain path: logits {tuple(lk.shape)} max|kernel - plain_bf16| "
+          f"{diff:.3e} <= {band:.3e}, max|kernel - fp32| "
+          f"{(lk - l32).abs().max().item():.3e}, max|plain_bf16 - fp32| "
+          f"{(lp - l32).abs().max().item():.3e}; active share of the routed "
+          f"layers {active:.4f}", flush=True)
+    if not (torch.isfinite(lk).all() and diff <= band):
+        raise AssertionError("res-vit kernel-path logits outside the band")
+    if min(agree.values()) < 0.9:
+        raise AssertionError(f"routing maps agree on {agree} only")
+
+    # device-timed forward on a resident batch: the eval rate above also
+    # counts the host loader
+    tier8 = dict(int8_attn=True, int8_mlp=True, fused_mlp=True)
+    gqa_cfg = cfg.replace(n_kv_heads=4)
+    with _random_router_biases():
+        gqa_params = resvit.init_params(set_seed(0), gqa_cfg, "cuda")
+    paths = [("dense", cfg, params), ("dense --int8", cfg.replace(**tier8),
+                                      params)]
+    for cap in (0.625, 0.5):
+        c = cfg.replace(compact_capacity=cap)
+        paths += [(f"compact {cap}", c, params),
+                  (f"compact {cap} --int8", c.replace(**tier8), params)]
+    paths += [("compact 0.625 --n_kv_heads 4",
+               gqa_cfg.replace(compact_capacity=0.625), gqa_params),
+              ("plain dense", plain, params)]
+    fwd = {}
+    with torch.inference_mode():
+        for label, c, p in paths:
+            fwd[label] = _median_ms(lambda: resvit.apply(p, images, c),
+                                    warmup=2, iters=10)
+    print("resvit: forward b64 (median of 10, CUDA events): " + ", ".join(
+        f"{k} {ms:.2f} ms = {64e3 / ms:.0f} img/s" for k, ms in fwd.items()),
+        flush=True)
+    return counts, rates, fwd
+
+
 # ---------------------------------------------------------------- bounds
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
 
 
-def _work(name, batch, rows):
+def _work(name, batch, rows, extra=None):
     """(bytes, {type: operations}) that `name` must move and do at x
     [batch, rows, 768] (rows = spq, or the ragged row count): each input
     read once, each output written once; the attention core over the padded
-    rows."""
+    rows. `extra`: K8's cpq (the gathered rows xc [batch, cpq, 768] in, the
+    output on them), K7's kv heads."""
+    if name in RESVIT_KERNELS:
+        return _resvit_work(name, batch, rows, extra)
     n = batch * rows
     hhd = HEADS * HEAD_DIM
     act, w_attn, w_mlp = 2 * n * D, 2 * 4 * D * hhd, 2 * 2 * D * MLP
@@ -1250,6 +1621,23 @@ def _work(name, batch, rows):
     return table[name]
 
 
+def _resvit_work(name, batch, spq, extra):
+    hhd = HEADS * HEAD_DIM
+    vec = 4 * (4 * D + 3 * hhd)
+    core = 4 * batch * HEADS * spq * HEAD_DIM  # times the query rows
+    if name == "fused_ln_qkvo_attention_gqa":
+        n, width = batch * spq, (HEADS + 2 * extra) * HEAD_DIM
+        return (2 * 2 * n * D + 2 * (D * width + hhd * D)
+                + 4 * (3 * D + width),
+                {"bf16": 2 * n * D * width + core * spq + 2 * n * hhd * D})
+    nc, n = batch * extra, batch * spq
+    nbytes = 2 * (2 * nc * D + n * D) + 2 * 4 * D * hhd + vec
+    proj = 2 * nc * D * hhd + 2 * n * D * 2 * hhd + 2 * nc * hhd * D
+    if name == "fused_ln_qkvo_attention_rect":
+        return nbytes, {"bf16": proj + core * extra}
+    return nbytes, {"s8": proj, "bf16": core * extra}
+
+
 def _bound(name, shape):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and the
     operations over their types' peaks."""
@@ -1286,11 +1674,13 @@ def main() -> int:
     stats = check_kernels()
     check_bwd_kernels(stats)
     check_handoff_kernels(stats)
+    check_resvit_kernels(stats)
     print(f"int8 kernels vs twin, worst ‖k−t‖/‖t‖ of any output and case <= "
           f"{INT8_REL}; the bf16 stand-in's nearest (outputs quantization "
           f"reaches): " + ", ".join(
               f"{n} {stats[n]['worst_rel']:.3e} / {stats[n]['stand_in_min_rel']:.3e}"
-              for n in INT8_KERNELS) + "; the int8_grad kernel's bf16 dW "
+              for n in INT8_KERNELS + ("fused_ln_qkvo_attention_rect_int8",))
+          + "; the int8_grad kernel's bf16 dW "
           "against the int8_dw twin, nearest: " + ", ".join(
               f"{n} {stats[n]['bf16_dw_min_rel']:.3e}" for n in DW_KERNELS),
           flush=True)
@@ -1320,13 +1710,28 @@ def main() -> int:
         f"{k} {ms:.2f} ms = {int(k.split()[0][1:]) * 1e3 / ms:.0f} img/s"
         for k, ms in step_fast.items()) + f" [{card}]", flush=True)
 
+    counts_rv, rates_rv, fwd_rv = run_resvit_slice()
+    print("resvit serving b64 img/s: resvit_eval_cli (host-fed) " + ", ".join(
+        f"{k} {v:.0f}" for k, v in rates_rv.items()) + "; forward "
+        "(resident batch) " + ", ".join(f"{k} {64e3 / ms:.0f}"
+                                        for k, ms in fwd_rv.items())
+        + f" [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
-    # the fast recipe's (each runs every kernel of its tier); the eval
-    # slices' forward counts are printed in phases 4, 6 and 7. Times at the
-    # main path's shapes: forward b64 spq 200 (serving), backward b32 spq
-    # 200, K5 b32 spq 104 (the drop phase)
+    # the fast recipe's (each runs every kernel of its tier), K7's and K8's
+    # from the Res-ViT serving runs that take them; the eval slices' forward
+    # counts are printed in phases 4, 6, 7 and 8. Times at the main path's
+    # shapes: forward b64 spq 200 (serving), backward b32 spq 200, K5 b32
+    # spq 104 (the drop phase), K8 b64 spq 200 cpq 128 (capacity 0.625), K7
+    # b64 spq 200 with 4 kv heads
+    resvit_runs = {"fused_ln_qkvo_attention_gqa": "compact 0.625 --n_kv_heads 4",
+                   "fused_ln_qkvo_attention_rect": "compact 0.625",
+                   "fused_ln_qkvo_attention_rect_int8": "compact 0.625 --int8"}
+
     def launches(name):
+        if name in RESVIT_KERNELS:
+            return counts_rv[resvit_runs[name]][name]
         if name in HO_KERNELS + DW_KERNELS:
             return counts_fast[name]
         return (counts_i8 if name in INT8_KERNELS else counts)[name]
@@ -1343,7 +1748,9 @@ def main() -> int:
     print("kernel table: " + "; ".join(
         f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
         f"{r['bound_by']}, x{r['ms'] / r['bound_ms']:.1f}) at "
-        "b{} rows {}".format(*stats[r["name"]]["shape"]) for r in table),
+        + "b{} rows {}".format(*stats[r["name"]]["shape"])
+        + (" ({})".format(stats[r["name"]]["shape"][2])
+           if len(stats[r["name"]]["shape"]) > 2 else "") for r in table),
         flush=True)
     print(card)
     print(json.dumps({"kernels": table}))

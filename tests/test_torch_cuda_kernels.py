@@ -441,3 +441,94 @@ def test_handoff_block_autograd_launches_its_kernels(dev, int8_dw):
         dict.fromkeys(HO_NAMES + bwd, 1)
     for t in leaves:
         assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+
+
+# ------------------------------------------------------------------ K7, K8
+CODE_BAND["xqk"] = CODE_BAND["xq"]  # K8 int8: the LN codes of x's rows
+
+# (batch, spq, seq_len, D, heads, kv_heads, head_dim): Res-ViT b16 serving
+# at b64 with 4 and 6 kv heads, the test config with one
+GQA_SHAPES = [(64, 200, 197, 768, 12, 4, 64), (64, 200, 197, 768, 12, 6, 64),
+              (2, 16, 10, 128, 2, 1, 64)]
+
+
+@pytest.mark.parametrize("shape", GQA_SHAPES)
+def test_gqa_kernel_matches_twin(dev, shape):
+    batch, spq, seq, d, h, hkv, hd = shape
+    _, qkvo, _ = _args(dev, batch, spq, seq, d, h, hd, 4 * d)
+    g = torch.Generator(device=dev).manual_seed(7)
+    width = (h + 2 * hkv) * hd
+    wqkv = (torch.randn((d, width), generator=g, device=dev)
+            * d ** -0.5).to(torch.bfloat16)
+    bqkv = 0.1 * torch.randn(width, generator=g, device=dev)
+    args = (*qkvo[:3], wqkv, bqkv, *qkvo[5:], hkv)
+    ck.reset_launch_counts()
+    with torch.inference_mode():
+        out = ck.fused_ln_qkvo_attention(*args[:-1], kv_heads=hkv)
+        torch.cuda.synchronize()
+        _assert_close(out, ck.fused_ln_qkvo_attention_gqa_ref(*args))
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    assert counts == {"fused_ln_qkvo_attention_gqa": 1}
+
+
+def _rect_args(dev, batch, spq, seq, cap, seed=0):
+    """K1's arguments at ViT-B/16 width, and xc: `cap` rows of each image
+    (a random choice of its first seq rows) zero-padded to round_up(cap, 8),
+    with their indices."""
+    _, qkvo, _ = _args(dev, batch, spq, seq, 768, 12, 64, 3072, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    idx = torch.stack([torch.randperm(seq, generator=g, device=dev)[:cap]
+                       for _ in range(batch)])
+    x = qkvo[0]
+    xc = torch.zeros((batch, (cap + 7) // 8 * 8, 768), dtype=x.dtype,
+                     device=dev)
+    xc[:, :cap] = torch.gather(x, 1, idx[..., None].expand(-1, -1, 768))
+    return xc, qkvo, idx
+
+
+# (batch, spq, seq_len, cap): Res-ViT b16 serving at capacity 0.625 (124 of
+# 197, cpq 128) and 0.5 (99, cpq 104), and a ragged small case
+RECT_SHAPES = [(64, 200, 197, 124), (64, 200, 197, 99), (3, 200, 197, 37)]
+
+
+@pytest.mark.parametrize("shape", RECT_SHAPES)
+@pytest.mark.parametrize("int8", [False, True])
+def test_rect_kernel_matches_twin_and_square_gather(dev, shape, int8):
+    """K8 against its twin, and against the square kernel (K1, K3) on all
+    rows followed by the row gather: the same bits, since every row's
+    arithmetic is the same."""
+    xc, qkvo, idx = _rect_args(dev, *shape)
+    cap = shape[3]
+    name = ("fused_ln_qkvo_attention_rect_int8" if int8
+            else "fused_ln_qkvo_attention_rect")
+    square = (ck.fused_ln_qkvo_attention_int8 if int8
+              else ck.fused_ln_qkvo_attention)
+    args = (xc, *qkvo)
+    ck.reset_launch_counts()
+    sk, st = {}, {}
+    kw = (lambda s: {"scratch": s}) if int8 else (lambda s: {})
+    with torch.inference_mode():
+        out = getattr(ck, name)(*args, **kw(sk))
+        torch.cuda.synchronize()
+        _assert_close(out, getattr(ck, name + "_ref")(*args, **kw(st)))
+        full = square(*qkvo)
+    assert torch.isfinite(out).all()
+    gathered = torch.gather(full, 1, idx[..., None].expand(-1, -1, 768))
+    assert torch.equal(out[:, :cap], gathered)
+    if int8:
+        _codes_within_band(name, sk, st)
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    assert counts == {name: 1, square.__name__: 1}
+
+
+def test_rect_kernel_rejects_what_it_does_not_take(dev):
+    xc, qkvo, _ = _rect_args(dev, 2, 200, 197, 20)
+    with pytest.raises(ValueError):  # cpq not a multiple of 8
+        ck.fused_ln_qkvo_attention_rect(xc[:, :20].contiguous(), *qkvo)
+    with pytest.raises(TypeError):
+        ck.fused_ln_qkvo_attention_rect(xc.float(), *qkvo)
+    with pytest.raises(ValueError):  # another batch
+        ck.fused_ln_qkvo_attention_rect(xc[:1].contiguous(), *qkvo)
+    with pytest.raises(NotImplementedError, match="K8 backward"):
+        xg = xc.clone().requires_grad_()
+        ck.fused_ln_qkvo_attention_rect(xg, *qkvo).float().sum().backward()

@@ -690,3 +690,52 @@ def test_convergence_harness_tags_are_vitaxs(tag):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="needs a CUDA card"):
             harness.main(["bf16", tag])
+
+
+# ---------------------------------------------------------------- K8 int8
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,cap", [(1, 6), (3, 9)])
+def test_fused_ln_qkvo_attention_rect_int8_ref_matches_pallas(dtype, batch,
+                                                               cap):
+    """K8's W8A8 twin against vitax's rect int8 kernel (seq_len 10 < spq
+    16, cpq 8 or 16 with zero pad rows): the weights' codes and scales are
+    exactly vitax's for its split Wq and Wkv; the LN codes of both row sets
+    within CODE_SHARE of one step; the output rows equal K3's twin's on the
+    same tokens bit for bit."""
+    arr = _arrays(9, batch, SPQ)
+    rng = np.random.default_rng(9)
+    idx = np.stack([rng.permutation(SEQ)[:cap] for _ in range(batch)])
+    xc = np.zeros((batch, (cap + 7) // 8 * 8, D), np.float32)
+    xc[:, :cap] = np.take_along_axis(arr["x"], idx[..., None], axis=1)
+    j, t = _both(dict(arr, xc=xc), dtype)
+    jxc = j["xc"].astype(j["x"].dtype)
+    txc = t["xc"].to(t["x"].dtype)
+    rest = _QKVO[1:]
+    ref = pk.fused_ln_qkvo_attention_rect(jxc, j["x"], *(j[k] for k in rest),
+                                          EPS, SEQ, H, HD, True)
+    scratch = {}
+    args = (txc, t["x"], *(t[k] for k in rest), EPS, SEQ, H, HD)
+    out = ck.fused_ln_qkvo_attention_rect_int8_ref(*args, scratch=scratch)
+    assert out.shape == txc.shape and out.dtype == txc.dtype
+    _close(ref[:, :cap], out[:, :cap], TOL[dtype][0], "out")
+    hhd = H * HD
+    w8, sw = scratch["w8"]
+    for cols, wj in ((slice(0, hhd), j["wqkv"][:, :hhd]),
+                     (slice(hhd, 3 * hhd), j["wqkv"][:, hhd:])):
+        qj, sj = pk._quant_cols_host(wj)
+        np.testing.assert_array_equal(w8[:, cols].numpy(), np.asarray(qj))
+        np.testing.assert_array_equal(sw[cols].numpy(), np.asarray(sj))
+    for key, rows in (("xq", j["xc"]), ("xqk", j["x"])):
+        moved = np.abs(np.asarray(_vitax_ln_codes(rows.astype(j["x"].dtype),
+                                                  j["gamma"], j["beta"]),
+                                  np.int32)
+                       - scratch[key][0].numpy().astype(np.int32))
+        assert moved.max() <= 1 and moved.mean() <= CODE_SHARE, key
+    torch.testing.assert_close(ck.fused_ln_qkvo_attention_rect_int8(*args),
+                               out, rtol=0, atol=0)
+    square = ck.fused_ln_qkvo_attention_int8_ref(
+        *(t[k] for k in _QKVO), EPS, SEQ, H, HD)
+    gathered = torch.gather(square, 1, torch.from_numpy(idx)[..., None]
+                            .expand(-1, -1, D))
+    torch.testing.assert_close(out[:, :cap], gathered, rtol=0, atol=0)

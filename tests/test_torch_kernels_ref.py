@@ -133,6 +133,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         EPS, SEQ, H, HD)
     ck.fused_ln_mlp_int8_ho(r1, xq, sx, *ln, t["w1"], t["b1"], t["w2"],
                             t["b2"], EPS)
+    xc = t["x"][:, :8].contiguous()
+    for rect in (ck.fused_ln_qkvo_attention_rect,
+                 ck.fused_ln_qkvo_attention_rect_int8):
+        rect(xc, t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+             t["wo"], t["bo"], EPS, SEQ, H, HD)
+    g = _gqa_weights(3, 2, 1, HD)
+    ck.fused_ln_qkvo_attention(t["x"], t["gamma"], t["beta"],
+                               torch.from_numpy(g["wqkv"]),
+                               torch.from_numpy(g["bqkv"]), t["wo"], t["bo"],
+                               EPS, SEQ, 2, HD, kv_heads=1)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -145,7 +155,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_ln_qkvo_attention_int8_ho": 0,
                                   "fused_ln_mlp_int8_ho": 0,
                                   "fused_ln_qkvo_attention_int8_dw_bwd": 0,
-                                  "fused_ln_mlp_int8_dw_bwd": 0}
+                                  "fused_ln_mlp_int8_dw_bwd": 0,
+                                  "fused_ln_qkvo_attention_gqa": 0,
+                                  "fused_ln_qkvo_attention_rect": 0,
+                                  "fused_ln_qkvo_attention_rect_int8": 0}
 
 
 def test_hopper_gates():
@@ -168,3 +181,116 @@ def test_hopper_gates():
     assert not ck.ln_mlp_supported(x(8, 200, 768), w(768, 3072), w(768, 3072))
     assert ck.layernorm_supported(x(8, 197, 768))
     assert not ck.layernorm_supported(x(8, 197, 770))
+
+
+# ------------------------------------------------------------- K7, K8
+
+def _gqa_weights(seed, heads, kv_heads, head_dim):
+    """wqkv [D, (H + 2·Hkv)·Hd] packed [q | k | v], its bias, wo."""
+    rng = np.random.default_rng(seed)
+    width = (heads + 2 * kv_heads) * head_dim
+    hhd = heads * head_dim
+    return dict(wqkv=(rng.standard_normal((D, width)) * D ** -0.5).astype(
+                    np.float32),
+                bqkv=(rng.standard_normal(width) * 0.1).astype(np.float32),
+                wo=(rng.standard_normal((hhd, D)) * hhd ** -0.5).astype(
+                    np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,kv_heads,head_dim", [(2, 1, 64), (4, 2, 32),
+                                                     (4, 1, 32)])
+def test_gqa_ref_matches_pallas(dtype, heads, kv_heads, head_dim):
+    """K1's twin with kv_heads (K7's) against vitax's K1 with kv_heads: the
+    packed [q | k | v] layout, query head h on kv group h·Hkv/H."""
+    w = _weights(4)
+    arr = dict(w, x=_x(3, SPQ, 4), **_gqa_weights(4, heads, kv_heads,
+                                                   head_dim))
+    j, t = _both(arr, dtype)
+    args = ("x", "gamma", "beta", "wqkv", "bqkv", "wo", "bo")
+    ref = pk.fused_ln_qkvo_attention(*(j[k] for k in args), EPS, SEQ, heads,
+                                     head_dim, kv_heads=kv_heads)
+    out = ck.fused_ln_qkvo_attention_ref(*(t[k] for k in args), EPS, SEQ,
+                                         heads, head_dim, kv_heads)
+    assert out.shape == t["x"].shape
+    _close(ref, out, dtype)
+    for f in (ck.fused_ln_qkvo_attention_gqa, ck.fused_ln_qkvo_attention_gqa_ref):
+        torch.testing.assert_close(
+            f(*(t[k] for k in args), EPS, SEQ, heads, head_dim, kv_heads),
+            out, rtol=0, atol=0)
+    torch.testing.assert_close(
+        ck.fused_ln_qkvo_attention(*(t[k] for k in args), EPS, SEQ, heads,
+                                   head_dim, kv_heads=kv_heads),
+        out, rtol=0, atol=0)
+
+
+def test_gqa_gate_rejects_uneven_kv_groups():
+    """heads % kv_heads != 0 leaves query heads without an even kv group;
+    vitax's gate accepts it (pallas_kernels.py:2189-2193), the port's
+    rejects it."""
+    x = torch.empty((2, SEQ, D), device="meta")
+    ok, uneven = torch.empty((D, 8 * 32), device="meta"), \
+        torch.empty((D, 10 * 32), device="meta")
+    assert ck.qkv_attention_supported(x, ok, 4, 2)
+    assert not ck.qkv_attention_supported(x, uneven, 4, 3)
+    assert pk.qkv_attention_supported(jnp.zeros((2, SEQ, D)),
+                                      jnp.zeros((D, 10 * 32)), 4, 3)
+    # the MHA width is not a GQA width, and the reverse
+    assert not ck.qkv_attention_supported(x, torch.empty((D, 3 * 128),
+                                                         device="meta"), 4, 2)
+    assert not ck.qkv_attention_supported(x, ok, 4)
+    tq = _both(dict(_weights(5), x=_x(1, SPQ, 5)), "float32")[1]
+    with pytest.raises(NotImplementedError, match="K7 backward"):
+        ck.fused_ln_qkvo_attention_gqa(
+            tq["x"].requires_grad_(), tq["gamma"], tq["beta"],
+            torch.zeros(D, 256), torch.zeros(256), tq["wo"], tq["bo"], EPS,
+            SEQ, 2, HD, 1)
+
+
+def _rect_inputs(batch, cap, seed):
+    """x [B, spq, D] and xc: `cap` rows of each image (a random choice of
+    its tokens, in random order) zero-padded to cpq = round_up(cap, 8), as
+    compact_routed_block hands them to the kernel; and the row indices."""
+    rng = np.random.default_rng(seed)
+    x = _x(batch, SPQ, seed)
+    idx = np.stack([rng.permutation(SEQ)[:cap] for _ in range(batch)])
+    cpq = (cap + 7) // 8 * 8
+    xc = np.zeros((batch, cpq, D), np.float32)
+    xc[:, :cap] = np.take_along_axis(x, idx[..., None], axis=1)
+    return x, xc, idx
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,cap", [(1, 6), (3, 9)])
+def test_fused_ln_qkvo_attention_rect_ref_matches_pallas(dtype, batch, cap):
+    """K8's twin against vitax's rect kernel (seq_len 10 < spq 16, cpq 8 or
+    16 with zero pad rows); its rows equal K1's twin's on the same tokens
+    bit for bit."""
+    x, xc, idx = _rect_inputs(batch, cap, 6)
+    arr = dict(_weights(6), x=x)
+    j, t = _both(arr, dtype)
+    jxc, txc = jnp.asarray(xc, j["x"].dtype), torch.from_numpy(xc).to(
+        t["x"].dtype)
+    args = ("gamma", "beta", "wqkv", "bqkv", "wo", "bo")
+    ref = pk.fused_ln_qkvo_attention_rect(jxc, j["x"], *(j[k] for k in args),
+                                          EPS, SEQ, H, HD)
+    out = ck.fused_ln_qkvo_attention_rect_ref(txc, t["x"],
+                                              *(t[k] for k in args), EPS,
+                                              SEQ, H, HD)
+    assert out.shape == txc.shape and out.dtype == txc.dtype
+    assert torch.isfinite(out).all()  # the zero pad rows too
+    _close(ref[:, :cap], out[:, :cap], dtype)
+    torch.testing.assert_close(
+        ck.fused_ln_qkvo_attention_rect(txc, t["x"], *(t[k] for k in args),
+                                        EPS, SEQ, H, HD), out, rtol=0, atol=0)
+    square = ck.fused_ln_qkvo_attention_ref(t["x"], *(t[k] for k in args),
+                                            EPS, SEQ, H, HD)
+    gathered = torch.gather(square, 1, torch.from_numpy(idx)[..., None]
+                            .expand(-1, -1, D))
+    torch.testing.assert_close(out[:, :cap], gathered, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="K8 backward"):
+        y = ck.fused_ln_qkvo_attention_rect(txc.float().requires_grad_(),
+                                            t["x"].float(),
+                                            *(t[k].float() for k in args),
+                                            EPS, SEQ, H, HD)
+        y.sum().backward()

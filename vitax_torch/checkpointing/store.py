@@ -87,6 +87,14 @@ class CheckpointStore:
         state.step = int(blob["step"])
         return state
 
+    def restore_params(self, name: str, params: Any) -> Any:
+        """Load only the parameters of checkpoint `name` into `params` (the
+        same layout; an eval has no optimizer) and return them."""
+        blob = torch.load(os.path.join(self._path(name), "state.pt"),
+                          map_location="cpu", weights_only=False)
+        _copy_into(params, blob["params"])
+        return params
+
     def metadata(self, name: str) -> dict:
         p = os.path.join(self._path(name), "vitax_meta.json")
         if os.path.exists(p):

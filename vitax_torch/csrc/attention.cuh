@@ -4,6 +4,15 @@
 // the fp32 P·V (OutT = float: vitax never rounds the int8 kernel's attn to
 // bf16 before quantizing it, pallas_kernels.py:2732-2737). Design notes:
 // ln_qkvo_attention.cu.
+//
+// One core serves three geometries (AttnGeom): the square MHA core reading
+// Q, K and V from one packed qkv row (K1, K3, K5); GQA (K7), where the packed
+// row is [q (H·hd) | k (Hkv·hd) | v (Hkv·hd)] and query head h reads kv group
+// g = h·Hkv/H (vitax's _kv_off, pallas_kernels.py:2803); and the rect core
+// (K8), whose q_rows query rows per image (the compacted cpq) come from their
+// own buffer and attend over kv_rows key rows (spq) of another. Each query
+// row's result depends only on its own Q row and the image's K and V, so the
+// rect core gives the square core's bits on the same rows.
 #pragma once
 
 #include <mma.h>
@@ -22,11 +31,11 @@ __host__ __device__ inline size_t attn_smem_bytes(int spq, int hd, int warps) {
   return 2 * L * hd * 2 + warps * (16 * hd * 2 + 16 * sw * 4 + 16 * L * 2);
 }
 
-// Stage K and V of head h ([spq, HD] slices of the qkv rows of image b) into
-// shared memory as [L, HD], zero past spq.
+// Stage K and V of one head ([rows, HD] slices at columns k_col and v_col of
+// the rows of one image) into shared memory as [L, HD], zero past rows.
 template <int HD>
 __device__ __forceinline__ void attn_stage_kv(const bf16* __restrict__ base, size_t row_stride,
-                                              int hhd, int h, int spq, int L, bf16* Ks,
+                                              int k_col, int v_col, int rows, int L, bf16* Ks,
                                               bf16* Vs) {
   constexpr int kVecs = HD / 8;  // 16-byte vectors per head row
   const uint4 zero = make_uint4(0, 0, 0, 0);
@@ -34,10 +43,10 @@ __device__ __forceinline__ void attn_stage_kv(const bf16* __restrict__ base, siz
     const int r = i / kVecs;
     const int c = (i % kVecs) * 8;
     uint4 kv = zero, vv = zero;
-    if (r < spq) {
-      const bf16* row = base + r * row_stride + h * HD + c;
-      kv = *reinterpret_cast<const uint4*>(row + hhd);
-      vv = *reinterpret_cast<const uint4*>(row + 2 * hhd);
+    if (r < rows) {
+      const bf16* row = base + r * row_stride + c;
+      kv = *reinterpret_cast<const uint4*>(row + k_col);
+      vv = *reinterpret_cast<const uint4*>(row + v_col);
     }
     *reinterpret_cast<uint4*>(Ks + r * HD + c) = kv;
     *reinterpret_cast<uint4*>(Vs + r * HD + c) = vv;
@@ -105,21 +114,45 @@ __device__ __forceinline__ void attn_softmax_row(float* srow, int L, int seq_len
   for (int c = lane; c < L; c += 32) srow[c] *= inv;
 }
 
+// Where the core reads: Q rows [b·q_rows + r] of q (row stride q_ld, head h
+// at column h·HD), K and V rows [b·kv_rows + r] of kv (row stride kv_ld, kv
+// group g at columns k_off + g·HD and v_off + g·HD); out [b·q_rows, H·HD].
+struct AttnGeom {
+  const bf16* q;
+  size_t q_ld;
+  int q_rows;
+  const bf16* kv;
+  size_t kv_ld;
+  int kv_rows;
+  int k_off, v_off;
+  int heads, kv_heads;
+  int b, seq_len;
+  float scale;
+};
+
+// The square MHA core over a packed qkv [b·spq, 3·H·HD].
+inline AttnGeom attn_geom_square(const bf16* qkv, int b, int spq, int seq_len, int heads,
+                                 int head_dim, float scale) {
+  const int hhd = heads * head_dim;
+  return AttnGeom{qkv, 3 * static_cast<size_t>(hhd), spq, qkv, 3 * static_cast<size_t>(hhd), spq,
+                  hhd, 2 * hhd, heads, heads, b, seq_len, scale};
+}
+
 template <int HD, typename OutT>
-__global__ void attention_core_kernel(const bf16* __restrict__ qkv, OutT* __restrict__ out,
-                                      int spq, int seq_len, int heads, float scale) {
+__global__ void attention_core_kernel(AttnGeom g, OutT* __restrict__ out) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int L = attn_rows_padded(spq);
+  const int L = attn_rows_padded(g.kv_rows);
   const int sw = L > HD ? L : HD;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
+  const int grp = h * g.kv_heads / g.heads;
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int hhd = heads * HD;
-  const size_t row_stride = 3 * static_cast<size_t>(hhd);
-  const bf16* base = qkv + static_cast<size_t>(b) * spq * row_stride;
+  const int hhd = g.heads * HD;
+  const bf16* qbase = g.q + static_cast<size_t>(b) * g.q_rows * g.q_ld;
+  const bf16* kvbase = g.kv + static_cast<size_t>(b) * g.kv_rows * g.kv_ld;
 
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + L * HD;
@@ -129,15 +162,16 @@ __global__ void attention_core_kernel(const bf16* __restrict__ qkv, OutT* __rest
   float* S = reinterpret_cast<float*>(mine + 16 * HD * 2);
   bf16* P = reinterpret_cast<bf16*>(mine + 16 * HD * 2 + 16 * static_cast<size_t>(sw) * 4);
 
-  attn_stage_kv<HD>(base, row_stride, hhd, h, spq, L, Ks, Vs);
+  attn_stage_kv<HD>(kvbase, g.kv_ld, g.k_off + grp * HD, g.v_off + grp * HD, g.kv_rows, L, Ks,
+                    Vs);
   const int q0 = (blockIdx.x * warps + warp) * 16;
-  attn_load_tile16<HD>(base, row_stride, h * HD, q0, spq, Qs);
+  attn_load_tile16<HD>(qbase, g.q_ld, h * HD, q0, g.q_rows, Qs);
   __syncthreads();
-  if (q0 >= spq) return;  // no block-wide barrier follows
+  if (q0 >= g.q_rows) return;  // no block-wide barrier follows
 
   attn_scores<HD>(Qs, Ks, L, S, sw);
   for (int r = 0; r < 16; ++r) {
-    attn_softmax_row(S + r * sw, L, seq_len, scale);
+    attn_softmax_row(S + r * sw, L, g.seq_len, g.scale);
     for (int c = lane; c < L; c += 32) P[r * L + c] = __float2bfloat16(S[r * sw + c]);
   }
   __syncwarp();
@@ -162,8 +196,8 @@ __global__ void attention_core_kernel(const bf16* __restrict__ qkv, OutT* __rest
   for (int i = lane; i < 16 * kVecs; i += 32) {
     const int r = i / kVecs;
     const int c = (i % kVecs) * 8;
-    if (q0 + r >= spq) continue;
-    OutT* dst = out + (static_cast<size_t>(b) * spq + q0 + r) * hhd + h * HD + c;
+    if (q0 + r >= g.q_rows) continue;
+    OutT* dst = out + (static_cast<size_t>(b) * g.q_rows + q0 + r) * hhd + h * HD + c;
     store4(dst, S + r * HD + c);
     store4(dst + 4, S + r * HD + c + 4);
   }
@@ -171,45 +205,55 @@ __global__ void attention_core_kernel(const bf16* __restrict__ qkv, OutT* __rest
 
 // Query tiles (warps) per block: as many as fit in shared memory, up to 4.
 template <typename SmemFn>
-inline int attn_pick_warps(int spq, SmemFn smem_bytes) {
+inline int attn_pick_warps(int q_rows, SmemFn smem_bytes) {
   int w = 4;
   while (w > 1 && smem_bytes(w) > kSmemLimit) w /= 2;
-  const int tiles = (spq + 15) / 16;
+  const int tiles = (q_rows + 15) / 16;
   while (w > 1 && w / 2 >= tiles) w /= 2;
   return w;
 }
 
 template <int HD, typename OutT>
-cudaError_t launch_attention_core(const bf16* qkv, OutT* out, int b, int spq, int seq_len,
-                                  int heads, float scale, cudaStream_t stream) {
-  const int warps = attn_pick_warps(spq, [&](int w) { return attn_smem_bytes(spq, HD, w); });
-  const size_t smem = attn_smem_bytes(spq, HD, warps);
+cudaError_t launch_attention_core(const AttnGeom& g, OutT* out, cudaStream_t stream) {
+  if (g.b == 0 || g.q_rows == 0) return cudaSuccess;
+  if (g.kv_heads <= 0 || g.heads % g.kv_heads) return cudaErrorInvalidValue;
+  const int warps =
+      attn_pick_warps(g.q_rows, [&](int w) { return attn_smem_bytes(g.kv_rows, HD, w); });
+  const size_t smem = attn_smem_bytes(g.kv_rows, HD, warps);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(attention_core_kernel<HD, OutT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int tiles = (spq + 15) / 16;
-  const dim3 grid((tiles + warps - 1) / warps, heads, b);
-  attention_core_kernel<HD, OutT><<<grid, 32 * warps, smem, stream>>>(qkv, out, spq, seq_len,
-                                                                      heads, scale);
+  const int tiles = (g.q_rows + 15) / 16;
+  const dim3 grid((tiles + warps - 1) / warps, g.heads, g.b);
+  attention_core_kernel<HD, OutT><<<grid, 32 * warps, smem, stream>>>(g, out);
   return cudaGetLastError();
 }
 
-// The core for head_dim 32, 64 or 128; out is bf16 or fp32 [b·spq, heads·hd].
+// The core for head_dim 32, 64 or 128 at geometry g; out is bf16 or fp32
+// [b·q_rows, heads·hd].
 template <typename OutT>
-cudaError_t launch_attention_core_hd(const bf16* qkv, OutT* out, int b, int spq, int seq_len,
-                                     int heads, int head_dim, float scale, cudaStream_t stream) {
+cudaError_t launch_attention_core_geom(const AttnGeom& g, int head_dim, OutT* out,
+                                       cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch_attention_core<32>(qkv, out, b, spq, seq_len, heads, scale, stream);
+      return launch_attention_core<32>(g, out, stream);
     case 64:
-      return launch_attention_core<64>(qkv, out, b, spq, seq_len, heads, scale, stream);
+      return launch_attention_core<64>(g, out, stream);
     case 128:
-      return launch_attention_core<128>(qkv, out, b, spq, seq_len, heads, scale, stream);
+      return launch_attention_core<128>(g, out, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The square MHA core over a packed qkv [b·spq, 3·heads·hd].
+template <typename OutT>
+cudaError_t launch_attention_core_hd(const bf16* qkv, OutT* out, int b, int spq, int seq_len,
+                                     int heads, int head_dim, float scale, cudaStream_t stream) {
+  return launch_attention_core_geom(
+      attn_geom_square(qkv, b, spq, seq_len, heads, head_dim, scale), head_dim, out, stream);
 }
 
 }  // namespace vitax

@@ -50,7 +50,7 @@ __global__ void attention_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16*
   float* stage = reinterpret_cast<float*>(Ds + 16 * L);
   float* dd = stage + 256;
 
-  attn_stage_kv<HD>(base, row_stride, hhd, h, spq, L, Ks, Vs);
+  attn_stage_kv<HD>(base, row_stride, hhd + h * HD, 2 * hhd + h * HD, spq, L, Ks, Vs);
   const int q0 = (blockIdx.x * warps + warp) * 16;
   attn_load_tile16<HD>(base, row_stride, h * HD, q0, spq, Qs);
   attn_load_tile16<HD>(dattn + row0 * hhd, hhd, h * HD, q0, spq, dOs);

@@ -84,12 +84,13 @@ __device__ __forceinline__ float gelu_grad_q(float a) {
 
 // Loads of one K step into shared memory. A tile: [128 rows of M][32 of K]
 // (kNN, kNT) or [32 of K][128 of M] (kTN). B tile: [32 of K][128 of N] (kNN,
-// kTN) or [128 of N][32 of K] (kNT). Rows past M/N and K rows past k_end are
-// zero-filled.
+// kTN; B's rows ldb apart) or [128 of N][32 of K] (kNT). Rows past M/N and K
+// rows past k_end are zero-filled.
 template <int LAYOUT>
 __device__ __forceinline__ void gemm_load_tile(bf16* As, bf16* Bs, const bf16* __restrict__ A,
                                                const bf16* __restrict__ B, int bm, int bn,
-                                               int k0, int k_end, int M, int N, int K) {
+                                               int k0, int k_end, int M, int N, int K,
+                                               int ldb) {
   const int tid = threadIdx.x;
   if (LAYOUT == kTN) {
 #pragma unroll
@@ -125,7 +126,7 @@ __device__ __forceinline__ void gemm_load_tile(bf16* As, bf16* Bs, const bf16* _
       const int r = i / (kGemmBN / 8);
       const int c = (i % (kGemmBN / 8)) * 8;
       const bool ok = k0 + r < k_end && bn + c < N;
-      const bf16* src = B + (ok ? static_cast<size_t>(k0 + r) * N + bn + c : 0);
+      const bf16* src = B + (ok ? static_cast<size_t>(k0 + r) * ldb + bn + c : 0);
       cp_async16(&Bs[r * kGemmMNLd + c], src, ok ? 16 : 0);
     }
   }
@@ -133,14 +134,15 @@ __device__ __forceinline__ void gemm_load_tile(bf16* As, bf16* Bs, const bf16* _
 }
 
 // Requires N % 8 == 0 and M % 8 == 0 for kTN (checked by the wrappers), and
-// K % 32 == 0 for kNN/kNT. blockIdx.z is the K split: K rows
+// K % 32 == 0 for kNN/kNT; ldb % 8 == 0 (B's row stride, N unless B is a
+// column slice of a wider matrix). blockIdx.z is the K split: K rows
 // [z*k_chunk, min(K, (z+1)*k_chunk)); F then points at split z's partial.
 template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                      const float* __restrict__ bias, const bf16* __restrict__ R,
                      const float* __restrict__ Aux, bf16* __restrict__ C, float* __restrict__ F,
-                     int M, int N, int K, int k_chunk) {
+                     int M, int N, int K, int k_chunk, int ldb) {
   using namespace nvcuda;
   using ALayout = typename std::conditional<LAYOUT == kTN, wmma::col_major, wmma::row_major>::type;
   using BLayout = typename std::conditional<LAYOUT == kNT, wmma::col_major, wmma::row_major>::type;
@@ -165,11 +167,11 @@ __global__ void __launch_bounds__(kGemmThreads)
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int nk = k_end > k_begin ? (k_end - k_begin + kGemmBK - 1) / kGemmBK : 0;
-  if (nk > 0) gemm_load_tile<LAYOUT>(As[0], Bs[0], A, B, bm, bn, k_begin, k_end, M, N, K);
+  if (nk > 0) gemm_load_tile<LAYOUT>(As[0], Bs[0], A, B, bm, bn, k_begin, k_end, M, N, K, ldb);
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) {
       gemm_load_tile<LAYOUT>(As[(kt + 1) & 1], Bs[(kt + 1) & 1], A, B, bm, bn,
-                             k_begin + (kt + 1) * kGemmBK, k_end, M, N, K);
+                             k_begin + (kt + 1) * kGemmBK, k_end, M, N, K, ldb);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -298,21 +300,27 @@ inline size_t gemm_tn_workspace(int M, int N, int K) {
 template <int LAYOUT, int EPI>
 cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, const bf16* R,
                              const float* Aux, bf16* C, float* F, int M, int N, int K,
-                             int splits, cudaStream_t stream) {
+                             int splits, cudaStream_t stream, int ldb = 0) {
   if (M == 0 || N == 0) return cudaSuccess;
+  if (ldb == 0)
+    ldb = N;
+  else if (ldb % 8 || ldb < N)
+    return cudaErrorInvalidValue;
   const int k_chunk = (K + splits * kGemmBK - 1) / (splits * kGemmBK) * kGemmBK;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
   gemm_bf16_kernel<LAYOUT, EPI>
-      <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, R, Aux, C, F, M, N, K, k_chunk);
+      <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, R, Aux, C, F, M, N, K, k_chunk, ldb);
   return cudaGetLastError();
 }
 
 // Forward products: C[M,N] = epilogue(A[M,K] @ B[K,N]); F is the fp32
-// pre-activation output of kBiasGeluAux.
+// pre-activation output of kBiasGeluAux; ldb is B's row stride (0: N), so B
+// may be a column slice of a wider weight (K8's Q and KV slices of Wqkv).
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, const bf16* R, bf16* C,
-                        int M, int N, int K, cudaStream_t stream, float* F = nullptr) {
-  return launch_gemm_impl<kNN, EPI>(A, B, bias, R, nullptr, C, F, M, N, K, 1, stream);
+                        int M, int N, int K, cudaStream_t stream, float* F = nullptr,
+                        int ldb = 0) {
+  return launch_gemm_impl<kNN, EPI>(A, B, bias, R, nullptr, C, F, M, N, K, 1, stream, ldb);
 }
 
 // dx-path products: C[M,N] = epilogue(A[M,K] @ B[N,K]^T), epilogue kStore

@@ -25,6 +25,14 @@
 // number of warps (query tiles) a block holds from the shared memory it needs:
 // 4 at spq 200, 1 at spq 584. The scores never reach device memory; xn, qkv
 // and attn do (the multi-launch form of this first version).
+//
+// K7, GQA (kv_heads < heads; the kv_heads branch of the same TPU kernel, its
+// column offsets from _kv_off :2803): the packed row is [q (H·hd) | k (Hkv·hd)
+// | v (Hkv·hd)], so the QKV GEMM writes (H + 2·Hkv)·hd columns and query head
+// h reads K and V of group h·Hkv/H. Nothing is repeated in device memory: a
+// block stages its group's K and V as the MHA core stages its head's, so the
+// core's work and shared memory do not change; the QKV GEMM shrinks with the
+// K and V columns (by a third at Hkv = H/4). kv_heads == heads is K1.
 #include "attention.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
@@ -33,12 +41,13 @@ extern "C" int vitax_ln_qkvo_attention_fwd(const void* x, const void* gamma, con
                                            const void* wqkv, const void* bqkv, const void* wo,
                                            const void* bo, void* xn, void* qkv, void* attn,
                                            void* out, int b, int spq, int d, int seq_len,
-                                           int heads, int head_dim, float eps, float scale,
-                                           void* stream) {
+                                           int heads, int kv_heads, int head_dim, float eps,
+                                           float scale, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
+  const int width = (heads + 2 * kv_heads) * head_dim;  // the packed qkv row
   auto* xnb = static_cast<bf16*>(xn);
   auto* qkvb = static_cast<bf16*>(qkv);
   auto* attnb = static_cast<bf16*>(attn);
@@ -48,12 +57,13 @@ extern "C" int vitax_ln_qkvo_attention_fwd(const void* x, const void* gamma, con
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm<vitax::kBias>(xnb, static_cast<const bf16*>(wqkv),
                                        static_cast<const float*>(bqkv), nullptr, qkvb, n,
-                                       3 * hhd, d, st);
+                                       width, d, st);
   if (e != cudaSuccess) return e;
-  if (n > 0) {
-    e = vitax::launch_attention_core_hd(qkvb, attnb, b, spq, seq_len, heads, head_dim, scale, st);
-    if (e != cudaSuccess) return e;
-  }
+  const vitax::AttnGeom g{qkvb, static_cast<size_t>(width), spq, qkvb,
+                          static_cast<size_t>(width), spq, hhd, hhd + kv_heads * head_dim,
+                          heads, kv_heads, b, seq_len, scale};
+  e = vitax::launch_attention_core_geom(g, head_dim, attnb, st);
+  if (e != cudaSuccess) return e;
   return vitax::launch_gemm<vitax::kBias>(attnb, static_cast<const bf16*>(wo),
                                           static_cast<const float*>(bo), nullptr,
                                           static_cast<bf16*>(out), n, d, hhd, st);

@@ -1,0 +1,93 @@
+// K8's W8A8 tier, the rect fused attention half with int8 projections:
+// replaces _ln_qkvo_rect_fwd_int8_kernel (vitax/ops/pallas_kernels.py:4067),
+// the int8 branch of fused_ln_qkvo_attention_rect (:4410, pallas_call at
+// :4447). K3's arithmetic on K8's row sets (:4076-4109):
+//
+//   xqc, sxc = quant_rows(LN(xc)),  xq, sx = quant_rows(LN(x))   fp32 LN out
+//   q    = bf16(f32(xqc Wq8) sxc swq + bq)      Q columns of Wqkv, per column
+//   kv   = bf16(f32(xq Wkv8) sx swkv + bkv)     K and V columns
+//   per head: K1's core over the spq keys, attn = p·v in fp32 (never bf16)
+//   aq, sa = quant_rows(attn)
+//   out  = bf16(f32(aq Woq) sa swo + bo)       [B, cpq, D], no residual
+//
+// Per-column codes and scales do not depend on the other columns, so
+// quantizing Wqkv whole (K3's weight quantization, quant.cuh, written [N, K])
+// gives the codes vitax's split Wq and Wkv get: the Q GEMM reads rows
+// [0, H·hd) of the transposed codes and the KV GEMM rows [H·hd, 3·H·hd), both
+// contiguous, with the matching slices of the scales and biases; K3 and K8
+// hold the same weight codes. Row scales are per row, so the gathered rows'
+// codes, and every output row, equal K3's for the same tokens.
+//
+// Bound on the H100: the s8 projections on the tensor cores (mma.sync,
+// gemm.cuh) and the core (attention.cuh, its rect geometry). Design: K3's
+// launches on the two row sets, nine on one stream after the weights'
+// quantization (LN + quant of xc and of x, the two s8 projections, the core,
+// the row quantizer over attn, the s8 out GEMM); xqc, xq, q, kv, fp32 attn
+// and aq go through device memory.
+#include "attention.cuh"
+#include "gemm.cuh"
+#include "layernorm.cuh"
+
+// Inputs xc bf16 [b·cpq, d], x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16
+// [d, 3hhd], bqkv [3hhd], wo bf16 [hhd, d], bo [d]; output out bf16 [b·cpq, d].
+// Scratch: w8t int8 [3hhd, d], sw [3hhd], wo8t int8 [d, hhd], swo [d], xqc
+// int8 [b·cpq, d], sxc [b·cpq], xq int8 [b·spq, d], sx [b·spq], q bf16
+// [b·cpq, hhd], kv bf16 [b·spq, 2hhd], attn fp32 [b·cpq, hhd], aq int8
+// [b·cpq, hhd], sa [b·cpq].
+extern "C" int vitax_ln_qkvo_attention_rect_int8_fwd(
+    const void* xc, const void* x, const void* gamma, const void* beta, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo,
+    void* xqc, void* sxc, void* xq, void* sx, void* q, void* kv, void* attn, void* aq, void* sa,
+    void* out, int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim, float eps,
+    float scale, void* stream) {
+  using vitax::bf16;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int nc = b * cpq;
+  const int n = b * spq;
+  const int hhd = heads * head_dim;
+  if (nc == 0) return cudaSuccess;
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* be = static_cast<const float*>(beta);
+  const auto* bias = static_cast<const float*>(bqkv);
+  auto* w8 = static_cast<int8_t*>(w8t);
+  auto* swf = static_cast<float*>(sw);
+  auto* xqci = static_cast<int8_t*>(xqc);
+  auto* sxcf = static_cast<float*>(sxc);
+  auto* xqi = static_cast<int8_t*>(xq);
+  auto* sxf = static_cast<float*>(sx);
+  auto* qb = static_cast<bf16*>(q);
+  auto* kvb = static_cast<bf16*>(kv);
+  auto* attnf = static_cast<float*>(attn);
+  auto* aqi = static_cast<int8_t*>(aq);
+  auto* saf = static_cast<float*>(sa);
+  cudaError_t e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wqkv), w8, swf, d,
+                                                    3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8t),
+                                        static_cast<float*>(swo), hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_layer_norm_quant<false>(static_cast<const bf16*>(xc), g, be, xqci, sxcf,
+                                            nullptr, nc, d, eps, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_layer_norm_quant<false>(static_cast<const bf16*>(x), g, be, xqi, sxf, nullptr,
+                                            n, d, eps, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqci, w8, sxcf, swf, bias, nullptr, nullptr, qb,
+                                            nullptr, nc, hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, w8 + static_cast<size_t>(hhd) * d, sxf,
+                                            swf + hhd, bias + hhd, nullptr, nullptr, kvb, nullptr,
+                                            n, 2 * hhd, d, st);
+  if (e != cudaSuccess) return e;
+  const vitax::AttnGeom geom{qb,  static_cast<size_t>(hhd), cpq,   kvb, 2 * static_cast<size_t>(hhd),
+                             spq, 0,                         hhd,   heads, heads,
+                             b,   seq_len,                   scale};
+  e = vitax::launch_attention_core_geom(geom, head_dim, attnf, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_rows(static_cast<const float*>(attnf), aqi, saf, nc, hhd, st);
+  if (e != cudaSuccess) return e;
+  return vitax::launch_gemm_s8<vitax::kS8Bf16>(
+      aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
+      static_cast<const float*>(bo), nullptr, nullptr, static_cast<bf16*>(out), nullptr, nc, d,
+      hhd, st);
+}

@@ -33,7 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "vitax_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "vitax_ln_mlp_fwd": [_P] * 10 + [_I, _I, _I, _F, _P],
-    "vitax_ln_qkvo_attention_fwd": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_fwd": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "vitax_layer_norm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
     "vitax_ln_mlp_bwd": [_P] * 20 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_qkvo_attention_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
@@ -43,6 +43,8 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_int8_bwd": [_P] * 41 + [_I] * 8 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int8_ho_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_mlp_int8_ho_fwd": [_P] * 19 + [_I] * 3 + [_F, _P],
+    "vitax_ln_qkvo_attention_rect_fwd": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_rect_int8_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {

@@ -1,0 +1,620 @@
+"""Residual ViT (Res-ViT), inference path (counterpart of
+vitax/models/resvit.py).
+
+Parameters are a plain dict in vitax's pytree layout: per-layer dicts in a
+list (block heads carry `router` and `approximators`), `[in, out]` linear
+kernels, the patch conv in HWIO. `params_from_jax` takes vitax's tree as
+numpy arrays. The forward is vitax's `_apply_loop` with `train=False`: a
+router at each block head picks, per token, the layers of its block that run
+the full transformer block (argmax routing); the others take the low-rank
+approximator of their path id. With `compact_capacity` the routed layers run
+only ceil(C·N) tokens ranked active first (`compact_routed_block`): on the
+card the attention's query rows run through the rect kernel (K8) and the MLP
+half on the gathered rows.
+
+On CUDA with `fused_qkv` and `fused_qkvo` the attention half is one kernel:
+K1 (K7 with n_kv_heads < n_heads, K3 with `int8_attn`), K8 for the compacted
+rows; `fused_mlp` takes the MLP half to K2 (K4 with `int8_mlp`); LayerNorms
+elsewhere (router, final norm, the plain MLP half) take the LN kernel. With
+them off it is plain PyTorch ops.
+
+Not here yet (ROADMAP Queue 1 item 10, Res-ViT training): the train mode
+(Gumbel routing, the teacher path, the distill loss), `active_loss`,
+`trainable_mask`, the stacked scan layout (`_apply_scan`,
+`stack_params`/`unstack_params`) and remat; they raise where they would take
+effect.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from vitax_torch.core.config import ResViTConfig
+from vitax_torch.models.resvit_utils import lra_path_ids, path_id_weights
+from vitax_torch.ops import cuda_kernels as ck
+from vitax_torch.ops.attention import multi_head_attention
+from vitax_torch.ops.common import matmul_f32
+from vitax_torch.ops.layernorm import layer_norm
+from vitax_torch.ops.mlp import gelu_exact
+from vitax_torch.ops.patchify import patchify_matmul
+
+Params = Dict[str, Any]
+
+_TRAINING = ("Res-ViT training (the Gumbel router, the teacher path, the "
+             "distill loss) is not ported yet: ROADMAP Queue 1 item 10")
+
+
+# ---------------------------------------------------------------------------
+# Layer roles (res-vit/model.py:394-412)
+# ---------------------------------------------------------------------------
+
+def layer_roles(cfg: ResViTConfig) -> List[Dict[str, int]]:
+    """Static per-layer routing metadata: plain vs routed, block head/pos."""
+    roles = []
+    for lid in range(cfg.n_layers):
+        if not cfg.use_reslr or lid < cfg.dynamic_start_layer:
+            roles.append({"routed": False})
+            continue
+        off = lid - cfg.dynamic_start_layer
+        roles.append({
+            "routed": True,
+            "is_block_head": off % cfg.block_size == 0,
+            "block_id": off // cfg.block_size,
+            "block_pos": off % cfg.block_size,
+        })
+    return roles
+
+
+# ---------------------------------------------------------------------------
+# Init: vitax's shapes and distributions, drawn on the host from a
+# torch.Generator (other numbers than jax.random's for one seed)
+# ---------------------------------------------------------------------------
+
+def _uniform(gen, shape, bound):
+    return torch.empty(shape).uniform_(-bound, bound, generator=gen)
+
+
+def _linear_init(gen, d_in, d_out):
+    """torch nn.Linear default: U(±1/√d_in) for weight and bias."""
+    bound = 1.0 / math.sqrt(d_in)
+    return {"kernel": _uniform(gen, (d_in, d_out), bound),
+            "bias": _uniform(gen, (d_out,), bound)}
+
+
+def _normal_linear(gen, d_in, d_out, std=0.01, bias=False):
+    p = {"kernel": torch.randn((d_in, d_out), generator=gen) * std}
+    if bias:
+        p["bias"] = torch.zeros(d_out)
+    return p
+
+
+def _ln_init(d):
+    return {"scale": torch.ones(d), "bias": torch.zeros(d)}
+
+
+def init_router(gen: torch.Generator, cfg: ResViTConfig) -> Params:
+    """RouterModule params (res-vit/model.py:146-167), with the keep-biased
+    final-layer init: pass-path bias 0.0, keep-path bias 5.0."""
+    d, hd, bs = cfg.dim, cfg.dynamic_router_hdim, cfg.block_size
+    out_final = _normal_linear(gen, hd // 2, bs * 2, std=0.01, bias=True)
+    out_final["bias"] = torch.tensor([0.0, 5.0]).repeat(bs)
+    return {
+        "in_norm": _ln_init(d),
+        "in_proj": _linear_init(gen, d, hd),
+        "out1": _linear_init(gen, 2 * hd, hd),
+        "out2": _linear_init(gen, hd, hd // 2),
+        "out3": out_final,
+    }
+
+
+def init_approximators(gen: torch.Generator, cfg: ResViTConfig) -> Params:
+    """Stacked LowRankApproximators: E = 2^block_size slots, each N(0, 0.01)
+    down/up with no bias (res-vit/model.py:320-347)."""
+    e, d, r = 2 ** cfg.block_size, cfg.dim, cfg.low_rank_dim
+    return {"down": torch.randn((e, d, r), generator=gen) * 0.01,
+            "up": torch.randn((e, r, d), generator=gen) * 0.01}
+
+
+def init_layer(gen: torch.Generator, cfg: ResViTConfig, role: Dict) -> Params:
+    d, m = cfg.dim, cfg.mlp_dim
+    kv_dim = cfg.head_dim * (cfg.n_kv_heads or cfg.n_heads)
+    p: Params = {
+        "attention_norm": _ln_init(d),
+        "ffn_norm": _ln_init(d),
+        "attention": {
+            "wq": _linear_init(gen, d, d),
+            "wk": _linear_init(gen, d, kv_dim),
+            "wv": _linear_init(gen, d, kv_dim),
+            "wo": _linear_init(gen, d, d),
+        },
+        "feed_forward": {
+            "fc1": _linear_init(gen, d, m),
+            "fc2": _linear_init(gen, m, d),
+        },
+    }
+    if cfg.use_lora:
+        r = cfg.lora_rank
+        for name, width in (("q", d), ("k", kv_dim), ("v", kv_dim)):
+            p["attention"][f"lora_{name}"] = {
+                "a": _normal_linear(gen, d, r),
+                "b": _normal_linear(gen, r, width)}
+    if role.get("routed") and role.get("is_block_head"):
+        p["router"] = init_router(gen, cfg)
+        p["approximators"] = init_approximators(gen, cfg)
+    return p
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init_params(gen: torch.Generator, cfg: ResViTConfig,
+                device: torch.device | str = "cpu") -> Params:
+    """Random parameters in vitax's layout and distributions (init_params),
+    drawn on the host from `gen`, then moved in cfg.param_dtype."""
+    d = cfg.dim
+    ph, pw = cfg.patch_size
+    roles = layer_roles(cfg)
+    bound = 1.0 / math.sqrt(ph * pw * 3)
+    params = {
+        "embedding": {"kernel": _uniform(gen, (ph, pw, 3, d), bound),
+                      "bias": _uniform(gen, (d,), bound)},
+        "cls_token": torch.zeros((1, 1, d)),
+        "pos_embedding": torch.randn((1, cfg.num_patches + 1, d),
+                                     generator=gen),
+        "layers": [init_layer(gen, cfg, roles[i])
+                   for i in range(cfg.n_layers)],
+        "norm": _ln_init(d),
+        "classifier": _linear_init(gen, d, cfg.num_classes),
+    }
+    return _tree_map(lambda t: t.to(device=device, dtype=cfg.param_dtype),
+                     params)
+
+
+def params_from_jax(tree: Params, device: torch.device | str = "cpu"
+                    ) -> Params:
+    """vitax's Res-ViT parameter pytree (numpy arrays, e.g.
+    `jax.tree.map(np.asarray, params)`), in its per-layer list layout, →
+    this package's parameters (the same keys and shapes)."""
+    if isinstance(tree.get("layers"), dict):
+        raise ValueError(
+            "params are in vitax's pre-stacked scan layout; convert them with "
+            "vitax.models.resvit.unstack_params first (the port has the "
+            "per-layer list layout only)")
+    return _tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+# ---------------------------------------------------------------------------
+
+def _linear(x: torch.Tensor, p: Params, dtype=None) -> torch.Tensor:
+    """x @ kernel (+ bias): fp32 products of dtype values, the bias added in
+    fp32, then dtype (vitax's einsum with preferred_element_type=f32)."""
+    dt = dtype or x.dtype
+    y = matmul_f32(x.to(dt), p["kernel"].to(dt))
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(dt)
+
+
+def _lora(x, p):
+    return _linear(_linear(x, p["a"]), p["b"])
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B,S,Hkv,Hd] → [B,S,Hkv*n_rep,Hd] (res-vit/model_utils.py:3-12)."""
+    if n_rep == 1:
+        return x
+    return x.repeat_interleave(n_rep, dim=2)
+
+
+def _kv_heads(cfg: ResViTConfig) -> int:
+    return cfg.n_kv_heads or cfg.n_heads
+
+
+def attention(x: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
+    """Self-attention of the LN'd input, fp32 softmax (res-vit/model.py:
+    237-299): the unfused path. vitax's fused dispatch here (its K9/K10
+    kernels, for fused_qkv without fused_qkvo) is not ported and raises."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, _kv_heads(cfg), cfg.head_dim
+    if cfg.fused_qkv and hkv == h:
+        wqkv = torch.empty((x.shape[-1], 3 * h * hd), device="meta")
+        if ck.qkv_attention_supported(x, wqkv, h):
+            raise NotImplementedError(
+                "fused_qkv without the LN/out-projection fusion reaches "
+                "vitax's fused_qkvo_attention / fused_qkv_attention (K9, K10), "
+                "which have no Hopper kernels yet (ROADMAP Queue 2)")
+    q = _linear(x, p["wq"])
+    k = _linear(x, p["wk"])
+    v = _linear(x, p["wv"])
+    if cfg.use_lora and "lora_q" in p:
+        q = q + _lora(x, p["lora_q"])
+        k = k + _lora(x, p["lora_k"])
+        v = v + _lora(x, p["lora_v"])
+    q = q.reshape(b, s, h, hd)
+    k = _repeat_kv(k.reshape(b, s, hkv, hd), h // hkv)
+    v = _repeat_kv(v.reshape(b, s, hkv, hd), h // hkv)
+    out = multi_head_attention(q, k, v, use_kernels=cfg.use_pallas)
+    return _linear(out.reshape(b, s, h * hd), p["wo"])
+
+
+def feed_forward(x: torch.Tensor, p: Params) -> torch.Tensor:
+    return _linear(gelu_exact(_linear(x, p["fc1"])), p["fc2"])
+
+
+def _qkvo_weights(p: Params, cfg: ResViTConfig, dt):
+    """The merged [D, (H + 2·Hkv)·Hd] qkv weight with LoRA folded exactly
+    (W_eff = W + A·B, A·B in fp32, added in the base weight's dtype), its
+    fp32 bias, and the out-projection (vitax's _qkvo_weights)."""
+    ap = p["attention"]
+    ws = [ap[n]["kernel"] for n in ("wq", "wk", "wv")]
+    if cfg.use_lora and "lora_q" in ap:
+        ws = [w + matmul_f32(ap[n]["a"]["kernel"], ap[n]["b"]["kernel"])
+              .to(w.dtype)
+              for w, n in zip(ws, ("lora_q", "lora_k", "lora_v"))]
+    wqkv = torch.cat(ws, dim=1).to(dt)
+    bqkv = torch.cat([ap[n]["bias"] for n in ("wq", "wk", "wv")]).float()
+    return (wqkv, bqkv, ap["wo"]["kernel"].to(dt).contiguous(),
+            ap["wo"]["bias"].float())
+
+
+def _pad_rows(t: torch.Tensor) -> torch.Tensor:
+    """[B, S, D] zero-padded to a multiple of 8 rows (the kernels' spq)."""
+    s = t.shape[1]
+    return F.pad(t, (0, 0, 0, (s + 7) // 8 * 8 - s)).contiguous()
+
+
+def _fused_attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig
+                          ) -> Optional[torch.Tensor]:
+    """LN + qkv (LoRA folded) + attention + out-projection in one kernel for
+    the pre-LN input x: K1, K7 with GQA, K3 with int8_attn. Returns the
+    half-block output without the residual, or None when gated off."""
+    if not (cfg.fused_qkv and cfg.fused_qkvo):
+        return None
+    hkv = _kv_heads(cfg)
+    b, s, d = x.shape
+    dt = x.dtype
+    wqkv, bqkv, wo, bo = _qkvo_weights(p, cfg, dt)
+    if not ck.qkv_attention_supported(x, wqkv, cfg.n_heads, hkv):
+        return None
+    if cfg.int8_attn and hkv != cfg.n_heads:
+        raise NotImplementedError(
+            "int8 attention with n_kv_heads < n_heads: K3's GQA branch has no "
+            "Hopper kernel yet (ROADMAP Queue 2, K7's int8 tier)")
+    args = (_pad_rows(x), p["attention_norm"]["scale"].float(),
+            p["attention_norm"]["bias"].float(), wqkv, bqkv, wo, bo,
+            cfg.norm_eps, s, cfg.n_heads, cfg.head_dim)
+    if cfg.int8_attn:
+        out = ck.fused_ln_qkvo_attention_int8(
+            *args, int8_grad=cfg.int8_attn_grad, int8_dw=cfg.int8_dw)
+    else:
+        out = ck.fused_ln_qkvo_attention(*args, kv_heads=hkv)
+    return out[:, :s].to(dt)
+
+
+def _fused_attention_half_rect(x: torch.Tensor, xc: torch.Tensor, p: Params,
+                               cfg: ResViTConfig) -> Optional[torch.Tensor]:
+    """The rect attention half (K8) for the compaction path: Q, the core's
+    query rows and the out-projection on the gathered rows xc [B, cap, D],
+    K and V from all rows x [B, N, D]. Returns the output for the xc rows
+    without the residual, or None when gated off (GQA declines, as vitax's:
+    the square K7 then runs and its rows are gathered)."""
+    if not (cfg.fused_qkv and cfg.fused_qkvo):
+        return None
+    if _kv_heads(cfg) != cfg.n_heads:
+        return None
+    s, cap = x.shape[1], xc.shape[1]
+    dt = x.dtype
+    wqkv, bqkv, wo, bo = _qkvo_weights(p, cfg, dt)
+    xp, xcp = _pad_rows(x), _pad_rows(xc)
+    if not ck.qkv_attention_rect_supported(xcp, xp, wqkv, cfg.n_heads):
+        return None
+    rect = (ck.fused_ln_qkvo_attention_rect_int8 if cfg.int8_attn
+            else ck.fused_ln_qkvo_attention_rect)
+    out = rect(xcp, xp, p["attention_norm"]["scale"].float(),
+               p["attention_norm"]["bias"].float(), wqkv, bqkv, wo, bo,
+               cfg.norm_eps, s, cfg.n_heads, cfg.head_dim)
+    return out[:, :cap].to(dt)
+
+
+def _mlp_half(h: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
+    """LN2 + FFN + residual from the post-attention tensor h: row-wise, so
+    it runs the same on the full [B,N,D] tensor and on a compacted [B,C,D]
+    gather of its rows. fused_mlp: K2 (K4 with int8_mlp)."""
+    ffp = p["feed_forward"]
+    if cfg.fused_mlp:
+        w1 = ffp["fc1"]["kernel"].to(h.dtype)
+        w2 = ffp["fc2"]["kernel"].to(h.dtype)
+        if ck.ln_mlp_supported(h, w1, w2):
+            args = (h.contiguous(), p["ffn_norm"]["scale"].float(),
+                    p["ffn_norm"]["bias"].float(), w1,
+                    ffp["fc1"]["bias"].float(), w2,
+                    ffp["fc2"]["bias"].float(), cfg.norm_eps)
+            if cfg.int8_mlp:
+                return ck.fused_ln_mlp_int8(*args,
+                                            int8_grad=cfg.int8_mlp_grad,
+                                            int8_dw=cfg.int8_dw)
+            return ck.fused_ln_mlp(*args)
+    return h + feed_forward(layer_norm(h, p["ffn_norm"]["scale"],
+                                       p["ffn_norm"]["bias"], cfg.norm_eps,
+                                       use_kernels=cfg.use_pallas), ffp)
+
+
+def _attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig
+                    ) -> torch.Tensor:
+    h_att = _fused_attention_half(x, p, cfg)
+    if h_att is None:
+        h_att = attention(layer_norm(x, p["attention_norm"]["scale"],
+                                     p["attention_norm"]["bias"],
+                                     cfg.norm_eps, use_kernels=cfg.use_pallas),
+                          p["attention"], cfg)
+    return h_att
+
+
+def plain_block(x: torch.Tensor, p: Params, cfg: ResViTConfig
+                ) -> torch.Tensor:
+    """Pre-LN block (res-vit/model.py:436-444)."""
+    return _mlp_half(x + _attention_half(x, p, cfg), p, cfg)
+
+
+def _compact_rank_key(active: torch.Tensor,
+                      score: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Ranking key for capacity compaction (ascending, stable sort): actives
+    first; within actives by router keep-confidence descending when `score`
+    is given, else by original index."""
+    if score is None:
+        n = active.shape[-1]
+        return ((~active).to(torch.int32) * n
+                + torch.arange(n, dtype=torch.int32,
+                               device=active.device)[None, :])
+    return (~active).float() * 4.0 + (1.0 - score.float())
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, N, D] rows at idx [B, C] → [B, C, D] (the same bits)."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def compact_routed_block(x: torch.Tensor, p: Params, cfg: ResViTConfig,
+                         active: torch.Tensor, cap: int,
+                         score: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Routed block with token compaction: `where(active, block(x), x)` with
+    the block's query rows and MLP half run only on the top-`cap` tokens
+    ranked active first (vitax's compact_routed_block). K and V come from
+    all tokens. vitax moves the rows with one-hot matmuls (a TPU choice);
+    here they are gathered and scattered, which copies the same bits.
+    Actives beyond capacity keep x; the caller decides their fate."""
+    order = torch.argsort(_compact_rank_key(active, score), dim=-1,
+                          stable=True)
+    keep_idx = order[:, :cap]
+    kept_active = torch.gather(active, 1, keep_idx)
+    x_c = _rows(x, keep_idx)
+    h_c = None
+    if cfg.compact_attention:
+        attn_c = _fused_attention_half_rect(x, x_c, p, cfg)
+        if attn_c is not None:
+            h_c = x_c + attn_c
+    if h_c is None:
+        h_c = _rows(x + _attention_half(x, p, cfg), keep_idx)
+    out_c = _mlp_half(h_c, p, cfg).to(x.dtype)
+    vals = torch.where(kept_active[..., None], out_c, x_c)
+    return x.scatter(1, keep_idx[..., None].expand(-1, -1, x.shape[-1]),
+                     vals)
+
+
+def router_forward(x: torch.Tensor, p: Params, cfg: ResViTConfig, *,
+                   train: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """RouterModule (res-vit/model.py:175-211), eval routing (argmax).
+
+    Returns (hard_routing [B,N,bs,2], path_ids [B,N] int32, entropy scalar,
+    soft_routing [B,N,bs,2])."""
+    if train:
+        raise NotImplementedError(_TRAINING)
+    b, n, _ = x.shape
+    bs = cfg.block_size
+    res = cfg.dynamic_reserve_initials
+    e = layer_norm(x, p["in_norm"]["scale"], p["in_norm"]["bias"],
+                   cfg.norm_eps, use_kernels=cfg.use_pallas)
+    e = gelu_exact(_linear(e, p["in_proj"]))
+    patch = e[:, res:, :] if res > 0 else e
+    g = patch.float().mean(dim=1, keepdim=True).to(e.dtype)
+    fused = torch.cat([e, g.expand_as(e)], dim=-1)
+    h = gelu_exact(_linear(fused, p["out1"]))
+    h = gelu_exact(_linear(h, p["out2"]))
+    logits = _linear(h, p["out3"]).float().reshape(b, n, bs, 2)
+
+    soft = torch.softmax(logits, dim=-1)
+    probs = soft[:, res:]
+    entropy = -torch.sum(probs * torch.log(probs + 1e-8)) / (b * (n - res)
+                                                             * bs)
+    # one-hot of the argmax (ties to the first, as jnp.argmax), the reserved
+    # initials forced to keep; scalars only, so nothing waits on the card
+    # (F.one_hot and a host tensor copied in would synchronize)
+    keep = (torch.argmax(soft, dim=-1) == 1).float()
+    if res > 0:
+        keep[:, :res] = 1.0
+    hard = torch.stack([1.0 - keep, keep], dim=-1)
+    path_ids = _path_ids(keep, bs)
+    return hard, path_ids, entropy, soft
+
+
+def _path_ids(keep: torch.Tensor, bs: int) -> torch.Tensor:
+    """Keep bits [B,N,bs] packed big-endian into path ids [B,N] int32."""
+    ids = torch.zeros(keep.shape[:-1], dtype=torch.int32, device=keep.device)
+    for k, w in enumerate(path_id_weights(bs)):
+        ids += keep[..., k].to(torch.int32) * w
+    return ids
+
+
+def _isin(path_ids: torch.Tensor, ids: List[int]) -> torch.Tensor:
+    """path_ids ∈ ids, compared against python ints (no host tensor)."""
+    out = torch.zeros_like(path_ids, dtype=torch.bool)
+    for k in ids:
+        out |= path_ids == k
+    return out
+
+
+def apply_approximators(x: torch.Tensor, p: Params, path_ids: torch.Tensor,
+                        lora_ids: List[int]) -> torch.Tensor:
+    """BlockPathApproximators (res-vit/model.py:349-368): for each path id k
+    in `lora_ids`, tokens with that id get x += up_k(down_k(x)), fp32 sums
+    rounded to x.dtype after each product."""
+    dt = x.dtype
+    for k in lora_ids:
+        delta = matmul_f32(x, p["down"][k].to(dt)).to(dt)
+        delta = matmul_f32(delta, p["up"][k].to(dt)).to(dt)
+        x = torch.where((path_ids == k)[..., None], x + delta, x)
+    return x
+
+
+def active_metric(acts: torch.Tensor, target: float,
+                  reserve_initials: int) -> Dict[str, torch.Tensor]:
+    return {"non_low_rank_ratio": acts[:, reserve_initials:, :].mean(),
+            "current_target": torch.tensor(target)}
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+def embed(params: Params, images: torch.Tensor, cfg: ResViTConfig
+          ) -> torch.Tensor:
+    """Patchify + cls + pos (res-vit/model.py:602-607); NHWC input. The
+    position embedding is added over the first min(N+1, its length) tokens
+    (the reference's length-mismatch slice)."""
+    tokens = patchify_matmul(images, params["embedding"]["kernel"],
+                             params["embedding"]["bias"], dtype=cfg.dtype)
+    b, _, d = tokens.shape
+    cls = params["cls_token"].to(cfg.dtype).expand(b, 1, d)
+    x = torch.cat([cls, tokens], dim=1).float()
+    pos = params["pos_embedding"]
+    n = min(x.shape[1], pos.shape[1])
+    x[:, :n] += pos[:, :n].float()
+    return x.to(cfg.dtype)
+
+
+def apply(params: Params, images: torch.Tensor, cfg: ResViTConfig, *,
+          train: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Forward: NHWC images → (fp32 logits, aux). aux: d_loss (0 in eval),
+    r_entropy, acts [B,N,L] (per-layer keep bits, 1 on plain layers),
+    soft_probs [B,N,n_blocks·bs] (keep probabilities) or None, routing_maps
+    {block_id: [B,N,bs]}."""
+    if train:
+        raise NotImplementedError(_TRAINING)
+    if isinstance(params.get("layers"), dict):
+        raise NotImplementedError(
+            "the stacked scan layout (vitax's _apply_scan) is not ported: "
+            "ROADMAP Queue 1 item 10; pass the per-layer list layout")
+    if cfg.remat:
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: block rematerialization is not ported "
+            "(ROADMAP Queue 1 item 3)")
+    if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
+        raise NotImplementedError(
+            "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, K11)")
+    return _apply_loop(params, images, cfg)
+
+
+def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Unrolled per-layer loop (vitax's _apply_loop, eval)."""
+    roles = layer_roles(cfg)
+    lra = lra_path_ids(cfg.block_size) if cfg.use_reslr else None
+    student = embed(params, images, cfg)
+    b, n, _ = student.shape
+    dev = student.device
+
+    cap = None
+    if cfg.compact_capacity is not None and cfg.use_reslr:
+        cap = min(n, max(1, math.ceil(cfg.compact_capacity * n)))
+
+    acts: List[torch.Tensor] = []
+    soft_probs: List[torch.Tensor] = []
+    routing_maps: Dict[int, torch.Tensor] = {}
+    r_entropy = torch.zeros((), device=dev)
+    block_ctx: Dict[str, Any] = {}
+
+    for lid, role in enumerate(roles):
+        lp = params["layers"][lid]
+        if not role["routed"]:
+            student = plain_block(student, lp, cfg)
+            acts.append(torch.ones((b, n, 1), device=dev))
+            continue
+
+        if role["is_block_head"]:
+            hard, path_ids, entropy, soft = router_forward(
+                student, lp["router"], cfg)
+            block_ctx = {"hard": hard[..., 1], "path_ids": path_ids,
+                         "approx_params": lp["approximators"],
+                         "keep_score": soft[..., 1]}
+            r_entropy = r_entropy + entropy
+            routing_maps[role["block_id"]] = block_ctx["hard"]
+            soft_probs.append(soft[..., 1])
+
+        pos = role["block_pos"]
+        w = block_ctx["hard"][:, :, pos:pos + 1]
+        lora_ids, trans_ids, _ = lra[pos]
+        path_ids = block_ctx["path_ids"]
+        attn_mask = _isin(path_ids, trans_ids)[..., None]
+        if cap is not None:
+            active = attn_mask[..., 0]
+            score = None
+            if cfg.compact_demote_overflow:
+                # rank actives by keep-confidence (reserved initials pinned
+                # first); an overflow token has its path bit cleared, so it
+                # takes the approximator of its executed path (vitax's
+                # demotion)
+                score = block_ctx["keep_score"][:, :, pos]
+                if cfg.dynamic_reserve_initials > 0:
+                    pinned = (torch.arange(n, device=dev)[None, :]
+                              < cfg.dynamic_reserve_initials)
+                    score = torch.where(pinned, torch.full_like(score, 2.0),
+                                        score)
+                key = _compact_rank_key(active, score)
+                rank = torch.argsort(torch.argsort(key, dim=-1, stable=True),
+                                     dim=-1, stable=True)
+                overflow = active & (rank >= cap)
+                wpos = int(path_id_weights(cfg.block_size)[pos])
+                path_ids = path_ids - wpos * overflow.to(torch.int32)
+                block_ctx["path_ids"] = path_ids
+            merged = compact_routed_block(student, lp, cfg, active, cap,
+                                          score)
+        else:
+            merged = torch.where(attn_mask, plain_block(student, lp, cfg),
+                                 student)
+        student = apply_approximators(merged, block_ctx["approx_params"],
+                                      path_ids, lora_ids)
+        acts.append(w)
+
+    student = layer_norm(student, params["norm"]["scale"],
+                         params["norm"]["bias"], cfg.norm_eps,
+                         use_kernels=cfg.use_pallas)
+    logits = _linear(student[:, 0].float(), params["classifier"],
+                     dtype=torch.float32)
+    aux: Dict[str, Any] = {
+        "d_loss": torch.zeros((), device=dev),
+        "r_entropy": r_entropy,
+        "acts": torch.cat(acts, dim=-1),
+        "soft_probs": torch.cat(soft_probs, dim=-1) if soft_probs else None,
+        "routing_maps": routing_maps,
+    }
+    return logits, aux
+
+
+def apply_nchw(params: Params, images_nchw: torch.Tensor, cfg: ResViTConfig,
+               **kw):
+    return apply(params, images_nchw.permute(0, 2, 3, 1), cfg, **kw)

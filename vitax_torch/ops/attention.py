@@ -23,6 +23,24 @@ def softmax_fp32(scores: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+            ) -> torch.Tensor:
+    """q,k,v: [B, S, H, Hd] → [B, S, H, Hd]. Softmax in fp32."""
+    out = mha_ref_bhsd(*(t.transpose(1, 2) for t in (q, k, v)))
+    return out.transpose(1, 2)
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """[B,S,H,Hd]³ → [B,S,H,Hd] (vitax's multi_head_attention)."""
+    if _use_kernels(use_kernels, q) and q.is_cuda:
+        raise NotImplementedError(
+            "flash_attention has no Hopper kernel yet (ROADMAP Queue 2, K13); "
+            "run with the fused attention kernel (fused_qkv) or with "
+            "use_pallas=False / --no-pallas")
+    return mha_ref(q, k, v)
+
+
 def mha_ref_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                  ) -> torch.Tensor:
     """q,k,v: [B, H, S, Hd] → [B, H, S, Hd]. Softmax in fp32."""

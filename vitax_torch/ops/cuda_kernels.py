@@ -27,6 +27,13 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   `_ln_qkvo_fwd_int8_ho_kernel` :3669 (K5)
 - `fused_ln_mlp_int8_ho` -> ln_mlp_int8_ho.cu -> `_ln_mlp_fwd_int8_ho_kernel`
   :3732 (K5)
+- `fused_ln_qkvo_attention_gqa` -> ln_qkvo_attention.cu with kv_heads < heads
+  -> the `kv_heads` branch of `_ln_qkvo_fwd_kernel` (`_kv_off` :2803, K7);
+  `fused_ln_qkvo_attention(..., kv_heads=)` routes to it
+- `fused_ln_qkvo_attention_rect` -> ln_qkvo_attention_rect.cu ->
+  `_ln_qkvo_rect_fwd_kernel` :4033 (K8)
+- `fused_ln_qkvo_attention_rect_int8` -> ln_qkvo_attention_rect_int8.cu ->
+  `_ln_qkvo_rect_fwd_int8_kernel` :4067 (K8, W8A8)
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -36,7 +43,9 @@ wrappers go through a `torch.autograd.Function` (`LayerNormFn`,
 whose backward is the matching `*_bwd` wrapper: the int8 one under
 `int8_grad` (its `int8_dw` variant under `int8_dw`), else the bf16 one; the
 int8 block handoff is `FusedBlockInt8HandoffFn`, whose backward is the two
-int8 backwards. As vitax's custom VJPs, each Function
+int8 backwards. K8's Function, `FusedLnQkvoAttentionRectFn`, has no backward
+kernel yet and raises in its backward; K7 under autograd raises at once (both
+wait for Res-ViT training, ROADMAP Queue 2). As vitax's custom VJPs, each Function
 saves only its inputs and recomputes the rest in the backward; its grads
 come back in the dtypes of the Pallas VJPs (weight grads in the weight's
 dtype, LN and bias grads in fp32).
@@ -434,16 +443,22 @@ def attention_bwd_smem_bytes(spq: int, head_dim: int, warps: int = 1) -> int:
     return 2 * rows * head_dim * 2 + warps * per_warp
 
 
-def qkv_attention_supported(x, wqkv, heads) -> bool:
+def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     """Gate of the fused attention half: x [B, S, D] (S padded to spq =
-    round_up(S, 8) by the caller), merged wqkv [D, 3·H·Hd]."""
+    round_up(S, 8) by the caller), merged wqkv [D, (H + 2·Hkv)·Hd] with
+    Hkv = kv_heads (default heads). Unlike vitax's gate
+    (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0, where
+    query heads would not split evenly into kv groups."""
     if x.ndim != 3 or wqkv.ndim != 2:
         return False
     b, s, d = x.shape
-    if wqkv.shape[0] != d or wqkv.shape[1] % (3 * heads):
+    kv_heads = kv_heads or heads
+    if kv_heads <= 0 or heads % kv_heads:
         return False
-    hhd = wqkv.shape[1] // 3
-    hd = hhd // heads
+    if wqkv.shape[0] != d or wqkv.shape[1] % (heads + 2 * kv_heads):
+        return False
+    hd = wqkv.shape[1] // (heads + 2 * kv_heads)
+    hhd = heads * hd
     if x.is_cuda and x.dtype != torch.bfloat16:
         return False
     spq = (s + 7) // 8 * 8
@@ -461,28 +476,44 @@ def qkv_attention_bwd_supported(x, wqkv, heads) -> bool:
     return attention_bwd_smem_bytes(spq, hd) <= SMEM_LIMIT
 
 
-def _attn_core(qkv, seq_len, heads, head_dim):
-    """qkv [B, spq, 3·H·Hd] → per-head q, k, v [B,H,spq,Hd], fp32 softmax p
-    (cols ≥ seq_len exactly 0) and the fp32 head outputs p·v, as
-    _attn_core_recompute (pallas_kernels.py:2814-2843) before its cast."""
-    b, spq, _ = qkv.shape
-    hhd = heads * head_dim
-    q, k, v = (qkv[..., i * hhd:(i + 1) * hhd]
-               .reshape(b, spq, heads, head_dim).transpose(1, 2)
-               for i in range(3))
-    s = matmul_f32(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(head_dim))
+def _split_heads(t, heads):
+    """[B, S, H·Hd] → [B, H, S, Hd]."""
+    b, s, w = t.shape
+    return t.reshape(b, s, heads, w // heads).transpose(1, 2)
+
+
+def _softmax_pv(q, k, v, seq_len):
+    """q [B,H,Sq,Hd] over keys k, v [B,H,Sk,Hd]: fp32 softmax p of q·kᵀ/√Hd
+    (key cols ≥ seq_len exactly 0) and the fp32 head outputs p·v, as
+    _attn_core_recompute (pallas_kernels.py:2814-2843) and
+    _rect_core_recompute (:3949-3974) before their casts."""
+    spq = k.shape[-2]
+    s = matmul_f32(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     if seq_len < spq:
-        col = torch.arange(spq, device=qkv.device)
+        col = torch.arange(spq, device=q.device)
         s = torch.where(col < seq_len, s, torch.full_like(s, -1e30))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e * (1.0 / e.sum(dim=-1, keepdim=True))
-    return q, k, v, p, matmul_f32(p.to(qkv.dtype), v)
+    return p, matmul_f32(p.to(v.dtype), v)
 
 
-def _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim):
+def _attn_core(qkv, seq_len, heads, head_dim, kv_heads=None):
+    """qkv [B, spq, (H + 2·Hkv)·Hd] → per-head q, k, v [B,H,spq,Hd] (k and v
+    of query head h from kv group h·Hkv/H, vitax's _kv_off :2803), fp32
+    softmax p and the fp32 head outputs p·v."""
+    kv_heads = kv_heads or heads
+    hhd, kvw = heads * head_dim, kv_heads * head_dim
+    q = _split_heads(qkv[..., :hhd], heads)
+    k, v = (_split_heads(qkv[..., hhd + i * kvw:hhd + (i + 1) * kvw], kv_heads)
+            .repeat_interleave(heads // kv_heads, dim=1) for i in range(2))
+    p, o32 = _softmax_pv(q, k, v, seq_len)
+    return q, k, v, p, o32
+
+
+def _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim, kv_heads=None):
     """xn → qkv → the attention core with bf16 head outputs o."""
     qkv = (matmul_f32(xn, wqkv) + bqkv.float()).to(xn.dtype)
-    q, k, v, p, o32 = _attn_core(qkv, seq_len, heads, head_dim)
+    q, k, v, p, o32 = _attn_core(qkv, seq_len, heads, head_dim, kv_heads)
     return q, k, v, p, o32.to(xn.dtype)
 
 
@@ -509,23 +540,33 @@ def _heads_to_rows(t):
 
 
 def fused_ln_qkvo_attention_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
-                                seq_len, heads, head_dim):
+                                seq_len, heads, head_dim, kv_heads=None):
     """LN1 → qkv → per-head softmax(qkᵀ/√hd, cols ≥ seq_len masked)·v →
     out-projection, with the TPU kernel's rounding points
-    (pallas_kernels.py:2646-2686). x [B, spq, D] → [B, spq, D], no residual."""
+    (pallas_kernels.py:2646-2686). x [B, spq, D] → [B, spq, D], no residual.
+    kv_heads < heads: the packed GQA layout (K7's twin)."""
     b, spq, d = x.shape
     xn = layer_norm_ref(x, gamma, beta, eps)
-    *_, o = _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim)
+    *_, o = _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim, kv_heads)
     attn = _heads_to_rows(o)
     return (matmul_f32(attn, wo) + bo.float()).to(x.dtype).view(b, spq, d)
 
 
+def _gqa(heads, kv_heads) -> bool:
+    return kv_heads is not None and kv_heads != heads
+
+
 def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
-                            heads, head_dim):
+                            heads, head_dim, kv_heads=None):
     """LN + QKV projection + attention core + out-projection, forward.
     x [B, spq, D] bf16 (pad rows past seq_len allowed), wqkv [D, 3·H·Hd]
     columns [q heads | k heads | v heads], wo [H·Hd, D] bf16; gamma, beta,
-    bqkv, bo fp32. Returns [B, spq, D] without the residual."""
+    bqkv, bo fp32. Returns [B, spq, D] without the residual. kv_heads <
+    heads: GQA, `fused_ln_qkvo_attention_gqa` (K7)."""
+    if _gqa(heads, kv_heads):
+        return fused_ln_qkvo_attention_gqa(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                           eps, seq_len, heads, head_dim,
+                                           kv_heads)
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
                                             eps, seq_len, heads, head_dim,
@@ -533,28 +574,8 @@ def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
     if not x.is_cuda:
         return fused_ln_qkvo_attention_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
                                            eps, seq_len, heads, head_dim)
-    dev = _check_cuda(
-        "fused_ln_qkvo_attention",
-        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
-         "wo": wo, "bo": bo},
-        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
-         "wo": _BF, "bo": _F32})
-    b, spq, d = x.shape
-    hhd = heads * head_dim
-    _check_qkvo("fused_ln_qkvo_attention", x, gamma, beta, wqkv, bqkv, wo,
-                seq_len, heads, head_dim, qkv_attention_supported)
-    _check_shape("fused_ln_qkvo_attention", "bo", bo, (d,))
-    n = b * spq
-    xn = torch.empty((n, d), dtype=_BF, device=dev)
-    qkv = torch.empty((n, 3 * hhd), dtype=_BF, device=dev)
-    attn = torch.empty((n, hhd), dtype=_BF, device=dev)
-    out = torch.empty_like(x)
-    rc = build.load().vitax_ln_qkvo_attention_fwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), xn.data_ptr(),
-        qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), b, spq, d, seq_len,
-        heads, head_dim, eps, 1.0 / math.sqrt(head_dim), _stream(dev))
-    build.check(rc, "fused_ln_qkvo_attention")
+    out = _ln_qkvo_cuda("fused_ln_qkvo_attention", x, gamma, beta, wqkv, bqkv,
+                        wo, bo, eps, seq_len, heads, head_dim, heads)
     fused_ln_qkvo_attention.launches += 1
     return out
 
@@ -562,19 +583,82 @@ def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
 fused_ln_qkvo_attention.launches = 0
 
 
-def _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, gate):
+def _ln_qkvo_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
+                  heads, head_dim, kv_heads):
+    """K1's forward launch (K7's with kv_heads < heads)."""
+    dev = _check_cuda(
+        name,
+        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
+         "wo": wo, "bo": bo},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "bo": _F32})
     b, spq, d = x.shape
     hhd = heads * head_dim
-    if (spq % 8 or not 0 < seq_len <= spq or not gate(x, wqkv, heads)
-            or hhd != wqkv.shape[1] // 3):
+    _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, qkv_attention_supported, kv_heads)
+    _check_shape(name, "bo", bo, (d,))
+    n = b * spq
+    xn = torch.empty((n, d), dtype=_BF, device=dev)
+    qkv = torch.empty((n, wqkv.shape[1]), dtype=_BF, device=dev)
+    attn = torch.empty((n, hhd), dtype=_BF, device=dev)
+    out = torch.empty_like(x)
+    rc = build.load().vitax_ln_qkvo_attention_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
+        bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), xn.data_ptr(),
+        qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), b, spq, d, seq_len,
+        heads, kv_heads, head_dim, eps, 1.0 / math.sqrt(head_dim),
+        _stream(dev))
+    build.check(rc, name)
+    return out
+
+
+def _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, gate, kv_heads=None):
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    width = (heads + 2 * (kv_heads or heads)) * head_dim
+    gate_args = (x, wqkv, heads) + ((kv_heads,) if _gqa(heads, kv_heads)
+                                    else ())
+    if (spq % 8 or not 0 < seq_len <= spq or not gate(*gate_args)
+            or wqkv.shape[1] != width):
         raise ValueError(
             f"{name}: unsupported shapes x {tuple(x.shape)} wqkv "
-            f"{tuple(wqkv.shape)} seq_len {seq_len} heads {heads} head_dim "
-            f"{head_dim}")
+            f"{tuple(wqkv.shape)} seq_len {seq_len} heads {heads} kv_heads "
+            f"{kv_heads} head_dim {head_dim}")
     for key, t, shape in (("gamma", gamma, (d,)), ("beta", beta, (d,)),
-                          ("bqkv", bqkv, (3 * hhd,)), ("wo", wo, (hhd, d))):
+                          ("bqkv", bqkv, (width,)), ("wo", wo, (hhd, d))):
         _check_shape(name, key, t, shape)
+
+
+def fused_ln_qkvo_attention_gqa_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                    seq_len, heads, head_dim, kv_heads):
+    """The twin of `fused_ln_qkvo_attention_gqa`: K1's twin on the packed
+    GQA layout."""
+    return fused_ln_qkvo_attention_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                       seq_len, heads, head_dim, kv_heads)
+
+
+def fused_ln_qkvo_attention_gqa(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                seq_len, heads, head_dim, kv_heads):
+    """K7: `fused_ln_qkvo_attention` with kv_heads < heads, wqkv [D,
+    (H + 2·Hkv)·Hd] packed [q (H·Hd) | k (Hkv·Hd) | v (Hkv·Hd)] and bqkv to
+    match; query head h attends with kv group h·Hkv/H. Forward only: its
+    backward (vitax's grouped dk/dv) comes with Res-ViT training."""
+    if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
+        raise NotImplementedError(
+            "K7 backward (GQA in K1's backward, grouped dk/dv): ROADMAP "
+            "Queue 2, with Res-ViT training")
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_gqa_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                               bo, eps, seq_len, heads,
+                                               head_dim, kv_heads)
+    out = _ln_qkvo_cuda("fused_ln_qkvo_attention_gqa", x, gamma, beta, wqkv,
+                        bqkv, wo, bo, eps, seq_len, heads, head_dim, kv_heads)
+    fused_ln_qkvo_attention_gqa.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_gqa.launches = 0
 
 
 def fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
@@ -1456,9 +1540,201 @@ def fused_block_int8_handoff_ref(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
                      int8_dw, True)
 
 
+# =============================================================================
+# K8 — the rect (compacted-Q) attention half of Res-ViT's token compaction
+# (fused_ln_qkvo_attention_rect, pallas_kernels.py:4410): LN of the cpq
+# gathered rows xc → Q, LN of all spq rows x → K and V, the core over the spq
+# keys, the out-projection, on the xc rows only; bf16 and W8A8. The same
+# output rows as K1 (K3) on x followed by a row gather, bit for bit on the
+# card. Forward only: its backward comes with Res-ViT training.
+# =============================================================================
+
+def qkv_attention_rect_supported(xc, x, wqkv, heads) -> bool:
+    """Gate of the rect half: K1's gate at x's spq (the core's shared memory
+    is that of the spq keys), and xc [B, cpq, D] on the same batch and
+    width."""
+    return (xc.ndim == 3 and qkv_attention_supported(x, wqkv, heads)
+            and xc.shape[0] == x.shape[0] and xc.shape[2] == x.shape[2]
+            and (xc.dtype == torch.bfloat16 or not xc.is_cuda))
+
+
+def _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
+                head_dim):
+    b, cpq, d = xc.shape
+    if cpq % 8 or not qkv_attention_rect_supported(xc, x, wqkv, heads):
+        raise ValueError(f"{name}: unsupported shapes xc {tuple(xc.shape)} x "
+                         f"{tuple(x.shape)} wqkv {tuple(wqkv.shape)}")
+    _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, qkv_attention_supported)
+    _check_shape(name, "bo", bo, (d,))
+
+
+def _rect_core(q, kv, seq_len, heads):
+    """q [B, cpq, H·Hd], kv [B, spq, 2·H·Hd] (K columns, then V) → the fp32
+    head outputs p·v as rows [B·cpq, H·Hd] (_rect_core_recompute,
+    pallas_kernels.py:3949-3974, before its cast)."""
+    hhd = q.shape[-1]
+    k, v = (_split_heads(kv[..., i * hhd:(i + 1) * hhd], heads)
+            for i in range(2))
+    _, o32 = _softmax_pv(_split_heads(q, heads), k, v, seq_len)
+    return _heads_to_rows(o32)
+
+
+def fused_ln_qkvo_attention_rect_ref(xc, x, gamma, beta, wqkv, bqkv, wo, bo,
+                                     eps, seq_len, heads, head_dim):
+    """K8 with the TPU kernel's rounding points (_ln_qkvo_rect_fwd_kernel,
+    pallas_kernels.py:4039-4065): q = bf16(LN(xc)·Wq + bq), kv =
+    bf16(LN(x)·Wkv + bkv) with Wq, Wkv the column slices of wqkv, the bf16
+    core, out = bf16(attn·Wo + bo). xc [B, cpq, D] → [B, cpq, D]."""
+    dt = xc.dtype
+    b, cpq, d = xc.shape
+    hhd = heads * head_dim
+    q = (matmul_f32(layer_norm_ref(xc, gamma, beta, eps), wqkv[:, :hhd])
+         + bqkv[:hhd].float()).to(dt)
+    kv = (matmul_f32(layer_norm_ref(x, gamma, beta, eps), wqkv[:, hhd:])
+          + bqkv[hhd:].float()).to(dt)
+    attn = _rect_core(q, kv, seq_len, heads).to(dt)
+    return (matmul_f32(attn, wo) + bo.float()).to(dt).view(b, cpq, d)
+
+
+def fused_ln_qkvo_attention_rect_int8_ref(xc, x, gamma, beta, wqkv, bqkv, wo,
+                                          bo, eps, seq_len, heads, head_dim,
+                                          *, scratch=None):
+    """K8's W8A8 tier with the TPU kernel's rounding points
+    (_ln_qkvo_rect_fwd_int8_kernel, pallas_kernels.py:4076-4109): K3's
+    twin on the two row sets, the weights' codes those of wqkv quantized
+    whole (per column, so the same as its slices'). `scratch` as K3's twin's,
+    xq/sx the codes of xc's rows and xqk of x's."""
+    dt = xc.dtype
+    b, cpq, d = xc.shape
+    hhd = heads * head_dim
+    w8, sw = quant_cols_host(wqkv)
+    wo8, swo = quant_cols_host(wo)
+
+    def quant_ln(t):
+        xhat, _ = _ln_stats(t.reshape(-1, d).float(), eps)
+        return quant_rows(_affine(xhat, gamma, beta))
+
+    xq, sx = quant_ln(xc)
+    xqk, sxk = quant_ln(x)
+    q = _dequant(int_mm(xq, w8[:, :hhd]), sx, sw[:hhd], bqkv[:hhd]).to(dt)
+    kv = _dequant(int_mm(xqk, w8[:, hhd:]), sxk, sw[hhd:],
+                  bqkv[hhd:]).to(dt)
+    attn = _rect_core(q.view(b, cpq, -1), kv.view(b, x.shape[1], -1),
+                      seq_len, heads)
+    aq, sa = quant_rows(attn)
+    y = _dequant(int_mm(aq, wo8), sa, swo, bo)
+    _keep(scratch, w8=(w8, sw), wo8=(wo8, swo), xq=(xq, sx), xqk=(xqk, sxk),
+          aq=(aq, sa))
+    return y.to(dt).view(b, cpq, d)
+
+
+def _rect_fwd(int8, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
+              heads, head_dim, scratch=None):
+    if _needs_grad(xc, x, gamma, beta, wqkv, bqkv, wo, bo):
+        return FusedLnQkvoAttentionRectFn.apply(xc, x, gamma, beta, wqkv, bqkv,
+                                                wo, bo, eps, seq_len, heads,
+                                                head_dim, int8)
+    args = (xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
+            head_dim)
+    if not xc.is_cuda:
+        if int8:
+            return fused_ln_qkvo_attention_rect_int8_ref(*args,
+                                                         scratch=scratch)
+        return fused_ln_qkvo_attention_rect_ref(*args)
+    name = ("fused_ln_qkvo_attention_rect_int8" if int8
+            else "fused_ln_qkvo_attention_rect")
+    _check_cuda(name, {"xc": xc, "x": x, "gamma": gamma, "beta": beta,
+                       "wqkv": wqkv, "bqkv": bqkv, "wo": wo, "bo": bo},
+                {"xc": _BF, "x": _BF, "gamma": _F32, "beta": _F32,
+                 "wqkv": _BF, "bqkv": _F32, "wo": _BF, "bo": _F32})
+    _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
+                head_dim)
+    dev = xc.device
+    b, cpq, d = xc.shape
+    spq = x.shape[1]
+    hhd = heads * head_dim
+    nc, n = b * cpq, b * spq
+    out = torch.empty_like(xc)
+    q, kv = _bf(dev, nc, hhd), _bf(dev, n, 2 * hhd)
+    lib = build.load()
+    tail = (b, cpq, spq, d, seq_len, heads, head_dim, eps,
+            1.0 / math.sqrt(head_dim), _stream(dev))
+    if int8:
+        w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
+        wo8t, swo = _i8(dev, d, hhd), _f32(dev, d)
+        xq, sx, xqk, sxk = _i8(dev, nc, d), _f32(dev, nc), _i8(dev, n, d), \
+            _f32(dev, n)
+        attn, aq, sa = _f32(dev, nc, hhd), _i8(dev, nc, hhd), _f32(dev, nc)
+        rc = lib.vitax_ln_qkvo_attention_rect_int8_fwd(*(t.data_ptr() for t in (
+            xc, x, gamma, beta, wqkv, bqkv, wo, bo, w8t, sw, wo8t, swo, xq, sx,
+            xqk, sxk, q, kv, attn, aq, sa, out)), *tail)
+        build.check(rc, name)
+        fused_ln_qkvo_attention_rect_int8.launches += 1
+        _keep(scratch, w8=(w8t.t(), sw), wo8=(wo8t.t(), swo), xq=(xq, sx),
+              xqk=(xqk, sxk), aq=(aq, sa))
+    else:
+        xnc, xn, attn = _bf(dev, nc, d), _bf(dev, n, d), _bf(dev, nc, hhd)
+        rc = lib.vitax_ln_qkvo_attention_rect_fwd(*(t.data_ptr() for t in (
+            xc, x, gamma, beta, wqkv, bqkv, wo, bo, xnc, xn, q, kv, attn,
+            out)), *tail)
+        build.check(rc, name)
+        fused_ln_qkvo_attention_rect.launches += 1
+    return out
+
+
+def fused_ln_qkvo_attention_rect(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                 seq_len, heads, head_dim):
+    """K8: the attention half for the compacted rows. xc [B, cpq, D] bf16
+    (the gathered rows, pad rows zero-filled), x [B, spq, D] bf16 (all rows,
+    padded stream), wqkv [D, 3·H·Hd], wo [H·Hd, D] bf16; gamma, beta, bqkv, bo
+    fp32. Returns [B, cpq, D] without the residual. Under autograd through
+    `FusedLnQkvoAttentionRectFn`, whose backward is not ported yet."""
+    return _rect_fwd(False, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                     seq_len, heads, head_dim)
+
+
+fused_ln_qkvo_attention_rect.launches = 0
+
+
+def fused_ln_qkvo_attention_rect_int8(xc, x, gamma, beta, wqkv, bqkv, wo, bo,
+                                      eps, seq_len, heads, head_dim, *,
+                                      scratch=None):
+    """`fused_ln_qkvo_attention_rect` with W8A8 projections (K8's int8 tier):
+    K3's quantization grid, the core bf16 with fp32 attn. `scratch`: as
+    `fused_ln_qkvo_attention_int8`'s, with xqk the codes of x's rows."""
+    return _rect_fwd(True, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                     seq_len, heads, head_dim, scratch)
+
+
+fused_ln_qkvo_attention_rect_int8.launches = 0
+
+
+class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
+    """K8 under autograd: the forward is the kernel (`int8`: its W8A8 tier);
+    the backward (vitax's _ln_qkvo_rect_bwd_kernel :4155 and its int8 variant
+    :4253) is not ported yet and raises."""
+
+    @staticmethod
+    def forward(ctx, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
+                heads, head_dim, int8):
+        fwd = (fused_ln_qkvo_attention_rect_int8 if int8
+               else fused_ln_qkvo_attention_rect)
+        return fwd(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
+                   head_dim)
+
+    @staticmethod
+    def backward(ctx, do):
+        raise NotImplementedError(
+            "K8 backward: ROADMAP Queue 2 (the rect attention half's backward "
+            "comes with Res-ViT training)")
+
+
 KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_bwd, fused_ln_mlp_bwd,
            fused_ln_qkvo_attention_int8, fused_ln_mlp_int8,
            fused_ln_qkvo_attention_int8_bwd, fused_ln_mlp_int8_bwd,
            fused_ln_qkvo_attention_int8_ho, fused_ln_mlp_int8_ho,
-           fused_ln_qkvo_attention_int8_dw_bwd, fused_ln_mlp_int8_dw_bwd)
+           fused_ln_qkvo_attention_int8_dw_bwd, fused_ln_mlp_int8_dw_bwd,
+           fused_ln_qkvo_attention_gqa, fused_ln_qkvo_attention_rect,
+           fused_ln_qkvo_attention_rect_int8)

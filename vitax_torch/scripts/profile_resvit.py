@@ -1,0 +1,128 @@
+"""Where a Res-ViT serving forward spends its time on one CUDA card.
+
+    python -m vitax_torch.scripts.profile_resvit [config ...]
+
+The b16 Res-ViT of scripts/ft_resvit.sh (`--use_lora True --lora_rank 48
+--use_reslr True --block_size 4 --dynamic_start_layer 1
+--dynamic_reserve_initials 2 --dynamic_active_target 0.4`) at 224, random
+weights from seed 0 with the routers' final biases drawn from ±0.3 (the
+init's keep bias 5.0 routes every token active), and one resident batch of
+64 Synthetic images. Configs: `dense`, `compact` (capacity 0.625),
+`dense-int8`, `compact-int8` (default: all four). For each it runs two
+warm-up forwards, then records three with torch.profiler and prints the
+wall time a forward (host clock around synchronized forwards), the device
+busy time (the sum of the kernels' device times; one stream, so they do not
+overlap) and idle share, the device time by group of kernels, and the
+largest kernels.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+from vitax_torch.core.prng import set_seed
+from vitax_torch.data import get_dataloader
+from vitax_torch.models import resvit
+from vitax_torch.resvit_eval_cli import get_eval_config
+from vitax_torch.resvit_train_cli import config_to_model_args
+
+RECIPE = ["--model-arch", "b16", "--image-size", "224", "--dataset",
+          "Synthetic", "--use_lora", "True", "--lora_rank", "48",
+          "--use_reslr", "True", "--block_size", "4", "--dynamic_start_layer",
+          "1", "--dynamic_reserve_initials", "2", "--dynamic_active_target",
+          "0.4"]
+CONFIGS = {"dense": [], "compact": ["--compact-capacity", "0.625"],
+           "dense-int8": ["--int8"],
+           "compact-int8": ["--compact-capacity", "0.625", "--int8"]}
+# kernel-name fragment -> group, first match wins
+GROUPS = [("attention_core", "attention core (K1/K3/K7/K8)"),
+          ("gemm_s8", "s8 GEMM (K3/K4/K8 int8)"),
+          ("gemm_bf16", "bf16 GEMM (K1/K7/K8)"),
+          ("layer_norm", "LN (+quant)"), ("quant", "quantizers"),
+          ("gemm", "cuBLAS GEMM (plain products)"),
+          ("sort", "sort"), ("scatter", "gather/scatter"),
+          ("gather", "gather/scatter"), ("index", "gather/scatter"),
+          ("reduce", "reductions"), ("elementwise", "elementwise"),
+          ("", "other")]
+
+
+def randomize_router_biases(params, seed: int = 9) -> None:
+    """Each router's final bias drawn from ±0.3, in place (as
+    tests/test_resvit_compact.py does): the init's keep bias 5.0 routes
+    every token active, and compaction would then only demote."""
+    g = torch.Generator().manual_seed(seed)
+    for lp in params["layers"]:
+        if "router" in lp:
+            bias = lp["router"]["out3"]["bias"]
+            bias.copy_(torch.empty(bias.shape).uniform_(-0.3, 0.3,
+                                                        generator=g))
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def profile(name: str, params, images, cfg, iters: int = 3) -> None:
+    c = cfg
+    if "--compact-capacity" in CONFIGS[name]:
+        c = c.replace(compact_capacity=0.625)
+    if "--int8" in CONFIGS[name]:
+        c = c.replace(int8_attn=True, int8_mlp=True, fused_mlp=True)
+    with torch.inference_mode():
+        for _ in range(2):
+            resvit.apply(params, images, c)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                resvit.apply(params, images, c)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in kernels) / 1e3 / iters
+    if busy == 0:
+        print(f"{name}: the profiler recorded no device time; wall "
+              f"{wall:.2f} ms a forward", flush=True)
+        return
+    groups = defaultdict(float)
+    for e in kernels:
+        key = next(g for frag, g in GROUPS if frag in e.key.lower())
+        groups[key] += _device_us(e) / 1e3 / iters
+    print(f"{name}: wall {wall:.2f} ms a forward, device busy {busy:.2f} ms, "
+          f"idle {100 * (1 - busy / wall):.1f} %; by group: " + ", ".join(
+              f"{g} {ms:.2f} ms ({100 * ms / busy:.1f} %)"
+              for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    print(f"{name}: largest kernels: " + "; ".join(
+        f"{e.key[:60]} {_device_us(e) / 1e3 / iters:.2f} ms x"
+        f"{e.count // iters}" for e in top), flush=True)
+
+
+def main(argv=None) -> None:
+    names = (argv if argv is not None else sys.argv[1:]) or list(CONFIGS)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_resvit: needs a CUDA card")
+    cfg = config_to_model_args(get_eval_config(RECIPE), "cuda")
+    params = resvit.init_params(set_seed(0), cfg, "cuda")
+    randomize_router_biases(params)
+    batch = next(iter(get_dataloader("Synthetic", split="val",
+                                     image_size=224, batch_size=64,
+                                     num_samples=64, seed=0)))
+    images = torch.from_numpy(batch.images).cuda().bfloat16()
+    print(f"profile_resvit: {torch.cuda.get_device_name(0)}, b64 @224",
+          flush=True)
+    for name in names:
+        profile(name, params, images, cfg)
+
+
+if __name__ == "__main__":
+    main()
