@@ -74,13 +74,36 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              halves); the routing maps of
              the kernel and plain paths, the share that agrees; whole-model
              logits with the kernel path's routing decisions replayed on the
-             plain path, within the bf16 band; device-timed forwards at b64.
+             plain path, within the bf16 band; device-timed forwards at b64;
+9. resvit-train — Res-ViT training through `vitax_torch.resvit_train_cli`
+             with ft_resvit.sh's model and loss flags (λa 10, λd 1, AdamW
+             lr 1e-4 wd 0.05, warmup-cosine), the routers' biases drawn as
+             in phase 8, one epoch each on Synthetic data: (a) ft_resvit.sh's
+             flags at b32 with --save-routing-viz; (b) --compact-capacity
+             0.625 --compact-warmup 2; (c) ft_resvit_fast.sh's flags at b192
+             (--int8-dw --compact-capacity 0.625 --compact-warmup 2
+             --token-keep 0.5); (d) --int8-grad --compact-capacity 0.625;
+             (e) --n_kv_heads 4 --compact-capacity 0.625; (f) the plain path.
+             The launches of every train step and eval batch against counts
+             derived from the layer roles (`_resvit_launches`: teacher and
+             student forwards, the student's backwards); full-width grads of
+             every trainable tensor for (a), (b), (c) and (e) against the plain
+             bf16 path (GRAD_BAND) or the int8 twin path (INT8_GRAD_BAND),
+             with the same Gumbel noise and kept tokens injected and the
+             routing replayed; device-timed train steps of (a)-(e) on a
+             resident batch.
 
 Phase 3 also holds the Res-ViT kernels against their twins: K7 (GQA in
 K1, 4 and 6 kv heads) at b64 spq 200; K8 (the rect attention half, bf16
 and int8) at b64 spq 200 with cpq 128 and 104 and on a ragged case, and
 against the square kernel (K1, K3) followed by the row gather, whose largest
-difference it prints (the same bits are expected).
+difference it prints (the same bits are expected); and their backwards on
+every output: K8's three (bf16, int8_grad, int8_dw; the int8 ones by codes,
+INT8_REL and the bf16 stand-in too) at b32 spq 200 cpq 128 and on a ragged
+case, K8's bf16 one also against K1's backward on all rows with do scattered
+to the kept rows plus the gather transpose (the bf16 tolerance: K1 sums a
+kept row's two dxn paths in fp32 before one LN backward); K7's at b32 spq
+200 with 4 kv heads, two launches the same bits.
 
 Phase 3 also holds the int8 kernels (K3, K4, forward and backward, their
 int8_dw backwards and K5's two halves) against their twins: forward at b64
@@ -165,10 +188,28 @@ KERNEL_INFO = {
     "fused_ln_qkvo_attention_rect_int8": (
         "vitax_torch/csrc/ln_qkvo_attention_rect_int8.cu",
         "vitax/ops/pallas_kernels.py:4067"),
+    # Res-ViT training: K8's backward (bf16, int8_grad, int8_dw) and K7's
+    # (the kv_heads branch of K1's backward)
+    "fused_ln_qkvo_attention_rect_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_rect_bwd.cu",
+        "vitax/ops/pallas_kernels.py:4155"),
+    "fused_ln_qkvo_attention_rect_int8_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_rect_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:4253"),
+    "fused_ln_qkvo_attention_rect_int8_dw_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_rect_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:4253"),
+    "fused_ln_qkvo_attention_gqa_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_bwd.cu",
+        "vitax/ops/pallas_kernels.py:2846"),
 }
 RESVIT_KERNELS = ("fused_ln_qkvo_attention_gqa",
                   "fused_ln_qkvo_attention_rect",
                   "fused_ln_qkvo_attention_rect_int8")
+RECT_BWD_KERNELS = ("fused_ln_qkvo_attention_rect_bwd",
+                    "fused_ln_qkvo_attention_rect_int8_bwd",
+                    "fused_ln_qkvo_attention_rect_int8_dw_bwd")
+TRAIN_RESVIT_KERNELS = RECT_BWD_KERNELS + ("fused_ln_qkvo_attention_gqa_bwd",)
 DW_KERNELS = ("fused_ln_qkvo_attention_int8_dw_bwd",
               "fused_ln_mlp_int8_dw_bwd")
 HO_KERNELS = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
@@ -274,7 +315,13 @@ INT8_REL = 5e-3
 CODE_BAND = {"xq": (1, 1e-3), "h1q": (2, 1e-3), "dh1q": (2, 1e-3),
              "aq": (2, 5e-3), "dqq": (2, 5e-3), "doq": (0, 0.0),
              "h1c": (2, 1e-3), "xnc": (2, 1e-3), "atc": (2, 5e-3),
-             "xq2": (2, 5e-3), "xqn": (1, 1e-3), "xqk": (1, 1e-3)}
+             "xq2": (2, 5e-3), "xqn": (1, 1e-3), "xqk": (1, 1e-3),
+             "dkvq": (2, 5e-3), "xnk": (2, 5e-3)}
+# K8's int8 backward (card test, b32 spq 200 cpq 128): dkvq quantizes the
+# core's bf16 dK/dV rows as dqq the dq rows (7.1e-4 measured); xnk folds the
+# fp32 LN output of x's rows with those rows' scales sdkv, which move where a
+# row's largest dK/dV value flipped a bf16 bit, so its share follows dkvq's,
+# not xnc's (1.37e-3 measured)
 
 
 def _expect(**launches):
@@ -560,15 +607,16 @@ def _check_int8(ck, name, label, args, outs, refs, stats):
     st_ = stats[name]
     st_["worst_rel"] = max(st_.get("worst_rel", 0.0), *r_k)
     st_["stand_in_min_rel"] = min(st_.get("stand_in_min_rel", 1.0), *reached)
-    if name in DW_KERNELS:
+    if name.endswith("_dw_bwd"):
         # the int8_grad kernel's bf16 weight grads against the int8_dw twin:
         # outside INT8_REL on dW and dWo (dW1 and dW2), or the dW is not int8
         plain_dw = getattr(ck, name.replace("_dw", ""))(*args)
-        r_bf = [_rel(plain_dw[i], refs[i]) for i in (3, 5)]
+        idx = (4, 6) if "rect" in name else (3, 5)
+        r_bf = [_rel(plain_dw[i], refs[i]) for i in idx]
         print(f"  {name:32s} {label:22s} bf16-dW kernel (int8_grad) vs "
               f"int8_dw twin, dW and dWo/dW1 and dW2 [{r_bf[0]:.2e} "
-              f"{r_bf[1]:.2e}] > {INT8_REL}; kernel vs twin [{r_k[3]:.2e} "
-              f"{r_k[5]:.2e}]", flush=True)
+              f"{r_bf[1]:.2e}] > {INT8_REL}; kernel vs twin "
+              f"[{r_k[idx[0]]:.2e} {r_k[idx[1]]:.2e}]", flush=True)
         st_["bf16_dw_min_rel"] = min(st_.get("bf16_dw_min_rel", 1.0), *r_bf)
         if min(r_bf) <= INT8_REL:
             raise AssertionError(f"{name} {label}: the bf16 weight grads land "
@@ -810,6 +858,126 @@ def check_resvit_kernels(stats):
     return stats
 
 
+# Res-ViT training at b32 (spq 200, seq 197): K8's backwards at capacity
+# 0.625 (124 rows, cpq 128; timed) and a ragged case; K7's at 4 kv heads
+RECT_BWD_CASES = [("b32 cap124 cpq128 (C 0.625)", 32, 200, 197, 124),
+                  ("ragged b3 cap37", 3, 200, 197, 37)]
+GQA_BWD_CASES = [("b32 spq200 kv4", 32, 200, 197, 4)]
+
+
+def _hold_all(name, label, outs, refs, stats):
+    """Every output of a backward kernel against its twin's (`_hold`)."""
+    if len(outs) != len(refs):
+        raise AssertionError(f"{name} {label}: {len(outs)} outputs")
+    return [f"{e:.2e}<={b:.2e}" for e, b in
+            (_hold(name, label, o, r, stats) for o, r in zip(outs, refs))]
+
+
+def check_resvit_bwd_kernels(stats):
+    """Phase 3, Res-ViT training: K8's three backwards against their twins on
+    every output (the int8 ones also by codes, INT8_REL and the bf16
+    stand-in), K8's bf16 backward against K1's backward on all rows with do
+    scattered to the kept rows plus the gather transpose; K7's backward
+    against its twin; times at b32 spq 200 (cpq 128, 4 kv heads)."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in TRAIN_RESVIT_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    for i, (label, batch, rows, seq_len, cap) in enumerate(RECT_BWD_CASES):
+        t = _inputs(batch, rows, seed=90 + i)
+        xc, idx = _rect_inputs(t, cap, seq_len, seed=100 + i)
+        g = torch.Generator(device="cuda").manual_seed(110 + i)
+        do = torch.randn(xc.shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+        do[:, cap:] = 0  # the caller cuts the pad rows off
+        args = (xc, t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                t["wo"], do, EPS, seq_len, HEADS, HEAD_DIM)
+        for name in RECT_BWD_KERNELS:
+            kern = lambda f=getattr(ck, name): f(*args)
+            plain = lambda f=getattr(ck, name + "_ref"): f(*args)
+            with torch.no_grad():
+                outs = kern()
+                torch.cuda.synchronize()
+                refs = plain()
+                errs = _hold_all(name, label, outs, refs, stats)
+                if "int8" in name:
+                    _check_int8(ck, name, label, args, outs, refs, stats)
+            del outs, refs
+            line = (f"  {name:32s} {label:28s} max|k-ref| per output "
+                    f"[{' '.join(errs)}]: ok")
+            if i == 0:
+                with torch.no_grad():
+                    k_ms = _median_ms(kern, warmup=2, iters=10)
+                    p_ms = _median_ms(plain, warmup=1, iters=5)
+                line += f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
+                stats[name].update(ms=k_ms, plain_ms=p_ms,
+                                   shape=(batch, rows, xc.shape[1]))
+            print(line, flush=True)
+        # against K1's backward on all rows: do scattered to the kept rows,
+        # dxc added back through the gather transpose
+        rows_idx = idx[..., None].expand(-1, -1, D)
+        do_full = torch.zeros_like(t["x"]).scatter(1, rows_idx, do[:, :cap])
+        with torch.no_grad():
+            rect = ck.fused_ln_qkvo_attention_rect_bwd(*args)
+            square = ck.fused_ln_qkvo_attention_bwd(
+                t["x"], *args[2:7], do_full, *args[8:])
+            if i == 0:
+                stats["fused_ln_qkvo_attention_rect_bwd"]["square_ms"] = \
+                    _median_ms(lambda: ck.fused_ln_qkvo_attention_bwd(
+                        t["x"], *args[2:7], do_full, *args[8:]),
+                        warmup=2, iters=10)
+        dx = rect[1].float().scatter_add(1, rows_idx,
+                                         rect[0][:, :cap].float())
+        diffs = []
+        for o, r in zip((dx,) + rect[2:], square):
+            err = (o.float() - r.float()).abs().max().item()
+            bound = TOL * max(1.0, r.float().abs().max().item())
+            if err > bound:
+                raise AssertionError(f"K8 backward {label}: {err} from K1's "
+                                     f"backward + gather (bound {bound})")
+            diffs.append(f"{err:.2e}<={bound:.2e}")
+        print(f"  K8 bwd vs K1 bwd + gather {label:28s} per output "
+              f"(dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) [{' '.join(diffs)}]",
+              flush=True)
+        del t, xc, do, do_full, rect, square
+        torch.cuda.empty_cache()
+    name = "fused_ln_qkvo_attention_gqa_bwd"
+    for label, batch, rows, seq_len, hkv in GQA_BWD_CASES:
+        t = _inputs(batch, rows, seed=120)
+        g = torch.Generator(device="cuda").manual_seed(121)
+        width = (HEADS + 2 * hkv) * HEAD_DIM
+        wqkv = (torch.randn((D, width), generator=g, device="cuda")
+                * D ** -0.5).to(torch.bfloat16)
+        bqkv = 0.02 * torch.randn(width, generator=g, device="cuda")
+        do = torch.randn(t["x"].shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+        args = (t["x"], t["gamma"], t["beta"], wqkv, bqkv, t["wo"], do, EPS,
+                seq_len, HEADS, HEAD_DIM, hkv)
+        kern = lambda: ck.fused_ln_qkvo_attention_gqa_bwd(*args)
+        plain = lambda: ck.fused_ln_qkvo_attention_gqa_bwd_ref(*args)
+        with torch.no_grad():
+            outs = kern()
+            again = kern()
+            torch.cuda.synchronize()
+            errs = _hold_all(name, label, outs, plain(), stats)
+            if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                raise AssertionError("K7 backward: two launches differ")
+            k_ms = _median_ms(kern, warmup=2, iters=10)
+            p_ms = _median_ms(plain, warmup=1, iters=5)
+        print(f"  {name:32s} {label:28s} max|k-ref| per output "
+              f"[{' '.join(errs)}]: ok, two launches the same bits; kernel "
+              f"{k_ms:.4f} ms  plain {p_ms:.4f} ms", flush=True)
+        stats[name].update(ms=k_ms, plain_ms=p_ms, shape=(batch, rows, hkv))
+        del t, outs, again
+        torch.cuda.empty_cache()
+    print(f"  K8 bwd at {RECT_BWD_CASES[0][0]}: bf16 "
+          f"{stats['fused_ln_qkvo_attention_rect_bwd']['ms']:.4f} ms against "
+          f"K1 bwd on all rows "
+          f"{stats['fused_ln_qkvo_attention_rect_bwd']['square_ms']:.4f} ms",
+          flush=True)
+    return stats
+
+
 class _Tee(io.TextIOBase):
     def __init__(self, *streams):
         self.streams = streams
@@ -1048,21 +1216,26 @@ def _int8_twins(ck):
     and the autograd Functions call by their module names, are swapped for
     routes to their plain twins; the Functions keep their tier logic (int8
     forward; int8, int8_dw or bf16 backward; K5's block)."""
-    saved = {n: getattr(ck, n) for n in INT8_KERNELS}
+    rect = ("fused_ln_qkvo_attention_rect_int8",) + RECT_BWD_KERNELS[1:]
+    saved = {n: getattr(ck, n) for n in INT8_KERNELS + rect}
 
-    def route(name, fn_cls):
+    def route(name, fn_cls, n_tensors, *tail):
         ref = getattr(ck, name + "_ref")
 
         def fwd(*args, int8_grad=False, int8_dw=False):
-            if ck._needs_grad(*args[:7]):
-                return fn_cls.apply(*args, True, int8_grad, int8_dw)
+            if ck._needs_grad(*args[:n_tensors]):
+                return fn_cls.apply(*args, True, int8_grad, int8_dw, *tail)
             return ref(*args)
         return fwd
 
     ck.fused_ln_qkvo_attention_int8 = route("fused_ln_qkvo_attention_int8",
-                                            ck.FusedLnQkvoAttentionFn)
-    ck.fused_ln_mlp_int8 = route("fused_ln_mlp_int8", ck.FusedLnMlpFn)
-    for name in INT8_KERNELS[2:]:  # the backwards and K5's halves
+                                            ck.FusedLnQkvoAttentionFn, 7,
+                                            None)
+    ck.fused_ln_mlp_int8 = route("fused_ln_mlp_int8", ck.FusedLnMlpFn, 7)
+    ck.fused_ln_qkvo_attention_rect_int8 = route(
+        "fused_ln_qkvo_attention_rect_int8", ck.FusedLnQkvoAttentionRectFn, 8)
+    # the backwards and K5's halves
+    for name in INT8_KERNELS[2:] + RECT_BWD_KERNELS[1:]:
         setattr(ck, name, getattr(ck, name + "_ref"))
     try:
         yield
@@ -1566,6 +1739,352 @@ def run_resvit_slice():
     return counts, rates, fwd
 
 
+# Phase 9: Res-ViT training with scripts/ft_resvit.sh's model and loss flags
+RESVIT_MODEL = ["--model-arch", "b16", "--image-size", "224", "--use_lora",
+                "True", "--lora_rank", "48", "--use_reslr", "True",
+                "--block_size", "4", "--dynamic_start_layer", "1",
+                "--dynamic_reserve_initials", "2", "--dynamic_active_target",
+                "0.4"]
+RESVIT_TRAIN_ARGS = RESVIT_MODEL + [
+    "--dataset", "Synthetic", "--num-workers", "4", "--seed", "0", "--lr",
+    "1e-4", "--wd", "0.05", "--lr-scheduler", "cosine_with_warmup",
+    "--warmup-steps", "2", "--initial-lambda-active", "10",
+    "--initial-lambda-distill", "1", "--print-freq", "1"]
+COMPACT = ["--compact-capacity", "0.625"]
+# (label, batch, steps, flags): one epoch of `steps` full batches each
+RESVIT_TRAIN_RUNS = [
+    ("(a) ft_resvit.sh", 32, 4, ["--save-routing-viz"]),
+    ("(b) compact 0.625, warmup 2", 32, 4, COMPACT + ["--compact-warmup",
+                                                      "2"]),
+    ("(c) ft_resvit_fast.sh", 192, 3, ["--int8-dw"] + COMPACT + [
+        "--compact-warmup", "2", "--token-keep", "0.5"]),
+    ("(d) --int8-grad compact", 32, 4, ["--int8-grad"] + COMPACT + [
+        "--compact-warmup", "0"]),
+    ("(e) --n_kv_heads 4 compact", 32, 4, ["--n_kv_heads", "4"] + COMPACT + [
+        "--compact-warmup", "0"]),
+    ("(f) plain", 32, 2, ["--no-pallas", "--no-fused-qkv"]),
+]
+RESVIT_LAMBDAS = (1.0, 10.0, 1.0)  # λc, λa, λd of ft_resvit.sh
+
+
+def _resvit_launches(cfg, train):
+    """The launches of one Res-ViT train step (teacher + student forward,
+    the student's backward) or eval forward at `cfg`, derived from its layer
+    roles: the plain layers and the block heads' routers, each routed
+    layer's student (K8 on the compacted rows, else the square kernel) and,
+    in training, its teacher (the square kernel, forward only); every MLP
+    half through K4 on the int8 tier, else the LN kernel; the routers' and
+    the final norm's LN."""
+    from collections import Counter
+    from vitax_torch.models import resvit
+    if not cfg.fused_qkv:
+        return _expect()
+    roles = resvit.layer_roles(cfg)
+    plain = sum(not r["routed"] for r in roles)
+    routed = len(roles) - plain
+    routers = sum(bool(r.get("is_block_head")) for r in roles)
+    gqa = (cfg.n_kv_heads or cfg.n_heads) != cfg.n_heads
+    int8 = cfg.int8_attn
+    grad8 = int8 and cfg.int8_attn_grad
+    rect = cfg.compact_capacity is not None and not gqa
+    base = "fused_ln_qkvo_attention"
+    attn = f"{base}_gqa" if gqa else f"{base}_int8" if int8 else base
+    attn_bwd = (f"{base}_gqa_bwd" if gqa
+                else f"{base}_int8_dw_bwd" if grad8 and cfg.int8_dw
+                else f"{base}_int8_bwd" if grad8 else f"{base}_bwd")
+    rect_fwd = f"{base}_rect_int8" if int8 else f"{base}_rect"
+    rect_bwd = (f"{base}_rect_int8_dw_bwd" if grad8 and cfg.int8_dw
+                else f"{base}_rect_int8_bwd" if grad8 else f"{base}_rect_bwd")
+    mlp8 = cfg.fused_mlp and cfg.int8_mlp
+    mlp_bwd = ("layer_norm_bwd" if not mlp8
+               else "fused_ln_mlp_int8_dw_bwd" if cfg.int8_mlp_grad
+               and cfg.int8_dw else "fused_ln_mlp_int8_bwd"
+               if cfg.int8_mlp_grad else "fused_ln_mlp_bwd")
+    c = Counter()
+    c[attn] += plain + (0 if rect else routed)
+    c[rect_fwd] += routed if rect else 0
+    halves = plain + routed + (routed if train else 0)
+    c["fused_ln_mlp_int8" if mlp8 else "layer_norm"] += halves
+    c["layer_norm"] += routers + 1
+    if train:
+        c[attn] += routed  # the teacher
+        c[attn_bwd] += plain + (0 if rect else routed)
+        c[rect_bwd] += routed if rect else 0
+        c[mlp_bwd] += plain + routed
+        c["layer_norm_bwd"] += routers + 1
+    return _expect(**{k: v for k, v in c.items() if v})
+
+
+@contextlib.contextmanager
+def _step_launches(ck, log):
+    """Records the launches of every train step and eval forward that
+    resvit_train_cli.main runs (its step factories, wrapped), with the
+    config each one ran."""
+    from vitax_torch import resvit_train_cli as cli
+    saved = cli.make_train_step, cli.make_eval_step
+
+    def wrap(kind, factory):
+        def make(cfg, *a, **k):
+            fn = factory(cfg, *a, **k)
+
+            def run(*args, **kw):
+                before = ck.launch_counts()
+                out = fn(*args, **kw)
+                after = ck.launch_counts()
+                log.append((kind, cfg, {n: after[n] - before[n]
+                                        for n in after}))
+                return out
+            return run
+        return make
+
+    cli.make_train_step = wrap("train", saved[0])
+    cli.make_eval_step = wrap("eval", saved[1])
+    try:
+        yield
+    finally:
+        cli.make_train_step, cli.make_eval_step = saved
+
+
+class _RoutingReplay:
+    """Records router_forward's decisions on one path and replays them on
+    another with the other path's own gradients: the replayed hard and soft
+    routing are t − t.detach() + the recorded t (this path's gradient, the
+    recorded value), the path ids the recorded ones. So two paths route
+    every token alike, and compaction ranks the overflow of a capacity by
+    the same keep scores (bf16 noise in the soft probabilities would move
+    which tokens near the cut are demoted, and with them the approximators'
+    grads)."""
+
+    def __init__(self, resvit):
+        self.resvit, self.real, self.calls = resvit, resvit.router_forward, []
+
+    @contextlib.contextmanager
+    def record(self):
+        def rec(*a, **k):
+            out = self.real(*a, **k)
+            self.calls.append((out[0].detach(), out[1], out[3].detach()))
+            return out
+        self.resvit.router_forward = rec
+        try:
+            yield
+        finally:
+            self.resvit.router_forward = self.real
+
+    @contextlib.contextmanager
+    def replay(self):
+        calls = iter(self.calls)
+
+        def rep(*a, **k):
+            hard, _, ent, soft, rows = self.real(*a, **k)
+            h, ids, sp = next(calls)
+            return (hard - hard.detach() + h, ids, ent,
+                    soft - soft.detach() + sp, rows)
+        self.resvit.router_forward = rep
+        try:
+            yield
+        finally:
+            self.resvit.router_forward = self.real
+
+
+def _train_noise(cfg, batch, seed):
+    """Gumbel noise for every block head and, at token_keep < 1, the kept
+    token positions (pins first), drawn on the card, to inject into both
+    paths of a grad comparison."""
+    import torch
+    from vitax_torch.models import resvit
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = cfg.num_patches + 1
+    noise = {}
+    if cfg.token_keep < 1.0:
+        pins = max(1, cfg.dynamic_reserve_initials)
+        k = int(round(cfg.token_keep * (n - pins)))
+        rnd = torch.rand((batch, n - pins), generator=g, device="cuda")
+        kept = torch.sort(torch.argsort(rnd, dim=1)[:, :k], dim=1).values
+        noise["token_idx"] = torch.cat(
+            [torch.arange(pins, device="cuda").expand(batch, pins),
+             kept + pins], dim=1)
+        n = pins + k
+    noise["gumbel"] = {
+        lid: -torch.log(torch.empty((batch, n, cfg.block_size, 2),
+                                    device="cuda").exponential_(generator=g))
+        for lid, r in enumerate(resvit.layer_roles(cfg))
+        if r.get("is_block_head")}
+    return noise
+
+
+def _resvit_grads(params, images, labels, cfg, noise, ctx):
+    """(logits, grads of the 3-term loss for every trainable leaf) of one
+    train-mode forward with `noise` injected, under `ctx` (routing record or
+    replay)."""
+    import torch
+    from vitax_torch.models import resvit
+    from vitax_torch.train.optim import param_leaves, tree_leaves
+    from vitax_torch.train.steps import cross_entropy
+    leaves = [t for t, m in zip(param_leaves(params), tree_leaves(
+        resvit.trainable_mask(params, cfg))) if m]
+    lc, la, ld = RESVIT_LAMBDAS
+    with ctx:
+        logits, aux = resvit.apply(params, images, cfg, train=True,
+                                   noise=noise)
+    loss = (lc * cross_entropy(logits, labels) + la * resvit.active_loss(
+        aux["soft_probs"], cfg.dynamic_active_target,
+        cfg.dynamic_reserve_initials) + ld * aux["d_loss"])
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return logits.detach(), [torch.zeros_like(t, dtype=torch.float32)
+                             if g is None else g.float()
+                             for t, g in zip(leaves, grads)]
+
+
+def run_resvit_train_slice(exp_root):
+    """Phase 9: resvit_train_cli (a)-(f) with exact launch counts per step
+    and per eval batch; full-width grads of (a), (b), (c) and (e) against
+    the plain or twin path with the same noise and routing; device-timed
+    train steps of (a)-(e) on a resident batch."""
+    import torch
+    from vitax_torch import resvit_train_cli
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.models import resvit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.train.optim import param_leaves, tree_leaves
+    from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                                make_adamw_for,
+                                                make_train_step)
+    from vitax_torch.utils.memory import named_leaves
+
+    counts, results = {}, {}
+    with _random_router_biases():
+        for label, batch, steps, extra in RESVIT_TRAIN_RUNS:
+            log = []
+            args = RESVIT_TRAIN_ARGS + extra + [
+                "--batch-size", str(batch), "--synthetic-samples",
+                str(batch * steps), "--train-steps", str(steps),
+                "--exp-root", exp_root]
+            ck.reset_launch_counts()
+            with _step_launches(ck, log), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                out = resvit_train_cli.main(args)
+            counts[label] = ck.launch_counts()
+            train_log = [e for e in log if e[0] == "train"]
+            bad = [(kind, {k: v for k, v in got.items() if v})
+                   for kind, c, got in log
+                   if got != _resvit_launches(c, kind == "train")]
+            viz = len(list(__import__("pathlib").Path(
+                out["result_dir"]).glob("routing_viz/*.png")))
+            valid = out["epochs"][-1]
+            phases = [("warm" if c.compact_capacity is None
+                       and "--compact-capacity" in extra else
+                       f"C {c.compact_capacity}" if c.compact_capacity
+                       else "dense") + (f" keep {c.token_keep}"
+                                        if c.token_keep < 1 else "")
+                      for _, c, _ in train_log]
+            print(f"resvit-train: {label} b{batch}: steps {phases}; valid "
+                  f"acc1 {valid['acc1']:.4f} loss {valid['loss']:.4f} active "
+                  f"{valid['non_low_rank_ratio']:.4f}; launches a step as "
+                  f"derived: {not bad} (" + "; ".join(
+                      "{" + ", ".join(f"{k}: {v}" for k, v in got.items() if v)
+                      + "}" for _, _, got in train_log[-1:]) + ")"
+                  + (f"; routing viz {viz} PNGs" if viz else ""), flush=True)
+            shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
+            results[label] = valid
+            if (bad or len(train_log) != steps
+                    or not all(math.isfinite(v) for v in valid.values())):
+                raise AssertionError(f"{label}: launches {bad}, "
+                                     f"{len(train_log)} steps, valid {valid}")
+            if extra == ["--save-routing-viz"] and viz == 0:
+                raise AssertionError("no routing visualization written")
+
+        from vitax_torch.resvit_train_cli import (config_to_model_args,
+                                                  get_train_config)
+        base = config_to_model_args(get_train_config(
+            RESVIT_TRAIN_ARGS + ["--exp-root", exp_root]), "cuda")
+        params = resvit.init_params(set_seed(0), base, "cuda")
+        gqa = base.replace(n_kv_heads=4)
+        gqa_params = resvit.init_params(set_seed(0), gqa, "cuda")
+    shutil.rmtree(exp_root, ignore_errors=True)
+    tier = dict(int8_attn=True, int8_mlp=True, fused_mlp=True,
+                int8_attn_grad=True, int8_mlp_grad=True)
+    plain = dict(fused_qkv=False, fused_qkvo=False, fused_mlp=False,
+                 use_pallas=False)
+    cfgs = {
+        "(a)": (base, params, 32),
+        "(b)": (base.replace(compact_capacity=0.625), params, 32),
+        "(c)": (base.replace(**tier, int8_dw=True, compact_capacity=0.625,
+                             token_keep=0.5), params, 192),
+        "(d)": (base.replace(**tier, compact_capacity=0.625), params, 32),
+        "(e)": (gqa.replace(compact_capacity=0.625), gqa_params, 32),
+    }
+    for p in (params, gqa_params):
+        for t, m in zip(param_leaves(p), tree_leaves(
+                resvit.trainable_mask(p, base))):
+            t.requires_grad_(m)
+
+    # full-width grads against the plain path (bf16) or the twin path (int8)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    grad_rows = []
+    for key, band in (("(a)", GRAD_BAND), ("(b)", GRAD_BAND),
+                      ("(c)", INT8_GRAD_BAND), ("(e)", GRAD_BAND)):
+        cfg, p, batch = cfgs[key]
+        batch = min(batch, 64)
+        images = torch.randn((batch, 224, 224, 3), generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+        labels = torch.randint(0, 10, (batch,), generator=g, device="cuda")
+        noise = _train_noise(cfg, batch, seed=11)
+        replay = _RoutingReplay(resvit)
+        ck.reset_launch_counts()
+        lk, g_k = _resvit_grads(p, images, labels, cfg, noise,
+                                replay.record())
+        ran = {k: v for k, v in ck.launch_counts().items() if v}
+        if key == "(c)":
+            with _int8_twins(ck):
+                lo, g_o = _resvit_grads(p, images, labels, cfg, noise,
+                                        replay.replay())
+            other = "int8 twin"
+        else:
+            lo, g_o = _resvit_grads(p, images, labels, cfg.replace(**plain),
+                                    noise, replay.replay())
+            other = "plain bf16"
+        names = [n for (n, _), m in zip(named_leaves(p), tree_leaves(
+            resvit.trainable_mask(p, cfg))) if m]
+        rels = sorted(((_rel(a, b), n) for a, b, n in zip(g_k, g_o, names)
+                       if b.norm() > 0), reverse=True)
+        d_log = (lk - lo).abs().max().item()
+        finite = all(bool(torch.isfinite(t).all()) for t in g_k)
+        print(f"resvit-train: grads {key} b{batch} of {len(names)} trainable "
+              f"tensors (kernel launches {ran}); worst |g_kernel - g_{other}|"
+              f" / |g_{other}|: " + ", ".join(
+                  f"{r:.3e} ({n})" for r, n in rels[:3])
+              + f" <= {band}; logits max|kernel - {other}| {d_log:.3e}",
+              flush=True)
+        grad_rows.append((key, rels[0][0]))
+        if not finite or rels[0][0] > band or not ran:
+            raise AssertionError(f"{key}: grads outside the band")
+        del g_k, g_o, images
+        torch.cuda.empty_cache()
+
+    # device-timed train steps (forward teacher + student, backward, AdamW)
+    # on a resident batch
+    step_ms = {}
+    lam = Lambdas(*RESVIT_LAMBDAS)
+    for key, (cfg, p, batch) in cfgs.items():
+        images = torch.randn((batch, 224, 224, 3), generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+        labels = torch.randint(0, 10, (batch,), generator=g, device="cuda")
+        tx = make_adamw_for(cfg, p, lambda s: 1e-4)
+        state = create_state(p, tx, torch.Generator(device="cuda")
+                             .manual_seed(3))
+        step = make_train_step(cfg, tx, lam)
+        step_ms[key] = _median_ms(lambda: step(state, images, labels),
+                                  warmup=2, iters=5)
+        del images, labels, tx, state
+        torch.cuda.empty_cache()
+    print("resvit-train: step (teacher + student forward, backward, AdamW; "
+          "median of 5, CUDA events): " + ", ".join(
+              f"{k} b{cfgs[k][2]} {ms:.2f} ms = "
+              f"{cfgs[k][2] * 1e3 / ms:.0f} img/s"
+              for k, ms in step_ms.items()), flush=True)
+    return counts, step_ms, grad_rows
+
+
 # ---------------------------------------------------------------- bounds
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
@@ -1577,7 +2096,7 @@ def _work(name, batch, rows, extra=None):
     read once, each output written once; the attention core over the padded
     rows. `extra`: K8's cpq (the gathered rows xc [batch, cpq, 768] in, the
     output on them), K7's kv heads."""
-    if name in RESVIT_KERNELS:
+    if name in RESVIT_KERNELS + TRAIN_RESVIT_KERNELS:
         return _resvit_work(name, batch, rows, extra)
     n = batch * rows
     hhd = HEADS * HEAD_DIM
@@ -1622,20 +2141,42 @@ def _work(name, batch, rows, extra=None):
 
 
 def _resvit_work(name, batch, spq, extra):
+    """K7 and K8, forward and backward: the forward core is 2 products of
+    query rows x keys x head_dim, the backward's 6 (its recompute and dp,
+    dq, dk, dv); a projection's backward is its recompute, its dx-path and
+    its weight grad (3 products), the out-projection's its dx-path and
+    weight grad (2)."""
     hhd = HEADS * HEAD_DIM
     vec = 4 * (4 * D + 3 * hhd)
     core = 4 * batch * HEADS * spq * HEAD_DIM  # times the query rows
-    if name == "fused_ln_qkvo_attention_gqa":
+    if name.startswith("fused_ln_qkvo_attention_gqa"):
         n, width = batch * spq, (HEADS + 2 * extra) * HEAD_DIM
-        return (2 * 2 * n * D + 2 * (D * width + hhd * D)
-                + 4 * (3 * D + width),
-                {"bf16": 2 * n * D * width + core * spq + 2 * n * hhd * D})
+        w_bytes = 2 * (D * width + hhd * D)
+        qkv, out = 2 * n * D * width, 2 * n * hhd * D
+        if name.endswith("_bwd"):  # x, do in; dx, fp32 grads out
+            return (3 * 2 * n * D + w_bytes + 2 * w_bytes
+                    + 2 * 4 * (3 * D + width),
+                    {"bf16": 3 * qkv + 2 * out + 3 * core * spq})
+        return (2 * 2 * n * D + w_bytes + 4 * (3 * D + width),
+                {"bf16": qkv + core * spq + out})
     nc, n = batch * extra, batch * spq
-    nbytes = 2 * (2 * nc * D + n * D) + 2 * 4 * D * hhd + vec
-    proj = 2 * nc * D * hhd + 2 * n * D * 2 * hhd + 2 * nc * hhd * D
+    w_bytes = 2 * 4 * D * hhd
+    proj = 2 * nc * D * hhd + 2 * n * D * 2 * hhd  # Q from xc, KV from x
+    out = 2 * nc * hhd * D
+    if name.endswith("_bwd"):  # xc, x, do in; dxc, dx, fp32 grads out
+        nbytes = 2 * (2 * nc * D + n * D) + 2 * (nc + n) * D + 3 * w_bytes \
+            + 2 * vec
+        bwd_core = 3 * core * extra
+        if name == "fused_ln_qkvo_attention_rect_bwd":
+            return nbytes, {"bf16": 3 * proj + 2 * out + bwd_core}
+        if name == "fused_ln_qkvo_attention_rect_int8_bwd":
+            return nbytes, {"s8": 2 * proj + out,
+                            "bf16": proj + out + bwd_core}
+        return nbytes, {"s8": 3 * proj + 2 * out, "bf16": bwd_core}
+    nbytes = 2 * (2 * nc * D + n * D) + w_bytes + vec
     if name == "fused_ln_qkvo_attention_rect":
-        return nbytes, {"bf16": proj + core * extra}
-    return nbytes, {"s8": proj, "bf16": core * extra}
+        return nbytes, {"bf16": proj + out + core * extra}
+    return nbytes, {"s8": proj + out, "bf16": core * extra}
 
 
 def _bound(name, shape):
@@ -1675,14 +2216,17 @@ def main() -> int:
     check_bwd_kernels(stats)
     check_handoff_kernels(stats)
     check_resvit_kernels(stats)
+    check_resvit_bwd_kernels(stats)
     print(f"int8 kernels vs twin, worst ‖k−t‖/‖t‖ of any output and case <= "
           f"{INT8_REL}; the bf16 stand-in's nearest (outputs quantization "
           f"reaches): " + ", ".join(
               f"{n} {stats[n]['worst_rel']:.3e} / {stats[n]['stand_in_min_rel']:.3e}"
-              for n in INT8_KERNELS + ("fused_ln_qkvo_attention_rect_int8",))
+              for n in INT8_KERNELS + ("fused_ln_qkvo_attention_rect_int8",)
+              + RECT_BWD_KERNELS[1:])
           + "; the int8_grad kernel's bf16 dW "
           "against the int8_dw twin, nearest: " + ", ".join(
-              f"{n} {stats[n]['bf16_dw_min_rel']:.3e}" for n in DW_KERNELS),
+              f"{n} {stats[n]['bf16_dw_min_rel']:.3e}"
+              for n in DW_KERNELS + RECT_BWD_KERNELS[2:]),
           flush=True)
     eval_counts, rate, rate_p = run_slice()
     print(f"eval img/s b16@224 bf16: kernels {rate:.0f}, plain {rate_p:.0f} "
@@ -1717,6 +2261,15 @@ def main() -> int:
                                         for k, ms in fwd_rv.items())
         + f" [{card}]", flush=True)
 
+    try:
+        counts_rt, step_rt, grads_rt = run_resvit_train_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("resvit training step img/s (resident batch): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in step_rt.items()) + "; worst grad "
+        "distance " + ", ".join(f"{k} {r:.3e}" for k, r in grads_rt)
+        + f" [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
     # the fast recipe's (each runs every kernel of its tier), K7's and K8's
@@ -1728,10 +2281,17 @@ def main() -> int:
     resvit_runs = {"fused_ln_qkvo_attention_gqa": "compact 0.625 --n_kv_heads 4",
                    "fused_ln_qkvo_attention_rect": "compact 0.625",
                    "fused_ln_qkvo_attention_rect_int8": "compact 0.625 --int8"}
+    # the backwards from the Res-ViT training run that takes them
+    train_runs = {"fused_ln_qkvo_attention_rect_bwd": 1,
+                  "fused_ln_qkvo_attention_rect_int8_dw_bwd": 2,
+                  "fused_ln_qkvo_attention_rect_int8_bwd": 3,
+                  "fused_ln_qkvo_attention_gqa_bwd": 4}
 
     def launches(name):
         if name in RESVIT_KERNELS:
             return counts_rv[resvit_runs[name]][name]
+        if name in TRAIN_RESVIT_KERNELS:
+            return counts_rt[RESVIT_TRAIN_RUNS[train_runs[name]][0]][name]
         if name in HO_KERNELS + DW_KERNELS:
             return counts_fast[name]
         return (counts_i8 if name in INT8_KERNELS else counts)[name]

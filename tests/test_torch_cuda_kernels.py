@@ -529,6 +529,163 @@ def test_rect_kernel_rejects_what_it_does_not_take(dev):
         ck.fused_ln_qkvo_attention_rect(xc.float(), *qkvo)
     with pytest.raises(ValueError):  # another batch
         ck.fused_ln_qkvo_attention_rect(xc[:1].contiguous(), *qkvo)
-    with pytest.raises(NotImplementedError, match="K8 backward"):
-        xg = xc.clone().requires_grad_()
-        ck.fused_ln_qkvo_attention_rect(xg, *qkvo).float().sum().backward()
+    ck.reset_launch_counts()
+    xg = xc.clone().requires_grad_()  # under autograd: K8's backward runs
+    ck.fused_ln_qkvo_attention_rect(xg, *qkvo).float().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_qkvo_attention_rect": 1,
+        "fused_ln_qkvo_attention_rect_bwd": 1}
+    assert xg.grad.dtype == xg.dtype and torch.isfinite(xg.grad.float()).all()
+    with pytest.raises(ValueError):  # the cotangent on the wrong rows
+        ck.fused_ln_qkvo_attention_rect_bwd(xc, *qkvo[:6], qkvo[0],
+                                            *qkvo[7:])
+
+
+# ---------------------------------------------------------- K7, K8 backward
+RECT_BWD = ("fused_ln_qkvo_attention_rect_bwd",
+            "fused_ln_qkvo_attention_rect_int8_bwd",
+            "fused_ln_qkvo_attention_rect_int8_dw_bwd")
+# dkvq: as dqq; xnk: xn folded with the row scales of dkv, which move with
+# the bf16 flips of dkv, hence atc's band
+CODE_BAND.update({"dkvq": CODE_BAND["dqq"], "xnk": CODE_BAND["atc"]})
+
+# (batch, spq, seq_len, D, heads, kv_heads, head_dim): Res-ViT b16 training
+# at b32 with 4 and 6 kv heads, the test config with one
+GQA_BWD_SHAPES = [(32, 200, 197, 768, 12, 4, 64),
+                  (32, 200, 197, 768, 12, 6, 64), (2, 16, 10, 128, 2, 1, 64)]
+
+
+def _gqa_bwd_args(dev, batch, spq, seq, d, h, hkv, hd):
+    _, qkvo, _ = _args(dev, batch, spq, seq, d, h, hd, 4 * d)
+    g = torch.Generator(device=dev).manual_seed(7)
+    width = (h + 2 * hkv) * hd
+    wqkv = (torch.randn((d, width), generator=g, device=dev)
+            * d ** -0.5).to(torch.bfloat16)
+    bqkv = 0.1 * torch.randn(width, generator=g, device=dev)
+    do = torch.randn((batch, spq, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    return (*qkvo[:3], wqkv, bqkv, qkvo[5], do, *qkvo[7:], hkv)
+
+
+@pytest.mark.parametrize("shape", GQA_BWD_SHAPES)
+def test_gqa_backward_kernel_matches_twin(dev, shape):
+    """K7's backward against its twin on every output (dWqkv and dbqkv on the
+    packed GQA width), through `fused_ln_qkvo_attention_bwd(kv_heads=)`;
+    two launches give the same bits (the group sum has no atomics)."""
+    args = _gqa_bwd_args(dev, *shape)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        outs = ck.fused_ln_qkvo_attention_bwd(*args[:-1], kv_heads=args[-1])
+        again = ck.fused_ln_qkvo_attention_gqa_bwd(*args)
+        torch.cuda.synchronize()
+        refs = ck.fused_ln_qkvo_attention_gqa_bwd_ref(*args)
+    assert len(outs) == len(refs) == 7
+    for out, ref, out2 in zip(outs, refs, again):
+        _assert_close(out, ref)
+        assert torch.equal(out, out2)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_qkvo_attention_gqa_bwd": 2}
+
+
+def test_gqa_autograd_launches_the_gqa_backward(dev):
+    args = _gqa_bwd_args(dev, 2, 200, 197, 768, 12, 4, 64)
+    bo = torch.zeros(768, device=dev, requires_grad=True)
+    leaves = [t.detach().clone().requires_grad_() for t in args[:6]]
+    ck.reset_launch_counts()
+    y = ck.fused_ln_qkvo_attention_gqa(*leaves, bo, *args[7:])
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_qkvo_attention_gqa": 1,
+        "fused_ln_qkvo_attention_gqa_bwd": 1}
+    for t in leaves + [bo]:
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+
+
+def _rect_bwd_args(dev, batch, spq, seq, cap, seed=0):
+    """K8's backward arguments (xc, x, γ, β, Wqkv, bqkv, Wo, do, eps,
+    seq_len, heads, head_dim), do zero on xc's pad rows as the caller's cut
+    leaves it; and the row indices."""
+    xc, qkvo, idx = _rect_args(dev, batch, spq, seq, cap, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 200)
+    do = torch.randn(xc.shape, generator=g, device=dev).to(torch.bfloat16)
+    do[:, cap:] = 0
+    return (xc, *qkvo[:6], do, *qkvo[7:]), idx
+
+
+# (batch, spq, seq_len, cap): Res-ViT b16 training at capacity 0.625 (b32,
+# cpq 128; the fast recipe's token-drop geometry, 1 + 98 + 1 -> spq 104, cap
+# 63, cpq 64, at b16) and a ragged small case
+RECT_BWD_SHAPES = [(32, 200, 197, 124), (16, 104, 100, 63), (3, 200, 197, 37)]
+
+
+@pytest.mark.parametrize("shape", RECT_BWD_SHAPES)
+def test_rect_backward_kernels_match_twins(dev, shape):
+    """K8's three backwards against their twins on every output, the int8
+    ones also by their codes; two launches give the same bits."""
+    args, _ = _rect_bwd_args(dev, *shape)
+    ck.reset_launch_counts()
+    for name in RECT_BWD:
+        kw = (lambda s: {"scratch": s}) if "int8" in name else (lambda s: {})
+        sk, st = {}, {}
+        with torch.no_grad():
+            outs = getattr(ck, name)(*args, **kw(sk))
+            again = getattr(ck, name)(*args)
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(*args, **kw(st))
+        assert len(outs) == len(refs) == 8
+        for out, ref, out2 in zip(outs, refs, again):
+            _assert_close(out, ref)
+            assert torch.equal(out, out2), name
+        if "int8" in name:
+            _codes_within_band(name, sk, st)
+        del outs, refs, again
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(RECT_BWD, 2)
+
+
+def test_rect_backward_matches_square_backward_and_gather(dev):
+    """K8's backward against K1's on all rows with `do` scattered to the kept
+    rows, dxc added back through the gather transpose: within the bf16 band
+    (K1 sums both dxn paths of a kept row in fp32 before one LN backward, K8
+    runs one LN backward a row set and adds in bf16)."""
+    args, idx = _rect_bwd_args(dev, 32, 200, 197, 124)
+    xc, x, do = args[0], args[1], args[7]
+    cap = idx.shape[1]
+    rows = idx[..., None].expand(-1, -1, x.shape[-1])
+    do_full = torch.zeros_like(x).scatter(1, rows, do[:, :cap])
+    with torch.no_grad():
+        rect = ck.fused_ln_qkvo_attention_rect_bwd(*args)
+        square = ck.fused_ln_qkvo_attention_bwd(x, *args[2:7], do_full,
+                                                *args[8:])
+    dx = rect[1].float().scatter_add(1, rows, rect[0][:, :cap].float())
+    _assert_close(dx, square[0].float())
+    for out, ref in zip(rect[2:], square[1:]):
+        _assert_close(out, ref)
+
+
+def test_rect_autograd_picks_the_backward_of_its_tier(dev):
+    """bf16 and --int8 alone take K8's bf16 backward; --int8-grad its int8
+    one, --int8-dw the int8_dw one (vitax's tier rule, :4526)."""
+    args, _ = _rect_bwd_args(dev, 2, 200, 197, 37)
+    bo = torch.zeros(768, device=dev)
+    for int8, int8_grad, int8_dw, bwd in (
+            (False, False, False, RECT_BWD[0]), (True, False, False, RECT_BWD[0]),
+            (True, True, False, RECT_BWD[1]), (True, True, True, RECT_BWD[2])):
+        leaves = [t.detach().clone().requires_grad_() for t in args[:7]]
+        ck.reset_launch_counts()
+        if int8:
+            y = ck.fused_ln_qkvo_attention_rect_int8(
+                *leaves, bo, *args[8:], int8_grad=int8_grad, int8_dw=int8_dw)
+        else:
+            y = ck.fused_ln_qkvo_attention_rect(*leaves, bo, *args[8:])
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        fwd = ("fused_ln_qkvo_attention_rect_int8" if int8
+               else "fused_ln_qkvo_attention_rect")
+        assert {k: v for k, v in ck.launch_counts().items() if v} == {
+            fwd: 1, bwd: 1}
+        for t in leaves:
+            assert t.grad.dtype == t.dtype
+            assert torch.isfinite(t.grad.float()).all()

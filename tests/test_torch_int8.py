@@ -739,3 +739,109 @@ def test_fused_ln_qkvo_attention_rect_int8_ref_matches_pallas(dtype, batch,
     gathered = torch.gather(square, 1, torch.from_numpy(idx)[..., None]
                             .expand(-1, -1, D))
     torch.testing.assert_close(out[:, :cap], gathered, rtol=0, atol=0)
+
+
+# ------------------------------------------------------- K8 int8 backward
+
+RECT_GRADS = ("dxc", "dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwo", "dbo")
+
+
+def _rect_bwd_inputs(batch, spq, seq, cap, seed):
+    """x [B, spq, D], xc: `cap` of its first seq rows in random order,
+    zero-padded to cpq = round_up(cap, 8), do zero on xc's pad rows (the
+    caller's row cut)."""
+    arr = _arrays(seed, batch, spq)
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(seq)[:cap] for _ in range(batch)])
+    cpq = (cap + 7) // 8 * 8
+    xc = np.zeros((batch, cpq, D), np.float32)
+    xc[:, :cap] = np.take_along_axis(arr["x"], idx[..., None], axis=1)
+    do = rng.standard_normal((batch, cpq, D)).astype(np.float32)
+    do[:, cap:] = 0
+    return dict(arr, xc=xc, do=do)
+
+
+def _rect_both(batch, spq, seq, cap, seed, dtype):
+    j, t = _both(_rect_bwd_inputs(batch, spq, seq, cap, seed), dtype)
+    rest = ("gamma", "beta", "wqkv", "bqkv", "wo")
+    jargs = (j["xc"].astype(j["x"].dtype), j["x"], *(j[k] for k in rest))
+    targs = (t["xc"].to(t["x"].dtype), t["x"], *(t[k] for k in rest),
+             t["do"], EPS, seq, H, HD)
+    return j, t, jargs, targs
+
+
+# (batch, spq, seq_len, cap): ragged seq_len 13 in spq 16, cap 7 (cpq 8),
+# at b 2 and 4 (vitax's grid tile, and so the int8_dw groups, change)
+RECT_INT8_CASES = [(2, 16, 13, 7), (4, 16, 13, 7)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,spq,seq,cap", RECT_INT8_CASES)
+@pytest.mark.parametrize("int8_dw", [False, True])
+def test_rect_int8_bwd_ref_matches_pallas(dtype, batch, spq, seq, cap,
+                                          int8_dw):
+    """K8's backward under int8_grad (and int8_dw) against vitax's rect VJP
+    on every output. The weights' codes and scales are vitax's exactly: Wq8
+    and Wkv8 per column of its slices, Wq_r and Wkv_r per row of the slices
+    (not of Wqkv's whole rows), Wo_r per row. The int8_dw groups are vitax's
+    grid step, tile·cpq rows of xc and tile·spq rows of x; the bf16-product
+    twin misses the int8 weight grads."""
+    j, t, jargs, targs = _rect_both(batch, spq, seq, cap, 50 + batch, dtype)
+    ref = pk._fused_ln_qkvo_rect_bwd(EPS, seq, H, HD, True, True, int8_dw,
+                                     False, False, jargs,
+                                     j["do"].astype(j["x"].dtype))
+    tile = pk._qkvo_bwd_tile(batch, spq)
+    cpq = targs[0].shape[1]
+    assert ck.qkvo_rect_dw_groups(batch, cpq, spq) == (tile * cpq,
+                                                       tile * spq)
+    scratch = {}
+    twin = (ck.fused_ln_qkvo_attention_rect_int8_dw_bwd_ref if int8_dw
+            else ck.fused_ln_qkvo_attention_rect_int8_bwd_ref)
+    out = twin(*targs, scratch=scratch)
+    assert all(o.dtype == torch.float32 for o in out[2:])
+    _check_all(ref, out, dtype, RECT_GRADS)
+    hhd = H * HD
+    for key, w, host in (("wq8r", j["wqkv"][:, :hhd], pk._quant_rows_host),
+                         ("wkv8r", j["wqkv"][:, hhd:], pk._quant_rows_host),
+                         ("wo8r", j["wo"], pk._quant_rows_host)):
+        qj, sj = host(w)
+        np.testing.assert_array_equal(scratch[key][0].numpy(),
+                                      np.asarray(qj))
+        np.testing.assert_array_equal(scratch[key][1].numpy(),
+                                      np.asarray(sj))
+    w8, sw = scratch["w8"]
+    for cols, wj in ((slice(0, hhd), j["wqkv"][:, :hhd]),
+                     (slice(hhd, 3 * hhd), j["wqkv"][:, hhd:])):
+        qj, sj = pk._quant_cols_host(wj)
+        np.testing.assert_array_equal(w8[:, cols].numpy(), np.asarray(qj))
+        np.testing.assert_array_equal(sw[cols].numpy(), np.asarray(sj))
+    wrapper = (ck.fused_ln_qkvo_attention_rect_int8_dw_bwd if int8_dw
+               else ck.fused_ln_qkvo_attention_rect_int8_bwd)
+    for a, b in zip(out, wrapper(*targs)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if int8_dw:
+        assert scratch["atc"][1].numel() == (batch // tile) * hhd
+        assert scratch["xnk"][1].numel() == (batch // tile) * D
+        bf = ck.fused_ln_qkvo_attention_rect_int8_bwd_ref(*targs)
+        assert not torch.equal(bf[4], out[4]) and not torch.equal(bf[6],
+                                                                  out[6])
+
+
+def test_rect_int8_alone_keeps_the_bf16_backward():
+    """--int8 without --int8-grad: K8's int8 forward, its bf16 backward
+    (vitax's tier rule, :4526), under the autograd Function."""
+    _, t, _, targs = _rect_both(2, 16, 13, 7, 60, "float32")
+    bo = torch.zeros(D)
+    leaves = [a.clone().requires_grad_() for a in targs[:7]]
+    y = ck.fused_ln_qkvo_attention_rect_int8(*leaves, bo, *targs[8:])
+    y.backward(targs[7])
+    ref = ck.fused_ln_qkvo_attention_rect_bwd_ref(*targs)
+    for leaf, grad in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, grad, rtol=0, atol=0)
+    leaves = [a.clone().requires_grad_() for a in targs[:7]]
+    y = ck.fused_ln_qkvo_attention_rect_int8(*leaves, bo, *targs[8:],
+                                             int8_grad=True, int8_dw=True)
+    y.backward(targs[7])
+    ref = ck.fused_ln_qkvo_attention_rect_int8_dw_bwd_ref(*targs)
+    for leaf, grad in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, grad, rtol=0, atol=0)

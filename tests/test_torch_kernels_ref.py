@@ -138,11 +138,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                  ck.fused_ln_qkvo_attention_rect_int8):
         rect(xc, t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
              t["wo"], t["bo"], EPS, SEQ, H, HD)
+        ck.fused_ln_qkvo_attention_rect_bwd(xc, t["x"], t["gamma"], t["beta"],
+                                            t["wqkv"], t["bqkv"], t["wo"], xc,
+                                            EPS, SEQ, H, HD)
+    for bwd in (ck.fused_ln_qkvo_attention_rect_int8_bwd,
+                ck.fused_ln_qkvo_attention_rect_int8_dw_bwd):
+        bwd(xc, t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"],
+            xc, EPS, SEQ, H, HD)
     g = _gqa_weights(3, 2, 1, HD)
-    ck.fused_ln_qkvo_attention(t["x"], t["gamma"], t["beta"],
-                               torch.from_numpy(g["wqkv"]),
-                               torch.from_numpy(g["bqkv"]), t["wo"], t["bo"],
-                               EPS, SEQ, 2, HD, kv_heads=1)
+    gqa = (t["x"], t["gamma"], t["beta"], torch.from_numpy(g["wqkv"]),
+           torch.from_numpy(g["bqkv"]), t["wo"])
+    ck.fused_ln_qkvo_attention(*gqa, t["bo"], EPS, SEQ, 2, HD, kv_heads=1)
+    ck.fused_ln_qkvo_attention_bwd(*gqa, t["x"], EPS, SEQ, 2, HD, kv_heads=1)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -158,7 +165,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_ln_mlp_int8_dw_bwd": 0,
                                   "fused_ln_qkvo_attention_gqa": 0,
                                   "fused_ln_qkvo_attention_rect": 0,
-                                  "fused_ln_qkvo_attention_rect_int8": 0}
+                                  "fused_ln_qkvo_attention_rect_int8": 0,
+                                  "fused_ln_qkvo_attention_rect_bwd": 0,
+                                  "fused_ln_qkvo_attention_rect_int8_bwd": 0,
+                                  "fused_ln_qkvo_attention_rect_int8_dw_bwd":
+                                  0, "fused_ln_qkvo_attention_gqa_bwd": 0}
 
 
 def test_hopper_gates():
@@ -239,12 +250,20 @@ def test_gqa_gate_rejects_uneven_kv_groups():
     assert not ck.qkv_attention_supported(x, torch.empty((D, 3 * 128),
                                                          device="meta"), 4, 2)
     assert not ck.qkv_attention_supported(x, ok, 4)
+    # the backward's gate takes the head width of the packed GQA layout
+    assert ck.qkv_attention_bwd_supported(x, ok, 4, 2)
+    assert not ck.qkv_attention_bwd_supported(x, uneven, 4, 3)
+    assert ck.qkv_attention_bwd_supported(x, torch.empty((D, 3 * 128),
+                                                         device="meta"), 4)
+    # under autograd K7 runs its backward (K1's with kv_heads)
     tq = _both(dict(_weights(5), x=_x(1, SPQ, 5)), "float32")[1]
-    with pytest.raises(NotImplementedError, match="K7 backward"):
-        ck.fused_ln_qkvo_attention_gqa(
-            tq["x"].requires_grad_(), tq["gamma"], tq["beta"],
-            torch.zeros(D, 256), torch.zeros(256), tq["wo"], tq["bo"], EPS,
-            SEQ, 2, HD, 1)
+    xg = tq["x"].requires_grad_()
+    y = ck.fused_ln_qkvo_attention_gqa(xg, tq["gamma"], tq["beta"],
+                                       torch.zeros(D, 256), torch.zeros(256),
+                                       tq["wo"], tq["bo"], EPS, SEQ, 2, HD, 1)
+    assert type(y.grad_fn).__name__ == "FusedLnQkvoAttentionFnBackward"
+    y.sum().backward()
+    assert xg.grad.shape == xg.shape and torch.isfinite(xg.grad).all()
 
 
 def _rect_inputs(batch, cap, seed):
@@ -288,9 +307,147 @@ def test_fused_ln_qkvo_attention_rect_ref_matches_pallas(dtype, batch, cap):
     gathered = torch.gather(square, 1, torch.from_numpy(idx)[..., None]
                             .expand(-1, -1, D))
     torch.testing.assert_close(out[:, :cap], gathered, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="K8 backward"):
-        y = ck.fused_ln_qkvo_attention_rect(txc.float().requires_grad_(),
-                                            t["x"].float(),
-                                            *(t[k].float() for k in args),
-                                            EPS, SEQ, H, HD)
-        y.sum().backward()
+    # under autograd K8 runs its backward kernel (here its twin)
+    xg = txc.float().requires_grad_()
+    y = ck.fused_ln_qkvo_attention_rect(xg, t["x"].float(),
+                                        *(t[k].float() for k in args),
+                                        EPS, SEQ, H, HD)
+    assert type(y.grad_fn).__name__ == "FusedLnQkvoAttentionRectFnBackward"
+    y.sum().backward()
+    assert xg.grad.shape == xg.shape and torch.isfinite(xg.grad).all()
+
+
+# ------------------------------------------------------- K7, K8 backward
+# max|port - pallas| <= tol * max(1, max|pallas|) per output: fp32 1e-4 for
+# dx and the vector grads, 1e-3 for the weight grads (sums over all rows);
+# bf16 2e-2 (vitax casts the weight grads to the bf16 weights' dtype, the
+# port's twins keep fp32, the Function casts)
+BWD_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (2e-2, 2e-2)}
+RECT_GRADS = ("dxc", "dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwo", "dbo")
+
+
+def _check_grads(refs, outs, dtype, names, weights=("dwqkv", "dwo")):
+    small, wide = BWD_TOL[dtype]
+    assert len(refs) == len(outs) == len(names)
+    for name, r, o in zip(names, refs, outs):
+        r = np.asarray(jnp.asarray(r).astype(jnp.float32))
+        o = o.float().numpy()
+        assert o.shape == r.shape, name
+        bound = (wide if name in weights else small) * max(
+            1.0, float(np.abs(r).max()))
+        err = float(np.abs(o - r).max())
+        assert err <= bound, f"{name}: max error {err:.3e} > {bound:.3e}"
+
+
+def rect_bwd_inputs(batch, spq, seq, cap, seed):
+    """x [B, spq, D] (seq_len real rows), xc: `cap` of them gathered in
+    random order and zero-padded to cpq = round_up(cap, 8), and do [B, cpq,
+    D] zero on the pad rows (the caller's row cut), numpy fp32."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((batch, spq, D)) * 1.5 + 0.3).astype(np.float32)
+    idx = np.stack([rng.permutation(seq)[:cap] for _ in range(batch)])
+    cpq = (cap + 7) // 8 * 8
+    xc = np.zeros((batch, cpq, D), np.float32)
+    xc[:, :cap] = np.take_along_axis(x, idx[..., None], axis=1)
+    do = rng.standard_normal((batch, cpq, D)).astype(np.float32)
+    do[:, cap:] = 0
+    return x, xc, do, idx
+
+
+# (batch, spq, seq_len, cap): ragged seq_len 13 in spq 16 with cap 7 (cpq 8),
+# at b 2 and 4 (vitax's grid tile 2 and 4), and cpq 16 < spq 24 at b 1
+RECT_BWD_CASES = [(2, 16, 13, 7), (4, 16, 13, 7), (1, 24, 17, 11)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,spq,seq,cap", RECT_BWD_CASES)
+def test_fused_ln_qkvo_attention_rect_bwd_ref_matches_pallas(dtype, batch,
+                                                             spq, seq, cap):
+    """K8's backward twin against vitax's rect VJP (bf16 tier) on every
+    output; the wrapper on CPU tensors is the twin."""
+    x, xc, do, _ = rect_bwd_inputs(batch, spq, seq, cap, 20 + batch)
+    j, t = _both(dict(_weights(7), x=x, xc=xc, do=do), dtype)
+    jm = lambda k: j[k].astype(j["x"].dtype)  # noqa: E731
+    tm = lambda k: t[k].to(t["x"].dtype)  # noqa: E731
+    keys = ("gamma", "beta", "wqkv", "bqkv", "wo")
+    ref = pk._fused_ln_qkvo_rect_bwd(
+        EPS, seq, H, HD, False, False, False, False, False,
+        (jm("xc"), j["x"], *(j[k] for k in keys)), jm("do"))
+    args = (tm("xc"), t["x"], *(t[k] for k in keys), tm("do"), EPS, seq, H,
+            HD)
+    out = ck.fused_ln_qkvo_attention_rect_bwd_ref(*args)
+    assert out[0].dtype == out[1].dtype == t["x"].dtype
+    assert all(o.dtype == torch.float32 for o in out[2:])
+    _check_grads(ref, out, dtype, RECT_GRADS)
+    for a, b in zip(out, ck.fused_ln_qkvo_attention_rect_bwd(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_rect_bwd_pad_rows_add_nothing():
+    """xc's pad rows (zero cotangent) and x's pad rows past seq_len (masked
+    keys) add exactly nothing to the weight and bias grads: filling them
+    with other values leaves those grads unchanged."""
+    x, xc, do, _ = rect_bwd_inputs(2, 16, 13, 7, 31)
+    _, t = _both(dict(_weights(8), x=x, xc=xc, do=do), "float32")
+    keys = ("gamma", "beta", "wqkv", "bqkv", "wo")
+    base = ck.fused_ln_qkvo_attention_rect_bwd_ref(
+        t["xc"], t["x"], *(t[k] for k in keys), t["do"], EPS, 13, H, HD)
+    xc2, x2 = t["xc"].clone(), t["x"].clone()
+    xc2[:, 7:] = 3.0
+    x2[:, 13:] = -2.0
+    other = ck.fused_ln_qkvo_attention_rect_bwd_ref(
+        xc2, x2, *(t[k] for k in keys), t["do"], EPS, 13, H, HD)
+    for name, a, b in zip(RECT_GRADS[4:], base[4:], other[4:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    assert torch.equal(other[0][:, 7:], torch.zeros_like(other[0][:, 7:]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads,kv_heads", [(4, 2), (4, 1)])
+@pytest.mark.parametrize("batch,seq_len", [(1, SEQ), (3, 13)])
+def test_gqa_bwd_ref_matches_pallas(dtype, heads, kv_heads, batch, seq_len):
+    """K7's backward twin (K1's with kv_heads) against vitax's VJP with
+    kv_heads: dK and dV of a kv group one fp32 sum over its query heads;
+    every output, dWqkv and dbqkv on the packed GQA width."""
+    hd = 32
+    rng = np.random.default_rng(40 + heads + kv_heads)
+    arr = dict(_weights(9), x=_x(batch, SPQ, 9),
+               do=rng.standard_normal((batch, SPQ, D)).astype(np.float32),
+               **_gqa_weights(9, heads, kv_heads, hd))
+    j, t = _both(arr, dtype)
+    jdo, tdo = j["do"].astype(j["x"].dtype), t["do"].to(t["x"].dtype)
+    keys = ("x", "gamma", "beta", "wqkv", "bqkv", "wo")
+    ref = pk._fused_ln_qkvo_bwd(EPS, seq_len, heads, hd, False, False, False,
+                                False, False, kv_heads,
+                                tuple(j[k] for k in keys), jdo)
+    args = (*(t[k] for k in keys), tdo, EPS, seq_len, heads, hd)
+    out = ck.fused_ln_qkvo_attention_gqa_bwd_ref(*args, kv_heads)
+    assert out[3].shape == (D, (heads + 2 * kv_heads) * hd)
+    _check_grads(ref, out, dtype, ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv",
+                                   "dwo", "dbo"))
+    for a, b in zip(out, ck.fused_ln_qkvo_attention_bwd(*args,
+                                                        kv_heads=kv_heads)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_gqa_function_matches_autograd_through_the_twin():
+    """K7 under autograd (its Function, whose backward is K7's backward
+    twin here) against autograd through K1's forward twin with kv_heads,
+    fp32 within 1e-4 of each grad's scale."""
+    heads, kv_heads, hd = 4, 2, 32
+    arr = dict(_weights(10), x=_x(3, SPQ, 10),
+               **_gqa_weights(10, heads, kv_heads, hd))
+    _, t = _both(arr, "float32")
+    keys = ("x", "gamma", "beta", "wqkv", "bqkv", "wo", "bo")
+    a = [t[k].clone().requires_grad_() for k in keys]
+    b = [t[k].clone().requires_grad_() for k in keys]
+    ya = ck.fused_ln_qkvo_attention_gqa(*a, EPS, SEQ, heads, hd, kv_heads)
+    yb = ck.fused_ln_qkvo_attention_ref(*b, EPS, SEQ, heads, hd, kv_heads)
+    torch.testing.assert_close(ya, yb, rtol=0, atol=0)
+    do = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        tuple(ya.shape)).astype(np.float32))
+    ya.backward(do)
+    yb.backward(do)
+    for k, ta, tb in zip(keys, a, b):
+        bound = 1e-4 * max(1.0, tb.grad.abs().max().item())
+        assert (ta.grad - tb.grad).abs().max().item() <= bound, k

@@ -168,8 +168,14 @@ def test_init_and_params_from_jax_keep_vitaxs_layout(kw):
             np.testing.assert_array_equal(
                 tp["layers"][lid]["router"]["out3"]["bias"].numpy(),
                 np.tile([0.0, 5.0], tc.block_size))
-    with pytest.raises(ValueError, match="unstack_params"):
-        tr.params_from_jax(jax.tree.map(np.asarray, jr.stack_params(jp, jc)))
+    # vitax's pre-stacked scan layout loads, into the list layout
+    stacked = tr.params_from_jax(jax.tree.map(np.asarray,
+                                              jr.stack_params(jp, jc)))
+    s_leaves = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), stacked))[0]
+    assert [p for p, _ in s_leaves] == [p for p, _ in j_leaves]
+    for (_, a), (_, b) in zip(j_leaves, s_leaves):
+        np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------- router
@@ -188,14 +194,18 @@ def test_router_forward_eval_matches_vitax(block_size, dtype):
     with torch.inference_mode():
         out = tr.router_forward(torch.from_numpy(x).to(tc.dtype),
                                 tr.params_from_jax(lp), tc)
-    th, tpid, tent, tsoft = (t.numpy() for t in out)
+    th, tpid, tent, tsoft, trows = (t.numpy() for t in out)
     np.testing.assert_array_equal(np.asarray(hard), th)
     np.testing.assert_array_equal(np.asarray(pid), tpid)
     assert tpid.dtype == np.int32
     tol = 1e-5 if dtype == "float32" else TOL[dtype]
     np.testing.assert_allclose(tent, np.asarray(ent), rtol=tol, atol=tol)
     np.testing.assert_allclose(tsoft, np.asarray(soft), rtol=tol, atol=tol)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # each row's share of the entropy sum: their mean is the entropy
+    np.testing.assert_allclose(trows.mean(), tent, rtol=1e-5, atol=1e-6)
+    # training mode needs its Gumbel noise (tests/test_torch_resvit_train.py
+    # holds it against vitax's)
+    with pytest.raises(ValueError, match="Gumbel"):
         tr.router_forward(torch.from_numpy(x), tr.params_from_jax(lp), tc,
                           train=True)
 
@@ -270,7 +280,8 @@ def test_apply_rejects_what_is_not_ported():
     jc, tc = _cfgs()
     w = tr.params_from_jax(_weights(jc))
     x = torch.from_numpy(_images(1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # training draws its randomness from a generator or takes it injected
+    with pytest.raises(ValueError, match="generator or the noise"):
         tr.apply(w, x, tc, train=True)
     with pytest.raises(NotImplementedError, match="K11"):
         tr.apply(w, x, tc.replace(int4_mlp=True))
@@ -279,9 +290,16 @@ def test_apply_rejects_what_is_not_ported():
     gqa_j, gqa_t = _cfgs(n_kv_heads=1, **FUSED, int8_attn=True)
     with pytest.raises(NotImplementedError, match="K3's GQA"):
         tr.apply(tr.params_from_jax(_weights(gqa_j)), x, gqa_t)
-    stacked = {**w, "layers": {}}
-    with pytest.raises(NotImplementedError, match="stacked"):
-        tr.apply(stacked, x, tc)
+    # vitax's stacked layout runs the loop (its scan has the loop's math),
+    # but not with compaction, as vitax's apply
+    stacked = tr.stack_params(w, tc)
+    with torch.inference_mode():
+        torch.testing.assert_close(tr.apply(stacked, x, tc)[0],
+                                   tr.apply(w, x, tc)[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unrolled loop"):
+        tr.apply(stacked, x, tc.replace(compact_capacity=0.5))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        tr.apply(w, x, tc.replace(remat=True))
 
 
 def test_apply_nchw_is_apply():
@@ -355,12 +373,12 @@ def test_overflow_demotion_matches_vitax(monkeypatch):
         hard = jnp.stack([1.0 - keep, keep], axis=-1)
         return hard, jnp.ones((b, n), jnp.int32), jnp.zeros(()), hard
 
-    def t_router(x, p, cfg, train=False):
+    def t_router(x, p, cfg, train=False, gumbel=None):
         b = x.shape[0]
         keep = torch.ones((b, n, 1))
         hard = torch.stack([1.0 - keep, keep], dim=-1)
         return hard, torch.ones((b, n), dtype=torch.int32), \
-            torch.zeros(()), hard
+            torch.zeros(()), hard, torch.zeros((b,))
 
     monkeypatch.setattr(jr, "router_forward", j_router)
     monkeypatch.setattr(tr, "router_forward", t_router)

@@ -130,12 +130,21 @@ struct AttnGeom {
   float scale;
 };
 
+// The square core over a packed qkv [b·spq, (H + 2·Hkv)·HD]: [q | k | v],
+// MHA at kv_heads == heads (3·H·HD wide), GQA below.
+inline AttnGeom attn_geom_packed(const bf16* qkv, int b, int spq, int seq_len, int heads,
+                                 int kv_heads, int head_dim, float scale) {
+  const int hhd = heads * head_dim;
+  const int kvw = kv_heads * head_dim;
+  const size_t width = static_cast<size_t>(hhd + 2 * kvw);
+  return AttnGeom{qkv, width, spq, qkv, width, spq, hhd, hhd + kvw,
+                  heads, kv_heads, b, seq_len, scale};
+}
+
 // The square MHA core over a packed qkv [b·spq, 3·H·HD].
 inline AttnGeom attn_geom_square(const bf16* qkv, int b, int spq, int seq_len, int heads,
                                  int head_dim, float scale) {
-  const int hhd = heads * head_dim;
-  return AttnGeom{qkv, 3 * static_cast<size_t>(hhd), spq, qkv, 3 * static_cast<size_t>(hhd), spq,
-                  hhd, 2 * hhd, heads, heads, b, seq_len, scale};
+  return attn_geom_packed(qkv, b, spq, seq_len, heads, heads, head_dim, scale);
 }
 
 template <int HD, typename OutT>

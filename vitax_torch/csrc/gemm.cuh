@@ -117,7 +117,7 @@ __device__ __forceinline__ void gemm_load_tile(bf16* As, bf16* Bs, const bf16* _
       const int r = i / (kGemmBK / 8);
       const int c = (i % (kGemmBK / 8)) * 8;
       const bool ok = bn + r < N && k0 + c < k_end;
-      const bf16* src = B + (ok ? static_cast<size_t>(bn + r) * K + k0 + c : 0);
+      const bf16* src = B + (ok ? static_cast<size_t>(bn + r) * ldb + k0 + c : 0);
       cp_async16(&Bs[r * kGemmKLd + c], src, ok ? 16 : 0);
     }
   } else {
@@ -134,8 +134,8 @@ __device__ __forceinline__ void gemm_load_tile(bf16* As, bf16* Bs, const bf16* _
 }
 
 // Requires N % 8 == 0 and M % 8 == 0 for kTN (checked by the wrappers), and
-// K % 32 == 0 for kNN/kNT; ldb % 8 == 0 (B's row stride, N unless B is a
-// column slice of a wider matrix). blockIdx.z is the K split: K rows
+// K % 32 == 0 for kNN/kNT; ldb % 8 == 0 (B's row stride: N for kNN/kTN and K
+// for kNT, unless B is a column slice of a wider matrix). blockIdx.z is the K split: K rows
 // [z*k_chunk, min(K, (z+1)*k_chunk)); F then points at split z's partial.
 template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -302,9 +302,10 @@ cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, co
                              const float* Aux, bf16* C, float* F, int M, int N, int K,
                              int splits, cudaStream_t stream, int ldb = 0) {
   if (M == 0 || N == 0) return cudaSuccess;
+  const int row = LAYOUT == kNT ? K : N;  // the elements of a row of B
   if (ldb == 0)
-    ldb = N;
-  else if (ldb % 8 || ldb < N)
+    ldb = row;
+  else if (ldb % 8 || ldb < row)
     return cudaErrorInvalidValue;
   const int k_chunk = (K + splits * kGemmBK - 1) / (splits * kGemmBK) * kGemmBK;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
@@ -324,11 +325,13 @@ cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, const b
 }
 
 // dx-path products: C[M,N] = epilogue(A[M,K] @ B[N,K]^T), epilogue kStore
-// (bf16 C), kStoreF32 (fp32 F) or kGeluGrad (bf16 C, fp32 Aux [M,N]).
+// (bf16 C), kStoreF32 (fp32 F) or kGeluGrad (bf16 C, fp32 Aux [M,N]); ldb is
+// B's row stride (0: K), so B may be a column slice of a wider weight (K8's
+// backward contracts over the Q and KV slices of Wqkv).
 template <int EPI>
 cudaError_t launch_gemm_nt(const bf16* A, const bf16* B, const float* Aux, bf16* C, float* F,
-                           int M, int N, int K, cudaStream_t stream) {
-  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, Aux, C, F, M, N, K, 1, stream);
+                           int M, int N, int K, cudaStream_t stream, int ldb = 0) {
+  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, Aux, C, F, M, N, K, 1, stream, ldb);
 }
 
 // Weight grads: F[M,N] = A[K,M]^T @ B[K,N] in fp32, over K = all rows

@@ -263,4 +263,30 @@ cudaError_t launch_layer_norm_bwd(const TX* x, const float* gamma, const TD* dy,
                                           stream);
 }
 
+// a[i] += b[i] over n floats.
+template <int kDummy = 0>
+__global__ void add_into_kernel(float* __restrict__ a, const float* __restrict__ b, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) a[i] += b[i];
+}
+
+// The LN backward of one LN applied to two row sets (K8's gathered rows xc
+// [nc, d] and all rows x [n, d]): dxc and dx in TX; dγ and dβ the sum of
+// the two sets' sums, the second set's first into g2, b2 (fp32 [d]
+// scratch), then added. ws: the larger layer_norm_bwd_workspace of the two.
+template <typename TX, typename TD>
+cudaError_t launch_layer_norm_bwd_two(const TX* xc, const TD* dyc, TX* dxc, int nc, const TX* x,
+                                      const TD* dy, TX* dx, int n, const float* gamma,
+                                      float* dgamma, float* dbeta, float* g2, float* b2,
+                                      float* ws, int d, float eps, cudaStream_t stream) {
+  cudaError_t e = launch_layer_norm_bwd<TX, TD>(xc, gamma, dyc, nullptr, dxc, dgamma, dbeta, ws,
+                                                nc, d, eps, stream);
+  if (e != cudaSuccess) return e;
+  e = launch_layer_norm_bwd<TX, TD>(x, gamma, dy, nullptr, dx, g2, b2, ws, n, d, eps, stream);
+  if (e != cudaSuccess) return e;
+  add_into_kernel<0><<<(d + 255) / 256, 256, 0, stream>>>(dgamma, g2, d);
+  add_into_kernel<0><<<(d + 255) / 256, 256, 0, stream>>>(dbeta, b2, d);
+  return cudaGetLastError();
+}
+
 }  // namespace vitax

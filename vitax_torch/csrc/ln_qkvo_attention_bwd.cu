@@ -1,7 +1,8 @@
 // K1 backward, fused LN-QKVO attention: replaces _ln_qkvo_bwd_kernel
 // (vitax/ops/pallas_kernels.py:2898), the bf16 branch of _fused_ln_qkvo_bwd
 // (:3232, pallas_call at :3300), with _attn_core_recompute (:2814) and
-// _attn_core_grads (:2846).
+// _attn_core_grads (:2846); with kv_heads < heads its `kv_heads` branch (K7's
+// backward, GQA: the packed [q | k | v] row of (H + 2·Hkv)·hd columns).
 //
 //   recompute: xn = bf16(LN1(x)), qkv = bf16(xn Wqkv + bqkv), attn (K1's core)
 //   dattn = bf16(do Wo^T), dWo = attn^T do, dbo = Σ do          (:2933-2938)
@@ -35,35 +36,45 @@
 // pad query rows >= spq write zeros. Its gate is its own shared memory
 // (attn_bwd_smem_bytes, mirrored by cuda_kernels.attention_bwd_smem_bytes):
 // 4 warps a block at spq 200, 1 at spq 584.
+//
+// GQA (K7): the recompute and the query-tile pass read K and V of group
+// h·Hkv/H for query head h, as K7's forward; the key-tile pass runs one block
+// per (key tiles, kv group) and walks the group's H/Hkv query heads in head
+// order inside one set of fp32 accumulators, so dK and dV of a group are one
+// fp32 sum over its heads, cast once (vitax's :2884-2894), with one owner per
+// row: no atomics, the same bits each run. The projections shrink with the K
+// and V columns; the core's work does not.
 #include "attention_bwd.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
-extern "C" long long vitax_ln_qkvo_attention_bwd_ws(int n, int d, int hhd) {
+// fp32 workspace of the backward over n rows, qkv width w ((H + 2·Hkv)·hd).
+extern "C" long long vitax_ln_qkvo_attention_bwd_ws(int n, int d, int hhd, int w) {
   using namespace vitax;
   const size_t sizes[] = {layer_norm_bwd_workspace(n, d), colsum_workspace(n, d),
-                          colsum_workspace(n, 3 * hhd), gemm_tn_workspace(hhd, d, n),
-                          gemm_tn_workspace(d, 3 * hhd, n)};
+                          colsum_workspace(n, w), gemm_tn_workspace(hhd, d, n),
+                          gemm_tn_workspace(d, w, n)};
   size_t m = 0;
   for (size_t s : sizes) m = s > m ? s : m;
   return static_cast<long long>(m);
 }
 
-// Outputs dx (bf16 [n, d]) and fp32 dgamma, dbeta [d], dwqkv [d, 3hhd],
-// dbqkv [3hhd], dwo [hhd, d], dbo [d]. Scratch (bf16 unless noted): xn [n,d],
-// qkv [n,3hhd], attn and dattn [n,hhd], p and ds [b,heads,L,L] with L =
-// round_up(spq, 16), dqkv [n,3hhd], dxn fp32 [n,d], ws fp32
-// vitax_ln_qkvo_attention_bwd_ws(n, d, hhd).
+// Outputs dx (bf16 [n, d]) and fp32 dgamma, dbeta [d], dwqkv [d, w], dbqkv
+// [w], dwo [hhd, d], dbo [d], w = (heads + 2 kv_heads) head_dim. Scratch (bf16
+// unless noted): xn [n,d], qkv [n,w], attn and dattn [n,hhd], p and ds
+// [b,heads,L,L] with L = round_up(spq, 16), dqkv [n,w], dxn fp32 [n,d], ws fp32
+// vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w).
 extern "C" int vitax_ln_qkvo_attention_bwd(
     const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
     void* dbqkv, void* dwo, void* dbo, void* xn, void* qkv, void* attn, void* dattn, void* p,
     void* ds, void* dqkv, void* dxn, void* ws, int b, int spq, int d, int seq_len, int heads,
-    int head_dim, float eps, float scale, void* stream) {
+    int kv_heads, int head_dim, float eps, float scale, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
+  const int w = (heads + 2 * kv_heads) * head_dim;
   const auto* xb = static_cast<const bf16*>(x);
   const auto* wqkvb = static_cast<const bf16*>(wqkv);
   const auto* dob = static_cast<const bf16*>(dout);
@@ -74,16 +85,18 @@ extern "C" int vitax_ln_qkvo_attention_bwd(
   auto* dqkvb = static_cast<bf16*>(dqkv);
   auto* dxnf = static_cast<float*>(dxn);
   auto* wsf = static_cast<float*>(ws);
-  if (n == 0) return cudaErrorInvalidValue;
+  if (n == 0 || kv_heads <= 0 || heads % kv_heads) return cudaErrorInvalidValue;
 
   // recompute LN1, qkv and the attention core
   cudaError_t e = vitax::launch_layer_norm(xb, static_cast<const float*>(gamma),
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm<vitax::kBias>(xnb, wqkvb, static_cast<const float*>(bqkv), nullptr,
-                                       qkvb, n, 3 * hhd, d, st);
+                                       qkvb, n, w, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_attention_core_hd(qkvb, attnb, b, spq, seq_len, heads, head_dim, scale, st);
+  e = vitax::launch_attention_core_geom(
+      vitax::attn_geom_packed(qkvb, b, spq, seq_len, heads, kv_heads, head_dim, scale), head_dim,
+      attnb, st);
   if (e != cudaSuccess) return e;
 
   // out-projection grads
@@ -96,20 +109,18 @@ extern "C" int vitax_ln_qkvo_attention_bwd(
   if (e != cudaSuccess) return e;
 
   // attention-core grads -> dqkv
-  auto* pb = static_cast<bf16*>(p);
-  auto* dsb = static_cast<bf16*>(ds);
-  e = vitax::launch_attention_bwd_hd(qkvb, attnb, dattnb, pb, dsb, dqkvb, b, spq, seq_len,
-                                     heads, head_dim, scale, st);
+  e = vitax::launch_attention_bwd_packed(qkvb, attnb, dattnb, static_cast<bf16*>(p),
+                                         static_cast<bf16*>(ds), dqkvb, b, spq, seq_len, heads,
+                                         kv_heads, head_dim, scale, st);
   if (e != cudaSuccess) return e;
 
   // QKV projection grads and the LN tail
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqkvb, wqkvb, nullptr, nullptr, dxnf, n, d, 3 * hhd,
-                                              st);
+  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqkvb, wqkvb, nullptr, nullptr, dxnf, n, d, w, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, 3 * hhd, n, st);
+  e = vitax::launch_gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, w, n, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n,
-                           3 * hhd, st);
+  e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n, w,
+                           st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(
       xb, static_cast<const float*>(gamma), dxnf, nullptr, static_cast<bf16*>(dx),

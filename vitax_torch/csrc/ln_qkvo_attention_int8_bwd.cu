@@ -123,9 +123,9 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
   if (e != cudaSuccess) return e;
 
   // attention-core grads -> dqkv
-  e = vitax::launch_attention_bwd_hd(qkvb, attnb, dattnb, static_cast<bf16*>(p),
-                                     static_cast<bf16*>(ds), dqkvb, b, spq, seq_len, heads,
-                                     head_dim, scale, st);
+  e = vitax::launch_attention_bwd_packed(qkvb, attnb, dattnb, static_cast<bf16*>(p),
+                                         static_cast<bf16*>(ds), dqkvb, b, spq, seq_len, heads,
+                                         heads, head_dim, scale, st);
   if (e != cudaSuccess) return e;
 
   // QKV projection grads (dxn in s8) and the LN tail

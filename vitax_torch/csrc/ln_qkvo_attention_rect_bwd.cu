@@ -1,0 +1,158 @@
+// K8 backward, the rect (compacted-Q) fused attention half: replaces
+// _ln_qkvo_rect_bwd_kernel (vitax/ops/pallas_kernels.py:4155), the bf16
+// branch of _fused_ln_qkvo_rect_bwd (:4491, pallas_call at :4555), with
+// _rect_core_recompute (:3949) and _rect_core_grads (:3977). The query rows
+// are the cpq gathered rows xc, the key rows all spq rows x (:4168-4228):
+//
+//   recompute: xnc = bf16(LN(xc)), xn = bf16(LN(x))
+//              q = bf16(xnc Wq + bq), kv = bf16(xn Wkv + bkv)  (column slices)
+//              attn: K8's core over the spq keys, bf16
+//   dattn = bf16(do Wo^T), dWo = attn^T do, dbo = Σ do          (xc rows)
+//   per (image, head), P the fp32 softmax [cpq, spq]:
+//     ds = bf16(P (dO V^T - rowsum(dO O))), dq = bf16((ds K) scale)   xc rows
+//     dk = bf16((ds^T Q) scale), dv = bf16(bf16(P)^T dO)               x rows
+//   dxnc = dq Wq^T, dxn = dkv Wkv^T (fp32), each into its own LN backward:
+//     dxc = bf16(LN'(dxnc)), dx = bf16(LN'(dxn)); dγ, dβ summed over both sets
+//   dWq = xnc^T dq, dWkv = xn^T dkv, dbq = Σ dq, dbkv = Σ dkv (fp32)
+// dWqkv = [dWq | dWkv] is concatenated by the caller, as vitax's wrapper does.
+//
+// xc's pad rows (cpq - cap, zero-filled by the caller) get a zero cotangent
+// from the caller's row cut, so their dattn, ds and dq rows are exactly 0 and
+// they add nothing to dWo, dWq, dbq or dγ; x's pad rows (spq - seq_len) are
+// masked key columns, so their P and ds are exactly 0 and their dk, dv rows
+// add nothing to dWkv, dbkv.
+//
+// Bound on the H100: at b32, cpq 128 of spq 200 (Res-ViT b16's compaction at
+// C 0.625), ~77 GFLOP on the tensor cores, 0.08 ms at 989 TFLOP/s: the Q-side
+// products and the core shrink with cpq, the KV-side ones do not. Design:
+// K1's backward (ln_qkvo_attention_bwd.cu) on two row sets, 18 launches on
+// one stream. The GEMMs read the Q and KV column slices of Wqkv in place by
+// row stride (gemm.cuh's ldb, kNN and kNT); the core backward is
+// attention_bwd.cuh's in the rect geometry, its P and ds [b, H, Lq, Lk] with
+// Lq, Lk = cpq, spq rounded up to 16; every weight grad is one split-K kTN
+// product with an ordered second pass, every vector grad a two-pass column
+// sum. No float atomics: two runs give the same bits.
+#include "attention_bwd.cuh"
+#include "gemm.cuh"
+#include "layernorm.cuh"
+
+namespace {
+
+size_t rect_bwd_ws(int nc, int n, int d, int hhd) {
+  using namespace vitax;
+  const size_t sizes[] = {layer_norm_bwd_workspace(nc, d),
+                          layer_norm_bwd_workspace(n, d),
+                          colsum_workspace(nc, d),
+                          colsum_workspace(nc, hhd),
+                          colsum_workspace(n, 2 * hhd),
+                          gemm_tn_workspace(hhd, d, nc),
+                          gemm_tn_workspace(d, hhd, nc),
+                          gemm_tn_workspace(d, 2 * hhd, n)};
+  size_t m = 0;
+  for (size_t s : sizes) m = s > m ? s : m;
+  return m;
+}
+
+}  // namespace
+
+// fp32 workspace of K8's backward (both tiers) over nc query rows and n key
+// rows.
+extern "C" long long vitax_ln_qkvo_attention_rect_bwd_ws(int nc, int n, int d, int hhd) {
+  return static_cast<long long>(rect_bwd_ws(nc, n, d, hhd));
+}
+
+// Inputs xc, dout bf16 [b·cpq, d], x bf16 [b·spq, d], gamma, beta fp32 [d],
+// wqkv bf16 [d, 3hhd], bqkv fp32 [3hhd], wo bf16 [hhd, d]. Outputs dxc bf16
+// [b·cpq, d], dx bf16 [b·spq, d], fp32 dgamma, dbeta [d], dwq [d, hhd], dwkv
+// [d, 2hhd], dbq [hhd], dbkv [2hhd], dwo [hhd, d], dbo [d]. Scratch (bf16
+// unless noted): xnc [b·cpq, d], xn [b·spq, d], q [b·cpq, hhd], kv
+// [b·spq, 2hhd], attn, dattn, dq [b·cpq, hhd], p, ds [b, heads, Lq, Lk],
+// dkv [b·spq, 2hhd], dxnc fp32 [b·cpq, d], dxn fp32 [b·spq, d], g2, b2 fp32
+// [d], ws fp32 vitax_ln_qkvo_attention_rect_bwd_ws(b·cpq, b·spq, d, hhd).
+extern "C" int vitax_ln_qkvo_attention_rect_bwd(
+    const void* xc, const void* x, const void* gamma, const void* beta, const void* wqkv,
+    const void* bqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
+    void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* xnc,
+    void* xn, void* q, void* kv, void* attn, void* dattn, void* p, void* ds, void* dq, void* dkv,
+    void* dxnc, void* dxn, void* g2, void* b2, void* ws, int b, int cpq, int spq, int d,
+    int seq_len, int heads, int head_dim, float eps, float scale, void* stream) {
+  using vitax::bf16;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int nc = b * cpq;
+  const int n = b * spq;
+  const int hhd = heads * head_dim;
+  if (nc == 0 || n == 0) return cudaErrorInvalidValue;
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* be = static_cast<const float*>(beta);
+  const auto* w = static_cast<const bf16*>(wqkv);
+  const auto* bias = static_cast<const float*>(bqkv);
+  const auto* dob = static_cast<const bf16*>(dout);
+  auto* xncb = static_cast<bf16*>(xnc);
+  auto* xnb = static_cast<bf16*>(xn);
+  auto* qb = static_cast<bf16*>(q);
+  auto* kvb = static_cast<bf16*>(kv);
+  auto* attnb = static_cast<bf16*>(attn);
+  auto* dattnb = static_cast<bf16*>(dattn);
+  auto* dqb = static_cast<bf16*>(dq);
+  auto* dkvb = static_cast<bf16*>(dkv);
+  auto* dxncf = static_cast<float*>(dxnc);
+  auto* dxnf = static_cast<float*>(dxn);
+  auto* wsf = static_cast<float*>(ws);
+
+  // recompute both LNs, q, kv and the rect core
+  cudaError_t e = vitax::launch_layer_norm(static_cast<const bf16*>(xc), g, be, xncb, nc, d, eps,
+                                           st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_layer_norm(static_cast<const bf16*>(x), g, be, xnb, n, d, eps, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm<vitax::kBias>(xncb, w, bias, nullptr, qb, nc, hhd, d, st, nullptr,
+                                       3 * hhd);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm<vitax::kBias>(xnb, w + hhd, bias + hhd, nullptr, kvb, n, 2 * hhd, d, st,
+                                       nullptr, 3 * hhd);
+  if (e != cudaSuccess) return e;
+  const vitax::AttnGeom geom{qb,  static_cast<size_t>(hhd), cpq,   kvb, 2 * static_cast<size_t>(hhd),
+                             spq, 0,                         hhd,   heads, heads,
+                             b,   seq_len,                   scale};
+  e = vitax::launch_attention_core_geom(geom, head_dim, attnb, st);
+  if (e != cudaSuccess) return e;
+
+  // out-projection grads over the xc rows
+  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), nullptr, dattnb,
+                                           nullptr, nc, hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, nc, d, st);
+  if (e != cudaSuccess) return e;
+
+  // rect core grads: dq on the xc rows, dk and dv on the x rows
+  const vitax::AttnBwdGeom bg{geom, attnb, dattnb, dqb, static_cast<size_t>(hhd), dkvb,
+                              2 * static_cast<size_t>(hhd), 0, hhd,
+                              static_cast<bf16*>(p), static_cast<bf16*>(ds)};
+  e = vitax::launch_attention_bwd_geom(bg, head_dim, st);
+  if (e != cudaSuccess) return e;
+
+  // projection grads of the two row sets and the two LN tails
+  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqb, w, nullptr, nullptr, dxncf, nc, d, hhd, st,
+                                              3 * hhd);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dkvb, w + hhd, nullptr, nullptr, dxnf, n, d,
+                                              2 * hhd, st, 3 * hhd);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_tn(xncb, dqb, static_cast<float*>(dwq), wsf, d, hhd, nc, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_tn(xnb, dkvb, static_cast<float*>(dwkv), wsf, d, 2 * hhd, n, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const bf16*>(dqb), static_cast<float*>(dbq), wsf, nc, hhd,
+                           st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const bf16*>(dkvb), static_cast<float*>(dbkv), wsf, n,
+                           2 * hhd, st);
+  if (e != cudaSuccess) return e;
+  return vitax::launch_layer_norm_bwd_two<bf16, float>(
+      static_cast<const bf16*>(xc), dxncf, static_cast<bf16*>(dxc), nc,
+      static_cast<const bf16*>(x), dxnf, static_cast<bf16*>(dx), n, g,
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(g2),
+      static_cast<float*>(b2), wsf, d, eps, st);
+}

@@ -1,0 +1,209 @@
+// K8 backward under int8_grad, the rect fused attention half: replaces
+// _ln_qkvo_rect_bwd_int8_kernel (vitax/ops/pallas_kernels.py:4253), the int8
+// branch of _fused_ln_qkvo_rect_bwd (:4491, pallas_call at :4534), with
+// int8_dw off or on and int4_grad off. K3's SwitchBack split (ln_qkvo_
+// attention_int8_bwd.cu) on K8's two row sets, in the order of the Pallas
+// body (:4273-4385):
+//
+//   recompute: xnc32 = LN(xc), xn32 = LN(x); xqc, sxc = quant_rows(xnc32),
+//              xq, sx = quant_rows(xn32)
+//              q = bf16(f32(xqc Wq8) sxc swq + bq), kv = bf16(f32(xq Wkv8) sx swkv + bkv)
+//              attn: K8's core, bf16 (the backward's recompute rounds it)
+//   doq, sdo = quant_rows(do); dattn = bf16(f32(doq Wor^T) sdo swor)
+//   dq, dkv: the bf16 rect core grads (attention_bwd.cuh, rect geometry)
+//   dqq, sdq = quant_rows(dq);    dxnc = f32(dqq Wqr^T) sdq swqr
+//   dkvq, sdkv = quant_rows(dkv); dxn  = f32(dkvq Wkvr^T) sdkv swkvr
+//   dxc, dx, dγ, dβ: the two LN backwards, as the bf16 tier
+//   dWo, dWq, dWkv: bf16 products (attn^T do, bf16(xnc32)^T dq,
+//   bf16(xn32)^T dkv), or with int8_dw the per-group int8 products with
+//   row-scale folding (dw_int8.cuh):
+//     dWo  = Σ_z f32(quant_cols(attn_z sdo_z)^T doq_z) sat_z      groups of group_c rows
+//     dWq  = Σ_z f32(quant_cols(xnc32_z sdq_z)^T dqq_z) sxnc_z    groups of group_c rows
+//     dWkv = Σ_z f32(quant_cols(xn32_z sdkv_z)^T dkvq_z) sxn_z    groups of group_k rows
+//   dbq = Σ f32(dq), dbkv = Σ f32(dkv), dbo = Σ do
+//
+// The weights' codes: Wq8/Wkv8 per output column, the forward's (Wqkv
+// quantized whole, written [3hhd, d]; a column's code does not depend on
+// the others); Wqr, Wkvr and Wor per row over their own columns
+// (_quant_rows_host of the slices Wq [d, hhd] and Wkv [d, 2hhd], read in place
+// by row stride, so their row scales are those of the slices, not of Wqkv's
+// whole rows). The int8_dw groups are vitax's grid step: tile images of
+// _qkvo_bwd_tile(b, spq) (:3223), so tile·cpq rows on the Q side and for dWo,
+// tile·spq rows on the KV side; the wrapper passes both.
+//
+// Bound on the H100: the s8 projections (four, and three more under
+// int8_dw) and two bf16 kTN products on the tensor cores, and the core's
+// recompute and backward. Design: the bf16 tier's launches
+// (ln_qkvo_attention_rect_bwd.cu) with the quantizing LN, the s8 GEMM, the
+// row quantizer and the int8_dw products swapped in. No float atomics: two
+// runs give the same bits.
+#include "attention_bwd.cuh"
+#include "dw_int8.cuh"
+#include "gemm.cuh"
+#include "layernorm.cuh"
+
+// Inputs xc, dout bf16 [b·cpq, d], x bf16 [b·spq, d], gamma, beta fp32 [d],
+// bqkv [3hhd], wqkv bf16 [d, 3hhd], wo bf16 [hhd, d]. Outputs as the bf16
+// tier's. Scratch: w8t int8 [3hhd, d], sw [3hhd], wq8r int8 [d, hhd], swqr
+// [d], wkv8r int8 [d, 2hhd], swkvr [d], wo8r int8 [hhd, d], swor [hhd]; xnc
+// [b·cpq, d] and xn [b·spq, d] (bf16, or fp32 under int8_dw), xqc int8 and
+// sxc, xq int8 and sx; q, kv, attn, dattn, dq, dkv bf16 as the bf16 tier's;
+// doq int8 [b·cpq, d], sdo; p, ds; dqq int8 [b·cpq, hhd], sdq; dkvq int8
+// [b·spq, 2hhd], sdkv; dxnc, dxn fp32; g2, b2 fp32 [d]; ws fp32
+// vitax_ln_qkvo_attention_rect_bwd_ws. With int8_dw (else null), kpc =
+// groups·round_up(group_c, 64), kpk = groups·round_up(group_k, 64): atct int8
+// [hhd, kpc], sat [groups, hhd], doqt int8 [d, kpc], xnct int8 [d, kpc], sxnc
+// [groups, d], dqqt int8 [hhd, kpc], xnkt int8 [d, kpk], sxnk [groups, d],
+// dkvqt int8 [2hhd, kpk].
+extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
+    const void* xc, const void* x, const void* gamma, const void* beta, const void* bqkv,
+    const void* wqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
+    void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* w8t,
+    void* sw, void* wq8r, void* swqr, void* wkv8r, void* swkvr, void* wo8r, void* swor,
+    void* xnc, void* xqc, void* sxc, void* xn, void* xq, void* sx, void* q, void* kv, void* attn,
+    void* doq, void* sdo, void* dattn, void* p, void* ds, void* dq, void* dkv, void* dqq,
+    void* sdq, void* dkvq, void* sdkv, void* dxnc, void* dxn, void* g2, void* b2, void* ws,
+    void* atct, void* sat, void* doqt, void* xnct, void* sxnc, void* dqqt, void* xnkt,
+    void* sxnk, void* dkvqt, int b, int cpq, int spq, int d, int seq_len, int heads,
+    int head_dim, int group_c, int group_k, int int8_dw, float eps, float scale, void* stream) {
+  using vitax::bf16;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int nc = b * cpq;
+  const int n = b * spq;
+  const int hhd = heads * head_dim;
+  if (nc == 0 || n == 0) return cudaErrorInvalidValue;
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* be = static_cast<const float*>(beta);
+  const auto* bias = static_cast<const float*>(bqkv);
+  const auto* wqkvb = static_cast<const bf16*>(wqkv);
+  const auto* dob = static_cast<const bf16*>(dout);
+  auto* w8 = static_cast<int8_t*>(w8t);
+  auto* swf = static_cast<float*>(sw);
+  auto* xqci = static_cast<int8_t*>(xqc);
+  auto* sxcf = static_cast<float*>(sxc);
+  auto* xqi = static_cast<int8_t*>(xq);
+  auto* sxf = static_cast<float*>(sx);
+  auto* qb = static_cast<bf16*>(q);
+  auto* kvb = static_cast<bf16*>(kv);
+  auto* attnb = static_cast<bf16*>(attn);
+  auto* doqi = static_cast<int8_t*>(doq);
+  auto* sdof = static_cast<float*>(sdo);
+  auto* dattnb = static_cast<bf16*>(dattn);
+  auto* dqb = static_cast<bf16*>(dq);
+  auto* dkvb = static_cast<bf16*>(dkv);
+  auto* dqqi = static_cast<int8_t*>(dqq);
+  auto* sdqf = static_cast<float*>(sdq);
+  auto* dkvqi = static_cast<int8_t*>(dkvq);
+  auto* sdkvf = static_cast<float*>(sdkv);
+  auto* dxncf = static_cast<float*>(dxnc);
+  auto* dxnf = static_cast<float*>(dxn);
+  auto* wsf = static_cast<float*>(ws);
+
+  // the weights' codes
+  cudaError_t e = vitax::launch_quant_weight_cols_t(wqkvb, w8, swf, d, 3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(wqkvb, static_cast<int8_t*>(wq8r),
+                                      static_cast<float*>(swqr), d, hhd, st, 3 * hhd);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(wqkvb + hhd, static_cast<int8_t*>(wkv8r),
+                                      static_cast<float*>(swkvr), d, 2 * hhd, st, 3 * hhd);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8r),
+                                      static_cast<float*>(swor), hhd, d, st);
+  if (e != cudaSuccess) return e;
+
+  // recompute both LNs (+ codes; xnc and xn for the weight grads, fp32 under
+  // int8_dw), q and kv (s8) and the rect core
+  if (int8_dw) {
+    e = vitax::launch_layer_norm_quant<false, true>(static_cast<const bf16*>(xc), g, be, xqci,
+                                                    sxcf, xnc, nc, d, eps, st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_layer_norm_quant<false, true>(static_cast<const bf16*>(x), g, be, xqi, sxf,
+                                                    xn, n, d, eps, st);
+  } else {
+    e = vitax::launch_layer_norm_quant<false>(static_cast<const bf16*>(xc), g, be, xqci, sxcf,
+                                              xnc, nc, d, eps, st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_layer_norm_quant<false>(static_cast<const bf16*>(x), g, be, xqi, sxf, xn, n,
+                                              d, eps, st);
+  }
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqci, w8, sxcf, swf, bias, nullptr, nullptr, qb,
+                                            nullptr, nc, hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, w8 + static_cast<size_t>(hhd) * d, sxf,
+                                            swf + hhd, bias + hhd, nullptr, nullptr, kvb, nullptr,
+                                            n, 2 * hhd, d, st);
+  if (e != cudaSuccess) return e;
+  const vitax::AttnGeom geom{qb,  static_cast<size_t>(hhd), cpq,   kvb, 2 * static_cast<size_t>(hhd),
+                             spq, 0,                         hhd,   heads, heads,
+                             b,   seq_len,                   scale};
+  e = vitax::launch_attention_core_geom(geom, head_dim, attnb, st);
+  if (e != cudaSuccess) return e;
+
+  // out-projection grads: dattn in s8, dWo and dbo over the bf16 do
+  e = vitax::launch_quant_rows(dob, doqi, sdof, nc, d, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(doqi, static_cast<const int8_t*>(wo8r), sdof,
+                                            static_cast<const float*>(swor), nullptr, nullptr,
+                                            nullptr, dattnb, nullptr, nc, hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = int8_dw ? vitax::launch_dw_int8<bf16>(attnb, sdof, doqi, nc, hhd, d, group_c,
+                                             static_cast<int8_t*>(atct), static_cast<float*>(sat),
+                                             static_cast<int8_t*>(doqt), static_cast<float*>(dwo),
+                                             st)
+              : vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, nc, d, st);
+  if (e != cudaSuccess) return e;
+
+  // rect core grads: dq on the xc rows, dk and dv on the x rows
+  const vitax::AttnBwdGeom bg{geom, attnb, dattnb, dqb, static_cast<size_t>(hhd), dkvb,
+                              2 * static_cast<size_t>(hhd), 0, hhd,
+                              static_cast<bf16*>(p), static_cast<bf16*>(ds)};
+  e = vitax::launch_attention_bwd_geom(bg, head_dim, st);
+  if (e != cudaSuccess) return e;
+
+  // projection grads of the two row sets (dxn in s8) and the two LN tails
+  e = vitax::launch_quant_rows(static_cast<const bf16*>(dqb), dqqi, sdqf, nc, hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8F32>(dqqi, static_cast<const int8_t*>(wq8r), sdqf,
+                                           static_cast<const float*>(swqr), nullptr, nullptr,
+                                           nullptr, nullptr, dxncf, nc, d, hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_rows(static_cast<const bf16*>(dkvb), dkvqi, sdkvf, n, 2 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_gemm_s8<vitax::kS8F32>(dkvqi, static_cast<const int8_t*>(wkv8r), sdkvf,
+                                           static_cast<const float*>(swkvr), nullptr, nullptr,
+                                           nullptr, nullptr, dxnf, n, d, 2 * hhd, st);
+  if (e != cudaSuccess) return e;
+  if (int8_dw) {
+    e = vitax::launch_dw_int8<float>(static_cast<const float*>(xnc), sdqf, dqqi, nc, d, hhd,
+                                     group_c, static_cast<int8_t*>(xnct),
+                                     static_cast<float*>(sxnc), static_cast<int8_t*>(dqqt),
+                                     static_cast<float*>(dwq), st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_dw_int8<float>(static_cast<const float*>(xn), sdkvf, dkvqi, n, d, 2 * hhd,
+                                     group_k, static_cast<int8_t*>(xnkt),
+                                     static_cast<float*>(sxnk), static_cast<int8_t*>(dkvqt),
+                                     static_cast<float*>(dwkv), st);
+  } else {
+    e = vitax::launch_gemm_tn(static_cast<const bf16*>(xnc), dqb, static_cast<float*>(dwq), wsf,
+                              d, hhd, nc, st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_gemm_tn(static_cast<const bf16*>(xn), dkvb, static_cast<float*>(dwkv), wsf,
+                              d, 2 * hhd, n, st);
+  }
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const bf16*>(dqb), static_cast<float*>(dbq), wsf, nc, hhd,
+                           st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const bf16*>(dkvb), static_cast<float*>(dbkv), wsf, n,
+                           2 * hhd, st);
+  if (e != cudaSuccess) return e;
+  return vitax::launch_layer_norm_bwd_two<bf16, float>(
+      static_cast<const bf16*>(xc), dxncf, static_cast<bf16*>(dxc), nc,
+      static_cast<const bf16*>(x), dxnf, static_cast<bf16*>(dx), n, g,
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(g2),
+      static_cast<float*>(b2), wsf, d, eps, st);
+}

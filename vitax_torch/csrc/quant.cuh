@@ -142,15 +142,16 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// q[k][:] and s[k] of each row of w [K, N]: one warp a row; N % 8 == 0.
+// q[k][:] and s[k] of each row of w [K, N] (row stride ld): one warp a row;
+// N % 8 == 0.
 template <int kDummy = 0>
 __global__ void __launch_bounds__(256)
     weight_rows_kernel(const bf16* __restrict__ w, int8_t* __restrict__ q,
-                       float* __restrict__ s, int K, int N) {
+                       float* __restrict__ s, int K, int N, int ld) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= K) return;
-  const bf16* wr = w + static_cast<size_t>(row) * N;
+  const bf16* wr = w + static_cast<size_t>(row) * ld;
   float amax = 0.f;
   for (int i = lane * 8; i < N; i += 256) {
     float v[8];
@@ -183,12 +184,15 @@ inline cudaError_t launch_quant_weight_cols_t(const bf16* w, int8_t* qt, float* 
   return cudaGetLastError();
 }
 
-// Per-row codes q [K, N] and s [K] of w [K, N]; N % 8 == 0.
+// Per-row codes q [K, N] and s [K] of w [K, N]; N % 8 == 0. ld is w's row
+// stride (0: N), so w may be a column slice of a wider weight (K8's Wq and
+// Wkv, whose row codes are their own, not those of Wqkv's whole rows).
 inline cudaError_t launch_quant_weight_rows(const bf16* w, int8_t* q, float* s, int K, int N,
-                                            cudaStream_t stream) {
+                                            cudaStream_t stream, int ld = 0) {
   if (K == 0) return cudaSuccess;
-  if (N % 8) return cudaErrorInvalidValue;
-  weight_rows_kernel<0><<<(K + 7) / 8, 256, 0, stream>>>(w, q, s, K, N);
+  if (ld == 0) ld = N;
+  if (N % 8 || ld % 8 || ld < N) return cudaErrorInvalidValue;
+  weight_rows_kernel<0><<<(K + 7) / 8, 256, 0, stream>>>(w, q, s, K, N, ld);
   return cudaGetLastError();
 }
 

@@ -53,7 +53,7 @@ def main(argv=None, device=None):
     if config.n_gpu > 1:
         raise NotImplementedError(
             "--n-gpu > 1: data-parallel eval comes with the parallel/ port "
-            "(ROADMAP Queue 1 item 11)")
+            "(ROADMAP Queue 1 item 5)")
     gen = set_seed(config.seed)
 
     device = cli.resolve_device(device)
@@ -74,7 +74,7 @@ def main(argv=None, device=None):
             raise NotImplementedError(
                 f"{path}: only .npz checkpoints load in the port so far; .pth "
                 "files and vitax checkpoint stores are not yet ported "
-                "(ROADMAP Queue 1 item 8)")
+                "(ROADMAP Queue 1 item 4)")
         loaded = load_npz_params(path, cfg)
         if "classifier" not in loaded:
             raise ValueError(

@@ -36,7 +36,7 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_fwd": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "vitax_layer_norm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
     "vitax_ln_mlp_bwd": [_P] * 20 + [_I, _I, _I, _F, _I, _P],
-    "vitax_ln_qkvo_attention_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_bwd": [_P] * 23 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_mlp_int8_fwd": [_P] * 17 + [_I, _I, _I, _F, _P],
     "vitax_ln_mlp_int8_bwd": [_P] * 39 + [_I] * 5 + [_F, _P],
     "vitax_ln_qkvo_attention_int8_fwd": [_P] * 18 + [_I] * 6 + [_F, _F, _P],
@@ -45,12 +45,15 @@ SIGNATURES = {
     "vitax_ln_mlp_int8_ho_fwd": [_P] * 19 + [_I] * 3 + [_F, _P],
     "vitax_ln_qkvo_attention_rect_fwd": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int8_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_rect_bwd": [_P] * 33 + [_I] * 7 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_rect_int8_bwd": [_P] * 60 + [_I] * 10 + [_F, _F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {
     "vitax_layer_norm_bwd_ws": [_I, _I],
     "vitax_ln_mlp_bwd_ws": [_I, _I, _I],
-    "vitax_ln_qkvo_attention_bwd_ws": [_I, _I, _I],
+    "vitax_ln_qkvo_attention_bwd_ws": [_I] * 4,
+    "vitax_ln_qkvo_attention_rect_bwd_ws": [_I] * 4,
 }
 
 _lib = None

@@ -1,28 +1,33 @@
-"""Residual ViT (Res-ViT), inference path (counterpart of
+"""Residual ViT (Res-ViT), serving and training (counterpart of
 vitax/models/resvit.py).
 
 Parameters are a plain dict in vitax's pytree layout: per-layer dicts in a
 list (block heads carry `router` and `approximators`), `[in, out]` linear
 kernels, the patch conv in HWIO. `params_from_jax` takes vitax's tree as
-numpy arrays. The forward is vitax's `_apply_loop` with `train=False`: a
-router at each block head picks, per token, the layers of its block that run
-the full transformer block (argmax routing); the others take the low-rank
-approximator of their path id. With `compact_capacity` the routed layers run
-only ceil(C·N) tokens ranked active first (`compact_routed_block`): on the
-card the attention's query rows run through the rect kernel (K8) and the MLP
-half on the gathered rows.
+numpy arrays, in either of its layouts. The forward is vitax's `_apply_loop`:
+a router at each block head picks, per token, the layers of its block that
+run the full transformer block (argmax routing in eval, Gumbel
+straight-through in training); the others take the low-rank approximator of
+their path id. In training a teacher runs every routed layer densely beside
+the student, and the per-layer distill loss holds the student's cls token to
+the teacher's. With `compact_capacity` the routed layers run only ceil(C·N)
+tokens ranked active first (`compact_routed_block`): on the card the
+attention's query rows run through the rect kernel (K8) and the MLP half on
+the gathered rows.
 
 On CUDA with `fused_qkv` and `fused_qkvo` the attention half is one kernel:
 K1 (K7 with n_kv_heads < n_heads, K3 with `int8_attn`), K8 for the compacted
 rows; `fused_mlp` takes the MLP half to K2 (K4 with `int8_mlp`); LayerNorms
-elsewhere (router, final norm, the plain MLP half) take the LN kernel. With
-them off it is plain PyTorch ops.
+elsewhere (router, final norm, the plain MLP half) take the LN kernel. Under
+autograd each has its backward kernel. With them off it is plain PyTorch
+ops.
 
-Not here yet (ROADMAP Queue 1 item 10, Res-ViT training): the train mode
-(Gumbel routing, the teacher path, the distill loss), `active_loss`,
-`trainable_mask`, the stacked scan layout (`_apply_scan`,
-`stack_params`/`unstack_params`) and remat; they raise where they would take
-effect.
+The train-time randomness (the Gumbel noise of each block head, the kept
+tokens of `token_keep`) is drawn from a `torch.Generator`, or injected
+(`apply(..., noise=)`), so that a test can hand both packages the same
+values. vitax's stacked scan layout (`stack_params`) runs the loop: its
+`_apply_scan` has the loop's math, and its motive is XLA compile time.
+Remat raises (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -41,12 +46,10 @@ from vitax_torch.ops.attention import multi_head_attention
 from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm
 from vitax_torch.ops.mlp import gelu_exact
+from vitax_torch.models.vit import drop_tokens
 from vitax_torch.ops.patchify import patchify_matmul
 
 Params = Dict[str, Any]
-
-_TRAINING = ("Res-ViT training (the Gumbel router, the teacher path, the "
-             "distill loss) is not ported yet: ROADMAP Queue 1 item 10")
 
 
 # ---------------------------------------------------------------------------
@@ -149,12 +152,14 @@ def init_layer(gen: torch.Generator, cfg: ResViTConfig, role: Dict) -> Params:
     return p
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+def _tree_map(fn, *trees):
+    """fn over the leaves of trees of one structure (dicts and lists)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, list):
+        return [_tree_map(fn, *(t[i] for t in trees)) for i in range(len(t0))]
+    return fn(*trees)
 
 
 def init_params(gen: torch.Generator, cfg: ResViTConfig,
@@ -183,14 +188,102 @@ def init_params(gen: torch.Generator, cfg: ResViTConfig,
 def params_from_jax(tree: Params, device: torch.device | str = "cpu"
                     ) -> Params:
     """vitax's Res-ViT parameter pytree (numpy arrays, e.g.
-    `jax.tree.map(np.asarray, params)`), in its per-layer list layout, →
-    this package's parameters (the same keys and shapes)."""
-    if isinstance(tree.get("layers"), dict):
-        raise ValueError(
-            "params are in vitax's pre-stacked scan layout; convert them with "
-            "vitax.models.resvit.unstack_params first (the port has the "
-            "per-layer list layout only)")
-    return _tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    `jax.tree.map(np.asarray, params)`) → this package's parameters (the
+    same keys and shapes), in the per-layer list layout: a tree in vitax's
+    pre-stacked scan layout is unstacked (its plain-prefix depth, block
+    count and block size read from the stacked leaves)."""
+    return unstack_params(_tree_map(
+        lambda a: torch.from_numpy(np.array(a)).to(device), tree))
+
+
+# ---------------------------------------------------------------------------
+# vitax's pre-stacked scan layout (stack_params / unstack_params :674-738):
+# {"prefix": plain layers [dsl, ...], "base": routed layers without their
+# head extras [nblocks, bs, ...], "router", "approximators": [nblocks, ...]}
+# ---------------------------------------------------------------------------
+
+def is_stacked(params: Params) -> bool:
+    """True when `params["layers"]` is in the pre-stacked scan layout."""
+    return isinstance(params.get("layers"), dict)
+
+
+def _stack(trees: List[Any]) -> Any:
+    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _strip_head_extras(lp: Params) -> Params:
+    return {k: v for k, v in lp.items() if k not in ("router",
+                                                     "approximators")}
+
+
+def _scan_eligible(cfg: ResViTConfig) -> bool:
+    """vitax's condition for the scan layout: the routed region is whole
+    blocks."""
+    if not cfg.use_reslr:
+        return True
+    routed = cfg.n_layers - cfg.dynamic_start_layer
+    return routed > 0 and routed % cfg.block_size == 0
+
+
+def stack_params(params: Params, cfg: ResViTConfig) -> Params:
+    """Per-layer list layout → vitax's pre-stacked scan layout (new leaves,
+    stacked copies)."""
+    if is_stacked(params):
+        return params
+    if not _scan_eligible(cfg):
+        raise ValueError("cannot stack: routed region is not whole blocks")
+    dsl = cfg.dynamic_start_layer if cfg.use_reslr else cfg.n_layers
+    bs, n_layers = cfg.block_size, cfg.n_layers
+    layers = params["layers"]
+    stacked: Params = {}
+    if dsl > 0:
+        stacked["prefix"] = _stack(layers[:dsl])
+    if dsl < n_layers:
+        heads = range(dsl, n_layers, bs)
+        stacked["base"] = _stack([
+            _stack([_strip_head_extras(layers[h + p]) for p in range(bs)])
+            for h in heads])
+        stacked["router"] = _stack([layers[h]["router"] for h in heads])
+        stacked["approximators"] = _stack([layers[h]["approximators"]
+                                           for h in heads])
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = stacked
+    return out
+
+
+def _leading(tree: Any, ndim: int) -> Tuple[int, ...]:
+    while isinstance(tree, (dict, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tuple(tree.shape[:ndim])
+
+
+def unstack_params(params: Params) -> Params:
+    """vitax's pre-stacked scan layout → the per-layer list layout (the
+    inverse of `stack_params`; the depths are read from the stacked leaves).
+    The leaves are views of the stacked ones, so autograd through them
+    reaches the stacked tensors."""
+    if not is_stacked(params):
+        return params
+    s = params["layers"]
+    layers: List[Params] = []
+    if "prefix" in s:
+        (dsl,) = _leading(s["prefix"], 1)
+        layers += [_tree_map(lambda a, i=i: a[i], s["prefix"])
+                   for i in range(dsl)]
+    if "base" in s:
+        nblocks, bs = _leading(s["base"], 2)
+        for i in range(nblocks):
+            for p in range(bs):
+                lp = _tree_map(lambda a, i=i, p=p: a[i, p], s["base"])
+                if p == 0:
+                    lp["router"] = _tree_map(lambda a, i=i: a[i], s["router"])
+                    lp["approximators"] = _tree_map(lambda a, i=i: a[i],
+                                                    s["approximators"])
+                layers.append(lp)
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = layers
+    return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -320,11 +413,14 @@ def _fused_attention_half_rect(x: torch.Tensor, xc: torch.Tensor, p: Params,
     xp, xcp = _pad_rows(x), _pad_rows(xc)
     if not ck.qkv_attention_rect_supported(xcp, xp, wqkv, cfg.n_heads):
         return None
-    rect = (ck.fused_ln_qkvo_attention_rect_int8 if cfg.int8_attn
-            else ck.fused_ln_qkvo_attention_rect)
-    out = rect(xcp, xp, p["attention_norm"]["scale"].float(),
-               p["attention_norm"]["bias"].float(), wqkv, bqkv, wo, bo,
-               cfg.norm_eps, s, cfg.n_heads, cfg.head_dim)
+    args = (xcp, xp, p["attention_norm"]["scale"].float(),
+            p["attention_norm"]["bias"].float(), wqkv, bqkv, wo, bo,
+            cfg.norm_eps, s, cfg.n_heads, cfg.head_dim)
+    if cfg.int8_attn:
+        out = ck.fused_ln_qkvo_attention_rect_int8(
+            *args, int8_grad=cfg.int8_attn_grad, int8_dw=cfg.int8_dw)
+    else:
+        out = ck.fused_ln_qkvo_attention_rect(*args)
     return out[:, :cap].to(dt)
 
 
@@ -415,15 +511,20 @@ def compact_routed_block(x: torch.Tensor, p: Params, cfg: ResViTConfig,
 
 
 def router_forward(x: torch.Tensor, p: Params, cfg: ResViTConfig, *,
-                   train: bool = False
+                   train: bool = False, gumbel: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                              torch.Tensor]:
-    """RouterModule (res-vit/model.py:175-211), eval routing (argmax).
+                              torch.Tensor, torch.Tensor]:
+    """RouterModule (res-vit/model.py:175-211): argmax routing in eval; in
+    training Gumbel-softmax straight-through at τ = 1 over `gumbel` [B,N,bs,2]
+    (standard Gumbel noise, vitax's jax.random.gumbel), hard + (y_soft −
+    y_soft.detach()): the one-hot in value, y_soft's gradient. The reserved
+    initials are forced to keep; path ids come from the keep bits.
 
     Returns (hard_routing [B,N,bs,2], path_ids [B,N] int32, entropy scalar,
-    soft_routing [B,N,bs,2])."""
-    if train:
-        raise NotImplementedError(_TRAINING)
+    soft_routing [B,N,bs,2], entropy_rows [B]: each row's share of the
+    entropy sum, so that a padded batch can weight it)."""
+    if train and gumbel is None:
+        raise ValueError("router needs its Gumbel noise in training mode")
     b, n, _ = x.shape
     bs = cfg.block_size
     res = cfg.dynamic_reserve_initials
@@ -439,17 +540,28 @@ def router_forward(x: torch.Tensor, p: Params, cfg: ResViTConfig, *,
 
     soft = torch.softmax(logits, dim=-1)
     probs = soft[:, res:]
-    entropy = -torch.sum(probs * torch.log(probs + 1e-8)) / (b * (n - res)
-                                                             * bs)
+    ent = -(probs * torch.log(probs + 1e-8)).sum(dim=(1, 2, 3))
+    entropy = ent.sum() / (b * (n - res) * bs)
+    entropy_rows = ent / ((n - res) * bs)
     # one-hot of the argmax (ties to the first, as jnp.argmax), the reserved
     # initials forced to keep; scalars only, so nothing waits on the card
     # (F.one_hot and a host tensor copied in would synchronize)
-    keep = (torch.argmax(soft, dim=-1) == 1).float()
+    y_soft = (torch.softmax(logits + gumbel.to(logits.device), dim=-1)
+              if train else soft)
+    keep = (torch.argmax(y_soft, dim=-1) == 1).float()
     if res > 0:
         keep[:, :res] = 1.0
     hard = torch.stack([1.0 - keep, keep], dim=-1)
-    path_ids = _path_ids(keep, bs)
-    return hard, path_ids, entropy, soft
+    if train:
+        # straight-through; the forced initials carry no soft term
+        st = y_soft - y_soft.detach()
+        if res > 0:
+            st = torch.cat([torch.zeros_like(st[:, :res]), st[:, res:]], 1)
+        hard = hard + st
+    # path ids from the exact keep bits: vitax reads them off the
+    # straight-through sum, whose kept bit can round to 1 - 2^-24 and then
+    # truncate away (ROADMAP Queue 3)
+    return hard, _path_ids(keep, bs), entropy, soft, entropy_rows
 
 
 def _path_ids(keep: torch.Tensor, bs: int) -> torch.Tensor:
@@ -481,10 +593,54 @@ def apply_approximators(x: torch.Tensor, p: Params, path_ids: torch.Tensor,
     return x
 
 
+def active_loss(soft_probs: torch.Tensor, target: float,
+                reserve_initials: int) -> torch.Tensor:
+    """MSE(mean keep-prob over non-reserved tokens, target)
+    (res-vit/model.py:40-85)."""
+    a = soft_probs[:, reserve_initials:, :].float()
+    return (a.mean() - target) ** 2
+
+
 def active_metric(acts: torch.Tensor, target: float,
-                  reserve_initials: int) -> Dict[str, torch.Tensor]:
-    return {"non_low_rank_ratio": acts[:, reserve_initials:, :].mean(),
+                  reserve_initials: int,
+                  weight: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """The active ratio over the non-reserved tokens; with `weight` [B] (a
+    padded batch's row weights) the mean over the real rows only."""
+    a = acts[:, reserve_initials:, :].float()
+    if weight is None:
+        ratio = a.mean()
+    else:
+        ratio = (a.mean(dim=(1, 2)) * weight).sum() / weight.sum().clamp_min(
+            1.0)
+    return {"non_low_rank_ratio": ratio,
             "current_target": torch.tensor(target)}
+
+
+def trainable_mask(params: Params, cfg: ResViTConfig) -> Params:
+    """LoRA freezing rules (res-vit/model.py:572-584 + its LayerNorm wrapper
+    :119-130): with use_lora the base projections, patch embedding, pos
+    embedding, feed-forward and every LayerNorm are frozen; LoRA adapters,
+    router linears, approximators, cls token and classifier train. A tree of
+    bools like `params` (either layout)."""
+    def walk(path: str, tree):
+        if isinstance(tree, dict):
+            return {k: walk(f"{path}/{k}", v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(f"{path}/{i}", v) for i, v in enumerate(tree)]
+        if not cfg.use_lora:
+            return True
+        frozen = (
+            path.startswith("/embedding") or
+            path.startswith("/pos_embedding") or
+            "/feed_forward/" in path or
+            "/attention/wq/" in path or "/attention/wk/" in path or
+            "/attention/wv/" in path or "/attention/wo/" in path or
+            "norm" in path  # attention_norm, ffn_norm, router in_norm, final
+        )
+        return not frozen
+
+    return walk("", params)
 
 
 # ---------------------------------------------------------------------------
@@ -508,33 +664,70 @@ def embed(params: Params, images: torch.Tensor, cfg: ResViTConfig
 
 
 def apply(params: Params, images: torch.Tensor, cfg: ResViTConfig, *,
-          train: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Forward: NHWC images → (fp32 logits, aux). aux: d_loss (0 in eval),
-    r_entropy, acts [B,N,L] (per-layer keep bits, 1 on plain layers),
-    soft_probs [B,N,n_blocks·bs] (keep probabilities) or None, routing_maps
-    {block_id: [B,N,bs]}."""
-    if train:
-        raise NotImplementedError(_TRAINING)
-    if isinstance(params.get("layers"), dict):
-        raise NotImplementedError(
-            "the stacked scan layout (vitax's _apply_scan) is not ported: "
-            "ROADMAP Queue 1 item 10; pass the per-layer list layout")
+          train: bool = False, gen: Optional[torch.Generator] = None,
+          noise: Optional[Dict[str, Any]] = None
+          ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Forward: NHWC images → (fp32 logits, aux). aux: d_loss (the summed
+    per-layer cls distill MSE in training, 0 in eval), r_entropy,
+    r_entropy_rows [B], acts [B,N,L] (per-layer keep bits, 1 on plain
+    layers), soft_probs [B,N,n_blocks·bs] (keep probabilities) or None,
+    routing_maps {block_id: [B,N,bs]}.
+
+    train: Gumbel routing, the teacher path and the distill loss, and
+    token dropping at cfg.token_keep < 1. Their randomness comes from `noise`
+    where it holds it — "gumbel": {layer id of a block head: [B,N,bs,2]},
+    "token_idx": [B, kept] (vit.drop_tokens' `idx`) — else from `gen`.
+    Params in vitax's stacked layout run unstacked (as vitax, not with
+    compact_capacity)."""
+    if is_stacked(params):
+        if cfg.compact_capacity is not None:
+            raise ValueError("compact_capacity requires the unrolled loop "
+                             "(unstacked params); see unstack_params")
+        params = unstack_params(params)
     if cfg.remat:
         raise NotImplementedError(
             f"remat={cfg.remat!r}: block rematerialization is not ported "
-            "(ROADMAP Queue 1 item 3)")
+            "(ROADMAP Queue 1 item 6)")
     if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
         raise NotImplementedError(
             "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, K11)")
-    return _apply_loop(params, images, cfg)
+    return _apply_loop(params, images, cfg, train, gen, noise or {})
 
 
-def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig
+def _gumbel(noise: Dict[str, Any], lid: int, shape, gen, dev) -> torch.Tensor:
+    """The Gumbel noise of block head `lid`: injected, or −log(E) with E
+    standard exponential from `gen`."""
+    g = noise.get("gumbel", {}).get(lid)
+    if g is not None:
+        return g.to(device=dev, dtype=torch.float32)
+    if gen is None:
+        raise ValueError("Res-ViT training needs a generator or the noise")
+    e = torch.empty(shape, device=gen.device).exponential_(generator=gen)
+    return (-torch.log(e)).to(dev)
+
+
+def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig,
+                train: bool = False, gen: Optional[torch.Generator] = None,
+                noise: Optional[Dict[str, Any]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Unrolled per-layer loop (vitax's _apply_loop, eval)."""
+    """Unrolled per-layer loop (vitax's _apply_loop). The teacher runs
+    without autograd: vitax stops its gradient at the cls token it reads, so
+    the values are the same and nothing is kept for the backward."""
+    noise = noise or {}
     roles = layer_roles(cfg)
     lra = lra_path_ids(cfg.block_size) if cfg.use_reslr else None
     student = embed(params, images, cfg)
+    if train and cfg.token_keep < 1.0:
+        # cls and the reserved initials stay pinned, so the cls distill
+        # loss and the router's reserved slots see the same tokens
+        idx = noise.get("token_idx")
+        if idx is None and gen is None:
+            raise ValueError("token_keep < 1.0 needs a generator or the "
+                             "kept indices in training")
+        student = drop_tokens(student, gen, cfg.token_keep,
+                              n_pinned=max(1, cfg.dynamic_reserve_initials),
+                              idx=idx)
+    teacher = student
     b, n, _ = student.shape
     dev = student.device
 
@@ -546,23 +739,31 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig
     soft_probs: List[torch.Tensor] = []
     routing_maps: Dict[int, torch.Tensor] = {}
     r_entropy = torch.zeros((), device=dev)
+    r_entropy_rows = torch.zeros((b,), device=dev)
+    d_loss = torch.zeros((), device=dev)
     block_ctx: Dict[str, Any] = {}
 
     for lid, role in enumerate(roles):
         lp = params["layers"][lid]
         if not role["routed"]:
             student = plain_block(student, lp, cfg)
+            # plain layers collapse the teacher onto the student path
+            # (res-vit/model.py:440-444)
+            teacher = student
             acts.append(torch.ones((b, n, 1), device=dev))
             continue
 
         if role["is_block_head"]:
-            hard, path_ids, entropy, soft = router_forward(
-                student, lp["router"], cfg)
+            g = (_gumbel(noise, lid, (b, n, cfg.block_size, 2), gen, dev)
+                 if train else None)
+            hard, path_ids, entropy, soft, ent_rows = router_forward(
+                student, lp["router"], cfg, train=train, gumbel=g)
             block_ctx = {"hard": hard[..., 1], "path_ids": path_ids,
                          "approx_params": lp["approximators"],
-                         "keep_score": soft[..., 1]}
+                         "keep_score": soft[..., 1].detach()}
             r_entropy = r_entropy + entropy
-            routing_maps[role["block_id"]] = block_ctx["hard"]
+            r_entropy_rows = r_entropy_rows + ent_rows
+            routing_maps[role["block_id"]] = block_ctx["hard"].detach()
             soft_probs.append(soft[..., 1])
 
         pos = role["block_pos"]
@@ -570,6 +771,9 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig
         lora_ids, trans_ids, _ = lra[pos]
         path_ids = block_ctx["path_ids"]
         attn_mask = _isin(path_ids, trans_ids)[..., None]
+        if train:
+            with torch.no_grad():
+                teacher = plain_block(teacher, lp, cfg)
         if cap is not None:
             active = attn_mask[..., 0]
             score = None
@@ -598,6 +802,9 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig
                                  student)
         student = apply_approximators(merged, block_ctx["approx_params"],
                                       path_ids, lora_ids)
+        if train:
+            s_cls = student[:, 0].float()
+            d_loss = d_loss + ((s_cls - teacher[:, 0].float()) ** 2).mean()
         acts.append(w)
 
     student = layer_norm(student, params["norm"]["scale"],
@@ -606,8 +813,9 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig
     logits = _linear(student[:, 0].float(), params["classifier"],
                      dtype=torch.float32)
     aux: Dict[str, Any] = {
-        "d_loss": torch.zeros((), device=dev),
+        "d_loss": d_loss,
         "r_entropy": r_entropy,
+        "r_entropy_rows": r_entropy_rows,
         "acts": torch.cat(acts, dim=-1),
         "soft_probs": torch.cat(soft_probs, dim=-1) if soft_probs else None,
         "routing_maps": routing_maps,

@@ -84,6 +84,7 @@ def apply_compact(params: Any, images: torch.Tensor, cfg: ResViTConfig, *,
     acts = []
     routing_maps: Dict[int, torch.Tensor] = {}
     r_entropy = torch.zeros((), device=dev)
+    r_entropy_rows = torch.zeros((b,), device=dev)
     block_ctx: Dict[str, Any] = {}
 
     for lid, role in enumerate(roles):
@@ -94,11 +95,12 @@ def apply_compact(params: Any, images: torch.Tensor, cfg: ResViTConfig, *,
             continue
 
         if role["is_block_head"]:
-            hard, path_ids, entropy, _soft = resvit.router_forward(
+            hard, path_ids, entropy, _soft, ent_rows = resvit.router_forward(
                 x, lp["router"], cfg)
             block_ctx = {"hard": hard[..., 1], "path_ids": path_ids,
                          "approx": lp["approximators"]}
             r_entropy = r_entropy + entropy
+            r_entropy_rows = r_entropy_rows + ent_rows
             routing_maps[role["block_id"]] = block_ctx["hard"]
 
         pos = role["block_pos"]
@@ -134,7 +136,8 @@ def apply_compact(params: Any, images: torch.Tensor, cfg: ResViTConfig, *,
     x = ln(x, params["norm"])
     logits = resvit._linear(x[:, 0].float(), params["classifier"],
                             dtype=torch.float32)
-    aux = {"r_entropy": r_entropy, "acts": torch.cat(acts, dim=-1),
+    aux = {"r_entropy": r_entropy, "r_entropy_rows": r_entropy_rows,
+           "acts": torch.cat(acts, dim=-1),
            "routing_maps": routing_maps, "capacity": cap / n}
     return logits, aux
 

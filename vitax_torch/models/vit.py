@@ -381,7 +381,7 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     if cfg.remat:
         raise NotImplementedError(
             f"remat={cfg.remat!r}: block rematerialization is not ported yet "
-            "(ROADMAP Queue 1 item 3); with both fused kernels vitax picks "
+            "(ROADMAP Queue 1 item 6); with both fused kernels vitax picks "
             "no remat, as the port does")
     deterministic = not train or cfg.dropout_rate <= 0.0
     x = embed(params, images, cfg)

@@ -34,6 +34,16 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   `_ln_qkvo_rect_fwd_kernel` :4033 (K8)
 - `fused_ln_qkvo_attention_rect_int8` -> ln_qkvo_attention_rect_int8.cu ->
   `_ln_qkvo_rect_fwd_int8_kernel` :4067 (K8, W8A8)
+- `fused_ln_qkvo_attention_gqa_bwd` -> ln_qkvo_attention_bwd.cu with kv_heads
+  < heads -> the `kv_heads` branch of `_ln_qkvo_bwd_kernel` :2898
+  (`_attn_core_grads` :2846-2895, K7's backward);
+  `fused_ln_qkvo_attention_bwd(..., kv_heads=)` routes to it
+- `fused_ln_qkvo_attention_rect_bwd` -> ln_qkvo_attention_rect_bwd.cu ->
+  `_ln_qkvo_rect_bwd_kernel` :4155 (K8 backward)
+- `fused_ln_qkvo_attention_rect_int8_bwd`, `..._rect_int8_dw_bwd` ->
+  ln_qkvo_attention_rect_int8_bwd.cu (+ dw_int8.cuh) ->
+  `_ln_qkvo_rect_bwd_int8_kernel` :4253, its `int8_grad` and `int8_dw`
+  branches
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -41,11 +51,10 @@ no fallback. With grad mode on and an input that requires grad, the forward
 wrappers go through a `torch.autograd.Function` (`LayerNormFn`,
 `FusedLnQkvoAttentionFn`, `FusedLnMlpFn`, the last two for both tiers)
 whose backward is the matching `*_bwd` wrapper: the int8 one under
-`int8_grad` (its `int8_dw` variant under `int8_dw`), else the bf16 one; the
-int8 block handoff is `FusedBlockInt8HandoffFn`, whose backward is the two
-int8 backwards. K8's Function, `FusedLnQkvoAttentionRectFn`, has no backward
-kernel yet and raises in its backward; K7 under autograd raises at once (both
-wait for Res-ViT training, ROADMAP Queue 2). As vitax's custom VJPs, each Function
+`int8_grad` (its `int8_dw` variant under `int8_dw`), else the bf16 one (K7's
+with GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
+backward is the two int8 backwards; K8's is `FusedLnQkvoAttentionRectFn`,
+whose backward is one of K8's three. As vitax's custom VJPs, each Function
 saves only its inputs and recomputes the rest in the backward; its grads
 come back in the dtypes of the Pallas VJPs (weight grads in the weight's
 dtype, LN and bias grads in fp32).
@@ -466,13 +475,14 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
             and attention_smem_bytes(spq, hd) <= SMEM_LIMIT)
 
 
-def qkv_attention_bwd_supported(x, wqkv, heads) -> bool:
+def qkv_attention_bwd_supported(x, wqkv, heads, kv_heads=None) -> bool:
     """Gate of the fused attention half in training: the forward's gate and
-    the attention-core backward's own shared memory."""
-    if not qkv_attention_supported(x, wqkv, heads):
+    the attention-core backward's own shared memory (at the head width of
+    the packed [q | k | v] layout, GQA's with kv_heads)."""
+    if not qkv_attention_supported(x, wqkv, heads, kv_heads):
         return False
     spq = (x.shape[1] + 7) // 8 * 8
-    hd = wqkv.shape[1] // 3 // heads
+    hd = wqkv.shape[1] // (heads + 2 * (kv_heads or heads))
     return attention_bwd_smem_bytes(spq, hd) <= SMEM_LIMIT
 
 
@@ -517,20 +527,45 @@ def _qkvo_core(xn, wqkv, bqkv, seq_len, heads, head_dim, kv_heads=None):
     return q, k, v, p, o32.to(xn.dtype)
 
 
-def _attn_core_grads(q, k, v, p, o, dattn, scale):
-    """dqkv [B·spq, 3·H·Hd] of the attention core, with the TPU rounding
-    points (_attn_core_grads, pallas_kernels.py:2846-2895): ds, dq, dk, dv
-    in the compute dtype. dattn [B·spq, H·Hd]."""
+def _group_sum(t32, kv_heads):
+    """[B, H, S, Hd] fp32 per-query-head grads → [B, Hkv, S, Hd]: each kv
+    group's H/Hkv heads summed in head order (vitax's GQA transpose of
+    repeat_kv, :2884-2894); the identity without GQA."""
+    b, h, s, hd = t32.shape
+    if not kv_heads or kv_heads == h:
+        return t32
+    t = t32.view(b, kv_heads, h // kv_heads, s, hd)
+    acc = t[:, :, 0]
+    for r in range(1, h // kv_heads):
+        acc = acc + t[:, :, r]
+    return acc
+
+
+def _core_grads(q, k, v, p, o, dattn, scale, kv_heads=None):
+    """(dq [B,H,Sq,Hd], dk, dv [B,Hkv,Sk,Hd]) of the attention core with the
+    TPU rounding points (_attn_core_grads, pallas_kernels.py:2846-2895, and
+    _rect_core_grads :3977-4022): ds, dq, dk, dv in the compute dtype, dk
+    and dv of a kv group one fp32 sum over its query heads before the cast.
+    q [B,H,Sq,Hd] over keys k, v [B,H,Sk,Hd] (repeated per query head with
+    GQA), dattn [B·Sq, H·Hd]."""
     dt = q.dtype
-    b, h, spq, hd = q.shape
-    d_o = dattn.view(b, spq, h, hd).transpose(1, 2)
+    b, h, sq, hd = q.shape
+    d_o = dattn.view(b, sq, h, hd).transpose(1, 2)
     dp = matmul_f32(d_o, v.transpose(-1, -2))
     dd = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
     ds = (p * (dp - dd)).to(dt)
     dq = (matmul_f32(ds, k) * scale).to(dt)
-    dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(dt)
-    dv = matmul_f32(p.to(dt).transpose(-1, -2), d_o).to(dt)
-    return torch.cat([_heads_to_rows(t) for t in (dq, dk, dv)], dim=1)
+    dk = _group_sum(matmul_f32(ds.transpose(-1, -2), q) * scale, kv_heads)
+    dv = _group_sum(matmul_f32(p.to(dt).transpose(-1, -2), d_o), kv_heads)
+    return dq, dk.to(dt), dv.to(dt)
+
+
+def _attn_core_grads(q, k, v, p, o, dattn, scale, kv_heads=None):
+    """dqkv [B·spq, (H + 2·Hkv)·Hd] of the square attention core, the packed
+    [dq | dk | dv] rows."""
+    return torch.cat([_heads_to_rows(t) for t in
+                      _core_grads(q, k, v, p, o, dattn, scale, kv_heads)],
+                     dim=1)
 
 
 def _heads_to_rows(t):
@@ -570,7 +605,7 @@ def fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
                                             eps, seq_len, heads, head_dim,
-                                            False, False, False)
+                                            False, False, False, None)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
                                            eps, seq_len, heads, head_dim)
@@ -642,12 +677,13 @@ def fused_ln_qkvo_attention_gqa(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
                                 seq_len, heads, head_dim, kv_heads):
     """K7: `fused_ln_qkvo_attention` with kv_heads < heads, wqkv [D,
     (H + 2·Hkv)·Hd] packed [q (H·Hd) | k (Hkv·Hd) | v (Hkv·Hd)] and bqkv to
-    match; query head h attends with kv group h·Hkv/H. Forward only: its
-    backward (vitax's grouped dk/dv) comes with Res-ViT training."""
+    match; query head h attends with kv group h·Hkv/H. Under autograd the
+    backward is K1's with kv_heads (`fused_ln_qkvo_attention_bwd`: dK and dV
+    of a group summed over its query heads in fp32)."""
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
-        raise NotImplementedError(
-            "K7 backward (GQA in K1's backward, grouped dk/dv): ROADMAP "
-            "Queue 2, with Res-ViT training")
+        return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                            eps, seq_len, heads, head_dim,
+                                            False, False, False, kv_heads)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_gqa_ref(x, gamma, beta, wqkv, bqkv, wo,
                                                bo, eps, seq_len, heads,
@@ -662,11 +698,11 @@ fused_ln_qkvo_attention_gqa.launches = 0
 
 
 def fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
-                                    seq_len, heads, head_dim):
+                                    seq_len, heads, head_dim, kv_heads=None):
     """(dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) of K1 with the TPU kernel's
     rounding points (pallas_kernels.py:2911-2956, _attn_core_grads
     :2846-2895): dattn, ds, dq, dk, dv in x.dtype; dx in x.dtype; the rest
-    fp32."""
+    fp32. kv_heads < heads: the packed GQA layout (K7's backward)."""
     dt = x.dtype
     b, spq, d = x.shape
     scale = 1.0 / math.sqrt(head_dim)
@@ -675,11 +711,11 @@ def fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
     xhat, rstd = _ln_stats(x2.float(), eps)
     xn = (xhat * gamma.float() + beta.float()).to(dt)
     q, k, v, p, o = _qkvo_core(xn.view(b, spq, d), wqkv, bqkv, seq_len, heads,
-                               head_dim)
+                               head_dim, kv_heads)
     dattn = matmul_f32(do2, wo.t()).to(dt)
     dwo = matmul_f32(_heads_to_rows(o).t(), do2)
     dbo = do2.float().sum(dim=0)
-    dqkv = _attn_core_grads(q, k, v, p, o, dattn, scale)
+    dqkv = _attn_core_grads(q, k, v, p, o, dattn, scale, kv_heads)
     dxn = matmul_f32(dqkv, wqkv.t())
     dw = matmul_f32(xn.t(), dqkv)
     db = dqkv.float().sum(dim=0)
@@ -688,45 +724,92 @@ def fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
 
 
 def fused_ln_qkvo_attention_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
-                                seq_len, heads, head_dim):
+                                seq_len, heads, head_dim, kv_heads=None):
     """Backward of `fused_ln_qkvo_attention`: dx [B, spq, D] bf16 and fp32
-    dγ, dβ [D], dWqkv [D, 3·H·Hd], dbqkv [3·H·Hd], dWo [H·Hd, D], dbo [D]."""
+    dγ, dβ [D], dWqkv [D, W], dbqkv [W], dWo [H·Hd, D], dbo [D], W =
+    (H + 2·Hkv)·Hd (3·H·Hd without GQA). kv_heads < heads: K7's backward,
+    `fused_ln_qkvo_attention_gqa_bwd` (the same kernel with dK and dV of
+    each kv group summed over its H/Hkv query heads in fp32, in head order,
+    before one cast)."""
+    if _gqa(heads, kv_heads):
+        return fused_ln_qkvo_attention_gqa_bwd(x, gamma, beta, wqkv, bqkv, wo,
+                                               do, eps, seq_len, heads,
+                                               head_dim, kv_heads)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo,
                                                do, eps, seq_len, heads,
                                                head_dim)
+    out = _ln_qkvo_bwd_cuda("fused_ln_qkvo_attention_bwd", x, gamma, beta,
+                            wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+                            heads)
+    fused_ln_qkvo_attention_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_gqa_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
+                                        eps, seq_len, heads, head_dim,
+                                        kv_heads):
+    """The twin of `fused_ln_qkvo_attention_gqa_bwd`: K1's backward twin on
+    the packed GQA layout."""
+    return fused_ln_qkvo_attention_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
+                                           eps, seq_len, heads, head_dim,
+                                           kv_heads)
+
+
+def fused_ln_qkvo_attention_gqa_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                                    seq_len, heads, head_dim, kv_heads):
+    """K7's backward: `fused_ln_qkvo_attention_bwd` with kv_heads < heads,
+    the outputs of K1's backward with dWqkv [D, (H + 2·Hkv)·Hd] and dbqkv
+    to match."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_gqa_bwd_ref(x, gamma, beta, wqkv, bqkv,
+                                                   wo, do, eps, seq_len,
+                                                   heads, head_dim, kv_heads)
+    out = _ln_qkvo_bwd_cuda("fused_ln_qkvo_attention_gqa_bwd", x, gamma, beta,
+                            wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+                            kv_heads)
+    fused_ln_qkvo_attention_gqa_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_gqa_bwd.launches = 0
+
+
+def _ln_qkvo_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                      heads, head_dim, kv_heads):
+    """K1's backward launch (K7's with kv_heads < heads)."""
     dev = _check_cuda(
-        "fused_ln_qkvo_attention_bwd",
+        name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
          "wo": wo, "do": do},
         {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
          "wo": _BF, "do": _BF})
-    _check_qkvo("fused_ln_qkvo_attention_bwd", x, gamma, beta, wqkv, bqkv, wo,
-                seq_len, heads, head_dim, qkv_attention_bwd_supported)
-    _check_shape("fused_ln_qkvo_attention_bwd", "do", do, tuple(x.shape))
+    _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, qkv_attention_bwd_supported, kv_heads)
+    _check_shape(name, "do", do, tuple(x.shape))
     b, spq, d = x.shape
     hhd = heads * head_dim
+    width = wqkv.shape[1]
     n = b * spq
     rows = (spq + 15) // 16 * 16
     lib = build.load()
     dx, dg, dbe = torch.empty_like(x), _f32(dev, d), _f32(dev, d)
-    dw, db = _f32(dev, d, 3 * hhd), _f32(dev, 3 * hhd)
+    dw, db = _f32(dev, d, width), _f32(dev, width)
     dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
-    xn, qkv, attn, dattn = (_bf(dev, n, d), _bf(dev, n, 3 * hhd),
+    xn, qkv, attn, dattn = (_bf(dev, n, d), _bf(dev, n, width),
                             _bf(dev, n, hhd), _bf(dev, n, hhd))
     p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
-    dqkv, dxn = _bf(dev, n, 3 * hhd), _f32(dev, n, d)
-    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd), dev)
+    dqkv, dxn = _bf(dev, n, width), _f32(dev, n, d)
+    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, width), dev)
     rc = lib.vitax_ln_qkvo_attention_bwd(*(t.data_ptr() for t in (
         x, gamma, beta, wqkv, bqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, xn,
         qkv, attn, dattn, p, ds, dqkv, dxn, ws)), b, spq, d, seq_len, heads,
-        head_dim, eps, 1.0 / math.sqrt(head_dim), _stream(dev))
-    build.check(rc, "fused_ln_qkvo_attention_bwd")
-    fused_ln_qkvo_attention_bwd.launches += 1
+        kv_heads, head_dim, eps, 1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
     return dx, dg, dbe, dw, db, dwo, dbo
-
-
-fused_ln_qkvo_attention_bwd.launches = 0
 
 
 class FusedLnQkvoAttentionFn(torch.autograd.Function):
@@ -735,31 +818,38 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
     (pallas_kernels.py:3209-3300): `int8` picks the W8A8 forward (K3) and
     `int8_grad` the W8A8 backward (K3 bwd, :3246-3299), with `int8_dw` its
     per-group int8 weight grads; otherwise the backward is the bf16 one (K1
-    bwd, :3300)."""
+    bwd, :3300; with kv_heads < heads its GQA branch, K7's backward)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
-                head_dim, int8, int8_grad, int8_dw):
+                head_dim, int8, int8_grad, int8_dw, kv_heads):
         ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wo)
         ctx.meta = (eps, seq_len, heads, head_dim)
         ctx.tier = (int8 and int8_grad, int8_dw)
+        ctx.kv_heads = kv_heads
         ctx.bo_dtype = bo.dtype
-        fwd = fused_ln_qkvo_attention_int8 if int8 else fused_ln_qkvo_attention
-        return fwd(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
-                   head_dim)
+        if int8:
+            return fused_ln_qkvo_attention_int8(x, gamma, beta, wqkv, bqkv, wo,
+                                                bo, eps, seq_len, heads,
+                                                head_dim)
+        return fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                       seq_len, heads, head_dim, kv_heads)
 
     @staticmethod
     def backward(ctx, do):
         x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
         int8_grad, int8_dw = ctx.tier
-        bwd = (fused_ln_qkvo_attention_bwd if not int8_grad
-               else fused_ln_qkvo_attention_int8_dw_bwd if int8_dw
-               else fused_ln_qkvo_attention_int8_bwd)
-        dx, dg, dbe, dw, db, dwo, dbo = bwd(
-            x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
+        args = (x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
+        if not int8_grad:
+            grads = fused_ln_qkvo_attention_bwd(*args, ctx.kv_heads)
+        elif int8_dw:
+            grads = fused_ln_qkvo_attention_int8_dw_bwd(*args)
+        else:
+            grads = fused_ln_qkvo_attention_int8_bwd(*args)
+        dx, dg, dbe, dw, db, dwo, dbo = grads
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw.to(wqkv.dtype),
                 db.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(ctx.bo_dtype),
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 # =============================================================================
@@ -805,14 +895,28 @@ MLP_DW_GROUP = 128
 _DW_PAD = 64  # the kernels pad each group's rows to whole 64-deep s8 K stages
 
 
-def qkvo_dw_group(b: int, spq: int) -> int:
-    """Rows of one int8_dw group of K3's backward: tile·spq, whole images,
-    with vitax's tile rule (_qkvo_bwd_tile, pallas_kernels.py:3223): 4 at
-    spq <= 128, else 2, halved until it divides b."""
+def _qkvo_bwd_tile(b: int, spq: int) -> int:
+    """Images of one grid step of vitax's attention backwards
+    (_qkvo_bwd_tile, pallas_kernels.py:3223): 4 at spq <= 128, else 2,
+    halved until it divides b."""
     t = 4 if spq <= 128 else 2
     while t > 1 and b % t:
         t //= 2
-    return t * spq
+    return t
+
+
+def qkvo_dw_group(b: int, spq: int) -> int:
+    """Rows of one int8_dw group of K3's backward: tile·spq, whole images."""
+    return _qkvo_bwd_tile(b, spq) * spq
+
+
+def qkvo_rect_dw_groups(b: int, cpq: int, spq: int):
+    """Rows of the int8_dw groups of K8's backward, (Q side and dWo, KV
+    side): vitax's grid step of tile images, the tile taken at x's spq
+    (pallas_kernels.py:4506), so tile·cpq rows of xc and tile·spq rows of
+    x."""
+    t = _qkvo_bwd_tile(b, spq)
+    return t * cpq, t * spq
 
 
 def _dw_int8(a, s_row, q, group):
@@ -1090,7 +1194,7 @@ def fused_ln_qkvo_attention_int8(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
                                             eps, seq_len, heads, head_dim,
-                                            True, int8_grad, int8_dw)
+                                            True, int8_grad, int8_dw, None)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo,
                                                 bo, eps, seq_len, heads,
@@ -1216,7 +1320,8 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     dqkv, dxn = _bf(dev, n, 3 * hhd), _f32(dev, n, d)
     xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, 3 * hhd)
     sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
-    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd), dev)
+    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, 3 * hhd),
+                    dev)
     group = qkvo_dw_group(b, spq)
     dwt = [None] * 6
     if int8_dw:
@@ -1546,7 +1651,9 @@ def fused_block_int8_handoff_ref(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
 # gathered rows xc → Q, LN of all spq rows x → K and V, the core over the spq
 # keys, the out-projection, on the xc rows only; bf16 and W8A8. The same
 # output rows as K1 (K3) on x followed by a row gather, bit for bit on the
-# card. Forward only: its backward comes with Res-ViT training.
+# card. Its backward (:4491-4573) gives dxc on the gathered rows and dx on
+# all rows (the caller's gather transpose adds them), dγ and dβ over both
+# row sets, dWqkv = [dWq from xc's rows | dWkv from x's rows].
 # =============================================================================
 
 def qkv_attention_rect_supported(xc, x, wqkv, heads) -> bool:
@@ -1558,25 +1665,39 @@ def qkv_attention_rect_supported(xc, x, wqkv, heads) -> bool:
             and (xc.dtype == torch.bfloat16 or not xc.is_cuda))
 
 
+def qkv_attention_rect_bwd_supported(xc, x, wqkv, heads) -> bool:
+    """Gate of the rect half in training: the forward's gate and the
+    attention-core backward's shared memory at x's spq."""
+    return (qkv_attention_rect_supported(xc, x, wqkv, heads)
+            and qkv_attention_bwd_supported(x, wqkv, heads))
+
+
 def _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
-                head_dim):
+                head_dim, gate=qkv_attention_rect_supported):
     b, cpq, d = xc.shape
-    if cpq % 8 or not qkv_attention_rect_supported(xc, x, wqkv, heads):
+    if cpq % 8 or not gate(xc, x, wqkv, heads):
         raise ValueError(f"{name}: unsupported shapes xc {tuple(xc.shape)} x "
                          f"{tuple(x.shape)} wqkv {tuple(wqkv.shape)}")
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
                 head_dim, qkv_attention_supported)
-    _check_shape(name, "bo", bo, (d,))
+    if bo is not None:
+        _check_shape(name, "bo", bo, (d,))
 
 
-def _rect_core(q, kv, seq_len, heads):
-    """q [B, cpq, H·Hd], kv [B, spq, 2·H·Hd] (K columns, then V) → the fp32
-    head outputs p·v as rows [B·cpq, H·Hd] (_rect_core_recompute,
-    pallas_kernels.py:3949-3974, before its cast)."""
+def _rect_heads(q, kv, heads):
+    """q [B, cpq, H·Hd], kv [B, spq, 2·H·Hd] (K columns, then V) → per-head
+    q [B,H,cpq,Hd], k, v [B,H,spq,Hd]."""
     hhd = q.shape[-1]
     k, v = (_split_heads(kv[..., i * hhd:(i + 1) * hhd], heads)
             for i in range(2))
-    _, o32 = _softmax_pv(_split_heads(q, heads), k, v, seq_len)
+    return _split_heads(q, heads), k, v
+
+
+def _rect_core(q, kv, seq_len, heads):
+    """q [B, cpq, H·Hd], kv [B, spq, 2·H·Hd] → the fp32 head outputs p·v as
+    rows [B·cpq, H·Hd] (_rect_core_recompute, pallas_kernels.py:3949-3974,
+    before its cast)."""
+    _, o32 = _softmax_pv(*_rect_heads(q, kv, heads), seq_len)
     return _heads_to_rows(o32)
 
 
@@ -1630,11 +1751,12 @@ def fused_ln_qkvo_attention_rect_int8_ref(xc, x, gamma, beta, wqkv, bqkv, wo,
 
 
 def _rect_fwd(int8, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
-              heads, head_dim, scratch=None):
+              heads, head_dim, int8_grad=False, int8_dw=False, scratch=None):
     if _needs_grad(xc, x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionRectFn.apply(xc, x, gamma, beta, wqkv, bqkv,
                                                 wo, bo, eps, seq_len, heads,
-                                                head_dim, int8)
+                                                head_dim, int8, int8_grad,
+                                                int8_dw)
     args = (xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
             head_dim)
     if not xc.is_cuda:
@@ -1689,7 +1811,8 @@ def fused_ln_qkvo_attention_rect(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
     (the gathered rows, pad rows zero-filled), x [B, spq, D] bf16 (all rows,
     padded stream), wqkv [D, 3·H·Hd], wo [H·Hd, D] bf16; gamma, beta, bqkv, bo
     fp32. Returns [B, cpq, D] without the residual. Under autograd through
-    `FusedLnQkvoAttentionRectFn`, whose backward is not ported yet."""
+    `FusedLnQkvoAttentionRectFn`, whose backward is
+    `fused_ln_qkvo_attention_rect_bwd`."""
     return _rect_fwd(False, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
                      seq_len, heads, head_dim)
 
@@ -1698,26 +1821,288 @@ fused_ln_qkvo_attention_rect.launches = 0
 
 
 def fused_ln_qkvo_attention_rect_int8(xc, x, gamma, beta, wqkv, bqkv, wo, bo,
-                                      eps, seq_len, heads, head_dim, *,
+                                      eps, seq_len, heads, head_dim,
+                                      int8_grad=False, int8_dw=False, *,
                                       scratch=None):
     """`fused_ln_qkvo_attention_rect` with W8A8 projections (K8's int8 tier):
-    K3's quantization grid, the core bf16 with fp32 attn. `scratch`: as
-    `fused_ln_qkvo_attention_int8`'s, with xqk the codes of x's rows."""
+    K3's quantization grid, the core bf16 with fp32 attn. Under autograd the
+    backward is K8's int8 backward with `int8_grad` (its int8 weight grads
+    under `int8_dw`), else the bf16 one, vitax's tier rule (:4526).
+    `scratch`: as `fused_ln_qkvo_attention_int8`'s, with xqk the codes of
+    x's rows."""
     return _rect_fwd(True, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
-                     seq_len, heads, head_dim, scratch)
+                     seq_len, heads, head_dim, int8_grad, int8_dw, scratch)
 
 
 fused_ln_qkvo_attention_rect_int8.launches = 0
 
 
+def _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
+                  head_dim, int8, int8_dw=False, groups=None, scratch=None):
+    """Both tiers of K8's backward twin; see the two public twins."""
+    dt = xc.dtype
+    b, cpq, d = xc.shape
+    spq = x.shape[1]
+    hhd = heads * head_dim
+    scale = 1.0 / math.sqrt(head_dim)
+    wq, wkv = wqkv[:, :hhd], wqkv[:, hhd:]
+    do2 = do.reshape(-1, d)
+    xhat_c, rstd_c = _ln_stats(xc.reshape(-1, d).float(), eps)
+    xhat_k, rstd_k = _ln_stats(x.reshape(-1, d).float(), eps)
+    if int8:
+        w8, sw = quant_cols_host(wqkv)
+        wq8r, swqr = quant_rows_host(wq)
+        wkv8r, swkvr = quant_rows_host(wkv)
+        wo8r, swor = quant_rows_host(wo)
+        xnc32 = _affine(xhat_c, gamma, beta)
+        xn32 = _affine(xhat_k, gamma, beta)
+        xqc, sxc = quant_rows(xnc32)
+        xqk, sxk = quant_rows(xn32)
+        q = _dequant(int_mm(xqc, w8[:, :hhd]), sxc, sw[:hhd], bqkv[:hhd])
+        kv = _dequant(int_mm(xqk, w8[:, hhd:]), sxk, sw[hhd:], bqkv[hhd:])
+        xnc, xn = xnc32.to(dt), xn32.to(dt)
+    else:
+        xnc = (xhat_c * gamma.float() + beta.float()).to(dt)
+        xn = (xhat_k * gamma.float() + beta.float()).to(dt)
+        q = matmul_f32(xnc, wq) + bqkv[:hhd].float()
+        kv = matmul_f32(xn, wkv) + bqkv[hhd:].float()
+    qh, k, v = _rect_heads(q.to(dt).view(b, cpq, hhd),
+                           kv.to(dt).view(b, spq, 2 * hhd), heads)
+    p, o32 = _softmax_pv(qh, k, v, seq_len)
+    o = o32.to(dt)
+    attn = _heads_to_rows(o)
+    if int8:
+        doq, sdo = quant_rows(do2.float())
+        dattn = _dequant(int_mm(doq, wo8r.t()), sdo, swor).to(dt)
+    else:
+        dattn = matmul_f32(do2, wo.t()).to(dt)
+    dqh, dk, dv = _core_grads(qh, k, v, p, o, dattn, scale)
+    dq = _heads_to_rows(dqh)
+    dkv = torch.cat([_heads_to_rows(dk), _heads_to_rows(dv)], dim=1)
+    if int8:
+        dqq, sdq = quant_rows(dq.float())
+        dkvq, sdkv = quant_rows(dkv.float())
+        dxnc = _dequant(int_mm(dqq, wq8r.t()), sdq, swqr)
+        dxn = _dequant(int_mm(dkvq, wkv8r.t()), sdkv, swkvr)
+        _keep(scratch, w8=(w8, sw), wq8r=(wq8r, swqr), wkv8r=(wkv8r, swkvr),
+              wo8r=(wo8r, swor), xq=(xqc, sxc), xqk=(xqk, sxk),
+              doq=(doq, sdo), dqq=(dqq, sdq), dkvq=(dkvq, sdkv))
+    else:
+        dxnc = matmul_f32(dq, wq.t())
+        dxn = matmul_f32(dkv, wkv.t())
+    if int8_dw:
+        group_c, group_k = groups or qkvo_rect_dw_groups(b, cpq, spq)
+        dwo, atc = _dw_int8(attn, sdo, doq, group_c)
+        dwq, xncc = _dw_int8(xnc32, sdq, dqq, group_c)
+        dwkv, xnkc = _dw_int8(xn32, sdkv, dkvq, group_k)
+        _keep(scratch, atc=atc, xnc=xncc, xnk=xnkc)
+    else:
+        dwo = matmul_f32(attn.t(), do2)
+        dwq = matmul_f32(xnc.t(), dq)
+        dwkv = matmul_f32(xn.t(), dkv)
+    dxc, dg, dbe = _ln_bwd_tail(dxnc, xhat_c, rstd_c, gamma)
+    dx, dg2, dbe2 = _ln_bwd_tail(dxn, xhat_k, rstd_k, gamma)
+    return (dxc.to(dt).view(b, cpq, d), dx.to(dt).view(b, spq, d), dg + dg2,
+            dbe + dbe2, torch.cat([dwq, dwkv], dim=1),
+            torch.cat([dq.float().sum(dim=0), dkv.float().sum(dim=0)]), dwo,
+            do2.float().sum(dim=0))
+
+
+def fused_ln_qkvo_attention_rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo,
+                                         do, eps, seq_len, heads, head_dim):
+    """(dxc, dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) of K8 with the TPU kernel's
+    rounding points (_ln_qkvo_rect_bwd_kernel, pallas_kernels.py:4168-4228):
+    q and kv bf16, p fp32 (bf16 into PV and dV), ds, dq, dk, dv, dattn in
+    xc.dtype, dxnc and dxn fp32 into one LN backward each; dxc and dx in
+    xc.dtype; dγ, dβ summed over both row sets; dWqkv = [xncᵀ·dq | xnᵀ·dkv],
+    dbqkv, dWo, dbo fp32."""
+    return _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                         heads, head_dim, False)
+
+
+def fused_ln_qkvo_attention_rect_int8_bwd_ref(xc, x, gamma, beta, wqkv, bqkv,
+                                              wo, do, eps, seq_len, heads,
+                                              head_dim, *, int8_dw=False,
+                                              groups=None, scratch=None):
+    """K8's backward under int8_grad with the TPU kernel's rounding points
+    (_ln_qkvo_rect_bwd_int8_kernel, pallas_kernels.py:4273-4385): the int8
+    q, kv recompute from the fp32 LN outputs, bf16 attn, dattn =
+    bf16(f32(doq·Wo_rᵀ)·sdo·swor), the bf16 core grads, dxnc =
+    f32(dqq·Wq_rᵀ)·sdq·swqr and dxn = f32(dkvq·Wkv_rᵀ)·sdkv·swkvr with the
+    row codes of the slices Wq and Wkv. Weight grads: bf16 products, or with
+    `int8_dw` the per-group int8 products over `groups` = (rows of xc, rows
+    of x) a group, by default `qkvo_rect_dw_groups`. `scratch` receives the
+    codes: w8, wq8r, wkv8r, wo8r, xq (xc's rows), xqk (x's), doq, dqq,
+    dkvq; under int8_dw the column codes atc, xnc and xnk too."""
+    return _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                         heads, head_dim, True, int8_dw, groups, scratch)
+
+
+def fused_ln_qkvo_attention_rect_int8_dw_bwd_ref(xc, x, gamma, beta, wqkv,
+                                                 bqkv, wo, do, eps, seq_len,
+                                                 heads, head_dim, *,
+                                                 scratch=None):
+    """The twin of `fused_ln_qkvo_attention_rect_int8_dw_bwd`."""
+    return _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                         heads, head_dim, True, True, None, scratch)
+
+
+def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
+                   do, eps, seq_len, heads, head_dim, scratch=None):
+    """The launch of K8's backward, either tier."""
+    dev = _check_cuda(
+        name, {"xc": xc, "x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv,
+               "bqkv": bqkv, "wo": wo, "do": do},
+        {"xc": _BF, "x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF,
+         "bqkv": _F32, "wo": _BF, "do": _BF})
+    _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, None, seq_len, heads,
+                head_dim, qkv_attention_rect_bwd_supported)
+    _check_shape(name, "do", do, tuple(xc.shape))
+    b, cpq, d = xc.shape
+    spq = x.shape[1]
+    hhd = heads * head_dim
+    nc, n = b * cpq, b * spq
+    lq, lk = (cpq + 15) // 16 * 16, (spq + 15) // 16 * 16
+    lib = build.load()
+    dxc, dx, dg, dbe = (torch.empty_like(xc), torch.empty_like(x),
+                        _f32(dev, d), _f32(dev, d))
+    dwq, dwkv, dbq, dbkv = (_f32(dev, d, hhd), _f32(dev, d, 2 * hhd),
+                            _f32(dev, hhd), _f32(dev, 2 * hhd))
+    dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
+    outs = (dxc, dx, dg, dbe, dwq, dwkv, dbq, dbkv, dwo, dbo)
+    q, kv, attn, dattn = (_bf(dev, nc, hhd), _bf(dev, n, 2 * hhd),
+                          _bf(dev, nc, hhd), _bf(dev, nc, hhd))
+    p, ds = _bf(dev, b, heads, lq, lk), _bf(dev, b, heads, lq, lk)
+    dq, dkv = _bf(dev, nc, hhd), _bf(dev, n, 2 * hhd)
+    dxnc, dxn, g2, b2 = (_f32(dev, nc, d), _f32(dev, n, d), _f32(dev, d),
+                         _f32(dev, d))
+    ws = _workspace(lib.vitax_ln_qkvo_attention_rect_bwd_ws(nc, n, d, hhd),
+                    dev)
+    scale = 1.0 / math.sqrt(head_dim)
+    if not int8:
+        xnc, xn = _bf(dev, nc, d), _bf(dev, n, d)
+        rc = lib.vitax_ln_qkvo_attention_rect_bwd(*(t.data_ptr() for t in (
+            xc, x, gamma, beta, wqkv, bqkv, wo, do, *outs, xnc, xn, q, kv,
+            attn, dattn, p, ds, dq, dkv, dxnc, dxn, g2, b2, ws)), b, cpq, spq,
+            d, seq_len, heads, head_dim, eps, scale, _stream(dev))
+        build.check(rc, name)
+        return outs[:4] + (torch.cat([dwq, dwkv], dim=1),
+                           torch.cat([dbq, dbkv]), dwo, dbo)
+    w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
+    wq8r, swqr = _i8(dev, d, hhd), _f32(dev, d)
+    wkv8r, swkvr = _i8(dev, d, 2 * hhd), _f32(dev, d)
+    wo8r, swor = _i8(dev, hhd, d), _f32(dev, hhd)
+    # xnc, xn: bf16 for the bf16 weight grads, fp32 under int8_dw
+    xnc, xn = (_f32 if int8_dw else _bf)(dev, nc, d), \
+        (_f32 if int8_dw else _bf)(dev, n, d)
+    xqc, sxc, xqk, sxk = _i8(dev, nc, d), _f32(dev, nc), _i8(dev, n, d), \
+        _f32(dev, n)
+    doq, sdo = _i8(dev, nc, d), _f32(dev, nc)
+    dqq, sdq, dkvq, sdkv = _i8(dev, nc, hhd), _f32(dev, nc), \
+        _i8(dev, n, 2 * hhd), _f32(dev, n)
+    group_c, group_k = qkvo_rect_dw_groups(b, cpq, spq)
+    dwt = [None] * 9
+    if int8_dw:
+        groups, kpc = _dw_layout(nc, group_c)
+        _, kpk = _dw_layout(n, group_k)
+        dwt = [_i8(dev, hhd, kpc), _f32(dev, groups, hhd), _i8(dev, d, kpc),
+               _i8(dev, d, kpc), _f32(dev, groups, d), _i8(dev, hhd, kpc),
+               _i8(dev, d, kpk), _f32(dev, groups, d),
+               _i8(dev, 2 * hhd, kpk)]
+    rc = lib.vitax_ln_qkvo_attention_rect_int8_bwd(*(t.data_ptr() for t in (
+        xc, x, gamma, beta, bqkv, wqkv, wo, do, *outs, w8t, sw, wq8r, swqr,
+        wkv8r, swkvr, wo8r, swor, xnc, xqc, sxc, xn, xqk, sxk, q, kv, attn,
+        doq, sdo, dattn, p, ds, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2,
+        b2, ws)), *(None if t is None else t.data_ptr() for t in dwt), b,
+        cpq, spq, d, seq_len, heads, head_dim, group_c, group_k, int(int8_dw),
+        eps, scale, _stream(dev))
+    build.check(rc, name)
+    _keep(scratch, w8=(w8t.t(), sw), wq8r=(wq8r, swqr), wkv8r=(wkv8r, swkvr),
+          wo8r=(wo8r, swor), xq=(xqc, sxc), xqk=(xqk, sxk), doq=(doq, sdo),
+          dqq=(dqq, sdq), dkvq=(dkvq, sdkv))
+    if int8_dw:
+        _keep(scratch, atc=(_group_codes(dwt[0], nc, group_c), dwt[1]),
+              xnc=(_group_codes(dwt[3], nc, group_c), dwt[4]),
+              xnk=(_group_codes(dwt[6], n, group_k), dwt[7]))
+    return outs[:4] + (torch.cat([dwq, dwkv], dim=1), torch.cat([dbq, dbkv]),
+                       dwo, dbo)
+
+
+def fused_ln_qkvo_attention_rect_bwd(xc, x, gamma, beta, wqkv, bqkv, wo, do,
+                                     eps, seq_len, heads, head_dim):
+    """Backward of `fused_ln_qkvo_attention_rect`: dxc [B, cpq, D] and dx
+    [B, spq, D] bf16, fp32 dγ, dβ [D], dWqkv [D, 3·H·Hd], dbqkv [3·H·Hd],
+    dWo [H·Hd, D], dbo [D]; do [B, cpq, D] bf16."""
+    if not xc.is_cuda:
+        return fused_ln_qkvo_attention_rect_bwd_ref(
+            xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
+            head_dim)
+    out = _rect_bwd_cuda("fused_ln_qkvo_attention_rect_bwd", False, False, xc,
+                         x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                         heads, head_dim)
+    fused_ln_qkvo_attention_rect_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_rect_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_rect_int8_bwd(xc, x, gamma, beta, wqkv, bqkv, wo,
+                                          do, eps, seq_len, heads, head_dim,
+                                          *, scratch=None):
+    """Backward of `fused_ln_qkvo_attention_rect_int8` under int8_grad, the
+    outputs of `fused_ln_qkvo_attention_rect_bwd`. `scratch`: as the
+    twin's."""
+    if not xc.is_cuda:
+        return fused_ln_qkvo_attention_rect_int8_bwd_ref(
+            xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
+            head_dim, scratch=scratch)
+    out = _rect_bwd_cuda("fused_ln_qkvo_attention_rect_int8_bwd", True, False,
+                         xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                         heads, head_dim, scratch)
+    fused_ln_qkvo_attention_rect_int8_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_rect_int8_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_rect_int8_dw_bwd(xc, x, gamma, beta, wqkv, bqkv,
+                                             wo, do, eps, seq_len, heads,
+                                             head_dim, *, scratch=None):
+    """`fused_ln_qkvo_attention_rect_int8_bwd` under int8_dw: dWo and dWq
+    per-group int8 products over tile·cpq rows of xc, dWkv over tile·spq
+    rows of x (`qkvo_rect_dw_groups`); `scratch` also receives the column
+    codes atc, xnc and xnk, as [rows, width] with one scale a column a
+    group."""
+    if not xc.is_cuda:
+        return fused_ln_qkvo_attention_rect_int8_dw_bwd_ref(
+            xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
+            head_dim, scratch=scratch)
+    out = _rect_bwd_cuda("fused_ln_qkvo_attention_rect_int8_dw_bwd", True,
+                         True, xc, x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                         seq_len, heads, head_dim, scratch)
+    fused_ln_qkvo_attention_rect_int8_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_rect_int8_dw_bwd.launches = 0
+
+
 class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
-    """K8 under autograd: the forward is the kernel (`int8`: its W8A8 tier);
-    the backward (vitax's _ln_qkvo_rect_bwd_kernel :4155 and its int8 variant
-    :4253) is not ported yet and raises."""
+    """K8 under autograd, saving (xc, x, γ, β, Wqkv, bqkv, Wo) as vitax's
+    custom VJP (_fused_ln_qkvo_rect_fwd :4480): the forward is the kernel
+    (`int8`: its W8A8 tier); the backward is K8's int8 backward for `int8`
+    with `int8_grad` (its int8_dw variant under `int8_dw`), else the bf16
+    one."""
 
     @staticmethod
     def forward(ctx, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
-                heads, head_dim, int8):
+                heads, head_dim, int8, int8_grad, int8_dw):
+        ctx.save_for_backward(xc, x, gamma, beta, wqkv, bqkv, wo)
+        ctx.meta = (eps, seq_len, heads, head_dim)
+        ctx.tier = (int8 and int8_grad, int8_dw)
+        ctx.bo_dtype = bo.dtype
         fwd = (fused_ln_qkvo_attention_rect_int8 if int8
                else fused_ln_qkvo_attention_rect)
         return fwd(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
@@ -1725,9 +2110,17 @@ class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "K8 backward: ROADMAP Queue 2 (the rect attention half's backward "
-            "comes with Res-ViT training)")
+        xc, x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
+        int8_grad, int8_dw = ctx.tier
+        bwd = (fused_ln_qkvo_attention_rect_bwd if not int8_grad
+               else fused_ln_qkvo_attention_rect_int8_dw_bwd if int8_dw
+               else fused_ln_qkvo_attention_rect_int8_bwd)
+        dxc, dx, dg, dbe, dw, db, dwo, dbo = bwd(
+            xc, x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
+        return (dxc, dx, dg.to(gamma.dtype), dbe.to(beta.dtype),
+                dw.to(wqkv.dtype), db.to(bqkv.dtype), dwo.to(wo.dtype),
+                dbo.to(ctx.bo_dtype), None, None, None, None, None, None,
+                None)
 
 
 KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
@@ -1737,4 +2130,7 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_int8_ho, fused_ln_mlp_int8_ho,
            fused_ln_qkvo_attention_int8_dw_bwd, fused_ln_mlp_int8_dw_bwd,
            fused_ln_qkvo_attention_gqa, fused_ln_qkvo_attention_rect,
-           fused_ln_qkvo_attention_rect_int8)
+           fused_ln_qkvo_attention_rect_int8, fused_ln_qkvo_attention_rect_bwd,
+           fused_ln_qkvo_attention_rect_int8_bwd,
+           fused_ln_qkvo_attention_rect_int8_dw_bwd,
+           fused_ln_qkvo_attention_gqa_bwd)

@@ -127,7 +127,7 @@ def main(argv=None, device=None):
     if config.n_gpu > 1:
         raise NotImplementedError(
             "--n_gpu > 1: data-parallel eval comes with the parallel/ port "
-            "(ROADMAP Queue 1 item 11)")
+            "(ROADMAP Queue 1 item 5)")
     gen = set_seed(config.seed)
     device = cli.resolve_device(device)
     cfg = config_to_model_args(config, device)
@@ -142,7 +142,7 @@ def main(argv=None, device=None):
         if not os.path.isdir(path):
             raise NotImplementedError(
                 f"{path}: the reference's .pth files do not load in the port "
-                "yet (ROADMAP Queue 1 item 8); a checkpoint directory of the "
+                "yet (ROADMAP Queue 1 item 4); a checkpoint directory of the "
                 "port's store does")
         store = CheckpointStore(os.path.dirname(path) or ".")
         params = store.restore_params(os.path.basename(path), params)

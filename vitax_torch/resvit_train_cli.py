@@ -1,26 +1,58 @@
-"""Residual-ViT fine-tune CLI: its flag surface and the model arguments
-(counterpart of vitax/resvit_train_cli.py).
+"""Residual-ViT fine-tune CLI (counterpart of vitax/resvit_train_cli.py,
+itself the reference's res-vit/train.py).
 
-`get_train_config` parses the same flags as vitax's (the reference's,
-res-vit/config.py:122-184, with their hyphen/underscore quirks: `--use_lora`
-but `--batch-size`), so a command line means the same run in both packages;
-`config_to_model_args` turns it into a `ResViTConfig`. The eval CLI
-(`resvit_eval_cli`) takes its model arguments from here, as vitax's does.
+The same flag surface as vitax's (the reference's, res-vit/config.py:122-184,
+with their hyphen/underscore quirks: `--use_lora` but `--batch-size`), so a
+command line means the same run in both packages; `config_to_model_args`
+turns it into a `ResViTConfig` (the eval CLI takes its model arguments from
+here, as vitax's does). `main` trains as vitax's: AdamW with warmup-cosine
+(or cosine annealing per epoch), total = λc·c + λa·a + λd·d, clip 1.0, the
+LoRA freeze of the base weights, `--compact-warmup` and the capacity anneal
+(another config for a step), the token-keep schedule, the partial-batch
+skip, weighted validation with routing-viz PNGs, current/best checkpoints of
+the port's store per epoch, and the reference's JSON diagnostics
+(model_structure.json, weight_mapping_log.json,
+trainable_weights_info.json). On the card the attention halves run K1 (K7
+with GQA, K3 with `--int8`), K8 on compacted rows, each with its backward
+kernel. It runs on the card unless the caller asks for the CPU
+(`main(argv, device="cpu")`).
 
-The training loop itself (`main`) comes with Res-ViT training and raises
-until then (ROADMAP Queue 1 item 10).
+Not ported yet, each raising with its item: `--checkpoint-path` (the
+pretrained backbone, ROADMAP Queue 1 item 4), `--remat` (item 6), the int4
+flags (Queue 2, K11), `--int8` with `--n_kv_heads` (Queue 2, K7's int8 tier).
 
-Run: `python -m vitax_torch.resvit_train_cli --dataset CIFAR100 ...`
+Run: `python -m vitax_torch.resvit_train_cli --dataset Synthetic \\
+          --model-arch b16 --image-size 224 --batch-size 32 --use_lora True \\
+          --lora_rank 48 --use_reslr True --block_size 4 \\
+          --dynamic_start_layer 1 --dynamic_reserve_initials 2 \\
+          --dynamic_active_target 0.4 --initial-lambda-active 10 \\
+          --initial-lambda-distill 1 --train-steps 100 --warmup-steps 10`
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
+from vitax_torch import cli
+from vitax_torch.checkpointing.store import CheckpointStore
 from vitax_torch.core.config import num_classes_for_dataset, resvit_arch_config
-from vitax_torch.utils.experiment import process_config
+from vitax_torch.core.prng import set_seed
+from vitax_torch.data import get_dataloader
+from vitax_torch.models import resvit
+from vitax_torch.train.optim import tree_leaves
+from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                            make_adamw_for, make_eval_step,
+                                            make_train_step)
+from vitax_torch.train.schedules import (cosine_annealing_lr,
+                                         cosine_with_warmup_lr,
+                                         token_keep_switch_epoch)
+from vitax_torch.utils.experiment import process_config, write_json
+from vitax_torch.utils.memory import named_leaves, tree_bytes
+from vitax_torch.utils.routing_viz import save_routing_visualization
+from vitax_torch.utils.writers import ExperimentWriter
 
 DATASETS = ["CIFAR10", "CIFAR100", "ImageNet", "TinyImageNet", "Synthetic"]
 ARCHES = ["tiny", "b16", "b32", "l16", "l32", "h14"]
@@ -200,11 +232,220 @@ def config_to_model_args(c, device) -> "resvit_arch_config":
         use_pallas=False if c.no_pallas else None)
 
 
-def main(argv=None):
-    raise NotImplementedError(
-        "Res-ViT training (the train step, the Gumbel router, the teacher "
-        "path, the K7/K8 backward kernels) is not ported yet: ROADMAP Queue 1 "
-        "item 10; vitax_torch.resvit_eval_cli serves Res-ViT")
+def _structure_report(params) -> dict:
+    """{path: {shape, dtype}} of every leaf, vitax's keys and numpy dtype
+    names."""
+    return {path: {"shape": list(t.shape),
+                   "dtype": str(t.dtype).replace("torch.", "")}
+            for path, t in named_leaves(params)}
+
+
+def _reject_unported(config) -> None:
+    if config.checkpoint_path:
+        raise NotImplementedError(
+            f"{config.checkpoint_path}: the pretrained-backbone load (.pth "
+            "reader, resvit_params_from_vit) is not ported yet (ROADMAP Queue "
+            "1 item 4); train from random init")
+    if config.remat not in (None, "none"):
+        raise NotImplementedError(
+            f"--remat {config.remat}: block rematerialization is not ported "
+            "(ROADMAP Queue 1 item 6)")
+    if config.int4 or config.int4_attn or config.int4_grad:
+        raise NotImplementedError(
+            "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, "
+            "K11)")
+
+
+def main(argv=None, device=None):
+    """`device`: None for the card (raises without one), or "cpu". Returns
+    {"best_acc", "epochs": per-epoch validation metrics, "plan": the config
+    each step ran ((epoch, compact_capacity, token_keep) a step),
+    "checkpoint_dir", "result_dir", "state"}."""
+    config = get_train_config(argv)
+    cli.print_config(config)
+    _reject_unported(config)
+    gen = set_seed(config.seed)
+    device = cli.resolve_device(device)
+    cfg = config_to_model_args(config, device)
+    if cfg.int8_attn and (cfg.n_kv_heads or cfg.n_heads) != cfg.n_heads:
+        raise NotImplementedError(
+            "--int8 with n_kv_heads < n_heads: K3's GQA branch has no Hopper "
+            "kernel yet (ROADMAP Queue 2, K7's int8 tier)")
+    params = resvit.init_params(gen, cfg, device)
+
+    # JSON diagnostics (res-vit/utils.py:182-205,440-441,445-485)
+    report = _structure_report(params)
+    write_json(report, f"{config.result_dir}/model_structure.json")
+    write_json({}, f"{config.result_dir}/weight_mapping_log.json")
+    mask = tree_leaves(resvit.trainable_mask(params, cfg))
+    leaves = [t for _, t in named_leaves(params)]
+    write_json({
+        "trainable": [k for k, m in zip(report, mask) if m],
+        "frozen": [k for k, m in zip(report, mask) if not m],
+        "trainable_bytes": int(sum(t.numel() * 4
+                                   for t, m in zip(leaves, mask) if m)),
+        "total_bytes": int(tree_bytes(params)),
+    }, f"{config.result_dir}/trainable_weights_info.json")
+
+    common = dict(data_dir=config.data_dir, image_size=config.image_size,
+                  batch_size=config.batch_size,
+                  num_workers=config.num_workers, seed=config.seed)
+    if config.dataset == "Synthetic":
+        common["num_samples"] = config.synthetic_samples
+    train_loader = get_dataloader(config.dataset, split="train", **common)
+    valid_loader = get_dataloader(config.dataset, split="val", **common)
+
+    steps_per_epoch = max(1, len(train_loader))
+    epochs = max(1, config.train_steps // steps_per_epoch)
+    if config.lr_scheduler == "cosine_with_warmup":
+        lr_sched = cosine_with_warmup_lr(config.lr, config.warmup_steps,
+                                         config.train_steps)
+    else:  # CosineAnnealingLR stepped per epoch (res-vit/train.py:287-291)
+        inner = cosine_annealing_lr(config.lr, epochs, eta_min=config.min_lr)
+        lr_sched = lambda step: inner(step // steps_per_epoch)  # noqa: E731
+
+    if config.scan_layers and resvit._scan_eligible(cfg):
+        params = resvit.stack_params(params, cfg)
+    tx = make_adamw_for(cfg, params, lr_sched,
+                        router_lr_scale=config.router_lr_scale,
+                        betas=(config.beta1, config.beta2), eps=config.eps,
+                        weight_decay=config.wd,
+                        clip_grad_norm=1.0 if config.clip_grad_norm else None)
+    state = create_state(params, tx, torch.Generator(device=device)
+                         .manual_seed(config.seed + 7))
+    lambdas = Lambdas(classification=config.initial_lambda_class,
+                      active=config.initial_lambda_active,
+                      distill=config.initial_lambda_distill)
+
+    # the step's config: the token-keep schedule's dense tail, the dense
+    # --compact-warmup, the --compact-capacity-start slack phase; each is
+    # another config for the same parameters and optimizer
+    steps = {"main": cfg}
+    dense_from_epoch = token_keep_switch_epoch(config.token_keep_schedule,
+                                               cfg.token_keep, epochs)
+    if dense_from_epoch < epochs:
+        steps["dense"] = cfg.replace(token_keep=1.0)
+        print(f"token-keep schedule: keep {cfg.token_keep} for epochs "
+              f"0..{dense_from_epoch - 1}, dense from epoch "
+              f"{dense_from_epoch}")
+    compact_warmup = config.compact_warmup or 0
+    if cfg.compact_capacity is not None and compact_warmup > 0:
+        steps["warm"] = cfg.replace(compact_capacity=None)
+    cap_anneal_until = 0
+    cap_hi = config.compact_capacity_start
+    if (cfg.compact_capacity is not None and cap_hi
+            and config.compact_capacity_anneal > 0):
+        if cap_hi < cfg.compact_capacity:
+            raise ValueError("--compact-capacity-start must be >= "
+                             "--compact-capacity (it is the slack phase)")
+        steps["hi"] = cfg.replace(compact_capacity=cap_hi)
+        cap_anneal_until = compact_warmup + config.compact_capacity_anneal
+        print(f"capacity anneal: C={cap_hi} for steps "
+              f"{compact_warmup}..{cap_anneal_until - 1}, then "
+              f"C={cfg.compact_capacity}")
+    step_fns = {k: make_train_step(c, tx, lambdas) for k, c in steps.items()}
+    eval_step = make_eval_step(cfg, lambdas)
+
+    if device.type == "cuda" and (cfg.fused_qkv or cfg.fused_mlp
+                                  or cfg.use_pallas is not False):
+        from vitax_torch.kernels import build
+        build.load()  # set-up: build the kernels before the timed loop
+
+    writer = ExperimentWriter(
+        config.summary_dir,
+        backend=("swanlab" if config.swanlab else
+                 "tensorboard" if config.tensorboard else "none"),
+        project=f"vit-{config.dataset}", exp_name=config.exp_name)
+    store = CheckpointStore(config.checkpoint_dir)
+
+    best_acc = 0.0
+    steps_done = 0
+    plan, history = [], []
+    print(f"training {epochs} epochs x {steps_per_epoch} steps")
+    for epoch in range(epochs):
+        train_loader.set_epoch(epoch)
+        t0 = time.time()
+        for i, batch in enumerate(train_loader):
+            if batch.weight.sum() < len(batch.weight):
+                continue  # partial batches are skipped, as vitax's loop
+            images = torch.from_numpy(batch.images).to(device=device,
+                                                       dtype=cfg.dtype)
+            labels = torch.from_numpy(batch.labels).to(device)
+            key = "main"
+            if "warm" in steps and steps_done < compact_warmup:
+                key = "warm"
+            elif "hi" in steps and steps_done < cap_anneal_until:
+                key = "hi"
+            if "dense" in steps and epoch >= dense_from_epoch:
+                key = "dense"
+            state, metrics = step_fns[key](state, images, labels)
+            plan.append((epoch, steps[key].compact_capacity,
+                         steps[key].token_keep))
+            steps_done += 1
+            if i % config.print_freq == config.print_freq - 1:
+                mh = {k: v.detach().float().cpu().numpy()
+                      for k, v in metrics.items()}
+                writer.set_step(state.step, "train")
+                for k, v in mh.items():
+                    if v.ndim == 0:
+                        writer.add_scalar(k, float(v))
+                writer.add_scalars("layer_activation_rates", {
+                    f"layer_{j}": float(v) for j, v in
+                    enumerate(mh["layer_activation_rates"])})
+                rate = (i + 1) * len(batch.weight) / (time.time() - t0)
+                print(f"epoch {epoch} step {state.step}: "
+                      f"loss={float(mh['loss']):.4f} "
+                      f"c={float(mh['c_loss']):.4f} "
+                      f"a={float(mh['a_loss']):.6f} "
+                      f"d={float(mh['d_loss']):.4f} "
+                      f"H={float(mh['router_entropy']):.4f} "
+                      f"active={float(mh['non_low_rank_ratio']):.3f} "
+                      f"acc1={float(mh['acc1']):.3f} ({rate:.0f} img/s)",
+                      flush=True)
+
+        # validation (res-vit/train.py:321-341), means over the real rows
+        totals: dict = {}
+        n = 0.0
+        viz_done = not config.save_routing_viz
+        eval_params = resvit.unstack_params(state.params)
+        for batch in valid_loader:
+            images = torch.from_numpy(batch.images).to(device=device,
+                                                       dtype=cfg.dtype)
+            labels = torch.from_numpy(batch.labels).to(device)
+            weight = torch.from_numpy(batch.weight).to(device)
+            metrics, routing_maps = eval_step(eval_params, images, labels,
+                                              weight)
+            bs = float(weight.sum())
+            for k, v in metrics.items():
+                if v.ndim == 0:
+                    totals[k] = totals.get(k, 0.0) + float(v) * bs
+            n += bs
+            if not viz_done and routing_maps:
+                save_routing_visualization(
+                    batch.images, {k: v.float().cpu().numpy()
+                                   for k, v in routing_maps.items()},
+                    epoch, f"{config.result_dir}/routing_viz",
+                    patch_size=config.patch_size,
+                    reserve_initials=config.dynamic_reserve_initials)
+                viz_done = True
+        vr = {k: v / max(n, 1) for k, v in totals.items()}
+        writer.set_step(state.step, "valid")
+        for k, v in vr.items():
+            writer.add_scalar(k, v)
+        print(f"epoch {epoch} valid: "
+              + " ".join(f"{k}={v:.4f}" for k, v in sorted(vr.items())),
+              flush=True)
+
+        is_best = vr.get("acc1", 0.0) > best_acc
+        best_acc = max(best_acc, vr.get("acc1", 0.0))
+        store.save_model(state, epoch, is_best=is_best,
+                         metrics={"best_acc": best_acc, **vr})
+        history.append(vr)
+    writer.close()
+    print(f"done; best acc1 = {best_acc:.4f}")
+    return {"best_acc": best_acc, "epochs": history, "plan": plan,
+            "checkpoint_dir": config.checkpoint_dir,
+            "result_dir": config.result_dir, "state": state}
 
 
 if __name__ == "__main__":

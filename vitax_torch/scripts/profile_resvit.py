@@ -1,4 +1,5 @@
-"""Where a Res-ViT serving forward spends its time on one CUDA card.
+"""Where a Res-ViT serving forward, or a train step, spends its time on one
+CUDA card.
 
     python -m vitax_torch.scripts.profile_resvit [config ...]
 
@@ -8,12 +9,17 @@ The b16 Res-ViT of scripts/ft_resvit.sh (`--use_lora True --lora_rank 48
 weights from seed 0 with the routers' final biases drawn from ±0.3 (the
 init's keep bias 5.0 routes every token active), and one resident batch of
 64 Synthetic images. Configs: `dense`, `compact` (capacity 0.625),
-`dense-int8`, `compact-int8` (default: all four). For each it runs two
-warm-up forwards, then records three with torch.profiler and prints the
-wall time a forward (host clock around synchronized forwards), the device
-busy time (the sum of the kernels' device times; one stream, so they do not
-overlap) and idle share, the device time by group of kernels, and the
-largest kernels.
+`dense-int8`, `compact-int8` (default: all four); and train steps
+(teacher + student forward, backward, AdamW; λ 1, 10, 1) on a resident
+batch of random images: `train-dense` (b32, bf16, `ft_resvit.sh`),
+`train-compact` (b32, bf16, `--compact-capacity 0.625`) and `train-fast`
+(b192, `--int8-dw --compact-capacity 0.625 --token-keep 0.5`,
+`ft_resvit_fast.sh`'s flags past its dense warmup). For each it runs two
+warm-up iterations, then records three with torch.profiler and prints the
+wall time an iteration (host clock around synchronized iterations), the
+device busy time (the sum of the kernels' device times; one stream, so they
+do not overlap) and idle share, the device time by group of kernels, and
+the largest kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from vitax_torch.data import get_dataloader
 from vitax_torch.models import resvit
 from vitax_torch.resvit_eval_cli import get_eval_config
 from vitax_torch.resvit_train_cli import config_to_model_args
+from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                            make_adamw_for, make_train_step)
 
 RECIPE = ["--model-arch", "b16", "--image-size", "224", "--dataset",
           "Synthetic", "--use_lora", "True", "--lora_rank", "48",
@@ -38,6 +46,15 @@ RECIPE = ["--model-arch", "b16", "--image-size", "224", "--dataset",
 CONFIGS = {"dense": [], "compact": ["--compact-capacity", "0.625"],
            "dense-int8": ["--int8"],
            "compact-int8": ["--compact-capacity", "0.625", "--int8"]}
+# train configs: (batch, overrides of the serving config)
+TRAIN_CONFIGS = {
+    "train-dense": (32, {}),
+    "train-compact": (32, dict(compact_capacity=0.625)),
+    "train-fast": (192, dict(int8_attn=True, int8_attn_grad=True,
+                             int8_mlp=True, int8_mlp_grad=True, int8_dw=True,
+                             fused_mlp=True, compact_capacity=0.625,
+                             token_keep=0.5)),
+}
 # kernel-name fragment -> group, first match wins
 GROUPS = [("attention_core", "attention core (K1/K3/K7/K8)"),
           ("gemm_s8", "s8 GEMM (K3/K4/K8 int8)"),
@@ -67,6 +84,23 @@ def _device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
+def _profiled(fn, iters):
+    """(profiler, wall ms an iteration) of `iters` calls of fn after two
+    warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    return prof, wall
+
+
 def profile(name: str, params, images, cfg, iters: int = 3) -> None:
     c = cfg
     if "--compact-capacity" in CONFIGS[name]:
@@ -74,29 +108,38 @@ def profile(name: str, params, images, cfg, iters: int = 3) -> None:
     if "--int8" in CONFIGS[name]:
         c = c.replace(int8_attn=True, int8_mlp=True, fused_mlp=True)
     with torch.inference_mode():
-        for _ in range(2):
-            resvit.apply(params, images, c)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                resvit.apply(params, images, c)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / iters
+        prof, wall = _profiled(lambda: resvit.apply(params, images, c), iters)
+    report(name, prof, wall, iters, "a forward")
+
+
+def profile_train(name: str, params, cfg, iters: int = 3) -> None:
+    batch, over = TRAIN_CONFIGS[name]
+    c = cfg.replace(**over)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    images = torch.randn((batch, 224, 224, 3), generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    labels = torch.randint(0, 10, (batch,), generator=g, device="cuda")
+    tx = make_adamw_for(c, params, lambda s: 1e-4)
+    state = create_state(params, tx, torch.Generator(device="cuda")
+                         .manual_seed(2))
+    step = make_train_step(c, tx, Lambdas(1.0, 10.0, 1.0))
+    prof, wall = _profiled(lambda: step(state, images, labels), iters)
+    report(f"{name} b{batch}", prof, wall, iters, "a step")
+
+
+def report(name, prof, wall, iters, unit) -> None:
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(_device_us(e) for e in kernels) / 1e3 / iters
     if busy == 0:
         print(f"{name}: the profiler recorded no device time; wall "
-              f"{wall:.2f} ms a forward", flush=True)
+              f"{wall:.2f} ms {unit}", flush=True)
         return
     groups = defaultdict(float)
     for e in kernels:
         key = next(g for frag, g in GROUPS if frag in e.key.lower())
         groups[key] += _device_us(e) / 1e3 / iters
-    print(f"{name}: wall {wall:.2f} ms a forward, device busy {busy:.2f} ms, "
+    print(f"{name}: wall {wall:.2f} ms {unit}, device busy {busy:.2f} ms, "
           f"idle {100 * (1 - busy / wall):.1f} %; by group: " + ", ".join(
               f"{g} {ms:.2f} ms ({100 * ms / busy:.1f} %)"
               for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
@@ -109,6 +152,10 @@ def profile(name: str, params, images, cfg, iters: int = 3) -> None:
 
 def main(argv=None) -> None:
     names = (argv if argv is not None else sys.argv[1:]) or list(CONFIGS)
+    unknown = set(names) - set(CONFIGS) - set(TRAIN_CONFIGS)
+    if unknown:
+        raise SystemExit(f"profile_resvit: unknown configs {sorted(unknown)}; "
+                         f"choose from {list(CONFIGS) + list(TRAIN_CONFIGS)}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_resvit: needs a CUDA card")
     cfg = config_to_model_args(get_eval_config(RECIPE), "cuda")
@@ -121,7 +168,10 @@ def main(argv=None) -> None:
     print(f"profile_resvit: {torch.cuda.get_device_name(0)}, b64 @224",
           flush=True)
     for name in names:
-        profile(name, params, images, cfg)
+        if name in TRAIN_CONFIGS:
+            profile_train(name, params, cfg)
+        else:
+            profile(name, params, images, cfg)
 
 
 if __name__ == "__main__":

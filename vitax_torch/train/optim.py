@@ -10,7 +10,13 @@
   warmup != 1 step (its first phase would be 0 steps long); others raise.
 * `adamw`: `torch.optim.AdamW` with a `LambdaLR` over an LR schedule of
   train/schedules.py; the train step clips the global grad norm
-  (`clip_grad_norm_`) before the update, as the reference does.
+  (`clip_grad_norm_`) before the update, as the reference does. With a
+  `mask` the frozen leaves stay out of the optimizer, so nothing (no weight
+  decay either) reaches them: vitax's `optax.multi_transform` with
+  `set_to_zero`. With an `lr_scale` tree the leaves of another scale form
+  their own parameter group at lr × scale: vitax's post-Adam
+  `optax.scale` of a masked subtree (`router_lr_scale`), which for AdamW's
+  decoupled update is the same as a scaled learning rate.
 
 Both work on the flat list of fp32 parameter leaves (`param_leaves`).
 """
@@ -30,6 +36,16 @@ def param_leaves(params) -> List[torch.Tensor]:
     return [t for _, t in named_leaves(params)]
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of any tree of dicts and lists (bools, floats, tensors), in
+    `named_leaves` order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree, key=str) for v in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [v for t in tree for v in tree_leaves(t)]
+    return [tree]
+
+
 def sgd_momentum(params, max_lr: float, total_steps: int, pct_start: float,
                  momentum: float = 0.9, weight_decay: float = 0.0):
     """(SGD, OneCycleLR) over `param_leaves(params)`."""
@@ -46,11 +62,24 @@ def sgd_momentum(params, max_lr: float, total_steps: int, pct_start: float,
 
 
 def adamw(params, lr_schedule: Callable[[int], float], base_lr: float,
-          betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.05):
+          betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.05,
+          mask=None, lr_scale=None):
     """(AdamW, LambdaLR following `lr_schedule`); pair with
-    `make_train_step(..., clip_grad_norm=...)` for the reference's clip."""
-    opt = torch.optim.AdamW(param_leaves(params), lr=base_lr, betas=betas,
-                            eps=eps, weight_decay=weight_decay)
+    `make_train_step(..., clip_grad_norm=...)` for the reference's clip.
+    `mask`: a tree of bools like `params` (False: frozen, left out);
+    `lr_scale`: a tree of floats like `params` (one parameter group per
+    scale, at lr × scale)."""
+    leaves = param_leaves(params)
+    keep = tree_leaves(mask) if mask is not None else [True] * len(leaves)
+    scales = (tree_leaves(lr_scale) if lr_scale is not None
+              else [1.0] * len(leaves))
+    groups: dict = {}
+    for t, k, sc in zip(leaves, keep, scales):
+        if k:
+            groups.setdefault(float(sc), []).append(t)
+    opt = torch.optim.AdamW(
+        [{"params": ts, "lr": base_lr * sc} for sc, ts in groups.items()],
+        lr=base_lr, betas=betas, eps=eps, weight_decay=weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: lr_schedule(step) / base_lr)
     return opt, sched

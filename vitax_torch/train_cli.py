@@ -48,19 +48,19 @@ def _reject_unported(config) -> None:
     """Flags whose code paths the port does not have yet raise here."""
     unported = [
         (config.export_pth, "--export-pth", "the .pth writer",
-         "Queue 1 item 8"),
+         "Queue 1 item 4"),
         (config.n_gpu > 1, "--n-gpu > 1", "data-parallel training",
-         "Queue 1 item 11"),
+         "Queue 1 item 5"),
         (config.n_model > 1, "--n-model > 1", "tensor parallelism",
-         "Queue 1 item 11"),
+         "Queue 1 item 5"),
         (config.device_prep, "--device-prep", "on-device preprocessing",
-         "Queue 1 item 7"),
+         "Queue 1 item 3"),
         (config.int4 or config.int4_attn or config.int4_grad,
          "--int4/--int4-attn/--int4-grad", "the int4 kernels", "Queue 2 K11"),
         (config.save_acts, "--save-acts", "the save-acts kernels",
          "Queue 2 K12"),
         (config.remat in ("full", "selective"), f"--remat {config.remat}",
-         "block rematerialization", "Queue 1 item 3"),
+         "block rematerialization", "Queue 1 item 6"),
     ]
     for hit, flag, what, item in unported:
         if hit:
@@ -179,7 +179,7 @@ def _initial_params(config, cfg, gen, device):
         raise NotImplementedError(
             f"{path}: only .npz checkpoints load in the port so far; .pth "
             "files and checkpoint stores are not yet ported (ROADMAP Queue 1 "
-            "item 8)")
+            "item 4)")
     loaded = load_npz_params(path, cfg)
     head = loaded.pop("classifier", None)
     out = vit.params_from_jax(loaded, device)
