@@ -93,6 +93,28 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              routing replayed; device-timed train steps of (a)-(e) on a
              resident batch.
 
+10. h14    — ViT-H/14 (32 layers, D 1280, 16 heads of 80, MLP 5120), whose
+             attention half is K6 (the KV-chunked core; K1's whole-row core
+             does not fit hd 80 or spq 736) and whose MLP backward is K2's
+             :1610 route (d > 1024): `vitax_torch.eval_cli --model-arch h14`
+             at its default 384 px (spq 736), b32, 64 Synthetic images,
+             counters set to 0 just before and read just after (exact: 32
+             K6 and 32 K2 a forward, LN once, no K1), then the plain run;
+             logits of one b32 batch at 384 and at 224, kernel vs plain bf16
+             within LOGIT_BAND, and device-timed forwards; `train_cli
+             --model-arch h14 --image-size 224` at b32 for 4 SGD steps and
+             an eval epoch (exact per step: 32 K6 and K2 forward, 32 K6
+             backward, 32 K2 backward on the :1610 route, one LN forward and
+             backward), every loss finite; the grads of every parameter for
+             one batch, kernel vs plain bf16 within GRAD_BAND; device-timed
+             train steps, plain and kernels in turns.
+
+Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
+backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
+D 1280, MLP 5120 (32 x 264 rows, 3 x 257) against their twins, and K6
+against K1 at ViT-B/16's b32 spq 200, forward and backward, within TOL,
+both timed in turns.
+
 Phase 3 also holds the Res-ViT kernels against their twins: K7 (GQA in
 K1, 4 and 6 kv heads) at b64 spq 200; K8 (the rect attention half, bf16
 and int8) at b64 spq 200 with cpq 128 and 104 and on a ragged case, and
@@ -202,7 +224,19 @@ KERNEL_INFO = {
     "fused_ln_qkvo_attention_gqa_bwd": (
         "vitax_torch/csrc/ln_qkvo_attention_bwd.cu",
         "vitax/ops/pallas_kernels.py:2846"),
+    # ViT-H/14: K6 (the KV-chunked attention half) forward and backward, and
+    # K2's backward at d > 1024 (the :1610 route)
+    "fused_ln_qkvo_attention_flash": (
+        "vitax_torch/csrc/ln_qkvo_attention_flash.cu",
+        "vitax/ops/pallas_kernels.py:3419"),
+    "fused_ln_qkvo_attention_flash_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_flash_bwd.cu",
+        "vitax/ops/pallas_kernels.py:3446"),
+    "fused_ln_mlp_bwd_wide": ("vitax_torch/csrc/ln_mlp_bwd.cu",
+                              "vitax/ops/pallas_kernels.py:1527"),
 }
+H14_KERNELS = ("fused_ln_qkvo_attention_flash",
+               "fused_ln_qkvo_attention_flash_bwd", "fused_ln_mlp_bwd_wide")
 RESVIT_KERNELS = ("fused_ln_qkvo_attention_gqa",
                   "fused_ln_qkvo_attention_rect",
                   "fused_ln_qkvo_attention_rect_int8")
@@ -220,7 +254,8 @@ INT8_KERNELS = ("fused_ln_qkvo_attention_int8", "fused_ln_mlp_int8",
                 "fused_ln_qkvo_attention_int8_bwd", "fused_ln_mlp_int8_bwd"
                 ) + HO_KERNELS + DW_KERNELS
 
-D, HEADS, HEAD_DIM, MLP = 768, 12, 64, 3072      # ViT-B/16
+B16 = D, HEADS, HEAD_DIM, MLP = 768, 12, 64, 3072      # ViT-B/16
+H14 = 1280, 16, 80, 5120  # ViT-H/14: D, heads, head_dim, MLP; 32 layers
 EPS = 1e-5
 # kernel vs plain: |k - ref| <= TOL * max(1, max|ref|). bf16 keeps 8 bits
 # (ulp 2^-8 relative); both sides round at the same points, so what is left
@@ -346,11 +381,13 @@ def _median_ms(fn, warmup=3, iters=25):
     return statistics.median(times)
 
 
-def _inputs(batch, rows, seed):
-    """bf16 activations and ViT-B/16-scaled weights made on the card."""
+def _inputs(batch, rows, seed, dims=None):
+    """bf16 activations and weights scaled to the model's width, made on the
+    card; `dims` (D, heads, head_dim, MLP), ViT-B/16's by default."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     bf, f32 = torch.bfloat16, torch.float32
+    D, HEADS, HEAD_DIM, MLP = dims or B16
 
     def rnd(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
@@ -976,6 +1013,256 @@ def check_resvit_bwd_kernels(stats):
           f"{stats['fused_ln_qkvo_attention_rect_bwd']['square_ms']:.4f} ms",
           flush=True)
     return stats
+
+
+# ViT-H/14 (phase 3): (kernel, label, batch, rows, seq_len, timed). K6's
+# forward at eval_cli's b32 spq 736 (the table's time) and train_cli's b32
+# spq 264, its backward at b32 spq 264 (the table's) and b8, each on a
+# ragged case too (spq 40: not a multiple of the 16-row tiles or 64-key
+# tiles, keys masked past 37); K2's backward at d 1280 over train_cli's
+# 32 x 264 rows (the table's) and 3 x 257 rows.
+H14_CASES = [
+    ("fused_ln_qkvo_attention_flash", "b32 spq736 (eval_cli)", 32, 736, 730,
+     "ms"),
+    ("fused_ln_qkvo_attention_flash", "b32 spq264 (train_cli)", 32, 264, 257,
+     "ms_264"),
+    ("fused_ln_qkvo_attention_flash", "ragged", 3, 40, 37, None),
+    ("fused_ln_qkvo_attention_flash_bwd", "b32 spq264 (train_cli)", 32, 264,
+     257, "ms"),
+    ("fused_ln_qkvo_attention_flash_bwd", "b8 spq264", 8, 264, 257, None),
+    ("fused_ln_qkvo_attention_flash_bwd", "ragged", 3, 40, 37, None),
+    ("fused_ln_mlp_bwd_wide", "b32 rows264 (train_cli)", 32, 264, 264, "ms"),
+    ("fused_ln_mlp_bwd_wide", "ragged", 3, 257, 257, None),
+]
+
+
+def check_h14_kernels(stats):
+    """Phase 3, ViT-H/14: K6 forward and backward (every output) and K2's
+    backward at d 1280 against their twins (the K6 twins run vitax's KV
+    chunks, the kernels 64-key tiles: the bf16 rounding of p moves with the
+    running max, inside TOL); then K6 against K1 at ViT-B/16's b32 spq
+    200, forward and backward, within TOL: one function up to the softmax's
+    rounding, timed in turns."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in H14_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    _, heads, hd, _ = H14
+    for i, (name, label, batch, rows, seq_len, timed) in enumerate(H14_CASES):
+        t = _inputs(batch, rows, seed=140 + i, dims=H14)
+        g = torch.Generator(device="cuda").manual_seed(160 + i)
+        do = torch.randn(t["x"].shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+        if name == "fused_ln_mlp_bwd_wide":
+            args = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"],
+                    do, EPS)
+        else:
+            last = t["bo"] if name == "fused_ln_qkvo_attention_flash" else do
+            args = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                    t["wo"], last, EPS, seq_len, heads, hd)
+        kern = (lambda f=getattr(ck, name), a=args: f(*a))
+        plain = (lambda f=getattr(ck, name + "_ref"), a=args: f(*a))
+        with torch.no_grad():
+            outs = kern()
+            torch.cuda.synchronize()
+            refs = plain()
+        if isinstance(outs, torch.Tensor):
+            outs, refs = (outs,), (refs,)
+        errs = _hold_all(name, label, outs, refs, stats)
+        line = (f"  {name:34s} {label:24s} max|k-ref| per output "
+                f"[{' '.join(errs)}]: ok")
+        del outs, refs
+        if timed:
+            with torch.no_grad():
+                k_ms = _median_ms(kern, warmup=2, iters=10)
+                p_ms = _median_ms(plain, warmup=1, iters=5)
+            line += (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms (medians "
+                     "of 10 / 5)")
+            stats[name][timed] = k_ms
+            if timed == "ms":
+                stats[name].update(plain_ms=p_ms, shape=(batch, rows),
+                                   dims=H14)
+        print(line, flush=True)
+        del t, args, kern, plain
+        torch.cuda.empty_cache()
+
+    t = _inputs(32, 200, seed=170)
+    g = torch.Generator(device="cuda").manual_seed(171)
+    do = torch.randn(t["x"].shape, generator=g, device="cuda").to(
+        torch.bfloat16)
+    qkvo = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"],
+            t["bo"], EPS, 197, HEADS, HEAD_DIM)
+    bwd = qkvo[:6] + (do,) + qkvo[7:]
+    calls = {"K6": (lambda: ck.fused_ln_qkvo_attention_flash(*qkvo),
+                    lambda: ck.fused_ln_qkvo_attention_flash_bwd(*bwd)),
+             "K1": (lambda: ck.fused_ln_qkvo_attention(*qkvo),
+                    lambda: ck.fused_ln_qkvo_attention_bwd(*bwd))}
+    with torch.no_grad():
+        pairs = [(calls["K6"][0](), calls["K1"][0]())]
+        pairs += zip(calls["K6"][1](), calls["K1"][1]())
+        # in turns: K6, K1, K1, K6
+        ms = {(k, i): [] for k in calls for i in range(2)}
+        for k in ("K6", "K1", "K1", "K6"):
+            for i in range(2):
+                ms[k, i].append(_median_ms(calls[k][i], warmup=2, iters=10))
+    errs = []
+    for a, b in pairs:
+        err = (a.float() - b.float()).abs().max().item()
+        bound = TOL * max(1.0, b.float().abs().max().item())
+        if not (err <= bound and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"K6 vs K1 at b32 spq200: {err} > {bound}")
+        errs.append(f"{err:.2e}<={bound:.2e}")
+    print(f"  K6 vs K1 (ViT-B/16 b32 spq200, hd 64), forward and the 7 "
+          f"grads: [{' '.join(errs)}]: ok; times (medians of 10, in turns "
+          f"K6 K1 K1 K6) forward K6 "
+          f"{' / '.join(f'{v:.4f}' for v in ms['K6', 0])} ms, K1 "
+          f"{' / '.join(f'{v:.4f}' for v in ms['K1', 0])} ms; backward K6 "
+          f"{' / '.join(f'{v:.4f}' for v in ms['K6', 1])} ms, K1 "
+          f"{' / '.join(f'{v:.4f}' for v in ms['K1', 1])} ms", flush=True)
+    return stats
+
+
+H14_LAYERS = 32
+# eval_cli at its default 384 px (spq 736), two b32 batches; train_cli at
+# 224 px (spq 264), b32, 4 SGD steps (one epoch of 128 images) and an eval
+# epoch of 4 batches
+H14_EVAL_ARGS = ["--model-arch", "h14", "--dataset", "Synthetic",
+                 "--synthetic-samples", "64", "--batch-size", "32",
+                 "--num-classes", "10", "--seed", "0"]
+H14_TRAIN_ARGS = ["--model-arch", "h14", "--image-size", "224",
+                  "--dataset", "Synthetic", "--synthetic-samples", "128",
+                  "--batch-size", "32", "--lr", "0.03", "--wd", "0",
+                  "--warmup-steps", "2", "--train-steps", "4",
+                  "--num-classes", "10", "--seed", "0"]
+H14_STEPS = 4
+
+
+def run_h14_slice(exp_root):
+    """Phase 10, ViT-H/14: eval_cli at 384 with exact counts (32 K6 and 32
+    K2 a forward, LN once, no K1), the plain run, logits kernel vs plain
+    bf16; train_cli at 224 b32 with exact counts per step (K6 and K2
+    forward and backward, K2's on the :1610 route), grads of every parameter
+    kernel vs plain bf16; device-timed forwards and train steps."""
+    import torch
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import vit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.train import param_leaves
+    from vitax_torch.utils.memory import named_leaves
+
+    L = H14_LAYERS
+    ck.reset_launch_counts()
+    result, n_img, rate = _run_eval(H14_EVAL_ARGS)
+    counts_eval = ck.launch_counts()
+    batches = 2
+    expect = _expect(layer_norm=batches,
+                     fused_ln_qkvo_attention_flash=L * batches,
+                     fused_ln_mlp=L * batches)
+    print(f"h14: eval_cli @384 kernels {result} {n_img} images {rate:.1f} "
+          f"img/s launches {_nonzero(counts_eval)}", flush=True)
+    if n_img != 64 or counts_eval != expect:
+        raise AssertionError(f"expected 64 images and launches {expect}")
+    ck.reset_launch_counts()
+    result_p, _, rate_p = _run_eval(H14_EVAL_ARGS + PLAIN_FLAGS)
+    print(f"h14: eval_cli @384 plain {result_p} {rate_p:.1f} img/s launches "
+          f"{_nonzero(ck.launch_counts())}", flush=True)
+    if any(ck.launch_counts().values()):
+        raise AssertionError("the plain path launched a kernel")
+
+    times = {"eval img/s @384": {"kernels": rate, "plain": rate_p}}
+    for image in (384, 224):
+        cfg = arch_config("h14", image_size=image, num_classes=10,
+                          dtype=torch.bfloat16, fused_qkv=True,
+                          fused_mlp=True)
+        plain = cfg.replace(fused_qkv=False, fused_mlp=False,
+                            use_pallas=False)
+        params = vit.init_params(set_seed(0), cfg, "cuda")
+        batch = next(iter(get_dataloader(
+            "Synthetic", split="val" if image == 384 else "train",
+            image_size=image, batch_size=32, num_samples=64, seed=0)))
+        images = torch.from_numpy(batch.images).cuda().bfloat16()
+        labels = torch.from_numpy(batch.labels).cuda()
+        with torch.inference_mode():
+            ck.reset_launch_counts()
+            lk = vit.apply(params, images, cfg)
+            if _nonzero(ck.launch_counts()) != {
+                    "layer_norm": 1, "fused_ln_qkvo_attention_flash": L,
+                    "fused_ln_mlp": L}:
+                raise AssertionError(f"h14 @{image}: launches "
+                                     f"{_nonzero(ck.launch_counts())}")
+            lp = vit.apply(params, images, plain)
+            fwd = {n: _median_ms(lambda c=c: vit.apply(params, images, c),
+                                 warmup=1, iters=5)
+                   for n, c in (("kernels", cfg), ("plain", plain))}
+        diff = (lk - lp).abs().max().item()
+        band = LOGIT_BAND * max(1.0, lp.abs().max().item())
+        print(f"h14: @{image} logits {tuple(lk.shape)} max|kernel-plain_bf16|"
+              f" {diff:.3e} <= {band:.3e}; forward b32 (median of 5, CUDA "
+              "events): " + ", ".join(f"{k} {ms:.2f} ms = {32e3 / ms:.1f} "
+                                      "img/s" for k, ms in fwd.items()),
+              flush=True)
+        if not (bool(torch.isfinite(lk).all()) and diff <= band):
+            raise AssertionError("h14 kernel-path logits outside the bf16 "
+                                 "band")
+        times[f"forward ms @{image}"] = fwd
+        del lk, lp
+        if image == 384:
+            del params, images
+            torch.cuda.empty_cache()
+            continue
+
+        # @224: train_cli, then grads and timed steps on these params
+        args = H14_TRAIN_ARGS + ["--exp-root", exp_root]
+        ck.reset_launch_counts()
+        losses, valid, rate_t = _run_train(args, steps=H14_STEPS)
+        counts_train = ck.launch_counts()
+        ev = math.ceil(128 / 32)
+        expect = _expect(
+            layer_norm=H14_STEPS + ev,
+            fused_ln_qkvo_attention_flash=L * (H14_STEPS + ev),
+            fused_ln_mlp=L * (H14_STEPS + ev), layer_norm_bwd=H14_STEPS,
+            fused_ln_qkvo_attention_flash_bwd=L * H14_STEPS,
+            fused_ln_mlp_bwd_wide=L * H14_STEPS)
+        print(f"h14: train_cli @224 b32 losses "
+              f"{[round(v, 4) for v in losses]} valid {valid} {rate_t:.1f} "
+              f"img/s (epoch loop, host-fed) launches "
+              f"{_nonzero(counts_train)}", flush=True)
+        if counts_train != expect:
+            raise AssertionError(f"expected launches {expect}")
+
+        names = [n for n, _ in named_leaves(params)]
+        for p in param_leaves(params):
+            p.requires_grad_(True)
+        g_k = _grads(params, images, labels, cfg)
+        g_p = _grads(params, images, labels, plain)
+        rels, key_ratio = _grad_distances(names, g_k, g_p)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+        print(f"h14: grads of {len(names)} tensors; worst |g_kernel - "
+              f"g_plain_bf16| / |g_plain_bf16|: " + ", ".join(
+                  f"{r:.3e} ({n})" for r, n in rels[:3])
+              + f" <= {GRAD_BAND}; key biases |g_kernel| / |g_plain query "
+              f"bias| <= {key_ratio:.3e}", flush=True)
+        if not finite or rels[0][0] > GRAD_BAND or key_ratio > GRAD_BAND:
+            raise AssertionError("h14 kernel-path grads outside the bf16 "
+                                 "band")
+        del g_k, g_p
+        torch.cuda.empty_cache()
+        runs = _time_steps(params, images, labels,
+                           (("plain", plain), ("kernels", cfg),
+                            ("kernels", cfg), ("plain", plain)), iters=5)
+        times["train step ms @224"] = {
+            k: min(ms for n, ms in runs if n == k)
+            for k in ("kernels", "plain")}
+        times["train_cli img/s @224"] = rate_t
+        del params, images
+        torch.cuda.empty_cache()
+    return counts_eval, counts_train, times
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 class _Tee(io.TextIOBase):
@@ -2090,14 +2377,20 @@ PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
 
 
-def _work(name, batch, rows, extra=None):
+def _work(name, batch, rows, extra=None, dims=None):
     """(bytes, {type: operations}) that `name` must move and do at x
-    [batch, rows, 768] (rows = spq, or the ragged row count): each input
+    [batch, rows, D] (rows = spq, or the ragged row count) of the model
+    `dims` (D, heads, head_dim, MLP; ViT-B/16's by default): each input
     read once, each output written once; the attention core over the padded
     rows. `extra`: K8's cpq (the gathered rows xc [batch, cpq, 768] in, the
-    output on them), K7's kv heads."""
+    output on them), K7's kv heads. K6 and K2's backward at d > 1024 do
+    K1's and K2's work."""
     if name in RESVIT_KERNELS + TRAIN_RESVIT_KERNELS:
         return _resvit_work(name, batch, rows, extra)
+    D, HEADS, HEAD_DIM, MLP = dims or B16
+    name = {"fused_ln_qkvo_attention_flash": "fused_ln_qkvo_attention",
+            "fused_ln_qkvo_attention_flash_bwd": "fused_ln_qkvo_attention_bwd",
+            "fused_ln_mlp_bwd_wide": "fused_ln_mlp_bwd"}.get(name, name)
     n = batch * rows
     hhd = HEADS * HEAD_DIM
     act, w_attn, w_mlp = 2 * n * D, 2 * 4 * D * hhd, 2 * 2 * D * MLP
@@ -2179,10 +2472,10 @@ def _resvit_work(name, batch, spq, extra):
     return nbytes, {"s8": proj + out, "bf16": core * extra}
 
 
-def _bound(name, shape):
+def _bound(name, shape, dims=None):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and the
     operations over their types' peaks."""
-    nbytes, ops = _work(name, *shape)
+    nbytes, ops = _work(name, *shape, dims=dims)
     t_bytes = nbytes / HBM
     t_ops = sum(v / PEAK[k] for k, v in ops.items())
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -2217,6 +2510,7 @@ def main() -> int:
     check_handoff_kernels(stats)
     check_resvit_kernels(stats)
     check_resvit_bwd_kernels(stats)
+    check_h14_kernels(stats)
     print(f"int8 kernels vs twin, worst ‖k−t‖/‖t‖ of any output and case <= "
           f"{INT8_REL}; the bf16 stand-in's nearest (outputs quantization "
           f"reaches): " + ", ".join(
@@ -2270,6 +2564,15 @@ def main() -> int:
         "distance " + ", ".join(f"{k} {r:.3e}" for k, r in grads_rt)
         + f" [{card}]", flush=True)
 
+    try:
+        counts_h14, counts_h14_train, times_h14 = run_h14_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("h14: " + "; ".join(
+        f"{k} " + (", ".join(f"{n} {v:.2f}" for n, v in t.items())
+                   if isinstance(t, dict) else f"{t:.2f}")
+        for k, t in times_h14.items()) + f" [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
     # the fast recipe's (each runs every kernel of its tier), K7's and K8's
@@ -2277,7 +2580,8 @@ def main() -> int:
     # counts are printed in phases 4, 6, 7 and 8. Times at the main path's
     # shapes: forward b64 spq 200 (serving), backward b32 spq 200, K5 b32
     # spq 104 (the drop phase), K8 b64 spq 200 cpq 128 (capacity 0.625), K7
-    # b64 spq 200 with 4 kv heads
+    # b64 spq 200 with 4 kv heads; K6 and K2's wide backward from phase 10
+    # (K6 forward at b32 spq 736, its backward and K2's at b32 spq 264)
     resvit_runs = {"fused_ln_qkvo_attention_gqa": "compact 0.625 --n_kv_heads 4",
                    "fused_ln_qkvo_attention_rect": "compact 0.625",
                    "fused_ln_qkvo_attention_rect_int8": "compact 0.625 --int8"}
@@ -2288,6 +2592,9 @@ def main() -> int:
                   "fused_ln_qkvo_attention_gqa_bwd": 4}
 
     def launches(name):
+        if name in H14_KERNELS:  # phase 10: eval_cli's run, train_cli's
+            return (counts_h14 if name == "fused_ln_qkvo_attention_flash"
+                    else counts_h14_train)[name]
         if name in RESVIT_KERNELS:
             return counts_rv[resvit_runs[name]][name]
         if name in TRAIN_RESVIT_KERNELS:
@@ -2298,7 +2605,8 @@ def main() -> int:
 
     table = []
     for name, (src, rep) in KERNEL_INFO.items():
-        bound_ms, bound_by = _bound(name, stats[name]["shape"])
+        bound_ms, bound_by = _bound(name, stats[name]["shape"],
+                                    stats[name].get("dims"))
         table.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches(name),

@@ -689,3 +689,99 @@ def test_rect_autograd_picks_the_backward_of_its_tier(dev):
         for t in leaves:
             assert t.grad.dtype == t.dtype
             assert torch.isfinite(t.grad.float()).all()
+
+
+# K6, the KV-chunked attention half: (batch, spq, seq_len, D, heads,
+# head_dim): ViT-H/14 at 384 (spq 736) and 224 (spq 264), ViT-B/16 at 224,
+# a ragged small case at hd 80, and head_dim 32 / 128
+FLASH_SHAPES = [(2, 736, 730, 1280, 16, 80), (4, 264, 257, 1280, 16, 80),
+                (2, 200, 197, 768, 12, 64), (3, 24, 21, 160, 2, 80),
+                (2, 40, 33, 256, 8, 32), (1, 64, 50, 256, 2, 128)]
+
+
+def _flash_args(dev, batch, spq, seq, d, h, hd, seed=0):
+    _, qkvo, _ = _args(dev, batch, spq, seq, d, h, hd, 4 * d, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 300)
+    do = torch.randn((batch, spq, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    return qkvo, (*qkvo[:6], do, *qkvo[7:])
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernels_match_plain_twins(dev, shape):
+    """K6 forward and backward against their twins on every output (the
+    twins run vitax's KV chunks, the kernel 64-key tiles: the bf16 rounding
+    of p moves with the tile's running max, inside the bf16 band); two
+    backward launches give the same bits."""
+    qkvo, bwd = _flash_args(dev, *shape)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        _assert_close(ck.fused_ln_qkvo_attention_flash(*qkvo),
+                      ck.fused_ln_qkvo_attention_flash_ref(*qkvo))
+        outs = ck.fused_ln_qkvo_attention_flash_bwd(*bwd)
+        again = ck.fused_ln_qkvo_attention_flash_bwd(*bwd)
+        torch.cuda.synchronize()
+        refs = ck.fused_ln_qkvo_attention_flash_bwd_ref(*bwd)
+    assert len(outs) == len(refs) == 7
+    for out, ref, out2 in zip(outs, refs, again):
+        _assert_close(out, ref)
+        assert torch.equal(out, out2)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_qkvo_attention_flash": 1,
+        "fused_ln_qkvo_attention_flash_bwd": 2}
+
+
+def test_flash_kernels_match_the_whole_row_kernels(dev):
+    """K6 and K1 compute one function up to the softmax's rounding: at
+    ViT-B/16's b8 spq 200, forward and backward within the bf16 band."""
+    qkvo, bwd = _flash_args(dev, 8, 200, 197, 768, 12, 64)
+    with torch.no_grad():
+        _assert_close(ck.fused_ln_qkvo_attention_flash(*qkvo),
+                      ck.fused_ln_qkvo_attention(*qkvo))
+        for out, ref in zip(ck.fused_ln_qkvo_attention_flash_bwd(*bwd),
+                            ck.fused_ln_qkvo_attention_bwd(*bwd)):
+            _assert_close(out, ref)
+
+
+def test_flash_autograd_launches_both_kernels(dev):
+    qkvo, _ = _flash_args(dev, 2, 264, 257, 1280, 16, 80)
+    leaves = [t.detach().clone().requires_grad_() for t in qkvo[:7]]
+    ck.reset_launch_counts()
+    y = ck.fused_ln_qkvo_attention_flash(*leaves, *qkvo[7:])
+    assert type(y.grad_fn).__name__ == "FusedLnQkvoAttentionFlashFnBackward"
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_qkvo_attention_flash": 1,
+        "fused_ln_qkvo_attention_flash_bwd": 1}
+    for t in leaves:
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+
+
+def test_flash_gates_take_h14_and_k1_does_not(dev):
+    for spq in (736, 264):
+        x = torch.empty((2, spq, 1280), dtype=torch.bfloat16, device=dev)
+        w = torch.empty((1280, 3 * 1280), dtype=torch.bfloat16, device=dev)
+        assert not ck.qkv_attention_supported(x, w, 16)
+        assert ck.qkv_attention_flash_supported(x, w, 16)
+        assert ck.qkv_attention_flash_bwd_supported(x, w, 16)
+        assert not ck.qkv_attention_flash_supported(x.float(), w, 16)
+
+
+# K2's backward at d > 1024 (the :1610 route): ViT-H/14's widths at b2 spq
+# 264 and on a ragged row count
+@pytest.mark.parametrize("rows", [264, 257])
+def test_wide_mlp_backward_matches_twin(dev, rows):
+    _, _, mlp = _args(dev, 2, rows, rows, 1280, 16, 80, 5120)
+    g = torch.Generator(device=dev).manual_seed(400)
+    do = torch.randn(mlp[0].shape, generator=g, device=dev).to(torch.bfloat16)
+    args = (*mlp[:6], do, EPS)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        outs = ck.fused_ln_mlp_bwd(*args)
+        torch.cuda.synchronize()
+        refs = ck.fused_ln_mlp_bwd_wide_ref(*args)
+    for out, ref in zip(outs, refs):
+        _assert_close(out, ref)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_mlp_bwd_wide": 1}

@@ -150,6 +150,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
            torch.from_numpy(g["bqkv"]), t["wo"])
     ck.fused_ln_qkvo_attention(*gqa, t["bo"], EPS, SEQ, 2, HD, kv_heads=1)
     ck.fused_ln_qkvo_attention_bwd(*gqa, t["x"], EPS, SEQ, 2, HD, kv_heads=1)
+    ck.fused_ln_qkvo_attention_flash(*qkvo, t["bo"], EPS, SEQ, H, HD)
+    ck.fused_ln_qkvo_attention_flash_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
+    ck.fused_ln_mlp_bwd_wide(*mlp, t["x"], EPS)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -169,7 +172,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_ln_qkvo_attention_rect_bwd": 0,
                                   "fused_ln_qkvo_attention_rect_int8_bwd": 0,
                                   "fused_ln_qkvo_attention_rect_int8_dw_bwd":
-                                  0, "fused_ln_qkvo_attention_gqa_bwd": 0}
+                                  0, "fused_ln_qkvo_attention_gqa_bwd": 0,
+                                  "fused_ln_qkvo_attention_flash": 0,
+                                  "fused_ln_qkvo_attention_flash_bwd": 0,
+                                  "fused_ln_mlp_bwd_wide": 0}
 
 
 def test_hopper_gates():

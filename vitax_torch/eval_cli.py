@@ -67,6 +67,7 @@ def main(argv=None, device=None):
                                  else config.fused_mlp),
                       int8_mlp=config.int8, int8_attn=config.int8,
                       use_pallas=False if config.no_pallas else None)
+    vit.check_tiers(cfg)
 
     if config.checkpoint_path:
         path = config.checkpoint_path

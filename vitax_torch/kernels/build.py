@@ -47,6 +47,8 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_rect_int8_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_bwd": [_P] * 33 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int8_bwd": [_P] * 60 + [_I] * 10 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_flash_fwd": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_flash_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {

@@ -19,7 +19,9 @@ a list of per-layer dicts instead of `[L, ...]`-stacked leaves:
 `params_from_jax` turns vitax's pytree (as numpy arrays) into this layout, so
 both packages compute the same function. `apply` is the forward, eval or
 train: with `fused_qkv` and `fused_mlp` each encoder block is two fused
-kernels on a residual stream padded once to a multiple of 8 rows (under
+kernels (the attention half K1, or K6, its KV-chunked core, where K1's
+whole-row core does not fit, as for ViT-H/14; the MLP half K2) on a
+residual stream padded once to a multiple of 8 rows (under
 autograd, their backward kernels run through `torch.autograd.Function`s),
 in bf16 or, with `int8_attn`/`int8_mlp` (and their `_grad` flags and
 `int8_dw`), in the W8A8 tiers, which on short or very long streams hand
@@ -180,19 +182,51 @@ def _merged_qkv(p: Params, dt: torch.dtype):
     return wqkv, bqkv
 
 
-def _attention_gate():
-    """The fused attention half's gate; under autograd also its backward
-    kernel's (the MLP half's backward has its forward's constraints)."""
-    return (ck.qkv_attention_bwd_supported if torch.is_grad_enabled()
-            else ck.qkv_attention_supported)
+def _attention_kernel(x: torch.Tensor, wqkv: torch.Tensor, heads: int
+                      ) -> Optional[str]:
+    """Which fused attention half takes x: "k1" (the whole-row core) where
+    its gate passes, else "k6" (the KV-chunked core) where its gate passes,
+    as vitax's _fused_block_attention chooses (vitax/models/vit.py:
+    220-227); None where neither does. Under autograd the gates are the
+    backward kernels' (the MLP half's backward has its forward's
+    constraints)."""
+    train = torch.is_grad_enabled()
+    if (ck.qkv_attention_bwd_supported if train
+            else ck.qkv_attention_supported)(x, wqkv, heads):
+        return "k1"
+    if (ck.qkv_attention_flash_bwd_supported if train
+            else ck.qkv_attention_flash_supported)(x, wqkv, heads):
+        return "k6"
+    return None
+
+
+def _low_precision(cfg: ViTConfig) -> bool:
+    return (cfg.int8_attn or cfg.int8_mlp or cfg.int8_attn_grad
+            or cfg.int8_mlp_grad or cfg.int8_dw or cfg.int4_mlp
+            or cfg.int4_attn or cfg.int4_grad)
+
+
+_WIDE_TIERS = ("the int8/int4 tiers are not ported at d > 1024 or on the "
+               "KV-chunked attention half (K6), where vitax demotes them to "
+               "bf16 without a word; ROADMAP Queue 1 item 8, \"int8/int4 "
+               "tiers at d > 1024\". Run this model in bf16")
+
+
+def check_tiers(cfg: ViTConfig) -> None:
+    """Raise for a low-precision tier at a width the port does not run it
+    (d > 1024, vitax's _MLP_MONO_MAX_D): the CLIs call it before they build
+    the model, `apply` before it runs."""
+    if _low_precision(cfg) and cfg.emb_dim > ck.MLP_MONO_MAX_D:
+        raise NotImplementedError(f"d {cfg.emb_dim}: {_WIDE_TIERS}")
 
 
 def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
                            seq_len: Optional[int] = None
                            ) -> Optional[torch.Tensor]:
-    """LN1 + QKV + attention + out-projection through the fused K1 kernel.
-    Returns None when the gate rejects. `seq_len`: padded-stream mode — x
-    already carries pad rows up to spq; return [B, spq, D]."""
+    """LN1 + QKV + attention + out-projection through a fused kernel: K1,
+    else K6 (`_attention_kernel`). Returns None when both gates reject.
+    `seq_len`: padded-stream mode — x already carries pad rows up to spq;
+    return [B, spq, D]."""
     dt = x.dtype
     b, s, d = x.shape
     if seq_len is not None:
@@ -200,7 +234,8 @@ def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
     h, hd = cfg.num_heads, cfg.head_dim
     p = lp["attn"]
     wqkv, bqkv = _merged_qkv(p, dt)
-    if not _attention_gate()(x, wqkv, h):
+    kernel = _attention_kernel(x, wqkv, h)
+    if kernel is None:
         return None
     wo = p["out"]["kernel"].to(dt).reshape(h * hd, d)
     spq = (s + 7) // 8 * 8
@@ -208,7 +243,9 @@ def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
     args = (xp.contiguous(), lp["ln1"]["scale"].float(),
             lp["ln1"]["bias"].float(), wqkv, bqkv, wo,
             p["out"]["bias"].float(), LN_EPS, s, h, hd)
-    if cfg.int8_attn:  # W8A8 projections (vitax/models/vit.py:247-252)
+    if kernel == "k6":  # bf16 only: apply() raises for the other tiers
+        out = ck.fused_ln_qkvo_attention_flash(*args)
+    elif cfg.int8_attn:  # W8A8 projections (vitax/models/vit.py:247-252)
         out = ck.fused_ln_qkvo_attention_int8(*args,
                                               int8_grad=cfg.int8_attn_grad,
                                               int8_dw=cfg.int8_dw)
@@ -316,7 +353,8 @@ def _padded_stream_len(x: torch.Tensor, params: Params, cfg: ViTConfig,
     """spq if the whole encoder can run on one [B, spq, D] stream padded once,
     else None. Requires both fused kernels (the plain attention has no
     sequence mask) and no active dropout, so the gates mirror
-    _fused_block_attention/_mlp (under autograd, with the backward gate)."""
+    _fused_block_attention/_mlp (either attention half, K1 or K6, as
+    vitax/models/vit.py:431-433; under autograd, with the backward gates)."""
     b, s, d = x.shape
     spq = (s + 7) // 8 * 8
     if spq == s or not (cfg.fused_qkv and cfg.fused_mlp):
@@ -325,7 +363,7 @@ def _padded_stream_len(x: torch.Tensor, params: Params, cfg: ViTConfig,
         return None
     h, hd = cfg.num_heads, cfg.head_dim
     wqkv = torch.empty((d, 3 * h * hd), device="meta")
-    if not _attention_gate()(x, wqkv, h):
+    if _attention_kernel(x, wqkv, h) is None:
         return None
     mlp = params["layers"][0]["mlp"]
     if not ck.ln_mlp_supported(x, mlp["fc1"]["kernel"], mlp["fc2"]["kernel"]):
@@ -375,6 +413,7 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     """Forward: NHWC images [B,H,W,3] → fp32 logits [B, num_classes].
     `train` turns on token dropping (cfg.token_keep < 1) and dropout, whose
     random numbers come from `gen`."""
+    check_tiers(cfg)
     if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
         raise NotImplementedError(
             "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, K11)")
@@ -393,6 +432,10 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     x = _dropout(x, cfg.dropout_rate, gen, deterministic)
     if deterministic:
         gen = None
+    if cfg.fused_qkv and _low_precision(cfg) and _attention_kernel(
+            x, torch.empty((x.shape[-1], 3 * cfg.num_heads * cfg.head_dim),
+                           device="meta"), cfg.num_heads) == "k6":
+        raise NotImplementedError(_WIDE_TIERS)
     seq_len = None
     spq = _padded_stream_len(x, params, cfg, deterministic)
     if spq is not None:

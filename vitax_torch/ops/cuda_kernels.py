@@ -44,6 +44,14 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   ln_qkvo_attention_rect_int8_bwd.cu (+ dw_int8.cuh) ->
   `_ln_qkvo_rect_bwd_int8_kernel` :4253, its `int8_grad` and `int8_dw`
   branches
+- `fused_ln_qkvo_attention_flash` -> ln_qkvo_attention_flash.cu ->
+  `_ln_qkvo_fwd_flash_kernel` :3419 (K6, the KV-chunked core of
+  attention_flash.cuh)
+- `fused_ln_qkvo_attention_flash_bwd` -> ln_qkvo_attention_flash_bwd.cu ->
+  `_ln_qkvo_bwd_flash_kernel` :3446 (K6 backward)
+- `fused_ln_mlp_bwd_wide` -> ln_mlp_bwd.cu at d > 1024 ->
+  `_ln_mlp_bwd_chunked_kernel` :1527 (pallas_call at :1610);
+  `fused_ln_mlp_bwd` routes to it there, as vitax's `_ln_mlp_2d_bwd`
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -54,8 +62,9 @@ whose backward is the matching `*_bwd` wrapper: the int8 one under
 `int8_grad` (its `int8_dw` variant under `int8_dw`), else the bf16 one (K7's
 with GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
 backward is the two int8 backwards; K8's is `FusedLnQkvoAttentionRectFn`,
-whose backward is one of K8's three. As vitax's custom VJPs, each Function
-saves only its inputs and recomputes the rest in the backward; its grads
+whose backward is one of K8's three; K6's is `FusedLnQkvoAttentionFlashFn`.
+As vitax's custom VJPs, each Function saves only its inputs and recomputes
+the rest in the backward; its grads
 come back in the dtypes of the Pallas VJPs (weight grads in the weight's
 dtype, LN and bias grads in fp32).
 
@@ -84,6 +93,10 @@ from vitax_torch.ops.quant import (int_mm, quant_cols, quant_cols_host,
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt into (227 KB)
 ATTN_HEAD_DIMS = (32, 64, 128)
+FLASH_HEAD_DIMS = (32, 64, 80, 128)  # K6's KV-chunked core
+FLASH_KV, FLASH_WARPS = 64, 4  # its keys a tile, query tiles a block
+# vitax's _MLP_MONO_MAX_D: above it K2's backward is the :1610 route
+MLP_MONO_MAX_D = 1024
 
 _BF = torch.bfloat16
 _F32 = torch.float32
@@ -360,12 +373,54 @@ def fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
 def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
     """Backward of `fused_ln_mlp` (residual=False: of the block without the
     residual add): dx (x's shape, bf16) and fp32 dγ, dβ [D], dW1 [D,M],
-    db1 [M], dW2 [M,D], db2 [D]."""
+    db1 [M], dW2 [M,D], db2 [D]. Above MLP_MONO_MAX_D it is
+    `fused_ln_mlp_bwd_wide`, vitax's route to its chunked kernel."""
+    if x.shape[-1] > MLP_MONO_MAX_D:
+        return fused_ln_mlp_bwd_wide(x, gamma, beta, w1, b1, w2, do, eps,
+                                     residual)
     if not x.is_cuda:
         return fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
                                     residual)
+    out = _ln_mlp_bwd_cuda("fused_ln_mlp_bwd", x, gamma, beta, w1, b1, w2, do,
+                           eps, residual)
+    fused_ln_mlp_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_bwd.launches = 0
+
+
+def fused_ln_mlp_bwd_wide_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                              residual=True):
+    """The twin of `fused_ln_mlp_bwd_wide`: K2's backward twin. vitax's
+    chunked kernel (pallas_kernels.py:1527-1607) computes the same grads,
+    with dW1 and dW2 summed from bf16 partials of 512-row blocks; the port
+    keeps one fp32 sum (ROADMAP, reference caveats)."""
+    return fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, residual)
+
+
+def fused_ln_mlp_bwd_wide(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
+    """K2's backward at d > MLP_MONO_MAX_D, the port of vitax's
+    `_ln_mlp_bwd_chunked_kernel` (:1527, pallas_call at :1610, taken by
+    `_ln_mlp_2d_bwd` :1662-1665): the launch of ln_mlp_bwd.cu, whose fp32
+    weight-grad sums need no chunking on the card, counted apart from the
+    d <= 1024 route's. Outputs as `fused_ln_mlp_bwd`."""
+    if not x.is_cuda:
+        return fused_ln_mlp_bwd_wide_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                         residual)
+    out = _ln_mlp_bwd_cuda("fused_ln_mlp_bwd_wide", x, gamma, beta, w1, b1,
+                           w2, do, eps, residual)
+    fused_ln_mlp_bwd_wide.launches += 1
+    return out
+
+
+fused_ln_mlp_bwd_wide.launches = 0
+
+
+def _ln_mlp_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, residual):
+    """K2's backward launch (ln_mlp_bwd.cu)."""
     dev = _check_cuda(
-        "fused_ln_mlp_bwd",
+        name,
         {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
          "do": do},
         {"x": _BF, "gamma": _F32, "beta": _F32, "w1": _BF, "b1": _F32,
@@ -374,12 +429,11 @@ def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
     m = w1.shape[1]
     x2 = x.view(-1, d)
     if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
-        raise ValueError(f"fused_ln_mlp_bwd: unsupported shapes x "
-                         f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 "
-                         f"{tuple(w2.shape)}")
+        raise ValueError(f"{name}: unsupported shapes x {tuple(x.shape)} w1 "
+                         f"{tuple(w1.shape)} w2 {tuple(w2.shape)}")
     for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m)):
-        _check_shape("fused_ln_mlp_bwd", key, t, (k,))
-    _check_shape("fused_ln_mlp_bwd", "do", do, tuple(x.shape))
+        _check_shape(name, key, t, (k,))
+    _check_shape(name, "do", do, tuple(x.shape))
     n = x2.shape[0]
     lib = build.load()
     dx, dg, dbe = _bf(dev, n, d), _f32(dev, d), _f32(dev, d)
@@ -391,12 +445,8 @@ def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
     rc = lib.vitax_ln_mlp_bwd(*(t.data_ptr() for t in (
         x2, gamma, beta, w1, b1, w2, do, dx, dg, dbe, dw1, db1, dw2, db2, xn,
         a1, h1, dh1, dxn, ws)), n, d, m, eps, int(residual), _stream(dev))
-    build.check(rc, "fused_ln_mlp_bwd")
-    fused_ln_mlp_bwd.launches += 1
+    build.check(rc, name)
     return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
-
-
-fused_ln_mlp_bwd.launches = 0
 
 
 class FusedLnMlpFn(torch.autograd.Function):
@@ -850,6 +900,269 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw.to(wqkv.dtype),
                 db.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(ctx.bo_dtype),
                 None, None, None, None, None, None, None, None)
+
+
+# =============================================================================
+# K6 — K1 with a KV-chunked online softmax (ViT-H/14 and whatever K1's
+# whole-row core cannot hold)
+# =============================================================================
+
+def flash_smem_bytes(head_dim: int, backward: bool = False) -> int:
+    """Shared memory of one block of K6's core (attention_flash.cuh,
+    FlashLayout): a key tile of K and V, and a slice a warp; no term grows
+    with spq."""
+    sw = max(FLASH_KV, head_dim)
+    warp = (16 * head_dim * 2 + 16 * sw * 4 + 16 * FLASH_KV * 2
+            + 16 * head_dim * 4 + 4 * 16 * 4)
+    if backward:  # dO rows and dp
+        warp += 16 * head_dim * 2 + 16 * FLASH_KV * 4
+    return 2 * FLASH_KV * head_dim * 2 + FLASH_WARPS * warp
+
+
+def qkv_attention_flash_supported(x, wqkv, heads) -> bool:
+    """Gate of K6: x [B, S, D] (S padded to spq = round_up(S, 8) by the
+    caller), merged wqkv [D, 3·H·Hd]. Where vitax's gate
+    (pallas_kernels.py:3362-3381) bounds its VMEM, this one takes the head
+    dims its core is built for, the GEMM tiles and bf16 on the card; the
+    core's shared memory does not depend on S."""
+    if x.ndim != 3 or wqkv.ndim != 2 or heads <= 0:
+        return False
+    d = x.shape[-1]
+    if wqkv.shape[0] != d or wqkv.shape[1] % (3 * heads):
+        return False
+    hd = wqkv.shape[1] // (3 * heads)
+    if x.is_cuda and x.dtype != torch.bfloat16:
+        return False
+    return (hd in FLASH_HEAD_DIMS and d % 32 == 0 and heads * hd % 32 == 0
+            and flash_smem_bytes(hd) <= SMEM_LIMIT)
+
+
+def qkv_attention_flash_bwd_supported(x, wqkv, heads) -> bool:
+    """Gate of K6 in training: the forward's and its backward core's shared
+    memory."""
+    if not qkv_attention_flash_supported(x, wqkv, heads):
+        return False
+    hd = wqkv.shape[1] // (3 * heads)
+    return flash_smem_bytes(hd, backward=True) <= SMEM_LIMIT
+
+
+_FLASH_KV_CHUNKS = 4  # vitax's _QKVO_FLASH_KV default
+
+
+def flash_chunks(spq: int) -> int:
+    """vitax's `_flash_chunks` (pallas_kernels.py:3384-3388): the KV chunk
+    count of its TPU kernel, which the twins copy so that they round where
+    it does (3 chunks of 88 keys at spq 264, 4 of 184 at spq 736)."""
+    n = _FLASH_KV_CHUNKS
+    while n > 1 and (spq % n or (spq // n) % 8):
+        n -= 1
+    return max(n, 1)
+
+
+def _flash_chunk_scores(q, k, lo, ckv, seq_len, scale):
+    """s = q·kᵀ·scale over keys [lo, lo + ckv), columns ≥ seq_len -1e30."""
+    s = matmul_f32(q, k[..., lo:lo + ckv, :].transpose(-1, -2)) * scale
+    if lo + ckv > seq_len:
+        col = torch.arange(lo, lo + ckv, device=q.device)
+        s = torch.where(col < seq_len, s, torch.full_like(s, -1e30))
+    return s
+
+
+def _flash_core(q, k, v, seq_len):
+    """vitax's `_flash_head_fwd` (:3391-3416) for every head at once: q, k,
+    v [B, H, spq, Hd] → the fp32 head outputs and the row statistics (m,
+    l), [B, H, spq, 1] each."""
+    spq, hd = q.shape[-2], q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    n_kv = flash_chunks(spq)
+    ckv = spq // n_kv
+    m = torch.full(q.shape[:-1] + (1,), -1e30, dtype=_F32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=_F32, device=q.device)
+    for c in range(n_kv):
+        lo = c * ckv
+        s = _flash_chunk_scores(q, k, lo, ckv, seq_len, scale)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + matmul_f32(p.to(v.dtype), v[..., lo:lo + ckv, :])
+        m = m_new
+    return acc / l, m, l
+
+
+def _flash_qkv(xn, wqkv, bqkv, heads):
+    """xn [B, spq, D] → qkv → per-head q, k, v [B, H, spq, Hd]."""
+    qkv = (matmul_f32(xn, wqkv) + bqkv.float()).to(xn.dtype)
+    return [_split_heads(t, heads) for t in qkv.chunk(3, dim=-1)]
+
+
+def fused_ln_qkvo_attention_flash_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                      eps, seq_len, heads, head_dim):
+    """K6's twin: LN1 → qkv → vitax's KV-chunked online softmax per head →
+    out-projection, at the TPU kernel's rounding points
+    (_ln_qkvo_fwd_flash_kernel, pallas_kernels.py:3419-3444; p cast to the
+    compute dtype unnormalised before p·v). x [B, spq, D] → [B, spq, D],
+    no residual."""
+    b, spq, d = x.shape
+    xn = layer_norm_ref(x, gamma, beta, eps)
+    q, k, v = _flash_qkv(xn, wqkv, bqkv, heads)
+    out, _, _ = _flash_core(q, k, v, seq_len)
+    attn = _heads_to_rows(out.to(x.dtype))
+    return (matmul_f32(attn, wo) + bo.float()).to(x.dtype).view(b, spq, d)
+
+
+def fused_ln_qkvo_attention_flash(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                  seq_len, heads, head_dim):
+    """K6 forward: `fused_ln_qkvo_attention`'s function with the KV-chunked
+    core (ln_qkvo_attention_flash.cu), the same arguments (MHA only). Under
+    autograd its backward is `fused_ln_qkvo_attention_flash_bwd`."""
+    if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
+        return FusedLnQkvoAttentionFlashFn.apply(x, gamma, beta, wqkv, bqkv,
+                                                 wo, bo, eps, seq_len, heads,
+                                                 head_dim)
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_flash_ref(x, gamma, beta, wqkv, bqkv,
+                                                 wo, bo, eps, seq_len, heads,
+                                                 head_dim)
+    name = "fused_ln_qkvo_attention_flash"
+    dev = _check_cuda(
+        name,
+        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
+         "wo": wo, "bo": bo},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "bo": _F32})
+    _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, qkv_attention_flash_supported)
+    b, spq, d = x.shape
+    _check_shape(name, "bo", bo, (d,))
+    n, hhd = b * spq, heads * head_dim
+    xn, qkv = _bf(dev, n, d), _bf(dev, n, 3 * hhd)
+    attn, out = _bf(dev, n, hhd), torch.empty_like(x)
+    rc = build.load().vitax_ln_qkvo_attention_flash_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
+        bqkv.data_ptr(), wo.data_ptr(), bo.data_ptr(), xn.data_ptr(),
+        qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), b, spq, d, seq_len,
+        heads, head_dim, eps, 1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    fused_ln_qkvo_attention_flash.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_flash.launches = 0
+
+
+def fused_ln_qkvo_attention_flash_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
+                                          eps, seq_len, heads, head_dim):
+    """(dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) of K6 at the TPU kernel's
+    rounding points (_ln_qkvo_bwd_flash_kernel, pallas_kernels.py:
+    3446-3531): (m, l) and the fp32 head outputs from the forward's chunk
+    recurrence; dd = Σ fp32(dO)·out in fp32; per chunk p = exp(s − m)/l,
+    ds = (p (dO vᵀ − dd)) in x.dtype, dq summed over the chunks in fp32,
+    dk, dv per chunk; dx in x.dtype, the rest fp32."""
+    dt = x.dtype
+    b, spq, d = x.shape
+    scale = 1.0 / math.sqrt(head_dim)
+    x2, do2 = x.reshape(-1, d), do.reshape(-1, d)
+    xhat, rstd = _ln_stats(x2.float(), eps)
+    xn = (xhat * gamma.float() + beta.float()).to(dt)
+    q, k, v = _flash_qkv(xn.view(b, spq, d), wqkv, bqkv, heads)
+    out, m, l = _flash_core(q, k, v, seq_len)
+    dattn = matmul_f32(do2, wo.t()).to(dt)
+    d_o = dattn.view(b, spq, heads, head_dim).transpose(1, 2)
+    dd = (d_o.float() * out).sum(dim=-1, keepdim=True)
+    n_kv = flash_chunks(spq)
+    ckv = spq // n_kv
+    dq = torch.zeros(q.shape, dtype=_F32, device=x.device)
+    dks, dvs = [], []
+    for c in range(n_kv):
+        lo = c * ckv
+        kc, vc = k[..., lo:lo + ckv, :], v[..., lo:lo + ckv, :]
+        p = torch.exp(_flash_chunk_scores(q, k, lo, ckv, seq_len, scale)
+                      - m) / l
+        dp = matmul_f32(d_o, vc.transpose(-1, -2))
+        ds = (p * (dp - dd)).to(dt)
+        dq = dq + matmul_f32(ds, kc) * scale
+        dks.append(matmul_f32(ds.transpose(-1, -2), q) * scale)
+        dvs.append(matmul_f32(p.to(dt).transpose(-1, -2), d_o))
+    dqkv = torch.cat([_heads_to_rows(t.to(dt)) for t in
+                      (dq, torch.cat(dks, dim=2), torch.cat(dvs, dim=2))],
+                     dim=1)
+    dwo = matmul_f32(_heads_to_rows(out.to(dt)).t(), do2)
+    dbo = do2.float().sum(dim=0)
+    dxn = matmul_f32(dqkv, wqkv.t())
+    dw = matmul_f32(xn.t(), dqkv)
+    db = dqkv.float().sum(dim=0)
+    dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
+    return dxln.to(dt).view(b, spq, d), dg, dbe, dw, db, dwo, dbo
+
+
+def fused_ln_qkvo_attention_flash_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                                      seq_len, heads, head_dim):
+    """K6 backward (ln_qkvo_attention_flash_bwd.cu): dx [B, spq, D] bf16 and
+    fp32 dγ, dβ [D], dWqkv [D, 3·H·Hd], dbqkv [3·H·Hd], dWo [H·Hd, D],
+    dbo [D]."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_flash_bwd_ref(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim)
+    name = "fused_ln_qkvo_attention_flash_bwd"
+    dev = _check_cuda(
+        name,
+        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
+         "wo": wo, "do": do},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "do": _BF})
+    _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, qkv_attention_flash_bwd_supported)
+    _check_shape(name, "do", do, tuple(x.shape))
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    n, w = b * spq, 3 * hhd
+    rows = (spq + 15) // 16 * 16
+    lib = build.load()
+    dx, dg, dbe = torch.empty_like(x), _f32(dev, d), _f32(dev, d)
+    dw, db, dwo, dbo = (_f32(dev, d, w), _f32(dev, w), _f32(dev, hhd, d),
+                        _f32(dev, d))
+    xn, qkv, attn, dattn = (_bf(dev, n, d), _bf(dev, n, w), _bf(dev, n, hhd),
+                            _bf(dev, n, hhd))
+    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    dqkv, dxn = _bf(dev, n, w), _f32(dev, n, d)
+    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w), dev)
+    rc = lib.vitax_ln_qkvo_attention_flash_bwd(*(t.data_ptr() for t in (
+        x, gamma, beta, wqkv, bqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, xn,
+        qkv, attn, dattn, p, ds, dqkv, dxn, ws)), b, spq, d, seq_len, heads,
+        head_dim, eps, 1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    fused_ln_qkvo_attention_flash_bwd.launches += 1
+    return dx, dg, dbe, dw, db, dwo, dbo
+
+
+fused_ln_qkvo_attention_flash_bwd.launches = 0
+
+
+class FusedLnQkvoAttentionFlashFn(torch.autograd.Function):
+    """K6 with its backward kernel, as vitax's fused_ln_qkvo_attention_flash
+    custom VJP (pallas_kernels.py:3549-3622): it saves only (x, γ, β, Wqkv,
+    bqkv, Wo), and the backward recomputes the rest, (m, l) included."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
+                head_dim):
+        ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wo)
+        ctx.meta = (eps, seq_len, heads, head_dim)
+        ctx.bo_dtype = bo.dtype
+        return fused_ln_qkvo_attention_flash(x, gamma, beta, wqkv, bqkv, wo,
+                                             bo, eps, seq_len, heads,
+                                             head_dim)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
+        dx, dg, dbe, dw, db, dwo, dbo = fused_ln_qkvo_attention_flash_bwd(
+            x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
+        return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw.to(wqkv.dtype),
+                db.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(ctx.bo_dtype),
+                None, None, None, None)
 
 
 # =============================================================================
@@ -2133,4 +2446,5 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_rect_int8, fused_ln_qkvo_attention_rect_bwd,
            fused_ln_qkvo_attention_rect_int8_bwd,
            fused_ln_qkvo_attention_rect_int8_dw_bwd,
-           fused_ln_qkvo_attention_gqa_bwd)
+           fused_ln_qkvo_attention_gqa_bwd, fused_ln_qkvo_attention_flash,
+           fused_ln_qkvo_attention_flash_bwd, fused_ln_mlp_bwd_wide)

@@ -57,8 +57,10 @@ TRAIN_CONFIGS = {
 }
 # kernel-name fragment -> group, first match wins
 GROUPS = [("attention_core", "attention core (K1/K3/K7/K8)"),
+          ("flash_", "attention core, KV-chunked (K6)"),
+          ("attention_bwd", "attention core backward"),
           ("gemm_s8", "s8 GEMM (K3/K4/K8 int8)"),
-          ("gemm_bf16", "bf16 GEMM (K1/K7/K8)"),
+          ("gemm_bf16", "bf16 GEMM (the fused halves' products)"),
           ("layer_norm", "LN (+quant)"), ("quant", "quantizers"),
           ("gemm", "cuBLAS GEMM (plain products)"),
           ("sort", "sort"), ("scatter", "gather/scatter"),

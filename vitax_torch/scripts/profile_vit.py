@@ -1,0 +1,74 @@
+"""Where a ViT serving forward, or a train step, spends its time on one CUDA
+card.
+
+    python -m vitax_torch.scripts.profile_vit [config ...]
+
+Configs, each at full width with random weights from seed 0 and one
+resident batch of 32 Synthetic images: `h14-eval` (ViT-H/14 forward at 384
+px, spq 736: K6 and K2), `h14-train` (ViT-H/14 train step at 224, spq 264:
+forward, backward with K2's on the d > 1024 route, SGD with momentum) and
+`b16-train` (ViT-B/16 train step at 224: K1 and K2); default: all three.
+For each it runs two warm-up iterations, records three with torch.profiler
+and prints, as `profile_resvit` does, the wall time an iteration, the
+device busy time and idle share, the device time by group of kernels and
+the largest kernels.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from vitax_torch.core.config import arch_config
+from vitax_torch.core.prng import set_seed
+from vitax_torch.data import get_dataloader
+from vitax_torch.models import vit
+from vitax_torch.scripts.profile_resvit import _profiled, report
+from vitax_torch.train import (create_train_state, make_train_step,
+                               sgd_momentum)
+
+# config -> (arch, image size, train)
+CONFIGS = {"h14-eval": ("h14", 384, False), "h14-train": ("h14", 224, True),
+           "b16-train": ("b16", 224, True)}
+BATCH = 32
+
+
+def profile(name: str, iters: int = 3) -> None:
+    arch, image, train = CONFIGS[name]
+    cfg = arch_config(arch, image_size=image, num_classes=10,
+                      dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True)
+    params = vit.init_params(set_seed(0), cfg, "cuda")
+    batch = next(iter(get_dataloader(
+        "Synthetic", split="train" if train else "val", image_size=image,
+        batch_size=BATCH, num_samples=BATCH, seed=0)))
+    images = torch.from_numpy(batch.images).cuda().bfloat16()
+    if train:
+        labels = torch.from_numpy(batch.labels).cuda()
+        opt, sched = sgd_momentum(params, 0.03, 1000, 0.1)
+        state = create_train_state(params, opt, sched, torch.Generator())
+        step = make_train_step(cfg, opt, sched)
+        prof, wall = _profiled(lambda: step(state, images, labels), iters)
+        report(f"{name} b{BATCH}", prof, wall, iters, "a step")
+        return
+    with torch.inference_mode():
+        prof, wall = _profiled(lambda: vit.apply(params, images, cfg), iters)
+    report(f"{name} b{BATCH}", prof, wall, iters, "a forward")
+
+
+def main(argv=None) -> None:
+    names = (argv if argv is not None else sys.argv[1:]) or list(CONFIGS)
+    unknown = set(names) - set(CONFIGS)
+    if unknown:
+        raise SystemExit(f"profile_vit: unknown configs {sorted(unknown)}; "
+                         f"choose from {list(CONFIGS)}")
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_vit: needs a CUDA card")
+    print(f"profile_vit: {torch.cuda.get_device_name(0)}", flush=True)
+    for name in names:
+        profile(name)
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

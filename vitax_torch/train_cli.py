@@ -197,6 +197,10 @@ def main(argv=None, device=None):
     """`device`: None for the card (raises without one), or "cpu"."""
     config = cli.get_train_config(argv)
     cli.print_config(config)
+    # the int8/int4 tiers at d > 1024 first (the int4 flags do not reach
+    # the model config until K11 is ported)
+    vit.check_tiers(model_config_from_cli(config, False).replace(
+        int4_mlp=config.int4 or config.int4_attn or config.int4_grad))
     _reject_unported(config)
     gen = set_seed(config.seed)
     device = cli.resolve_device(device)
