@@ -108,6 +108,27 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              backward), every loss finite; the grads of every parameter for
              one batch, kernel vs plain bf16 within GRAD_BAND; device-timed
              train steps, plain and kernels in turns.
+11. k13    — `--no-fused-qkv` on K13 (the standalone attention core) and
+             K7's int8 tier: K13 forward and every output of its backward
+             against the twins at train_cli's b32 seq 197 (the einsums'
+             [B, S, H, Hd] memory and vitax's [B, H, S, Hd]), eval_cli's
+             b64 seq 577, b8 seq 730 hd 80, seq 1024 hd 128, hd 40 and 48
+             and a ragged seq 21, timed beside its twin and
+             scaled_dot_product_attention (forward at b64 seq 577 and b32
+             seq 197, backward at b32 seq 197); K7's int8 tier (forward,
+             int8_grad, int8_dw) at b64 spq 200 with 4 kv heads against its
+             twins as phase 3 holds K3, timed; then six paths with exact
+             launch counts a batch or step: `eval_cli --no-fused-qkv` at
+             384 px (b64) and `train_cli --no-fused-qkv` at 224 b32 (logits
+             and grads against the plain path), `resvit_eval_cli
+             --no-fused-qkv` dense and `--compact-capacity 0.625` (the
+             apply_compact route), `resvit_train_cli --no-fused-qkv` b32,
+             `resvit_eval_cli --int8 --n_kv_heads 4` dense and 0.625,
+             `resvit_train_cli --int8-grad --n_kv_heads 4` and
+             ft_resvit_fast.sh's flags with `--n_kv_heads 4` at b32 (logits
+             with the routing replayed, grads with the noise and routing
+             replayed, against the plain path or the int8 twin path), and
+             device-timed forwards and steps.
 
 Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
 backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
@@ -234,7 +255,26 @@ KERNEL_INFO = {
         "vitax/ops/pallas_kernels.py:3446"),
     "fused_ln_mlp_bwd_wide": ("vitax_torch/csrc/ln_mlp_bwd.cu",
                               "vitax/ops/pallas_kernels.py:1527"),
+    # --no-fused-qkv: K13, the standalone attention core, forward and
+    # backward; and K7's int8 tier (the kv_heads branches of K3's kernels)
+    "flash_attention": ("vitax_torch/csrc/attention_core.cu",
+                        "vitax/ops/pallas_kernels.py:83"),
+    "flash_attention_bwd": ("vitax_torch/csrc/attention_core_bwd.cu",
+                            "vitax/ops/pallas_kernels.py:112"),
+    "fused_ln_qkvo_attention_int8_gqa": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8.cu",
+        "vitax/ops/pallas_kernels.py:2690"),
+    "fused_ln_qkvo_attention_int8_gqa_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:2977"),
+    "fused_ln_qkvo_attention_int8_gqa_dw_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:3041"),
 }
+K13_KERNELS = ("flash_attention", "flash_attention_bwd")
+INT8_GQA_KERNELS = ("fused_ln_qkvo_attention_int8_gqa",
+                    "fused_ln_qkvo_attention_int8_gqa_bwd",
+                    "fused_ln_qkvo_attention_int8_gqa_dw_bwd")
 H14_KERNELS = ("fused_ln_qkvo_attention_flash",
                "fused_ln_qkvo_attention_flash_bwd", "fused_ln_mlp_bwd_wide")
 RESVIT_KERNELS = ("fused_ln_qkvo_attention_gqa",
@@ -1504,25 +1544,27 @@ def _int8_twins(ck):
     routes to their plain twins; the Functions keep their tier logic (int8
     forward; int8, int8_dw or bf16 backward; K5's block)."""
     rect = ("fused_ln_qkvo_attention_rect_int8",) + RECT_BWD_KERNELS[1:]
-    saved = {n: getattr(ck, n) for n in INT8_KERNELS + rect}
+    saved = {n: getattr(ck, n) for n in INT8_KERNELS + rect
+             + INT8_GQA_KERNELS}
 
-    def route(name, fn_cls, n_tensors, *tail):
+    def route(name, fn_cls, n_tensors, gqa=False):
         ref = getattr(ck, name + "_ref")
 
-        def fwd(*args, int8_grad=False, int8_dw=False):
+        def fwd(*args, int8_grad=False, int8_dw=False, kv_heads=None):
+            tail = (kv_heads,) if gqa else ()
             if ck._needs_grad(*args[:n_tensors]):
                 return fn_cls.apply(*args, True, int8_grad, int8_dw, *tail)
-            return ref(*args)
+            return ref(*args, *tail)
         return fwd
 
     ck.fused_ln_qkvo_attention_int8 = route("fused_ln_qkvo_attention_int8",
                                             ck.FusedLnQkvoAttentionFn, 7,
-                                            None)
+                                            gqa=True)
     ck.fused_ln_mlp_int8 = route("fused_ln_mlp_int8", ck.FusedLnMlpFn, 7)
     ck.fused_ln_qkvo_attention_rect_int8 = route(
         "fused_ln_qkvo_attention_rect_int8", ck.FusedLnQkvoAttentionRectFn, 8)
-    # the backwards and K5's halves
-    for name in INT8_KERNELS[2:] + RECT_BWD_KERNELS[1:]:
+    # the backwards, K5's halves and K7's int8 tier
+    for name in INT8_KERNELS[2:] + RECT_BWD_KERNELS[1:] + INT8_GQA_KERNELS:
         setattr(ck, name, getattr(ck, name + "_ref"))
     try:
         yield
@@ -2064,21 +2106,24 @@ def _resvit_launches(cfg, train):
     the final norm's LN."""
     from collections import Counter
     from vitax_torch.models import resvit
-    if not cfg.fused_qkv:
+    if cfg.use_pallas is False:
         return _expect()
     roles = resvit.layer_roles(cfg)
     plain = sum(not r["routed"] for r in roles)
     routed = len(roles) - plain
     routers = sum(bool(r.get("is_block_head")) for r in roles)
+    if not cfg.fused_qkv:
+        return _k13_resvit_launches(plain, routed, routers, train)
     gqa = (cfg.n_kv_heads or cfg.n_heads) != cfg.n_heads
     int8 = cfg.int8_attn
     grad8 = int8 and cfg.int8_attn_grad
     rect = cfg.compact_capacity is not None and not gqa
     base = "fused_ln_qkvo_attention"
-    attn = f"{base}_gqa" if gqa else f"{base}_int8" if int8 else base
-    attn_bwd = (f"{base}_gqa_bwd" if gqa
-                else f"{base}_int8_dw_bwd" if grad8 and cfg.int8_dw
-                else f"{base}_int8_bwd" if grad8 else f"{base}_bwd")
+    g8 = f"{base}_int8_gqa" if gqa else f"{base}_int8"
+    attn = g8 if int8 else f"{base}_gqa" if gqa else base
+    attn_bwd = (f"{g8}_dw_bwd" if grad8 and cfg.int8_dw
+                else f"{g8}_bwd" if grad8
+                else f"{base}_gqa_bwd" if gqa else f"{base}_bwd")
     rect_fwd = f"{base}_rect_int8" if int8 else f"{base}_rect"
     rect_bwd = (f"{base}_rect_int8_dw_bwd" if grad8 and cfg.int8_dw
                 else f"{base}_rect_int8_bwd" if grad8 else f"{base}_rect_bwd")
@@ -2100,6 +2145,25 @@ def _resvit_launches(cfg, train):
         c[mlp_bwd] += plain + routed
         c["layer_norm_bwd"] += routers + 1
     return _expect(**{k: v for k, v in c.items() if v})
+
+
+def _k13_resvit_launches(plain, routed, routers, train, compact=False):
+    """The launches of a Res-ViT forward (or train step) with the fused
+    attention half off and the kernels on (--no-fused-qkv, bf16): each
+    layer's attention half is the LN kernel, plain projections and K13,
+    its MLP half the LN kernel and the plain FFN; the routers' and the final
+    norm's LN. A train step adds the teacher's routed layers (forward) and
+    the student's backwards. The same with the legacy compaction
+    (apply_compact), whose routed layers run their attention in plain ops
+    (Q from the kept rows): K13 in the plain layers only."""
+    layers = plain + routed
+    if train:
+        return _expect(flash_attention=layers + routed,
+                       layer_norm=2 * (layers + routed) + routers + 1,
+                       flash_attention_bwd=layers,
+                       layer_norm_bwd=2 * layers + routers + 1)
+    return _expect(flash_attention=plain if compact else layers,
+                   layer_norm=2 * layers + routers + 1)
 
 
 @contextlib.contextmanager
@@ -2372,6 +2436,457 @@ def run_resvit_train_slice(exp_root):
     return counts, step_ms, grad_rows
 
 
+# ---------------------------------------------------------------- phase 11
+# K13, the standalone attention core, against its twin: (label, batch,
+# heads, seq, head_dim, memory layout). train_cli's b32 seq 197 in the
+# einsums' [B, S, H, Hd] memory and in vitax's [B, H, S, Hd]; eval_cli's
+# default 384 px (b64 seq 577); H/14 at 384 (hd 80, seq 730); seq 1024 at
+# hd 128; hd 40 (zero-padded to 48) and 48; a ragged seq 21 (the last query
+# and key tiles run past the tensor)
+K13_CASES = [("b32 S197 (train_cli)", 32, 12, 197, 64, "bshd"),
+             ("b32 S197 [B,H,S,Hd]", 32, 12, 197, 64, "bhsd"),
+             ("b64 S577 (eval_cli)", 64, 12, 577, 64, "bshd"),
+             ("b8 S730 hd80 (H/14)", 8, 16, 730, 80, "bshd"),
+             ("b2 S1024 hd128", 2, 8, 1024, 128, "bhsd"),
+             ("b8 S197 hd40", 8, 12, 197, 40, "bshd"),
+             ("b8 S197 hd48", 8, 12, 197, 48, "bshd"),
+             ("b2 S21 (ragged)", 2, 3, 21, 64, "bshd")]
+K13_FWD_TIMED = ("b64 S577 (eval_cli)", "b32 S197 (train_cli)")
+K13_BWD_TIMED = "b32 S197 (train_cli)"
+# K7's int8 tier at Res-ViT serving's b64 spq 200 with 4 kv heads
+INT8_GQA_CASE = ("b64 spq200 kv4", 64, 200, 197, 4)
+
+
+def _k13_inputs(batch, heads, seq, hd, layout, seed):
+    """q, k, v, dO: [B, H, S, Hd] views of bf16 memory in `layout`."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (batch, seq, heads, hd) if layout == "bshd" else \
+        (batch, heads, seq, hd)
+    ts = [torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+          for _ in range(4)]
+    return [t.transpose(1, 2) if layout == "bshd" else t for t in ts]
+
+
+def _sdpa_ms(q, k, v, do):
+    """The library's time for the same function: one call of
+    scaled_dot_product_attention (timed here, used nowhere in the port),
+    forward and its autograd backward."""
+    import torch
+    import torch.nn.functional as F
+    with torch.no_grad():
+        fwd = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    bwd = _median_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                 retain_graph=True))
+    return fwd, bwd
+
+
+def check_core_kernels(stats):
+    """Phase 11, kernels: K13 forward and every output of its backward
+    against the twins at K13_CASES (TOL), timed with the twin and
+    scaled_dot_product_attention at the main paths' shapes; K7's int8 tier
+    (forward, int8_grad and int8_dw backwards) against its twins as phase 3
+    holds K3 (codes, INT8_REL, the bf16 stand-in), timed."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in K13_KERNELS + INT8_GQA_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    for i, (label, b, h, seq, hd, layout) in enumerate(K13_CASES):
+        q, k, v, do = _k13_inputs(b, h, seq, hd, layout, seed=40 + i)
+        with torch.no_grad():
+            out = ck.flash_attention_bhsd(q, k, v)
+            grads = ck.flash_attention_bwd(q, k, v, out, do)
+            torch.cuda.synchronize()
+            pairs = [("flash_attention", out,
+                      ck.flash_attention_bhsd_ref(q, k, v))]
+            pairs += [("flash_attention_bwd", g, r) for g, r in zip(
+                grads, ck.flash_attention_bwd_ref(q, k, v, out, do))]
+        errs = []
+        for name, o, r in pairs:
+            err = (o.float() - r.float()).abs().max().item()
+            bound = TOL * max(1.0, r.float().abs().max().item())
+            if not (bool(torch.isfinite(o).all()) and err <= bound):
+                raise AssertionError(f"{name} {label}: max error {err} "
+                                     f"exceeds {bound}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            errs.append(f"{err:.3e}/{bound:.3e}")
+        print(f"  K13 {label:24s} max|k-ref| out, dq, dk, dv "
+              f"{' '.join(errs)}: ok", flush=True)
+        timed = []
+        if label in K13_FWD_TIMED:
+            with torch.no_grad():
+                k_ms = _median_ms(lambda: ck.flash_attention_bhsd(q, k, v))
+                p_ms = _median_ms(lambda: ck.flash_attention_bhsd_ref(q, k, v),
+                                  warmup=1, iters=5)
+            lib_f, lib_b = _sdpa_ms(q, k, v, do)
+            timed.append(("flash_attention", k_ms, p_ms, lib_f))
+            if label == K13_FWD_TIMED[0]:
+                stats["flash_attention"].update(
+                    ms=k_ms, plain_ms=p_ms, library_ms=lib_f, shape=(b, seq))
+        if label == K13_BWD_TIMED:
+            with torch.no_grad():
+                k_ms = _median_ms(lambda: ck.flash_attention_bwd(q, k, v, out,
+                                                                 do))
+                p_ms = _median_ms(lambda: ck.flash_attention_bwd_ref(
+                    q, k, v, out, do), warmup=1, iters=5)
+            timed.append(("flash_attention_bwd", k_ms, p_ms, lib_b))
+            stats["flash_attention_bwd"].update(
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_b, shape=(b, seq))
+        for name, k_ms, p_ms, lib in timed:
+            print(f"  {name:28s} {label:22s} kernel {k_ms:.4f} ms  plain "
+                  f"{p_ms:.4f} ms  scaled_dot_product_attention {lib:.4f} ms"
+                  " (medians)", flush=True)
+        del q, k, v, do, out, grads, pairs
+        torch.cuda.empty_cache()
+
+    label, batch, spq, seq, hkv = INT8_GQA_CASE
+    t = _inputs(batch, spq, seed=60)
+    width = (HEADS + 2 * hkv) * HEAD_DIM
+    g = torch.Generator(device="cuda").manual_seed(61)
+    wqkv = (torch.randn((D, width), generator=g, device="cuda")
+            * D ** -0.5).to(torch.bfloat16)
+    bqkv = 0.02 * torch.randn(width, generator=g, device="cuda")
+    do = torch.randn(t["x"].shape, generator=g, device="cuda").to(
+        torch.bfloat16)
+    head = (t["x"], t["gamma"], t["beta"], wqkv, bqkv, t["wo"])
+    tail = (EPS, seq, HEADS, HEAD_DIM, hkv)
+    calls = {"fused_ln_qkvo_attention_int8_gqa": head + (t["bo"],) + tail,
+             "fused_ln_qkvo_attention_int8_gqa_bwd": head + (do,) + tail,
+             "fused_ln_qkvo_attention_int8_gqa_dw_bwd": head + (do,) + tail}
+    for name, args in calls.items():
+        kern = getattr(ck, name)
+        twin = getattr(ck, name + "_ref")
+        with torch.inference_mode():
+            outs = kern(*args)
+            torch.cuda.synchronize()
+            refs = twin(*args)
+            if not isinstance(outs, tuple):
+                outs, refs = (outs,), (refs,)
+            _check_int8(ck, name, label, args, outs, refs, stats)
+            err = max((o.float() - r.float()).abs().max().item()
+                      / max(1.0, r.float().abs().max().item())
+                      for o, r in zip(outs, refs))
+            if err > TOL:
+                raise AssertionError(f"{name} {label}: {err} > {TOL}")
+            k_ms = _median_ms(lambda: kern(*args))
+            p_ms = _median_ms(lambda: twin(*args), warmup=1, iters=5)
+        stats[name].update(
+            max_abs_err=max((o.float() - r.float()).abs().max().item()
+                            for o, r in zip(outs, refs)),
+            ms=k_ms, plain_ms=p_ms, library_ms=None,
+            shape=(batch, spq, hkv))
+        print(f"  {name:40s} {label:16s} kernel {k_ms:.4f} ms  plain "
+              f"{p_ms:.4f} ms (medians)", flush=True)
+        del outs, refs
+    del t, do
+    torch.cuda.empty_cache()
+
+
+# The six paths: ViT-B/16 through eval_cli at its default 384 px and
+# train_cli at 224 b32 with --no-fused-qkv; Res-ViT (ft_resvit.sh's model)
+# through resvit_eval_cli --no-fused-qkv, dense and compacted (the legacy
+# apply_compact route), and resvit_train_cli --no-fused-qkv at b32; K7's
+# int8 tier through resvit_eval_cli --int8 --n_kv_heads 4 (dense, 0.625)
+# and resvit_train_cli --int8-grad --n_kv_heads 4 and ft_resvit_fast.sh's
+# flags with --n_kv_heads 4, at b32
+K13_EVAL_ARGS = ["--model-arch", "b16", "--dataset", "Synthetic",
+                 "--synthetic-samples", "128", "--batch-size", "64",
+                 "--num-classes", "10", "--seed", "0", "--no-fused-qkv"]
+K13_TRAIN_ARGS = ["--model-arch", "b16", "--image-size", "224",
+                  "--dataset", "Synthetic", "--synthetic-samples", "128",
+                  "--batch-size", "32", "--lr", "0.03", "--wd", "0",
+                  "--warmup-steps", "2", "--train-steps", "4",
+                  "--num-classes", "10", "--seed", "0", "--no-fused-qkv"]
+K13_STEPS = 4
+RESVIT11_EVAL = [
+    ("--no-fused-qkv dense", ["--no-fused-qkv"]),
+    ("--no-fused-qkv compact 0.625", ["--no-fused-qkv"] + COMPACT),
+    ("--int8 --n_kv_heads 4 dense", ["--int8", "--n_kv_heads", "4"]),
+    ("--int8 --n_kv_heads 4 compact 0.625",
+     ["--int8", "--n_kv_heads", "4"] + COMPACT)]
+RESVIT11_TRAIN = [
+    ("(g) --no-fused-qkv", ["--no-fused-qkv"]),
+    ("(h) --int8-grad --n_kv_heads 4", ["--int8-grad", "--n_kv_heads", "4"]),
+    ("(i) ft_resvit_fast.sh --n_kv_heads 4",
+     ["--int8-dw"] + COMPACT + ["--compact-warmup", "1", "--token-keep",
+                                "0.5", "--n_kv_heads", "4"])]
+
+
+def _vit_no_fused_qkv(exp_root, times):
+    """Paths 1 and 2: eval_cli @384 and train_cli @224 b32 with
+    --no-fused-qkv, exact counts; logits and grads against the plain path;
+    timed forward and step."""
+    import torch
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import vit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.train import param_leaves
+    from vitax_torch.utils.memory import named_leaves
+
+    ck.reset_launch_counts()
+    result, n_img, rate = _run_eval(K13_EVAL_ARGS)
+    counts = {"eval_cli": ck.launch_counts()}
+    batches = 2  # the final LN once, each layer's LN1, K13 and K2
+    expect = _expect(layer_norm=13 * batches, flash_attention=12 * batches,
+                     fused_ln_mlp=12 * batches)
+    print(f"k13: eval_cli @384 --no-fused-qkv {result} {n_img} images "
+          f"{rate:.0f} img/s launches {_nonzero(counts['eval_cli'])}",
+          flush=True)
+    if n_img != 128 or counts["eval_cli"] != expect:
+        raise AssertionError(f"expected 128 images and launches {expect}")
+    args = K13_TRAIN_ARGS + ["--exp-root", exp_root]
+    ck.reset_launch_counts()
+    losses, valid, rate_t = _run_train(args, steps=K13_STEPS)
+    counts["train_cli"] = ck.launch_counts()
+    fwd = K13_STEPS + math.ceil(128 / 32)
+    expect = _expect(layer_norm=13 * fwd, flash_attention=12 * fwd,
+                     fused_ln_mlp=12 * fwd, layer_norm_bwd=13 * K13_STEPS,
+                     flash_attention_bwd=12 * K13_STEPS,
+                     fused_ln_mlp_bwd=12 * K13_STEPS)
+    print(f"k13: train_cli @224 b32 --no-fused-qkv losses "
+          f"{[round(v, 4) for v in losses]} valid {valid} {rate_t:.0f} img/s "
+          f"launches {_nonzero(counts['train_cli'])}", flush=True)
+    if counts["train_cli"] != expect:
+        raise AssertionError(f"expected launches {expect}")
+
+    for image, batch in ((384, 64), (224, 32)):
+        cfg = arch_config("b16", image_size=image, num_classes=10,
+                          dtype=torch.bfloat16, fused_qkv=False,
+                          fused_mlp=True)
+        plain = cfg.replace(fused_mlp=False, use_pallas=False)
+        params = vit.init_params(set_seed(0), cfg, "cuda")
+        data = next(iter(get_dataloader(
+            "Synthetic", split="val" if image == 384 else "train",
+            image_size=image, batch_size=batch, num_samples=128, seed=0)))
+        images = torch.from_numpy(data.images).cuda().bfloat16()
+        labels = torch.from_numpy(data.labels).cuda()
+        if image == 384:
+            with torch.inference_mode():
+                lk = vit.apply(params, images, cfg)
+                lp = vit.apply(params, images, plain)
+                fwd_ms = {n: _median_ms(lambda c=c: vit.apply(params, images,
+                                                              c),
+                                        warmup=1, iters=5)
+                          for n, c in (("kernels", cfg), ("plain", plain))}
+            diff = (lk - lp).abs().max().item()
+            band = LOGIT_BAND * max(1.0, lp.abs().max().item())
+            print(f"k13: eval @384 logits {tuple(lk.shape)} max|kernel - "
+                  f"plain_bf16| {diff:.3e} <= {band:.3e}; forward b64 "
+                  "(median of 5, CUDA events): " + ", ".join(
+                      f"{k} {ms:.2f} ms = {64e3 / ms:.0f} img/s"
+                      for k, ms in fwd_ms.items()), flush=True)
+            if not (bool(torch.isfinite(lk).all()) and diff <= band):
+                raise AssertionError("--no-fused-qkv logits outside the band")
+            times["ViT eval fwd b64 @384"] = fwd_ms
+            continue
+        names = [n for n, _ in named_leaves(params)]
+        for p in param_leaves(params):
+            p.requires_grad_(True)
+        g_k = _grads(params, images, labels, cfg)
+        g_p = _grads(params, images, labels, plain)
+        rels, key_ratio = _grad_distances(names, g_k, g_p)
+        print(f"k13: train grads of {len(names)} tensors; worst |g_kernel - "
+              f"g_plain_bf16| / |g_plain_bf16|: " + ", ".join(
+                  f"{r:.3e} ({n})" for r, n in rels[:3])
+              + f" <= {GRAD_BAND}; key biases {key_ratio:.3e}", flush=True)
+        if (not all(bool(torch.isfinite(g).all()) for g in g_k)
+                or rels[0][0] > GRAD_BAND or key_ratio > GRAD_BAND):
+            raise AssertionError("--no-fused-qkv grads outside the band")
+        times["ViT worst grad distance"] = rels[0][0]
+        del g_k, g_p
+        runs = _time_steps(params, images, labels,
+                           (("plain", plain), ("kernels", cfg),
+                            ("kernels", cfg), ("plain", plain)), iters=5)
+        times["ViT train step b32 @224"] = {
+            k: min(ms for n, ms in runs if n == k)
+            for k in ("kernels", "plain")}
+        del params, images
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _resvit_no_fused_qkv(exp_root, times):
+    """Paths 3-6: resvit_eval_cli and resvit_train_cli on K13 and on K7's
+    int8 tier with exact counts a batch and a step; logits (routing
+    replayed) and grads (noise and routing replayed) against the plain
+    path or the int8 twin path; timed forwards and steps."""
+    import torch
+    from vitax_torch import resvit_train_cli
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.models import resvit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.resvit_eval_cli import get_eval_config
+    from vitax_torch.resvit_train_cli import config_to_model_args
+    from vitax_torch.train.optim import param_leaves, tree_leaves
+    from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                                make_adamw_for,
+                                                make_train_step)
+    from vitax_torch.utils.memory import named_leaves
+
+    counts = {}
+    batches = math.ceil(256 / 64)
+    with _random_router_biases():
+        base = config_to_model_args(get_eval_config(RESVIT_ARGS), "cuda")
+        roles = resvit.layer_roles(base)
+        plain_n = sum(not r["routed"] for r in roles)
+        routers = sum(bool(r.get("is_block_head")) for r in roles)
+        for label, extra in RESVIT11_EVAL:
+            if "--int8" in extra:
+                per = _resvit_launches(config_to_model_args(
+                    get_eval_config(RESVIT_ARGS + extra), "cuda"), False)
+            else:
+                per = _k13_resvit_launches(plain_n, len(roles) - plain_n,
+                                           routers, False,
+                                           compact="--compact-capacity"
+                                           in extra)
+            expect = {k: v * batches for k, v in per.items()}
+            ck.reset_launch_counts()
+            result, rate = _run_resvit_eval(RESVIT_ARGS + extra)
+            counts[label] = ck.launch_counts()
+            print(f"k13: resvit_eval_cli {label}: acc1 {result['acc1']:.4f} "
+                  f"loss {result['loss']:.4f} active "
+                  f"{result['non_low_rank_ratio']:.4f}; {rate:.0f} img/s; "
+                  f"launches {_nonzero(counts[label])}", flush=True)
+            if counts[label] != expect:
+                raise AssertionError(f"expected launches {_nonzero(expect)}")
+        for label, batch_steps, extra in ((l, 4, e) for l, e in RESVIT11_TRAIN):
+            log = []
+            args = RESVIT_TRAIN_ARGS + extra + [
+                "--batch-size", "32", "--synthetic-samples",
+                str(32 * batch_steps), "--train-steps", str(batch_steps),
+                "--exp-root", exp_root]
+            ck.reset_launch_counts()
+            with _step_launches(ck, log), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                out = resvit_train_cli.main(args)
+            counts[label] = ck.launch_counts()
+            bad = [(kind, _nonzero(got)) for kind, c, got in log
+                   if got != _resvit_launches(c, kind == "train")]
+            valid = out["epochs"][-1]
+            print(f"k13: resvit_train_cli {label} b32: valid acc1 "
+                  f"{valid['acc1']:.4f} loss {valid['loss']:.4f}; launches a "
+                  f"step as derived: {not bad} ({_nonzero(log[0][2])})",
+                  flush=True)
+            shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
+            if (bad or sum(e[0] == "train" for e in log) != batch_steps
+                    or not all(math.isfinite(v) for v in valid.values())):
+                raise AssertionError(f"{label}: launches {bad}, valid {valid}")
+        params = resvit.init_params(set_seed(0), base, "cuda")
+        gqa = base.replace(n_kv_heads=4)
+        gqa_params = resvit.init_params(set_seed(0), gqa, "cuda")
+    shutil.rmtree(exp_root, ignore_errors=True)
+
+    # logits, routing replayed: K13 against the plain path, K7's int8 tier
+    # against its int8 twin path; timed b64 forwards
+    k13 = base.replace(fused_qkv=False, fused_qkvo=False)
+    plain = k13.replace(use_pallas=False)
+    tier = dict(int8_attn=True, int8_mlp=True, fused_mlp=True)
+    g8 = gqa.replace(**tier)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    images = torch.randn((64, 224, 224, 3), generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    log = _RouterLog(resvit)
+    fwd_ms = {}
+    with torch.inference_mode():
+        for label, cfg, p, other in (
+                ("--no-fused-qkv", k13, params, "plain"),
+                ("--int8 --n_kv_heads 4", g8, gqa_params, "int8 twin")):
+            log.calls.clear()
+            with log.record():
+                lk, _ = resvit.apply(p, images, cfg)
+            with log.replay():
+                if other == "plain":
+                    lo, _ = resvit.apply(p, images, plain)
+                else:
+                    with _int8_twins(ck):
+                        lo, _ = resvit.apply(p, images, cfg)
+            diff = (lk - lo).abs().max().item()
+            band = LOGIT_BAND * max(1.0, lo.abs().max().item())
+            fwd_ms[label] = _median_ms(lambda: resvit.apply(p, images, cfg),
+                                       warmup=2, iters=5)
+            print(f"k13: resvit {label} logits max|kernel - {other}| "
+                  f"{diff:.3e} <= {band:.3e}; forward b64 "
+                  f"{fwd_ms[label]:.2f} ms", flush=True)
+            if not (bool(torch.isfinite(lk).all()) and diff <= band):
+                raise AssertionError(f"resvit {label} logits outside the band")
+        fwd_ms["plain"] = _median_ms(lambda: resvit.apply(params, images,
+                                                          plain),
+                                     warmup=1, iters=5)
+    times["Res-ViT fwd b64"] = fwd_ms
+    del images
+
+    # grads, noise and routing replayed, and timed train steps at b32
+    cfgs = {"(g)": (k13, params, plain, GRAD_BAND),
+            "(h)": (g8.replace(int8_attn_grad=True, int8_mlp_grad=True),
+                    gqa_params, None, INT8_GRAD_BAND),
+            "(i)": (g8.replace(int8_attn_grad=True, int8_mlp_grad=True,
+                               int8_dw=True, compact_capacity=0.625,
+                               token_keep=0.5), gqa_params, None,
+                    INT8_GRAD_BAND)}
+    for p in (params, gqa_params):
+        for t, m in zip(param_leaves(p), tree_leaves(
+                resvit.trainable_mask(p, base))):
+            t.requires_grad_(m)
+    step_ms, worst = {}, {}
+    lam = Lambdas(*RESVIT_LAMBDAS)
+    for key, (cfg, p, other, band) in cfgs.items():
+        images = torch.randn((32, 224, 224, 3), generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+        labels = torch.randint(0, 10, (32,), generator=g, device="cuda")
+        noise = _train_noise(cfg, 32, seed=17)
+        replay = _RoutingReplay(resvit)
+        lk, g_k = _resvit_grads(p, images, labels, cfg, noise,
+                                replay.record())
+        if other is None:
+            with _int8_twins(ck):
+                lo, g_o = _resvit_grads(p, images, labels, cfg, noise,
+                                        replay.replay())
+        else:
+            lo, g_o = _resvit_grads(p, images, labels, other, noise,
+                                    replay.replay())
+        names = [n for (n, _), m in zip(named_leaves(p), tree_leaves(
+            resvit.trainable_mask(p, cfg))) if m]
+        rels = sorted(((_rel(a, b), n) for a, b, n in zip(g_k, g_o, names)
+                       if b.norm() > 0), reverse=True)
+        worst[key] = rels[0][0]
+        print(f"k13: resvit-train grads {key} of {len(names)} tensors; worst "
+              f"|g_kernel - g_{'plain' if other else 'int8 twin'}| / |g|: "
+              + ", ".join(f"{r:.3e} ({n})" for r, n in rels[:3])
+              + f" <= {band}; logits max diff "
+              f"{(lk - lo).abs().max().item():.3e}", flush=True)
+        if (not all(bool(torch.isfinite(t).all()) for t in g_k)
+                or rels[0][0] > band):
+            raise AssertionError(f"{key}: grads outside the band")
+        del g_k, g_o
+        tx = make_adamw_for(cfg, p, lambda s: 1e-4)
+        state = create_state(p, tx, torch.Generator(device="cuda")
+                             .manual_seed(3))
+        step = make_train_step(cfg, tx, lam)
+        step_ms[key] = _median_ms(lambda: step(state, images, labels),
+                                  warmup=2, iters=5)
+        del images, labels, tx, state
+        torch.cuda.empty_cache()
+    times["Res-ViT step b32"] = step_ms
+    times["Res-ViT worst grad distance"] = worst
+    print("k13: resvit-train step b32 (median of 5, CUDA events): "
+          + ", ".join(f"{k} {ms:.2f} ms" for k, ms in step_ms.items()),
+          flush=True)
+    return counts
+
+
+def run_no_fused_qkv_slice(exp_root):
+    """Phase 11, paths: the six paths of --no-fused-qkv (K13) and of K7's
+    int8 tier through their CLIs."""
+    times = {}
+    counts = _vit_no_fused_qkv(exp_root, times)
+    counts.update(_resvit_no_fused_qkv(exp_root, times))
+    return counts, times
+
+
 # ---------------------------------------------------------------- bounds
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
@@ -2385,9 +2900,15 @@ def _work(name, batch, rows, extra=None, dims=None):
     rows. `extra`: K8's cpq (the gathered rows xc [batch, cpq, 768] in, the
     output on them), K7's kv heads. K6 and K2's backward at d > 1024 do
     K1's and K2's work."""
-    if name in RESVIT_KERNELS + TRAIN_RESVIT_KERNELS:
+    if name in RESVIT_KERNELS + TRAIN_RESVIT_KERNELS + INT8_GQA_KERNELS:
         return _resvit_work(name, batch, rows, extra)
     D, HEADS, HEAD_DIM, MLP = dims or B16
+    if name in K13_KERNELS:  # rows = seq; q, k, v, (out, dO) in, out(s)
+        io = 2 * batch * HEADS * rows * HEAD_DIM  # one bf16 [B, H, S, Hd]
+        core = 4 * batch * HEADS * rows * rows * HEAD_DIM
+        if name == "flash_attention_bwd":
+            return 8 * io, {"bf16": 2.5 * core}
+        return 4 * io, {"bf16": core}
     name = {"fused_ln_qkvo_attention_flash": "fused_ln_qkvo_attention",
             "fused_ln_qkvo_attention_flash_bwd": "fused_ln_qkvo_attention_bwd",
             "fused_ln_mlp_bwd_wide": "fused_ln_mlp_bwd"}.get(name, name)
@@ -2442,6 +2963,18 @@ def _resvit_work(name, batch, spq, extra):
     hhd = HEADS * HEAD_DIM
     vec = 4 * (4 * D + 3 * hhd)
     core = 4 * batch * HEADS * spq * HEAD_DIM  # times the query rows
+    if name.startswith("fused_ln_qkvo_attention_int8_gqa"):
+        n, width = batch * spq, (HEADS + 2 * extra) * HEAD_DIM
+        w_bytes = 2 * (D * width + hhd * D)
+        qkv, out = 2 * n * D * width, 2 * n * hhd * D
+        if name.endswith("_bwd"):  # x, do in; dx, fp32 grads out
+            ops = ({"s8": 3 * qkv + 2 * out, "bf16": 3 * core * spq}
+                   if name.endswith("_dw_bwd") else
+                   {"s8": 2 * qkv + out, "bf16": qkv + out + 3 * core * spq})
+            return (3 * 2 * n * D + w_bytes + 2 * w_bytes
+                    + 2 * 4 * (3 * D + width), ops)
+        return (2 * 2 * n * D + w_bytes + 4 * (3 * D + width),
+                {"s8": qkv + out, "bf16": core * spq})
     if name.startswith("fused_ln_qkvo_attention_gqa"):
         n, width = batch * spq, (HEADS + 2 * extra) * HEAD_DIM
         w_bytes = 2 * (D * width + hhd * D)
@@ -2573,6 +3106,17 @@ def main() -> int:
                    if isinstance(t, dict) else f"{t:.2f}")
         for k, t in times_h14.items()) + f" [{card}]", flush=True)
 
+    print("phase 11, K13 and K7's int8 tier vs plain:", flush=True)
+    check_core_kernels(stats)
+    try:
+        counts11, times11 = run_no_fused_qkv_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("k13: " + "; ".join(
+        f"{k} " + (", ".join(f"{n} {v:.4g}" for n, v in t.items())
+                   if isinstance(t, dict) else f"{t:.4g}")
+        for k, t in times11.items()) + f" [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
     # the fast recipe's (each runs every kernel of its tier), K7's and K8's
@@ -2591,7 +3135,19 @@ def main() -> int:
                   "fused_ln_qkvo_attention_rect_int8_bwd": 3,
                   "fused_ln_qkvo_attention_gqa_bwd": 4}
 
+    # phase 11: K13's from eval_cli @384 (forward) and train_cli (backward)
+    # --no-fused-qkv, K7's int8 tier from the Res-ViT runs that take it
+    phase11_runs = {
+        "flash_attention": "eval_cli", "flash_attention_bwd": "train_cli",
+        "fused_ln_qkvo_attention_int8_gqa": "--int8 --n_kv_heads 4 dense",
+        "fused_ln_qkvo_attention_int8_gqa_bwd":
+            "(h) --int8-grad --n_kv_heads 4",
+        "fused_ln_qkvo_attention_int8_gqa_dw_bwd":
+            "(i) ft_resvit_fast.sh --n_kv_heads 4"}
+
     def launches(name):
+        if name in phase11_runs:
+            return counts11[phase11_runs[name]][name]
         if name in H14_KERNELS:  # phase 10: eval_cli's run, train_cli's
             return (counts_h14 if name == "fused_ln_qkvo_attention_flash"
                     else counts_h14_train)[name]

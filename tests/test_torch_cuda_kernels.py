@@ -785,3 +785,186 @@ def test_wide_mlp_backward_matches_twin(dev, rows):
         _assert_close(out, ref)
     assert {k: v for k, v in ck.launch_counts().items() if v} == {
         "fused_ln_mlp_bwd_wide": 1}
+
+
+# K13, the standalone attention core: (batch, heads, seq, head_dim, memory
+# layout). ViT's b32 seq 197 in both layouts the port meets (the einsums'
+# [B, S, H, Hd] memory and vitax's [B, H, S, Hd]), eval_cli's b8 seq 577,
+# H/14's hd 80 at seq 730, seq 1024 at hd 128, the padded head dims 40 and
+# 24 and the other multiples of 16, and ragged seqs
+K13_SHAPES = [(32, 12, 197, 64, "bshd"), (32, 12, 197, 64, "bhsd"),
+              (8, 12, 577, 64, "bshd"), (4, 16, 730, 80, "bshd"),
+              (1, 2, 1024, 128, "bhsd"), (3, 4, 77, 40, "bshd"),
+              (3, 4, 77, 48, "bhsd"), (2, 3, 21, 24, "bshd"),
+              (2, 3, 33, 16, "bhsd"), (2, 3, 50, 96, "bshd"),
+              (2, 3, 50, 112, "bhsd"), (2, 5, 21, 8, "bshd")]
+
+
+def _k13_args(dev, b, h, s, hd, layout, seed=0):
+    """q, k, v, do as [B, H, S, Hd] views of bf16 memory in `layout`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, s, h, hd) if layout == "bshd" else (b, h, s, hd)
+    ts = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(4)]
+    return [t.transpose(1, 2) if layout == "bshd" else t for t in ts]
+
+
+@pytest.mark.parametrize("shape", K13_SHAPES)
+def test_attention_core_kernels_match_twins(dev, shape):
+    """K13 forward and backward against their twins (vitax's whole-row
+    softmax rounds the normalised p, the kernel's 64-key tiles the
+    unnormalised p: inside the bf16 band); the grads come back in q's
+    layout; two backward launches give the same bits."""
+    q, k, v, do = _k13_args(dev, *shape)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        out = ck.flash_attention_bhsd(q, k, v)
+        grads = ck.flash_attention_bwd(q, k, v, out, do)
+        again = ck.flash_attention_bwd(q, k, v, out, do)
+        torch.cuda.synchronize()
+        _assert_close(out, ck.flash_attention_bhsd_ref(q, k, v))
+        refs = ck.flash_attention_bwd_ref(q, k, v, out, do)
+    for g, ref, g2 in zip(grads, refs, again):
+        _assert_close(g, ref)
+        assert torch.equal(g, g2)
+        assert g.stride() == q.stride() or shape[3] % 16
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "flash_attention": 1, "flash_attention_bwd": 2}
+
+
+def _guarded(n, dev, fill):
+    """A bf16 buffer of n values followed by 4096 guard values `fill`."""
+    return torch.full((n + 4096,), fill, dtype=torch.bfloat16, device=dev)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_attention_core_stays_inside_ragged_tensors(dev, layout):
+    """Unpadded rows (seq 21: the last 16-row query tile and 64-key tile
+    run past the tensor's end): inputs that end right before NaN guard
+    memory give finite outputs equal to the twin's, and the guard after
+    each output is untouched. Run it under compute-sanitizer where that
+    works: `compute-sanitizer python -m pytest --noconftest
+    tests/test_torch_cuda_kernels.py -k ragged_tensors`."""
+    from vitax_torch.kernels import build
+    b, h, s, hd = 2, 3, 21, 64
+    n = b * h * s * hd
+    shape = (b, s, h, hd) if layout == "bshd" else (b, h, s, hd)
+    images, heads = (b, h) if layout == "bshd" else (b * h, 1)
+    src = _k13_args(dev, b, h, s, hd, layout, seed=3)
+    bufs = []
+    for t in src:
+        buf = _guarded(n, dev, float("nan"))
+        buf[:n].view(shape).copy_(t.transpose(1, 2) if layout == "bshd"
+                                  else t)
+        bufs.append(buf)
+    outs = [_guarded(n, dev, 7.0) for _ in range(4)]
+    L = (s + 15) // 16 * 16
+    p, ds = (torch.empty(images * heads * L * L, dtype=torch.bfloat16,
+                         device=dev) for _ in range(2))
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = hd ** -0.5
+    rc = lib.vitax_attention_core_fwd(*(t.data_ptr() for t in bufs[:3]),
+                                      outs[0].data_ptr(), images, s, heads,
+                                      hd, scale, stream)
+    build.check(rc, "vitax_attention_core_fwd")
+    out_buf = _guarded(n, dev, float("nan"))
+    out_buf[:n].copy_(outs[0][:n])
+    rc = lib.vitax_attention_core_bwd(
+        *(t.data_ptr() for t in bufs[:3]), out_buf.data_ptr(),
+        bufs[3].data_ptr(), *(t.data_ptr() for t in outs[1:]), p.data_ptr(),
+        ds.data_ptr(), images, s, heads, hd, scale, stream)
+    build.check(rc, "vitax_attention_core_bwd")
+    torch.cuda.synchronize()
+
+    def view(buf):
+        t = buf[:n].view(shape)
+        return t.transpose(1, 2) if layout == "bshd" else t
+
+    q, k, v, do = src
+    ref = ck.flash_attention_bhsd_ref(q, k, v)
+    _assert_close(view(outs[0]), ref)
+    for g, r in zip(map(view, outs[1:]),
+                    ck.flash_attention_bwd_ref(q, k, v, view(out_buf), do)):
+        _assert_close(g, r)
+    for buf in outs:
+        assert torch.all(buf[n:] == 7.0)
+
+
+def test_attention_dispatch_runs_k13_on_bf16_and_raises_on_fp32(dev):
+    """multi_head_attention{,_bhsd} on the card: K13's two kernels under
+    autograd (no mha_ref, no library call); an fp32 input raises naming
+    its queue item; outside vitax's gate (seq 1025) the plain version."""
+    from vitax_torch.ops import attention as att
+    q, k, v, do = _k13_args(dev, 2, 4, 65, 64, "bshd", seed=5)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ck.reset_launch_counts()
+    y = att.multi_head_attention_bhsd(*leaves)
+    assert type(y.grad_fn).__name__ == "FlashAttentionFnBackward"
+    y.backward(do)
+    y2 = att.multi_head_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "flash_attention": 2, "flash_attention_bwd": 1}
+    _assert_close(y2.transpose(1, 2), y.detach())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        att.multi_head_attention_bhsd(q.float(), k.float(), v.float())
+    long = torch.randn((1, 2, 1025, 64), device=dev).to(torch.bfloat16)
+    ck.reset_launch_counts()
+    _assert_close(att.multi_head_attention_bhsd(long, long, long),
+                  att.mha_ref_bhsd(long, long, long))
+    assert not any(ck.launch_counts().values())
+
+
+# K7's int8 tier: Res-ViT b16 serving (b64) and training (b32) at spq 200
+# with 4 kv heads, and the test config with one
+INT8_GQA_SHAPES = [(64, 200, 197, 768, 12, 4, 64),
+                   (32, 200, 197, 768, 12, 4, 64), (2, 16, 10, 128, 2, 1, 64)]
+INT8_GQA = ("fused_ln_qkvo_attention_int8_gqa",
+            "fused_ln_qkvo_attention_int8_gqa_bwd",
+            "fused_ln_qkvo_attention_int8_gqa_dw_bwd")
+
+
+@pytest.mark.parametrize("shape", INT8_GQA_SHAPES)
+def test_int8_gqa_kernels_match_twins(dev, shape):
+    """K7's int8 tier, forward, int8_grad and int8_dw backwards, through
+    the K3 wrappers with kv_heads: every output within the bf16 band of
+    its twin, the weights' codes the same bits, the activation codes
+    within CODE_BAND."""
+    args = _gqa_bwd_args(dev, *shape)
+    fwd = (*args[:6], torch.zeros(shape[3], device=dev), *args[7:-1])
+    hkv = args[-1]
+    ck.reset_launch_counts()
+    calls = (("fused_ln_qkvo_attention_int8", fwd),
+             ("fused_ln_qkvo_attention_int8_bwd", args[:-1]),
+             ("fused_ln_qkvo_attention_int8_dw_bwd", args[:-1]))
+    for name, a in calls:
+        sk, st = {}, {}
+        with torch.no_grad():
+            outs = getattr(ck, name)(*a, kv_heads=hkv, scratch=sk)
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(*a, hkv, scratch=st)
+        if not isinstance(outs, tuple):
+            outs, refs = (outs,), (refs,)
+        for out, ref in zip(outs, refs):
+            _assert_close(out, ref)
+        _codes_within_band(name, sk, st)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(INT8_GQA, 1)
+
+
+@pytest.mark.parametrize("int8_dw", [False, True])
+def test_int8_gqa_autograd_launches_its_backward(dev, int8_dw):
+    args = _gqa_bwd_args(dev, 2, 200, 197, 768, 12, 4, 64)
+    bo = torch.zeros(768, device=dev, requires_grad=True)
+    leaves = [t.detach().clone().requires_grad_() for t in args[:6]]
+    ck.reset_launch_counts()
+    y = ck.fused_ln_qkvo_attention_int8(*leaves, bo, *args[7:-1],
+                                        int8_grad=True, int8_dw=int8_dw,
+                                        kv_heads=args[-1])
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        INT8_GQA[0]: 1, INT8_GQA[2 if int8_dw else 1]: 1}
+    for t in leaves + [bo]:
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()

@@ -251,6 +251,87 @@ def test_fused_ln_qkvo_attention_int8_bwd_ref_matches_pallas(dtype, batch,
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# ------------------------------------------------- K7's int8 tier (GQA)
+
+GQA_H, GQA_KV, GQA_HD = 4, 2, 32  # D 128 = 4 query heads over 2 kv groups
+
+
+def _gqa_arrays(seed, batch):
+    """_arrays with the packed GQA [q | k | v] weight, (4 + 2·2)·32 wide."""
+    a = _arrays(seed, batch, SPQ)
+    rng = np.random.default_rng(seed + 1000)
+    w = (GQA_H + 2 * GQA_KV) * GQA_HD
+    a["wqkv"] = (rng.standard_normal((D, w)) * D ** -0.5).astype(np.float32)
+    a["bqkv"] = (rng.standard_normal(w) * 0.1).astype(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_int8_gqa_twin_matches_pallas(dtype, batch):
+    """K7's int8 tier forward (the kv_heads branch of vitax's int8 kernel,
+    the padded stream): the output, the weights' codes bit for bit, xq
+    within CODE_SHARE; the wrapper routes kv_heads < heads to the GQA
+    twin."""
+    j, t = _both(_gqa_arrays(16, batch), dtype)
+    ref = pk.fused_ln_qkvo_attention(*(j[k] for k in _QKVO), EPS, SEQ, GQA_H,
+                                     GQA_HD, True, kv_heads=GQA_KV)
+    args = (*(t[k] for k in _QKVO), EPS, SEQ, GQA_H, GQA_HD)
+    scratch = {}
+    out = ck.fused_ln_qkvo_attention_int8_ref(*args, GQA_KV, scratch=scratch)
+    assert out.shape == t["x"].shape and out.dtype == t["x"].dtype
+    _close(ref, out, TOL[dtype][0], "out")
+    for key, name in (("w8", "wqkv"), ("wo8", "wo")):
+        q_j, s_j = pk._quant_cols_host(j[name])
+        np.testing.assert_array_equal(scratch[key][0].numpy(), np.asarray(q_j))
+        np.testing.assert_array_equal(scratch[key][1].numpy(),
+                                      np.asarray(s_j).ravel())
+    moved = _moved_codes(j, t)
+    assert moved.max() <= 1 and moved.mean() <= CODE_SHARE, moved.mean()
+    before = ck.fused_ln_qkvo_attention_int8_gqa.launches
+    torch.testing.assert_close(
+        ck.fused_ln_qkvo_attention_int8(*args, kv_heads=GQA_KV), out,
+        rtol=0, atol=0)
+    assert ck.fused_ln_qkvo_attention_int8_gqa.launches == before  # CPU
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("int8_dw", [False, True], ids=["int8_grad",
+                                                        "int8_dw"])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_int8_gqa_backward_twins_match_pallas_vjp(dtype, int8_dw, batch):
+    """K7's int8 tier backward (int8_grad, and int8_dw at vitax's group of
+    whole images): all 7 grads against vitax's VJP, dK and dV of each kv
+    group summed over its 2 query heads; the wrappers and, under autograd,
+    the Function give the twin's grads."""
+    j, t = _both(_gqa_arrays(17, batch), dtype)
+    keys = _QKVO[:6]
+    ref = pk._fused_ln_qkvo_bwd(EPS, SEQ, GQA_H, GQA_HD, True, True, int8_dw,
+                                False, False, GQA_KV,
+                                tuple(j[k] for k in keys), j["do"])
+    assert pk._qkvo_bwd_tile(batch, SPQ) * SPQ == ck.qkvo_dw_group(batch,
+                                                                   SPQ)
+    args = (*(t[k] for k in keys), t["do"], EPS, SEQ, GQA_H, GQA_HD, GQA_KV)
+    twin = (ck.fused_ln_qkvo_attention_int8_dw_bwd_ref if int8_dw
+            else ck.fused_ln_qkvo_attention_int8_bwd_ref)
+    out = twin(*args)
+    assert out[3].shape == (D, (GQA_H + 2 * GQA_KV) * GQA_HD)
+    _check_all(ref, out, dtype, QKVO_GRADS)
+    wrapper = (ck.fused_ln_qkvo_attention_int8_dw_bwd if int8_dw
+               else ck.fused_ln_qkvo_attention_int8_bwd)
+    for a, b in zip(out, wrapper(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    leaves = [t[k].clone().requires_grad_() for k in _QKVO]
+    y = ck.fused_ln_qkvo_attention_int8(*leaves, EPS, SEQ, GQA_H, GQA_HD,
+                                        int8_grad=True, int8_dw=int8_dw,
+                                        kv_heads=GQA_KV)
+    assert type(y.grad_fn).__name__ == "FusedLnQkvoAttentionFnBackward"
+    y.backward(t["do"])
+    for leaf, g in zip(leaves, out[:6]):
+        torch.testing.assert_close(leaf.grad, g.to(leaf.dtype), rtol=0,
+                                   atol=0)
+
+
 def _vitax_mlp_dw_group(n, padded):
     """vitax's int8_dw group of K4's backward over n rows: one grid step's
     chunk, _ln_mlp_rows // _bwd_chunks (pallas_kernels.py:1393, :1405), n

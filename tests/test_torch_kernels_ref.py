@@ -153,6 +153,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ck.fused_ln_qkvo_attention_flash(*qkvo, t["bo"], EPS, SEQ, H, HD)
     ck.fused_ln_qkvo_attention_flash_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
     ck.fused_ln_mlp_bwd_wide(*mlp, t["x"], EPS)
+    ck.fused_ln_qkvo_attention_int8(*gqa, t["bo"], EPS, SEQ, 2, HD,
+                                    kv_heads=1)
+    ck.fused_ln_qkvo_attention_int8_bwd(*gqa, t["x"], EPS, SEQ, 2, HD,
+                                        kv_heads=1)
+    ck.fused_ln_qkvo_attention_int8_dw_bwd(*gqa, t["x"], EPS, SEQ, 2, HD,
+                                           kv_heads=1)
+    q = t["x"].view(t["x"].shape[0], SPQ, 2, -1).transpose(1, 2)
+    out = ck.flash_attention_bhsd(q, q, q)
+    ck.flash_attention(q, q, q)
+    ck.flash_attention_bwd(q, q, q, out, q)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -175,7 +185,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   0, "fused_ln_qkvo_attention_gqa_bwd": 0,
                                   "fused_ln_qkvo_attention_flash": 0,
                                   "fused_ln_qkvo_attention_flash_bwd": 0,
-                                  "fused_ln_mlp_bwd_wide": 0}
+                                  "fused_ln_mlp_bwd_wide": 0,
+                                  "flash_attention": 0,
+                                  "flash_attention_bwd": 0,
+                                  "fused_ln_qkvo_attention_int8_gqa": 0,
+                                  "fused_ln_qkvo_attention_int8_gqa_bwd": 0,
+                                  "fused_ln_qkvo_attention_int8_gqa_dw_bwd":
+                                  0}
 
 
 def test_hopper_gates():

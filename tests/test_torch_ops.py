@@ -61,7 +61,7 @@ def test_mha_ref_bhsd_matches_vitax(dtype):
     ref = jatt.mha_ref_bhsd(*(p[0] for p in pairs))
     out = tatt.mha_ref_bhsd(*(p[1] for p in pairs))
     _close(ref, out, dtype)
-    # a CPU tensor takes the plain version even when the kernels are asked for
+    # with the kernels asked for, a CPU tensor takes K13's plain twin
     _close(ref, tatt.multi_head_attention_bhsd(*(p[1] for p in pairs),
                                                use_kernels=True), dtype)
 

@@ -45,6 +45,9 @@ SMALL = dict(dim=128, mlp_dim=256, n_layers=5, n_heads=2, n_kv_heads=2,
 FUSED = dict(fused_qkv=True, fused_qkvo=True, fused_mlp=True,
              use_pallas=True)
 PLAIN = dict(use_pallas=False)
+# --no-fused-qkv with the kernels on: the LN kernel and K13 (twins here)
+K13 = dict(use_pallas=True)
+PATHS = {"plain": PLAIN, "fused": FUSED, "k13": K13}
 
 
 @pytest.fixture(autouse=True)
@@ -246,12 +249,15 @@ APPLY_CASES = [
     ("bfloat16", "fused", dict(block_size=4)),
     ("float32", "fused", dict(n_kv_heads=1)),
     ("bfloat16", "fused", dict(n_kv_heads=1, use_lora=False)),
+    ("float32", "k13", {}),
+    ("bfloat16", "k13", {}),
+    ("float32", "k13", dict(n_kv_heads=1)),
 ]
 
 
 @pytest.mark.parametrize("dtype,path,kw", APPLY_CASES)
 def test_apply_eval_matches_vitax(dtype, path, kw):
-    jc, tc = _cfgs(dtype, **(FUSED if path == "fused" else PLAIN), **kw)
+    jc, tc = _cfgs(dtype, **PATHS[path], **kw)
     w = _weights(jc)
     ref, jaux, out, taux = _run_both(jc, tc, w, _images())
     assert out.shape == (3, 7)
@@ -287,9 +293,6 @@ def test_apply_rejects_what_is_not_ported():
         tr.apply(w, x, tc.replace(int4_mlp=True))
     with pytest.raises(NotImplementedError, match="K9, K10"):
         tr.apply(w, x, tc.replace(fused_qkv=True, fused_qkvo=False))
-    gqa_j, gqa_t = _cfgs(n_kv_heads=1, **FUSED, int8_attn=True)
-    with pytest.raises(NotImplementedError, match="K3's GQA"):
-        tr.apply(tr.params_from_jax(_weights(gqa_j)), x, gqa_t)
     # vitax's stacked layout runs the loop (its scan has the loop's math),
     # but not with compaction, as vitax's apply
     stacked = tr.stack_params(w, tc)
@@ -333,7 +336,7 @@ def test_capacity_covering_the_actives_equals_dense_bit_for_bit(path):
     """Per-row math on gathered rows: with every active token inside the
     capacity (and the reserved ones first), the compacted forward is the
     dense one, bit for bit (fp32 and the plain twins on the CPU)."""
-    _, tc = _cfgs(**(FUSED if path == "fused" else PLAIN))
+    _, tc = _cfgs(**PATHS[path])
     jc, _ = _cfgs()
     w = tr.params_from_jax(_weights(jc))
     x = torch.from_numpy(_images())
@@ -345,13 +348,13 @@ def test_capacity_covering_the_actives_equals_dense_bit_for_bit(path):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("path", ["plain", "fused"])
+@pytest.mark.parametrize("path", ["plain", "fused", "k13"])
 @pytest.mark.parametrize("capacity,overflow",
                          [(0.625, True), (0.3, True), (0.3, False)])
 def test_compact_apply_matches_vitax(dtype, path, capacity, overflow):
     """Capacity below the actives: overflow demotion (or identity) as
     vitax's, through its rect path on the fused side."""
-    jc, tc = _cfgs(dtype, **(FUSED if path == "fused" else PLAIN),
+    jc, tc = _cfgs(dtype, **PATHS[path],
                    compact_capacity=capacity,
                    compact_demote_overflow=overflow)
     w = _weights(jc)
@@ -432,9 +435,12 @@ def test_rect_block_matches_vitaxs_rect_path(kw):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("capacity", [0.4, 0.75])
-def test_apply_compact_matches_vitax(dtype, capacity):
-    """The reference-shaped legacy path (`--legacy-compact`)."""
-    jc, tc = _cfgs(dtype, **PLAIN)
+@pytest.mark.parametrize("path", ["plain", "k13"])
+def test_apply_compact_matches_vitax(dtype, capacity, path):
+    """The reference-shaped legacy path (`--legacy-compact`, and
+    `resvit_eval_cli --no-fused-qkv --compact-capacity`, whose plain layers
+    take K13 with the kernels on)."""
+    jc, tc = _cfgs(dtype, **PATHS[path])
     w = _weights(jc)
     ref, jaux, out, taux = _run_both(
         jc, tc, w, _images(),

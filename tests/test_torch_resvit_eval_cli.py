@@ -25,9 +25,12 @@ torch = pytest.importorskip("torch")
 
 from vitax import resvit_eval_cli as j_eval  # noqa: E402
 from vitax import resvit_train_cli as j_train  # noqa: E402
+from vitax.core import config as j_config  # noqa: E402
 from vitax.models import resvit as jr  # noqa: E402
+from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax_torch import resvit_eval_cli as t_eval  # noqa: E402
 from vitax_torch import resvit_train_cli as t_train  # noqa: E402
+from vitax_torch.core import config as t_config  # noqa: E402
 from vitax_torch.models import resvit as tr  # noqa: E402
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
 
@@ -190,6 +193,46 @@ def test_gqa_compact_takes_the_square_gqa_kernel(monkeypatch):
     assert seen == [1] * 9 and np.isfinite(out["loss"])
 
 
+# D 128 (4 heads of 32): wide enough for vitax's fused gate (D % 128 == 0)
+# and the port's, so both serve --int8 through their fused int8 kernels
+GQA_TINY = dict(patch=16, emb_dim=128, mlp_dim=256, num_heads=4,
+                num_layers=3)
+
+
+@pytest.fixture
+def gqa_preset(monkeypatch):
+    """The tiny preset at D 128 in both packages, vitax's kernels in
+    interpret mode; returns the kv_heads of each call of the port's int8
+    attention twin."""
+    monkeypatch.setattr(pk, "_INTERPRET", True)
+    for presets in (t_config.ARCH_PRESETS, j_config.ARCH_PRESETS):
+        monkeypatch.setitem(presets, "tiny", GQA_TINY)
+    seen = []
+    fn = ck.fused_ln_qkvo_attention_int8_ref
+    monkeypatch.setattr(ck, "fused_ln_qkvo_attention_int8_ref",
+                        lambda *a, **k: seen.append(a[11]) or fn(*a, **k))
+    return seen
+
+
+@pytest.mark.parametrize("extra", [[], ["--compact-capacity", "0.5"]],
+                         ids=["dense", "compact"])
+def test_int8_gqa_metrics_match_vitax(vitax_weights, gqa_preset, extra):
+    """--fused-qkv --int8 --n_kv_heads 2 (K7's int8 tier) against vitax's
+    int8 kernel with kv_heads, dense and compacted (GQA declines the rect
+    half: the square kernel runs in every layer). fp32; the same tolerances
+    as the bf16-free metrics above, and the accuracies exactly."""
+    argv = TINY + ["--dtype", "float32", "--fused-qkv", "--int8",
+                   "--n_kv_heads", "2"] + extra
+    out = t_eval.main(argv, device="cpu")
+    ref = j_eval.main(argv)
+    for k in ("loss", "c_loss", "router_entropy"):
+        np.testing.assert_allclose(out[k], ref[k], rtol=1e-4, atol=1e-4)
+    for k in ("acc1", "acc5", "non_low_rank_ratio"):
+        assert out[k] == pytest.approx(ref[k], abs=1e-6), k
+    # 3 batches of 3 layers, each through the twin with 2 kv groups
+    assert gqa_preset == [2] * 9
+
+
 def test_store_checkpoint_directory_loads(tmp_path):
     """A checkpoint directory of the port's store: its parameters replace
     the random ones."""
@@ -207,7 +250,6 @@ def test_store_checkpoint_directory_loads(tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--checkpoint-path", "model.pth"], "Queue 1 item 4"),
-    (["--int8", "--n_kv_heads", "1"], "K3's GQA"),
     (["--n_gpu", "2"], "Queue 1 item 5")])
 def test_unported_options_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):

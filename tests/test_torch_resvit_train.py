@@ -48,6 +48,9 @@ SMALL = dict(dim=128, mlp_dim=256, n_layers=5, n_heads=2, n_kv_heads=2,
 FUSED = dict(fused_qkv=True, fused_qkvo=True, fused_mlp=True,
              use_pallas=True)
 PLAIN = dict(use_pallas=False)
+# --no-fused-qkv with the kernels on: the LN kernel and K13 (twins here)
+K13 = dict(use_pallas=True)
+PATHS = {"plain": PLAIN, "fused": FUSED, "k13": K13}
 LAMBDAS = dict(classification=1.0, active=10.0, distill=1.0)
 
 
@@ -230,6 +233,10 @@ APPLY_CASES = [
     # GQA: the rect half declines, the square K7 runs and is gathered
     ("float32", "fused", dict(n_kv_heads=1, compact_capacity=0.625)),
     ("float32", "plain", dict(n_kv_heads=1, use_lora=False)),
+    # --no-fused-qkv: K13's twins under autograd, teacher and student
+    ("float32", "k13", {}),
+    ("bfloat16", "k13", {}),
+    ("float32", "k13", dict(n_kv_heads=1, use_lora=False)),
 ]
 
 
@@ -252,7 +259,7 @@ def test_apply_train_matches_vitax(dtype, path, kw):
     """apply(train=True) with vitax's noise and kept tokens injected: the
     logits, the distill loss, the keep bits, the soft probabilities and the
     grads of the 3-term loss for every trainable leaf."""
-    jc, tc = _cfgs(dtype, **(FUSED if path == "fused" else PLAIN), **kw)
+    jc, tc = _cfgs(dtype, **PATHS[path], **kw)
     w = _weights(jc)
     img, labels = _batch()
     key = jax.random.PRNGKey(11)

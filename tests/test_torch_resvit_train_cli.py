@@ -28,10 +28,14 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 from vitax import resvit_train_cli as j_train  # noqa: E402
+from vitax.core import config as j_config  # noqa: E402
 from vitax.models import resvit as jr  # noqa: E402
+from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax_torch import resvit_eval_cli as t_eval  # noqa: E402
 from vitax_torch import resvit_train_cli as t_train  # noqa: E402
+from vitax_torch.core import config as t_config  # noqa: E402
 from vitax_torch.models import resvit as tr  # noqa: E402
+from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
 
 TINY = ["--dataset", "Synthetic", "--model-arch", "tiny", "--image-size",
         "32", "--batch-size", "8", "--synthetic-samples", "24",
@@ -151,6 +155,47 @@ def test_step_plan_json_and_validation_match_vitax(same_weights, tmp_path,
                                rtol=1e-5)
 
 
+# D 128 (4 heads of 32): both packages' fused gates take it (vitax's needs
+# D % 128 == 0), so both run their fused int8 kernels with kv_heads
+GQA_TINY = dict(patch=16, emb_dim=128, mlp_dim=256, num_heads=4,
+                num_layers=3)
+
+
+@pytest.mark.parametrize("flags,int8_dw", [
+    (["--int8-grad"], False),
+    (["--int8-dw", "--compact-capacity", "0.625", "--compact-warmup", "1",
+      "--token-keep", "0.5"], True)], ids=["int8-grad", "fast"])
+def test_int8_gqa_training_runs_k7s_int8_tier(flags, int8_dw, same_weights,
+                                              tmp_path, monkeypatch, capsys):
+    """--n_kv_heads 2 with --int8-grad, and with ft_resvit_fast.sh's flags
+    (--int8-dw, compaction, keep 0.5): every student backward of the port's
+    steps takes K7's int8 tier (its twin, 2 kv groups, int8_dw as asked),
+    and each epoch's validation (lr 0) equals vitax's through its int8
+    kernel with kv_heads, within the print rounding."""
+    monkeypatch.setattr(pk, "_INTERPRET", True)
+    for presets in (t_config.ARCH_PRESETS, j_config.ARCH_PRESETS):
+        monkeypatch.setitem(presets, "tiny", GQA_TINY)
+    seen = []
+    fn = ck.fused_ln_qkvo_attention_int8_bwd_ref
+    monkeypatch.setattr(
+        ck, "fused_ln_qkvo_attention_int8_bwd_ref",
+        lambda *a, **k: seen.append((a[11], k.get("int8_dw", False)))
+        or fn(*a, **k))
+    argv = TRAIN + flags + ["--fused-qkv", "--n_kv_heads", "2",
+                            "--train-steps", "3", "--warmup-steps", "0",
+                            "--lr", "0", "--dtype", "float32"]
+    t_out = t_train.main(argv + ["--exp-root", str(tmp_path / "t")],
+                         device="cpu")
+    # 3 steps of 3 layers (the plain layer and 2 routed students)
+    assert seen == [(2, int8_dw)] * 9
+    capsys.readouterr()
+    _, j_valid = _vitax_main(argv + ["--exp-root", str(tmp_path / "j")],
+                             monkeypatch, capsys)
+    assert len(t_out["epochs"]) == len(j_valid) == 1
+    for k, v in j_valid[0].items():
+        assert t_out["epochs"][0][k] == pytest.approx(v, abs=5.1e-5), k
+
+
 def test_training_moves_the_trainable_weights_only(tmp_path):
     """A real run (lr 1e-3, two epochs): the LoRA adapters, routers,
     approximators, cls token and classifier move; the frozen base weights
@@ -195,8 +240,7 @@ def test_scan_layers_trains_the_stacked_tree(tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--checkpoint-path", "w.pth"], "Queue 1 item 4"),
     (["--remat"], "Queue 1 item 6"),
-    (["--int4"], "K11"),
-    (["--int8", "--n_kv_heads", "1"], "K7's int8 tier")])
+    (["--int4"], "K11")])
 def test_unported_options_raise(extra, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         t_train.main(TRAIN + extra + ["--exp-root", str(tmp_path)],

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from tests.test_torch_resvit_train import (  # noqa: E402,F401
-    FUSED, LAMBDAS, PLAIN, _as_numpy, _batch, _cfgs, _close, _paths,
+    FUSED, LAMBDAS, PATHS, PLAIN, _as_numpy, _batch, _cfgs, _close, _paths,
     _torch_noise, _trainable_paths, _weights, interpret_mode,
     vitax_noise, vitax_path_ids_from_the_keep_bits)
 from vitax.models import resvit as jr  # noqa: E402
@@ -94,8 +94,9 @@ def test_trainable_mask_equals_vitaxs(kw):
 
 # ---------------------------------------------------------------- steps
 
+# "k13": --no-fused-qkv with the kernels on (the LN kernel and K13)
 STEP_CASES = [("plain", {}), ("fused", dict(compact_capacity=0.625)),
-              ("fused", dict(token_keep=0.5))]
+              ("fused", dict(token_keep=0.5)), ("k13", {})]
 
 
 @pytest.mark.parametrize("path,kw", STEP_CASES)
@@ -104,7 +105,7 @@ def test_three_train_steps_match_vitax(path, kw):
     clip 1.0, weight decay 0.05, warmup-cosine) for three steps of both
     packages on the same batches and noise: the metrics after each step and
     the parameters after it; frozen leaves bit-unchanged."""
-    jc, tc = _cfgs(**(FUSED if path == "fused" else PLAIN), **kw)
+    jc, tc = _cfgs(**PATHS[path], **kw)
     w = _weights(jc)
     lr, total = 1e-3, 3
     j_tx = jsteps.make_adamw_for(

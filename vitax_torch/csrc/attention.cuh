@@ -31,10 +31,12 @@ __host__ __device__ inline size_t attn_smem_bytes(int spq, int hd, int warps) {
   return 2 * L * hd * 2 + warps * (16 * hd * 2 + 16 * sw * 4 + 16 * L * 2);
 }
 
-// Stage K and V of one head ([rows, HD] slices at columns k_col and v_col of
-// the rows of one image) into shared memory as [L, HD], zero past rows.
+// Stage K and V of one head ([rows, HD] slices at column k_col of the rows
+// at kbase and v_col of those at vbase, one image each, both of row stride
+// row_stride) into shared memory as [L, HD], zero past rows.
 template <int HD>
-__device__ __forceinline__ void attn_stage_kv(const bf16* __restrict__ base, size_t row_stride,
+__device__ __forceinline__ void attn_stage_kv(const bf16* __restrict__ kbase,
+                                              const bf16* __restrict__ vbase, size_t row_stride,
                                               int k_col, int v_col, int rows, int L, bf16* Ks,
                                               bf16* Vs) {
   constexpr int kVecs = HD / 8;  // 16-byte vectors per head row
@@ -44,9 +46,8 @@ __device__ __forceinline__ void attn_stage_kv(const bf16* __restrict__ base, siz
     const int c = (i % kVecs) * 8;
     uint4 kv = zero, vv = zero;
     if (r < rows) {
-      const bf16* row = base + r * row_stride + c;
-      kv = *reinterpret_cast<const uint4*>(row + k_col);
-      vv = *reinterpret_cast<const uint4*>(row + v_col);
+      kv = *reinterpret_cast<const uint4*>(kbase + r * row_stride + k_col + c);
+      vv = *reinterpret_cast<const uint4*>(vbase + r * row_stride + v_col + c);
     }
     *reinterpret_cast<uint4*>(Ks + r * HD + c) = kv;
     *reinterpret_cast<uint4*>(Vs + r * HD + c) = vv;
@@ -117,6 +118,8 @@ __device__ __forceinline__ void attn_softmax_row(float* srow, int L, int seq_len
 // Where the core reads: Q rows [b·q_rows + r] of q (row stride q_ld, head h
 // at column h·HD), K and V rows [b·kv_rows + r] of kv (row stride kv_ld, kv
 // group g at columns k_off + g·HD and v_off + g·HD); out [b·q_rows, H·HD].
+// V's rows come from their own tensor v where it is set (K13, whose K and V
+// are two tensors of one layout, row stride kv_ld), else from kv.
 struct AttnGeom {
   const bf16* q;
   size_t q_ld;
@@ -128,7 +131,16 @@ struct AttnGeom {
   int heads, kv_heads;
   int b, seq_len;
   float scale;
+  const bf16* v = nullptr;
 };
+
+// The rows of image b of K and of V.
+__host__ __device__ inline const bf16* attn_k_rows(const AttnGeom& g, int b) {
+  return g.kv + static_cast<size_t>(b) * g.kv_rows * g.kv_ld;
+}
+__host__ __device__ inline const bf16* attn_v_rows(const AttnGeom& g, int b) {
+  return (g.v ? g.v : g.kv) + static_cast<size_t>(b) * g.kv_rows * g.kv_ld;
+}
 
 // The square core over a packed qkv [b·spq, (H + 2·Hkv)·HD]: [q | k | v],
 // MHA at kv_heads == heads (3·H·HD wide), GQA below.
@@ -161,7 +173,6 @@ __global__ void attention_core_kernel(AttnGeom g, OutT* __restrict__ out) {
   const int lane = threadIdx.x % 32;
   const int hhd = g.heads * HD;
   const bf16* qbase = g.q + static_cast<size_t>(b) * g.q_rows * g.q_ld;
-  const bf16* kvbase = g.kv + static_cast<size_t>(b) * g.kv_rows * g.kv_ld;
 
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + L * HD;
@@ -171,8 +182,8 @@ __global__ void attention_core_kernel(AttnGeom g, OutT* __restrict__ out) {
   float* S = reinterpret_cast<float*>(mine + 16 * HD * 2);
   bf16* P = reinterpret_cast<bf16*>(mine + 16 * HD * 2 + 16 * static_cast<size_t>(sw) * 4);
 
-  attn_stage_kv<HD>(kvbase, g.kv_ld, g.k_off + grp * HD, g.v_off + grp * HD, g.kv_rows, L, Ks,
-                    Vs);
+  attn_stage_kv<HD>(attn_k_rows(g, b), attn_v_rows(g, b), g.kv_ld, g.k_off + grp * HD,
+                    g.v_off + grp * HD, g.kv_rows, L, Ks, Vs);
   const int q0 = (blockIdx.x * warps + warp) * 16;
   attn_load_tile16<HD>(qbase, g.q_ld, h * HD, q0, g.q_rows, Qs);
   __syncthreads();

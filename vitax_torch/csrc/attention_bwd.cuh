@@ -20,7 +20,8 @@ namespace vitax {
 // bf16 head outputs o and their cotangent dO, both [b·q_rows, H·HD]; dq of
 // head h at column h·HD of row b·q_rows + r of dq (row stride dq_ld); dK and
 // dV of kv group g at columns dk_off + g·HD and dv_off + g·HD of row
-// b·kv_rows + r of dkv (row stride dkv_ld); P and DS [b, heads, Lq, Lk].
+// b·kv_rows + r of dkv (row stride dkv_ld), dV in its own tensor dv where
+// that is set (K13); P and DS [b, heads, Lq, Lk].
 struct AttnBwdGeom {
   AttnGeom f;
   const bf16* o;
@@ -32,6 +33,7 @@ struct AttnBwdGeom {
   int dk_off, dv_off;
   bf16* P;
   bf16* DS;
+  bf16* dv = nullptr;
 };
 
 __host__ __device__ inline size_t attn_bwd_warp_bytes(int kv_rows, int hd) {
@@ -66,7 +68,6 @@ __global__ void attention_bwd_q_kernel(AttnBwdGeom g) {
   const int hhd = f.heads * HD;
   const size_t qrow0 = static_cast<size_t>(b) * f.q_rows;
   const bf16* qbase = f.q + qrow0 * f.q_ld;
-  const bf16* kvbase = f.kv + static_cast<size_t>(b) * f.kv_rows * f.kv_ld;
 
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + L * HD;
@@ -79,8 +80,8 @@ __global__ void attention_bwd_q_kernel(AttnBwdGeom g) {
   float* stage = reinterpret_cast<float*>(Ds + 16 * L);
   float* dd = stage + 256;
 
-  attn_stage_kv<HD>(kvbase, f.kv_ld, f.k_off + grp * HD, f.v_off + grp * HD, f.kv_rows, L, Ks,
-                    Vs);
+  attn_stage_kv<HD>(attn_k_rows(f, b), attn_v_rows(f, b), f.kv_ld, f.k_off + grp * HD,
+                    f.v_off + grp * HD, f.kv_rows, L, Ks, Vs);
   const int q0 = (blockIdx.x * warps + warp) * 16;
   attn_load_tile16<HD>(qbase, f.q_ld, h * HD, q0, f.q_rows, Qs);
   attn_load_tile16<HD>(g.dO + qrow0 * hhd, hhd, h * HD, q0, f.q_rows, dOs);
@@ -261,9 +262,9 @@ __global__ void __launch_bounds__(32 * kKvWarps) attention_bwd_kv_kernel(AttnBwd
         for (int t = 0; t < 8; ++t)
           o[t] = __float2bfloat16(which == 0 ? st[r * 16 + c0 + t] * f.scale
                                              : st[r * 16 + c0 + t]);
-        *reinterpret_cast<uint4*>(g.dkv + (krow0 + k0 + r) * g.dkv_ld +
-                                  (which == 0 ? g.dk_off : g.dv_off) + grp * HD + n * 16 +
-                                  c0) = o_u;
+        bf16* dst = which == 0 ? g.dkv + g.dk_off : (g.dv ? g.dv : g.dkv) + g.dv_off;
+        *reinterpret_cast<uint4*>(dst + (krow0 + k0 + r) * g.dkv_ld + grp * HD + n * 16 + c0) =
+            o_u;
       }
       __syncwarp();
     }

@@ -143,8 +143,8 @@ __device__ __forceinline__ void flash_tile_times_kv(const bf16* A, const bf16* B
 // the row statistics. Every warp of the block must call it (it stages the
 // key tiles together); `active` is false for a warp past the query rows.
 template <int HD>
-__device__ void flash_forward_rows(const AttnGeom& g, const bf16* kvbase, int grp, bf16* Ks,
-                                   bf16* Vs, const FlashWarp<HD>& w, bool active) {
+__device__ void flash_forward_rows(const AttnGeom& g, int b, int grp, bf16* Ks, bf16* Vs,
+                                   const FlashWarp<HD>& w, bool active) {
   constexpr int kSw = FlashLayout<HD>::kSw;
   const int lane = threadIdx.x % 32;
   for (int i = lane; i < 16 * HD; i += 32) w.O[i] = 0.f;
@@ -154,10 +154,13 @@ __device__ void flash_forward_rows(const AttnGeom& g, const bf16* kvbase, int gr
   }
   __syncwarp();
   const int kv_end = g.seq_len < g.kv_rows ? g.seq_len : g.kv_rows;
+  const bf16* kbase = attn_k_rows(g, b);
+  const bf16* vbase = attn_v_rows(g, b);
   for (int k0 = 0; k0 < kv_end; k0 += kFlashKv) {
     __syncthreads();  // the previous tile has been consumed
-    attn_stage_kv<HD>(kvbase + static_cast<size_t>(k0) * g.kv_ld, g.kv_ld, g.k_off + grp * HD,
-                      g.v_off + grp * HD, g.kv_rows - k0, kFlashKv, Ks, Vs);
+    const size_t off = static_cast<size_t>(k0) * g.kv_ld;
+    attn_stage_kv<HD>(kbase + off, vbase + off, g.kv_ld, g.k_off + grp * HD, g.v_off + grp * HD,
+                      g.kv_rows - k0, kFlashKv, Ks, Vs);
     __syncthreads();
     if (!active) continue;
     attn_scores<HD>(w.Qs, Ks, kFlashKv, w.S, kSw);
@@ -169,6 +172,34 @@ __device__ void flash_forward_rows(const AttnGeom& g, const bf16* kvbase, int gr
   if (!active) return;
   for (int i = lane; i < 16 * HD; i += 32) w.O[i] = w.O[i] / w.l[i / HD];
   __syncwarp();
+}
+
+// The row statistics alone: the recurrence's (m, l) over the key tiles below
+// seq_len, without P·V (K13's first pass, and its backward's recompute).
+// Every warp of the block must call it, as flash_forward_rows.
+template <int HD>
+__device__ void flash_stats_rows(const AttnGeom& g, int b, int grp, bf16* Ks, bf16* Vs,
+                                 const FlashWarp<HD>& w, bool active) {
+  constexpr int kSw = FlashLayout<HD>::kSw;
+  const int lane = threadIdx.x % 32;
+  if (lane < 16) {
+    w.m[lane] = -1e30f;
+    w.l[lane] = 0.f;
+  }
+  __syncwarp();
+  const int kv_end = g.seq_len < g.kv_rows ? g.seq_len : g.kv_rows;
+  const bf16* kbase = attn_k_rows(g, b);
+  const bf16* vbase = attn_v_rows(g, b);
+  for (int k0 = 0; k0 < kv_end; k0 += kFlashKv) {
+    __syncthreads();  // the previous tile has been consumed
+    const size_t off = static_cast<size_t>(k0) * g.kv_ld;
+    attn_stage_kv<HD>(kbase + off, vbase + off, g.kv_ld, g.k_off + grp * HD, g.v_off + grp * HD,
+                      g.kv_rows - k0, kFlashKv, Ks, Vs);
+    __syncthreads();
+    if (!active) continue;
+    attn_scores<HD>(w.Qs, Ks, kFlashKv, w.S, kSw);
+    flash_softmax_tile(w.S, kSw, w.P, w.m, w.l, w.alpha, k0, g.seq_len, g.scale);
+  }
 }
 
 // Forward, one block per (query tiles, head, image): out [b·q_rows, H·HD]
@@ -188,8 +219,7 @@ __global__ void __launch_bounds__(32 * kFlashWarps) flash_fwd_kernel(AttnGeom g,
   const int q0 = (blockIdx.x * kFlashWarps + warp) * 16;
   attn_load_tile16<HD>(g.q + static_cast<size_t>(b) * g.q_rows * g.q_ld, g.q_ld, h * HD, q0,
                        g.q_rows, w.Qs);
-  flash_forward_rows<HD>(g, g.kv + static_cast<size_t>(b) * g.kv_rows * g.kv_ld, grp, Ks, Vs, w,
-                         q0 < g.q_rows);
+  flash_forward_rows<HD>(g, b, grp, Ks, Vs, w, q0 < g.q_rows);
   if (q0 >= g.q_rows) return;
   constexpr int kVecs = HD / 8;
   for (int i = lane; i < 16 * kVecs; i += 32) {
@@ -203,11 +233,15 @@ __global__ void __launch_bounds__(32 * kFlashWarps) flash_fwd_kernel(AttnGeom g,
 }
 
 // Backward, the query-tile pass, one block per (query tiles, head, image):
-// recomputes out, m and l (writing bf16(out) to attn, the out-projection's
-// operand), dd, then walks every key tile of the padded rows: p, dp = dO vᵀ,
-// ds; the bf16 P and ds rows of the tile go to g.P and g.DS ([b, H, Lq, L],
-// zero on pad query rows and on masked keys) for the key-tile pass, and
-// dq = Σ ds k accumulates in WMMA fragments, scaled and cast once.
+// recomputes out, m and l, then dd, then walks every key tile of the padded
+// rows: p, dp = dO vᵀ, ds; the bf16 P and ds rows of the tile go to g.P and
+// g.DS ([b, H, Lq, L], zero on pad query rows and on masked keys) for the
+// key-tile pass, and dq = Σ ds k accumulates in WMMA fragments, scaled and
+// cast once. With attn set (K6) it writes bf16(out) there, the
+// out-projection's operand, and takes dd from the fp32 out; with attn null
+// (K13, whose VJP saves its output) it recomputes (m, l) alone and takes dd
+// from the saved bf16 outputs g.o, as vitax's _attn_bwd_kernel does
+// (pallas_kernels.py:119-120, 146).
 template <int HD>
 __global__ void __launch_bounds__(32 * kFlashWarps)
     flash_bwd_q_kernel(AttnBwdGeom g, bf16* attn) {
@@ -224,7 +258,8 @@ __global__ void __launch_bounds__(32 * kFlashWarps)
   const int lane = threadIdx.x % 32;
   const int hhd = f.heads * HD;
   const size_t qrow0 = static_cast<size_t>(b) * f.q_rows;
-  const bf16* kvbase = f.kv + static_cast<size_t>(b) * f.kv_rows * f.kv_ld;
+  const bf16* kbase = attn_k_rows(f, b);
+  const bf16* vbase = attn_v_rows(f, b);
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + kFlashKv * HD;
   const FlashWarp<HD> w(smem + Lay::kKv + warp * Lay::kBwdWarp);
@@ -232,11 +267,14 @@ __global__ void __launch_bounds__(32 * kFlashWarps)
   const bool active = q0 < f.q_rows;
   attn_load_tile16<HD>(f.q + qrow0 * f.q_ld, f.q_ld, h * HD, q0, f.q_rows, w.Qs);
   attn_load_tile16<HD>(g.dO + qrow0 * hhd, hhd, h * HD, q0, f.q_rows, w.dOs);
-  flash_forward_rows<HD>(f, kvbase, grp, Ks, Vs, w, active);
+  if (attn)
+    flash_forward_rows<HD>(f, b, grp, Ks, Vs, w, active);
+  else
+    flash_stats_rows<HD>(f, b, grp, Ks, Vs, w, active);
 
   constexpr int kVecs = HD / 8;
   if (active) {
-    for (int i = lane; i < 16 * kVecs; i += 32) {
+    for (int i = lane; attn && i < 16 * kVecs; i += 32) {
       const int r = i / kVecs;
       const int c = (i % kVecs) * 8;
       if (q0 + r >= f.q_rows) continue;
@@ -244,10 +282,17 @@ __global__ void __launch_bounds__(32 * kFlashWarps)
       store4(dst, w.O + r * HD + c);
       store4(dst + 4, w.O + r * HD + c + 4);
     }
+    const bf16* o_rows = g.o + qrow0 * hhd + h * HD;
     for (int r = 0; r < 16; ++r) {
       float acc = 0.f;
-      for (int c = lane; c < HD; c += 32)
-        acc += __bfloat162float(w.dOs[r * HD + c]) * w.O[r * HD + c];
+      if (attn) {
+        for (int c = lane; c < HD; c += 32)
+          acc += __bfloat162float(w.dOs[r * HD + c]) * w.O[r * HD + c];
+      } else if (q0 + r < f.q_rows) {  // dOs is zero on the pad rows
+        for (int c = lane; c < HD; c += 32)
+          acc += __bfloat162float(w.dOs[r * HD + c]) *
+                 __bfloat162float(o_rows[static_cast<size_t>(q0 + r) * hhd + c]);
+      }
       acc = warp_sum(acc);
       if (lane == 0) w.dd[r] = acc;
     }
@@ -260,8 +305,9 @@ __global__ void __launch_bounds__(32 * kFlashWarps)
   const size_t tile_row0 = (static_cast<size_t>(b * f.heads + h) * Lq + q0) * L;
   for (int k0 = 0; k0 < L; k0 += kFlashKv) {
     __syncthreads();  // the previous tile has been consumed
-    attn_stage_kv<HD>(kvbase + static_cast<size_t>(k0) * f.kv_ld, f.kv_ld, f.k_off + grp * HD,
-                      f.v_off + grp * HD, f.kv_rows - k0, kFlashKv, Ks, Vs);
+    const size_t off = static_cast<size_t>(k0) * f.kv_ld;
+    attn_stage_kv<HD>(kbase + off, vbase + off, f.kv_ld, f.k_off + grp * HD, f.v_off + grp * HD,
+                      f.kv_rows - k0, kFlashKv, Ks, Vs);
     __syncthreads();
     if (!active) continue;
     attn_scores<HD>(w.Qs, Ks, kFlashKv, w.S, Lay::kSw);
@@ -346,7 +392,7 @@ cudaError_t launch_flash_fwd(const AttnGeom& g, bf16* out, cudaStream_t stream) 
 }
 
 // Both passes of the core backward: this query-tile pass, then the key-tile
-// pass of attention_bwd.cuh.
+// pass of attention_bwd.cuh; attn as flash_bwd_q_kernel's (null for K13).
 template <int HD>
 cudaError_t launch_flash_bwd(const AttnBwdGeom& g, bf16* attn, cudaStream_t stream) {
   const AttnGeom& f = g.f;

@@ -15,6 +15,11 @@
 // [B, spq, D] with the padded stream's pad rows; pad keys are masked by
 // seq_len.
 //
+// GQA (K7's int8 tier, the kv_heads branch of :2690 with _kv_off :2803):
+// kv_heads < heads packs qkv as [q (H·hd) | k (Hkv·hd) | v (Hkv·hd)], width
+// (H + 2·Hkv)·hd, and query head h reads kv group h·Hkv/H; the quantizer,
+// the s8 QKV GEMM and qkv take that width, the core its geometry.
+//
 // Bound on the H100: the two s8 projections on the tensor cores, and the
 // attention core (attention.cuh: whole-row softmax in shared memory, WMMA
 // bf16; the same core as K1's, here writing fp32 attn). Design of this first
@@ -27,20 +32,21 @@
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
-// Inputs x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16 [d, 3hhd], bqkv
-// [3hhd], wo bf16 [hhd, d], bo [d]; output out bf16 [b·spq, d]. Scratch:
-// w8t int8 [3hhd, d], sw [3hhd], wo8t int8 [d, hhd], swo [d], xq int8
-// [n, d], sx [n], qkv bf16 [n, 3hhd], attn fp32 [n, hhd], aq int8 [n, hhd],
-// sa [n].
+// Inputs x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16 [d, w], bqkv
+// [w], wo bf16 [hhd, d], bo [d], w = (heads + 2 kv_heads) head_dim; output
+// out bf16 [b·spq, d]. Scratch: w8t int8 [w, d], sw [w], wo8t int8 [d, hhd],
+// swo [d], xq int8 [n, d], sx [n], qkv bf16 [n, w], attn fp32 [n, hhd], aq
+// int8 [n, hhd], sa [n].
 extern "C" int vitax_ln_qkvo_attention_int8_fwd(
     const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo, void* xq,
     void* sx, void* qkv, void* attn, void* aq, void* sa, void* out, int b, int spq, int d,
-    int seq_len, int heads, int head_dim, float eps, float scale, void* stream) {
+    int seq_len, int heads, int kv_heads, int head_dim, float eps, float scale, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
+  const int w = (heads + 2 * kv_heads) * head_dim;
   auto* xqi = static_cast<int8_t*>(xq);
   auto* sxf = static_cast<float*>(sx);
   auto* qkvb = static_cast<bf16*>(qkv);
@@ -50,7 +56,7 @@ extern "C" int vitax_ln_qkvo_attention_int8_fwd(
   if (n == 0) return cudaSuccess;
   cudaError_t e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wqkv),
                                                     static_cast<int8_t*>(w8t),
-                                                    static_cast<float*>(sw), d, 3 * hhd, st);
+                                                    static_cast<float*>(sw), d, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8t),
                                         static_cast<float*>(swo), hhd, d, st);
@@ -62,9 +68,11 @@ extern "C" int vitax_ln_qkvo_attention_int8_fwd(
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
                                             static_cast<const float*>(sw),
                                             static_cast<const float*>(bqkv), nullptr, nullptr,
-                                            qkvb, nullptr, n, 3 * hhd, d, st);
+                                            qkvb, nullptr, n, w, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_attention_core_hd(qkvb, attnf, b, spq, seq_len, heads, head_dim, scale, st);
+  e = vitax::launch_attention_core_geom(
+      vitax::attn_geom_packed(qkvb, b, spq, seq_len, heads, kv_heads, head_dim, scale), head_dim,
+      attnf, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_rows(static_cast<const float*>(attnf), aqi, saf, n, hhd, st);
   if (e != cudaSuccess) return e;

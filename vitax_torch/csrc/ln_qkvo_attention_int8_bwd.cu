@@ -21,8 +21,14 @@
 //   dWo = Σ_z f32(quant_cols(attn_z sdo_z)^T doq_z) sat_z    attn the bf16 recompute
 //   dW  = Σ_z f32(quant_cols(xn32_z sdq_z)^T dqq_z) sxn_z    xn32 the fp32 LN output
 //
+// GQA (K7's int8 tier, the kv_heads branch of :2977): kv_heads < heads packs
+// qkv, dqkv and the weights' columns as [q | k | v] at width (H + 2·Hkv)·hd;
+// the core grads sum dK and dV of each kv group over its H/Hkv query heads
+// in fp32 before one cast (attention_bwd.cuh's key-tile pass, as K7's bf16
+// backward), and the rest runs as above at that width.
+//
 // The first launches quantize the weights (quant.cuh): Wq/sw, Wqkv per
-// output column, as [3HHd, D]; Wr/swr and Wor/swor, Wqkv and Wo per row,
+// output column, as [W, D]; Wr/swr and Wor/swor, Wqkv and Wo per row,
 // contracted over their columns, as they are. Weight and vector grads come
 // out in fp32, as the TPU kernel's outputs.
 //
@@ -38,18 +44,18 @@
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
-// Inputs x, dout bf16 [n, d], gamma, beta fp32 [d], bqkv [3hhd], wqkv bf16
-// [d, 3hhd], wo bf16 [hhd, d]. Outputs dx (bf16 [n, d]) and fp32 dgamma,
-// dbeta [d], dwqkv [d, 3hhd], dbqkv [3hhd], dwo [hhd, d], dbo [d]. Scratch
-// (bf16 unless noted): w8t int8 [3hhd, d], sw fp32 [3hhd], w8r int8
-// [d, 3hhd], swr fp32 [d], wo8r int8 [hhd, d], swor fp32 [hhd], xn [n,d],
-// xq int8 [n,d], sx fp32 [n], qkv [n,3hhd], attn [n,hhd], doq int8 [n,d], sdo
-// fp32 [n], dattn [n,hhd], p and ds [b,heads,L,L] with L = round_up(spq, 16),
-// dqkv [n,3hhd], dqq int8 [n,3hhd], sdq fp32 [n], dxn fp32 [n,d], ws fp32
-// vitax_ln_qkvo_attention_bwd_ws(n, d, hhd); with int8_dw (else null; xn is
-// then fp32 [n, d]), kp = groups * round_up(group, 64): atct int8 [hhd, kp],
-// sat fp32 [groups, hhd], doqt int8 [d, kp], xnct int8 [d, kp], sxn fp32
-// [groups, d], dqqt int8 [3hhd, kp].
+// Inputs x, dout bf16 [n, d], gamma, beta fp32 [d], bqkv [w], wqkv bf16
+// [d, w], wo bf16 [hhd, d], w = (heads + 2 kv_heads) head_dim. Outputs dx
+// (bf16 [n, d]) and fp32 dgamma, dbeta [d], dwqkv [d, w], dbqkv [w], dwo
+// [hhd, d], dbo [d]. Scratch (bf16 unless noted): w8t int8 [w, d], sw fp32
+// [w], w8r int8 [d, w], swr fp32 [d], wo8r int8 [hhd, d], swor fp32 [hhd],
+// xn [n,d], xq int8 [n,d], sx fp32 [n], qkv [n,w], attn [n,hhd], doq int8
+// [n,d], sdo fp32 [n], dattn [n,hhd], p and ds [b,heads,L,L] with L =
+// round_up(spq, 16), dqkv [n,w], dqq int8 [n,w], sdq fp32 [n], dxn fp32
+// [n,d], ws fp32 vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w); with int8_dw
+// (else null; xn is then fp32 [n, d]), kp = groups * round_up(group, 64):
+// atct int8 [hhd, kp], sat fp32 [groups, hhd], doqt int8 [d, kp], xnct int8
+// [d, kp], sxn fp32 [groups, d], dqqt int8 [w, kp].
 extern "C" int vitax_ln_qkvo_attention_int8_bwd(
     const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
@@ -57,12 +63,13 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
     void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
     void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws,
     void* atct, void* sat, void* doqt, void* xnct, void* sxn, void* dqqt, int b, int spq, int d,
-    int seq_len, int heads, int head_dim, int group, int int8_dw, float eps, float scale,
-    void* stream) {
+    int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps,
+    float scale, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
+  const int w = (heads + 2 * kv_heads) * head_dim;
   const auto* xb = static_cast<const bf16*>(x);
   const auto* dob = static_cast<const bf16*>(dout);
   auto* xqi = static_cast<int8_t*>(xq);
@@ -81,10 +88,10 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
 
   const auto* wqkvb = static_cast<const bf16*>(wqkv);
   cudaError_t e = vitax::launch_quant_weight_cols_t(wqkvb, static_cast<int8_t*>(w8t),
-                                                    static_cast<float*>(sw), d, 3 * hhd, st);
+                                                    static_cast<float*>(sw), d, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_weight_rows(wqkvb, static_cast<int8_t*>(w8r), static_cast<float*>(swr),
-                                      d, 3 * hhd, st);
+                                      d, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8r),
                                       static_cast<float*>(swor), hhd, d, st);
@@ -101,9 +108,11 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
                                             static_cast<const float*>(sw),
                                             static_cast<const float*>(bqkv), nullptr, nullptr,
-                                            qkvb, nullptr, n, 3 * hhd, d, st);
+                                            qkvb, nullptr, n, w, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_attention_core_hd(qkvb, attnb, b, spq, seq_len, heads, head_dim, scale, st);
+  e = vitax::launch_attention_core_geom(
+      vitax::attn_geom_packed(qkvb, b, spq, seq_len, heads, kv_heads, head_dim, scale), head_dim,
+      attnb, st);
   if (e != cudaSuccess) return e;
 
   // out-projection grads: dattn in s8, dWo and dbo over the bf16 do
@@ -125,25 +134,25 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
   // attention-core grads -> dqkv
   e = vitax::launch_attention_bwd_packed(qkvb, attnb, dattnb, static_cast<bf16*>(p),
                                          static_cast<bf16*>(ds), dqkvb, b, spq, seq_len, heads,
-                                         heads, head_dim, scale, st);
+                                         kv_heads, head_dim, scale, st);
   if (e != cudaSuccess) return e;
 
   // QKV projection grads (dxn in s8) and the LN tail
-  e = vitax::launch_quant_rows(static_cast<const bf16*>(dqkvb), dqqi, sdqf, n, 3 * hhd, st);
+  e = vitax::launch_quant_rows(static_cast<const bf16*>(dqkvb), dqqi, sdqf, n, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8F32>(dqqi, static_cast<const int8_t*>(w8r), sdqf,
                                            static_cast<const float*>(swr), nullptr, nullptr,
-                                           nullptr, nullptr, dxnf, n, d, 3 * hhd, st);
+                                           nullptr, nullptr, dxnf, n, d, w, st);
   if (e != cudaSuccess) return e;
   e = int8_dw ? vitax::launch_dw_int8<float>(static_cast<const float*>(xn), sdqf, dqqi, n, d,
-                                              3 * hhd, group, static_cast<int8_t*>(xnct),
+                                              w, group, static_cast<int8_t*>(xnct),
                                               static_cast<float*>(sxn), static_cast<int8_t*>(dqqt),
                                               static_cast<float*>(dwqkv), st)
               : vitax::launch_gemm_tn(static_cast<const bf16*>(xn), dqkvb,
-                                      static_cast<float*>(dwqkv), wsf, d, 3 * hhd, n, st);
+                                      static_cast<float*>(dwqkv), wsf, d, w, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n,
-                           3 * hhd, st);
+                           w, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(
       xb, static_cast<const float*>(gamma), dxnf, nullptr, static_cast<bf16*>(dx),

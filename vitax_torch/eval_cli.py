@@ -5,7 +5,9 @@ Builds the model from an arch preset (random weights from `--seed`, or an
 a weighted padded final batch, and prints the means and the img/s. It runs
 on the card unless the caller of `main` asks for the CPU (`device="cpu"`);
 on the card the fused kernels are on by default (`--no-fused-qkv`,
-`--no-fused-mlp` and `--no-pallas` turn them off).
+`--no-fused-mlp` and `--no-pallas` turn them off; with `--no-fused-qkv`
+the attention half is the LN kernel, plain projections and K13, the
+standalone attention core).
 
 Run: `python -m vitax_torch.eval_cli --dataset Synthetic --model-arch b16 \
           --image-size 224 --batch-size 64`

@@ -39,8 +39,8 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_bwd": [_P] * 23 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_mlp_int8_fwd": [_P] * 17 + [_I, _I, _I, _F, _P],
     "vitax_ln_mlp_int8_bwd": [_P] * 39 + [_I] * 5 + [_F, _P],
-    "vitax_ln_qkvo_attention_int8_fwd": [_P] * 18 + [_I] * 6 + [_F, _F, _P],
-    "vitax_ln_qkvo_attention_int8_bwd": [_P] * 41 + [_I] * 8 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_int8_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_int8_bwd": [_P] * 41 + [_I] * 9 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int8_ho_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_mlp_int8_ho_fwd": [_P] * 19 + [_I] * 3 + [_F, _P],
     "vitax_ln_qkvo_attention_rect_fwd": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
@@ -49,6 +49,8 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_rect_int8_bwd": [_P] * 60 + [_I] * 10 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_flash_fwd": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_flash_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
+    "vitax_attention_core_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "vitax_attention_core_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {

@@ -317,8 +317,9 @@ def _kv_heads(cfg: ResViTConfig) -> int:
 
 def attention(x: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
     """Self-attention of the LN'd input, fp32 softmax (res-vit/model.py:
-    237-299): the unfused path. vitax's fused dispatch here (its K9/K10
-    kernels, for fused_qkv without fused_qkvo) is not ported and raises."""
+    237-299): the unfused path, whose core is K13 with the kernels on.
+    vitax's fused dispatch here (its K9/K10 kernels, for fused_qkv without
+    fused_qkvo) is not ported and raises."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, _kv_heads(cfg), cfg.head_dim
     if cfg.fused_qkv and hkv == h:
@@ -371,8 +372,9 @@ def _pad_rows(t: torch.Tensor) -> torch.Tensor:
 def _fused_attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig
                           ) -> Optional[torch.Tensor]:
     """LN + qkv (LoRA folded) + attention + out-projection in one kernel for
-    the pre-LN input x: K1, K7 with GQA, K3 with int8_attn. Returns the
-    half-block output without the residual, or None when gated off."""
+    the pre-LN input x: K1, K7 with GQA, K3 with int8_attn (K7's int8 tier
+    with both). Returns the half-block output without the residual, or None
+    when gated off."""
     if not (cfg.fused_qkv and cfg.fused_qkvo):
         return None
     hkv = _kv_heads(cfg)
@@ -381,16 +383,13 @@ def _fused_attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig
     wqkv, bqkv, wo, bo = _qkvo_weights(p, cfg, dt)
     if not ck.qkv_attention_supported(x, wqkv, cfg.n_heads, hkv):
         return None
-    if cfg.int8_attn and hkv != cfg.n_heads:
-        raise NotImplementedError(
-            "int8 attention with n_kv_heads < n_heads: K3's GQA branch has no "
-            "Hopper kernel yet (ROADMAP Queue 2, K7's int8 tier)")
     args = (_pad_rows(x), p["attention_norm"]["scale"].float(),
             p["attention_norm"]["bias"].float(), wqkv, bqkv, wo, bo,
             cfg.norm_eps, s, cfg.n_heads, cfg.head_dim)
     if cfg.int8_attn:
         out = ck.fused_ln_qkvo_attention_int8(
-            *args, int8_grad=cfg.int8_attn_grad, int8_dw=cfg.int8_dw)
+            *args, int8_grad=cfg.int8_attn_grad, int8_dw=cfg.int8_dw,
+            kv_heads=hkv)
     else:
         out = ck.fused_ln_qkvo_attention(*args, kv_heads=hkv)
     return out[:, :s].to(dt)

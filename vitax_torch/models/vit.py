@@ -155,8 +155,10 @@ def params_from_jax(tree: Params, device: torch.device | str = "cpu"
 
 
 def _attention(x: torch.Tensor, p: Params, cfg: ViTConfig) -> torch.Tensor:
-    """SelfAttention with LinearGeneral-layout weights, plain ops: q/k/v in
-    [B,H,S,Hd], fp32 sums and biases, cast to the compute dtype."""
+    """SelfAttention with LinearGeneral-layout weights: plain projections
+    (q/k/v in [B,H,S,Hd], fp32 sums and biases, cast to the compute dtype)
+    around the attention core, K13 with the kernels on (their [B,S,H,Hd]
+    memory goes to the kernel as it is)."""
     dt = x.dtype
 
     def proj(name):

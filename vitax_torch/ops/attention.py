@@ -1,9 +1,12 @@
 """Multi-head self attention core (counterpart of vitax/ops/attention.py).
 
 scores = q·kᵀ / sqrt(head_dim), softmax in float32, probabilities cast to the
-value dtype before ·v. The standalone attention kernel vitax reaches here
-(`flash_attention_bhsd`) has no Hopper port yet: the serving path runs the
-attention core inside the fused K1 kernel instead.
+value dtype before ·v. With kernels on (`use_kernels`, None: on the card) and
+inside vitax's gate (`cuda_kernels.attention_supported`: S <= 1024, Hd <= 128,
+Hd % 8 == 0) both layouts run K13, the standalone attention core
+(`cuda_kernels.flash_attention{,_bhsd}`: its twin on CPU tensors, the kernel
+on CUDA bf16 ones; CUDA fp32 raises); outside the gate `mha_ref`, as vitax
+falls back to XLA.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from vitax_torch.ops import cuda_kernels as ck
 from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.common import use_kernels as _use_kernels
 
@@ -33,11 +37,8 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          use_kernels: Optional[bool] = None) -> torch.Tensor:
     """[B,S,H,Hd]³ → [B,S,H,Hd] (vitax's multi_head_attention)."""
-    if _use_kernels(use_kernels, q) and q.is_cuda:
-        raise NotImplementedError(
-            "flash_attention has no Hopper kernel yet (ROADMAP Queue 2, K13); "
-            "run with the fused attention kernel (fused_qkv) or with "
-            "use_pallas=False / --no-pallas")
+    if _use_kernels(use_kernels, q) and ck.attention_supported(q, k, v):
+        return ck.flash_attention(q, k, v)
     return mha_ref(q, k, v)
 
 
@@ -55,9 +56,10 @@ def multi_head_attention_bhsd(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               use_kernels: Optional[bool] = None
                               ) -> torch.Tensor:
-    if _use_kernels(use_kernels, q) and q.is_cuda:
-        raise NotImplementedError(
-            "flash_attention_bhsd has no Hopper kernel yet (ROADMAP Queue 2, "
-            "K13); run with the fused attention kernel (fused_qkv) or with "
-            "use_pallas=False / --no-pallas")
+    """[B,H,S,Hd]³ → [B,H,S,Hd] (vitax's multi_head_attention_bhsd: its gate
+    on q's shape alone)."""
+    probe = q.transpose(1, 2)
+    if _use_kernels(use_kernels, q) and ck.attention_supported(probe, probe,
+                                                               probe):
+        return ck.flash_attention_bhsd(q, k, v)
     return mha_ref_bhsd(q, k, v)

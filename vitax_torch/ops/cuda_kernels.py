@@ -52,6 +52,15 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
 - `fused_ln_mlp_bwd_wide` -> ln_mlp_bwd.cu at d > 1024 ->
   `_ln_mlp_bwd_chunked_kernel` :1527 (pallas_call at :1610);
   `fused_ln_mlp_bwd` routes to it there, as vitax's `_ln_mlp_2d_bwd`
+- `flash_attention_bhsd`, `flash_attention` -> attention_core.cu ->
+  `_attn_fwd_kernel` :83 (K13, the standalone attention core; both layouts
+  count as `flash_attention`)
+- `flash_attention_bwd` -> attention_core_bwd.cu -> `_attn_bwd_kernel` :112
+  (K13 backward)
+- `fused_ln_qkvo_attention_int8_gqa`, `..._int8_gqa_bwd`,
+  `..._int8_gqa_dw_bwd` -> the two int8 sources above with kv_heads <
+  heads -> the `kv_heads` branches of :2690 and :2977 (K7's int8 tier);
+  the K3 wrappers route to them with `kv_heads=`
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -62,9 +71,10 @@ whose backward is the matching `*_bwd` wrapper: the int8 one under
 `int8_grad` (its `int8_dw` variant under `int8_dw`), else the bf16 one (K7's
 with GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
 backward is the two int8 backwards; K8's is `FusedLnQkvoAttentionRectFn`,
-whose backward is one of K8's three; K6's is `FusedLnQkvoAttentionFlashFn`.
-As vitax's custom VJPs, each Function saves only its inputs and recomputes
-the rest in the backward; its grads
+whose backward is one of K8's three; K6's is `FusedLnQkvoAttentionFlashFn`;
+K13's `FlashAttentionFn`. As vitax's custom VJPs, each Function saves only
+its inputs (K13's also its output, as vitax's) and recomputes the rest in
+the backward; its grads
 come back in the dtypes of the Pallas VJPs (weight grads in the weight's
 dtype, LN and bias grads in fp32).
 
@@ -868,7 +878,7 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
     (pallas_kernels.py:3209-3300): `int8` picks the W8A8 forward (K3) and
     `int8_grad` the W8A8 backward (K3 bwd, :3246-3299), with `int8_dw` its
     per-group int8 weight grads; otherwise the backward is the bf16 one (K1
-    bwd, :3300; with kv_heads < heads its GQA branch, K7's backward)."""
+    bwd, :3300). kv_heads < heads takes the GQA branch of each (K7)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
@@ -881,7 +891,7 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
         if int8:
             return fused_ln_qkvo_attention_int8(x, gamma, beta, wqkv, bqkv, wo,
                                                 bo, eps, seq_len, heads,
-                                                head_dim)
+                                                head_dim, kv_heads=kv_heads)
         return fused_ln_qkvo_attention(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
                                        seq_len, heads, head_dim, kv_heads)
 
@@ -889,9 +899,10 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
         int8_grad, int8_dw = ctx.tier
-        args = (x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
+        args = (x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta,
+                ctx.kv_heads)
         if not int8_grad:
-            grads = fused_ln_qkvo_attention_bwd(*args, ctx.kv_heads)
+            grads = fused_ln_qkvo_attention_bwd(*args)
         elif int8_dw:
             grads = fused_ln_qkvo_attention_int8_dw_bwd(*args)
         else:
@@ -1163,6 +1174,171 @@ class FusedLnQkvoAttentionFlashFn(torch.autograd.Function):
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw.to(wqkv.dtype),
                 db.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(ctx.bo_dtype),
                 None, None, None, None)
+
+
+# =============================================================================
+# K13 — the standalone attention core (flash_attention_bhsd :228 and
+# flash_attention :248): what vitax's multi_head_attention{,_bhsd} run
+# wherever a fused attention half is off (--no-fused-qkv)
+# =============================================================================
+
+def attention_supported(q, k, v) -> bool:
+    """vitax's gate of K13 (pallas_kernels.py:58-64), the same answer on
+    every shape: q, k, v [B, S, H, Hd] of one shape, S <= 1024, Hd <= 128,
+    Hd % 8 == 0. The kernel (csrc/attention_core.cu) takes all of them; on
+    the card it takes bf16 only (`check_k13_dtype`)."""
+    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
+        return False
+    _, s, _, hd = q.shape
+    return s <= 1024 and hd <= 128 and hd % 8 == 0
+
+
+def check_k13_dtype(name: str, dtype: torch.dtype) -> None:
+    """K13's kernels are bf16 only. vitax's gate takes any dtype, so an fp32
+    model on the card reaches K13 (and K1 and K2) in fp32, which is a later
+    slice of the port; raise rather than run another function."""
+    if dtype != _BF:
+        raise NotImplementedError(
+            f"{name}: {dtype} on the card: K13's kernels take bf16 only; "
+            'fp32 tiers of K13, K1 and K2 are ROADMAP Queue 1 item 9, "fp32 '
+            'models on the card". Run the model in bf16, or with '
+            "use_pallas=False / --no-pallas")
+
+
+def flash_attention_bhsd_ref(q, k, v):
+    """K13's twin, at the TPU kernel's rounding points (_attn_fwd_kernel,
+    pallas_kernels.py:83-109): s = fp32(q·kᵀ)·scale, p = _softmax_rows(s)
+    (e·(1/Σe), normalised in fp32), out = (bf16(p)·v in fp32) cast to q's
+    dtype. q, k, v [B, H, S, Hd]; vitax's pad rows and masked pad keys add
+    nothing, so there are none here."""
+    _, o32 = _softmax_pv(q, k, v, k.shape[-2])
+    return o32.to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, do):
+    """(dq, dk, dv) [B, H, S, Hd] of K13 at the TPU kernel's rounding points
+    (_attn_bwd_kernel, pallas_kernels.py:112-165), from the saved (q, k, v,
+    out): p recomputed as the forward's, dd = Σ fp32(dO)·fp32(out),
+    ds = (p (dO vᵀ − dd)) in q's dtype, dq = (ds k)·scale, dk = (dsᵀ q)·scale,
+    dv = bf16(p)ᵀ dO, each cast once."""
+    b, h, s, hd = q.shape
+    p, _ = _softmax_pv(q, k, v, s)
+    return _core_grads(q, k, v, p, out,
+                       do.transpose(1, 2).reshape(b * s, h * hd),
+                       1.0 / math.sqrt(hd))
+
+
+def _core_rows(tb, head_major, pad):
+    """tb [B, H, S, Hd] as the kernel's contiguous rows [images, S, heads,
+    Hd + pad]: memory [B, H, S, Hd] (images B·H, one head) if head_major,
+    else [B, S, H, Hd]; zero columns past Hd. A copy only where tb is laid
+    out otherwise, the head dim is padded, or the data is not 16-byte
+    aligned."""
+    t = (tb if head_major else tb.transpose(1, 2)).contiguous()
+    if pad:
+        return torch.nn.functional.pad(t, (0, pad))
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _from_rows(t, head_major, hd):
+    """The kernel's rows → the [B, H, S, Hd] view of their first hd columns."""
+    tb = t if head_major else t.transpose(1, 2)
+    return tb if tb.shape[-1] == hd else tb[..., :hd]
+
+
+def _k13_cuda(name, tensors, n_out):
+    """Launches K13's forward (tensors q, k, v) or backward (q, k, v, out,
+    dO), all [B, H, S, Hd] views. The kernel reads vitax's [B, H, S, Hd]
+    memory and the [B, S, H, Hd] memory that the projection einsums give as
+    they are; q's decides, the others are brought to it. Returns n_out
+    tensors [B, H, S, Hd]."""
+    for key, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {key} is on {t.device}, not CUDA")
+        check_k13_dtype(name, t.dtype)
+    q = tensors["q"]
+    if q.shape != tensors["k"].shape or not attention_supported(
+            *(tensors[key].transpose(1, 2) for key in ("q", "k", "v"))):
+        raise ValueError(f"{name}: unsupported shapes " + ", ".join(
+            f"{key} {tuple(t.shape)}" for key, t in tensors.items()))
+    for key, t in tensors.items():
+        _check_shape(name, key, t, tuple(q.shape))
+    b, h, s, hd = q.shape
+    head_major = q.is_contiguous() or not q.transpose(1, 2).is_contiguous()
+    pad = -hd % 16
+    rows = {key: _core_rows(t, head_major, pad) for key, t in tensors.items()}
+    dev = _check_cuda(name, rows, dict.fromkeys(rows, _BF))
+    outs = [torch.empty_like(rows["q"]) for _ in range(n_out)]
+    images, heads = (b * h, 1) if head_major else (b, h)
+    lib = build.load()
+    args = [t.data_ptr() for t in (*rows.values(), *outs)]
+    if n_out == 1:
+        rc = lib.vitax_attention_core_fwd(*args, images, s, heads, hd + pad,
+                                          1.0 / math.sqrt(hd), _stream(dev))
+    else:
+        L = (s + 15) // 16 * 16
+        p, ds = _bf(dev, images, heads, L, L), _bf(dev, images, heads, L, L)
+        rc = lib.vitax_attention_core_bwd(*args, p.data_ptr(), ds.data_ptr(),
+                                          images, s, heads, hd + pad,
+                                          1.0 / math.sqrt(hd), _stream(dev))
+    build.check(rc, name)
+    return [_from_rows(t, head_major, hd) for t in outs]
+
+
+def flash_attention_bhsd(q, k, v):
+    """K13 forward (csrc/attention_core.cu): [B, H, S, Hd]³ → [B, H, S, Hd],
+    softmax(q·kᵀ/√Hd)·v with an fp32 softmax. CPU tensors take the twin;
+    CUDA bf16 tensors inside `attention_supported` the kernel; CUDA fp32
+    raises (`check_k13_dtype`). Under autograd the backward is
+    `flash_attention_bwd` (`FlashAttentionFn`). Launches count as
+    `flash_attention`'s."""
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v)
+    if not q.is_cuda:
+        return flash_attention_bhsd_ref(q, k, v)
+    out, = _k13_cuda("flash_attention_bhsd", {"q": q, "k": k, "v": v}, 1)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v):
+    """K13 on [B, S, H, Hd]³ → [B, S, H, Hd]: `flash_attention_bhsd` on the
+    transposed views (the kernel takes their memory as it is, no copy)."""
+    return flash_attention_bhsd(
+        *(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, do):
+    """K13 backward (csrc/attention_core_bwd.cu): (dq, dk, dv) [B, H, S,
+    Hd] of `flash_attention_bhsd` from the saved (q, k, v, out) and dO, all
+    [B, H, S, Hd]; the grads in q's memory layout."""
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, out, do)
+    grads = _k13_cuda("flash_attention_bwd",
+                      {"q": q, "k": k, "v": v, "out": out, "do": do}, 3)
+    flash_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K13 with its backward kernel, saving (q, k, v, out) as vitax's
+    custom VJP (pallas_kernels.py:215-225)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out = flash_attention_bhsd(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_bwd(*ctx.saved_tensors, do)
 
 
 # =============================================================================
@@ -1475,13 +1651,14 @@ fused_ln_mlp_int8_dw_bwd.launches = 0
 
 
 def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
-                                     seq_len, heads, head_dim, *,
-                                     scratch=None):
+                                     seq_len, heads, head_dim, kv_heads=None,
+                                     *, scratch=None):
     """K3 forward with the TPU kernel's rounding points
     (_ln_qkvo_fwd_int8_kernel, pallas_kernels.py:2699-2742): xq from the
     fp32 LN output, qkv = bf16(f32(xq·Wq)·sx·sw + b), the bf16 core with
     fp32 softmax, attn the fp32 heads' p·v (never rounded) quantized per
-    row, out = bf16(f32(aq·Woq)·sa·swo + bo), no residual."""
+    row, out = bf16(f32(aq·Woq)·sa·swo + bo), no residual. kv_heads <
+    heads: the packed GQA layout (_kv_off :2803; K7's int8 tier)."""
     dt = x.dtype
     b, spq, d = x.shape
     w8, sw = quant_cols_host(wqkv)
@@ -1489,7 +1666,8 @@ def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
     xhat, _ = _ln_stats(x.reshape(-1, d).float(), eps)
     xq, sx = quant_rows(_affine(xhat, gamma, beta))
     qkv = _dequant(int_mm(xq, w8), sx, sw, bqkv).to(dt)
-    *_, o32 = _attn_core(qkv.view(b, spq, -1), seq_len, heads, head_dim)
+    *_, o32 = _attn_core(qkv.view(b, spq, -1), seq_len, heads, head_dim,
+                         kv_heads)
     aq, sa = quant_rows(_heads_to_rows(o32))
     y = _dequant(int_mm(aq, wo8), sa, swo, bo)
     _keep(scratch, w8=(w8, sw), wo8=(wo8, swo), xq=(xq, sx), aq=(aq, sa))
@@ -1498,12 +1676,18 @@ def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
 
 def fused_ln_qkvo_attention_int8(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
                                  seq_len, heads, head_dim, int8_grad=False,
-                                 int8_dw=False, *, scratch=None):
+                                 int8_dw=False, kv_heads=None, *,
+                                 scratch=None):
     """`fused_ln_qkvo_attention` with W8A8 QKV and out-projections (K3); the
     attention core stays bf16 with fp32 softmax. Under autograd the
     backward is K3's int8 backward with `int8_grad` (with its int8 weight
-    grads under `int8_dw`), else the bf16 K1 backward. `scratch`: as
+    grads under `int8_dw`), else the bf16 K1 backward. kv_heads < heads:
+    `fused_ln_qkvo_attention_int8_gqa` (K7's int8 tier). `scratch`: as
     `fused_ln_mlp_int8`'s."""
+    if _gqa(heads, kv_heads):
+        return fused_ln_qkvo_attention_int8_gqa(
+            x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads, head_dim,
+            kv_heads, int8_grad, int8_dw, scratch=scratch)
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
                                             eps, seq_len, heads, head_dim,
@@ -1512,44 +1696,91 @@ def fused_ln_qkvo_attention_int8(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
         return fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo,
                                                 bo, eps, seq_len, heads,
                                                 head_dim, scratch=scratch)
-    dev = _check_cuda(
-        "fused_ln_qkvo_attention_int8",
-        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
-         "wo": wo, "bo": bo},
-        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
-         "wo": _BF, "bo": _F32})
-    b, spq, d = x.shape
-    hhd = heads * head_dim
-    _check_qkvo("fused_ln_qkvo_attention_int8", x, gamma, beta, wqkv, bqkv, wo,
-                seq_len, heads, head_dim, qkv_attention_supported)
-    _check_shape("fused_ln_qkvo_attention_int8", "bo", bo, (d,))
-    n = b * spq
-    w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
-    wo8t, swo = _i8(dev, d, hhd), _f32(dev, d)
-    xq, aq = _i8(dev, n, d), _i8(dev, n, hhd)
-    sx, sa = _f32(dev, n), _f32(dev, n)
-    qkv, attn = _bf(dev, n, 3 * hhd), _f32(dev, n, hhd)
-    out = torch.empty_like(x)
-    ptrs = (t.data_ptr() for t in (x, gamma, beta, wqkv, bqkv, wo, bo, w8t,
-                                   sw, wo8t, swo, xq, sx, qkv, attn, aq, sa,
-                                   out))
-    rc = build.load().vitax_ln_qkvo_attention_int8_fwd(
-        *ptrs, b, spq, d, seq_len, heads, head_dim, eps,
-        1.0 / math.sqrt(head_dim), _stream(dev))
-    build.check(rc, "fused_ln_qkvo_attention_int8")
+    out = _ln_qkvo_int8_cuda("fused_ln_qkvo_attention_int8", x, gamma, beta,
+                             wqkv, bqkv, wo, bo, eps, seq_len, heads,
+                             head_dim, heads, scratch)
     fused_ln_qkvo_attention_int8.launches += 1
-    _keep(scratch, w8=(w8t.t(), sw), wo8=(wo8t.t(), swo), xq=(xq, sx),
-          aq=(aq, sa))
     return out
 
 
 fused_ln_qkvo_attention_int8.launches = 0
 
 
+def fused_ln_qkvo_attention_int8_gqa(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                     seq_len, heads, head_dim, kv_heads,
+                                     int8_grad=False, int8_dw=False, *,
+                                     scratch=None):
+    """K7's int8 tier: `fused_ln_qkvo_attention_int8` with kv_heads < heads
+    on the packed [q (H·Hd) | k (Hkv·Hd) | v (Hkv·Hd)] layout (the kv_heads
+    branch of _ln_qkvo_fwd_int8_kernel :2690). Under autograd its backward
+    is `fused_ln_qkvo_attention_int8_gqa_bwd` (`_dw_bwd` under int8_dw)
+    with `int8_grad`, else K7's bf16 backward."""
+    if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
+        return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                            eps, seq_len, heads, head_dim,
+                                            True, int8_grad, int8_dw, kv_heads)
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int8_gqa_ref(
+            x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
+    out = _ln_qkvo_int8_cuda("fused_ln_qkvo_attention_int8_gqa", x, gamma,
+                             beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
+                             head_dim, kv_heads, scratch)
+    fused_ln_qkvo_attention_int8_gqa.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int8_gqa.launches = 0
+
+
+def fused_ln_qkvo_attention_int8_gqa_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                         eps, seq_len, heads, head_dim,
+                                         kv_heads, *, scratch=None):
+    """The twin of `fused_ln_qkvo_attention_int8_gqa`: K3's twin on the
+    packed GQA layout."""
+    return fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                            bo, eps, seq_len, heads,
+                                            head_dim, kv_heads,
+                                            scratch=scratch)
+
+
+def _ln_qkvo_int8_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
+                       heads, head_dim, kv_heads, scratch):
+    """K3's forward launch (K7's int8 tier with kv_heads < heads)."""
+    dev = _check_cuda(
+        name,
+        {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
+         "wo": wo, "bo": bo},
+        {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
+         "wo": _BF, "bo": _F32})
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
+                head_dim, qkv_attention_supported, kv_heads)
+    _check_shape(name, "bo", bo, (d,))
+    n, width = b * spq, wqkv.shape[1]
+    w8t, sw = _i8(dev, width, d), _f32(dev, width)
+    wo8t, swo = _i8(dev, d, hhd), _f32(dev, d)
+    xq, aq = _i8(dev, n, d), _i8(dev, n, hhd)
+    sx, sa = _f32(dev, n), _f32(dev, n)
+    qkv, attn = _bf(dev, n, width), _f32(dev, n, hhd)
+    out = torch.empty_like(x)
+    ptrs = (t.data_ptr() for t in (x, gamma, beta, wqkv, bqkv, wo, bo, w8t,
+                                   sw, wo8t, swo, xq, sx, qkv, attn, aq, sa,
+                                   out))
+    rc = build.load().vitax_ln_qkvo_attention_int8_fwd(
+        *ptrs, b, spq, d, seq_len, heads, kv_heads, head_dim, eps,
+        1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    _keep(scratch, w8=(w8t.t(), sw), wo8=(wo8t.t(), swo), xq=(xq, sx),
+          aq=(aq, sa))
+    return out
+
+
 def fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
-                                         eps, seq_len, heads, head_dim, *,
-                                         int8_dw=False, group=None,
-                                         scratch=None):
+                                         eps, seq_len, heads, head_dim,
+                                         kv_heads=None, *, int8_dw=False,
+                                         group=None, scratch=None):
     """(dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) of K3 under int8_grad with the
     TPU kernel's rounding points (_ln_qkvo_bwd_int8_kernel, pallas_kernels.py:
     3003-3088): the int8 qkv recompute from the fp32 LN output, the core
@@ -1557,7 +1788,8 @@ def fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
     core grads, dxn = f32(dqq·W_rᵀ)·sdq·swr. dW, dWo: bf16 products, or with
     `int8_dw` the per-group int8 products over `group` rows (by default
     whole images, `qkvo_dw_group`): dWo from attn·sdo and doq, dW from the
-    fp32 xn·sdq and dqq."""
+    fp32 xn·sdq and dqq. kv_heads < heads: the packed GQA layout, dK and dV
+    of a kv group summed over its query heads in fp32 (K7's int8 tier)."""
     dt = x.dtype
     b, spq, d = x.shape
     x2 = x.reshape(-1, d)
@@ -1571,11 +1803,12 @@ def fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
     xq, sx = quant_rows(xn32)
     qkv = _dequant(int_mm(xq, w8), sx, sw, bqkv).to(dt)
     q, k, v, p, o32 = _attn_core(qkv.view(b, spq, -1), seq_len, heads,
-                                 head_dim)
+                                 head_dim, kv_heads)
     o = o32.to(dt)
     doq, sdo = quant_rows(do2.float())
     dattn = _dequant(int_mm(doq, wo8r.t()), sdo, swor).to(dt)
-    dqkv = _attn_core_grads(q, k, v, p, o, dattn, 1.0 / math.sqrt(head_dim))
+    dqkv = _attn_core_grads(q, k, v, p, o, dattn, 1.0 / math.sqrt(head_dim),
+                            kv_heads)
     dqq, sdq = quant_rows(dqkv.float())
     dxn = _dequant(int_mm(dqq, w8r.t()), sdq, swr)
     if int8_dw:
@@ -1594,17 +1827,20 @@ def fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
 
 
 def fused_ln_qkvo_attention_int8_dw_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
-                                            eps, seq_len, heads, head_dim, *,
-                                            scratch=None):
+                                            eps, seq_len, heads, head_dim,
+                                            kv_heads=None, *, scratch=None):
     """The twin of `fused_ln_qkvo_attention_int8_dw_bwd`: int8_dw at the
     port's group (`qkvo_dw_group`)."""
     return fused_ln_qkvo_attention_int8_bwd_ref(
         x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
-        int8_dw=True, group=qkvo_dw_group(*x.shape[:2]), scratch=scratch)
+        kv_heads, int8_dw=True, group=qkvo_dw_group(*x.shape[:2]),
+        scratch=scratch)
 
 
 def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
-                           seq_len, heads, head_dim, int8_dw, scratch):
+                           seq_len, heads, head_dim, kv_heads, int8_dw,
+                           scratch):
+    """K3's backward launch (K7's int8 tier with kv_heads < heads)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
@@ -1612,41 +1848,40 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
         {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
          "wo": _BF, "do": _BF})
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, qkv_attention_bwd_supported)
+                head_dim, qkv_attention_bwd_supported, kv_heads)
     _check_shape(name, "do", do, tuple(x.shape))
     b, spq, d = x.shape
     hhd = heads * head_dim
-    n = b * spq
+    n, width = b * spq, wqkv.shape[1]
     rows = (spq + 15) // 16 * 16
     lib = build.load()
-    w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
-    w8r, swr = _i8(dev, d, 3 * hhd), _f32(dev, d)
+    w8t, sw = _i8(dev, width, d), _f32(dev, width)
+    w8r, swr = _i8(dev, d, width), _f32(dev, d)
     wo8r, swor = _i8(dev, hhd, d), _f32(dev, hhd)
     dx, dg, dbe = torch.empty_like(x), _f32(dev, d), _f32(dev, d)
-    dw, db = _f32(dev, d, 3 * hhd), _f32(dev, 3 * hhd)
+    dw, db = _f32(dev, d, width), _f32(dev, width)
     dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
     # xn: bf16 for the bf16 weight grads, fp32 (xn32) under int8_dw
     xn = (_f32 if int8_dw else _bf)(dev, n, d)
-    qkv, attn, dattn = (_bf(dev, n, 3 * hhd), _bf(dev, n, hhd),
+    qkv, attn, dattn = (_bf(dev, n, width), _bf(dev, n, hhd),
                         _bf(dev, n, hhd))
     p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
-    dqkv, dxn = _bf(dev, n, 3 * hhd), _f32(dev, n, d)
-    xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, 3 * hhd)
+    dqkv, dxn = _bf(dev, n, width), _f32(dev, n, d)
+    xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, width)
     sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
-    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, 3 * hhd),
-                    dev)
+    ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, width), dev)
     group = qkvo_dw_group(b, spq)
     dwt = [None] * 6
     if int8_dw:
         groups, kp = _dw_layout(n, group)
         dwt = [_i8(dev, hhd, kp), _f32(dev, groups, hhd), _i8(dev, d, kp),
-               _i8(dev, d, kp), _f32(dev, groups, d), _i8(dev, 3 * hhd, kp)]
+               _i8(dev, d, kp), _f32(dev, groups, d), _i8(dev, width, kp)]
     rc = lib.vitax_ln_qkvo_attention_int8_bwd(*(t.data_ptr() for t in (
         x, gamma, beta, bqkv, wqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, w8t,
         sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p,
         ds, dqkv, dqq, sdq, dxn, ws)),
         *(None if t is None else t.data_ptr() for t in dwt), b, spq, d,
-        seq_len, heads, head_dim, group, int(int8_dw), eps,
+        seq_len, heads, kv_heads, head_dim, group, int(int8_dw), eps,
         1.0 / math.sqrt(head_dim), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w8=(w8t.t(), sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
@@ -1658,11 +1893,16 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
 
 
 def fused_ln_qkvo_attention_int8_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
-                                     seq_len, heads, head_dim, *,
-                                     scratch=None):
+                                     seq_len, heads, head_dim, kv_heads=None,
+                                     *, scratch=None):
     """Backward of `fused_ln_qkvo_attention_int8` under int8_grad: dx
-    [B, spq, D] bf16 and fp32 dγ, dβ [D], dWqkv [D, 3·H·Hd], dbqkv
-    [3·H·Hd], dWo [H·Hd, D], dbo [D]."""
+    [B, spq, D] bf16 and fp32 dγ, dβ [D], dWqkv [D, W], dbqkv [W], dWo
+    [H·Hd, D], dbo [D], W = (H + 2·Hkv)·Hd. kv_heads < heads:
+    `fused_ln_qkvo_attention_int8_gqa_bwd`."""
+    if _gqa(heads, kv_heads):
+        return fused_ln_qkvo_attention_int8_gqa_bwd(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv,
                                                     wo, do, eps, seq_len,
@@ -1670,7 +1910,7 @@ def fused_ln_qkvo_attention_int8_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
                                                     scratch=scratch)
     out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int8_bwd", x, gamma,
                                  beta, wqkv, bqkv, wo, do, eps, seq_len,
-                                 heads, head_dim, False, scratch)
+                                 heads, head_dim, heads, False, scratch)
     fused_ln_qkvo_attention_int8_bwd.launches += 1
     return out
 
@@ -1678,26 +1918,90 @@ def fused_ln_qkvo_attention_int8_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
 fused_ln_qkvo_attention_int8_bwd.launches = 0
 
 
+def fused_ln_qkvo_attention_int8_gqa_bwd(x, gamma, beta, wqkv, bqkv, wo, do,
+                                         eps, seq_len, heads, head_dim,
+                                         kv_heads, *, scratch=None):
+    """K7's int8 tier backward under int8_grad: the kv_heads branch of
+    _ln_qkvo_bwd_int8_kernel (:2977), the outputs of
+    `fused_ln_qkvo_attention_int8_bwd` on the packed GQA layout."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int8_gqa_bwd_ref(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
+    out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int8_gqa_bwd", x,
+                                 gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                                 heads, head_dim, kv_heads, False, scratch)
+    fused_ln_qkvo_attention_int8_gqa_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int8_gqa_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_int8_gqa_bwd_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                             do, eps, seq_len, heads,
+                                             head_dim, kv_heads, *,
+                                             scratch=None):
+    """The twin of `fused_ln_qkvo_attention_int8_gqa_bwd`."""
+    return fused_ln_qkvo_attention_int8_bwd_ref(
+        x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+        kv_heads, scratch=scratch)
+
+
 def fused_ln_qkvo_attention_int8_dw_bwd(x, gamma, beta, wqkv, bqkv, wo, do,
-                                        eps, seq_len, heads, head_dim, *,
-                                        scratch=None):
+                                        eps, seq_len, heads, head_dim,
+                                        kv_heads=None, *, scratch=None):
     """`fused_ln_qkvo_attention_int8_bwd` under int8_dw: dWqkv and dWo are
     per-group int8 products with row-scale folding, over groups of whole
     images (`qkvo_dw_group`: tile·spq rows), int32 inside a group and fp32
     across groups in order. `scratch` also receives the column codes, atc
-    and xnc, as [rows, width] with one scale a column a group."""
+    and xnc, as [rows, width] with one scale a column a group. kv_heads <
+    heads: `fused_ln_qkvo_attention_int8_gqa_dw_bwd`."""
+    if _gqa(heads, kv_heads):
+        return fused_ln_qkvo_attention_int8_gqa_dw_bwd(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_int8_dw_bwd_ref(
             x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
             scratch=scratch)
     out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int8_dw_bwd", x,
                                  gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
-                                 heads, head_dim, True, scratch)
+                                 heads, head_dim, heads, True, scratch)
     fused_ln_qkvo_attention_int8_dw_bwd.launches += 1
     return out
 
 
 fused_ln_qkvo_attention_int8_dw_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_int8_gqa_dw_bwd(x, gamma, beta, wqkv, bqkv, wo,
+                                            do, eps, seq_len, heads, head_dim,
+                                            kv_heads, *, scratch=None):
+    """K7's int8 tier backward under int8_dw (the kv_heads branch of
+    :2977 with its int8_dw branches :3041-3049, :3077-3084)."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int8_gqa_dw_bwd_ref(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
+    out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int8_gqa_dw_bwd", x,
+                                 gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                                 heads, head_dim, kv_heads, True, scratch)
+    fused_ln_qkvo_attention_int8_gqa_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int8_gqa_dw_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_int8_gqa_dw_bwd_ref(x, gamma, beta, wqkv, bqkv,
+                                                wo, do, eps, seq_len, heads,
+                                                head_dim, kv_heads, *,
+                                                scratch=None):
+    """The twin of `fused_ln_qkvo_attention_int8_gqa_dw_bwd`."""
+    return fused_ln_qkvo_attention_int8_dw_bwd_ref(
+        x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+        kv_heads, scratch=scratch)
 
 
 # =============================================================================
@@ -2447,4 +2751,8 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_rect_int8_bwd,
            fused_ln_qkvo_attention_rect_int8_dw_bwd,
            fused_ln_qkvo_attention_gqa_bwd, fused_ln_qkvo_attention_flash,
-           fused_ln_qkvo_attention_flash_bwd, fused_ln_mlp_bwd_wide)
+           fused_ln_qkvo_attention_flash_bwd, fused_ln_mlp_bwd_wide,
+           flash_attention, flash_attention_bwd,
+           fused_ln_qkvo_attention_int8_gqa,
+           fused_ln_qkvo_attention_int8_gqa_bwd,
+           fused_ln_qkvo_attention_int8_gqa_dw_bwd)

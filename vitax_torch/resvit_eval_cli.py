@@ -7,10 +7,13 @@ the val split with argmax routing and reports top-1/top-5, the loss, the
 active ratio and the router entropy, means over the real samples of a padded
 final batch, and the img/s. With `--compact-capacity C` the routed layers
 run only ceil(C·N) tokens: on the card through the fused kernels (K1/K3 on
-the plain layer, K8 on the routed ones' query rows, K7 with GQA), or with
-`--legacy-compact` (or the fused kernels off) the reference-shaped
-`apply_compact`. It runs on the card unless the caller of `main` asks for
-the CPU (`device="cpu"`); `--no-pallas --no-fused-qkv` is the plain path.
+the plain layer, K8 on the routed ones' query rows, K7 with GQA, K7's int8
+tier with GQA and `--int8`), or with `--legacy-compact` (or the fused
+kernels off: `--no-fused-qkv`) the reference-shaped `apply_compact`, whose
+plain layers take K13, the standalone attention core, as the dense
+`--no-fused-qkv` model does in every layer. It runs on the card unless the
+caller of `main` asks for the CPU (`device="cpu"`); `--no-pallas
+--no-fused-qkv` is the plain path.
 
 Run: `python -m vitax_torch.resvit_eval_cli --dataset Synthetic \\
           --model-arch b16 --image-size 224 --batch-size 64 --use_lora True \\
@@ -131,10 +134,6 @@ def main(argv=None, device=None):
     gen = set_seed(config.seed)
     device = cli.resolve_device(device)
     cfg = config_to_model_args(config, device)
-    if config.int8 and (cfg.n_kv_heads or cfg.n_heads) != cfg.n_heads:
-        raise NotImplementedError(
-            "--int8 with n_kv_heads < n_heads: K3's GQA branch has no Hopper "
-            "kernel yet (ROADMAP Queue 2, K7's int8 tier)")
     params = resvit.init_params(gen, cfg, device)
 
     if config.checkpoint_path:

@@ -13,13 +13,15 @@ skip, weighted validation with routing-viz PNGs, current/best checkpoints of
 the port's store per epoch, and the reference's JSON diagnostics
 (model_structure.json, weight_mapping_log.json,
 trainable_weights_info.json). On the card the attention halves run K1 (K7
-with GQA, K3 with `--int8`), K8 on compacted rows, each with its backward
-kernel. It runs on the card unless the caller asks for the CPU
+with GQA, K3 with `--int8`, K7's int8 tier with both), K8 on compacted
+rows, each with its backward kernel; with `--no-fused-qkv` the LN kernel,
+plain projections and K13 (the standalone attention core) with its
+backward. It runs on the card unless the caller asks for the CPU
 (`main(argv, device="cpu")`).
 
 Not ported yet, each raising with its item: `--checkpoint-path` (the
 pretrained backbone, ROADMAP Queue 1 item 4), `--remat` (item 6), the int4
-flags (Queue 2, K11), `--int8` with `--n_kv_heads` (Queue 2, K7's int8 tier).
+flags (Queue 2, K11).
 
 Run: `python -m vitax_torch.resvit_train_cli --dataset Synthetic \\
           --model-arch b16 --image-size 224 --batch-size 32 --use_lora True \\
@@ -267,10 +269,6 @@ def main(argv=None, device=None):
     gen = set_seed(config.seed)
     device = cli.resolve_device(device)
     cfg = config_to_model_args(config, device)
-    if cfg.int8_attn and (cfg.n_kv_heads or cfg.n_heads) != cfg.n_heads:
-        raise NotImplementedError(
-            "--int8 with n_kv_heads < n_heads: K3's GQA branch has no Hopper "
-            "kernel yet (ROADMAP Queue 2, K7's int8 tier)")
     params = resvit.init_params(gen, cfg, device)
 
     # JSON diagnostics (res-vit/utils.py:182-205,440-441,445-485)

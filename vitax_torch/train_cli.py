@@ -10,8 +10,13 @@ fused kernels are on by default, forward and backward (`--no-fused-qkv`,
 `--no-fused-mlp` and `--no-pallas` turn them off); `--int8` runs their W8A8
 forward with the bf16 backward, `--int8-grad` the W8A8 backward too, and
 `--int8-dw` its int8 weight grads; with `--int8-grad` the token-drop phase
-(spq <= 128) hands each block's packed input over (K5). It runs on the card
-unless the caller of `main` asks for the CPU (`device="cpu"`).
+(spq <= 128) hands each block's packed input over (K5). `--no-fused-qkv`
+runs the attention half as the LN kernel, plain projections and K13 (the
+standalone attention core), forward and backward. With a fused half off
+vitax's automatic remat picks "selective" (vitax/train_cli.py:144); the
+port has no remat (ROADMAP Queue 1 item 6) and runs without it, the same
+function with more memory. It runs on the card unless the caller of `main`
+asks for the CPU (`device="cpu"`).
 
 vitax's fastest recipe (scripts/FT_CIFAR100_fast.sh) runs as it is:
 `... --int8-dw --token-keep 0.5 --token-keep-schedule 0.9 --batch-size 768
