@@ -129,6 +129,27 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              with the routing replayed, grads with the noise and routing
              replayed, against the plain path or the int8 twin path), and
              device-timed forwards and steps.
+12. save-acts — `--save-acts` (K12, the save pair of the MLP half): its
+             bf16 and int8 kernels (the int8 backward with int8_dw off and
+             on) against their twins on every output at train_cli's b32 spq
+             200 and b8 on ragged rows (8 x 197), the int8 pair also at the
+             drop phase's b32 spq 104 and by its codes, INT8_REL and the
+             bf16 stand-in as phase 3 holds K4; each save forward's out the
+             same bits as K2's or K4's; CUDA-event times beside K2's and
+             K4's forwards and backwards; `train_cli --save-acts`,
+             `--int8-grad --save-acts` and the fast recipe's flags with
+             `--save-acts` at b32 (exact launches per epoch: the save pair in
+             every step, K2's or K4's forward in the eval batches, no K5);
+             full-width grads of the three tiers' save paths against the
+             plain path and the int8 twin path; resident ViT-B/16 b32 steps
+             with and without `--save-acts` (bf16, `--int8-grad`,
+             `--int8-dw`, in turns); `resvit_train_cli` with ft_resvit.sh's
+             flags `--fused-mlp --save-acts`, (h) `--int8-grad --n_kv_heads 4
+             --save-acts` and ft_resvit_fast.sh's flags with `--save-acts`
+             at b32 (exact launches per step and eval batch: the student's
+             MLP halves through K12, the teacher's through K2 or K4); the
+             Res-ViT b32 steps (a) and (h) with and without it, and their
+             grads against the plain and int8 twin paths.
 
 Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
 backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
@@ -270,7 +291,23 @@ KERNEL_INFO = {
     "fused_ln_qkvo_attention_int8_gqa_dw_bwd": (
         "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
         "vitax/ops/pallas_kernels.py:3041"),
+    # --save-acts: K12, the save pair of the MLP half, bf16 and int8 (the
+    # int8 backward's int8_dw branch counted apart)
+    "fused_ln_mlp_save": ("vitax_torch/csrc/ln_mlp_save.cu",
+                          "vitax/ops/pallas_kernels.py:620"),
+    "fused_ln_mlp_bwd_fast": ("vitax_torch/csrc/ln_mlp_save.cu",
+                              "vitax/ops/pallas_kernels.py:1245"),
+    "fused_ln_mlp_int8_save": ("vitax_torch/csrc/ln_mlp_int8_save.cu",
+                               "vitax/ops/pallas_kernels.py:732"),
+    "fused_ln_mlp_int8_save_bwd": ("vitax_torch/csrc/ln_mlp_int8_save.cu",
+                                   "vitax/ops/pallas_kernels.py:778"),
+    "fused_ln_mlp_int8_save_dw_bwd": ("vitax_torch/csrc/ln_mlp_int8_save.cu",
+                                      "vitax/ops/pallas_kernels.py:816"),
 }
+SAVE_KERNELS = ("fused_ln_mlp_save", "fused_ln_mlp_bwd_fast",
+                "fused_ln_mlp_int8_save", "fused_ln_mlp_int8_save_bwd",
+                "fused_ln_mlp_int8_save_dw_bwd")
+SAVE_KERNELS_INT8 = SAVE_KERNELS[2:]
 K13_KERNELS = ("flash_attention", "flash_attention_bwd")
 INT8_GQA_KERNELS = ("fused_ln_qkvo_attention_int8_gqa",
                     "fused_ln_qkvo_attention_int8_gqa_bwd",
@@ -391,12 +428,16 @@ CODE_BAND = {"xq": (1, 1e-3), "h1q": (2, 1e-3), "dh1q": (2, 1e-3),
              "aq": (2, 5e-3), "dqq": (2, 5e-3), "doq": (0, 0.0),
              "h1c": (2, 1e-3), "xnc": (2, 1e-3), "atc": (2, 5e-3),
              "xq2": (2, 5e-3), "xqn": (1, 1e-3), "xqk": (1, 1e-3),
-             "dkvq": (2, 5e-3), "xnk": (2, 5e-3)}
+             "dkvq": (2, 5e-3), "xnk": (2, 5e-3), "gpq": (1, 1e-3),
+             "doc": (2, 1e-3)}
 # K8's int8 backward (card test, b32 spq 200 cpq 128): dkvq quantizes the
 # core's bf16 dK/dV rows as dqq the dq rows (7.1e-4 measured); xnk folds the
 # fp32 LN output of x's rows with those rows' scales sdkv, which move where a
 # row's largest dK/dV value flipped a bf16 bit, so its share follows dkvq's,
-# not xnc's (1.37e-3 measured)
+# not xnc's (1.37e-3 measured). K12-int8: gpq quantizes GELU'(a1) on a
+# static grid, so it moves only where a1 does (an xq code moved) or on a .5
+# tie; doc, the column codes of sh·do (sh the forward's row scales, do the
+# same bf16 input), like h1c
 
 
 def _expect(**launches):
@@ -671,7 +712,12 @@ def _check_int8(ck, name, label, args, outs, refs, stats):
     moves = _code_moves(sk, st)
     r_k = [_rel(o, r) for o, r in zip(outs, refs)]
     r_s = [_rel(o, r) for o, r in zip(stand, refs)]
-    reached = r_s[:-1] if name.endswith("_bwd") else r_s
+    # Σ do is reached by no quantizer, nor is the int8 save backward's bf16
+    # dW2 = bf16(h1q)ᵀ·bf16(sh·do): its codes come saved from the forward
+    skip = {len(r_s) - 1} if name.endswith("_bwd") else set()
+    if name == "fused_ln_mlp_int8_save_bwd":
+        skip.add(5)
+    reached = [r for i, r in enumerate(r_s) if i not in skip]
     # the stand-in against the bf16 tolerance alone: max error over bound
     tol_s = max((o.float() - r.float()).abs().max().item()
                 / (TOL * max(1.0, r.float().abs().max().item()))
@@ -1545,14 +1591,17 @@ def _int8_twins(ck):
     forward; int8, int8_dw or bf16 backward; K5's block)."""
     rect = ("fused_ln_qkvo_attention_rect_int8",) + RECT_BWD_KERNELS[1:]
     saved = {n: getattr(ck, n) for n in INT8_KERNELS + rect
-             + INT8_GQA_KERNELS}
+             + INT8_GQA_KERNELS + SAVE_KERNELS_INT8}
 
     def route(name, fn_cls, n_tensors, gqa=False):
         ref = getattr(ck, name + "_ref")
 
-        def fwd(*args, int8_grad=False, int8_dw=False, kv_heads=None):
+        def fwd(*args, int8_grad=False, int8_dw=False, kv_heads=None,
+                save_acts=False):
             tail = (kv_heads,) if gqa else ()
             if ck._needs_grad(*args[:n_tensors]):
+                if int8_grad and save_acts:  # K12-int8's Function
+                    return ck.FusedLnMlpSaveFn.apply(*args, True, int8_dw)
                 return fn_cls.apply(*args, True, int8_grad, int8_dw, *tail)
             return ref(*args, *tail)
         return fwd
@@ -1563,8 +1612,9 @@ def _int8_twins(ck):
     ck.fused_ln_mlp_int8 = route("fused_ln_mlp_int8", ck.FusedLnMlpFn, 7)
     ck.fused_ln_qkvo_attention_rect_int8 = route(
         "fused_ln_qkvo_attention_rect_int8", ck.FusedLnQkvoAttentionRectFn, 8)
-    # the backwards, K5's halves and K7's int8 tier
-    for name in INT8_KERNELS[2:] + RECT_BWD_KERNELS[1:] + INT8_GQA_KERNELS:
+    # the backwards, K5's halves, K7's int8 tier and K12-int8's pair
+    for name in (INT8_KERNELS[2:] + RECT_BWD_KERNELS[1:] + INT8_GQA_KERNELS
+                 + SAVE_KERNELS_INT8):
         setattr(ck, name, getattr(ck, name + "_ref"))
     try:
         yield
@@ -2102,8 +2152,10 @@ def _resvit_launches(cfg, train):
     roles: the plain layers and the block heads' routers, each routed
     layer's student (K8 on the compacted rows, else the square kernel) and,
     in training, its teacher (the square kernel, forward only); every MLP
-    half through K4 on the int8 tier, else the LN kernel; the routers' and
-    the final norm's LN."""
+    half through K4 on the int8 tier, K2 with --fused-mlp, else the LN
+    kernel, and under --save-acts the student's through K12 (the teacher
+    keeps no graph: K2's or K4's forward); the routers' and the final norm's
+    LN."""
     from collections import Counter
     from vitax_torch.models import resvit
     if cfg.use_pallas is False:
@@ -2128,15 +2180,26 @@ def _resvit_launches(cfg, train):
     rect_bwd = (f"{base}_rect_int8_dw_bwd" if grad8 and cfg.int8_dw
                 else f"{base}_rect_int8_bwd" if grad8 else f"{base}_rect_bwd")
     mlp8 = cfg.fused_mlp and cfg.int8_mlp
-    mlp_bwd = ("layer_norm_bwd" if not mlp8
-               else "fused_ln_mlp_int8_dw_bwd" if cfg.int8_mlp_grad
+    save = cfg.fused_mlp and cfg.fused_mlp_save and (
+        not mlp8 or cfg.int8_mlp_grad)
+    mlp_fwd = ("fused_ln_mlp_int8" if mlp8 else "fused_ln_mlp"
+               if cfg.fused_mlp else "layer_norm")
+    mlp_bwd = ("layer_norm_bwd" if not cfg.fused_mlp
+               else "fused_ln_mlp_bwd_fast" if save and not mlp8
+               else "fused_ln_mlp_int8_save_dw_bwd" if save and cfg.int8_dw
+               else "fused_ln_mlp_int8_save_bwd" if save
+               else "fused_ln_mlp_int8_dw_bwd" if mlp8 and cfg.int8_mlp_grad
                and cfg.int8_dw else "fused_ln_mlp_int8_bwd"
-               if cfg.int8_mlp_grad else "fused_ln_mlp_bwd")
+               if mlp8 and cfg.int8_mlp_grad else "fused_ln_mlp_bwd")
     c = Counter()
     c[attn] += plain + (0 if rect else routed)
     c[rect_fwd] += routed if rect else 0
-    halves = plain + routed + (routed if train else 0)
-    c["fused_ln_mlp_int8" if mlp8 else "layer_norm"] += halves
+    student, teacher = plain + routed, (routed if train else 0)
+    if train and save:
+        c["fused_ln_mlp_int8_save" if mlp8 else "fused_ln_mlp_save"] += student
+        c[mlp_fwd] += teacher
+    else:
+        c[mlp_fwd] += student + teacher
     c["layer_norm"] += routers + 1
     if train:
         c[attn] += routed  # the teacher
@@ -2887,6 +2950,423 @@ def run_no_fused_qkv_slice(exp_root):
     return counts, times
 
 
+# ---------------------------------------------------------------- phase 12
+# --save-acts (K12): the save pair of the MLP half, bf16 and int8, against
+# its twins at train_cli's b32 spq 200, b8 on ragged rows (8 x 197) and, for
+# the int8 pair, the drop phase's b32 spq 104; the first case timed beside
+# K2's and K4's forwards and backwards
+SAVE_CASES = [("b32 spq200 (train_cli)", 32, 200, None),
+              ("b8 ragged (8 x 197)", 8, 200, 197),
+              (DROP_CASE, 32, 104, None)]
+SAVE_RECOMPUTE = ("fused_ln_mlp", "fused_ln_mlp_bwd", "fused_ln_mlp_int8",
+                  "fused_ln_mlp_int8_bwd", "fused_ln_mlp_int8_dw_bwd")
+SAVE_STEPS, SAVE_SAMPLES = 4, 128
+SAVE_TRAIN_ARGS = [{"--train-steps": str(SAVE_STEPS),
+                    "--synthetic-samples": str(SAVE_SAMPLES)}.get(prev, a)
+                   for prev, a in zip([None] + TRAIN_ARGS, TRAIN_ARGS)]
+# the fast recipe's flags at b32 with --save-acts: one drop epoch (spq 104)
+# and one dense, 4 steps each; save-acts keeps K5 off (vitax's handoff gate)
+SAVE_FAST_ARGS = [{"--train-steps": str(2 * SAVE_STEPS)}.get(prev, a)
+                  for prev, a in zip([None] + SAVE_TRAIN_ARGS,
+                                     SAVE_TRAIN_ARGS)] + [
+    "--int8-dw", "--token-keep", "0.5", "--token-keep-schedule", "0.5",
+    "--save-acts"]
+# Res-ViT with --save-acts (label, batch, steps, flags): ft_resvit.sh's
+# flags (the bf16 MLP half is fused only with --fused-mlp: vitax's Res-ViT
+# default keeps it off in bf16), (h) --int8-grad --n_kv_heads 4, and
+# ft_resvit_fast.sh's flags at b32 (2 dense warmup steps, then compacted)
+RESVIT_SAVE_RUNS = [
+    ("(a) ft_resvit.sh --fused-mlp --save-acts", 32, 2,
+     ["--fused-mlp", "--save-acts"]),
+    ("(h) --int8-grad --n_kv_heads 4 --save-acts", 32, 2,
+     ["--int8-grad", "--n_kv_heads", "4", "--save-acts"]),
+    ("ft_resvit_fast.sh --save-acts", 32, 3,
+     ["--int8-dw"] + COMPACT + ["--compact-warmup", "2", "--token-keep",
+                                "0.5", "--save-acts"]),
+]
+
+
+def _save_inputs(batch, rows, ragged, seed):
+    import torch
+    t = _inputs(batch, rows, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 50)
+    t["do"] = torch.randn(t["x"].shape, generator=g,
+                          device="cuda").to(torch.bfloat16)
+    if ragged:
+        t["x"] = t["x"][:, :ragged].contiguous()
+        t["do"] = t["do"][:, :ragged].contiguous()
+    return t
+
+
+def _hold_outputs(name, label, outs, refs, stats):
+    """Every output of `name` within TOL of its twin's, finite, of its
+    shape and dtype."""
+    import torch
+    errs = []
+    for out, ref in zip(outs, refs):
+        err = (out.float() - ref.float()).abs().max().item()
+        bound = TOL * max(1.0, ref.float().abs().max().item())
+        if not (bool(torch.isfinite(out).all()) and err <= bound
+                and out.shape == ref.shape and out.dtype == ref.dtype):
+            raise AssertionError(
+                f"{name} {label} output {len(errs)}: max error {err} over "
+                f"{bound} ({tuple(out.shape)} {out.dtype} vs "
+                f"{tuple(ref.shape)} {ref.dtype})")
+        errs.append(f"{err:.2e}<={bound:.2e}")
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    return errs
+
+
+def check_save_kernels(stats):
+    """Phase 12, kernels: K12's four kernels (and :2066's int8_dw branch)
+    against their twins on every output, the int8 ones also by their codes
+    and INT8_REL (and the bf16 stand-in outside it); each save forward's out
+    the same bits as K2's or K4's; CUDA-event times of the pairs beside K2's
+    and K4's forwards and backwards at b32 spq 200."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in SAVE_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    for i, (label, batch, rows, ragged) in enumerate(SAVE_CASES):
+        t = _save_inputs(batch, rows, ragged, seed=60 + i)
+        mlp = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"],
+               t["b2"], EPS)
+        head = (t["x"], t["gamma"], t["beta"], t["w1"], t["w2"])
+        calls = {}
+        with torch.no_grad():
+            if label != DROP_CASE:  # the bf16 pair
+                saved = ck.fused_ln_mlp_save(*mlp)
+                torch.cuda.synchronize()
+                if not torch.equal(saved[0], ck.fused_ln_mlp(*mlp)):
+                    raise AssertionError(f"{label}: the save forward's out "
+                                         "is not K2's")
+                errs = _hold_outputs("fused_ln_mlp_save", label, saved,
+                                     ck.fused_ln_mlp_save_ref(*mlp), stats)
+                print(f"  fused_ln_mlp_save {label:22s} out == K2's out; "
+                      f"max|k-ref| out, h1, g' [{' '.join(errs)}]: ok",
+                      flush=True)
+                calls["fused_ln_mlp_save"] = mlp
+                calls["fused_ln_mlp_bwd_fast"] = (*head, *saved[1:], t["do"],
+                                                  EPS)
+            saved = ck.fused_ln_mlp_int8_save(*mlp)
+            torch.cuda.synchronize()
+            if not torch.equal(saved[0], ck.fused_ln_mlp_int8(*mlp)):
+                raise AssertionError(f"{label}: the int8 save forward's out "
+                                     "is not K4's")
+            ref = ck.fused_ln_mlp_int8_save_ref(*mlp)
+            _hold_outputs("fused_ln_mlp_int8_save", label, saved[:1],
+                          ref[:1], stats)
+            _check_int8(ck, "fused_ln_mlp_int8_save", label, mlp,
+                        saved[:1], ref[:1], stats)
+            b8 = (*head, *saved[1:], t["do"], EPS)
+            calls["fused_ln_mlp_int8_save_bwd"] = b8
+            calls["fused_ln_mlp_int8_save_dw_bwd"] = b8
+            for name, args in calls.items():
+                if name == "fused_ln_mlp_save":
+                    continue
+                outs = getattr(ck, name)(*args)
+                torch.cuda.synchronize()
+                refs = getattr(ck, name + "_ref")(*args)
+                errs = _hold_outputs(name, label, outs, refs, stats)
+                if name in SAVE_KERNELS_INT8:
+                    _check_int8(ck, name, label, args, outs, refs, stats)
+                print(f"  {name:32s} {label:22s} max|k-ref| per output "
+                      f"[{' '.join(errs)}]: ok", flush=True)
+                del outs, refs
+        if i == 0:  # times, the recompute kernels in the same turns
+            k4 = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"],
+                  t["do"], EPS)
+            timed = {
+                "fused_ln_mlp_save": (lambda: ck.fused_ln_mlp_save(*mlp),
+                                      lambda: ck.fused_ln_mlp_save_ref(*mlp)),
+                "fused_ln_mlp_int8_save": (
+                    lambda: ck.fused_ln_mlp_int8_save(*mlp),
+                    lambda: ck.fused_ln_mlp_int8_save_ref(*mlp)),
+                **{n: (lambda n=n: getattr(ck, n)(*calls[n]),
+                       lambda n=n: getattr(ck, n + "_ref")(*calls[n]))
+                   for n in SAVE_KERNELS[1::2] + SAVE_KERNELS[4:]},
+                "fused_ln_mlp": (lambda: ck.fused_ln_mlp(*mlp), None),
+                "fused_ln_mlp_int8": (lambda: ck.fused_ln_mlp_int8(*mlp),
+                                      None),
+                **{n: (lambda n=n: getattr(ck, n)(*k4), None)
+                   for n in SAVE_RECOMPUTE[1::2] + SAVE_RECOMPUTE[4:]}}
+            ms = {n: [] for n in timed}
+            with torch.no_grad():
+                for turn in range(2):
+                    for n, (kern, _) in (timed.items() if turn == 0 else
+                                         reversed(timed.items())):
+                        ms[n].append(_median_ms(kern, warmup=2, iters=10))
+                for n in SAVE_KERNELS:
+                    stats[n].update(
+                        ms=min(ms[n]), shape=(batch, rows),
+                        plain_ms=_median_ms(timed[n][1], warmup=1, iters=3))
+            print("  save-acts kernels b32 spq200 (CUDA events, medians of 10,"
+                  " two turns, the second in reverse order): " + ", ".join(
+                      f"{n} {' / '.join(f'{v:.4f}' for v in ms[n])} ms"
+                      for n in timed) + "; plain " + ", ".join(
+                      f"{n} {stats[n]['plain_ms']:.4f}" for n in SAVE_KERNELS),
+                  flush=True)
+        del t, calls
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _save_epoch_expect(steps, evals, int8, bwd):
+    """train_cli's launches of a train epoch of `steps` save-acts steps and a
+    valid epoch of `evals` batches: per step 12 of the attention half and
+    its backward, 12 of the save pair, one LN and LN backward; an eval batch
+    K1/K3 and K2/K4 (no grad: K2's or K4's forward), one LN."""
+    attn = "fused_ln_qkvo_attention_int8" if int8 else \
+        "fused_ln_qkvo_attention"
+    attn_bwd = {"fused_ln_mlp_int8_save_dw_bwd":
+                "fused_ln_qkvo_attention_int8_dw_bwd",
+                "fused_ln_mlp_int8_save_bwd":
+                "fused_ln_qkvo_attention_int8_bwd"}.get(
+        bwd, "fused_ln_qkvo_attention_bwd")
+    save = "fused_ln_mlp_int8_save" if int8 else "fused_ln_mlp_save"
+    train = _expect(layer_norm=steps, layer_norm_bwd=steps,
+                    **{attn: 12 * steps, attn_bwd: 12 * steps,
+                       save: 12 * steps, bwd: 12 * steps})
+    valid = _expect(layer_norm=evals, **{
+        attn: 12 * evals,
+        ("fused_ln_mlp_int8" if int8 else "fused_ln_mlp"): 12 * evals})
+    return train, valid
+
+
+def run_save_acts_slice(exp_root):
+    """Phase 12, paths: train_cli --save-acts, --int8-grad --save-acts and
+    the fast recipe's flags with --save-acts at b32, exact launches per
+    epoch; full-width grads of the bf16 and int8 save paths against the
+    plain and int8 twin paths; resident ViT-B/16 b32 steps with and without
+    --save-acts in three tiers; resvit_train_cli with --save-acts three
+    ways, exact launches per step and eval batch; Res-ViT steps (a) and (h)
+    with and without it, and (a) with the bf16 MLP half fused but no
+    save-acts, which (a) --fused-mlp --save-acts changes in two ways; their
+    grads against the plain and int8 twin paths, routing replayed."""
+    import torch
+    from vitax_torch import resvit_train_cli
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import resvit, vit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.train import param_leaves
+    from vitax_torch.train.optim import tree_leaves
+    from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                                make_adamw_for,
+                                                make_train_step)
+    from vitax_torch.utils.memory import named_leaves
+
+    evals = math.ceil(SAVE_SAMPLES / TRAIN_BATCH)
+    runs = {
+        "--save-acts": (SAVE_TRAIN_ARGS + ["--save-acts"], SAVE_STEPS, [
+            *_save_epoch_expect(SAVE_STEPS, evals, False,
+                                "fused_ln_mlp_bwd_fast")]),
+        "--int8-grad --save-acts": (
+            SAVE_TRAIN_ARGS + ["--int8-grad", "--save-acts"], SAVE_STEPS, [
+                *_save_epoch_expect(SAVE_STEPS, evals, True,
+                                    "fused_ln_mlp_int8_save_bwd")]),
+        "fast flags --save-acts": (
+            SAVE_FAST_ARGS, 2 * SAVE_STEPS, 2 * [
+                *_save_epoch_expect(SAVE_STEPS, evals, True,
+                                    "fused_ln_mlp_int8_save_dw_bwd")]),
+    }
+    counts = {}
+    for label, (args, steps, expect) in runs.items():
+        log = []
+        ck.reset_launch_counts()
+        with _epoch_launches(ck, log):
+            losses, valid, rate = _run_train(args + ["--exp-root", exp_root],
+                                             steps=steps)
+        counts[label] = ck.launch_counts()
+        got = [c for _, c in log]
+        print(f"save-acts: train_cli {label} b32 losses "
+              f"{[round(v, 4) for v in losses]} valid {valid} {rate:.0f} "
+              "img/s (last epoch, host-fed); launches per epoch: " + "; ".join(
+                  f"{kind} {{{', '.join(f'{k}: {v}' for k, v in c.items() if v)}}}"
+                  for kind, c in log), flush=True)
+        if got != expect:
+            raise AssertionError(f"{label}: expected launches per epoch "
+                                 f"{expect}")
+
+    # full-width grads: the bf16 save path against the plain path, the int8
+    # save paths against their twin paths
+    cfg = arch_config("b16", image_size=224, num_classes=10,
+                      dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True,
+                      fused_mlp_save=True)
+    tier8 = dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                 int8_attn_grad=True)
+    params = vit.init_params(set_seed(0), cfg, "cuda")
+    names = [n for n, _ in named_leaves(params)]
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    batch = next(iter(get_dataloader("Synthetic", split="train",
+                                     image_size=224, batch_size=TRAIN_BATCH,
+                                     num_samples=256, seed=0)))
+    images = torch.from_numpy(batch.images).cuda().bfloat16()
+    labels = torch.from_numpy(batch.labels).cuda()
+    plain = cfg.replace(fused_qkv=False, fused_mlp=False, use_pallas=False)
+    grad_rows = []
+    for key, c, other, band in (
+            ("bf16", cfg, "plain", GRAD_BAND),
+            ("int8-grad", cfg.replace(**tier8), "int8 twin", INT8_GRAD_BAND),
+            ("int8-dw", cfg.replace(**tier8, int8_dw=True), "int8 twin",
+             INT8_GRAD_BAND)):
+        ck.reset_launch_counts()
+        g_k = _grads(params, images, labels, c)
+        ran = _nonzero(ck.launch_counts())
+        if other == "plain":
+            g_o = _grads(params, images, labels, plain)
+        else:
+            with _int8_twins(ck):
+                g_o = _grads(params, images, labels, c)
+        rels, key_r = _grad_distances(names, g_k, g_o)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+        print(f"save-acts: grads {key} --save-acts b32 of {len(names)} "
+              f"tensors (launches {ran}); worst |g_kernel - g_{other}| / "
+              f"|g_{other}|: " + ", ".join(f"{r:.3e} ({n})"
+                                           for r, n in rels[:3])
+              + f" <= {band}, key biases {key_r:.3e}", flush=True)
+        grad_rows.append((f"ViT {key}", rels[0][0]))
+        save = [n for n in ran if n in SAVE_KERNELS]
+        if (not finite or rels[0][0] > band or key_r > band
+                or len(save) != 2 or any(ran[n] != 12 for n in save)):
+            raise AssertionError(f"save-acts {key}: grads or launches")
+        del g_k, g_o
+    torch.cuda.empty_cache()
+
+    # resident ViT-B/16 b32 steps, with and without --save-acts, in turns
+    paths = []
+    for key, c in (("bf16", cfg), ("int8-grad", cfg.replace(**tier8)),
+                   ("int8-dw", cfg.replace(**tier8, int8_dw=True))):
+        paths += [(f"{key}", c.replace(fused_mlp_save=False)),
+                  (f"{key} --save-acts", c)]
+    runs_ms = _time_steps(params, images, labels,
+                          paths + paths[::-1])
+    step_ms = {k: [ms for n, ms in runs_ms if n == k] for k, _ in paths}
+    del params
+    torch.cuda.empty_cache()
+
+    # Res-ViT through resvit_train_cli, exact launches per step and batch
+    with _random_router_biases():
+        for label, batch_size, steps, extra in RESVIT_SAVE_RUNS:
+            log = []
+            args = RESVIT_TRAIN_ARGS + extra + [
+                "--batch-size", str(batch_size), "--synthetic-samples",
+                str(batch_size * steps), "--train-steps", str(steps),
+                "--exp-root", exp_root]
+            ck.reset_launch_counts()
+            with _step_launches(ck, log), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                out = resvit_train_cli.main(args)
+            shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
+            train_log = [e for e in log if e[0] == "train"]
+            bad = [(kind, _nonzero(got)) for kind, c, got in log
+                   if got != _resvit_launches(c, kind == "train")]
+            ran = set().union(*(_nonzero(got) for _, _, got in train_log))
+            valid = out["epochs"][-1]
+            print(f"save-acts: resvit_train_cli {label} b{batch_size}: "
+                  f"{len(train_log)} steps (" + ", ".join(
+                      f"C {c.compact_capacity}" if c.compact_capacity
+                      else "dense" for _, c, _ in train_log)
+                  + f"); valid acc1 {valid['acc1']:.4f} loss "
+                  f"{valid['loss']:.4f}; launches as derived: {not bad} ("
+                  + "; ".join("{" + ", ".join(f"{k}: {v}" for k, v in
+                                              _nonzero(got).items()) + "}"
+                              for _, _, got in train_log[-1:]) + ")",
+                  flush=True)
+            if (bad or len(train_log) != steps or not ran & set(SAVE_KERNELS)
+                    or not all(math.isfinite(v) for v in valid.values())):
+                raise AssertionError(f"{label}: launches {bad}, "
+                                     f"{len(train_log)} steps, valid {valid}")
+        from vitax_torch.resvit_train_cli import (config_to_model_args,
+                                                  get_train_config)
+        base = config_to_model_args(get_train_config(
+            RESVIT_TRAIN_ARGS + ["--exp-root", exp_root]), "cuda")
+        gqa = base.replace(n_kv_heads=4)
+        rv_params = {"(a)": resvit.init_params(set_seed(0), base, "cuda"),
+                     "(h)": resvit.init_params(set_seed(0), gqa, "cuda")}
+    shutil.rmtree(exp_root, ignore_errors=True)
+    h_tier = dict(tier8, fused_mlp=True)
+    rv_cfgs = [("(a)", base), ("(a) --fused-mlp",
+                               base.replace(fused_mlp=True)),
+               ("(a) --fused-mlp --save-acts",
+                base.replace(fused_mlp=True, fused_mlp_save=True)),
+               ("(h)", gqa.replace(**h_tier)),
+               ("(h) --save-acts", gqa.replace(**h_tier,
+                                               fused_mlp_save=True))]
+    for p in rv_params.values():
+        for t, m in zip(param_leaves(p), tree_leaves(
+                resvit.trainable_mask(p, base))):
+            t.requires_grad_(m)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rv_images = torch.randn((32, 224, 224, 3), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+    rv_labels = torch.randint(0, 10, (32,), generator=g, device="cuda")
+    # Res-ViT grads of every trainable tensor with --save-acts, the Gumbel
+    # noise and the routing replayed, before the timed AdamW steps move the
+    # params: (a) --fused-mlp --save-acts against the plain path, (h)
+    # --save-acts against the int8 twin path
+    plain_rv = dict(fused_qkv=False, fused_qkvo=False, fused_mlp=False,
+                    use_pallas=False)
+    for (key, c), band in ((rv_cfgs[2], GRAD_BAND),
+                           (rv_cfgs[4], INT8_GRAD_BAND)):
+        p = rv_params[key[:3]]
+        noise = _train_noise(c, 32, seed=13)
+        replay = _RoutingReplay(resvit)
+        ck.reset_launch_counts()
+        _, g_k = _resvit_grads(p, rv_images, rv_labels, c, noise,
+                               replay.record())
+        ran = _nonzero(ck.launch_counts())
+        if band == GRAD_BAND:
+            other = "plain"
+            _, g_o = _resvit_grads(p, rv_images, rv_labels,
+                                   c.replace(**plain_rv), noise,
+                                   replay.replay())
+        else:
+            other = "int8 twin"
+            with _int8_twins(ck):
+                _, g_o = _resvit_grads(p, rv_images, rv_labels, c, noise,
+                                       replay.replay())
+        names = [n for (n, _), m in zip(named_leaves(p), tree_leaves(
+            resvit.trainable_mask(p, c))) if m]
+        rels = sorted(((_rel(u, v), n) for u, v, n in zip(g_k, g_o, names)
+                       if v.norm() > 0), reverse=True)
+        finite = all(bool(torch.isfinite(t).all()) for t in g_k)
+        print(f"save-acts: Res-ViT grads {key} b32 of {len(g_k)} trainable "
+              f"tensors (launches {ran}); worst |g_kernel - g_{other}| / "
+              f"|g_{other}|: " + ", ".join(f"{r:.3e} ({n})"
+                                           for r, n in rels[:3])
+              + f" <= {band}", flush=True)
+        grad_rows.append((f"Res-ViT {key}", rels[0][0]))
+        if (not finite or rels[0][0] > band
+                or not set(ran) & set(SAVE_KERNELS)):
+            raise AssertionError(f"Res-ViT {key}: grads outside the band")
+        del g_k, g_o
+        torch.cuda.empty_cache()
+    lam = Lambdas(*RESVIT_LAMBDAS)
+    rv_ms = {k: [] for k, _ in rv_cfgs}
+    for key, c in rv_cfgs + rv_cfgs[::-1]:
+        p = rv_params[key[:3]]
+        tx = make_adamw_for(c, p, lambda s: 1e-4)
+        state = create_state(p, tx, torch.Generator(device="cuda")
+                             .manual_seed(3))
+        step = make_train_step(c, tx, lam)
+        rv_ms[key].append(_median_ms(
+            lambda: step(state, rv_images, rv_labels), warmup=2, iters=5))
+        del tx, state
+        torch.cuda.empty_cache()
+
+    print("save-acts: steps b32 (resident batch, CUDA-event medians, in "
+          "turns, the second in reverse order): ViT-B/16 " + ", ".join(
+              f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+              for k, ms in step_ms.items()) + "; Res-ViT " + ", ".join(
+              f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+              for k, ms in rv_ms.items()), flush=True)
+    return counts, {**step_ms, **{f"Res-ViT {k}": v
+                                  for k, v in rv_ms.items()}}, grad_rows
+
+
 # ---------------------------------------------------------------- bounds
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
@@ -2950,6 +3430,20 @@ def _work(name, batch, rows, extra=None, dims=None):
             {"s8": qkv + out, "bf16": core}),
         "fused_ln_mlp_int8_ho": (2 * act + 2 * packed + w_mlp + vec_mlp,
                                  {"s8": mlp}),
+        # K12: h1 and g' (bf16) or h1q, gpq (int8) and sh out of the
+        # forward, into the backward, which does four products (8NDM)
+        "fused_ln_mlp_save": (2 * act + w_mlp + vec_mlp + 4 * n * MLP,
+                              {"bf16": mlp}),
+        "fused_ln_mlp_bwd_fast": (3 * act + w_mlp + dw_mlp + 2 * vec_mlp
+                                  + 4 * n * MLP, {"bf16": 2 * mlp}),
+        "fused_ln_mlp_int8_save": (2 * act + w_mlp + vec_mlp + 2 * n * MLP
+                                   + 4 * n, {"s8": mlp}),
+        "fused_ln_mlp_int8_save_bwd": (
+            3 * act + w_mlp + dw_mlp + 2 * vec_mlp + 2 * n * MLP + 4 * n,
+            {"s8": mlp, "bf16": mlp}),
+        "fused_ln_mlp_int8_save_dw_bwd": (
+            3 * act + w_mlp + dw_mlp + 2 * vec_mlp + 2 * n * MLP + 4 * n,
+            {"s8": 2 * mlp}),
     }
     return table[name]
 
@@ -3117,6 +3611,19 @@ def main() -> int:
                    if isinstance(t, dict) else f"{t:.4g}")
         for k, t in times11.items()) + f" [{card}]", flush=True)
 
+    print("phase 12, --save-acts (K12) vs plain:", flush=True)
+    t12 = time.time()
+    check_save_kernels(stats)
+    try:
+        counts12, steps12, grads12 = run_save_acts_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("save-acts: " + "; ".join(f"{k} {' / '.join(f'{v:.2f}' for v in ms)}"
+                                    " ms" for k, ms in steps12.items())
+          + "; worst grad distance " + ", ".join(
+              f"{k} {r:.3e}" for k, r in grads12)
+          + f"; phase 12 took {time.time() - t12:.1f} s [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
     # the fast recipe's (each runs every kernel of its tier), K7's and K8's
@@ -3145,7 +3652,17 @@ def main() -> int:
         "fused_ln_qkvo_attention_int8_gqa_dw_bwd":
             "(i) ft_resvit_fast.sh --n_kv_heads 4"}
 
+    # phase 12: the bf16 pair from train_cli --save-acts, the int8 pair from
+    # --int8-grad --save-acts, the int8_dw branch from the fast flags'
+    save_runs = {"fused_ln_mlp_save": "--save-acts",
+                 "fused_ln_mlp_bwd_fast": "--save-acts",
+                 "fused_ln_mlp_int8_save": "--int8-grad --save-acts",
+                 "fused_ln_mlp_int8_save_bwd": "--int8-grad --save-acts",
+                 "fused_ln_mlp_int8_save_dw_bwd": "fast flags --save-acts"}
+
     def launches(name):
+        if name in save_runs:
+            return counts12[save_runs[name]][name]
         if name in phase11_runs:
             return counts11[phase11_runs[name]][name]
         if name in H14_KERNELS:  # phase 10: eval_cli's run, train_cli's

@@ -968,3 +968,97 @@ def test_int8_gqa_autograd_launches_its_backward(dev, int8_dw):
         INT8_GQA[0]: 1, INT8_GQA[2 if int8_dw else 1]: 1}
     for t in leaves + [bo]:
         assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# K12, the save-acts pair, bf16 and int8: each save forward's out is K2's or
+# K4's to the bit (the same launches compute it); every output within the
+# tolerance of the twins on the same inputs, the backwards taking the
+# kernel's saved tensors; the int8 codes within their bands (gpq, like h1q,
+# quantizes a function of a1; doc, like h1c, the column codes of a folded
+# operand).
+
+CODE_BAND.update({"gpq": (1, 1e-3), "doc": (2, 1e-3)})
+SAVE_NAMES = ("fused_ln_mlp_save", "fused_ln_mlp_bwd_fast",
+              "fused_ln_mlp_int8_save", "fused_ln_mlp_int8_save_bwd",
+              "fused_ln_mlp_int8_save_dw_bwd")
+# (batch, spq, seq_len, rows): train_cli's b32, b8 on ragged rows (8 x 197),
+# the drop phase's b32 spq 104
+SAVE_SHAPES = [(32, 200, 197, None), (8, 200, 197, 197), (32, 104, 99, None)]
+
+
+@pytest.mark.parametrize("shape", SAVE_SHAPES)
+def test_save_kernels_match_twins(dev, shape):
+    args = _int8_args(dev, *shape)
+    mlp = args["fused_ln_mlp_int8"]
+    x, gamma, beta, w1, _, w2, _, eps = mlp
+    do = args["fused_ln_mlp_int8_bwd"][6]
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        saved = ck.fused_ln_mlp_save(*mlp)
+        torch.cuda.synchronize()
+        assert torch.equal(saved[0], ck.fused_ln_mlp(*mlp))
+        for out, ref in zip(saved, ck.fused_ln_mlp_save_ref(*mlp)):
+            _assert_close(out, ref)
+        b = (x, gamma, beta, w1, w2, *saved[1:], do, eps)
+        for out, ref in zip(ck.fused_ln_mlp_bwd_fast(*b),
+                            ck.fused_ln_mlp_bwd_fast_ref(*b)):
+            _assert_close(out, ref)
+        sk, st = {}, {}
+        saved = ck.fused_ln_mlp_int8_save(*mlp, scratch=sk)
+        assert torch.equal(saved[0], ck.fused_ln_mlp_int8(*mlp))
+        ref = ck.fused_ln_mlp_int8_save_ref(*mlp, scratch=st)
+        _assert_close(saved[0], ref[0])
+        _codes_within_band("fused_ln_mlp_int8_save", sk, st)
+        b = (x, gamma, beta, w1, w2, *saved[1:], do, eps)
+        for name in SAVE_NAMES[3:]:
+            sk, st = {}, {}
+            outs = getattr(ck, name)(*b, scratch=sk)
+            refs = getattr(ck, name + "_ref")(*b, scratch=st)
+            for out, ref in zip(outs, refs):
+                _assert_close(out, ref)
+            _codes_within_band(name, sk, st)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        **dict.fromkeys(SAVE_NAMES, 1), "fused_ln_mlp": 1,
+        "fused_ln_mlp_int8": 1}
+
+
+def test_save_backward_kernels_are_deterministic(dev):
+    args = _int8_args(dev, 8, 200, 197, None)
+    mlp = args["fused_ln_mlp_int8"]
+    x, gamma, beta, w1, _, w2, _, eps = mlp
+    do = args["fused_ln_mlp_int8_bwd"][6]
+    with torch.no_grad():
+        b16 = (x, gamma, beta, w1, w2, *ck.fused_ln_mlp_save(*mlp)[1:], do,
+               eps)
+        b8 = (x, gamma, beta, w1, w2, *ck.fused_ln_mlp_int8_save(*mlp)[1:],
+              do, eps)
+        for name, b in zip(SAVE_NAMES[1::2] + SAVE_NAMES[4:], (b16, b8, b8)):
+            for u, v in zip(getattr(ck, name)(*b), getattr(ck, name)(*b)):
+                assert torch.equal(u, v), name
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8", "int8-grad", "int8-dw"])
+def test_save_acts_autograd_launches_its_pair(dev, tier):
+    """save_acts under autograd: the save pair of its tier; `--int8` alone
+    keeps K4 and K2's backward (vitax's dispatch); no grad, K2's forward."""
+    mlp = _int8_args(dev, 2, 200, 197, None)["fused_ln_mlp_int8"]
+    leaves = [t.detach().clone().requires_grad_() for t in mlp[:7]]
+    ck.reset_launch_counts()
+    if tier == "bf16":
+        y = ck.fused_ln_mlp(*leaves, EPS, save_acts=True)
+    else:
+        y = ck.fused_ln_mlp_int8(*leaves, EPS, int8_grad=tier != "int8",
+                                 int8_dw=tier == "int8-dw", save_acts=True)
+    y.float().square().mean().backward()
+    with torch.no_grad():
+        ck.fused_ln_mlp(*mlp, save_acts=True)
+    torch.cuda.synchronize()
+    expect = {"bf16": SAVE_NAMES[:2], "int8": ("fused_ln_mlp_int8",
+                                               "fused_ln_mlp_bwd"),
+              "int8-grad": SAVE_NAMES[2:4],
+              "int8-dw": SAVE_NAMES[2:3] + SAVE_NAMES[4:]}[tier]
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        **dict.fromkeys(expect, 1), "fused_ln_mlp": 1}
+    for t in leaves:
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()

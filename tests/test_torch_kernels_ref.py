@@ -163,6 +163,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     out = ck.flash_attention_bhsd(q, q, q)
     ck.flash_attention(q, q, q)
     ck.flash_attention_bwd(q, q, q, out, q)
+    _, h1, gp = ck.fused_ln_mlp_save(*mlp, t["b2"], EPS)
+    ck.fused_ln_mlp_bwd_fast(*mlp[:4], t["w2"], h1, gp, t["x"], EPS)
+    _, *codes = ck.fused_ln_mlp_int8_save(*mlp, t["b2"], EPS)
+    ck.fused_ln_mlp_int8_save_bwd(*mlp[:4], t["w2"], *codes, t["x"], EPS)
+    ck.fused_ln_mlp_int8_save_dw_bwd(*mlp[:4], t["w2"], *codes, t["x"], EPS)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -191,7 +196,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_ln_qkvo_attention_int8_gqa": 0,
                                   "fused_ln_qkvo_attention_int8_gqa_bwd": 0,
                                   "fused_ln_qkvo_attention_int8_gqa_dw_bwd":
-                                  0}
+                                  0, "fused_ln_mlp_save": 0,
+                                  "fused_ln_mlp_bwd_fast": 0,
+                                  "fused_ln_mlp_int8_save": 0,
+                                  "fused_ln_mlp_int8_save_bwd": 0,
+                                  "fused_ln_mlp_int8_save_dw_bwd": 0}
 
 
 def test_hopper_gates():

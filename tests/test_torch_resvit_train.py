@@ -52,6 +52,8 @@ PLAIN = dict(use_pallas=False)
 K13 = dict(use_pallas=True)
 PATHS = {"plain": PLAIN, "fused": FUSED, "k13": K13}
 LAMBDAS = dict(classification=1.0, active=10.0, distill=1.0)
+INT8_GRAD = dict(int8_attn=True, int8_attn_grad=True, int8_mlp=True,
+                 int8_mlp_grad=True)
 
 
 @pytest.fixture(autouse=True)
@@ -237,6 +239,13 @@ APPLY_CASES = [
     ("float32", "k13", {}),
     ("bfloat16", "k13", {}),
     ("float32", "k13", dict(n_kv_heads=1, use_lora=False)),
+    # --save-acts: K12's twins in the student, K2's or K4's forward in the
+    # teacher (no grad); the int8 tier as vitax's _ln_mlp_2d_int8s, int8_dw
+    # off and on (one group of the 68 rows in both packages)
+    ("float32", "fused", dict(fused_mlp_save=True)),
+    ("bfloat16", "fused", dict(fused_mlp_save=True)),
+    ("float32", "fused", dict(INT8_GRAD, fused_mlp_save=True)),
+    ("float32", "fused", dict(INT8_GRAD, int8_dw=True, fused_mlp_save=True)),
 ]
 
 

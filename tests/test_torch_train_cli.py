@@ -157,7 +157,7 @@ def test_npz_checkpoint_with_another_head_is_reinitialized(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--export-pth"], ["--n-gpu", "2"], ["--n-model", "2"], ["--device-prep"],
-    ["--int4-attn"], ["--int4"], ["--save-acts"],
+    ["--int4-attn"], ["--int4"],
     ["--remat", "full"], ["--remat", "selective"],
     ["--checkpoint-path", "weights/model.pth"],
 ])

@@ -112,13 +112,14 @@ __global__ void __launch_bounds__(256)
 }
 
 // F [wa, wb] = the int8_dw weight grad of A [n, wa] (T: bf16 or fp32) with
-// row scales u [n] against the row codes Q [n, wb]. Scratch: at int8
-// [wa, kp], sc fp32 [groups, wa], qt int8 [wb, kp], kp = groups * gp.
-// wa % 2 == 0, wb % 2 == 0.
+// row scales u [n] against the row codes Q [n, wb], or with `transpose` its
+// transpose F [wb, wa] (the save-acts backward's dW2 = h1q^T quant_cols(sh do),
+// where the codes are h1's, not do's). Scratch: at int8 [wa, kp], sc fp32
+// [groups, wa], qt int8 [wb, kp], kp = groups * gp. wa % 2 == 0, wb % 2 == 0.
 template <typename T>
 cudaError_t launch_dw_int8(const T* a, const float* u, const int8_t* q, int n, int wa, int wb,
                            int group, int8_t* at, float* sc, int8_t* qt, float* F,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, bool transpose = false) {
   if (group <= 0) return cudaErrorInvalidValue;
   const int gp = dw_group_pad(group);
   const int groups = dw_groups(n, group);
@@ -133,7 +134,7 @@ cudaError_t launch_dw_int8(const T* a, const float* u, const int8_t* q, int n, i
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  return launch_gemm_s8_groups(at, qt, sc, F, wa, wb, kp, gp, stream);
+  return launch_gemm_s8_groups(at, qt, sc, F, wa, wb, kp, gp, stream, transpose);
 }
 
 }  // namespace vitax

@@ -45,6 +45,8 @@ enum Epilogue : int {
   kStore = 4,         // C = bf16(acc)
   kStoreF32 = 5,      // F = acc (fp32; with split K, F is the partial of split z)
   kGeluGrad = 6,      // C = bf16(acc * gelu_erf'(Aux)), Aux fp32 [M,N]
+  kBiasGeluSave = 7,  // a = acc + bias: C = bf16(gelu_erf(a)), G = bf16(gelu_erf'(a))
+  kGradSaved = 8,     // C = bf16(acc * f32(G)), G the saved bf16 g' [M,N]
 };
 
 constexpr int kGemmBM = 128;
@@ -81,6 +83,14 @@ __device__ __forceinline__ float gelu_grad_q(float a) {
   const float s = sigmoid_1702(a);
   return s * (1.0f + 1.702f * a * (1.0f - s));
 }
+
+// The save-acts tiers' GELU' codes (K12 int8, pallas_kernels.py:723-729):
+// |gelu_q'| <= 1.13 everywhere, so g' is quantized on a static grid,
+// q = clip(rint(g' * 127/1.13)), and read back as f32(q) * 1.13/127. The
+// constants are the fp32 roundings of the double quotients, as vitax's
+// Python floats reach its fp32 arrays.
+constexpr float kGpQScale = static_cast<float>(127.0 / 1.13);
+constexpr float kGpDequant = static_cast<float>(1.13 / 127.0);
 
 // Loads of one K step into shared memory. A tile: [128 rows of M][32 of K]
 // (kNN, kNT) or [32 of K][128 of M] (kTN). B tile: [32 of K][128 of N] (kNN,
@@ -141,8 +151,8 @@ template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                      const float* __restrict__ bias, const bf16* __restrict__ R,
-                     const float* __restrict__ Aux, bf16* __restrict__ C, float* __restrict__ F,
-                     int M, int N, int K, int k_chunk, int ldb) {
+                     const float* __restrict__ Aux, bf16* __restrict__ G, bf16* __restrict__ C,
+                     float* __restrict__ F, int M, int N, int K, int k_chunk, int ldb) {
   using namespace nvcuda;
   using ALayout = typename std::conditional<LAYOUT == kTN, wmma::col_major, wmma::row_major>::type;
   using BLayout = typename std::conditional<LAYOUT == kNT, wmma::col_major, wmma::row_major>::type;
@@ -236,6 +246,7 @@ __global__ void __launch_bounds__(kGemmThreads)
           uint4 res_u = make_uint4(0, 0, 0, 0);
           if (EPI == kBiasResidual) res_u = *reinterpret_cast<const uint4*>(R + off);
           float aux[8];
+          if (EPI == kGradSaved) load4(G + off, aux), load4(G + off + 4, aux + 4);
           if (EPI == kGeluGrad) {
             const float4 a0 = *reinterpret_cast<const float4*>(Aux + off);
             const float4 a1 = *reinterpret_cast<const float4*>(Aux + off + 4);
@@ -244,18 +255,23 @@ __global__ void __launch_bounds__(kGemmThreads)
           }
           bf16* out = reinterpret_cast<bf16*>(&out_u);
           const bf16* res = reinterpret_cast<const bf16*>(&res_u);
+          uint4 gp_u;
+          bf16* gp = reinterpret_cast<bf16*>(&gp_u);
 #pragma unroll
           for (int t = 0; t < 8; ++t) {
             if (EPI == kStore) {
               out[t] = __float2bfloat16(v[t]);
             } else if (EPI == kGeluGrad) {
               out[t] = __float2bfloat16(v[t] * gelu_erf_grad(aux[t]));
+            } else if (EPI == kGradSaved) {
+              out[t] = __float2bfloat16(v[t] * aux[t]);
             } else {
               const float a = v[t] + bias[gc + t];
               if (EPI == kBias) {
                 out[t] = __float2bfloat16(a);
-              } else if (EPI == kBiasGelu || EPI == kBiasGeluAux) {
+              } else if (EPI == kBiasGelu || EPI == kBiasGeluAux || EPI == kBiasGeluSave) {
                 out[t] = __float2bfloat16(gelu_erf(a));
+                if (EPI == kBiasGeluSave) gp[t] = __float2bfloat16(gelu_erf_grad(a));
               } else {  // kBiasResidual
                 const float yb = __bfloat162float(__float2bfloat16(a));
                 out[t] = __float2bfloat16(__bfloat162float(res[t]) + yb);
@@ -263,6 +279,7 @@ __global__ void __launch_bounds__(kGemmThreads)
             }
           }
           *reinterpret_cast<uint4*>(C + off) = out_u;
+          if (EPI == kBiasGeluSave) *reinterpret_cast<uint4*>(G + off) = gp_u;
         }
       }
       __syncwarp();
@@ -299,7 +316,7 @@ inline size_t gemm_tn_workspace(int M, int N, int K) {
 
 template <int LAYOUT, int EPI>
 cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, const bf16* R,
-                             const float* Aux, bf16* C, float* F, int M, int N, int K,
+                             const float* Aux, bf16* G, bf16* C, float* F, int M, int N, int K,
                              int splits, cudaStream_t stream, int ldb = 0) {
   if (M == 0 || N == 0) return cudaSuccess;
   const int row = LAYOUT == kNT ? K : N;  // the elements of a row of B
@@ -310,18 +327,19 @@ cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, co
   const int k_chunk = (K + splits * kGemmBK - 1) / (splits * kGemmBK) * kGemmBK;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
   gemm_bf16_kernel<LAYOUT, EPI>
-      <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, R, Aux, C, F, M, N, K, k_chunk, ldb);
+      <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, R, Aux, G, C, F, M, N, K, k_chunk, ldb);
   return cudaGetLastError();
 }
 
 // Forward products: C[M,N] = epilogue(A[M,K] @ B[K,N]); F is the fp32
-// pre-activation output of kBiasGeluAux; ldb is B's row stride (0: N), so B
-// may be a column slice of a wider weight (K8's Q and KV slices of Wqkv).
+// pre-activation output of kBiasGeluAux, G the bf16 g' output of
+// kBiasGeluSave; ldb is B's row stride (0: N), so B may be a column slice of
+// a wider weight (K8's Q and KV slices of Wqkv).
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, const bf16* R, bf16* C,
                         int M, int N, int K, cudaStream_t stream, float* F = nullptr,
-                        int ldb = 0) {
-  return launch_gemm_impl<kNN, EPI>(A, B, bias, R, nullptr, C, F, M, N, K, 1, stream, ldb);
+                        int ldb = 0, bf16* G = nullptr) {
+  return launch_gemm_impl<kNN, EPI>(A, B, bias, R, nullptr, G, C, F, M, N, K, 1, stream, ldb);
 }
 
 // dx-path products: C[M,N] = epilogue(A[M,K] @ B[N,K]^T), epilogue kStore
@@ -331,7 +349,16 @@ cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, const b
 template <int EPI>
 cudaError_t launch_gemm_nt(const bf16* A, const bf16* B, const float* Aux, bf16* C, float* F,
                            int M, int N, int K, cudaStream_t stream, int ldb = 0) {
-  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, Aux, C, F, M, N, K, 1, stream, ldb);
+  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, Aux, nullptr, C, F, M, N, K, 1, stream,
+                                    ldb);
+}
+
+// The save-acts dh1 product: C[M,N] = bf16(f32(A[M,K] @ B[N,K]^T) * f32(G)),
+// G the forward's saved bf16 g' [M,N] (kGradSaved).
+inline cudaError_t launch_gemm_nt_saved(const bf16* A, const bf16* B, const bf16* G, bf16* C,
+                                        int M, int N, int K, cudaStream_t stream) {
+  return launch_gemm_impl<kNT, kGradSaved>(A, B, nullptr, nullptr, nullptr, const_cast<bf16*>(G),
+                                           C, nullptr, M, N, K, 1, stream);
 }
 
 // Weight grads: F[M,N] = A[K,M]^T @ B[K,N] in fp32, over K = all rows
@@ -340,10 +367,10 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
                                   int K, cudaStream_t stream) {
   const int splits = gemm_tn_splits(M, N, K);
   if (splits == 1)
-    return launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, nullptr, F, M, N, K,
-                                            1, stream);
-  cudaError_t e = launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, nullptr, ws,
-                                                   M, N, K, splits, stream);
+    return launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, nullptr, nullptr, F,
+                                            M, N, K, 1, stream);
+  cudaError_t e = launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, nullptr,
+                                                   nullptr, ws, M, N, K, splits, stream);
   if (e != cudaSuccess) return e;
   const size_t count = static_cast<size_t>(M) * N;
   const int blocks = static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
@@ -381,17 +408,27 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // scales, one per output row m), and cleared. Groups fold in order and the
 // product is a separate rounding (__fmul_rn, never contracted into the add),
 // as the plain twin adds them: no split, no atomics, the same bits each run.
+// kS8GroupF32T stores the same sum as F^T [N, M] (the save-acts backward's
+// dW2, whose group codes come as dW2^T's operands).
+//
+// The int8 save-acts tier (K12): given Q, kS8GeluQF32 also writes the
+// static-grid GELU' codes Q [M,N] of a1 (one instantiation for K4's forward
+// and K12-int8's, so the two compute gelu_q(a1) to the same bits), and
+// kS8GpqGrad reads them back, the row scale times 1.13/127 first, as
+// _ln_mlp_bwd_int8_save_kernel (pallas_kernels.py:802-806) orders it.
 // =============================================================================
 
 enum EpilogueS8 : int {
   kS8Bf16 = 0,         // C = bf16(acc*sr*sc (+ bias))
   kS8F32 = 1,          // F = acc*sr*sc (+ bias)
-  kS8GeluQF32 = 2,     // F = gelu_q(acc*sr*sc + bias)
+  kS8GeluQF32 = 2,     // F = gelu_q(a), a = acc*sr*sc + bias; Q (if set) = gp codes of gelu_grad_q(a)
   kS8GeluQAux = 3,     // F = acc*sr*sc + bias, C = bf16(gelu_q(F))
   kS8Residual = 4,     // C = R + bf16(acc*sr*sc + bias), the add in bf16
   kS8GeluQGrad = 5,    // F = acc*sr*sc * gelu_grad_q(Aux), C = bf16(F)
   kS8ResidualF32 = 6,  // C = bf16(f32(R) + acc*sr*sc + bias), the add in fp32
   kS8GroupF32 = 7,     // F = sum over groups z of f32(acc_z) * sr[z*M + m]
+  kS8GpqGrad = 8,      // F = acc*(sr*1.13/127)*sc * f32(Q), C = bf16(F); Q the saved gp codes
+  kS8GroupF32T = 9,    // kS8GroupF32 stored transposed: F[n*M + m]
 };
 
 constexpr int kS8BK = 64;          // K bytes a stage
@@ -433,8 +470,8 @@ __global__ void __launch_bounds__(kGemmThreads)
                    const float* __restrict__ sr, const float* __restrict__ sc,
                    const float* __restrict__ bias, const bf16* __restrict__ R,
                    const float* __restrict__ Aux, bf16* __restrict__ C, float* __restrict__ F,
-                   int M, int N, int K, int group_stages) {
-  constexpr bool kGroups = EPI == kS8GroupF32;
+                   int8_t* __restrict__ Q, int M, int N, int K, int group_stages) {
+  constexpr bool kGroups = EPI == kS8GroupF32 || EPI == kS8GroupF32T;
   __shared__ __align__(128) int8_t smem[4 * kS8Tile];  // A[2], B[2]
   int8_t* As[2] = {smem, smem + kS8Tile};
   int8_t* Bs[2] = {smem + 2 * kS8Tile, smem + 3 * kS8Tile};
@@ -522,13 +559,18 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = bn + wn + j * 8 + 2 * t;
-          if (col < N)
+          if (col >= N) continue;
+          if (EPI == kS8GroupF32T) {
+            F[static_cast<size_t>(col) * M + row] = facc[i][j][2 * h];
+            F[static_cast<size_t>(col + 1) * M + row] = facc[i][j][2 * h + 1];
+          } else {
             *reinterpret_cast<float2*>(F + static_cast<size_t>(row) * N + col) =
                 make_float2(facc[i][j][2 * h], facc[i][j][2 * h + 1]);
+          }
         }
         continue;
       }
-      const float srow = sr[row];
+      const float srow = EPI == kS8GpqGrad ? __fmul_rn(sr[row], kGpDequant) : sr[row];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = bn + wn + j * 8 + 2 * t;
@@ -538,11 +580,25 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           v[e] = static_cast<float>(acc[i][j][2 * h + e]) * srow * sc[col + e];
-          if (EPI != kS8GeluQGrad && bias != nullptr) v[e] += bias[col + e];
+          if (EPI != kS8GeluQGrad && EPI != kS8GpqGrad && bias != nullptr) v[e] += bias[col + e];
         }
-        if (EPI == kS8F32 || EPI == kS8GeluQF32 || EPI == kS8GeluQAux || EPI == kS8GeluQGrad) {
+        if (EPI == kS8GeluQF32 && Q != nullptr) {
+          const float2 gq = make_float2(gelu_grad_q(v[0]) * kGpQScale,
+                                        gelu_grad_q(v[1]) * kGpQScale);
+          char2 q2;
+          q2.x = static_cast<signed char>(fminf(fmaxf(rintf(gq.x), -127.f), 127.f));
+          q2.y = static_cast<signed char>(fminf(fmaxf(rintf(gq.y), -127.f), 127.f));
+          *reinterpret_cast<char2*>(Q + off) = q2;
+        }
+        if (EPI == kS8F32 || EPI == kS8GeluQF32 || EPI == kS8GeluQAux || EPI == kS8GeluQGrad ||
+            EPI == kS8GpqGrad) {
           float f[2] = {v[0], v[1]};
           if (EPI == kS8GeluQF32) f[0] = gelu_q(v[0]), f[1] = gelu_q(v[1]);
+          if (EPI == kS8GpqGrad) {
+            const char2 q2 = *reinterpret_cast<const char2*>(Q + off);
+            f[0] = v[0] * static_cast<float>(q2.x);
+            f[1] = v[1] * static_cast<float>(q2.y);
+          }
           if (EPI == kS8GeluQGrad) {
             const float2 a = *reinterpret_cast<const float2*>(Aux + off);
             f[0] = v[0] * gelu_grad_q(a.x);
@@ -552,7 +608,7 @@ __global__ void __launch_bounds__(kGemmThreads)
           v[0] = f[0], v[1] = f[1];
         }
         if (EPI == kS8Bf16 || EPI == kS8GeluQAux || EPI == kS8Residual || EPI == kS8GeluQGrad ||
-            EPI == kS8ResidualF32) {
+            EPI == kS8ResidualF32 || EPI == kS8GpqGrad) {
           float o[2] = {v[0], v[1]};
           if (EPI == kS8GeluQAux) o[0] = gelu_q(v[0]), o[1] = gelu_q(v[1]);
           if (EPI == kS8Residual) {
@@ -573,30 +629,37 @@ __global__ void __launch_bounds__(kGemmThreads)
 }
 
 // C/F[M,N] = epilogue(f32(A[M,K] @ B[N,K]^T) * sr[M] * sc[N] (+ bias[N])).
-// bias may be null (no bias); R, Aux, C, F as the epilogue reads/writes them.
+// bias may be null (no bias); R, Aux, C, F, Q as the epilogue reads/writes
+// them (Q: the int8 GELU' codes [M,N] of kS8GeluQF32, optional, and of
+// kS8GpqGrad).
 template <int EPI>
 cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* B, const float* sr, const float* sc,
                            const float* bias, const bf16* R, const float* Aux, bf16* C, float* F,
-                           int M, int N, int K, cudaStream_t stream) {
+                           int M, int N, int K, cudaStream_t stream, int8_t* Q = nullptr) {
   if (M == 0 || N == 0) return cudaSuccess;
-  if (K % 16 || N % 2 || EPI == kS8GroupF32) return cudaErrorInvalidValue;
+  if (K % 16 || N % 2 || EPI == kS8GroupF32 || EPI == kS8GroupF32T) return cudaErrorInvalidValue;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   gemm_s8_kernel<EPI>
-      <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, Aux, C, F, M, N, K, 0);
+      <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, Aux, C, F, Q, M, N, K, 0);
   return cudaGetLastError();
 }
 
 // The int8_dw product: F[M,N] = sum over groups z of f32(A_z @ B_z^T) * s[z*M + m],
 // A [M, K] and B [N, K] int8 with K = groups * gp, group z the K columns
-// [z*gp, (z+1)*gp) (zero past its rows); gp % 64 == 0.
+// [z*gp, (z+1)*gp) (zero past its rows); gp % 64 == 0. With `transpose`, F
+// is written as [N, M].
 inline cudaError_t launch_gemm_s8_groups(const int8_t* A, const int8_t* B, const float* s,
                                          float* F, int M, int N, int K, int gp,
-                                         cudaStream_t stream) {
+                                         cudaStream_t stream, bool transpose = false) {
   if (M == 0 || N == 0) return cudaSuccess;
   if (gp <= 0 || gp % kS8BK || K % gp || N % 2) return cudaErrorInvalidValue;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  gemm_s8_kernel<kS8GroupF32><<<grid, kGemmThreads, 0, stream>>>(
-      A, B, s, nullptr, nullptr, nullptr, nullptr, nullptr, F, M, N, K, gp / kS8BK);
+  if (transpose)
+    gemm_s8_kernel<kS8GroupF32T><<<grid, kGemmThreads, 0, stream>>>(
+        A, B, s, nullptr, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
+  else
+    gemm_s8_kernel<kS8GroupF32><<<grid, kGemmThreads, 0, stream>>>(
+        A, B, s, nullptr, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
   return cudaGetLastError();
 }
 

@@ -51,6 +51,10 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_flash_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
     "vitax_attention_core_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
     "vitax_attention_core_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "vitax_ln_mlp_save_fwd": [_P] * 11 + [_I, _I, _I, _F, _P],
+    "vitax_ln_mlp_bwd_fast": [_P] * 19 + [_I, _I, _I, _F, _P],
+    "vitax_ln_mlp_int8_save_fwd": [_P] * 18 + [_I, _I, _I, _F, _P],
+    "vitax_ln_mlp_int8_save_bwd": [_P] * 37 + [_I] * 5 + [_F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {

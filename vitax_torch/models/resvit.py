@@ -426,7 +426,8 @@ def _fused_attention_half_rect(x: torch.Tensor, xc: torch.Tensor, p: Params,
 def _mlp_half(h: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
     """LN2 + FFN + residual from the post-attention tensor h: row-wise, so
     it runs the same on the full [B,N,D] tensor and on a compacted [B,C,D]
-    gather of its rows. fused_mlp: K2 (K4 with int8_mlp)."""
+    gather of its rows. fused_mlp: K2 (K4 with int8_mlp; K12 under
+    autograd with fused_mlp_save, as vitax's fused_ln_mlp dispatches)."""
     ffp = p["feed_forward"]
     if cfg.fused_mlp:
         w1 = ffp["fc1"]["kernel"].to(h.dtype)
@@ -439,8 +440,9 @@ def _mlp_half(h: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
             if cfg.int8_mlp:
                 return ck.fused_ln_mlp_int8(*args,
                                             int8_grad=cfg.int8_mlp_grad,
-                                            int8_dw=cfg.int8_dw)
-            return ck.fused_ln_mlp(*args)
+                                            int8_dw=cfg.int8_dw,
+                                            save_acts=cfg.fused_mlp_save)
+            return ck.fused_ln_mlp(*args, save_acts=cfg.fused_mlp_save)
     return h + feed_forward(layer_norm(h, p["ffn_norm"]["scale"],
                                        p["ffn_norm"]["bias"], cfg.norm_eps,
                                        use_kernels=cfg.use_pallas), ffp)

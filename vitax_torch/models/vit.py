@@ -260,8 +260,9 @@ def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
 
 def _fused_block_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig
                      ) -> Optional[torch.Tensor]:
-    """LN2 + fc1 + GELU + fc2 + residual through the fused K2 kernel.
-    Returns None when the gate rejects."""
+    """LN2 + fc1 + GELU + fc2 + residual through the fused K2 kernel (K4
+    with int8_mlp; K12 under autograd with fused_mlp_save, vitax's dispatch,
+    pallas_kernels.py:2156-2166). Returns None when the gate rejects."""
     w1 = lp["mlp"]["fc1"]["kernel"].to(x.dtype)
     w2 = lp["mlp"]["fc2"]["kernel"].to(x.dtype)
     if not ck.ln_mlp_supported(x, w1, w2):
@@ -271,8 +272,9 @@ def _fused_block_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig
             w2, lp["mlp"]["fc2"]["bias"].float(), LN_EPS)
     if cfg.int8_mlp:  # W8A8 fc1/fc2 (vitax/models/vit.py:289-298)
         return ck.fused_ln_mlp_int8(*args, int8_grad=cfg.int8_mlp_grad,
-                                    int8_dw=cfg.int8_dw)
-    return ck.fused_ln_mlp(*args)
+                                    int8_dw=cfg.int8_dw,
+                                    save_acts=cfg.fused_mlp_save)
+    return ck.fused_ln_mlp(*args, save_acts=cfg.fused_mlp_save)
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,

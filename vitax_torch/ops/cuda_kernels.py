@@ -61,6 +61,13 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   `..._int8_gqa_dw_bwd` -> the two int8 sources above with kv_heads <
   heads -> the `kv_heads` branches of :2690 and :2977 (K7's int8 tier);
   the K3 wrappers route to them with `kv_heads=`
+- `fused_ln_mlp_save`, `fused_ln_mlp_bwd_fast` -> ln_mlp_save.cu ->
+  `_ln_mlp_fwd_save_kernel` :620, `_ln_mlp_bwd_fast_kernel` :1245 (K12,
+  pallas_calls :1687, :1723)
+- `fused_ln_mlp_int8_save`, `fused_ln_mlp_int8_save_bwd`,
+  `fused_ln_mlp_int8_save_dw_bwd` -> ln_mlp_int8_save.cu (+ dw_int8.cuh) ->
+  `_ln_mlp_fwd_int8_save_kernel` :732, `_ln_mlp_bwd_int8_save_kernel` :778
+  and its `int8_dw` branch :816-830 (K12 int8, pallas_calls :2025, :2066)
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -72,9 +79,11 @@ whose backward is the matching `*_bwd` wrapper: the int8 one under
 with GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
 backward is the two int8 backwards; K8's is `FusedLnQkvoAttentionRectFn`,
 whose backward is one of K8's three; K6's is `FusedLnQkvoAttentionFlashFn`;
-K13's `FlashAttentionFn`. As vitax's custom VJPs, each Function saves only
-its inputs (K13's also its output, as vitax's) and recomputes the rest in
-the backward; its grads
+K13's `FlashAttentionFn`; K12's `FusedLnMlpSaveFn`, which `fused_ln_mlp`
+and `fused_ln_mlp_int8` take under `save_acts` (vitax's dispatch: bf16, or
+int8 with `int8_grad`). As vitax's custom VJPs, each Function saves only
+its inputs (K13's also its output, K12's the activations its forward
+kept, as vitax's) and recomputes the rest in the backward; its grads
 come back in the dtypes of the Pallas VJPs (weight grads in the weight's
 dtype, LN and bias grads in fp32).
 
@@ -89,6 +98,7 @@ vitax to its XLA path.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -96,10 +106,11 @@ import torch
 from vitax_torch.kernels import build
 from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm_ref
-from vitax_torch.ops.mlp import (gelu_exact, gelu_exact_grad, gelu_grad_q,
-                                 gelu_q)
-from vitax_torch.ops.quant import (int_mm, quant_cols, quant_cols_host,
-                                   quant_rows, quant_rows_host)
+from vitax_torch.ops.mlp import (GP_DEQUANT, GP_QSCALE, gelu_exact,
+                                 gelu_exact_grad, gelu_grad_q, gelu_q)
+from vitax_torch.ops.quant import (int_mm, pack_i8, quant_cols,
+                                   quant_cols_host, quant_rows,
+                                   quant_rows_host)
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt into (227 KB)
 ATTN_HEAD_DIMS = (32, 64, 128)
@@ -307,20 +318,48 @@ def ln_mlp_supported(x, w1, w2) -> bool:
     return d % 32 == 0 and m % 32 == 0
 
 
-def fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps):
-    """x + bf16(fc2(bf16(GELU(fc1(bf16(LN(x))))))) with the TPU kernel's
-    rounding points (pallas_kernels.py:603-615)."""
+def _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps):
+    """(out, a1, h1) of K2's twin."""
     xn = layer_norm_ref(x, gamma, beta, eps)
     a1 = matmul_f32(xn, w1) + b1.float()
     h1 = gelu_exact(a1).to(x.dtype)
     y = matmul_f32(h1, w2) + b2.float()
-    return x + y.to(x.dtype)
+    return x + y.to(x.dtype), a1, h1
 
 
-def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps):
+def fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps):
+    """x + bf16(fc2(bf16(GELU(fc1(bf16(LN(x))))))) with the TPU kernel's
+    rounding points (pallas_kernels.py:603-615)."""
+    return _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps)[0]
+
+
+@functools.cache
+def _notice(msg: str) -> None:
+    """Prints `msg` once a process."""
+    print(msg, flush=True)
+
+
+def save_acts_fits(d: int) -> bool:
+    """vitax's save-acts gate (fused_ln_mlp, pallas_kernels.py:2139-2147):
+    off above MLP_MONO_MAX_D, where the MLP half keeps K2's recompute and its
+    wide backward; says so once a process."""
+    if d <= MLP_MONO_MAX_D:
+        return True
+    _notice(f"save-acts is off above d {MLP_MONO_MAX_D} (d {d}), as in vitax: "
+            "the MLP half recomputes in its backward (fused_ln_mlp_bwd_wide)")
+    return False
+
+
+def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps, save_acts=False):
     """out = x + fc2(GELU_exact(fc1(LN(x)))) for x [..., D]; x.dtype out.
-    Weights bf16 [D,M], [M,D]; gamma/beta/b1/b2 fp32."""
+    Weights bf16 [D,M], [M,D]; gamma/beta/b1/b2 fp32. Under autograd,
+    `save_acts` takes K12's save pair (`FusedLnMlpSaveFn`) where
+    `save_acts_fits`; a call that needs no grad is K2's forward, whose out
+    the save forward reproduces bit for bit."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
+        if save_acts and save_acts_fits(x.shape[-1]):
+            return FusedLnMlpSaveFn.apply(x, gamma, beta, w1, b1, w2, b2, eps,
+                                          False, False)
         return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, False,
                                   False, False)
     if not x.is_cuda:
@@ -1452,6 +1491,11 @@ def fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
     y = f32(h1q·W2q)·sh·s2 + b2, out = x + bf16(y) in x.dtype. A `scratch`
     dict receives every (codes, scale) pair, as the kernel's wrapper fills
     it."""
+    return _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch)[0]
+
+
+def _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch):
+    """(out, a1, h1q, sh) of K4's twin."""
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
     w1q, s1 = quant_cols_host(w1)
@@ -1462,17 +1506,23 @@ def fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
     h1q, sh = quant_rows(gelu_q(a1))
     y = _dequant(int_mm(h1q, w2q), sh, s2, b2)
     _keep(scratch, w1q=(w1q, s1), w2q=(w2q, s2), xq=(xq, sx), h1q=(h1q, sh))
-    return (x2 + y.to(x.dtype)).reshape(x.shape)
+    return (x2 + y.to(x.dtype)).reshape(x.shape), a1, h1q, sh
 
 
 def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
-                      int8_dw=False, *, scratch=None):
+                      int8_dw=False, save_acts=False, *, scratch=None):
     """`fused_ln_mlp` with W8A8 fc1 and fc2 and the sigmoid GELU (K4).
     Under autograd the backward is K4's int8 dx-path backward with
     `int8_grad` (with its int8 weight grads under `int8_dw`), else the bf16
-    K2 backward. A `scratch` dict receives the codes and scales the kernel
-    wrote, keyed and laid out as the twin's."""
+    K2 backward; `int8_grad` with `save_acts` takes K12's int8 save pair
+    (`FusedLnMlpSaveFn`), and `save_acts` alone changes nothing, as in
+    vitax's dispatch (pallas_kernels.py:2156-2166). A `scratch` dict
+    receives the codes and scales the kernel wrote, keyed and laid out as
+    the twin's."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
+        if int8_grad and save_acts:
+            return FusedLnMlpSaveFn.apply(x, gamma, beta, w1, b1, w2, b2, eps,
+                                          True, int8_dw)
         return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, True,
                                   int8_grad, int8_dw)
     if not x.is_cuda:
@@ -1648,6 +1698,329 @@ def fused_ln_mlp_int8_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
 
 
 fused_ln_mlp_int8_dw_bwd.launches = 0
+
+
+# =============================================================================
+# K12 — the save-acts MLP half, bf16 and int8: the forward also writes what
+# the backward needs (h1 and g', or h1q, sh and gpq) and the backward reads
+# it instead of recomputing fc1 (vitax's fused_ln_mlp(save_acts=True),
+# pallas_kernels.py:2123-2169, custom VJPs :1985-2004 and :2100-2118)
+# =============================================================================
+
+_SAVE_DTYPES = {"x": _BF, "do": _BF, "gamma": _F32, "beta": _F32, "w1": _BF,
+                "b1": _F32, "w2": _BF, "b2": _F32, "h1": _BF, "gp": _BF,
+                "h1q": torch.int8, "sh": _F32, "gpq": torch.int8}
+
+
+def _check_save(name, tensors, shapes):
+    """K12's launch checks: device, dtypes and contiguity of `tensors`, the
+    GEMM shapes of x, w1 and w2, and each tensor of `shapes` {key: shape}.
+    Returns (dev, x as [N, D])."""
+    x, w1, w2 = tensors["x"], tensors["w1"], tensors["w2"]
+    dev = _check_cuda(name, tensors, {k: _SAVE_DTYPES[k] for k in tensors})
+    x2 = x.view(-1, x.shape[-1])
+    if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
+        raise ValueError(f"{name}: unsupported shapes x {tuple(x.shape)} w1 "
+                         f"{tuple(w1.shape)} w2 {tuple(w2.shape)}")
+    for key, shape in shapes.items():
+        _check_shape(name, key, tensors[key], shape)
+    return dev, x2
+
+
+def fused_ln_mlp_save_ref(x, gamma, beta, w1, b1, w2, b2, eps):
+    """K12's forward with the TPU kernel's rounding points
+    (_ln_mlp_fwd_save_kernel, pallas_kernels.py:620-656): K2's out, and
+    h1 = bf16(gelu(a1)) and g' = bf16(gelu'(a1)) [N, M] in x.dtype, g' the
+    exact-erf derivative in fp32 (:577-584)."""
+    out, a1, h1 = _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps)
+    m = w1.shape[-1]
+    return (out, h1.reshape(-1, m),
+            gelu_exact_grad(a1).to(x.dtype).reshape(-1, m))
+
+
+def fused_ln_mlp_save(x, gamma, beta, w1, b1, w2, b2, eps):
+    """K12's forward (:1687): (out, h1, g'), out `fused_ln_mlp`'s to the bit
+    (the same launches compute it), h1 and g' bf16 [N, M] for
+    `fused_ln_mlp_bwd_fast`."""
+    if not x.is_cuda:
+        return fused_ln_mlp_save_ref(x, gamma, beta, w1, b1, w2, b2, eps)
+    d, m = w1.shape
+    n = x.numel() // d
+    dev, x2 = _check_save(
+        "fused_ln_mlp_save", dict(x=x, gamma=gamma, beta=beta, w1=w1, b1=b1,
+                                  w2=w2, b2=b2),
+        dict(gamma=(d,), beta=(d,), b1=(m,), b2=(d,)))
+    xn, h1, gp = _bf(dev, n, d), _bf(dev, n, m), _bf(dev, n, m)
+    out = torch.empty_like(x2)
+    rc = build.load().vitax_ln_mlp_save_fwd(*(t.data_ptr() for t in (
+        x2, gamma, beta, w1, b1, w2, b2, xn, h1, gp, out)), n, d, m, eps,
+        _stream(dev))
+    build.check(rc, "fused_ln_mlp_save")
+    fused_ln_mlp_save.launches += 1
+    return out.view(x.shape), h1, gp
+
+
+fused_ln_mlp_save.launches = 0
+
+
+def fused_ln_mlp_bwd_fast_ref(x, gamma, beta, w1, w2, h1, gp, do, eps):
+    """(dx, dγ, dβ, dW1, db1, dW2, db2) from the saved h1 and g' with the
+    TPU kernel's rounding points (_ln_mlp_bwd_fast_kernel, pallas_kernels.py:
+    1253-1290): dh1 = x.dtype(f32(do·W2ᵀ)·f32(g')), db1 over the rounded dh1,
+    dx = do + bf16(dx_ln) in x.dtype; only the LN statistics recomputed."""
+    dt = x.dtype
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    do2 = do.reshape(-1, d)
+    xhat, rstd = _ln_stats(x2.float(), eps)
+    xn = (xhat * gamma.float() + beta.float()).to(dt)
+    dh1 = (matmul_f32(do2, w2.t()) * gp.float()).to(dt)
+    dxn = matmul_f32(dh1, w1.t())
+    dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
+    return ((do2 + dxln.to(dt)).reshape(x.shape), dg, dbe,
+            matmul_f32(xn.t(), dh1), dh1.float().sum(dim=0),
+            matmul_f32(h1.t(), do2), do2.float().sum(dim=0))
+
+
+def fused_ln_mlp_bwd_fast(x, gamma, beta, w1, w2, h1, gp, do, eps):
+    """K12's backward (:1723) from `fused_ln_mlp_save`'s h1 and g': dx (x's
+    shape, bf16) and fp32 dγ, dβ [D], dW1 [D,M], db1 [M], dW2 [M,D],
+    db2 [D]."""
+    if not x.is_cuda:
+        return fused_ln_mlp_bwd_fast_ref(x, gamma, beta, w1, w2, h1, gp, do,
+                                         eps)
+    d, m = w1.shape
+    n = x.numel() // d
+    dev, x2 = _check_save(
+        "fused_ln_mlp_bwd_fast", dict(x=x, gamma=gamma, beta=beta, w1=w1,
+                                      w2=w2, h1=h1, gp=gp, do=do),
+        dict(gamma=(d,), beta=(d,), h1=(n, m), gp=(n, m), do=tuple(x.shape)))
+    lib = build.load()
+    dx, dg, dbe = _bf(dev, n, d), _f32(dev, d), _f32(dev, d)
+    dw1, db1, dw2, db2 = (_f32(dev, d, m), _f32(dev, m), _f32(dev, m, d),
+                          _f32(dev, d))
+    xn, dh1, dxn = _bf(dev, n, d), _bf(dev, n, m), _f32(dev, n, d)
+    ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
+    rc = lib.vitax_ln_mlp_bwd_fast(*(t.data_ptr() for t in (
+        x2, gamma, beta, w1, w2, h1, gp, do, dx, dg, dbe, dw1, db1, dw2, db2,
+        xn, dh1, dxn, ws)), n, d, m, eps, _stream(dev))
+    build.check(rc, "fused_ln_mlp_bwd_fast")
+    fused_ln_mlp_bwd_fast.launches += 1
+    return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
+
+
+fused_ln_mlp_bwd_fast.launches = 0
+
+
+def _gp_scale(like):
+    """gpq's one static scale, for `scratch`."""
+    return torch.full((1,), GP_DEQUANT, dtype=_F32, device=like.device)
+
+
+def fused_ln_mlp_int8_save_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
+                               scratch=None):
+    """K12-int8's forward with the TPU kernel's rounding points
+    (_ln_mlp_fwd_int8_save_kernel, pallas_kernels.py:741-775): K4's out, its
+    h1q [N, M] and row scales sh [N] (vitax keeps sh as [N, 128] equal
+    lanes), and gpq = clip(round(gelu_grad_q(a1)·127/1.13)) int8 [N, M]."""
+    out, a1, h1q, sh = _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps,
+                                         scratch)
+    gpq = pack_i8(gelu_grad_q(a1) * GP_QSCALE)
+    _keep(scratch, gpq=(gpq, _gp_scale(gpq)))
+    return out, h1q, sh.reshape(-1), gpq
+
+
+def fused_ln_mlp_int8_save(x, gamma, beta, w1, b1, w2, b2, eps, *,
+                           scratch=None):
+    """K12-int8's forward (:2025): (out, h1q, sh, gpq), out
+    `fused_ln_mlp_int8`'s to the bit (the same launches compute it). A
+    `scratch` dict receives the codes, keyed and laid out as the twin's."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_save_ref(x, gamma, beta, w1, b1, w2, b2, eps,
+                                          scratch=scratch)
+    d, m = w1.shape
+    n = x.numel() // d
+    dev, x2 = _check_save(
+        "fused_ln_mlp_int8_save", dict(x=x, gamma=gamma, beta=beta, w1=w1,
+                                       b1=b1, w2=w2, b2=b2),
+        dict(gamma=(d,), beta=(d,), b1=(m,), b2=(d,)))
+    w1t, s1 = _i8(dev, m, d), _f32(dev, m)  # per column, as [N, K]
+    w2t, s2 = _i8(dev, d, m), _f32(dev, d)
+    xq, sx, g = _i8(dev, n, d), _f32(dev, n), _f32(dev, n, m)
+    h1q, sh, gpq = _i8(dev, n, m), _f32(dev, n), _i8(dev, n, m)
+    out = torch.empty_like(x2)
+    rc = build.load().vitax_ln_mlp_int8_save_fwd(*(t.data_ptr() for t in (
+        x2, gamma, beta, w1, b1, w2, b2, w1t, s1, w2t, s2, xq, sx, g, h1q, sh,
+        gpq, out)), n, d, m, eps, _stream(dev))
+    build.check(rc, "fused_ln_mlp_int8_save")
+    fused_ln_mlp_int8_save.launches += 1
+    _keep(scratch, w1q=(w1t.t(), s1), w2q=(w2t.t(), s2), xq=(xq, sx),
+          h1q=(h1q, sh), gpq=(gpq, _gp_scale(gpq)))
+    return out.view(x.shape), h1q, sh, gpq
+
+
+fused_ln_mlp_int8_save.launches = 0
+
+
+def fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh, gpq, do,
+                                   eps, *, int8_dw=False, group=None,
+                                   scratch=None):
+    """(dx, dγ, dβ, dW1, db1, dW2, db2) from the saved codes with the TPU
+    kernel's rounding points (_ln_mlp_bwd_int8_save_kernel,
+    pallas_kernels.py:789-864): dh1_32 = f32(doq·W2rᵀ)·(sdo·1.13/127)·s2r·
+    f32(gpq), dxn = f32(dh1q·W1rᵀ)·sd·s1r, db1 = Σ dh1_32; dW2 =
+    x.dtype(h1q)ᵀ·x.dtype(sh·do) and dW1 = xnᵀ·x.dtype(dh1_32), or with
+    `int8_dw` the per-group int8 products over `group` rows (MLP_DW_GROUP by
+    default): dW2 from h1q and the column codes of sh·do, dW1 from the
+    column codes of xn·sd and dh1q."""
+    dt = x.dtype
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    do2 = do.reshape(-1, d)
+    sh = sh.reshape(-1, 1)
+    w1r, s1r = quant_rows_host(w1)
+    w2r, s2r = quant_rows_host(w2)
+    xhat, rstd = _ln_stats(x2.float(), eps)
+    xn = _affine(xhat, gamma, beta).to(dt)
+    doq, sdo = quant_rows(do2.float())
+    dh1_32 = (_dequant(int_mm(doq, w2r.t()), sdo * GP_DEQUANT, s2r)
+              * gpq.float())
+    dh1q, sd = quant_rows(dh1_32)
+    if int8_dw:
+        group = group or MLP_DW_GROUP
+        dw2t, doc = _dw_int8(do2, sh, h1q, group)
+        dw2 = dw2t.t()
+        dw1, xnc = _dw_int8(xn, sd, dh1q, group)
+        _keep(scratch, doc=doc, xnc=xnc)
+    else:
+        dw2 = matmul_f32(h1q.to(dt).t(), (sh * do2.float()).to(dt))
+        dw1 = matmul_f32(xn.t(), dh1_32.to(dt))
+    dxn = _dequant(int_mm(dh1q, w1r.t()), sd, s1r)
+    dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
+    _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), doq=(doq, sdo),
+          dh1q=(dh1q, sd))
+    return ((do2 + dxln.to(dt)).reshape(x.shape), dg, dbe, dw1,
+            dh1_32.sum(dim=0), dw2, do2.float().sum(dim=0))
+
+
+def fused_ln_mlp_int8_save_dw_bwd_ref(x, gamma, beta, w1, w2, h1q, sh, gpq,
+                                      do, eps, *, scratch=None):
+    """The twin of `fused_ln_mlp_int8_save_dw_bwd`: int8_dw at the port's
+    group (MLP_DW_GROUP rows)."""
+    return fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh,
+                                          gpq, do, eps, int8_dw=True,
+                                          group=MLP_DW_GROUP, scratch=scratch)
+
+
+def _ln_mlp_int8_save_bwd_cuda(name, x, gamma, beta, w1, w2, h1q, sh, gpq, do,
+                               eps, int8_dw, scratch):
+    """K12-int8's backward launch (ln_mlp_int8_save.cu)."""
+    d, m = w1.shape
+    n = x.numel() // d
+    dev, x2 = _check_save(
+        name, dict(x=x, gamma=gamma, beta=beta, w1=w1, w2=w2, h1q=h1q, sh=sh,
+                   gpq=gpq, do=do),
+        dict(gamma=(d,), beta=(d,), h1q=(n, m), sh=(n,), gpq=(n, m),
+             do=tuple(x.shape)))
+    lib = build.load()
+    w1r, s1r = _i8(dev, d, m), _f32(dev, d)  # per row
+    w2r, s2r = _i8(dev, m, d), _f32(dev, m)
+    dx, dg, dbe = torch.empty_like(x2), _f32(dev, d), _f32(dev, d)
+    dw1, db1, dw2, db2 = (_f32(dev, d, m), _f32(dev, m), _f32(dev, m, d),
+                          _f32(dev, d))
+    xn, doq, sdo = _bf(dev, n, d), _i8(dev, n, d), _f32(dev, n)
+    dh1f, dh1 = _f32(dev, n, m), _bf(dev, n, m)
+    dh1q, sdh, dxn = _i8(dev, n, m), _f32(dev, n), _f32(dev, n, d)
+    ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
+    if int8_dw:  # doct, sdoc, h1qt, xnct, sxn, dh1qt (dw_int8.cuh)
+        groups, kp = _dw_layout(n, MLP_DW_GROUP)
+        extra = [None, None, _i8(dev, d, kp), _f32(dev, groups, d),
+                 _i8(dev, m, kp), _i8(dev, d, kp), _f32(dev, groups, d),
+                 _i8(dev, m, kp)]
+    else:  # the bf16 dW2 operands, bf16(h1q) and bf16(sh·do)
+        extra = [_bf(dev, n, m), _bf(dev, n, d)] + [None] * 6
+    rc = lib.vitax_ln_mlp_int8_save_bwd(*(t.data_ptr() for t in (
+        x2, gamma, beta, w1, w2, h1q, sh, gpq, do, dx, dg, dbe, dw1, db1, dw2,
+        db2, w1r, s1r, w2r, s2r, xn, doq, sdo, dh1f, dh1, dh1q, sdh, dxn, ws)),
+        *(None if t is None else t.data_ptr() for t in extra),
+        n, d, m, MLP_DW_GROUP, int(int8_dw), eps, _stream(dev))
+    build.check(rc, name)
+    _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), doq=(doq, sdo),
+          dh1q=(dh1q, sdh))
+    if int8_dw:
+        _keep(scratch, doc=(_group_codes(extra[2], n, MLP_DW_GROUP), extra[3]),
+              xnc=(_group_codes(extra[5], n, MLP_DW_GROUP), extra[6]))
+    return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
+
+
+def fused_ln_mlp_int8_save_bwd(x, gamma, beta, w1, w2, h1q, sh, gpq, do, eps,
+                               *, scratch=None):
+    """K12-int8's backward (:2066, int8_dw off) from
+    `fused_ln_mlp_int8_save`'s codes: dx (x's shape, bf16) and fp32 dγ, dβ
+    [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh,
+                                              gpq, do, eps, scratch=scratch)
+    out = _ln_mlp_int8_save_bwd_cuda("fused_ln_mlp_int8_save_bwd", x, gamma,
+                                     beta, w1, w2, h1q, sh, gpq, do, eps,
+                                     False, scratch)
+    fused_ln_mlp_int8_save_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_save_bwd.launches = 0
+
+
+def fused_ln_mlp_int8_save_dw_bwd(x, gamma, beta, w1, w2, h1q, sh, gpq, do,
+                                  eps, *, scratch=None):
+    """`fused_ln_mlp_int8_save_bwd` under int8_dw (:2066's `int8_dw`
+    branch, :816-830): dW1 and dW2 per-group int8 products over groups of
+    MLP_DW_GROUP rows, int32 inside a group and fp32 across groups in order;
+    dW2 from h1q's codes and the column codes of sh·do (`scratch`: doc),
+    dW1 as K4's (xnc)."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_save_dw_bwd_ref(x, gamma, beta, w1, w2, h1q,
+                                                 sh, gpq, do, eps,
+                                                 scratch=scratch)
+    out = _ln_mlp_int8_save_bwd_cuda("fused_ln_mlp_int8_save_dw_bwd", x, gamma,
+                                     beta, w1, w2, h1q, sh, gpq, do, eps,
+                                     True, scratch)
+    fused_ln_mlp_int8_save_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_save_dw_bwd.launches = 0
+
+
+class FusedLnMlpSaveFn(torch.autograd.Function):
+    """The save-acts MLP half (vitax's _ln_mlp_2d_save :1985-2004 and
+    _ln_mlp_2d_int8s :2100-2118): the forward is K12's (`int8`: its W8A8
+    tier), which also hands out h1 and g' (or h1q, sh and gpq); it saves
+    them beside (x, γ, β, W1, W2), and the backward reads them: K12's
+    (`int8_dw`: its per-group int8 weight grads)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_dw):
+        fwd = fused_ln_mlp_int8_save if int8 else fused_ln_mlp_save
+        out, *acts = fwd(x, gamma, beta, w1, b1, w2, b2, eps)
+        ctx.save_for_backward(x, gamma, beta, w1, w2, *acts)
+        ctx.eps = eps
+        ctx.tier = (int8, int8_dw)
+        ctx.bias_dtypes = (b1.dtype, b2.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        x, gamma, beta, w1, w2, *acts = ctx.saved_tensors
+        int8, int8_dw = ctx.tier
+        bwd = (fused_ln_mlp_bwd_fast if not int8
+               else fused_ln_mlp_int8_save_dw_bwd if int8_dw
+               else fused_ln_mlp_int8_save_bwd)
+        dx, dg, dbe, dw1, db1, dw2, db2 = bwd(x, gamma, beta, w1, w2, *acts,
+                                              do.contiguous(), ctx.eps)
+        return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw1.to(w1.dtype),
+                db1.to(ctx.bias_dtypes[0]), dw2.to(w2.dtype),
+                db2.to(ctx.bias_dtypes[1]), None, None, None)
 
 
 def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
@@ -2755,4 +3128,6 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            flash_attention, flash_attention_bwd,
            fused_ln_qkvo_attention_int8_gqa,
            fused_ln_qkvo_attention_int8_gqa_bwd,
-           fused_ln_qkvo_attention_int8_gqa_dw_bwd)
+           fused_ln_qkvo_attention_int8_gqa_dw_bwd, fused_ln_mlp_save,
+           fused_ln_mlp_bwd_fast, fused_ln_mlp_int8_save,
+           fused_ln_mlp_int8_save_bwd, fused_ln_mlp_int8_save_dw_bwd)

@@ -47,6 +47,14 @@ def gelu_grad_q(a: torch.Tensor) -> torch.Tensor:
     return s * torch.addcmul(torch.ones_like(a), 1.702 * a, 1.0 - s)
 
 
+# The int8 save-acts tier's static grid for GELU' (vitax's _GP_AMAX,
+# pallas_kernels.py:723-729): |gelu_grad_q| <= 1.13, so its codes are
+# clip(round(g'·127/1.13)) with no scale to keep, read back as q·1.13/127.
+GP_AMAX = 1.13
+GP_QSCALE = 127.0 / GP_AMAX
+GP_DEQUANT = GP_AMAX / 127.0
+
+
 def mlp_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     h = matmul_f32(x, w1.to(x.dtype)) + b1.float()

@@ -10,7 +10,10 @@ fused kernels are on by default, forward and backward (`--no-fused-qkv`,
 `--no-fused-mlp` and `--no-pallas` turn them off); `--int8` runs their W8A8
 forward with the bf16 backward, `--int8-grad` the W8A8 backward too, and
 `--int8-dw` its int8 weight grads; with `--int8-grad` the token-drop phase
-(spq <= 128) hands each block's packed input over (K5). `--no-fused-qkv`
+(spq <= 128) hands each block's packed input over (K5). `--save-acts` keeps
+h1 and GELU'(a1) from the MLP half's forward for its backward (K12, bf16 or
+with `--int8-grad`; off above d 1024 and with `--int8` alone, as in
+vitax). `--no-fused-qkv`
 runs the attention half as the LN kernel, plain projections and K13 (the
 standalone attention core), forward and backward. With a fused half off
 vitax's automatic remat picks "selective" (vitax/train_cli.py:144); the
@@ -62,8 +65,6 @@ def _reject_unported(config) -> None:
          "Queue 1 item 3"),
         (config.int4 or config.int4_attn or config.int4_grad,
          "--int4/--int4-attn/--int4-grad", "the int4 kernels", "Queue 2 K11"),
-        (config.save_acts, "--save-acts", "the save-acts kernels",
-         "Queue 2 K12"),
         (config.remat in ("full", "selective"), f"--remat {config.remat}",
          "block rematerialization", "Queue 1 item 6"),
     ]
@@ -89,6 +90,7 @@ def model_config_from_cli(config, on_gpu: bool):
         fused_mlp=on_gpu if config.fused_mlp is None else config.fused_mlp,
         int8_mlp=int8, int8_attn=int8, int8_mlp_grad=int8_grad,
         int8_attn_grad=int8_grad, int8_dw=int8_dw,
+        fused_mlp_save=getattr(config, "save_acts", False),
         token_keep=config.token_keep,
         use_pallas=False if config.no_pallas else None)
 
