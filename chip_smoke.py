@@ -149,7 +149,24 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              at b32 (exact launches per step and eval batch: the student's
              MLP halves through K12, the teacher's through K2 or K4); the
              Res-ViT b32 steps (a) and (h) with and without it, and their
-             grads against the plain and int8 twin paths.
+             grads against the plain and int8 twin paths;
+13. int4    — the A4W4 tiers (K11): the MLP half's forward and backward and
+             the attention half's forward and int4_grad backward, each
+             backward with and without int8_dw, against their twins at
+             train_cli's b32 spq 200, the drop phase's b32 spq 104 and a
+             ragged case: the weights' codes the same bits, each int4
+             activation code tensor within 1e-3 of its codes moved by one
+             step, every output within ‖k − t‖/‖t‖ <= 2e-2, and the bf16
+             kernel on the same inputs at least 3x farther from the twin;
+             timed beside their int8 counterparts (K3, K4) in turns;
+             `train_cli` with each int4 flag set (`--int4` and `--int4-attn
+             --int4-grad --int8-dw` for 8 steps, `--int4-attn --int4-grad
+             --int8-grad`, `--int4-attn --int4-grad`, `--int4-grad` and
+             `--int4-attn` for 2), exact launches per step and eval batch
+             as vitax's dispatch picks them; logits and the grads of every
+             parameter on the int4 kernel path against the int4 twin path;
+             resident b32 steps of the bf16, `--int8-dw`, `--int4-attn
+             --int8-dw` and `--int4-attn --int4-grad --int8-dw` tiers.
 
 Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
 backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
@@ -303,6 +320,23 @@ KERNEL_INFO = {
                                    "vitax/ops/pallas_kernels.py:778"),
     "fused_ln_mlp_int8_save_dw_bwd": ("vitax_torch/csrc/ln_mlp_int8_save.cu",
                                       "vitax/ops/pallas_kernels.py:816"),
+    # int4 (K11): the int8 sources' L = 7 instantiations (the backwards'
+    # int8_dw branches counted apart)
+    "fused_ln_mlp_int4": ("vitax_torch/csrc/ln_mlp_int8.cu",
+                          "vitax/ops/pallas_kernels.py:961"),
+    "fused_ln_mlp_int4_bwd": ("vitax_torch/csrc/ln_mlp_int8_bwd.cu",
+                              "vitax/ops/pallas_kernels.py:1003"),
+    "fused_ln_mlp_int4_dw_bwd": ("vitax_torch/csrc/ln_mlp_int8_bwd.cu",
+                                 "vitax/ops/pallas_kernels.py:1057"),
+    "fused_ln_qkvo_attention_int4": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8.cu",
+        "vitax/ops/pallas_kernels.py:2745"),
+    "fused_ln_qkvo_attention_int4_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:2998"),
+    "fused_ln_qkvo_attention_int4_dw_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:3033"),
 }
 SAVE_KERNELS = ("fused_ln_mlp_save", "fused_ln_mlp_bwd_fast",
                 "fused_ln_mlp_int8_save", "fused_ln_mlp_int8_save_bwd",
@@ -3367,6 +3401,352 @@ def run_save_acts_slice(exp_root):
                                   for k, v in rv_ms.items()}}, grad_rows
 
 
+# ---------------------------------------------------------------- phase 13
+# int4 (K11, the A4W4 tiers of the plain ViT): the four kernels (the MLP
+# backward and the attention backward each with and without int8_dw) against
+# their twins at train_cli's b32 spq 200, the drop geometry b32 spq 104 and
+# a ragged row count (the MLP half on 3 x 197 rows, the attention half on
+# b3 spq 200 with 197 keys); the first case timed beside the int8
+# counterparts
+INT4_CASES = [("b32 spq200 (train_cli)", 32, 200, 197),
+              (DROP_CASE, 32, 104, 99),
+              ("ragged", 3, 200, 197)]
+# kernel -> (its int8 counterpart, timed in the same turns; the bf16 kernel
+# whose output stands in for one that skipped quantization)
+INT4_PAIRS = {
+    "fused_ln_mlp_int4": ("fused_ln_mlp_int8", "fused_ln_mlp"),
+    "fused_ln_mlp_int4_bwd": ("fused_ln_mlp_int8_bwd", "fused_ln_mlp_bwd"),
+    "fused_ln_mlp_int4_dw_bwd": ("fused_ln_mlp_int8_dw_bwd",
+                                 "fused_ln_mlp_bwd"),
+    "fused_ln_qkvo_attention_int4": ("fused_ln_qkvo_attention_int8",
+                                     "fused_ln_qkvo_attention"),
+    "fused_ln_qkvo_attention_int4_bwd": ("fused_ln_qkvo_attention_int8_bwd",
+                                         "fused_ln_qkvo_attention_bwd"),
+    "fused_ln_qkvo_attention_int4_dw_bwd": (
+        "fused_ln_qkvo_attention_int8_dw_bwd", "fused_ln_qkvo_attention_bwd"),
+}
+INT4_KERNELS = tuple(INT4_PAIRS)
+# int4 kernel vs twin, per output: ‖k − t‖/‖t‖ <= INT4_REL, and the bf16
+# kernel on the same inputs at least INT4_STAND_IN times farther from the
+# twin on every output a quantizer reaches (all but Σ do), or the check
+# does not tell a kernel that skipped quantization apart
+INT4_REL, INT4_STAND_IN = 2e-2, 3.0
+# codes moved from the twin's, (largest step, share): the int4 activation
+# codes move one step where an ulp of their input sits next to a .5 tie (a
+# step is 1/7 of the row's largest value); do's codes quantize the same bf16
+# input, the same bits; the int8_dw column codes (8 bits) as CODE_BAND's,
+# but one moved xq code of K11-D's recompute moves the keys and values of
+# its whole image, so attn's and dqkv's column codes in that image's group
+# move up to 3 steps (a card test: one xq code of 2.6e6 at b32 spq 104
+# moved 1.6e-3 of atc's and 1.7e-3 of dqc's codes)
+INT4_CODE_BAND = {"xq": (1, 1e-3), "h1q": (1, 1e-3), "dh1q": (1, 1e-3),
+                  "aq": (1, 1e-3), "dqq": (1, 1e-3), "doq": (0, 0.0),
+                  "doc": (0, 0.0), "h1c": (2, 1e-3), "xnc": (2, 1e-3),
+                  "dh1c": (2, 1e-3), "atc": (4, 5e-3), "dqc": (4, 5e-3)}
+# the tiers of train_cli: each int4 flag set, with the per-step launches of
+# vitax's dispatch; the first two for TRAIN_STEPS steps, the others for
+# INT4_SHORT steps
+INT4_SHORT, INT4_SHORT_SAMPLES = 2, 64
+_T4 = {"attn": "fused_ln_qkvo_attention", "mlp": "fused_ln_mlp"}
+INT4_RUNS = {
+    "--int4": (TRAIN_STEPS, dict(attn="_int8", mlp="_int4"),
+               dict(attn="_bwd", mlp="_bwd")),
+    "--int4-attn --int4-grad --int8-dw": (
+        TRAIN_STEPS, dict(attn="_int4", mlp="_int4"),
+        dict(attn="_int4_dw_bwd", mlp="_int4_dw_bwd")),
+    "--int4-attn --int4-grad --int8-grad": (
+        INT4_SHORT, dict(attn="_int4", mlp="_int4"),
+        dict(attn="_int4_bwd", mlp="_int4_bwd")),
+    "--int4-attn --int4-grad": (INT4_SHORT, dict(attn="_int4", mlp="_int4"),
+                                dict(attn="_bwd", mlp="_int4_bwd")),
+    "--int4-grad": (INT4_SHORT, dict(attn="_int8", mlp="_int4"),
+                    dict(attn="_bwd", mlp="_int4_bwd")),
+    "--int4-attn": (INT4_SHORT, dict(attn="_int4", mlp="_int4"),
+                    dict(attn="_bwd", mlp="_bwd")),
+}
+
+
+def _int4_calls(ck, t, seq_len, ragged):
+    """int4 kernel name -> its arguments (the ragged MLP rows cut to
+    seq_len a image)."""
+    x, do = t["x"], t["do"]
+    if ragged:
+        x, do = x[:, :seq_len].contiguous(), do[:, :seq_len].contiguous()
+    mlp = (x, t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"])
+    qkvo = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"])
+    tail = (EPS, seq_len, HEADS, HEAD_DIM)
+    return {"fused_ln_mlp_int4": (*mlp, t["b2"], EPS),
+            "fused_ln_mlp_int4_bwd": (*mlp, do, EPS),
+            "fused_ln_mlp_int4_dw_bwd": (*mlp, do, EPS),
+            "fused_ln_qkvo_attention_int4": (*qkvo, t["bo"], *tail),
+            "fused_ln_qkvo_attention_int4_bwd": (*qkvo, t["do"], *tail),
+            "fused_ln_qkvo_attention_int4_dw_bwd": (*qkvo, t["do"], *tail)}
+
+
+def _check_int4(ck, name, label, args, stats):
+    """One int4 kernel against its twin on the same inputs: the codes (the
+    weights' and do's the same bits, the rest within INT4_CODE_BAND), every
+    output finite, of the twin's shape and dtype and within INT4_REL of it,
+    the bf16 kernel at least INT4_STAND_IN times farther on every output a
+    quantizer reaches."""
+    import torch
+    sk, st = {}, {}
+    outs = getattr(ck, name)(*args, scratch=sk)
+    torch.cuda.synchronize()
+    refs = getattr(ck, name + "_ref")(*args, scratch=st)
+    stand = getattr(ck, INT4_PAIRS[name][1])(*args)
+    if not isinstance(outs, tuple):
+        outs, refs, stand = (outs,), (refs,), (stand,)
+    if sk.keys() != st.keys():
+        raise AssertionError(f"{name} {label}: codes {sorted(sk)} vs "
+                             f"{sorted(st)}")
+    moves = {}
+    for key, (q, s) in st.items():
+        qk, s_k = sk[key]
+        if key.startswith("w"):
+            if not (torch.equal(qk, q) and torch.equal(s_k, s)):
+                raise AssertionError(f"{name} {label}: weight codes {key} "
+                                     "differ from the twin's")
+            continue
+        d = (qk.long() - q.long()).abs()
+        moves[key] = (d.max().item(), d.float().mean().item())
+    for out, ref in zip(outs, refs):
+        if not (bool(torch.isfinite(out).all()) and out.shape == ref.shape
+                and out.dtype == ref.dtype):
+            raise AssertionError(f"{name} {label}: {tuple(out.shape)} "
+                                 f"{out.dtype} vs {tuple(ref.shape)} "
+                                 f"{ref.dtype}, or not finite")
+    r_k = [_rel(o, r) for o, r in zip(outs, refs)]
+    r_s = [_rel(o, r) for o, r in zip(stand, refs)]
+    # Σ do (the last backward output) is reached by no quantizer
+    reached = range(len(r_k) - 1 if name.endswith("_bwd") else len(r_k))
+    ratio = min(r_s[i] / max(r_k[i], 1e-30) for i in reached)
+    print(f"  {name:36s} {label:22s} codes moved (max step, share) "
+          + " ".join(f"{k} {m[0]} {m[1]:.2e}" for k, m in moves.items())
+          + f"; ‖k−t‖/‖t‖ per output [{' '.join(f'{r:.2e}' for r in r_k)}]"
+          f" <= {INT4_REL}; bf16 kernel (stand-in) [{' '.join(f'{r:.2e}' for r in r_s)}]"
+          f", >= {INT4_STAND_IN}x: {ratio:.1f}x", flush=True)
+    st_ = stats[name]
+    st_["max_abs_err"] = max(st_["max_abs_err"], *(
+        (o.float() - r.float()).abs().max().item()
+        for o, r in zip(outs, refs)))
+    st_["worst_rel"] = max(st_.get("worst_rel", 0.0), *r_k)
+    st_["stand_in_ratio"] = min(st_.get("stand_in_ratio", 1e30), ratio)
+    for key, (top, share) in moves.items():
+        max_step, max_share = INT4_CODE_BAND[key]
+        if top > max_step or share > max_share:
+            raise AssertionError(f"{name} {label}: codes {key} moved {share} "
+                                 f"(largest step {top})")
+    if max(r_k) > INT4_REL:
+        raise AssertionError(f"{name} {label}: {max(r_k)} from the twin")
+    if ratio < INT4_STAND_IN:
+        raise AssertionError(f"{name} {label}: the bf16 kernel lands only "
+                             f"{ratio:.2f}x as far from the twin")
+
+
+def check_int4_kernels(stats):
+    """Phase 13, kernels: K11's four kernels (six wrappers) against their
+    twins at INT4_CASES, every output; at b32 spq 200 their CUDA-event
+    times beside their int8 counterparts', two turns (the second in reverse
+    order), and their twins' times."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in INT4_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    for i, (label, batch, rows, seq_len) in enumerate(INT4_CASES):
+        t = _save_inputs(batch, rows, None, seed=80 + i)
+        calls = _int4_calls(ck, t, seq_len, label == "ragged")
+        with torch.no_grad():
+            for name, args in calls.items():
+                _check_int4(ck, name, label, args, stats)
+            if i == 0:
+                timed = {}
+                for name, args in calls.items():
+                    timed[name] = lambda n=name, a=args: getattr(ck, n)(*a)
+                    int8 = INT4_PAIRS[name][0]
+                    timed[int8] = lambda n=int8, a=args: getattr(ck, n)(*a)
+                ms = {n: [] for n in timed}
+                for turn in range(2):
+                    for n, fn in (timed.items() if turn == 0
+                                  else reversed(timed.items())):
+                        ms[n].append(_median_ms(fn, warmup=2, iters=10))
+                for name, args in calls.items():
+                    stats[name].update(
+                        ms=min(ms[name]), shape=(batch, rows),
+                        int8_ms=min(ms[INT4_PAIRS[name][0]]),
+                        plain_ms=_median_ms(
+                            lambda n=name, a=args: getattr(ck, n + "_ref")(*a),
+                            warmup=1, iters=3))
+                print("  int4 kernels b32 spq200 (CUDA events, medians of 10, "
+                      "two turns, the second in reverse order): " + ", ".join(
+                          f"{n} {' / '.join(f'{v:.4f}' for v in ms[n])} ms"
+                          for n in timed) + "; twins " + ", ".join(
+                          f"{n} {stats[n]['plain_ms']:.4f}"
+                          for n in INT4_KERNELS), flush=True)
+        del t, calls
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _int4_expect(steps, evals, attn, mlp, attn_bwd, mlp_bwd):
+    """train_cli's launches of `steps` train steps and `evals` eval batches:
+    per step 12 of each half's forward and backward, one LN and LN
+    backward; an eval batch 12 of each forward and one LN."""
+    fwd = {_T4["attn"] + attn: 12 * (steps + evals),
+           _T4["mlp"] + mlp: 12 * (steps + evals)}
+    return _expect(layer_norm=steps + evals, layer_norm_bwd=steps, **fwd,
+                   **{_T4["attn"] + attn_bwd: 12 * steps,
+                      _T4["mlp"] + mlp_bwd: 12 * steps})
+
+
+@contextlib.contextmanager
+def _int4_twins(ck):
+    """The int4 twin path on the card: the int4 wrappers, which the model
+    and the autograd Functions call by their module names, swapped for
+    routes to their plain twins (the Functions keep vitax's tier logic),
+    the int4 backwards for their twins."""
+    saved = {n: getattr(ck, n) for n in INT4_KERNELS}
+
+    def mlp(*args, int8_grad=False, int8_dw=False, int4_grad=False):
+        if ck._needs_grad(*args[:7]):
+            return ck.FusedLnMlpFn.apply(*args, True, int8_grad, int8_dw,
+                                         True, int4_grad)
+        return ck.fused_ln_mlp_int4_ref(*args)
+
+    def attn(*args, int8_grad=False, int8_dw=False, int4_grad=False,
+             kv_heads=None):
+        if ck._needs_grad(*args[:7]):
+            return ck.FusedLnQkvoAttentionFn.apply(
+                *args, True, int8_grad, int8_dw, kv_heads, True, int4_grad)
+        return ck.fused_ln_qkvo_attention_int4_ref(*args)
+
+    ck.fused_ln_mlp_int4, ck.fused_ln_qkvo_attention_int4 = mlp, attn
+    for name in INT4_KERNELS:
+        if name.endswith("_bwd"):
+            setattr(ck, name, getattr(ck, name + "_ref"))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(ck, n, f)
+
+
+def run_int4_slice(exp_root):
+    """Phase 13, paths: train_cli with each int4 flag set (exact launches);
+    logits and the grads of every parameter for one batch on the int4
+    kernel path against the int4 twin path; resident-batch steps of the
+    bf16, int8-dw, int4 and int4-grad tiers in two turns."""
+    import torch
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import vit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.train import param_leaves
+    from vitax_torch.utils.memory import named_leaves
+
+    counts = {}
+    for flags, (steps, fwd, bwd) in INT4_RUNS.items():
+        samples = 256 if steps == TRAIN_STEPS else INT4_SHORT_SAMPLES
+        args = [{"--train-steps": str(steps),
+                 "--synthetic-samples": str(samples)}.get(prev, a)
+                for prev, a in zip([None] + TRAIN_ARGS, TRAIN_ARGS)]
+        expect = _int4_expect(steps, math.ceil(samples / TRAIN_BATCH),
+                              fwd["attn"], fwd["mlp"], bwd["attn"], bwd["mlp"])
+        ck.reset_launch_counts()
+        losses, valid, rate = _run_train(
+            args + ["--exp-root", exp_root] + flags.split(), steps=steps)
+        counts[flags] = ck.launch_counts()
+        print(f"int4: train_cli {flags} b32 losses "
+              f"{[round(v, 4) for v in losses]} valid {valid} {rate:.0f} "
+              f"img/s (host-fed) launches {_nonzero(counts[flags])}",
+              flush=True)
+        if counts[flags] != expect:
+            raise AssertionError(f"{flags}: expected launches "
+                                 f"{_nonzero(expect)}")
+
+    tier8 = dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                 int8_attn_grad=True, int8_dw=True)
+    cfg = arch_config("b16", image_size=224, num_classes=10,
+                      dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True,
+                      **tier8, int4_mlp=True, int4_attn=True, int4_grad=True)
+    bf16 = cfg.replace(int4_mlp=False, int4_attn=False, int4_grad=False,
+                       **{k: False for k in tier8})
+    params = vit.init_params(set_seed(0), cfg, "cuda")
+    names = [n for n, _ in named_leaves(params)]
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    batch = next(iter(get_dataloader("Synthetic", split="train",
+                                     image_size=224, batch_size=TRAIN_BATCH,
+                                     num_samples=256, seed=0)))
+    images = torch.from_numpy(batch.images).cuda().bfloat16()
+    labels = torch.from_numpy(batch.labels).cuda()
+    # the int4 kernel path against the int4 twin path (logits, and the
+    # grads of every parameter for one batch), and the bf16 path against
+    # the same twin path, at full width: cut to one layer, where the two
+    # int4 paths differ only where a code sits on a .5 tie, within the
+    # int8 bands; at all 12, where such a moved code (1/7 of its row's
+    # largest value) moves the next layers' codes in turn, held nearer to
+    # the twin path than the bf16 path is (on an H100: 1 layer 1.0e-4
+    # against 0.41 in logits, 12 layers 0.21 against 0.47; PERF.md)
+    dist = {}
+    for depth in (1, 12):
+        p_d = dict(params, layers=params["layers"][:depth])
+        n_d = [n for n in names if not n.startswith("layers/")
+               or int(n.split("/")[1]) < depth]
+        with torch.inference_mode():
+            lk = vit.apply(p_d, images, cfg)
+            with _int4_twins(ck):
+                lt = vit.apply(p_d, images, cfg)
+            lb = vit.apply(p_d, images, bf16)
+        ck.reset_launch_counts()
+        g_k = _grads(p_d, images, labels, cfg)
+        ran = _nonzero(ck.launch_counts())
+        with _int4_twins(ck):
+            g_t = _grads(p_d, images, labels, cfg)
+        g_b = _grads(p_d, images, labels, bf16)
+        rels, key_r = _grad_distances(n_d, g_k, g_t)
+        rels_b, _ = _grad_distances(n_d, g_b, g_t)
+        med = [statistics.median(r for r, _ in x) for x in (rels, rels_b)]
+        d_t = (lk - lt).abs().max().item()
+        band_t = LOGIT_BAND * max(1.0, lt.abs().max().item())
+        dist[depth] = (_rel(lk, lt), _rel(lb, lt), rels[0][0], *med)
+        finite = (bool(torch.isfinite(lk).all())
+                  and all(bool(torch.isfinite(g).all()) for g in g_k))
+        print(f"int4: --int4-attn --int4-grad --int8-dw b32, {depth} "
+              f"layer(s): logits max|kernel - twin| {d_t:.3e} (band "
+              f"{band_t:.3e}), ‖kernel − twin‖/‖twin‖ {dist[depth][0]:.3e}, "
+              f"bf16 path {dist[depth][1]:.3e}; grads of {len(n_d)} tensors "
+              f"(launches {ran}), worst |g_kernel - g_twin| / |g_twin|: "
+              + ", ".join(f"{r:.3e} ({n})" for r, n in rels[:3])
+              + f", median {med[0]:.3e} (bf16 path {med[1]:.3e}), key "
+              f"biases {key_r:.3e}", flush=True)
+        if (not finite or any(ran.get(n) != depth for n in INT4_KERNELS
+                              if "dw" in n or not n.endswith("_bwd"))):
+            raise AssertionError(f"int4 path, {depth} layers: launches or "
+                                 "values")
+        if depth == 1 and (d_t > band_t or rels[0][0] > INT8_GRAD_BAND
+                           or key_r > INT8_GRAD_BAND):
+            raise AssertionError("int4 kernel path outside its twin's band")
+        if depth == 12 and not (dist[12][0] < dist[12][1]
+                                and med[0] < med[1]):
+            raise AssertionError("int4 kernel path as far from its twin as "
+                                 "the bf16 path")
+        del g_k, g_t, g_b
+    torch.cuda.empty_cache()
+
+    no_int4 = dict(int4_mlp=False, int4_attn=False, int4_grad=False)
+    paths = [("bf16", cfg.replace(**no_int4, **{k: False for k in tier8})),
+             ("--int8-dw", cfg.replace(**no_int4)),
+             ("--int4-attn --int8-dw", cfg.replace(int4_grad=False)),
+             ("--int4-attn --int4-grad --int8-dw", cfg)]
+    runs = _time_steps(params, images, labels, paths + paths[::-1], iters=5)
+    del params
+    torch.cuda.empty_cache()
+    return counts, {k: [ms for n, ms in runs if n == k] for k, _ in paths}, \
+        dist
+
+
 # ---------------------------------------------------------------- bounds
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
@@ -3379,7 +3759,7 @@ def _work(name, batch, rows, extra=None, dims=None):
     read once, each output written once; the attention core over the padded
     rows. `extra`: K8's cpq (the gathered rows xc [batch, cpq, 768] in, the
     output on them), K7's kv heads. K6 and K2's backward at d > 1024 do
-    K1's and K2's work."""
+    K1's and K2's work, K11 K3's and K4's."""
     if name in RESVIT_KERNELS + TRAIN_RESVIT_KERNELS + INT8_GQA_KERNELS:
         return _resvit_work(name, batch, rows, extra)
     D, HEADS, HEAD_DIM, MLP = dims or B16
@@ -3392,6 +3772,8 @@ def _work(name, batch, rows, extra=None, dims=None):
     name = {"fused_ln_qkvo_attention_flash": "fused_ln_qkvo_attention",
             "fused_ln_qkvo_attention_flash_bwd": "fused_ln_qkvo_attention_bwd",
             "fused_ln_mlp_bwd_wide": "fused_ln_mlp_bwd"}.get(name, name)
+    # K11 does K3's and K4's work, its codes on the int4 grid in s8 products
+    name = name.replace("_int4", "_int8")
     n = batch * rows
     hhd = HEADS * HEAD_DIM
     act, w_attn, w_mlp = 2 * n * D, 2 * 4 * D * hhd, 2 * 2 * D * MLP
@@ -3624,6 +4006,31 @@ def main() -> int:
               f"{k} {r:.3e}" for k, r in grads12)
           + f"; phase 12 took {time.time() - t12:.1f} s [{card}]", flush=True)
 
+    print("phase 13, int4 (K11) vs plain:", flush=True)
+    t13 = time.time()
+    check_int4_kernels(stats)
+    try:
+        counts13, steps13, dist13 = run_int4_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("int4: kernels vs twin, worst ‖k−t‖/‖t‖ of any output and case "
+          f"<= {INT4_REL}, the bf16 kernel's nearest / the kernel's >= "
+          f"{INT4_STAND_IN}: " + ", ".join(
+              f"{n} {stats[n]['worst_rel']:.3e} / "
+              f"{stats[n]['stand_in_ratio']:.1f}x" for n in INT4_KERNELS)
+          + "; kernel / int8 counterpart b32 spq200 ms: " + ", ".join(
+              f"{n} {stats[n]['ms']:.4f} / {stats[n]['int8_ms']:.4f}"
+              for n in INT4_KERNELS)
+          + "; steps b32 (resident batch, CUDA-event medians, in turns, the "
+          "second in reverse order): " + "; ".join(
+              f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+              for k, ms in steps13.items())
+          + "; kernel path vs twin path (logits ‖Δ‖/‖t‖, the bf16 path's; "
+          "worst and median grad distance, the bf16 path's median): " + "; ".join(
+              f"{k} layer(s) {v[0]:.3e} / {v[1]:.3e}, {v[2]:.3e}, {v[3]:.3e} "
+              f"/ {v[4]:.3e}" for k, v in dist13.items())
+          + f"; phase 13 took {time.time() - t13:.1f} s [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
     # the fast recipe's (each runs every kernel of its tier), K7's and K8's
@@ -3660,7 +4067,18 @@ def main() -> int:
                  "fused_ln_mlp_int8_save_bwd": "--int8-grad --save-acts",
                  "fused_ln_mlp_int8_save_dw_bwd": "fast flags --save-acts"}
 
+    # phase 13: A, C and the int8_dw backwards from train_cli --int4-attn
+    # --int4-grad --int8-dw, the others from --int4-attn --int4-grad
+    # --int8-grad
+    int4_runs = dict.fromkeys(INT4_KERNELS,
+                              "--int4-attn --int4-grad --int8-dw")
+    int4_runs.update(dict.fromkeys(
+        ("fused_ln_mlp_int4_bwd", "fused_ln_qkvo_attention_int4_bwd"),
+        "--int4-attn --int4-grad --int8-grad"))
+
     def launches(name):
+        if name in int4_runs:
+            return counts13[int4_runs[name]][name]
         if name in save_runs:
             return counts12[save_runs[name]][name]
         if name in phase11_runs:

@@ -1062,3 +1062,124 @@ def test_save_acts_autograd_launches_its_pair(dev, tier):
         **dict.fromkeys(expect, 1), "fused_ln_mlp": 1}
     for t in leaves:
         assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# K11, the A4W4 tiers (int4 codes in int8, limit 7): each kernel against its
+# twin on every output, by its relative distance ‖k − t‖/‖t‖ <= 2e-2 (one
+# moved int4 code moves its row's product by 1/7 of a term, past the bf16
+# max-abs tolerance above, so the norm is the measure, as in chip_smoke.py);
+# its codes against the twin's: the weights' and do's the same bits (do is
+# the same bf16 input), each int4 activation code tensor within 1e-3 of its
+# codes moved, each by one step (a step is 1/7 of a row's largest value, so
+# an ulp moves a code only next to a .5 tie); the int8_dw column codes
+# within the int8 bands, but attn's and dqkv's up to 3 steps: one moved xq
+# code of K11-D's recompute moves the keys and values of its whole image
+# (one of 2.6e6 at b32 spq 104 moved 1.6e-3 of atc's codes, 1.7e-3 of
+# dqc's).
+
+INT4_FWD = ("fused_ln_qkvo_attention_int4", "fused_ln_mlp_int4")
+INT4_BWD = ("fused_ln_qkvo_attention_int4_bwd", "fused_ln_mlp_int4_bwd",
+            "fused_ln_qkvo_attention_int4_dw_bwd", "fused_ln_mlp_int4_dw_bwd")
+INT4_REL = 2e-2
+INT4_CODE_BAND = {"xq": (1, 1e-3), "h1q": (1, 1e-3), "dh1q": (1, 1e-3),
+                  "aq": (1, 1e-3), "dqq": (1, 1e-3), "h1c": (2, 1e-3),
+                  "xnc": (2, 1e-3), "dh1c": (2, 1e-3), "atc": (4, 5e-3),
+                  "dqc": (4, 5e-3)}
+# (batch, spq, seq_len, rows): train_cli's b32 spq 200, the drop phase's
+# spq 104, K11-A/B on ragged rows (3 x 197; the int8_dw rows padded to
+# vitax's groups: 591 rows in 5 groups of 128)
+INT4_SHAPES = [(32, 200, 197, None), (32, 104, 99, None), (3, 200, 197, 197)]
+
+
+def _int4_args(dev, batch, spq, seq, rows):
+    a = _int8_args(dev, batch, spq, seq, rows)
+    return {n: a[n.replace("int4", "int8").replace("_dw", "")]
+            for n in INT4_FWD + INT4_BWD}
+
+
+@pytest.mark.parametrize("shape", INT4_SHAPES)
+def test_int4_kernels_match_plain_twins(dev, shape):
+    args = _int4_args(dev, *shape)
+    names = INT4_FWD + INT4_BWD
+    if shape[3] is not None:  # ragged rows are the MLP half's
+        names = names[1::2]
+    ck.reset_launch_counts()
+    for name in names:
+        sk, st = {}, {}
+        with torch.no_grad():
+            outs = getattr(ck, name)(*args[name], scratch=sk)
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(*args[name], scratch=st)
+        if not isinstance(outs, tuple):
+            outs, refs = (outs,), (refs,)
+        assert len(outs) == len(refs) and sk.keys() == st.keys(), name
+        moves = {}
+        for key, (q, s) in st.items():
+            qk, s_k = sk[key]
+            assert qk.dtype == torch.int8 and qk.shape == q.shape, (name, key)
+            if key.startswith("w") or key in ("doq", "doc"):
+                assert torch.equal(qk, q) and torch.equal(s_k, s), (name, key)
+                continue
+            d = (qk.long() - q.long()).abs()
+            moves[key] = (d.max().item(), d.float().mean().item())
+        print(f"{name} {shape}: codes moved (max step, share) {moves}")
+        for key, (top, share) in moves.items():
+            max_step, max_share = INT4_CODE_BAND[key]
+            assert top <= max_step and share <= max_share, (name, key)
+        for i, (out, ref) in enumerate(zip(outs, refs)):
+            assert out.shape == ref.shape and out.dtype == ref.dtype
+            assert torch.isfinite(out).all()
+            rel = ((out.float() - ref.float()).norm()
+                   / ref.float().norm().clamp_min(1e-30)).item()
+            print(f"{name} output {i}: ‖k − t‖/‖t‖ {rel:.2e}")
+            assert rel <= INT4_REL, (name, i)
+        del outs, refs
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(names, 1)
+
+
+def test_int4_backward_kernels_are_deterministic(dev):
+    args = _int4_args(dev, 8, 200, 197, None)
+    for name in INT4_BWD:
+        with torch.no_grad():
+            a = getattr(ck, name)(*args[name])
+            b = getattr(ck, name)(*args[name])
+        for u, v in zip(a, b):
+            assert torch.equal(u, v), name
+
+
+# (half, flags of the int4 wrapper, the backward kernel vitax's dispatch
+# picks): the MLP's K11-B under int4_grad, else K4's under int8_grad, else
+# K2's; the attention half's K11-D only under int8_grad and int4_grad
+INT4_TIERS = [
+    ("mlp", {}, "fused_ln_mlp_bwd"),
+    ("mlp", dict(int8_grad=True), "fused_ln_mlp_int8_bwd"),
+    ("mlp", dict(int4_grad=True), "fused_ln_mlp_int4_bwd"),
+    ("mlp", dict(int4_grad=True, int8_dw=True), "fused_ln_mlp_int4_dw_bwd"),
+    ("attn", {}, "fused_ln_qkvo_attention_bwd"),
+    ("attn", dict(int4_grad=True), "fused_ln_qkvo_attention_bwd"),
+    ("attn", dict(int8_grad=True, int4_grad=True),
+     "fused_ln_qkvo_attention_int4_bwd"),
+    ("attn", dict(int8_grad=True, int4_grad=True, int8_dw=True),
+     "fused_ln_qkvo_attention_int4_dw_bwd"),
+]
+
+
+@pytest.mark.parametrize("half,flags,bwd", INT4_TIERS)
+def test_int4_autograd_picks_the_backward_of_its_tier(dev, half, flags, bwd):
+    name = "fused_ln_mlp_int4" if half == "mlp" else \
+        "fused_ln_qkvo_attention_int4"
+    args = _int4_args(dev, 2, 200, 197, None)[name]
+    ck.reset_launch_counts()
+    a = [t.detach().clone().requires_grad_() if torch.is_tensor(t) else t
+         for t in args]
+    y = getattr(ck, name)(*a, **flags)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    for t in a:
+        if torch.is_tensor(t):
+            assert t.grad.dtype == t.dtype
+            assert torch.isfinite(t.grad.float()).all()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {name: 1,
+                                                                  bwd: 1}

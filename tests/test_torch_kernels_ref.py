@@ -168,6 +168,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     _, *codes = ck.fused_ln_mlp_int8_save(*mlp, t["b2"], EPS)
     ck.fused_ln_mlp_int8_save_bwd(*mlp[:4], t["w2"], *codes, t["x"], EPS)
     ck.fused_ln_mlp_int8_save_dw_bwd(*mlp[:4], t["w2"], *codes, t["x"], EPS)
+    ck.fused_ln_mlp_int4(*mlp, t["b2"], EPS)
+    ck.fused_ln_mlp_int4_bwd(*mlp, t["x"], EPS)
+    ck.fused_ln_mlp_int4_dw_bwd(*mlp, t["x"], EPS)
+    ck.fused_ln_qkvo_attention_int4(*qkvo, t["bo"], EPS, SEQ, H, HD)
+    ck.fused_ln_qkvo_attention_int4_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
+    ck.fused_ln_qkvo_attention_int4_dw_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -200,7 +206,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_ln_mlp_bwd_fast": 0,
                                   "fused_ln_mlp_int8_save": 0,
                                   "fused_ln_mlp_int8_save_bwd": 0,
-                                  "fused_ln_mlp_int8_save_dw_bwd": 0}
+                                  "fused_ln_mlp_int8_save_dw_bwd": 0,
+                                  "fused_ln_mlp_int4": 0,
+                                  "fused_ln_mlp_int4_bwd": 0,
+                                  "fused_ln_mlp_int4_dw_bwd": 0,
+                                  "fused_ln_qkvo_attention_int4": 0,
+                                  "fused_ln_qkvo_attention_int4_bwd": 0,
+                                  "fused_ln_qkvo_attention_int4_dw_bwd": 0}
 
 
 def test_hopper_gates():

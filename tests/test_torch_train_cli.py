@@ -1,6 +1,6 @@
 """vitax_torch.train_cli on CPU: its epoch plan against vitax's, a tiny
 two-epoch run that writes `current`/`best`, exact resume, the .npz head
-re-init, and the flags whose paths are not ported yet.
+re-init, the flags whose paths are not ported yet, and the int4 flags.
 
 vitax's plan is read from the line its train_cli prints before it builds the
 optimizer (the run is stopped there); the port's comes from `plan_epochs`.
@@ -157,7 +157,6 @@ def test_npz_checkpoint_with_another_head_is_reinitialized(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--export-pth"], ["--n-gpu", "2"], ["--n-model", "2"], ["--device-prep"],
-    ["--int4-attn"], ["--int4"],
     ["--remat", "full"], ["--remat", "selective"],
     ["--checkpoint-path", "weights/model.pth"],
 ])
@@ -165,6 +164,31 @@ def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(TINY + ["--synthetic-samples", "8", "--exp-root",
                                str(tmp_path)] + flags, device="cpu")
+
+
+@pytest.mark.parametrize("flags,twins", [
+    (["--int4-attn"], ("fused_ln_mlp_int4_ref",
+                       "fused_ln_qkvo_attention_int4_ref")),
+    (["--int4"], ("fused_ln_mlp_int4_ref",
+                  "fused_ln_qkvo_attention_int8_ref"))])
+def test_int4_flags_train_through_the_int4_twins(flags, twins, tmp_path,
+                                                 monkeypatch):
+    """`--int4` and `--int4-attn`, which raised before K11 was ported, train
+    with the fused halves on: their forwards are the A4W4 twins (the
+    attention half's only with `--int4-attn`, else K3's), 3 layers x (a
+    step and an eval batch)."""
+    from vitax_torch.ops import cuda_kernels as ck
+    calls = dict.fromkeys(twins, 0)
+    for name in twins:
+        fn = getattr(ck, name)
+        monkeypatch.setattr(ck, name, lambda *a, _f=fn, _n=name, **k: (
+            calls.__setitem__(_n, calls[_n] + 1), _f(*a, **k))[1])
+    out = train_cli.main(TINY + [
+        "--fused-qkv", "--fused-mlp", "--batch-size", "8",
+        "--synthetic-samples", "8", "--train-steps", "1", "--warmup-steps",
+        "0", "--exp-root", str(tmp_path)] + flags, device="cpu")
+    assert np.isfinite(out["epochs"][0]["train"]["losses"]).all()
+    assert calls == dict.fromkeys(twins, 6)
 
 
 def test_model_config_from_cli_defaults_the_kernels_to_the_card():

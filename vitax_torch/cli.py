@@ -70,15 +70,16 @@ def _add_common(p: argparse.ArgumentParser, train: bool) -> None:
                         "(implies --int8; the bench config)")
     p.add_argument("--int4", action="store_true",
                    help="A4W4 int4 MLP forward matmuls (implies --int8 for "
-                        "the attention projections; deepest-PRECISION tier, "
-                        "~+3%% over int8, wide quantization band — see "
-                        "PERF.md before using for real training)")
+                        "the attention projections; deepest-precision tier, "
+                        "wide quantization band — see PERF.md before using "
+                        "for real training)")
     p.add_argument("--int4-attn", action="store_true",
                    help="A4W4 int4 qkv/out-projection forward matmuls too "
                         "(implies --int4; the attention core stays bf16)")
     p.add_argument("--int4-grad", action="store_true",
                    help="A4W4 int4 backward dx-path matmuls in the fused "
-                        "MLP too (implies --int4; dW stays >=8-bit). "
+                        "MLP too, and in the attention half with --int4-attn "
+                        "and --int8-grad (implies --int4; dW stays >=8-bit). "
                         "Deepest gradient tier — see PERF.md before using")
     p.add_argument("--int8-dw", action="store_true",
                    help="Jetfire per-block int8 dW matmuls in the MLP and "

@@ -2,9 +2,9 @@
 
 Counterpart of `vitax/core/config.py` with torch dtypes: the same fields,
 defaults, presets and dataset table, so a configuration means the same model
-in both packages. Fields of tiers the port has not ported (int8/int4) are
-kept so the two configurations stay field-for-field equal; the models
-reject them.
+in both packages. Every field is kept, so the two configurations stay
+field-for-field equal; the models reject the tiers the port has not ported
+(Res-ViT's int4).
 """
 
 from __future__ import annotations

@@ -31,6 +31,15 @@
 // Bound on the H100: the s8 product, 2*wa*wb*n operations (1979 TOP/s);
 // the two transposes move 2-3 bytes an element of A and Q. Nothing here is
 // tuned: a 768x768 grad is 36 output tiles for 132 SMs.
+//
+// The int4_grad backwards' int8_dw (K11, pallas_kernels.py:1057-1074,
+// :3033-3040, :3071-3076) cannot fold: their row codes are int4, and vitax
+// packs both dW operands fresh, per column over the group, at int8:
+//
+//   dW = sum over z of f32(quant_cols(A_z)^T @ quant_cols(B_z)) * sa_z * sb_z
+//
+// launch_dw_int8_cols runs step 1 on each operand (no row scale) and the s8
+// GEMM with both scale vectors (gemm.cuh kS8GroupF32RC).
 #pragma once
 
 #include "gemm.cuh"
@@ -43,9 +52,10 @@ inline int dw_group_pad(int group) { return (group + kS8BK - 1) / kS8BK * kS8BK;
 
 inline int dw_groups(int n, int group) { return (n + group - 1) / group; }
 
-// At[c][z*gp + r] = code of A[z*group + r][c] * u[z*group + r] with the
-// column's scale over group z, sc[z*wa + c] = that scale; 0 for r past the
-// group's rows. grid (ceil(wa/32), groups), block (32, 8).
+// At[c][z*gp + r] = code of A[z*group + r][c] * u[z*group + r] (u null:
+// of A itself) with the column's scale over group z, sc[z*wa + c] = that
+// scale; 0 for r past the group's rows. grid (ceil(wa/32), groups), block
+// (32, 8).
 template <typename T>
 __global__ void __launch_bounds__(256)
     dw_quant_cols_t_kernel(const T* __restrict__ a, const float* __restrict__ u,
@@ -58,10 +68,13 @@ __global__ void __launch_bounds__(256)
   const int col = c0 + threadIdx.x;
   const int r0 = z * group;
   const int rows = min(group, n - r0);
+  auto val = [&](int r) {
+    const float v = to_float(a[static_cast<size_t>(r0 + r) * wa + col]);
+    return u != nullptr ? v * u[r0 + r] : v;
+  };
   float amax = 0.f;
   if (col < wa)
-    for (int r = threadIdx.y; r < rows; r += 8)
-      amax = fmaxf(amax, fabsf(to_float(a[static_cast<size_t>(r0 + r) * wa + col]) * u[r0 + r]));
+    for (int r = threadIdx.y; r < rows; r += 8) amax = fmaxf(amax, fabsf(val(r)));
   part[threadIdx.y][threadIdx.x] = amax;
   __syncthreads();
   amax = part[0][threadIdx.x];
@@ -73,8 +86,7 @@ __global__ void __launch_bounds__(256)
     for (int rr = threadIdx.y; rr < 32; rr += 8) {
       const int r = t0 + rr;
       int8_t q = 0;
-      if (r < rows && col < wa)
-        q = quant_i8(to_float(a[static_cast<size_t>(r0 + r) * wa + col]) * u[r0 + r], sr.y);
+      if (r < rows && col < wa) q = quant_i8(val(r), sr.y);
       tile[rr][threadIdx.x] = q;
     }
     __syncthreads();
@@ -135,6 +147,31 @@ cudaError_t launch_dw_int8(const T* a, const float* u, const int8_t* q, int n, i
     if (e != cudaSuccess) return e;
   }
   return launch_gemm_s8_groups(at, qt, sc, F, wa, wb, kp, gp, stream, transpose);
+}
+
+// F [wa, wb] = the int8_dw weight grad of A [n, wa] against B [n, wb] (TA,
+// TB: bf16 or fp32), both quantized per column over each group with no row
+// scale. Scratch: at int8 [wa, kp], sa fp32 [groups, wa], bt int8 [wb, kp],
+// sb fp32 [groups, wb]. wb % 2 == 0.
+template <typename TA, typename TB>
+cudaError_t launch_dw_int8_cols(const TA* a, const TB* b, int n, int wa, int wb, int group,
+                                int8_t* at, float* sa, int8_t* bt, float* sb, float* F,
+                                cudaStream_t stream) {
+  if (group <= 0) return cudaErrorInvalidValue;
+  const int gp = dw_group_pad(group);
+  const int groups = dw_groups(n, group);
+  const int kp = groups * gp;
+  if (groups > 0) {
+    dw_quant_cols_t_kernel<TA><<<dim3((wa + 31) / 32, groups), dim3(32, 8), 0, stream>>>(
+        a, nullptr, at, sa, n, wa, group, gp, kp);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    dw_quant_cols_t_kernel<TB><<<dim3((wb + 31) / 32, groups), dim3(32, 8), 0, stream>>>(
+        b, nullptr, bt, sb, n, wb, group, gp, kp);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return launch_gemm_s8_groups(at, bt, sa, F, wa, wb, kp, gp, stream, false, sb);
 }
 
 }  // namespace vitax

@@ -409,7 +409,11 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // product is a separate rounding (__fmul_rn, never contracted into the add),
 // as the plain twin adds them: no split, no atomics, the same bits each run.
 // kS8GroupF32T stores the same sum as F^T [N, M] (the save-acts backward's
-// dW2, whose group codes come as dW2^T's operands).
+// dW2, whose group codes come as dW2^T's operands). kS8GroupF32RC is the
+// int8_dw weight grad of the int4_grad backwards, whose two operands are
+// both quantized per column over the group (no row-scale folding): F +=
+// (f32(acc) * sr[z][m]) * sc[z][n], each product rounded on its own, as
+// vitax's _ln_mlp_bwd_int4_kernel (pallas_kernels.py:1057-1074) orders it.
 //
 // The int8 save-acts tier (K12): given Q, kS8GeluQF32 also writes the
 // static-grid GELU' codes Q [M,N] of a1 (one instantiation for K4's forward
@@ -429,6 +433,7 @@ enum EpilogueS8 : int {
   kS8GroupF32 = 7,     // F = sum over groups z of f32(acc_z) * sr[z*M + m]
   kS8GpqGrad = 8,      // F = acc*(sr*1.13/127)*sc * f32(Q), C = bf16(F); Q the saved gp codes
   kS8GroupF32T = 9,    // kS8GroupF32 stored transposed: F[n*M + m]
+  kS8GroupF32RC = 10,  // F = sum over groups z of f32(acc_z) * sr[z*M + m] * sc[z*N + n]
 };
 
 constexpr int kS8BK = 64;          // K bytes a stage
@@ -471,7 +476,7 @@ __global__ void __launch_bounds__(kGemmThreads)
                    const float* __restrict__ bias, const bf16* __restrict__ R,
                    const float* __restrict__ Aux, bf16* __restrict__ C, float* __restrict__ F,
                    int8_t* __restrict__ Q, int M, int N, int K, int group_stages) {
-  constexpr bool kGroups = EPI == kS8GroupF32 || EPI == kS8GroupF32T;
+  constexpr bool kGroups = EPI == kS8GroupF32 || EPI == kS8GroupF32T || EPI == kS8GroupF32RC;
   __shared__ __align__(128) int8_t smem[4 * kS8Tile];  // A[2], B[2]
   int8_t* As[2] = {smem, smem + kS8Tile};
   int8_t* Bs[2] = {smem + 2 * kS8Tile, smem + 3 * kS8Tile};
@@ -541,7 +546,12 @@ __global__ void __launch_bounds__(kGemmThreads)
           for (int j = 0; j < 4; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              facc[i][j][2 * h + e] += __fmul_rn(static_cast<float>(acc[i][j][2 * h + e]), s);
+              float v = __fmul_rn(static_cast<float>(acc[i][j][2 * h + e]), s);
+              if (EPI == kS8GroupF32RC) {
+                const int col = bn + wn + j * 8 + 2 * t + e;
+                v = __fmul_rn(v, col < N ? sc[static_cast<size_t>(z) * N + col] : 0.f);
+              }
+              facc[i][j][2 * h + e] += v;
               acc[i][j][2 * h + e] = 0;
             }
         }
@@ -637,7 +647,8 @@ cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* B, const float* sr, co
                            const float* bias, const bf16* R, const float* Aux, bf16* C, float* F,
                            int M, int N, int K, cudaStream_t stream, int8_t* Q = nullptr) {
   if (M == 0 || N == 0) return cudaSuccess;
-  if (K % 16 || N % 2 || EPI == kS8GroupF32 || EPI == kS8GroupF32T) return cudaErrorInvalidValue;
+  if (K % 16 || N % 2 || EPI == kS8GroupF32 || EPI == kS8GroupF32T || EPI == kS8GroupF32RC)
+    return cudaErrorInvalidValue;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   gemm_s8_kernel<EPI>
       <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, Aux, C, F, Q, M, N, K, 0);
@@ -647,14 +658,20 @@ cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* B, const float* sr, co
 // The int8_dw product: F[M,N] = sum over groups z of f32(A_z @ B_z^T) * s[z*M + m],
 // A [M, K] and B [N, K] int8 with K = groups * gp, group z the K columns
 // [z*gp, (z+1)*gp) (zero past its rows); gp % 64 == 0. With `transpose`, F
-// is written as [N, M].
+// is written as [N, M]; with column scales sc [groups, N] (not null), each
+// group's term is also multiplied by sc[z*N + n] (kS8GroupF32RC).
 inline cudaError_t launch_gemm_s8_groups(const int8_t* A, const int8_t* B, const float* s,
                                          float* F, int M, int N, int K, int gp,
-                                         cudaStream_t stream, bool transpose = false) {
+                                         cudaStream_t stream, bool transpose = false,
+                                         const float* sc = nullptr) {
   if (M == 0 || N == 0) return cudaSuccess;
-  if (gp <= 0 || gp % kS8BK || K % gp || N % 2) return cudaErrorInvalidValue;
+  if (gp <= 0 || gp % kS8BK || K % gp || N % 2 || (sc != nullptr && transpose))
+    return cudaErrorInvalidValue;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
-  if (transpose)
+  if (sc != nullptr)
+    gemm_s8_kernel<kS8GroupF32RC><<<grid, kGemmThreads, 0, stream>>>(
+        A, B, s, sc, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
+  else if (transpose)
     gemm_s8_kernel<kS8GroupF32T><<<grid, kGemmThreads, 0, stream>>>(
         A, B, s, nullptr, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
   else

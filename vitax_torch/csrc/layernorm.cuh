@@ -70,9 +70,10 @@ cudaError_t launch_layer_norm(const T* x, const float* gamma, const float* beta,
   return cudaGetLastError();
 }
 
-// The LN1/LN2 prologue of the W8A8 halves: the row LN of
+// The LN1/LN2 prologue of the W8A8 and A4W4 halves: the row LN of
 // layer_norm_rows_kernel (same statistics, same expression for xn), then the
-// row's int8 codes q and scale s (quant.cuh), quantized from the fp32 xn
+// row's codes q and scale s on the grid of limit L (quant.cuh: 127 int8, 7
+// int4), quantized from the fp32 xn
 // (K3 forward and backward, K4 forward: _quant_rows(xn32),
 // pallas_kernels.py:2706, :3015, :708) or, with FROM_BF16, from the
 // bf16-rounded xn (K4 backward, :1155). xn_out, if not null, receives xn for
@@ -80,7 +81,7 @@ cudaError_t launch_layer_norm(const T* x, const float* gamma, const float* beta,
 // backward under int8_dw quantizes it per column, :3081). One warp a row; the
 // row is read four times (statistics twice, amax, codes), all but the first
 // from L1. Also the handoff's row pack (K5, _ln_quant_rows :3660).
-template <bool FROM_BF16, bool XN_F32>
+template <bool FROM_BF16, bool XN_F32, int L>
 __global__ void __launch_bounds__(256)
     layer_norm_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                             const float* __restrict__ beta, int8_t* __restrict__ q,
@@ -129,14 +130,14 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(y[e]));
   }
-  const float2 sr = quant_scale(warp_max(amax));
+  const float2 sr = quant_scale<L>(warp_max(amax));
   const size_t base = static_cast<size_t>(row) * d;
   for (int i = lane * 8; i < d; i += 256) {
     float y[8];
     xn8(i, y);
     __align__(8) int8_t o[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = quant_i8(y[e], sr.y);
+    for (int e = 0; e < 8; ++e) o[e] = quant_i8<L>(y[e], sr.y);
     *reinterpret_cast<uint2*>(q + base + i) = *reinterpret_cast<const uint2*>(o);
     if (xn_out != nullptr) {
       if (XN_F32) {
@@ -154,14 +155,14 @@ __global__ void __launch_bounds__(256)
 }
 
 // d % 8 == 0. xn_out: null, bf16 [n, d], or with XN_F32 fp32 [n, d].
-template <bool FROM_BF16, bool XN_F32 = false>
+template <bool FROM_BF16, bool XN_F32 = false, int L = kQ8>
 cudaError_t launch_layer_norm_quant(const bf16* x, const float* gamma, const float* beta,
                                     int8_t* q, float* s, void* xn_out, int n, int d, float eps,
                                     cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
   if (d % 8) return cudaErrorInvalidValue;
   constexpr int kRowsPerBlock = 8;
-  layer_norm_quant_kernel<FROM_BF16, XN_F32>
+  layer_norm_quant_kernel<FROM_BF16, XN_F32, L>
       <<<(n + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(
           x, gamma, beta, q, s, xn_out, n, d, eps);
   return cudaGetLastError();

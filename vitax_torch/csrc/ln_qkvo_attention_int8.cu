@@ -28,16 +28,25 @@
 // over attn (a row spans all heads, i.e. 12 blocks of the core, so its amax
 // cannot be taken inside one), and the s8 out-projection. xq, qkv, fp32 attn and aq go through device memory
 // where the TPU kernel keeps them in VMEM.
+//
+// K11-C, the A4W4 forward (vitax_ln_qkvo_attention_int4_fwd): replaces
+// _ln_qkvo_fwd_int4_kernel (:2745), the int4 branch of
+// fused_ln_qkvo_attention (pallas_call at :3137). Its body (:2756-2798) is
+// K3's with the two projections' quantizers on the int4 grid
+// (_quant_rows4 of the fp32 LN output and of the fp32 attn,
+// _quant_cols_host4 of Wqkv and Wo: limit 7, quant.cuh); the core stays
+// bf16 with fp32 softmax. So it is K3's launch sequence at L = 7, codes in
+// int8. Its wrapper takes no kv_heads (the int4 kv_heads branch is Res-ViT's,
+// not ported). Bound and design: K3's.
 #include "attention.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
-// Inputs x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16 [d, w], bqkv
-// [w], wo bf16 [hhd, d], bo [d], w = (heads + 2 kv_heads) head_dim; output
-// out bf16 [b·spq, d]. Scratch: w8t int8 [w, d], sw [w], wo8t int8 [d, hhd],
-// swo [d], xq int8 [n, d], sx [n], qkv bf16 [n, w], attn fp32 [n, hhd], aq
-// int8 [n, hhd], sa [n].
-extern "C" int vitax_ln_qkvo_attention_int8_fwd(
+namespace {
+
+// The forward on the grid of limit L (127: K3, 7: K11-C).
+template <int L>
+int ln_qkvo_attention_quant_fwd(
     const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
     const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo, void* xq,
     void* sx, void* qkv, void* attn, void* aq, void* sa, void* out, int b, int spq, int d,
@@ -54,14 +63,15 @@ extern "C" int vitax_ln_qkvo_attention_int8_fwd(
   auto* aqi = static_cast<int8_t*>(aq);
   auto* saf = static_cast<float*>(sa);
   if (n == 0) return cudaSuccess;
-  cudaError_t e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wqkv),
-                                                    static_cast<int8_t*>(w8t),
-                                                    static_cast<float*>(sw), d, w, st);
+  cudaError_t e = vitax::launch_quant_weight_cols_t<L>(static_cast<const bf16*>(wqkv),
+                                                       static_cast<int8_t*>(w8t),
+                                                       static_cast<float*>(sw), d, w, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8t),
-                                        static_cast<float*>(swo), hhd, d, st);
+  e = vitax::launch_quant_weight_cols_t<L>(static_cast<const bf16*>(wo),
+                                           static_cast<int8_t*>(wo8t), static_cast<float*>(swo),
+                                           hhd, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_layer_norm_quant<false>(
+  e = vitax::launch_layer_norm_quant<false, false, L>(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), xqi, sxf, nullptr, n, d, eps, st);
   if (e != cudaSuccess) return e;
@@ -74,10 +84,38 @@ extern "C" int vitax_ln_qkvo_attention_int8_fwd(
       vitax::attn_geom_packed(qkvb, b, spq, seq_len, heads, kv_heads, head_dim, scale), head_dim,
       attnf, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_rows(static_cast<const float*>(attnf), aqi, saf, n, hhd, st);
+  e = vitax::launch_quant_rows<L>(static_cast<const float*>(attnf), aqi, saf, n, hhd, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_gemm_s8<vitax::kS8Bf16>(
       aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
       static_cast<const float*>(bo), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
       hhd, st);
+}
+
+}  // namespace
+
+// Inputs x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16 [d, w], bqkv
+// [w], wo bf16 [hhd, d], bo [d], w = (heads + 2 kv_heads) head_dim; output
+// out bf16 [b·spq, d]. Scratch: w8t int8 [w, d], sw [w], wo8t int8 [d, hhd],
+// swo [d], xq int8 [n, d], sx [n], qkv bf16 [n, w], attn fp32 [n, hhd], aq
+// int8 [n, hhd], sa [n].
+extern "C" int vitax_ln_qkvo_attention_int8_fwd(
+    const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
+    const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo, void* xq,
+    void* sx, void* qkv, void* attn, void* aq, void* sa, void* out, int b, int spq, int d,
+    int seq_len, int heads, int kv_heads, int head_dim, float eps, float scale, void* stream) {
+  return ln_qkvo_attention_quant_fwd<vitax::kQ8>(
+      x, gamma, beta, wqkv, bqkv, wo, bo, w8t, sw, wo8t, swo, xq, sx, qkv, attn, aq, sa, out, b,
+      spq, d, seq_len, heads, kv_heads, head_dim, eps, scale, stream);
+}
+
+// K11-C: K3's arguments on the int4 grid.
+extern "C" int vitax_ln_qkvo_attention_int4_fwd(
+    const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
+    const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo, void* xq,
+    void* sx, void* qkv, void* attn, void* aq, void* sa, void* out, int b, int spq, int d,
+    int seq_len, int heads, int kv_heads, int head_dim, float eps, float scale, void* stream) {
+  return ln_qkvo_attention_quant_fwd<vitax::kQ4>(
+      x, gamma, beta, wqkv, bqkv, wo, bo, w8t, sw, wo8t, swo, xq, sx, qkv, attn, aq, sa, out, b,
+      spq, d, seq_len, heads, kv_heads, head_dim, eps, scale, stream);
 }

@@ -39,30 +39,36 @@
 // notes cover the core's two passes) with the s8 GEMM, the quantizing LN and
 // the row quantizer swapped in. No float atomics: two runs give the same
 // bits.
+//
+// K11-D, the int4_grad branch (vitax_ln_qkvo_attention_int4_bwd): the same
+// Pallas body with _qr = _quant_rows4 (:2998) and the int4 weight forms the
+// caller passes (_quant_cols_host4 of Wqkv for the recompute,
+// _quant_rows_host4 of Wqkv and Wo for dxn and dattn, :3247-3250): every
+// quantizer of the recompute and the dx-path on the int4 grid (limit 7,
+// quant.cuh), the core grads bf16. Under int8_dw the two weight grads are
+// products of int8 codes packed fresh per column over each group, both
+// operands, with no row-scale folding (:3033-3040, :3071-3076):
+//   dWo = Σ_z f32(quant_cols(attn_z)^T quant_cols(do_z)) sat_z sdo_z
+//   dW  = Σ_z f32(quant_cols(xn32_z)^T quant_cols(dqkv_z)) sxn_z sdq_z
+// (dw_int8.cuh's launch_dw_int8_cols), over K3's groups. Bound and design:
+// K3's backward's.
 #include "attention_bwd.cuh"
 #include "dw_int8.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
-// Inputs x, dout bf16 [n, d], gamma, beta fp32 [d], bqkv [w], wqkv bf16
-// [d, w], wo bf16 [hhd, d], w = (heads + 2 kv_heads) head_dim. Outputs dx
-// (bf16 [n, d]) and fp32 dgamma, dbeta [d], dwqkv [d, w], dbqkv [w], dwo
-// [hhd, d], dbo [d]. Scratch (bf16 unless noted): w8t int8 [w, d], sw fp32
-// [w], w8r int8 [d, w], swr fp32 [d], wo8r int8 [hhd, d], swor fp32 [hhd],
-// xn [n,d], xq int8 [n,d], sx fp32 [n], qkv [n,w], attn [n,hhd], doq int8
-// [n,d], sdo fp32 [n], dattn [n,hhd], p and ds [b,heads,L,L] with L =
-// round_up(spq, 16), dqkv [n,w], dqq int8 [n,w], sdq fp32 [n], dxn fp32
-// [n,d], ws fp32 vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w); with int8_dw
-// (else null; xn is then fp32 [n, d]), kp = groups * round_up(group, 64):
-// atct int8 [hhd, kp], sat fp32 [groups, hhd], doqt int8 [d, kp], xnct int8
-// [d, kp], sxn fp32 [groups, d], dqqt int8 [w, kp].
-extern "C" int vitax_ln_qkvo_attention_int8_bwd(
+namespace {
+
+// The backward on the grid of limit L (127: K3, 7: K11-D).
+template <int L>
+int ln_qkvo_attention_quant_bwd(
     const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
     void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
     void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
     void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws,
-    void* atct, void* sat, void* doqt, void* xnct, void* sxn, void* dqqt, int b, int spq, int d,
+    void* atct, void* sat, void* doqt, void* sdoc, void* xnct, void* sxn, void* dqqt,
+    void* sdqc, int b, int spq, int d,
     int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps,
     float scale, void* stream) {
   using vitax::bf16;
@@ -87,23 +93,25 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
   if (n == 0) return cudaErrorInvalidValue;
 
   const auto* wqkvb = static_cast<const bf16*>(wqkv);
-  cudaError_t e = vitax::launch_quant_weight_cols_t(wqkvb, static_cast<int8_t*>(w8t),
-                                                    static_cast<float*>(sw), d, w, st);
+  cudaError_t e = vitax::launch_quant_weight_cols_t<L>(wqkvb, static_cast<int8_t*>(w8t),
+                                                       static_cast<float*>(sw), d, w, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows(wqkvb, static_cast<int8_t*>(w8r), static_cast<float*>(swr),
-                                      d, w, st);
+  e = vitax::launch_quant_weight_rows<L>(wqkvb, static_cast<int8_t*>(w8r),
+                                         static_cast<float*>(swr), d, w, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8r),
-                                      static_cast<float*>(swor), hhd, d, st);
+  e = vitax::launch_quant_weight_rows<L>(static_cast<const bf16*>(wo),
+                                         static_cast<int8_t*>(wo8r), static_cast<float*>(swor),
+                                         hhd, d, st);
   if (e != cudaSuccess) return e;
 
   // recompute LN1 (+ codes; xn for the weight grads, fp32 under int8_dw),
   // qkv (s8) and the attention core
   const auto* g32 = static_cast<const float*>(gamma);
   const auto* be32 = static_cast<const float*>(beta);
-  e = int8_dw ? vitax::launch_layer_norm_quant<false, true>(xb, g32, be32, xqi, sxf, xn, n, d,
-                                                            eps, st)
-              : vitax::launch_layer_norm_quant<false>(xb, g32, be32, xqi, sxf, xn, n, d, eps, st);
+  e = int8_dw ? vitax::launch_layer_norm_quant<false, true, L>(xb, g32, be32, xqi, sxf, xn, n, d,
+                                                               eps, st)
+              : vitax::launch_layer_norm_quant<false, false, L>(xb, g32, be32, xqi, sxf, xn, n, d,
+                                                                eps, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
                                             static_cast<const float*>(sw),
@@ -116,17 +124,24 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
   if (e != cudaSuccess) return e;
 
   // out-projection grads: dattn in s8, dWo and dbo over the bf16 do
-  e = vitax::launch_quant_rows(dob, doqi, sdof, n, d, st);
+  e = vitax::launch_quant_rows<L>(dob, doqi, sdof, n, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(doqi, static_cast<const int8_t*>(wo8r), sdof,
                                             static_cast<const float*>(swor), nullptr, nullptr,
                                             nullptr, dattnb, nullptr, n, hhd, d, st);
   if (e != cudaSuccess) return e;
-  e = int8_dw ? vitax::launch_dw_int8<bf16>(attnb, sdof, doqi, n, hhd, d, group,
-                                             static_cast<int8_t*>(atct), static_cast<float*>(sat),
-                                             static_cast<int8_t*>(doqt), static_cast<float*>(dwo),
-                                             st)
-              : vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
+  if (!int8_dw)
+    e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
+  else if (L == vitax::kQ4)  // fresh per-column packs of both operands
+    e = vitax::launch_dw_int8_cols<bf16, bf16>(attnb, dob, n, hhd, d, group,
+                                               static_cast<int8_t*>(atct), static_cast<float*>(sat),
+                                               static_cast<int8_t*>(doqt),
+                                               static_cast<float*>(sdoc), static_cast<float*>(dwo),
+                                               st);
+  else  // row-scale folding into the dx-path's int8 codes
+    e = vitax::launch_dw_int8<bf16>(attnb, sdof, doqi, n, hhd, d, group,
+                                    static_cast<int8_t*>(atct), static_cast<float*>(sat),
+                                    static_cast<int8_t*>(doqt), static_cast<float*>(dwo), st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, n, d, st);
   if (e != cudaSuccess) return e;
@@ -138,18 +153,24 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
   if (e != cudaSuccess) return e;
 
   // QKV projection grads (dxn in s8) and the LN tail
-  e = vitax::launch_quant_rows(static_cast<const bf16*>(dqkvb), dqqi, sdqf, n, w, st);
+  e = vitax::launch_quant_rows<L>(static_cast<const bf16*>(dqkvb), dqqi, sdqf, n, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8F32>(dqqi, static_cast<const int8_t*>(w8r), sdqf,
                                            static_cast<const float*>(swr), nullptr, nullptr,
                                            nullptr, nullptr, dxnf, n, d, w, st);
   if (e != cudaSuccess) return e;
-  e = int8_dw ? vitax::launch_dw_int8<float>(static_cast<const float*>(xn), sdqf, dqqi, n, d,
-                                              w, group, static_cast<int8_t*>(xnct),
-                                              static_cast<float*>(sxn), static_cast<int8_t*>(dqqt),
-                                              static_cast<float*>(dwqkv), st)
-              : vitax::launch_gemm_tn(static_cast<const bf16*>(xn), dqkvb,
-                                      static_cast<float*>(dwqkv), wsf, d, w, n, st);
+  if (!int8_dw)
+    e = vitax::launch_gemm_tn(static_cast<const bf16*>(xn), dqkvb, static_cast<float*>(dwqkv), wsf,
+                              d, w, n, st);
+  else if (L == vitax::kQ4)
+    e = vitax::launch_dw_int8_cols<float, bf16>(
+        static_cast<const float*>(xn), dqkvb, n, d, w, group, static_cast<int8_t*>(xnct),
+        static_cast<float*>(sxn), static_cast<int8_t*>(dqqt), static_cast<float*>(sdqc),
+        static_cast<float*>(dwqkv), st);
+  else
+    e = vitax::launch_dw_int8<float>(static_cast<const float*>(xn), sdqf, dqqi, n, d, w, group,
+                                     static_cast<int8_t*>(xnct), static_cast<float*>(sxn),
+                                     static_cast<int8_t*>(dqqt), static_cast<float*>(dwqkv), st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n,
                            w, st);
@@ -157,4 +178,56 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
   return vitax::launch_layer_norm_bwd<bf16, float>(
       xb, static_cast<const float*>(gamma), dxnf, nullptr, static_cast<bf16*>(dx),
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d, eps, st);
+}
+
+}  // namespace
+
+// Inputs x, dout bf16 [n, d], gamma, beta fp32 [d], bqkv [w], wqkv bf16
+// [d, w], wo bf16 [hhd, d], w = (heads + 2 kv_heads) head_dim. Outputs dx
+// (bf16 [n, d]) and fp32 dgamma, dbeta [d], dwqkv [d, w], dbqkv [w], dwo
+// [hhd, d], dbo [d]. Scratch (bf16 unless noted): w8t int8 [w, d], sw fp32
+// [w], w8r int8 [d, w], swr fp32 [d], wo8r int8 [hhd, d], swor fp32 [hhd],
+// xn [n,d], xq int8 [n,d], sx fp32 [n], qkv [n,w], attn [n,hhd], doq int8
+// [n,d], sdo fp32 [n], dattn [n,hhd], p and ds [b,heads,L,L] with L =
+// round_up(spq, 16), dqkv [n,w], dqq int8 [n,w], sdq fp32 [n], dxn fp32
+// [n,d], ws fp32 vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w); with int8_dw
+// (else null; xn is then fp32 [n, d]), kp = groups * round_up(group, 64):
+// atct int8 [hhd, kp], sat fp32 [groups, hhd], doqt int8 [d, kp], xnct int8
+// [d, kp], sxn fp32 [groups, d], dqqt int8 [w, kp].
+extern "C" int vitax_ln_qkvo_attention_int8_bwd(
+    const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
+    const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
+    void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
+    void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
+    void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws,
+    void* atct, void* sat, void* doqt, void* xnct, void* sxn, void* dqqt, int b, int spq, int d,
+    int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps,
+    float scale, void* stream) {
+  return ln_qkvo_attention_quant_bwd<vitax::kQ8>(
+      x, gamma, beta, bqkv, wqkv, wo, dout, dx, dgamma, dbeta, dwqkv, dbqkv, dwo, dbo, w8t, sw,
+      w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p, ds, dqkv, dqq, sdq, dxn,
+      ws, atct, sat, doqt, nullptr, xnct, sxn, dqqt, nullptr,
+      b, spq, d, seq_len, heads, kv_heads, head_dim, group, int8_dw, eps, scale, stream);
+}
+
+// K11-D: K3's arguments on the int4 grid; with int8_dw (else null) the
+// fresh column packs of both operands of each weight grad: atct int8 [hhd,
+// kp] and sat [groups, hhd], doqt int8 [d, kp] and sdoc [groups, d] (dWo);
+// xnct int8 [d, kp] and sxn [groups, d], dqqt int8 [w, kp] and sdqc
+// [groups, w] (dW).
+extern "C" int vitax_ln_qkvo_attention_int4_bwd(
+    const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
+    const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
+    void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
+    void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
+    void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws,
+    void* atct, void* sat, void* doqt, void* sdoc, void* xnct, void* sxn, void* dqqt,
+    void* sdqc, int b, int spq, int d,
+    int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps,
+    float scale, void* stream) {
+  return ln_qkvo_attention_quant_bwd<vitax::kQ4>(
+      x, gamma, beta, bqkv, wqkv, wo, dout, dx, dgamma, dbeta, dwqkv, dbqkv, dwo, dbo, w8t, sw,
+      w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p, ds, dqkv, dqq, sdq, dxn,
+      ws, atct, sat, doqt, sdoc, xnct, sxn, dqqt, sdqc,
+      b, spq, d, seq_len, heads, kv_heads, head_dim, group, int8_dw, eps, scale, stream);
 }

@@ -691,7 +691,8 @@ def apply(params: Params, images: torch.Tensor, cfg: ResViTConfig, *,
             "(ROADMAP Queue 1 item 6)")
     if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
         raise NotImplementedError(
-            "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, K11)")
+            "Res-ViT's int4 tiers (the rect attention half's and the kv_heads "
+            "branches) are not ported yet (ROADMAP Queue 2, \"Res-ViT int4\")")
     return _apply_loop(params, images, cfg, train, gen, noise or {})
 
 

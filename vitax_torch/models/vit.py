@@ -247,6 +247,11 @@ def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
             p["out"]["bias"].float(), LN_EPS, s, h, hd)
     if kernel == "k6":  # bf16 only: apply() raises for the other tiers
         out = ck.fused_ln_qkvo_attention_flash(*args)
+    elif cfg.int4_attn:  # A4W4 projections (vitax/models/vit.py:247-252);
+        # its backward as vitax's: K11-D only with int8 and int8_grad
+        out = ck.fused_ln_qkvo_attention_int4(
+            *args, int8_grad=cfg.int8_attn and cfg.int8_attn_grad,
+            int8_dw=cfg.int8_dw, int4_grad=cfg.int4_grad)
     elif cfg.int8_attn:  # W8A8 projections (vitax/models/vit.py:247-252)
         out = ck.fused_ln_qkvo_attention_int8(*args,
                                               int8_grad=cfg.int8_attn_grad,
@@ -261,8 +266,9 @@ def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
 def _fused_block_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig
                      ) -> Optional[torch.Tensor]:
     """LN2 + fc1 + GELU + fc2 + residual through the fused K2 kernel (K4
-    with int8_mlp; K12 under autograd with fused_mlp_save, vitax's dispatch,
-    pallas_kernels.py:2156-2166). Returns None when the gate rejects."""
+    with int8_mlp; K11-A with int4_mlp, ahead of both; K12 under autograd
+    with fused_mlp_save, vitax's dispatch, pallas_kernels.py:2152-2166).
+    Returns None when the gate rejects."""
     w1 = lp["mlp"]["fc1"]["kernel"].to(x.dtype)
     w2 = lp["mlp"]["fc2"]["kernel"].to(x.dtype)
     if not ck.ln_mlp_supported(x, w1, w2):
@@ -270,6 +276,10 @@ def _fused_block_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig
     args = (x.contiguous(), lp["ln2"]["scale"].float(),
             lp["ln2"]["bias"].float(), w1, lp["mlp"]["fc1"]["bias"].float(),
             w2, lp["mlp"]["fc2"]["bias"].float(), LN_EPS)
+    if cfg.int4_mlp:  # A4W4 fc1/fc2 (vitax/models/vit.py:289-298)
+        return ck.fused_ln_mlp_int4(*args, int8_grad=cfg.int8_mlp_grad,
+                                    int8_dw=cfg.int8_dw,
+                                    int4_grad=cfg.int4_grad)
     if cfg.int8_mlp:  # W8A8 fc1/fc2 (vitax/models/vit.py:289-298)
         return ck.fused_ln_mlp_int8(*args, int8_grad=cfg.int8_mlp_grad,
                                     int8_dw=cfg.int8_dw,
@@ -418,9 +428,6 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     `train` turns on token dropping (cfg.token_keep < 1) and dropout, whose
     random numbers come from `gen`."""
     check_tiers(cfg)
-    if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
-        raise NotImplementedError(
-            "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, K11)")
     if cfg.remat:
         raise NotImplementedError(
             f"remat={cfg.remat!r}: block rematerialization is not ported yet "

@@ -68,6 +68,17 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   `fused_ln_mlp_int8_save_dw_bwd` -> ln_mlp_int8_save.cu (+ dw_int8.cuh) ->
   `_ln_mlp_fwd_int8_save_kernel` :732, `_ln_mlp_bwd_int8_save_kernel` :778
   and its `int8_dw` branch :816-830 (K12 int8, pallas_calls :2025, :2066)
+- `fused_ln_mlp_int4` -> ln_mlp_int8.cu at L = 7 -> `_ln_mlp_fwd_int4_kernel`
+  :961 (K11-A, pallas_call :1880)
+- `fused_ln_mlp_int4_bwd`, `fused_ln_mlp_int4_dw_bwd` -> ln_mlp_int8_bwd.cu
+  at L = 7 (+ dw_int8.cuh's fresh column packs) -> `_ln_mlp_bwd_int4_kernel`
+  :1003 and its `int8_dw` branch :1057-1074 (K11-B, pallas_call :1914)
+- `fused_ln_qkvo_attention_int4` -> ln_qkvo_attention_int8.cu at L = 7 ->
+  `_ln_qkvo_fwd_int4_kernel` :2745 (K11-C, pallas_call :3137)
+- `fused_ln_qkvo_attention_int4_bwd`, `..._int4_dw_bwd` ->
+  ln_qkvo_attention_int8_bwd.cu at L = 7 -> the `int4_grad` branch of
+  `_ln_qkvo_bwd_int8_kernel` :2977 with its `int8_dw` branches :3033-3040,
+  :3071-3076 (K11-D, pallas_call :3252)
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -75,8 +86,9 @@ no fallback. With grad mode on and an input that requires grad, the forward
 wrappers go through a `torch.autograd.Function` (`LayerNormFn`,
 `FusedLnQkvoAttentionFn`, `FusedLnMlpFn`, the last two for both tiers)
 whose backward is the matching `*_bwd` wrapper: the int8 one under
-`int8_grad` (its `int8_dw` variant under `int8_dw`), else the bf16 one (K7's
-with GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
+`int8_grad` (its `int8_dw` variant under `int8_dw`; K11's int4 one where
+`int4_grad` picks it, as vitax's dispatch), else the bf16 one (K7's with
+GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
 backward is the two int8 backwards; K8's is `FusedLnQkvoAttentionRectFn`,
 whose backward is one of K8's three; K6's is `FusedLnQkvoAttentionFlashFn`;
 K13's `FlashAttentionFn`; K12's `FusedLnMlpSaveFn`, which `fused_ln_mlp`
@@ -109,8 +121,9 @@ from vitax_torch.ops.layernorm import layer_norm_ref
 from vitax_torch.ops.mlp import (GP_DEQUANT, GP_QSCALE, gelu_exact,
                                  gelu_exact_grad, gelu_grad_q, gelu_q)
 from vitax_torch.ops.quant import (int_mm, pack_i8, quant_cols,
-                                   quant_cols_host, quant_rows,
-                                   quant_rows_host)
+                                   quant_cols_host, quant_cols_host4,
+                                   quant_rows, quant_rows4, quant_rows_host,
+                                   quant_rows_host4)
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt into (227 KB)
 ATTN_HEAD_DIMS = (32, 64, 128)
@@ -504,29 +517,38 @@ class FusedLnMlpFn(torch.autograd.Function):
     `int8_grad` the W8A8 dx-path backward (K4 bwd, _ln_mlp_2d_int8g
     :1845-1865), with `int8_dw` its per-group int8 weight grads; `int8`
     alone keeps the bf16 backward of the bf16 function (_ln_mlp_2d_int8
-    :1779-1801), as does the bf16 tier (_ln_mlp_2d :1652-1673)."""
+    :1779-1801), as does the bf16 tier (_ln_mlp_2d :1652-1673). `int4`
+    picks the A4W4 forward (K11-A) and `int4_grad` the A4W4 dx-path
+    backward (K11-B) ahead of `int8_grad` (_ln_mlp_2d_int4 :1939-1974)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_grad,
-                int8_dw):
+                int8_dw, int4=False, int4_grad=False):
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2)
         ctx.eps = eps
-        ctx.tier = (int8 and int8_grad, int8_dw)
+        ctx.tier = (int4 and int4_grad, int8 and int8_grad, int8_dw)
         ctx.b2_dtype = b2.dtype
-        fwd = fused_ln_mlp_int8 if int8 else fused_ln_mlp
+        fwd = (fused_ln_mlp_int4 if int4 else fused_ln_mlp_int8 if int8
+               else fused_ln_mlp)
         return fwd(x, gamma, beta, w1, b1, w2, b2, eps)
 
     @staticmethod
     def backward(ctx, do):
         x, gamma, beta, w1, b1, w2 = ctx.saved_tensors
-        int8_grad, int8_dw = ctx.tier
-        bwd = (fused_ln_mlp_bwd if not int8_grad else fused_ln_mlp_int8_dw_bwd
-               if int8_dw else fused_ln_mlp_int8_bwd)
+        int4_grad, int8_grad, int8_dw = ctx.tier
+        if int4_grad:
+            bwd = (fused_ln_mlp_int4_dw_bwd if int8_dw
+                   else fused_ln_mlp_int4_bwd)
+        elif int8_grad:
+            bwd = (fused_ln_mlp_int8_dw_bwd if int8_dw
+                   else fused_ln_mlp_int8_bwd)
+        else:
+            bwd = fused_ln_mlp_bwd
         dx, dg, dbe, dw1, db1, dw2, db2 = bwd(
             x, gamma, beta, w1, b1, w2, do.contiguous(), ctx.eps)
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw1.to(w1.dtype),
                 db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
 # =============================================================================
@@ -917,16 +939,24 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
     (pallas_kernels.py:3209-3300): `int8` picks the W8A8 forward (K3) and
     `int8_grad` the W8A8 backward (K3 bwd, :3246-3299), with `int8_dw` its
     per-group int8 weight grads; otherwise the backward is the bf16 one (K1
-    bwd, :3300). kv_heads < heads takes the GQA branch of each (K7)."""
+    bwd, :3300). kv_heads < heads takes the GQA branch of each (K7). `int4`
+    picks the A4W4 forward (K11-C); `int4_grad` switches K3's backward to
+    K11-D, and only K3's: without `int8_grad` the backward stays K1's, as
+    vitax's (:3246)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
-                head_dim, int8, int8_grad, int8_dw, kv_heads):
+                head_dim, int8, int8_grad, int8_dw, kv_heads, int4=False,
+                int4_grad=False):
         ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wo)
         ctx.meta = (eps, seq_len, heads, head_dim)
-        ctx.tier = (int8 and int8_grad, int8_dw)
+        ctx.tier = (int8 and int8_grad, int8_dw, int4_grad)
         ctx.kv_heads = kv_heads
         ctx.bo_dtype = bo.dtype
+        if int4:
+            return fused_ln_qkvo_attention_int4(x, gamma, beta, wqkv, bqkv, wo,
+                                                bo, eps, seq_len, heads,
+                                                head_dim, kv_heads=kv_heads)
         if int8:
             return fused_ln_qkvo_attention_int8(x, gamma, beta, wqkv, bqkv, wo,
                                                 bo, eps, seq_len, heads,
@@ -937,11 +967,14 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
-        int8_grad, int8_dw = ctx.tier
+        int8_grad, int8_dw, int4_grad = ctx.tier
         args = (x, gamma, beta, wqkv, bqkv, wo, do.contiguous(), *ctx.meta,
                 ctx.kv_heads)
         if not int8_grad:
             grads = fused_ln_qkvo_attention_bwd(*args)
+        elif int4_grad:
+            grads = (fused_ln_qkvo_attention_int4_dw_bwd if int8_dw
+                     else fused_ln_qkvo_attention_int4_bwd)(*args)
         elif int8_dw:
             grads = fused_ln_qkvo_attention_int8_dw_bwd(*args)
         else:
@@ -949,7 +982,7 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
         dx, dg, dbe, dw, db, dwo, dbo = grads
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw.to(wqkv.dtype),
                 db.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(ctx.bo_dtype),
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None)
 
 
 # =============================================================================
@@ -1464,6 +1497,69 @@ def _dw_int8(a, s_row, q, group):
     return dw, (torch.cat(codes), torch.cat(scales))
 
 
+def _dw_int8_cols(a, b, group):
+    """The int4_grad backwards' int8_dw (pallas_kernels.py:1057-1074,
+    :3033-3040, :3071-3076): Σ over groups of `group` rows of
+    f32(quant_cols(a_g)ᵀ·quant_cols(b_g))·s_a·s_b, both operands packed
+    fresh per column (no row-scale folding). Returns (dW [Wa, Wb] fp32,
+    a's and b's (column codes [n, W], their scales [groups·W]))."""
+    dw = torch.zeros((a.shape[1], b.shape[1]), dtype=_F32, device=a.device)
+    packs = ([], [], [], [])
+    for r0 in range(0, a.shape[0], group):
+        rows = slice(r0, r0 + group)
+        ac, sa = quant_cols(a[rows].float())
+        bc, sb = quant_cols(b[rows].float())
+        dw = dw + int_mm(ac.t(), bc) * sa.reshape(-1, 1) * sb
+        for out, t in zip(packs, (ac, sa.reshape(-1), bc, sb.reshape(-1))):
+            out.append(t)
+    ac, sa, bc, sb = (torch.cat(t) for t in packs)
+    return dw, (ac, sa), (bc, sb)
+
+
+def _mlp_block_rows(n: int) -> int:
+    """vitax's int8 row block (_mlp_block_rows, pallas_kernels.py:427, at
+    its default knobs): 256, or at n >= 32768 1024 or a nearby divisor of
+    n that two forward chunks divide."""
+    if n < 32768:
+        return 256
+    if n % 1024:
+        for cand in (1280, 960, 768, 640, 512):
+            if n % (2 * cand) == 0:
+                return cand
+    return 1024
+
+
+def mlp_int4_dw_group(n: int) -> int:
+    """Rows of one int8_dw group of K11-B (vitax's grid step chunk over n
+    rows): the rows padded by _ln_mlp_pad (:1412), their row block
+    _ln_mlp_rows (:1393) split into _bwd_chunks (:1405), at vitax's default
+    knobs (VITAX_MLP_ROWS, _CHUNKS, _BWD_CHUNKS unset)."""
+    block = _mlp_block_rows(n)
+    if n < block:
+        npad = -(-n // 16) * 16
+    elif n < 2 * block:
+        npad = -(-n // block) * block
+    else:
+        npad = -(-n // block) * block
+        if npad % (2 * block):
+            npad += block
+    rows = min(_mlp_block_rows(npad), -(-npad // 16) * 16)
+    while rows > 16 and npad % rows:
+        rows //= 2
+    chunks = 2
+    while chunks > 1 and (rows % chunks or (rows // chunks) % 16):
+        chunks //= 2
+    return rows // chunks
+
+
+def _pad_rows(t, group):
+    """t [n, W] with zero rows up to a whole number of groups: vitax's pad
+    rows (zero x, zero cotangent) whose h1 and xn enter the column scales of
+    K11-B's int8_dw; the groups past that are all pad and add nothing."""
+    pad = -t.shape[0] % group
+    return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
+
+
 def _dw_pad(group: int) -> int:
     return -(-group // _DW_PAD) * _DW_PAD
 
@@ -1494,16 +1590,26 @@ def fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
     return _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch)[0]
 
 
-def _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch):
-    """(out, a1, h1q, sh) of K4's twin."""
+def _quantizers(int4):
+    """(per-row activations, per-column weights, per-row weights) of the
+    W8A8 tier, or with `int4` of the A4W4 tier."""
+    if int4:
+        return quant_rows4, quant_cols_host4, quant_rows_host4
+    return quant_rows, quant_cols_host, quant_rows_host
+
+
+def _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch,
+                      int4=False):
+    """(out, a1, h1q, sh) of K4's twin, or with `int4` of K11-A's."""
+    rows, cols_host, _ = _quantizers(int4)
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
-    w1q, s1 = quant_cols_host(w1)
-    w2q, s2 = quant_cols_host(w2)
+    w1q, s1 = cols_host(w1)
+    w2q, s2 = cols_host(w2)
     xhat, _ = _ln_stats(x2.float(), eps)
-    xq, sx = quant_rows(_affine(xhat, gamma, beta))
+    xq, sx = rows(_affine(xhat, gamma, beta))
     a1 = _dequant(int_mm(xq, w1q), sx, s1, b1)
-    h1q, sh = quant_rows(gelu_q(a1))
+    h1q, sh = rows(gelu_q(a1))
     y = _dequant(int_mm(h1q, w2q), sh, s2, b2)
     _keep(scratch, w1q=(w1q, s1), w2q=(w2q, s2), xq=(xq, sx), h1q=(h1q, sh))
     return (x2 + y.to(x.dtype)).reshape(x.shape), a1, h1q, sh
@@ -1528,8 +1634,17 @@ def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
     if not x.is_cuda:
         return fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps,
                                      scratch=scratch)
+    out = _ln_mlp_quant_fwd_cuda("fused_ln_mlp_int8", False, x, gamma, beta,
+                                 w1, b1, w2, b2, eps, scratch)
+    fused_ln_mlp_int8.launches += 1
+    return out
+
+
+def _ln_mlp_quant_fwd_cuda(name, int4, x, gamma, beta, w1, b1, w2, b2, eps,
+                           scratch):
+    """K4's forward launch (ln_mlp_int8.cu), or with `int4` K11-A's."""
     dev = _check_cuda(
-        "fused_ln_mlp_int8",
+        name,
         {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
          "b2": b2},
         {"x": _BF, "gamma": _F32, "beta": _F32, "w1": _BF, "b1": _F32,
@@ -1538,12 +1653,11 @@ def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
     m = w1.shape[1]
     x2 = x.view(-1, d)
     if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
-        raise ValueError(f"fused_ln_mlp_int8: unsupported shapes x "
-                         f"{tuple(x.shape)} w1 {tuple(w1.shape)} w2 "
-                         f"{tuple(w2.shape)}")
+        raise ValueError(f"{name}: unsupported shapes x {tuple(x.shape)} w1 "
+                         f"{tuple(w1.shape)} w2 {tuple(w2.shape)}")
     for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m),
                       ("b2", b2, d)):
-        _check_shape("fused_ln_mlp_int8", key, t, (k,))
+        _check_shape(name, key, t, (k,))
     n = x2.shape[0]
     w1t, s1 = _i8(dev, m, d), _f32(dev, m)  # per column, as [N, K]
     w2t, s2 = _i8(dev, d, m), _f32(dev, d)
@@ -1551,11 +1665,12 @@ def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
     sx, sh = _f32(dev, n), _f32(dev, n)
     g = _f32(dev, n, m)
     out = torch.empty_like(x2)
-    rc = build.load().vitax_ln_mlp_int8_fwd(*(t.data_ptr() for t in (
+    lib = build.load()
+    fn = lib.vitax_ln_mlp_int4_fwd if int4 else lib.vitax_ln_mlp_int8_fwd
+    rc = fn(*(t.data_ptr() for t in (
         x2, gamma, beta, w1, b1, w2, b2, w1t, s1, w2t, s2, xq, sx, g, h1q, sh,
         out)), n, d, m, eps, _stream(dev))
-    build.check(rc, "fused_ln_mlp_int8")
-    fused_ln_mlp_int8.launches += 1
+    build.check(rc, name)
     _keep(scratch, w1q=(w1t.t(), s1), w2q=(w2t.t(), s2), xq=(xq, sx),
           h1q=(h1q, sh))
     return out.view(x.shape)
@@ -1574,25 +1689,39 @@ def fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
     dxn = f32(dh1q·W1rᵀ)·sd·s1r; db1 = Σ dh1_32. dW1, dW2: bf16 products,
     or with `int8_dw` the per-group int8 products over `group` rows
     (MLP_DW_GROUP by default; `_dw_int8`)."""
+    return _ln_mlp_quant_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, False,
+                                 int8_dw, group or MLP_DW_GROUP, scratch)
+
+
+def _ln_mlp_quant_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, int4, int8_dw,
+                          group, scratch):
+    """K4's backward twin, or with `int4` K11-B's: the same body with every
+    quantizer of the recompute and the dx-path on the int4 grid, and under
+    `int8_dw` both operands of each weight grad packed fresh per column
+    (`_dw_int8_cols`; the caller pads the rows to whole groups)."""
+    rows, cols_host, rows_host = _quantizers(int4)
     dt = x.dtype
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
     do2 = do.reshape(-1, d)
-    w1r, s1r = quant_rows_host(w1)
-    w2r, s2r = quant_rows_host(w2)
-    w1c, s1c = quant_cols_host(w1)
+    w1r, s1r = rows_host(w1)
+    w2r, s2r = rows_host(w2)
+    w1c, s1c = cols_host(w1)
     xhat, rstd = _ln_stats(x2.float(), eps)
     xn = _affine(xhat, gamma, beta).to(dt)
-    xq, sxq = quant_rows(xn.float())
+    xq, sxq = rows(xn.float())
     a1 = _dequant(int_mm(xq, w1c), sxq, s1c, b1)
-    doq, sdo = quant_rows(do2.float())
+    doq, sdo = rows(do2.float())
     dh1f = _dequant(int_mm(doq, w2r.t()), sdo, s2r)
     h1 = gelu_q(a1).to(dt)
     dh1_32 = dh1f * gelu_grad_q(a1)
     dh1 = dh1_32.to(dt)
-    dh1q, sd = quant_rows(dh1_32)
-    if int8_dw:
-        group = group or MLP_DW_GROUP
+    dh1q, sd = rows(dh1_32)
+    if int8_dw and int4:
+        dw2, h1c, doc = _dw_int8_cols(h1, do2, group)
+        dw1, xnc, dh1c = _dw_int8_cols(xn, dh1_32, group)
+        _keep(scratch, h1c=h1c, doc=doc, xnc=xnc, dh1c=dh1c)
+    elif int8_dw:
         dw2, h1c = _dw_int8(h1, sdo, doq, group)
         dw1, xnc = _dw_int8(xn, sd, dh1q, group)
         _keep(scratch, h1c=h1c, xnc=xnc)
@@ -1617,7 +1746,10 @@ def fused_ln_mlp_int8_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
 
 
 def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
-                          scratch):
+                          scratch, int4=False):
+    """K4's backward launch (ln_mlp_int8_bwd.cu), or with `int4` K11-B's,
+    whose int8_dw runs on the rows padded to whole groups of vitax's
+    (`mlp_int4_dw_group`)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
@@ -1633,6 +1765,12 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m)):
         _check_shape(name, key, t, (k,))
     _check_shape(name, "do", do, tuple(x.shape))
+    rows = x2.shape[0]
+    do2 = do.view(-1, d)
+    group = MLP_DW_GROUP
+    if int4 and int8_dw:
+        group = mlp_int4_dw_group(rows)
+        x2, do2 = _pad_rows(x2, group), _pad_rows(do2, group)
     n = x2.shape[0]
     lib = build.load()
     w1r, s1r = _i8(dev, d, m), _f32(dev, d)  # per row
@@ -1646,23 +1784,34 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     xq, doq, dh1q = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, m)
     sx, sdo, sdh = _f32(dev, n), _f32(dev, n), _f32(dev, n)
     ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
-    dw = [None] * 6
+    # int8_dw: (h1 | do) column codes and scales for dW2, (xn | dh1) for dW1;
+    # K4 reuses do's and dh1's row codes, so it has no scales of its own
+    # for them (K11-B's are the fifth and last)
+    dw = [None] * 8
     if int8_dw:
-        groups, kp = _dw_layout(n, MLP_DW_GROUP)
+        groups, kp = _dw_layout(n, group)
         dw = [_i8(dev, m, kp), _f32(dev, groups, m), _i8(dev, d, kp),
-              _i8(dev, d, kp), _f32(dev, groups, d), _i8(dev, m, kp)]
-    rc = lib.vitax_ln_mlp_int8_bwd(*(t.data_ptr() for t in (
-        x2, gamma, beta, b1, w1, w2, do, dx, dg, dbe, dw1, db1, dw2, db2, w1r,
+              _f32(dev, groups, d) if int4 else None, _i8(dev, d, kp),
+              _f32(dev, groups, d), _i8(dev, m, kp),
+              _f32(dev, groups, m) if int4 else None]
+    ptrs = [None if t is None else t.data_ptr() for t in dw]
+    if not int4:
+        del ptrs[7], ptrs[3]
+    fn = lib.vitax_ln_mlp_int4_bwd if int4 else lib.vitax_ln_mlp_int8_bwd
+    rc = fn(*(t.data_ptr() for t in (
+        x2, gamma, beta, b1, w1, w2, do2, dx, dg, dbe, dw1, db1, dw2, db2, w1r,
         s1r, w2r, s2r, w1c, s1c, xn, xq, sx, a1, h1, doq, sdo, dh1f, dh1, dh1q,
-        sdh, dxn, ws)), *(None if t is None else t.data_ptr() for t in dw),
-        n, d, m, MLP_DW_GROUP, int(int8_dw), eps, _stream(dev))
+        sdh, dxn, ws)), *ptrs, n, d, m, group, int(int8_dw), eps, _stream(dev))
     build.check(rc, name)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c.t(), s1c),
           xq=(xq, sx), doq=(doq, sdo), dh1q=(dh1q, sdh))
     if int8_dw:
-        _keep(scratch, h1c=(_group_codes(dw[0], n, MLP_DW_GROUP), dw[1]),
-              xnc=(_group_codes(dw[3], n, MLP_DW_GROUP), dw[4]))
-    return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
+        _keep(scratch, h1c=(_group_codes(dw[0], n, group), dw[1]),
+              xnc=(_group_codes(dw[4], n, group), dw[5]))
+    if int8_dw and int4:
+        _keep(scratch, doc=(_group_codes(dw[2], n, group), dw[3]),
+              dh1c=(_group_codes(dw[6], n, group), dw[7]))
+    return dx[:rows].view(x.shape), dg, dbe, dw1, db1, dw2, db2
 
 
 def fused_ln_mlp_int8_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
@@ -1698,6 +1847,243 @@ def fused_ln_mlp_int8_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
 
 
 fused_ln_mlp_int8_dw_bwd.launches = 0
+
+
+# =============================================================================
+# K11 — the A4W4 (int4) tiers of the plain ViT, `--int4`, `--int4-attn`,
+# `--int4-grad`: K4's and K3's forwards and backwards with every quantizer
+# of the forward projections, the recompute and the dx-path on the int4 grid
+# (codes in int8, limit 7; csrc's L = 7 instantiations), the weight grads
+# bf16 or, under int8_dw, int8 packed fresh per column (no row-scale
+# folding). vitax's dispatch (pallas_kernels.py:2152-2155, :3137, :3246):
+# int4 picks the forward ahead of save-acts and int8; the MLP's backward is
+# K11-B under int4_grad, else K4's under int8_grad, else K2's; the attention
+# half's is K11-D only under int8 and int8_grad and int4_grad, else K3's
+# under int8 and int8_grad, else K1's.
+# =============================================================================
+
+def fused_ln_mlp_int4_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
+                          scratch=None):
+    """K11-A with the TPU kernel's rounding points (_ln_mlp_fwd_int4_kernel,
+    pallas_kernels.py:973-998): K4's twin on the int4 grid, xq from the
+    fp32 LN output, h1q from gelu_q(a1), out = x + bf16(y) in x.dtype."""
+    return _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch,
+                             int4=True)[0]
+
+
+def fused_ln_mlp_int4(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
+                      int8_dw=False, int4_grad=False, *, scratch=None):
+    """`fused_ln_mlp` with A4W4 fc1 and fc2 and the sigmoid GELU (K11-A,
+    ln_mlp_int8.cu at L = 7). Under autograd the backward is K11-B with
+    `int4_grad`, else K4's with `int8_grad` (with their int8 weight grads
+    under `int8_dw`), else K2's (_ln_mlp_2d_int4_bwd :1948-1970).
+    `scratch`: as `fused_ln_mlp_int8`'s."""
+    if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
+        return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, True,
+                                  int8_grad, int8_dw, True, int4_grad)
+    if not x.is_cuda:
+        return fused_ln_mlp_int4_ref(x, gamma, beta, w1, b1, w2, b2, eps,
+                                     scratch=scratch)
+    out = _ln_mlp_quant_fwd_cuda("fused_ln_mlp_int4", True, x, gamma, beta,
+                                 w1, b1, w2, b2, eps, scratch)
+    fused_ln_mlp_int4.launches += 1
+    return out
+
+
+fused_ln_mlp_int4.launches = 0
+
+
+def fused_ln_mlp_int4_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
+                              int8_dw=False, group=None, scratch=None):
+    """(dx, dγ, dβ, dW1, db1, dW2, db2) of K11-B with the TPU kernel's
+    rounding points (_ln_mlp_bwd_int4_kernel, pallas_kernels.py:1017-1109):
+    K4's backward twin with quant_rows4 of the bf16-rounded xn, of do and of
+    dh1_32, and W1, W2 on the int4 grid. dW1, dW2: bf16 products, or with
+    `int8_dw` Σ over groups of `group` rows (vitax's, `mlp_int4_dw_group`,
+    by default) of int8 products of both operands packed fresh per column,
+    the rows zero-padded to whole groups as vitax pads them."""
+    if not int8_dw:
+        return _ln_mlp_quant_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                     True, False, None, scratch)
+    d = x.shape[-1]
+    x2, do2 = x.reshape(-1, d), do.reshape(-1, d)
+    group = group or mlp_int4_dw_group(x2.shape[0])
+    dx, *grads = _ln_mlp_quant_bwd_ref(
+        _pad_rows(x2, group), gamma, beta, w1, b1, w2, _pad_rows(do2, group),
+        eps, True, True, group, scratch)
+    return (dx[:x2.shape[0]].reshape(x.shape), *grads)
+
+
+def fused_ln_mlp_int4_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
+                                 scratch=None):
+    """The twin of `fused_ln_mlp_int4_dw_bwd`: int8_dw at vitax's group."""
+    return fused_ln_mlp_int4_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                     int8_dw=True, scratch=scratch)
+
+
+def fused_ln_mlp_int4_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                          scratch=None):
+    """Backward of `fused_ln_mlp_int4` under int4_grad (K11-B,
+    ln_mlp_int8_bwd.cu at L = 7): dx (x's shape, bf16) and fp32 dγ, dβ
+    [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]; the weight grads bf16
+    products in fp32."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int4_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                         scratch=scratch)
+    out = _ln_mlp_int8_bwd_cuda("fused_ln_mlp_int4_bwd", x, gamma, beta, w1,
+                                b1, w2, do, eps, False, scratch, int4=True)
+    fused_ln_mlp_int4_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int4_bwd.launches = 0
+
+
+def fused_ln_mlp_int4_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                             scratch=None):
+    """`fused_ln_mlp_int4_bwd` under int8_dw: dW1 and dW2 are Σ over groups
+    of vitax's rows (`mlp_int4_dw_group`; the rows padded with zeros to
+    whole groups) of int8 products of both operands packed fresh per
+    column. `scratch` also receives those column codes, h1c and doc (dW2),
+    xnc and dh1c (dW1), as [padded rows, width] with one scale a column a
+    group."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int4_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do,
+                                            eps, scratch=scratch)
+    out = _ln_mlp_int8_bwd_cuda("fused_ln_mlp_int4_dw_bwd", x, gamma, beta,
+                                w1, b1, w2, do, eps, True, scratch, int4=True)
+    fused_ln_mlp_int4_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int4_dw_bwd.launches = 0
+
+
+_INT4_GQA = ("the int4 tiers with kv_heads < heads are Res-ViT's (the kv_heads "
+             "branches of pallas_kernels.py:3137 and :3252), not ported yet: "
+             "ROADMAP Queue 2, \"Res-ViT int4\"")
+
+
+def fused_ln_qkvo_attention_int4_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                     seq_len, heads, head_dim, *,
+                                     scratch=None):
+    """K11-C with the TPU kernel's rounding points
+    (_ln_qkvo_fwd_int4_kernel, pallas_kernels.py:2756-2798): K3's twin on
+    the int4 grid, xq from the fp32 LN output, aq from the fp32 attn, no
+    residual."""
+    return _qkvo_quant_fwd_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                               seq_len, heads, head_dim, None, scratch, True)
+
+
+def fused_ln_qkvo_attention_int4(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                 seq_len, heads, head_dim, int8_grad=False,
+                                 int8_dw=False, int4_grad=False,
+                                 kv_heads=None, *, scratch=None):
+    """`fused_ln_qkvo_attention` with A4W4 QKV and out-projections (K11-C,
+    ln_qkvo_attention_int8.cu at L = 7); the core stays bf16 with fp32
+    softmax. Under autograd the backward follows vitax's (:3246):
+    `int8_grad` (the caller's int8 and int8_grad) with `int4_grad` is
+    K11-D, `int8_grad` alone K3's backward (their int8 weight grads under
+    `int8_dw`), else K1's. kv_heads < heads raises (Res-ViT's int4 branch).
+    `scratch`: as `fused_ln_mlp_int8`'s."""
+    if _gqa(heads, kv_heads):
+        raise NotImplementedError(f"fused_ln_qkvo_attention_int4: {_INT4_GQA}")
+    if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
+        return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                            eps, seq_len, heads, head_dim,
+                                            True, int8_grad, int8_dw, None,
+                                            True, int4_grad)
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int4_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                                bo, eps, seq_len, heads,
+                                                head_dim, scratch=scratch)
+    out = _ln_qkvo_int8_cuda("fused_ln_qkvo_attention_int4", x, gamma, beta,
+                             wqkv, bqkv, wo, bo, eps, seq_len, heads,
+                             head_dim, heads, scratch, int4=True)
+    fused_ln_qkvo_attention_int4.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int4.launches = 0
+
+
+def fused_ln_qkvo_attention_int4_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
+                                         eps, seq_len, heads, head_dim,
+                                         kv_heads=None, *, int8_dw=False,
+                                         group=None, scratch=None):
+    """(dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) of K11-D, the int4_grad branch
+    of _ln_qkvo_bwd_int8_kernel (pallas_kernels.py:2977-3107, _qr =
+    _quant_rows4, the weights by _quant_cols_host4 and _quant_rows_host4,
+    :3247-3250): K3's backward twin on the int4 grid, the core grads bf16.
+    dW, dWo: bf16 products, or with `int8_dw` Σ over groups of `group` rows
+    (whole images, `qkvo_dw_group`, by default) of int8 products of both
+    operands packed fresh per column: attn with do, the fp32 xn with
+    dqkv. kv_heads < heads raises, as the kernel's wrapper."""
+    if _gqa(heads, kv_heads):
+        raise NotImplementedError(
+            f"fused_ln_qkvo_attention_int4_bwd_ref: {_INT4_GQA}")
+    return _qkvo_quant_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                               seq_len, heads, head_dim, None, int8_dw, group,
+                               scratch, True)
+
+
+def fused_ln_qkvo_attention_int4_dw_bwd_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                            do, eps, seq_len, heads, head_dim,
+                                            kv_heads=None, *, scratch=None):
+    """The twin of `fused_ln_qkvo_attention_int4_dw_bwd`."""
+    return fused_ln_qkvo_attention_int4_bwd_ref(
+        x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+        kv_heads, int8_dw=True, scratch=scratch)
+
+
+def fused_ln_qkvo_attention_int4_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                                     seq_len, heads, head_dim, kv_heads=None,
+                                     *, scratch=None):
+    """Backward of `fused_ln_qkvo_attention_int4` under int8_grad and
+    int4_grad (K11-D, ln_qkvo_attention_int8_bwd.cu at L = 7): outputs as
+    `fused_ln_qkvo_attention_int8_bwd`'s."""
+    if _gqa(heads, kv_heads):
+        raise NotImplementedError(
+            f"fused_ln_qkvo_attention_int4_bwd: {_INT4_GQA}")
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int4_bwd_ref(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            scratch=scratch)
+    out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int4_bwd", x, gamma,
+                                 beta, wqkv, bqkv, wo, do, eps, seq_len,
+                                 heads, head_dim, heads, False, scratch,
+                                 int4=True)
+    fused_ln_qkvo_attention_int4_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int4_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_int4_dw_bwd(x, gamma, beta, wqkv, bqkv, wo, do,
+                                        eps, seq_len, heads, head_dim,
+                                        kv_heads=None, *, scratch=None):
+    """`fused_ln_qkvo_attention_int4_bwd` under int8_dw: dWqkv and dWo are
+    Σ over K3's groups (whole images, `qkvo_dw_group`) of int8 products of
+    both operands packed fresh per column. `scratch` also receives those
+    column codes, atc and doc (dWo), xnc and dqc (dW), as [rows, width]
+    with one scale a column a group."""
+    if _gqa(heads, kv_heads):
+        raise NotImplementedError(
+            f"fused_ln_qkvo_attention_int4_dw_bwd: {_INT4_GQA}")
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int4_dw_bwd_ref(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            scratch=scratch)
+    out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int4_dw_bwd", x,
+                                 gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                                 heads, head_dim, heads, True, scratch,
+                                 int4=True)
+    fused_ln_qkvo_attention_int4_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int4_dw_bwd.launches = 0
 
 
 # =============================================================================
@@ -2032,16 +2418,25 @@ def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
     fp32 softmax, attn the fp32 heads' p·v (never rounded) quantized per
     row, out = bf16(f32(aq·Woq)·sa·swo + bo), no residual. kv_heads <
     heads: the packed GQA layout (_kv_off :2803; K7's int8 tier)."""
+    return _qkvo_quant_fwd_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                               seq_len, heads, head_dim, kv_heads, scratch,
+                               False)
+
+
+def _qkvo_quant_fwd_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
+                        heads, head_dim, kv_heads, scratch, int4):
+    """K3's forward twin, or with `int4` K11-C's."""
+    rows, cols_host, _ = _quantizers(int4)
     dt = x.dtype
     b, spq, d = x.shape
-    w8, sw = quant_cols_host(wqkv)
-    wo8, swo = quant_cols_host(wo)
+    w8, sw = cols_host(wqkv)
+    wo8, swo = cols_host(wo)
     xhat, _ = _ln_stats(x.reshape(-1, d).float(), eps)
-    xq, sx = quant_rows(_affine(xhat, gamma, beta))
+    xq, sx = rows(_affine(xhat, gamma, beta))
     qkv = _dequant(int_mm(xq, w8), sx, sw, bqkv).to(dt)
     *_, o32 = _attn_core(qkv.view(b, spq, -1), seq_len, heads, head_dim,
                          kv_heads)
-    aq, sa = quant_rows(_heads_to_rows(o32))
+    aq, sa = rows(_heads_to_rows(o32))
     y = _dequant(int_mm(aq, wo8), sa, swo, bo)
     _keep(scratch, w8=(w8, sw), wo8=(wo8, swo), xq=(xq, sx), aq=(aq, sa))
     return y.to(dt).view(b, spq, d)
@@ -2118,8 +2513,9 @@ def fused_ln_qkvo_attention_int8_gqa_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
 
 
 def _ln_qkvo_int8_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
-                       heads, head_dim, kv_heads, scratch):
-    """K3's forward launch (K7's int8 tier with kv_heads < heads)."""
+                       heads, head_dim, kv_heads, scratch, int4=False):
+    """K3's forward launch (K7's int8 tier with kv_heads < heads), or with
+    `int4` K11-C's."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
@@ -2141,9 +2537,11 @@ def _ln_qkvo_int8_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
     ptrs = (t.data_ptr() for t in (x, gamma, beta, wqkv, bqkv, wo, bo, w8t,
                                    sw, wo8t, swo, xq, sx, qkv, attn, aq, sa,
                                    out))
-    rc = build.load().vitax_ln_qkvo_attention_int8_fwd(
-        *ptrs, b, spq, d, seq_len, heads, kv_heads, head_dim, eps,
-        1.0 / math.sqrt(head_dim), _stream(dev))
+    lib = build.load()
+    fn = (lib.vitax_ln_qkvo_attention_int4_fwd if int4
+          else lib.vitax_ln_qkvo_attention_int8_fwd)
+    rc = fn(*ptrs, b, spq, d, seq_len, heads, kv_heads, head_dim, eps,
+            1.0 / math.sqrt(head_dim), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w8=(w8t.t(), sw), wo8=(wo8t.t(), swo), xq=(xq, sx),
           aq=(aq, sa))
@@ -2163,28 +2561,46 @@ def fused_ln_qkvo_attention_int8_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
     whole images, `qkvo_dw_group`): dWo from attn·sdo and doq, dW from the
     fp32 xn·sdq and dqq. kv_heads < heads: the packed GQA layout, dK and dV
     of a kv group summed over its query heads in fp32 (K7's int8 tier)."""
+    return _qkvo_quant_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                               seq_len, heads, head_dim, kv_heads, int8_dw,
+                               group, scratch, False)
+
+
+def _qkvo_quant_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                        heads, head_dim, kv_heads, int8_dw, group, scratch,
+                        int4):
+    """K3's backward twin, or with `int4` K11-D's: every quantizer of the
+    recompute and the dx-path on the int4 grid, and under `int8_dw` both
+    operands of each weight grad packed fresh per column
+    (`_dw_int8_cols`)."""
+    rows, cols_host, rows_host = _quantizers(int4)
     dt = x.dtype
     b, spq, d = x.shape
     x2 = x.reshape(-1, d)
     do2 = do.reshape(-1, d)
-    w8, sw = quant_cols_host(wqkv)
-    w8r, swr = quant_rows_host(wqkv)
-    wo8r, swor = quant_rows_host(wo)
+    w8, sw = cols_host(wqkv)
+    w8r, swr = rows_host(wqkv)
+    wo8r, swor = rows_host(wo)
     xhat, rstd = _ln_stats(x2.float(), eps)
     xn32 = _affine(xhat, gamma, beta)
     xn = xn32.to(dt)
-    xq, sx = quant_rows(xn32)
+    xq, sx = rows(xn32)
     qkv = _dequant(int_mm(xq, w8), sx, sw, bqkv).to(dt)
     q, k, v, p, o32 = _attn_core(qkv.view(b, spq, -1), seq_len, heads,
                                  head_dim, kv_heads)
     o = o32.to(dt)
-    doq, sdo = quant_rows(do2.float())
+    doq, sdo = rows(do2.float())
     dattn = _dequant(int_mm(doq, wo8r.t()), sdo, swor).to(dt)
     dqkv = _attn_core_grads(q, k, v, p, o, dattn, 1.0 / math.sqrt(head_dim),
                             kv_heads)
-    dqq, sdq = quant_rows(dqkv.float())
+    dqq, sdq = rows(dqkv.float())
     dxn = _dequant(int_mm(dqq, w8r.t()), sdq, swr)
-    if int8_dw:
+    if int8_dw and int4:
+        group = group or qkvo_dw_group(b, spq)
+        dwo, atc, doc = _dw_int8_cols(_heads_to_rows(o), do2, group)
+        dw, xnc, dqc = _dw_int8_cols(xn32, dqkv, group)
+        _keep(scratch, atc=atc, doc=doc, xnc=xnc, dqc=dqc)
+    elif int8_dw:
         group = group or qkvo_dw_group(b, spq)
         dwo, atc = _dw_int8(_heads_to_rows(o), sdo, doq, group)
         dw, xnc = _dw_int8(xn32, sdq, dqq, group)
@@ -2212,8 +2628,9 @@ def fused_ln_qkvo_attention_int8_dw_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
 
 def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
                            seq_len, heads, head_dim, kv_heads, int8_dw,
-                           scratch):
-    """K3's backward launch (K7's int8 tier with kv_heads < heads)."""
+                           scratch, int4=False):
+    """K3's backward launch (K7's int8 tier with kv_heads < heads), or with
+    `int4` K11-D's."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
@@ -2244,24 +2661,36 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
     ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, width), dev)
     group = qkvo_dw_group(b, spq)
-    dwt = [None] * 6
+    # int8_dw: (attn | do) column codes and scales for dWo, (xn | dqkv) for
+    # dW; K3 reuses do's and dqkv's row codes, so it has no scales of its
+    # own for them (K11-D's are the fourth and last)
+    dwt = [None] * 8
     if int8_dw:
         groups, kp = _dw_layout(n, group)
         dwt = [_i8(dev, hhd, kp), _f32(dev, groups, hhd), _i8(dev, d, kp),
-               _i8(dev, d, kp), _f32(dev, groups, d), _i8(dev, width, kp)]
-    rc = lib.vitax_ln_qkvo_attention_int8_bwd(*(t.data_ptr() for t in (
+               _f32(dev, groups, d) if int4 else None, _i8(dev, d, kp),
+               _f32(dev, groups, d), _i8(dev, width, kp),
+               _f32(dev, groups, width) if int4 else None]
+    ptrs = [None if t is None else t.data_ptr() for t in dwt]
+    if not int4:
+        del ptrs[7], ptrs[3]
+    fn = (lib.vitax_ln_qkvo_attention_int4_bwd if int4
+          else lib.vitax_ln_qkvo_attention_int8_bwd)
+    rc = fn(*(t.data_ptr() for t in (
         x, gamma, beta, bqkv, wqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, w8t,
         sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p,
-        ds, dqkv, dqq, sdq, dxn, ws)),
-        *(None if t is None else t.data_ptr() for t in dwt), b, spq, d,
-        seq_len, heads, kv_heads, head_dim, group, int(int8_dw), eps,
+        ds, dqkv, dqq, sdq, dxn, ws)), *ptrs, b, spq, d, seq_len, heads,
+        kv_heads, head_dim, group, int(int8_dw), eps,
         1.0 / math.sqrt(head_dim), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w8=(w8t.t(), sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
           xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
     if int8_dw:
         _keep(scratch, atc=(_group_codes(dwt[0], n, group), dwt[1]),
-              xnc=(_group_codes(dwt[3], n, group), dwt[4]))
+              xnc=(_group_codes(dwt[4], n, group), dwt[5]))
+    if int8_dw and int4:
+        _keep(scratch, doc=(_group_codes(dwt[2], n, group), dwt[3]),
+              dqc=(_group_codes(dwt[6], n, group), dwt[7]))
     return dx, dg, dbe, dw, db, dwo, dbo
 
 
@@ -3130,4 +3559,7 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_int8_gqa_bwd,
            fused_ln_qkvo_attention_int8_gqa_dw_bwd, fused_ln_mlp_save,
            fused_ln_mlp_bwd_fast, fused_ln_mlp_int8_save,
-           fused_ln_mlp_int8_save_bwd, fused_ln_mlp_int8_save_dw_bwd)
+           fused_ln_mlp_int8_save_bwd, fused_ln_mlp_int8_save_dw_bwd,
+           fused_ln_mlp_int4, fused_ln_mlp_int4_bwd, fused_ln_mlp_int4_dw_bwd,
+           fused_ln_qkvo_attention_int4, fused_ln_qkvo_attention_int4_bwd,
+           fused_ln_qkvo_attention_int4_dw_bwd)

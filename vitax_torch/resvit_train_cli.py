@@ -21,7 +21,8 @@ backward. It runs on the card unless the caller asks for the CPU
 
 Not ported yet, each raising with its item: `--checkpoint-path` (the
 pretrained backbone, ROADMAP Queue 1 item 4), `--remat` (item 6), the int4
-flags (Queue 2, K11).
+flags (Queue 2, "Res-ViT int4": vitax measured Res-ViT training with them
+divergent; the plain ViT's int4 runs through train_cli).
 
 Run: `python -m vitax_torch.resvit_train_cli --dataset Synthetic \\
           --model-arch b16 --image-size 224 --batch-size 32 --use_lora True \\
@@ -254,8 +255,9 @@ def _reject_unported(config) -> None:
             "(ROADMAP Queue 1 item 6)")
     if config.int4 or config.int4_attn or config.int4_grad:
         raise NotImplementedError(
-            "the int4 tiers have no Hopper kernels yet (ROADMAP Queue 2, "
-            "K11)")
+            "--int4/--int4-attn/--int4-grad: Res-ViT's int4 tiers (the rect "
+            "attention half's and the kv_heads branches) are not ported yet "
+            "(ROADMAP Queue 2, \"Res-ViT int4\")")
 
 
 def main(argv=None, device=None):

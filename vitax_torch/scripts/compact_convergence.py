@@ -16,7 +16,7 @@ each capacity. Environment knobs, as the JAX script's: CC_STEPS (300),
 CC_BATCH (64), CC_CAPS ("0.625,0.5"), CC_WARMUP (dense steps first, 0),
 CC_ROUTER_LR (1.0), CC_TOKKEEP (train-time token dropping on the compact
 runs), CC_CAP_SCHEDULE ("C_HI@FRAC": the first FRAC of the steps at C_HI).
-CC_INT4 names K11's tier, which has no Hopper kernel yet, and exits.
+CC_INT4 names Res-ViT's int4 item (not ported yet) and exits.
 """
 
 from __future__ import annotations
@@ -121,8 +121,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("compact_convergence: needs a CUDA card")
     if os.environ.get("CC_INT4"):
-        raise SystemExit("CC_INT4: the int4 tiers have no Hopper kernels yet "
-                         "(ROADMAP Queue 2, K11)")
+        raise SystemExit("CC_INT4: Res-ViT's int4 tiers are not ported yet "
+                         "(ROADMAP Queue 2, \"Res-ViT int4\")")
     warmup = int(os.environ.get("CC_WARMUP", "0"))
     caps = tuple(float(c) for c in
                  os.environ.get("CC_CAPS", "0.625,0.5").split(","))

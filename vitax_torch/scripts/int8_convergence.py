@@ -1,10 +1,10 @@
-"""int8 against bf16 training convergence on one CUDA card: same data, same
-seed, 300 steps (counterpart of scripts/int8_convergence.py).
+"""int8 and int4 against bf16 training convergence on one CUDA card: same
+data, same seed, 300 steps (counterpart of scripts/int8_convergence.py).
 
     python -m vitax_torch.scripts.int8_convergence [tag ...]
 
-Accuracy evidence for the W8A8 tiers of the port: ViT-B/16 @224, batch 128,
-SGD (momentum 0.9) + OneCycle (max LR 0.01, 10 % warmup), on a fixed
+Accuracy evidence for the W8A8 and A4W4 tiers of the port: ViT-B/16 @224,
+batch 128, SGD (momentum 0.9) + OneCycle (max LR 0.01, 10 % warmup), on a fixed
 synthetic "dataset" with learnable class structure (8 batches of
 0.25·prototype[label] + N(0, 1) noise, drawn with numpy from seed 42) and a
 held-out batch of fresh noise. Every 50 steps it records the train loss,
@@ -23,9 +23,10 @@ Tags: `bf16`, `int8-fwd` (`--int8`: W8A8 forward, bf16 backward),
 grads too), and vitax's token-dropping tags on top of `int8-dw`,
 `tokdrop-0.5` (1 + 98 tokens, spq 104: the int8 block handoff, K5) and
 `tokdrop-0.75` (1 + 147 tokens, spq 152: no handoff); the held-out batch is
-full-sequence (the FLIP protocol). The default pair is `bf16 int8-full`.
-vitax's `int4` and `int4-grad` tags raise, naming the ROADMAP item that
-ports them.
+full-sequence (the FLIP protocol); and vitax's int4 tags on top of
+`int8-dw`, `int4` (A4W4 forwards of both halves, K11-A and K11-C) and
+`int4-grad` (their A4W4 dx-path backwards too, K11-B and K11-D). The
+default pair is `bf16 int8-full`.
 """
 
 from __future__ import annotations
@@ -56,10 +57,12 @@ CONFIGS = {
                         int8_attn_grad=True, int8_dw=True, token_keep=0.5),
     "tokdrop-0.75": dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
                          int8_attn_grad=True, int8_dw=True, token_keep=0.75),
-}
-UNPORTED = {
-    "int4": "Queue 2 K11",
-    "int4-grad": "Queue 2 K11",
+    "int4": dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                 int8_attn_grad=True, int8_dw=True, int4_mlp=True,
+                 int4_attn=True),
+    "int4-grad": dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+                      int8_attn_grad=True, int8_dw=True, int4_mlp=True,
+                      int4_attn=True, int4_grad=True),
 }
 
 
@@ -111,12 +114,9 @@ def run(tag, data, device):
 def main(argv=None) -> int:
     tags = (sys.argv[1:] if argv is None else argv) or ["bf16", "int8-full"]
     for tag in tags:
-        if tag in UNPORTED:
-            raise NotImplementedError(
-                f"{tag}: not ported yet (ROADMAP {UNPORTED[tag]})")
         if tag not in CONFIGS:
             raise SystemExit(f"unknown tag {tag!r}; choose from "
-                             f"{sorted(CONFIGS) + sorted(UNPORTED)}")
+                             f"{sorted(CONFIGS)}")
     if not torch.cuda.is_available():
         raise SystemExit("int8_convergence: needs a CUDA card")
     device = torch.device("cuda")

@@ -10,11 +10,14 @@ fused kernels are on by default, forward and backward (`--no-fused-qkv`,
 `--no-fused-mlp` and `--no-pallas` turn them off); `--int8` runs their W8A8
 forward with the bf16 backward, `--int8-grad` the W8A8 backward too, and
 `--int8-dw` its int8 weight grads; with `--int8-grad` the token-drop phase
-(spq <= 128) hands each block's packed input over (K5). `--save-acts` keeps
-h1 and GELU'(a1) from the MLP half's forward for its backward (K12, bf16 or
+(spq <= 128) hands each block's packed input over (K5). `--int4` runs the
+MLP half's forward A4W4 (K11), `--int4-attn` the attention half's too, and
+`--int4-grad` the MLP half's dx-path backward (and the attention half's
+with `--int4-attn --int8-grad`), as vitax's dispatch; int4 never hands
+off, and takes the MLP half ahead of `--save-acts`. `--save-acts` keeps h1
+and GELU'(a1) from the MLP half's forward for its backward (K12, bf16 or
 with `--int8-grad`; off above d 1024 and with `--int8` alone, as in
-vitax). `--no-fused-qkv`
-runs the attention half as the LN kernel, plain projections and K13 (the
+vitax). `--no-fused-qkv` runs the attention half as the LN kernel, plain projections and K13 (the
 standalone attention core), forward and backward. With a fused half off
 vitax's automatic remat picks "selective" (vitax/train_cli.py:144); the
 port has no remat (ROADMAP Queue 1 item 6) and runs without it, the same
@@ -63,8 +66,6 @@ def _reject_unported(config) -> None:
          "Queue 1 item 5"),
         (config.device_prep, "--device-prep", "on-device preprocessing",
          "Queue 1 item 3"),
-        (config.int4 or config.int4_attn or config.int4_grad,
-         "--int4/--int4-attn/--int4-grad", "the int4 kernels", "Queue 2 K11"),
         (config.remat in ("full", "selective"), f"--remat {config.remat}",
          "block rematerialization", "Queue 1 item 6"),
     ]
@@ -77,19 +78,24 @@ def _reject_unported(config) -> None:
 def model_config_from_cli(config, on_gpu: bool):
     """CLI flags → ViTConfig. The fused kernels default on where the device
     is CUDA; their gates keep the plain path for shapes they do not take.
-    `--int8-dw` implies `--int8-grad` implies `--int8`, as in vitax
-    (vitax/train_cli.py:132-153)."""
+    `--int8-dw` implies `--int8-grad` implies `--int8`; `--int4-attn` and
+    `--int4-grad` imply `--int4`, which implies `--int8` but not
+    `--int8-grad`, as in vitax (vitax/train_cli.py:132-153)."""
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
     int8_dw = getattr(config, "int8_dw", False)
     int8_grad = getattr(config, "int8_grad", False) or int8_dw
-    int8 = getattr(config, "int8", False) or int8_grad
+    int4_attn = getattr(config, "int4_attn", False)
+    int4_grad = getattr(config, "int4_grad", False)
+    int4 = getattr(config, "int4", False) or int4_attn or int4_grad
+    int8 = getattr(config, "int8", False) or int8_grad or int4
     return arch_config(
         config.model_arch, image_size=config.image_size,
         num_classes=config.num_classes, dtype=dtype,
         fused_qkv=on_gpu if config.fused_qkv is None else config.fused_qkv,
         fused_mlp=on_gpu if config.fused_mlp is None else config.fused_mlp,
         int8_mlp=int8, int8_attn=int8, int8_mlp_grad=int8_grad,
-        int8_attn_grad=int8_grad, int8_dw=int8_dw,
+        int8_attn_grad=int8_grad, int8_dw=int8_dw, int4_mlp=int4,
+        int4_attn=int4_attn, int4_grad=int4_grad,
         fused_mlp_save=getattr(config, "save_acts", False),
         token_keep=config.token_keep,
         use_pallas=False if config.no_pallas else None)
@@ -204,10 +210,8 @@ def main(argv=None, device=None):
     """`device`: None for the card (raises without one), or "cpu"."""
     config = cli.get_train_config(argv)
     cli.print_config(config)
-    # the int8/int4 tiers at d > 1024 first (the int4 flags do not reach
-    # the model config until K11 is ported)
-    vit.check_tiers(model_config_from_cli(config, False).replace(
-        int4_mlp=config.int4 or config.int4_attn or config.int4_grad))
+    # the int8/int4 tiers at d > 1024 first
+    vit.check_tiers(model_config_from_cli(config, False))
     _reject_unported(config)
     gen = set_seed(config.seed)
     device = cli.resolve_device(device)
