@@ -165,8 +165,33 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              `--int4-attn` for 2), exact launches per step and eval batch
              as vitax's dispatch picks them; logits and the grads of every
              parameter on the int4 kernel path against the int4 twin path;
-             resident b32 steps of the bf16, `--int8-dw`, `--int4-attn
-             --int8-dw` and `--int4-attn --int4-grad --int8-dw` tiers.
+             the 12 layers one by one (each block of the twin path fed the
+             kernel path's input to it: its contribution and grads held to
+             the int8 bands); resident b32 steps of the bf16, `--int8-dw`,
+             `--int4-attn --int8-dw` and `--int4-attn --int4-grad
+             --int8-dw` tiers.
+14. resvit-int4 — Res-ViT's int4: R-F (the rect half's A4W4 forward, b64
+             spq 200 cpq 128), R-B and R-B dw (its int4_grad backward, b32),
+             G-F (K11-C with 4 kv heads, b64) and G-B with and without
+             int8_dw (b32) against their twins (codes, ‖k − t‖/‖t‖ <=
+             INT4_REL, the bf16 stand-in outside it, two launches the same
+             bits), timed beside K8's and K7's int8 kernels in turns;
+             `resvit_train_cli` with `--int4`, `--int4-attn`, `--int4-attn
+             --int4-grad --int8-grad` and `--int4-attn --int4-grad
+             --int8-dw`, each at `--compact-capacity 0.625` and with
+             `--n_kv_heads 4` (2 steps of b32 and an eval epoch; vitax's
+             warning printed; exact launches a step and eval batch as
+             vitax's dispatch picks them); `--int4-attn --int4-grad
+             --int8-dw` at C 0.625 against its int4 twin path with the
+             noise injected and the routing replayed: one routed layer end
+             to end (logits, grads of every trainable tensor) and the
+             12-layer model layer by layer (each block fed the kernel
+             path's input and keep bits); resident b32 steps of (d)
+             `--int8-grad` C 0.625 and (e) with 4 kv heads, each beside
+             its `--int4-attn --int4-grad` tier; `eval_cli --model-arch
+             l16 --image-size 384` (vitax's K1 gate rejects it: 24 K6 a
+             forward, no K1) and its `--int8`, which raises Queue 1 item
+             8's message.
 
 Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
 backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
@@ -335,6 +360,26 @@ KERNEL_INFO = {
         "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
         "vitax/ops/pallas_kernels.py:2998"),
     "fused_ln_qkvo_attention_int4_dw_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:3033"),
+    # Res-ViT's int4: the rect int8 sources' L = 7 instantiations (R-F, R-B,
+    # R-B dw) and the kv_heads branches of K11-C and K11-D (G-F, G-B)
+    "fused_ln_qkvo_attention_rect_int4": (
+        "vitax_torch/csrc/ln_qkvo_attention_rect_int8.cu",
+        "vitax/ops/pallas_kernels.py:4112"),
+    "fused_ln_qkvo_attention_rect_int4_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_rect_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:4272"),
+    "fused_ln_qkvo_attention_rect_int4_dw_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_rect_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:4310"),
+    "fused_ln_qkvo_attention_int4_gqa": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8.cu",
+        "vitax/ops/pallas_kernels.py:2803"),
+    "fused_ln_qkvo_attention_int4_gqa_bwd": (
+        "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:2998"),
+    "fused_ln_qkvo_attention_int4_gqa_dw_bwd": (
         "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
         "vitax/ops/pallas_kernels.py:3033"),
 }
@@ -691,21 +736,26 @@ def _rel(a, b):
 
 @contextlib.contextmanager
 def _bf16_stand_in(ck):
-    """The int8 twins as a kernel that skipped quantization would compute
-    them: every quantizer the twins call returns its input rounded to bf16
+    """The int8 (and int4) twins as a kernel that skipped quantization would
+    compute them: every quantizer the twins call returns its input rounded to
+    bf16
     with a scale of 1, so each s8 product becomes a product of bf16 values
     (exact in fp64), and the rest of each twin is unchanged."""
     import torch
-    names = ("quant_rows", "quant_cols", "quant_cols_host", "quant_rows_host")
+    names = ("quant_rows", "quant_cols", "quant_cols_host", "quant_rows_host",
+             "quant_rows4", "quant_cols_host4", "quant_rows_host4")
     saved = {n: getattr(ck, n) for n in names}
 
     def bf(x):
         return x.float().to(torch.bfloat16).float()
 
-    ck.quant_rows = lambda x: (bf(x), torch.ones_like(x[..., :1]))
+    ck.quant_rows = ck.quant_rows4 = lambda x: (bf(x),
+                                                torch.ones_like(x[..., :1]))
     ck.quant_cols = lambda x: (bf(x), torch.ones_like(x[:1]))
-    ck.quant_cols_host = lambda w: (bf(w), torch.ones_like(bf(w)[0]))
-    ck.quant_rows_host = lambda w: (bf(w), torch.ones_like(bf(w)[:, 0]))
+    ck.quant_cols_host = ck.quant_cols_host4 = lambda w: (
+        bf(w), torch.ones_like(bf(w)[0]))
+    ck.quant_rows_host = ck.quant_rows_host4 = lambda w: (
+        bf(w), torch.ones_like(bf(w)[:, 0]))
     try:
         yield
     finally:
@@ -731,11 +781,13 @@ def _code_moves(kern, twin):
     return moves
 
 
-def _check_int8(ck, name, label, args, outs, refs, stats):
+def _check_int8(ck, name, label, args, outs, refs, stats, band=None,
+                rel=INT8_REL):
     """Phase 3, the int8 kernels beyond the bf16 tolerance: their codes
-    against the twin's; every output within INT8_REL of the twin, and the
-    bf16 stand-in outside it wherever quantization reaches (every output but
-    the backward's Σ do, which no quantizer touches)."""
+    against the twin's (within `band`, CODE_BAND by default); every output
+    within `rel` (INT8_REL) of the twin, and the bf16 stand-in outside it
+    wherever quantization reaches (every output but the backward's Σ do,
+    which no quantizer touches)."""
     sk, st = {}, {}
     getattr(ck, name)(*args, scratch=sk)
     getattr(ck, name + "_ref")(*args, scratch=st)
@@ -759,7 +811,7 @@ def _check_int8(ck, name, label, args, outs, refs, stats):
     print(f"  {name:32s} {label:22s} codes moved (max step, share) "
           + " ".join(f"{k} {m[0]} {m[1]:.2e}" for k, m in moves.items())
           + f"; ‖k−t‖/‖t‖ per output [{' '.join(f'{r:.2e}' for r in r_k)}]"
-          f" <= {INT8_REL}; bf16 stand-in [{' '.join(f'{r:.2e}' for r in r_s)}]"
+          f" <= {rel}; bf16 stand-in [{' '.join(f'{r:.2e}' for r in r_s)}]"
           f", its max error {tol_s:.2f}x the bf16 tolerance", flush=True)
     st_ = stats[name]
     st_["worst_rel"] = max(st_.get("worst_rel", 0.0), *r_k)
@@ -779,15 +831,15 @@ def _check_int8(ck, name, label, args, outs, refs, stats):
             raise AssertionError(f"{name} {label}: the bf16 weight grads land "
                                  f"within INT8_REL of the int8 ones")
     for key, (top, share) in moves.items():
-        max_step, max_share = CODE_BAND[key]
+        max_step, max_share = (band or CODE_BAND)[key]
         if top > max_step or share > max_share:
             raise AssertionError(f"{name} {label}: codes {key} moved {share} "
                                  f"(largest step {top})")
-    if max(r_k) > INT8_REL:
+    if max(r_k) > rel:
         raise AssertionError(f"{name} {label}: {max(r_k)} from the twin")
-    if min(reached) <= INT8_REL:
+    if min(reached) <= rel:
         raise AssertionError(f"{name} {label}: the bf16 stand-in lands "
-                             f"within INT8_REL ({min(reached)})")
+                             f"within {rel} ({min(reached)})")
 
 
 # K5 at the drop phase's b32 spq 104 (timed) and at b8 spq 200
@@ -2203,22 +2255,39 @@ def _resvit_launches(cfg, train):
     gqa = (cfg.n_kv_heads or cfg.n_heads) != cfg.n_heads
     int8 = cfg.int8_attn
     grad8 = int8 and cfg.int8_attn_grad
+    # vitax's int4 dispatch (vitax/models/resvit.py:340-415): int4_attn
+    # picks the A4W4 forward, its backward A4W4 only under int8_grad and
+    # int4_grad; int4_mlp the A4W4 MLP half ahead of save-acts and int8,
+    # its backward A4W4 under int4_grad
+    int4, grad4 = cfg.int4_attn, grad8 and cfg.int4_grad and cfg.int4_attn
     rect = cfg.compact_capacity is not None and not gqa
     base = "fused_ln_qkvo_attention"
-    g8 = f"{base}_int8_gqa" if gqa else f"{base}_int8"
-    attn = g8 if int8 else f"{base}_gqa" if gqa else base
-    attn_bwd = (f"{g8}_dw_bwd" if grad8 and cfg.int8_dw
-                else f"{g8}_bwd" if grad8
+    tier = "_int4" if int4 else "_int8"
+    gq = f"{base}{tier}_gqa" if gqa else f"{base}{tier}"
+    attn = gq if int8 or int4 else f"{base}_gqa" if gqa else base
+    gb = f"{base}_int4_gqa" if gqa and grad4 else f"{base}_int4" if grad4 \
+        else f"{base}_int8_gqa" if gqa else f"{base}_int8"
+    attn_bwd = (f"{gb}_dw_bwd" if grad8 and cfg.int8_dw
+                else f"{gb}_bwd" if grad8
                 else f"{base}_gqa_bwd" if gqa else f"{base}_bwd")
-    rect_fwd = f"{base}_rect_int8" if int8 else f"{base}_rect"
-    rect_bwd = (f"{base}_rect_int8_dw_bwd" if grad8 and cfg.int8_dw
-                else f"{base}_rect_int8_bwd" if grad8 else f"{base}_rect_bwd")
-    mlp8 = cfg.fused_mlp and cfg.int8_mlp
-    save = cfg.fused_mlp and cfg.fused_mlp_save and (
+    rect_fwd = (f"{base}_rect{tier}" if int8 or int4 else f"{base}_rect")
+    rb = f"{base}_rect_int4" if grad4 else f"{base}_rect_int8"
+    rect_bwd = (f"{rb}_dw_bwd" if grad8 and cfg.int8_dw
+                else f"{rb}_bwd" if grad8 else f"{base}_rect_bwd")
+    mlp4 = cfg.fused_mlp and cfg.int4_mlp
+    mlp8 = cfg.fused_mlp and cfg.int8_mlp and not mlp4
+    save = cfg.fused_mlp and cfg.fused_mlp_save and not mlp4 and (
         not mlp8 or cfg.int8_mlp_grad)
-    mlp_fwd = ("fused_ln_mlp_int8" if mlp8 else "fused_ln_mlp"
-               if cfg.fused_mlp else "layer_norm")
+    mlp_fwd = ("fused_ln_mlp_int4" if mlp4 else "fused_ln_mlp_int8" if mlp8
+               else "fused_ln_mlp" if cfg.fused_mlp else "layer_norm")
     mlp_bwd = ("layer_norm_bwd" if not cfg.fused_mlp
+               else "fused_ln_mlp_int4_dw_bwd" if mlp4 and cfg.int4_grad
+               and cfg.int8_dw
+               else "fused_ln_mlp_int4_bwd" if mlp4 and cfg.int4_grad
+               else "fused_ln_mlp_int8_dw_bwd" if mlp4 and cfg.int8_mlp_grad
+               and cfg.int8_dw
+               else "fused_ln_mlp_int8_bwd" if mlp4 and cfg.int8_mlp_grad
+               else "fused_ln_mlp_bwd" if mlp4
                else "fused_ln_mlp_bwd_fast" if save and not mlp8
                else "fused_ln_mlp_int8_save_dw_bwd" if save and cfg.int8_dw
                else "fused_ln_mlp_int8_save_bwd" if save
@@ -3601,11 +3670,13 @@ def _int4_expect(steps, evals, attn, mlp, attn_bwd, mlp_bwd):
 
 @contextlib.contextmanager
 def _int4_twins(ck):
-    """The int4 twin path on the card: the int4 wrappers, which the model
-    and the autograd Functions call by their module names, swapped for
-    routes to their plain twins (the Functions keep vitax's tier logic),
-    the int4 backwards for their twins."""
-    saved = {n: getattr(ck, n) for n in INT4_KERNELS}
+    """The int4 twin path of both models on the card: the int4 forward
+    wrappers, which the models and the autograd Functions call by their
+    module names, swapped for routes to their plain twins (the Functions
+    keep vitax's tier logic; GQA through kv_heads), every int4 backward for
+    its twin."""
+    names = INT4_KERNELS + RESVIT_INT4_KERNELS
+    saved = {n: getattr(ck, n) for n in names}
 
     def mlp(*args, int8_grad=False, int8_dw=False, int4_grad=False):
         if ck._needs_grad(*args[:7]):
@@ -3618,10 +3689,17 @@ def _int4_twins(ck):
         if ck._needs_grad(*args[:7]):
             return ck.FusedLnQkvoAttentionFn.apply(
                 *args, True, int8_grad, int8_dw, kv_heads, True, int4_grad)
-        return ck.fused_ln_qkvo_attention_int4_ref(*args)
+        return ck.fused_ln_qkvo_attention_int4_ref(*args, kv_heads)
+
+    def rect(*args, int8_grad=False, int8_dw=False, int4_grad=False):
+        if ck._needs_grad(*args[:8]):
+            return ck.FusedLnQkvoAttentionRectFn.apply(
+                *args, True, int8_grad, int8_dw, True, int4_grad)
+        return ck.fused_ln_qkvo_attention_rect_int4_ref(*args)
 
     ck.fused_ln_mlp_int4, ck.fused_ln_qkvo_attention_int4 = mlp, attn
-    for name in INT4_KERNELS:
+    ck.fused_ln_qkvo_attention_rect_int4 = rect
+    for name in names:
         if name.endswith("_bwd"):
             setattr(ck, name, getattr(ck, name + "_ref"))
     try:
@@ -3735,6 +3813,28 @@ def run_int4_slice(exp_root):
         del g_k, g_t, g_b
     torch.cuda.empty_cache()
 
+    # the 12 layers one by one: each block of the twin path fed the kernel
+    # path's input to it, its output and grads held to the int8 bands
+    weights = list(param_leaves(params))
+    feed_k = _LayerFeed(vit, ("_block",), rows=197)
+    with feed_k.run(False):
+        vit.apply(params, images, cfg, train=True)
+    g_k = _feed_grads(feed_k, weights)
+    feed_t = _LayerFeed(vit, ("_block",), rows=197)
+    feed_t.inputs = feed_k.inputs
+    with _int4_twins(ck), feed_t.run(True):
+        vit.apply(params, images, cfg, train=True)
+        g_t = _feed_grads(feed_t, weights)
+    rows = _layer_hold(feed_k, feed_t, g_k, g_t, names)
+    dist["12, fed"] = rows
+    print("int4: 12 layers b32, each fed the kernel path's input, per layer "
+          f"(its contribution ‖Δ‖/‖t‖ <= {LOGIT_BAND}, max|Δ| / max|t|; "
+          f"worst grad ‖Δ‖/‖t‖ <= {INT8_GRAD_BAND}): " + "; ".join(
+              f"{l} {o:.2e} {m:.2e} {r:.2e} ({n})"
+              for l, (o, m, r, n) in enumerate(rows)), flush=True)
+    del feed_k, feed_t, g_k, g_t
+    torch.cuda.empty_cache()
+
     no_int4 = dict(int4_mlp=False, int4_attn=False, int4_grad=False)
     paths = [("bf16", cfg.replace(**no_int4, **{k: False for k in tier8})),
              ("--int8-dw", cfg.replace(**no_int4)),
@@ -3745,6 +3845,458 @@ def run_int4_slice(exp_root):
     torch.cuda.empty_cache()
     return counts, {k: [ms for n, ms in runs if n == k] for k, _ in paths}, \
         dist
+
+
+# ---------------------------------------------------------------- phase 14
+# Res-ViT's int4 (the rect half's A4W4 forward R-F and int4_grad backward
+# R-B, R-B dw; K11's kv_heads branches G-F, G-B): each kernel against its
+# twin at the main path's shapes (Res-ViT b16 serving at b64 and training at
+# b32, spq 200, C 0.625's cpq 128, 4 kv heads), held to K11's band
+# (INT4_REL; the bf16 stand-in must miss it), its codes to
+# RESVIT_INT4_CODE_BAND (K11's, with x's rows' xqk and dkvq as xq and dqq,
+# dK/dV's column pack dkvc as dqc); each timed beside its int8 counterpart
+# in the same turns
+RESVIT_INT4_PAIRS = {
+    "fused_ln_qkvo_attention_rect_int4": "fused_ln_qkvo_attention_rect_int8",
+    "fused_ln_qkvo_attention_rect_int4_bwd":
+        "fused_ln_qkvo_attention_rect_int8_bwd",
+    "fused_ln_qkvo_attention_rect_int4_dw_bwd":
+        "fused_ln_qkvo_attention_rect_int8_dw_bwd",
+    "fused_ln_qkvo_attention_int4_gqa": "fused_ln_qkvo_attention_int8_gqa",
+    "fused_ln_qkvo_attention_int4_gqa_bwd":
+        "fused_ln_qkvo_attention_int8_gqa_bwd",
+    "fused_ln_qkvo_attention_int4_gqa_dw_bwd":
+        "fused_ln_qkvo_attention_int8_gqa_dw_bwd",
+}
+RESVIT_INT4_KERNELS = tuple(RESVIT_INT4_PAIRS)
+# one xq code moved one int4 step (on a .5 tie) moves its image's q, k and
+# v, and with them the column packs of that image's attn, dq and dK/dV: R-B
+# dw at b32 cpq 128 moved one xq code of 3.1e6 and 1.6e-3–2.1e-3 of those
+# column codes by up to 5 steps (an H100); K11-D's moved up to 3
+RESVIT_INT4_CODE_BAND = dict(INT4_CODE_BAND, xqk=(1, 1e-3), dkvq=(1, 1e-3),
+                             xnk=(2, 1e-3), atc=(6, 5e-3), dqc=(6, 5e-3),
+                             dkvc=(6, 5e-3))
+# (label, batch, rows, seq_len, cap or kv heads, kernels)
+RESVIT_INT4_CASES = [
+    ("b64 cap124 cpq128 (C 0.625)", 64, 200, 197, 124,
+     RESVIT_INT4_KERNELS[:1]),
+    ("b32 cap124 cpq128 (C 0.625)", 32, 200, 197, 124,
+     RESVIT_INT4_KERNELS[1:3]),
+    ("b64 spq200 kv4", 64, 200, 197, 4, RESVIT_INT4_KERNELS[3:4]),
+    ("b32 spq200 kv4", 32, 200, 197, 4, RESVIT_INT4_KERNELS[4:]),
+]
+# resvit_train_cli: each int4 flag set of the CPU tests, compacted (the rect
+# half) and with 4 kv heads (G-F, G-B and a gather), RESVIT_INT4_STEPS steps
+# of b32 and an eval epoch, exact launches a step and eval batch
+RESVIT_INT4_FLAGS = ["--int4", "--int4-attn",
+                     "--int4-attn --int4-grad --int8-grad",
+                     "--int4-attn --int4-grad --int8-dw"]
+RESVIT_INT4_STEPS = 2
+RESVIT_INT4_RUNS = [(f"{f} C 0.625", f.split() + COMPACT
+                     + ["--compact-warmup", "0"]) for f in RESVIT_INT4_FLAGS] \
+    + [(f"{f} kv4 C 0.625", f.split() + ["--n_kv_heads", "4"] + COMPACT
+        + ["--compact-warmup", "0"]) for f in RESVIT_INT4_FLAGS]
+
+
+def check_resvit_int4_kernels(stats):
+    """Phase 14, kernels: R-F, R-B, R-B dw, G-F and G-B (both dw tiers)
+    against their twins on every output (`_check_int8` with the int4 code
+    band: codes, INT4_REL, the bf16 stand-in), two launches the same bits;
+    CUDA-event times beside their int8 counterparts (K8 int8, K7's int8
+    tier), two turns, the second in reverse order."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in RESVIT_INT4_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    for i, (label, batch, rows, seq_len, extra, names) in enumerate(
+            RESVIT_INT4_CASES):
+        t = _inputs(batch, rows, seed=140 + i)
+        g = torch.Generator(device="cuda").manual_seed(150 + i)
+        if "kv" in label:
+            width = (HEADS + 2 * extra) * HEAD_DIM
+            t["wqkv"] = (torch.randn((D, width), generator=g, device="cuda")
+                         * D ** -0.5).to(torch.bfloat16)
+            t["bqkv"] = 0.02 * torch.randn(width, generator=g, device="cuda")
+            head = (t["x"],)
+            do = torch.randn(t["x"].shape, generator=g, device="cuda").to(
+                torch.bfloat16)
+            tail = (EPS, seq_len, HEADS, HEAD_DIM, extra)
+        else:
+            xc, _ = _rect_inputs(t, extra, seq_len, seed=160 + i)
+            head = (xc, t["x"])
+            do = torch.randn(xc.shape, generator=g, device="cuda").to(
+                torch.bfloat16)
+            do[:, extra:] = 0  # the caller cuts the pad rows off
+            tail = (EPS, seq_len, HEADS, HEAD_DIM)
+        w = (t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"])
+        calls = {n: (*head, *w, do if n.endswith("_bwd") else t["bo"], *tail)
+                 for n in names}
+        timed = {}
+        for name, args in calls.items():
+            with torch.no_grad():
+                outs = getattr(ck, name)(*args)
+                again = getattr(ck, name)(*args)
+                torch.cuda.synchronize()
+                refs = getattr(ck, name + "_ref")(*args)
+                if not isinstance(outs, tuple):
+                    outs, again, refs = (outs,), (again,), (refs,)
+                if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                    raise AssertionError(f"{name}: two launches differ")
+                for o, r in zip(outs, refs):
+                    if not (bool(torch.isfinite(o).all())
+                            and o.shape == r.shape and o.dtype == r.dtype):
+                        raise AssertionError(f"{name} {label}: "
+                                             f"{tuple(o.shape)} {o.dtype}, "
+                                             "or not finite")
+                errs = [(o.float() - r.float()).abs().max().item()
+                        for o, r in zip(outs, refs)]
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                                 *errs)
+                # codes, ‖k − t‖/‖t‖ and the stand-in, at K11's INT4_REL: a
+                # code moved one int4 step moves its element by 1/7 of its
+                # row's largest value, past the bf16 per-element tolerance,
+                # and R-B's dx-path past INT8_REL (6.0e-3 measured on an
+                # H100, its dqq codes 1.2e-4 moved, one step)
+                _check_int8(ck, name, label, args, outs, refs, stats,
+                            RESVIT_INT4_CODE_BAND, INT4_REL)
+            print(f"  {name:40s} {label:28s} max|k-ref| per output "
+                  f"[{' '.join(f'{e:.2e}' for e in errs)}]; two launches "
+                  "the same bits", flush=True)
+            del outs, again, refs
+            int8 = RESVIT_INT4_PAIRS[name]
+            timed[name] = lambda n=name, a=args: getattr(ck, n)(*a)
+            timed[int8] = lambda n=int8, a=args: getattr(ck, n)(*a)
+        ms = {n: [] for n in timed}
+        with torch.no_grad():
+            for turn in range(2):
+                for n, fn in (timed.items() if turn == 0
+                              else reversed(timed.items())):
+                    ms[n].append(_median_ms(fn, warmup=2, iters=10))
+            for name, args in calls.items():
+                stats[name].update(
+                    ms=min(ms[name]), int8_ms=min(ms[RESVIT_INT4_PAIRS[name]]),
+                    ms_turns=ms[name],
+                    int8_ms_turns=ms[RESVIT_INT4_PAIRS[name]],
+                    shape=(batch, rows, head[0].shape[1] if len(head) == 2
+                           else extra),
+                    plain_ms=_median_ms(
+                        lambda n=name, a=args: getattr(ck, n + "_ref")(*a),
+                        warmup=1, iters=3))
+        print(f"  {label} (CUDA events, medians of 10, two turns, the second "
+              "in reverse order): " + ", ".join(
+                  f"{n} {' / '.join(f'{v:.4f}' for v in ms[n])} ms"
+                  for n in timed) + "; twins " + ", ".join(
+                  f"{n} {stats[n]['plain_ms']:.4f}" for n in names),
+              flush=True)
+        del t, calls, do
+        torch.cuda.empty_cache()
+    return stats
+
+
+class _LayerFeed:
+    """Runs a model with each of its blocks cut from the one before: the
+    block functions `names` of `module` (the student's calls, under
+    autograd) take a leaf input. Recording, the input is the model's own;
+    feeding, it is the recorded one, so a second path gets the first path's
+    input at every layer. `loss()` is Σ_l <out_l, r_l> over the real rows
+    (seeded random r_l), whose grads of a layer's weights and of its input
+    come from that layer alone."""
+
+    def __init__(self, module, names, rows=None):
+        self.module, self.names, self.rows = module, names, rows
+        self.inputs, self.leaves, self.outs = [], [], []
+
+    @contextlib.contextmanager
+    def run(self, feed):
+        import torch
+        saved = {n: getattr(self.module, n) for n in self.names}
+        self.leaves, self.outs = [], []
+
+        def wrap(fn):
+            def block(x, *a, **k):
+                if not torch.is_grad_enabled():  # Res-ViT's teacher
+                    return fn(x, *a, **k)
+                if not feed:
+                    self.inputs.append(x.detach())
+                leaf = self.inputs[len(self.leaves)].clone().requires_grad_()
+                out = fn(leaf, *a, **k)
+                self.leaves.append(leaf)
+                self.outs.append(out)
+                return out
+            return block
+
+        for n, f in saved.items():
+            setattr(self.module, n, wrap(f))
+        try:
+            yield self
+        finally:
+            for n, f in saved.items():
+                setattr(self.module, n, f)
+
+    def loss(self):
+        import torch
+        dev = self.outs[0].device
+        g = torch.Generator(device=dev).manual_seed(5)
+        total = 0.0
+        for out in self.outs:
+            o = out[:, :self.rows] if self.rows else out
+            r = torch.randn(o.shape, generator=g, device=dev)
+            total = total + (o.float() * r).sum()
+        return total
+
+
+def _feed_grads(feed, weights):
+    """The grads of `feed.loss()` of each block's input leaf, then of each
+    of `weights` (None where a weight is not in any block)."""
+    import torch
+    return torch.autograd.grad(feed.loss(), feed.leaves + weights,
+                               allow_unused=True)
+
+
+def _layer_hold(feed_k, feed_t, g_k, g_t, names):
+    """Per layer, the kernel path against the twin path fed the kernel
+    path's input: the layer's own contribution to the stream (output −
+    input, real rows; K5's check holds a half the same way), ‖Δ‖/‖t‖
+    against LOGIT_BAND, the int8 logit band as a relative distance (one
+    int4 code moved on a .5 tie moves its element by 1/7 of its row's
+    largest value, so the largest element error over millions is no
+    measure); the grads (`_feed_grads`) of its input and of each weight
+    `names` puts in the layer, ‖Δ‖/‖t‖ against INT8_GRAD_BAND (the key
+    biases, whose exact grad is 0, as a ratio to their layer's query bias).
+    Returns per layer (contribution distance, its max|Δ| over max|t|, worst
+    grad distance, its tensor)."""
+    n_layers = len(feed_k.leaves)
+    rows = []
+    for l in range(n_layers):
+        x = feed_k.inputs[l]
+        ok, ot = feed_k.outs[l] - x, feed_t.outs[l] - x
+        if feed_k.rows:
+            ok, ot = ok[:, :feed_k.rows], ot[:, :feed_k.rows]
+        err = _rel(ok, ot)
+        top = ((ok.float() - ot.float()).abs().max()
+               / ot.float().abs().max().clamp_min(1e-30)).item()
+        rels = [(_rel(g_k[l], g_t[l]), "input")]
+        for j, n in enumerate(names):
+            if not n.startswith(f"layers/{l}/") or g_t[n_layers + j] is None:
+                continue
+            a, b = g_k[n_layers + j], g_t[n_layers + j]
+            if n.endswith("attn/key/bias"):
+                q = g_t[n_layers + names.index(n.replace("/key/", "/query/"))]
+                rels.append((a.norm().item() / max(q.norm().item(), 1e-30),
+                             n))
+            elif b.norm() > 0:
+                rels.append((_rel(a, b), n))
+        worst = max(rels)
+        rows.append((err, top, worst[0], worst[1]))
+        if err > LOGIT_BAND or worst[0] > INT8_GRAD_BAND:
+            raise AssertionError(f"layer {l}: contribution {err}, grad "
+                                 f"{worst}")
+    return rows
+
+
+def _resvit_int4_launch_runs(exp_root):
+    """resvit_train_cli with RESVIT_INT4_RUNS: vitax's int4 warning, finite
+    losses and metrics, the launches of every step and eval batch as
+    `_resvit_launches` derives vitax's dispatch."""
+    import torch
+    from vitax_torch import resvit_train_cli
+    from vitax_torch.ops import cuda_kernels as ck
+    counts = {}
+    for label, extra in RESVIT_INT4_RUNS:
+        log, buf = [], io.StringIO()
+        args = RESVIT_TRAIN_ARGS + extra + [
+            "--batch-size", str(TRAIN_BATCH), "--synthetic-samples",
+            str(TRAIN_BATCH * RESVIT_INT4_STEPS), "--train-steps",
+            str(RESVIT_INT4_STEPS), "--exp-root", exp_root]
+        ck.reset_launch_counts()
+        with _step_launches(ck, log), contextlib.redirect_stdout(buf):
+            out = resvit_train_cli.main(args)
+        counts[label] = ck.launch_counts()
+        shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
+        bad = [(kind, {k: v for k, v in got.items() if v})
+               for kind, c, got in log
+               if got != _resvit_launches(c, kind == "train")]
+        steps = [got for kind, _, got in log if kind == "train"]
+        valid = out["epochs"][-1]
+        print(f"resvit-int4: resvit_train_cli {label} b{TRAIN_BATCH}: valid "
+              f"acc1 {valid['acc1']:.4f} loss {valid['loss']:.4f}; launches "
+              f"as vitax's dispatch picks: {not bad} (a step: " + ", ".join(
+                  f"{k} {v}" for k, v in steps[-1].items() if v) + ")",
+              flush=True)
+        if (bad or len(steps) != RESVIT_INT4_STEPS
+                or "MEASURED DIVERGENT" not in buf.getvalue()
+                or not all(math.isfinite(v) for v in valid.values())):
+            raise AssertionError(f"{label}: launches {bad}, {len(steps)} "
+                                 f"steps, valid {valid}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_resvit_int4_slice(exp_root):
+    """Phase 14, paths: resvit_train_cli with each int4 flag set (exact
+    launches); the b16 Res-ViT with --int4-attn --int4-grad --int8-dw at C
+    0.625 against its int4 twin path (one routed layer end to end; the
+    12-layer model layer by layer, each layer fed the kernel path's input
+    and keep bits); resident b32 steps of (d) and (e) beside their int4
+    tiers; eval_cli at ViT-L/16 @384 (K6, not K1; --int8 raises)."""
+    import torch
+    from vitax_torch import eval_cli
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.models import resvit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.resvit_train_cli import (config_to_model_args,
+                                              get_train_config)
+    from vitax_torch.train.optim import param_leaves, tree_leaves
+    from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                                make_adamw_for,
+                                                make_train_step)
+    from vitax_torch.utils.memory import named_leaves
+
+    with _random_router_biases():
+        counts = _resvit_int4_launch_runs(exp_root)
+        base = config_to_model_args(get_train_config(
+            RESVIT_TRAIN_ARGS + ["--exp-root", exp_root, "--int4-attn",
+                                 "--int4-grad", "--int8-dw",
+                                 "--compact-capacity", "0.625"]), "cuda")
+        params = resvit.init_params(set_seed(0), base, "cuda")
+        one = base.replace(n_layers=1, dynamic_start_layer=0)
+        p_one = resvit.init_params(set_seed(1), one, "cuda")
+    shutil.rmtree(exp_root, ignore_errors=True)
+    dist = {}
+    g = torch.Generator(device="cuda").manual_seed(13)
+    batch = 16
+    images = torch.randn((batch, 224, 224, 3), generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    labels = torch.randint(0, 10, (batch,), generator=g, device="cuda")
+
+    # one routed layer end to end (its router, the rect half R-F / R-B dw,
+    # the MLP half K11-A / K11-B dw, the teacher's K11-C), kernel path
+    # against twin path, the noise injected and the routing replayed
+    for t, m in zip(param_leaves(p_one), tree_leaves(
+            resvit.trainable_mask(p_one, one))):
+        t.requires_grad_(m)
+    noise = _train_noise(one, batch, seed=17)
+    replay = _RoutingReplay(resvit)
+    ck.reset_launch_counts()
+    lk, g_k = _resvit_grads(p_one, images, labels, one, noise,
+                            replay.record())
+    ran = _nonzero(ck.launch_counts())
+    with _int4_twins(ck):
+        lt, g_t = _resvit_grads(p_one, images, labels, one, noise,
+                                replay.replay())
+    names = [n for (n, _), m in zip(named_leaves(p_one), tree_leaves(
+        resvit.trainable_mask(p_one, one))) if m]
+    rels = sorted(((_rel(a, b), n) for a, b, n in zip(g_k, g_t, names)
+                   if b.norm() > 0), reverse=True)
+    d_log = (lk - lt).abs().max().item()
+    band = LOGIT_BAND * max(1.0, lt.abs().max().item())
+    dist["1 routed layer"] = (d_log, rels[0][0], rels[0][1])
+    print(f"resvit-int4: one routed layer b{batch} C 0.625, --int4-attn "
+          f"--int4-grad --int8-dw, kernel vs twin path (launches {ran}): "
+          f"logits max|Δ| {d_log:.3e} (band {band:.3e}); worst grad of "
+          f"{len(names)} trainable tensors " + ", ".join(
+              f"{r:.3e} ({n})" for r, n in rels[:3])
+          + f" <= {INT8_GRAD_BAND}", flush=True)
+    if (d_log > band or rels[0][0] > INT8_GRAD_BAND
+            or not all(ran.get(n) for n in (
+                "fused_ln_qkvo_attention_rect_int4",
+                "fused_ln_qkvo_attention_rect_int4_dw_bwd"))):
+        raise AssertionError("one routed int4 layer outside the int8 bands")
+    del p_one, g_k, g_t
+
+    # the 12-layer model, layer by layer: each block of the twin path fed
+    # the kernel path's input to it, the keep bits replayed
+    cfg = base
+    names = [n for n, _ in named_leaves(params)]
+    weights = list(param_leaves(params))
+    for t, m in zip(weights, tree_leaves(resvit.trainable_mask(params,
+                                                                cfg))):
+        t.requires_grad_(m)
+    pick = [j for j, t in enumerate(weights) if t.requires_grad]
+    names, weights = [names[j] for j in pick], [weights[j] for j in pick]
+    noise = _train_noise(cfg, batch, seed=19)
+    replay = _RoutingReplay(resvit)
+    blocks = ("plain_block", "compact_routed_block")
+    feed_k = _LayerFeed(resvit, blocks)
+    with feed_k.run(False), replay.record():
+        resvit.apply(params, images, cfg, train=True, noise=noise)
+    g_k = _feed_grads(feed_k, weights)
+    feed_t = _LayerFeed(resvit, blocks)
+    feed_t.inputs = feed_k.inputs
+    with _int4_twins(ck), feed_t.run(True), replay.replay():
+        resvit.apply(params, images, cfg, train=True, noise=noise)
+        g_t = _feed_grads(feed_t, weights)
+    rows = _layer_hold(feed_k, feed_t, g_k, g_t, names)
+    dist["12 layers, fed"] = rows
+    print("resvit-int4: 12 layers b16, each fed the kernel path's input and "
+          f"keep bits, per layer (its contribution ‖Δ‖/‖t‖ <= {LOGIT_BAND}, "
+          f"max|Δ| / max|t|; worst grad ‖Δ‖/‖t‖ <= {INT8_GRAD_BAND}): "
+          + "; ".join(f"{l} {o:.2e} {m:.2e} {r:.2e} ({n})"
+                      for l, (o, m, r, n) in enumerate(rows)), flush=True)
+    del feed_k, feed_t, g_k, g_t
+    torch.cuda.empty_cache()
+
+    # resident b32 steps: (d) --int8-grad C 0.625 and (e) GQA C 0.625
+    # (--int8-grad) beside their --int4-attn --int4-grad tiers, in turns
+    gqa = cfg.replace(n_kv_heads=4)
+    with _random_router_biases():
+        gqa_params = resvit.init_params(set_seed(0), gqa, "cuda")
+    int8 = dict(int4_mlp=False, int4_attn=False, int4_grad=False,
+                int8_dw=False)
+    paths = {"(d) --int8-grad C 0.625": (cfg.replace(**int8), params),
+             "(d) --int4-attn --int4-grad": (cfg.replace(int8_dw=False),
+                                             params),
+             "(e) kv4 --int8-grad C 0.625": (gqa.replace(**int8),
+                                             gqa_params),
+             "(e) kv4 --int4-attn --int4-grad": (gqa.replace(int8_dw=False),
+                                                 gqa_params)}
+    images = torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g,
+                         device="cuda", dtype=torch.bfloat16)
+    labels = torch.randint(0, 10, (TRAIN_BATCH,), generator=g, device="cuda")
+    lam = Lambdas(*RESVIT_LAMBDAS)
+    steps = {k: [] for k in paths}
+    for turn in range(2):
+        for key, (c, p) in (paths.items() if turn == 0
+                            else reversed(paths.items())):
+            tx = make_adamw_for(c, p, lambda s: 1e-4)
+            state = create_state(p, tx, torch.Generator(device="cuda")
+                                 .manual_seed(3))
+            step = make_train_step(c, tx, lam)
+            steps[key].append(_median_ms(lambda: step(state, images, labels),
+                                         warmup=2, iters=5))
+            del tx, state
+    del params, gqa_params
+    torch.cuda.empty_cache()
+    print("resvit-int4: steps b32 (teacher + student forward, backward, "
+          "AdamW; medians of 5, two turns, the second in reverse order): "
+          + "; ".join(f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+                      for k, ms in steps.items()), flush=True)
+
+    # ViT-L/16 at eval_cli's default 384 px: vitax's K1 gate rejects it,
+    # so K6 runs (24 a forward, with 24 K2 and one LN) and --int8 raises
+    l16 = ["--model-arch", "l16", "--image-size", "384", "--dataset",
+           "Synthetic", "--synthetic-samples", "16", "--batch-size", "8",
+           "--num-classes", "10", "--seed", "0"]
+    ck.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        eval_cli.main(l16)
+    counts["eval_cli l16 @384"] = ck.launch_counts()
+    expect = _expect(fused_ln_qkvo_attention_flash=48, fused_ln_mlp=48,
+                     layer_norm=2)
+    raised = ""
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            eval_cli.main(l16 + ["--int8"])
+    except NotImplementedError as e:
+        raised = str(e)
+    print(f"resvit-int4: eval_cli --model-arch l16 --image-size 384 b8, 2 "
+          f"batches: launches {_nonzero(counts['eval_cli l16 @384'])}; "
+          f"--int8 raises: {raised[:90]}...", flush=True)
+    if (counts["eval_cli l16 @384"] != expect
+            or "Queue 1 item 8" not in raised):
+        raise AssertionError("l16 @384: not K6, or --int8 did not raise")
+    torch.cuda.empty_cache()
+    return counts, steps, dist
 
 
 # ---------------------------------------------------------------- bounds
@@ -3760,7 +4312,8 @@ def _work(name, batch, rows, extra=None, dims=None):
     rows. `extra`: K8's cpq (the gathered rows xc [batch, cpq, 768] in, the
     output on them), K7's kv heads. K6 and K2's backward at d > 1024 do
     K1's and K2's work, K11 K3's and K4's."""
-    if name in RESVIT_KERNELS + TRAIN_RESVIT_KERNELS + INT8_GQA_KERNELS:
+    if name in (RESVIT_KERNELS + TRAIN_RESVIT_KERNELS + INT8_GQA_KERNELS
+                + RESVIT_INT4_KERNELS):
         return _resvit_work(name, batch, rows, extra)
     D, HEADS, HEAD_DIM, MLP = dims or B16
     if name in K13_KERNELS:  # rows = seq; q, k, v, (out, dO) in, out(s)
@@ -3839,6 +4392,9 @@ def _resvit_work(name, batch, spq, extra):
     hhd = HEADS * HEAD_DIM
     vec = 4 * (4 * D + 3 * hhd)
     core = 4 * batch * HEADS * spq * HEAD_DIM  # times the query rows
+    # Res-ViT's int4 kernels do their int8 counterparts' work, their codes
+    # on the int4 grid in s8 products
+    name = name.replace("_int4", "_int8")
     if name.startswith("fused_ln_qkvo_attention_int8_gqa"):
         n, width = batch * spq, (HEADS + 2 * extra) * HEAD_DIM
         w_bytes = 2 * (D * width + hhd * D)
@@ -4028,8 +4584,38 @@ def main() -> int:
           + "; kernel path vs twin path (logits ‖Δ‖/‖t‖, the bf16 path's; "
           "worst and median grad distance, the bf16 path's median): " + "; ".join(
               f"{k} layer(s) {v[0]:.3e} / {v[1]:.3e}, {v[2]:.3e}, {v[3]:.3e} "
-              f"/ {v[4]:.3e}" for k, v in dist13.items())
+              f"/ {v[4]:.3e}" for k, v in dist13.items() if isinstance(k, int))
+          + "; 12 layers fed, worst contribution {:.3e}, worst grad "
+          "{:.3e}".format(max(r[0] for r in dist13["12, fed"]),
+                          max(r[2] for r in dist13["12, fed"]))
           + f"; phase 13 took {time.time() - t13:.1f} s [{card}]", flush=True)
+
+    print("phase 14, Res-ViT int4 (R-F, R-B, G-F, G-B) vs plain:", flush=True)
+    t14 = time.time()
+    check_resvit_int4_kernels(stats)
+    try:
+        counts14, steps14, dist14 = run_resvit_int4_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("resvit-int4: kernels vs twin, worst ‖k−t‖/‖t‖ of any output <= "
+          f"{INT4_REL}, the bf16 stand-in's nearest: " + ", ".join(
+              f"{n} {stats[n]['worst_rel']:.3e} / "
+              f"{stats[n]['stand_in_min_rel']:.3e}"
+              for n in RESVIT_INT4_KERNELS)
+          + "; kernel / int8 counterpart ms (two turns): " + ", ".join(
+              "{} {} against {}".format(n, *(
+                  " / ".join(f"{v:.4f}" for v in stats[n][k])
+                  for k in ("ms_turns", "int8_ms_turns")))
+              for n in RESVIT_INT4_KERNELS)
+          + "; steps b32: " + "; ".join(
+              f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+              for k, ms in steps14.items())
+          + "; one routed layer: logits max|Δ| {:.3e}, worst grad {:.3e} "
+          "({})".format(*dist14["1 routed layer"])
+          + "; 12 layers fed, worst contribution {:.3e}, worst grad "
+          "{:.3e}".format(max(r[0] for r in dist14["12 layers, fed"]),
+                          max(r[2] for r in dist14["12 layers, fed"]))
+          + f"; phase 14 took {time.time() - t14:.1f} s [{card}]", flush=True)
 
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
@@ -4076,7 +4662,20 @@ def main() -> int:
         ("fused_ln_mlp_int4_bwd", "fused_ln_qkvo_attention_int4_bwd"),
         "--int4-attn --int4-grad --int8-grad"))
 
+    # phase 14: R-F and R-B dw from resvit_train_cli --int4-attn --int4-grad
+    # --int8-dw C 0.625, R-B from --int4-attn --int4-grad --int8-grad C
+    # 0.625, G-F and G-B's from the same flags with 4 kv heads
+    resvit_int4_runs = {
+        "fused_ln_qkvo_attention_rect_int4": RESVIT_INT4_RUNS[3][0],
+        "fused_ln_qkvo_attention_rect_int4_dw_bwd": RESVIT_INT4_RUNS[3][0],
+        "fused_ln_qkvo_attention_rect_int4_bwd": RESVIT_INT4_RUNS[2][0],
+        "fused_ln_qkvo_attention_int4_gqa": RESVIT_INT4_RUNS[7][0],
+        "fused_ln_qkvo_attention_int4_gqa_dw_bwd": RESVIT_INT4_RUNS[7][0],
+        "fused_ln_qkvo_attention_int4_gqa_bwd": RESVIT_INT4_RUNS[6][0]}
+
     def launches(name):
+        if name in resvit_int4_runs:
+            return counts14[resvit_int4_runs[name]][name]
         if name in int4_runs:
             return counts13[int4_runs[name]][name]
         if name in save_runs:

@@ -1183,3 +1183,112 @@ def test_int4_autograd_picks_the_backward_of_its_tier(dev, half, flags, bwd):
             assert torch.isfinite(t.grad.float()).all()
     assert {k: v for k, v in ck.launch_counts().items() if v} == {name: 1,
                                                                   bwd: 1}
+
+
+# ---------------------------------------------------------------------------
+# Res-ViT's int4: R-F, R-B and R-B dw (the rect half, ln_qkvo_attention_rect_
+# int8{,_bwd}.cu at L = 7) and G-F, G-B (K11's kv_heads branches): each
+# against its twin as K11's are held (codes; ‖k − t‖/‖t‖ <= INT4_REL). xqk
+# and dkvq quantize x's rows as xq and dqq do xc's; dkvc is dK/dV's column
+# pack, as dqc is dqkv's.
+RESVIT_INT4_CODE_BAND = dict(INT4_CODE_BAND, xqk=(1, 1e-3), dkvq=(1, 1e-3),
+                             xnk=(2, 1e-3), dkvc=(4, 5e-3))
+RECT_INT4 = ("fused_ln_qkvo_attention_rect_int4",
+             "fused_ln_qkvo_attention_rect_int4_bwd",
+             "fused_ln_qkvo_attention_rect_int4_dw_bwd")
+GQA_INT4 = ("fused_ln_qkvo_attention_int4_gqa",
+            "fused_ln_qkvo_attention_int4_gqa_bwd",
+            "fused_ln_qkvo_attention_int4_gqa_dw_bwd")
+
+
+def _hold_int4(name, args, kv=()):
+    sk, st = {}, {}
+    with torch.no_grad():
+        outs = getattr(ck, name)(*args, *kv, scratch=sk)
+        again = getattr(ck, name)(*args, *kv)
+        torch.cuda.synchronize()
+        refs = getattr(ck, name + "_ref")(*args, *kv, scratch=st)
+    if not isinstance(outs, tuple):
+        outs, refs, again = (outs,), (refs,), (again,)
+    assert len(outs) == len(refs) and sk.keys() == st.keys(), name
+    for key, (q, s) in st.items():
+        qk, s_k = sk[key]
+        assert qk.dtype == torch.int8 and qk.shape == q.shape, (name, key)
+        if key.startswith("w") or key in ("doq", "doc"):
+            assert torch.equal(qk, q) and torch.equal(s_k, s), (name, key)
+            continue
+        d = (qk.long() - q.long()).abs()
+        max_step, max_share = RESVIT_INT4_CODE_BAND[key]
+        print(f"{name} {key}: {d.float().mean().item():.2e} moved, max "
+              f"{d.max().item()}")
+        assert d.max().item() <= max_step, (name, key)
+        assert d.float().mean().item() <= max_share, (name, key)
+    for i, (out, ref, out2) in enumerate(zip(outs, refs, again)):
+        assert out.shape == ref.shape and out.dtype == ref.dtype
+        assert torch.isfinite(out).all() and torch.equal(out, out2)
+        rel = ((out.float() - ref.float()).norm()
+               / ref.float().norm().clamp_min(1e-30)).item()
+        print(f"{name} output {i}: ‖k − t‖/‖t‖ {rel:.2e}")
+        assert rel <= INT4_REL, (name, i)
+
+
+@pytest.mark.parametrize("shape", RECT_BWD_SHAPES)
+def test_rect_int4_kernels_match_twins(dev, shape):
+    args, _ = _rect_bwd_args(dev, *shape)
+    fwd = (*args[:7], torch.zeros(768, device=dev), *args[8:])
+    ck.reset_launch_counts()
+    _hold_int4(RECT_INT4[0], fwd)
+    for name in RECT_INT4[1:]:
+        _hold_int4(name, args)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(RECT_INT4, 2)
+
+
+@pytest.mark.parametrize("shape", INT8_GQA_SHAPES[1:])
+def test_int4_gqa_kernels_match_twins(dev, shape):
+    args = _gqa_bwd_args(dev, *shape)
+    hkv = args[-1]
+    fwd = (*args[:6], torch.zeros(shape[3], device=dev), *args[7:-1])
+    ck.reset_launch_counts()
+    _hold_int4(GQA_INT4[0], fwd, (hkv,))
+    for name in GQA_INT4[1:]:
+        _hold_int4(name, args[:-1], (hkv,))
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(GQA_INT4, 2)
+
+
+# (flags, the backward vitax's dispatch picks): R-B / G-B only under
+# int8_grad and int4_grad, K8's / K7's int8 backward under int8_grad alone
+RESVIT_INT4_TIERS = [({}, "bwd"), (dict(int4_grad=True), "bwd"),
+                     (dict(int8_grad=True), "int8_bwd"),
+                     (dict(int8_grad=True, int4_grad=True), "int4_bwd"),
+                     (dict(int8_grad=True, int4_grad=True, int8_dw=True),
+                      "int4_dw_bwd")]
+
+
+@pytest.mark.parametrize("half", ["rect", "gqa"])
+@pytest.mark.parametrize("flags,bwd", RESVIT_INT4_TIERS)
+def test_resvit_int4_autograd_picks_the_backward_of_its_tier(dev, half,
+                                                             flags, bwd):
+    if half == "rect":
+        args, _ = _rect_bwd_args(dev, 2, 200, 197, 37)
+        leaves, tail, kw = args[:7], args[8:], {}
+        fwd, name = ck.fused_ln_qkvo_attention_rect_int4, RECT_INT4[0]
+        bwd = "fused_ln_qkvo_attention_rect_" + bwd
+    else:
+        args = _gqa_bwd_args(dev, 2, 200, 197, 768, 12, 4, 64)
+        leaves, tail, kw = args[:6], args[7:-1], dict(kv_heads=args[-1])
+        fwd, name = ck.fused_ln_qkvo_attention_int4, GQA_INT4[0]
+        bwd = "fused_ln_qkvo_attention_" + {
+            "bwd": "gqa_bwd", "int8_bwd": "int8_gqa_bwd",
+            "int4_bwd": "int4_gqa_bwd", "int4_dw_bwd": "int4_gqa_dw_bwd"}[bwd]
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    bo = torch.zeros(768, device=dev, requires_grad=True)
+    ck.reset_launch_counts()
+    y = fwd(*leaves, bo, *tail, **flags, **kw)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {name: 1,
+                                                                  bwd: 1}
+    for t in leaves + [bo]:
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()

@@ -1,0 +1,128 @@
+"""Which fused attention half vitax_torch picks, against vitax's gates, at
+every preset of ARCH_PRESETS and 224 and 384 px, in eval and in training,
+for the ViT (K1 / K6 / plain), Res-ViT's square half (K1 / K9-K10 / plain)
+and its rect half (K8 / the square half and a gather). Shapes only: meta
+tensors on the port's side, ShapeDtypeStructs on vitax's.
+
+vitax's choices come from its own gate functions
+(vitax/ops/pallas_kernels.py:2185, :3363) composed as its models compose
+them (vitax/models/vit.py:220-227, vitax/models/resvit.py:266, :336, :375);
+the port's from the functions its models call.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from vitax.ops import pallas_kernels as pk  # noqa: E402
+from vitax_torch.core import config as t_config  # noqa: E402
+from vitax_torch.models import resvit as tr  # noqa: E402
+from vitax_torch.models import vit as tvit  # noqa: E402
+from vitax_torch.ops import gates  # noqa: E402
+
+PRESETS = sorted(t_config.ARCH_PRESETS)
+CASES = [(a, i, m) for a in PRESETS for i in (224, 384)
+         for m in ("eval", "train")]
+CAPACITY = 0.625  # the compacted rows of Res-ViT's rect half
+KV_HEADS = 4      # Res-ViT's GQA runs (--n_kv_heads 4)
+
+
+def _seq(arch, image):
+    p = t_config.ARCH_PRESETS[arch]
+    return (image // p["patch"]) ** 2 + 1, p["emb_dim"], p["num_heads"]
+
+
+def _shapes(b, s, d, width):
+    return ((jax.ShapeDtypeStruct((b, s, d), jnp.bfloat16),
+             jax.ShapeDtypeStruct((d, width), jnp.bfloat16)),
+            (torch.empty((b, s, d), dtype=torch.bfloat16, device="meta"),
+             torch.empty((d, width), dtype=torch.bfloat16, device="meta")))
+
+
+def _vitax_vit(jx, jw):
+    if pk.qkv_attention_supported(jx, jw):
+        return "k1"
+    return "k6" if pk.qkv_attention_flash_supported(jx, jw) else None
+
+
+@pytest.mark.parametrize("arch,image,mode", CASES)
+def test_vit_attention_half_is_vitaxs(arch, image, mode):
+    s, d, h = _seq(arch, image)
+    (jx, jw), (tx, tw) = _shapes(2, s, d, 3 * d)
+    with torch.set_grad_enabled(mode == "train"):
+        assert tvit._attention_kernel(tx, tw, h) == _vitax_vit(jx, jw)
+
+
+@pytest.mark.parametrize("kv", ["mha", "gqa"])
+@pytest.mark.parametrize("arch,image,mode", CASES)
+def test_resvit_halves_are_vitaxs(arch, image, mode, kv):
+    """The square half at n_kv_heads = n_heads and 4 (the packed width), and
+    the rect half on ceil(0.625·N) rows, which declines under GQA; where the
+    square half declines, the unfused path raises exactly where vitax would
+    run K9/K10 (never, on these presets: its gate is the square one's)."""
+    s, d, h = _seq(arch, image)
+    hkv = h if kv == "mha" else KV_HEADS
+    hd = d // h
+    cfg = t_config.resvit_arch_config(arch, image, n_kv_heads=hkv,
+                                      fused_qkv=True, fused_qkvo=True)
+    (jx, jw), (tx, tw) = _shapes(2, s, d, (h + 2 * hkv) * hd)
+    with torch.set_grad_enabled(mode == "train"):
+        vitax_square = ("k1" if pk.qkv_attention_supported(jx, jw, h, hkv)
+                        else "k9/k10" if hkv == h
+                        and pk.qkv_attention_supported(jx, jw) else "plain")
+        port_square = ("k1" if tr.square_half_supported(tx, tw, cfg)
+                       else "k9/k10" if tr.reaches_k9_k10(tx, cfg)
+                       else "plain")
+        assert port_square == vitax_square != "k9/k10"
+        cap = int(np.ceil(CAPACITY * s))
+        spq, cpq = (s + 7) // 8 * 8, (cap + 7) // 8 * 8
+        xp = torch.empty((2, spq, d), dtype=torch.bfloat16, device="meta")
+        xcp = torch.empty((2, cpq, d), dtype=torch.bfloat16, device="meta")
+        vitax_rect = hkv == h and pk.qkv_attention_supported(jx, jw)
+        assert tr.rect_half_supported(xcp, xp, tw, cfg) == vitax_rect
+
+
+def test_gate_copies_are_vitaxs_arithmetic():
+    """ops/gates.py against vitax's functions on shapes around each limit:
+    s 1024/1025, d 1024/1152/1536/1664, d % 128, the GQA width, and the
+    VMEM estimate's edge (l16 @384: 90349568 bytes against 83886080)."""
+    assert gates.qkv_attention_vmem(577, 1024, 1024) == 90349568
+    assert gates.qkv_attention_vmem(577, 1024, 1024) > gates.QKVO_VMEM
+    for b, s, d, width, heads, kv in [
+            (2, 577, 1024, 3072, None, None), (2, 197, 1024, 3072, 16, 16),
+            (2, 1024, 768, 2304, None, None), (2, 1025, 768, 2304, 12, 12),
+            (2, 197, 768, 2304, 12, 4), (2, 197, 768, 1536, 12, 4),
+            (2, 197, 768, 1280, 12, 2), (2, 197, 640, 1920, None, None),
+            (2, 197, 1152, 3456, None, None), (2, 200, 96, 288, 3, 3),
+            (2, 730, 1280, 3840, None, None), (2, 257, 1536, 4608, None, None),
+            (2, 257, 1664, 4992, None, None), (3, 5, 128, 385, None, None)]:
+        (jx, jw), (tx, tw) = _shapes(b, s, d, width)
+        assert (gates.qkv_attention_supported(tx, tw, heads, kv)
+                == pk.qkv_attention_supported(jx, jw, heads, kv)), (s, d)
+        assert (gates.qkv_attention_flash_supported(tx, tw)
+                == pk.qkv_attention_flash_supported(jx, jw)), (s, d)
+
+
+def test_l16_at_384_runs_k6_and_its_int8_flags_raise(monkeypatch):
+    """ViT-L/16 at eval_cli's default 384 px: vitax's K1 gate rejects it
+    (the VMEM estimate), so both packages run K6, and the port's int8 and
+    int4 tiers raise Queue 1 item 8's message there (vitax drops them to
+    bf16 without a word)."""
+    s, d, h = _seq("l16", 384)
+    tx = torch.empty((2, s, d), dtype=torch.bfloat16, device="meta")
+    tw = torch.empty((d, 3 * d), dtype=torch.bfloat16, device="meta")
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            assert tvit._attention_kernel(tx, tw, h) == "k6"
+    monkeypatch.setattr(tvit, "embed", lambda params, images, cfg:
+                        torch.zeros((1, s, d), dtype=torch.bfloat16))
+    images = torch.zeros((1, 384, 384, 3))
+    for tier in (dict(int8_attn=True, int8_mlp=True),
+                 dict(int8_attn=True, int8_mlp=True, int4_mlp=True)):
+        cfg = t_config.arch_config("l16", 384, 10, fused_qkv=True,
+                                   fused_mlp=True, **tier)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            tvit.apply(None, images, cfg)

@@ -33,6 +33,7 @@ from vitax.core.config import arch_config as j_arch  # noqa: E402
 from vitax.models import vit as jvit  # noqa: E402
 from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax_torch import train_cli  # noqa: E402
+from vitax_torch.core.config import ARCH_PRESETS  # noqa: E402
 from vitax_torch.core.config import arch_config as t_arch  # noqa: E402
 from vitax_torch.models import vit as tvit  # noqa: E402
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
@@ -414,6 +415,10 @@ def test_handoff_gate_is_vitaxs_auto_condition(case, monkeypatch):
 
 TINY = ["--dataset", "Synthetic", "--model-arch", "tiny", "--num-workers", "0",
         "--dtype", "float32", "--fused-qkv", "--fused-mlp"]
+# the tiny preset at D 128 (2 heads of 64): vitax's fused gates take D %
+# 128 == 0 only, and the port picks its fused halves where they do
+WIDE_TINY = dict(patch=16, emb_dim=128, mlp_dim=256, num_heads=2,
+                 num_layers=3)
 
 
 def test_train_cli_fast_recipe_flags_run_the_handoff_twins(tmp_path,
@@ -438,6 +443,7 @@ def test_train_cli_fast_recipe_flags_run_the_handoff_twins(tmp_path,
             return _fn(*a, **k)
 
         monkeypatch.setattr(ck, name, counted)
+    monkeypatch.setitem(ARCH_PRESETS, "tiny", WIDE_TINY)
     out = train_cli.main(TINY + [
         "--image-size", "224", "--batch-size", "4", "--synthetic-samples", "8",
         "--train-steps", "4", "--warmup-steps", "0", "--int8-dw",

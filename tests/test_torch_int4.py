@@ -6,7 +6,8 @@ four kernels (the MLP half's forward and backward, the attention half's
 forward and the int4_grad branch of its backward, each backward with and
 without int8_dw; vitax_torch/ops/cuda_kernels.py) against vitax's Pallas
 kernels in interpret mode; the autograd Functions' dispatch on every tier;
-`vit.apply` and `train_cli` with the int4 flags; what still raises. The
+`vit.apply` and `train_cli` with the int4 flags; what still raises (d >
+1024). Res-ViT's int4 tiers are in tests/test_torch_resvit_int4.py. The
 kernels themselves are held against these twins on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py).
 
@@ -38,7 +39,7 @@ from vitax.core import config as j_config  # noqa: E402
 from vitax.core.config import arch_config as j_arch  # noqa: E402
 from vitax.models import vit as jvit  # noqa: E402
 from vitax.ops import pallas_kernels as pk  # noqa: E402
-from vitax_torch import resvit_train_cli, train_cli  # noqa: E402
+from vitax_torch import train_cli  # noqa: E402
 from vitax_torch.checkpointing.npz import save_npz_params  # noqa: E402
 from vitax_torch.core import config as t_config  # noqa: E402
 from vitax_torch.core.config import arch_config as t_arch  # noqa: E402
@@ -269,22 +270,6 @@ def test_int4_attention_backward_twin_matches_pallas(dtype, int8_dw, batch,
         bf = ck.fused_ln_qkvo_attention_int4_bwd_ref(*args)
         assert not torch.equal(bf[3], out[3]) and not torch.equal(bf[5],
                                                                   out[5])
-
-
-def test_int4_attention_rejects_kv_heads():
-    """The int4 kv_heads branches are Res-ViT's: the wrappers name its
-    item."""
-    _, t = _both(_arrays(5, 1, SPQ), "float32")
-    wqkv = torch.zeros((D, (H + 2) * HD))
-    args = (t["x"], t["gamma"], t["beta"], wqkv, torch.zeros(wqkv.shape[1]),
-            t["wo"])
-    with pytest.raises(NotImplementedError, match="Res-ViT int4"):
-        ck.fused_ln_qkvo_attention_int4(*args, t["bo"], EPS, SEQ, H, HD,
-                                        kv_heads=1)
-    for fn in (ck.fused_ln_qkvo_attention_int4_bwd,
-               ck.fused_ln_qkvo_attention_int4_dw_bwd):
-        with pytest.raises(NotImplementedError, match="Res-ViT int4"):
-            fn(*args, t["do"], EPS, SEQ, H, HD, 1)
 
 
 # ------------------------------------------------- the Functions' tiers
@@ -520,15 +505,3 @@ def test_train_cli_int4_flag_map():
     cfg = train_cli.model_config_from_cli(ns, on_gpu=True)
     assert cfg.int4_mlp and cfg.int4_grad and not cfg.int4_attn
     assert not cfg.int8_mlp_grad
-
-
-# ------------------------------------------------------ Res-ViT's int4
-
-def test_resvit_int4_raises_with_its_item(tmp_path):
-    """resvit_train_cli's int4 flags name Res-ViT's int4 item (the model's
-    own raise is in test_torch_resvit.py)."""
-    for flag in ("--int4", "--int4-attn", "--int4-grad"):
-        with pytest.raises(NotImplementedError, match="Res-ViT int4"):
-            resvit_train_cli.main(["--dataset", "Synthetic", "--model-arch",
-                                   "tiny", flag, "--exp-root",
-                                   str(tmp_path)], device="cpu")

@@ -30,6 +30,7 @@ from vitax.train import (create_train_state as j_state,  # noqa: E402
                          make_train_step as j_step, onecycle_lr as j_lr,
                          onecycle_momentum as j_mom, sgd_momentum as j_sgd)
 from vitax_torch import eval_cli, train_cli  # noqa: E402
+from vitax_torch.core.config import ARCH_PRESETS  # noqa: E402
 from vitax_torch.core.config import arch_config as t_arch  # noqa: E402
 from vitax_torch.models import vit as tvit  # noqa: E402
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
@@ -652,6 +653,10 @@ def test_int8_handoff_forward_matches_vitax(flags, dtype):
 
 TINY = ["--dataset", "Synthetic", "--model-arch", "tiny", "--num-workers", "0",
         "--dtype", "float32", "--fused-qkv", "--fused-mlp"]
+# the tiny preset at D 128 (2 heads of 64): vitax's fused gates take D %
+# 128 == 0 only, and the port picks its fused halves where they do
+WIDE_TINY = dict(patch=16, emb_dim=128, mlp_dim=256, num_heads=2,
+                 num_layers=3)
 
 
 def test_train_cli_int8_grad_runs_the_int8_twins(tmp_path, monkeypatch):
@@ -669,6 +674,7 @@ def test_train_cli_int8_grad_runs_the_int8_twins(tmp_path, monkeypatch):
             return _fn(*a, **k)
 
         monkeypatch.setattr(ck, name, counted)
+    monkeypatch.setitem(ARCH_PRESETS, "tiny", WIDE_TINY)
     out = train_cli.main(TINY + [
         "--image-size", "224", "--batch-size", "4", "--synthetic-samples", "8",
         "--train-steps", "2", "--warmup-steps", "0", "--int8-grad",
@@ -714,6 +720,7 @@ def test_train_cli_int8_grad_tiers_hand_off_short_streams(flag, tmp_path,
             return _fn(*a, **k)
 
         monkeypatch.setattr(ck, name, counted)
+    monkeypatch.setitem(ARCH_PRESETS, "tiny", WIDE_TINY)
     out = train_cli.main(TINY + [
         "--image-size", "32", "--batch-size", "4", "--synthetic-samples", "8",
         "--train-steps", "2", "--warmup-steps", "0", "--exp-root",

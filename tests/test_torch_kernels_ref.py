@@ -174,6 +174,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ck.fused_ln_qkvo_attention_int4(*qkvo, t["bo"], EPS, SEQ, H, HD)
     ck.fused_ln_qkvo_attention_int4_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
     ck.fused_ln_qkvo_attention_int4_dw_bwd(*qkvo, t["x"], EPS, SEQ, H, HD)
+    rect = (xc, t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"])
+    ck.fused_ln_qkvo_attention_rect_int4(*rect, t["bo"], EPS, SEQ, H, HD)
+    ck.fused_ln_qkvo_attention_rect_int4_bwd(*rect, xc, EPS, SEQ, H, HD)
+    ck.fused_ln_qkvo_attention_rect_int4_dw_bwd(*rect, xc, EPS, SEQ, H, HD)
+    ck.fused_ln_qkvo_attention_int4(*gqa, t["bo"], EPS, SEQ, 2, HD,
+                                    kv_heads=1)
+    ck.fused_ln_qkvo_attention_int4_bwd(*gqa, t["x"], EPS, SEQ, 2, HD,
+                                        kv_heads=1)
+    ck.fused_ln_qkvo_attention_int4_dw_bwd(*gqa, t["x"], EPS, SEQ, 2, HD,
+                                           kv_heads=1)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -212,7 +222,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_ln_mlp_int4_dw_bwd": 0,
                                   "fused_ln_qkvo_attention_int4": 0,
                                   "fused_ln_qkvo_attention_int4_bwd": 0,
-                                  "fused_ln_qkvo_attention_int4_dw_bwd": 0}
+                                  "fused_ln_qkvo_attention_int4_dw_bwd": 0,
+                                  "fused_ln_qkvo_attention_rect_int4": 0,
+                                  "fused_ln_qkvo_attention_rect_int4_bwd": 0,
+                                  "fused_ln_qkvo_attention_rect_int4_dw_bwd":
+                                  0, "fused_ln_qkvo_attention_int4_gqa": 0,
+                                  "fused_ln_qkvo_attention_int4_gqa_bwd": 0,
+                                  "fused_ln_qkvo_attention_int4_gqa_dw_bwd":
+                                  0}
 
 
 def test_hopper_gates():

@@ -289,8 +289,6 @@ def test_apply_rejects_what_is_not_ported():
     # training draws its randomness from a generator or takes it injected
     with pytest.raises(ValueError, match="generator or the noise"):
         tr.apply(w, x, tc, train=True)
-    with pytest.raises(NotImplementedError, match="Res-ViT int4"):
-        tr.apply(w, x, tc.replace(int4_mlp=True))
     with pytest.raises(NotImplementedError, match="K9, K10"):
         tr.apply(w, x, tc.replace(fused_qkv=True, fused_qkvo=False))
     # vitax's stacked layout runs the loop (its scan has the loop's math),

@@ -166,6 +166,9 @@ def test_metrics_match_vitax(vitax_weights, dtype, extra):
 
 
 def test_int8_compact_serves_through_the_int8_twins(monkeypatch):
+    # D 128: vitax's fused gate takes D % 128 == 0 only, and the port picks
+    # its fused halves where it does
+    monkeypatch.setitem(t_config.ARCH_PRESETS, "tiny", GQA_TINY)
     seen = {}
     for name in ("fused_ln_qkvo_attention_int8_ref",
                  "fused_ln_qkvo_attention_rect_int8_ref",
@@ -184,6 +187,7 @@ def test_int8_compact_serves_through_the_int8_twins(monkeypatch):
 
 
 def test_gqa_compact_takes_the_square_gqa_kernel(monkeypatch):
+    monkeypatch.setitem(t_config.ARCH_PRESETS, "tiny", GQA_TINY)
     seen = []
     fn = ck.fused_ln_qkvo_attention_gqa_ref
     monkeypatch.setattr(ck, "fused_ln_qkvo_attention_gqa_ref",

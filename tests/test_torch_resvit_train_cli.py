@@ -239,8 +239,7 @@ def test_scan_layers_trains_the_stacked_tree(tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--checkpoint-path", "w.pth"], "Queue 1 item 4"),
-    (["--remat"], "Queue 1 item 6"),
-    (["--int4"], "Res-ViT int4")])
+    (["--remat"], "Queue 1 item 6")])
 def test_unported_options_raise(extra, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         t_train.main(TRAIN + extra + ["--exp-root", str(tmp_path)],

@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 from vitax_torch import train_cli  # noqa: E402
 from vitax_torch.checkpointing.npz import save_npz_params  # noqa: E402
 from vitax_torch.checkpointing.store import CheckpointStore  # noqa: E402
-from vitax_torch.core.config import arch_config  # noqa: E402
+from vitax_torch.core.config import ARCH_PRESETS, arch_config  # noqa: E402
 from vitax_torch.models import vit  # noqa: E402
 from vitax_torch.train import param_leaves  # noqa: E402
 
@@ -183,6 +183,10 @@ def test_int4_flags_train_through_the_int4_twins(flags, twins, tmp_path,
         fn = getattr(ck, name)
         monkeypatch.setattr(ck, name, lambda *a, _f=fn, _n=name, **k: (
             calls.__setitem__(_n, calls[_n] + 1), _f(*a, **k))[1])
+    # D 128: vitax's fused gates take D % 128 == 0 only, and the port picks
+    # its fused halves where they do
+    monkeypatch.setitem(ARCH_PRESETS, "tiny", dict(
+        patch=16, emb_dim=128, mlp_dim=256, num_heads=2, num_layers=3))
     out = train_cli.main(TINY + [
         "--fused-qkv", "--fused-mlp", "--batch-size", "8",
         "--synthetic-samples", "8", "--train-steps", "1", "--warmup-steps",

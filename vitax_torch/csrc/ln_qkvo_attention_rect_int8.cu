@@ -24,17 +24,25 @@
 // quantization (LN + quant of xc and of x, the two s8 projections, the core,
 // the row quantizer over attn, the s8 out GEMM); xqc, xq, q, kv, fp32 attn
 // and aq go through device memory.
+//
+// R-F, the A4W4 rect forward (vitax_ln_qkvo_attention_rect_int4_fwd):
+// replaces _ln_qkvo_rect_fwd_int4_kernel (:4112), the int4 branch of
+// fused_ln_qkvo_attention_rect (:4440, pallas_call at :4447). Its body
+// (:4120-4152) is the int8 one's with every quantizer on the int4 grid:
+// _quant_rows4 of the two fp32 LN outputs and of the fp32 attn,
+// _quant_cols_host4 of Wq, Wkv and Wo (limit 7, quant.cuh), the core bf16
+// with fp32 softmax. So it is this launch sequence at L = 7, codes in int8,
+// summed exactly by the s8 GEMM (the H100 has no int4 tensor rate). Bound
+// and design: the int8 tier's.
 #include "attention.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
-// Inputs xc bf16 [b·cpq, d], x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16
-// [d, 3hhd], bqkv [3hhd], wo bf16 [hhd, d], bo [d]; output out bf16 [b·cpq, d].
-// Scratch: w8t int8 [3hhd, d], sw [3hhd], wo8t int8 [d, hhd], swo [d], xqc
-// int8 [b·cpq, d], sxc [b·cpq], xq int8 [b·spq, d], sx [b·spq], q bf16
-// [b·cpq, hhd], kv bf16 [b·spq, 2hhd], attn fp32 [b·cpq, hhd], aq int8
-// [b·cpq, hhd], sa [b·cpq].
-extern "C" int vitax_ln_qkvo_attention_rect_int8_fwd(
+namespace {
+
+// The rect forward on the grid of limit L (127: K8's int8 tier, 7: R-F).
+template <int L>
+int ln_qkvo_attention_rect_quant_fwd(
     const void* xc, const void* x, const void* gamma, const void* beta, const void* wqkv,
     const void* bqkv, const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo,
     void* xqc, void* sxc, void* xq, void* sx, void* q, void* kv, void* attn, void* aq, void* sa,
@@ -60,17 +68,18 @@ extern "C" int vitax_ln_qkvo_attention_rect_int8_fwd(
   auto* attnf = static_cast<float*>(attn);
   auto* aqi = static_cast<int8_t*>(aq);
   auto* saf = static_cast<float*>(sa);
-  cudaError_t e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wqkv), w8, swf, d,
-                                                    3 * hhd, st);
+  cudaError_t e = vitax::launch_quant_weight_cols_t<L>(static_cast<const bf16*>(wqkv), w8, swf, d,
+                                                       3 * hhd, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8t),
-                                        static_cast<float*>(swo), hhd, d, st);
+  e = vitax::launch_quant_weight_cols_t<L>(static_cast<const bf16*>(wo),
+                                           static_cast<int8_t*>(wo8t), static_cast<float*>(swo),
+                                           hhd, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_layer_norm_quant<false>(static_cast<const bf16*>(xc), g, be, xqci, sxcf,
-                                            nullptr, nc, d, eps, st);
+  e = vitax::launch_layer_norm_quant<false, false, L>(static_cast<const bf16*>(xc), g, be, xqci,
+                                                      sxcf, nullptr, nc, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_layer_norm_quant<false>(static_cast<const bf16*>(x), g, be, xqi, sxf, nullptr,
-                                            n, d, eps, st);
+  e = vitax::launch_layer_norm_quant<false, false, L>(static_cast<const bf16*>(x), g, be, xqi, sxf,
+                                                      nullptr, n, d, eps, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqci, w8, sxcf, swf, bias, nullptr, nullptr, qb,
                                             nullptr, nc, hhd, d, st);
@@ -84,10 +93,41 @@ extern "C" int vitax_ln_qkvo_attention_rect_int8_fwd(
                              b,   seq_len,                   scale};
   e = vitax::launch_attention_core_geom(geom, head_dim, attnf, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_rows(static_cast<const float*>(attnf), aqi, saf, nc, hhd, st);
+  e = vitax::launch_quant_rows<L>(static_cast<const float*>(attnf), aqi, saf, nc, hhd, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_gemm_s8<vitax::kS8Bf16>(
       aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
       static_cast<const float*>(bo), nullptr, nullptr, static_cast<bf16*>(out), nullptr, nc, d,
       hhd, st);
+}
+
+}  // namespace
+
+// Inputs xc bf16 [b·cpq, d], x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16
+// [d, 3hhd], bqkv [3hhd], wo bf16 [hhd, d], bo [d]; output out bf16 [b·cpq, d].
+// Scratch: w8t int8 [3hhd, d], sw [3hhd], wo8t int8 [d, hhd], swo [d], xqc
+// int8 [b·cpq, d], sxc [b·cpq], xq int8 [b·spq, d], sx [b·spq], q bf16
+// [b·cpq, hhd], kv bf16 [b·spq, 2hhd], attn fp32 [b·cpq, hhd], aq int8
+// [b·cpq, hhd], sa [b·cpq].
+extern "C" int vitax_ln_qkvo_attention_rect_int8_fwd(
+    const void* xc, const void* x, const void* gamma, const void* beta, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo,
+    void* xqc, void* sxc, void* xq, void* sx, void* q, void* kv, void* attn, void* aq, void* sa,
+    void* out, int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim, float eps,
+    float scale, void* stream) {
+  return ln_qkvo_attention_rect_quant_fwd<vitax::kQ8>(
+      xc, x, gamma, beta, wqkv, bqkv, wo, bo, w8t, sw, wo8t, swo, xqc, sxc, xq, sx, q, kv, attn,
+      aq, sa, out, b, cpq, spq, d, seq_len, heads, head_dim, eps, scale, stream);
+}
+
+// R-F: the int8 tier's arguments on the int4 grid.
+extern "C" int vitax_ln_qkvo_attention_rect_int4_fwd(
+    const void* xc, const void* x, const void* gamma, const void* beta, const void* wqkv,
+    const void* bqkv, const void* wo, const void* bo, void* w8t, void* sw, void* wo8t, void* swo,
+    void* xqc, void* sxc, void* xq, void* sx, void* q, void* kv, void* attn, void* aq, void* sa,
+    void* out, int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim, float eps,
+    float scale, void* stream) {
+  return ln_qkvo_attention_rect_quant_fwd<vitax::kQ4>(
+      xc, x, gamma, beta, wqkv, bqkv, wo, bo, w8t, sw, wo8t, swo, xqc, sxc, xq, sx, q, kv, attn,
+      aq, sa, out, b, cpq, spq, d, seq_len, heads, head_dim, eps, scale, stream);
 }

@@ -1,7 +1,7 @@
 // K8 backward under int8_grad, the rect fused attention half: replaces
 // _ln_qkvo_rect_bwd_int8_kernel (vitax/ops/pallas_kernels.py:4253), the int8
 // branch of _fused_ln_qkvo_rect_bwd (:4491, pallas_call at :4534), with
-// int8_dw off or on and int4_grad off. K3's SwitchBack split (ln_qkvo_
+// int8_dw off or on. K3's SwitchBack split (ln_qkvo_
 // attention_int8_bwd.cu) on K8's two row sets, in the order of the Pallas
 // body (:4273-4385):
 //
@@ -37,25 +37,36 @@
 // (ln_qkvo_attention_rect_bwd.cu) with the quantizing LN, the s8 GEMM, the
 // row quantizer and the int8_dw products swapped in. No float atomics: two
 // runs give the same bits.
+//
+// R-B, the int4_grad branch (vitax_ln_qkvo_attention_rect_int4_bwd): the
+// same Pallas body with _qr = _quant_rows4 (:4272) and the int4 weight
+// forms the caller passes (_quant_cols_host4 of Wq and Wkv for the
+// recompute, _quant_rows_host4 of Wq, Wkv and Wo for the dx-path,
+// :4523-4529): every quantizer of the recompute and the dx-path (dattn,
+// dxnc, dxn) on the int4 grid (limit 7, quant.cuh), the core grads bf16. It
+// is this launch sequence at L = 7, codes in int8 (no int4 tensor rate on
+// the H100). Under int8_dw (R-B dw) the three weight grads are products of
+// int8 codes packed fresh per column over each group, both operands, with
+// no row-scale folding (:4310-4315, :4352-4362):
+//   dWo  = Σ_z f32(quant_cols(attn_z)^T quant_cols(do_z)) sat_z sdo_z      group_c rows
+//   dWq  = Σ_z f32(quant_cols(xnc32_z)^T quant_cols(dq_z)) sxnc_z sdq_z    group_c rows
+//   dWkv = Σ_z f32(quant_cols(xn32_z)^T quant_cols(dkv_z)) sxn_z sdkv_z    group_k rows
+// (dw_int8.cuh's launch_dw_int8_cols) over the int8 tier's groups. The pad
+// rows of xc and x (zero rows, whose LN output is beta) enter the column
+// scales as in vitax; nothing masks them. Bound and design: the int8
+// tier's.
 #include "attention_bwd.cuh"
 #include "dw_int8.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
-// Inputs xc, dout bf16 [b·cpq, d], x bf16 [b·spq, d], gamma, beta fp32 [d],
-// bqkv [3hhd], wqkv bf16 [d, 3hhd], wo bf16 [hhd, d]. Outputs as the bf16
-// tier's. Scratch: w8t int8 [3hhd, d], sw [3hhd], wq8r int8 [d, hhd], swqr
-// [d], wkv8r int8 [d, 2hhd], swkvr [d], wo8r int8 [hhd, d], swor [hhd]; xnc
-// [b·cpq, d] and xn [b·spq, d] (bf16, or fp32 under int8_dw), xqc int8 and
-// sxc, xq int8 and sx; q, kv, attn, dattn, dq, dkv bf16 as the bf16 tier's;
-// doq int8 [b·cpq, d], sdo; p, ds; dqq int8 [b·cpq, hhd], sdq; dkvq int8
-// [b·spq, 2hhd], sdkv; dxnc, dxn fp32; g2, b2 fp32 [d]; ws fp32
-// vitax_ln_qkvo_attention_rect_bwd_ws. With int8_dw (else null), kpc =
-// groups·round_up(group_c, 64), kpk = groups·round_up(group_k, 64): atct int8
-// [hhd, kpc], sat [groups, hhd], doqt int8 [d, kpc], xnct int8 [d, kpc], sxnc
-// [groups, d], dqqt int8 [hhd, kpc], xnkt int8 [d, kpk], sxnk [groups, d],
-// dkvqt int8 [2hhd, kpk].
-extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
+namespace {
+
+// The rect backward on the grid of limit L (127: K8's int8 tier, 7: R-B).
+// sdoc, sdqc, sdkvc: the column scales of do, dq and dkv under R-B's
+// int8_dw (null otherwise: K8 reuses their row codes).
+template <int L>
+int ln_qkvo_attention_rect_quant_bwd(
     const void* xc, const void* x, const void* gamma, const void* beta, const void* bqkv,
     const void* wqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
     void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* w8t,
@@ -63,9 +74,10 @@ extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
     void* xnc, void* xqc, void* sxc, void* xn, void* xq, void* sx, void* q, void* kv, void* attn,
     void* doq, void* sdo, void* dattn, void* p, void* ds, void* dq, void* dkv, void* dqq,
     void* sdq, void* dkvq, void* sdkv, void* dxnc, void* dxn, void* g2, void* b2, void* ws,
-    void* atct, void* sat, void* doqt, void* xnct, void* sxnc, void* dqqt, void* xnkt,
-    void* sxnk, void* dkvqt, int b, int cpq, int spq, int d, int seq_len, int heads,
-    int head_dim, int group_c, int group_k, int int8_dw, float eps, float scale, void* stream) {
+    void* atct, void* sat, void* doqt, void* sdoc, void* xnct, void* sxnc, void* dqqt,
+    void* sdqc, void* xnkt, void* sxnk, void* dkvqt, void* sdkvc, int b, int cpq, int spq, int d,
+    int seq_len, int heads, int head_dim, int group_c, int group_k, int int8_dw, float eps,
+    float scale, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const int nc = b * cpq;
@@ -100,32 +112,33 @@ extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
   auto* wsf = static_cast<float*>(ws);
 
   // the weights' codes
-  cudaError_t e = vitax::launch_quant_weight_cols_t(wqkvb, w8, swf, d, 3 * hhd, st);
+  cudaError_t e = vitax::launch_quant_weight_cols_t<L>(wqkvb, w8, swf, d, 3 * hhd, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows(wqkvb, static_cast<int8_t*>(wq8r),
-                                      static_cast<float*>(swqr), d, hhd, st, 3 * hhd);
+  e = vitax::launch_quant_weight_rows<L>(wqkvb, static_cast<int8_t*>(wq8r),
+                                         static_cast<float*>(swqr), d, hhd, st, 3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows(wqkvb + hhd, static_cast<int8_t*>(wkv8r),
-                                      static_cast<float*>(swkvr), d, 2 * hhd, st, 3 * hhd);
+  e = vitax::launch_quant_weight_rows<L>(wqkvb + hhd, static_cast<int8_t*>(wkv8r),
+                                         static_cast<float*>(swkvr), d, 2 * hhd, st, 3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8r),
-                                      static_cast<float*>(swor), hhd, d, st);
+  e = vitax::launch_quant_weight_rows<L>(static_cast<const bf16*>(wo),
+                                         static_cast<int8_t*>(wo8r), static_cast<float*>(swor),
+                                         hhd, d, st);
   if (e != cudaSuccess) return e;
 
   // recompute both LNs (+ codes; xnc and xn for the weight grads, fp32 under
   // int8_dw), q and kv (s8) and the rect core
   if (int8_dw) {
-    e = vitax::launch_layer_norm_quant<false, true>(static_cast<const bf16*>(xc), g, be, xqci,
-                                                    sxcf, xnc, nc, d, eps, st);
+    e = vitax::launch_layer_norm_quant<false, true, L>(static_cast<const bf16*>(xc), g, be, xqci,
+                                                       sxcf, xnc, nc, d, eps, st);
     if (e != cudaSuccess) return e;
-    e = vitax::launch_layer_norm_quant<false, true>(static_cast<const bf16*>(x), g, be, xqi, sxf,
-                                                    xn, n, d, eps, st);
+    e = vitax::launch_layer_norm_quant<false, true, L>(static_cast<const bf16*>(x), g, be, xqi,
+                                                       sxf, xn, n, d, eps, st);
   } else {
-    e = vitax::launch_layer_norm_quant<false>(static_cast<const bf16*>(xc), g, be, xqci, sxcf,
-                                              xnc, nc, d, eps, st);
+    e = vitax::launch_layer_norm_quant<false, false, L>(static_cast<const bf16*>(xc), g, be, xqci,
+                                                        sxcf, xnc, nc, d, eps, st);
     if (e != cudaSuccess) return e;
-    e = vitax::launch_layer_norm_quant<false>(static_cast<const bf16*>(x), g, be, xqi, sxf, xn, n,
-                                              d, eps, st);
+    e = vitax::launch_layer_norm_quant<false, false, L>(static_cast<const bf16*>(x), g, be, xqi,
+                                                        sxf, xn, n, d, eps, st);
   }
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqci, w8, sxcf, swf, bias, nullptr, nullptr, qb,
@@ -142,17 +155,22 @@ extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
   if (e != cudaSuccess) return e;
 
   // out-projection grads: dattn in s8, dWo and dbo over the bf16 do
-  e = vitax::launch_quant_rows(dob, doqi, sdof, nc, d, st);
+  e = vitax::launch_quant_rows<L>(dob, doqi, sdof, nc, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(doqi, static_cast<const int8_t*>(wo8r), sdof,
                                             static_cast<const float*>(swor), nullptr, nullptr,
                                             nullptr, dattnb, nullptr, nc, hhd, d, st);
   if (e != cudaSuccess) return e;
-  e = int8_dw ? vitax::launch_dw_int8<bf16>(attnb, sdof, doqi, nc, hhd, d, group_c,
-                                             static_cast<int8_t*>(atct), static_cast<float*>(sat),
-                                             static_cast<int8_t*>(doqt), static_cast<float*>(dwo),
-                                             st)
-              : vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
+  if (!int8_dw)
+    e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
+  else if (L == vitax::kQ4)  // fresh per-column packs of both operands
+    e = vitax::launch_dw_int8_cols<bf16, bf16>(
+        attnb, dob, nc, hhd, d, group_c, static_cast<int8_t*>(atct), static_cast<float*>(sat),
+        static_cast<int8_t*>(doqt), static_cast<float*>(sdoc), static_cast<float*>(dwo), st);
+  else  // row-scale folding into the dx-path's int8 codes
+    e = vitax::launch_dw_int8<bf16>(attnb, sdof, doqi, nc, hhd, d, group_c,
+                                    static_cast<int8_t*>(atct), static_cast<float*>(sat),
+                                    static_cast<int8_t*>(doqt), static_cast<float*>(dwo), st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, nc, d, st);
   if (e != cudaSuccess) return e;
@@ -165,19 +183,29 @@ extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
   if (e != cudaSuccess) return e;
 
   // projection grads of the two row sets (dxn in s8) and the two LN tails
-  e = vitax::launch_quant_rows(static_cast<const bf16*>(dqb), dqqi, sdqf, nc, hhd, st);
+  e = vitax::launch_quant_rows<L>(static_cast<const bf16*>(dqb), dqqi, sdqf, nc, hhd, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8F32>(dqqi, static_cast<const int8_t*>(wq8r), sdqf,
                                            static_cast<const float*>(swqr), nullptr, nullptr,
                                            nullptr, nullptr, dxncf, nc, d, hhd, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_rows(static_cast<const bf16*>(dkvb), dkvqi, sdkvf, n, 2 * hhd, st);
+  e = vitax::launch_quant_rows<L>(static_cast<const bf16*>(dkvb), dkvqi, sdkvf, n, 2 * hhd, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8F32>(dkvqi, static_cast<const int8_t*>(wkv8r), sdkvf,
                                            static_cast<const float*>(swkvr), nullptr, nullptr,
                                            nullptr, nullptr, dxnf, n, d, 2 * hhd, st);
   if (e != cudaSuccess) return e;
-  if (int8_dw) {
+  if (int8_dw && L == vitax::kQ4) {
+    e = vitax::launch_dw_int8_cols<float, bf16>(
+        static_cast<const float*>(xnc), dqb, nc, d, hhd, group_c, static_cast<int8_t*>(xnct),
+        static_cast<float*>(sxnc), static_cast<int8_t*>(dqqt), static_cast<float*>(sdqc),
+        static_cast<float*>(dwq), st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_dw_int8_cols<float, bf16>(
+        static_cast<const float*>(xn), dkvb, n, d, 2 * hhd, group_k, static_cast<int8_t*>(xnkt),
+        static_cast<float*>(sxnk), static_cast<int8_t*>(dkvqt), static_cast<float*>(sdkvc),
+        static_cast<float*>(dwkv), st);
+  } else if (int8_dw) {
     e = vitax::launch_dw_int8<float>(static_cast<const float*>(xnc), sdqf, dqqi, nc, d, hhd,
                                      group_c, static_cast<int8_t*>(xnct),
                                      static_cast<float*>(sxnc), static_cast<int8_t*>(dqqt),
@@ -206,4 +234,63 @@ extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
       static_cast<const bf16*>(x), dxnf, static_cast<bf16*>(dx), n, g,
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(g2),
       static_cast<float*>(b2), wsf, d, eps, st);
+}
+
+}  // namespace
+
+// Inputs xc, dout bf16 [b·cpq, d], x bf16 [b·spq, d], gamma, beta fp32 [d],
+// bqkv [3hhd], wqkv bf16 [d, 3hhd], wo bf16 [hhd, d]. Outputs as the bf16
+// tier's. Scratch: w8t int8 [3hhd, d], sw [3hhd], wq8r int8 [d, hhd], swqr
+// [d], wkv8r int8 [d, 2hhd], swkvr [d], wo8r int8 [hhd, d], swor [hhd]; xnc
+// [b·cpq, d] and xn [b·spq, d] (bf16, or fp32 under int8_dw), xqc int8 and
+// sxc, xq int8 and sx; q, kv, attn, dattn, dq, dkv bf16 as the bf16 tier's;
+// doq int8 [b·cpq, d], sdo; p, ds; dqq int8 [b·cpq, hhd], sdq; dkvq int8
+// [b·spq, 2hhd], sdkv; dxnc, dxn fp32; g2, b2 fp32 [d]; ws fp32
+// vitax_ln_qkvo_attention_rect_bwd_ws. With int8_dw (else null), kpc =
+// groups·round_up(group_c, 64), kpk = groups·round_up(group_k, 64): atct int8
+// [hhd, kpc], sat [groups, hhd], doqt int8 [d, kpc], xnct int8 [d, kpc], sxnc
+// [groups, d], dqqt int8 [hhd, kpc], xnkt int8 [d, kpk], sxnk [groups, d],
+// dkvqt int8 [2hhd, kpk].
+extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
+    const void* xc, const void* x, const void* gamma, const void* beta, const void* bqkv,
+    const void* wqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
+    void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* w8t,
+    void* sw, void* wq8r, void* swqr, void* wkv8r, void* swkvr, void* wo8r, void* swor,
+    void* xnc, void* xqc, void* sxc, void* xn, void* xq, void* sx, void* q, void* kv, void* attn,
+    void* doq, void* sdo, void* dattn, void* p, void* ds, void* dq, void* dkv, void* dqq,
+    void* sdq, void* dkvq, void* sdkv, void* dxnc, void* dxn, void* g2, void* b2, void* ws,
+    void* atct, void* sat, void* doqt, void* xnct, void* sxnc, void* dqqt, void* xnkt,
+    void* sxnk, void* dkvqt,
+    int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim, int group_c,
+    int group_k, int int8_dw, float eps, float scale, void* stream) {
+  return ln_qkvo_attention_rect_quant_bwd<vitax::kQ8>(
+      xc, x, gamma, beta, bqkv, wqkv, wo, dout, dxc, dx, dgamma, dbeta, dwq, dwkv, dbq, dbkv, dwo,
+      dbo, w8t, sw, wq8r, swqr, wkv8r, swkvr, wo8r, swor, xnc, xqc, sxc, xn, xq, sx, q, kv, attn,
+      doq, sdo, dattn, p, ds, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2, b2, ws,
+      atct, sat, doqt, nullptr, xnct, sxnc, dqqt, nullptr, xnkt, sxnk, dkvqt, nullptr,
+      b, cpq, spq, d, seq_len, heads, head_dim, group_c, group_k, int8_dw, eps, scale, stream);
+}
+
+// R-B: the int8 tier's arguments on the int4 grid; with int8_dw (else null)
+// the fresh column packs of both operands of each weight grad: atct and sat,
+// doqt and sdoc [groups, d] (dWo); xnct and sxnc, dqqt and sdqc [groups,
+// hhd] (dWq); xnkt and sxnk, dkvqt and sdkvc [groups, 2hhd] (dWkv).
+extern "C" int vitax_ln_qkvo_attention_rect_int4_bwd(
+    const void* xc, const void* x, const void* gamma, const void* beta, const void* bqkv,
+    const void* wqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
+    void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* w8t,
+    void* sw, void* wq8r, void* swqr, void* wkv8r, void* swkvr, void* wo8r, void* swor,
+    void* xnc, void* xqc, void* sxc, void* xn, void* xq, void* sx, void* q, void* kv, void* attn,
+    void* doq, void* sdo, void* dattn, void* p, void* ds, void* dq, void* dkv, void* dqq,
+    void* sdq, void* dkvq, void* sdkv, void* dxnc, void* dxn, void* g2, void* b2, void* ws,
+    void* atct, void* sat, void* doqt, void* sdoc, void* xnct, void* sxnc, void* dqqt,
+    void* sdqc, void* xnkt, void* sxnk, void* dkvqt, void* sdkvc,
+    int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim, int group_c,
+    int group_k, int int8_dw, float eps, float scale, void* stream) {
+  return ln_qkvo_attention_rect_quant_bwd<vitax::kQ4>(
+      xc, x, gamma, beta, bqkv, wqkv, wo, dout, dxc, dx, dgamma, dbeta, dwq, dwkv, dbq, dbkv, dwo,
+      dbo, w8t, sw, wq8r, swqr, wkv8r, swkvr, wo8r, swor, xnc, xqc, sxc, xn, xq, sx, q, kv, attn,
+      doq, sdo, dattn, p, ds, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2, b2, ws,
+      atct, sat, doqt, sdoc, xnct, sxnc, dqqt, sdqc, xnkt, sxnk, dkvqt, sdkvc,
+      b, cpq, spq, d, seq_len, heads, head_dim, group_c, group_k, int8_dw, eps, scale, stream);
 }

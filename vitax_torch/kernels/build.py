@@ -59,6 +59,8 @@ SIGNATURES = {
     "vitax_ln_mlp_int4_bwd": [_P] * 41 + [_I] * 5 + [_F, _P],
     "vitax_ln_qkvo_attention_int4_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int4_bwd": [_P] * 43 + [_I] * 9 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_rect_int4_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_rect_int4_bwd": [_P] * 63 + [_I] * 10 + [_F, _F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {

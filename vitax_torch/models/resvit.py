@@ -15,9 +15,11 @@ tokens ranked active first (`compact_routed_block`): on the card the
 attention's query rows run through the rect kernel (K8) and the MLP half on
 the gathered rows.
 
-On CUDA with `fused_qkv` and `fused_qkvo` the attention half is one kernel:
-K1 (K7 with n_kv_heads < n_heads, K3 with `int8_attn`), K8 for the compacted
-rows; `fused_mlp` takes the MLP half to K2 (K4 with `int8_mlp`); LayerNorms
+On CUDA with `fused_qkv` and `fused_qkvo` the attention half is one kernel
+where vitax's gate and the port's pass (ops/gates.py): K1 (K7 with
+n_kv_heads < n_heads, K3 with `int8_attn`, K11-C with `int4_attn`, G-F with
+both), K8 for the compacted rows (R-F with `int4_attn`); `fused_mlp` takes
+the MLP half to K2 (K4 with `int8_mlp`, K11-A with `int4_mlp`); LayerNorms
 elsewhere (router, final norm, the plain MLP half) take the LN kernel. Under
 autograd each has its backward kernel. With them off it is plain PyTorch
 ops.
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 
 from vitax_torch.core.config import ResViTConfig
 from vitax_torch.models.resvit_utils import lra_path_ids, path_id_weights
-from vitax_torch.ops import cuda_kernels as ck
+from vitax_torch.ops import cuda_kernels as ck, gates
 from vitax_torch.ops.attention import multi_head_attention
 from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm
@@ -318,17 +320,15 @@ def _kv_heads(cfg: ResViTConfig) -> int:
 def attention(x: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
     """Self-attention of the LN'd input, fp32 softmax (res-vit/model.py:
     237-299): the unfused path, whose core is K13 with the kernels on.
-    vitax's fused dispatch here (its K9/K10 kernels, for fused_qkv without
-    fused_qkvo) is not ported and raises."""
+    vitax's fused dispatch here (its K9/K10 kernels, for fused_qkv where its
+    gate passes, vitax/models/resvit.py:266) is not ported and raises."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, _kv_heads(cfg), cfg.head_dim
-    if cfg.fused_qkv and hkv == h:
-        wqkv = torch.empty((x.shape[-1], 3 * h * hd), device="meta")
-        if ck.qkv_attention_supported(x, wqkv, h):
-            raise NotImplementedError(
-                "fused_qkv without the LN/out-projection fusion reaches "
-                "vitax's fused_qkvo_attention / fused_qkv_attention (K9, K10), "
-                "which have no Hopper kernels yet (ROADMAP Queue 2)")
+    if reaches_k9_k10(x, cfg):
+        raise NotImplementedError(
+            "fused_qkv without the LN/out-projection fusion reaches "
+            "vitax's fused_qkvo_attention / fused_qkv_attention (K9, K10), "
+            "which have no Hopper kernels yet (ROADMAP Queue 2)")
     q = _linear(x, p["wq"])
     k = _linear(x, p["wk"])
     v = _linear(x, p["wv"])
@@ -341,6 +341,34 @@ def attention(x: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
     v = _repeat_kv(v.reshape(b, s, hkv, hd), h // hkv)
     out = multi_head_attention(q, k, v, use_kernels=cfg.use_pallas)
     return _linear(out.reshape(b, s, h * hd), p["wo"])
+
+
+def reaches_k9_k10(x: torch.Tensor, cfg: ResViTConfig) -> bool:
+    """Whether vitax's `attention` runs its fused K9/K10 kernels here:
+    fused_qkv without GQA where its gate passes (vitax/models/resvit.py:
+    266)."""
+    wqkv = torch.empty((x.shape[-1], 3 * cfg.n_heads * cfg.head_dim),
+                       device="meta")
+    return (cfg.fused_qkv and _kv_heads(cfg) == cfg.n_heads
+            and gates.qkv_attention_supported(x, wqkv))
+
+
+def square_half_supported(x: torch.Tensor, wqkv: torch.Tensor,
+                          cfg: ResViTConfig) -> bool:
+    """The fused square half's gate: vitax's with (n_heads, n_kv_heads)
+    (vitax/models/resvit.py:336) and the port's."""
+    h, hkv = cfg.n_heads, _kv_heads(cfg)
+    return (gates.qkv_attention_supported(x, wqkv, h, hkv)
+            and ck.qkv_attention_supported(x, wqkv, h, hkv))
+
+
+def rect_half_supported(xcp: torch.Tensor, xp: torch.Tensor,
+                        wqkv: torch.Tensor, cfg: ResViTConfig) -> bool:
+    """The rect half's gate on the padded rows: no GQA, vitax's gate without
+    heads (vitax/models/resvit.py:375) and the port's."""
+    return (_kv_heads(cfg) == cfg.n_heads
+            and gates.qkv_attention_supported(xp, wqkv)
+            and ck.qkv_attention_rect_supported(xcp, xp, wqkv, cfg.n_heads))
 
 
 def feed_forward(x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -373,20 +401,27 @@ def _fused_attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig
                           ) -> Optional[torch.Tensor]:
     """LN + qkv (LoRA folded) + attention + out-projection in one kernel for
     the pre-LN input x: K1, K7 with GQA, K3 with int8_attn (K7's int8 tier
-    with both). Returns the half-block output without the residual, or None
-    when gated off."""
+    with both), K11-C with int4_attn (its kv_heads branch with GQA), the
+    backward's tier as vitax's (vitax/models/resvit.py:340-352: int4_grad
+    only with int4_attn, and K11-D only under int8_grad too). Returns the
+    half-block output without the residual, or None when vitax's gate or
+    the port's declines."""
     if not (cfg.fused_qkv and cfg.fused_qkvo):
         return None
     hkv = _kv_heads(cfg)
     b, s, d = x.shape
     dt = x.dtype
     wqkv, bqkv, wo, bo = _qkvo_weights(p, cfg, dt)
-    if not ck.qkv_attention_supported(x, wqkv, cfg.n_heads, hkv):
+    if not square_half_supported(x, wqkv, cfg):
         return None
     args = (_pad_rows(x), p["attention_norm"]["scale"].float(),
             p["attention_norm"]["bias"].float(), wqkv, bqkv, wo, bo,
             cfg.norm_eps, s, cfg.n_heads, cfg.head_dim)
-    if cfg.int8_attn:
+    if cfg.int4_attn:
+        out = ck.fused_ln_qkvo_attention_int4(
+            *args, int8_grad=cfg.int8_attn and cfg.int8_attn_grad,
+            int8_dw=cfg.int8_dw, int4_grad=cfg.int4_grad, kv_heads=hkv)
+    elif cfg.int8_attn:
         out = ck.fused_ln_qkvo_attention_int8(
             *args, int8_grad=cfg.int8_attn_grad, int8_dw=cfg.int8_dw,
             kv_heads=hkv)
@@ -401,21 +436,26 @@ def _fused_attention_half_rect(x: torch.Tensor, xc: torch.Tensor, p: Params,
     query rows and the out-projection on the gathered rows xc [B, cap, D],
     K and V from all rows x [B, N, D]. Returns the output for the xc rows
     without the residual, or None when gated off (GQA declines, as vitax's:
-    the square K7 then runs and its rows are gathered)."""
-    if not (cfg.fused_qkv and cfg.fused_qkvo):
-        return None
-    if _kv_heads(cfg) != cfg.n_heads:
+    the square K7 then runs and its rows are gathered). Its tiers as
+    `_fused_attention_half`'s (vitax/models/resvit.py:375-390): the A4W4
+    forward with int4_attn, its A4W4 backward only under int8_grad and
+    int4_grad."""
+    if not (cfg.fused_qkv and cfg.fused_qkvo) or _kv_heads(cfg) != cfg.n_heads:
         return None
     s, cap = x.shape[1], xc.shape[1]
     dt = x.dtype
     wqkv, bqkv, wo, bo = _qkvo_weights(p, cfg, dt)
     xp, xcp = _pad_rows(x), _pad_rows(xc)
-    if not ck.qkv_attention_rect_supported(xcp, xp, wqkv, cfg.n_heads):
+    if not rect_half_supported(xcp, xp, wqkv, cfg):
         return None
     args = (xcp, xp, p["attention_norm"]["scale"].float(),
             p["attention_norm"]["bias"].float(), wqkv, bqkv, wo, bo,
             cfg.norm_eps, s, cfg.n_heads, cfg.head_dim)
-    if cfg.int8_attn:
+    if cfg.int4_attn:
+        out = ck.fused_ln_qkvo_attention_rect_int4(
+            *args, int8_grad=cfg.int8_attn and cfg.int8_attn_grad,
+            int8_dw=cfg.int8_dw, int4_grad=cfg.int4_grad)
+    elif cfg.int8_attn:
         out = ck.fused_ln_qkvo_attention_rect_int8(
             *args, int8_grad=cfg.int8_attn_grad, int8_dw=cfg.int8_dw)
     else:
@@ -426,8 +466,9 @@ def _fused_attention_half_rect(x: torch.Tensor, xc: torch.Tensor, p: Params,
 def _mlp_half(h: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
     """LN2 + FFN + residual from the post-attention tensor h: row-wise, so
     it runs the same on the full [B,N,D] tensor and on a compacted [B,C,D]
-    gather of its rows. fused_mlp: K2 (K4 with int8_mlp; K12 under
-    autograd with fused_mlp_save, as vitax's fused_ln_mlp dispatches)."""
+    gather of its rows. fused_mlp: K2 (K4 with int8_mlp, K11-A with
+    int4_mlp; K12 under autograd with fused_mlp_save, as vitax's
+    fused_ln_mlp dispatches: int4 ahead of save-acts and int8)."""
     ffp = p["feed_forward"]
     if cfg.fused_mlp:
         w1 = ffp["fc1"]["kernel"].to(h.dtype)
@@ -437,6 +478,11 @@ def _mlp_half(h: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
                     p["ffn_norm"]["bias"].float(), w1,
                     ffp["fc1"]["bias"].float(), w2,
                     ffp["fc2"]["bias"].float(), cfg.norm_eps)
+            if cfg.int4_mlp:
+                return ck.fused_ln_mlp_int4(*args,
+                                            int8_grad=cfg.int8_mlp_grad,
+                                            int8_dw=cfg.int8_dw,
+                                            int4_grad=cfg.int4_grad)
             if cfg.int8_mlp:
                 return ck.fused_ln_mlp_int8(*args,
                                             int8_grad=cfg.int8_mlp_grad,
@@ -689,10 +735,6 @@ def apply(params: Params, images: torch.Tensor, cfg: ResViTConfig, *,
         raise NotImplementedError(
             f"remat={cfg.remat!r}: block rematerialization is not ported "
             "(ROADMAP Queue 1 item 6)")
-    if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
-        raise NotImplementedError(
-            "Res-ViT's int4 tiers (the rect attention half's and the kv_heads "
-            "branches) are not ported yet (ROADMAP Queue 2, \"Res-ViT int4\")")
     return _apply_loop(params, images, cfg, train, gen, noise or {})
 
 

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from vitax_torch.core.config import ViTConfig
-from vitax_torch.ops import cuda_kernels as ck
+from vitax_torch.ops import cuda_kernels as ck, gates
 from vitax_torch.ops.attention import multi_head_attention_bhsd
 from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm
@@ -187,16 +187,19 @@ def _merged_qkv(p: Params, dt: torch.dtype):
 def _attention_kernel(x: torch.Tensor, wqkv: torch.Tensor, heads: int
                       ) -> Optional[str]:
     """Which fused attention half takes x: "k1" (the whole-row core) where
-    its gate passes, else "k6" (the KV-chunked core) where its gate passes,
-    as vitax's _fused_block_attention chooses (vitax/models/vit.py:
-    220-227); None where neither does. Under autograd the gates are the
-    backward kernels' (the MLP half's backward has its forward's
-    constraints)."""
+    vitax's gate and the port's pass, else "k6" (the KV-chunked core) where
+    vitax's flash gate and the port's pass, as vitax's
+    _fused_block_attention chooses (vitax/models/vit.py:220-227; vitax's
+    gates copied in ops/gates.py); None where neither does. Under autograd
+    the port's gates are the backward kernels' (the MLP half's backward has
+    its forward's constraints)."""
     train = torch.is_grad_enabled()
-    if (ck.qkv_attention_bwd_supported if train
+    if gates.qkv_attention_supported(x, wqkv) and (
+            ck.qkv_attention_bwd_supported if train
             else ck.qkv_attention_supported)(x, wqkv, heads):
         return "k1"
-    if (ck.qkv_attention_flash_bwd_supported if train
+    if gates.qkv_attention_flash_supported(x, wqkv) and (
+            ck.qkv_attention_flash_bwd_supported if train
             else ck.qkv_attention_flash_supported)(x, wqkv, heads):
         return "k6"
     return None

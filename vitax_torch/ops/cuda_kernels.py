@@ -79,6 +79,17 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   ln_qkvo_attention_int8_bwd.cu at L = 7 -> the `int4_grad` branch of
   `_ln_qkvo_bwd_int8_kernel` :2977 with its `int8_dw` branches :3033-3040,
   :3071-3076 (K11-D, pallas_call :3252)
+- `fused_ln_qkvo_attention_int4_gqa`, `..._int4_gqa_bwd`,
+  `..._int4_gqa_dw_bwd` -> the same two sources at L = 7 with kv_heads <
+  heads -> the `kv_heads` branches of :2745 and of :2977's int4_grad (G-F,
+  G-B; Res-ViT's GQA int4); the K11 wrappers route to them with `kv_heads=`
+- `fused_ln_qkvo_attention_rect_int4` -> ln_qkvo_attention_rect_int8.cu at
+  L = 7 -> `_ln_qkvo_rect_fwd_int4_kernel` :4112 (R-F, pallas_call :4447)
+- `fused_ln_qkvo_attention_rect_int4_bwd`, `..._rect_int4_dw_bwd` ->
+  ln_qkvo_attention_rect_int8_bwd.cu at L = 7 (+ dw_int8.cuh's fresh column
+  packs) -> the `int4_grad` branch of `_ln_qkvo_rect_bwd_int8_kernel` :4253
+  with its `int8_dw` branches :4310-4315, :4352-4362 (R-B, R-B dw,
+  pallas_call :4534)
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -90,7 +101,7 @@ whose backward is the matching `*_bwd` wrapper: the int8 one under
 `int4_grad` picks it, as vitax's dispatch), else the bf16 one (K7's with
 GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
 backward is the two int8 backwards; K8's is `FusedLnQkvoAttentionRectFn`,
-whose backward is one of K8's three; K6's is `FusedLnQkvoAttentionFlashFn`;
+whose backward is one of K8's three or R-B's two; K6's is `FusedLnQkvoAttentionFlashFn`;
 K13's `FlashAttentionFn`; K12's `FusedLnMlpSaveFn`, which `fused_ln_mlp`
 and `fused_ln_mlp_int8` take under `save_acts` (vitax's dispatch: bf16, or
 int8 with `int8_grad`). As vitax's custom VJPs, each Function saves only
@@ -104,8 +115,8 @@ incremented once per launch of its kernel and nowhere else, so a run can
 show that its main path went through the kernels (`launch_counts`).
 
 The `*_supported` gates are this port's own (Hopper shared memory, the GEMM
-tile constraints, bf16 only on the card), mirroring the shape gates that send
-vitax to its XLA path.
+tile constraints, bf16 only on the card). The models pick a half where these
+and vitax's own gates (ops/gates.py) both pass.
 """
 
 from __future__ import annotations
@@ -1959,20 +1970,16 @@ def fused_ln_mlp_int4_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
 fused_ln_mlp_int4_dw_bwd.launches = 0
 
 
-_INT4_GQA = ("the int4 tiers with kv_heads < heads are Res-ViT's (the kv_heads "
-             "branches of pallas_kernels.py:3137 and :3252), not ported yet: "
-             "ROADMAP Queue 2, \"Res-ViT int4\"")
-
-
 def fused_ln_qkvo_attention_int4_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
-                                     seq_len, heads, head_dim, *,
-                                     scratch=None):
+                                     seq_len, heads, head_dim, kv_heads=None,
+                                     *, scratch=None):
     """K11-C with the TPU kernel's rounding points
     (_ln_qkvo_fwd_int4_kernel, pallas_kernels.py:2756-2798): K3's twin on
     the int4 grid, xq from the fp32 LN output, aq from the fp32 attn, no
-    residual."""
+    residual. kv_heads < heads: the packed GQA layout (_kv_off :2803)."""
     return _qkvo_quant_fwd_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
-                               seq_len, heads, head_dim, None, scratch, True)
+                               seq_len, heads, head_dim, kv_heads, scratch,
+                               True)
 
 
 def fused_ln_qkvo_attention_int4(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
@@ -1984,10 +1991,12 @@ def fused_ln_qkvo_attention_int4(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
     softmax. Under autograd the backward follows vitax's (:3246):
     `int8_grad` (the caller's int8 and int8_grad) with `int4_grad` is
     K11-D, `int8_grad` alone K3's backward (their int8 weight grads under
-    `int8_dw`), else K1's. kv_heads < heads raises (Res-ViT's int4 branch).
-    `scratch`: as `fused_ln_mlp_int8`'s."""
+    `int8_dw`), else K1's. kv_heads < heads: `fused_ln_qkvo_attention_
+    int4_gqa` (Res-ViT's). `scratch`: as `fused_ln_mlp_int8`'s."""
     if _gqa(heads, kv_heads):
-        raise NotImplementedError(f"fused_ln_qkvo_attention_int4: {_INT4_GQA}")
+        return fused_ln_qkvo_attention_int4_gqa(
+            x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads, head_dim,
+            kv_heads, int8_grad, int8_dw, int4_grad, scratch=scratch)
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
                                             eps, seq_len, heads, head_dim,
@@ -2007,6 +2016,47 @@ def fused_ln_qkvo_attention_int4(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
 fused_ln_qkvo_attention_int4.launches = 0
 
 
+def fused_ln_qkvo_attention_int4_gqa_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                         eps, seq_len, heads, head_dim,
+                                         kv_heads, *, scratch=None):
+    """The twin of `fused_ln_qkvo_attention_int4_gqa`: K11-C's twin on the
+    packed GQA layout."""
+    return fused_ln_qkvo_attention_int4_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                            bo, eps, seq_len, heads,
+                                            head_dim, kv_heads,
+                                            scratch=scratch)
+
+
+def fused_ln_qkvo_attention_int4_gqa(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                                     seq_len, heads, head_dim, kv_heads,
+                                     int8_grad=False, int8_dw=False,
+                                     int4_grad=False, *, scratch=None):
+    """G-F: K11-C with kv_heads < heads on the packed [q (H·Hd) | k (Hkv·Hd)
+    | v (Hkv·Hd)] layout (the kv_heads branch of _ln_qkvo_fwd_int4_kernel
+    :2745, pallas_call :3137; ln_qkvo_attention_int8.cu at L = 7 with
+    kv_heads, as K7's int8 tier). Under autograd its backward is G-B
+    (`fused_ln_qkvo_attention_int4_gqa_bwd`, `_dw_bwd` under int8_dw) with
+    `int8_grad` and `int4_grad`, K7's int8 backward with `int8_grad`
+    alone, else K7's bf16 backward, as vitax's (:3246)."""
+    if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
+        return FusedLnQkvoAttentionFn.apply(x, gamma, beta, wqkv, bqkv, wo, bo,
+                                            eps, seq_len, heads, head_dim,
+                                            True, int8_grad, int8_dw, kv_heads,
+                                            True, int4_grad)
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int4_gqa_ref(
+            x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
+    out = _ln_qkvo_int8_cuda("fused_ln_qkvo_attention_int4_gqa", x, gamma,
+                             beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
+                             head_dim, kv_heads, scratch, int4=True)
+    fused_ln_qkvo_attention_int4_gqa.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int4_gqa.launches = 0
+
+
 def fused_ln_qkvo_attention_int4_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
                                          eps, seq_len, heads, head_dim,
                                          kv_heads=None, *, int8_dw=False,
@@ -2018,13 +2068,11 @@ def fused_ln_qkvo_attention_int4_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
     dW, dWo: bf16 products, or with `int8_dw` Σ over groups of `group` rows
     (whole images, `qkvo_dw_group`, by default) of int8 products of both
     operands packed fresh per column: attn with do, the fp32 xn with
-    dqkv. kv_heads < heads raises, as the kernel's wrapper."""
-    if _gqa(heads, kv_heads):
-        raise NotImplementedError(
-            f"fused_ln_qkvo_attention_int4_bwd_ref: {_INT4_GQA}")
+    dqkv. kv_heads < heads: the packed GQA layout, dK and dV of a kv group
+    summed over its query heads in fp32 (G-B's twin)."""
     return _qkvo_quant_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do, eps,
-                               seq_len, heads, head_dim, None, int8_dw, group,
-                               scratch, True)
+                               seq_len, heads, head_dim, kv_heads, int8_dw,
+                               group, scratch, True)
 
 
 def fused_ln_qkvo_attention_int4_dw_bwd_ref(x, gamma, beta, wqkv, bqkv, wo,
@@ -2041,10 +2089,12 @@ def fused_ln_qkvo_attention_int4_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
                                      *, scratch=None):
     """Backward of `fused_ln_qkvo_attention_int4` under int8_grad and
     int4_grad (K11-D, ln_qkvo_attention_int8_bwd.cu at L = 7): outputs as
-    `fused_ln_qkvo_attention_int8_bwd`'s."""
+    `fused_ln_qkvo_attention_int8_bwd`'s. kv_heads < heads:
+    `fused_ln_qkvo_attention_int4_gqa_bwd`."""
     if _gqa(heads, kv_heads):
-        raise NotImplementedError(
-            f"fused_ln_qkvo_attention_int4_bwd: {_INT4_GQA}")
+        return fused_ln_qkvo_attention_int4_gqa_bwd(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_int4_bwd_ref(
             x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
@@ -2067,10 +2117,12 @@ def fused_ln_qkvo_attention_int4_dw_bwd(x, gamma, beta, wqkv, bqkv, wo, do,
     Σ over K3's groups (whole images, `qkvo_dw_group`) of int8 products of
     both operands packed fresh per column. `scratch` also receives those
     column codes, atc and doc (dWo), xnc and dqc (dW), as [rows, width]
-    with one scale a column a group."""
+    with one scale a column a group. kv_heads < heads:
+    `fused_ln_qkvo_attention_int4_gqa_dw_bwd`."""
     if _gqa(heads, kv_heads):
-        raise NotImplementedError(
-            f"fused_ln_qkvo_attention_int4_dw_bwd: {_INT4_GQA}")
+        return fused_ln_qkvo_attention_int4_gqa_dw_bwd(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_qkvo_attention_int4_dw_bwd_ref(
             x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
@@ -2084,6 +2136,70 @@ def fused_ln_qkvo_attention_int4_dw_bwd(x, gamma, beta, wqkv, bqkv, wo, do,
 
 
 fused_ln_qkvo_attention_int4_dw_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_int4_gqa_bwd_ref(x, gamma, beta, wqkv, bqkv, wo,
+                                             do, eps, seq_len, heads,
+                                             head_dim, kv_heads, *,
+                                             scratch=None):
+    """The twin of `fused_ln_qkvo_attention_int4_gqa_bwd`."""
+    return fused_ln_qkvo_attention_int4_bwd_ref(
+        x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+        kv_heads, scratch=scratch)
+
+
+def fused_ln_qkvo_attention_int4_gqa_bwd(x, gamma, beta, wqkv, bqkv, wo, do,
+                                         eps, seq_len, heads, head_dim,
+                                         kv_heads, *, scratch=None):
+    """G-B: K11-D with kv_heads < heads (the kv_heads branch of
+    _ln_qkvo_bwd_int8_kernel :2977 under int4_grad, pallas_call :3252), the
+    outputs of `fused_ln_qkvo_attention_int4_bwd` on the packed GQA
+    layout, dK and dV of each kv group summed over its query heads in fp32
+    before one cast (K7's)."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int4_gqa_bwd_ref(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
+    out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int4_gqa_bwd", x,
+                                 gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                                 heads, head_dim, kv_heads, False, scratch,
+                                 int4=True)
+    fused_ln_qkvo_attention_int4_gqa_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int4_gqa_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_int4_gqa_dw_bwd_ref(x, gamma, beta, wqkv, bqkv,
+                                                wo, do, eps, seq_len, heads,
+                                                head_dim, kv_heads, *,
+                                                scratch=None):
+    """The twin of `fused_ln_qkvo_attention_int4_gqa_dw_bwd`."""
+    return fused_ln_qkvo_attention_int4_dw_bwd_ref(
+        x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+        kv_heads, scratch=scratch)
+
+
+def fused_ln_qkvo_attention_int4_gqa_dw_bwd(x, gamma, beta, wqkv, bqkv, wo,
+                                            do, eps, seq_len, heads, head_dim,
+                                            kv_heads, *, scratch=None):
+    """G-B under int8_dw (:3033-3040, :3071-3076 with kv_heads): dWqkv [D,
+    (H + 2·Hkv)·Hd] and dWo are Σ over K3's groups of int8 products of both
+    operands packed fresh per column."""
+    if not x.is_cuda:
+        return fused_ln_qkvo_attention_int4_gqa_dw_bwd_ref(
+            x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim,
+            kv_heads, scratch=scratch)
+    out = _ln_qkvo_int8_bwd_cuda("fused_ln_qkvo_attention_int4_gqa_dw_bwd", x,
+                                 gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                                 heads, head_dim, kv_heads, True, scratch,
+                                 int4=True)
+    fused_ln_qkvo_attention_int4_gqa_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_int4_gqa_dw_bwd.launches = 0
 
 
 # =============================================================================
@@ -3145,15 +3261,35 @@ def fused_ln_qkvo_attention_rect_int8_ref(xc, x, gamma, beta, wqkv, bqkv, wo,
     twin on the two row sets, the weights' codes those of wqkv quantized
     whole (per column, so the same as its slices'). `scratch` as K3's twin's,
     xq/sx the codes of xc's rows and xqk of x's."""
+    return _rect_quant_fwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                               seq_len, heads, head_dim, scratch, False)
+
+
+def fused_ln_qkvo_attention_rect_int4_ref(xc, x, gamma, beta, wqkv, bqkv, wo,
+                                          bo, eps, seq_len, heads, head_dim,
+                                          *, scratch=None):
+    """R-F with the TPU kernel's rounding points
+    (_ln_qkvo_rect_fwd_int4_kernel, pallas_kernels.py:4120-4152): K8's int8
+    twin on the int4 grid (_quant_rows4 of the two fp32 LN outputs and of
+    the fp32 attn, _quant_cols_host4 of the weights). `scratch`: as the
+    int8 twin's."""
+    return _rect_quant_fwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                               seq_len, heads, head_dim, scratch, True)
+
+
+def _rect_quant_fwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
+                        heads, head_dim, scratch, int4):
+    """K8's int8 forward twin, or with `int4` R-F's."""
+    rows, cols_host, _ = _quantizers(int4)
     dt = xc.dtype
     b, cpq, d = xc.shape
     hhd = heads * head_dim
-    w8, sw = quant_cols_host(wqkv)
-    wo8, swo = quant_cols_host(wo)
+    w8, sw = cols_host(wqkv)
+    wo8, swo = cols_host(wo)
 
     def quant_ln(t):
         xhat, _ = _ln_stats(t.reshape(-1, d).float(), eps)
-        return quant_rows(_affine(xhat, gamma, beta))
+        return rows(_affine(xhat, gamma, beta))
 
     xq, sx = quant_ln(xc)
     xqk, sxk = quant_ln(x)
@@ -3162,7 +3298,7 @@ def fused_ln_qkvo_attention_rect_int8_ref(xc, x, gamma, beta, wqkv, bqkv, wo,
                   bqkv[hhd:]).to(dt)
     attn = _rect_core(q.view(b, cpq, -1), kv.view(b, x.shape[1], -1),
                       seq_len, heads)
-    aq, sa = quant_rows(attn)
+    aq, sa = rows(attn)
     y = _dequant(int_mm(aq, wo8), sa, swo, bo)
     _keep(scratch, w8=(w8, sw), wo8=(wo8, swo), xq=(xq, sx), xqk=(xqk, sxk),
           aq=(aq, sa))
@@ -3170,20 +3306,26 @@ def fused_ln_qkvo_attention_rect_int8_ref(xc, x, gamma, beta, wqkv, bqkv, wo,
 
 
 def _rect_fwd(int8, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
-              heads, head_dim, int8_grad=False, int8_dw=False, scratch=None):
+              heads, head_dim, int8_grad=False, int8_dw=False, scratch=None,
+              int4=False, int4_grad=False):
+    """K8's forward (`int8`: its W8A8 tier; with `int4` too, R-F)."""
     if _needs_grad(xc, x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionRectFn.apply(xc, x, gamma, beta, wqkv, bqkv,
                                                 wo, bo, eps, seq_len, heads,
                                                 head_dim, int8, int8_grad,
-                                                int8_dw)
+                                                int8_dw, int4, int4_grad)
     args = (xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
             head_dim)
     if not xc.is_cuda:
+        if int4:
+            return fused_ln_qkvo_attention_rect_int4_ref(*args,
+                                                         scratch=scratch)
         if int8:
             return fused_ln_qkvo_attention_rect_int8_ref(*args,
                                                          scratch=scratch)
         return fused_ln_qkvo_attention_rect_ref(*args)
-    name = ("fused_ln_qkvo_attention_rect_int8" if int8
+    name = ("fused_ln_qkvo_attention_rect_int4" if int4
+            else "fused_ln_qkvo_attention_rect_int8" if int8
             else "fused_ln_qkvo_attention_rect")
     _check_cuda(name, {"xc": xc, "x": x, "gamma": gamma, "beta": beta,
                        "wqkv": wqkv, "bqkv": bqkv, "wo": wo, "bo": bo},
@@ -3207,11 +3349,14 @@ def _rect_fwd(int8, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
         xq, sx, xqk, sxk = _i8(dev, nc, d), _f32(dev, nc), _i8(dev, n, d), \
             _f32(dev, n)
         attn, aq, sa = _f32(dev, nc, hhd), _i8(dev, nc, hhd), _f32(dev, nc)
-        rc = lib.vitax_ln_qkvo_attention_rect_int8_fwd(*(t.data_ptr() for t in (
+        fn = (lib.vitax_ln_qkvo_attention_rect_int4_fwd if int4
+              else lib.vitax_ln_qkvo_attention_rect_int8_fwd)
+        rc = fn(*(t.data_ptr() for t in (
             xc, x, gamma, beta, wqkv, bqkv, wo, bo, w8t, sw, wo8t, swo, xq, sx,
             xqk, sxk, q, kv, attn, aq, sa, out)), *tail)
         build.check(rc, name)
-        fused_ln_qkvo_attention_rect_int8.launches += 1
+        (fused_ln_qkvo_attention_rect_int4 if int4
+         else fused_ln_qkvo_attention_rect_int8).launches += 1
         _keep(scratch, w8=(w8t.t(), sw), wo8=(wo8t.t(), swo), xq=(xq, sx),
               xqk=(xqk, sxk), aq=(aq, sa))
     else:
@@ -3256,9 +3401,29 @@ def fused_ln_qkvo_attention_rect_int8(xc, x, gamma, beta, wqkv, bqkv, wo, bo,
 fused_ln_qkvo_attention_rect_int8.launches = 0
 
 
+def fused_ln_qkvo_attention_rect_int4(xc, x, gamma, beta, wqkv, bqkv, wo, bo,
+                                      eps, seq_len, heads, head_dim,
+                                      int8_grad=False, int8_dw=False,
+                                      int4_grad=False, *, scratch=None):
+    """R-F: `fused_ln_qkvo_attention_rect` with A4W4 projections
+    (ln_qkvo_attention_rect_int8.cu at L = 7), the core bf16 with fp32
+    attn. Under autograd the backward follows vitax's (:4526): `int8_grad`
+    (the caller's int8 and int8_grad) with `int4_grad` is R-B (R-B dw
+    under `int8_dw`), `int8_grad` alone K8's int8 backward, else K8's bf16
+    one. `scratch`: as `fused_ln_qkvo_attention_rect_int8`'s."""
+    return _rect_fwd(True, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps,
+                     seq_len, heads, head_dim, int8_grad, int8_dw, scratch,
+                     True, int4_grad)
+
+
+fused_ln_qkvo_attention_rect_int4.launches = 0
+
+
 def _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
-                  head_dim, int8, int8_dw=False, groups=None, scratch=None):
-    """Both tiers of K8's backward twin; see the two public twins."""
+                  head_dim, int8, int8_dw=False, groups=None, scratch=None,
+                  int4=False):
+    """Every tier of K8's backward twin (bf16; int8_grad; with `int4` the
+    int4_grad branch, R-B); see the public twins."""
     dt = xc.dtype
     b, cpq, d = xc.shape
     spq = x.shape[1]
@@ -3268,15 +3433,16 @@ def _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
     do2 = do.reshape(-1, d)
     xhat_c, rstd_c = _ln_stats(xc.reshape(-1, d).float(), eps)
     xhat_k, rstd_k = _ln_stats(x.reshape(-1, d).float(), eps)
+    rows, cols_host, rows_host = _quantizers(int4)
     if int8:
-        w8, sw = quant_cols_host(wqkv)
-        wq8r, swqr = quant_rows_host(wq)
-        wkv8r, swkvr = quant_rows_host(wkv)
-        wo8r, swor = quant_rows_host(wo)
+        w8, sw = cols_host(wqkv)
+        wq8r, swqr = rows_host(wq)
+        wkv8r, swkvr = rows_host(wkv)
+        wo8r, swor = rows_host(wo)
         xnc32 = _affine(xhat_c, gamma, beta)
         xn32 = _affine(xhat_k, gamma, beta)
-        xqc, sxc = quant_rows(xnc32)
-        xqk, sxk = quant_rows(xn32)
+        xqc, sxc = rows(xnc32)
+        xqk, sxk = rows(xn32)
         q = _dequant(int_mm(xqc, w8[:, :hhd]), sxc, sw[:hhd], bqkv[:hhd])
         kv = _dequant(int_mm(xqk, w8[:, hhd:]), sxk, sw[hhd:], bqkv[hhd:])
         xnc, xn = xnc32.to(dt), xn32.to(dt)
@@ -3291,7 +3457,7 @@ def _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
     o = o32.to(dt)
     attn = _heads_to_rows(o)
     if int8:
-        doq, sdo = quant_rows(do2.float())
+        doq, sdo = rows(do2.float())
         dattn = _dequant(int_mm(doq, wo8r.t()), sdo, swor).to(dt)
     else:
         dattn = matmul_f32(do2, wo.t()).to(dt)
@@ -3299,8 +3465,8 @@ def _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
     dq = _heads_to_rows(dqh)
     dkv = torch.cat([_heads_to_rows(dk), _heads_to_rows(dv)], dim=1)
     if int8:
-        dqq, sdq = quant_rows(dq.float())
-        dkvq, sdkv = quant_rows(dkv.float())
+        dqq, sdq = rows(dq.float())
+        dkvq, sdkv = rows(dkv.float())
         dxnc = _dequant(int_mm(dqq, wq8r.t()), sdq, swqr)
         dxn = _dequant(int_mm(dkvq, wkv8r.t()), sdkv, swkvr)
         _keep(scratch, w8=(w8, sw), wq8r=(wq8r, swqr), wkv8r=(wkv8r, swkvr),
@@ -3309,7 +3475,14 @@ def _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
     else:
         dxnc = matmul_f32(dq, wq.t())
         dxn = matmul_f32(dkv, wkv.t())
-    if int8_dw:
+    if int8_dw and int4:
+        group_c, group_k = groups or qkvo_rect_dw_groups(b, cpq, spq)
+        dwo, atc, doc = _dw_int8_cols(attn, do2, group_c)
+        dwq, xncc, dqc = _dw_int8_cols(xnc32, dq, group_c)
+        dwkv, xnkc, dkvc = _dw_int8_cols(xn32, dkv, group_k)
+        _keep(scratch, atc=atc, doc=doc, xnc=xncc, dqc=dqc, xnk=xnkc,
+              dkvc=dkvc)
+    elif int8_dw:
         group_c, group_k = groups or qkvo_rect_dw_groups(b, cpq, spq)
         dwo, atc = _dw_int8(attn, sdo, doq, group_c)
         dwq, xncc = _dw_int8(xnc32, sdq, dqq, group_c)
@@ -3366,9 +3539,38 @@ def fused_ln_qkvo_attention_rect_int8_dw_bwd_ref(xc, x, gamma, beta, wqkv,
                          heads, head_dim, True, True, None, scratch)
 
 
+def fused_ln_qkvo_attention_rect_int4_bwd_ref(xc, x, gamma, beta, wqkv, bqkv,
+                                              wo, do, eps, seq_len, heads,
+                                              head_dim, *, int8_dw=False,
+                                              groups=None, scratch=None):
+    """R-B, K8's backward under int8_grad and int4_grad with the TPU
+    kernel's rounding points (_ln_qkvo_rect_bwd_int8_kernel, pallas_kernels.
+    py:4273-4385, _qr = _quant_rows4 :4272, the weights by _quant_cols_host4
+    and _quant_rows_host4 :4523-4529): the int8 twin with every quantizer
+    of the recompute and the dx-path on the int4 grid, the core grads bf16.
+    Weight grads: bf16 products, or with `int8_dw` (R-B dw) Σ over groups
+    of `groups` = (rows of xc, rows of x), by default `qkvo_rect_dw_groups`,
+    of int8 products of both operands packed fresh per column (attn with
+    do, the fp32 LN outputs with dq and dkv; pad rows included, as vitax's).
+    `scratch`: the int8 twin's codes, and under int8_dw the column codes
+    atc, doc (dWo), xnc, dqc (dWq), xnk, dkvc (dWkv)."""
+    return _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                         heads, head_dim, True, int8_dw, groups, scratch, True)
+
+
+def fused_ln_qkvo_attention_rect_int4_dw_bwd_ref(xc, x, gamma, beta, wqkv,
+                                                 bqkv, wo, do, eps, seq_len,
+                                                 heads, head_dim, *,
+                                                 scratch=None):
+    """The twin of `fused_ln_qkvo_attention_rect_int4_dw_bwd`."""
+    return _rect_bwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                         heads, head_dim, True, True, None, scratch, True)
+
+
 def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
-                   do, eps, seq_len, heads, head_dim, scratch=None):
-    """The launch of K8's backward, either tier."""
+                   do, eps, seq_len, heads, head_dim, scratch=None,
+                   int4=False):
+    """The launch of K8's backward, any tier (`int4`: R-B's)."""
     dev = _check_cuda(
         name, {"xc": xc, "x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv,
                "bqkv": bqkv, "wo": wo, "do": do},
@@ -3420,29 +3622,44 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
     dqq, sdq, dkvq, sdkv = _i8(dev, nc, hhd), _f32(dev, nc), \
         _i8(dev, n, 2 * hhd), _f32(dev, n)
     group_c, group_k = qkvo_rect_dw_groups(b, cpq, spq)
-    dwt = [None] * 9
+    # int8_dw: (attn | do) column codes and scales for dWo, (xnc | dq) for
+    # dWq, (xn | dkv) for dWkv; K8 reuses do's, dq's and dkv's row codes,
+    # so it has no scales of its own for them (R-B's are the fourth, eighth
+    # and last)
+    dwt = [None] * 12
     if int8_dw:
         groups, kpc = _dw_layout(nc, group_c)
         _, kpk = _dw_layout(n, group_k)
         dwt = [_i8(dev, hhd, kpc), _f32(dev, groups, hhd), _i8(dev, d, kpc),
+               _f32(dev, groups, d) if int4 else None,
                _i8(dev, d, kpc), _f32(dev, groups, d), _i8(dev, hhd, kpc),
+               _f32(dev, groups, hhd) if int4 else None,
                _i8(dev, d, kpk), _f32(dev, groups, d),
-               _i8(dev, 2 * hhd, kpk)]
-    rc = lib.vitax_ln_qkvo_attention_rect_int8_bwd(*(t.data_ptr() for t in (
+               _i8(dev, 2 * hhd, kpk),
+               _f32(dev, groups, 2 * hhd) if int4 else None]
+    ptrs = [None if t is None else t.data_ptr() for t in dwt]
+    if not int4:
+        del ptrs[11], ptrs[7], ptrs[3]
+    fn = (lib.vitax_ln_qkvo_attention_rect_int4_bwd if int4
+          else lib.vitax_ln_qkvo_attention_rect_int8_bwd)
+    rc = fn(*(t.data_ptr() for t in (
         xc, x, gamma, beta, bqkv, wqkv, wo, do, *outs, w8t, sw, wq8r, swqr,
         wkv8r, swkvr, wo8r, swor, xnc, xqc, sxc, xn, xqk, sxk, q, kv, attn,
         doq, sdo, dattn, p, ds, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2,
-        b2, ws)), *(None if t is None else t.data_ptr() for t in dwt), b,
-        cpq, spq, d, seq_len, heads, head_dim, group_c, group_k, int(int8_dw),
-        eps, scale, _stream(dev))
+        b2, ws)), *ptrs, b, cpq, spq, d, seq_len, heads, head_dim, group_c,
+        group_k, int(int8_dw), eps, scale, _stream(dev))
     build.check(rc, name)
     _keep(scratch, w8=(w8t.t(), sw), wq8r=(wq8r, swqr), wkv8r=(wkv8r, swkvr),
           wo8r=(wo8r, swor), xq=(xqc, sxc), xqk=(xqk, sxk), doq=(doq, sdo),
           dqq=(dqq, sdq), dkvq=(dkvq, sdkv))
     if int8_dw:
         _keep(scratch, atc=(_group_codes(dwt[0], nc, group_c), dwt[1]),
-              xnc=(_group_codes(dwt[3], nc, group_c), dwt[4]),
-              xnk=(_group_codes(dwt[6], n, group_k), dwt[7]))
+              xnc=(_group_codes(dwt[4], nc, group_c), dwt[5]),
+              xnk=(_group_codes(dwt[8], n, group_k), dwt[9]))
+    if int8_dw and int4:
+        _keep(scratch, doc=(_group_codes(dwt[2], nc, group_c), dwt[3]),
+              dqc=(_group_codes(dwt[6], nc, group_c), dwt[7]),
+              dkvc=(_group_codes(dwt[10], n, group_k), dwt[11]))
     return outs[:4] + (torch.cat([dwq, dwkv], dim=1), torch.cat([dbq, dbkv]),
                        dwo, dbo)
 
@@ -3508,21 +3725,67 @@ def fused_ln_qkvo_attention_rect_int8_dw_bwd(xc, x, gamma, beta, wqkv, bqkv,
 fused_ln_qkvo_attention_rect_int8_dw_bwd.launches = 0
 
 
+def fused_ln_qkvo_attention_rect_int4_bwd(xc, x, gamma, beta, wqkv, bqkv, wo,
+                                          do, eps, seq_len, heads, head_dim,
+                                          *, scratch=None):
+    """R-B: the backward of `fused_ln_qkvo_attention_rect_int4` under
+    int8_grad and int4_grad (ln_qkvo_attention_rect_int8_bwd.cu at L = 7),
+    the outputs of `fused_ln_qkvo_attention_rect_bwd`. `scratch`: as the
+    twin's."""
+    if not xc.is_cuda:
+        return fused_ln_qkvo_attention_rect_int4_bwd_ref(
+            xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
+            head_dim, scratch=scratch)
+    out = _rect_bwd_cuda("fused_ln_qkvo_attention_rect_int4_bwd", True, False,
+                         xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
+                         heads, head_dim, scratch, int4=True)
+    fused_ln_qkvo_attention_rect_int4_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_rect_int4_bwd.launches = 0
+
+
+def fused_ln_qkvo_attention_rect_int4_dw_bwd(xc, x, gamma, beta, wqkv, bqkv,
+                                             wo, do, eps, seq_len, heads,
+                                             head_dim, *, scratch=None):
+    """R-B dw: `fused_ln_qkvo_attention_rect_int4_bwd` under int8_dw, dWo and
+    dWq over tile·cpq rows of xc, dWkv over tile·spq rows of x
+    (`qkvo_rect_dw_groups`), both operands of each packed fresh per column;
+    `scratch` also receives those column codes, atc, doc, xnc, dqc, xnk and
+    dkvc, as [rows, width] with one scale a column a group."""
+    if not xc.is_cuda:
+        return fused_ln_qkvo_attention_rect_int4_dw_bwd_ref(
+            xc, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads,
+            head_dim, scratch=scratch)
+    out = _rect_bwd_cuda("fused_ln_qkvo_attention_rect_int4_dw_bwd", True,
+                         True, xc, x, gamma, beta, wqkv, bqkv, wo, do, eps,
+                         seq_len, heads, head_dim, scratch, int4=True)
+    fused_ln_qkvo_attention_rect_int4_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_qkvo_attention_rect_int4_dw_bwd.launches = 0
+
+
 class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
     """K8 under autograd, saving (xc, x, γ, β, Wqkv, bqkv, Wo) as vitax's
     custom VJP (_fused_ln_qkvo_rect_fwd :4480): the forward is the kernel
-    (`int8`: its W8A8 tier); the backward is K8's int8 backward for `int8`
-    with `int8_grad` (its int8_dw variant under `int8_dw`), else the bf16
-    one."""
+    (`int8`: its W8A8 tier; `int4`: R-F); the backward, as vitax's
+    (:4526), is for `int8` with `int8_grad` R-B under `int4_grad`, else
+    K8's int8 backward (each one's int8_dw variant under `int8_dw`), else
+    the bf16 one."""
 
     @staticmethod
     def forward(ctx, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
-                heads, head_dim, int8, int8_grad, int8_dw):
+                heads, head_dim, int8, int8_grad, int8_dw, int4=False,
+                int4_grad=False):
         ctx.save_for_backward(xc, x, gamma, beta, wqkv, bqkv, wo)
         ctx.meta = (eps, seq_len, heads, head_dim)
-        ctx.tier = (int8 and int8_grad, int8_dw)
+        ctx.tier = (int8 and int8_grad, int8_dw, int4_grad)
         ctx.bo_dtype = bo.dtype
-        fwd = (fused_ln_qkvo_attention_rect_int8 if int8
+        fwd = (fused_ln_qkvo_attention_rect_int4 if int4
+               else fused_ln_qkvo_attention_rect_int8 if int8
                else fused_ln_qkvo_attention_rect)
         return fwd(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len, heads,
                    head_dim)
@@ -3530,8 +3793,11 @@ class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         xc, x, gamma, beta, wqkv, bqkv, wo = ctx.saved_tensors
-        int8_grad, int8_dw = ctx.tier
+        int8_grad, int8_dw, int4_grad = ctx.tier
         bwd = (fused_ln_qkvo_attention_rect_bwd if not int8_grad
+               else fused_ln_qkvo_attention_rect_int4_dw_bwd
+               if int4_grad and int8_dw
+               else fused_ln_qkvo_attention_rect_int4_bwd if int4_grad
                else fused_ln_qkvo_attention_rect_int8_dw_bwd if int8_dw
                else fused_ln_qkvo_attention_rect_int8_bwd)
         dxc, dx, dg, dbe, dw, db, dwo, dbo = bwd(
@@ -3539,7 +3805,7 @@ class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
         return (dxc, dx, dg.to(gamma.dtype), dbe.to(beta.dtype),
                 dw.to(wqkv.dtype), db.to(bqkv.dtype), dwo.to(wo.dtype),
                 dbo.to(ctx.bo_dtype), None, None, None, None, None, None,
-                None)
+                None, None, None)
 
 
 KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
@@ -3562,4 +3828,10 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_mlp_int8_save_bwd, fused_ln_mlp_int8_save_dw_bwd,
            fused_ln_mlp_int4, fused_ln_mlp_int4_bwd, fused_ln_mlp_int4_dw_bwd,
            fused_ln_qkvo_attention_int4, fused_ln_qkvo_attention_int4_bwd,
-           fused_ln_qkvo_attention_int4_dw_bwd)
+           fused_ln_qkvo_attention_int4_dw_bwd,
+           fused_ln_qkvo_attention_rect_int4,
+           fused_ln_qkvo_attention_rect_int4_bwd,
+           fused_ln_qkvo_attention_rect_int4_dw_bwd,
+           fused_ln_qkvo_attention_int4_gqa,
+           fused_ln_qkvo_attention_int4_gqa_bwd,
+           fused_ln_qkvo_attention_int4_gqa_dw_bwd)

@@ -13,16 +13,17 @@ skip, weighted validation with routing-viz PNGs, current/best checkpoints of
 the port's store per epoch, and the reference's JSON diagnostics
 (model_structure.json, weight_mapping_log.json,
 trainable_weights_info.json). On the card the attention halves run K1 (K7
-with GQA, K3 with `--int8`, K7's int8 tier with both), K8 on compacted
-rows, each with its backward kernel; with `--no-fused-qkv` the LN kernel,
-plain projections and K13 (the standalone attention core) with its
-backward. It runs on the card unless the caller asks for the CPU
-(`main(argv, device="cpu")`).
+with GQA, K3 with `--int8`, K7's int8 tier with both, K11-C with
+`--int4-attn`, G-F with it and GQA), K8 on compacted rows (R-F with
+`--int4-attn`), each with its backward kernel as vitax's dispatch picks it;
+with `--no-fused-qkv` the LN kernel, plain projections and K13 (the
+standalone attention core) with its backward. The int4 flags print vitax's
+warning (it measured Res-ViT training with them divergent) and run. It runs
+on the card unless the caller asks for the CPU (`main(argv,
+device="cpu")`).
 
 Not ported yet, each raising with its item: `--checkpoint-path` (the
-pretrained backbone, ROADMAP Queue 1 item 4), `--remat` (item 6), the int4
-flags (Queue 2, "Res-ViT int4": vitax measured Res-ViT training with them
-divergent; the plain ViT's int4 runs through train_cli).
+pretrained backbone, ROADMAP Queue 1 item 4), `--remat` (item 6).
 
 Run: `python -m vitax_torch.resvit_train_cli --dataset Synthetic \\
           --model-arch b16 --image-size 224 --batch-size 32 --use_lora True \\
@@ -253,11 +254,6 @@ def _reject_unported(config) -> None:
         raise NotImplementedError(
             f"--remat {config.remat}: block rematerialization is not ported "
             "(ROADMAP Queue 1 item 6)")
-    if config.int4 or config.int4_attn or config.int4_grad:
-        raise NotImplementedError(
-            "--int4/--int4-attn/--int4-grad: Res-ViT's int4 tiers (the rect "
-            "attention half's and the kv_heads branches) are not ported yet "
-            "(ROADMAP Queue 2, \"Res-ViT int4\")")
 
 
 def main(argv=None, device=None):
@@ -271,6 +267,12 @@ def main(argv=None, device=None):
     gen = set_seed(config.seed)
     device = cli.resolve_device(device)
     cfg = config_to_model_args(config, device)
+    if cfg.int4_mlp or cfg.int4_attn or cfg.int4_grad:
+        print("WARNING: the int4 tiers MEASURED DIVERGENT for routed "
+              "(res-vit) training — held-out accuracy flat-lines on the "
+              "convergence harness with or without compaction (PERF.md "
+              "'int4 x res-vit' section). They are validated for plain-ViT "
+              "training only; use the int8 tiers for res-vit recipes.")
     params = resvit.init_params(gen, cfg, device)
 
     # JSON diagnostics (res-vit/utils.py:182-205,440-441,445-485)

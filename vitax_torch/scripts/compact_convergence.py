@@ -16,7 +16,8 @@ each capacity. Environment knobs, as the JAX script's: CC_STEPS (300),
 CC_BATCH (64), CC_CAPS ("0.625,0.5"), CC_WARMUP (dense steps first, 0),
 CC_ROUTER_LR (1.0), CC_TOKKEEP (train-time token dropping on the compact
 runs), CC_CAP_SCHEDULE ("C_HI@FRAC": the first FRAC of the steps at C_HI).
-CC_INT4 names Res-ViT's int4 item (not ported yet) and exits.
+CC_INT4 ("1": the full int4 tier, int4_mlp, int4_attn and int4_grad;
+"fwd": the int4 forwards alone) adds int4 to the compact runs.
 """
 
 from __future__ import annotations
@@ -120,13 +121,17 @@ def run(tag, data, compact_warmup=0, cap_schedule=None, **over):
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("compact_convergence: needs a CUDA card")
-    if os.environ.get("CC_INT4"):
-        raise SystemExit("CC_INT4: Res-ViT's int4 tiers are not ported yet "
-                         "(ROADMAP Queue 2, \"Res-ViT int4\")")
     warmup = int(os.environ.get("CC_WARMUP", "0"))
     caps = tuple(float(c) for c in
                  os.environ.get("CC_CAPS", "0.625,0.5").split(","))
     extra, tag = {}, ""
+    cc_int4 = os.environ.get("CC_INT4")
+    if cc_int4 == "1":
+        extra.update(int4_mlp=True, int4_attn=True, int4_grad=True)
+        tag += "-int4"
+    elif cc_int4 == "fwd":
+        extra.update(int4_mlp=True, int4_attn=True)
+        tag += "-int4fwd"
     if os.environ.get("CC_TOKKEEP"):
         extra["token_keep"] = float(os.environ["CC_TOKKEEP"])
         tag += f"-tk{extra['token_keep']}"
