@@ -192,6 +192,23 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              l16 --image-size 384` (vitax's K1 gate rejects it: 24 K6 a
              forward, no K1) and its `--int8`, which raises Queue 1 item
              8's message.
+15. k10    — K10 (`fused_qkv_attention`, the QKV projection and the core
+             without LN or out-projection), which vitax's Res-ViT `attention`
+             runs with fused_qkv and not fused_qkvo (a config built in code:
+             the CLIs tie the two): its forward at b64 spq 200 and every
+             output of its backward at b32 spq 200 against the twins (TOL),
+             timed beside them; the b16 Res-ViT of ft_resvit.sh's flags with
+             fused_qkvo off through make_eval_step at b64, dense and at C
+             0.625, bf16 and --int8 (exact launches a forward: 12 K10, the
+             LN kernel before each; int8_attn does not reach K10, as in
+             vitax), logits with the routing replayed within LOGIT_BAND of
+             the plain path (the K4 and K10 twin path for --int8) and the
+             routing maps' agreement; two b32 train steps of (a) through
+             make_train_step (exact launches a step: 12 + 11 K10 forwards,
+             the teacher's included, 12 backwards); the grads of every
+             trainable tensor against the plain path (GRAD_BAND, the noise
+             injected, the routing replayed); resident b64 forwards and b32
+             steps beside the K1 path (fused_qkvo on), in turns.
 
 Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
 backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
@@ -382,6 +399,12 @@ KERNEL_INFO = {
     "fused_ln_qkvo_attention_int4_gqa_dw_bwd": (
         "vitax_torch/csrc/ln_qkvo_attention_int8_bwd.cu",
         "vitax/ops/pallas_kernels.py:3033"),
+    # Res-ViT with fused_qkv and not fused_qkvo: K10, the QKV projection and
+    # the core (no LN, no out-projection), forward and backward
+    "fused_qkv_attention": ("vitax_torch/csrc/qkv_attention.cu",
+                            "vitax/ops/pallas_kernels.py:2216"),
+    "fused_qkv_attention_bwd": ("vitax_torch/csrc/qkv_attention_bwd.cu",
+                                "vitax/ops/pallas_kernels.py:2239"),
 }
 SAVE_KERNELS = ("fused_ln_mlp_save", "fused_ln_mlp_bwd_fast",
                 "fused_ln_mlp_int8_save", "fused_ln_mlp_int8_save_bwd",
@@ -2241,7 +2264,8 @@ def _resvit_launches(cfg, train):
     half through K4 on the int8 tier, K2 with --fused-mlp, else the LN
     kernel, and under --save-acts the student's through K12 (the teacher
     keeps no graph: K2's or K4's forward); the routers' and the final norm's
-    LN."""
+    LN. Without fused_qkvo each attention half is the LN kernel and K10 (its
+    backward in the student's backward), the teacher's too."""
     from collections import Counter
     from vitax_torch.models import resvit
     if cfg.use_pallas is False:
@@ -2253,6 +2277,13 @@ def _resvit_launches(cfg, train):
     if not cfg.fused_qkv:
         return _k13_resvit_launches(plain, routed, routers, train)
     gqa = (cfg.n_kv_heads or cfg.n_heads) != cfg.n_heads
+    # fused_qkv without fused_qkvo: vitax's `attention` (vitax/models/
+    # resvit.py:278) runs every attention half, the compacted blocks' on all
+    # rows, as the LN kernel and K10, whatever int8_attn says (no GQA here:
+    # vitax's fused branch declines it)
+    k10 = not cfg.fused_qkvo
+    if k10 and gqa:
+        raise ValueError("no K10 with GQA: vitax runs its plain attention")
     int8 = cfg.int8_attn
     grad8 = int8 and cfg.int8_attn_grad
     # vitax's int4 dispatch (vitax/models/resvit.py:340-415): int4_attn
@@ -2260,7 +2291,7 @@ def _resvit_launches(cfg, train):
     # int4_grad; int4_mlp the A4W4 MLP half ahead of save-acts and int8,
     # its backward A4W4 under int4_grad
     int4, grad4 = cfg.int4_attn, grad8 and cfg.int4_grad and cfg.int4_attn
-    rect = cfg.compact_capacity is not None and not gqa
+    rect = cfg.compact_capacity is not None and not gqa and not k10
     base = "fused_ln_qkvo_attention"
     tier = "_int4" if int4 else "_int8"
     gq = f"{base}{tier}_gqa" if gqa else f"{base}{tier}"
@@ -2274,6 +2305,8 @@ def _resvit_launches(cfg, train):
     rb = f"{base}_rect_int4" if grad4 else f"{base}_rect_int8"
     rect_bwd = (f"{rb}_dw_bwd" if grad8 and cfg.int8_dw
                 else f"{rb}_bwd" if grad8 else f"{base}_rect_bwd")
+    if k10:
+        attn, attn_bwd = "fused_qkv_attention", "fused_qkv_attention_bwd"
     mlp4 = cfg.fused_mlp and cfg.int4_mlp
     mlp8 = cfg.fused_mlp and cfg.int8_mlp and not mlp4
     save = cfg.fused_mlp and cfg.fused_mlp_save and not mlp4 and (
@@ -2303,13 +2336,13 @@ def _resvit_launches(cfg, train):
         c[mlp_fwd] += teacher
     else:
         c[mlp_fwd] += student + teacher
-    c["layer_norm"] += routers + 1
+    c["layer_norm"] += routers + 1 + (student + teacher if k10 else 0)
     if train:
         c[attn] += routed  # the teacher
         c[attn_bwd] += plain + (0 if rect else routed)
         c[rect_bwd] += routed if rect else 0
         c[mlp_bwd] += plain + routed
-        c["layer_norm_bwd"] += routers + 1
+        c["layer_norm_bwd"] += routers + 1 + (student if k10 else 0)
     return _expect(**{k: v for k, v in c.items() if v})
 
 
@@ -4299,6 +4332,252 @@ def run_resvit_int4_slice(exp_root):
     return counts, steps, dist
 
 
+# ---------------------------------------------------------------- phase 15
+# K10 (fused_qkv_attention, forward and backward): the attention half of the
+# b16 Res-ViT built from ft_resvit.sh's flags with fused_qkvo off in code
+# (both CLIs tie fused_qkvo to fused_qkv, as vitax's)
+K10_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd")
+K10_FWD_CASE = ("b64 spq200 (serving)", 64, 200, 197)
+K10_BWD_CASE = ("b32 spq200 (training)", 32, 200, 197)
+# routing maps of the K10 path against the plain (or twin) path, share of
+# keep bits that agree: both round at the same points, so only a token whose
+# keep and skip logits sit within a few bf16 ulps of each other can flip:
+# 0.99962-0.99970 measured on the card at b64 (K1's path 0.99989, phase 8);
+# the band leaves 5x the flips measured
+ROUTING_AGREE = 0.998
+
+
+def _k10_inputs(batch, rows, seq_len, seed):
+    """K10's x̂ (an LN output's scale, zero pad rows past seq_len), the b16
+    Res-ViT's wqkv and bqkv (`_inputs`), and do on the heads' outputs, zero
+    on the pad rows as the model's row cut leaves it."""
+    import torch
+    t = _inputs(batch, rows, seed)
+    x = t["x"].clone()
+    x[:, seq_len:] = 0
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn((batch, rows, HEADS * HEAD_DIM), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    do[:, seq_len:] = 0
+    return x, t["wqkv"], t["bqkv"], do
+
+
+def check_k10_kernels(stats):
+    """Phase 15, kernels: K10's forward at b64 spq 200 and every output of
+    its backward at b32 spq 200 against the twins (TOL, as phase 3 holds K1
+    and its backward), two backward launches the same bits; CUDA-event
+    medians of kernel and twin."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in K10_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    label, batch, rows, seq = K10_FWD_CASE
+    x, w, b, _ = _k10_inputs(batch, rows, seq, seed=150)
+    meta = (seq, HEADS, HEAD_DIM)
+    name = "fused_qkv_attention"
+    with torch.inference_mode():
+        out = ck.fused_qkv_attention(x, w, b, *meta)
+        torch.cuda.synchronize()
+        ref = ck.fused_qkv_attention_ref(x, w, b, *meta)
+        err, bound = _hold(name, label, out, ref, stats)
+        k_ms = _median_ms(lambda: ck.fused_qkv_attention(x, w, b, *meta))
+        p_ms = _median_ms(lambda: ck.fused_qkv_attention_ref(x, w, b, *meta))
+    stats[name].update(ms=k_ms, plain_ms=p_ms, shape=(batch, rows))
+    print(f"  {name:32s} {label:22s} {tuple(out.shape)} max|k-ref| "
+          f"{err:.3e} <= {bound:.3e}: ok; kernel {k_ms:.4f} ms  plain "
+          f"{p_ms:.4f} ms (median of 25)", flush=True)
+    del x, w, b, out, ref
+    label, batch, rows, seq = K10_BWD_CASE
+    x, w, b, do = _k10_inputs(batch, rows, seq, seed=151)
+    name = "fused_qkv_attention_bwd"
+    with torch.no_grad():
+        outs = ck.fused_qkv_attention_bwd(x, w, b, do, *meta)
+        again = ck.fused_qkv_attention_bwd(x, w, b, do, *meta)
+        torch.cuda.synchronize()
+        refs = ck.fused_qkv_attention_bwd_ref(x, w, b, do, *meta)
+        errs = _hold_all(name, label, outs, refs, stats)
+        if not all(torch.equal(o, a) for o, a in zip(outs, again)):
+            raise AssertionError(f"{name}: two launches differ")
+        del outs, again, refs
+        k_ms = _median_ms(lambda: ck.fused_qkv_attention_bwd(x, w, b, do,
+                                                             *meta),
+                          warmup=2, iters=10)
+        p_ms = _median_ms(lambda: ck.fused_qkv_attention_bwd_ref(x, w, b, do,
+                                                                 *meta),
+                          warmup=1, iters=5)
+    stats[name].update(ms=k_ms, plain_ms=p_ms, shape=(batch, rows))
+    print(f"  {name:32s} {label:22s} max|k-ref| per output (dx, dW, db) "
+          f"[{' '.join(errs)}]: ok, two launches the same bits; kernel "
+          f"{k_ms:.4f} ms  plain {p_ms:.4f} ms (medians of 10 / 5)",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _k10_twin(ck):
+    """K10's wrapper routed to its twin (inference only), by the module name
+    the model calls."""
+    saved = ck.fused_qkv_attention
+    ck.fused_qkv_attention = ck.fused_qkv_attention_ref
+    try:
+        yield
+    finally:
+        ck.fused_qkv_attention = saved
+
+
+def run_k10_slice(exp_root):
+    """Phase 15, paths: the b16 Res-ViT of ft_resvit.sh's flags with
+    fused_qkvo off (config_to_model_args, then .replace), serving b64 dense
+    and at C 0.625, bf16 and --int8, through make_eval_step with exact
+    launches a forward; logits (the routing replayed) within LOGIT_BAND of
+    the plain path (the twin path for --int8) and the routing maps; two b32
+    train steps of (a) through make_train_step with exact launches a step;
+    the grads of every trainable tensor against the plain path (noise
+    injected, routing replayed); resident b64 forwards and b32 steps beside
+    the K1 path (fused_qkvo on), in turns."""
+    import torch
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import resvit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.resvit_eval_cli import get_eval_config
+    from vitax_torch.resvit_train_cli import (config_to_model_args,
+                                              get_train_config)
+    from vitax_torch.train.optim import tree_leaves
+    from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                                make_adamw_for,
+                                                make_eval_step,
+                                                make_train_step)
+    from vitax_torch.utils.memory import named_leaves
+
+    serve = {tier: config_to_model_args(get_eval_config(RESVIT_ARGS + extra),
+                                        "cuda").replace(fused_qkvo=False)
+             for tier, extra in (("bf16", []), ("--int8", ["--int8"]))}
+    with _random_router_biases():
+        params = resvit.init_params(set_seed(0), serve["bf16"], "cuda")
+    data = next(iter(get_dataloader("Synthetic", split="val", image_size=224,
+                                    batch_size=64, num_samples=64, seed=0)))
+    images = torch.from_numpy(data.images).cuda().bfloat16()
+    labels = torch.from_numpy(data.labels).cuda()
+    weight = torch.from_numpy(data.weight).cuda()
+    plain = dict(fused_qkv=False, fused_qkvo=False, fused_mlp=False,
+                 use_pallas=False)
+    counts, dist = {}, {}
+    for tier, base in serve.items():
+        for cap in (None, 0.625):
+            cfg = base.replace(compact_capacity=cap)
+            label = f"{tier} " + (f"C {cap}" if cap else "dense")
+            ck.reset_launch_counts()
+            metrics, _ = make_eval_step(cfg)(params, images, labels, weight)
+            counts[label] = ck.launch_counts()
+            expect = _resvit_launches(cfg, False)
+            log = _RouterLog(resvit)
+            with torch.inference_mode():
+                with log.record():
+                    lk, aux_k = resvit.apply(params, images, cfg)
+                if tier == "bf16":
+                    other, ref, twins = "plain", cfg.replace(**plain), None
+                else:
+                    other, ref, twins = "twin", cfg, _int8_twins(ck)
+                with twins or contextlib.nullcontext(), _k10_twin(ck):
+                    _, aux_r = resvit.apply(params, images, ref)
+                    with log.replay():
+                        lr, _ = resvit.apply(params, images, ref)
+            agree = [(aux_k["routing_maps"][k] == aux_r["routing_maps"][k])
+                     .float().mean().item() for k in aux_k["routing_maps"]]
+            d_log = (lk - lr).abs().max().item()
+            band = LOGIT_BAND * max(1.0, lr.abs().max().item())
+            dist[label] = (d_log, min(agree))
+            print(f"k10: make_eval_step {label} b64: loss "
+                  f"{float(metrics['loss']):.4f} active "
+                  f"{float(metrics['non_low_rank_ratio']):.4f}; launches "
+                  f"{_nonzero(counts[label])} (as derived: "
+                  f"{counts[label] == expect}); logits max|k10 - {other}| "
+                  f"(routing replayed) {d_log:.3e} <= {band:.3e}; routing "
+                  f"maps agree {min(agree):.5f} >= {ROUTING_AGREE}",
+                  flush=True)
+            if (counts[label] != expect or not torch.isfinite(lk).all()
+                    or d_log > band or min(agree) < ROUTING_AGREE):
+                raise AssertionError(f"k10 serving {label} failed")
+
+    # training: ft_resvit.sh's flags at b32, two steps
+    cfg = config_to_model_args(get_train_config(
+        RESVIT_TRAIN_ARGS + ["--exp-root", exp_root]),
+        "cuda").replace(fused_qkvo=False)
+    with _random_router_biases():
+        tparams = resvit.init_params(set_seed(0), cfg, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    images = torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g,
+                         device="cuda", dtype=torch.bfloat16)
+    labels = torch.randint(0, 10, (TRAIN_BATCH,), generator=g, device="cuda")
+    lam = Lambdas(*RESVIT_LAMBDAS)
+    tx = make_adamw_for(cfg, tparams, lambda s: 1e-4)
+    state = create_state(tparams, tx, torch.Generator(device="cuda")
+                         .manual_seed(3))
+    step = make_train_step(cfg, tx, lam)
+    expect = _resvit_launches(cfg, True)
+    for i in range(2):
+        ck.reset_launch_counts()
+        state, m = step(state, images, labels)
+        got = ck.launch_counts()
+        counts[f"train step {i}"] = got
+        print(f"k10: train step {i} b{TRAIN_BATCH} (a): loss "
+              f"{float(m['loss']):.4f}; launches {_nonzero(got)} (as "
+              f"derived: {got == expect})", flush=True)
+        if got != expect or not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"k10 train step {i}: expected {expect}")
+    del tx, state
+    noise = _train_noise(cfg, TRAIN_BATCH, seed=16)
+    replay = _RoutingReplay(resvit)
+    lk, g_k = _resvit_grads(tparams, images, labels, cfg, noise,
+                            replay.record())
+    lp, g_p = _resvit_grads(tparams, images, labels, cfg.replace(**plain),
+                            noise, replay.replay())
+    names = [n for (n, _), m in zip(named_leaves(tparams), tree_leaves(
+        resvit.trainable_mask(tparams, cfg))) if m]
+    rels = sorted(((_rel(a, b), n) for a, b, n in zip(g_k, g_p, names)
+                   if b.norm() > 0), reverse=True)
+    d_log = (lk - lp).abs().max().item()
+    finite = all(bool(torch.isfinite(t).all()) for t in g_k)
+    dist["grads"] = (rels[0][0], rels[0][1], d_log)
+    print(f"k10: grads b{TRAIN_BATCH} of {len(names)} trainable tensors, "
+          f"worst |g_k10 - g_plain| / |g_plain|: " + ", ".join(
+              f"{r:.3e} ({n})" for r, n in rels[:3])
+          + f" <= {GRAD_BAND}; logits max|k10 - plain| {d_log:.3e}",
+          flush=True)
+    if not finite or rels[0][0] > GRAD_BAND or len(g_k) != len(names):
+        raise AssertionError("k10 grads outside the band")
+    del g_k, g_p
+    torch.cuda.empty_cache()
+
+    # resident b64 forwards and b32 steps, K10's path and K1's, in turns
+    times = {"forward b64 k10": [], "forward b64 k1": [],
+             "step b32 k10": [], "step b32 k1": []}
+    fwd_images = torch.randn((64, 224, 224, 3), generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+    for turn in range(2):
+        for path in (("k10", "k1") if turn == 0 else ("k1", "k10")):
+            c = cfg.replace(fused_qkvo=path == "k1")
+            with torch.inference_mode():
+                times[f"forward b64 {path}"].append(_median_ms(
+                    lambda: resvit.apply(params, fwd_images, c), warmup=2,
+                    iters=5))
+            tx = make_adamw_for(c, tparams, lambda s: 1e-4)
+            state = create_state(tparams, tx, torch.Generator(device="cuda")
+                                 .manual_seed(3))
+            step = make_train_step(c, tx, lam)
+            times[f"step b32 {path}"].append(_median_ms(
+                lambda: step(state, images, labels), warmup=2, iters=5))
+            del tx, state
+    print("k10: resident b64 forwards (dense) and b32 steps (a), medians of "
+          "5, two turns, the second in reverse order: " + "; ".join(
+              f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+              for k, ms in times.items()), flush=True)
+    del params, tparams
+    torch.cuda.empty_cache()
+    return counts, times, dist
+
+
 # ---------------------------------------------------------------- bounds
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
@@ -4334,6 +4613,7 @@ def _work(name, batch, rows, extra=None, dims=None):
     core, mlp = 4 * batch * HEADS * rows * rows * HEAD_DIM, 4 * n * D * MLP
     vec_attn, vec_mlp = 4 * (4 * D + 3 * hhd), 4 * (4 * D + MLP)
     dw_attn, dw_mlp = 4 * 4 * D * hhd, 4 * 2 * D * MLP  # fp32 grads out
+    w_qkv = 2 * D * 3 * hhd
     packed = n * D + 4 * n  # int8 codes and an fp32 scale a row
     table = {
         "layer_norm": (2 * act + 8 * D, {"f32": 8 * n * D}),
@@ -4379,6 +4659,15 @@ def _work(name, batch, rows, extra=None, dims=None):
         "fused_ln_mlp_int8_save_dw_bwd": (
             3 * act + w_mlp + dw_mlp + 2 * vec_mlp + 2 * n * MLP + 4 * n,
             {"s8": 2 * mlp}),
+        # K10: x̂ (and do on the heads' outputs) in, the heads' outputs (dx
+        # and fp32 dW, db) out; vitax's CostEstimate (:2322, :2359):
+        # 2·N·D·3HHd + 4·B·H·spq²·Hd forward, 6·N·D·3HHd + 10·B·H·spq²·Hd
+        # backward
+        "fused_qkv_attention": (act + 2 * n * hhd + w_qkv + 4 * 3 * hhd,
+                                {"bf16": qkv + core}),
+        "fused_qkv_attention_bwd": (
+            2 * act + 2 * n * hhd + w_qkv + 2 * 4 * 3 * hhd
+            + 4 * D * 3 * hhd, {"bf16": 3 * qkv + 2.5 * core}),
     }
     return table[name]
 
@@ -4617,6 +4906,24 @@ def main() -> int:
                           max(r[2] for r in dist14["12 layers, fed"]))
           + f"; phase 14 took {time.time() - t14:.1f} s [{card}]", flush=True)
 
+    print("phase 15, K10 (fused_qkv_attention) vs plain:", flush=True)
+    t15 = time.time()
+    check_k10_kernels(stats)
+    try:
+        counts15, times15, dist15 = run_k10_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("k10: kernel / twin ms " + ", ".join(
+        f"{n} {stats[n]['ms']:.4f} / {stats[n]['plain_ms']:.4f}"
+        for n in K10_KERNELS) + "; serving (logits max|Δ|, routing "
+        "agreement): " + ", ".join(
+            f"{k} {v[0]:.3e} {v[1]:.5f}" for k, v in dist15.items()
+            if k != "grads")
+        + "; worst grad {:.3e} ({}); ".format(*dist15["grads"][:2])
+        + "; ".join(f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+                    for k, ms in times15.items())
+        + f"; phase 15 took {time.time() - t15:.1f} s [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
     # the fast recipe's (each runs every kernel of its tier), K7's and K8's
@@ -4673,7 +4980,14 @@ def main() -> int:
         "fused_ln_qkvo_attention_int4_gqa_dw_bwd": RESVIT_INT4_RUNS[7][0],
         "fused_ln_qkvo_attention_int4_gqa_bwd": RESVIT_INT4_RUNS[6][0]}
 
+    # phase 15: K10's forward from the bf16 dense serving forward, its
+    # backward from the first train step
+    k10_runs = {"fused_qkv_attention": "bf16 dense",
+                "fused_qkv_attention_bwd": "train step 0"}
+
     def launches(name):
+        if name in k10_runs:
+            return counts15[k10_runs[name]][name]
         if name in resvit_int4_runs:
             return counts14[resvit_int4_runs[name]][name]
         if name in int4_runs:

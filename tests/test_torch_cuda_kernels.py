@@ -1292,3 +1292,66 @@ def test_resvit_int4_autograd_picks_the_backward_of_its_tier(dev, half,
                                                                   bwd: 1}
     for t in leaves + [bo]:
         assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+
+
+# ---------------------------------------------------------------- K10
+# (batch, spq, seq_len, D, heads, head_dim): Res-ViT serving's b64 spq 200
+# and training's b32, a ragged seq in a small spq, and the head_dim 32 / 128
+# instantiations of the core
+K10_SHAPES = [(64, 200, 197, 768, 12, 64), (32, 200, 197, 768, 12, 64),
+              (2, 24, 17, 128, 4, 32), (3, 200, 197, 768, 6, 128)]
+
+
+def _k10_args(dev, batch, spq, seq, d, h, hd, seed=0):
+    """x̂ (the LN output: zero pad rows past seq), wqkv, bqkv, do (zero on
+    the pad rows, as the model's row cut leaves it), seq_len, heads,
+    head_dim."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((batch, spq, d), generator=g, device=dev)
+    x[:, seq:] = 0
+    wqkv = torch.randn((d, 3 * h * hd), generator=g, device=dev) * d ** -0.5
+    bqkv = 0.1 * torch.randn(3 * h * hd, generator=g, device=dev)
+    do = torch.randn((batch, spq, h * hd), generator=g, device=dev)
+    do[:, seq:] = 0
+    bf = torch.bfloat16
+    return x.to(bf), wqkv.to(bf), bqkv, do.to(bf), seq, h, hd
+
+
+@pytest.mark.parametrize("shape", K10_SHAPES)
+def test_k10_kernels_match_twins(dev, shape):
+    """K10's forward and every output of its backward against the twins;
+    two backward launches give the same bits (no atomics)."""
+    x, w, b, do, *meta = _k10_args(dev, *shape)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        out = ck.fused_qkv_attention(x, w, b, *meta)
+        grads = ck.fused_qkv_attention_bwd(x, w, b, do, *meta)
+        again = ck.fused_qkv_attention_bwd(x, w, b, do, *meta)
+        torch.cuda.synchronize()
+        _assert_close(out, ck.fused_qkv_attention_ref(x, w, b, *meta))
+        refs = ck.fused_qkv_attention_bwd_ref(x, w, b, do, *meta)
+    assert len(grads) == len(refs) == 3
+    for g, r, g2 in zip(grads, refs, again):
+        _assert_close(g, r)
+        assert torch.equal(g, g2)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_qkv_attention": 1, "fused_qkv_attention_bwd": 2}
+
+
+def test_k10_autograd_launches_both_kernels_and_fp32_raises(dev):
+    """Under autograd K10 runs its forward and backward kernels, dW comes
+    back in W's dtype and db in fp32; an fp32 input raises Queue 1 item 9's
+    message; shapes outside the gate raise."""
+    x, w, b, do, *meta = _k10_args(dev, 2, 200, 197, 768, 12, 64)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    ck.reset_launch_counts()
+    ck.fused_qkv_attention(*leaves, *meta).backward(do)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_qkv_attention": 1, "fused_qkv_attention_bwd": 1}
+    for t in leaves:
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        ck.fused_qkv_attention(x.float(), w.float(), b, *meta)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        ck.fused_qkv_attention(x[:, :196].contiguous(), w, b, *meta)

@@ -1,7 +1,7 @@
 """Which fused attention half vitax_torch picks, against vitax's gates, at
 every preset of ARCH_PRESETS and 224 and 384 px, in eval and in training,
-for the ViT (K1 / K6 / plain), Res-ViT's square half (K1 / K9-K10 / plain)
-and its rect half (K8 / the square half and a gather). Shapes only: meta
+for the ViT (K1 / K6 / plain), Res-ViT's square half (K1, or K10 without
+fused_qkvo / plain) and its rect half (K8 / the square half and a gather). Shapes only: meta
 tensors on the port's side, ShapeDtypeStructs on vitax's.
 
 vitax's choices come from its own gate functions
@@ -56,27 +56,51 @@ def test_vit_attention_half_is_vitaxs(arch, image, mode):
         assert tvit._attention_kernel(tx, tw, h) == _vitax_vit(jx, jw)
 
 
+def _vitax_square(jx, jw, h, hkv, qkvo):
+    """vitax's square route (vitax/models/resvit.py:220-279, 322-353, no
+    mesh): K1 under fused_qkvo where its gate with heads passes, else its
+    `attention`'s fused branch without GQA where the gate without heads
+    passes, K9 with fused_qkvo and K10 without, else plain."""
+    if qkvo and pk.qkv_attention_supported(jx, jw, h, hkv):
+        return "k1"
+    if hkv == h and pk.qkv_attention_supported(jx, jw):
+        return "k9" if qkvo else "k10"
+    return "plain"
+
+
+def _port_square(tx, tw, cfg):
+    """The port's square route as `_attention_half` and `attention` take
+    it; "raise" where `attention` raises rather than follow vitax."""
+    if cfg.fused_qkvo and tr.square_half_supported(tx, tw, cfg):
+        return "k1"
+    if tr.attention_is_fused(tx, cfg):
+        return ("k10" if not cfg.fused_qkvo and tr.k10_supported(tx, tw, cfg)
+                else "raise")
+    return "plain"
+
+
 @pytest.mark.parametrize("kv", ["mha", "gqa"])
 @pytest.mark.parametrize("arch,image,mode", CASES)
 def test_resvit_halves_are_vitaxs(arch, image, mode, kv):
     """The square half at n_kv_heads = n_heads and 4 (the packed width), and
-    the rect half on ceil(0.625·N) rows, which declines under GQA; where the
-    square half declines, the unfused path raises exactly where vitax would
-    run K9/K10 (never, on these presets: its gate is the square one's)."""
+    the rect half on ceil(0.625·N) rows, which declines under GQA; with
+    fused_qkvo vitax never reaches K9 on one device (its gate is the square
+    one's), and without it runs K10 in `attention` wherever its gate passes
+    without GQA: the port's route is vitax's, and nowhere does the port
+    raise where vitax's gate passes and the port's does not."""
     s, d, h = _seq(arch, image)
     hkv = h if kv == "mha" else KV_HEADS
     hd = d // h
+    (jx, jw), (tx, tw) = _shapes(2, s, d, (h + 2 * hkv) * hd)
+    for qkvo in (True, False):
+        cfg = t_config.resvit_arch_config(arch, image, n_kv_heads=hkv,
+                                          fused_qkv=True, fused_qkvo=qkvo)
+        with torch.set_grad_enabled(mode == "train"):
+            vitax_square = _vitax_square(jx, jw, h, hkv, qkvo)
+            assert _port_square(tx, tw, cfg) == vitax_square != "k9"
     cfg = t_config.resvit_arch_config(arch, image, n_kv_heads=hkv,
                                       fused_qkv=True, fused_qkvo=True)
-    (jx, jw), (tx, tw) = _shapes(2, s, d, (h + 2 * hkv) * hd)
     with torch.set_grad_enabled(mode == "train"):
-        vitax_square = ("k1" if pk.qkv_attention_supported(jx, jw, h, hkv)
-                        else "k9/k10" if hkv == h
-                        and pk.qkv_attention_supported(jx, jw) else "plain")
-        port_square = ("k1" if tr.square_half_supported(tx, tw, cfg)
-                       else "k9/k10" if tr.reaches_k9_k10(tx, cfg)
-                       else "plain")
-        assert port_square == vitax_square != "k9/k10"
         cap = int(np.ceil(CAPACITY * s))
         spq, cpq = (s + 7) // 8 * 8, (cap + 7) // 8 * 8
         xp = torch.empty((2, spq, d), dtype=torch.bfloat16, device="meta")

@@ -184,6 +184,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                         kv_heads=1)
     ck.fused_ln_qkvo_attention_int4_dw_bwd(*gqa, t["x"], EPS, SEQ, 2, HD,
                                            kv_heads=1)
+    ck.fused_qkv_attention(t["x"], t["wqkv"], t["bqkv"], SEQ, H, HD)
+    ck.fused_qkv_attention_bwd(t["x"], t["wqkv"], t["bqkv"],
+                               t["x"][..., :H * HD], SEQ, H, HD)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -229,7 +232,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   0, "fused_ln_qkvo_attention_int4_gqa": 0,
                                   "fused_ln_qkvo_attention_int4_gqa_bwd": 0,
                                   "fused_ln_qkvo_attention_int4_gqa_dw_bwd":
-                                  0}
+                                  0, "fused_qkv_attention": 0,
+                                  "fused_qkv_attention_bwd": 0}
 
 
 def test_hopper_gates():

@@ -289,8 +289,16 @@ def test_apply_rejects_what_is_not_ported():
     # training draws its randomness from a generator or takes it injected
     with pytest.raises(ValueError, match="generator or the noise"):
         tr.apply(w, x, tc, train=True)
-    with pytest.raises(NotImplementedError, match="K9, K10"):
-        tr.apply(w, x, tc.replace(fused_qkv=True, fused_qkvo=False))
+    # fused_qkv without fused_qkvo runs K10 (its twin here) in every layer,
+    # as vitax's `attention` (tests/test_torch_resvit_k10.py holds the rest)
+    k10 = dict(fused_qkv=True, fused_qkvo=False)
+    ref, jaux, out, taux = _run_both(
+        dataclasses.replace(jc, **k10), tc.replace(**k10), _weights(jc),
+        _images(1), j_apply=lambda p, x, c: jax.jit(
+            lambda p_, x_: jr.apply(p_, x_, c, train=False))(p, x))
+    np.testing.assert_allclose(out, ref, rtol=TOL["float32"],
+                               atol=TOL["float32"])
+    _assert_routing_equal(jaux, taux)
     # vitax's stacked layout runs the loop (its scan has the loop's math),
     # but not with compaction, as vitax's apply
     stacked = tr.stack_params(w, tc)

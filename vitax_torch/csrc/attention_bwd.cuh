@@ -21,7 +21,9 @@ namespace vitax {
 // head h at column h·HD of row b·q_rows + r of dq (row stride dq_ld); dK and
 // dV of kv group g at columns dk_off + g·HD and dv_off + g·HD of row
 // b·kv_rows + r of dkv (row stride dkv_ld), dV in its own tensor dv where
-// that is set (K13); P and DS [b, heads, Lq, Lk].
+// that is set (K13); P and DS [b, heads, Lq, Lk]. Where o32 is set (K10,
+// whose VJP takes dd from the fp32 P·V before its cast, pallas_kernels.py:
+// 2263-2268) dd reads the fp32 head outputs o32 [b·q_rows, H·HD] instead of o.
 struct AttnBwdGeom {
   AttnGeom f;
   const bf16* o;
@@ -34,6 +36,7 @@ struct AttnBwdGeom {
   bf16* P;
   bf16* DS;
   bf16* dv = nullptr;
+  const float* o32 = nullptr;
 };
 
 __host__ __device__ inline size_t attn_bwd_warp_bytes(int kv_rows, int hd) {
@@ -90,14 +93,15 @@ __global__ void attention_bwd_q_kernel(AttnBwdGeom g) {
 
   // P: exact fp32 softmax rows, as the forward; dd = rowsum(fp32(dO) fp32(O))
   attn_scores<HD>(Qs, Ks, L, S, sw);
-  const bf16* o_rows = g.o + qrow0 * hhd + h * HD;
+  const size_t o_off = qrow0 * hhd + h * HD;
   for (int r = 0; r < 16; ++r) {
     attn_softmax_row(S + r * sw, L, f.seq_len, f.scale);
     float acc = 0.f;
     if (q0 + r < f.q_rows) {
+      const size_t row = o_off + static_cast<size_t>(q0 + r) * hhd;
       for (int c = lane; c < HD; c += 32)
         acc += __bfloat162float(dOs[r * HD + c]) *
-               __bfloat162float(o_rows[static_cast<size_t>(q0 + r) * hhd + c]);
+               (g.o32 ? g.o32[row + c] : __bfloat162float(g.o[row + c]));
     }
     acc = warp_sum(acc);
     if (lane == 0) dd[r] = acc;

@@ -61,6 +61,8 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_int4_bwd": [_P] * 43 + [_I] * 9 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int4_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int4_bwd": [_P] * 63 + [_I] * 10 + [_F, _F, _P],
+    "vitax_qkv_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "vitax_qkv_attention_bwd": [_P] * 13 + [_I] * 6 + [_F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {
@@ -68,6 +70,7 @@ WORKSPACE_SIGNATURES = {
     "vitax_ln_mlp_bwd_ws": [_I, _I, _I],
     "vitax_ln_qkvo_attention_bwd_ws": [_I] * 4,
     "vitax_ln_qkvo_attention_rect_bwd_ws": [_I] * 4,
+    "vitax_qkv_attention_bwd_ws": [_I] * 3,
 }
 
 _lib = None

@@ -18,7 +18,11 @@ the gathered rows.
 On CUDA with `fused_qkv` and `fused_qkvo` the attention half is one kernel
 where vitax's gate and the port's pass (ops/gates.py): K1 (K7 with
 n_kv_heads < n_heads, K3 with `int8_attn`, K11-C with `int4_attn`, G-F with
-both), K8 for the compacted rows (R-F with `int4_attn`); `fused_mlp` takes
+both), K8 for the compacted rows (R-F with `int4_attn`). With `fused_qkv`
+alone (a config built in code: the CLIs tie the two) the LN kernel and K10
+(the QKV projection and the core) run every attention half without GQA,
+compacted blocks and the teacher's included, and the out-projection is a
+plain product, as vitax's `attention`; `fused_mlp` takes
 the MLP half to K2 (K4 with `int8_mlp`, K11-A with `int4_mlp`); LayerNorms
 elsewhere (router, final norm, the plain MLP half) take the LN kernel. Under
 autograd each has its backward kernel. With them off it is plain PyTorch
@@ -319,16 +323,24 @@ def _kv_heads(cfg: ResViTConfig) -> int:
 
 def attention(x: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
     """Self-attention of the LN'd input, fp32 softmax (res-vit/model.py:
-    237-299): the unfused path, whose core is K13 with the kernels on.
-    vitax's fused dispatch here (its K9/K10 kernels, for fused_qkv where its
-    gate passes, vitax/models/resvit.py:266) is not ported and raises."""
+    237-299), dispatched as vitax's `attention` on one device
+    (vitax/models/resvit.py:220-291): where vitax's fused branch runs
+    (`attention_is_fused`), K10 (`_k10_attention`), else the unfused path,
+    whose core is K13 with the kernels on. int8_attn and int4_attn do not
+    reach this half, as in vitax: K10 runs in the model's dtype whatever the
+    MLP half's tier."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, _kv_heads(cfg), cfg.head_dim
-    if reaches_k9_k10(x, cfg):
-        raise NotImplementedError(
-            "fused_qkv without the LN/out-projection fusion reaches "
-            "vitax's fused_qkvo_attention / fused_qkv_attention (K9, K10), "
-            "which have no Hopper kernels yet (ROADMAP Queue 2)")
+    if attention_is_fused(x, cfg):
+        if cfg.fused_qkvo:
+            # vitax's _fused_attention_half ran K1 under this same gate before
+            # `attention` was reached, so on one device vitax never starts
+            # K9 or K10 here; the port gets here only where its own K1 gate
+            # refused what vitax's took (no preset today)
+            raise NotImplementedError(
+                "vitax's gate takes this fused attention half (K1) and the "
+                "port's K1 gate does not (Hopper shared memory, head dims)")
+        return _k10_attention(x, p, cfg)
     q = _linear(x, p["wq"])
     k = _linear(x, p["wk"])
     v = _linear(x, p["wv"])
@@ -343,14 +355,44 @@ def attention(x: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
     return _linear(out.reshape(b, s, h * hd), p["wo"])
 
 
-def reaches_k9_k10(x: torch.Tensor, cfg: ResViTConfig) -> bool:
-    """Whether vitax's `attention` runs its fused K9/K10 kernels here:
+def attention_is_fused(x: torch.Tensor, cfg: ResViTConfig) -> bool:
+    """Whether vitax's `attention` takes its fused branch for the LN'd x:
     fused_qkv without GQA where its gate passes (vitax/models/resvit.py:
-    266)."""
+    227, 266); there it runs K10 without fused_qkvo (:278) and K9 with it
+    (:270-277, reached on one device only where the square half declined
+    under the same gate, i.e. never)."""
     wqkv = torch.empty((x.shape[-1], 3 * cfg.n_heads * cfg.head_dim),
                        device="meta")
     return (cfg.fused_qkv and _kv_heads(cfg) == cfg.n_heads
             and gates.qkv_attention_supported(x, wqkv))
+
+
+def k10_supported(x: torch.Tensor, wqkv: torch.Tensor,
+                  cfg: ResViTConfig) -> bool:
+    """The port's K10 gate for the LN'd x: its backward's under autograd
+    (the ViT's halves are picked the same way)."""
+    gate = (ck.fused_qkv_attention_bwd_supported if torch.is_grad_enabled()
+            else ck.fused_qkv_attention_supported)
+    return gate(x, wqkv, cfg.n_heads)
+
+
+def _k10_attention(x: torch.Tensor, p: Params, cfg: ResViTConfig
+                   ) -> torch.Tensor:
+    """vitax's fused branch without fused_qkvo (vitax/models/resvit.py:
+    227-268, 278-279): the merged qkv weight with LoRA folded (autograd
+    carries dA and dB through the fold), K10 on the rows padded to spq, the
+    real rows, then the plain out-projection. Raises where the port's K10
+    gate refuses what vitax's takes, rather than run the unfused path."""
+    s = x.shape[1]
+    wqkv, bqkv = _merged_qkv(p, cfg, x.dtype)
+    if not k10_supported(x, wqkv, cfg):
+        raise NotImplementedError(
+            "vitax's gate takes this attention half to its fused_qkv_attention "
+            "(K10) and the port's K10 gate does not (Hopper shared memory, "
+            "head dims)")
+    out = ck.fused_qkv_attention(_pad_rows(x), wqkv, bqkv, s, cfg.n_heads,
+                                 cfg.head_dim)[:, :s]
+    return _linear(out, p["wo"])
 
 
 def square_half_supported(x: torch.Tensor, wqkv: torch.Tensor,
@@ -375,11 +417,11 @@ def feed_forward(x: torch.Tensor, p: Params) -> torch.Tensor:
     return _linear(gelu_exact(_linear(x, p["fc1"])), p["fc2"])
 
 
-def _qkvo_weights(p: Params, cfg: ResViTConfig, dt):
-    """The merged [D, (H + 2·Hkv)·Hd] qkv weight with LoRA folded exactly
-    (W_eff = W + A·B, A·B in fp32, added in the base weight's dtype), its
-    fp32 bias, and the out-projection (vitax's _qkvo_weights)."""
-    ap = p["attention"]
+def _merged_qkv(ap: Params, cfg: ResViTConfig, dt):
+    """The merged [D, (H + 2·Hkv)·Hd] qkv weight of the attention params ap
+    with LoRA folded exactly (W_eff = W + A·B, A·B in fp32, added in the base
+    weight's dtype), and its fp32 bias (vitax's `merged`,
+    vitax/models/resvit.py:239-247, 307-317)."""
     ws = [ap[n]["kernel"] for n in ("wq", "wk", "wv")]
     if cfg.use_lora and "lora_q" in ap:
         ws = [w + matmul_f32(ap[n]["a"]["kernel"], ap[n]["b"]["kernel"])
@@ -387,6 +429,14 @@ def _qkvo_weights(p: Params, cfg: ResViTConfig, dt):
               for w, n in zip(ws, ("lora_q", "lora_k", "lora_v"))]
     wqkv = torch.cat(ws, dim=1).to(dt)
     bqkv = torch.cat([ap[n]["bias"] for n in ("wq", "wk", "wv")]).float()
+    return wqkv, bqkv
+
+
+def _qkvo_weights(p: Params, cfg: ResViTConfig, dt):
+    """The merged qkv weight and bias of layer p (`_merged_qkv`) and the
+    out-projection (vitax's _qkvo_weights)."""
+    ap = p["attention"]
+    wqkv, bqkv = _merged_qkv(ap, cfg, dt)
     return (wqkv, bqkv, ap["wo"]["kernel"].to(dt).contiguous(),
             ap["wo"]["bias"].float())
 

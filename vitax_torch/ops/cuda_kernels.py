@@ -90,6 +90,11 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   packs) -> the `int4_grad` branch of `_ln_qkvo_rect_bwd_int8_kernel` :4253
   with its `int8_dw` branches :4310-4315, :4352-4362 (R-B, R-B dw,
   pallas_call :4534)
+- `fused_qkv_attention` -> qkv_attention.cu -> `_qkv_attn_fwd_kernel` :2216
+  (K10, pallas_call :2307: the QKV projection and the core, no LN and no
+  out-projection; Res-ViT's `attention` with fused_qkv and not fused_qkvo)
+- `fused_qkv_attention_bwd` -> qkv_attention_bwd.cu -> `_qkv_attn_bwd_kernel`
+  :2239 (K10 backward, pallas_call :2334)
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -102,6 +107,7 @@ whose backward is the matching `*_bwd` wrapper: the int8 one under
 GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
 backward is the two int8 backwards; K8's is `FusedLnQkvoAttentionRectFn`,
 whose backward is one of K8's three or R-B's two; K6's is `FusedLnQkvoAttentionFlashFn`;
+K10's `FusedQkvAttentionFn`;
 K13's `FlashAttentionFn`; K12's `FusedLnMlpSaveFn`, which `fused_ln_mlp`
 and `fused_ln_mlp_int8` take under `save_acts` (vitax's dispatch: bf16, or
 int8 with `int8_grad`). As vitax's custom VJPs, each Function saves only
@@ -590,6 +596,14 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     Hkv = kv_heads (default heads). Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0, where
     query heads would not split evenly into kv groups."""
+    if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
+        return False
+    return _core_fits(x, wqkv, heads, kv_heads)
+
+
+def _core_fits(x, wqkv, heads, kv_heads=None) -> bool:
+    """The shapes the whole-row core and the projections' GEMMs take (head
+    dim, widths a multiple of 32, the core's shared memory), any dtype."""
     if x.ndim != 3 or wqkv.ndim != 2:
         return False
     b, s, d = x.shape
@@ -600,8 +614,6 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
         return False
     hd = wqkv.shape[1] // (heads + 2 * kv_heads)
     hhd = heads * hd
-    if x.is_cuda and x.dtype != torch.bfloat16:
-        return False
     spq = (s + 7) // 8 * 8
     return (hd in ATTN_HEAD_DIMS and d % 32 == 0 and hhd % 32 == 0
             and attention_smem_bytes(spq, hd) <= SMEM_LIMIT)
@@ -3808,6 +3820,178 @@ class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
                 None, None, None)
 
 
+# =============================================================================
+# K10 — fused QKV projection + attention core, no LN and no out-projection
+# (fused_qkv_attention :2369, pallas_calls :2307 and :2334): what vitax's
+# Res-ViT `attention` runs for fused_qkv without fused_qkvo
+# (vitax/models/resvit.py:278)
+# =============================================================================
+
+def fused_qkv_attention_supported(x, wqkv, heads) -> bool:
+    """K10's gate: x̂ [B, S, D] (S padded to spq by the caller), wqkv [D,
+    3·H·Hd]: K1's shape and shared-memory gate without its dtype test, so
+    that a CUDA fp32 input reaches the wrapper, which raises
+    (`check_k10_dtype`)."""
+    return _core_fits(x, wqkv, heads)
+
+
+def fused_qkv_attention_bwd_supported(x, wqkv, heads) -> bool:
+    """K10's gate in training: the forward's and the core backward's shared
+    memory."""
+    if not fused_qkv_attention_supported(x, wqkv, heads):
+        return False
+    spq = (x.shape[1] + 7) // 8 * 8
+    return attention_bwd_smem_bytes(spq, wqkv.shape[1] // (3 * heads)) \
+        <= SMEM_LIMIT
+
+
+def check_k10_dtype(name: str, dtype: torch.dtype) -> None:
+    """K10's kernels are bf16 only. vitax's K10 takes any dtype, so an fp32
+    Res-ViT on the card reaches it in fp32, which is a later slice of the
+    port; raise rather than run another function."""
+    if dtype != _BF:
+        raise NotImplementedError(
+            f"{name}: {dtype} on the card: K10's kernels take bf16 only; "
+            'fp32 tiers of the fused kernels are ROADMAP Queue 1 item 9, '
+            '"fp32 models on the card". Run the model in bf16, or with '
+            "fused_qkv=False")
+
+
+def fused_qkv_attention_ref(x, wqkv, bqkv, seq_len, heads, head_dim):
+    """K10's twin, at the TPU kernel's rounding points (_qkv_attn_fwd_kernel,
+    pallas_kernels.py:2216-2237): qkv = (x̂ W + b) in x's dtype, per head the
+    fp32 softmax p of q·kᵀ/√Hd (key cols ≥ seq_len masked) and o = (p in x's
+    dtype)·v cast to x's dtype, heads side by side. x [B, spq, D] →
+    [B, spq, H·Hd]."""
+    b, spq, _ = x.shape
+    *_, o = _qkvo_core(x, wqkv, bqkv, seq_len, heads, head_dim)
+    return _heads_to_rows(o).view(b, spq, heads * head_dim)
+
+
+def fused_qkv_attention(x, wqkv, bqkv, seq_len, heads, head_dim):
+    """K10 forward (csrc/qkv_attention.cu): x̂ [B, spq, D] (the LN output,
+    pad rows past seq_len allowed) bf16, wqkv [D, 3·H·Hd] bf16 with columns
+    [q heads | k heads | v heads], bqkv [3·H·Hd] fp32 → the heads' attention
+    outputs side by side, [B, spq, H·Hd], before the out-projection. CPU
+    tensors take the twin; CUDA bf16 tensors inside the gate the kernel; a
+    CUDA fp32 input raises (`check_k10_dtype`). Under autograd the backward
+    is `fused_qkv_attention_bwd` (`FusedQkvAttentionFn`)."""
+    if _needs_grad(x, wqkv, bqkv):
+        return FusedQkvAttentionFn.apply(x, wqkv, bqkv, seq_len, heads,
+                                         head_dim)
+    if not x.is_cuda:
+        return fused_qkv_attention_ref(x, wqkv, bqkv, seq_len, heads,
+                                       head_dim)
+    name = "fused_qkv_attention"
+    dev = _check_k10(name, {"x": x, "wqkv": wqkv, "bqkv": bqkv}, seq_len,
+                     heads, head_dim, fused_qkv_attention_supported)
+    b, spq, d = x.shape
+    qkv = _bf(dev, b * spq, 3 * heads * head_dim)
+    out = _bf(dev, b, spq, heads * head_dim)
+    rc = build.load().vitax_qkv_attention_fwd(
+        x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), qkv.data_ptr(),
+        out.data_ptr(), b, spq, d, seq_len, heads, head_dim,
+        1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    fused_qkv_attention.launches += 1
+    return out
+
+
+fused_qkv_attention.launches = 0
+
+
+def _check_k10(name, tensors, seq_len, heads, head_dim, gate):
+    """K10's launch checks: bf16 only (Queue 1 item 9's raise), then device,
+    dtypes, contiguity and shapes; returns the device."""
+    for key in ("x", "wqkv"):
+        if tensors[key].is_cuda:
+            check_k10_dtype(name, tensors[key].dtype)
+    dev = _check_cuda(name, tensors, {"x": _BF, "wqkv": _BF, "bqkv": _F32,
+                                      "do": _BF})
+    x, wqkv = tensors["x"], tensors["wqkv"]
+    b, spq, d = x.shape
+    width = 3 * heads * head_dim
+    if (spq % 8 or not 0 < seq_len <= spq or tuple(wqkv.shape) != (d, width)
+            or not gate(x, wqkv, heads)):
+        raise ValueError(
+            f"{name}: unsupported shapes x {tuple(x.shape)} wqkv "
+            f"{tuple(wqkv.shape)} seq_len {seq_len} heads {heads} head_dim "
+            f"{head_dim}")
+    _check_shape(name, "bqkv", tensors["bqkv"], (width,))
+    if "do" in tensors:
+        _check_shape(name, "do", tensors["do"], (b, spq, heads * head_dim))
+    return dev
+
+
+def fused_qkv_attention_bwd_ref(x, wqkv, bqkv, do, seq_len, heads,
+                                head_dim):
+    """(dx, dWqkv, dbqkv) of K10 at the TPU kernel's rounding points
+    (_qkv_attn_bwd_kernel, pallas_kernels.py:2239-2303): qkv and p
+    recomputed as the forward's, dd = Σ fp32(dO)·o32 with o32 the fp32 p·v
+    before its cast (K1's backward takes the cast one), ds, dq, dk, dv in
+    x's dtype, dx = dqkv Wᵀ in x's dtype, dW = x̂ᵀ dqkv and db = Σ
+    fp32(dqkv) in fp32. do [B, spq, H·Hd]."""
+    dt = x.dtype
+    b, spq, d = x.shape
+    qkv = (matmul_f32(x, wqkv) + bqkv.float()).to(dt)
+    q, k, v, p, o32 = _attn_core(qkv, seq_len, heads, head_dim)
+    dqkv = _attn_core_grads(q, k, v, p, o32, do.reshape(b * spq, -1),
+                            1.0 / math.sqrt(head_dim))
+    dx = matmul_f32(dqkv, wqkv.t()).to(dt).view(b, spq, d)
+    return dx, matmul_f32(x.reshape(-1, d).t(), dqkv), dqkv.float().sum(0)
+
+
+def fused_qkv_attention_bwd(x, wqkv, bqkv, do, seq_len, heads, head_dim):
+    """K10 backward (csrc/qkv_attention_bwd.cu): from the saved (x̂, W, b)
+    and dO [B, spq, H·Hd] bf16, dx [B, spq, D] bf16 and fp32 dWqkv [D,
+    3·H·Hd] and dbqkv [3·H·Hd]."""
+    if not x.is_cuda:
+        return fused_qkv_attention_bwd_ref(x, wqkv, bqkv, do, seq_len, heads,
+                                           head_dim)
+    name = "fused_qkv_attention_bwd"
+    dev = _check_k10(name, {"x": x, "wqkv": wqkv, "bqkv": bqkv, "do": do},
+                     seq_len, heads, head_dim,
+                     fused_qkv_attention_bwd_supported)
+    b, spq, d = x.shape
+    n, w = b * spq, 3 * heads * head_dim
+    rows = (spq + 15) // 16 * 16
+    lib = build.load()
+    dx, dw, db = torch.empty_like(x), _f32(dev, d, w), _f32(dev, w)
+    qkv, o32 = _bf(dev, n, w), _f32(dev, n, heads * head_dim)
+    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    dqkv = _bf(dev, n, w)
+    ws = _workspace(lib.vitax_qkv_attention_bwd_ws(n, d, w), dev)
+    rc = lib.vitax_qkv_attention_bwd(*(t.data_ptr() for t in (
+        x, wqkv, bqkv, do, dx, dw, db, qkv, o32, p, ds, dqkv, ws)), b, spq, d,
+        seq_len, heads, head_dim, 1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    fused_qkv_attention_bwd.launches += 1
+    return dx, dw, db
+
+
+fused_qkv_attention_bwd.launches = 0
+
+
+class FusedQkvAttentionFn(torch.autograd.Function):
+    """K10 with its backward kernel, saving (x̂, Wqkv, bqkv) as vitax's
+    custom VJP (pallas_kernels.py:2369-2391): dW comes back in W's dtype
+    (bf16 in a bf16 model, before the fp32 params and the LoRA fold see
+    it) and db in bqkv's (fp32), as vitax's VJP casts them."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, seq_len, heads, head_dim):
+        ctx.save_for_backward(x, wqkv, bqkv)
+        ctx.meta = (seq_len, heads, head_dim)
+        return fused_qkv_attention(x, wqkv, bqkv, seq_len, heads, head_dim)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, wqkv, bqkv = ctx.saved_tensors
+        dx, dw, db = fused_qkv_attention_bwd(x, wqkv, bqkv, do.contiguous(),
+                                             *ctx.meta)
+        return dx, dw.to(wqkv.dtype), db.to(bqkv.dtype), None, None, None
+
+
 KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_bwd, fused_ln_mlp_bwd,
            fused_ln_qkvo_attention_int8, fused_ln_mlp_int8,
@@ -3834,4 +4018,5 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_rect_int4_dw_bwd,
            fused_ln_qkvo_attention_int4_gqa,
            fused_ln_qkvo_attention_int4_gqa_bwd,
-           fused_ln_qkvo_attention_int4_gqa_dw_bwd)
+           fused_ln_qkvo_attention_int4_gqa_dw_bwd, fused_qkv_attention,
+           fused_qkv_attention_bwd)
