@@ -209,6 +209,31 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              trainable tensor against the plain path (GRAD_BAND, the noise
              injected, the routing replayed); resident b64 forwards and b32
              steps beside the K1 path (fused_qkvo on), in turns.
+16. mesh   — K9 (`fused_qkvo_attention`: the QKV projection, the core
+             and the out-projection of the LN'd input), which vitax's
+             Res-ViT runs under any mesh, and K2 without its residual
+             (`fused_ln_mlp_partial`), the MLP half per model shard: K9's
+             forward at b64 spq 200, its backward at b32 (every output, two
+             launches the same bits), both on a ragged spq 40 and at the
+             TP shard width (6 heads: wqkv [768, 1152], wo [384, 768]), K1
+             at that width, K2's partial pair at M 3072 and 1536, against
+             their twins (TOL), timed beside K10, K1 and K2; then (c0)
+             `train_cli` (ViT-B/16 b32, 4 steps and 4 eval batches) in one
+             process; this process's NCCL group of one rank and its (1, 1)
+             mesh: (b) the b16 Res-ViT of ft_resvit.sh's flags through
+             make_eval_step(mesh=) at b64 dense and C 0.625, bf16 and
+             --int8 (exact launches: 12 K9 and the LN kernel a forward, no
+             K1 or K8; logits with the routing replayed within LOGIT_BAND
+             of one process's K1 path; routing maps), two b32 train steps
+             through make_train_step(mesh=) (exact launches, three
+             all-reduces a step), the grads of every trainable tensor
+             against the plain path, and resident forwards and steps beside
+             one process's in turns; (c) `train_cli --n-gpu 1`, whose
+             losses are (c0)'s bit for bit and its launches (c0)'s; (d) two
+             spawned processes, each a gloo rank on the card, through
+             `train_cli --n-gpu 2 --n-model 2` (exact per-shard launches:
+             12 K1 and 12 K2 partials a forward; each step's loss within
+             LOGIT_BAND of (c0)'s), within a timeout.
 
 Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
 backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
@@ -405,6 +430,17 @@ KERNEL_INFO = {
                             "vitax/ops/pallas_kernels.py:2216"),
     "fused_qkv_attention_bwd": ("vitax_torch/csrc/qkv_attention_bwd.cu",
                                 "vitax/ops/pallas_kernels.py:2239"),
+    # Res-ViT under a mesh and per model shard: K9, the QKV projection, the
+    # core and the out-projection (no LN), forward and backward; and K2's
+    # residual=False branch, the MLP half per model shard
+    "fused_qkvo_attention": ("vitax_torch/csrc/qkvo_attention.cu",
+                             "vitax/ops/pallas_kernels.py:2396"),
+    "fused_qkvo_attention_bwd": ("vitax_torch/csrc/qkvo_attention_bwd.cu",
+                                 "vitax/ops/pallas_kernels.py:2432"),
+    "fused_ln_mlp_partial": ("vitax_torch/csrc/ln_mlp.cu",
+                             "vitax/ops/pallas_kernels.py:614"),
+    "fused_ln_mlp_partial_bwd": ("vitax_torch/csrc/ln_mlp_bwd.cu",
+                                 "vitax/ops/pallas_kernels.py:1308"),
 }
 SAVE_KERNELS = ("fused_ln_mlp_save", "fused_ln_mlp_bwd_fast",
                 "fused_ln_mlp_int8_save", "fused_ln_mlp_int8_save_bwd",
@@ -2462,10 +2498,10 @@ def _train_noise(cfg, batch, seed):
     return noise
 
 
-def _resvit_grads(params, images, labels, cfg, noise, ctx):
+def _resvit_grads(params, images, labels, cfg, noise, ctx, mesh=None):
     """(logits, grads of the 3-term loss for every trainable leaf) of one
     train-mode forward with `noise` injected, under `ctx` (routing record or
-    replay)."""
+    replay), under `mesh` (a one-rank one: the loss is the one process's)."""
     import torch
     from vitax_torch.models import resvit
     from vitax_torch.train.optim import param_leaves, tree_leaves
@@ -2475,7 +2511,7 @@ def _resvit_grads(params, images, labels, cfg, noise, ctx):
     lc, la, ld = RESVIT_LAMBDAS
     with ctx:
         logits, aux = resvit.apply(params, images, cfg, train=True,
-                                   noise=noise)
+                                   noise=noise, mesh=mesh)
     loss = (lc * cross_entropy(logits, labels) + la * resvit.active_loss(
         aux["soft_probs"], cfg.dynamic_active_target,
         cfg.dynamic_reserve_initials) + ld * aux["d_loss"])
@@ -4578,6 +4614,549 @@ def run_k10_slice(exp_root):
     return counts, times, dist
 
 
+# ---------------------------------------------------------------- phase 16
+# K9 (fused_qkvo_attention, forward and backward), K2 without its residual
+# (fused_ln_mlp_partial, forward and backward) and the parallel layer:
+# Res-ViT under a (1, 1) NCCL mesh (vitax's dispatch under any mesh: the LN
+# kernel, then K9), train_cli --n-gpu 1 under that group, train_cli
+# --n-model 2 in two gloo processes on the one card
+K9_KERNELS = ("fused_qkvo_attention", "fused_qkvo_attention_bwd")
+PARTIAL_KERNELS = ("fused_ln_mlp_partial", "fused_ln_mlp_partial_bwd")
+TP_SHARD = (768, 6, 64, 1536)  # a rank's shard of ViT-B/16 at --n-model 2
+# (label, batch, spq, seq_len, dims, timed): serving's b64 (the table's
+# time), training's b32 (the backward's), a ragged spq 40 (not a multiple of
+# the 16-row tiles; keys masked past 33) and the TP shard width
+K9_CASES = [("b64 spq200 (serving)", 64, 200, 197, B16, True),
+            ("b4 spq40 (ragged)", 4, 40, 33, B16, False),
+            ("b32 spq200 (TP shard)", 32, 200, 197, TP_SHARD, False)]
+K9_BWD_CASES = [("b32 spq200 (training)", 32, 200, 197, B16, True),
+                ("b4 spq40 (ragged)", 4, 40, 33, B16, False),
+                ("b32 spq200 (TP shard)", 32, 200, 197, TP_SHARD, False)]
+# K2 without its residual at M 3072 (the table's: forward b64, backward
+# b32, K2's shapes in phase 3) and at the TP shard's M 1536
+PARTIAL_CASES = [("b64 spq200 M3072", 64, 200, B16, True),
+                 ("b32 spq200 M1536 (TP shard)", 32, 200, TP_SHARD, False)]
+PARTIAL_BWD_CASES = [("b32 spq200 M3072", 32, 200, B16, True),
+                     ("b32 spq200 M1536 (TP shard)", 32, 200, TP_SHARD,
+                      False)]
+# ViT-B/16 through train_cli for phase 16 (c) and (d): one epoch of 4 b32
+# steps on 128 Synthetic images and its 4 eval batches
+MESH_TRAIN_ARGS = [{"--synthetic-samples": "128", "--train-steps": "4"}.get(
+    prev, a) for prev, a in zip([None] + TRAIN_ARGS, TRAIN_ARGS)]
+MESH_STEPS, MESH_EVALS = 4, 4
+TP_TIMEOUT = 240  # seconds the two gloo processes of (d) may take
+
+
+def _k9_inputs(batch, rows, seq_len, dims, seed):
+    """K9's x̂ (an LN output's scale, zero pad rows past seq_len), the
+    weights of `_inputs` at `dims`, and dY zero on the pad rows."""
+    import torch
+    t = _inputs(batch, rows, seed, dims)
+    x = t["x"].clone()
+    x[:, seq_len:] = 0
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn((batch, rows, dims[0]), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    do[:, seq_len:] = 0
+    return x, t, do
+
+
+def check_k9_kernels(stats):
+    """Phase 16, kernels: K9's forward (b64 spq 200, ragged, TP shard) and
+    every output of its backward (b32, ragged, TP shard), K1 forward and
+    backward at the TP shard width, K2 without its residual forward (b64
+    M 3072, b32 M 1536) and backward (b32 at both), against their twins
+    (TOL), two backward launches the same bits; CUDA-event medians of
+    kernel and twin; K9 timed beside K10 and K1, K2's partial beside K2,
+    at the same shapes in one call."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in K9_KERNELS + PARTIAL_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    beside = {}
+    for label, batch, rows, seq, dims, timed in K9_CASES:
+        x, t, _ = _k9_inputs(batch, rows, seq, dims, seed=160)
+        meta = (seq, dims[1], dims[2])
+        args = (x, t["wqkv"], t["bqkv"], t["wo"], t["bo"], *meta)
+        name = "fused_qkvo_attention"
+        with torch.inference_mode():
+            out = ck.fused_qkvo_attention(*args)
+            torch.cuda.synchronize()
+            err, bound = _hold(name, label, out,
+                               ck.fused_qkvo_attention_ref(*args), stats)
+            line = ""
+            if timed:
+                k_ms = _median_ms(lambda: ck.fused_qkvo_attention(*args))
+                p_ms = _median_ms(lambda: ck.fused_qkvo_attention_ref(*args))
+                stats[name].update(ms=k_ms, plain_ms=p_ms,
+                                   shape=(batch, rows))
+                qkv = (x, t["wqkv"], t["bqkv"], *meta)
+                k1 = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                      t["wo"], t["bo"], EPS, *meta)
+                beside["forward"] = (
+                    k_ms, _median_ms(lambda: ck.fused_qkv_attention(*qkv)),
+                    _median_ms(lambda: ck.fused_ln_qkvo_attention(*k1)))
+                line = (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms; K10 "
+                        f"{beside['forward'][1]:.4f}, K1 "
+                        f"{beside['forward'][2]:.4f} (medians of 25)")
+        print(f"  {name:32s} {label:22s} {tuple(out.shape)} max|k-ref| "
+              f"{err:.3e} <= {bound:.3e}: ok{line}", flush=True)
+        if dims == TP_SHARD:  # K1 per model shard at the same width
+            k1 = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                  t["wo"], t["bo"], EPS, *meta)
+            with torch.inference_mode():
+                out = ck.fused_ln_qkvo_attention(*k1)
+                torch.cuda.synchronize()
+                err, bound = _hold("fused_ln_qkvo_attention", label, out,
+                                   ck.fused_ln_qkvo_attention_ref(*k1), stats)
+            print(f"  {'fused_ln_qkvo_attention':32s} {label:22s} "
+                  f"{tuple(out.shape)} max|k-ref| {err:.3e} <= {bound:.3e}: "
+                  "ok", flush=True)
+        del x, t, out
+    for label, batch, rows, seq, dims, timed in K9_BWD_CASES:
+        x, t, do = _k9_inputs(batch, rows, seq, dims, seed=161)
+        meta = (seq, dims[1], dims[2])
+        args = (x, t["wqkv"], t["bqkv"], t["wo"], do, *meta)
+        name = "fused_qkvo_attention_bwd"
+        with torch.no_grad():
+            outs = ck.fused_qkvo_attention_bwd(*args)
+            again = ck.fused_qkvo_attention_bwd(*args)
+            torch.cuda.synchronize()
+            errs = _hold_all(name, label, outs,
+                             ck.fused_qkvo_attention_bwd_ref(*args), stats)
+            if not all(torch.equal(o, a) for o, a in zip(outs, again)):
+                raise AssertionError(f"{name} {label}: two launches differ")
+            del outs, again
+            line = ""
+            if timed:
+                k_ms = _median_ms(lambda: ck.fused_qkvo_attention_bwd(*args),
+                                  warmup=2, iters=10)
+                p_ms = _median_ms(
+                    lambda: ck.fused_qkvo_attention_bwd_ref(*args),
+                    warmup=1, iters=5)
+                stats[name].update(ms=k_ms, plain_ms=p_ms,
+                                   shape=(batch, rows))
+                dh = torch.zeros((batch, rows, dims[1] * dims[2]),
+                                 device="cuda", dtype=torch.bfloat16)
+                qkv = (x, t["wqkv"], t["bqkv"], dh, *meta)
+                k1 = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                      t["wo"], do, EPS, *meta)
+                beside["backward"] = (
+                    k_ms, _median_ms(lambda: ck.fused_qkv_attention_bwd(*qkv),
+                                     warmup=2, iters=10),
+                    _median_ms(lambda: ck.fused_ln_qkvo_attention_bwd(*k1),
+                               warmup=2, iters=10))
+                line = (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms; K10 "
+                        f"bwd {beside['backward'][1]:.4f}, K1 bwd "
+                        f"{beside['backward'][2]:.4f} (medians of 10 / 5)")
+        print(f"  {name:32s} {label:22s} max|k-ref| per output (dx, dW, db, "
+              f"dWo, dbo) [{' '.join(errs)}]: ok, two launches the same "
+              f"bits{line}", flush=True)
+        if dims == TP_SHARD:
+            k1 = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                  t["wo"], do, EPS, *meta)
+            with torch.no_grad():
+                outs = ck.fused_ln_qkvo_attention_bwd(*k1)
+                torch.cuda.synchronize()
+                errs = _hold_all("fused_ln_qkvo_attention_bwd", label, outs,
+                                 ck.fused_ln_qkvo_attention_bwd_ref(*k1),
+                                 stats)
+            print(f"  {'fused_ln_qkvo_attention_bwd':32s} {label:22s} "
+                  f"max|k-ref| per output [{' '.join(errs)}]: ok", flush=True)
+            del outs
+        del x, t, do
+        torch.cuda.empty_cache()
+    for fwd, cases in ((True, PARTIAL_CASES), (False, PARTIAL_BWD_CASES)):
+        for label, batch, rows, dims, timed in cases:
+            t = _inputs(batch, rows, 162, dims)
+            g = torch.Generator(device="cuda").manual_seed(163)
+            do = torch.randn(t["x"].shape, generator=g,
+                             device="cuda").to(torch.bfloat16)
+            mlp = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"],
+                   t["b2"], EPS)
+            bwd = (*mlp[:6], do, EPS)
+            name = PARTIAL_KERNELS[0 if fwd else 1]
+            with torch.no_grad():
+                if fwd:
+                    out = ck.fused_ln_mlp_partial(*mlp)
+                    torch.cuda.synchronize()
+                    errs = ["{:.2e}<={:.2e}".format(*_hold(
+                        name, label, out, ck.fused_ln_mlp_partial_ref(*mlp),
+                        stats))]
+                    same = torch.equal(t["x"] + out, ck.fused_ln_mlp(*mlp))
+                    run = (lambda: ck.fused_ln_mlp_partial(*mlp),
+                           lambda: ck.fused_ln_mlp_partial_ref(*mlp),
+                           lambda: ck.fused_ln_mlp(*mlp))
+                else:
+                    outs = ck.fused_ln_mlp_partial_bwd(*bwd)
+                    torch.cuda.synchronize()
+                    errs = _hold_all(name, label, outs,
+                                     ck.fused_ln_mlp_partial_bwd_ref(*bwd),
+                                     stats)
+                    full = ck.fused_ln_mlp_bwd(*bwd)
+                    same = torch.equal(do + outs[0], full[0]) and all(
+                        torch.equal(a, b) for a, b in zip(outs[1:], full[1:]))
+                    run = (lambda: ck.fused_ln_mlp_partial_bwd(*bwd),
+                           lambda: ck.fused_ln_mlp_partial_bwd_ref(*bwd),
+                           lambda: ck.fused_ln_mlp_bwd(*bwd))
+                    del outs, full
+                if not same:
+                    raise AssertionError(f"{name} {label}: not the residual "
+                                         "kernel's bits less the residual")
+                line = ""
+                if timed:
+                    k_ms, p_ms, r_ms = (_median_ms(f, warmup=2, iters=10)
+                                        for f in run)
+                    stats[name].update(ms=k_ms, plain_ms=p_ms,
+                                       shape=(batch, rows))
+                    beside[name] = (k_ms, r_ms)
+                    line = (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms; "
+                            f"K2 with its residual {r_ms:.4f} (medians of 10)")
+            print(f"  {name:32s} {label:22s} max|k-ref| [{' '.join(errs)}], "
+                  "the residual kernel's bits less the residual: ok" + line,
+                  flush=True)
+            del t, do
+            torch.cuda.empty_cache()
+    return beside
+
+
+def _mesh_launches(cfg, train):
+    """The launches of a Res-ViT eval forward or train step under a mesh,
+    vitax's dispatch (its fused attention halves decline for any mesh, its
+    rect half too): every attention half, the teacher's and the compacted
+    blocks' included, is the LN kernel and K9 (K9's backward and the LN
+    backward in the student's backward), the MLP halves as one process
+    runs them. That is the K10 path's count (`_resvit_launches` without
+    fused_qkvo, whose halves are the LN kernel and K10 on all rows) with K9
+    in K10's place."""
+    counts = _resvit_launches(cfg.replace(fused_qkvo=False), train)
+    k9 = {"fused_qkv_attention": "fused_qkvo_attention",
+          "fused_qkv_attention_bwd": "fused_qkvo_attention_bwd"}
+    out = _expect()
+    for name, n in counts.items():
+        out[k9.get(name, name)] += n
+    return out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_resvit(mesh, exp_root):
+    """Phase 16 (b): the b16 Res-ViT of ft_resvit.sh's flags under the
+    (1, 1) mesh: serving b64 dense and at C 0.625, bf16 and --int8, through
+    make_eval_step(mesh=) with exact launches a forward (12 K9, the LN
+    kernel before each, no K1 or K8) and one all-reduce; logits with the
+    routing replayed within LOGIT_BAND of one process's path for the same
+    function (K1, and K8 when compacted; int8_attn off, since it does not
+    reach K9) and the routing maps' agreement; two b32 train steps of (a)
+    through make_train_step(mesh=) with exact launches and three
+    all-reduces a step (the active loss's mean, the grads, the metrics);
+    the grads of every trainable tensor against the plain path (noise
+    injected, routing replayed); resident b64 forwards and b32 steps beside
+    one process's K1 path, in turns."""
+    import torch
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.data import get_dataloader
+    from vitax_torch.models import resvit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.parallel import all_reduce
+    from vitax_torch.resvit_eval_cli import get_eval_config
+    from vitax_torch.resvit_train_cli import (config_to_model_args,
+                                              get_train_config)
+    from vitax_torch.train.optim import tree_leaves
+    from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                                make_adamw_for,
+                                                make_eval_step,
+                                                make_train_step)
+    from vitax_torch.utils.memory import named_leaves
+
+    serve = {tier: config_to_model_args(get_eval_config(RESVIT_ARGS + extra),
+                                        "cuda")
+             for tier, extra in (("bf16", []), ("--int8", ["--int8"]))}
+    with _random_router_biases():
+        params = resvit.init_params(set_seed(0), serve["bf16"], "cuda")
+    data = next(iter(get_dataloader("Synthetic", split="val", image_size=224,
+                                    batch_size=64, num_samples=64, seed=0)))
+    images = torch.from_numpy(data.images).cuda().bfloat16()
+    labels = torch.from_numpy(data.labels).cuda()
+    weight = torch.from_numpy(data.weight).cuda()
+    counts, dist = {}, {}
+    for tier, base in serve.items():
+        for cap in (None, 0.625):
+            cfg = base.replace(compact_capacity=cap)
+            label = f"{tier} " + (f"C {cap}" if cap else "dense")
+            ck.reset_launch_counts()
+            all_reduce.launches = 0
+            metrics, _ = make_eval_step(cfg, mesh=mesh)(params, images,
+                                                       labels, weight)
+            counts[label] = ck.launch_counts()
+            reduces = all_reduce.launches
+            expect = _mesh_launches(cfg, False)
+            log = _RouterLog(resvit)
+            one = cfg.replace(int8_attn=False)
+            with torch.inference_mode():
+                with log.record():
+                    lk, aux_k = resvit.apply(params, images, cfg, mesh=mesh)
+                _, aux_r = resvit.apply(params, images, one)
+                with log.replay():
+                    lr, _ = resvit.apply(params, images, one)
+            agree = [(aux_k["routing_maps"][k] == aux_r["routing_maps"][k])
+                     .float().mean().item() for k in aux_k["routing_maps"]]
+            d_log = (lk - lr).abs().max().item()
+            band = LOGIT_BAND * max(1.0, lr.abs().max().item())
+            dist[label] = (d_log, min(agree))
+            print(f"mesh: make_eval_step(mesh) {label} b64: loss "
+                  f"{float(metrics['loss']):.4f}; launches "
+                  f"{_nonzero(counts[label])} (as derived: "
+                  f"{counts[label] == expect}), all-reduces {reduces}; "
+                  f"logits max|mesh - one process| (routing replayed) "
+                  f"{d_log:.3e} <= {band:.3e}; routing maps agree "
+                  f"{min(agree):.5f} >= {ROUTING_AGREE}", flush=True)
+            if (counts[label] != expect or reduces != 1
+                    or not torch.isfinite(lk).all() or d_log > band
+                    or min(agree) < ROUTING_AGREE):
+                raise AssertionError(f"mesh serving {label} failed")
+
+    cfg = config_to_model_args(get_train_config(
+        RESVIT_TRAIN_ARGS + ["--exp-root", exp_root]), "cuda")
+    with _random_router_biases():
+        tparams = resvit.init_params(set_seed(0), cfg, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    images = torch.randn((TRAIN_BATCH, 224, 224, 3), generator=g,
+                         device="cuda", dtype=torch.bfloat16)
+    labels = torch.randint(0, 10, (TRAIN_BATCH,), generator=g, device="cuda")
+    lam = Lambdas(*RESVIT_LAMBDAS)
+    tx = make_adamw_for(cfg, tparams, lambda s: 1e-4)
+    state = create_state(tparams, tx, torch.Generator(device="cuda")
+                         .manual_seed(3))
+    step = make_train_step(cfg, tx, lam, mesh=mesh)
+    expect = _mesh_launches(cfg, True)
+    for i in range(2):
+        ck.reset_launch_counts()
+        all_reduce.launches = 0
+        state, m = step(state, images, labels)
+        got = ck.launch_counts()
+        counts[f"train step {i}"] = got
+        print(f"mesh: make_train_step(mesh) step {i} b{TRAIN_BATCH} (a): "
+              f"loss {float(m['loss']):.4f}; launches {_nonzero(got)} (as "
+              f"derived: {got == expect}), all-reduces {all_reduce.launches}",
+              flush=True)
+        if (got != expect or all_reduce.launches != 3
+                or not math.isfinite(float(m["loss"]))):
+            raise AssertionError(f"mesh train step {i}: expected {expect}")
+    del tx, state
+    noise = _train_noise(cfg, TRAIN_BATCH, seed=17)
+    replay = _RoutingReplay(resvit)
+    plain = dict(fused_qkv=False, fused_qkvo=False, fused_mlp=False,
+                 use_pallas=False)
+    lk, g_k = _resvit_grads(tparams, images, labels, cfg, noise,
+                            replay.record(), mesh=mesh)
+    lp, g_p = _resvit_grads(tparams, images, labels, cfg.replace(**plain),
+                            noise, replay.replay())
+    names = [n for (n, _), k in zip(named_leaves(tparams), tree_leaves(
+        resvit.trainable_mask(tparams, cfg))) if k]
+    rels = sorted(((_rel(a, b), n) for a, b, n in zip(g_k, g_p, names)
+                   if b.norm() > 0), reverse=True)
+    d_log = (lk - lp).abs().max().item()
+    finite = all(bool(torch.isfinite(t).all()) for t in g_k)
+    dist["grads"] = (rels[0][0], rels[0][1], d_log)
+    print(f"mesh: grads b{TRAIN_BATCH} of {len(names)} trainable tensors, "
+          f"worst |g_mesh - g_plain| / |g_plain|: " + ", ".join(
+              f"{r:.3e} ({n})" for r, n in rels[:3])
+          + f" <= {GRAD_BAND}; logits max|mesh - plain| {d_log:.3e}",
+          flush=True)
+    if not finite or rels[0][0] > GRAD_BAND or len(g_k) != len(names):
+        raise AssertionError("mesh grads outside the band")
+    del g_k, g_p
+    torch.cuda.empty_cache()
+
+    times = {"forward b64 mesh (LN + K9)": [], "forward b64 one (K1)": [],
+             "step b32 mesh": [], "step b32 one": []}
+    fwd_images = torch.randn((64, 224, 224, 3), generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+    for turn in range(2):
+        for on in ((True, False) if turn == 0 else (False, True)):
+            msh = mesh if on else None
+            key = "mesh (LN + K9)" if on else "one (K1)"
+            with torch.inference_mode():
+                times[f"forward b64 {key}"].append(_median_ms(
+                    lambda: resvit.apply(params, fwd_images, serve["bf16"],
+                                         mesh=msh), warmup=2, iters=5))
+            tx = make_adamw_for(cfg, tparams, lambda s: 1e-4)
+            state = create_state(tparams, tx, torch.Generator(device="cuda")
+                                 .manual_seed(3))
+            step = make_train_step(cfg, tx, lam, mesh=msh)
+            times["step b32 " + ("mesh" if on else "one")].append(_median_ms(
+                lambda: step(state, images, labels), warmup=2, iters=5))
+            del tx, state
+    print("mesh: resident b64 forwards (dense) and b32 steps (a), medians of "
+          "5, two turns, the second in reverse order: " + "; ".join(
+              f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+              for k, ms in times.items()), flush=True)
+    del params, tparams
+    torch.cuda.empty_cache()
+    return counts, times, dist
+
+
+def _tp_rank(rank, port, args, log_path, queue):
+    """One of phase 16 (d)'s two processes: its own gloo group on
+    localhost, then train_cli --n-gpu 2 --n-model 2 on cuda:0, its output to
+    log_path; puts (rank, result or the error's text) on the queue."""
+    import os
+    import traceback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=2)
+        from vitax_torch import train_cli
+        from vitax_torch.ops import cuda_kernels as ck
+        from vitax_torch.parallel import all_reduce
+        ck.reset_launch_counts()
+        all_reduce.launches = 0
+        t0 = time.time()
+        with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+            out = train_cli.main(args, device="cuda:0")
+        seconds = time.time() - t0
+        if rank == 0:
+            shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
+        queue.put((rank, {
+            "losses": [v for e in out["epochs"] for v in e["train"]["losses"]],
+            "valid": out["epochs"][-1]["valid"],
+            "counts": ck.launch_counts(), "reduces": all_reduce.launches,
+            "seconds": seconds}))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+def run_mesh_slice(exp_root):
+    """Phase 16, paths: (c0) ViT-B/16 through train_cli without a process
+    group; then this process's NCCL group of one rank and its (1, 1) mesh:
+    (b) the b16 Res-ViT (`_mesh_resvit`), (c) train_cli --n-gpu 1, whose
+    losses must be (c0)'s to the bit (an all-reduce over one rank and a
+    division by 1 are exact) and its launches (c0)'s; the group ends; (d)
+    two spawned processes, each its own gloo rank on the card (NCCL takes
+    one rank a card), through train_cli --n-gpu 2 --n-model 2: exact
+    per-shard launches (K1 and K2 without its residual, 12 each a
+    forward), and each step's loss within LOGIT_BAND of (c0)'s. Its time
+    is no speed number: the two ranks share the card."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.parallel import all_reduce, make_mesh
+
+    args = MESH_TRAIN_ARGS + ["--exp-root", exp_root]
+    forwards = MESH_STEPS + MESH_EVALS
+    ck.reset_launch_counts()
+    one_losses, one_valid, _ = _run_train(args, MESH_STEPS)
+    one_counts = ck.launch_counts()
+    print(f"mesh: (c0) train_cli b{TRAIN_BATCH} one process: losses "
+          f"{[round(v, 4) for v in one_losses]}; launches "
+          f"{_nonzero(one_counts)}", flush=True)
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        counts, times, dists = _mesh_resvit(mesh, exp_root)
+        ck.reset_launch_counts()
+        all_reduce.launches = 0
+        losses, valid, _ = _run_train(args + ["--n-gpu", "1"], MESH_STEPS)
+        got = ck.launch_counts()
+        reduces = all_reduce.launches
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh: (c) train_cli --n-gpu 1 under NCCL: losses the same bits "
+          f"as (c0): {losses == one_losses}; launches (c0)'s: "
+          f"{got == one_counts}; all-reduces {reduces}", flush=True)
+    if (losses != one_losses or got != one_counts
+            or got["fused_ln_qkvo_attention"] != 12 * forwards
+            or reduces != 2 * MESH_STEPS + MESH_EVALS):
+        raise AssertionError("train_cli --n-gpu 1 is not one process's run")
+
+    torch.cuda.empty_cache()
+    results = _run_tp(args, one_losses, exp_root)
+    counts["tp rank 0"] = results[0]["counts"]
+    dists["tp loss"] = max(r["worst"] for r in results.values())
+    return counts, times, dists
+
+
+def _run_tp(args, one_losses, exp_root):
+    """Phase 16 (d): train_cli --n-gpu 2 --n-model 2 in two spawned
+    processes, each its own gloo rank on cuda:0, within TP_TIMEOUT; each
+    rank's launches exact and each step's loss within LOGIT_BAND of
+    `one_losses` (one process's run of `args`). Returns each rank's
+    result."""
+    import multiprocessing as mp
+    import os
+    forwards = MESH_STEPS + MESH_EVALS
+    os.makedirs(exp_root, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    tp_args = args + ["--n-gpu", "2", "--n-model", "2"]
+    procs = [ctx.Process(target=_tp_rank, args=(
+        r, port, tp_args, os.path.join(exp_root, f"tp_rank{r}.log"), queue))
+        for r in range(2)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        while len(results) < 2:
+            left = TP_TIMEOUT - (time.time() - t0)
+            rank, res = queue.get(timeout=max(1.0, left))
+            results[rank] = res
+        for p in procs:
+            p.join(max(1.0, TP_TIMEOUT - (time.time() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in range(2):
+        if not isinstance(results.get(r), dict):
+            raise AssertionError(f"--n-model 2 rank {r} failed:\n"
+                                 f"{results.get(r)}")
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"--n-model 2 exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    expect = _expect(fused_ln_qkvo_attention=12 * forwards,
+                     fused_ln_mlp_partial=12 * forwards,
+                     fused_ln_qkvo_attention_bwd=12 * MESH_STEPS,
+                     fused_ln_mlp_partial_bwd=12 * MESH_STEPS,
+                     layer_norm=forwards, layer_norm_bwd=MESH_STEPS)
+    for r in range(2):
+        res = results[r]
+        d = res["worst"] = max(abs(a - b) / max(1.0, abs(b))
+                               for a, b in zip(res["losses"], one_losses))
+        print(f"mesh: (d) train_cli --n-model 2 rank {r} (gloo, two ranks "
+              f"on one card, {res['seconds']:.1f} s): losses "
+              f"{[round(v, 4) for v in res['losses']]}, max |Δ| / max(1, "
+              f"|loss|) against (c0) {d:.3e} <= {LOGIT_BAND}; launches "
+              f"{_nonzero(res['counts'])} (as derived: "
+              f"{res['counts'] == expect}); all-reduces {res['reduces']}",
+              flush=True)
+        if (res["counts"] != expect or len(res["losses"]) != MESH_STEPS
+                or d > LOGIT_BAND):
+            raise AssertionError(f"--n-model 2 rank {r} failed")
+    return results
+
+
 # ---------------------------------------------------------------- bounds
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
@@ -4603,7 +5182,9 @@ def _work(name, batch, rows, extra=None, dims=None):
         return 4 * io, {"bf16": core}
     name = {"fused_ln_qkvo_attention_flash": "fused_ln_qkvo_attention",
             "fused_ln_qkvo_attention_flash_bwd": "fused_ln_qkvo_attention_bwd",
-            "fused_ln_mlp_bwd_wide": "fused_ln_mlp_bwd"}.get(name, name)
+            "fused_ln_mlp_bwd_wide": "fused_ln_mlp_bwd",
+            "fused_ln_mlp_partial": "fused_ln_mlp",
+            "fused_ln_mlp_partial_bwd": "fused_ln_mlp_bwd"}.get(name, name)
     # K11 does K3's and K4's work, its codes on the int4 grid in s8 products
     name = name.replace("_int4", "_int8")
     n = batch * rows
@@ -4668,6 +5249,14 @@ def _work(name, batch, rows, extra=None, dims=None):
         "fused_qkv_attention_bwd": (
             2 * act + 2 * n * hhd + w_qkv + 2 * 4 * 3 * hhd
             + 4 * D * 3 * hhd, {"bf16": 3 * qkv + 2.5 * core}),
+        # K9: K1's work without its LN (x̂ and the projected output, Wqkv,
+        # Wo, bqkv and bo in; backward: x̂, dY in, dx, fp32 dW, db, dWo,
+        # dbo out; the core's recompute and its four products, as K1's)
+        "fused_qkvo_attention": (2 * act + w_attn + 4 * (D + 3 * hhd),
+                                 {"bf16": qkv + core + out}),
+        "fused_qkvo_attention_bwd": (
+            3 * act + w_attn + dw_attn + 4 * 3 * hhd + 4 * (D + 3 * hhd),
+            {"bf16": 3 * qkv + 2 * out + 3 * core}),
     }
     return table[name]
 
@@ -4924,6 +5513,34 @@ def main() -> int:
                     for k, ms in times15.items())
         + f"; phase 15 took {time.time() - t15:.1f} s [{card}]", flush=True)
 
+    print("phase 16, K9 (fused_qkvo_attention), K2 without its residual and "
+          "the parallel layer:", flush=True)
+    t16 = time.time()
+    beside16 = check_k9_kernels(stats)
+    try:
+        counts16, times16, dist16 = run_mesh_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("mesh: kernel / twin ms " + ", ".join(
+        f"{n} {stats[n]['ms']:.4f} / {stats[n]['plain_ms']:.4f}"
+        for n in K9_KERNELS + PARTIAL_KERNELS)
+        + "; K9 / K10 / K1 forward b64 {:.4f} / {:.4f} / {:.4f}, backward "
+        "b32 {:.4f} / {:.4f} / {:.4f}".format(*beside16["forward"],
+                                            *beside16["backward"])
+        + "; K2 without / with its residual: forward b64 {:.4f} / {:.4f}, "
+        "backward b32 {:.4f} / {:.4f}".format(
+            *beside16["fused_ln_mlp_partial"],
+            *beside16["fused_ln_mlp_partial_bwd"])
+        + "; serving under the mesh (logits max|Δ|, routing agreement): "
+        + ", ".join(f"{k} {v[0]:.3e} {v[1]:.5f}" for k, v in dist16.items()
+                    if k not in ("grads", "tp loss"))
+        + "; worst grad {:.3e} ({})".format(*dist16["grads"][:2])
+        + "; --n-model 2 losses within {:.3e} of one process's; ".format(
+            dist16["tp loss"])
+        + "; ".join(f"{k} {' / '.join(f'{v:.2f}' for v in ms)} ms"
+                    for k, ms in times16.items())
+        + f"; phase 16 took {time.time() - t16:.1f} s [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
     # the fast recipe's (each runs every kernel of its tier), K7's and K8's
@@ -4985,7 +5602,17 @@ def main() -> int:
     k10_runs = {"fused_qkv_attention": "bf16 dense",
                 "fused_qkv_attention_bwd": "train step 0"}
 
+    # phase 16: K9's forward from the bf16 dense serving forward under the
+    # mesh, its backward from the first train step; K2's partial pair from
+    # rank 0's run of train_cli --n-model 2
+    mesh_runs = {"fused_qkvo_attention": "bf16 dense",
+                 "fused_qkvo_attention_bwd": "train step 0",
+                 "fused_ln_mlp_partial": "tp rank 0",
+                 "fused_ln_mlp_partial_bwd": "tp rank 0"}
+
     def launches(name):
+        if name in mesh_runs:
+            return counts16[mesh_runs[name]][name]
         if name in k10_runs:
             return counts15[k10_runs[name]][name]
         if name in resvit_int4_runs:

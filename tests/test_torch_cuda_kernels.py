@@ -1355,3 +1355,112 @@ def test_k10_autograd_launches_both_kernels_and_fp32_raises(dev):
         ck.fused_qkv_attention(x.float(), w.float(), b, *meta)
     with pytest.raises(ValueError, match="unsupported shapes"):
         ck.fused_qkv_attention(x[:, :196].contiguous(), w, b, *meta)
+
+
+# K9: (batch, spq, seq_len, D, heads, head_dim): Res-ViT serving's b64 spq
+# 200 and training's b32, a ragged seq in a small spq, the TP shard width
+# (6 heads of a 768 model: wqkv [768, 1152], wo [384, 768]) and the
+# head_dim 32 / 128 instantiations of the core
+K9_SHAPES = [(64, 200, 197, 768, 12, 64), (32, 200, 197, 768, 12, 64),
+             (2, 24, 17, 128, 4, 32), (32, 200, 197, 768, 6, 64),
+             (3, 200, 197, 768, 6, 128)]
+
+
+def _k9_args(dev, batch, spq, seq, d, h, hd, seed=0):
+    """x̂ (the LN output: zero pad rows past seq), wqkv, bqkv, wo [H·Hd, D],
+    bo, dY (zero on the pad rows), seq_len, heads, head_dim."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((batch, spq, d), generator=g, device=dev)
+    x[:, seq:] = 0
+    hhd = h * hd
+    wqkv = torch.randn((d, 3 * hhd), generator=g, device=dev) * d ** -0.5
+    bqkv = 0.1 * torch.randn(3 * hhd, generator=g, device=dev)
+    wo = torch.randn((hhd, d), generator=g, device=dev) * hhd ** -0.5
+    bo = 0.1 * torch.randn(d, generator=g, device=dev)
+    do = torch.randn((batch, spq, d), generator=g, device=dev)
+    do[:, seq:] = 0
+    bf = torch.bfloat16
+    return (x.to(bf), wqkv.to(bf), bqkv, wo.to(bf), bo, do.to(bf), seq, h,
+            hd)
+
+
+@pytest.mark.parametrize("shape", K9_SHAPES)
+def test_k9_kernels_match_twins(dev, shape):
+    """K9's forward and every output of its backward (dx, dW, db, dWo, dbo)
+    against the twins; two backward launches give the same bits."""
+    x, w, b, wo, bo, do, *meta = _k9_args(dev, *shape)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        out = ck.fused_qkvo_attention(x, w, b, wo, bo, *meta)
+        grads = ck.fused_qkvo_attention_bwd(x, w, b, wo, do, *meta)
+        again = ck.fused_qkvo_attention_bwd(x, w, b, wo, do, *meta)
+        torch.cuda.synchronize()
+        _assert_close(out, ck.fused_qkvo_attention_ref(x, w, b, wo, bo,
+                                                       *meta))
+        refs = ck.fused_qkvo_attention_bwd_ref(x, w, b, wo, do, *meta)
+    assert len(grads) == len(refs) == 5
+    for g, r, g2 in zip(grads, refs, again):
+        _assert_close(g, r)
+        assert torch.equal(g, g2)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_qkvo_attention": 1, "fused_qkvo_attention_bwd": 2}
+
+
+def test_k9_autograd_launches_both_kernels_and_fp32_raises(dev):
+    """Under autograd K9 runs its forward and backward kernels, dW and dWo
+    come back in their weights' dtype, db and dbo in fp32; an fp32 input
+    raises Queue 1 item 9's message; shapes outside the gate raise."""
+    x, w, b, wo, bo, do, *meta = _k9_args(dev, 2, 200, 197, 768, 12, 64)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b, wo, bo)]
+    ck.reset_launch_counts()
+    ck.fused_qkvo_attention(*leaves, *meta).backward(do)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_qkvo_attention": 1, "fused_qkvo_attention_bwd": 1}
+    for t in leaves:
+        assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        ck.fused_qkvo_attention(x.float(), w.float(), b, wo.float(), bo,
+                                *meta)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        ck.fused_qkvo_attention(x[:, :196].contiguous(), w, b, wo, bo, *meta)
+
+
+# K2 without its residual: ViT-B/16's b32 spq 200 at M 3072 and at the TP
+# shard width M 1536, and a ragged row count
+PARTIAL_SHAPES = [(32, 200, 3072, None), (32, 200, 1536, None),
+                  (3, 200, 1536, 197)]
+
+
+@pytest.mark.parametrize("shape", PARTIAL_SHAPES)
+def test_ln_mlp_partial_kernels_match_twins(dev, shape):
+    """K2's `residual=False` forward and backward against their twins and
+    against the residual kernels (out + x, dx + do: the same bits), counted
+    as fused_ln_mlp_partial{,_bwd}; under autograd both run."""
+    batch, spq, m, rows = shape
+    _, _, mlp = _args(dev, batch, spq, 197, 768, 12, 64, m)
+    x, rest = mlp[0], mlp[1:]
+    if rows is not None:
+        x = x[:, :rows].contiguous()
+    do = torch.randn(x.shape, device=dev).to(torch.bfloat16)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        out = ck.fused_ln_mlp(x, *rest, residual=False)
+        grads = ck.fused_ln_mlp_bwd(x, *rest[:5], do, EPS, residual=False)
+        torch.cuda.synchronize()
+        _assert_close(out, ck.fused_ln_mlp_partial_ref(x, *rest))
+        refs = ck.fused_ln_mlp_partial_bwd_ref(x, *rest[:5], do, EPS)
+        for g, r in zip(grads, refs):
+            _assert_close(g, r)
+        full = ck.fused_ln_mlp(x, *rest)
+        assert torch.equal(x + out, full)
+        full_grads = ck.fused_ln_mlp_bwd(x, *rest[:5], do, EPS)
+        assert torch.equal(do + grads[0], full_grads[0])
+        for g, f in zip(grads[1:], full_grads[1:]):
+            assert torch.equal(g, f)
+    leaves = [t.clone().requires_grad_() for t in (x, *rest[:6])]
+    ck.fused_ln_mlp(*leaves, EPS, residual=False).backward(do)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_mlp_partial": 2, "fused_ln_mlp_partial_bwd": 2,
+        "fused_ln_mlp": 1, "fused_ln_mlp_bwd": 1}

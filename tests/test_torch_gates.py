@@ -150,3 +150,94 @@ def test_l16_at_384_runs_k6_and_its_int8_flags_raise(monkeypatch):
                                    fused_mlp=True, **tier)
         with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             tvit.apply(None, images, cfg)
+
+
+# ------------------------------------------------------------ under a mesh
+
+def test_k9_route_is_vitaxs_under_a_mesh():
+    """Res-ViT under a mesh (vitax/models/resvit.py:220-277, 330-331): its
+    fused half declines, and `attention` takes K9 where vitax's gate without
+    heads passes (fused_qkv, fused_qkvo, no GQA). Wherever vitax takes K9,
+    at every preset × {224, 384}, serving and training, the port's route is
+    K9 and its K9 gate passes, so the port never raises there; elsewhere
+    both run the unfused attention."""
+    from vitax_torch.parallel.mesh import Mesh
+    mesh = Mesh(n_data=1, n_model=1, rank=0, data_group=None,
+                model_group=None)
+    taken = 0
+    for arch, image, mode in CASES:
+        s, d, h = _seq(arch, image)
+        (jx, jw), (tx, tw) = _shapes(2, s, d, 3 * d)
+        cfg = t_config.resvit_arch_config(arch, image, fused_qkv=True,
+                                          fused_qkvo=True)
+        with torch.set_grad_enabled(mode == "train"):
+            vitax_k9 = bool(pk.qkv_attention_supported(jx, jw))
+            assert tr._fused_attention_half(tx, None, cfg, mesh) is None
+            assert tr.attention_is_fused(tx, cfg) == vitax_k9, (arch, image)
+            if vitax_k9:
+                assert tr.k9_supported(tx, tw, cfg), (arch, image, mode)
+                taken += 1
+    assert taken >= 8  # b16 and b32 at both sizes, both modes, at least
+
+
+def _vitax_tp(jx, d, h, hd, m, tp):
+    """vitax's per-shard gates under a model axis of tp
+    (vitax/models/vit.py:190-194, :272-279): K1's at the shard width, the
+    MLP's on the shards; each None where the axis does not split it."""
+    attn = (bool(pk.qkv_attention_supported(
+        jx, jax.ShapeDtypeStruct((d, 3 * (h // tp) * hd), jnp.bfloat16)))
+        if h % tp == 0 else None)
+    w1 = jax.ShapeDtypeStruct((d, m // tp), jnp.bfloat16)
+    w2 = jax.ShapeDtypeStruct((m // tp, d), jnp.bfloat16)
+    mlp = bool(pk.ln_mlp_supported(jx, w1, w2)) if m % tp == 0 else None
+    return attn, mlp
+
+
+# (preset, image, tp) where vitax's per-shard K1 or K2 gate passes and the
+# port's does not: none. (ViT-H/14's attention half declines in both: vitax's
+# gate takes d <= 1024 only, so vitax hands its sharded weights to XLA, and
+# the port raises; its MLP half passes both at tp 2 and 4.)
+TP_PORT_DECLINES = set()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_gates_are_vitaxs(tp):
+    """The per-shard K1 and K2 gates at every preset × {224, 384}, serving
+    and training: the port runs a half per shard only where vitax's gate
+    passes; where vitax's passes and the port's does not
+    (TP_PORT_DECLINES, listed in ROADMAP: none), and where vitax's
+    declines and it would hand the sharded weights to XLA (ViT-H/14's
+    attention half), the port raises; the port's per-shard MLP gate is
+    vitax's (ops/gates.py's copy) with its own."""
+    from vitax_torch.parallel.mesh import Mesh
+    declines, runs = set(), 0
+    for arch, image, mode in CASES:
+        s, d, h = _seq(arch, image)
+        m = t_config.ARCH_PRESETS[arch]["mlp_dim"]
+        (jx, _), (tx, _) = _shapes(2, s, d, 3 * d)
+        cfg = t_config.arch_config(arch, image, 10, fused_qkv=True,
+                                   fused_mlp=True)
+        vitax_attn, vitax_mlp = _vitax_tp(jx, d, h, d // h, m, tp)
+        w1 = torch.empty((d, m // tp), device="meta", dtype=torch.bfloat16)
+        w2 = torch.empty((m // tp, d), device="meta", dtype=torch.bfloat16)
+        assert gates.ln_mlp_supported(tx, w1, w2) == bool(vitax_mlp)
+        assert tvit.tp_mlp_supported(tx, w1, w2) <= bool(vitax_mlp)
+        with torch.set_grad_enabled(mode == "train"):
+            ran = tvit.tp_attention_supported(tx, cfg, tp)
+        assert ran <= bool(vitax_attn), (arch, image, mode)
+        if (vitax_attn and not ran) or (vitax_mlp and not
+                                         tvit.tp_mlp_supported(tx, w1, w2)):
+            declines.add((arch, image, tp))
+        runs += ran
+    assert declines == {c for c in TP_PORT_DECLINES if c[2] == tp}
+    assert runs > 0
+    s, d, h = _seq("h14", 224)
+    (jx, _), _ = _shapes(2, s, d, 3 * d)
+    assert _vitax_tp(jx, d, h, d // h, 4 * d, tp)[0] is False
+    cfg = t_config.arch_config("h14", 224, 10, fused_qkv=True,
+                               fused_mlp=True)
+    mesh = Mesh(n_data=1, n_model=tp, rank=0, data_group=None,
+                model_group=None)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        tvit._tp_attention(torch.empty((2, s, d), device="meta",
+                                       dtype=torch.bfloat16), None, cfg, mesh)

@@ -187,6 +187,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ck.fused_qkv_attention(t["x"], t["wqkv"], t["bqkv"], SEQ, H, HD)
     ck.fused_qkv_attention_bwd(t["x"], t["wqkv"], t["bqkv"],
                                t["x"][..., :H * HD], SEQ, H, HD)
+    ck.fused_qkvo_attention(t["x"], t["wqkv"], t["bqkv"], t["wo"], t["bo"],
+                            SEQ, H, HD)
+    ck.fused_qkvo_attention_bwd(t["x"], t["wqkv"], t["bqkv"], t["wo"],
+                                t["x"], SEQ, H, HD)
+    ck.fused_ln_mlp(*mlp, t["b2"], EPS, residual=False)
+    ck.fused_ln_mlp_bwd(*mlp, t["x"], EPS, residual=False)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -233,7 +239,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_ln_qkvo_attention_int4_gqa_bwd": 0,
                                   "fused_ln_qkvo_attention_int4_gqa_dw_bwd":
                                   0, "fused_qkv_attention": 0,
-                                  "fused_qkv_attention_bwd": 0}
+                                  "fused_qkv_attention_bwd": 0,
+                                  "fused_qkvo_attention": 0,
+                                  "fused_qkvo_attention_bwd": 0,
+                                  "fused_ln_mlp_partial": 0,
+                                  "fused_ln_mlp_partial_bwd": 0}
 
 
 def test_hopper_gates():

@@ -253,11 +253,29 @@ def test_store_checkpoint_directory_loads(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--checkpoint-path", "model.pth"], "Queue 1 item 4"),
-    (["--n_gpu", "2"], "Queue 1 item 5")])
+    (["--checkpoint-path", "model.pth"], "Queue 1 item 4")])
 def test_unported_options_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         t_eval.main(TINY + extra, device="cpu")
+
+
+def test_n_gpu_is_parsed_and_not_read_as_vitax(vitax_weights, tmp_path):
+    """vitax's resvit_eval_cli parses --n_gpu and never reads it (it builds
+    no mesh), and so does the port's: with --n_gpu 2 the namespace, the
+    model arguments and the metrics are vitax's, and the port's metrics
+    are its own without the flag, to the bit."""
+    argv = TINY + ["--dtype", "float32", "--n_gpu", "2"]
+    t_cfg, j_cfg = t_eval.get_eval_config(argv), j_eval.get_eval_config(argv)
+    assert vars(t_cfg) == vars(j_cfg) and t_cfg.n_gpu == 2
+    assert _fields(j_train.config_to_model_args(j_cfg)) == _fields(
+        t_train.config_to_model_args(t_cfg, torch.device("cpu")))
+    out = t_eval.main(argv, device="cpu")  # builds the weights first
+    ref = j_eval.main(argv)
+    for k in ("loss", "c_loss", "router_entropy"):
+        np.testing.assert_allclose(out[k], ref[k], rtol=1e-4, atol=1e-4)
+    for k in ("acc1", "acc5", "non_low_rank_ratio"):
+        assert out[k] == pytest.approx(ref[k], abs=1e-6), k
+    assert t_eval.main(argv[:-2], device="cpu") == out
 
 
 def test_train_main_names_the_training_item(tmp_path):

@@ -246,7 +246,7 @@ def test_three_train_steps_with_token_drop_match_vitax(weights, monkeypatch):
         assert keep_ratio == 0.5 and x.shape[1] == 10
         return jnp.take_along_axis(x, jnp.asarray(idx)[:, :, None], axis=1)
 
-    def t_inject(x, gen, keep_ratio, n_pinned=1, idx_=None):
+    def t_inject(x, gen, keep_ratio, n_pinned=1, idx_=None, mesh=None):
         return t_drop(x, gen, keep_ratio, n_pinned, idx=torch.from_numpy(idx))
 
     monkeypatch.setattr(jvit, "drop_tokens", j_inject)

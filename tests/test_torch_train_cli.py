@@ -161,7 +161,14 @@ def test_npz_checkpoint_with_another_head_is_reinitialized(tmp_path, capsys):
     ["--checkpoint-path", "weights/model.pth"],
 ])
 def test_unported_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Each names its ROADMAP item; --n-gpu 2 is ported, and in one process
+    it says to launch one process per card with torchrun (--n-model 2 on
+    the tiny preset raises tensor parallelism's item: its fused halves are
+    off on the CPU)."""
+    error, match = ((ValueError, "torchrun --nproc_per_node")
+                    if flags == ["--n-gpu", "2"]
+                    else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         train_cli.main(TINY + ["--synthetic-samples", "8", "--exp-root",
                                str(tmp_path)] + flags, device="cpu")
 

@@ -4,15 +4,18 @@ The parsed namespaces equal vitax's (names, defaults, choices), so a command
 line means the same run in both packages. In the port, `--no-pallas` turns
 the hand-written CUDA kernels off (plain PyTorch ops), `--fused-qkv` /
 `--fused-mlp` default on when the device is CUDA, and `--n-gpu` is the number
-of cards (0 or 1 until data-parallel eval is ported). Flags of tiers the port
-has not ported yet are parsed and rejected where they would take effect.
+of cards, one process each under torchrun (0: as many as the run has). Flags
+of tiers the port has not ported yet are parsed and rejected where they
+would take effect.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from vitax_torch.core.config import num_classes_for_dataset
 from vitax_torch.utils.experiment import process_config
@@ -132,7 +135,16 @@ def get_train_config(argv=None):
     cfg = p.parse_args(argv)
     if cfg.num_classes is None:
         cfg.num_classes = num_classes_for_dataset(cfg.dataset)
-    return process_config(cfg, root=cfg.exp_root)
+    return process_config(cfg, root=cfg.exp_root, write=_lead())
+
+
+def _lead() -> bool:
+    """Whether this process writes the run's files: rank 0 of the process
+    group that torchrun describes (RANK) or that the caller started; every
+    process without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return os.environ.get("RANK", "0") == "0"
 
 
 def get_eval_config(argv=None):
@@ -154,12 +166,14 @@ def print_config(config) -> None:
 
 def resolve_device(device=None) -> torch.device:
     """The CLIs' device: the card unless the caller asks for the CPU
-    (`device="cpu"`, as the CPU tests do). Without a card and without that
-    request it raises: the port does not fall back to the CPU."""
+    (`device="cpu"`, as the CPU tests do); under torchrun the card of
+    LOCAL_RANK. Without a card and without that request it raises: the port
+    does not fall back to the CPU."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA card: the vitax_torch CLIs run on the card; pass "
                 "device='cpu' to main() to run the plain path on the CPU")
-        device = "cuda"
+        device = (f"cuda:{os.environ['LOCAL_RANK']}"
+                  if "LOCAL_RANK" in os.environ else "cuda")
     return torch.device(device)

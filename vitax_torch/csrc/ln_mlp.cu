@@ -7,6 +7,10 @@
 // Rounding points match the TPU kernel: xn is cast to bf16 before fc1
 // (:608); a1 = fp32 acc + b1 and GELU in fp32, then the cast (:611);
 // y = fp32 acc + b2, cast to bf16, and the residual add in bf16 (:615).
+// With residual == 0 it is the kernel's `residual=False` branch (:614), which
+// vitax's tensor-parallel MLP half runs per model shard
+// (vitax/parallel/tp_kernels.py:116-119): out = bf16(fc2(...) + b2), no x +,
+// the last GEMM's epilogue kBias in place of kBiasResidual.
 //
 // Bound on the H100: the two GEMMs, 4*N*D*M flops against ~2*N*D + D*M*4
 // bytes, well above the card's ridge point. Design of this first version:
@@ -22,7 +26,7 @@
 extern "C" int vitax_ln_mlp_fwd(const void* x, const void* gamma, const void* beta,
                                 const void* w1, const void* b1, const void* w2, const void* b2,
                                 void* xn, void* h1, void* out, int n, int d, int m, float eps,
-                                void* stream) {
+                                int residual, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
@@ -35,6 +39,10 @@ extern "C" int vitax_ln_mlp_fwd(const void* x, const void* gamma, const void* be
                                             static_cast<const float*>(b1), nullptr, h1b, n, m, d,
                                             st);
   if (e != cudaSuccess) return e;
+  if (!residual)
+    return vitax::launch_gemm<vitax::kBias>(h1b, static_cast<const bf16*>(w2),
+                                            static_cast<const float*>(b2), nullptr,
+                                            static_cast<bf16*>(out), n, d, m, st);
   return vitax::launch_gemm<vitax::kBiasResidual>(h1b, static_cast<const bf16*>(w2),
                                                   static_cast<const float*>(b2), xb,
                                                   static_cast<bf16*>(out), n, d, m, st);

@@ -7,10 +7,15 @@ on the card unless the caller of `main` asks for the CPU (`device="cpu"`);
 on the card the fused kernels are on by default (`--no-fused-qkv`,
 `--no-fused-mlp` and `--no-pallas` turn them off; with `--no-fused-qkv`
 the attention half is the LN kernel, plain projections and K13, the
-standalone attention core).
+standalone attention core). `--n-gpu N` under `torchrun --nproc_per_node N`
+evaluates data-parallel: each rank runs its rows of every batch (the batch
+size a multiple of N, as vitax requires) and the weighted metric sums are
+added up over the ranks.
 
 Run: `python -m vitax_torch.eval_cli --dataset Synthetic --model-arch b16 \
           --image-size 224 --batch-size 64`
+(`torchrun --nproc_per_node N -m vitax_torch.eval_cli --n-gpu N ...` on N
+cards)
 """
 
 from __future__ import annotations
@@ -26,24 +31,30 @@ from vitax_torch.core.config import arch_config
 from vitax_torch.core.prng import set_seed
 from vitax_torch.data import get_dataloader
 from vitax_torch.models import vit
+from vitax_torch.parallel import cli_mesh, init_distributed, local_rows
+from vitax_torch.train.steps import weighted_means
 
 
-def make_weighted_eval_step(cfg):
+def make_weighted_eval_step(cfg, mesh=None):
     """Eval step with a padding mask so the padded final batch counts only
-    real samples (vitax/train_cli.py:97-117)."""
+    real samples (vitax/train_cli.py:97-117). Under a mesh each rank runs
+    its rows of the global batch and the weighted sums are added up over
+    the data group; params are this rank's (shards under a model axis)."""
 
     @torch.inference_mode()
     def step_fn(params, images, labels, weight):
-        logits = vit.apply(params, images, cfg).float()
+        images, labels, weight = (local_rows(mesh, t)
+                                  for t in (images, labels, weight))
+        logits = vit.apply(params, images, cfg, mesh=mesh).float()
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(1, labels[:, None].long())[:, 0]
-        wsum = weight.sum().clamp_min(1.0)
-        out = {"loss": (nll * weight).sum() / wsum}
         top = logits.topk(5, dim=-1).indices
         correct = top == labels[:, None]
-        out["acc1"] = (correct[:, 0].float() * weight).sum() / wsum
-        out["acc5"] = (correct.any(dim=-1).float() * weight).sum() / wsum
-        return out
+        return weighted_means(
+            {"loss": (nll * weight).sum(),
+             "acc1": (correct[:, 0].float() * weight).sum(),
+             "acc5": (correct.any(dim=-1).float() * weight).sum()},
+            weight.sum(), mesh)
 
     return step_fn
 
@@ -52,13 +63,18 @@ def main(argv=None, device=None):
     """`device`: None for the card (raises without one), or "cpu"."""
     config = cli.get_eval_config(argv)
     cli.print_config(config)
-    if config.n_gpu > 1:
-        raise NotImplementedError(
-            "--n-gpu > 1: data-parallel eval comes with the parallel/ port "
-            "(ROADMAP Queue 1 item 5)")
     gen = set_seed(config.seed)
 
     device = cli.resolve_device(device)
+    init_distributed(device)
+    # data-parallel eval over the processes (vitax/eval_cli.py:72-81)
+    mesh = cli_mesh(config.n_gpu)
+    if mesh is not None:
+        print(f"mesh: {mesh.shape} over {mesh.n_data} {device.type} "
+              "process(es)")
+        if config.batch_size % mesh.n_data:
+            raise SystemExit("--batch-size must divide the device count for "
+                             "data-parallel eval")
     on_gpu = device.type == "cuda"
     dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
     cfg = arch_config(config.model_arch, image_size=config.image_size,
@@ -101,7 +117,7 @@ def main(argv=None, device=None):
         from vitax_torch.kernels import build
         build.load()  # set-up: build the kernels before the timed loop
 
-    eval_step = make_weighted_eval_step(cfg)
+    eval_step = make_weighted_eval_step(cfg, mesh)
     totals = {"loss": 0.0, "acc1": 0.0, "acc5": 0.0}
     n = 0.0
     t0 = time.time()

@@ -32,7 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # 64-bit device addresses are not cut to 32 bits)
 SIGNATURES = {
     "vitax_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "vitax_ln_mlp_fwd": [_P] * 10 + [_I, _I, _I, _F, _P],
+    "vitax_ln_mlp_fwd": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_qkvo_attention_fwd": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "vitax_layer_norm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
     "vitax_ln_mlp_bwd": [_P] * 20 + [_I, _I, _I, _F, _I, _P],
@@ -63,6 +63,8 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_rect_int4_bwd": [_P] * 63 + [_I] * 10 + [_F, _F, _P],
     "vitax_qkv_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
     "vitax_qkv_attention_bwd": [_P] * 13 + [_I] * 6 + [_F, _P],
+    "vitax_qkvo_attention_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "vitax_qkvo_attention_bwd": [_P] * 17 + [_I] * 6 + [_F, _P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {
@@ -71,6 +73,7 @@ WORKSPACE_SIGNATURES = {
     "vitax_ln_qkvo_attention_bwd_ws": [_I] * 4,
     "vitax_ln_qkvo_attention_rect_bwd_ws": [_I] * 4,
     "vitax_qkv_attention_bwd_ws": [_I] * 3,
+    "vitax_qkvo_attention_bwd_ws": [_I] * 4,
 }
 
 _lib = None

@@ -25,6 +25,11 @@ compacted blocks and the teacher's included, and the out-projection is a
 plain product, as vitax's `attention`; `fused_mlp` takes
 the MLP half to K2 (K4 with `int8_mlp`, K11-A with `int4_mlp`); LayerNorms
 elsewhere (router, final norm, the plain MLP half) take the LN kernel. Under
+a mesh (`apply(..., mesh=)`) the fused attention halves decline, as vitax's
+do for any mesh, a data-parallel one too: every attention half, the
+teacher's and the compacted blocks' included, is the LN kernel and then K9
+(the QKV projection, the core and the out-projection) with fused_qkvo, K10
+without, and the compacted blocks compact only their MLP half. Under
 autograd each has its backward kernel. With them off it is plain PyTorch
 ops.
 
@@ -54,6 +59,7 @@ from vitax_torch.ops.layernorm import layer_norm
 from vitax_torch.ops.mlp import gelu_exact
 from vitax_torch.models.vit import drop_tokens
 from vitax_torch.ops.patchify import patchify_matmul
+from vitax_torch.parallel.mesh import Mesh, draw_rows, local_rows, tp_size
 
 Params = Dict[str, Any]
 
@@ -321,26 +327,31 @@ def _kv_heads(cfg: ResViTConfig) -> int:
     return cfg.n_kv_heads or cfg.n_heads
 
 
-def attention(x: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
+def attention(x: torch.Tensor, p: Params, cfg: ResViTConfig,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Self-attention of the LN'd input, fp32 softmax (res-vit/model.py:
-    237-299), dispatched as vitax's `attention` on one device
-    (vitax/models/resvit.py:220-291): where vitax's fused branch runs
-    (`attention_is_fused`), K10 (`_k10_attention`), else the unfused path,
-    whose core is K13 with the kernels on. int8_attn and int4_attn do not
-    reach this half, as in vitax: K10 runs in the model's dtype whatever the
-    MLP half's tier."""
+    237-299), dispatched as vitax's `attention` (vitax/models/resvit.py:
+    220-291): where vitax's fused branch runs (`attention_is_fused`), K9
+    with fused_qkvo (`_k9_attention`) and K10 without (`_k10_attention`),
+    else the unfused path, whose core is K13 with the kernels on. int8_attn
+    and int4_attn do not reach this half, as in vitax: K9 and K10 run in the
+    model's dtype whatever the MLP half's tier. `mesh`: a mesh whose model
+    axis is 1 (`apply` refuses the others)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, _kv_heads(cfg), cfg.head_dim
     if attention_is_fused(x, cfg):
-        if cfg.fused_qkvo:
-            # vitax's _fused_attention_half ran K1 under this same gate before
-            # `attention` was reached, so on one device vitax never starts
-            # K9 or K10 here; the port gets here only where its own K1 gate
+        if not cfg.fused_qkvo:
+            return _k10_attention(x, p, cfg)
+        if mesh is None:
+            # without a mesh vitax's _fused_attention_half ran K1 under this
+            # same gate before `attention` was reached, so vitax starts K9
+            # here only under a mesh (where that half declines, :330-331);
+            # the port gets here without one only where its own K1 gate
             # refused what vitax's took (no preset today)
             raise NotImplementedError(
                 "vitax's gate takes this fused attention half (K1) and the "
                 "port's K1 gate does not (Hopper shared memory, head dims)")
-        return _k10_attention(x, p, cfg)
+        return _k9_attention(x, p, cfg)
     q = _linear(x, p["wq"])
     k = _linear(x, p["wk"])
     v = _linear(x, p["wv"])
@@ -359,8 +370,8 @@ def attention_is_fused(x: torch.Tensor, cfg: ResViTConfig) -> bool:
     """Whether vitax's `attention` takes its fused branch for the LN'd x:
     fused_qkv without GQA where its gate passes (vitax/models/resvit.py:
     227, 266); there it runs K10 without fused_qkvo (:278) and K9 with it
-    (:270-277, reached on one device only where the square half declined
-    under the same gate, i.e. never)."""
+    (:270-277, reached under a mesh, and on one device only where the
+    square half declined under the same gate, i.e. never)."""
     wqkv = torch.empty((x.shape[-1], 3 * cfg.n_heads * cfg.head_dim),
                        device="meta")
     return (cfg.fused_qkv and _kv_heads(cfg) == cfg.n_heads
@@ -393,6 +404,37 @@ def _k10_attention(x: torch.Tensor, p: Params, cfg: ResViTConfig
     out = ck.fused_qkv_attention(_pad_rows(x), wqkv, bqkv, s, cfg.n_heads,
                                  cfg.head_dim)[:, :s]
     return _linear(out, p["wo"])
+
+
+def k9_supported(x: torch.Tensor, wqkv: torch.Tensor,
+                 cfg: ResViTConfig) -> bool:
+    """The port's K9 gate for the LN'd x: its backward's under autograd."""
+    gate = (ck.fused_qkvo_attention_bwd_supported if torch.is_grad_enabled()
+            else ck.fused_qkvo_attention_supported)
+    return gate(x, wqkv, cfg.n_heads)
+
+
+def _k9_attention(x: torch.Tensor, p: Params, cfg: ResViTConfig
+                  ) -> torch.Tensor:
+    """vitax's fused branch with fused_qkvo (vitax/models/resvit.py:227-277,
+    the branch a mesh reaches): the merged qkv weight with LoRA folded
+    (autograd carries dA and dB through the fold), K9 on the rows padded to
+    spq (the out-projection inside the kernel), the real rows. Raises where
+    the port's K9 gate refuses what vitax's takes, rather than run the
+    unfused path."""
+    s = x.shape[1]
+    dt = x.dtype
+    wqkv, bqkv = _merged_qkv(p, cfg, dt)
+    if not k9_supported(x, wqkv, cfg):
+        raise NotImplementedError(
+            "vitax's gate takes this attention half to its "
+            "fused_qkvo_attention (K9) and the port's K9 gate does not "
+            "(Hopper shared memory, head dims)")
+    out = ck.fused_qkvo_attention(_pad_rows(x), wqkv, bqkv,
+                                  p["wo"]["kernel"].to(dt).contiguous(),
+                                  p["wo"]["bias"].float(), s, cfg.n_heads,
+                                  cfg.head_dim)
+    return out[:, :s].to(dt)
 
 
 def square_half_supported(x: torch.Tensor, wqkv: torch.Tensor,
@@ -447,7 +489,8 @@ def _pad_rows(t: torch.Tensor) -> torch.Tensor:
     return F.pad(t, (0, 0, 0, (s + 7) // 8 * 8 - s)).contiguous()
 
 
-def _fused_attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig
+def _fused_attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig,
+                          mesh: Optional[Mesh] = None
                           ) -> Optional[torch.Tensor]:
     """LN + qkv (LoRA folded) + attention + out-projection in one kernel for
     the pre-LN input x: K1, K7 with GQA, K3 with int8_attn (K7's int8 tier
@@ -455,8 +498,8 @@ def _fused_attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig
     backward's tier as vitax's (vitax/models/resvit.py:340-352: int4_grad
     only with int4_attn, and K11-D only under int8_grad too). Returns the
     half-block output without the residual, or None when vitax's gate or
-    the port's declines."""
-    if not (cfg.fused_qkv and cfg.fused_qkvo):
+    the port's declines, and under any mesh, as vitax's (:330-331)."""
+    if not (cfg.fused_qkv and cfg.fused_qkvo) or mesh is not None:
         return None
     hkv = _kv_heads(cfg)
     b, s, d = x.shape
@@ -544,21 +587,21 @@ def _mlp_half(h: torch.Tensor, p: Params, cfg: ResViTConfig) -> torch.Tensor:
                                        use_kernels=cfg.use_pallas), ffp)
 
 
-def _attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig
-                    ) -> torch.Tensor:
-    h_att = _fused_attention_half(x, p, cfg)
+def _attention_half(x: torch.Tensor, p: Params, cfg: ResViTConfig,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
+    h_att = _fused_attention_half(x, p, cfg, mesh)
     if h_att is None:
         h_att = attention(layer_norm(x, p["attention_norm"]["scale"],
                                      p["attention_norm"]["bias"],
                                      cfg.norm_eps, use_kernels=cfg.use_pallas),
-                          p["attention"], cfg)
+                          p["attention"], cfg, mesh)
     return h_att
 
 
-def plain_block(x: torch.Tensor, p: Params, cfg: ResViTConfig
-                ) -> torch.Tensor:
+def plain_block(x: torch.Tensor, p: Params, cfg: ResViTConfig,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Pre-LN block (res-vit/model.py:436-444)."""
-    return _mlp_half(x + _attention_half(x, p, cfg), p, cfg)
+    return _mlp_half(x + _attention_half(x, p, cfg, mesh), p, cfg)
 
 
 def _compact_rank_key(active: torch.Tensor,
@@ -581,26 +624,28 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def compact_routed_block(x: torch.Tensor, p: Params, cfg: ResViTConfig,
                          active: torch.Tensor, cap: int,
-                         score: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         score: Optional[torch.Tensor] = None,
+                         mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Routed block with token compaction: `where(active, block(x), x)` with
     the block's query rows and MLP half run only on the top-`cap` tokens
     ranked active first (vitax's compact_routed_block). K and V come from
     all tokens. vitax moves the rows with one-hot matmuls (a TPU choice);
     here they are gathered and scattered, which copies the same bits.
-    Actives beyond capacity keep x; the caller decides their fate."""
+    Actives beyond capacity keep x; the caller decides their fate. Under a
+    mesh the rect half declines (vitax/models/resvit.py:499): the square
+    half runs on all rows and only the MLP half is compacted."""
     order = torch.argsort(_compact_rank_key(active, score), dim=-1,
                           stable=True)
     keep_idx = order[:, :cap]
     kept_active = torch.gather(active, 1, keep_idx)
     x_c = _rows(x, keep_idx)
     h_c = None
-    if cfg.compact_attention:
+    if cfg.compact_attention and mesh is None:
         attn_c = _fused_attention_half_rect(x, x_c, p, cfg)
         if attn_c is not None:
             h_c = x_c + attn_c
     if h_c is None:
-        h_c = _rows(x + _attention_half(x, p, cfg), keep_idx)
+        h_c = _rows(x + _attention_half(x, p, cfg, mesh), keep_idx)
     out_c = _mlp_half(h_c, p, cfg).to(x.dtype)
     vals = torch.where(kept_active[..., None], out_c, x_c)
     return x.scatter(1, keep_idx[..., None].expand(-1, -1, x.shape[-1]),
@@ -762,7 +807,8 @@ def embed(params: Params, images: torch.Tensor, cfg: ResViTConfig
 
 def apply(params: Params, images: torch.Tensor, cfg: ResViTConfig, *,
           train: bool = False, gen: Optional[torch.Generator] = None,
-          noise: Optional[Dict[str, Any]] = None
+          noise: Optional[Dict[str, Any]] = None,
+          mesh: Optional[Mesh] = None
           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Forward: NHWC images → (fp32 logits, aux). aux: d_loss (the summed
     per-layer cls distill MSE in training, 0 in eval), r_entropy,
@@ -775,7 +821,21 @@ def apply(params: Params, images: torch.Tensor, cfg: ResViTConfig, *,
     where it holds it — "gumbel": {layer id of a block head: [B,N,bs,2]},
     "token_idx": [B, kept] (vit.drop_tokens' `idx`) — else from `gen`.
     Params in vitax's stacked layout run unstacked (as vitax, not with
-    compact_capacity)."""
+    compact_capacity).
+
+    mesh: vitax's dispatch under a mesh (its `_fused_attention_half`
+    declines, so `attention` runs K9, and the rect half declines); images
+    are this rank's rows of the global batch, whose randomness (and the
+    injected `noise`, which is the global batch's) is drawn whole and cut
+    by data index. A model axis > 1 raises: vitax shards wq/wk/wv/wo and
+    fc1/fc2 there, which the port does not run yet."""
+    if tp_size(mesh) > 1:
+        raise NotImplementedError(
+            f"Res-ViT under a model axis of {tp_size(mesh)}: its sharded "
+            "attention and MLP weights, and the MLP half and approximators "
+            "that vitax leaves to XLA on them, are not ported; ROADMAP "
+            'Queue 1 item 10, "Res-ViT under tensor parallelism". Run it '
+            "with --n-model 1")
     if is_stacked(params):
         if cfg.compact_capacity is not None:
             raise ValueError("compact_capacity requires the unrolled loop "
@@ -785,24 +845,28 @@ def apply(params: Params, images: torch.Tensor, cfg: ResViTConfig, *,
         raise NotImplementedError(
             f"remat={cfg.remat!r}: block rematerialization is not ported "
             "(ROADMAP Queue 1 item 6)")
-    return _apply_loop(params, images, cfg, train, gen, noise or {})
+    return _apply_loop(params, images, cfg, train, gen, noise or {}, mesh)
 
 
-def _gumbel(noise: Dict[str, Any], lid: int, shape, gen, dev) -> torch.Tensor:
+def _gumbel(noise: Dict[str, Any], lid: int, shape, gen, dev,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The Gumbel noise of block head `lid`: injected, or −log(E) with E
-    standard exponential from `gen`."""
+    standard exponential from `gen`; under a mesh this rank's rows of the
+    global batch's."""
     g = noise.get("gumbel", {}).get(lid)
     if g is not None:
-        return g.to(device=dev, dtype=torch.float32)
+        return local_rows(mesh, g).to(device=dev, dtype=torch.float32)
     if gen is None:
         raise ValueError("Res-ViT training needs a generator or the noise")
-    e = torch.empty(shape, device=gen.device).exponential_(generator=gen)
+    e = draw_rows(mesh, shape, lambda sh: torch.empty(
+        sh, device=gen.device).exponential_(generator=gen))
     return (-torch.log(e)).to(dev)
 
 
 def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig,
                 train: bool = False, gen: Optional[torch.Generator] = None,
-                noise: Optional[Dict[str, Any]] = None
+                noise: Optional[Dict[str, Any]] = None,
+                mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Unrolled per-layer loop (vitax's _apply_loop). The teacher runs
     without autograd: vitax stops its gradient at the cls token it reads, so
@@ -818,9 +882,11 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig,
         if idx is None and gen is None:
             raise ValueError("token_keep < 1.0 needs a generator or the "
                              "kept indices in training")
+        if idx is not None:
+            idx = local_rows(mesh, idx)
         student = drop_tokens(student, gen, cfg.token_keep,
                               n_pinned=max(1, cfg.dynamic_reserve_initials),
-                              idx=idx)
+                              idx=idx, mesh=mesh)
     teacher = student
     b, n, _ = student.shape
     dev = student.device
@@ -840,7 +906,7 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig,
     for lid, role in enumerate(roles):
         lp = params["layers"][lid]
         if not role["routed"]:
-            student = plain_block(student, lp, cfg)
+            student = plain_block(student, lp, cfg, mesh)
             # plain layers collapse the teacher onto the student path
             # (res-vit/model.py:440-444)
             teacher = student
@@ -848,8 +914,8 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig,
             continue
 
         if role["is_block_head"]:
-            g = (_gumbel(noise, lid, (b, n, cfg.block_size, 2), gen, dev)
-                 if train else None)
+            g = (_gumbel(noise, lid, (b, n, cfg.block_size, 2), gen, dev,
+                         mesh) if train else None)
             hard, path_ids, entropy, soft, ent_rows = router_forward(
                 student, lp["router"], cfg, train=train, gumbel=g)
             block_ctx = {"hard": hard[..., 1], "path_ids": path_ids,
@@ -867,7 +933,7 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig,
         attn_mask = _isin(path_ids, trans_ids)[..., None]
         if train:
             with torch.no_grad():
-                teacher = plain_block(teacher, lp, cfg)
+                teacher = plain_block(teacher, lp, cfg, mesh)
         if cap is not None:
             active = attn_mask[..., 0]
             score = None
@@ -890,10 +956,10 @@ def _apply_loop(params: Params, images: torch.Tensor, cfg: ResViTConfig,
                 path_ids = path_ids - wpos * overflow.to(torch.int32)
                 block_ctx["path_ids"] = path_ids
             merged = compact_routed_block(student, lp, cfg, active, cap,
-                                          score)
+                                          score, mesh)
         else:
-            merged = torch.where(attn_mask, plain_block(student, lp, cfg),
-                                 student)
+            merged = torch.where(attn_mask,
+                                 plain_block(student, lp, cfg, mesh), student)
         student = apply_approximators(merged, block_ctx["approx_params"],
                                       path_ids, lora_ids)
         if train:

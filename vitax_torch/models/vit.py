@@ -22,7 +22,9 @@ train: with `fused_qkv` and `fused_mlp` each encoder block is two fused
 kernels (the attention half K1, or K6, its KV-chunked core, where K1's
 whole-row core does not fit, as for ViT-H/14; the MLP half K2) on a
 residual stream padded once to a multiple of 8 rows (under
-autograd, their backward kernels run through `torch.autograd.Function`s),
+autograd, their backward kernels run through `torch.autograd.Function`s;
+under a mesh with a model axis > 1, K1 and K2 without its residual per
+model shard, parallel/tp_kernels.py),
 in bf16 or, with `int8_attn`/`int8_mlp` (and their `_grad` flags and
 `int8_dw`), in the W8A8 tiers, which on short or very long streams hand
 each block's packed int8 input over from the previous one (K5, vitax's auto
@@ -46,6 +48,7 @@ from vitax_torch.ops.common import matmul_f32
 from vitax_torch.ops.layernorm import layer_norm
 from vitax_torch.ops.mlp import gelu_exact
 from vitax_torch.ops.patchify import patchify_matmul
+from vitax_torch.parallel.mesh import Mesh, draw_rows, tp_size
 
 Params = Dict[str, Any]
 
@@ -120,14 +123,23 @@ def reinit_classifier(params: Params, gen: torch.Generator, num_classes: int
     return new
 
 
+def _uniform(gen: torch.Generator, shape, mesh: Optional[Mesh] = None
+             ) -> torch.Tensor:
+    """U[0, 1) of `shape` from `gen` on its own device; under a mesh this
+    rank's rows of the global batch's draw (`draw_rows`)."""
+    return draw_rows(mesh, shape, lambda sh: torch.rand(
+        sh, generator=gen, device=gen.device))
+
+
 def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
-             deterministic: bool) -> torch.Tensor:
+             deterministic: bool, mesh: Optional[Mesh] = None
+             ) -> torch.Tensor:
     """Inverted dropout, plain ops (every preset has rate 0). The mask is
-    drawn from `gen` on its own device."""
+    drawn from `gen` on its own device (the global batch's under a mesh)."""
     if deterministic or rate <= 0.0 or gen is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=gen.device) < keep
+    mask = _uniform(gen, x.shape, mesh) < keep
     mask = mask.to(x.device)
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
@@ -211,6 +223,13 @@ def _low_precision(cfg: ViTConfig) -> bool:
             or cfg.int4_attn or cfg.int4_grad)
 
 
+_TP = ("under tensor parallelism the port runs the attention half as K1 and "
+       "the MLP half as K2 per model shard, in bf16 with both fused halves "
+       "on, and raises where vitax would hand the sharded weights to XLA "
+       "or to an int8/int4 tier: ROADMAP Queue 1 item 5 (the rest of "
+       "tensor parallelism) and Queue 2 (the int8/int4 MLP halves without "
+       "the residual)")
+
 _WIDE_TIERS = ("the int8/int4 tiers are not ported at d > 1024 or on the "
                "KV-chunked attention half (K6), where vitax demotes them to "
                "bf16 without a word; ROADMAP Queue 1 item 8, \"int8/int4 "
@@ -223,6 +242,89 @@ def check_tiers(cfg: ViTConfig) -> None:
     the model, `apply` before it runs."""
     if _low_precision(cfg) and cfg.emb_dim > ck.MLP_MONO_MAX_D:
         raise NotImplementedError(f"d {cfg.emb_dim}: {_WIDE_TIERS}")
+
+
+def check_tp(cfg: ViTConfig, tp: int) -> None:
+    """Raise for what the port does not run under a model axis of `tp` > 1:
+    an int8/int4 tier, a fused half off, active dropout, or heads or the
+    MLP width that the model axis does not split. The CLIs call it before
+    they build the mesh, `apply` before it runs."""
+    if tp <= 1:
+        return
+    what = ("an int8/int4 tier" if _low_precision(cfg)
+            else "the fused attention half off" if not cfg.fused_qkv
+            else "the fused MLP half off" if not cfg.fused_mlp
+            else "dropout" if cfg.dropout_rate > 0.0
+            else f"{cfg.num_heads} heads" if cfg.num_heads % tp
+            else f"MLP width {cfg.mlp_dim}" if cfg.mlp_dim % tp else None)
+    if what is not None:
+        raise NotImplementedError(f"--n-model {tp} with {what}: {_TP}")
+
+
+def tp_attention_supported(x: torch.Tensor, cfg: ViTConfig, tp: int
+                           ) -> bool:
+    """Whether the attention half runs per model shard: K1's gate at the
+    shard width 3·(H/tp)·Hd, vitax's (vitax/models/vit.py:190-194) and the
+    port's (its backward's under autograd)."""
+    d, h, hd = x.shape[-1], cfg.num_heads, cfg.head_dim
+    wqkv = torch.empty((d, 3 * (h // tp) * hd), device="meta", dtype=x.dtype)
+    gate = (ck.qkv_attention_bwd_supported if torch.is_grad_enabled()
+            else ck.qkv_attention_supported)
+    return (h % tp == 0 and gates.qkv_attention_supported(x, wqkv)
+            and gate(x, wqkv, h // tp))
+
+
+def tp_mlp_supported(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+                     ) -> bool:
+    """Whether the MLP half runs per model shard on this rank's shards w1
+    [D, M/tp], w2 [M/tp, D]: vitax's gate (vitax/models/vit.py:276-279)
+    and the port's."""
+    return (gates.ln_mlp_supported(x, w1, w2)
+            and ck.ln_mlp_supported(x, w1, w2))
+
+
+def _tp_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig, mesh: Mesh
+                  ) -> torch.Tensor:
+    """The attention half per model shard (vitax/models/vit.py:190-214): K1
+    on this rank's heads, on x padded to spq; raises where vitax's gate or
+    the port's declines (vitax would run its unfused attention on the
+    sharded weights)."""
+    from vitax_torch.parallel.tp_kernels import fused_ln_qkvo_attention_tp
+    dt = x.dtype
+    b, s, d = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    if not tp_attention_supported(x, cfg, tp_size(mesh)):
+        raise NotImplementedError(
+            f"x {tuple(x.shape)}, {h // tp_size(mesh)} heads a shard: "
+            f"vitax's or the port's gate declines K1 per model shard; {_TP}")
+    p = lp["attn"]
+    spq = (s + 7) // 8 * 8
+    out = fused_ln_qkvo_attention_tp(
+        F.pad(x, (0, 0, 0, spq - s)).contiguous(),
+        lp["ln1"]["scale"].float(), lp["ln1"]["bias"].float(),
+        *(p[k]["kernel"].to(dt) for k in ("query", "key", "value")),
+        *(p[k]["bias"].float() for k in ("query", "key", "value")),
+        p["out"]["kernel"].to(dt), p["out"]["bias"].float(), mesh, LN_EPS, s,
+        h, hd)
+    return out[:, :s].to(dt)
+
+
+def _tp_mlp(x: torch.Tensor, lp: Params, mesh: Mesh) -> torch.Tensor:
+    """The MLP half per model shard (vitax/models/vit.py:272-287): K2
+    without its residual on this rank's M/tp columns of fc1 and rows of
+    fc2; raises where vitax's gate or the port's declines at the shard
+    width."""
+    from vitax_torch.parallel.tp_kernels import fused_ln_mlp_tp
+    mlp = lp["mlp"]
+    w1, w2 = (mlp[k]["kernel"].to(x.dtype) for k in ("fc1", "fc2"))
+    if not tp_mlp_supported(x, w1, w2):
+        raise NotImplementedError(
+            f"x {tuple(x.shape)}, w1 shard {tuple(w1.shape)}: vitax's or "
+            f"the port's gate declines K2 per model shard; {_TP}")
+    return fused_ln_mlp_tp(x.contiguous(), lp["ln2"]["scale"].float(),
+                           lp["ln2"]["bias"].float(), w1,
+                           mlp["fc1"]["bias"].float(), w2,
+                           mlp["fc2"]["bias"].float(), mesh, LN_EPS)
 
 
 def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
@@ -292,8 +394,13 @@ def _fused_block_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig
 
 def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
            gen: Optional[torch.Generator] = None, deterministic: bool = True,
-           seq_len: Optional[int] = None) -> torch.Tensor:
-    """Pre-LN encoder block (vitax's _block)."""
+           seq_len: Optional[int] = None, mesh: Optional[Mesh] = None
+           ) -> torch.Tensor:
+    """Pre-LN encoder block (vitax's _block); under a model axis > 1 both
+    halves per model shard (`check_tp` has refused what that cannot run)."""
+    if tp_size(mesh) > 1:
+        x = x + _tp_attention(x, lp, cfg, mesh)
+        return _tp_mlp(x, lp, mesh)
     h = _fused_block_attention(x, lp, cfg, seq_len) if cfg.fused_qkv else None
     if h is None and seq_len is not None:
         # the plain attention has no sequence mask: pad K/V would leak
@@ -303,7 +410,7 @@ def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
         h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], LN_EPS,
                        use_kernels=cfg.use_pallas)
         h = _attention(h, lp["attn"], cfg)
-    x = x + _dropout(h, cfg.dropout_rate, gen, deterministic)
+    x = x + _dropout(h, cfg.dropout_rate, gen, deterministic, mesh)
     if cfg.fused_mlp and (deterministic or cfg.dropout_rate <= 0.0):
         y = _fused_block_mlp(x, lp, cfg)
         if y is not None:
@@ -317,9 +424,11 @@ def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
     dt = x.dtype
     mlp = lp["mlp"]
     h1 = matmul_f32(h, mlp["fc1"]["kernel"].to(dt)) + mlp["fc1"]["bias"].float()
-    h1 = _dropout(gelu_exact(h1).to(dt), cfg.dropout_rate, gen, deterministic)
+    h1 = _dropout(gelu_exact(h1).to(dt), cfg.dropout_rate, gen, deterministic,
+                  mesh)
     h2 = matmul_f32(h1, mlp["fc2"]["kernel"].to(dt)) + mlp["fc2"]["bias"].float()
-    return x + _dropout(h2.to(dt), cfg.dropout_rate, gen, deterministic)
+    return x + _dropout(h2.to(dt), cfg.dropout_rate, gen, deterministic,
+                        mesh)
 
 
 def embed(params: Params, images: torch.Tensor, cfg: ViTConfig
@@ -340,14 +449,16 @@ def embed(params: Params, images: torch.Tensor, cfg: ViTConfig
 
 def drop_tokens(x: torch.Tensor, gen: Optional[torch.Generator],
                 keep_ratio: float, n_pinned: int = 1,
-                idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                idx: Optional[torch.Tensor] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """PatchDropout/FLIP token dropping (train only; vitax's drop_tokens).
 
     Keeps the first `n_pinned` tokens (cls) plus a uniform-random
     round(keep_ratio·n) subset of the other n tokens per image, in their
     original order: [B, n_pinned + k, D]. The subset is drawn from `gen`, or
     given as `idx` [B, n_pinned + k] (the gathered positions, pins included),
-    so a test can hand both packages the same kept tokens."""
+    so a test can hand both packages the same kept tokens. Under a mesh the
+    draw is the global batch's, of which x holds this rank's rows."""
     b, s, d = x.shape
     n_pinned = max(1, min(n_pinned, s))
     n = s - n_pinned
@@ -357,7 +468,7 @@ def drop_tokens(x: torch.Tensor, gen: Optional[torch.Generator],
     if k >= n:
         return x
     if idx is None:
-        noise = torch.rand((b, n), generator=gen, device=gen.device)
+        noise = _uniform(gen, (b, n), mesh)
         keep = torch.sort(torch.argsort(noise, dim=1)[:, :k], dim=1).values
         pins = torch.arange(n_pinned, device=keep.device).expand(b, n_pinned)
         idx = torch.cat([pins, keep + n_pinned], dim=1)
@@ -366,15 +477,18 @@ def drop_tokens(x: torch.Tensor, gen: Optional[torch.Generator],
 
 
 def _padded_stream_len(x: torch.Tensor, params: Params, cfg: ViTConfig,
-                       deterministic: bool = True) -> Optional[int]:
+                       deterministic: bool = True,
+                       mesh: Optional[Mesh] = None) -> Optional[int]:
     """spq if the whole encoder can run on one [B, spq, D] stream padded once,
     else None. Requires both fused kernels (the plain attention has no
     sequence mask) and no active dropout, so the gates mirror
     _fused_block_attention/_mlp (either attention half, K1 or K6, as
-    vitax/models/vit.py:431-433; under autograd, with the backward gates)."""
+    vitax/models/vit.py:431-433; under autograd, with the backward gates).
+    None under a model axis > 1, whose per-shard halves pad their own input
+    (vitax/models/vit.py:424-426)."""
     b, s, d = x.shape
     spq = (s + 7) // 8 * 8
-    if spq == s or not (cfg.fused_qkv and cfg.fused_mlp):
+    if spq == s or not (cfg.fused_qkv and cfg.fused_mlp) or tp_size(mesh) > 1:
         return None
     if not (deterministic or cfg.dropout_rate <= 0.0):
         return None
@@ -425,12 +539,18 @@ def _handoff_block(x: torch.Tensor, xq: Optional[torch.Tensor],
 
 
 def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
-          train: bool = False, gen: Optional[torch.Generator] = None
-          ) -> torch.Tensor:
+          train: bool = False, gen: Optional[torch.Generator] = None,
+          mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Forward: NHWC images [B,H,W,3] → fp32 logits [B, num_classes].
     `train` turns on token dropping (cfg.token_keep < 1) and dropout, whose
-    random numbers come from `gen`."""
+    random numbers come from `gen`. `mesh`: images are this rank's rows of
+    the global batch, whose random numbers are drawn whole; with a model
+    axis > 1, params are this rank's shards (`parallel.shard_params`) and
+    each block runs per model shard, without the padded stream and the
+    int8 handoff (vitax/models/vit.py:424-426, :506). With a data axis
+    alone the dispatch is one process's."""
     check_tiers(cfg)
+    check_tp(cfg, tp_size(mesh))
     if cfg.remat:
         raise NotImplementedError(
             f"remat={cfg.remat!r}: block rematerialization is not ported yet "
@@ -442,8 +562,8 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
         if gen is None:
             raise ValueError("token_keep < 1.0 requires a generator in "
                              "training")
-        x = drop_tokens(x, gen, cfg.token_keep)
-    x = _dropout(x, cfg.dropout_rate, gen, deterministic)
+        x = drop_tokens(x, gen, cfg.token_keep, mesh=mesh)
+    x = _dropout(x, cfg.dropout_rate, gen, deterministic, mesh)
     if deterministic:
         gen = None
     if cfg.fused_qkv and _low_precision(cfg) and _attention_kernel(
@@ -451,7 +571,7 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
                            device="meta"), cfg.num_heads) == "k6":
         raise NotImplementedError(_WIDE_TIERS)
     seq_len = None
-    spq = _padded_stream_len(x, params, cfg, deterministic)
+    spq = _padded_stream_len(x, params, cfg, deterministic, mesh)
     if spq is not None:
         seq_len = x.shape[1]
         x = F.pad(x, (0, 0, 0, spq - seq_len))
@@ -466,7 +586,7 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
             x, xq, sx = _handoff_block(x, xq, sx, lp, ln_next, cfg, seq_len)
     else:
         for lp in layers:
-            x = _block(x, lp, cfg, gen, deterministic, seq_len)
+            x = _block(x, lp, cfg, gen, deterministic, seq_len, mesh)
     # pad rows (if any) carry confined garbage; the head reads only cls
     x = layer_norm(x, params["encoder_norm"]["scale"],
                    params["encoder_norm"]["bias"], LN_EPS,

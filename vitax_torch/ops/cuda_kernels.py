@@ -95,6 +95,16 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   out-projection; Res-ViT's `attention` with fused_qkv and not fused_qkvo)
 - `fused_qkv_attention_bwd` -> qkv_attention_bwd.cu -> `_qkv_attn_bwd_kernel`
   :2239 (K10 backward, pallas_call :2334)
+- `fused_qkvo_attention` -> qkvo_attention.cu -> `_qkvo_attn_fwd_kernel`
+  :2396 (K9, pallas_call :2559: K10 plus the out-projection; Res-ViT's
+  `attention` under a mesh, and per model shard under tensor parallelism)
+- `fused_qkvo_attention_bwd` -> qkvo_attention_bwd.cu ->
+  `_qkvo_attn_bwd_kernel` :2432 (K9 backward, pallas_call :2593)
+- `fused_ln_mlp_partial`, `fused_ln_mlp_partial_bwd` -> ln_mlp.cu and
+  ln_mlp_bwd.cu with the residual off -> the `residual=False` branches of
+  `_ln_mlp_fwd_kernel` :587 (:614) and `_ln_mlp_bwd_kernel` :1308 (K2 per
+  model shard under tensor parallelism); `fused_ln_mlp(...,
+  residual=False)` routes to them
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -107,7 +117,7 @@ whose backward is the matching `*_bwd` wrapper: the int8 one under
 GQA); the int8 block handoff is `FusedBlockInt8HandoffFn`, whose
 backward is the two int8 backwards; K8's is `FusedLnQkvoAttentionRectFn`,
 whose backward is one of K8's three or R-B's two; K6's is `FusedLnQkvoAttentionFlashFn`;
-K10's `FusedQkvAttentionFn`;
+K10's `FusedQkvAttentionFn`; K9's `FusedQkvoAttentionFn`;
 K13's `FlashAttentionFn`; K12's `FusedLnMlpSaveFn`, which `fused_ln_mlp`
 and `fused_ln_mlp_int8` take under `save_acts` (vitax's dispatch: bf16, or
 int8 with `int8_grad`). As vitax's custom VJPs, each Function saves only
@@ -348,19 +358,20 @@ def ln_mlp_supported(x, w1, w2) -> bool:
     return d % 32 == 0 and m % 32 == 0
 
 
-def _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps):
-    """(out, a1, h1) of K2's twin."""
+def _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps, residual=True):
+    """(out, a1, h1) of K2's twin (without `x +` when not residual)."""
     xn = layer_norm_ref(x, gamma, beta, eps)
     a1 = matmul_f32(xn, w1) + b1.float()
     h1 = gelu_exact(a1).to(x.dtype)
-    y = matmul_f32(h1, w2) + b2.float()
-    return x + y.to(x.dtype), a1, h1
+    y = (matmul_f32(h1, w2) + b2.float()).to(x.dtype)
+    return (x + y if residual else y), a1, h1
 
 
-def fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps):
+def fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps, residual=True):
     """x + bf16(fc2(bf16(GELU(fc1(bf16(LN(x))))))) with the TPU kernel's
-    rounding points (pallas_kernels.py:603-615)."""
-    return _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps)[0]
+    rounding points (pallas_kernels.py:603-615); without the `x +` when not
+    residual (:614)."""
+    return _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps, residual)[0]
 
 
 @functools.cache
@@ -380,22 +391,62 @@ def save_acts_fits(d: int) -> bool:
     return False
 
 
-def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps, save_acts=False):
+def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps, save_acts=False,
+                 residual=True):
     """out = x + fc2(GELU_exact(fc1(LN(x)))) for x [..., D]; x.dtype out.
     Weights bf16 [D,M], [M,D]; gamma/beta/b1/b2 fp32. Under autograd,
     `save_acts` takes K12's save pair (`FusedLnMlpSaveFn`) where
     `save_acts_fits`; a call that needs no grad is K2's forward, whose out
-    the save forward reproduces bit for bit."""
+    the save forward reproduces bit for bit. `residual=False` is the
+    kernel's branch without `x +` (`fused_ln_mlp_partial`), which vitax's
+    tensor-parallel MLP half runs per model shard; it keeps no activations,
+    as vitax's `fused_ln_mlp_tp` passes no save_acts."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
-        if save_acts and save_acts_fits(x.shape[-1]):
+        if save_acts and residual and save_acts_fits(x.shape[-1]):
             return FusedLnMlpSaveFn.apply(x, gamma, beta, w1, b1, w2, b2, eps,
                                           False, False)
         return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, False,
-                                  False, False)
+                                  False, False, False, False, residual)
+    if not residual:
+        return fused_ln_mlp_partial(x, gamma, beta, w1, b1, w2, b2, eps)
     if not x.is_cuda:
         return fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps)
+    out = _ln_mlp_fwd_cuda("fused_ln_mlp", x, gamma, beta, w1, b1, w2, b2, eps,
+                           True)
+    fused_ln_mlp.launches += 1
+    return out
+
+
+fused_ln_mlp.launches = 0
+
+
+def fused_ln_mlp_partial_ref(x, gamma, beta, w1, b1, w2, b2, eps):
+    """bf16(fc2(bf16(GELU(fc1(bf16(LN(x)))))) + b2): K2's twin without the
+    residual (pallas_kernels.py:614)."""
+    return fused_ln_mlp_ref(x, gamma, beta, w1, b1, w2, b2, eps, False)
+
+
+def fused_ln_mlp_partial(x, gamma, beta, w1, b1, w2, b2, eps):
+    """K2's `residual=False` branch (csrc/ln_mlp.cu with residual 0): the
+    MLP half's output without `x +`, a model shard's partial sum under
+    tensor parallelism (vitax/parallel/tp_kernels.py:116-119, with b2 = 0).
+    Counted apart from K2's residual launches. Shapes and dtypes as
+    `fused_ln_mlp`'s."""
+    if not x.is_cuda:
+        return fused_ln_mlp_partial_ref(x, gamma, beta, w1, b1, w2, b2, eps)
+    out = _ln_mlp_fwd_cuda("fused_ln_mlp_partial", x, gamma, beta, w1, b1, w2,
+                           b2, eps, False)
+    fused_ln_mlp_partial.launches += 1
+    return out
+
+
+fused_ln_mlp_partial.launches = 0
+
+
+def _ln_mlp_fwd_cuda(name, x, gamma, beta, w1, b1, w2, b2, eps, residual):
+    """K2's forward launch (ln_mlp.cu)."""
     dev = _check_cuda(
-        "fused_ln_mlp",
+        name,
         {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
          "b2": b2},
         {"x": _BF, "gamma": _F32, "beta": _F32, "w1": _BF, "b1": _F32,
@@ -404,11 +455,11 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps, save_acts=False):
     m = w1.shape[1]
     x2 = x.view(-1, d)
     if not ln_mlp_supported(x2.unsqueeze(0), w1, w2):
-        raise ValueError(f"fused_ln_mlp: unsupported shapes x {tuple(x.shape)}"
+        raise ValueError(f"{name}: unsupported shapes x {tuple(x.shape)}"
                          f" w1 {tuple(w1.shape)} w2 {tuple(w2.shape)}")
     for key, t, k in (("gamma", gamma, d), ("beta", beta, d), ("b1", b1, m),
                       ("b2", b2, d)):
-        _check_shape("fused_ln_mlp", key, t, (k,))
+        _check_shape(name, key, t, (k,))
     n = x2.shape[0]
     xn = torch.empty_like(x2)
     h1 = torch.empty((n, m), dtype=_BF, device=dev)
@@ -416,13 +467,10 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps, save_acts=False):
     rc = build.load().vitax_ln_mlp_fwd(
         x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), xn.data_ptr(),
-        h1.data_ptr(), out.data_ptr(), n, d, m, eps, _stream(dev))
-    build.check(rc, "fused_ln_mlp")
-    fused_ln_mlp.launches += 1
+        h1.data_ptr(), out.data_ptr(), n, d, m, eps, int(residual),
+        _stream(dev))
+    build.check(rc, name)
     return out.view(x.shape)
-
-
-fused_ln_mlp.launches = 0
 
 
 def fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
@@ -450,23 +498,47 @@ def fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
 
 
 def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
-    """Backward of `fused_ln_mlp` (residual=False: of the block without the
-    residual add): dx (x's shape, bf16) and fp32 dγ, dβ [D], dW1 [D,M],
-    db1 [M], dW2 [M,D], db2 [D]. Above MLP_MONO_MAX_D it is
-    `fused_ln_mlp_bwd_wide`, vitax's route to its chunked kernel."""
+    """Backward of `fused_ln_mlp`: dx (x's shape, bf16) and fp32 dγ, dβ
+    [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]. residual=False is
+    `fused_ln_mlp_partial_bwd` (the block without the residual add). Above
+    MLP_MONO_MAX_D it is `fused_ln_mlp_bwd_wide`, vitax's route to its
+    chunked kernel, for both."""
     if x.shape[-1] > MLP_MONO_MAX_D:
         return fused_ln_mlp_bwd_wide(x, gamma, beta, w1, b1, w2, do, eps,
                                      residual)
+    if not residual:
+        return fused_ln_mlp_partial_bwd(x, gamma, beta, w1, b1, w2, do, eps)
     if not x.is_cuda:
-        return fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
-                                    residual)
+        return fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps)
     out = _ln_mlp_bwd_cuda("fused_ln_mlp_bwd", x, gamma, beta, w1, b1, w2, do,
-                           eps, residual)
+                           eps, True)
     fused_ln_mlp_bwd.launches += 1
     return out
 
 
 fused_ln_mlp_bwd.launches = 0
+
+
+def fused_ln_mlp_partial_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps):
+    """K2's backward twin without the residual's dx (pallas_kernels.py:
+    1367-1368 with residual=False)."""
+    return fused_ln_mlp_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, False)
+
+
+def fused_ln_mlp_partial_bwd(x, gamma, beta, w1, b1, w2, do, eps):
+    """Backward of `fused_ln_mlp_partial` (ln_mlp_bwd.cu with residual 0):
+    dx = bf16(dx_ln) without `do +`, the other grads as
+    `fused_ln_mlp_bwd`'s. Counted apart from the residual launches."""
+    if not x.is_cuda:
+        return fused_ln_mlp_partial_bwd_ref(x, gamma, beta, w1, b1, w2, do,
+                                            eps)
+    out = _ln_mlp_bwd_cuda("fused_ln_mlp_partial_bwd", x, gamma, beta, w1, b1,
+                           w2, do, eps, False)
+    fused_ln_mlp_partial_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_partial_bwd.launches = 0
 
 
 def fused_ln_mlp_bwd_wide_ref(x, gamma, beta, w1, b1, w2, do, eps,
@@ -536,15 +608,26 @@ class FusedLnMlpFn(torch.autograd.Function):
     alone keeps the bf16 backward of the bf16 function (_ln_mlp_2d_int8
     :1779-1801), as does the bf16 tier (_ln_mlp_2d :1652-1673). `int4`
     picks the A4W4 forward (K11-A) and `int4_grad` the A4W4 dx-path
-    backward (K11-B) ahead of `int8_grad` (_ln_mlp_2d_int4 :1939-1974)."""
+    backward (K11-B) ahead of `int8_grad` (_ln_mlp_2d_int4 :1939-1974).
+    `residual=False`, the bf16 tier only, is K2's branch without `x +`
+    (`fused_ln_mlp_partial` and its backward); the int8 and int4 tiers'
+    such branches are not ported (ROADMAP Queue 2)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_grad,
-                int8_dw, int4=False, int4_grad=False):
+                int8_dw, int4=False, int4_grad=False, residual=True):
+        if not residual and (int8 or int4):
+            raise NotImplementedError(
+                "the int8/int4 MLP halves without the residual (vitax's "
+                "tensor-parallel tiers) are not ported: ROADMAP Queue 2, "
+                '"residual=False MLP branches"')
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2)
         ctx.eps = eps
         ctx.tier = (int4 and int4_grad, int8 and int8_grad, int8_dw)
+        ctx.residual = residual
         ctx.b2_dtype = b2.dtype
+        if not residual:
+            return fused_ln_mlp_partial(x, gamma, beta, w1, b1, w2, b2, eps)
         fwd = (fused_ln_mlp_int4 if int4 else fused_ln_mlp_int8 if int8
                else fused_ln_mlp)
         return fwd(x, gamma, beta, w1, b1, w2, b2, eps)
@@ -553,19 +636,19 @@ class FusedLnMlpFn(torch.autograd.Function):
     def backward(ctx, do):
         x, gamma, beta, w1, b1, w2 = ctx.saved_tensors
         int4_grad, int8_grad, int8_dw = ctx.tier
+        args = (x, gamma, beta, w1, b1, w2, do.contiguous(), ctx.eps)
         if int4_grad:
-            bwd = (fused_ln_mlp_int4_dw_bwd if int8_dw
-                   else fused_ln_mlp_int4_bwd)
+            grads = (fused_ln_mlp_int4_dw_bwd if int8_dw
+                     else fused_ln_mlp_int4_bwd)(*args)
         elif int8_grad:
-            bwd = (fused_ln_mlp_int8_dw_bwd if int8_dw
-                   else fused_ln_mlp_int8_bwd)
+            grads = (fused_ln_mlp_int8_dw_bwd if int8_dw
+                     else fused_ln_mlp_int8_bwd)(*args)
         else:
-            bwd = fused_ln_mlp_bwd
-        dx, dg, dbe, dw1, db1, dw2, db2 = bwd(
-            x, gamma, beta, w1, b1, w2, do.contiguous(), ctx.eps)
+            grads = fused_ln_mlp_bwd(*args, residual=ctx.residual)
+        dx, dg, dbe, dw1, db1, dw2, db2 = grads
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw1.to(w1.dtype),
                 db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 # =============================================================================
@@ -3992,6 +4075,193 @@ class FusedQkvAttentionFn(torch.autograd.Function):
         return dx, dw.to(wqkv.dtype), db.to(bqkv.dtype), None, None, None
 
 
+# =============================================================================
+# K9 — the QKV projection, the attention core and the out-projection of the
+# LN'd input (fused_qkvo_attention :2551, pallas_calls :2559 and :2593):
+# what vitax's Res-ViT `attention` runs under a mesh (vitax/models/
+# resvit.py:266-277), and per model shard under tensor parallelism
+# (vitax/parallel/tp_kernels.py:75-103)
+# =============================================================================
+
+def fused_qkvo_attention_supported(x, wqkv, heads) -> bool:
+    """K9's gate: x̂ [B, S, D] (S padded to spq by the caller), wqkv [D,
+    3·H·Hd]: K10's (K1's shapes and shared memory; the out-projection's GEMM
+    takes what K1's does) without a dtype test, so that a CUDA fp32 input
+    reaches the wrapper, which raises (`check_k9_dtype`)."""
+    return _core_fits(x, wqkv, heads)
+
+
+def fused_qkvo_attention_bwd_supported(x, wqkv, heads) -> bool:
+    """K9's gate in training: the forward's and the core backward's shared
+    memory (K10's and K1's)."""
+    return fused_qkv_attention_bwd_supported(x, wqkv, heads)
+
+
+def check_k9_dtype(name: str, dtype: torch.dtype) -> None:
+    """K9's kernels are bf16 only. vitax's K9 takes any dtype, so an fp32
+    Res-ViT under a mesh reaches it in fp32, which is a later slice of the
+    port; raise rather than run another function."""
+    if dtype != _BF:
+        raise NotImplementedError(
+            f"{name}: {dtype} on the card: K9's kernels take bf16 only; "
+            'fp32 tiers of the fused kernels are ROADMAP Queue 1 item 9, '
+            '"fp32 models on the card". Run the model in bf16')
+
+
+def fused_qkvo_attention_ref(x, wqkv, bqkv, wo, bo, seq_len, heads,
+                             head_dim):
+    """K9's twin, at the TPU kernel's rounding points (_qkvo_attn_fwd_kernel,
+    pallas_kernels.py:2396-2429): K10's twin (qkv in x's dtype, per head the
+    fp32 softmax p with key cols >= seq_len masked, o = (p in x's dtype)·v
+    cast to x's dtype), then attn·Wo + bo with bo added in fp32, cast to x's
+    dtype. x [B, spq, D] → [B, spq, Wo's columns]."""
+    b, spq, _ = x.shape
+    *_, o = _qkvo_core(x, wqkv, bqkv, seq_len, heads, head_dim)
+    y = matmul_f32(_heads_to_rows(o), wo) + bo.float()
+    return y.to(x.dtype).view(b, spq, wo.shape[1])
+
+
+def fused_qkvo_attention(x, wqkv, bqkv, wo, bo, seq_len, heads, head_dim):
+    """K9 forward (csrc/qkvo_attention.cu): x̂ [B, spq, D] (the LN output,
+    pad rows past seq_len allowed) bf16, wqkv [D, 3·H·Hd] bf16 with columns
+    [q heads | k heads | v heads], bqkv [3·H·Hd] fp32, wo [H·Hd, D] bf16, bo
+    [D] fp32 → the projected attention output [B, spq, D], no residual. CPU
+    tensors take the twin; CUDA bf16 tensors inside the gate the kernel; a
+    CUDA fp32 input raises (`check_k9_dtype`). Under autograd the backward
+    is `fused_qkvo_attention_bwd` (`FusedQkvoAttentionFn`)."""
+    if _needs_grad(x, wqkv, bqkv, wo, bo):
+        return FusedQkvoAttentionFn.apply(x, wqkv, bqkv, wo, bo, seq_len,
+                                          heads, head_dim)
+    if not x.is_cuda:
+        return fused_qkvo_attention_ref(x, wqkv, bqkv, wo, bo, seq_len, heads,
+                                        head_dim)
+    name = "fused_qkvo_attention"
+    dev = _check_k9(name, {"x": x, "wqkv": wqkv, "bqkv": bqkv, "wo": wo,
+                           "bo": bo}, seq_len, heads, head_dim,
+                    fused_qkvo_attention_supported)
+    b, spq, d = x.shape
+    n, hhd = b * spq, heads * head_dim
+    qkv, attn = _bf(dev, n, 3 * hhd), _bf(dev, n, hhd)
+    out = torch.empty_like(x)
+    rc = build.load().vitax_qkvo_attention_fwd(
+        x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
+        bo.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), b,
+        spq, d, seq_len, heads, head_dim, 1.0 / math.sqrt(head_dim),
+        _stream(dev))
+    build.check(rc, name)
+    fused_qkvo_attention.launches += 1
+    return out
+
+
+fused_qkvo_attention.launches = 0
+
+
+def _check_k9(name, tensors, seq_len, heads, head_dim, gate):
+    """K9's launch checks: bf16 only (Queue 1 item 9's raise), then device,
+    dtypes, contiguity and shapes; returns the device."""
+    for key in ("x", "wqkv", "wo"):
+        if tensors[key].is_cuda:
+            check_k9_dtype(name, tensors[key].dtype)
+    dev = _check_cuda(name, tensors, {"x": _BF, "wqkv": _BF, "bqkv": _F32,
+                                      "wo": _BF, "bo": _F32, "do": _BF})
+    x, wqkv = tensors["x"], tensors["wqkv"]
+    b, spq, d = x.shape
+    hhd = heads * head_dim
+    if (spq % 8 or not 0 < seq_len <= spq
+            or tuple(wqkv.shape) != (d, 3 * hhd) or not gate(x, wqkv, heads)):
+        raise ValueError(
+            f"{name}: unsupported shapes x {tuple(x.shape)} wqkv "
+            f"{tuple(wqkv.shape)} seq_len {seq_len} heads {heads} head_dim "
+            f"{head_dim}")
+    _check_shape(name, "bqkv", tensors["bqkv"], (3 * hhd,))
+    _check_shape(name, "wo", tensors["wo"], (hhd, d))
+    if "bo" in tensors:
+        _check_shape(name, "bo", tensors["bo"], (d,))
+    if "do" in tensors:
+        _check_shape(name, "do", tensors["do"], (b, spq, d))
+    return dev
+
+
+def fused_qkvo_attention_bwd_ref(x, wqkv, bqkv, wo, do, seq_len, heads,
+                                 head_dim):
+    """(dx, dWqkv, dbqkv, dWo, dbo) of K9 at the TPU kernel's rounding points
+    (_qkvo_attn_bwd_kernel, pallas_kernels.py:2432-2530): qkv, p and the
+    head outputs o (in x's dtype) recomputed as the forward's, dattn = dY Woᵀ
+    in x's dtype, dWo = attnᵀ dY and dbo = Σ fp32(dY); the core's grads with
+    dd = Σ fp32(dO)·fp32(o), o the cast head output (:2487-2491; K10's
+    takes the fp32 one); dx = dqkv Wᵀ in x's dtype, dW = x̂ᵀ dqkv and db =
+    Σ fp32(dqkv). The weight and bias grads in fp32. do [B, spq, D]."""
+    dt = x.dtype
+    b, spq, d = x.shape
+    do2 = do.reshape(b * spq, -1)
+    q, k, v, p, o = _qkvo_core(x, wqkv, bqkv, seq_len, heads, head_dim)
+    attn = _heads_to_rows(o)
+    dattn = matmul_f32(do2, wo.t()).to(dt)
+    dwo = matmul_f32(attn.t(), do2)
+    dbo = do2.float().sum(0)
+    dqkv = _attn_core_grads(q, k, v, p, o, dattn, 1.0 / math.sqrt(head_dim))
+    dx = matmul_f32(dqkv, wqkv.t()).to(dt).view(b, spq, d)
+    return (dx, matmul_f32(x.reshape(-1, d).t(), dqkv), dqkv.float().sum(0),
+            dwo, dbo)
+
+
+def fused_qkvo_attention_bwd(x, wqkv, bqkv, wo, do, seq_len, heads,
+                             head_dim):
+    """K9 backward (csrc/qkvo_attention_bwd.cu): from the saved (x̂, Wqkv,
+    bqkv, Wo) and dY [B, spq, D] bf16, dx [B, spq, D] bf16 and fp32 dWqkv
+    [D, 3·H·Hd], dbqkv [3·H·Hd], dWo [H·Hd, D] and dbo [D]."""
+    if not x.is_cuda:
+        return fused_qkvo_attention_bwd_ref(x, wqkv, bqkv, wo, do, seq_len,
+                                            heads, head_dim)
+    name = "fused_qkvo_attention_bwd"
+    dev = _check_k9(name, {"x": x, "wqkv": wqkv, "bqkv": bqkv, "wo": wo,
+                           "do": do}, seq_len, heads, head_dim,
+                    fused_qkvo_attention_bwd_supported)
+    b, spq, d = x.shape
+    n, hhd = b * spq, heads * head_dim
+    w = 3 * hhd
+    rows = (spq + 15) // 16 * 16
+    lib = build.load()
+    dx, dw, db = torch.empty_like(x), _f32(dev, d, w), _f32(dev, w)
+    dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
+    qkv, attn, dattn = _bf(dev, n, w), _bf(dev, n, hhd), _bf(dev, n, hhd)
+    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    dqkv = _bf(dev, n, w)
+    ws = _workspace(lib.vitax_qkvo_attention_bwd_ws(n, d, hhd, w), dev)
+    rc = lib.vitax_qkvo_attention_bwd(*(t.data_ptr() for t in (
+        x, wqkv, bqkv, wo, do, dx, dw, db, dwo, dbo, qkv, attn, dattn, p, ds,
+        dqkv, ws)), b, spq, d, seq_len, heads, head_dim,
+        1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    fused_qkvo_attention_bwd.launches += 1
+    return dx, dw, db, dwo, dbo
+
+
+fused_qkvo_attention_bwd.launches = 0
+
+
+class FusedQkvoAttentionFn(torch.autograd.Function):
+    """K9 with its backward kernel, saving (x̂, Wqkv, bqkv, Wo) as vitax's
+    custom VJP (pallas_kernels.py:2596-2628) and recomputing the rest: dW
+    and dWo come back in their weights' dtype, db in bqkv's, and dbo as the
+    kernel gives it, fp32 (vitax's `_fused_qkvo_bwd` returns it uncast)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wo, bo, seq_len, heads, head_dim):
+        ctx.save_for_backward(x, wqkv, bqkv, wo)
+        ctx.meta = (seq_len, heads, head_dim)
+        return fused_qkvo_attention(x, wqkv, bqkv, wo, bo, seq_len, heads,
+                                    head_dim)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, wqkv, bqkv, wo = ctx.saved_tensors
+        dx, dw, db, dwo, dbo = fused_qkvo_attention_bwd(
+            x, wqkv, bqkv, wo, do.contiguous(), *ctx.meta)
+        return (dx, dw.to(wqkv.dtype), db.to(bqkv.dtype), dwo.to(wo.dtype),
+                dbo, None, None, None)
+
+
 KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_bwd, fused_ln_mlp_bwd,
            fused_ln_qkvo_attention_int8, fused_ln_mlp_int8,
@@ -4019,4 +4289,6 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_int4_gqa,
            fused_ln_qkvo_attention_int4_gqa_bwd,
            fused_ln_qkvo_attention_int4_gqa_dw_bwd, fused_qkv_attention,
-           fused_qkv_attention_bwd)
+           fused_qkv_attention_bwd, fused_qkvo_attention,
+           fused_qkvo_attention_bwd, fused_ln_mlp_partial,
+           fused_ln_mlp_partial_bwd)

@@ -127,10 +127,8 @@ def main(argv=None, device=None):
     """`device`: None for the card (raises without one), or "cpu"."""
     config = get_eval_config(argv)
     cli.print_config(config)
-    if config.n_gpu > 1:
-        raise NotImplementedError(
-            "--n_gpu > 1: data-parallel eval comes with the parallel/ port "
-            "(ROADMAP Queue 1 item 5)")
+    # --n_gpu is parsed and not read, as vitax's (vitax/resvit_eval_cli.py:
+    # 48): this CLI builds no mesh
     gen = set_seed(config.seed)
     device = cli.resolve_device(device)
     cfg = config_to_model_args(config, device)

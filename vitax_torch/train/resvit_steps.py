@@ -11,6 +11,15 @@ mirrors its valid_epoch (:107-216): argmax routing, the class loss over the
 real samples of a padded batch, a_loss and d_loss reported as 0 as the
 reference reports them. `make_adamw_for` is AdamW with the LoRA trainable
 mask and the router's lr scale.
+
+Under a mesh (vitax's `make_train_step(..., mesh=)`, resvit_steps.py:68-79;
+a data axis only, `resvit.apply` refuses a model axis) each rank runs its
+rows of the global batch, with the Gumbel noise and kept tokens of the
+global batch cut by data index; the grads are summed over the data group
+and divided by its size, and the active loss, a square of the batch's mean
+keep probability, takes the global mean's value with this rank's gradient,
+so that the summed grads are the global loss's. The metrics are the global
+batch's, in training and eval.
 """
 
 from __future__ import annotations
@@ -21,9 +30,13 @@ import torch
 
 from vitax_torch.core.config import ResViTConfig
 from vitax_torch.models import resvit
+from vitax_torch.parallel.distributed import all_reduce
+from vitax_torch.parallel.mesh import Mesh, local_rows
 from vitax_torch.train.optim import (adamw, param_leaves, step_scheduler,
                                      tree_leaves)
-from vitax_torch.train.steps import TrainState, cross_entropy, topk_accuracy
+from vitax_torch.train.steps import (TrainState, average_grads,
+                                     cross_entropy, mean_over_data,
+                                     topk_accuracy, weighted_means)
 
 
 class Lambdas(NamedTuple):
@@ -126,53 +139,83 @@ def _detach(tree):
     return tree.detach() if torch.is_tensor(tree) else tree
 
 
+def _global_active_loss(soft_probs: torch.Tensor, cfg: ResViTConfig,
+                        mesh: Mesh) -> torch.Tensor:
+    """`resvit.active_loss` of the global batch under a mesh: the mean keep
+    probability takes the data group's mean as its value (one all-reduce)
+    and this rank's mean's gradient, so that the ranks' grads, summed and
+    divided by n_data, are those of (global mean − target)²."""
+    m = soft_probs[:, cfg.dynamic_reserve_initials:, :].float().mean()
+    g = all_reduce(m.detach().clone(), mesh.data_group) / mesh.n_data
+    return (m + (g - m.detach()) - cfg.dynamic_active_target) ** 2
+
+
 def make_train_step(cfg: ResViTConfig, tx: AdamW,
-                    lambdas: Lambdas = Lambdas()):
+                    lambdas: Lambdas = Lambdas(),
+                    mesh: Optional[Mesh] = None):
     """(state, images NHWC, labels, noise=None) → (state, metrics). The
     parameters are updated in place. `noise`: `resvit.apply`'s, the Gumbel
-    noise and kept tokens to use instead of drawing them from state.gen."""
+    noise and kept tokens to use instead of drawing them from state.gen.
+    `mesh`: images, labels and noise are the global batch's, of which this
+    rank runs its rows."""
 
     def step_fn(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                 noise: Optional[Dict[str, Any]] = None):
         tx.optimizer.zero_grad(set_to_none=True)
+        images, labels = local_rows(mesh, images), local_rows(mesh, labels)
         logits, aux = resvit.apply(state.params, images, cfg, train=True,
-                                   gen=state.gen, noise=noise)
+                                   gen=state.gen, noise=noise, mesh=mesh)
         c = cross_entropy(logits, labels)
         if cfg.use_reslr and aux["soft_probs"] is not None:
-            a = resvit.active_loss(aux["soft_probs"],
-                                   cfg.dynamic_active_target,
-                                   cfg.dynamic_reserve_initials)
+            a = (resvit.active_loss(aux["soft_probs"],
+                                    cfg.dynamic_active_target,
+                                    cfg.dynamic_reserve_initials)
+                 if mesh is None else
+                 _global_active_loss(aux["soft_probs"], cfg, mesh))
         else:
             a = torch.zeros((), device=logits.device)
         d = aux["d_loss"]
         total = (lambdas.classification * c + lambdas.active * a
                  + lambdas.distill * d)
         total.backward()
+        if mesh is not None:
+            average_grads(tx.trainable, mesh)
         if tx.clip_grad_norm is not None:
             torch.nn.utils.clip_grad_norm_(tx.trainable, tx.clip_grad_norm)
         tx.optimizer.step()
         step_scheduler(tx.scheduler)
         state.step += 1
         with torch.no_grad():
-            metrics = {"loss": total.detach(),
-                       **_metrics(cfg, logits.detach(), labels, c.detach(),
-                                  a.detach(), d.detach(), _detach(aux))}
+            metrics = mean_over_data(
+                {"loss": total.detach(),
+                 **_metrics(cfg, logits.detach(), labels, c.detach(),
+                            a.detach(), d.detach(), _detach(aux))}, mesh)
         return state, metrics
 
     return step_fn
 
 
-def make_eval_step(cfg: ResViTConfig, lambdas: Lambdas = Lambdas()):
+def make_eval_step(cfg: ResViTConfig, lambdas: Lambdas = Lambdas(),
+                   mesh: Optional[Mesh] = None):
     """(params, images, labels, weight) → (metrics, routing maps), no
-    grad."""
+    grad. Under a mesh this rank's rows of the global batch (the routing
+    maps its rows'), the metrics the global batch's: each rank's weighted
+    means times its weight, summed over the data group."""
 
     @torch.inference_mode()
     def step_fn(params, images, labels, weight):
-        logits, aux = resvit.apply(params, images, cfg, train=False)
+        images, labels, weight = (local_rows(mesh, t)
+                                  for t in (images, labels, weight))
+        logits, aux = resvit.apply(params, images, cfg, train=False,
+                                   mesh=mesh)
         zero = torch.zeros((), device=logits.device)
         c = weighted_nll(logits, labels, weight)
         m = _metrics(cfg, logits, labels, c, zero, zero, aux, weight=weight)
         m["loss"] = lambdas.classification * c
+        if mesh is not None:
+            wsum = weight.sum()
+            m = weighted_means({k: v * wsum for k, v in m.items()}, wsum,
+                               mesh)
         return m, aux["routing_maps"]
 
     return step_fn

@@ -24,6 +24,18 @@ port has no remat (ROADMAP Queue 1 item 6) and runs without it, the same
 function with more memory. It runs on the card unless the caller of `main`
 asks for the CPU (`device="cpu"`).
 
+Data and tensor parallelism, one process per card under torchrun:
+`torchrun --nproc_per_node N -m vitax_torch.train_cli --n-gpu N
+[--n-model M]` lays the N ranks out on an (N/M, M) mesh, as vitax's mesh
+(vitax/train_cli.py:244-251): each data rank trains on its rows of every
+global batch, grads summed over the data axis; with M > 1 each block's
+attention and MLP halves run per model shard (K1 and K2 without its
+residual, one all-reduce each), bf16 with the fused halves on (the int8 and
+int4 tiers raise). Rank 0 alone writes the checkpoints (whole parameters,
+gathered over the model axis), the JSON files and the writers' output. A
+caller that started its own process group (gloo, say) passes the card as
+`device=`; `init_distributed` leaves the group as it is.
+
 vitax's fastest recipe (scripts/FT_CIFAR100_fast.sh) runs as it is:
 `... --int8-dw --token-keep 0.5 --token-keep-schedule 0.9 --batch-size 768
 --dense-batch-size 192`.
@@ -47,10 +59,15 @@ from vitax_torch.core.prng import set_seed
 from vitax_torch.data import get_dataloader
 from vitax_torch.eval_cli import make_weighted_eval_step
 from vitax_torch.models import vit
+from vitax_torch.parallel import (cli_mesh, gather_params, init_distributed,
+                                  shard_params, tp_size, vit_param_spec)
+from vitax_torch.parallel.distributed import rank
+from vitax_torch.parallel.mesh import gather_shards
 from vitax_torch.train import (create_train_state, make_train_step,
                                sgd_momentum, token_keep_switch_epoch)
 from vitax_torch.utils.experiment import write_json
-from vitax_torch.utils.memory import log_model_layers, print_memory_usage
+from vitax_torch.utils.memory import (log_model_layers, named_leaves,
+                                      print_memory_usage)
 from vitax_torch.utils.metrics import MetricTracker
 from vitax_torch.utils.writers import ExperimentWriter
 
@@ -60,10 +77,8 @@ def _reject_unported(config) -> None:
     unported = [
         (config.export_pth, "--export-pth", "the .pth writer",
          "Queue 1 item 4"),
-        (config.n_gpu > 1, "--n-gpu > 1", "data-parallel training",
-         "Queue 1 item 5"),
-        (config.n_model > 1, "--n-model > 1", "tensor parallelism",
-         "Queue 1 item 5"),
+        (config.resume and config.n_model > 1, "--resume with --n-model > 1",
+         "resuming a tensor-parallel run", "Queue 1 item 5"),
         (config.device_prep, "--device-prep", "on-device preprocessing",
          "Queue 1 item 3"),
         (config.remat in ("full", "selective"), f"--remat {config.remat}",
@@ -183,6 +198,26 @@ def valid_epoch(epoch, state, eval_step, loader, device, dtype, writer,
     return result
 
 
+class _Gathered:
+    """The training state as one process would hold it, for rank 0's
+    checkpoint under tensor parallelism: whole parameters and momentum
+    buffers, gathered over the model axis (every rank builds it)."""
+
+    def __init__(self, state, mesh):
+        names = [n for n, _ in named_leaves(state.params)]
+        self.params = gather_params(state.params, mesh, vit_param_spec)
+        self.sd = state.optimizer.state_dict()
+        for i, buf in self.sd["state"].items():
+            buf["momentum_buffer"] = gather_shards(
+                "/" + names[i], buf["momentum_buffer"], mesh, vit_param_spec)
+        self.step, self.scheduler, self.gen = (state.step, state.scheduler,
+                                               state.gen)
+        self.optimizer = self
+
+    def state_dict(self):
+        return self.sd
+
+
 def _initial_params(config, cfg, gen, device):
     params = vit.init_params(gen, cfg, device)
     path = config.checkpoint_path
@@ -216,11 +251,21 @@ def main(argv=None, device=None):
     gen = set_seed(config.seed)
     device = cli.resolve_device(device)
     cfg = model_config_from_cli(config, device.type == "cuda")
+    vit.check_tp(cfg, config.n_model)
+    init_distributed(device)
+    # mesh: data (+ tensor) parallel over the processes
+    mesh = cli_mesh(config.n_gpu, config.n_model)
+    lead = rank() == 0
+    if mesh is not None:
+        print(f"mesh: {mesh.shape} over {mesh.n_data * mesh.n_model} "
+              f"{device.type} process(es); rank {mesh.rank}")
     params = _initial_params(config, cfg, gen, device)
     n_params = log_model_layers(params, log=lambda *_: None)
     print(f"model: {config.model_arch} with {n_params:,} parameters")
-    write_json({"arch": config.model_arch, "parameters": n_params},
-               f"{config.result_dir}/model_info.json")
+    if lead:
+        write_json({"arch": config.model_arch, "parameters": n_params},
+                   f"{config.result_dir}/model_info.json")
+    params = shard_params(params, mesh, vit_param_spec)
 
     common = dict(data_dir=config.data_dir, image_size=config.image_size,
                   batch_size=config.batch_size,
@@ -257,7 +302,7 @@ def main(argv=None, device=None):
     state = create_train_state(params, opt, lr_sched,
                                torch.Generator().manual_seed(config.seed + 1))
 
-    store = CheckpointStore(config.checkpoint_dir)
+    store = CheckpointStore(config.checkpoint_dir) if lead else None
     start_epoch = 0
     best_acc = 0.0
     if config.resume:
@@ -275,22 +320,22 @@ def main(argv=None, device=None):
 
     writer = ExperimentWriter(
         config.summary_dir,
-        backend=("swanlab" if config.swanlab else
-                 "tensorboard" if config.tensorboard else "none"),
+        backend=("swanlab" if config.swanlab and lead else
+                 "tensorboard" if config.tensorboard and lead else "none"),
         exp_name=config.exp_name)
     train_tracker = MetricTracker("loss", "acc1", "acc5")
     valid_tracker = MetricTracker("loss", "acc1", "acc5")
 
-    train_step = make_train_step(cfg, opt, lr_sched)
+    train_step = make_train_step(cfg, opt, lr_sched, mesh=mesh)
     dense_step = None
-    eval_step = make_weighted_eval_step(cfg)
+    eval_step = make_weighted_eval_step(cfg, mesh)
     history = []
     for epoch in range(start_epoch, epochs):
         step_fn, loader = train_step, train_loader
         if epoch >= dense_from_epoch:
             if dense_step is None:
                 dense_step = make_train_step(cfg.replace(token_keep=1.0), opt,
-                                             lr_sched)
+                                             lr_sched, mesh=mesh)
                 if dense_loader is not None:
                     print(f"dense tail batch size: {dense_bs}")
             step_fn = dense_step
@@ -301,8 +346,10 @@ def main(argv=None, device=None):
                          cfg.dtype, writer, valid_tracker)
         is_best = vr["acc1"] > best_acc
         best_acc = max(best_acc, vr["acc1"])
-        store.save_model(state, epoch, is_best=is_best,
-                         metrics={"best_acc": best_acc, **vr})
+        saved = state if tp_size(mesh) == 1 else _Gathered(state, mesh)
+        if lead:
+            store.save_model(saved, epoch, is_best=is_best,
+                             metrics={"best_acc": best_acc, **vr})
         history.append({"epoch": epoch, "train": tr, "valid": vr})
     print_memory_usage(state.params, state.optimizer)
     writer.close()

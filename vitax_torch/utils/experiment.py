@@ -39,9 +39,12 @@ def experiment_name(exp_name: str, dataset: str, batch_size, lr, wd,
     return f"{exp_name}_{dataset}_bs{batch_size}_lr{lr}_wd{wd}_{ts}"
 
 
-def process_config(config: Any, root: str = "experiments") -> Any:
+def process_config(config: Any, root: str = "experiments",
+                   write: bool = True) -> Any:
     """Create the experiment directory tree and dump config.json; annotates
-    the config object with summary_dir / checkpoint_dir / result_dir."""
+    the config object with summary_dir / checkpoint_dir / result_dir. With
+    `write` False (a data-parallel rank other than 0) only the
+    annotation."""
     d = config if isinstance(config, dict) else vars(config)
     exp = experiment_name(d.get("exp_name", "exp"), d.get("dataset", "ds"),
                           d.get("batch_size", 0), d.get("lr", 0),
@@ -50,12 +53,13 @@ def process_config(config: Any, root: str = "experiments") -> Any:
     save_root = os.path.join(root, "save", exp)
     checkpoint_dir = os.path.join(save_root, "checkpoints")
     result_dir = os.path.join(save_root, "results")
-    for p in (summary_dir, checkpoint_dir, result_dir):
-        ensure_dir(p)
-    d_out = dict(d)
-    d_out.update(summary_dir=summary_dir, checkpoint_dir=checkpoint_dir,
-                 result_dir=result_dir)
-    write_json(d_out, os.path.join(save_root, "config.json"))
+    if write:
+        for p in (summary_dir, checkpoint_dir, result_dir):
+            ensure_dir(p)
+        d_out = dict(d)
+        d_out.update(summary_dir=summary_dir, checkpoint_dir=checkpoint_dir,
+                     result_dir=result_dir)
+        write_json(d_out, os.path.join(save_root, "config.json"))
     if isinstance(config, dict):
         config.update(summary_dir=summary_dir, checkpoint_dir=checkpoint_dir,
                       result_dir=result_dir)
