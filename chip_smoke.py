@@ -234,6 +234,32 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              `train_cli --n-gpu 2 --n-model 2` (exact per-shard launches:
              12 K1 and 12 K2 partials a forward; each step's loss within
              LOGIT_BAND of (c0)'s), within a timeout.
+17. tp tiers — the residual=False branches of the int8, int4 and
+             save-acts MLP halves (K4, K11-A/B, K12; vitax's tensor-parallel
+             MLP half runs them per model shard) and of K2's wide backward:
+             (a) each against its twin (bf16 TOL; int8 and int4 by codes,
+             INT8_REL or INT4_REL and a bf16 stand-in that must miss) and
+             against its residual kernel, exactly (out = bf16(x + partial),
+             dx = bf16(do + dx_partial), every other output the same bits)
+             at b32 spq 200, M 3072 and the shard's 1536, the wide one at
+             h14's D 1280 on a shard's M 2560, timed in turns with the
+             residual kernel; K12's partial pair through its one caller,
+             `fused_ln_mlp(save_acts=True, residual=False)`, exact
+             launches; (b) two spawned processes, each a gloo rank on the
+             card: one full-width ViT-B/16 layer per flag set (--int8,
+             --int8-grad, --int8-dw, --int4, --int4-attn --int4-grad with
+             --int8-grad and with --int8-dw, --int8-grad --save-acts) per
+             shard, its output and every grad against the twin path per
+             shard (phase 13's layer bands: LOGIT_BAND for the layer's
+             contribution, INT8_GRAD_BAND for the grads) and one
+             process's layer
+             (per-shard scales: INT8_GRAD_BAND, or twice the tier's own
+             distance from the bf16 layer where larger), exact launches; (c)
+             `train_cli --n-gpu 2 --n-model 2` with each flag set, ViT-H/14
+             at b8 (the plain attention on the gathered weights, K13; the
+             wide partial backward) and --no-fused-qkv, exact per-shard
+             launches, losses within LOGIT_BAND (int4: QUANT_LOGIT_BAND) of
+             one process's run of the same flags.
 
 Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
 backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
@@ -441,6 +467,36 @@ KERNEL_INFO = {
                              "vitax/ops/pallas_kernels.py:614"),
     "fused_ln_mlp_partial_bwd": ("vitax_torch/csrc/ln_mlp_bwd.cu",
                                  "vitax/ops/pallas_kernels.py:1308"),
+    # the residual=False branches of K4, K11-A/B and K12 (the int8, int4
+    # and save-acts MLP halves per model shard) and of K2's wide backward
+    "fused_ln_mlp_int8_partial": ("vitax_torch/csrc/ln_mlp_int8.cu",
+                                  "vitax/ops/pallas_kernels.py:718"),
+    "fused_ln_mlp_int8_partial_bwd": ("vitax_torch/csrc/ln_mlp_int8_bwd.cu",
+                                      "vitax/ops/pallas_kernels.py:1219"),
+    "fused_ln_mlp_int8_partial_dw_bwd": (
+        "vitax_torch/csrc/ln_mlp_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:1219"),
+    "fused_ln_mlp_int4_partial": ("vitax_torch/csrc/ln_mlp_int8.cu",
+                                  "vitax/ops/pallas_kernels.py:997"),
+    "fused_ln_mlp_int4_partial_bwd": ("vitax_torch/csrc/ln_mlp_int8_bwd.cu",
+                                      "vitax/ops/pallas_kernels.py:1096"),
+    "fused_ln_mlp_int4_partial_dw_bwd": (
+        "vitax_torch/csrc/ln_mlp_int8_bwd.cu",
+        "vitax/ops/pallas_kernels.py:1096"),
+    "fused_ln_mlp_save_partial": ("vitax_torch/csrc/ln_mlp_save.cu",
+                                  "vitax/ops/pallas_kernels.py:653"),
+    "fused_ln_mlp_bwd_fast_partial": ("vitax_torch/csrc/ln_mlp_save.cu",
+                                      "vitax/ops/pallas_kernels.py:1281"),
+    "fused_ln_mlp_int8_save_partial": ("vitax_torch/csrc/ln_mlp_int8_save.cu",
+                                       "vitax/ops/pallas_kernels.py:772"),
+    "fused_ln_mlp_int8_save_partial_bwd": (
+        "vitax_torch/csrc/ln_mlp_int8_save.cu",
+        "vitax/ops/pallas_kernels.py:862"),
+    "fused_ln_mlp_int8_save_partial_dw_bwd": (
+        "vitax_torch/csrc/ln_mlp_int8_save.cu",
+        "vitax/ops/pallas_kernels.py:862"),
+    "fused_ln_mlp_bwd_wide_partial": ("vitax_torch/csrc/ln_mlp_bwd.cu",
+                                      "vitax/ops/pallas_kernels.py:1589"),
 }
 SAVE_KERNELS = ("fused_ln_mlp_save", "fused_ln_mlp_bwd_fast",
                 "fused_ln_mlp_int8_save", "fused_ln_mlp_int8_save_bwd",
@@ -1742,13 +1798,13 @@ def _int8_twins(ck):
         ref = getattr(ck, name + "_ref")
 
         def fwd(*args, int8_grad=False, int8_dw=False, kv_heads=None,
-                save_acts=False):
+                save_acts=False, **residual):
             tail = (kv_heads,) if gqa else ()
             if ck._needs_grad(*args[:n_tensors]):
                 if int8_grad and save_acts:  # K12-int8's Function
                     return ck.FusedLnMlpSaveFn.apply(*args, True, int8_dw)
                 return fn_cls.apply(*args, True, int8_grad, int8_dw, *tail)
-            return ref(*args, *tail)
+            return ref(*args, *tail, **residual)
         return fwd
 
     ck.fused_ln_qkvo_attention_int8 = route("fused_ln_qkvo_attention_int8",
@@ -3747,11 +3803,12 @@ def _int4_twins(ck):
     names = INT4_KERNELS + RESVIT_INT4_KERNELS
     saved = {n: getattr(ck, n) for n in names}
 
-    def mlp(*args, int8_grad=False, int8_dw=False, int4_grad=False):
+    def mlp(*args, int8_grad=False, int8_dw=False, int4_grad=False,
+            residual=True):
         if ck._needs_grad(*args[:7]):
             return ck.FusedLnMlpFn.apply(*args, True, int8_grad, int8_dw,
-                                         True, int4_grad)
-        return ck.fused_ln_mlp_int4_ref(*args)
+                                         True, int4_grad, residual)
+        return ck.fused_ln_mlp_int4_ref(*args, residual=residual)
 
     def attn(*args, int8_grad=False, int8_dw=False, int4_grad=False,
              kv_heads=None):
@@ -5157,6 +5214,501 @@ def _run_tp(args, one_losses, exp_root):
     return results
 
 
+# ---------------------------------------------------------------- phase 17
+# The int8, int4 and save-acts MLP halves without the residual (the
+# residual=False branches of K4, K11-A/B and K12) and K2's wide backward
+# without it (:1589), which vitax's tensor-parallel MLP half runs per model
+# shard, and the ViT's tensor parallelism in every tier.
+# residual wrapper -> (its residual=False counter, the tier whose band
+# holds it)
+PARTIAL17 = {
+    "fused_ln_mlp_int8": ("fused_ln_mlp_int8_partial", "int8"),
+    "fused_ln_mlp_int8_bwd": ("fused_ln_mlp_int8_partial_bwd", "int8"),
+    "fused_ln_mlp_int8_dw_bwd": ("fused_ln_mlp_int8_partial_dw_bwd", "int8"),
+    "fused_ln_mlp_int4": ("fused_ln_mlp_int4_partial", "int4"),
+    "fused_ln_mlp_int4_bwd": ("fused_ln_mlp_int4_partial_bwd", "int4"),
+    "fused_ln_mlp_int4_dw_bwd": ("fused_ln_mlp_int4_partial_dw_bwd", "int4"),
+    "fused_ln_mlp_save": ("fused_ln_mlp_save_partial", "bf16"),
+    "fused_ln_mlp_bwd_fast": ("fused_ln_mlp_bwd_fast_partial", "bf16"),
+    "fused_ln_mlp_int8_save": ("fused_ln_mlp_int8_save_partial", "int8"),
+    "fused_ln_mlp_int8_save_bwd": ("fused_ln_mlp_int8_save_partial_bwd",
+                                   "int8"),
+    "fused_ln_mlp_int8_save_dw_bwd": ("fused_ln_mlp_int8_save_partial_dw_bwd",
+                                      "int8"),
+    "fused_ln_mlp_bwd_wide": ("fused_ln_mlp_bwd_wide_partial", "bf16"),
+}
+PARTIAL17_KERNELS = tuple(p for p, _ in PARTIAL17.values())
+# the share of rows an int4 xq code moved in, whose column codes cascade
+CODE_SHARE_ROWS = 1e-3
+TIER_FIELDS = ("int8_mlp", "int8_attn", "int8_mlp_grad", "int8_attn_grad",
+               "int8_dw", "int4_mlp", "int4_attn", "int4_grad")
+# (label, batch, rows, dims, timed): the table's ViT-B/16 b32 spq 200 at M
+# 3072 and the TP shard's M 1536; K2's wide backward at ViT-H/14's b32 spq
+# 264 on a TP shard's M 2560
+PARTIAL17_CASES = [("b32 spq200 M3072", 32, 200, B16, True),
+                   ("b32 spq200 M1536 (TP shard)", 32, 200, TP_SHARD, False)]
+WIDE17_CASE = ("b32 spq264 D1280 M2560 (h14 shard)", 32, 264,
+               (1280, 8, 80, 2560), True)
+# (b) and (c): the flag sets of the slice, each with the per-shard kernels
+# vitax's dispatch picks: (attention forward, its backward, MLP forward,
+# its backward). --int4 alone keeps the attention half on K3 with K1's
+# backward, as vitax's; --int8-grad --save-acts runs --int8-grad's kernels,
+# vitax's tensor-parallel MLP half taking no save-acts; --int4-attn
+# --int4-grad --int8-grad is phase 13's tier that runs K11-B without
+# int8_dw
+A8, A4 = "fused_ln_qkvo_attention_int8", "fused_ln_qkvo_attention_int4"
+TP17_TIERS = {
+    "--int8": (A8, "fused_ln_qkvo_attention_bwd",
+               "fused_ln_mlp_int8_partial", "fused_ln_mlp_partial_bwd"),
+    "--int8-grad": (A8, A8 + "_bwd", "fused_ln_mlp_int8_partial",
+                    "fused_ln_mlp_int8_partial_bwd"),
+    "--int8-dw": (A8, A8 + "_dw_bwd", "fused_ln_mlp_int8_partial",
+                  "fused_ln_mlp_int8_partial_dw_bwd"),
+    "--int4": (A8, "fused_ln_qkvo_attention_bwd", "fused_ln_mlp_int4_partial",
+               "fused_ln_mlp_partial_bwd"),
+    "--int4-attn --int4-grad --int8-grad": (
+        A4, A4 + "_bwd", "fused_ln_mlp_int4_partial",
+        "fused_ln_mlp_int4_partial_bwd"),
+    "--int4-attn --int4-grad --int8-dw": (
+        A4, A4 + "_dw_bwd", "fused_ln_mlp_int4_partial",
+        "fused_ln_mlp_int4_partial_dw_bwd"),
+    "--int8-grad --save-acts": (A8, A8 + "_bwd", "fused_ln_mlp_int8_partial",
+                                "fused_ln_mlp_int8_partial_bwd"),
+}
+# (c): train_cli b32, one epoch of 2 steps on 64 Synthetic images and its 2
+# eval batches; ViT-H/14 at b8 (2 steps, 2 eval batches: both ranks' shards
+# and this process's whole model fit the card's 80 GB together)
+TP17_STEPS = TP17_EVALS = 2
+# (no loader worker processes: 64 images do not need them, and each run
+# would start its own)
+TP17_ARGS = [{"--synthetic-samples": "64", "--train-steps": "2"}.get(prev, a)
+             for prev, a in zip([None] + TRAIN_ARGS, TRAIN_ARGS)] + [
+                 "--num-workers", "0"]
+TP17_H14_ARGS = [{"--synthetic-samples": "16", "--train-steps": "2",
+                  "--batch-size": "8"}.get(prev, a)
+                 for prev, a in zip([None] + H14_TRAIN_ARGS, H14_TRAIN_ARGS)
+                 ] + ["--num-workers", "0"]
+TP17_RUNS = [(f, TP17_ARGS + f.split()) for f in TP17_TIERS] + [
+    ("h14", TP17_H14_ARGS), ("--no-fused-qkv", TP17_ARGS + ["--no-fused-qkv"])]
+TP17_TIMEOUT = 300  # seconds the two gloo processes may take
+TP17_LAYER_BATCH = 2  # (b): one layer at b2 (394 rows), its twin on the CPU
+
+
+def _partial17_args(ck, name, t, do):
+    """The residual wrapper's arguments on inputs t; a K12 backward's saved
+    activations from its forward."""
+    mlp = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"])
+    if not name.endswith(("_bwd", "_fast", "_wide")):
+        return mlp + (t["b2"], EPS)
+    if name.endswith("_fast"):
+        _, h1, gp = ck.fused_ln_mlp_save(*mlp, t["b2"], EPS)
+        return (*mlp[:4], t["w2"], h1, gp, do, EPS)
+    if "save" in name:
+        _, *codes = ck.fused_ln_mlp_int8_save(*mlp, t["b2"], EPS)
+        return (*mlp[:4], t["w2"], *codes, do, EPS)
+    return mlp + (do, EPS)
+
+
+def _check_partial17(ck, name, label, args, stats):
+    """One residual=False launch: against its twin (bf16: TOL; int8 and
+    int4: the codes within their bands, ‖k − t‖/‖t‖ within INT8_REL or
+    INT4_REL, the bf16 stand-in outside it on every output a quantizer
+    reaches) and against the residual kernel on the same inputs, exactly:
+    its output bf16(x + partial) and its dx bf16(do + dx_partial), every
+    other output the same bits. Returns the line's summary."""
+    import torch
+    part_name, tier = PARTIAL17[name]
+    fn, twin = getattr(ck, name), getattr(ck, name + "_ref")
+    kw = (lambda s: {}) if tier == "bf16" else (lambda s: {"scratch": s})
+    sk, st = {}, {}
+    part = fn(*args, residual=False, **kw(sk))
+    full = fn(*args)
+    torch.cuda.synchronize()
+    ref = twin(*args, residual=False, **kw(st))
+    part, full, ref = (o if isinstance(o, tuple) else (o,)
+                       for o in (part, full, ref))
+    fwd = not name.endswith(("_bwd", "_fast", "_wide"))
+    res = args[0] if fwd else args[-2]
+    if not (torch.equal(full[0], res + part[0])
+            and all(torch.equal(a, b) for a, b in zip(full[1:], part[1:]))):
+        raise AssertionError(f"{part_name} {label}: not the residual "
+                             "kernel's bits less the residual")
+    if tier == "bf16":
+        errs = _hold_all(part_name, label, part, ref, stats)
+        return f"max|k-ref| [{' '.join(errs)}]"
+    rel, band = ((INT8_REL, CODE_BAND) if tier == "int8"
+                 else (INT4_REL, INT4_CODE_BAND))
+    with _bf16_stand_in(ck):
+        stand = twin(*args, residual=False)
+    stand = stand if isinstance(stand, tuple) else (stand,)
+    moves = _code_moves(sk, st)
+    if tier == "int4" and "xq" in st:
+        # a moved xq code (one int4 step, 1/7 of its row's largest value, on
+        # a .5 tie) moves its row's a1, and with it that row's h1 and dh1_32
+        # column codes by several int8 steps: those rows are held by xq's
+        # band, h1c's and dh1c's the other rows
+        moved = (sk["xq"][0].long() != st["xq"][0].long()).any(dim=1)
+        for key in ("h1c", "dh1c"):
+            if key in st and bool(moved.any()):
+                d = (sk[key][0].long() - st[key][0].long()).abs()[~moved]
+                moves[key] = (d.max().item(), d.float().mean().item())
+        moves["rows of moved xq codes"] = (0, moved.float().mean().item())
+    r_k = [_rel(k, r) for k, r in zip(part, ref)]
+    r_s = [_rel(s, r) for s, r in zip(stand, ref)]
+    # Σ do is reached by no quantizer, nor is the int8 save backward's bf16
+    # dW2 (its codes come saved from the forward), as in _check_int8
+    skip = set() if fwd else {len(r_s) - 1}
+    if name == "fused_ln_mlp_int8_save_bwd":
+        skip.add(5)
+    reached = [r for i, r in enumerate(r_s) if i not in skip]
+    stats[part_name]["max_abs_err"] = max(
+        stats[part_name]["max_abs_err"],
+        *((k.float() - r.float()).abs().max().item()
+          for k, r in zip(part, ref)))
+    band = dict(band, **{"rows of moved xq codes": (0, CODE_SHARE_ROWS)})
+    for key, (top, share) in moves.items():
+        if top > band[key][0] or share > band[key][1]:
+            raise AssertionError(f"{part_name} {label}: codes {key} moved "
+                                 f"{share} (largest step {top})")
+    if max(r_k) > rel or min(reached) <= rel:
+        raise AssertionError(f"{part_name} {label}: {r_k} from the twin, the "
+                             f"bf16 stand-in {r_s}, band {rel}")
+    return ("codes moved " + " ".join(f"{k} {m[0]} {m[1]:.1e}"
+                                      for k, m in moves.items())
+            + f"; ‖k−t‖/‖t‖ [{' '.join(f'{r:.1e}' for r in r_k)}] <= {rel}; "
+            f"stand-in [{' '.join(f'{r:.1e}' for r in r_s)}]")
+
+
+def check_partial_kernels(stats):
+    """Phase 17 (a): each residual=False launch of K4, K11-A/B, K12 and K2's
+    wide backward against its twin and its residual kernel
+    (`_check_partial17`) at PARTIAL17_CASES and WIDE17_CASE; at the timed
+    case, CUDA-event medians of the partial and its residual kernel in turns
+    (partial, residual, residual, partial) and the twin's."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for name in PARTIAL17_KERNELS:
+        stats[name] = {"max_abs_err": 0.0}
+    beside = {}
+    cases = [(n, c) for c in PARTIAL17_CASES for n in PARTIAL17
+             if not n.endswith("_wide")]
+    cases.append(("fused_ln_mlp_bwd_wide", WIDE17_CASE))
+    inputs = {}
+    for name, (label, batch, rows, dims, timed) in cases:
+        if label not in inputs:
+            inputs.clear()
+            torch.cuda.empty_cache()
+            t = _inputs(batch, rows, 170, dims)
+            g = torch.Generator(device="cuda").manual_seed(171)
+            inputs[label] = (t, torch.randn(t["x"].shape, generator=g,
+                                            device="cuda").to(torch.bfloat16))
+        t, do = inputs[label]
+        part_name = PARTIAL17[name][0]
+        with torch.no_grad():
+            args = _partial17_args(ck, name, t, do)
+            line = _check_partial17(ck, name, label, args, stats)
+            if timed:
+                fn = getattr(ck, name)
+                runs = [lambda: fn(*args, residual=False), lambda: fn(*args)]
+                k1, r1, r2, k2 = (_median_ms(runs[i], warmup=2, iters=10)
+                                  for i in (0, 1, 1, 0))
+                p_ms = _median_ms(lambda: getattr(ck, name + "_ref")(
+                    *args, residual=False), warmup=1, iters=3)
+                stats[part_name].update(ms=min(k1, k2), plain_ms=p_ms,
+                                        residual_ms=min(r1, r2),
+                                        shape=(batch, rows), dims=dims)
+                beside[part_name] = (k1, r1, r2, k2)
+                line += (f"; partial / residual / residual / partial "
+                         f"{k1:.4f} / {r1:.4f} / {r2:.4f} / {k2:.4f} ms "
+                         f"(medians of 10), twin {p_ms:.4f}")
+        print(f"  {part_name:38s} {label:28s} {line}; the residual "
+              "kernel's bits less the residual: ok", flush=True)
+    inputs.clear()
+    torch.cuda.empty_cache()
+    return beside
+
+
+def run_save_partial_path():
+    """Phase 17 (a'): the one caller of K12's partial pair, the library's
+    `fused_ln_mlp(save_acts=True, residual=False)` (and `fused_ln_mlp_int8`'s
+    with int8_grad, with and without int8_dw) under autograd at b32 spq
+    200, counted from 0: each forward and backward partial launched once,
+    the pair vitax's dispatch picks (pallas_kernels.py:2156-2166). No CLI
+    reaches it: vitax's tensor-parallel MLP half passes no save-acts."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    t = _inputs(32, 200, 172)
+    g = torch.Generator(device="cuda").manual_seed(173)
+    do = torch.randn(t["x"].shape, generator=g, device="cuda").to(
+        torch.bfloat16)
+    leaves = [t[k].clone().requires_grad_() for k in
+              ("x", "gamma", "beta", "w1", "b1", "w2", "b2")]
+    ck.reset_launch_counts()
+    ck.fused_ln_mlp(*leaves, EPS, save_acts=True, residual=False).backward(do)
+    for dw in (False, True):
+        ck.fused_ln_mlp_int8(*leaves, EPS, int8_grad=True, int8_dw=dw,
+                             save_acts=True, residual=False).backward(do)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    expect = _expect(fused_ln_mlp_save_partial=1,
+                     fused_ln_mlp_bwd_fast_partial=1,
+                     fused_ln_mlp_int8_save_partial=2,
+                     fused_ln_mlp_int8_save_partial_bwd=1,
+                     fused_ln_mlp_int8_save_partial_dw_bwd=1)
+    print(f"  fused_ln_mlp(save_acts=True, residual=False) and its int8 "
+          f"tiers under autograd: launches {_nonzero(counts)} (as vitax's "
+          f"dispatch: {counts == expect})", flush=True)
+    if counts != expect:
+        raise AssertionError(f"the save partial pair: expected {expect}")
+    return counts
+
+
+def _tp17_layer(rank, mesh, flags):
+    """(b) on this rank: one full-width ViT-B/16 layer of `flags`' config
+    at b2 (seq 197) through `vit._block` under the (1, 2) mesh: the kernel
+    path on the card (its launches counted from 0), the twin path per shard
+    on the CPU (the wrappers' plain versions), and one process's layer on
+    the whole weights (the kernel path, mesh None), in the tier and in
+    bf16. Returns the output's and every grad's ‖Δ‖/‖t‖ against the twin
+    path and against one process's layer, one process's tier layer against
+    its bf16 layer (the tier's own distance), and the kernel path's
+    launches."""
+    import torch
+    from vitax_torch import cli, train_cli
+    from vitax_torch.models import vit
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.parallel import shard_params
+    from vitax_torch.parallel.mesh import MODEL_AXIS, vit_param_spec
+    from vitax_torch.utils.memory import named_leaves
+    cfg = train_cli.model_config_from_cli(cli.get_train_config(
+        TP17_ARGS + flags.split()), True).replace(num_layers=1)
+    whole = vit.init_params(torch.Generator().manual_seed(0), cfg)["layers"][0]
+    shards = shard_params({"layers": [whole]}, mesh)["layers"][0]
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((TP17_LAYER_BATCH, 197, D), generator=g).to(
+        torch.bfloat16)
+    dy = torch.randn(x.shape, generator=g).to(torch.bfloat16)
+
+    def leaf(t, device):
+        return t.detach().clone().to(device).requires_grad_()
+
+    def run(lp, device, m, c=cfg):
+        lp = {k: {n: (leaf(v, device) if torch.is_tensor(v)
+                      else {a: leaf(b, device) for a, b in v.items()})
+                  for n, v in d.items()} for k, d in lp.items()}
+        xi = leaf(x, device)
+        y = vit._block(xi, lp, c, mesh=m)
+        y.backward(dy.to(device))
+        grads = {"x": xi.grad, **{n: t.grad for n, t in named_leaves(lp)}}
+        return (y - xi).detach().float().cpu(), {
+            n: t.float().cpu() for n, t in grads.items()}
+
+    ck.reset_launch_counts()
+    out_k, g_k = run(shards, "cuda", mesh)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    out_t, g_t = run(shards, "cpu", mesh)
+    out_1, g_1 = run(whole, "cuda", None)
+    out_b, g_b = run(whole, "cuda", None,
+                     cfg.replace(**dict.fromkeys(TIER_FIELDS, False)))
+
+    def mine(name, t):  # this rank's slice of a whole grad
+        spec = vit_param_spec("/" + name)
+        if MODEL_AXIS not in spec:
+            return t
+        return t.chunk(mesh.n_model, spec.index(MODEL_AXIS))[rank]
+
+    def dist(out, ref, grads, refs):
+        """‖Δ‖/‖t‖ of the output and of each grad; the key bias's against
+        the query bias's grad, its exact gradient being 0
+        (`_grad_distances`)."""
+        d = {"out": _rel(out, ref)}
+        for n, g in grads.items():
+            q = refs[n.replace("/key/", "/query/")]
+            d[n] = (_rel(g, refs[n]) if not n.endswith("attn/key/bias")
+                    else ((g - refs[n]).norm() / q.norm()).item())
+        return d
+    g_1, g_b = ({n: mine(n, g) for n, g in gs.items()} for gs in (g_1, g_b))
+    return {"twin": dist(out_k, out_t, g_k, g_t),
+            "one": dist(out_k, out_1, g_k, g_1),
+            "quant": dist(out_1, out_b, g_1, g_b), "counts": counts}
+
+
+def _tp17_rank(rank, port, exp_root, queue):
+    """One of phase 17's two processes, its own gloo rank on cuda:0: (b)
+    `_tp17_layer` for each flag set, then (c) `train_cli --n-gpu 2
+    --n-model 2` for each of TP17_RUNS in sequence, launches counted from 0
+    for each; puts (rank, results or the error's text) on the queue."""
+    import os
+    import traceback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.set_num_threads(3)
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=2)
+        from vitax_torch import train_cli
+        from vitax_torch.ops import cuda_kernels as ck
+        from vitax_torch.parallel import make_mesh
+        t0 = time.time()
+        mesh = make_mesh(1, 2)
+        layers = {f: _tp17_layer(rank, mesh, f) for f in TP17_TIERS}
+        layer_s = time.time() - t0
+        runs = {}
+        for label, args in TP17_RUNS:
+            ck.reset_launch_counts()
+            t1 = time.time()
+            log = os.path.join(exp_root, f"tp17_{rank}_{len(runs)}.log")
+            with open(log, "w") as f, contextlib.redirect_stdout(f):
+                out = train_cli.main(args + [
+                    "--exp-root", exp_root, "--n-gpu", "2", "--n-model", "2"],
+                    device="cuda:0")
+            if rank == 0:
+                shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
+            runs[label] = {
+                "losses": [v for e in out["epochs"]
+                           for v in e["train"]["losses"]],
+                "counts": ck.launch_counts(), "seconds": time.time() - t1}
+        queue.put((rank, {"layers": layers, "layer_seconds": layer_s,
+                          "runs": runs}))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+def _tp17_expect(label):
+    """A rank's launches of a TP17_RUNS entry: per shard, each of the 12
+    (h14: 32) layers' attention and MLP halves a forward and a backward;
+    the LN kernel on the encoder norm (and, where the attention half is
+    the plain one, each layer's LN1) a forward, its backward a step."""
+    fwd = TP17_STEPS + TP17_EVALS
+    if label in TP17_TIERS:
+        attn, attn_bwd, mlp, mlp_bwd = TP17_TIERS[label]
+        return _expect(**{attn: 12 * fwd, attn_bwd: 12 * TP17_STEPS,
+                          mlp: 12 * fwd, mlp_bwd: 12 * TP17_STEPS,
+                          "layer_norm": fwd, "layer_norm_bwd": TP17_STEPS})
+    layers, mlp_bwd = ((32, "fused_ln_mlp_bwd_wide_partial") if label == "h14"
+                       else (12, "fused_ln_mlp_partial_bwd"))
+    return _expect(layer_norm=(layers + 1) * fwd,
+                   layer_norm_bwd=(layers + 1) * TP17_STEPS,
+                   flash_attention=layers * fwd,
+                   flash_attention_bwd=layers * TP17_STEPS,
+                   fused_ln_mlp_partial=layers * fwd,
+                   **{mlp_bwd: layers * TP17_STEPS})
+
+
+def _tp17_band(label):
+    """A run's loss band against one process's: the int4 tiers'
+    QUANT_LOGIT_BAND (per-shard int4 scales pick other codes than
+    whole-tensor ones, 1/7 of a row's largest value each), else
+    LOGIT_BAND."""
+    return QUANT_LOGIT_BAND if "int4" in label else LOGIT_BAND
+
+
+def run_tp_tiers_slice(exp_root):
+    """Phase 17 (b), (c): two spawned processes, each its own gloo rank on
+    the card (`_tp17_rank`), within TP17_TIMEOUT; meanwhile this process
+    runs one process's train_cli of each TP17_RUNS entry (its output to a
+    log under exp_root). (b) each flag set's layer within phase 13's layer
+    bands of its twin path (the contribution out − x within LOGIT_BAND,
+    every grad within INT8_GRAD_BAND), within INT8_GRAD_BAND of one
+    process's layer (or twice the
+    tier's own distance from the bf16 layer, where that is larger: int4),
+    and exactly one launch of each of its four per-shard kernels; (c) each
+    run's launches
+    exact per shard (`_tp17_expect`) and each step's loss within its band
+    of one process's. Two ranks share the card: no speed number."""
+    import multiprocessing as mp
+    import os
+    os.makedirs(exp_root, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_tp17_rank, args=(r, port, exp_root, queue))
+             for r in range(2)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    one = {}
+    results = {}
+    try:
+        with open(os.path.join(exp_root, "tp17_one.log"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            for label, args in TP17_RUNS:
+                one[label] = _run_train(args + ["--exp-root", exp_root],
+                                        TP17_STEPS)[0]
+        while len(results) < 2:
+            left = TP17_TIMEOUT - (time.time() - t0)
+            rank, res = queue.get(timeout=max(1.0, left))
+            results[rank] = res
+        for p in procs:
+            p.join(max(1.0, TP17_TIMEOUT - (time.time() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in range(2):
+        if not isinstance(results.get(r), dict):
+            raise AssertionError(f"phase 17 rank {r} failed:\n"
+                                 f"{results.get(r)}")
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase 17 exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    dist = {}
+    for r in range(2):
+        res = results[r]
+        for flags, lay in res["layers"].items():
+            attn, attn_bwd, mlp, mlp_bwd = TP17_TIERS[flags]
+            expect = _expect(**{attn: 1, attn_bwd: 1, mlp: 1, mlp_bwd: 1})
+            # the layer bands of phase 13: the contribution within
+            # LOGIT_BAND, every grad within INT8_GRAD_BAND
+            twin_over = max((d / (LOGIT_BAND if n == "out"
+                                  else INT8_GRAD_BAND), n)
+                            for n, d in lay["twin"].items())
+            worst_t = max(lay["twin"].items(), key=lambda kv: kv[1])
+            worst_1 = max(lay["one"].items(), key=lambda kv: kv[1])
+            # per-shard scales against whole-tensor ones: INT8_GRAD_BAND,
+            # or twice the tier's own distance (one process's layer from
+            # its bf16 layer), two draws of the same quantization noise
+            over = max((d / max(INT8_GRAD_BAND, 2 * lay["quant"][n]), n)
+                       for n, d in lay["one"].items())
+            print(f"  (b) rank {r} {flags:36s} one layer b{TP17_LAYER_BATCH}"
+                  f": kernel path vs twin path per shard, worst grad "
+                  f"{worst_t[1]:.3e} ({worst_t[0]}), contribution "
+                  f"{lay['twin']['out']:.3e}, {twin_over[0]:.2f} of the "
+                  f"layer bands at worst; vs one process's layer, worst "
+                  f"{worst_1[1]:.3e} ({worst_1[0]}; the tier's own distance "
+                  f"there {lay['quant'][worst_1[0]]:.3e}), {over[0]:.2f} of "
+                  f"its bound at worst ({over[1]}); launches "
+                  f"{_nonzero(lay['counts'])}", flush=True)
+            dist[f"(b) {flags}"] = (worst_t[1], worst_1[1])
+            if twin_over[0] > 1 or over[0] > 1 or lay["counts"] != expect:
+                raise AssertionError(f"phase 17 (b) rank {r} {flags}")
+        for label, run in res["runs"].items():
+            d = max(abs(a - b) / max(1.0, abs(b))
+                    for a, b in zip(run["losses"], one[label]))
+            expect = _tp17_expect(label)
+            print(f"  (c) rank {r} train_cli --n-model 2 {label:36s} "
+                  f"({run['seconds']:.1f} s): losses "
+                  f"{[round(v, 4) for v in run['losses']]}, one process's "
+                  f"{[round(v, 4) for v in one[label]]}, max |Δ| / max(1, "
+                  f"|loss|) {d:.3e} <= {_tp17_band(label)}; launches "
+                  f"{_nonzero(run['counts'])} (as derived: "
+                  f"{run['counts'] == expect})", flush=True)
+            dist[f"(c) {label}"] = max(dist.get(f"(c) {label}", 0.0), d)
+            if (run["counts"] != expect or len(run["losses"]) != TP17_STEPS
+                    or d > _tp17_band(label)):
+                raise AssertionError(f"phase 17 (c) rank {r} {label}")
+    return {label: run["counts"] for label, run in results[0]["runs"].items()
+            }, dist, results[0]["layer_seconds"]
+
+
 # ---------------------------------------------------------------- bounds
 PEAK = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}  # H100 SXM, dense
 HBM = 3.35e12  # bytes/s
@@ -5180,11 +5732,11 @@ def _work(name, batch, rows, extra=None, dims=None):
         if name == "flash_attention_bwd":
             return 8 * io, {"bf16": 2.5 * core}
         return 4 * io, {"bf16": core}
+    # a residual=False launch does its residual kernel's work
+    name = name.replace("_partial", "")
     name = {"fused_ln_qkvo_attention_flash": "fused_ln_qkvo_attention",
             "fused_ln_qkvo_attention_flash_bwd": "fused_ln_qkvo_attention_bwd",
-            "fused_ln_mlp_bwd_wide": "fused_ln_mlp_bwd",
-            "fused_ln_mlp_partial": "fused_ln_mlp",
-            "fused_ln_mlp_partial_bwd": "fused_ln_mlp_bwd"}.get(name, name)
+            "fused_ln_mlp_bwd_wide": "fused_ln_mlp_bwd"}.get(name, name)
     # K11 does K3's and K4's work, its codes on the int4 grid in s8 products
     name = name.replace("_int4", "_int8")
     n = batch * rows
@@ -5541,6 +6093,28 @@ def main() -> int:
                     for k, ms in times16.items())
         + f"; phase 16 took {time.time() - t16:.1f} s [{card}]", flush=True)
 
+    print("phase 17, the int8, int4 and save-acts MLP halves without the "
+          "residual, and tensor parallelism in every tier:", flush=True)
+    t17 = time.time()
+    beside17 = check_partial_kernels(stats)
+    save17 = run_save_partial_path()
+    try:
+        counts17, dist17, layer_s = run_tp_tiers_slice(exp_root)
+    finally:
+        shutil.rmtree(exp_root, ignore_errors=True)
+    print("tp tiers: partial / residual kernel ms (min of two turns) "
+          + ", ".join(f"{n} {stats[n]['ms']:.4f} / "
+                      f"{stats[n]['residual_ms']:.4f} "
+                      f"({100 * (stats[n]['ms'] / stats[n]['residual_ms'] - 1):+.1f} %)"
+                      for n in beside17)
+          + "; (b) layers (worst against the twin path, one process's): "
+          + ", ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in dist17.items()
+                      if k.startswith("(b)"))
+          + f" ({layer_s:.1f} s); (c) losses against one process's: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dist17.items()
+                      if k.startswith("(c)"))
+          + f"; phase 17 took {time.time() - t17:.1f} s [{card}]", flush=True)
+
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
     # from the --int8-grad train slice, K5's and the int8_dw backwards' from
     # the fast recipe's (each runs every kernel of its tier), K7's and K8's
@@ -5610,7 +6184,23 @@ def main() -> int:
                  "fused_ln_mlp_partial": "tp rank 0",
                  "fused_ln_mlp_partial_bwd": "tp rank 0"}
 
+    # phase 17: each partial from rank 0's train_cli --n-model 2 run that
+    # takes it, K12's partial pair from its library caller's run
+    tier_runs = {"fused_ln_mlp_int8_partial": "--int8",
+                 "fused_ln_mlp_int8_partial_bwd": "--int8-grad",
+                 "fused_ln_mlp_int8_partial_dw_bwd": "--int8-dw",
+                 "fused_ln_mlp_int4_partial": "--int4",
+                 "fused_ln_mlp_int4_partial_bwd":
+                     "--int4-attn --int4-grad --int8-grad",
+                 "fused_ln_mlp_int4_partial_dw_bwd":
+                     "--int4-attn --int4-grad --int8-dw",
+                 "fused_ln_mlp_bwd_wide_partial": "h14"}
+
     def launches(name):
+        if name in tier_runs:
+            return counts17[tier_runs[name]][name]
+        if name in PARTIAL17_KERNELS:
+            return save17[name]
         if name in mesh_runs:
             return counts16[mesh_runs[name]][name]
         if name in k10_runs:

@@ -1464,3 +1464,95 @@ def test_ln_mlp_partial_kernels_match_twins(dev, shape):
     assert {k: v for k, v in ck.launch_counts().items() if v} == {
         "fused_ln_mlp_partial": 2, "fused_ln_mlp_partial_bwd": 2,
         "fused_ln_mlp": 1, "fused_ln_mlp_bwd": 1}
+
+
+# The residual=False branches of K4, K11-A/B and K12 (the int8, int4 and
+# save-acts MLP halves per model shard) and of K2's wide backward, at
+# ViT-B/16's b32 spq 200 (M 3072 and the TP shard's 1536) and h14's D 1280
+# on a shard's M 2560: each output against the twin's (‖k − t‖/‖t‖ within
+# 5e-3 for int8, 2e-2 for int4, as chip_smoke.py's INT8_REL and INT4_REL;
+# the bf16 outputs within the TOL band), and against the residual kernel
+# on the same inputs: its output bf16(x + partial) and its dx
+# bf16(do + dx_partial) to the bit, every other output the same bits.
+PARTIAL_TIER_SHAPES = [(32, 200, 768, 3072), (32, 200, 768, 1536),
+                       (8, 264, 1280, 2560)]
+PARTIAL_TIERS = {"fused_ln_mlp_int8": 5e-3, "fused_ln_mlp_int4": 2e-2,
+                 "fused_ln_mlp_save": None, "fused_ln_mlp_int8_save": 5e-3,
+                 "fused_ln_mlp_int8_bwd": 5e-3,
+                 "fused_ln_mlp_int8_dw_bwd": 5e-3,
+                 "fused_ln_mlp_int4_bwd": 2e-2,
+                 "fused_ln_mlp_int4_dw_bwd": 2e-2,
+                 "fused_ln_mlp_bwd_fast": None,
+                 "fused_ln_mlp_int8_save_bwd": 5e-3,
+                 "fused_ln_mlp_int8_save_dw_bwd": 5e-3,
+                 "fused_ln_mlp_bwd_wide": None}
+# the counters of the backwards' residual=False launches (the forwards',
+# the fast and the wide backward's: the name + "_partial")
+PARTIAL_COUNTERS = {
+    "fused_ln_mlp_int8_bwd": "fused_ln_mlp_int8_partial_bwd",
+    "fused_ln_mlp_int8_dw_bwd": "fused_ln_mlp_int8_partial_dw_bwd",
+    "fused_ln_mlp_int4_bwd": "fused_ln_mlp_int4_partial_bwd",
+    "fused_ln_mlp_int4_dw_bwd": "fused_ln_mlp_int4_partial_dw_bwd",
+    "fused_ln_mlp_int8_save_bwd": "fused_ln_mlp_int8_save_partial_bwd",
+    "fused_ln_mlp_int8_save_dw_bwd": "fused_ln_mlp_int8_save_partial_dw_bwd"}
+
+
+def _backward(name):
+    return name.endswith(("_bwd", "_fast", "_wide"))
+
+
+def _partial_args(dev, name, batch, spq, d, m):
+    """The wrapper's arguments (x, do bf16 [batch, spq, d]; fp32 vectors)."""
+    g = torch.Generator(device="cpu").manual_seed(17)
+
+    def n(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
+    x, do = n(batch, spq, d), n(batch, spq, d)
+    gamma = 1 + n(d, scale=0.1, dtype=torch.float32)
+    beta, b2 = (n(d, scale=0.1, dtype=torch.float32) for _ in range(2))
+    w1, w2 = n(d, m, scale=d ** -0.5), n(m, d, scale=m ** -0.5)
+    b1 = n(m, scale=0.1, dtype=torch.float32)
+    mlp = (x, gamma, beta, w1, b1, w2)
+    if not _backward(name):
+        return mlp + (b2, EPS)
+    if name.endswith("fast"):
+        _, h1, gp = ck.fused_ln_mlp_save(*mlp, b2, EPS)
+        return (x, gamma, beta, w1, w2, h1, gp, do, EPS)
+    if "save" in name:
+        _, *codes = ck.fused_ln_mlp_int8_save(*mlp, b2, EPS)
+        return (x, gamma, beta, w1, w2, *codes, do, EPS)
+    return mlp + (do, EPS)
+
+
+@pytest.mark.parametrize("shape", PARTIAL_TIER_SHAPES)
+@pytest.mark.parametrize("name", sorted(PARTIAL_TIERS))
+def test_partial_tier_kernels_match_twins_and_residual_kernels(dev, name,
+                                                               shape):
+    batch, spq, d, m = shape
+    if (d > 1024) != name.endswith("wide"):
+        pytest.skip("the wide backward runs at d > 1024 only, the others "
+                    "at d <= 1024")
+    args = _partial_args(dev, name, batch, spq, d, m)
+    fn = getattr(ck, name)
+    twin = getattr(ck, name + "_ref")
+    band = PARTIAL_TIERS[name]
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        part = fn(*args, residual=False)
+        full = fn(*args)
+        ref = twin(*args, residual=False)
+        torch.cuda.synchronize()
+    part, full, ref = (o if isinstance(o, tuple) else (o,)
+                       for o in (part, full, ref))
+    for k, t in zip(part, ref):
+        if band is None:
+            _assert_close(k, t)
+        else:
+            k, t = k.double(), t.double()
+            assert float((k - t).norm() / t.norm().clamp_min(1e-30)) <= band
+    residual = args[-2] if _backward(name) else args[0]
+    assert torch.equal(full[0], residual + part[0])
+    for a, b in zip(full[1:], part[1:]):
+        assert torch.equal(a, b)
+    counts = {k: v for k, v in ck.launch_counts().items() if v}
+    assert counts[PARTIAL_COUNTERS.get(name, name + "_partial")] == 1, counts

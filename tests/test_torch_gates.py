@@ -196,19 +196,21 @@ def _vitax_tp(jx, d, h, hd, m, tp):
 # (preset, image, tp) where vitax's per-shard K1 or K2 gate passes and the
 # port's does not: none. (ViT-H/14's attention half declines in both: vitax's
 # gate takes d <= 1024 only, so vitax hands its sharded weights to XLA, and
-# the port raises; its MLP half passes both at tp 2 and 4.)
+# the port runs its plain attention on the gathered weights; its MLP half
+# passes both at tp 2 and 4.)
 TP_PORT_DECLINES = set()
 
 
 @pytest.mark.parametrize("tp", [2, 4])
-def test_tp_gates_are_vitaxs(tp):
+def test_tp_gates_are_vitaxs(tp, monkeypatch):
     """The per-shard K1 and K2 gates at every preset × {224, 384}, serving
     and training: the port runs a half per shard only where vitax's gate
     passes; where vitax's passes and the port's does not
-    (TP_PORT_DECLINES, listed in ROADMAP: none), and where vitax's
-    declines and it would hand the sharded weights to XLA (ViT-H/14's
-    attention half), the port raises; the port's per-shard MLP gate is
-    vitax's (ops/gates.py's copy) with its own."""
+    (TP_PORT_DECLINES, listed in ROADMAP: none); where vitax's declines
+    and it hands the sharded weights to XLA (ViT-H/14's attention half),
+    `_tp_attention` declines and the block runs the plain attention on the
+    gathered weights, the MLP half per shard; the port's per-shard MLP
+    gate is vitax's (ops/gates.py's copy) with its own."""
     from vitax_torch.parallel.mesh import Mesh
     declines, runs = set(), 0
     for arch, image, mode in CASES:
@@ -238,6 +240,52 @@ def test_tp_gates_are_vitaxs(tp):
                                fused_mlp=True)
     mesh = Mesh(n_data=1, n_model=tp, rank=0, data_group=None,
                 model_group=None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tvit._tp_attention(torch.empty((2, s, d), device="meta",
-                                       dtype=torch.bfloat16), None, cfg, mesh)
+    x = torch.empty((2, s, d), device="meta", dtype=torch.bfloat16)
+    assert tvit._tp_attention(x, None, cfg, mesh) is None
+    route = []
+    monkeypatch.setattr(tvit, "_gathered", lambda p, half, mesh: (
+        route.append(f"gathered {half}"), p)[1])
+    monkeypatch.setattr(tvit, "_attention", lambda h, p, cfg: (
+        route.append("plain attention"), h)[1])
+    monkeypatch.setattr(tvit, "_tp_mlp", lambda x, lp, cfg, mesh: (
+        route.append("MLP per shard"), x)[1])
+    ln = {"scale": torch.empty(d, device="meta"),
+          "bias": torch.empty(d, device="meta")}
+    tvit._block(x, {"ln1": ln, "attn": {}, "ln2": ln}, cfg, mesh=mesh)
+    assert route == ["gathered attn", "plain attention", "MLP per shard"]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_tier_gates_are_vitaxs(tp):
+    """K3 and K11-C per shard (the attention half with `--int8` or
+    `--int4-attn` under a model axis) at every preset × {224, 384}, serving
+    and training: vitax asks K1's gate at the shard width for every tier
+    (vitax/models/vit.py:190-194), and so does the port, which runs the
+    tier per shard exactly where vitax does. Where vitax's gate declines at
+    d <= 1024 its plain attention drops the tier, which the port refuses
+    with Queue 1 item 8 (the tiers at d > 1024 raise before, in
+    `check_tiers`)."""
+    from vitax_torch.parallel.mesh import Mesh
+    mesh = Mesh(n_data=1, n_model=tp, rank=0, data_group=None,
+                model_group=None)
+    runs = 0
+    for arch, image, mode in CASES:
+        s, d, h = _seq(arch, image)
+        if h % tp or d > 1024:
+            continue
+        (jx, _), (tx, _) = _shapes(2, s, d, 3 * d)
+        vitax_attn = _vitax_tp(jx, d, h, d // h, 4 * d, tp)[0]
+        for flags in ({"int8_attn": True, "int8_mlp": True},
+                      {"int4_attn": True, "int4_mlp": True,
+                       "int8_attn": True, "int8_mlp": True}):
+            cfg = t_config.arch_config(arch, image, 10, fused_qkv=True,
+                                       fused_mlp=True, **flags)
+            with torch.set_grad_enabled(mode == "train"):
+                ran = tvit.tp_attention_supported(tx, cfg, tp)
+                assert ran == bool(vitax_attn), (arch, image, mode, flags)
+                if not ran:
+                    with pytest.raises(NotImplementedError,
+                                       match="Queue 1 item 8"):
+                        tvit._tp_attention(tx, None, cfg, mesh)
+            runs += ran
+    assert runs > 0

@@ -193,6 +193,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                 t["x"], SEQ, H, HD)
     ck.fused_ln_mlp(*mlp, t["b2"], EPS, residual=False)
     ck.fused_ln_mlp_bwd(*mlp, t["x"], EPS, residual=False)
+    for fwd in (ck.fused_ln_mlp_int8, ck.fused_ln_mlp_int4):
+        fwd(*mlp, t["b2"], EPS, residual=False)
+    for bwd in (ck.fused_ln_mlp_int8_bwd, ck.fused_ln_mlp_int8_dw_bwd,
+                ck.fused_ln_mlp_int4_bwd, ck.fused_ln_mlp_int4_dw_bwd,
+                ck.fused_ln_mlp_bwd_wide):
+        bwd(*mlp, t["x"], EPS, residual=False)
+    _, h1, gp = ck.fused_ln_mlp_save(*mlp, t["b2"], EPS, residual=False)
+    ck.fused_ln_mlp_bwd_fast(*mlp[:4], t["w2"], h1, gp, t["x"], EPS,
+                             residual=False)
+    _, *codes = ck.fused_ln_mlp_int8_save(*mlp, t["b2"], EPS, residual=False)
+    for bwd in (ck.fused_ln_mlp_int8_save_bwd,
+                ck.fused_ln_mlp_int8_save_dw_bwd):
+        bwd(*mlp[:4], t["w2"], *codes, t["x"], EPS, residual=False)
     assert ck.launch_counts() == {"layer_norm": 0,
                                   "fused_ln_qkvo_attention": 0,
                                   "fused_ln_mlp": 0, "layer_norm_bwd": 0,
@@ -243,7 +256,19 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                                   "fused_qkvo_attention": 0,
                                   "fused_qkvo_attention_bwd": 0,
                                   "fused_ln_mlp_partial": 0,
-                                  "fused_ln_mlp_partial_bwd": 0}
+                                  "fused_ln_mlp_partial_bwd": 0,
+                                  "fused_ln_mlp_int8_partial": 0,
+                                  "fused_ln_mlp_int8_partial_bwd": 0,
+                                  "fused_ln_mlp_int8_partial_dw_bwd": 0,
+                                  "fused_ln_mlp_int4_partial": 0,
+                                  "fused_ln_mlp_int4_partial_bwd": 0,
+                                  "fused_ln_mlp_int4_partial_dw_bwd": 0,
+                                  "fused_ln_mlp_save_partial": 0,
+                                  "fused_ln_mlp_bwd_fast_partial": 0,
+                                  "fused_ln_mlp_int8_save_partial": 0,
+                                  "fused_ln_mlp_int8_save_partial_bwd": 0,
+                                  "fused_ln_mlp_int8_save_partial_dw_bwd": 0,
+                                  "fused_ln_mlp_bwd_wide_partial": 0}
 
 
 def test_hopper_gates():

@@ -6,14 +6,21 @@ collective fails the test):
 * the three wrappers of parallel/tp_kernels.py on a (1, 2) mesh against
   vitax's on `make_mesh(n_data=1, n_model=2)` of the conftest's fake CPU
   devices (its Pallas kernels in interpret mode): outputs, and the grads of
-  x, γ, β, the output bias and every shard;
+  x, γ, β, the output bias and every shard; the attention and MLP wrappers
+  also in each of vitax's six int8/int4 flag sets;
 * three SGD steps of a 2-layer D 128 ViT under (1, 2) and (2, 1), three
   AdamW steps of the small Res-ViT (dense and compacted) under (2, 1),
   `eval_cli --n-gpu 2` and `train_cli --n-gpu 2 [--n-model 2]` against one
   process on the global batch;
+* three SGD steps under (1, 2) against vitax's `make_train_step` under the
+  fake (1, 2) mesh with train_cli's `--int8`, `--int8-grad`, `--int4`,
+  `--int4-attn` and `--int8-dw` (each half per shard in its tier),
+  `--no-fused-qkv` (the plain attention on the gathered weights) and
+  dropout (the plain MLP on the gathered weights; the same masks injected
+  into both packages); `train_cli --n-gpu 2 --n-model 2` with the first
+  four flags against one process's run of the same flags;
 * the shard specs against vitax's on every parameter path, and what
-  raises: tensor parallelism with an int8/int4 tier, a world size other
-  than --n-gpu.
+  raises: a world size other than --n-gpu.
 
 Tolerances, |port - ref| <= tol·max(1, |ref|), fp32 throughout: losses,
 logits and metrics 1e-5 (each rank sums its rows, or each shard its heads
@@ -22,7 +29,21 @@ parameters after SGD steps 1e-5 absolute; after AdamW steps 2e-5 absolute
 (test_torch_resvit_train.py's: an update is lr·m/(√v + eps)); the wrappers
 against vitax as tests/test_torch_kernels_ref.py holds the kernels' twins,
 1e-4 for outputs and small grads, 1e-3 for the weight grads (sums over every
-row). Both CLIs run the D 128 preset injected as "tiny" in fp32.
+row); in the int8/int4 flag sets the same, the twins and vitax's kernels
+quantizing on one grid, per shard alike. The int8/int4 steps against
+vitax's: params 2e-3·max(1, |p|), test_torch_int8.py's band for its train
+steps (a code on a rounding tie moves one step); losses 2e-2 relative and
+logits 2e-2·max(1, |logit|), since this model's loss is steep (2.59 to
+0.85 in three steps at lr 0.003) and the parameter distance that the
+moved codes leave (<= 4.3e-4 scaled) moves the loss by up to 1.6e-2
+relative: one process of each package, measured on the same steps
+without a mesh. The bf16 steps 1e-4 (losses, logits) and 1e-3 (params),
+test_torch_train.py's. The tier CLI runs under (1, 2) against one
+process's, where per-shard quantization scales stand in for whole-tensor
+ones: losses 2e-2 relative with int8 (6.6e-3 measured), 1.5e-1 with int4
+(8.7e-2 measured: an int4 code is 1/7 of its row's largest value, and
+other scales pick other codes). Both CLIs run the
+D 128 preset injected as "tiny" in fp32.
 """
 
 import multiprocessing as mp
@@ -39,10 +60,15 @@ import jax.numpy as jnp  # noqa: E402
 from tests import torch_parallel_workers as W  # noqa: E402
 from vitax.models import resvit as jr  # noqa: E402
 from vitax.models import vit as jvit  # noqa: E402
+from vitax import cli as j_cli  # noqa: E402
+from vitax import train_cli as j_train  # noqa: E402
 from vitax.core import config as jconf  # noqa: E402
 from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax.parallel import mesh as jmesh  # noqa: E402
 from vitax.parallel import tp_kernels as jtp  # noqa: E402
+from vitax.train import (create_train_state as j_state,  # noqa: E402
+                         make_train_step as j_step, onecycle_lr as j_lr,
+                         onecycle_momentum as j_mom, sgd_momentum as j_sgd)
 from vitax_torch import eval_cli as t_eval  # noqa: E402
 from vitax_torch import train_cli as t_train  # noqa: E402
 from vitax_torch.core import config as tconf  # noqa: E402
@@ -116,14 +142,17 @@ def _close_trees(ref, out, atol, what):
 def _vitax_wrappers(which):
     """vitax's wrapper on a (1, 2) mesh of the fake CPU devices, its Pallas
     kernel in interpret mode: (output, {input: grad}) under the workers'
-    inputs and cotangent."""
+    inputs and cotangent. `which`: "attn", "qkvo" or "mlp", the first and
+    the last optionally with a tier of W.TIERS ("attn int8", ...)."""
     a = {k: jnp.asarray(v) for k, v in W.tp_wrapper_inputs().items()}
     mesh = jmesh.make_mesh(n_data=1, n_model=2, devices=jax.devices()[:2])
+    which, _, tier = which.partition(" ")
+    tier = W.TIERS[tier] if tier else ()
     if which == "attn":
         names = ("x", "gamma", "beta", "wq", "wk", "wv", "bq", "bk", "bv",
                  "wo", "bo")
         fn = lambda *t: jtp.fused_ln_qkvo_attention_tp(  # noqa: E731
-            *t, mesh, 1e-6, 21, 4, 32)
+            *t, mesh, 1e-6, 21, 4, 32, *tier)
         args = [a[k] for k in names]
     elif which == "qkvo":
         names = ("x", "wq", "wk", "wv", "bq", "bk", "bv", "wo", "bo")
@@ -133,7 +162,8 @@ def _vitax_wrappers(which):
             [a["rb" + k] for k in "qkv"] + [a["rwo"], a["bo"]]
     else:
         names = ("x", "gamma", "beta", "w1", "b1", "w2", "b2")
-        fn = lambda *t: jtp.fused_ln_mlp_tp(*t, mesh, 1e-6)  # noqa: E731
+        fn = lambda *t: jtp.fused_ln_mlp_tp(*t, mesh, 1e-6,  # noqa: E731
+                                            *tier)
         args = [a[k] for k in names]
     y, vjp = jax.vjp(jax.jit(fn), *args)
     grads = vjp(a[f"dy_{which}"])
@@ -145,12 +175,15 @@ SHARD_AXIS = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
               "wo": 0, "w1": 1, "b1": 0, "w2": 0}
 
 
-@pytest.mark.parametrize("which", ["attn", "qkvo", "mlp"])
+@pytest.mark.parametrize("which", ["attn", "qkvo", "mlp"] + [
+    f"{half} {tier}" for tier in W.TIERS for half in ("attn", "mlp")])
 def test_tp_wrappers_match_vitax(which, tp_world, monkeypatch):
-    """fused_ln_qkvo_attention_tp (K1), fused_qkvo_attention_tp (K9) and
-    fused_ln_mlp_tp (K2 without its residual) per shard on a (1, 2) mesh:
-    each rank's output and grads of the whole inputs are vitax's, its
-    shards' grads vitax's slices of the whole grads."""
+    """fused_ln_qkvo_attention_tp (K1; K3, K11-C with a tier),
+    fused_qkvo_attention_tp (K9) and fused_ln_mlp_tp (K2, K4, K11-A
+    without the residual) per shard on a (1, 2) mesh, each tier with the
+    backward vitax's dispatch picks: each rank's output and grads of the
+    whole inputs are vitax's, its shards' grads vitax's slices of the whole
+    grads. The MLP's 48 rows are one int8_dw group in both packages."""
     monkeypatch.setattr(pk, "_INTERPRET", True)
     y, grads = _vitax_wrappers(which)
     for r, res in enumerate(tp_world):
@@ -161,6 +194,96 @@ def test_tp_wrappers_match_vitax(which, tp_world, monkeypatch):
                 g = np.split(g, 2, axis=SHARD_AXIS[name])[r]
             tol = 1e-3 if name.startswith("w") else 1e-4
             _close(g, out[name], tol, f"{which} d{name} (rank {r})")
+
+
+def _vitax_layout(tree):
+    """The port's parameters (numpy) in vitax's layout, layers stacked."""
+    conv = lambda t: ({k: conv(v) for k, v in t.items()}  # noqa: E731
+                      if isinstance(t, dict) else t.detach().float().numpy())
+    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = jax.tree.map(lambda *a: np.stack(a),
+                                 *[conv(lp) for lp in tree["layers"]])
+    return out
+
+
+def _vitax_steps(case, over, lr, monkeypatch):
+    """vitax's three SGD steps of W.vit_sgd_steps's model, config and batch
+    under its fake (1, 2) mesh (interpret mode), from the port's initial
+    weights; with "dropout" the masks of W.dropout_mask in vitax's
+    _dropout. Returns (losses, logits, params in the port's layout)."""
+    monkeypatch.setattr(pk, "_INTERPRET", True)
+    if case == "dropout":
+        calls = [0]
+        embed = jvit.embed
+
+        def counted_embed(*a, **k):
+            calls[0] = 0
+            return embed(*a, **k)
+
+        def masked(x, rate, rng, deterministic):
+            if deterministic or rate <= 0.0 or rng is None:
+                return x
+            keep = W.dropout_mask(calls[0], x.shape, rate)
+            calls[0] += 1
+            return jnp.where(keep, x / (1.0 - rate), 0.0).astype(x.dtype)
+        monkeypatch.setattr(jvit, "embed", counted_embed)
+        monkeypatch.setattr(jvit, "_dropout", masked)
+    kw = {k: v for k, v in {**W.VIT, **over}.items() if k != "dtype"}
+    jc = jconf.ViTConfig(**kw, dtype=jnp.float32)
+    params = tvit.init_params(torch.Generator().manual_seed(0),
+                              tconf.ViTConfig(**W.VIT))
+    mesh = jmesh.make_mesh(n_data=1, n_model=2, devices=jax.devices()[:2])
+    tx = j_sgd(j_lr(lr, 10, 0.2), momentum_schedule=j_mom(10, 0.2))
+    images, labels = (jnp.asarray(t.numpy()) for t in W.vit_batch())
+    with mesh:
+        state = j_state(jax.tree.map(jnp.asarray, _vitax_layout(params)), tx,
+                        jax.random.PRNGKey(1))
+        step = j_step(jc, tx, donate=False, mesh=mesh)
+        losses = []
+        for _ in range(W.STEPS):
+            state, m = step(state, images, labels.astype(jnp.int32))
+            losses.append(float(m["loss"]))
+        logits = jax.jit(lambda p, x: jvit.apply(p, x, jc, mesh=mesh))(
+            state.params, images)
+    p = jax.tree.map(lambda a: torch.from_numpy(np.array(a, np.float32)),
+                     state.params)
+    whole = {k: v for k, v in p.items() if k != "layers"}
+    whole["layers"] = [jax.tree.map(lambda a, i=i: a[i], p["layers"])
+                       for i in range(W.VIT["num_layers"])]
+    return losses, np.asarray(logits), whole
+
+
+def _hold_steps(case, tp_world, monkeypatch):
+    """Each rank's three steps of STEP_CASES[case] under (1, 2) against
+    vitax's under its (1, 2) mesh (the bands of the module docstring)."""
+    over, lr = W.step_overrides(case)
+    quant = lr == W.TIER_LR
+    losses, logits, params = _vitax_steps(case, over, lr, monkeypatch)
+    for r, res in enumerate(tp_world):
+        got = res["steps"][case]
+        np.testing.assert_allclose(got["losses"], losses,
+                                   rtol=2e-2 if quant else 1e-4,
+                                   atol=0 if quant else 1e-4)
+        _close(logits, got["logits"], 2e-2 if quant else 1e-4,
+               f"{case} logits (rank {r})")
+        flat = dict(named_leaves(got["params"]))
+        assert len(flat) == len(list(named_leaves(params)))
+        for name, ref in named_leaves(params):
+            ref = ref.numpy()
+            bound = (2e-3 * max(1.0, float(np.abs(ref).max())) if quant
+                     else 1e-3)
+            err = float(np.abs(flat[name].numpy() - ref).max())
+            assert err <= bound, f"{case} {name} (rank {r}): {err:.3e}"
+
+
+@pytest.mark.parametrize("case", ["--int8-dw", "--no-fused-qkv", "dropout"])
+def test_tp_sgd_steps_match_vitax(case, tp_world, monkeypatch):
+    """Three SGD steps under (1, 2) against vitax's: `--int8-dw` (K3 and K4
+    per shard with their int8 weight grads; the MLP's 68 rows one int8_dw
+    group in both packages), `--no-fused-qkv` (the plain attention, K13's
+    twin, on the weights gathered over the model axis; K2 per shard), and
+    dropout 0.1 (K1 per shard, the plain MLP on the gathered weights)."""
+    _hold_steps(case, tp_world, monkeypatch)
 
 
 # ------------------------------------------------------------- the steps
@@ -299,14 +422,28 @@ def test_shard_specs_are_vitaxs(model):
 
 @pytest.mark.parametrize("tier", ["--int8", "--int8-grad", "--int4",
                                   "--int4-attn"])
-def test_tensor_parallel_int_tiers_raise(tier, preset, tmp_path):
-    """The int8/int4 MLP halves without the residual are not ported
-    (ROADMAP Queue 2): tensor parallelism with a low-precision tier
-    raises, where vitax would run them per shard."""
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        t_train.main(W.cli_args(4, ["--n-gpu", "2", "--n-model", "2", tier,
-                                    "--exp-root", str(tmp_path)]),
-                     device="cpu")
+def test_tensor_parallel_int_tiers_match_vitax(tier, tp_world, preset,
+                                               monkeypatch, tmp_path):
+    """Tensor parallelism with a low-precision tier, per shard as vitax's:
+    train_cli maps the flag to vitax's config; three SGD steps under (1, 2)
+    in that config match vitax's under its (1, 2) mesh; and train_cli
+    --n-gpu 2 --n-model 2 with the flag runs its epoch near one process's
+    run of the flag (per-shard scales in place of whole-tensor ones)."""
+    monkeypatch.setitem(jconf.ARCH_PRESETS, "tiny", W.PRESET)
+    argv = W.cli_args(4, [tier])
+    j_cfg = j_train.model_config_from_cli(j_cli.get_train_config(argv))
+    over, _ = W.step_overrides(tier)
+    assert over == {k: getattr(j_cfg, k) for k in W.TIER_FIELDS}
+    _hold_steps(tier, tp_world, monkeypatch)
+    one = t_train.main(W.cli_args(4, [
+        "--train-steps", "5", "--warmup-steps", "2", "--lr", "0.05", "--wd",
+        "0", "--exp-root", str(tmp_path), tier]), device="cpu")
+    ref = np.asarray(one["epochs"][0]["train"]["losses"])
+    band = 1.5e-1 if "int4" in tier else 2e-2
+    for r, res in enumerate(tp_world):
+        dist = np.abs(np.asarray(res["train_cli_tiers"][tier]["losses"])
+                      - ref) / np.abs(ref)
+        assert dist.max() <= band, f"{tier} rank {r}: {dist.max():.3e}"
 
 
 @pytest.mark.parametrize("cli,flags", [

@@ -162,11 +162,13 @@ def test_npz_checkpoint_with_another_head_is_reinitialized(tmp_path, capsys):
 ])
 def test_unported_flags_raise(flags, tmp_path):
     """Each names its ROADMAP item; --n-gpu 2 is ported, and in one process
-    it says to launch one process per card with torchrun (--n-model 2 on
-    the tiny preset raises tensor parallelism's item: its fused halves are
-    off on the CPU)."""
+    it says to launch one process per card with torchrun; --n-model 2 is
+    ported, and on the tiny preset (3 heads) it says that the model axis
+    does not split the heads, which vitax's sharding refuses too."""
     error, match = ((ValueError, "torchrun --nproc_per_node")
                     if flags == ["--n-gpu", "2"]
+                    else (ValueError, "does not split 3 heads")
+                    if flags == ["--n-model", "2"]
                     else (NotImplementedError, "ROADMAP"))
     with pytest.raises(error, match=match):
         train_cli.main(TINY + ["--synthetic-samples", "8", "--exp-root",

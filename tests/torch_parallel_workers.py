@@ -7,6 +7,7 @@ test_*.py only.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -41,15 +42,15 @@ def vit_batch(seed=1):
             torch.from_numpy(rng.integers(0, 10, BATCH)))
 
 
-def vit_sgd_steps(mesh=None):
-    """Three SGD steps (momentum 0.9, OneCycle) of the 2-layer ViT on the
-    global batch (this rank's rows of it under a mesh, its shards under a
-    model axis): the losses, then the logits of this rank's rows and the
-    whole parameters after the steps."""
-    cfg = tconf.ViTConfig(**VIT)
+def vit_sgd_steps(mesh=None, lr=0.1, **over):
+    """Three SGD steps (momentum 0.9, OneCycle) of the 2-layer ViT (its
+    config with `over`) on the global batch (this rank's rows of it under a
+    mesh, its shards under a model axis): the losses, then the logits of
+    this rank's rows and the whole parameters after the steps."""
+    cfg = tconf.ViTConfig(**{**VIT, **over})
     params = shard_params(vit.init_params(torch.Generator().manual_seed(0),
                                           cfg), mesh, vit_param_spec)
-    opt, sched = sgd_momentum(params, 0.1, 10, 0.2)
+    opt, sched = sgd_momentum(params, lr, 10, 0.2)
     state = create_train_state(params, opt, sched,
                                torch.Generator().manual_seed(1))
     step = make_train_step(cfg, opt, sched, mesh=mesh)
@@ -64,6 +65,96 @@ def vit_sgd_steps(mesh=None):
         whole = gather_params(state.params, mesh, vit_param_spec)
     return {"losses": losses, "logits": logits, "rows": rows,
             "params": _detach(whole)}
+
+
+# the flag sets of vitax's tensor-parallel wrappers, (int8, int8_grad,
+# int8_dw, int4, int4_grad): train_cli's --int8, --int8-grad, --int8-dw,
+# --int4, --int4-attn --int4-grad --int8-grad and --int4-attn --int4-grad
+# --int8-dw
+TIERS = {"int8": (True, False, False, False, False),
+         "int8_grad": (True, True, False, False, False),
+         "int8_dw": (True, True, True, False, False),
+         "int4": (True, False, False, True, False),
+         "int4_grad": (True, True, False, True, True),
+         "int4_grad_dw": (True, True, True, True, True)}
+# the config fields the CLIs' tier flags set
+TIER_FIELDS = ("int8_mlp", "int8_attn", "int8_mlp_grad", "int8_attn_grad",
+               "int8_dw", "int4_mlp", "int4_attn", "int4_grad")
+# SGD steps under (1, 2) held against vitax's: the four tier flags whose
+# tensor-parallel runs raised before the tiers were ported, the third tier,
+# --no-fused-qkv and dropout (injected masks, `injected_dropout`). The
+# tiers take test_torch_int8.py's learning rate: a quantization code that
+# moves one step on a rounding tie moves a step of lr 0.1 too far.
+STEP_CASES = {"--int8": ["--int8"], "--int8-grad": ["--int8-grad"],
+              "--int4": ["--int4"], "--int4-attn": ["--int4-attn"],
+              "--int8-dw": ["--int8-dw"], "--no-fused-qkv": {"fused_qkv": False},
+              "dropout": {"dropout_rate": 0.1}}
+TIER_LR = 0.003
+
+
+def step_overrides(case):
+    """(config fields, learning rate) of a STEP_CASES entry: a tier's fields
+    as train_cli maps its flags (model_config_from_cli)."""
+    from vitax_torch import cli, train_cli
+    over = STEP_CASES[case]
+    if isinstance(over, dict):
+        return over, 0.1
+    saved = tconf.ARCH_PRESETS.get("tiny")
+    tconf.ARCH_PRESETS["tiny"] = PRESET
+    try:
+        cfg = train_cli.model_config_from_cli(
+            cli.get_train_config(cli_args(4, over)), False)
+    finally:
+        tconf.ARCH_PRESETS["tiny"] = saved
+    return {k: getattr(cfg, k) for k in TIER_FIELDS}, TIER_LR
+
+
+def dropout_mask(i, shape, rate):
+    """The keep mask of the i-th dropout call of a forward, drawn with
+    numpy, so that both packages drop the same units."""
+    return np.random.default_rng(1000 + i).uniform(size=shape) >= rate
+
+
+@contextlib.contextmanager
+def injected_dropout():
+    """vit._dropout with `dropout_mask` in place of the generator's draw, by
+    call order: 0 after `embed`, then 1, 2, 3 in every block, as vitax
+    traces its layers' `lax.scan` body once, so that all its layers take
+    the masks of one traced block."""
+    calls = [0]
+    embed, block, dropout = vit.embed, vit._block, vit._dropout
+
+    def counted_embed(*a, **k):
+        calls[0] = 0
+        return embed(*a, **k)
+
+    def counted_block(*a, **k):
+        calls[0] = 1
+        return block(*a, **k)
+
+    def masked(x, rate, gen, deterministic, mesh=None):
+        if deterministic or rate <= 0.0 or gen is None:
+            return x
+        keep = torch.from_numpy(dropout_mask(calls[0], tuple(x.shape), rate))
+        calls[0] += 1
+        return torch.where(keep, x / (1.0 - rate),
+                           torch.zeros_like(x)).to(x.dtype)
+    vit.embed, vit._block, vit._dropout = counted_embed, counted_block, masked
+    try:
+        yield
+    finally:
+        vit.embed, vit._block, vit._dropout = embed, block, dropout
+
+
+def tp_step_cases(mesh):
+    """`vit_sgd_steps` under the mesh for every STEP_CASES entry."""
+    out = {}
+    for case in STEP_CASES:
+        over, lr = step_overrides(case)
+        with (injected_dropout() if case == "dropout"
+              else contextlib.nullcontext()):
+            out[case] = vit_sgd_steps(mesh, lr, **over)
+    return out
 
 
 def tp_wrapper_inputs(seed=7):
@@ -100,25 +191,47 @@ def _shard(t, axis, mesh):
         .contiguous().requires_grad_()
 
 
-def tp_wrappers(mesh):
-    """The three wrappers of parallel/tp_kernels.py on this rank's shards:
-    their outputs and the grads of x, γ, β, bo/b2 and every shard of theirs
-    under the given cotangents."""
-    a = {k: torch.from_numpy(v) for k, v in tp_wrapper_inputs().items()}
-    out = {}
-    # K1 per shard (ViT layout)
+def _attn_wrapper(a, mesh, tier=()):
+    """fused_ln_qkvo_attention_tp (ViT layout) with the flags `tier`: its
+    output and the grads of x, γ, β, bo and every shard."""
     x, g, be, bo = (a[k].clone().requires_grad_()
                     for k in ("x", "gamma", "beta", "bo"))
     ws = [_shard(a[k], 1, mesh) for k in ("wq", "wk", "wv")]
     bs = [_shard(a[k], 0, mesh) for k in ("bq", "bk", "bv")]
     wo = _shard(a["wo"], 0, mesh)
     y = tp_kernels.fused_ln_qkvo_attention_tp(x, g, be, *ws, *bs, wo, bo,
-                                              mesh, 1e-6, 21, 4, 32)
+                                              mesh, 1e-6, 21, 4, 32, *tier)
     y.backward(a["dy_attn"])
-    out["attn"] = {"y": y, "x": x.grad, "gamma": g.grad, "beta": be.grad,
-                   "bo": bo.grad, "wq": ws[0].grad, "wk": ws[1].grad,
-                   "wv": ws[2].grad, "bq": bs[0].grad, "bk": bs[1].grad,
-                   "bv": bs[2].grad, "wo": wo.grad}
+    return {"y": y, "x": x.grad, "gamma": g.grad, "beta": be.grad,
+            "bo": bo.grad, "wq": ws[0].grad, "wk": ws[1].grad,
+            "wv": ws[2].grad, "bq": bs[0].grad, "bk": bs[1].grad,
+            "bv": bs[2].grad, "wo": wo.grad}
+
+
+def _mlp_wrapper(a, mesh, tier=()):
+    """fused_ln_mlp_tp with the flags `tier`: its output and the grads of x,
+    γ, β, b2 and every shard."""
+    x, g, be, b2 = (a[k].clone().requires_grad_()
+                    for k in ("x", "gamma", "beta", "b2"))
+    w1, b1 = _shard(a["w1"], 1, mesh), _shard(a["b1"], 0, mesh)
+    w2 = _shard(a["w2"], 0, mesh)
+    y = tp_kernels.fused_ln_mlp_tp(x, g, be, w1, b1, w2, b2, mesh, 1e-6,
+                                   *tier)
+    y.backward(a["dy_mlp"])
+    return {"y": y, "x": x.grad, "gamma": g.grad, "beta": be.grad,
+            "b2": b2.grad, "w1": w1.grad, "b1": b1.grad, "w2": w2.grad}
+
+
+def tp_wrappers(mesh):
+    """The three wrappers of parallel/tp_kernels.py on this rank's shards
+    (the attention and MLP halves also in every tier of TIERS, keyed
+    "attn <tier>", "mlp <tier>"): their outputs and the grads of x, γ, β,
+    bo/b2 and every shard of theirs under the given cotangents."""
+    a = {k: torch.from_numpy(v) for k, v in tp_wrapper_inputs().items()}
+    out = {"attn": _attn_wrapper(a, mesh)}
+    for name, tier in TIERS.items():
+        out[f"attn {name}"] = _attn_wrapper(a, mesh, tier)
+        out[f"mlp {name}"] = _mlp_wrapper(a, mesh, tier)
     # K9 per shard (Res-ViT layout)
     x, bo = (a[k].clone().requires_grad_() for k in ("x", "bo"))
     ws = [_shard(a["r" + k], 1, mesh) for k in ("wq", "wk", "wv")]
@@ -130,16 +243,7 @@ def tp_wrappers(mesh):
     out["qkvo"] = {"y": y, "x": x.grad, "bo": bo.grad, "wq": ws[0].grad,
                    "wk": ws[1].grad, "wv": ws[2].grad, "bq": bs[0].grad,
                    "bk": bs[1].grad, "bv": bs[2].grad, "wo": wo.grad}
-    # K2 without its residual per shard
-    x, g, be, b2 = (a[k].clone().requires_grad_()
-                    for k in ("x", "gamma", "beta", "b2"))
-    w1, b1 = _shard(a["w1"], 1, mesh), _shard(a["b1"], 0, mesh)
-    w2 = _shard(a["w2"], 0, mesh)
-    y = tp_kernels.fused_ln_mlp_tp(x, g, be, w1, b1, w2, b2, mesh, 1e-6)
-    y.backward(a["dy_mlp"])
-    out["mlp"] = {"y": y, "x": x.grad, "gamma": g.grad, "beta": be.grad,
-                  "b2": b2.grad, "w1": w1.grad, "b1": b1.grad,
-                  "w2": w2.grad}
+    out["mlp"] = _mlp_wrapper(a, mesh)  # K2 without its residual per shard
     return _detach(out)
 
 
@@ -249,7 +353,12 @@ SCENARIOS = {
     "tp": lambda tmp: {
         "wrappers": tp_wrappers(make_mesh(1, 2)),
         "vit": vit_sgd_steps(make_mesh(1, 2)),
+        "steps": tp_step_cases(make_mesh(1, 2)),
         "train_cli": train_cli_run(tmp, ["--n-gpu", "2", "--n-model", "2"]),
+        "train_cli_tiers": {
+            flag: train_cli_run(os.path.join(tmp, flag.strip("-")), [
+                "--n-gpu", "2", "--n-model", "2", flag])
+            for flag in ("--int8", "--int8-grad", "--int4", "--int4-attn")},
     },
     "dp": lambda tmp: {
         "vit": vit_sgd_steps(make_mesh(2, 1)),

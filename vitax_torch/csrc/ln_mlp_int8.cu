@@ -9,6 +9,11 @@
 //   h1q, sh = quant_rows(gelu_q(a1))              sigmoid GELU, in fp32
 //   out    = x + bf16(f32(h1q W2q) sh s2 + b2)   the residual add in bf16
 //
+// With residual == 0 it is the kernel's `residual=False` branch (:718), which
+// vitax's tensor-parallel MLP half runs per model shard
+// (vitax/parallel/tp_kernels.py:106-129): out = bf16(f32(h1q W2q) sh s2 +
+// b2), no x +, the last GEMM's epilogue kS8Bf16 in place of kS8Residual.
+//
 // W1 and W2 are quantized per output column (s1, s2) by the first launches
 // (quant.cuh), written as [N, K], gemm.cuh's s8 layout.
 //
@@ -29,7 +34,8 @@
 // (:2152) -> _ln_mlp_2d_int4 -> _ln_mlp_fwd_int4_call (pallas_call at
 // :1880). Its body (:973-998) is K4's with every quantizer on the int4 grid
 // (_quant_rows4, _quant_cols_host4: limit 7, quant.cuh), so it is the same
-// four launches at L = 7; the codes live in int8 and the s8 products of
+// four launches at L = 7 (its `residual=False` branch :997 as K4's); the
+// codes live in int8 and the s8 products of
 // values in [-7, 7] are the int4 products' int32 sums (|acc| <= 49 K). The
 // H100 has no int4 tensor-core rate: the bound and the design are K4's.
 #include "gemm.cuh"
@@ -42,7 +48,7 @@ template <int L>
 int ln_mlp_quant_fwd(const void* x, const void* gamma, const void* beta, const void* w1,
                      const void* b1, const void* w2, const void* b2, void* w1t, void* s1,
                      void* w2t, void* s2, void* xq, void* sx, void* g, void* h1q, void* sh,
-                     void* out, int n, int d, int m, float eps, void* stream) {
+                     void* out, int n, int d, int m, float eps, int residual, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
@@ -69,6 +75,11 @@ int ln_mlp_quant_fwd(const void* x, const void* gamma, const void* beta, const v
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_rows<L>(static_cast<const float*>(gf), h1qi, shf, n, m, st);
   if (e != cudaSuccess) return e;
+  if (!residual)
+    return vitax::launch_gemm_s8<vitax::kS8Bf16>(
+        h1qi, static_cast<const int8_t*>(w2t), shf, static_cast<const float*>(s2),
+        static_cast<const float*>(b2), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
+        m, st);
   return vitax::launch_gemm_s8<vitax::kS8Residual>(
       h1qi, static_cast<const int8_t*>(w2t), shf, static_cast<const float*>(s2),
       static_cast<const float*>(b2), xb, nullptr, static_cast<bf16*>(out), nullptr, n, d, m, st);
@@ -79,14 +90,15 @@ int ln_mlp_quant_fwd(const void* x, const void* gamma, const void* beta, const v
 // Inputs x bf16 [n, d], gamma, beta fp32 [d], w1 bf16 [d, m], b1 [m], w2 bf16
 // [m, d], b2 [d]; output out bf16 [n, d]. Scratch: w1t int8 [m, d], s1 [m],
 // w2t int8 [d, m], s2 [d], xq int8 [n, d], sx [n], g fp32 [n, m], h1q int8
-// [n, m], sh [n].
+// [n, m], sh [n]. residual 0: out = the partial sum, without x +.
 extern "C" int vitax_ln_mlp_int8_fwd(const void* x, const void* gamma, const void* beta,
                                      const void* w1, const void* b1, const void* w2,
                                      const void* b2, void* w1t, void* s1, void* w2t, void* s2,
                                      void* xq, void* sx, void* g, void* h1q, void* sh, void* out,
-                                     int n, int d, int m, float eps, void* stream) {
+                                     int n, int d, int m, float eps, int residual,
+                                     void* stream) {
   return ln_mlp_quant_fwd<vitax::kQ8>(x, gamma, beta, w1, b1, w2, b2, w1t, s1, w2t, s2, xq, sx, g,
-                                      h1q, sh, out, n, d, m, eps, stream);
+                                      h1q, sh, out, n, d, m, eps, residual, stream);
 }
 
 // K11-A: the same arguments, every code on the int4 grid.
@@ -94,7 +106,8 @@ extern "C" int vitax_ln_mlp_int4_fwd(const void* x, const void* gamma, const voi
                                      const void* w1, const void* b1, const void* w2,
                                      const void* b2, void* w1t, void* s1, void* w2t, void* s2,
                                      void* xq, void* sx, void* g, void* h1q, void* sh, void* out,
-                                     int n, int d, int m, float eps, void* stream) {
+                                     int n, int d, int m, float eps, int residual,
+                                     void* stream) {
   return ln_mlp_quant_fwd<vitax::kQ4>(x, gamma, beta, w1, b1, w2, b2, w1t, s1, w2t, s2, xq, sx, g,
-                                      h1q, sh, out, n, d, m, eps, stream);
+                                      h1q, sh, out, n, d, m, eps, residual, stream);
 }

@@ -14,6 +14,10 @@
 //   dh1q, sd = quant_rows(dh1_32);  dxn = f32(dh1q W1r^T) sd s1r
 //   LN tail: dx = do + bf16(dx_ln), dγ = Σ dxn x̂, dβ = Σ dxn
 //
+// With residual == 0 it is the kernel's `residual=False` branch (:1219, and
+// K11-B's :1096), the MLP half per model shard under tensor parallelism: dx
+// = bf16(dx_ln), no do +; every other output is the same bits.
+//
 // With int8_dw the two weight grads are the per-group int8 products with
 // row-scale folding (:1173-1197; dw_int8.cuh), over groups of `group` rows
 // (the wrapper's: 128, the last one ragged):
@@ -65,7 +69,7 @@ int ln_mlp_quant_bwd(
     void* xn, void* xq, void* sx, void* a1, void* h1, void* doq, void* sdo, void* dh1f,
     void* dh1, void* dh1q, void* sdh, void* dxn, void* ws, void* h1ct, void* sh, void* doqt,
     void* sdoc, void* xnct, void* sxn, void* dh1qt, void* sdhc, int n, int d, int m, int group,
-    int int8_dw, float eps, void* stream) {
+    int int8_dw, float eps, int residual, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* w1b = static_cast<const bf16*>(w1);
@@ -146,7 +150,7 @@ int ln_mlp_quant_bwd(
                                            nullptr, nullptr, dxnf, n, d, m, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(
-      xb, static_cast<const float*>(gamma), dxnf, dob,
+      xb, static_cast<const float*>(gamma), dxnf, residual ? dob : nullptr,
       static_cast<bf16*>(dx), static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d,
       eps, st);
 }
@@ -162,6 +166,7 @@ int ln_mlp_quant_bwd(
 // fp32 vitax_ln_mlp_bwd_ws(n, d, m); with int8_dw (else null), kp = groups *
 // round_up(group, 64): h1ct int8 [m, kp], sh fp32 [groups, m], doqt int8
 // [d, kp], xnct int8 [d, kp], sxn fp32 [groups, d], dh1qt int8 [m, kp].
+// residual 0: dx = bf16(dx_ln), without do +.
 extern "C" int vitax_ln_mlp_int8_bwd(
     const void* x, const void* gamma, const void* beta, const void* b1, const void* w1,
     const void* w2, const void* dout, void* dx, void* dgamma, void* dbeta, void* dw1, void* db1,
@@ -169,11 +174,11 @@ extern "C" int vitax_ln_mlp_int8_bwd(
     void* xn, void* xq, void* sx, void* a1, void* h1, void* doq, void* sdo, void* dh1f,
     void* dh1, void* dh1q, void* sdh, void* dxn, void* ws, void* h1ct, void* sh, void* doqt,
     void* xnct, void* sxn, void* dh1qt, int n, int d, int m, int group, int int8_dw, float eps,
-    void* stream) {
+    int residual, void* stream) {
   return ln_mlp_quant_bwd<vitax::kQ8>(
       x, gamma, beta, b1, w1, w2, dout, dx, dgamma, dbeta, dw1, db1, dw2, db2, w1r, s1r, w2r, s2r,
       w1c, s1c, xn, xq, sx, a1, h1, doq, sdo, dh1f, dh1, dh1q, sdh, dxn, ws, h1ct, sh, doqt,
-      nullptr, xnct, sxn, dh1qt, nullptr, n, d, m, group, int8_dw, eps, stream);
+      nullptr, xnct, sxn, dh1qt, nullptr, n, d, m, group, int8_dw, eps, residual, stream);
 }
 
 // K11-B: K4's arguments on the int4 grid; with int8_dw (else null) the
@@ -188,9 +193,9 @@ extern "C" int vitax_ln_mlp_int4_bwd(
     void* xn, void* xq, void* sx, void* a1, void* h1, void* doq, void* sdo, void* dh1f,
     void* dh1, void* dh1q, void* sdh, void* dxn, void* ws, void* h1ct, void* sh, void* doqt,
     void* sdoc, void* xnct, void* sxn, void* dh1qt, void* sdhc, int n, int d, int m, int group,
-    int int8_dw, float eps, void* stream) {
+    int int8_dw, float eps, int residual, void* stream) {
   return ln_mlp_quant_bwd<vitax::kQ4>(
       x, gamma, beta, b1, w1, w2, dout, dx, dgamma, dbeta, dw1, db1, dw2, db2, w1r, s1r, w2r, s2r,
       w1c, s1c, xn, xq, sx, a1, h1, doq, sdo, dh1f, dh1, dh1q, sdh, dxn, ws, h1ct, sh, doqt, sdoc,
-      xnct, sxn, dh1qt, sdhc, n, d, m, group, int8_dw, eps, stream);
+      xnct, sxn, dh1qt, sdhc, n, d, m, group, int8_dw, eps, residual, stream);
 }

@@ -38,6 +38,10 @@
 // grads are ordered split-K kTN products (or the ordered group sums) and
 // vector grads two-pass column sums: no float atomics, the same bits each
 // run.
+//
+// With residual == 0, the kernels' `residual=False` branches (:772, :862):
+// out = bf16(f32(h1q W2q) sh s2 + b2) without x + (fc2's epilogue kS8Bf16 in
+// place of kS8Residual), and dx = bf16(dx_ln) without do +.
 #include "dw_int8.cuh"
 #include "gemm.cuh"
 #include "layernorm.cuh"
@@ -101,7 +105,7 @@ extern "C" int vitax_ln_mlp_int8_save_fwd(const void* x, const void* gamma, cons
                                           const void* b2, void* w1t, void* s1, void* w2t,
                                           void* s2, void* xq, void* sx, void* g, void* h1q,
                                           void* sh, void* gpq, void* out, int n, int d, int m,
-                                          float eps, void* stream) {
+                                          float eps, int residual, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
   cudaError_t e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(w1),
@@ -127,6 +131,11 @@ extern "C" int vitax_ln_mlp_int8_save_fwd(const void* x, const void* gamma, cons
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_rows(static_cast<const float*>(gf), h1qi, shf, n, m, st);
   if (e != cudaSuccess) return e;
+  if (!residual)
+    return vitax::launch_gemm_s8<vitax::kS8Bf16>(
+        h1qi, static_cast<const int8_t*>(w2t), shf, static_cast<const float*>(s2),
+        static_cast<const float*>(b2), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
+        m, st);
   return vitax::launch_gemm_s8<vitax::kS8Residual>(
       h1qi, static_cast<const int8_t*>(w2t), shf, static_cast<const float*>(s2),
       static_cast<const float*>(b2), xb, nullptr, static_cast<bf16*>(out), nullptr, n, d, m, st);
@@ -149,7 +158,7 @@ extern "C" int vitax_ln_mlp_int8_save_bwd(
     void* s2r, void* xn, void* doq, void* sdo, void* dh1f, void* dh1, void* dh1q, void* sdh,
     void* dxn, void* ws, void* h1b, void* dos, void* doct, void* sdoc, void* h1qt, void* xnct,
     void* sxn, void* dh1qt, int n, int d, int m, int group, int int8_dw, float eps,
-    void* stream) {
+    int residual, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(w1),
                                                   static_cast<int8_t*>(w1r),
@@ -216,6 +225,7 @@ extern "C" int vitax_ln_mlp_int8_save_bwd(
                                            nullptr, nullptr, dxnf, n, d, m, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(
-      xb, static_cast<const float*>(gamma), dxnf, dob, static_cast<bf16*>(dx),
+      xb, static_cast<const float*>(gamma), dxnf, residual ? dob : nullptr,
+      static_cast<bf16*>(dx),
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d, eps, st);
 }

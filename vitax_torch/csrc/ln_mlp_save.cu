@@ -27,6 +27,10 @@
 // (8·N·M bytes each way) and its erf/exp. Weight grads are K2's ordered
 // split-K kTN products and vector grads its two-pass column sums: no float
 // atomics, the same bits each run.
+//
+// With residual == 0, the kernels' `residual=False` branches (:653, :1281):
+// out = bf16(fc2(...) + b2) without x + (fc2's epilogue kBias in place of
+// kBiasResidual), and dx = bf16(dx_ln) without do +.
 #include "gemm.cuh"
 #include "layernorm.cuh"
 
@@ -36,7 +40,8 @@
 extern "C" int vitax_ln_mlp_save_fwd(const void* x, const void* gamma, const void* beta,
                                      const void* w1, const void* b1, const void* w2,
                                      const void* b2, void* xn, void* h1, void* gp, void* out,
-                                     int n, int d, int m, float eps, void* stream) {
+                                     int n, int d, int m, float eps, int residual,
+                                     void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
@@ -49,6 +54,10 @@ extern "C" int vitax_ln_mlp_save_fwd(const void* x, const void* gamma, const voi
                                                static_cast<const float*>(b1), nullptr, h1b, n, m,
                                                d, st, nullptr, 0, static_cast<bf16*>(gp));
   if (e != cudaSuccess) return e;
+  if (!residual)
+    return vitax::launch_gemm<vitax::kBias>(h1b, static_cast<const bf16*>(w2),
+                                            static_cast<const float*>(b2), nullptr,
+                                            static_cast<bf16*>(out), n, d, m, st);
   return vitax::launch_gemm<vitax::kBiasResidual>(h1b, static_cast<const bf16*>(w2),
                                                   static_cast<const float*>(b2), xb,
                                                   static_cast<bf16*>(out), n, d, m, st);
@@ -64,7 +73,7 @@ extern "C" int vitax_ln_mlp_bwd_fast(const void* x, const void* gamma, const voi
                                      const void* gp, const void* dout, void* dx, void* dgamma,
                                      void* dbeta, void* dw1, void* db1, void* dw2, void* db2,
                                      void* xn, void* dh1, void* dxn, void* ws, int n, int d, int m,
-                                     float eps, void* stream) {
+                                     float eps, int residual, void* stream) {
   using vitax::bf16;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
@@ -94,6 +103,7 @@ extern "C" int vitax_ln_mlp_bwd_fast(const void* x, const void* gamma, const voi
                                               nullptr, dxnf, n, d, m, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(
-      xb, static_cast<const float*>(gamma), dxnf, dob, static_cast<bf16*>(dx),
+      xb, static_cast<const float*>(gamma), dxnf, residual ? dob : nullptr,
+      static_cast<bf16*>(dx),
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d, eps, st);
 }

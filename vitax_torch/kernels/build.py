@@ -37,8 +37,8 @@ SIGNATURES = {
     "vitax_layer_norm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
     "vitax_ln_mlp_bwd": [_P] * 20 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_qkvo_attention_bwd": [_P] * 23 + [_I] * 7 + [_F, _F, _P],
-    "vitax_ln_mlp_int8_fwd": [_P] * 17 + [_I, _I, _I, _F, _P],
-    "vitax_ln_mlp_int8_bwd": [_P] * 39 + [_I] * 5 + [_F, _P],
+    "vitax_ln_mlp_int8_fwd": [_P] * 17 + [_I, _I, _I, _F, _I, _P],
+    "vitax_ln_mlp_int8_bwd": [_P] * 39 + [_I] * 5 + [_F, _I, _P],
     "vitax_ln_qkvo_attention_int8_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int8_bwd": [_P] * 41 + [_I] * 9 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int8_ho_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
@@ -51,12 +51,12 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_flash_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
     "vitax_attention_core_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
     "vitax_attention_core_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
-    "vitax_ln_mlp_save_fwd": [_P] * 11 + [_I, _I, _I, _F, _P],
-    "vitax_ln_mlp_bwd_fast": [_P] * 19 + [_I, _I, _I, _F, _P],
-    "vitax_ln_mlp_int8_save_fwd": [_P] * 18 + [_I, _I, _I, _F, _P],
-    "vitax_ln_mlp_int8_save_bwd": [_P] * 37 + [_I] * 5 + [_F, _P],
-    "vitax_ln_mlp_int4_fwd": [_P] * 17 + [_I, _I, _I, _F, _P],
-    "vitax_ln_mlp_int4_bwd": [_P] * 41 + [_I] * 5 + [_F, _P],
+    "vitax_ln_mlp_save_fwd": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
+    "vitax_ln_mlp_bwd_fast": [_P] * 19 + [_I, _I, _I, _F, _I, _P],
+    "vitax_ln_mlp_int8_save_fwd": [_P] * 18 + [_I, _I, _I, _F, _I, _P],
+    "vitax_ln_mlp_int8_save_bwd": [_P] * 37 + [_I] * 5 + [_F, _I, _P],
+    "vitax_ln_mlp_int4_fwd": [_P] * 17 + [_I, _I, _I, _F, _I, _P],
+    "vitax_ln_mlp_int4_bwd": [_P] * 41 + [_I] * 5 + [_F, _I, _P],
     "vitax_ln_qkvo_attention_int4_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int4_bwd": [_P] * 43 + [_I] * 9 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int4_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],

@@ -23,8 +23,9 @@ kernels (the attention half K1, or K6, its KV-chunked core, where K1's
 whole-row core does not fit, as for ViT-H/14; the MLP half K2) on a
 residual stream padded once to a multiple of 8 rows (under
 autograd, their backward kernels run through `torch.autograd.Function`s;
-under a mesh with a model axis > 1, K1 and K2 without its residual per
-model shard, parallel/tp_kernels.py),
+under a mesh with a model axis > 1, each half per model shard in its tier,
+parallel/tp_kernels.py, or where vitax hands the sharded weights to XLA,
+the plain half on the gathered weights),
 in bf16 or, with `int8_attn`/`int8_mlp` (and their `_grad` flags and
 `int8_dw`), in the W8A8 tiers, which on short or very long streams hand
 each block's packed int8 input over from the previous one (K5, vitax's auto
@@ -223,13 +224,6 @@ def _low_precision(cfg: ViTConfig) -> bool:
             or cfg.int4_attn or cfg.int4_grad)
 
 
-_TP = ("under tensor parallelism the port runs the attention half as K1 and "
-       "the MLP half as K2 per model shard, in bf16 with both fused halves "
-       "on, and raises where vitax would hand the sharded weights to XLA "
-       "or to an int8/int4 tier: ROADMAP Queue 1 item 5 (the rest of "
-       "tensor parallelism) and Queue 2 (the int8/int4 MLP halves without "
-       "the residual)")
-
 _WIDE_TIERS = ("the int8/int4 tiers are not ported at d > 1024 or on the "
                "KV-chunked attention half (K6), where vitax demotes them to "
                "bf16 without a word; ROADMAP Queue 1 item 8, \"int8/int4 "
@@ -245,20 +239,16 @@ def check_tiers(cfg: ViTConfig) -> None:
 
 
 def check_tp(cfg: ViTConfig, tp: int) -> None:
-    """Raise for what the port does not run under a model axis of `tp` > 1:
-    an int8/int4 tier, a fused half off, active dropout, or heads or the
-    MLP width that the model axis does not split. The CLIs call it before
-    they build the mesh, `apply` before it runs."""
-    if tp <= 1:
-        return
-    what = ("an int8/int4 tier" if _low_precision(cfg)
-            else "the fused attention half off" if not cfg.fused_qkv
-            else "the fused MLP half off" if not cfg.fused_mlp
-            else "dropout" if cfg.dropout_rate > 0.0
-            else f"{cfg.num_heads} heads" if cfg.num_heads % tp
+    """Raise for heads or an MLP width that a model axis of `tp` does not
+    split: `shard_params` cannot cut them, as vitax's placement of an
+    uneven sharding cannot. (The tiers at d > 1024 raise in `check_tiers`.)
+    The CLIs call it before they build the mesh, `apply` before it runs."""
+    what = (f"{cfg.num_heads} heads" if cfg.num_heads % tp
             else f"MLP width {cfg.mlp_dim}" if cfg.mlp_dim % tp else None)
-    if what is not None:
-        raise NotImplementedError(f"--n-model {tp} with {what}: {_TP}")
+    if tp > 1 and what is not None:
+        raise ValueError(f"--n-model {tp} does not split {what} evenly "
+                         "over the model axis; vitax's sharding of the "
+                         "parameters refuses it too")
 
 
 def tp_attention_supported(x: torch.Tensor, cfg: ViTConfig, tp: int
@@ -284,19 +274,24 @@ def tp_mlp_supported(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
 
 
 def _tp_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig, mesh: Mesh
-                  ) -> torch.Tensor:
-    """The attention half per model shard (vitax/models/vit.py:190-214): K1
-    on this rank's heads, on x padded to spq; raises where vitax's gate or
-    the port's declines (vitax would run its unfused attention on the
-    sharded weights)."""
+                  ) -> Optional[torch.Tensor]:
+    """The attention half per model shard (vitax/models/vit.py:190-214): K1,
+    K3 or K11-C with the tier on this rank's heads, on x padded to spq;
+    None where vitax's gate or the port's declines (ViT-H/14), and the block
+    runs vitax's plain attention on the gathered weights. The gate grows
+    with the width, so the whole weights' K9 gate of vitax's `_attention`
+    declines there too; vitax's plain attention drops the int8/int4 tier,
+    which the port does not do silently (Queue 1 item 8)."""
     from vitax_torch.parallel.tp_kernels import fused_ln_qkvo_attention_tp
     dt = x.dtype
     b, s, d = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     if not tp_attention_supported(x, cfg, tp_size(mesh)):
-        raise NotImplementedError(
-            f"x {tuple(x.shape)}, {h // tp_size(mesh)} heads a shard: "
-            f"vitax's or the port's gate declines K1 per model shard; {_TP}")
+        if cfg.int8_attn or cfg.int4_attn:
+            raise NotImplementedError(
+                f"x {tuple(x.shape)}, {h // tp_size(mesh)} heads a shard: "
+                f"the attention half is vitax's plain one; {_WIDE_TIERS}")
+        return None
     p = lp["attn"]
     spq = (s + 7) // 8 * 8
     out = fused_ln_qkvo_attention_tp(
@@ -305,26 +300,45 @@ def _tp_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig, mesh: Mesh
         *(p[k]["kernel"].to(dt) for k in ("query", "key", "value")),
         *(p[k]["bias"].float() for k in ("query", "key", "value")),
         p["out"]["kernel"].to(dt), p["out"]["bias"].float(), mesh, LN_EPS, s,
-        h, hd)
+        h, hd, cfg.int8_attn, cfg.int8_attn_grad, cfg.int8_dw, cfg.int4_attn,
+        cfg.int4_grad and cfg.int4_attn)
     return out[:, :s].to(dt)
 
 
-def _tp_mlp(x: torch.Tensor, lp: Params, mesh: Mesh) -> torch.Tensor:
-    """The MLP half per model shard (vitax/models/vit.py:272-287): K2
-    without its residual on this rank's M/tp columns of fc1 and rows of
-    fc2; raises where vitax's gate or the port's declines at the shard
-    width."""
+def _tp_mlp(x: torch.Tensor, lp: Params, cfg: ViTConfig, mesh: Mesh
+            ) -> Optional[torch.Tensor]:
+    """The MLP half per model shard (vitax/models/vit.py:272-287): K2, K4
+    or K11-A without the residual, with the tier's backward, on this rank's
+    M/tp columns of fc1 and rows of fc2; None where vitax's gate or the
+    port's declines at the shard width (the plain MLP runs)."""
     from vitax_torch.parallel.tp_kernels import fused_ln_mlp_tp
     mlp = lp["mlp"]
     w1, w2 = (mlp[k]["kernel"].to(x.dtype) for k in ("fc1", "fc2"))
     if not tp_mlp_supported(x, w1, w2):
-        raise NotImplementedError(
-            f"x {tuple(x.shape)}, w1 shard {tuple(w1.shape)}: vitax's or "
-            f"the port's gate declines K2 per model shard; {_TP}")
+        return None
     return fused_ln_mlp_tp(x.contiguous(), lp["ln2"]["scale"].float(),
                            lp["ln2"]["bias"].float(), w1,
                            mlp["fc1"]["bias"].float(), w2,
-                           mlp["fc2"]["bias"].float(), mesh, LN_EPS)
+                           mlp["fc2"]["bias"].float(), mesh, LN_EPS,
+                           int8=cfg.int8_mlp, int8_grad=cfg.int8_mlp_grad,
+                           int8_dw=cfg.int8_dw, int4=cfg.int4_mlp,
+                           int4_grad=cfg.int4_grad)
+
+
+def _gathered(p: Params, half: str, mesh: Mesh) -> Params:
+    """A half's parameters (lp["attn"] or lp["mlp"]) whole, each sharded
+    leaf gathered over the model axis (`gather_from_model`): the weights
+    vitax's XLA gathers around its plain halves."""
+    from vitax_torch.parallel.mesh import MODEL_AXIS, vit_param_spec
+    from vitax_torch.parallel.tp_kernels import gather_from_model
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in t.items()}
+        spec = vit_param_spec(path)
+        return (gather_from_model(t, spec.index(MODEL_AXIS), mesh)
+                if MODEL_AXIS in spec else t)
+    return walk(p, "/" + half)
 
 
 def _fused_block_attention(x: torch.Tensor, lp: Params, cfg: ViTConfig,
@@ -396,12 +410,17 @@ def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
            gen: Optional[torch.Generator] = None, deterministic: bool = True,
            seq_len: Optional[int] = None, mesh: Optional[Mesh] = None
            ) -> torch.Tensor:
-    """Pre-LN encoder block (vitax's _block); under a model axis > 1 both
-    halves per model shard (`check_tp` has refused what that cannot run)."""
-    if tp_size(mesh) > 1:
-        x = x + _tp_attention(x, lp, cfg, mesh)
-        return _tp_mlp(x, lp, mesh)
-    h = _fused_block_attention(x, lp, cfg, seq_len) if cfg.fused_qkv else None
+    """Pre-LN encoder block (vitax's _block); under a model axis > 1 each
+    fused half per model shard, and where vitax hands the sharded weights
+    to XLA (a gate declines, a fused half off, the MLP half under active
+    dropout) the plain half on the gathered weights."""
+    tp = tp_size(mesh) > 1
+    if not cfg.fused_qkv:
+        h = None
+    elif tp:
+        h = _tp_attention(x, lp, cfg, mesh)
+    else:
+        h = _fused_block_attention(x, lp, cfg, seq_len)
     if h is None and seq_len is not None:
         # the plain attention has no sequence mask: pad K/V would leak
         raise RuntimeError("padded-stream block requires the fused "
@@ -409,10 +428,11 @@ def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
     if h is None:
         h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], LN_EPS,
                        use_kernels=cfg.use_pallas)
-        h = _attention(h, lp["attn"], cfg)
+        h = _attention(h, _gathered(lp["attn"], "attn", mesh) if tp
+                       else lp["attn"], cfg)
     x = x + _dropout(h, cfg.dropout_rate, gen, deterministic, mesh)
     if cfg.fused_mlp and (deterministic or cfg.dropout_rate <= 0.0):
-        y = _fused_block_mlp(x, lp, cfg)
+        y = _tp_mlp(x, lp, cfg, mesh) if tp else _fused_block_mlp(x, lp, cfg)
         if y is not None:
             return y
     if seq_len is not None:
@@ -422,7 +442,7 @@ def _block(x: torch.Tensor, lp: Params, cfg: ViTConfig,
                    use_kernels=cfg.use_pallas)
     # MlpBlock with its two dropouts, fp32 sums and GELU (ops/mlp.py:mlp_ref)
     dt = x.dtype
-    mlp = lp["mlp"]
+    mlp = _gathered(lp["mlp"], "mlp", mesh) if tp else lp["mlp"]
     h1 = matmul_f32(h, mlp["fc1"]["kernel"].to(dt)) + mlp["fc1"]["bias"].float()
     h1 = _dropout(gelu_exact(h1).to(dt), cfg.dropout_rate, gen, deterministic,
                   mesh)
@@ -547,8 +567,9 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     the global batch, whose random numbers are drawn whole; with a model
     axis > 1, params are this rank's shards (`parallel.shard_params`) and
     each block runs per model shard, without the padded stream and the
-    int8 handoff (vitax/models/vit.py:424-426, :506). With a data axis
-    alone the dispatch is one process's."""
+    int8 handoff (vitax/models/vit.py:424-426, :506), and without K6, which
+    vitax does not run per shard. With a data axis alone the dispatch is
+    one process's."""
     check_tiers(cfg)
     check_tp(cfg, tp_size(mesh))
     if cfg.remat:
@@ -566,9 +587,10 @@ def apply(params: Params, images: torch.Tensor, cfg: ViTConfig, *,
     x = _dropout(x, cfg.dropout_rate, gen, deterministic, mesh)
     if deterministic:
         gen = None
-    if cfg.fused_qkv and _low_precision(cfg) and _attention_kernel(
-            x, torch.empty((x.shape[-1], 3 * cfg.num_heads * cfg.head_dim),
-                           device="meta"), cfg.num_heads) == "k6":
+    wqkv = torch.empty((x.shape[-1], 3 * cfg.num_heads * cfg.head_dim),
+                       device="meta")
+    if (cfg.fused_qkv and _low_precision(cfg) and tp_size(mesh) == 1
+            and _attention_kernel(x, wqkv, cfg.num_heads) == "k6"):
         raise NotImplementedError(_WIDE_TIERS)
     seq_len = None
     spq = _padded_stream_len(x, params, cfg, deterministic, mesh)

@@ -105,6 +105,15 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   `_ln_mlp_fwd_kernel` :587 (:614) and `_ln_mlp_bwd_kernel` :1308 (K2 per
   model shard under tensor parallelism); `fused_ln_mlp(...,
   residual=False)` routes to them
+- `fused_ln_mlp_int8_partial{,_bwd,_dw_bwd}`,
+  `fused_ln_mlp_int4_partial{,_bwd,_dw_bwd}`, `fused_ln_mlp_save_partial`,
+  `fused_ln_mlp_bwd_fast_partial`, `fused_ln_mlp_int8_save_partial{,_bwd,
+  _dw_bwd}`, `fused_ln_mlp_bwd_wide_partial` -> ln_mlp_int8.cu,
+  ln_mlp_int8_bwd.cu, ln_mlp_save.cu, ln_mlp_int8_save.cu and ln_mlp_bwd.cu
+  with the residual off -> the `residual=False` branches of K4 (:718,
+  :1219), K11-A/B (:997, :1096), K12 (:653, :1281; int8 :772, :862) and
+  K2's chunked backward (:1589): the int8, int4 and save-acts MLP halves
+  per model shard; each residual wrapper's `residual=False` routes to them
 
 A wrapper given CPU tensors returns its `*_ref` twin (the CPU tests run
 those). A wrapper given CUDA tensors launches its kernel or raises: there is
@@ -398,13 +407,13 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps, save_acts=False,
     `save_acts` takes K12's save pair (`FusedLnMlpSaveFn`) where
     `save_acts_fits`; a call that needs no grad is K2's forward, whose out
     the save forward reproduces bit for bit. `residual=False` is the
-    kernel's branch without `x +` (`fused_ln_mlp_partial`), which vitax's
-    tensor-parallel MLP half runs per model shard; it keeps no activations,
-    as vitax's `fused_ln_mlp_tp` passes no save_acts."""
+    kernels' branch without `x +` (`fused_ln_mlp_partial`, under
+    `save_acts` K12's partial pair), which vitax's tensor-parallel MLP half
+    runs per model shard (vitax's `fused_ln_mlp_tp` passes no save_acts)."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
-        if save_acts and residual and save_acts_fits(x.shape[-1]):
+        if save_acts and save_acts_fits(x.shape[-1]):
             return FusedLnMlpSaveFn.apply(x, gamma, beta, w1, b1, w2, b2, eps,
-                                          False, False)
+                                          False, False, residual)
         return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, False,
                                   False, False, False, False, residual)
     if not residual:
@@ -555,17 +564,37 @@ def fused_ln_mlp_bwd_wide(x, gamma, beta, w1, b1, w2, do, eps, residual=True):
     `_ln_mlp_bwd_chunked_kernel` (:1527, pallas_call at :1610, taken by
     `_ln_mlp_2d_bwd` :1662-1665): the launch of ln_mlp_bwd.cu, whose fp32
     weight-grad sums need no chunking on the card, counted apart from the
-    d <= 1024 route's. Outputs as `fused_ln_mlp_bwd`."""
+    d <= 1024 route's. Outputs as `fused_ln_mlp_bwd`. residual=False is
+    `fused_ln_mlp_bwd_wide_partial`."""
+    if not residual:
+        return fused_ln_mlp_bwd_wide_partial(x, gamma, beta, w1, b1, w2, do,
+                                             eps)
     if not x.is_cuda:
-        return fused_ln_mlp_bwd_wide_ref(x, gamma, beta, w1, b1, w2, do, eps,
-                                         residual)
+        return fused_ln_mlp_bwd_wide_ref(x, gamma, beta, w1, b1, w2, do, eps)
     out = _ln_mlp_bwd_cuda("fused_ln_mlp_bwd_wide", x, gamma, beta, w1, b1,
-                           w2, do, eps, residual)
+                           w2, do, eps, True)
     fused_ln_mlp_bwd_wide.launches += 1
     return out
 
 
 fused_ln_mlp_bwd_wide.launches = 0
+
+
+def fused_ln_mlp_bwd_wide_partial(x, gamma, beta, w1, b1, w2, do, eps):
+    """`fused_ln_mlp_bwd_wide` without the residual's dx, the
+    `residual=False` branch of vitax's chunked kernel (:1589), which its
+    tensor-parallel MLP half reaches per shard at d > 1024 (ViT-H/14 under
+    `--n-model`): dx = bf16(dx_ln). Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_bwd_wide_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                         False)
+    out = _ln_mlp_bwd_cuda("fused_ln_mlp_bwd_wide_partial", x, gamma, beta,
+                           w1, b1, w2, do, eps, False)
+    fused_ln_mlp_bwd_wide_partial.launches += 1
+    return out
+
+
+fused_ln_mlp_bwd_wide_partial.launches = 0
 
 
 def _ln_mlp_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, residual):
@@ -609,28 +638,21 @@ class FusedLnMlpFn(torch.autograd.Function):
     :1779-1801), as does the bf16 tier (_ln_mlp_2d :1652-1673). `int4`
     picks the A4W4 forward (K11-A) and `int4_grad` the A4W4 dx-path
     backward (K11-B) ahead of `int8_grad` (_ln_mlp_2d_int4 :1939-1974).
-    `residual=False`, the bf16 tier only, is K2's branch without `x +`
-    (`fused_ln_mlp_partial` and its backward); the int8 and int4 tiers'
-    such branches are not ported (ROADMAP Queue 2)."""
+    `residual=False` picks each kernel's branch without `x +` (and without
+    `do +` in dx), the `*_partial` wrappers: vitax's tensor-parallel MLP
+    half per model shard."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_grad,
                 int8_dw, int4=False, int4_grad=False, residual=True):
-        if not residual and (int8 or int4):
-            raise NotImplementedError(
-                "the int8/int4 MLP halves without the residual (vitax's "
-                "tensor-parallel tiers) are not ported: ROADMAP Queue 2, "
-                '"residual=False MLP branches"')
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2)
         ctx.eps = eps
         ctx.tier = (int4 and int4_grad, int8 and int8_grad, int8_dw)
         ctx.residual = residual
         ctx.b2_dtype = b2.dtype
-        if not residual:
-            return fused_ln_mlp_partial(x, gamma, beta, w1, b1, w2, b2, eps)
         fwd = (fused_ln_mlp_int4 if int4 else fused_ln_mlp_int8 if int8
                else fused_ln_mlp)
-        return fwd(x, gamma, beta, w1, b1, w2, b2, eps)
+        return fwd(x, gamma, beta, w1, b1, w2, b2, eps, residual=residual)
 
     @staticmethod
     def backward(ctx, do):
@@ -638,14 +660,14 @@ class FusedLnMlpFn(torch.autograd.Function):
         int4_grad, int8_grad, int8_dw = ctx.tier
         args = (x, gamma, beta, w1, b1, w2, do.contiguous(), ctx.eps)
         if int4_grad:
-            grads = (fused_ln_mlp_int4_dw_bwd if int8_dw
-                     else fused_ln_mlp_int4_bwd)(*args)
+            bwd = (fused_ln_mlp_int4_dw_bwd if int8_dw
+                   else fused_ln_mlp_int4_bwd)
         elif int8_grad:
-            grads = (fused_ln_mlp_int8_dw_bwd if int8_dw
-                     else fused_ln_mlp_int8_bwd)(*args)
+            bwd = (fused_ln_mlp_int8_dw_bwd if int8_dw
+                   else fused_ln_mlp_int8_bwd)
         else:
-            grads = fused_ln_mlp_bwd(*args, residual=ctx.residual)
-        dx, dg, dbe, dw1, db1, dw2, db2 = grads
+            bwd = fused_ln_mlp_bwd
+        dx, dg, dbe, dw1, db1, dw2, db2 = bwd(*args, residual=ctx.residual)
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw1.to(w1.dtype),
                 db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
                 None, None, None, None, None, None, None)
@@ -1686,14 +1708,15 @@ def _group_codes(qt, n, group):
 
 
 def fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
-                          scratch=None):
+                          scratch=None, residual=True):
     """K4 forward with the TPU kernel's rounding points
     (_ln_mlp_fwd_int8_kernel, pallas_kernels.py:692-721): xq from the fp32
     LN output, a1 = f32(xq·W1q)·sx·s1 + b1, h1q from gelu_q(a1) in fp32,
-    y = f32(h1q·W2q)·sh·s2 + b2, out = x + bf16(y) in x.dtype. A `scratch`
-    dict receives every (codes, scale) pair, as the kernel's wrapper fills
-    it."""
-    return _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch)[0]
+    y = f32(h1q·W2q)·sh·s2 + b2, out = x + bf16(y) in x.dtype (bf16(y)
+    without `x +` when not residual, :718). A `scratch` dict receives every
+    (codes, scale) pair, as the kernel's wrapper fills it."""
+    return _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch,
+                             residual=residual)[0]
 
 
 def _quantizers(int4):
@@ -1705,8 +1728,9 @@ def _quantizers(int4):
 
 
 def _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch,
-                      int4=False):
-    """(out, a1, h1q, sh) of K4's twin, or with `int4` of K11-A's."""
+                      int4=False, residual=True):
+    """(out, a1, h1q, sh) of K4's twin, or with `int4` of K11-A's (out
+    without `x +` when not residual)."""
     rows, cols_host, _ = _quantizers(int4)
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
@@ -1718,25 +1742,31 @@ def _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch,
     h1q, sh = rows(gelu_q(a1))
     y = _dequant(int_mm(h1q, w2q), sh, s2, b2)
     _keep(scratch, w1q=(w1q, s1), w2q=(w2q, s2), xq=(xq, sx), h1q=(h1q, sh))
-    return (x2 + y.to(x.dtype)).reshape(x.shape), a1, h1q, sh
+    out = x2 + y.to(x.dtype) if residual else y.to(x.dtype)
+    return out.reshape(x.shape), a1, h1q, sh
 
 
 def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
-                      int8_dw=False, save_acts=False, *, scratch=None):
+                      int8_dw=False, save_acts=False, residual=True, *,
+                      scratch=None):
     """`fused_ln_mlp` with W8A8 fc1 and fc2 and the sigmoid GELU (K4).
     Under autograd the backward is K4's int8 dx-path backward with
     `int8_grad` (with its int8 weight grads under `int8_dw`), else the bf16
     K2 backward; `int8_grad` with `save_acts` takes K12's int8 save pair
     (`FusedLnMlpSaveFn`), and `save_acts` alone changes nothing, as in
-    vitax's dispatch (pallas_kernels.py:2156-2166). A `scratch` dict
+    vitax's dispatch (pallas_kernels.py:2156-2166). `residual=False` is
+    `fused_ln_mlp_int8_partial` (and its backwards). A `scratch` dict
     receives the codes and scales the kernel wrote, keyed and laid out as
     the twin's."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
         if int8_grad and save_acts:
             return FusedLnMlpSaveFn.apply(x, gamma, beta, w1, b1, w2, b2, eps,
-                                          True, int8_dw)
+                                          True, int8_dw, residual)
         return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, True,
-                                  int8_grad, int8_dw)
+                                  int8_grad, int8_dw, False, False, residual)
+    if not residual:
+        return fused_ln_mlp_int8_partial(x, gamma, beta, w1, b1, w2, b2, eps,
+                                         scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps,
                                      scratch=scratch)
@@ -1747,7 +1777,7 @@ def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
 
 
 def _ln_mlp_quant_fwd_cuda(name, int4, x, gamma, beta, w1, b1, w2, b2, eps,
-                           scratch):
+                           scratch, residual=True):
     """K4's forward launch (ln_mlp_int8.cu), or with `int4` K11-A's."""
     dev = _check_cuda(
         name,
@@ -1775,7 +1805,7 @@ def _ln_mlp_quant_fwd_cuda(name, int4, x, gamma, beta, w1, b1, w2, b2, eps,
     fn = lib.vitax_ln_mlp_int4_fwd if int4 else lib.vitax_ln_mlp_int8_fwd
     rc = fn(*(t.data_ptr() for t in (
         x2, gamma, beta, w1, b1, w2, b2, w1t, s1, w2t, s2, xq, sx, g, h1q, sh,
-        out)), n, d, m, eps, _stream(dev))
+        out)), n, d, m, eps, int(residual), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w1q=(w1t.t(), s1), w2q=(w2t.t(), s2), xq=(xq, sx),
           h1q=(h1q, sh))
@@ -1785,8 +1815,27 @@ def _ln_mlp_quant_fwd_cuda(name, int4, x, gamma, beta, w1, b1, w2, b2, eps,
 fused_ln_mlp_int8.launches = 0
 
 
+def fused_ln_mlp_int8_partial(x, gamma, beta, w1, b1, w2, b2, eps, *,
+                              scratch=None):
+    """K4's `residual=False` branch (ln_mlp_int8.cu with residual 0,
+    vitax's :718): bf16(f32(h1q·W2q)·sh·s2 + b2) without `x +`, a model
+    shard's partial sum of vitax's tensor-parallel `--int8` MLP half.
+    Counted apart from K4's residual launches."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps,
+                                     scratch=scratch, residual=False)
+    out = _ln_mlp_quant_fwd_cuda("fused_ln_mlp_int8_partial", False, x, gamma,
+                                 beta, w1, b1, w2, b2, eps, scratch, False)
+    fused_ln_mlp_int8_partial.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_partial.launches = 0
+
+
 def fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
-                              int8_dw=False, group=None, scratch=None):
+                              int8_dw=False, group=None, scratch=None,
+                              residual=True):
     """(dx, dγ, dβ, dW1, db1, dW2, db2) of K4 under int8_grad with the TPU
     kernel's rounding points (_ln_mlp_bwd_int8_kernel, pallas_kernels.py:
     1134-1224): xq from the bf16-rounded xn (the forward quantizes fp32),
@@ -1794,17 +1843,20 @@ def fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
     dh1f = f32(doq·W2rᵀ)·sdo·s2r, dh1_32 = dh1f·gelu_grad_q(a1),
     dxn = f32(dh1q·W1rᵀ)·sd·s1r; db1 = Σ dh1_32. dW1, dW2: bf16 products,
     or with `int8_dw` the per-group int8 products over `group` rows
-    (MLP_DW_GROUP by default; `_dw_int8`)."""
+    (MLP_DW_GROUP by default; `_dw_int8`). dx without `do +` when not
+    residual (:1219)."""
     return _ln_mlp_quant_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, False,
-                                 int8_dw, group or MLP_DW_GROUP, scratch)
+                                 int8_dw, group or MLP_DW_GROUP, scratch,
+                                 residual)
 
 
 def _ln_mlp_quant_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, int4, int8_dw,
-                          group, scratch):
+                          group, scratch, residual=True):
     """K4's backward twin, or with `int4` K11-B's: the same body with every
     quantizer of the recompute and the dx-path on the int4 grid, and under
     `int8_dw` both operands of each weight grad packed fresh per column
-    (`_dw_int8_cols`; the caller pads the rows to whole groups)."""
+    (`_dw_int8_cols`; the caller pads the rows to whole groups). dx without
+    `do +` when not residual."""
     rows, cols_host, rows_host = _quantizers(int4)
     dt = x.dtype
     d = x.shape[-1]
@@ -1838,21 +1890,22 @@ def _ln_mlp_quant_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, int4, int8_dw,
     dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c, s1c),
           xq=(xq, sxq), doq=(doq, sdo), dh1q=(dh1q, sd))
-    return ((do2 + dxln.to(dt)).reshape(x.shape), dg, dbe, dw1,
-            dh1_32.sum(dim=0), dw2, do2.float().sum(dim=0))
+    dx = do2 + dxln.to(dt) if residual else dxln.to(dt)
+    return (dx.reshape(x.shape), dg, dbe, dw1, dh1_32.sum(dim=0), dw2,
+            do2.float().sum(dim=0))
 
 
 def fused_ln_mlp_int8_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
-                                 scratch=None):
+                                 scratch=None, residual=True):
     """The twin of `fused_ln_mlp_int8_dw_bwd`: int8_dw at the port's group
     (MLP_DW_GROUP rows)."""
     return fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
                                      int8_dw=True, group=MLP_DW_GROUP,
-                                     scratch=scratch)
+                                     scratch=scratch, residual=residual)
 
 
 def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
-                          scratch, int4=False):
+                          scratch, int4=False, residual=True):
     """K4's backward launch (ln_mlp_int8_bwd.cu), or with `int4` K11-B's,
     whose int8_dw runs on the rows padded to whole groups of vitax's
     (`mlp_int4_dw_group`)."""
@@ -1907,7 +1960,8 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     rc = fn(*(t.data_ptr() for t in (
         x2, gamma, beta, b1, w1, w2, do2, dx, dg, dbe, dw1, db1, dw2, db2, w1r,
         s1r, w2r, s2r, w1c, s1c, xn, xq, sx, a1, h1, doq, sdo, dh1f, dh1, dh1q,
-        sdh, dxn, ws)), *ptrs, n, d, m, group, int(int8_dw), eps, _stream(dev))
+        sdh, dxn, ws)), *ptrs, n, d, m, group, int(int8_dw), eps,
+        int(residual), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c.t(), s1c),
           xq=(xq, sx), doq=(doq, sdo), dh1q=(dh1q, sdh))
@@ -1921,9 +1975,13 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
 
 
 def fused_ln_mlp_int8_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
-                          scratch=None):
+                          scratch=None, residual=True):
     """Backward of `fused_ln_mlp_int8` under int8_grad: dx (x's shape, bf16)
-    and fp32 dγ, dβ [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]."""
+    and fp32 dγ, dβ [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D].
+    residual=False is `fused_ln_mlp_int8_partial_bwd`."""
+    if not residual:
+        return fused_ln_mlp_int8_partial_bwd(x, gamma, beta, w1, b1, w2, do,
+                                             eps, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
                                          scratch=scratch)
@@ -1936,13 +1994,35 @@ def fused_ln_mlp_int8_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
 fused_ln_mlp_int8_bwd.launches = 0
 
 
+def fused_ln_mlp_int8_partial_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                                  scratch=None):
+    """K4's backward without the residual's dx (ln_mlp_int8_bwd.cu with
+    residual 0, vitax's :1219): dx = bf16(dx_ln), every other output
+    `fused_ln_mlp_int8_bwd`'s. Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                         scratch=scratch, residual=False)
+    out = _ln_mlp_int8_bwd_cuda("fused_ln_mlp_int8_partial_bwd", x, gamma,
+                                beta, w1, b1, w2, do, eps, False, scratch,
+                                residual=False)
+    fused_ln_mlp_int8_partial_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_partial_bwd.launches = 0
+
+
 def fused_ln_mlp_int8_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
-                             scratch=None):
+                             scratch=None, residual=True):
     """`fused_ln_mlp_int8_bwd` under int8_dw: dW1 and dW2 are per-group int8
     products with row-scale folding, over groups of MLP_DW_GROUP = 128 rows
     (the last one ragged), int32 inside a group and fp32 across groups in
     order. `scratch` also receives the column codes, h1c and xnc, as
-    [rows, width] with one scale a column a group."""
+    [rows, width] with one scale a column a group. residual=False is
+    `fused_ln_mlp_int8_partial_dw_bwd`."""
+    if not residual:
+        return fused_ln_mlp_int8_partial_dw_bwd(x, gamma, beta, w1, b1, w2,
+                                                do, eps, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int8_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do,
                                             eps, scratch=scratch)
@@ -1953,6 +2033,24 @@ def fused_ln_mlp_int8_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
 
 
 fused_ln_mlp_int8_dw_bwd.launches = 0
+
+
+def fused_ln_mlp_int8_partial_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                                     scratch=None):
+    """`fused_ln_mlp_int8_dw_bwd` without the residual's dx (its `int8_dw`
+    branch at :1219). Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do,
+                                            eps, scratch=scratch,
+                                            residual=False)
+    out = _ln_mlp_int8_bwd_cuda("fused_ln_mlp_int8_partial_dw_bwd", x, gamma,
+                                beta, w1, b1, w2, do, eps, True, scratch,
+                                residual=False)
+    fused_ln_mlp_int8_partial_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_partial_dw_bwd.launches = 0
 
 
 # =============================================================================
@@ -1969,24 +2067,31 @@ fused_ln_mlp_int8_dw_bwd.launches = 0
 # =============================================================================
 
 def fused_ln_mlp_int4_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
-                          scratch=None):
+                          scratch=None, residual=True):
     """K11-A with the TPU kernel's rounding points (_ln_mlp_fwd_int4_kernel,
     pallas_kernels.py:973-998): K4's twin on the int4 grid, xq from the
-    fp32 LN output, h1q from gelu_q(a1), out = x + bf16(y) in x.dtype."""
+    fp32 LN output, h1q from gelu_q(a1), out = x + bf16(y) in x.dtype
+    (bf16(y) when not residual, :997)."""
     return _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch,
-                             int4=True)[0]
+                             int4=True, residual=residual)[0]
 
 
 def fused_ln_mlp_int4(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
-                      int8_dw=False, int4_grad=False, *, scratch=None):
+                      int8_dw=False, int4_grad=False, residual=True, *,
+                      scratch=None):
     """`fused_ln_mlp` with A4W4 fc1 and fc2 and the sigmoid GELU (K11-A,
     ln_mlp_int8.cu at L = 7). Under autograd the backward is K11-B with
     `int4_grad`, else K4's with `int8_grad` (with their int8 weight grads
     under `int8_dw`), else K2's (_ln_mlp_2d_int4_bwd :1948-1970).
+    `residual=False` is `fused_ln_mlp_int4_partial` (and its backwards).
     `scratch`: as `fused_ln_mlp_int8`'s."""
     if _needs_grad(x, gamma, beta, w1, b1, w2, b2):
         return FusedLnMlpFn.apply(x, gamma, beta, w1, b1, w2, b2, eps, True,
-                                  int8_grad, int8_dw, True, int4_grad)
+                                  int8_grad, int8_dw, True, int4_grad,
+                                  residual)
+    if not residual:
+        return fused_ln_mlp_int4_partial(x, gamma, beta, w1, b1, w2, b2, eps,
+                                         scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int4_ref(x, gamma, beta, w1, b1, w2, b2, eps,
                                      scratch=scratch)
@@ -1999,40 +2104,63 @@ def fused_ln_mlp_int4(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
 fused_ln_mlp_int4.launches = 0
 
 
+def fused_ln_mlp_int4_partial(x, gamma, beta, w1, b1, w2, b2, eps, *,
+                              scratch=None):
+    """K11-A's `residual=False` branch (ln_mlp_int8.cu at L = 7 with
+    residual 0, vitax's :997): the tensor-parallel `--int4` MLP half's
+    partial sum. Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int4_ref(x, gamma, beta, w1, b1, w2, b2, eps,
+                                     scratch=scratch, residual=False)
+    out = _ln_mlp_quant_fwd_cuda("fused_ln_mlp_int4_partial", True, x, gamma,
+                                 beta, w1, b1, w2, b2, eps, scratch, False)
+    fused_ln_mlp_int4_partial.launches += 1
+    return out
+
+
+fused_ln_mlp_int4_partial.launches = 0
+
+
 def fused_ln_mlp_int4_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
-                              int8_dw=False, group=None, scratch=None):
+                              int8_dw=False, group=None, scratch=None,
+                              residual=True):
     """(dx, dγ, dβ, dW1, db1, dW2, db2) of K11-B with the TPU kernel's
     rounding points (_ln_mlp_bwd_int4_kernel, pallas_kernels.py:1017-1109):
     K4's backward twin with quant_rows4 of the bf16-rounded xn, of do and of
     dh1_32, and W1, W2 on the int4 grid. dW1, dW2: bf16 products, or with
     `int8_dw` Σ over groups of `group` rows (vitax's, `mlp_int4_dw_group`,
     by default) of int8 products of both operands packed fresh per column,
-    the rows zero-padded to whole groups as vitax pads them."""
+    the rows zero-padded to whole groups as vitax pads them. dx without
+    `do +` when not residual (:1096)."""
     if not int8_dw:
         return _ln_mlp_quant_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
-                                     True, False, None, scratch)
+                                     True, False, None, scratch, residual)
     d = x.shape[-1]
     x2, do2 = x.reshape(-1, d), do.reshape(-1, d)
     group = group or mlp_int4_dw_group(x2.shape[0])
     dx, *grads = _ln_mlp_quant_bwd_ref(
         _pad_rows(x2, group), gamma, beta, w1, b1, w2, _pad_rows(do2, group),
-        eps, True, True, group, scratch)
+        eps, True, True, group, scratch, residual)
     return (dx[:x2.shape[0]].reshape(x.shape), *grads)
 
 
 def fused_ln_mlp_int4_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
-                                 scratch=None):
+                                 scratch=None, residual=True):
     """The twin of `fused_ln_mlp_int4_dw_bwd`: int8_dw at vitax's group."""
     return fused_ln_mlp_int4_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
-                                     int8_dw=True, scratch=scratch)
+                                     int8_dw=True, scratch=scratch,
+                                     residual=residual)
 
 
 def fused_ln_mlp_int4_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
-                          scratch=None):
+                          scratch=None, residual=True):
     """Backward of `fused_ln_mlp_int4` under int4_grad (K11-B,
     ln_mlp_int8_bwd.cu at L = 7): dx (x's shape, bf16) and fp32 dγ, dβ
     [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]; the weight grads bf16
-    products in fp32."""
+    products in fp32. residual=False is `fused_ln_mlp_int4_partial_bwd`."""
+    if not residual:
+        return fused_ln_mlp_int4_partial_bwd(x, gamma, beta, w1, b1, w2, do,
+                                             eps, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int4_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
                                          scratch=scratch)
@@ -2045,14 +2173,33 @@ def fused_ln_mlp_int4_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
 fused_ln_mlp_int4_bwd.launches = 0
 
 
+def fused_ln_mlp_int4_partial_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                                  scratch=None):
+    """K11-B without the residual's dx (vitax's :1096). Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int4_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps,
+                                         scratch=scratch, residual=False)
+    out = _ln_mlp_int8_bwd_cuda("fused_ln_mlp_int4_partial_bwd", x, gamma,
+                                beta, w1, b1, w2, do, eps, False, scratch,
+                                int4=True, residual=False)
+    fused_ln_mlp_int4_partial_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int4_partial_bwd.launches = 0
+
+
 def fused_ln_mlp_int4_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
-                             scratch=None):
+                             scratch=None, residual=True):
     """`fused_ln_mlp_int4_bwd` under int8_dw: dW1 and dW2 are Σ over groups
     of vitax's rows (`mlp_int4_dw_group`; the rows padded with zeros to
     whole groups) of int8 products of both operands packed fresh per
     column. `scratch` also receives those column codes, h1c and doc (dW2),
     xnc and dh1c (dW1), as [padded rows, width] with one scale a column a
-    group."""
+    group. residual=False is `fused_ln_mlp_int4_partial_dw_bwd`."""
+    if not residual:
+        return fused_ln_mlp_int4_partial_dw_bwd(x, gamma, beta, w1, b1, w2,
+                                                do, eps, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int4_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do,
                                             eps, scratch=scratch)
@@ -2063,6 +2210,24 @@ def fused_ln_mlp_int4_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
 
 
 fused_ln_mlp_int4_dw_bwd.launches = 0
+
+
+def fused_ln_mlp_int4_partial_dw_bwd(x, gamma, beta, w1, b1, w2, do, eps, *,
+                                     scratch=None):
+    """`fused_ln_mlp_int4_dw_bwd` without the residual's dx (:1096 with
+    its `int8_dw` branch). Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int4_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do,
+                                            eps, scratch=scratch,
+                                            residual=False)
+    out = _ln_mlp_int8_bwd_cuda("fused_ln_mlp_int4_partial_dw_bwd", x, gamma,
+                                beta, w1, b1, w2, do, eps, True, scratch,
+                                int4=True, residual=False)
+    fused_ln_mlp_int4_partial_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int4_partial_dw_bwd.launches = 0
 
 
 def fused_ln_qkvo_attention_int4_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
@@ -2324,47 +2489,75 @@ def _check_save(name, tensors, shapes):
     return dev, x2
 
 
-def fused_ln_mlp_save_ref(x, gamma, beta, w1, b1, w2, b2, eps):
+def fused_ln_mlp_save_ref(x, gamma, beta, w1, b1, w2, b2, eps,
+                          residual=True):
     """K12's forward with the TPU kernel's rounding points
-    (_ln_mlp_fwd_save_kernel, pallas_kernels.py:620-656): K2's out, and
-    h1 = bf16(gelu(a1)) and g' = bf16(gelu'(a1)) [N, M] in x.dtype, g' the
-    exact-erf derivative in fp32 (:577-584)."""
-    out, a1, h1 = _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps)
+    (_ln_mlp_fwd_save_kernel, pallas_kernels.py:620-656): K2's out (without
+    `x +` when not residual, :653), and h1 = bf16(gelu(a1)) and
+    g' = bf16(gelu'(a1)) [N, M] in x.dtype, g' the exact-erf derivative in
+    fp32 (:577-584)."""
+    out, a1, h1 = _ln_mlp_twin(x, gamma, beta, w1, b1, w2, b2, eps, residual)
     m = w1.shape[-1]
     return (out, h1.reshape(-1, m),
             gelu_exact_grad(a1).to(x.dtype).reshape(-1, m))
 
 
-def fused_ln_mlp_save(x, gamma, beta, w1, b1, w2, b2, eps):
+def fused_ln_mlp_save(x, gamma, beta, w1, b1, w2, b2, eps, residual=True):
     """K12's forward (:1687): (out, h1, g'), out `fused_ln_mlp`'s to the bit
     (the same launches compute it), h1 and g' bf16 [N, M] for
-    `fused_ln_mlp_bwd_fast`."""
+    `fused_ln_mlp_bwd_fast`. residual=False is `fused_ln_mlp_save_partial`."""
+    if not residual:
+        return fused_ln_mlp_save_partial(x, gamma, beta, w1, b1, w2, b2, eps)
     if not x.is_cuda:
         return fused_ln_mlp_save_ref(x, gamma, beta, w1, b1, w2, b2, eps)
-    d, m = w1.shape
-    n = x.numel() // d
-    dev, x2 = _check_save(
-        "fused_ln_mlp_save", dict(x=x, gamma=gamma, beta=beta, w1=w1, b1=b1,
-                                  w2=w2, b2=b2),
-        dict(gamma=(d,), beta=(d,), b1=(m,), b2=(d,)))
-    xn, h1, gp = _bf(dev, n, d), _bf(dev, n, m), _bf(dev, n, m)
-    out = torch.empty_like(x2)
-    rc = build.load().vitax_ln_mlp_save_fwd(*(t.data_ptr() for t in (
-        x2, gamma, beta, w1, b1, w2, b2, xn, h1, gp, out)), n, d, m, eps,
-        _stream(dev))
-    build.check(rc, "fused_ln_mlp_save")
+    out = _ln_mlp_save_fwd_cuda("fused_ln_mlp_save", x, gamma, beta, w1, b1,
+                                w2, b2, eps, True)
     fused_ln_mlp_save.launches += 1
-    return out.view(x.shape), h1, gp
+    return out
 
 
 fused_ln_mlp_save.launches = 0
 
 
-def fused_ln_mlp_bwd_fast_ref(x, gamma, beta, w1, w2, h1, gp, do, eps):
+def fused_ln_mlp_save_partial(x, gamma, beta, w1, b1, w2, b2, eps):
+    """K12's forward without `x +` (ln_mlp_save.cu with residual 0, vitax's
+    :653): (partial, h1, g'). Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_save_ref(x, gamma, beta, w1, b1, w2, b2, eps,
+                                     False)
+    out = _ln_mlp_save_fwd_cuda("fused_ln_mlp_save_partial", x, gamma, beta,
+                                w1, b1, w2, b2, eps, False)
+    fused_ln_mlp_save_partial.launches += 1
+    return out
+
+
+fused_ln_mlp_save_partial.launches = 0
+
+
+def _ln_mlp_save_fwd_cuda(name, x, gamma, beta, w1, b1, w2, b2, eps,
+                          residual):
+    """K12's forward launch (ln_mlp_save.cu)."""
+    d, m = w1.shape
+    n = x.numel() // d
+    dev, x2 = _check_save(
+        name, dict(x=x, gamma=gamma, beta=beta, w1=w1, b1=b1, w2=w2, b2=b2),
+        dict(gamma=(d,), beta=(d,), b1=(m,), b2=(d,)))
+    xn, h1, gp = _bf(dev, n, d), _bf(dev, n, m), _bf(dev, n, m)
+    out = torch.empty_like(x2)
+    rc = build.load().vitax_ln_mlp_save_fwd(*(t.data_ptr() for t in (
+        x2, gamma, beta, w1, b1, w2, b2, xn, h1, gp, out)), n, d, m, eps,
+        int(residual), _stream(dev))
+    build.check(rc, name)
+    return out.view(x.shape), h1, gp
+
+
+def fused_ln_mlp_bwd_fast_ref(x, gamma, beta, w1, w2, h1, gp, do, eps,
+                              residual=True):
     """(dx, dγ, dβ, dW1, db1, dW2, db2) from the saved h1 and g' with the
     TPU kernel's rounding points (_ln_mlp_bwd_fast_kernel, pallas_kernels.py:
     1253-1290): dh1 = x.dtype(f32(do·W2ᵀ)·f32(g')), db1 over the rounded dh1,
-    dx = do + bf16(dx_ln) in x.dtype; only the LN statistics recomputed."""
+    dx = do + bf16(dx_ln) in x.dtype (without `do +` when not residual,
+    :1281); only the LN statistics recomputed."""
     dt = x.dtype
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
@@ -2374,23 +2567,55 @@ def fused_ln_mlp_bwd_fast_ref(x, gamma, beta, w1, w2, h1, gp, do, eps):
     dh1 = (matmul_f32(do2, w2.t()) * gp.float()).to(dt)
     dxn = matmul_f32(dh1, w1.t())
     dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
-    return ((do2 + dxln.to(dt)).reshape(x.shape), dg, dbe,
-            matmul_f32(xn.t(), dh1), dh1.float().sum(dim=0),
-            matmul_f32(h1.t(), do2), do2.float().sum(dim=0))
+    dx = do2 + dxln.to(dt) if residual else dxln.to(dt)
+    return (dx.reshape(x.shape), dg, dbe, matmul_f32(xn.t(), dh1),
+            dh1.float().sum(dim=0), matmul_f32(h1.t(), do2),
+            do2.float().sum(dim=0))
 
 
-def fused_ln_mlp_bwd_fast(x, gamma, beta, w1, w2, h1, gp, do, eps):
+def fused_ln_mlp_bwd_fast(x, gamma, beta, w1, w2, h1, gp, do, eps,
+                          residual=True):
     """K12's backward (:1723) from `fused_ln_mlp_save`'s h1 and g': dx (x's
     shape, bf16) and fp32 dγ, dβ [D], dW1 [D,M], db1 [M], dW2 [M,D],
-    db2 [D]."""
+    db2 [D]. residual=False is `fused_ln_mlp_bwd_fast_partial`."""
+    if not residual:
+        return fused_ln_mlp_bwd_fast_partial(x, gamma, beta, w1, w2, h1, gp,
+                                             do, eps)
     if not x.is_cuda:
         return fused_ln_mlp_bwd_fast_ref(x, gamma, beta, w1, w2, h1, gp, do,
                                          eps)
+    out = _ln_mlp_bwd_fast_cuda("fused_ln_mlp_bwd_fast", x, gamma, beta, w1,
+                                w2, h1, gp, do, eps, True)
+    fused_ln_mlp_bwd_fast.launches += 1
+    return out
+
+
+fused_ln_mlp_bwd_fast.launches = 0
+
+
+def fused_ln_mlp_bwd_fast_partial(x, gamma, beta, w1, w2, h1, gp, do, eps):
+    """K12's backward without the residual's dx (ln_mlp_save.cu with
+    residual 0, vitax's :1281): dx = bf16(dx_ln). Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_bwd_fast_ref(x, gamma, beta, w1, w2, h1, gp, do,
+                                         eps, False)
+    out = _ln_mlp_bwd_fast_cuda("fused_ln_mlp_bwd_fast_partial", x, gamma,
+                                beta, w1, w2, h1, gp, do, eps, False)
+    fused_ln_mlp_bwd_fast_partial.launches += 1
+    return out
+
+
+fused_ln_mlp_bwd_fast_partial.launches = 0
+
+
+def _ln_mlp_bwd_fast_cuda(name, x, gamma, beta, w1, w2, h1, gp, do, eps,
+                          residual):
+    """K12's backward launch (ln_mlp_save.cu)."""
     d, m = w1.shape
     n = x.numel() // d
     dev, x2 = _check_save(
-        "fused_ln_mlp_bwd_fast", dict(x=x, gamma=gamma, beta=beta, w1=w1,
-                                      w2=w2, h1=h1, gp=gp, do=do),
+        name, dict(x=x, gamma=gamma, beta=beta, w1=w1, w2=w2, h1=h1, gp=gp,
+                   do=do),
         dict(gamma=(d,), beta=(d,), h1=(n, m), gp=(n, m), do=tuple(x.shape)))
     lib = build.load()
     dx, dg, dbe = _bf(dev, n, d), _f32(dev, d), _f32(dev, d)
@@ -2400,13 +2625,9 @@ def fused_ln_mlp_bwd_fast(x, gamma, beta, w1, w2, h1, gp, do, eps):
     ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
     rc = lib.vitax_ln_mlp_bwd_fast(*(t.data_ptr() for t in (
         x2, gamma, beta, w1, w2, h1, gp, do, dx, dg, dbe, dw1, db1, dw2, db2,
-        xn, dh1, dxn, ws)), n, d, m, eps, _stream(dev))
-    build.check(rc, "fused_ln_mlp_bwd_fast")
-    fused_ln_mlp_bwd_fast.launches += 1
+        xn, dh1, dxn, ws)), n, d, m, eps, int(residual), _stream(dev))
+    build.check(rc, name)
     return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
-
-
-fused_ln_mlp_bwd_fast.launches = 0
 
 
 def _gp_scale(like):
@@ -2415,31 +2636,64 @@ def _gp_scale(like):
 
 
 def fused_ln_mlp_int8_save_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
-                               scratch=None):
+                               scratch=None, residual=True):
     """K12-int8's forward with the TPU kernel's rounding points
-    (_ln_mlp_fwd_int8_save_kernel, pallas_kernels.py:741-775): K4's out, its
-    h1q [N, M] and row scales sh [N] (vitax keeps sh as [N, 128] equal
-    lanes), and gpq = clip(round(gelu_grad_q(a1)·127/1.13)) int8 [N, M]."""
+    (_ln_mlp_fwd_int8_save_kernel, pallas_kernels.py:741-775): K4's out
+    (without `x +` when not residual, :772), its h1q [N, M] and row scales
+    sh [N] (vitax keeps sh as [N, 128] equal lanes), and
+    gpq = clip(round(gelu_grad_q(a1)·127/1.13)) int8 [N, M]."""
     out, a1, h1q, sh = _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps,
-                                         scratch)
+                                         scratch, residual=residual)
     gpq = pack_i8(gelu_grad_q(a1) * GP_QSCALE)
     _keep(scratch, gpq=(gpq, _gp_scale(gpq)))
     return out, h1q, sh.reshape(-1), gpq
 
 
-def fused_ln_mlp_int8_save(x, gamma, beta, w1, b1, w2, b2, eps, *,
-                           scratch=None):
+def fused_ln_mlp_int8_save(x, gamma, beta, w1, b1, w2, b2, eps,
+                           residual=True, *, scratch=None):
     """K12-int8's forward (:2025): (out, h1q, sh, gpq), out
     `fused_ln_mlp_int8`'s to the bit (the same launches compute it). A
-    `scratch` dict receives the codes, keyed and laid out as the twin's."""
+    `scratch` dict receives the codes, keyed and laid out as the twin's.
+    residual=False is `fused_ln_mlp_int8_save_partial`."""
+    if not residual:
+        return fused_ln_mlp_int8_save_partial(x, gamma, beta, w1, b1, w2, b2,
+                                              eps, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int8_save_ref(x, gamma, beta, w1, b1, w2, b2, eps,
                                           scratch=scratch)
+    out = _ln_mlp_int8_save_fwd_cuda("fused_ln_mlp_int8_save", x, gamma,
+                                     beta, w1, b1, w2, b2, eps, True, scratch)
+    fused_ln_mlp_int8_save.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_save.launches = 0
+
+
+def fused_ln_mlp_int8_save_partial(x, gamma, beta, w1, b1, w2, b2, eps, *,
+                                   scratch=None):
+    """K12-int8's forward without `x +` (ln_mlp_int8_save.cu with residual
+    0, vitax's :772): (partial, h1q, sh, gpq). Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_save_ref(x, gamma, beta, w1, b1, w2, b2, eps,
+                                          scratch=scratch, residual=False)
+    out = _ln_mlp_int8_save_fwd_cuda("fused_ln_mlp_int8_save_partial", x,
+                                     gamma, beta, w1, b1, w2, b2, eps, False,
+                                     scratch)
+    fused_ln_mlp_int8_save_partial.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_save_partial.launches = 0
+
+
+def _ln_mlp_int8_save_fwd_cuda(name, x, gamma, beta, w1, b1, w2, b2, eps,
+                               residual, scratch):
+    """K12-int8's forward launch (ln_mlp_int8_save.cu)."""
     d, m = w1.shape
     n = x.numel() // d
     dev, x2 = _check_save(
-        "fused_ln_mlp_int8_save", dict(x=x, gamma=gamma, beta=beta, w1=w1,
-                                       b1=b1, w2=w2, b2=b2),
+        name, dict(x=x, gamma=gamma, beta=beta, w1=w1, b1=b1, w2=w2, b2=b2),
         dict(gamma=(d,), beta=(d,), b1=(m,), b2=(d,)))
     w1t, s1 = _i8(dev, m, d), _f32(dev, m)  # per column, as [N, K]
     w2t, s2 = _i8(dev, d, m), _f32(dev, d)
@@ -2448,20 +2702,16 @@ def fused_ln_mlp_int8_save(x, gamma, beta, w1, b1, w2, b2, eps, *,
     out = torch.empty_like(x2)
     rc = build.load().vitax_ln_mlp_int8_save_fwd(*(t.data_ptr() for t in (
         x2, gamma, beta, w1, b1, w2, b2, w1t, s1, w2t, s2, xq, sx, g, h1q, sh,
-        gpq, out)), n, d, m, eps, _stream(dev))
-    build.check(rc, "fused_ln_mlp_int8_save")
-    fused_ln_mlp_int8_save.launches += 1
+        gpq, out)), n, d, m, eps, int(residual), _stream(dev))
+    build.check(rc, name)
     _keep(scratch, w1q=(w1t.t(), s1), w2q=(w2t.t(), s2), xq=(xq, sx),
           h1q=(h1q, sh), gpq=(gpq, _gp_scale(gpq)))
     return out.view(x.shape), h1q, sh, gpq
 
 
-fused_ln_mlp_int8_save.launches = 0
-
-
 def fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh, gpq, do,
                                    eps, *, int8_dw=False, group=None,
-                                   scratch=None):
+                                   scratch=None, residual=True):
     """(dx, dγ, dβ, dW1, db1, dW2, db2) from the saved codes with the TPU
     kernel's rounding points (_ln_mlp_bwd_int8_save_kernel,
     pallas_kernels.py:789-864): dh1_32 = f32(doq·W2rᵀ)·(sdo·1.13/127)·s2r·
@@ -2469,7 +2719,8 @@ def fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh, gpq, do,
     x.dtype(h1q)ᵀ·x.dtype(sh·do) and dW1 = xnᵀ·x.dtype(dh1_32), or with
     `int8_dw` the per-group int8 products over `group` rows (MLP_DW_GROUP by
     default): dW2 from h1q and the column codes of sh·do, dW1 from the
-    column codes of xn·sd and dh1q."""
+    column codes of xn·sd and dh1q. dx without `do +` when not residual
+    (:862)."""
     dt = x.dtype
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
@@ -2496,21 +2747,24 @@ def fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh, gpq, do,
     dxln, dg, dbe = _ln_bwd_tail(dxn, xhat, rstd, gamma)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), doq=(doq, sdo),
           dh1q=(dh1q, sd))
-    return ((do2 + dxln.to(dt)).reshape(x.shape), dg, dbe, dw1,
-            dh1_32.sum(dim=0), dw2, do2.float().sum(dim=0))
+    dx = do2 + dxln.to(dt) if residual else dxln.to(dt)
+    return (dx.reshape(x.shape), dg, dbe, dw1, dh1_32.sum(dim=0), dw2,
+            do2.float().sum(dim=0))
 
 
 def fused_ln_mlp_int8_save_dw_bwd_ref(x, gamma, beta, w1, w2, h1q, sh, gpq,
-                                      do, eps, *, scratch=None):
+                                      do, eps, *, scratch=None,
+                                      residual=True):
     """The twin of `fused_ln_mlp_int8_save_dw_bwd`: int8_dw at the port's
     group (MLP_DW_GROUP rows)."""
     return fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh,
                                           gpq, do, eps, int8_dw=True,
-                                          group=MLP_DW_GROUP, scratch=scratch)
+                                          group=MLP_DW_GROUP, scratch=scratch,
+                                          residual=residual)
 
 
 def _ln_mlp_int8_save_bwd_cuda(name, x, gamma, beta, w1, w2, h1q, sh, gpq, do,
-                               eps, int8_dw, scratch):
+                               eps, int8_dw, scratch, residual=True):
     """K12-int8's backward launch (ln_mlp_int8_save.cu)."""
     d, m = w1.shape
     n = x.numel() // d
@@ -2540,7 +2794,7 @@ def _ln_mlp_int8_save_bwd_cuda(name, x, gamma, beta, w1, w2, h1q, sh, gpq, do,
         x2, gamma, beta, w1, w2, h1q, sh, gpq, do, dx, dg, dbe, dw1, db1, dw2,
         db2, w1r, s1r, w2r, s2r, xn, doq, sdo, dh1f, dh1, dh1q, sdh, dxn, ws)),
         *(None if t is None else t.data_ptr() for t in extra),
-        n, d, m, MLP_DW_GROUP, int(int8_dw), eps, _stream(dev))
+        n, d, m, MLP_DW_GROUP, int(int8_dw), eps, int(residual), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), doq=(doq, sdo),
           dh1q=(dh1q, sdh))
@@ -2551,10 +2805,14 @@ def _ln_mlp_int8_save_bwd_cuda(name, x, gamma, beta, w1, w2, h1q, sh, gpq, do,
 
 
 def fused_ln_mlp_int8_save_bwd(x, gamma, beta, w1, w2, h1q, sh, gpq, do, eps,
-                               *, scratch=None):
+                               *, scratch=None, residual=True):
     """K12-int8's backward (:2066, int8_dw off) from
     `fused_ln_mlp_int8_save`'s codes: dx (x's shape, bf16) and fp32 dγ, dβ
-    [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]."""
+    [D], dW1 [D,M], db1 [M], dW2 [M,D], db2 [D]. residual=False is
+    `fused_ln_mlp_int8_save_partial_bwd`."""
+    if not residual:
+        return fused_ln_mlp_int8_save_partial_bwd(
+            x, gamma, beta, w1, w2, h1q, sh, gpq, do, eps, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh,
                                               gpq, do, eps, scratch=scratch)
@@ -2568,13 +2826,35 @@ def fused_ln_mlp_int8_save_bwd(x, gamma, beta, w1, w2, h1q, sh, gpq, do, eps,
 fused_ln_mlp_int8_save_bwd.launches = 0
 
 
+def fused_ln_mlp_int8_save_partial_bwd(x, gamma, beta, w1, w2, h1q, sh, gpq,
+                                       do, eps, *, scratch=None):
+    """K12-int8's backward without the residual's dx (vitax's :862).
+    Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_save_bwd_ref(x, gamma, beta, w1, w2, h1q, sh,
+                                              gpq, do, eps, scratch=scratch,
+                                              residual=False)
+    out = _ln_mlp_int8_save_bwd_cuda("fused_ln_mlp_int8_save_partial_bwd", x,
+                                     gamma, beta, w1, w2, h1q, sh, gpq, do,
+                                     eps, False, scratch, residual=False)
+    fused_ln_mlp_int8_save_partial_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_save_partial_bwd.launches = 0
+
+
 def fused_ln_mlp_int8_save_dw_bwd(x, gamma, beta, w1, w2, h1q, sh, gpq, do,
-                                  eps, *, scratch=None):
+                                  eps, *, scratch=None, residual=True):
     """`fused_ln_mlp_int8_save_bwd` under int8_dw (:2066's `int8_dw`
     branch, :816-830): dW1 and dW2 per-group int8 products over groups of
     MLP_DW_GROUP rows, int32 inside a group and fp32 across groups in order;
     dW2 from h1q's codes and the column codes of sh·do (`scratch`: doc),
-    dW1 as K4's (xnc)."""
+    dW1 as K4's (xnc). residual=False is
+    `fused_ln_mlp_int8_save_partial_dw_bwd`."""
+    if not residual:
+        return fused_ln_mlp_int8_save_partial_dw_bwd(
+            x, gamma, beta, w1, w2, h1q, sh, gpq, do, eps, scratch=scratch)
     if not x.is_cuda:
         return fused_ln_mlp_int8_save_dw_bwd_ref(x, gamma, beta, w1, w2, h1q,
                                                  sh, gpq, do, eps,
@@ -2589,35 +2869,58 @@ def fused_ln_mlp_int8_save_dw_bwd(x, gamma, beta, w1, w2, h1q, sh, gpq, do,
 fused_ln_mlp_int8_save_dw_bwd.launches = 0
 
 
+def fused_ln_mlp_int8_save_partial_dw_bwd(x, gamma, beta, w1, w2, h1q, sh,
+                                          gpq, do, eps, *, scratch=None):
+    """`fused_ln_mlp_int8_save_dw_bwd` without the residual's dx (:862 with
+    its `int8_dw` branch). Counted apart."""
+    if not x.is_cuda:
+        return fused_ln_mlp_int8_save_dw_bwd_ref(x, gamma, beta, w1, w2, h1q,
+                                                 sh, gpq, do, eps,
+                                                 scratch=scratch,
+                                                 residual=False)
+    out = _ln_mlp_int8_save_bwd_cuda("fused_ln_mlp_int8_save_partial_dw_bwd",
+                                     x, gamma, beta, w1, w2, h1q, sh, gpq, do,
+                                     eps, True, scratch, residual=False)
+    fused_ln_mlp_int8_save_partial_dw_bwd.launches += 1
+    return out
+
+
+fused_ln_mlp_int8_save_partial_dw_bwd.launches = 0
+
+
 class FusedLnMlpSaveFn(torch.autograd.Function):
     """The save-acts MLP half (vitax's _ln_mlp_2d_save :1985-2004 and
     _ln_mlp_2d_int8s :2100-2118): the forward is K12's (`int8`: its W8A8
     tier), which also hands out h1 and g' (or h1q, sh and gpq); it saves
     them beside (x, γ, β, W1, W2), and the backward reads them: K12's
-    (`int8_dw`: its per-group int8 weight grads)."""
+    (`int8_dw`: its per-group int8 weight grads). `residual=False`: the
+    kernels' branches without `x +` and without `do +` in dx."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_dw):
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps, int8, int8_dw,
+                residual=True):
         fwd = fused_ln_mlp_int8_save if int8 else fused_ln_mlp_save
-        out, *acts = fwd(x, gamma, beta, w1, b1, w2, b2, eps)
+        out, *acts = fwd(x, gamma, beta, w1, b1, w2, b2, eps,
+                         residual=residual)
         ctx.save_for_backward(x, gamma, beta, w1, w2, *acts)
         ctx.eps = eps
-        ctx.tier = (int8, int8_dw)
+        ctx.tier = (int8, int8_dw, residual)
         ctx.bias_dtypes = (b1.dtype, b2.dtype)
         return out
 
     @staticmethod
     def backward(ctx, do):
         x, gamma, beta, w1, w2, *acts = ctx.saved_tensors
-        int8, int8_dw = ctx.tier
+        int8, int8_dw, residual = ctx.tier
         bwd = (fused_ln_mlp_bwd_fast if not int8
                else fused_ln_mlp_int8_save_dw_bwd if int8_dw
                else fused_ln_mlp_int8_save_bwd)
         dx, dg, dbe, dw1, db1, dw2, db2 = bwd(x, gamma, beta, w1, w2, *acts,
-                                              do.contiguous(), ctx.eps)
+                                              do.contiguous(), ctx.eps,
+                                              residual=residual)
         return (dx, dg.to(gamma.dtype), dbe.to(beta.dtype), dw1.to(w1.dtype),
                 db1.to(ctx.bias_dtypes[0]), dw2.to(w2.dtype),
-                db2.to(ctx.bias_dtypes[1]), None, None, None)
+                db2.to(ctx.bias_dtypes[1]), None, None, None, None)
 
 
 def fused_ln_qkvo_attention_int8_ref(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
@@ -4291,4 +4594,11 @@ KERNELS = (layer_norm, fused_ln_qkvo_attention, fused_ln_mlp, layer_norm_bwd,
            fused_ln_qkvo_attention_int4_gqa_dw_bwd, fused_qkv_attention,
            fused_qkv_attention_bwd, fused_qkvo_attention,
            fused_qkvo_attention_bwd, fused_ln_mlp_partial,
-           fused_ln_mlp_partial_bwd)
+           fused_ln_mlp_partial_bwd, fused_ln_mlp_int8_partial,
+           fused_ln_mlp_int8_partial_bwd, fused_ln_mlp_int8_partial_dw_bwd,
+           fused_ln_mlp_int4_partial, fused_ln_mlp_int4_partial_bwd,
+           fused_ln_mlp_int4_partial_dw_bwd, fused_ln_mlp_save_partial,
+           fused_ln_mlp_bwd_fast_partial, fused_ln_mlp_int8_save_partial,
+           fused_ln_mlp_int8_save_partial_bwd,
+           fused_ln_mlp_int8_save_partial_dw_bwd,
+           fused_ln_mlp_bwd_wide_partial)

@@ -17,8 +17,8 @@ plain path or raises.
 
 Under tensor parallelism vitax asks K1's gate at the shard width 3·(H/tp)·Hd
 and the MLP gate on the shards of fc1 and fc2 (vitax/models/vit.py:190-194,
-:276-279); where either declines it hands the sharded weights to XLA, which
-the port does not run (models/vit.py raises).
+:276-279); where either declines it hands the sharded weights to XLA, and
+the port runs its plain half on the gathered weights (models/vit.py).
 
 Each gate takes anything with `.ndim` and `.shape` (meta tensors too): x
 [B, S, D] (S unpadded or padded to spq = round_up(S, 8); both give the same

@@ -215,11 +215,18 @@ def shard_params(params: Any, mesh: Optional[Mesh],
 def gather_shards(path: str, t: torch.Tensor, mesh: Optional[Mesh],
                   spec: Callable[[str], Spec]) -> torch.Tensor:
     """The whole tensor of leaf `path` from this rank's shard `t` (every rank
-    of the model group calls this): the shard written into its slot of a
-    zero-filled whole tensor, then summed over the model group."""
+    of the model group calls this); `t` itself where it is not sharded."""
     axis = _axis(spec(path))
     if tp_size(mesh) == 1 or axis is None:
         return t
+    return gather_along(t, axis, mesh)
+
+
+def gather_along(t: torch.Tensor, axis: int, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of the model group's shards of `axis`, of which `t`
+    is this rank's: the shard written into its slot of a zero-filled whole
+    tensor, then summed over the model group (an all-gather built from the
+    all-reduce, which gloo also takes on CUDA tensors)."""
     shape = list(t.shape)
     shape[axis] *= mesh.n_model
     whole = torch.zeros(shape, dtype=t.dtype, device=t.device)

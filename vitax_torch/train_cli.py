@@ -29,9 +29,12 @@ Data and tensor parallelism, one process per card under torchrun:
 [--n-model M]` lays the N ranks out on an (N/M, M) mesh, as vitax's mesh
 (vitax/train_cli.py:244-251): each data rank trains on its rows of every
 global batch, grads summed over the data axis; with M > 1 each block's
-attention and MLP halves run per model shard (K1 and K2 without its
-residual, one all-reduce each), bf16 with the fused halves on (the int8 and
-int4 tiers raise). Rank 0 alone writes the checkpoints (whole parameters,
+attention and MLP halves run per model shard in the run's tier (K1, K3 or
+K11-C; K2, K4 or K11-A without the residual; one all-reduce each), and
+where vitax hands the sharded weights to XLA (ViT-H/14's attention half,
+`--no-fused-qkv`, `--no-fused-mlp`) the plain half on the gathered
+weights; `--save-acts` changes nothing there, as vitax's tensor-parallel
+MLP half takes no save-acts. Rank 0 alone writes the checkpoints (whole parameters,
 gathered over the model axis), the JSON files and the writers' output. A
 caller that started its own process group (gloo, say) passes the card as
 `device=`; `init_distributed` leaves the group as it is.
