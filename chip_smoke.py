@@ -112,10 +112,16 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              K7's int8 tier: K13 forward and every output of its backward
              against the twins at train_cli's b32 seq 197 (the einsums'
              [B, S, H, Hd] memory and vitax's [B, H, S, Hd]), eval_cli's
-             b64 seq 577, b8 seq 730 hd 80, seq 1024 hd 128, hd 40 and 48
-             and a ragged seq 21, timed beside its twin and
+             b64 seq 577, b8 seq 730 hd 80, seq 1024 hd 128, hd 40 and 48,
+             a ragged seq 21 and seq 65 (one key in the last tile); timed
+             beside its twin and, in turns (kernel, library, library,
+             kernel: events around back-to-back launches), beside
              scaled_dot_product_attention (forward at b64 seq 577 and b32
-             seq 197, backward at b32 seq 197); K7's int8 tier (forward,
+             seq 197, backward at b32 seq 197), with each time's share of
+             its bound; a checksum of K6's forward and backward outputs on
+             a seeded input (K6's bits must not move with K13's; the same
+             line from `vitax_torch/scripts/k13_turns.py` on another
+             checkout); K7's int8 tier (forward,
              int8_grad, int8_dw) at b64 spq 200 with 4 kv heads against its
              twins as phase 3 holds K3, timed; then six paths with exact
              launch counts a batch or step: `eval_cli --no-fused-qkv` at
@@ -2741,7 +2747,9 @@ K13_CASES = [("b32 S197 (train_cli)", 32, 12, 197, 64, "bshd"),
              ("b2 S1024 hd128", 2, 8, 1024, 128, "bhsd"),
              ("b8 S197 hd40", 8, 12, 197, 40, "bshd"),
              ("b8 S197 hd48", 8, 12, 197, 48, "bshd"),
-             ("b2 S21 (ragged)", 2, 3, 21, 64, "bshd")]
+             ("b2 S21 (ragged)", 2, 3, 21, 64, "bshd"),
+             ("b4 S65 [B,H,S,Hd] (one key in the last tile)", 4, 12, 65, 64,
+              "bhsd")]
 K13_FWD_TIMED = ("b64 S577 (eval_cli)", "b32 S197 (train_cli)")
 K13_BWD_TIMED = "b32 S197 (train_cli)"
 # K7's int8 tier at Res-ViT serving's b64 spq 200 with 4 kv heads
@@ -2759,19 +2767,30 @@ def _k13_inputs(batch, heads, seq, hd, layout, seed):
     return [t.transpose(1, 2) if layout == "bshd" else t for t in ts]
 
 
-def _sdpa_ms(q, k, v, do):
-    """The library's time for the same function: one call of
-    scaled_dot_product_attention (timed here, used nowhere in the port),
-    forward and its autograd backward."""
+def _batch_ms(fn, launches=50):
+    """Device time of one call: CUDA events around `launches` back-to-back
+    calls, over their count (the host queues ahead of the card, so what a
+    call costs the host between launches does not count, as it does in
+    _median_ms's synchronised single calls)."""
     import torch
-    import torch.nn.functional as F
-    with torch.no_grad():
-        fwd = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves)
-    bwd = _median_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                 retain_graph=True))
-    return fwd, bwd
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def _k13_in_turns(kernel, library):
+    """(kernel ms, library ms), each the lower of two _batch_ms turns taken
+    in the order kernel, library, library, kernel."""
+    turns = [_batch_ms(f) for f in (kernel, library, library, kernel)]
+    return min(turns[0], turns[3]), min(turns[1], turns[2])
 
 
 def check_core_kernels(stats):
@@ -2781,7 +2800,9 @@ def check_core_kernels(stats):
     (forward, int8_grad and int8_dw backwards) against its twins as phase 3
     holds K3 (codes, INT8_REL, the bf16 stand-in), timed."""
     import torch
+    import torch.nn.functional as F
     from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.scripts.k13_turns import k6_checksum
     for name in K13_KERNELS + INT8_GQA_KERNELS:
         stats[name] = {"max_abs_err": 0.0}
     for i, (label, b, h, seq, hd, layout) in enumerate(K13_CASES):
@@ -2803,34 +2824,47 @@ def check_core_kernels(stats):
                                      f"exceeds {bound}")
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             errs.append(f"{err:.3e}/{bound:.3e}")
-        print(f"  K13 {label:24s} max|k-ref| out, dq, dk, dv "
+        print(f"  K13 {label:45s} max|k-ref| out, dq, dk, dv "
               f"{' '.join(errs)}: ok", flush=True)
         timed = []
         if label in K13_FWD_TIMED:
             with torch.no_grad():
-                k_ms = _median_ms(lambda: ck.flash_attention_bhsd(q, k, v))
+                k_ms, lib = _k13_in_turns(
+                    lambda: ck.flash_attention_bhsd(q, k, v),
+                    lambda: F.scaled_dot_product_attention(q, k, v))
                 p_ms = _median_ms(lambda: ck.flash_attention_bhsd_ref(q, k, v),
                                   warmup=1, iters=5)
-            lib_f, lib_b = _sdpa_ms(q, k, v, do)
-            timed.append(("flash_attention", k_ms, p_ms, lib_f))
-            if label == K13_FWD_TIMED[0]:
-                stats["flash_attention"].update(
-                    ms=k_ms, plain_ms=p_ms, library_ms=lib_f, shape=(b, seq))
+            timed.append(("flash_attention", k_ms, p_ms, lib))
         if label == K13_BWD_TIMED:
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*leaves)
             with torch.no_grad():
-                k_ms = _median_ms(lambda: ck.flash_attention_bwd(q, k, v, out,
-                                                                 do))
+                k_ms, lib = _k13_in_turns(
+                    lambda: ck.flash_attention_bwd(q, k, v, out, do),
+                    lambda: torch.autograd.grad(lib_out, leaves, do,
+                                                retain_graph=True))
                 p_ms = _median_ms(lambda: ck.flash_attention_bwd_ref(
                     q, k, v, out, do), warmup=1, iters=5)
-            timed.append(("flash_attention_bwd", k_ms, p_ms, lib_b))
-            stats["flash_attention_bwd"].update(
-                ms=k_ms, plain_ms=p_ms, library_ms=lib_b, shape=(b, seq))
+            timed.append(("flash_attention_bwd", k_ms, p_ms, lib))
+            del leaves, lib_out
         for name, k_ms, p_ms, lib in timed:
-            print(f"  {name:28s} {label:22s} kernel {k_ms:.4f} ms  plain "
-                  f"{p_ms:.4f} ms  scaled_dot_product_attention {lib:.4f} ms"
-                  " (medians)", flush=True)
+            bound_ms, bound_by = _bound(name, (b, seq))
+            if label in (K13_FWD_TIMED[0], K13_BWD_TIMED):
+                stats[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib,
+                                   shape=(b, seq))
+            print(f"  {name:20s} {label:22s} kernel {k_ms:.4f} ms "
+                  f"({100 * bound_ms / k_ms:.1f} % of its bound {bound_ms:.4f}"
+                  f" by {bound_by}), scaled_dot_product_attention {lib:.4f} "
+                  f"ms (lower of two turns each, events around 50 launches); "
+                  f"plain {p_ms:.4f} ms (median)", flush=True)
         del q, k, v, do, out, grads, pairs
         torch.cuda.empty_cache()
+
+    # K6's bits must not move with K13's kernels: the same line on the
+    # parent commit (vitax_torch/scripts/k13_turns.py runs it for any
+    # checkout)
+    print(f"  K6 checksum (forward; dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo): "
+          f"{k6_checksum()}", flush=True)
 
     label, batch, spq, seq, hkv = INT8_GQA_CASE
     t = _inputs(batch, spq, seed=60)

@@ -791,13 +791,15 @@ def test_wide_mlp_backward_matches_twin(dev, rows):
 # layout). ViT's b32 seq 197 in both layouts the port meets (the einsums'
 # [B, S, H, Hd] memory and vitax's [B, H, S, Hd]), eval_cli's b8 seq 577,
 # H/14's hd 80 at seq 730, seq 1024 at hd 128, the padded head dims 40 and
-# 24 and the other multiples of 16, and ragged seqs
+# 24 and the other multiples of 16, and ragged seqs: 65 and 577 leave one
+# key in the last 64-key tile (and 65 one query tile of one row)
 K13_SHAPES = [(32, 12, 197, 64, "bshd"), (32, 12, 197, 64, "bhsd"),
               (8, 12, 577, 64, "bshd"), (4, 16, 730, 80, "bshd"),
               (1, 2, 1024, 128, "bhsd"), (3, 4, 77, 40, "bshd"),
               (3, 4, 77, 48, "bhsd"), (2, 3, 21, 24, "bshd"),
               (2, 3, 33, 16, "bhsd"), (2, 3, 50, 96, "bshd"),
-              (2, 3, 50, 112, "bhsd"), (2, 5, 21, 8, "bshd")]
+              (2, 3, 50, 112, "bhsd"), (2, 5, 21, 8, "bshd"),
+              (3, 4, 65, 64, "bshd"), (3, 4, 65, 32, "bhsd")]
 
 
 def _k13_args(dev, b, h, s, hd, layout, seed=0):
@@ -811,10 +813,11 @@ def _k13_args(dev, b, h, s, hd, layout, seed=0):
 
 @pytest.mark.parametrize("shape", K13_SHAPES)
 def test_attention_core_kernels_match_twins(dev, shape):
-    """K13 forward and backward against their twins (vitax's whole-row
-    softmax rounds the normalised p, the kernel's 64-key tiles the
-    unnormalised p: inside the bf16 band); the grads come back in q's
-    layout; two backward launches give the same bits."""
+    """K13 forward and backward against their twins: both normalise p in
+    fp32 and round it to bf16 once, the kernel's row statistics by the
+    online recurrence over 64-key tiles and its sums in another order
+    (inside the bf16 band); the grads come back in q's layout; two backward
+    launches give the same bits."""
     q, k, v, do = _k13_args(dev, *shape)
     ck.reset_launch_counts()
     with torch.no_grad():
@@ -839,12 +842,13 @@ def _guarded(n, dev, fill):
 
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 def test_attention_core_stays_inside_ragged_tensors(dev, layout):
-    """Unpadded rows (seq 21: the last 16-row query tile and 64-key tile
-    run past the tensor's end): inputs that end right before NaN guard
-    memory give finite outputs equal to the twin's, and the guard after
-    each output is untouched. Run it under compute-sanitizer where that
-    works: `compute-sanitizer python -m pytest --noconftest
-    tests/test_torch_cuda_kernels.py -k ragged_tensors`."""
+    """Unpadded rows (seq 21: the 64-row query tile and 64-key tile run
+    past the tensor's end): inputs that end right before NaN guard memory
+    give finite outputs equal to the twin's, and the guard after each output
+    and after the backward's row-statistics scratch is untouched. Run it
+    under compute-sanitizer where that works: `compute-sanitizer python -m
+    pytest --noconftest tests/test_torch_cuda_kernels.py -k
+    ragged_tensors`."""
     from vitax_torch.kernels import build
     b, h, s, hd = 2, 3, 21, 64
     n = b * h * s * hd
@@ -858,10 +862,9 @@ def test_attention_core_stays_inside_ragged_tensors(dev, layout):
                                   else t)
         bufs.append(buf)
     outs = [_guarded(n, dev, 7.0) for _ in range(4)]
-    L = (s + 15) // 16 * 16
-    p, ds = (torch.empty(images * heads * L * L, dtype=torch.bfloat16,
-                         device=dev) for _ in range(2))
     lib = build.load()
+    n_stats = lib.vitax_attention_core_bwd_ws(images, s, heads)
+    stats = torch.full((n_stats + 4096,), 7.0, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = hd ** -0.5
     rc = lib.vitax_attention_core_fwd(*(t.data_ptr() for t in bufs[:3]),
@@ -872,8 +875,8 @@ def test_attention_core_stays_inside_ragged_tensors(dev, layout):
     out_buf[:n].copy_(outs[0][:n])
     rc = lib.vitax_attention_core_bwd(
         *(t.data_ptr() for t in bufs[:3]), out_buf.data_ptr(),
-        bufs[3].data_ptr(), *(t.data_ptr() for t in outs[1:]), p.data_ptr(),
-        ds.data_ptr(), images, s, heads, hd, scale, stream)
+        bufs[3].data_ptr(), *(t.data_ptr() for t in outs[1:]),
+        stats.data_ptr(), images, s, heads, hd, scale, stream)
     build.check(rc, "vitax_attention_core_bwd")
     torch.cuda.synchronize()
 
@@ -889,6 +892,8 @@ def test_attention_core_stays_inside_ragged_tensors(dev, layout):
         _assert_close(g, r)
     for buf in outs:
         assert torch.all(buf[n:] == 7.0)
+    assert torch.all(stats[n_stats:] == 7.0)
+    assert torch.isfinite(stats[:n_stats]).all()
 
 
 def test_attention_dispatch_runs_k13_on_bf16_and_raises_on_fp32(dev):

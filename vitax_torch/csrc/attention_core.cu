@@ -3,131 +3,69 @@
 // at :172), which flash_attention_bhsd (:228) and flash_attention (:248)
 // reach from multi_head_attention{,_bhsd} (vitax/ops/attention.py:50-84)
 // wherever a fused attention half is off (--no-fused-qkv: ViT's unfused
-// _attention, Res-ViT's attention).
+// _attention, Res-ViT's plain layers, ViT-H/14's half on gathered weights
+// under --n-model).
 //
 //   per (image, head): out = bf16(softmax(q kᵀ · scale) v), the softmax in
-//   fp32 over the seq_len keys
+//   fp32 over the seq keys
 //
-// At vitax's rounding points, in two passes over 64-key tiles (the pieces of
-// K6's core, attention_flash.cuh): the first takes the row statistics (m, l)
-// by the online recurrence, the second p = exp(s − m)·(1/l), normalised in
-// fp32 as _softmax_rows (:75-80), rounds it to bf16 once and sums P·V in
-// fp32, cast once at the end. (A one-pass core that rounds the unnormalised
-// p of each tile, as K6 does, is the same function within a bf16 band, but
-// it does not round where the plain path does: at ViT-B/16 b32 its model
-// grads moved 6.0e-2 from the plain path's, past the 5e-2 band that paths
-// rounding alike hold. The second pass costs one more q·kᵀ.)
+// At vitax's rounding points: s = fp32(q·kᵀ)·scale, p normalised in fp32
+// (_softmax_rows :75-80: e·(1/Σe)) and rounded to bf16 once, out =
+// bf16(Σ bf16(p)·v in fp32). Hence two passes over 64-key tiles
+// (core_rows_kernel, attention_core.cuh): the first takes the row
+// statistics (m, l) by the online recurrence, staging K only; the second
+// forms p = exp2(s·scale·log2e − m)·(1/l), rounds it once and sums P·V.
+// (A one-pass online softmax rounds the unnormalised p of each tile, which
+// the plain path does not: at ViT-B/16 b32 such a core put the model's
+// grads 6.0e-2 from the plain path's, past the 5e-2 band. The second pass
+// costs one more q·kᵀ.)
 //
-// Layout: q, k, v and out are [images, seq, heads, head_dim] in memory, one
-// layout for all four. vitax's [B, S, H, Hd] (Res-ViT) is images = B; its
-// kernel-native [B, H, S, Hd] (ViT) is images = B·H, heads = 1, whose rows of
-// one (image, head) are contiguous: neither takes a transposing copy. The
-// rows are exactly seq, not padded: the last 16-row query tile and the last
-// 64-key tile of the last image read zeros past the tensor's end (the loads
-// are guarded) and store nothing there. head_dim is a multiple of 16 up to
-// 128; the wrapper zero-pads a head_dim ≡ 8 (mod 16) to the next 16 (zero
-// columns add nothing to q·kᵀ, and scale stays 1/√ of the real head_dim).
+// Layout: q, k, v and out are [images, seq, heads, head_dim] in memory.
+// vitax's [B, S, H, Hd] (Res-ViT, the einsums) is images = B; its
+// kernel-native [B, H, S, Hd] (ViT) is images = B·H, heads = 1: neither
+// takes a copy. The rows are exactly seq: the last query and key tiles
+// zero-fill past seq (cp.async with a source size of 0) and store nothing
+// there; keys >= seq get p exactly 0. head_dim is a multiple of 16 up to 128
+// (the wrapper zero-pads a head_dim ≡ 8 (mod 16)); seq up to vitax's gate
+// (1024), though nothing here depends on it.
 //
-// Bound on the H100: the bytes. An (image, head) moves 4·seq·head_dim·2
-// bytes (q, k, v in, out) for 4·seq²·head_dim tensor-core operations, ~98
-// operations a byte at ViT's seq 197 and head_dim 64, below the bf16 ridge
-// of 295. This first version is far from either term: its time is the WMMA
-// products on 16-row tiles (three with the statistics pass) and the
-// softmax's exp. Shared memory holds one key tile of K and V and each
-// warp's [16, 64] scores whatever seq is, so one kernel serves every seq up
-// to vitax's gate (1024).
-#include "attention_flash.cuh"
+// Bound on the H100: the bytes at ViT's shapes. An (image, head) moves
+// 4·seq·head_dim·2 bytes (q, k, v in, out) for 4·seq²·head_dim operations
+// of the function (~98 a byte at seq 197, head_dim 64, ~290 at seq 577,
+// under the bf16 ridge of 295); the two passes do 6·seq²·head_dim on the
+// tensor cores and 2·seq² exp2. The design (attention_core.cuh): a block of
+// two warpgroups owns two 64-row query tiles, each Q tile in shared memory
+// for the whole kernel, and the two share a ring of K tiles (pass 1) and K
+// and V tiles (pass 2) filled by cp.async two tiles ahead (pass 2's first
+// tiles are fetched during pass 1's last); q·kᵀ as m64n64k16 wgmma from
+// shared memory, P·V as wgmma with P from registers, issued after the next
+// tile's q·kᵀ so that it runs under that tile's softmax; the scores, p and
+// the output accumulator stay in registers (32 + head_dim/2 fp32 a thread).
+// A block, by head_dim (ptxas's registers; shared memory (2 + 2·stages)
+// tiles of 64·head_dim bf16, 4 stages up to 80 and 3 above; blocks an SM
+// are the lower of what registers and shared memory allow):
+//   head_dim        16   32   48   64   80   96  112  128
+//   registers       86   96  114  120  125  160  176  182
+//   shared KB       20   40   60   80  100   96  112  128
+//   blocks an SM     2    2    2    2    2    1    1    1
+// What holds it back on the card (PERF.md): at b64 seq 577 it takes about
+// twice scaled_dot_product_attention's time, which does one pass; removing
+// the exp2 or the second softmax moves it by 1–2 %, removing the copies by
+// about 28 %: the waits on copies and on each step's products, with four
+// warpgroups an SM to hide them, not the special-function unit.
+#include "attention_core.cuh"
 
 namespace {
 
-using vitax::AttnGeom;
 using vitax::bf16;
-using vitax::FlashLayout;
-using vitax::FlashWarp;
-using vitax::kFlashKv;
-using vitax::kFlashWarps;
+using vitax::k13::CoreArgs;
 
-// One block per (query tiles, head, image), a warp a 16-row query tile.
-template <int HD>
-__global__ void __launch_bounds__(32 * kFlashWarps) core_fwd_kernel(AttnGeom g, bf16* out) {
-  using Lay = FlashLayout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int grp = h * g.kv_heads / g.heads;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int hhd = g.heads * HD;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kFlashKv * HD;
-  const FlashWarp<HD> w(smem + Lay::kKv + warp * Lay::kFwdWarp);
-  const int q0 = (blockIdx.x * kFlashWarps + warp) * 16;
-  const bool active = q0 < g.q_rows;
-  vitax::attn_load_tile16<HD>(g.q + static_cast<size_t>(b) * g.q_rows * g.q_ld, g.q_ld, h * HD,
-                              q0, g.q_rows, w.Qs);
-  vitax::flash_stats_rows<HD>(g, b, grp, Ks, Vs, w, active);
-  if (lane < 16) w.alpha[lane] = 1.0f / w.l[lane];  // 1/l, as _softmax_rows
-  for (int i = lane; i < 16 * HD; i += 32) w.O[i] = 0.f;
-  __syncwarp();
-  const int kv_end = g.seq_len < g.kv_rows ? g.seq_len : g.kv_rows;
-  const bf16* kbase = vitax::attn_k_rows(g, b);
-  const bf16* vbase = vitax::attn_v_rows(g, b);
-  for (int k0 = 0; k0 < kv_end; k0 += kFlashKv) {
-    __syncthreads();  // the previous tile has been consumed
-    const size_t off = static_cast<size_t>(k0) * g.kv_ld;
-    vitax::attn_stage_kv<HD>(kbase + off, vbase + off, g.kv_ld, g.k_off + grp * HD,
-                             g.v_off + grp * HD, g.kv_rows - k0, kFlashKv, Ks, Vs);
-    __syncthreads();
-    if (!active) continue;
-    vitax::attn_scores<HD>(w.Qs, Ks, kFlashKv, w.S, Lay::kSw);
-    // p = exp(s·scale − m)·(1/l), 0 on the keys past seq_len, rounded once
-    for (int i = lane; i < 16 * kFlashKv; i += 32) {
-      const int r = i / kFlashKv;
-      const int c = i % kFlashKv;
-      const float p =
-          k0 + c < g.seq_len ? expf(w.S[r * Lay::kSw + c] * g.scale - w.m[r]) * w.alpha[r] : 0.f;
-      w.P[i] = __float2bfloat16(p);
-    }
-    __syncwarp();
-    vitax::flash_tile_times_kv<HD>(w.P, Vs, w.S);  // P·V into S, row stride HD
-    for (int i = lane; i < 16 * HD; i += 32) w.O[i] += w.S[i];
-    __syncwarp();
-  }
-  if (!active) return;
-  constexpr int kVecs = HD / 8;
-  for (int i = lane; i < 16 * kVecs; i += 32) {
-    const int r = i / kVecs;
-    const int c = (i % kVecs) * 8;
-    if (q0 + r >= g.q_rows) continue;
-    bf16* dst = out + (static_cast<size_t>(b) * g.q_rows + q0 + r) * hhd + h * HD + c;
-    vitax::store4(dst, w.O + r * HD + c);
-    vitax::store4(dst + 4, w.O + r * HD + c + 4);
-  }
-}
-
-template <int HD>
-cudaError_t launch_core_fwd(const AttnGeom& g, bf16* out, cudaStream_t stream) {
-  if (g.b == 0 || g.q_rows == 0) return cudaSuccess;
-  constexpr size_t smem = FlashLayout<HD>::kFwdSmem;
-  cudaError_t e = cudaFuncSetAttribute(core_fwd_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const int tiles = (g.q_rows + 15) / 16;
-  const dim3 grid((tiles + kFlashWarps - 1) / kFlashWarps, g.heads, g.b);
-  core_fwd_kernel<HD><<<grid, 32 * kFlashWarps, smem, stream>>>(g, out);
-  return cudaGetLastError();
-}
-
-// The head dims of the K13 instances: every multiple of 16 up to 128
-#define VITAX_CORE_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
-
-cudaError_t core_fwd(const AttnGeom& g, int head_dim, bf16* out, cudaStream_t st) {
+cudaError_t core_fwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
   switch (head_dim) {
 #define VITAX_CASE(HD) \
   case HD:             \
-    return launch_core_fwd<HD>(g, out, st);
-    VITAX_CORE_HEAD_DIMS(VITAX_CASE)
+    return vitax::k13::launch_rows<HD, false>(a, images, st);
+    VITAX_K13_HEAD_DIMS(VITAX_CASE)
 #undef VITAX_CASE
     default:
       return cudaErrorInvalidValue;
@@ -148,21 +86,15 @@ extern "C" int vitax_attention_core_fwd(const void* q, const void* k, const void
   for (int i0 = 0; i0 < images; i0 += kMaxImages) {
     const int n = images - i0 < kMaxImages ? images - i0 : kMaxImages;
     const size_t off = static_cast<size_t>(i0) * seq * ld;
-    const AttnGeom g{static_cast<const bf16*>(q) + off,
-                     ld,
-                     seq,
-                     static_cast<const bf16*>(k) + off,
-                     ld,
-                     seq,
-                     0,
-                     0,
-                     heads,
-                     heads,
-                     n,
-                     seq,
-                     scale,
-                     static_cast<const bf16*>(v) + off};
-    const cudaError_t e = core_fwd(g, head_dim, static_cast<bf16*>(out) + off, st);
+    CoreArgs a{};
+    a.q = static_cast<const bf16*>(q) + off;
+    a.k = static_cast<const bf16*>(k) + off;
+    a.v = static_cast<const bf16*>(v) + off;
+    a.o = static_cast<bf16*>(out) + off;
+    a.seq = seq;
+    a.heads = heads;
+    a.scale = scale;
+    const cudaError_t e = core_fwd(a, head_dim, n, st);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;

@@ -8,90 +8,328 @@
 //   dq = bf16((ds k) · scale), dk = bf16((dsᵀ q) · scale),
 //   dv = bf16(bf16(p)ᵀ dO)
 //
-// Two passes, K6's core backward (attention_flash.cuh, attention_bwd.cuh):
-// the query-tile pass recomputes (m, l) by the forward's statistics pass over
-// 64-key tiles, takes dd from the saved bf16 out as vitax does, writes the
-// bf16 P and ds rows of each (image, head) to device memory (p and ds,
-// [images, heads, L, L] with L = seq rounded up to 16: 33 MB each at ViT's
-// b32 seq 197, 12 heads) and dq; the key-tile pass then sums dk and dv over
-// the query tiles in fp32 fragments, one owner a row, no atomics: two runs
-// give the same bits. Layouts and the unpadded rows as the forward's
-// (attention_core.cu); dk and dv land in their own tensors.
+// Three passes on 64-row tiles with their products as wgmma
+// (attention_core.cuh); neither P nor ds ever reaches device memory:
+//   1. the row pass (core_rows_kernel<HD, true>, two warpgroups a block):
+//      per query tile, the forward's statistics pass (vitax's VJP saves no
+//      (m, l)) and dd; it writes m·scale·log2e, 1/l and dd, 12 bytes a row,
+//      to the [images, heads, 3, seq_pad] scratch the wrapper allocates
+//      (vitax_attention_core_bwd_ws; 0 on the rows >= seq);
+//   2. the key pass (core_dkv_kernel, one warpgroup a block): a block owns
+//      a 64-key tile with K and V in shared memory and dK, dV in fp32
+//      registers, and walks the query tiles, Q, dO and their rows'
+//      statistics in a three-stage cp.async ring: Sᵀ = k·qᵀ and
+//      dPᵀ = v·dOᵀ (both operands in shared memory), p =
+//      exp2(s·scale·log2e − m)·(1/l), dV += bf16(p)ᵀ·dO,
+//      ds = bf16(p·(dP − dd)), dK += dsᵀ·q (A from registers);
+//   3. the query pass (core_dq_kernel, one warpgroup a block): a block owns
+//      a 64-row query tile with Q and dO in shared memory and walks the key
+//      tiles, K and V in the ring: S, dP, p and ds again, dQ += ds·k.
+// Each output row has one owner and sums in a fixed order: no atomics, and
+// two runs give the same bits. dq and dk are scaled in fp32 and cast once.
 //
-// Bound on the H100: the function needs 10·seq²·head_dim operations an
-// (image, head) on the tensor cores (q·kᵀ recomputed, dO·vᵀ, ds·k, dsᵀ·q,
-// pᵀ·dO) against the bytes of q, k, v, out, dO in and dq, dk, dv out; at
-// seq 197 the bytes term is the larger. This version does 12: the
-// statistics pass runs q·kᵀ once more before the key tiles are walked
-// again. The P and ds rows go through device memory, which the TPU kernel
-// keeps in VMEM.
-#include "attention_flash.cuh"
+// Bound on the H100: the bytes at ViT's shapes. The function moves q, k, v,
+// out, dO in and dq, dk, dv out (8·seq·head_dim·2 bytes an (image, head))
+// for 10·seq²·head_dim operations (q·kᵀ recomputed, dO·vᵀ, ds·k, dsᵀ·q,
+// pᵀ·dO); these passes do 16·seq²·head_dim on the tensor cores (q·kᵀ three
+// times, dO·vᵀ twice) and read 12 bytes a row more. A block, by head_dim
+// (ptxas's registers; shared memory: the key pass 8 tiles of 64·head_dim
+// bf16 and 3·768 bytes of statistics, the query pass 8 tiles, the row pass
+// 2 + 4 (3 above 80); blocks an SM the lower of what registers and shared
+// memory allow; the key pass spills 32 and 116 bytes at 112 and 128):
+//   head_dim             16   32   48   64   80   96  112  128
+//   key pass registers  156  168  205  230  244  253  255  255
+//   key pass blocks       3    3    2    2    2    2    1    1
+//   query pass registers 115 123  156  154  168  190  204  220
+//   query pass blocks     4    4    3    3    2    2    2    1
+//   row pass registers    60   60   61   61   64   73   80   80
+// Layouts, the unpadded rows and the head dims as the forward's
+// (attention_core.cu).
+#include "attention_core.cuh"
+
+namespace vitax {
+namespace k13 {
+
+constexpr int kStatTile = 3 * kRows;  // m, 1/l, dd of a 64-row tile (floats)
+// Stages of the rings: step t reads tile t and tile t − 1, while the copies
+// of tile t + 1 are in flight
+constexpr int kBwdStages = 3;
+
+// Resident tiles, then kBwdStages stages of two tiles (and the key pass's
+// statistics)
+template <int HD>
+constexpr size_t kDkvSmem = (2 + 2 * kBwdStages) * kTileBytes<HD> + kBwdStages * kStatTile * sizeof(float);
+template <int HD>
+constexpr size_t kDqSmem = (2 + 2 * kBwdStages) * kTileBytes<HD>;
+
+// One block a (64-key tile, head, image): dk, dv of its keys. Step t issues
+// Sᵀ and dPᵀ of query tile t, then dV and dK of tile t − 1, and forms tile
+// t's p and ds while the tensor cores run the latter.
+template <int HD>
+__global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kT = kRows * HD;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + kT;
+  bf16* ring = Vs + kT;  // [kBwdStages] × (Q tile, dO tile)
+  float* rstats = reinterpret_cast<float*>(ring + kBwdStages * 2 * kT);  // [kBwdStages] × kStatTile
+  const int img = blockIdx.z;
+  const int h = blockIdx.y;
+  const int k0 = blockIdx.x * kRows;
+  const int ld = a.heads * HD;
+  const size_t base = static_cast<size_t>(img) * a.seq * ld + h * HD;
+  const float* stats = a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad;
+  const int nt = (a.seq + kRows - 1) / kRows;
+  const float c = a.scale * kLog2e;
+
+  stage<HD, kThreads>(Ks, a.k + base + static_cast<size_t>(k0) * ld, ld, a.seq - k0, threadIdx.x);
+  stage<HD, kThreads>(Vs, a.v + base + static_cast<size_t>(k0) * ld, ld, a.seq - k0, threadIdx.x);
+  auto issue = [&](int qt) {
+    if (qt < nt) {
+      const size_t off = base + static_cast<size_t>(qt) * kRows * ld;
+      bf16* dst = ring + qt % kBwdStages * 2 * kT;
+      stage<HD, kThreads>(dst, a.q + off, ld, a.seq - qt * kRows, threadIdx.x);
+      stage<HD, kThreads>(dst + kT, a.dout + off, ld, a.seq - qt * kRows, threadIdx.x);
+      if (threadIdx.x < kStatTile / 4) {  // 16-byte chunks of the three rows
+        const int plane = threadIdx.x / (kRows / 4);
+        const int part = threadIdx.x % (kRows / 4) * 4;
+        cp_async16(rstats + qt % kBwdStages * kStatTile + plane * kRows + part,
+                   stats + static_cast<size_t>(plane) * a.seq_pad + qt * kRows + part, 16);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  float st[32];
+  float dp[32];
+  float dk[HD / 2];
+  float dv[HD / 2];
+  uint32_t pf[16];
+  uint32_t df[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int qt = 0; qt < nt; ++qt) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();  // tile qt has landed; tile qt − 2's buffers are free
+    issue(qt + 1);
+    const bf16* Qt = ring + qt % kBwdStages * 2 * kT;
+    const float* rs = rstats + qt % kBwdStages * kStatTile;
+    wg_fence();
+    mma_abt<HD>(st, Ks, Qt);       // Sᵀ: rows keys, columns queries
+    mma_abt<HD>(dp, Vs, Qt + kT);  // dPᵀ
+    wg_commit();
+    if (qt > 0) {
+      const bf16* Qp = ring + (qt - 1) % kBwdStages * 2 * kT;
+      mma_pb<HD>(dv, pf, Qp + kT);
+      mma_pb<HD>(dk, df, Qp);
+      wg_commit();
+      wg_wait<1>();
+    } else {
+      wg_wait();
+    }
+    fence_regs<32>(st);
+    fence_regs<32>(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {  // queries >= seq: 1/l and dd are 0 (the row pass)
+      const int col = acc_col(i);
+      st[i] = ex2(fmaf(st[i], c, -rs[col])) * rs[kRows + col];
+      dp[i] = st[i] * (dp[i] - rs[2 * kRows + col]);
+    }
+    wg_wait();  // the previous dV, dK have read pf, df
+    fence_regs<HD / 2>(dv);
+    fence_regs<HD / 2>(dk);
+    to_frags(st, pf);  // bf16(p)ᵀ
+    to_frags(dp, df);  // dsᵀ = bf16(p (dP − dd))ᵀ
+  }
+  {  // the last tile's dV, dK
+    const bf16* Qp = ring + (nt - 1) % kBwdStages * 2 * kT;
+    wg_fence();
+    mma_pb<HD>(dv, pf, Qp + kT);
+    mma_pb<HD>(dk, df, Qp);
+    wg_commit();
+    wg_wait();
+    fence_regs<HD / 2>(dv);
+    fence_regs<HD / 2>(dk);
+  }
+  const size_t out = base + static_cast<size_t>(k0) * ld;
+  store_rows<HD>(dk, a.scale, ring, a.dk + out, ld, a.seq - k0);
+  store_rows<HD>(dv, 1.f, ring, a.dv + out, ld, a.seq - k0);
+}
+
+// One block a (64-row query tile, head, image): dq of its rows, with dQ of
+// key tile t − 1 under the ds of tile t as in the key pass.
+template <int HD>
+__global__ void __launch_bounds__(kThreads) core_dq_kernel(CoreArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kT = kRows * HD;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + kT;
+  bf16* ring = dOs + kT;  // [kBwdStages] × (K tile, V tile)
+  const int img = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
+  const int ld = a.heads * HD;
+  const size_t base = static_cast<size_t>(img) * a.seq * ld + h * HD;
+  const float* stats =
+      a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad + q0;
+  const int nt = (a.seq + kRows - 1) / kRows;
+  const float c = a.scale * kLog2e;
+
+  stage<HD, kThreads>(Qs, a.q + base + static_cast<size_t>(q0) * ld, ld, a.seq - q0, threadIdx.x);
+  stage<HD, kThreads>(dOs, a.dout + base + static_cast<size_t>(q0) * ld, ld, a.seq - q0, threadIdx.x);
+  auto issue = [&](int kt) {
+    if (kt < nt) {
+      const size_t off = base + static_cast<size_t>(kt) * kRows * ld;
+      bf16* dst = ring + kt % kBwdStages * 2 * kT;
+      stage<HD, kThreads>(dst, a.k + off, ld, a.seq - kt * kRows, threadIdx.x);
+      stage<HD, kThreads>(dst + kT, a.v + off, ld, a.seq - kt * kRows, threadIdx.x);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  float m[2];
+  float il[2];
+  float dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // rows >= seq hold zeros (the row pass)
+    const int row = acc_row(2 * r);
+    m[r] = stats[row];
+    il[r] = stats[a.seq_pad + row];
+    dd[r] = stats[2 * a.seq_pad + row];
+  }
+
+  float s[32];
+  float dp[32];
+  float dq[HD / 2];
+  uint32_t df[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+  for (int kt = 0; kt < nt; ++kt) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();  // tile kt has landed; tile kt − 2's buffers are free
+    issue(kt + 1);
+    const bf16* Kt = ring + kt % kBwdStages * 2 * kT;
+    wg_fence();
+    mma_abt<HD>(s, Qs, Kt);
+    mma_abt<HD>(dp, dOs, Kt + kT);
+    wg_commit();
+    if (kt > 0) {
+      mma_pb<HD>(dq, df, ring + (kt - 1) % kBwdStages * 2 * kT);
+      wg_commit();
+      wg_wait<1>();
+    } else {
+      wg_wait();
+    }
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      dp[i] = ex2(fmaf(s[i], c, -m[r])) * il[r] * (dp[i] - dd[r]);
+    }
+    if (kt * kRows + kRows > a.seq) {  // the last tile: keys >= seq
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (kt * kRows + acc_col(i) >= a.seq) dp[i] = 0.f;
+    }
+    wg_wait();  // the previous dQ has read df
+    fence_regs<HD / 2>(dq);
+    to_frags(dp, df);  // ds = bf16(p (dP − dd))
+  }
+  wg_fence();  // the last tile's dQ
+  mma_pb<HD>(dq, df, ring + (nt - 1) % kBwdStages * 2 * kT);
+  wg_commit();
+  wg_wait();
+  fence_regs<HD / 2>(dq);
+  store_rows<HD>(dq, a.scale, ring, a.dq + base + static_cast<size_t>(q0) * ld, ld, a.seq - q0);
+}
+
+template <int HD>
+cudaError_t launch_bwd(const CoreArgs& a, int images, cudaStream_t st) {
+  cudaError_t e = launch_rows<HD, true>(a, images, st);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.seq + kRows - 1) / kRows, a.heads, images);
+  e = cudaFuncSetAttribute(core_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kDkvSmem<HD>));
+  if (e != cudaSuccess) return e;
+  core_dkv_kernel<HD><<<grid, kThreads, kDkvSmem<HD>, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(core_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kDqSmem<HD>));
+  if (e != cudaSuccess) return e;
+  core_dq_kernel<HD><<<grid, kThreads, kDqSmem<HD>, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace k13
+}  // namespace vitax
 
 namespace {
 
-using vitax::AttnBwdGeom;
-using vitax::AttnGeom;
 using vitax::bf16;
+using vitax::k13::CoreArgs;
 
-#define VITAX_CORE_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
-
-cudaError_t core_bwd(const AttnBwdGeom& g, int head_dim, cudaStream_t st) {
+cudaError_t core_bwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
   switch (head_dim) {
 #define VITAX_CASE(HD) \
   case HD:             \
-    return vitax::launch_flash_bwd<HD>(g, nullptr, st);
-    VITAX_CORE_HEAD_DIMS(VITAX_CASE)
+    return vitax::k13::launch_bwd<HD>(a, images, st);
+    VITAX_K13_HEAD_DIMS(VITAX_CASE)
 #undef VITAX_CASE
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+long long seq_pad(int seq) { return (static_cast<long long>(seq) + 63) / 64 * 64; }
+
 }  // namespace
 
+// fp32 elements of the backward's row-statistics scratch
+extern "C" long long vitax_attention_core_bwd_ws(int images, int seq, int heads) {
+  return 3LL * images * heads * seq_pad(seq);
+}
+
 // q, k, v, out, dout and the grads dq, dk, dv bf16 [images, seq, heads,
-// head_dim]; scratch p and ds bf16 [images, heads, L, L], L = round_up(seq,
-// 16). Chunks of at most 65535 images, as the forward.
+// head_dim]; stats fp32 vitax_attention_core_bwd_ws(images, seq, heads).
+// Chunks of at most 65535 images, as the forward.
 extern "C" int vitax_attention_core_bwd(const void* q, const void* k, const void* v,
                                         const void* out, const void* dout, void* dq, void* dk,
-                                        void* dv, void* p, void* ds, int images, int seq,
-                                        int heads, int head_dim, float scale, void* stream) {
+                                        void* dv, void* stats, int images, int seq, int heads,
+                                        int head_dim, float scale, void* stream) {
   constexpr int kMaxImages = 65535;
   const auto st = static_cast<cudaStream_t>(stream);
   if (seq <= 0 || heads <= 0) return cudaErrorInvalidValue;
   const size_t ld = static_cast<size_t>(heads) * head_dim;
-  const size_t L = vitax::attn_rows_padded(seq);
+  const size_t per_image = static_cast<size_t>(3) * heads * seq_pad(seq);
   for (int i0 = 0; i0 < images; i0 += kMaxImages) {
     const int n = images - i0 < kMaxImages ? images - i0 : kMaxImages;
     const size_t off = static_cast<size_t>(i0) * seq * ld;
-    const size_t poff = static_cast<size_t>(i0) * heads * L * L;
-    const AttnGeom f{static_cast<const bf16*>(q) + off,
-                     ld,
-                     seq,
-                     static_cast<const bf16*>(k) + off,
-                     ld,
-                     seq,
-                     0,
-                     0,
-                     heads,
-                     heads,
-                     n,
-                     seq,
-                     scale,
-                     static_cast<const bf16*>(v) + off};
-    const AttnBwdGeom g{f,
-                        static_cast<const bf16*>(out) + off,
-                        static_cast<const bf16*>(dout) + off,
-                        static_cast<bf16*>(dq) + off,
-                        ld,
-                        static_cast<bf16*>(dk) + off,
-                        ld,
-                        0,
-                        0,
-                        static_cast<bf16*>(p) + poff,
-                        static_cast<bf16*>(ds) + poff,
-                        static_cast<bf16*>(dv) + off};
-    const cudaError_t e = core_bwd(g, head_dim, st);
+    CoreArgs a{};
+    a.q = static_cast<const bf16*>(q) + off;
+    a.k = static_cast<const bf16*>(k) + off;
+    a.v = static_cast<const bf16*>(v) + off;
+    a.out = static_cast<const bf16*>(out) + off;
+    a.dout = static_cast<const bf16*>(dout) + off;
+    a.dq = static_cast<bf16*>(dq) + off;
+    a.dk = static_cast<bf16*>(dk) + off;
+    a.dv = static_cast<bf16*>(dv) + off;
+    a.stats = static_cast<float*>(stats) + i0 * per_image;
+    a.seq = seq;
+    a.heads = heads;
+    a.seq_pad = static_cast<int>(seq_pad(seq));
+    a.scale = scale;
+    const cudaError_t e = core_bwd(a, head_dim, n, st);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;

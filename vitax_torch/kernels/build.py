@@ -50,7 +50,7 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_flash_fwd": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_flash_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
     "vitax_attention_core_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
-    "vitax_attention_core_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "vitax_attention_core_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "vitax_ln_mlp_save_fwd": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_mlp_bwd_fast": [_P] * 19 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_mlp_int8_save_fwd": [_P] * 18 + [_I, _I, _I, _F, _I, _P],
@@ -74,6 +74,7 @@ WORKSPACE_SIGNATURES = {
     "vitax_ln_qkvo_attention_rect_bwd_ws": [_I] * 4,
     "vitax_qkv_attention_bwd_ws": [_I] * 3,
     "vitax_qkvo_attention_bwd_ws": [_I] * 4,
+    "vitax_attention_core_bwd_ws": [_I] * 3,
 }
 
 _lib = None

@@ -1476,10 +1476,10 @@ def _k13_cuda(name, tensors, n_out):
         rc = lib.vitax_attention_core_fwd(*args, images, s, heads, hd + pad,
                                           1.0 / math.sqrt(hd), _stream(dev))
     else:
-        L = (s + 15) // 16 * 16
-        p, ds = _bf(dev, images, heads, L, L), _bf(dev, images, heads, L, L)
-        rc = lib.vitax_attention_core_bwd(*args, p.data_ptr(), ds.data_ptr(),
-                                          images, s, heads, hd + pad,
+        stats = _workspace(lib.vitax_attention_core_bwd_ws(images, s, heads),
+                           dev)
+        rc = lib.vitax_attention_core_bwd(*args, stats.data_ptr(), images, s,
+                                          heads, hd + pad,
                                           1.0 / math.sqrt(hd), _stream(dev))
     build.check(rc, name)
     return [_from_rows(t, head_major, hd) for t in outs]
