@@ -120,7 +120,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              seq 197, backward at b32 seq 197), with each time's share of
              its bound; a checksum of K6's forward and backward outputs on
              a seeded input (K6's bits must not move with K13's; the same
-             line from `vitax_torch/scripts/k13_turns.py` on another
+             line from `vitax_torch/scripts/turns.py` on another
              checkout); K7's int8 tier (forward,
              int8_grad, int8_dw) at b64 spq 200 with 4 kv heads against its
              twins as phase 3 holds K3, timed; then six paths with exact
@@ -2802,7 +2802,7 @@ def check_core_kernels(stats):
     import torch
     import torch.nn.functional as F
     from vitax_torch.ops import cuda_kernels as ck
-    from vitax_torch.scripts.k13_turns import k6_checksum
+    from vitax_torch.scripts.turns import k6_checksum
     for name in K13_KERNELS + INT8_GQA_KERNELS:
         stats[name] = {"max_abs_err": 0.0}
     for i, (label, b, h, seq, hd, layout) in enumerate(K13_CASES):
@@ -2861,7 +2861,7 @@ def check_core_kernels(stats):
         torch.cuda.empty_cache()
 
     # K6's bits must not move with K13's kernels: the same line on the
-    # parent commit (vitax_torch/scripts/k13_turns.py runs it for any
+    # parent commit (vitax_torch/scripts/turns.py runs it for any
     # checkout)
     print(f"  K6 checksum (forward; dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo): "
           f"{k6_checksum()}", flush=True)

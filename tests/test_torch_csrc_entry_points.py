@@ -1,16 +1,16 @@
 """The C entry points of `vitax_torch/csrc/` against the ctypes argtypes
-that `vitax_torch/kernels/build.py` gives them, and K13's ablation script
-against the kernel source it edits. No CUDA compiler is needed: a count
-that disagrees would pass pointers into the wrong parameters on the card,
-and a missing anchor would stop `python -m vitax_torch.scripts.k13_ablations`
-there."""
+that `vitax_torch/kernels/build.py` gives them, and the ablation scripts of
+K13 and of the wgmma GEMM against the kernel sources they edit. No CUDA
+compiler is needed: a count that disagrees would pass pointers into the
+wrong parameters on the card, and a missing anchor would stop `python -m
+vitax_torch.scripts.k13_ablations` (or `gemm_sm90_ablations`) there."""
 
 import re
 
 import pytest
 
 from vitax_torch.kernels import build
-from vitax_torch.scripts import k13_ablations
+from vitax_torch.scripts import gemm_sm90_ablations, k13_ablations
 
 _DECL = re.compile(r'extern "C" (?:int|long long|const char\*) (\w+)\(([^)]*)\)')
 
@@ -38,4 +38,11 @@ def test_argtypes_match_the_c_declaration(name):
 def test_k13_ablation_anchors_are_in_the_kernel_source(ablation):
     header = (build.CSRC / "attention_core.cuh").read_text()
     for anchor, _ in k13_ablations.ABLATIONS[ablation]:
+        assert header.count(anchor) == 1, anchor
+
+
+@pytest.mark.parametrize("ablation", sorted(gemm_sm90_ablations.ABLATIONS))
+def test_gemm_sm90_ablation_anchors_are_in_the_kernel_source(ablation):
+    header = (build.CSRC / "gemm_sm90.cuh").read_text()
+    for anchor, _ in gemm_sm90_ablations.ABLATIONS[ablation]:
         assert header.count(anchor) == 1, anchor

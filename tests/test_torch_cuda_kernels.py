@@ -162,6 +162,141 @@ def test_autograd_functions_launch_both_kernels(dev):
         assert t.grad.shape == t.shape and torch.isfinite(t.grad).all(), key
 
 
+# gemm_sm90.cuh, the wgmma GEMM of K1's and K2's backwards, alone: each
+# layout and epilogue at ViT-B/16's widths against fp32 products of the same
+# bf16 inputs, on 1, 216, 3328 (b32 at keep 0.5) and 6400 (b32) rows, K
+# ragged for kTN (the rows), and a 96-wide case whose N and K are no whole
+# tile; two runs give the same bits. (kind, k, n, k2 for the dual product)
+GEMM_CASES = [("nn_bias", 768, 2304), ("nt_store", 768, 768),
+              ("nt_f32", 2304, 768), ("tn_f32", 768, 2304),
+              ("gelu_pair", 768, 3072), ("nn_bias", 96, 96),
+              ("nt_f32", 96, 96), ("tn_f32", 96, 96), ("gelu_pair", 96, 96)]
+
+
+def _gemm_inputs(dev, kind, rows, k, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    if kind == "tn_f32":  # a [rows, k] as A[K, M], b [rows, n] as B[K, N]
+        return dict(a=r(rows, k), b=r(rows, n))
+    b = r(n, k, scale=k ** -0.5) if kind.startswith("nt") else \
+        r(k, n, scale=k ** -0.5)
+    out = dict(a=r(rows, k), b=b)
+    if kind in ("nn_bias", "gelu_pair"):
+        out["bias"] = 0.1 * torch.randn(n, generator=g, device=dev)
+    if kind == "gelu_pair":
+        out.update(a2=r(rows, k), b2=r(n, k, scale=k ** -0.5))
+    return out
+
+
+@pytest.mark.parametrize("rows", [1, 216, 3328, 6400])
+@pytest.mark.parametrize("case", GEMM_CASES)
+def test_gemm_sm90_matches_fp32_products(dev, case, rows):
+    kind, k, n = case
+    inputs = _gemm_inputs(dev, kind, rows, k, n)
+    with torch.no_grad():
+        outs = ck.gemm_sm90(kind, **inputs)
+        again = ck.gemm_sm90(kind, **inputs)
+        torch.cuda.synchronize()
+        refs = ck.gemm_sm90_ref(kind, **inputs)
+    if kind != "gelu_pair":
+        outs, again, refs = (outs,), (again,), (refs,)
+    for out, out2, ref in zip(outs, again, refs):
+        # fp32 outputs: the same products summed in another order
+        _assert_close(out, ref, 2e-2 if ref.dtype == torch.bfloat16 else 1e-3)
+        assert torch.equal(out, out2), kind
+
+
+# K1's backward (K13's core on the packed qkv rows, gemm_sm90.cuh) across
+# its geometries: spq 200, 104, 584 and 72 (seq_len 197, 101, 577 and 65:
+# keys masked inside the last 64-row tile, pad query rows past it), garbage
+# pad rows of x and a nonzero do everywhere, head dims 32, 64 and 128, one
+# image and 32. (batch, spq, seq_len, D, heads, head_dim)
+K1_BWD_SHAPES = [(32, 200, 197, 768, 12, 64), (1, 104, 101, 768, 12, 64),
+                 (2, 584, 577, 768, 12, 64), (32, 72, 65, 256, 8, 32),
+                 (1, 72, 65, 256, 2, 128), (3, 200, 197, 512, 4, 128),
+                 (1, 200, 197, 256, 8, 32)]
+
+
+@pytest.mark.parametrize("shape", K1_BWD_SHAPES)
+def test_k1_backward_matches_twin_across_geometries(dev, shape):
+    b, spq, seq, d, h, hd = shape
+    args = _bwd_args(dev, b, spq, seq, d, h, hd, 4 * d)[
+        "fused_ln_qkvo_attention_bwd"]
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        outs = ck.fused_ln_qkvo_attention_bwd(*args)
+        torch.cuda.synchronize()
+        refs = ck.fused_ln_qkvo_attention_bwd_ref(*args)
+    for out, ref in zip(outs, refs):
+        _assert_close(out, ref)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_qkvo_attention_bwd": 1}
+
+
+# K2's backward (the dual product keeping a1 in registers) at ViT-B/16's,
+# ViT-L/16's and ViT-H/14's widths (the last the :1610 route), with and
+# without the residual, on 3 x 197 rows
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("d,m", [(768, 3072), (1024, 4096), (1280, 5120)])
+def test_k2_backward_matches_twin_at_model_widths(dev, d, m, residual):
+    _, _, mlp = _args(dev, 3, 197, 197, d, 8, 64, m, seed=3)
+    g = torch.Generator(device=dev).manual_seed(303)
+    do = torch.randn(mlp[0].shape, generator=g, device=dev).to(torch.bfloat16)
+    args = (*mlp[:6], do, EPS)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        outs = ck.fused_ln_mlp_bwd(*args, residual=residual)
+        torch.cuda.synchronize()
+        refs = ck.fused_ln_mlp_bwd_ref(*args, residual=residual)
+    for out, ref in zip(outs, refs):
+        _assert_close(out, ref)
+    name = {(False, True): "fused_ln_mlp_bwd",
+            (False, False): "fused_ln_mlp_partial_bwd",
+            (True, True): "fused_ln_mlp_bwd_wide",
+            (True, False): "fused_ln_mlp_bwd_wide_partial"}[
+        (d > ck.MLP_MONO_MAX_D, residual)]
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {name: 1}
+
+
+def _peak_bytes(fn):
+    """Device memory a call allocates at its peak, above what was live."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
+def test_k1_and_k2_backwards_keep_p_ds_and_a1_out_of_device_memory(dev):
+    """At b32 spq 200 the K1 backward allocates no bf16 P and ds (2·b·H·
+    208² bf16, 66 MB) and K2's no fp32 a1 ([n, M], 79 MB): each call's
+    peak stays under its outputs and remaining scratch plus a third of what
+    those would add."""
+    b, spq, d, h, hd, m = 32, 200, 768, 12, 64, 3072
+    n, w, hhd = b * spq, 3 * h * hd, h * hd
+    args = _bwd_args(dev, b, spq, 197, d, h, hd, m)
+    k1, _ = _peak_bytes(lambda: ck.fused_ln_qkvo_attention_bwd(
+        *args["fused_ln_qkvo_attention_bwd"]))
+    lib = ck.build.load()
+    k1_rest = (2 * n * d + 4 * (2 * d + d * w + w + hhd * d + d)  # outputs
+               + 2 * (n * d + 2 * n * w + 2 * n * hhd) + 4 * n * d  # scratch
+               + 4 * lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w)
+               + 4 * lib.vitax_attention_core_bwd_ws(b, spq, h))
+    rows = (spq + 15) // 16 * 16
+    assert k1 <= k1_rest + 2 * 2 * b * h * rows * rows / 3, (k1, k1_rest)
+    k2, _ = _peak_bytes(lambda: ck.fused_ln_mlp_bwd(*args["fused_ln_mlp_bwd"]))
+    k2_rest = (2 * n * d + 4 * (2 * d + 2 * d * m + m + d)
+               + 2 * (n * d + 2 * n * m) + 4 * n * d
+               + 4 * lib.vitax_ln_mlp_bwd_ws(n, d, m))
+    assert k2 <= k2_rest + 4 * n * m / 3, (k2, k2_rest)
+
+
 def test_fp32_layer_norm_and_ragged_rows(dev):
     x = torch.randn(3, 197, 768, device=dev)
     g, b = torch.rand(768, device=dev) + 0.5, torch.randn(768, device=dev)

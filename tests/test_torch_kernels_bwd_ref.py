@@ -7,7 +7,8 @@ chip_smoke.py.
 
 Small shapes that pass both packages' gates: D 128, H 2 (head_dim 64),
 M 256, spq 16 with seq_len 10 (the padded stream), batch 1 and 3; ragged
-rows (3 x 10) for LN and K2.
+rows (3 x 10) for LN and K2; K1 at spq 72 with seq_len 65 (pad rows past
+a 64-row tile, as the card's K1 backward tiles them) and K2 on 3 x 72 rows.
 Tolerances, as max|port - pallas| <= tol * max(1, max|pallas|) per output:
 fp32 1e-4 for dx and the vector grads and 1e-3 for the weight grads (sums
 over all rows); bf16 2e-2 (ulp 2^-8, same rounding points, sums in another
@@ -95,7 +96,7 @@ def test_layer_norm_bwd_ref_matches_pallas(dtype, batch, rows):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("batch,rows,residual",
                          [(1, SPQ, True), (3, SPQ, True), (3, SEQ, True),
-                          (3, SPQ, False)])
+                          (3, SPQ, False), (3, 72, True)])
 def test_fused_ln_mlp_bwd_ref_matches_pallas(dtype, batch, rows, residual):
     j, t = _both(_arrays(1, batch, rows), dtype)
     n = batch * rows
@@ -139,6 +140,22 @@ def test_fused_ln_qkvo_attention_bwd_ref_matches_pallas(dtype, batch,
                ("dwqkv", "dwo"))
     for a, b in zip(out, ck.fused_ln_qkvo_attention_bwd(*args)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ln_qkvo_attention_bwd_ref_matches_pallas_past_a_tile(dtype):
+    """spq 72, seq_len 65: the keys end one row into the second 64-row tile
+    and the garbage pad rows 65..71 follow them, with a nonzero do."""
+    j, t = _both(_arrays(7, 1, 72), dtype)
+    keys = ("x", "gamma", "beta", "wqkv", "bqkv", "wo")
+    ref = pk._fused_ln_qkvo_bwd(EPS, 65, H, HD, False, False, False, False,
+                                False, None, tuple(j[k] for k in keys),
+                                j["do"])
+    out = ck.fused_ln_qkvo_attention_bwd_ref(*(t[k] for k in keys), t["do"],
+                                             EPS, 65, H, HD)
+    _check_all(ref, out, dtype,
+               ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwo", "dbo"),
+               ("dwqkv", "dwo"))
 
 
 def _fn_vs_autograd(fused, plain, inputs, seed):

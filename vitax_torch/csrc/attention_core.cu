@@ -45,26 +45,26 @@
 // tiles of 64·head_dim bf16, 4 stages up to 80 and 3 above; blocks an SM
 // are the lower of what registers and shared memory allow):
 //   head_dim        16   32   48   64   80   96  112  128
-//   registers       86   96  114  120  125  160  176  182
+//   registers       90   98  114  106  126  128  156  162
 //   shared KB       20   40   60   80  100   96  112  128
-//   blocks an SM     2    2    2    2    2    1    1    1
+//   blocks an SM     2    2    2    2    2    2    1    1
 // What holds it back on the card (PERF.md): at b64 seq 577 it takes about
 // twice scaled_dot_product_attention's time, which does one pass; removing
 // the exp2 or the second softmax moves it by 1–2 %, removing the copies by
 // about 28 %: the waits on copies and on each step's products, with four
 // warpgroups an SM to hide them, not the special-function unit.
+// K1's backward recomputes its attention output with this forward
+// (launch_core_fwd) on the packed qkv rows, query rows to spq.
 #include "attention_core.cuh"
 
-namespace {
+namespace vitax {
+namespace k13 {
 
-using vitax::bf16;
-using vitax::k13::CoreArgs;
-
-cudaError_t core_fwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
+cudaError_t launch_core_fwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
   switch (head_dim) {
 #define VITAX_CASE(HD) \
   case HD:             \
-    return vitax::k13::launch_rows<HD, false>(a, images, st);
+    return launch_rows<HD, false>(a, images, st);
     VITAX_K13_HEAD_DIMS(VITAX_CASE)
 #undef VITAX_CASE
     default:
@@ -72,7 +72,11 @@ cudaError_t core_fwd(const CoreArgs& a, int head_dim, int images, cudaStream_t s
   }
 }
 
-}  // namespace
+}  // namespace k13
+}  // namespace vitax
+
+using vitax::bf16;
+using vitax::k13::CoreArgs;
 
 // q, k, v, out bf16 [images, seq, heads, head_dim]. The grid's z dimension
 // takes at most 65535 images, so larger batches run in chunks of images.
@@ -91,10 +95,9 @@ extern "C" int vitax_attention_core_fwd(const void* q, const void* k, const void
     a.k = static_cast<const bf16*>(k) + off;
     a.v = static_cast<const bf16*>(v) + off;
     a.o = static_cast<bf16*>(out) + off;
-    a.seq = seq;
-    a.heads = heads;
+    vitax::k13::dense_geometry(a, seq, heads, head_dim);
     a.scale = scale;
-    const cudaError_t e = core_fwd(a, head_dim, n, st);
+    const cudaError_t e = vitax::k13::launch_core_fwd(a, head_dim, n, st);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;

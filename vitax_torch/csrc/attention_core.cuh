@@ -53,10 +53,16 @@ constexpr int kRows = 64;      // rows of a tile: a warpgroup's M
 constexpr int kThreads = 128;  // a warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Everything a K13 kernel reads or writes. q, k, v, out, dout and the
-// results are [images, seq, heads, HD] rows (ld = heads·HD); stats is the
-// backward's [images, heads, 3, seq_pad] fp32 scratch: m·scale·log2e, 1/l
-// and dd of every row, seq_pad = seq rounded up to 64.
+// Everything a K13 kernel reads or writes. Head h of image img of each of
+// q, k, v, out (o), dout and the grads starts at row img·img_rows, column
+// h·HD, with its own row stride (ld_*, in elements): K13's own tensors are
+// [images, seq, heads, HD] (every ld heads·HD, rows = img_rows = seq, the
+// dense_geometry below); K1's backward reads q, k, v as column blocks of its
+// packed qkv rows and writes dq, dk, dv into dqkv's (rows = img_rows = spq).
+// Query rows run to `rows`, keys to `seq` (<= rows; keys >= seq masked);
+// stats is the backward's [images, heads, 3, seq_pad] fp32 scratch:
+// m·scale·log2e, 1/l and dd of every query row, seq_pad = rows rounded up
+// to 64.
 struct CoreArgs {
   const bf16* q;
   const bf16* k;
@@ -72,7 +78,29 @@ struct CoreArgs {
   int heads;
   int seq_pad;
   float scale;
+  int rows;
+  int img_rows;
+  int ld_q, ld_k, ld_v, ld_o, ld_do, ld_dq, ld_dk, ld_dv;
 };
+
+// K13's own layout: every tensor [images, seq, heads, head_dim]
+inline void dense_geometry(CoreArgs& a, int seq, int heads, int head_dim) {
+  a.seq = a.rows = a.img_rows = seq;
+  a.heads = heads;
+  a.ld_q = a.ld_k = a.ld_v = a.ld_o = a.ld_do = a.ld_dq = a.ld_dk = a.ld_dv = heads * head_dim;
+}
+
+// The element offset of head h of image img in a tensor of row stride ld
+__device__ __forceinline__ size_t head_off(const CoreArgs& a, int ld, int img, int h, int hd) {
+  return static_cast<size_t>(img) * a.img_rows * ld + static_cast<size_t>(h) * hd;
+}
+
+// The forward (attention_core.cu) and the backward's three passes
+// (attention_core_bwd.cu) on any geometry of CoreArgs, head_dim one of
+// VITAX_K13_HEAD_DIMS, images <= 65535: the forward writes a.o, the
+// backward a.dq, a.dk, a.dv with a.stats as scratch.
+cudaError_t launch_core_fwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st);
+cudaError_t launch_core_bwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st);
 
 // ---------------------------------------------------------------- wgmma
 
@@ -335,22 +363,26 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
   const int img = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = (blockIdx.x * kRowWgs + wg) * kRows;
-  const int ld = a.heads * HD;
-  const size_t base = static_cast<size_t>(img) * a.seq * ld + h * HD;
+  const bf16* kh = a.k + head_off(a, a.ld_k, img, h, HD);
+  const bf16* vh = a.v + head_off(a, a.ld_v, img, h, HD);
   const int nt = (a.seq + kRows - 1) / kRows;
   const int steps = kRowPass ? nt : 2 * nt;
   const float c = a.scale * kLog2e;
 
-  // a tile past seq (the second of a block) stages zeros
-  stage<HD, kThreads>(Qs, a.q + base + static_cast<size_t>(q0 < a.seq ? q0 : 0) * ld, ld,
-                      a.seq - q0, threadIdx.x % kThreads);
+  // a tile past the rows (the second of a block) stages zeros
+  stage<HD, kThreads>(Qs,
+                      a.q + head_off(a, a.ld_q, img, h, HD) +
+                          static_cast<size_t>(q0 < a.rows ? q0 : 0) * a.ld_q,
+                      a.ld_q, a.rows - q0, threadIdx.x % kThreads);
   auto issue = [&](int step) {  // step < nt: pass 1, K only; else pass 2, K and V
     if (step < steps) {
       const int kt = step < nt ? step : step - nt;
-      const size_t off = base + static_cast<size_t>(kt) * kRows * ld;
-      stage<HD, kBlock>(Ks + step % kS * kT, a.k + off, ld, a.seq - kt * kRows, threadIdx.x);
+      const size_t r0 = static_cast<size_t>(kt) * kRows;
+      stage<HD, kBlock>(Ks + step % kS * kT, kh + r0 * a.ld_k, a.ld_k, a.seq - kt * kRows,
+                        threadIdx.x);
       if (step >= nt)
-        stage<HD, kBlock>(Vs + step % kS * kT, a.v + off, ld, a.seq - kt * kRows, threadIdx.x);
+        stage<HD, kBlock>(Vs + step % kS * kT, vh + r0 * a.ld_v, a.ld_v, a.seq - kt * kRows,
+                          threadIdx.x);
     }
     cp_async_commit();  // one group a step, empty past the end
   };
@@ -431,27 +463,31 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
   if constexpr (kRowPass) {
     // m, 1/l of rows g and g + 8 from the t = 0 lane of each quad; dd by
     // two threads a row; nothing from a warpgroup whose tile starts at or
-    // past seq (seq_pad ends there)
+    // past the rows (seq_pad ends there)
     float* st = a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad + q0;
-    const bool tile = q0 < a.seq;
+    const bool tile = q0 < a.rows;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float inv = 1.f / quad_sum(l[r]);
       const int row = acc_row(2 * r);
       if (tile && threadIdx.x % 4 == 0) {
-        const bool ok = q0 + row < a.seq;
+        const bool ok = q0 + row < a.rows;
         st[row] = ok ? m[r] : 0.f;
         st[a.seq_pad + row] = ok ? inv : 0.f;
       }
     }
     const int row = threadIdx.x % kThreads / 2;
     float dd = 0.f;
-    if (q0 + row < a.seq) {
-      const size_t off = base + static_cast<size_t>(q0 + row) * ld + (threadIdx.x % 2) * (HD / 2);
+    if (q0 + row < a.rows) {
+      const size_t col = (threadIdx.x % 2) * (HD / 2);
+      const bf16* ro_row = a.out + head_off(a, a.ld_o, img, h, HD) +
+                           static_cast<size_t>(q0 + row) * a.ld_o + col;
+      const bf16* rd_row = a.dout + head_off(a, a.ld_do, img, h, HD) +
+                           static_cast<size_t>(q0 + row) * a.ld_do + col;
 #pragma unroll
       for (int j = 0; j < HD / 2; j += 8) {
-        const uint4 ro = *reinterpret_cast<const uint4*>(a.out + off + j);
-        const uint4 rd = *reinterpret_cast<const uint4*>(a.dout + off + j);
+        const uint4 ro = *reinterpret_cast<const uint4*>(ro_row + j);
+        const uint4 rd = *reinterpret_cast<const uint4*>(rd_row + j);
         const bf16* vo = reinterpret_cast<const bf16*>(&ro);
         const bf16* vd = reinterpret_cast<const bf16*>(&rd);
 #pragma unroll
@@ -461,8 +497,9 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
     dd += __shfl_xor_sync(0xffffffffu, dd, 1);
     if (tile && threadIdx.x % 2 == 0) st[2 * a.seq_pad + row] = dd;
   } else {
-    store_rows<HD>(o, 1.f, Ks + wg * kRows * (HD + 8), a.o + base + static_cast<size_t>(q0) * ld,
-                   ld, a.seq - q0);
+    store_rows<HD>(o, 1.f, Ks + wg * kRows * (HD + 8),
+                   a.o + head_off(a, a.ld_o, img, h, HD) + static_cast<size_t>(q0) * a.ld_o,
+                   a.ld_o, a.rows - q0);
   }
 }
 
@@ -473,7 +510,7 @@ cudaError_t launch_rows(const CoreArgs& a, int images, cudaStream_t st) {
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + kRowWgs * kRows - 1) / (kRowWgs * kRows), a.heads, images);
+  const dim3 grid((a.rows + kRowWgs * kRows - 1) / (kRowWgs * kRows), a.heads, images);
   core_rows_kernel<HD, kRowPass><<<grid, kRowWgs * kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }

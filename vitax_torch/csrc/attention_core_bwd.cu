@@ -36,15 +36,21 @@
 // (ptxas's registers; shared memory: the key pass 8 tiles of 64·head_dim
 // bf16 and 3·768 bytes of statistics, the query pass 8 tiles, the row pass
 // 2 + 4 (3 above 80); blocks an SM the lower of what registers and shared
-// memory allow; the key pass spills 32 and 116 bytes at 112 and 128):
+// memory allow; the key pass spills 16 bytes at 128):
 //   head_dim             16   32   48   64   80   96  112  128
-//   key pass registers  156  168  205  230  244  253  255  255
+//   key pass registers  156  165  197  221  240  252  255  255
 //   key pass blocks       3    3    2    2    2    2    1    1
-//   query pass registers 115 123  156  154  168  190  204  220
+//   query pass registers 114 124  130  141  154  164  180  194
 //   query pass blocks     4    4    3    3    2    2    2    1
-//   row pass registers    60   60   61   61   64   73   80   80
+//   row pass registers    58   60   60   60   61   64   66   67
 // Layouts, the unpadded rows and the head dims as the forward's
 // (attention_core.cu).
+//
+// K1's backward (ln_qkvo_attention_bwd.cu) runs the same three passes
+// through launch_core_bwd on its packed qkv rows (CoreArgs with a row
+// stride per tensor): query rows to spq, keys masked at seq_len, dq, dk, dv
+// written into dqkv's columns; the key pass writes the rows seq_len..spq of
+// dk and dv as zeros, since p is 0 on those keys.
 #include "attention_core.cuh"
 
 namespace vitax {
@@ -76,20 +82,23 @@ __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
   const int img = blockIdx.z;
   const int h = blockIdx.y;
   const int k0 = blockIdx.x * kRows;
-  const int ld = a.heads * HD;
-  const size_t base = static_cast<size_t>(img) * a.seq * ld + h * HD;
+  const bf16* qh = a.q + head_off(a, a.ld_q, img, h, HD);
+  const bf16* doh = a.dout + head_off(a, a.ld_do, img, h, HD);
   const float* stats = a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad;
-  const int nt = (a.seq + kRows - 1) / kRows;
+  const int nt = (a.rows + kRows - 1) / kRows;  // query tiles
   const float c = a.scale * kLog2e;
 
-  stage<HD, kThreads>(Ks, a.k + base + static_cast<size_t>(k0) * ld, ld, a.seq - k0, threadIdx.x);
-  stage<HD, kThreads>(Vs, a.v + base + static_cast<size_t>(k0) * ld, ld, a.seq - k0, threadIdx.x);
+  // key rows >= seq (a tile of them past seq in K1's padded rows) stage zeros
+  stage<HD, kThreads>(Ks, a.k + head_off(a, a.ld_k, img, h, HD) + static_cast<size_t>(k0) * a.ld_k,
+                      a.ld_k, a.seq - k0, threadIdx.x);
+  stage<HD, kThreads>(Vs, a.v + head_off(a, a.ld_v, img, h, HD) + static_cast<size_t>(k0) * a.ld_v,
+                      a.ld_v, a.seq - k0, threadIdx.x);
   auto issue = [&](int qt) {
     if (qt < nt) {
-      const size_t off = base + static_cast<size_t>(qt) * kRows * ld;
+      const size_t r0 = static_cast<size_t>(qt) * kRows;
       bf16* dst = ring + qt % kBwdStages * 2 * kT;
-      stage<HD, kThreads>(dst, a.q + off, ld, a.seq - qt * kRows, threadIdx.x);
-      stage<HD, kThreads>(dst + kT, a.dout + off, ld, a.seq - qt * kRows, threadIdx.x);
+      stage<HD, kThreads>(dst, qh + r0 * a.ld_q, a.ld_q, a.rows - qt * kRows, threadIdx.x);
+      stage<HD, kThreads>(dst + kT, doh + r0 * a.ld_do, a.ld_do, a.rows - qt * kRows, threadIdx.x);
       if (threadIdx.x < kStatTile / 4) {  // 16-byte chunks of the three rows
         const int plane = threadIdx.x / (kRows / 4);
         const int part = threadIdx.x % (kRows / 4) * 4;
@@ -156,9 +165,18 @@ __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
     fence_regs<HD / 2>(dv);
     fence_regs<HD / 2>(dk);
   }
-  const size_t out = base + static_cast<size_t>(k0) * ld;
-  store_rows<HD>(dk, a.scale, ring, a.dk + out, ld, a.seq - k0);
-  store_rows<HD>(dv, 1.f, ring, a.dv + out, ld, a.seq - k0);
+  if (k0 + kRows > a.seq) {  // keys >= seq (stored only past K1's seq_len): p is 0, so are dk, dv
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      if (k0 + acc_row(i) >= a.seq) dk[i] = dv[i] = 0.f;
+    }
+  }
+  store_rows<HD>(dk, a.scale, ring,
+                 a.dk + head_off(a, a.ld_dk, img, h, HD) + static_cast<size_t>(k0) * a.ld_dk,
+                 a.ld_dk, a.rows - k0);
+  store_rows<HD>(dv, 1.f, ring,
+                 a.dv + head_off(a, a.ld_dv, img, h, HD) + static_cast<size_t>(k0) * a.ld_dv,
+                 a.ld_dv, a.rows - k0);
 }
 
 // One block a (64-row query tile, head, image): dq of its rows, with dQ of
@@ -173,21 +191,24 @@ __global__ void __launch_bounds__(kThreads) core_dq_kernel(CoreArgs a) {
   const int img = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * kRows;
-  const int ld = a.heads * HD;
-  const size_t base = static_cast<size_t>(img) * a.seq * ld + h * HD;
+  const bf16* kh = a.k + head_off(a, a.ld_k, img, h, HD);
+  const bf16* vh = a.v + head_off(a, a.ld_v, img, h, HD);
   const float* stats =
       a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad + q0;
-  const int nt = (a.seq + kRows - 1) / kRows;
+  const int nt = (a.seq + kRows - 1) / kRows;  // key tiles
   const float c = a.scale * kLog2e;
 
-  stage<HD, kThreads>(Qs, a.q + base + static_cast<size_t>(q0) * ld, ld, a.seq - q0, threadIdx.x);
-  stage<HD, kThreads>(dOs, a.dout + base + static_cast<size_t>(q0) * ld, ld, a.seq - q0, threadIdx.x);
+  stage<HD, kThreads>(Qs, a.q + head_off(a, a.ld_q, img, h, HD) + static_cast<size_t>(q0) * a.ld_q,
+                      a.ld_q, a.rows - q0, threadIdx.x);
+  stage<HD, kThreads>(dOs,
+                      a.dout + head_off(a, a.ld_do, img, h, HD) + static_cast<size_t>(q0) * a.ld_do,
+                      a.ld_do, a.rows - q0, threadIdx.x);
   auto issue = [&](int kt) {
     if (kt < nt) {
-      const size_t off = base + static_cast<size_t>(kt) * kRows * ld;
+      const size_t r0 = static_cast<size_t>(kt) * kRows;
       bf16* dst = ring + kt % kBwdStages * 2 * kT;
-      stage<HD, kThreads>(dst, a.k + off, ld, a.seq - kt * kRows, threadIdx.x);
-      stage<HD, kThreads>(dst + kT, a.v + off, ld, a.seq - kt * kRows, threadIdx.x);
+      stage<HD, kThreads>(dst, kh + r0 * a.ld_k, a.ld_k, a.seq - kt * kRows, threadIdx.x);
+      stage<HD, kThreads>(dst + kT, vh + r0 * a.ld_v, a.ld_v, a.seq - kt * kRows, threadIdx.x);
     }
     cp_async_commit();
   };
@@ -250,14 +271,16 @@ __global__ void __launch_bounds__(kThreads) core_dq_kernel(CoreArgs a) {
   wg_commit();
   wg_wait();
   fence_regs<HD / 2>(dq);
-  store_rows<HD>(dq, a.scale, ring, a.dq + base + static_cast<size_t>(q0) * ld, ld, a.seq - q0);
+  store_rows<HD>(dq, a.scale, ring,
+                 a.dq + head_off(a, a.ld_dq, img, h, HD) + static_cast<size_t>(q0) * a.ld_dq,
+                 a.ld_dq, a.rows - q0);
 }
 
 template <int HD>
 cudaError_t launch_bwd(const CoreArgs& a, int images, cudaStream_t st) {
   cudaError_t e = launch_rows<HD, true>(a, images, st);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + kRows - 1) / kRows, a.heads, images);
+  const dim3 grid((a.rows + kRows - 1) / kRows, a.heads, images);
   e = cudaFuncSetAttribute(core_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(kDkvSmem<HD>));
   if (e != cudaSuccess) return e;
@@ -271,6 +294,18 @@ cudaError_t launch_bwd(const CoreArgs& a, int images, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_core_bwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
+  switch (head_dim) {
+#define VITAX_CASE(HD) \
+  case HD:             \
+    return launch_bwd<HD>(a, images, st);
+    VITAX_K13_HEAD_DIMS(VITAX_CASE)
+#undef VITAX_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace k13
 }  // namespace vitax
 
@@ -278,18 +313,6 @@ namespace {
 
 using vitax::bf16;
 using vitax::k13::CoreArgs;
-
-cudaError_t core_bwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
-  switch (head_dim) {
-#define VITAX_CASE(HD) \
-  case HD:             \
-    return vitax::k13::launch_bwd<HD>(a, images, st);
-    VITAX_K13_HEAD_DIMS(VITAX_CASE)
-#undef VITAX_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 long long seq_pad(int seq) { return (static_cast<long long>(seq) + 63) / 64 * 64; }
 
@@ -325,11 +348,10 @@ extern "C" int vitax_attention_core_bwd(const void* q, const void* k, const void
     a.dk = static_cast<bf16*>(dk) + off;
     a.dv = static_cast<bf16*>(dv) + off;
     a.stats = static_cast<float*>(stats) + i0 * per_image;
-    a.seq = seq;
-    a.heads = heads;
+    vitax::k13::dense_geometry(a, seq, heads, head_dim);
     a.seq_pad = static_cast<int>(seq_pad(seq));
     a.scale = scale;
-    const cudaError_t e = core_bwd(a, head_dim, n, st);
+    const cudaError_t e = vitax::k13::launch_core_bwd(a, head_dim, n, st);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;

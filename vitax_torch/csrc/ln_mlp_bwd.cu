@@ -13,19 +13,23 @@
 //            bf16(dx_ln) without the residual; dγ = Σ dxn x̂, dβ = Σ dxn
 // Weight and vector grads come out in fp32, as the TPU kernel's outputs.
 //
-// Bound on the H100: the five products (10·N·D·M flops; 12·N·D·M with the
-// recompute of fc1's output), tensor-core bound at the ViT-B/16 shapes
-// (gemm.cuh). The TPU kernel keeps xn, a1, h1 and dh1 in VMEM and carries
-// dW/db/dγ/dβ across its sequential grid. This first design is the
-// multi-launch form: xn, h1, dh1 (bf16) and dxn (fp32 [N, D]) go through
-// device memory, and so does the fp32 pre-activation a1 [N, M] (79 MB at
-// b32 spq 200), written by fc1's recompute epilogue and read by the dh1
-// epilogue, which applies gelu'(a1) in fp32 (erf + exp, as _gelu_grad
-// :577-584). Every weight grad is one kTN product over all N rows (split K,
+// Bound on the H100: the six products (12·N·D·M operations with the
+// recompute of fc1's output: 1.81e11 at b32 spq 200), tensor-core
+// bound at the ViT shapes. The TPU kernel keeps xn, a1, h1 and dh1 in VMEM
+// and carries dW/db/dγ/dβ across its sequential grid. Here every product is
+// gemm_sm90.cuh's wgmma GEMM, and fc1's recompute and dh1f = do·W2ᵀ are one
+// dual-accumulator product (gemm_gelu_pair): each [128 rows, 128 of M] tile
+// accumulates a1 = xn·W1 and dh1f side by side over K = D in registers, and
+// its epilogue writes h1 = bf16(gelu(a1 + b1)) and dh1 = bf16(dh1f·gelu'(a1
+// + b1)) in fp32 (erf + exp, as _gelu_grad :577-584), so the pre-activation
+// a1 never reaches device memory, as in vitax's VMEM (stages 2–4,
+// :1335-1350). xn, h1, dh1 (bf16) and dxn (fp32 [N, D]) go through device
+// memory. Every weight grad is one kTN product over all N rows (split K,
 // deterministic second pass) and every vector grad a two-pass column sum:
-// no float atomics. Keeping a1/h1/dh1 on chip is the first fusion left for
-// later work.
+// no float atomics. The same entry point serves d > 1024 (the :1610 route,
+// ViT-H/14's D 1280, M 5120).
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 extern "C" long long vitax_ln_mlp_bwd_ws(int n, int d, int m) {
@@ -39,20 +43,19 @@ extern "C" long long vitax_ln_mlp_bwd_ws(int n, int d, int m) {
 }
 
 // Outputs dx (bf16 [n, d]) and fp32 dgamma, dbeta [d], dw1 [d, m], db1 [m],
-// dw2 [m, d], db2 [d]. Scratch: xn bf16 [n, d], a1 fp32 [n, m], h1 and dh1
-// bf16 [n, m], dxn fp32 [n, d], ws fp32 vitax_ln_mlp_bwd_ws(n, d, m).
+// dw2 [m, d], db2 [d]. Scratch: xn bf16 [n, d], h1 and dh1 bf16 [n, m], dxn
+// fp32 [n, d], ws fp32 vitax_ln_mlp_bwd_ws(n, d, m).
 extern "C" int vitax_ln_mlp_bwd(const void* x, const void* gamma, const void* beta, const void* w1,
                                 const void* b1, const void* w2, const void* dout, void* dx,
                                 void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2,
-                                void* db2, void* xn, void* a1, void* h1, void* dh1, void* dxn,
-                                void* ws, int n, int d, int m, float eps, int residual,
-                                void* stream) {
+                                void* db2, void* xn, void* h1, void* dh1, void* dxn, void* ws,
+                                int n, int d, int m, float eps, int residual, void* stream) {
   using vitax::bf16;
+  namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
   const auto* dob = static_cast<const bf16*>(dout);
   auto* xnb = static_cast<bf16*>(xn);
-  auto* a1f = static_cast<float*>(a1);
   auto* h1b = static_cast<bf16*>(h1);
   auto* dh1b = static_cast<bf16*>(dh1);
   auto* dxnf = static_cast<float*>(dxn);
@@ -61,24 +64,20 @@ extern "C" int vitax_ln_mlp_bwd(const void* x, const void* gamma, const void* be
   cudaError_t e = vitax::launch_layer_norm(xb, static_cast<const float*>(gamma),
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBiasGeluAux>(xnb, static_cast<const bf16*>(w1),
-                                              static_cast<const float*>(b1), nullptr, h1b, n, m,
-                                              d, st, a1f);
+  e = sm90::gemm_gelu_pair(xnb, static_cast<const bf16*>(w1), static_cast<const float*>(b1), dob,
+                           static_cast<const bf16*>(w2), h1b, dh1b, n, m, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_nt<vitax::kGeluGrad>(dob, static_cast<const bf16*>(w2), a1f, dh1b,
-                                              nullptr, n, m, d, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(h1b, dob, static_cast<float*>(dw2), wsf, m, d, n, st);
+  e = sm90::gemm_tn(h1b, dob, static_cast<float*>(dw2), wsf, m, d, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(dob, static_cast<float*>(db2), wsf, n, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(xnb, dh1b, static_cast<float*>(dw1), wsf, d, m, n, st);
+  e = sm90::gemm_tn(xnb, dh1b, static_cast<float*>(dw1), wsf, d, m, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const bf16*>(dh1b), static_cast<float*>(db1), wsf, n, m,
                            st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dh1b, static_cast<const bf16*>(w1), nullptr,
-                                              nullptr, dxnf, n, d, m, st);
+  e = sm90::gemm_nt<sm90::kEpiF32>(dh1b, static_cast<const bf16*>(w1), nullptr, dxnf, n, d, m,
+                                   st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(
       xb, static_cast<const float*>(gamma), dxnf, residual ? dob : nullptr,

@@ -15,17 +15,32 @@
 //                                                                  (:2943-2956)
 // Weight and vector grads come out in fp32, as the TPU kernel's outputs.
 //
-// Bound on the H100: the six projection products (12·N·D·3HHd-scale flops,
-// tensor-core bound, gemm.cuh), then the attention core's 5 small products
-// per head. The TPU kernel carries dW, db, dγ, dβ across its sequential grid
-// in VMEM; here every weight grad is one kTN product over all N rows (split
-// K, deterministic second pass) and every vector grad a two-pass column sum
+// Bound on the H100: the operations of the products at the ViT shapes
+// (qkv recompute, do·Woᵀ, attnᵀ·do, dqkv·Wqkvᵀ, xnᵀ·dqkv: 8.3e10 at b32 spq
+// 200; the core's products add about a tenth). The TPU
+// kernel carries dW, db, dγ, dβ across its sequential grid in VMEM; here
+// every weight grad is one kTN product over all N rows (split K,
+// deterministic second pass) and every vector grad a two-pass column sum
 // (colsum.cuh). Nothing uses float atomics.
 //
-// The attention-core backward keeps the TPU's rounding points exactly and
-// fits shared memory by splitting by query tiles and then by key tiles, with
-// bf16 P and ds of each (image, head) in device memory between the two
-// (2·B·H·L² bf16, 66 MB at b32 spq 200):
+// kv_heads == heads (vitax_ln_qkvo_attention_bwd), the Hopper design: the
+// five products on gemm_sm90.cuh (wgmma m64n128k16 fed by a producer
+// warp's TMA loads, 128×128 tiles in two warpgroups), and the attention
+// core on K13's
+// (attention_core.cuh) with strided operands: its forward recomputes attn
+// from the packed qkv rows (query rows to spq, keys masked at seq_len), and
+// its three backward passes (a row pass writing m·scale·log2e, 1/l and dd,
+// 12 bytes a row, to `stats`; a key pass for dk, dv; a query pass for dq)
+// write straight into dqkv's packed columns. Neither P nor ds reaches
+// device memory; the query rows seq_len..spq are computed as vitax computes
+// them, and their dk, dv rows are 0.
+//
+// kv_heads < heads (vitax_ln_qkvo_attention_gqa_bwd, K7's backward) keeps
+// the first design: gemm.cuh's WMMA products and the whole-row core, whose
+// backward keeps the TPU's rounding points exactly and fits shared memory
+// by splitting by query tiles and then by key tiles, with bf16 P and ds of
+// each (image, head) in device memory between the two (2·B·H·L² bf16, 66 MB
+// at b32 spq 200):
 //   pass 1 (query tiles, like the forward core): K and V of the head in
 //     shared memory; each warp owns 16 query rows, recomputes their whole
 //     fp32 score rows and softmax, forms dp one 16x16 key tile at a time and
@@ -46,9 +61,11 @@
 // and V columns; the core's work does not.
 #include "attention_bwd.cuh"
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
-// fp32 workspace of the backward over n rows, qkv width w ((H + 2·Hkv)·hd).
+// fp32 workspace of either backward over n rows, qkv width w ((H + 2·Hkv)·hd)
+// (also K6's backward's).
 extern "C" long long vitax_ln_qkvo_attention_bwd_ws(int n, int d, int hhd, int w) {
   using namespace vitax;
   const size_t sizes[] = {layer_norm_bwd_workspace(n, d), colsum_workspace(n, d),
@@ -59,12 +76,87 @@ extern "C" long long vitax_ln_qkvo_attention_bwd_ws(int n, int d, int hhd, int w
   return static_cast<long long>(m);
 }
 
-// Outputs dx (bf16 [n, d]) and fp32 dgamma, dbeta [d], dwqkv [d, w], dbqkv
-// [w], dwo [hhd, d], dbo [d], w = (heads + 2 kv_heads) head_dim. Scratch (bf16
-// unless noted): xn [n,d], qkv [n,w], attn and dattn [n,hhd], p and ds
+// kv_heads == heads. Outputs dx (bf16 [n, d]) and fp32 dgamma, dbeta [d],
+// dwqkv [d, w], dbqkv [w], dwo [hhd, d], dbo [d], w = 3·heads·head_dim.
+// Scratch (bf16 unless noted): xn [n,d], qkv [n,w], attn and dattn [n,hhd],
+// stats fp32 vitax_attention_core_bwd_ws(b, spq, heads), dqkv [n,w], dxn
+// fp32 [n,d], ws fp32 vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w).
+extern "C" int vitax_ln_qkvo_attention_bwd(
+    const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
+    const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
+    void* dbqkv, void* dwo, void* dbo, void* xn, void* qkv, void* attn, void* dattn, void* stats,
+    void* dqkv, void* dxn, void* ws, int b, int spq, int d, int seq_len, int heads, int head_dim,
+    float eps, float scale, void* stream) {
+  using vitax::bf16;
+  namespace sm90 = vitax::sm90;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int n = b * spq;
+  const int hhd = heads * head_dim;
+  const int w = 3 * hhd;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* wqkvb = static_cast<const bf16*>(wqkv);
+  const auto* dob = static_cast<const bf16*>(dout);
+  auto* xnb = static_cast<bf16*>(xn);
+  auto* qkvb = static_cast<bf16*>(qkv);
+  auto* attnb = static_cast<bf16*>(attn);
+  auto* dattnb = static_cast<bf16*>(dattn);
+  auto* dqkvb = static_cast<bf16*>(dqkv);
+  auto* dxnf = static_cast<float*>(dxn);
+  auto* wsf = static_cast<float*>(ws);
+  if (n == 0 || b > 65535 || seq_len <= 0 || seq_len > spq) return cudaErrorInvalidValue;
+
+  // recompute LN1, qkv and the attention core (K13's forward on the packed rows)
+  cudaError_t e = vitax::launch_layer_norm(xb, static_cast<const float*>(gamma),
+                                           static_cast<const float*>(beta), xnb, n, d, eps, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_nn<sm90::kEpiBias>(xnb, wqkvb, static_cast<const float*>(bqkv), qkvb, nullptr,
+                                    n, w, d, st);
+  if (e != cudaSuccess) return e;
+  vitax::k13::CoreArgs a{};
+  a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd;
+  a.o = attnb, a.out = attnb, a.dout = dattnb;
+  a.dq = dqkvb, a.dk = dqkvb + hhd, a.dv = dqkvb + 2 * hhd;
+  a.stats = static_cast<float*>(stats);
+  a.seq = seq_len, a.rows = spq, a.img_rows = spq, a.heads = heads;
+  a.seq_pad = (spq + vitax::k13::kRows - 1) / vitax::k13::kRows * vitax::k13::kRows;
+  a.scale = scale;
+  a.ld_q = a.ld_k = a.ld_v = a.ld_dq = a.ld_dk = a.ld_dv = w;
+  a.ld_o = a.ld_do = hhd;
+  e = vitax::k13::launch_core_fwd(a, head_dim, b, st);
+  if (e != cudaSuccess) return e;
+
+  // out-projection grads
+  e = sm90::gemm_nt<sm90::kEpiStore>(dob, static_cast<const bf16*>(wo), dattnb, nullptr, n, hhd,
+                                     d, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, n, d, st);
+  if (e != cudaSuccess) return e;
+
+  // attention-core grads -> dqkv (K13's three passes)
+  e = vitax::k13::launch_core_bwd(a, head_dim, b, st);
+  if (e != cudaSuccess) return e;
+
+  // QKV projection grads and the LN tail
+  e = sm90::gemm_nt<sm90::kEpiF32>(dqkvb, wqkvb, nullptr, dxnf, n, d, w, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, w, n, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n, w,
+                           st);
+  if (e != cudaSuccess) return e;
+  return vitax::launch_layer_norm_bwd<bf16, float>(
+      xb, static_cast<const float*>(gamma), dxnf, nullptr, static_cast<bf16*>(dx),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d, eps, st);
+}
+
+// kv_heads < heads (K7's backward; any kv_heads dividing heads). Outputs as
+// vitax_ln_qkvo_attention_bwd's, w = (heads + 2 kv_heads) head_dim. Scratch
+// (bf16 unless noted): xn [n,d], qkv [n,w], attn and dattn [n,hhd], p and ds
 // [b,heads,L,L] with L = round_up(spq, 16), dqkv [n,w], dxn fp32 [n,d], ws fp32
 // vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w).
-extern "C" int vitax_ln_qkvo_attention_bwd(
+extern "C" int vitax_ln_qkvo_attention_gqa_bwd(
     const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
     void* dbqkv, void* dwo, void* dbo, void* xn, void* qkv, void* attn, void* dattn, void* p,

@@ -35,8 +35,9 @@ SIGNATURES = {
     "vitax_ln_mlp_fwd": [_P] * 10 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_qkvo_attention_fwd": [_P] * 11 + [_I] * 7 + [_F, _F, _P],
     "vitax_layer_norm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
-    "vitax_ln_mlp_bwd": [_P] * 20 + [_I, _I, _I, _F, _I, _P],
-    "vitax_ln_qkvo_attention_bwd": [_P] * 23 + [_I] * 7 + [_F, _F, _P],
+    "vitax_ln_mlp_bwd": [_P] * 19 + [_I, _I, _I, _F, _I, _P],
+    "vitax_ln_qkvo_attention_bwd": [_P] * 22 + [_I] * 6 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_gqa_bwd": [_P] * 23 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_mlp_int8_fwd": [_P] * 17 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_mlp_int8_bwd": [_P] * 39 + [_I] * 5 + [_F, _I, _P],
     "vitax_ln_qkvo_attention_int8_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
@@ -65,6 +66,7 @@ SIGNATURES = {
     "vitax_qkv_attention_bwd": [_P] * 13 + [_I] * 6 + [_F, _P],
     "vitax_qkvo_attention_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vitax_qkvo_attention_bwd": [_P] * 17 + [_I] * 6 + [_F, _P],
+    "vitax_gemm_sm90": [_P] * 9 + [_I] * 4 + [_P],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {
@@ -75,6 +77,7 @@ WORKSPACE_SIGNATURES = {
     "vitax_qkv_attention_bwd_ws": [_I] * 3,
     "vitax_qkvo_attention_bwd_ws": [_I] * 4,
     "vitax_attention_core_bwd_ws": [_I] * 3,
+    "vitax_gemm_sm90_ws": [_I] * 3,
 }
 
 _lib = None

@@ -620,13 +620,83 @@ def _ln_mlp_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, residual):
     dw1, db1, dw2, db2 = (_f32(dev, d, m), _f32(dev, m), _f32(dev, m, d),
                           _f32(dev, d))
     xn, h1, dh1 = _bf(dev, n, d), _bf(dev, n, m), _bf(dev, n, m)
-    a1, dxn = _f32(dev, n, m), _f32(dev, n, d)
+    dxn = _f32(dev, n, d)
     ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
     rc = lib.vitax_ln_mlp_bwd(*(t.data_ptr() for t in (
         x2, gamma, beta, w1, b1, w2, do, dx, dg, dbe, dw1, db1, dw2, db2, xn,
-        a1, h1, dh1, dxn, ws)), n, d, m, eps, int(residual), _stream(dev))
+        h1, dh1, dxn, ws)), n, d, m, eps, int(residual), _stream(dev))
     build.check(rc, name)
     return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
+
+
+GEMM_SM90_KINDS = ("nn_bias", "nt_store", "nt_f32", "tn_f32", "gelu_pair")
+
+
+def gemm_sm90_ref(kind, a, b, bias=None, a2=None, b2=None):
+    """The plain twin of `gemm_sm90`: fp32 products of the bf16 operands and
+    the epilogue in fp32, rounded to bf16 where the kernel rounds."""
+    if kind == "nn_bias":
+        return (matmul_f32(a, b) + bias.float()).to(_BF)
+    if kind == "nt_store":
+        return matmul_f32(a, b.t()).to(_BF)
+    if kind == "nt_f32":
+        return matmul_f32(a, b.t())
+    if kind == "tn_f32":
+        return matmul_f32(a.t(), b)
+    if kind == "gelu_pair":
+        pre = matmul_f32(a, b) + bias.float()
+        return (gelu_exact(pre).to(_BF),
+                (matmul_f32(a2, b2.t()) * gelu_exact_grad(pre)).to(_BF))
+    raise ValueError(f"gemm_sm90: unknown kind {kind!r}")
+
+
+def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None):
+    """One product of gemm_sm90.cuh, the wgmma GEMM inside K1's and K2's
+    backwards, launched alone (csrc/gemm_sm90.cu) so that the card tests
+    hold each layout and epilogue against fp32 products; no path of the
+    port calls it. kind: "nn_bias" bf16(a[m,k]·b[k,n] + bias), "nt_store"
+    bf16(a·b[n,k]ᵀ), "nt_f32" a·b[n,k]ᵀ in fp32, "tn_f32" a[k,m]ᵀ·b[k,n] in
+    fp32 (split over k), "gelu_pair" (bf16(gelu(pre)), bf16((a2·b2ᵀ)·
+    gelu'(pre))) with pre = a·b + bias (K2's dual product)."""
+    if not a.is_cuda:
+        return gemm_sm90_ref(kind, a, b, bias, a2, b2)
+    name = "gemm_sm90"
+    if kind not in GEMM_SM90_KINDS:
+        raise ValueError(f"{name}: unknown kind {kind!r}")
+    mats = {"a": a, "b": b, **({"a2": a2, "b2": b2} if kind == "gelu_pair"
+                               else {})}
+    vecs = {"bias": bias} if kind in ("nn_bias", "gelu_pair") else {}
+    dev = _check_cuda(name, {**mats, **vecs},
+                      {**dict.fromkeys(mats, _BF), **dict.fromkeys(vecs, _F32)})
+    if kind == "tn_f32":
+        k, m = a.shape
+        n = b.shape[1]
+        _check_shape(name, "b", b, (k, n))
+    else:
+        m, k = a.shape
+        n = b.shape[0] if kind.startswith("nt") else b.shape[1]
+        _check_shape(name, "b", b, (n, k) if kind.startswith("nt") else (k, n))
+    if kind == "gelu_pair":
+        _check_shape(name, "a2", a2, (m, k))
+        _check_shape(name, "b2", b2, (n, k))
+    if vecs:
+        _check_shape(name, "bias", bias, (n,))
+    lib = build.load()
+    c, c2 = _bf(dev, m, n), _bf(dev, m, n)
+    f = _f32(dev, m, n)
+    ws = _workspace(lib.vitax_gemm_sm90_ws(m, n, k), dev)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    rc = lib.vitax_gemm_sm90(ptr(a), ptr(b), ptr(bias), ptr(a2), ptr(b2),
+                             c.data_ptr(), c2.data_ptr(), f.data_ptr(),
+                             ws.data_ptr(), m, n, k,
+                             GEMM_SM90_KINDS.index(kind), _stream(dev))
+    build.check(rc, name)
+    if kind == "gelu_pair":
+        return c, c2
+    return f if kind.endswith("f32") else c
 
 
 class FusedLnMlpFn(torch.autograd.Function):
@@ -1029,7 +1099,9 @@ fused_ln_qkvo_attention_gqa_bwd.launches = 0
 
 def _ln_qkvo_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
                       heads, head_dim, kv_heads):
-    """K1's backward launch (K7's with kv_heads < heads)."""
+    """K1's backward launch: K13's core and gemm_sm90.cuh's products, with
+    the core's row statistics as its only attention scratch; K7's with
+    kv_heads < heads (the whole-row core, bf16 P and ds in scratch)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
@@ -1050,13 +1122,21 @@ def _ln_qkvo_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
     dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
     xn, qkv, attn, dattn = (_bf(dev, n, d), _bf(dev, n, width),
                             _bf(dev, n, hhd), _bf(dev, n, hhd))
-    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
     dqkv, dxn = _bf(dev, n, width), _f32(dev, n, d)
     ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, width), dev)
-    rc = lib.vitax_ln_qkvo_attention_bwd(*(t.data_ptr() for t in (
-        x, gamma, beta, wqkv, bqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, xn,
-        qkv, attn, dattn, p, ds, dqkv, dxn, ws)), b, spq, d, seq_len, heads,
-        kv_heads, head_dim, eps, 1.0 / math.sqrt(head_dim), _stream(dev))
+    head = (x, gamma, beta, wqkv, bqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo,
+            xn, qkv, attn, dattn)
+    scale = 1.0 / math.sqrt(head_dim)
+    if kv_heads == heads:
+        stats = _workspace(lib.vitax_attention_core_bwd_ws(b, spq, heads), dev)
+        rc = lib.vitax_ln_qkvo_attention_bwd(*(t.data_ptr() for t in (
+            *head, stats, dqkv, dxn, ws)), b, spq, d, seq_len, heads,
+            head_dim, eps, scale, _stream(dev))
+    else:
+        p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+        rc = lib.vitax_ln_qkvo_attention_gqa_bwd(*(t.data_ptr() for t in (
+            *head, p, ds, dqkv, dxn, ws)), b, spq, d, seq_len, heads,
+            kv_heads, head_dim, eps, scale, _stream(dev))
     build.check(rc, name)
     return dx, dg, dbe, dw, db, dwo, dbo
 

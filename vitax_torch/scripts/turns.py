@@ -1,0 +1,267 @@
+"""Two checkouts of the port in turns on one CUDA card: the main paths end
+to end, and the bits of kernels that a change must not move.
+
+    PYTHONPATH=<checkout> python vitax_torch/scripts/turns.py <tag>
+
+With the `vitax_torch` found first on the path (that checkout's, which this
+file need not belong to), it prints under `tag`:
+
+- checksums (`checksums`): sha256 prefixes of the outputs of K6's forward
+  and backward at ViT-H/14's widths, and of K1's forward, K2's forward,
+  K7's backward (4 kv heads) and K3's backward (`--int8-grad`) at
+  ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
+  give the same line where those kernels kept their bits;
+- `backward_checksum`: the same of K1's and K2's backwards, twice, to show
+  that two runs of each give the same bits;
+- CUDA-event medians of 10 on a resident Synthetic batch, random weights
+  from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
+  momentum) at b32 in bf16, `--int8` and `--int8-grad`, with the bf16
+  step's peak device memory; the bf16 serving forward at b64 @224;
+  `--no-fused-qkv` (K13) forward b64 @384 and step b32; Res-ViT's
+  `scripts/ft_resvit.sh` (a) step at b32 (teacher and student forward,
+  backward, AdamW); ViT-H/14 @224 step at b32.
+
+Run it for two checkouts in the order A, B, B, A in one call on the card
+(each run builds its checkout's kernels into that checkout's `build/`).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import statistics
+import subprocess
+import sys
+
+import torch
+
+H14_WIDTHS = (1280, 16, 80)  # D, heads, head_dim
+B16_WIDTHS = (768, 12, 64, 3072)  # D, heads, head_dim, M
+RESVIT_FLAGS = ["--model-arch", "b16", "--image-size", "224", "--use_lora",
+                "True", "--lora_rank", "48", "--use_reslr", "True",
+                "--block_size", "4", "--dynamic_start_layer", "1",
+                "--dynamic_reserve_initials", "2", "--dynamic_active_target",
+                "0.4", "--dataset", "Synthetic"]  # scripts/ft_resvit.sh's
+
+
+def _digest(outs) -> str:
+    torch.cuda.synchronize()
+    return " ".join(hashlib.sha256(o.float().cpu().numpy().tobytes())
+                    .hexdigest()[:12] for o in outs)
+
+
+def _rnd(g):
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+    return rnd
+
+
+def _half_inputs(seed, b, spq, d, width, hhd, m):
+    """Seeded inputs of an attention half (x, γ, β, Wqkv, bqkv, Wo), its bo
+    and do, and an MLP half's W1, b1, W2, b2."""
+    rnd = _rnd(torch.Generator(device="cuda").manual_seed(seed))
+    f32 = torch.float32
+    head = (rnd(b, spq, d), 1 + rnd(d, scale=0.1, dtype=f32),
+            rnd(d, scale=0.1, dtype=f32), rnd(d, width, scale=d ** -0.5),
+            rnd(width, scale=0.02, dtype=f32), rnd(hhd, d, scale=hhd ** -0.5))
+    mlp = (rnd(d, m, scale=d ** -0.5), rnd(m, scale=0.02, dtype=f32),
+           rnd(m, d, scale=m ** -0.5), rnd(d, scale=0.02, dtype=f32))
+    return head, rnd(d, scale=0.02, dtype=f32), rnd(b, spq, d), mlp
+
+
+def k6_checksum() -> str:
+    """sha256 prefixes of K6's forward output and of its backward's seven
+    grads (dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo) at b2 spq 264, seq 257, on
+    inputs made from a fixed seed on the card."""
+    from vitax_torch.ops import cuda_kernels as ck
+    d, heads, hd = H14_WIDTHS
+    head, bo, do, _ = _half_inputs(190, 2, 264, d, 3 * heads * hd,
+                                   heads * hd, 4 * d)
+    tail = (1e-5, 257, heads, hd)
+    with torch.no_grad():
+        return _digest((ck.fused_ln_qkvo_attention_flash(*head, bo, *tail),)
+                       + tuple(ck.fused_ln_qkvo_attention_flash_bwd(
+                           *head, do, *tail)))
+
+
+def checksums() -> dict:
+    """{kernel: sha256 prefixes of its outputs} of the kernels that keep
+    their bits: K6 forward and backward, K1 forward, K2 forward, K7 backward
+    and K3 backward."""
+    from vitax_torch.ops import cuda_kernels as ck
+    d, heads, hd, m = B16_WIDTHS
+    hhd = heads * hd
+    out = {"K6 fwd+bwd": k6_checksum()}
+    head, bo, do, mlp = _half_inputs(191, 2, 200, d, 3 * hhd, hhd, m)
+    tail = (1e-5, 197, heads, hd)
+    with torch.no_grad():
+        out["K1 fwd"] = _digest((ck.fused_ln_qkvo_attention(*head, bo,
+                                                            *tail),))
+        out["K2 fwd"] = _digest((ck.fused_ln_mlp(*head[:3], *mlp, 1e-5),))
+        out["K3 bwd"] = _digest(ck.fused_ln_qkvo_attention_int8_bwd(
+            *head, do, *tail))
+        kv = 4
+        gqa, _, do_g, _ = _half_inputs(192, 2, 200, d, (heads + 2 * kv) * hd,
+                                       hhd, m)
+        out["K7 bwd"] = _digest(ck.fused_ln_qkvo_attention_gqa_bwd(
+            *gqa, do_g, *tail, kv))
+    return out
+
+
+def backward_checksum() -> str:
+    """K1's and K2's backwards at ViT-B/16 b8 spq 200, each run twice: the
+    two digests of each agree where the kernel is deterministic."""
+    from vitax_torch.ops import cuda_kernels as ck
+    d, heads, hd, m = B16_WIDTHS
+    hhd = heads * hd
+    head, _, do, mlp = _half_inputs(193, 8, 200, d, 3 * hhd, hhd, m)
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            runs.append("K1 " + _digest(ck.fused_ln_qkvo_attention_bwd(
+                *head, do, 1e-5, 197, heads, hd)))
+        for _ in range(2):
+            runs.append("K2 " + _digest(ck.fused_ln_mlp_bwd(
+                *head[:3], *mlp[:3], do, 1e-5)))
+    return " | ".join(runs)
+
+
+def _median_ms(fn, warmup=2, iters=10) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _images(image, batch, split="train"):
+    from vitax_torch.data import get_dataloader
+    data = next(iter(get_dataloader(
+        "Synthetic", split=split, image_size=image, batch_size=batch,
+        num_samples=2 * batch, seed=0)))
+    return (torch.from_numpy(data.images).cuda().bfloat16(),
+            torch.from_numpy(data.labels).cuda())
+
+
+def _vit_step_ms(arch, image, batch, **flags) -> tuple:
+    """(median ms, peak device memory in MB) of a ViT train step."""
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.models import vit
+    from vitax_torch.train import (create_train_state, make_train_step,
+                                   param_leaves, sgd_momentum)
+    cfg = arch_config(arch, image_size=image, num_classes=10,
+                      dtype=torch.bfloat16, **flags)
+    params = vit.init_params(set_seed(0), cfg, "cuda")
+    images, labels = _images(image, batch)
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    opt, sched = sgd_momentum(params, 0.03, 1000, 0.1)
+    state = create_train_state(params, opt, sched, torch.Generator())
+    step = make_train_step(cfg, opt, sched)
+    step(state, images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _median_ms(lambda: step(state, images, labels))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del state, params, opt
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def _vit_forward_ms(image, batch, **flags) -> float:
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.models import vit
+    cfg = arch_config("b16", image_size=image, num_classes=10,
+                      dtype=torch.bfloat16, **flags)
+    params = vit.init_params(set_seed(0), cfg, "cuda")
+    images, _ = _images(image, batch, "val")
+    with torch.inference_mode():
+        return _median_ms(lambda: vit.apply(params, images, cfg))
+
+
+def _resvit_step_ms(batch=32) -> float:
+    """ft_resvit.sh's (a) step: teacher and student forward, backward,
+    AdamW (λc, λa, λd 1, 10, 1)."""
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.models import resvit
+    from vitax_torch.resvit_train_cli import (config_to_model_args,
+                                              get_train_config)
+    from vitax_torch.train.optim import param_leaves, tree_leaves
+    from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                                make_adamw_for,
+                                                make_train_step)
+    cfg = config_to_model_args(get_train_config(
+        RESVIT_FLAGS + ["--exp-root", "build/turns"]), "cuda")
+    params = resvit.init_params(set_seed(0), cfg, "cuda")
+    for t, m in zip(param_leaves(params), tree_leaves(
+            resvit.trainable_mask(params, cfg))):
+        t.requires_grad_(m)
+    images, labels = _images(224, batch)
+    tx = make_adamw_for(cfg, params, lambda s: 1e-4)
+    state = create_state(params, tx,
+                         torch.Generator(device="cuda").manual_seed(3))
+    step = make_train_step(cfg, tx, Lambdas(1.0, 10.0, 1.0))
+    ms = _median_ms(lambda: step(state, images, labels))
+    del state, params, tx
+    torch.cuda.empty_cache()
+    return ms
+
+
+def timings() -> dict:
+    fused = dict(fused_qkv=True, fused_mlp=True)
+    int8 = dict(int8_mlp=True, int8_attn=True)
+    out = {}
+    ms, peak = _vit_step_ms("b16", 224, 32, **fused)
+    out["B/16 step b32 bf16"] = ms
+    out["B/16 step b32 bf16 peak MB"] = peak
+    out["B/16 step b32 --int8"] = _vit_step_ms("b16", 224, 32, **fused,
+                                               **int8)[0]
+    out["B/16 step b32 --int8-grad"] = _vit_step_ms(
+        "b16", 224, 32, **fused, **int8, int8_mlp_grad=True,
+        int8_attn_grad=True)[0]
+    out["B/16 forward b64 bf16"] = _vit_forward_ms(224, 64, **fused)
+    out["B/16 --no-fused-qkv forward b64 @384"] = _vit_forward_ms(
+        384, 64, fused_qkv=False, fused_mlp=True)
+    out["B/16 --no-fused-qkv step b32"] = _vit_step_ms(
+        "b16", 224, 32, fused_qkv=False, fused_mlp=True)[0]
+    out["Res-ViT (a) step b32"] = _resvit_step_ms()
+    out["H/14 step b32 @224"] = _vit_step_ms("h14", 224, 32, **fused)[0]
+    return out
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("turns: needs a CUDA card")
+    tag = argv[0] if argv else "run"
+    import vitax_torch
+    from vitax_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    build.load()
+    print(f"{tag}: {vitax_torch.__file__} on "
+          f"{smi.stdout.strip().splitlines()[0]}", flush=True)
+    for name, digest in checksums().items():
+        print(f"{tag}: checksum {name}: {digest}", flush=True)
+    print(f"{tag}: two runs of each backward: {backward_checksum()}",
+          flush=True)
+    for name, value in timings().items():
+        print(f"{tag}: {name} {value:.3f}" + ("" if "MB" in name else " ms"),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))
