@@ -12,7 +12,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 3. kernels — each hand-written kernel against its plain PyTorch version on the
              card, in bf16: the forward kernels at the ViT-B/16 shapes of the
              serving path (batch 64 at spq 200, as eval_cli gives them), batch
-             8 at spq 200 and 584, and a ragged row count; the backward kernels
+             8 at spq 200 and 584, a ragged row count and train_cli's b32
+             spq 200 (K1's and K2's forwards timed there too, a step's
+             shape); the backward kernels
              on every output at train_cli's b32 spq 200, b8 spq 200, the
              token-drop geometry (spq 104) and a ragged row count; max error
              against the stated tolerance, then median CUDA-event times of
@@ -277,13 +279,15 @@ Phase 3 also holds the Res-ViT kernels against their twins: K7 (GQA in
 K1, 4 and 6 kv heads) at b64 spq 200; K8 (the rect attention half, bf16
 and int8) at b64 spq 200 with cpq 128 and 104 and on a ragged case, and
 against the square kernel (K1, K3) followed by the row gather, whose largest
-difference it prints (the same bits are expected); and their backwards on
-every output: K8's three (bf16, int8_grad, int8_dw; the int8 ones by codes,
-INT8_REL and the bf16 stand-in too) at b32 spq 200 cpq 128 and on a ragged
-case, K8's bf16 one also against K1's backward on all rows with do scattered
-to the kept rows plus the gather transpose (the bf16 tolerance: K1 sums a
-kept row's two dxn paths in fp32 before one LN backward); K7's at b32 spq
-200 with 4 kv heads, two launches the same bits.
+difference it prints and holds to TOL (the same bits for int8; K1's bf16
+forward runs gemm_sm90.cuh's products and K13's core, K8 gemm.cuh's and the
+whole-row core, so bf16 differs by sums in another order); and their
+backwards on every output: K8's three (bf16, int8_grad, int8_dw; the int8
+ones by codes, INT8_REL and the bf16 stand-in too) at b32 spq 200 cpq 128
+and on a ragged case, K8's bf16 one also against K1's backward on all rows
+with do scattered to the kept rows plus the gather transpose (the bf16
+tolerance: K1 sums a kept row's two dxn paths in fp32 before one LN
+backward); K7's at b32 spq 200 with 4 kv heads, two launches the same bits.
 
 Phase 3 also holds the int8 kernels (K3, K4, forward and backward, their
 int8_dw backwards and K5's two halves) against their twins: forward at b64
@@ -551,8 +555,12 @@ CASES = [("b64 spq200 (eval_cli)", 64, 200, 197),
          ("b8 spq200", 8, 200, 197),
          ("b8 spq584", 8, 584, 577),
          ("ragged", 3, 200, 197),
-         ("b32 spq104 (keep 0.5)", 32, 104, 99)]
+         ("b32 spq104 (keep 0.5)", 32, 104, 99),
+         ("b32 spq200 (train_cli)", 32, 200, 197)]
 DROP_CASE = "b32 spq104 (keep 0.5)"  # the fast recipe's drop phase at b32
+# K1's and K2's forwards are also timed at train_cli's b32, a step's shape
+STEP_CASE, STEP_TIMED = ("b32 spq200 (train_cli)",
+                         ("fused_ln_qkvo_attention", "fused_ln_mlp"))
 # backward: the first is train_cli's (timed); keep 0.5 drops 196 patch tokens
 # to 98 (+ cls = 99, spq 104); "ragged" cuts LN's and K2's rows to 3 x 197
 BWD_CASES = [("b32 spq200 (train_cli)", 32, 200, 197),
@@ -733,7 +741,8 @@ def check_kernels():
                 raise AssertionError(f"{name} {label}: max error {err} "
                                      f"exceeds {bound} (finite={finite})")
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            if i <= 2 or label == DROP_CASE and name in INT8_KERNELS:
+            if (i <= 2 or label == DROP_CASE and name in INT8_KERNELS
+                    or label == STEP_CASE and name in STEP_TIMED):
                 with torch.inference_mode():
                     k_ms, p_ms = _median_ms(kern), _median_ms(plain)
                 print(f"  {name:28s} {label:22s} kernel {k_ms:.4f} ms  "
@@ -743,10 +752,15 @@ def check_kernels():
                                        shape=(batch, rows))
                 if label == DROP_CASE:  # K3 + K4 against K5 at b32 spq 104
                     stats[name]["drop_ms"] = k_ms
+                if label == STEP_CASE:
+                    stats[name]["step_ms"] = k_ms
             if i == 0 and name == "layer_norm":
                 stats[name]["library_ms"] = _layer_norm_library_ms(*args)
         del t
         torch.cuda.empty_cache()
+    for name in STEP_TIMED:
+        print(f"  {name:28s} kernel {stats[name]['ms']:.4f} ms at b64 spq200, "
+              f"{stats[name]['step_ms']:.4f} ms at b32 spq200", flush=True)
     return stats
 
 

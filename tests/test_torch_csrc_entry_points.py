@@ -46,3 +46,12 @@ def test_gemm_sm90_ablation_anchors_are_in_the_kernel_source(ablation):
     header = (build.CSRC / "gemm_sm90.cuh").read_text()
     for anchor, _ in gemm_sm90_ablations.ABLATIONS[ablation]:
         assert header.count(anchor) == 1, anchor
+
+
+def test_gemm_sm90_kinds_match_the_c_switch():
+    """`ck.gemm_sm90` passes a kind as its index in GEMM_SM90_KINDS: the C
+    switch of csrc/gemm_sm90.cu must have one case for each, in order."""
+    from vitax_torch.ops import cuda_kernels as ck
+    src = (build.CSRC / "gemm_sm90.cu").read_text()
+    cases = [int(c) for c in re.findall(r"^\s*case (\d+):", src, re.M)]
+    assert cases == list(range(len(ck.GEMM_SM90_KINDS)))

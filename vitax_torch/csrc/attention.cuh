@@ -1,13 +1,16 @@
-// The attention core of K1's forward (per image and head: scores, exact fp32
-// softmax over the whole row, P·V), shared by the forward kernel and by the
-// recompute in the backward, and by K3 (the int8 tier), whose forward takes
+// The whole-row attention core of K1's first design (per image and head:
+// scores, exact fp32 softmax over the whole row, P·V); K1 now runs K13's
+// core (attention_core.cuh) with kv_heads == heads. Shared by K7's forward
+// (the GQA branch of ln_qkvo_attention.cu) and the recompute in its
+// backward, and by K3 (the int8 tier), whose forward takes
 // the fp32 P·V (OutT = float: vitax never rounds the int8 kernel's attn to
 // bf16 before quantizing it, pallas_kernels.py:2732-2737). Design notes:
 // ln_qkvo_attention.cu.
 //
 // One core serves three geometries (AttnGeom): the square MHA core reading
-// Q, K and V from one packed qkv row (K1, K3, K5); GQA (K7), where the packed
-// row is [q (H·hd) | k (Hkv·hd) | v (Hkv·hd)] and query head h reads kv group
+// Q, K and V from one packed qkv row (K3, K5, K9, K10; K1 in its first
+// design); GQA (K7), where the packed row is [q (H·hd) | k (Hkv·hd) | v
+// (Hkv·hd)] and query head h reads kv group
 // g = h·Hkv/H (vitax's _kv_off, pallas_kernels.py:2803); and the rect core
 // (K8), whose q_rows query rows per image (the compacted cpq) come from their
 // own buffer and attend over kv_rows key rows (spq) of another. Each query

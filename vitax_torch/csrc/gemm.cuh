@@ -1,7 +1,8 @@
 // Tiled bf16 GEMM with fp32 accumulation and a fused epilogue: the products
-// inside the fused attention and MLP halves, forward and backward (the TPU
-// kernels compute them in their own bodies with jnp.dot / dot_general(...,
-// preferred_element_type=f32)).
+// inside the fused attention halves other than K1's (K6, K7, K8, K9, K10,
+// forward and backward) and K12's backward (the TPU kernels compute them in
+// their own bodies with jnp.dot / dot_general(..., preferred_element_type=
+// f32)); K1's and K2's products and K12's forward run on gemm_sm90.cuh.
 //
 // Three operand layouts, all row-major bf16 in memory, none transposed in
 // device memory:
@@ -38,15 +39,10 @@ namespace vitax {
 enum Layout : int { kNN = 0, kNT = 1, kTN = 2 };
 
 enum Epilogue : int {
-  kBias = 0,          // C = bf16(acc + bias)
-  kBiasGelu = 1,      // C = bf16(gelu_erf(acc + bias)), GELU in fp32
-  kBiasResidual = 2,  // C = R + bf16(acc + bias), the add in bf16
-  kBiasGeluAux = 3,   // F = acc + bias (fp32), C = bf16(gelu_erf(F))
-  kStore = 4,         // C = bf16(acc)
-  kStoreF32 = 5,      // F = acc (fp32; with split K, F is the partial of split z)
-  kGeluGrad = 6,      // C = bf16(acc * gelu_erf'(Aux)), Aux fp32 [M,N]
-  kBiasGeluSave = 7,  // a = acc + bias: C = bf16(gelu_erf(a)), G = bf16(gelu_erf'(a))
-  kGradSaved = 8,     // C = bf16(acc * f32(G)), G the saved bf16 g' [M,N]
+  kBias = 0,       // C = bf16(acc + bias)
+  kStore = 4,      // C = bf16(acc)
+  kStoreF32 = 5,   // F = acc (fp32; with split K, F is the partial of split z)
+  kGradSaved = 8,  // C = bf16(acc * f32(G)), G the saved bf16 g' [M,N]
 };
 
 constexpr int kGemmBM = 128;
@@ -150,9 +146,9 @@ __device__ __forceinline__ void gemm_load_tile(bf16* As, bf16* Bs, const bf16* _
 template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
     gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                     const float* __restrict__ bias, const bf16* __restrict__ R,
-                     const float* __restrict__ Aux, bf16* __restrict__ G, bf16* __restrict__ C,
-                     float* __restrict__ F, int M, int N, int K, int k_chunk, int ldb) {
+                     const float* __restrict__ bias, const bf16* __restrict__ G,
+                     bf16* __restrict__ C, float* __restrict__ F, int M, int N, int K,
+                     int k_chunk, int ldb) {
   using namespace nvcuda;
   using ALayout = typename std::conditional<LAYOUT == kTN, wmma::col_major, wmma::row_major>::type;
   using BLayout = typename std::conditional<LAYOUT == kNT, wmma::col_major, wmma::row_major>::type;
@@ -229,57 +225,24 @@ __global__ void __launch_bounds__(kGemmThreads)
       if (gr < M && gc < N) {
         const size_t off = static_cast<size_t>(gr) * N + gc;
         const float* v = cs + r * 16 + c0;
-        if (EPI == kStoreF32 || EPI == kBiasGeluAux) {
-          float4 lo, hi;
-          float* f = reinterpret_cast<float*>(&lo);
-          float* g = reinterpret_cast<float*>(&hi);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            f[t] = v[t] + (EPI == kBiasGeluAux ? bias[gc + t] : 0.f);
-            g[t] = v[t + 4] + (EPI == kBiasGeluAux ? bias[gc + t + 4] : 0.f);
-          }
-          *reinterpret_cast<float4*>(F + off) = lo;
-          *reinterpret_cast<float4*>(F + off + 4) = hi;
-        }
-        if (EPI != kStoreF32) {
+        if (EPI == kStoreF32) {
+          *reinterpret_cast<float4*>(F + off) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(F + off + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
           uint4 out_u;
-          uint4 res_u = make_uint4(0, 0, 0, 0);
-          if (EPI == kBiasResidual) res_u = *reinterpret_cast<const uint4*>(R + off);
           float aux[8];
           if (EPI == kGradSaved) load4(G + off, aux), load4(G + off + 4, aux + 4);
-          if (EPI == kGeluGrad) {
-            const float4 a0 = *reinterpret_cast<const float4*>(Aux + off);
-            const float4 a1 = *reinterpret_cast<const float4*>(Aux + off + 4);
-            aux[0] = a0.x, aux[1] = a0.y, aux[2] = a0.z, aux[3] = a0.w;
-            aux[4] = a1.x, aux[5] = a1.y, aux[6] = a1.z, aux[7] = a1.w;
-          }
           bf16* out = reinterpret_cast<bf16*>(&out_u);
-          const bf16* res = reinterpret_cast<const bf16*>(&res_u);
-          uint4 gp_u;
-          bf16* gp = reinterpret_cast<bf16*>(&gp_u);
 #pragma unroll
           for (int t = 0; t < 8; ++t) {
-            if (EPI == kStore) {
+            if (EPI == kStore)
               out[t] = __float2bfloat16(v[t]);
-            } else if (EPI == kGeluGrad) {
-              out[t] = __float2bfloat16(v[t] * gelu_erf_grad(aux[t]));
-            } else if (EPI == kGradSaved) {
+            else if (EPI == kGradSaved)
               out[t] = __float2bfloat16(v[t] * aux[t]);
-            } else {
-              const float a = v[t] + bias[gc + t];
-              if (EPI == kBias) {
-                out[t] = __float2bfloat16(a);
-              } else if (EPI == kBiasGelu || EPI == kBiasGeluAux || EPI == kBiasGeluSave) {
-                out[t] = __float2bfloat16(gelu_erf(a));
-                if (EPI == kBiasGeluSave) gp[t] = __float2bfloat16(gelu_erf_grad(a));
-              } else {  // kBiasResidual
-                const float yb = __bfloat162float(__float2bfloat16(a));
-                out[t] = __float2bfloat16(__bfloat162float(res[t]) + yb);
-              }
-            }
+            else  // kBias
+              out[t] = __float2bfloat16(v[t] + bias[gc + t]);
           }
           *reinterpret_cast<uint4*>(C + off) = out_u;
-          if (EPI == kBiasGeluSave) *reinterpret_cast<uint4*>(G + off) = gp_u;
         }
       }
       __syncwarp();
@@ -315,9 +278,9 @@ inline size_t gemm_tn_workspace(int M, int N, int K) {
 }
 
 template <int LAYOUT, int EPI>
-cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, const bf16* R,
-                             const float* Aux, bf16* G, bf16* C, float* F, int M, int N, int K,
-                             int splits, cudaStream_t stream, int ldb = 0) {
+cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, const bf16* G,
+                             bf16* C, float* F, int M, int N, int K, int splits,
+                             cudaStream_t stream, int ldb = 0) {
   if (M == 0 || N == 0) return cudaSuccess;
   const int row = LAYOUT == kNT ? K : N;  // the elements of a row of B
   if (ldb == 0)
@@ -327,38 +290,34 @@ cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, co
   const int k_chunk = (K + splits * kGemmBK - 1) / (splits * kGemmBK) * kGemmBK;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
   gemm_bf16_kernel<LAYOUT, EPI>
-      <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, R, Aux, G, C, F, M, N, K, k_chunk, ldb);
+      <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, G, C, F, M, N, K, k_chunk, ldb);
   return cudaGetLastError();
 }
 
-// Forward products: C[M,N] = epilogue(A[M,K] @ B[K,N]); F is the fp32
-// pre-activation output of kBiasGeluAux, G the bf16 g' output of
-// kBiasGeluSave; ldb is B's row stride (0: N), so B may be a column slice of
-// a wider weight (K8's Q and KV slices of Wqkv).
+// Forward products: C[M,N] = bf16(A[M,K] @ B[K,N] + bias) (kBias); ldb is
+// B's row stride (0: N), so B may be a column slice of a wider weight (K8's
+// Q and KV slices of Wqkv).
 template <int EPI>
-cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, const bf16* R, bf16* C,
-                        int M, int N, int K, cudaStream_t stream, float* F = nullptr,
-                        int ldb = 0, bf16* G = nullptr) {
-  return launch_gemm_impl<kNN, EPI>(A, B, bias, R, nullptr, G, C, F, M, N, K, 1, stream, ldb);
+cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, bf16* C, int M, int N,
+                        int K, cudaStream_t stream, int ldb = 0) {
+  return launch_gemm_impl<kNN, EPI>(A, B, bias, nullptr, C, nullptr, M, N, K, 1, stream, ldb);
 }
 
 // dx-path products: C[M,N] = epilogue(A[M,K] @ B[N,K]^T), epilogue kStore
-// (bf16 C), kStoreF32 (fp32 F) or kGeluGrad (bf16 C, fp32 Aux [M,N]); ldb is
-// B's row stride (0: K), so B may be a column slice of a wider weight (K8's
-// backward contracts over the Q and KV slices of Wqkv).
+// (bf16 C) or kStoreF32 (fp32 F); ldb is B's row stride (0: K), so B may be a
+// column slice of a wider weight (K8's backward contracts over the Q and KV
+// slices of Wqkv).
 template <int EPI>
-cudaError_t launch_gemm_nt(const bf16* A, const bf16* B, const float* Aux, bf16* C, float* F,
-                           int M, int N, int K, cudaStream_t stream, int ldb = 0) {
-  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, Aux, nullptr, C, F, M, N, K, 1, stream,
-                                    ldb);
+cudaError_t launch_gemm_nt(const bf16* A, const bf16* B, bf16* C, float* F, int M, int N, int K,
+                           cudaStream_t stream, int ldb = 0) {
+  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, C, F, M, N, K, 1, stream, ldb);
 }
 
 // The save-acts dh1 product: C[M,N] = bf16(f32(A[M,K] @ B[N,K]^T) * f32(G)),
 // G the forward's saved bf16 g' [M,N] (kGradSaved).
 inline cudaError_t launch_gemm_nt_saved(const bf16* A, const bf16* B, const bf16* G, bf16* C,
                                         int M, int N, int K, cudaStream_t stream) {
-  return launch_gemm_impl<kNT, kGradSaved>(A, B, nullptr, nullptr, nullptr, const_cast<bf16*>(G),
-                                           C, nullptr, M, N, K, 1, stream);
+  return launch_gemm_impl<kNT, kGradSaved>(A, B, nullptr, G, C, nullptr, M, N, K, 1, stream);
 }
 
 // Weight grads: F[M,N] = A[K,M]^T @ B[K,N] in fp32, over K = all rows
@@ -367,10 +326,9 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
                                   int K, cudaStream_t stream) {
   const int splits = gemm_tn_splits(M, N, K);
   if (splits == 1)
-    return launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, nullptr, nullptr, F,
-                                            M, N, K, 1, stream);
-  cudaError_t e = launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, nullptr,
-                                                   nullptr, ws, M, N, K, splits, stream);
+    return launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, F, M, N, K, 1, stream);
+  cudaError_t e =
+      launch_gemm_impl<kTN, kStoreF32>(A, B, nullptr, nullptr, nullptr, ws, M, N, K, splits, stream);
   if (e != cudaSuccess) return e;
   const size_t count = static_cast<size_t>(M) * N;
   const int blocks = static_cast<int>((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);

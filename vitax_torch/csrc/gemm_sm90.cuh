@@ -1,8 +1,10 @@
-// A Hopper bf16 GEMM on warpgroup MMAs, for the products of K1's and K2's
-// backwards (ln_qkvo_attention_bwd.cu, ln_mlp_bwd.cu); every other kernel
-// keeps gemm.cuh's WMMA products. The TPU kernels compute these products in
-// their own bodies with jnp.dot / dot_general(..., preferred_element_type=
-// f32); here each is one launch over the whole [M, N] output.
+// A Hopper bf16 GEMM on warpgroup MMAs: the products of K1's and K2's
+// backwards (ln_qkvo_attention_bwd.cu, ln_mlp_bwd.cu) and, since their
+// redesign, of K1's and K2's forwards and K12's (ln_qkvo_attention.cu with
+// kv_heads == heads, ln_mlp.cu, ln_mlp_save.cu); every other kernel keeps
+// gemm.cuh's WMMA products. The TPU kernels compute these products in their
+// own bodies with jnp.dot / dot_general(..., preferred_element_type=f32);
+// here each is one launch over the whole [M, N] output.
 //
 // Layouts, all row-major bf16 in memory, none transposed in device memory:
 //   kNN  C[M,N] = A[M,K]   · B[K,N]    xn·Wqkv
@@ -30,6 +32,12 @@
 // (rows, N, kTN's K) on the way in; the epilogue stages each warpgroup's
 // tile through shared memory (the ring, free by then), applies the
 // epilogue in fp32 and writes 16-byte rows, the edges masked.
+// The forwards' epilogues: bias (qkv, the out-projection, fc2 without the
+// residual), bias + exact-erf GELU (fc1: h1 = bf16(gelu(acc + b1))), the
+// same with g' = bf16(gelu'(acc + b1)) beside h1 (K12's fc1), and bias +
+// residual (fc2: out = bf16(x + bf16(acc + b2)), the add of two bf16 values
+// in fp32, then one rounding); the math in fp32 at the TPU kernels' rounding
+// points (pallas_kernels.py:608-615, :649).
 // ptxas: 90 registers a thread (111 for kNT into bf16), 159 with the dual
 // product, no spills. Its rate at ViT-B/16's b32 shapes, and with its
 // copies or its products cut: `python -m
@@ -65,6 +73,9 @@ enum Epi : int {
   kEpiStore = 1,     // C = bf16(acc)
   kEpiF32 = 2,       // F = acc (with split K, F is split z's partial)
   kEpiGeluPair = 3,  // the dual product: a = acc + bias, C = bf16(gelu(a)), C2 = bf16(acc2·gelu'(a))
+  kEpiBiasGelu = 4,      // a = acc + bias, C = bf16(gelu(a))
+  kEpiBiasGeluSave = 5,  // a = acc + bias, C = bf16(gelu(a)), C2 = bf16(gelu'(a))
+  kEpiBiasResidual = 6,  // C = bf16(R + bf16(acc + bias)), R bf16 [M, N], the add in fp32 of bf16 values
 };
 
 // Ring stages: a K tile is 64 deep (one 128-byte swizzle row of bf16); a
@@ -82,6 +93,7 @@ constexpr size_t kSmemBytes = 1024 + kStages<kDual> * kStageBytes<kDual> + 2 * k
 
 struct GemmArgs {
   const float* bias;
+  const bf16* R;  // kEpiBiasResidual's residual [M, N]
   bf16* C;
   bf16* C2;
   float* F;
@@ -295,14 +307,15 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
     }
   } else {
     constexpr int kLd = kBN + 8;
+    constexpr bool kTwo = EPI == kEpiGeluPair || EPI == kEpiBiasGeluSave;  // writes C2
     bf16* buf = reinterpret_cast<bf16*>(ring) + wg * 64 * kLd;
-    bf16* buf2 = buf + 2 * 64 * kLd;  // the dual product's second output
+    bf16* buf2 = buf + 2 * 64 * kLd;  // the second output (C2)
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
       const int col = k13::acc_col(i);
       const int off = k13::acc_row(i) * kLd + col;
       float v0 = acc[i], v1 = acc[i + 1];
-      if (EPI == kEpiBias || EPI == kEpiGeluPair) {
+      if (EPI != kEpiStore) {
         const bool ok = bn + col < g.N;
         v0 += ok ? g.bias[bn + col] : 0.f;
         v1 += ok ? g.bias[bn + col + 1] : 0.f;
@@ -312,7 +325,13 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
             __floats2bfloat162_rn(gelu_erf(v0), gelu_erf(v1));
         *reinterpret_cast<__nv_bfloat162*>(buf2 + off) = __floats2bfloat162_rn(
             acc2[i] * gelu_erf_grad(v0), acc2[i + 1] * gelu_erf_grad(v1));
-      } else {
+      } else if constexpr (EPI == kEpiBiasGelu || EPI == kEpiBiasGeluSave) {
+        *reinterpret_cast<__nv_bfloat162*>(buf + off) =
+            __floats2bfloat162_rn(gelu_erf(v0), gelu_erf(v1));
+        if (EPI == kEpiBiasGeluSave)
+          *reinterpret_cast<__nv_bfloat162*>(buf2 + off) =
+              __floats2bfloat162_rn(gelu_erf_grad(v0), gelu_erf_grad(v1));
+      } else {  // kEpiBiasResidual adds R to this bf16 value on the way out
         *reinterpret_cast<__nv_bfloat162*>(buf + off) = __floats2bfloat162_rn(v0, v1);
       }
     }
@@ -322,8 +341,22 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       const int col = (c % (kBN / 8)) * 8;
       if (row0 + r < g.M && bn + col < g.N) {
         const size_t o = static_cast<size_t>(row0 + r) * g.N + bn + col;
-        *reinterpret_cast<uint4*>(g.C + o) = *reinterpret_cast<const uint4*>(buf + r * kLd + col);
-        if (EPI == kEpiGeluPair)
+        uint4 v = *reinterpret_cast<const uint4*>(buf + r * kLd + col);
+        if constexpr (EPI == kEpiBiasResidual) {
+          const uint4 res = *reinterpret_cast<const uint4*>(g.R + o);
+          const auto* y2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+          const auto* r2 = reinterpret_cast<const __nv_bfloat162*>(&res);
+          uint4 sum;
+          auto* s2 = reinterpret_cast<__nv_bfloat162*>(&sum);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 a = __bfloat1622float2(r2[j]), b = __bfloat1622float2(y2[j]);
+            s2[j] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+          }
+          v = sum;
+        }
+        *reinterpret_cast<uint4*>(g.C + o) = v;
+        if (kTwo)
           *reinterpret_cast<uint4*>(g.C2 + o) =
               *reinterpret_cast<const uint4*>(buf2 + r * kLd + col);
       }
@@ -400,13 +433,16 @@ cudaError_t launch(const Operands& op, const GemmArgs& g, int splits, cudaStream
   return cudaGetLastError();
 }
 
-// C = epilogue(A[M,K] · B[K,N]): kEpiBias, kEpiStore (C) or kEpiF32 (F)
+// C = epilogue(A[M,K] · B[K,N]): kEpiBias, kEpiStore, kEpiBiasGelu (C),
+// kEpiBiasGeluSave (C and C2), kEpiBiasResidual (C, residual R [M, N]) or
+// kEpiF32 (F)
 template <int EPI>
 cudaError_t gemm_nn(const bf16* A, const bf16* B, const float* bias, bf16* C, float* F, int M,
-                    int N, int K, cudaStream_t st) {
+                    int N, int K, cudaStream_t st, const bf16* R = nullptr,
+                    bf16* C2 = nullptr) {
   const Operands op{A, B, nullptr, nullptr, K, N, 0, 0};
   GemmArgs g{};
-  g.bias = bias, g.C = C, g.F = F;
+  g.bias = bias, g.R = R, g.C = C, g.C2 = C2, g.F = F;
   g.M = M, g.N = N, g.K = K, g.k_chunk = K;
   return launch<kNN, EPI, false>(op, g, 1, st);
 }

@@ -3,11 +3,12 @@
 // :1687) and _ln_mlp_bwd_fast_kernel (:1245, pallas_call at :1723), reached
 // through fused_ln_mlp(save_acts=True) (:2123) -> _ln_mlp_2d_save (:1985).
 //
-// Forward, K2's three launches (ln_mlp.cu) with one epilogue changed: fc1's
-// (kBiasGeluSave) writes h1 = bf16(gelu(a1)) and also g' = bf16(gelu'(a1)),
-// the exact-erf derivative in fp32 (_gelu_grad :577-584), rounded to bf16 as
-// the TPU kernel stores it (:649). out is K2's, bit for bit: the same
-// launches compute it.
+// Forward, K2's three launches (ln_mlp.cu, on gemm_sm90.cuh's wgmma GEMM)
+// with one epilogue changed: fc1's (kEpiBiasGeluSave) writes h1 =
+// bf16(gelu(a1)) and also g' = bf16(gelu'(a1)), the exact-erf derivative in
+// fp32 (_gelu_grad :577-584), rounded to bf16 as the TPU kernel stores it
+// (:649). out is K2's, bit for bit: the same products, and fc2 the same
+// launch. The backward stays on gemm.cuh's WMMA products.
 //
 // Backward from the saved h1 and g' (:1253-1290): four products, 8·N·D·M
 // flops, no fc1 recompute and no fp32 a1 in device memory (K2's backward,
@@ -29,9 +30,9 @@
 // atomics, the same bits each run.
 //
 // With residual == 0, the kernels' `residual=False` branches (:653, :1281):
-// out = bf16(fc2(...) + b2) without x + (fc2's epilogue kBias in place of
-// kBiasResidual), and dx = bf16(dx_ln) without do +.
-#include "gemm.cuh"
+// out = bf16(fc2(...) + b2) without x + (fc2's epilogue kEpiBias in place of
+// kEpiBiasResidual), and dx = bf16(dx_ln) without do +.
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 // Inputs x bf16 [n, d], gamma, beta fp32 [d], w1 bf16 [d, m], b1 [m], w2
@@ -43,24 +44,23 @@ extern "C" int vitax_ln_mlp_save_fwd(const void* x, const void* gamma, const voi
                                      int n, int d, int m, float eps, int residual,
                                      void* stream) {
   using vitax::bf16;
+  namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const bf16*>(x);
   auto* xnb = static_cast<bf16*>(xn);
   auto* h1b = static_cast<bf16*>(h1);
+  auto* outb = static_cast<bf16*>(out);
   cudaError_t e = vitax::launch_layer_norm(xb, static_cast<const float*>(gamma),
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBiasGeluSave>(xnb, static_cast<const bf16*>(w1),
-                                               static_cast<const float*>(b1), nullptr, h1b, n, m,
-                                               d, st, nullptr, 0, static_cast<bf16*>(gp));
+  e = sm90::gemm_nn<sm90::kEpiBiasGeluSave>(xnb, static_cast<const bf16*>(w1),
+                                            static_cast<const float*>(b1), h1b, nullptr, n, m, d,
+                                            st, nullptr, static_cast<bf16*>(gp));
   if (e != cudaSuccess) return e;
-  if (!residual)
-    return vitax::launch_gemm<vitax::kBias>(h1b, static_cast<const bf16*>(w2),
-                                            static_cast<const float*>(b2), nullptr,
-                                            static_cast<bf16*>(out), n, d, m, st);
-  return vitax::launch_gemm<vitax::kBiasResidual>(h1b, static_cast<const bf16*>(w2),
-                                                  static_cast<const float*>(b2), xb,
-                                                  static_cast<bf16*>(out), n, d, m, st);
+  const auto* w2b = static_cast<const bf16*>(w2);
+  const auto* b2f = static_cast<const float*>(b2);
+  if (!residual) return sm90::gemm_nn<sm90::kEpiBias>(h1b, w2b, b2f, outb, nullptr, n, d, m, st);
+  return sm90::gemm_nn<sm90::kEpiBiasResidual>(h1b, w2b, b2f, outb, nullptr, n, d, m, st, xb);
 }
 
 // Inputs x, dout bf16 [n, d], gamma, beta fp32 [d], w1 bf16 [d, m], w2 bf16
@@ -99,7 +99,7 @@ extern "C" int vitax_ln_mlp_bwd_fast(const void* x, const void* gamma, const voi
   e = vitax::launch_colsum(static_cast<const bf16*>(dh1b), static_cast<float*>(db1), wsf, n, m,
                            st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dh1b, static_cast<const bf16*>(w1), nullptr,
+  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dh1b, static_cast<const bf16*>(w1),
                                               nullptr, dxnf, n, d, m, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(

@@ -12,29 +12,41 @@
 // x is [B, spq, D] with the padded-stream pad rows; the residual is not
 // added (the caller adds it in bf16).
 //
-// Bound on the H100: the two projections are tensor-core bound (gemm.cuh).
-// The attention core is small in flops (4*spq^2*hd per head) but, done
-// naively, bound by re-reading K and V and by the [spq, spq] score matrix.
-// Design of the core: one block per (image, head, group of query tiles); K
-// and V of that head are staged once into shared memory, zero-filled past
-// spq; each warp owns a 16-row query tile and keeps its whole fp32 score rows
-// in shared memory, so the softmax is exact over the full row (no online
-// rescaling) and matches the TPU's rounding points. Scores and P @ V run on
-// the tensor cores (WMMA bf16, fp32 accumulate). At spq 584 a 64-row tile's
-// scores plus K and V exceed the 227 KB a block may use, so the host picks the
-// number of warps (query tiles) a block holds from the shared memory it needs:
-// 4 at spq 200, 1 at spq 584. The scores never reach device memory; xn, qkv
-// and attn do (the multi-launch form of this first version).
+// Bound on the H100: the two projections are tensor-core bound (6·N·D·hhd
+// and 2·N·hhd·D operations, N = B·spq rows); the attention core is small in
+// flops (4·spq²·hd a head) and, at spq 200, bound by its bytes.
 //
-// K7, GQA (kv_heads < heads; the kv_heads branch of the same TPU kernel, its
-// column offsets from _kv_off :2803): the packed row is [q (H·hd) | k (Hkv·hd)
-// | v (Hkv·hd)], so the QKV GEMM writes (H + 2·Hkv)·hd columns and query head
-// h reads K and V of group h·Hkv/H. Nothing is repeated in device memory: a
-// block stages its group's K and V as the MHA core stages its head's, so the
-// core's work and shared memory do not change; the QKV GEMM shrinks with the
-// K and V columns (by a third at Hkv = H/4). kv_heads == heads is K1.
+// kv_heads == heads (K1), the Hopper design, four launches:
+//   1. LN1 (layernorm.cuh), bf16 xn;
+//   2. qkv = bf16(xn·Wqkv + bqkv) on gemm_sm90.cuh (wgmma m64n128k16 fed by
+//      a producer warp's TMA loads, kEpiBias): the very call K1's backward
+//      makes for its recompute (ln_qkvo_attention_bwd.cu), so the two give
+//      the same qkv bits;
+//   3. the core on K13's (attention_core.cuh, launch_core_fwd) with strided
+//      operands: q, k, v the column blocks 0, hhd, 2·hhd of the packed rows
+//      (row stride 3·hhd), the head outputs into attn (row stride hhd),
+//      query rows to spq (the pad rows computed as vitax computes them,
+//      :2670-2671) and keys masked at seq_len; p normalised in fp32 and
+//      rounded to bf16 once before p·v, as _softmax_rows (:75-80);
+//   4. out = bf16(attn·Wo + bo) on gemm_sm90.cuh (kEpiBias).
+// The scores never reach device memory; xn, qkv and attn do (scratch). The
+// TMA's zero fill masks the ragged edges on the way in and the epilogues
+// mask their stores.
+//
+// kv_heads < heads (K7, GQA; the kv_heads branch of the same TPU kernel, its
+// column offsets from _kv_off :2803) keeps the first design in a branch of
+// its own, since K13's core has no walk over a kv group: gemm.cuh's WMMA
+// products and attention.cuh's whole-row core. The packed row is [q (H·hd)
+// | k (Hkv·hd) | v (Hkv·hd)], so the QKV GEMM writes (H + 2·Hkv)·hd columns
+// and query head h reads K and V of group h·Hkv/H. Nothing is repeated in
+// device memory: a block of the core (one per image, head and group of
+// 16-row query tiles, each warp a tile) stages its group's K and V once
+// into shared memory, zero-filled past spq, and keeps its tiles' whole fp32
+// score rows there, so the softmax is exact over the full row (no online
+// rescaling); scores and P·V on WMMA bf16 tiles; the host picks the warps a
+// block holds from the shared memory it needs (4 at spq 200, 1 at spq 584).
 #include "attention.cuh"
-#include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 extern "C" int vitax_ln_qkvo_attention_fwd(const void* x, const void* gamma, const void* beta,
@@ -44,27 +56,44 @@ extern "C" int vitax_ln_qkvo_attention_fwd(const void* x, const void* gamma, con
                                            int heads, int kv_heads, int head_dim, float eps,
                                            float scale, void* stream) {
   using vitax::bf16;
+  namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
   const int width = (heads + 2 * kv_heads) * head_dim;  // the packed qkv row
+  const auto* wqkvb = static_cast<const bf16*>(wqkv);
+  const auto* wob = static_cast<const bf16*>(wo);
+  const auto* bqkvf = static_cast<const float*>(bqkv);
+  const auto* bof = static_cast<const float*>(bo);
   auto* xnb = static_cast<bf16*>(xn);
   auto* qkvb = static_cast<bf16*>(qkv);
   auto* attnb = static_cast<bf16*>(attn);
+  auto* outb = static_cast<bf16*>(out);
+  const bool mha = kv_heads == heads;
+  if (mha && (b > 65535 || seq_len <= 0 || seq_len > spq)) return cudaErrorInvalidValue;
   cudaError_t e = vitax::launch_layer_norm(static_cast<const bf16*>(x),
                                            static_cast<const float*>(gamma),
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xnb, static_cast<const bf16*>(wqkv),
-                                       static_cast<const float*>(bqkv), nullptr, qkvb, n,
-                                       width, d, st);
+  if (mha) {
+    e = sm90::gemm_nn<sm90::kEpiBias>(xnb, wqkvb, bqkvf, qkvb, nullptr, n, width, d, st);
+    if (e != cudaSuccess) return e;
+    vitax::k13::CoreArgs a{};
+    a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd, a.o = attnb;
+    a.seq = seq_len, a.rows = spq, a.img_rows = spq, a.heads = heads;
+    a.scale = scale;
+    a.ld_q = a.ld_k = a.ld_v = width;
+    a.ld_o = hhd;
+    e = vitax::k13::launch_core_fwd(a, head_dim, b, st);
+    if (e != cudaSuccess) return e;
+    return sm90::gemm_nn<sm90::kEpiBias>(attnb, wob, bof, outb, nullptr, n, d, hhd, st);
+  }
+  e = vitax::launch_gemm<vitax::kBias>(xnb, wqkvb, bqkvf, qkvb, n, width, d, st);
   if (e != cudaSuccess) return e;
   const vitax::AttnGeom g{qkvb, static_cast<size_t>(width), spq, qkvb,
                           static_cast<size_t>(width), spq, hhd, hhd + kv_heads * head_dim,
                           heads, kv_heads, b, seq_len, scale};
   e = vitax::launch_attention_core_geom(g, head_dim, attnb, st);
   if (e != cudaSuccess) return e;
-  return vitax::launch_gemm<vitax::kBias>(attnb, static_cast<const bf16*>(wo),
-                                          static_cast<const float*>(bo), nullptr,
-                                          static_cast<bf16*>(out), n, d, hhd, st);
+  return vitax::launch_gemm<vitax::kBias>(attnb, wob, bof, outb, n, d, hhd, st);
 }

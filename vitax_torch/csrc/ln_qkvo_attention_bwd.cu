@@ -183,7 +183,7 @@ extern "C" int vitax_ln_qkvo_attention_gqa_bwd(
   cudaError_t e = vitax::launch_layer_norm(xb, static_cast<const float*>(gamma),
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xnb, wqkvb, static_cast<const float*>(bqkv), nullptr,
+  e = vitax::launch_gemm<vitax::kBias>(xnb, wqkvb, static_cast<const float*>(bqkv),
                                        qkvb, n, w, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_attention_core_geom(
@@ -192,7 +192,7 @@ extern "C" int vitax_ln_qkvo_attention_gqa_bwd(
   if (e != cudaSuccess) return e;
 
   // out-projection grads
-  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), nullptr, dattnb,
+  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), dattnb,
                                            nullptr, n, hhd, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
@@ -207,7 +207,7 @@ extern "C" int vitax_ln_qkvo_attention_gqa_bwd(
   if (e != cudaSuccess) return e;
 
   // QKV projection grads and the LN tail
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqkvb, wqkvb, nullptr, nullptr, dxnf, n, d, w, st);
+  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqkvb, wqkvb, nullptr, dxnf, n, d, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, w, n, st);
   if (e != cudaSuccess) return e;

@@ -45,7 +45,7 @@ extern "C" int vitax_ln_qkvo_attention_flash_fwd(const void* x, const void* gamm
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm<vitax::kBias>(xnb, static_cast<const bf16*>(wqkv),
-                                       static_cast<const float*>(bqkv), nullptr, qkvb, n,
+                                       static_cast<const float*>(bqkv), qkvb, n,
                                        3 * hhd, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_flash_fwd_hd(
@@ -53,6 +53,6 @@ extern "C" int vitax_ln_qkvo_attention_flash_fwd(const void* x, const void* gamm
       st);
   if (e != cudaSuccess) return e;
   return vitax::launch_gemm<vitax::kBias>(attnb, static_cast<const bf16*>(wo),
-                                          static_cast<const float*>(bo), nullptr,
+                                          static_cast<const float*>(bo),
                                           static_cast<bf16*>(out), n, d, hhd, st);
 }

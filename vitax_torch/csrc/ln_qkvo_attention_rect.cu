@@ -61,11 +61,9 @@ extern "C" int vitax_ln_qkvo_attention_rect_fwd(
   if (e != cudaSuccess) return e;
   e = vitax::launch_layer_norm(static_cast<const bf16*>(x), g, be, xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xncb, w, bias, nullptr, qb, nc, hhd, d, st, nullptr,
-                                       3 * hhd);
+  e = vitax::launch_gemm<vitax::kBias>(xncb, w, bias, qb, nc, hhd, d, st, 3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xnb, w + hhd, bias + hhd, nullptr, kvb, n, 2 * hhd, d, st,
-                                       nullptr, 3 * hhd);
+  e = vitax::launch_gemm<vitax::kBias>(xnb, w + hhd, bias + hhd, kvb, n, 2 * hhd, d, st, 3 * hhd);
   if (e != cudaSuccess) return e;
   const vitax::AttnGeom geom{qb,  static_cast<size_t>(hhd), cpq,   kvb, 2 * static_cast<size_t>(hhd),
                              spq, 0,                         hhd,   heads, heads,
@@ -73,6 +71,6 @@ extern "C" int vitax_ln_qkvo_attention_rect_fwd(
   e = vitax::launch_attention_core_geom(geom, head_dim, attnb, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_gemm<vitax::kBias>(attnb, static_cast<const bf16*>(wo),
-                                          static_cast<const float*>(bo), nullptr,
+                                          static_cast<const float*>(bo),
                                           static_cast<bf16*>(out), nc, d, hhd, st);
 }

@@ -105,11 +105,9 @@ extern "C" int vitax_ln_qkvo_attention_rect_bwd(
   if (e != cudaSuccess) return e;
   e = vitax::launch_layer_norm(static_cast<const bf16*>(x), g, be, xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xncb, w, bias, nullptr, qb, nc, hhd, d, st, nullptr,
-                                       3 * hhd);
+  e = vitax::launch_gemm<vitax::kBias>(xncb, w, bias, qb, nc, hhd, d, st, 3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xnb, w + hhd, bias + hhd, nullptr, kvb, n, 2 * hhd, d, st,
-                                       nullptr, 3 * hhd);
+  e = vitax::launch_gemm<vitax::kBias>(xnb, w + hhd, bias + hhd, kvb, n, 2 * hhd, d, st, 3 * hhd);
   if (e != cudaSuccess) return e;
   const vitax::AttnGeom geom{qb,  static_cast<size_t>(hhd), cpq,   kvb, 2 * static_cast<size_t>(hhd),
                              spq, 0,                         hhd,   heads, heads,
@@ -118,7 +116,7 @@ extern "C" int vitax_ln_qkvo_attention_rect_bwd(
   if (e != cudaSuccess) return e;
 
   // out-projection grads over the xc rows
-  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), nullptr, dattnb,
+  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), dattnb,
                                            nullptr, nc, hhd, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
@@ -134,11 +132,10 @@ extern "C" int vitax_ln_qkvo_attention_rect_bwd(
   if (e != cudaSuccess) return e;
 
   // projection grads of the two row sets and the two LN tails
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqb, w, nullptr, nullptr, dxncf, nc, d, hhd, st,
-                                              3 * hhd);
+  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqb, w, nullptr, dxncf, nc, d, hhd, st, 3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dkvb, w + hhd, nullptr, nullptr, dxnf, n, d,
-                                              2 * hhd, st, 3 * hhd);
+  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dkvb, w + hhd, nullptr, dxnf, n, d, 2 * hhd, st,
+                                              3 * hhd);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_tn(xncb, dqb, static_cast<float*>(dwq), wsf, d, hhd, nc, st);
   if (e != cudaSuccess) return e;

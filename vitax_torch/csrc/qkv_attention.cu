@@ -10,8 +10,8 @@
 //
 // x̂ is the LN output, [B, spq, D] with the padded-stream pad rows (zeros);
 // there is no LN and no out-projection (the model applies Wo as a plain
-// product). It is K1's forward (ln_qkvo_attention.cu) without its first and
-// last launches.
+// product). It is K1's first-design forward (which K7's branch of
+// ln_qkvo_attention.cu still runs) without its first and last launches.
 //
 // Bound on the H100: at b64 spq 200 it does 2·N·D·3HHd + 4·B·H·spq²·hd ≈ 53
 // GFLOP on 26 MB, so the tensor cores bound it (≈ 0.054 ms at 989 TFLOP/s
@@ -38,7 +38,7 @@ extern "C" int vitax_qkv_attention_fwd(const void* x, const void* wqkv, const vo
   auto* qkvb = static_cast<bf16*>(qkv);
   cudaError_t e = vitax::launch_gemm<vitax::kBias>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), nullptr, qkvb, n, 3 * heads * head_dim, d, st);
+      static_cast<const float*>(bqkv), qkvb, n, 3 * heads * head_dim, d, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_attention_core_geom(
       vitax::attn_geom_square(qkvb, b, spq, seq_len, heads, head_dim, scale), head_dim,

@@ -63,7 +63,7 @@ extern "C" int vitax_qkv_attention_bwd(const void* x, const void* wqkv, const vo
 
   // recompute qkv and the core's fp32 head outputs
   cudaError_t e = vitax::launch_gemm<vitax::kBias>(xb, wqkvb, static_cast<const float*>(bqkv),
-                                                   nullptr, qkvb, n, w, d, st);
+                                                   qkvb, n, w, d, st);
   if (e != cudaSuccess) return e;
   const vitax::AttnGeom f =
       vitax::attn_geom_square(qkvb, b, spq, seq_len, heads, head_dim, scale);
@@ -80,7 +80,7 @@ extern "C" int vitax_qkv_attention_bwd(const void* x, const void* wqkv, const vo
   if (e != cudaSuccess) return e;
 
   // QKV projection grads
-  e = vitax::launch_gemm_nt<vitax::kStore>(dqkvb, wqkvb, nullptr, static_cast<bf16*>(dx),
+  e = vitax::launch_gemm_nt<vitax::kStore>(dqkvb, wqkvb, static_cast<bf16*>(dx),
                                            nullptr, n, d, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_tn(xb, dqkvb, static_cast<float*>(dwqkv), wsf, d, w, n, st);

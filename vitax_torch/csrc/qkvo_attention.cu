@@ -13,8 +13,8 @@
 //
 // x̂ is the LN output, [B, spq, D] with the padded pad rows (zeros); there is
 // no LN and no residual. It is K10's forward (qkv_attention.cu) followed by
-// K1's out-projection (ln_qkvo_attention.cu's last launch), so it is K1's
-// forward without its first launch.
+// an out-projection, so it is K1's first-design forward (which K7's branch of
+// ln_qkvo_attention.cu still runs) without its first launch.
 //
 // Bound on the H100: at b64 spq 200 it does 2·N·D·3HHd + 4·B·H·spq²·hd +
 // 2·N·HHd·D ≈ 68 GFLOP on 26 MB, so the tensor cores bound it (≈ 0.069 ms at
@@ -42,13 +42,13 @@ extern "C" int vitax_qkvo_attention_fwd(const void* x, const void* wqkv, const v
   auto* attnb = static_cast<bf16*>(attn);
   cudaError_t e = vitax::launch_gemm<vitax::kBias>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), nullptr, qkvb, n, 3 * hhd, d, st);
+      static_cast<const float*>(bqkv), qkvb, n, 3 * hhd, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_attention_core_geom(
       vitax::attn_geom_square(qkvb, b, spq, seq_len, heads, head_dim, scale), head_dim, attnb,
       st);
   if (e != cudaSuccess) return e;
   return vitax::launch_gemm<vitax::kBias>(attnb, static_cast<const bf16*>(wo),
-                                          static_cast<const float*>(bo), nullptr,
+                                          static_cast<const float*>(bo),
                                           static_cast<bf16*>(out), n, d, hhd, st);
 }

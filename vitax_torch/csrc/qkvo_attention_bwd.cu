@@ -71,7 +71,7 @@ extern "C" int vitax_qkvo_attention_bwd(const void* x, const void* wqkv, const v
 
   // recompute qkv and the core's bf16 head outputs
   cudaError_t e = vitax::launch_gemm<vitax::kBias>(xb, wqkvb, static_cast<const float*>(bqkv),
-                                                   nullptr, qkvb, n, w, d, st);
+                                                   qkvb, n, w, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_attention_core_geom(
       vitax::attn_geom_square(qkvb, b, spq, seq_len, heads, head_dim, scale), head_dim, attnb,
@@ -79,7 +79,7 @@ extern "C" int vitax_qkvo_attention_bwd(const void* x, const void* wqkv, const v
   if (e != cudaSuccess) return e;
 
   // out-projection grads
-  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), nullptr, dattnb,
+  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), dattnb,
                                            nullptr, n, hhd, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
@@ -94,7 +94,7 @@ extern "C" int vitax_qkvo_attention_bwd(const void* x, const void* wqkv, const v
   if (e != cudaSuccess) return e;
 
   // QKV projection grads
-  e = vitax::launch_gemm_nt<vitax::kStore>(dqkvb, wqkvb, nullptr, static_cast<bf16*>(dx),
+  e = vitax::launch_gemm_nt<vitax::kStore>(dqkvb, wqkvb, static_cast<bf16*>(dx),
                                            nullptr, n, d, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_tn(xb, dqkvb, static_cast<float*>(dwqkv), wsf, d, w, n, st);

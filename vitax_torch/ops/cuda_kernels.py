@@ -453,7 +453,8 @@ fused_ln_mlp_partial.launches = 0
 
 
 def _ln_mlp_fwd_cuda(name, x, gamma, beta, w1, b1, w2, b2, eps, residual):
-    """K2's forward launch (ln_mlp.cu)."""
+    """K2's forward launch (ln_mlp.cu): LN, then fc1 and fc2 on
+    gemm_sm90.cuh's wgmma GEMM."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
@@ -629,14 +630,24 @@ def _ln_mlp_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, residual):
     return dx.view(x.shape), dg, dbe, dw1, db1, dw2, db2
 
 
-GEMM_SM90_KINDS = ("nn_bias", "nt_store", "nt_f32", "tn_f32", "gelu_pair")
+GEMM_SM90_KINDS = ("nn_bias", "nt_store", "nt_f32", "tn_f32", "gelu_pair",
+                   "nn_bias_gelu", "nn_bias_gelu_save", "nn_bias_residual")
+_GEMM_SM90_BIAS = ("nn_bias", "gelu_pair", "nn_bias_gelu",
+                   "nn_bias_gelu_save", "nn_bias_residual")
 
 
-def gemm_sm90_ref(kind, a, b, bias=None, a2=None, b2=None):
+def gemm_sm90_ref(kind, a, b, bias=None, a2=None, b2=None, residual=None):
     """The plain twin of `gemm_sm90`: fp32 products of the bf16 operands and
     the epilogue in fp32, rounded to bf16 where the kernel rounds."""
-    if kind == "nn_bias":
-        return (matmul_f32(a, b) + bias.float()).to(_BF)
+    if kind in ("nn_bias", "nn_bias_residual"):
+        y = (matmul_f32(a, b) + bias.float()).to(_BF)
+        return y if kind == "nn_bias" else residual + y
+    if kind in ("nn_bias_gelu", "nn_bias_gelu_save"):
+        pre = matmul_f32(a, b) + bias.float()
+        h = gelu_exact(pre).to(_BF)
+        if kind == "nn_bias_gelu":
+            return h
+        return h, gelu_exact_grad(pre).to(_BF)
     if kind == "nt_store":
         return matmul_f32(a, b.t()).to(_BF)
     if kind == "nt_f32":
@@ -650,22 +661,27 @@ def gemm_sm90_ref(kind, a, b, bias=None, a2=None, b2=None):
     raise ValueError(f"gemm_sm90: unknown kind {kind!r}")
 
 
-def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None):
+def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None, residual=None):
     """One product of gemm_sm90.cuh, the wgmma GEMM inside K1's and K2's
-    backwards, launched alone (csrc/gemm_sm90.cu) so that the card tests
-    hold each layout and epilogue against fp32 products; no path of the
-    port calls it. kind: "nn_bias" bf16(a[m,k]·b[k,n] + bias), "nt_store"
-    bf16(a·b[n,k]ᵀ), "nt_f32" a·b[n,k]ᵀ in fp32, "tn_f32" a[k,m]ᵀ·b[k,n] in
-    fp32 (split over k), "gelu_pair" (bf16(gelu(pre)), bf16((a2·b2ᵀ)·
-    gelu'(pre))) with pre = a·b + bias (K2's dual product)."""
+    forwards and backwards and K12's forward, launched alone
+    (csrc/gemm_sm90.cu) so that the card tests hold each layout and
+    epilogue against fp32 products; no path of the port calls it. kind:
+    "nn_bias" bf16(a[m,k]·b[k,n] + bias), "nt_store" bf16(a·b[n,k]ᵀ),
+    "nt_f32" a·b[n,k]ᵀ in fp32, "tn_f32" a[k,m]ᵀ·b[k,n] in fp32 (split over
+    k), "gelu_pair" (bf16(gelu(pre)), bf16((a2·b2ᵀ)·gelu'(pre))) with pre =
+    a·b + bias (K2's dual product); the forwards' epilogues on pre:
+    "nn_bias_gelu" bf16(gelu(pre)) (fc1), "nn_bias_gelu_save" (that,
+    bf16(gelu'(pre))) (K12's fc1), "nn_bias_residual" residual [m, n] +
+    bf16(pre) in bf16 (fc2)."""
     if not a.is_cuda:
-        return gemm_sm90_ref(kind, a, b, bias, a2, b2)
+        return gemm_sm90_ref(kind, a, b, bias, a2, b2, residual)
     name = "gemm_sm90"
     if kind not in GEMM_SM90_KINDS:
         raise ValueError(f"{name}: unknown kind {kind!r}")
     mats = {"a": a, "b": b, **({"a2": a2, "b2": b2} if kind == "gelu_pair"
-                               else {})}
-    vecs = {"bias": bias} if kind in ("nn_bias", "gelu_pair") else {}
+                               else {}),
+            **({"residual": residual} if kind == "nn_bias_residual" else {})}
+    vecs = {"bias": bias} if kind in _GEMM_SM90_BIAS else {}
     dev = _check_cuda(name, {**mats, **vecs},
                       {**dict.fromkeys(mats, _BF), **dict.fromkeys(vecs, _F32)})
     if kind == "tn_f32":
@@ -679,6 +695,9 @@ def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None):
     if kind == "gelu_pair":
         _check_shape(name, "a2", a2, (m, k))
         _check_shape(name, "b2", b2, (n, k))
+    if kind == "nn_bias_residual":  # the C entry point takes it as a2
+        _check_shape(name, "residual", residual, (m, n))
+        a2 = residual
     if vecs:
         _check_shape(name, "bias", bias, (n,))
     lib = build.load()
@@ -694,7 +713,7 @@ def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None):
                              ws.data_ptr(), m, n, k,
                              GEMM_SM90_KINDS.index(kind), _stream(dev))
     build.check(rc, name)
-    if kind == "gelu_pair":
+    if kind in ("gelu_pair", "nn_bias_gelu_save"):
         return c, c2
     return f if kind.endswith("f32") else c
 
@@ -939,7 +958,9 @@ fused_ln_qkvo_attention.launches = 0
 
 def _ln_qkvo_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
                   heads, head_dim, kv_heads):
-    """K1's forward launch (K7's with kv_heads < heads)."""
+    """K1's forward launch: LN, gemm_sm90.cuh's qkv product, K13's core on
+    the packed rows and the out-projection on gemm_sm90.cuh; K7's with
+    kv_heads < heads (gemm.cuh's products, the whole-row core)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,

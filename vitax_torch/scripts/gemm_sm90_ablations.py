@@ -1,6 +1,7 @@
 """What holds `csrc/gemm_sm90.cuh` back on one CUDA card: the products of
-K1's and K2's backwards at ViT-B/16's b32 shapes, each with the GEMM as it
-is and with one piece taken out at a time, timed in turns.
+K1's and K2's backwards at ViT-B/16's b32 shapes and of their forwards at
+b32 and b64, each with the GEMM as it is and with one piece taken out at a
+time, timed in turns.
 
     python -m vitax_torch.scripts.gemm_sm90_ablations
 
@@ -51,12 +52,21 @@ ABLATIONS = {
     "six_stages": [("constexpr int kStages = kDual ? 3 : 4;",
                     "constexpr int kStages = kDual ? 3 : 6;")],
 }
-# (label, kind of vitax_gemm_sm90, k, n) at n = 6400 rows (b32 spq 200):
-# K1's qkv recompute, dqkv·Wqkvᵀ and xnᵀ·dqkv, K2's dual pair, h1ᵀ·do
-ROWS = 6400
-CASES = [("qkv (kNN, bias)", 0, 768, 2304), ("dxn (kNT, fp32)", 2, 2304, 768),
-         ("dWqkv (kTN)", 3, 768, 2304), ("K2 pair (dual)", 4, 768, 3072),
-         ("dW2 (kTN)", 3, 3072, 768)]
+# (label, kind of vitax_gemm_sm90, k, n, rows) at b32 spq 200 (6400 rows)
+# and b64 (12800): the backwards' K1 qkv recompute, dqkv·Wqkvᵀ and
+# xnᵀ·dqkv, K2's dual pair, h1ᵀ·do; the forwards' qkv, out-projection, fc1
+# with bias + GELU and fc2 with bias + residual
+B32, B64 = 6400, 12800
+CASES = [("qkv (kNN, bias)", 0, 768, 2304, B32),
+         ("dxn (kNT, fp32)", 2, 2304, 768, B32),
+         ("dWqkv (kTN)", 3, 768, 2304, B32),
+         ("K2 pair (dual)", 4, 768, 3072, B32),
+         ("dW2 (kTN)", 3, 3072, 768, B32)] + [
+    (f"{label} b{rows // 200}", kind, k, n, rows) for rows in (B32, B64)
+    for label, kind, k, n in (("fwd qkv (bias)", 0, 768, 2304),
+                              ("fwd out-proj (bias)", 0, 768, 768),
+                              ("fwd fc1 (bias+gelu)", 5, 768, 3072),
+                              ("fwd fc2 (bias+residual)", 7, 3072, 768))]
 
 
 def build_variants() -> dict:
@@ -108,33 +118,38 @@ def _batch_ms(fn, launches: int = 20) -> float:
     return start.elapsed_time(end) / launches
 
 
-def _operands(kind, k, n, g):
+def _operands(kind, k, n, rows, g):
     """(A, B, A2, B2, m, n, k, the fp32 reference of C or F, the library
-    call, operations) of a case."""
+    call, operations) of a case; kind 7's residual rides in A2."""
     def r(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(
             torch.bfloat16)
 
     if kind == 3:  # F[k, n] = A[rows, k]ᵀ · B[rows, n]
-        a, b = r(ROWS, k), r(ROWS, n)
-        return (a, b, None, None, k, n, ROWS,
+        a, b = r(rows, k), r(rows, n)
+        return (a, b, None, None, k, n, rows,
                 torch.matmul(a.float().t(), b.float()),
-                lambda: torch.matmul(a.t(), b), 2 * ROWS * k * n)
-    a = r(ROWS, k)
+                lambda: torch.matmul(a.t(), b), 2 * rows * k * n)
+    a = r(rows, k)
     b = (r(n, k) if kind == 2 else r(k, n)) * k ** -0.5
     if kind == 2:
-        return (a, b, None, None, ROWS, n, k,
+        return (a, b, None, None, rows, n, k,
                 torch.matmul(a.float(), b.float().t()),
-                lambda: torch.matmul(a, b.t()), 2 * ROWS * k * n)
-    if kind == 0:
-        return (a, b, None, None, ROWS, n, k,
-                torch.matmul(a.float(), b.float()),
-                lambda: torch.matmul(a, b), 2 * ROWS * k * n)
-    a2, b2 = r(ROWS, k), r(n, k) * k ** -0.5
-    return (a, b, a2, b2, ROWS, n, k,
+                lambda: torch.matmul(a, b.t()), 2 * rows * k * n)
+    if kind in (0, 5, 7):
+        ref = torch.matmul(a.float(), b.float())
+        res = r(rows, n) if kind == 7 else None
+        if kind == 5:
+            ref = torch.nn.functional.gelu(ref)
+        if kind == 7:
+            ref = ref + res.float()
+        return (a, b, res, None, rows, n, k, ref,
+                lambda: torch.matmul(a, b), 2 * rows * k * n)
+    a2, b2 = r(rows, k), r(n, k) * k ** -0.5
+    return (a, b, a2, b2, rows, n, k,
             torch.nn.functional.gelu(torch.matmul(a.float(), b.float())),
             lambda: (torch.matmul(a, b), torch.matmul(a2, b2.t())),
-            4 * ROWS * k * n)
+            4 * rows * k * n)
 
 
 def main() -> int:
@@ -149,8 +164,9 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     lib = build.load()
     g = torch.Generator(device="cuda").manual_seed(0)
-    for label, kind, k, n in CASES:
-        a, b, a2, b2, m, nn, kk, ref, library, ops = _operands(kind, k, n, g)
+    for label, kind, k, n, rows in CASES:
+        a, b, a2, b2, m, nn, kk, ref, library, ops = _operands(kind, k, n,
+                                                               rows, g)
         bias = torch.zeros(nn, device="cuda")
         c = torch.empty((m, nn), dtype=torch.bfloat16, device="cuda")
         c2, f = torch.empty_like(c), torch.empty((m, nn), device="cuda")
@@ -166,7 +182,7 @@ def main() -> int:
             stream), "gemm_sm90 ablation")) for name, fn in fns.items()}
         calls["base"]()
         torch.cuda.synchronize()
-        out = (c if kind in (0, 4) else f).float()
+        out = (c if kind in (0, 4, 5, 7) else f).float()
         err = ((out - ref).abs().max() / ref.abs().max()).item()
         if err > 2e-2:
             raise AssertionError(f"base {label}: relative error {err}")

@@ -4,10 +4,11 @@ card.
     python -m vitax_torch.scripts.profile_vit [config ...]
 
 Configs, each at full width with random weights from seed 0 and one
-resident batch of 32 Synthetic images: `h14-eval` (ViT-H/14 forward at 384
-px, spq 736: K6 and K2), `h14-train` (ViT-H/14 train step at 224, spq 264:
-forward, backward with K2's on the d > 1024 route, SGD with momentum) and
-`b16-train` (ViT-B/16 train step at 224: K1 and K2); default: all three.
+resident batch of Synthetic images: `h14-eval` (ViT-H/14 forward at 384
+px, spq 736, b32: K6 and K2), `h14-train` (ViT-H/14 train step at 224, spq
+264, b32: forward, backward with K2's on the d > 1024 route, SGD with
+momentum), `b16-train` (ViT-B/16 train step at 224, b32: K1 and K2) and
+`b16-eval` (ViT-B/16 serving forward at 224, b64); default: all four.
 For each it runs two warm-up iterations, records three with torch.profiler
 and prints, as `profile_resvit` does, the wall time an iteration, the
 device busy time and idle share, the device time by group of kernels and
@@ -28,20 +29,21 @@ from vitax_torch.scripts.profile_resvit import _profiled, report
 from vitax_torch.train import (create_train_state, make_train_step,
                                sgd_momentum)
 
-# config -> (arch, image size, train)
-CONFIGS = {"h14-eval": ("h14", 384, False), "h14-train": ("h14", 224, True),
-           "b16-train": ("b16", 224, True)}
-BATCH = 32
+# config -> (arch, image size, train, batch)
+CONFIGS = {"h14-eval": ("h14", 384, False, 32),
+           "h14-train": ("h14", 224, True, 32),
+           "b16-train": ("b16", 224, True, 32),
+           "b16-eval": ("b16", 224, False, 64)}
 
 
 def profile(name: str, iters: int = 3) -> None:
-    arch, image, train = CONFIGS[name]
+    arch, image, train, batch_size = CONFIGS[name]
     cfg = arch_config(arch, image_size=image, num_classes=10,
                       dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True)
     params = vit.init_params(set_seed(0), cfg, "cuda")
     batch = next(iter(get_dataloader(
         "Synthetic", split="train" if train else "val", image_size=image,
-        batch_size=BATCH, num_samples=BATCH, seed=0)))
+        batch_size=batch_size, num_samples=batch_size, seed=0)))
     images = torch.from_numpy(batch.images).cuda().bfloat16()
     if train:
         labels = torch.from_numpy(batch.labels).cuda()
@@ -49,11 +51,11 @@ def profile(name: str, iters: int = 3) -> None:
         state = create_train_state(params, opt, sched, torch.Generator())
         step = make_train_step(cfg, opt, sched)
         prof, wall = _profiled(lambda: step(state, images, labels), iters)
-        report(f"{name} b{BATCH}", prof, wall, iters, "a step")
+        report(f"{name} b{batch_size}", prof, wall, iters, "a step")
         return
     with torch.inference_mode():
         prof, wall = _profiled(lambda: vit.apply(params, images, cfg), iters)
-    report(f"{name} b{BATCH}", prof, wall, iters, "a forward")
+    report(f"{name} b{batch_size}", prof, wall, iters, "a forward")
 
 
 def main(argv=None) -> None:

@@ -11,15 +11,18 @@ file need not belong to), it prints under `tag`:
   K7's backward (4 kv heads) and K3's backward (`--int8-grad`) at
   ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
   give the same line where those kernels kept their bits;
-- `backward_checksum`: the same of K1's and K2's backwards, twice, to show
-  that two runs of each give the same bits;
+- `repeat_checksums`: the same of K1's and K2's forwards and backwards,
+  twice each, to show that two runs of each give the same bits;
+- `kernel_times`: CUDA-event medians of 25 launches of K1's forward at
+  ViT-B/16's b64 and b32 spq 200 and b8 spq 584, and of K2's and K12's
+  forwards, each with and without the residual, at b64 and b32 spq 200;
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
-  momentum) at b32 in bf16, `--int8` and `--int8-grad`, with the bf16
-  step's peak device memory; the bf16 serving forward at b64 @224;
-  `--no-fused-qkv` (K13) forward b64 @384 and step b32; Res-ViT's
-  `scripts/ft_resvit.sh` (a) step at b32 (teacher and student forward,
-  backward, AdamW); ViT-H/14 @224 step at b32.
+  momentum) at b32 in bf16, `--int8`, `--int8-grad` and `--save-acts`,
+  with the bf16 step's peak device memory; the bf16 serving forward at b64
+  @224 and @384 (K1 at spq 584); `--no-fused-qkv` (K13) forward b64 @384
+  and step b32; Res-ViT's `scripts/ft_resvit.sh` (a) step at b32 (teacher
+  and student forward, backward, AdamW); ViT-H/14 @224 step at b32.
 
 Run it for two checkouts in the order A, B, B, A in one call on the card
 (each run builds its checkout's kernels into that checkout's `build/`).
@@ -108,15 +111,22 @@ def checksums() -> dict:
     return out
 
 
-def backward_checksum() -> str:
-    """K1's and K2's backwards at ViT-B/16 b8 spq 200, each run twice: the
-    two digests of each agree where the kernel is deterministic."""
+def repeat_checksums() -> str:
+    """K1's and K2's forwards and backwards at ViT-B/16 b8 spq 200, each run
+    twice: the two digests of each agree where the kernel is
+    deterministic."""
     from vitax_torch.ops import cuda_kernels as ck
     d, heads, hd, m = B16_WIDTHS
     hhd = heads * hd
-    head, _, do, mlp = _half_inputs(193, 8, 200, d, 3 * hhd, hhd, m)
+    head, bo, do, mlp = _half_inputs(193, 8, 200, d, 3 * hhd, hhd, m)
     runs = []
     with torch.no_grad():
+        for _ in range(2):
+            runs.append("K1 fwd " + _digest((ck.fused_ln_qkvo_attention(
+                *head, bo, 1e-5, 197, heads, hd),)))
+        for _ in range(2):
+            runs.append("K2 fwd " + _digest((ck.fused_ln_mlp(
+                *head[:3], *mlp, 1e-5),)))
         for _ in range(2):
             runs.append("K1 " + _digest(ck.fused_ln_qkvo_attention_bwd(
                 *head, do, 1e-5, 197, heads, hd)))
@@ -140,6 +150,31 @@ def _median_ms(fn, warmup=2, iters=10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_times() -> dict:
+    """{kernel and shape: median ms} of the forwards of K1, K2 and K12 (each
+    MLP half with and without its residual) at ViT-B/16's widths."""
+    from vitax_torch.ops import cuda_kernels as ck
+    d, heads, hd, m = B16_WIDTHS
+    hhd = heads * hd
+    out = {}
+    for b, spq, seq in ((64, 200, 197), (32, 200, 197), (8, 584, 577)):
+        head, bo, _, mlp = _half_inputs(194, b, spq, d, 3 * hhd, hhd, m)
+        mlp = (*head[:3], *mlp, 1e-5)
+        calls = {"K1 fwd": lambda: ck.fused_ln_qkvo_attention(
+            *head, bo, 1e-5, seq, heads, hd)}
+        if spq == 200:
+            calls.update({
+                "K2 fwd": lambda: ck.fused_ln_mlp(*mlp),
+                "K2 partial": lambda: ck.fused_ln_mlp(*mlp, residual=False),
+                "K12 fwd": lambda: ck.fused_ln_mlp_save(*mlp),
+                "K12 partial": lambda: ck.fused_ln_mlp_save_partial(*mlp)})
+        with torch.no_grad():
+            for name, fn in calls.items():
+                out[f"{name} b{b} spq{spq}"] = _median_ms(fn, 3, 25)
+        del head, mlp
+    return out
 
 
 def _images(image, batch, split="train"):
@@ -229,7 +264,10 @@ def timings() -> dict:
     out["B/16 step b32 --int8-grad"] = _vit_step_ms(
         "b16", 224, 32, **fused, **int8, int8_mlp_grad=True,
         int8_attn_grad=True)[0]
+    out["B/16 step b32 --save-acts"] = _vit_step_ms(
+        "b16", 224, 32, **fused, fused_mlp_save=True)[0]
     out["B/16 forward b64 bf16"] = _vit_forward_ms(224, 64, **fused)
+    out["B/16 forward b64 bf16 @384"] = _vit_forward_ms(384, 64, **fused)
     out["B/16 --no-fused-qkv forward b64 @384"] = _vit_forward_ms(
         384, 64, fused_qkv=False, fused_mlp=True)
     out["B/16 --no-fused-qkv step b32"] = _vit_step_ms(
@@ -255,11 +293,12 @@ def main(argv) -> int:
           f"{smi.stdout.strip().splitlines()[0]}", flush=True)
     for name, digest in checksums().items():
         print(f"{tag}: checksum {name}: {digest}", flush=True)
-    print(f"{tag}: two runs of each backward: {backward_checksum()}",
-          flush=True)
+    print(f"{tag}: two runs of each: {repeat_checksums()}", flush=True)
     for name, value in timings().items():
         print(f"{tag}: {name} {value:.3f}" + ("" if "MB" in name else " ms"),
               flush=True)
+    for name, value in kernel_times().items():
+        print(f"{tag}: {name} {value:.4f} ms", flush=True)
     return 0
 
 
