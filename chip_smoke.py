@@ -310,8 +310,11 @@ dW1, dW2), so the band shows that their weight grads are int8.
 The line before the last is the JSON kernel table (each kernel's time at
 the main path's shape beside its bound: the larger of its bytes over 3.35
 TB/s and its operations over 989 TFLOP/s bf16, 1979 TOP/s s8, 67 TFLOP/s
-fp32; and the time of F.layer_norm, forward and backward, for LN); the
-last line is
+fp32; and the time of F.layer_norm, forward and backward, for LN). The LN
+pair's `ms` and `library_ms` are device times from torch.profiler's kernel
+records over four copies of the inputs in turn (a call of 10-30 µs timed by
+events around one synchronised call reads mostly the host); the other
+kernels' are CUDA-event medians. The last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result.
 """
@@ -755,7 +758,7 @@ def check_kernels():
                 if label == STEP_CASE:
                     stats[name]["step_ms"] = k_ms
             if i == 0 and name == "layer_norm":
-                stats[name]["library_ms"] = _layer_norm_library_ms(*args)
+                stats[name].update(_layer_norm_device_ms(*args))
         del t
         torch.cuda.empty_cache()
     for name in STEP_TIMED:
@@ -764,28 +767,53 @@ def check_kernels():
     return stats
 
 
-def _layer_norm_library_ms(x, gamma, beta, eps):
-    """One PyTorch call that computes the row LN: F.layer_norm (γ, β cast
-    to the input's dtype beforehand)."""
+def _layer_norm_device_ms(x, gamma, beta, eps):
+    """{ms, library_ms}: device times (torch.profiler's kernel records,
+    `turns.device_ms`) of the LN kernel and of one PyTorch call that
+    computes the row LN, F.layer_norm (γ, β cast to the input's dtype
+    beforehand), each over four copies of x in turn so that no call finds
+    its input in L2."""
     import torch
     import torch.nn.functional as F
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.scripts.turns import device_ms
+    xs = [x] + [x.clone() for _ in range(3)]
     g, b = gamma.to(x.dtype), beta.to(x.dtype)
     with torch.inference_mode():
-        return _median_ms(lambda: F.layer_norm(x, (x.shape[-1],), g, b, eps))
+        ms = device_ms([lambda x=x: ck.layer_norm(x, gamma, beta, eps)
+                        for x in xs])
+        lib = device_ms([lambda x=x: F.layer_norm(x, (x.shape[-1],), g, b, eps)
+                         for x in xs])
+    print(f"  layer_norm device time {ms:.4f} ms, F.layer_norm {lib:.4f} ms "
+          f"(torch.profiler)", flush=True)
+    return {"ms": ms, "library_ms": lib}
 
 
-def _layer_norm_bwd_library_ms(x, gamma, dy, eps):
-    """The LN backward as PyTorch's autograd of F.layer_norm computes it: one
-    torch.autograd.grad call for (dx, dγ, dβ)."""
+def _layer_norm_bwd_device_ms(x, gamma, dy, eps):
+    """{ms, library_ms}: device times of the LN backward kernel and of the
+    LN backward as PyTorch's autograd of F.layer_norm computes it (one
+    torch.autograd.grad call for dx, dγ, dβ), over four copies of the
+    inputs in turn, as _layer_norm_device_ms."""
     import torch
     import torch.nn.functional as F
-    xr = x.detach().requires_grad_()
-    g = gamma.to(x.dtype).requires_grad_()
-    b = torch.zeros_like(g).requires_grad_()
-    y = F.layer_norm(xr, (x.shape[-1],), g, b, eps)
-    return _median_ms(lambda: torch.autograd.grad(y, (xr, g, b), dy,
-                                                  retain_graph=True),
-                      warmup=2, iters=10)
+    from vitax_torch.ops import cuda_kernels as ck
+    from vitax_torch.scripts.turns import device_ms
+    sets = [(x, dy)] + [(x.clone(), dy.clone()) for _ in range(3)]
+    with torch.no_grad():
+        ms = device_ms([lambda x=x, dy=dy: ck.layer_norm_bwd(x, gamma, dy, eps)
+                        for x, dy in sets])
+    grads = []
+    for xs, dys in sets:
+        xr = xs.detach().requires_grad_()
+        g = gamma.to(x.dtype).requires_grad_()
+        b = torch.zeros_like(g).requires_grad_()
+        y = F.layer_norm(xr, (x.shape[-1],), g, b, eps)
+        grads.append(lambda y=y, xr=xr, g=g, b=b, dy=dys: torch.autograd.grad(
+            y, (xr, g, b), dy, retain_graph=True))
+    lib = device_ms(grads)
+    print(f"  layer_norm_bwd device time {ms:.4f} ms, autograd of "
+          f"F.layer_norm {lib:.4f} ms (torch.profiler)", flush=True)
+    return {"ms": ms, "library_ms": lib}
 
 
 def _bwd_calls(ck, t, seq_len, ragged):
@@ -858,7 +886,7 @@ def check_bwd_kernels(stats):
                 stats[name].update(ms=k_ms, plain_ms=p_ms,
                                    shape=(batch, rows))
             if i == 0 and name == "layer_norm_bwd":
-                stats[name]["library_ms"] = _layer_norm_bwd_library_ms(*args)
+                stats[name].update(_layer_norm_bwd_device_ms(*args))
         del t, calls
         torch.cuda.empty_cache()
     return stats

@@ -372,6 +372,69 @@ def test_fp32_layer_norm_and_ragged_rows(dev):
         _assert_close(ck.fused_ln_mlp(*mlp), ck.fused_ln_mlp_ref(*mlp))
 
 
+
+# the LN pair: the register path (ViT-B/L/H widths) and the loop form (2048,
+# 8192); rows fewer than a block's warps (1, 7), ragged (591 = 3 x 197) and
+# more than the grid's resident warps walk at once (6400, 12800)
+LN_ROWS = (1, 7, 591, 6400, 12800)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [768, 1024, 1280, 2048, 8192])
+def test_layer_norm_pair_at_widths_and_row_counts(dev, d, dtype):
+    dt = getattr(torch, dtype)
+    tol_fwd, tol_bwd = (2e-2, 2e-2) if dt == torch.bfloat16 else (1e-5, 1e-4)
+    g = torch.Generator(device=dev).manual_seed(d)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    beta = 0.1 * torch.randn(d, generator=g, device=dev)
+    for n in LN_ROWS:
+        x = (torch.randn(n, d, generator=g, device=dev) * 1.5 + 0.3).to(dt)
+        dy = torch.randn(n, d, generator=g, device=dev).to(dt)
+        with torch.no_grad():
+            y = ck.layer_norm(x, gamma, beta, EPS)
+            _assert_close(y, ck.layer_norm_ref(x, gamma, beta, EPS), tol_fwd)
+            assert torch.equal(y, ck.layer_norm(x, gamma, beta, EPS)), n
+            outs = ck.layer_norm_bwd(x, gamma, dy, EPS)
+            for out, ref in zip(outs, ck.layer_norm_bwd_ref(x, gamma, dy,
+                                                            EPS)):
+                _assert_close(out, ref, tol_bwd)
+            # dx, dγ and dβ: the same bits in a second run
+            for a, b in zip(outs, ck.layer_norm_bwd(x, gamma, dy, EPS)):
+                assert torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("residual", [True, False])
+def test_ln_tails_of_k2_backward_across_row_counts(dev, residual):
+    """The LN backward's fused form (fp32 dy from the dx product; with
+    residual, K2's R added in bf16) at every LN_ROWS count, twice."""
+    for rows in LN_ROWS:
+        _, _, mlp = _args(dev, 1, rows, rows, 768, 12, 64, 3072, seed=rows)
+        g = torch.Generator(device=dev).manual_seed(rows + 1)
+        do = torch.randn((1, rows, 768), generator=g,
+                         device=dev).to(torch.bfloat16)
+        args = (*mlp[:6], do, EPS, residual)
+        with torch.no_grad():
+            outs = ck.fused_ln_mlp_bwd(*args)
+            torch.cuda.synchronize()
+            for out, ref in zip(outs, ck.fused_ln_mlp_bwd_ref(*args)):
+                _assert_close(out, ref)
+            for a, b in zip(outs, ck.fused_ln_mlp_bwd(*args)):
+                assert torch.equal(a, b), rows
+
+
+@pytest.mark.parametrize("batch", [1, 32, 64])
+def test_ln_tail_of_k1_backward_across_batches(dev, batch):
+    """K1's LN tail (fp32 dy, no R) on 200, 6400 and 12800 rows, twice."""
+    args = _bwd_args(dev, batch, 200, 197, 768, 12, 64, 3072,
+                     seed=batch)["fused_ln_qkvo_attention_bwd"]
+    with torch.no_grad():
+        outs = ck.fused_ln_qkvo_attention_bwd(*args)
+        torch.cuda.synchronize()
+        for out, ref in zip(outs, ck.fused_ln_qkvo_attention_bwd_ref(*args)):
+            _assert_close(out, ref)
+        for a, b in zip(outs, ck.fused_ln_qkvo_attention_bwd(*args)):
+            assert torch.equal(a, b)
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     ln, qkvo, mlp = _args(dev, 2, 16, 10, 128, 2, 64, 256)
     x = qkvo[0]

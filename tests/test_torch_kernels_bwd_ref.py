@@ -8,7 +8,9 @@ chip_smoke.py.
 Small shapes that pass both packages' gates: D 128, H 2 (head_dim 64),
 M 256, spq 16 with seq_len 10 (the padded stream), batch 1 and 3; ragged
 rows (3 x 10) for LN and K2; K1 at spq 72 with seq_len 65 (pad rows past
-a 64-row tile, as the card's K1 backward tiles them) and K2 on 3 x 72 rows.
+a 64-row tile, as the card's K1 backward tiles them) and K2 on 3 x 72 rows;
+LN also at D 768 and 1280 on 513 and 1100 rows (vitax's dγ/dβ carried
+across its 512-row blocks, the last one ragged).
 Tolerances, as max|port - pallas| <= tol * max(1, max|pallas|) per output:
 fp32 1e-4 for dx and the vector grads and 1e-3 for the weight grads (sums
 over all rows); bf16 2e-2 (ulp 2^-8, same rounding points, sums in another
@@ -78,15 +80,39 @@ def _check_all(refs, outs, dtype, names, weight_names):
         _close(r, o, weights if name in weight_names else small, name)
 
 
+def _ln_wide(batch, rows, d, seed):
+    """x, do [batch, rows, d] and fp32 γ [d] at a ViT width."""
+    rng = np.random.default_rng(300 + seed)
+    n = rng.standard_normal
+    return dict(x=(n((batch, rows, d)) * 1.5 + 0.3).astype(np.float32),
+                do=n((batch, rows, d)).astype(np.float32),
+                gamma=(1 + 0.1 * n(d)).astype(np.float32))
+
+
+# ViT-B's and ViT-H's widths on row counts that cross vitax's 512-row LN
+# blocks (_LN_BLOCK_ROWS): its dγ/dβ carried across grid steps and its
+# ragged last block masked (pallas_kernels.py:298-314); vitax under jax.jit
+LN_WIDE = [pytest.param(1, 513, 768, id="1-513-768"),
+           pytest.param(2, 550, 768, id="2-550-768"),
+           pytest.param(2, 550, 1280, id="2-550-1280")]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("batch,rows", [(1, SPQ), (3, SPQ), (3, SEQ)])
-def test_layer_norm_bwd_ref_matches_pallas(dtype, batch, rows):
-    j, t = _both(_arrays(0, batch, rows), dtype)
-    ref = pk._ln_bwd_call(j["x"].reshape(-1, D), j["gamma"],
-                          j["do"].reshape(-1, D), EPS)
+@pytest.mark.parametrize("batch,rows,d", [pytest.param(1, SPQ, D, id="1-16"),
+                                          pytest.param(3, SPQ, D, id="3-16"),
+                                          pytest.param(3, SEQ, D, id="3-10"),
+                                          *LN_WIDE])
+def test_layer_norm_bwd_ref_matches_pallas(dtype, batch, rows, d):
+    if d == D:
+        arrays, call = _arrays(0, batch, rows), pk._ln_bwd_call
+    else:
+        arrays = _ln_wide(batch, rows, d, 0)
+        call = jax.jit(pk._ln_bwd_call, static_argnums=3)
+    j, t = _both(arrays, dtype)
+    ref = call(j["x"].reshape(-1, d), j["gamma"], j["do"].reshape(-1, d), EPS)
     out = ck.layer_norm_bwd_ref(t["x"], t["gamma"], t["do"], EPS)
     assert out[0].shape == t["x"].shape and out[0].dtype == t["x"].dtype
-    _check_all(ref, (out[0].reshape(-1, D), *out[1:]), dtype,
+    _check_all(ref, (out[0].reshape(-1, d), *out[1:]), dtype,
                ("dx", "dgamma", "dbeta"), ())
     # on CPU tensors the wrapper is the twin
     for a, b in zip(out, ck.layer_norm_bwd(t["x"], t["gamma"], t["do"], EPS)):

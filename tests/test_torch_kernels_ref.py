@@ -4,7 +4,8 @@ themselves are held against these twins on the card by
 tests/test_torch_cuda_kernels.py (no jax there) and chip_smoke.py.
 
 Small shapes that pass both packages' gates: D 128, H 2 (head_dim 64),
-M 256, spq 16 with seq_len 10 (the padded stream), batch 1 and 3.
+M 256, spq 16 with seq_len 10 (the padded stream), batch 1 and 3; LN also
+at D 768 and 1280 on 513 and 1100 rows (past vitax's 512-row blocks).
 Tolerances: fp32 1e-4; bf16 2e-2 (ulp 2^-8, same rounding points, sums in
 another order).
 """
@@ -67,12 +68,34 @@ def _x(batch, rows, seed):
         np.float32)
 
 
+def _ln_wide(batch, rows, d, seed):
+    """x [batch, rows, d] and fp32 γ, β [d] at a ViT width."""
+    rng = np.random.default_rng(300 + seed)
+    n = rng.standard_normal
+    return dict(x=(n((batch, rows, d)) * 1.5 + 0.3).astype(np.float32),
+                gamma=(1 + 0.1 * n(d)).astype(np.float32),
+                beta=(0.1 * n(d)).astype(np.float32))
+
+
+# ViT-B's and ViT-H's widths on row counts that cross vitax's 512-row LN
+# blocks (_LN_BLOCK_ROWS), the last one ragged; vitax runs under jax.jit
+LN_WIDE = [pytest.param(1, 513, 768, id="513x768"),
+           pytest.param(2, 550, 1280, id="1100x1280")]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("batch", [1, 3])
-def test_layer_norm_ref_matches_pallas(dtype, batch):
-    arr = dict(_weights(0), x=_x(batch, SPQ, 0))
+@pytest.mark.parametrize("batch,rows,d", [pytest.param(1, SPQ, D, id="1"),
+                                          pytest.param(3, SPQ, D, id="3"),
+                                          *LN_WIDE])
+def test_layer_norm_ref_matches_pallas(dtype, batch, rows, d):
+    if d == D:
+        arr = dict(_weights(0), x=_x(batch, rows, 0))
+        ln = pk.layer_norm
+    else:
+        arr = _ln_wide(batch, rows, d, 0)
+        ln = jax.jit(pk.layer_norm, static_argnums=3)
     j, t = _both(arr, dtype)
-    ref = pk.layer_norm(j["x"], j["gamma"], j["beta"], EPS)
+    ref = ln(j["x"], j["gamma"], j["beta"], EPS)
     _close(ref, ck.layer_norm_ref(t["x"], t["gamma"], t["beta"], EPS), dtype)
     _close(ref, ck.layer_norm(t["x"], t["gamma"], t["beta"], EPS), dtype)
 

@@ -6,7 +6,8 @@
 // Hopper blocks run in parallel and in no order, so the sum is two passes: a
 // block per (128-column strip, chunk of rows) writes its fp32 partial to a
 // workspace, then one thread per column adds the partials in chunk order. No
-// float atomics: two runs give the same bits.
+// float atomics: two runs give the same bits. (The LN backward up to 1280
+// columns sums its dγ/dβ inside its own row pass: layernorm.cuh.)
 //
 // Bound on the H100: device memory (one read of the matrix; the partials are
 // ≤ 256 rows of c floats). Each warp reads 128 neighbouring columns of a row,
@@ -92,14 +93,28 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// out[j] = Σ_k part[k][j], k in chunk order.
+// out[j] = Σ_k part[k][j], k in chunk order. A column's chunk loads are
+// issued kColsumFinalUnroll at a time ahead of their adds (the order of the
+// adds, and so the bits, stay), and the columns spread over c / 32 blocks.
+constexpr int kColsumFinalThreads = 32;
+constexpr int kColsumFinalUnroll = 16;
+
 template <int kDummy = 0>
-__global__ void colsum_final_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    int chunks, int c) {
+__global__ void __launch_bounds__(kColsumFinalThreads)
+    colsum_final_kernel(const float* __restrict__ part, float* __restrict__ out, int chunks,
+                        int c) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= c) return;
   float s = 0.f;
-  for (int k = 0; k < chunks; ++k) s += part[static_cast<size_t>(k) * c + j];
+  int k = 0;
+  for (; k + kColsumFinalUnroll <= chunks; k += kColsumFinalUnroll) {
+    float v[kColsumFinalUnroll];
+#pragma unroll
+    for (int u = 0; u < kColsumFinalUnroll; ++u) v[u] = part[static_cast<size_t>(k + u) * c + j];
+#pragma unroll
+    for (int u = 0; u < kColsumFinalUnroll; ++u) s = __fadd_rn(s, v[u]);
+  }
+  for (; k < chunks; ++k) s = __fadd_rn(s, part[static_cast<size_t>(k) * c + j]);
   out[j] = s;
 }
 
@@ -124,8 +139,12 @@ cudaError_t launch_colsum_pair(const TD* dy, const TX* x, const float* mean, con
       dy, x, mean, rstd, part_b, part_g, n, c, rpc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  colsum_final_kernel<0><<<(c + 255) / 256, 256, 0, stream>>>(part_b, out_b, chunks, c);
-  if (XHAT) colsum_final_kernel<0><<<(c + 255) / 256, 256, 0, stream>>>(part_g, out_g, chunks, c);
+  const int fblocks = (c + kColsumFinalThreads - 1) / kColsumFinalThreads;
+  colsum_final_kernel<0><<<fblocks, kColsumFinalThreads, 0, stream>>>(part_b, out_b, chunks, c);
+  if (XHAT) {
+    colsum_final_kernel<0><<<fblocks, kColsumFinalThreads, 0, stream>>>(part_g, out_g, chunks,
+                                                                        c);
+  }
   return cudaGetLastError();
 }
 

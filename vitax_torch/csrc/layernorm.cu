@@ -4,11 +4,13 @@
 // Bound on the H100: device memory. It moves 2*N*D*sizeof(T) bytes (read x,
 // write y) plus the two parameter vectors, and does ~8 flops a value, far
 // below the ~295 flops a byte at which the tensor cores would become the limit.
-// Design: one warp per row, 16-byte vector loads on neighbouring addresses,
-// statistics reduced with warp shuffles in fp32 -- no shared memory and no
-// block-wide synchronisation, so a launch is as many independent rows as the
-// card can keep in flight. The TPU kernel's 512-row VMEM blocks have no
-// counterpart: rows are independent and a warp needs no staging.
+// Design (layernorm.cuh): one warp a row holds its lane's share of the row in
+// registers (d <= 1280), all of the row's 16-byte loads issued together, and
+// walks rows over a grid of the card's resident blocks, issuing the next
+// row's loads before the current row's warp-shuffle reductions; γ and β are
+// read once a block into shared memory. Wider rows loop over the row in three
+// passes. The TPU kernel's 512-row VMEM blocks have no counterpart: rows are
+// independent and a warp needs no staging.
 #include "layernorm.cuh"
 
 extern "C" int vitax_layer_norm(const void* x, const void* gamma, const void* beta, void* y,

@@ -6,12 +6,14 @@
 //   in fp32; dγ = Σ dy x̂, dβ = Σ dy (fp32 [d]).
 //
 // Bound on the H100: device memory (read x and dy, write dx: 3·N·D values,
-// ~20 flops a value). Design: the row half is one warp per row with 16-byte
-// loads and warp-shuffle statistics, as the forward, writing each row's mean
-// and rstd; the TPU kernel's dγ/dβ accumulation across its sequential grid
-// becomes a deterministic two-pass column sum that recomputes x̂ from them
-// (colsum.cuh). The same CUDA body (layernorm.cuh) is the LN tail of the K1
-// and K2 backwards.
+// ~20 flops a value). Design (layernorm.cuh): up to d 1280 one pass, a warp
+// holding a row's x and dy in registers and writing dx; the TPU kernel's dγ/dβ
+// accumulation across its sequential grid becomes each lane's running sums
+// over its warp's rows, combined in shared memory into one partial row a
+// block, and a second small launch that adds the partial rows in a fixed
+// order (deterministic, no atomics). Wider rows take a row pass writing
+// mean/rstd and colsum.cuh's two-pass column sums. The same CUDA body is the
+// LN tail of every fused half's backward.
 #include "layernorm.cuh"
 
 extern "C" long long vitax_layer_norm_bwd_ws(int n, int d) {

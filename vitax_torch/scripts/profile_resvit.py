@@ -24,6 +24,7 @@ the largest kernels.
 
 from __future__ import annotations
 
+import re
 import sys
 import time
 from collections import defaultdict
@@ -63,7 +64,10 @@ GROUPS = [("k13::", "attention core, wgmma (K13; K1's forward, backward)"),
           ("attention_bwd", "attention core backward"),
           ("gemm_s8", "s8 GEMM (K3/K4/K8 int8)"),
           ("gemm_bf16", "bf16 GEMM (the fused halves' products)"),
-          ("layer_norm", "LN (+quant)"), ("quant", "quantizers"),
+          ("layer_norm_rows", "LN forward"),
+          ("layer_norm_bwd", "LN backward"),
+          ("layer_norm_quant", "LN + quant"),
+          ("colsum", "column sums (bias grads)"), ("quant", "quantizers"),
           ("gemm", "cuBLAS GEMM (plain products)"),
           ("sort", "sort"), ("scatter", "gather/scatter"),
           ("gather", "gather/scatter"), ("index", "gather/scatter"),
@@ -86,6 +90,14 @@ def randomize_router_biases(params, seed: int = 9) -> None:
 def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def _annotation(evt) -> bool:
+    """A user annotation's device range (record_function's "scope#name",
+    e.g. the optimizer's "Optimizer.step#SGD.step"): it spans kernels that
+    are counted on their own. Kernel names hold "#" only inside "{lambda()#n}"
+    and never match."""
+    return re.fullmatch(r"[\w.]+#[\w.]+", evt.key) is not None
 
 
 def _profiled(fn, iters):
@@ -133,7 +145,8 @@ def profile_train(name: str, params, cfg, iters: int = 3) -> None:
 
 def report(name, prof, wall, iters, unit) -> None:
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
+               and e.device_type == torch.autograd.DeviceType.CUDA
+               and not _annotation(e)]
     busy = sum(_device_us(e) for e in kernels) / 1e3 / iters
     if busy == 0:
         print(f"{name}: the profiler recorded no device time; wall "

@@ -11,8 +11,19 @@ file need not belong to), it prints under `tag`:
   K7's backward (4 kv heads) and K3's backward (`--int8-grad`) at
   ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
   give the same line where those kernels kept their bits;
+- `ln_checksums`: the same of the LN kernel pair alone (the standalone
+  entry points, register path and loop form, bf16 and fp32): the forward,
+  the backward's dx, and its dγ/dβ apart (their order of sums may change
+  where dx keeps its bits);
 - `repeat_checksums`: the same of K1's and K2's forwards and backwards,
   twice each, to show that two runs of each give the same bits;
+- `ln_device_times`: device times (torch.profiler's kernel records, inputs
+  rotated over four copies so that no call finds them in L2) of the LN
+  forward at ViT-B/16's b64 and b32 spq 200 beside F.layer_norm, of its
+  backward at b32 beside the autograd of F.layer_norm, of the fused
+  backwards' LN tails (fp32 dy: K1's without R, K2's with its residual R)
+  at b32, and of colsum.cuh's final pass a launch in K2's backward, each
+  beside its bound;
 - `kernel_times`: CUDA-event medians of 25 launches of K1's forward at
   ViT-B/16's b64 and b32 spq 200 and b8 spq 584, and of K2's and K12's
   forwards, each with and without the residual, at b64 and b32 spq 200;
@@ -111,6 +122,86 @@ def checksums() -> dict:
     return out
 
 
+def _device_records(calls, reps):
+    """torch.profiler's device records, in start order, of `reps` rounds
+    of the closures `calls` (after one warm-up round)."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def device_ms(calls, reps=10, tail=None) -> float:
+    """Device time of one call in ms, from torch.profiler's kernel records:
+    the closures `calls` (the same work on distinct inputs, so that a call
+    does not find its inputs in L2) run in turn `reps` times, and each
+    call's kernels are summed, from the first whose name holds `tail` on
+    when it is given (a fused backward's LN tail). Every call launches the
+    same kernels. The profiler may drop a record: the records are cut into
+    calls from the last one back, and a call whose kernel names differ
+    from the last call's is left out (at most half of them)."""
+    kernels = _device_records(calls, reps)
+    n = reps * len(calls)
+    per = round(len(kernels) / n)
+    if per == 0:
+        raise RuntimeError(f"device_ms: {len(kernels)} device records for "
+                           f"{n} calls")
+    groups = [kernels[len(kernels) - (i + 1) * per:len(kernels) - i * per]
+              for i in range(len(kernels) // per)]
+    names = [e.name for e in groups[0]]
+    groups = [g for g in groups if [e.name for e in g] == names]
+    if len(groups) < n // 2:
+        raise RuntimeError(f"device_ms: {len(groups)} of {n} calls recorded "
+                           f"whole")
+    if tail is not None:
+        start = next(j for j, name in enumerate(names) if tail in name)
+        groups = [g[start:] for g in groups]
+    return sum(e.time_range.elapsed_us() for g in groups
+               for e in g) / len(groups) / 1e3
+
+
+def _ln_inputs(seed, n, d, dtype, copies=1):
+    """`copies` seeded (x, dy) row sets [n, d] and fp32 γ, β."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = torch.float32
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device="cuda", dtype=f32)
+    beta = 0.1 * torch.randn(d, generator=g, device="cuda", dtype=f32)
+    rows = [((torch.randn(n, d, generator=g, device="cuda") * 1.5 + 0.3)
+             .to(dtype), torch.randn(n, d, generator=g, device="cuda")
+             .to(dtype)) for _ in range(copies)]
+    return rows, gamma, beta
+
+
+# (rows, width, dtype) of the LN checksums: ViT-B/16's b64 spq 200 rows,
+# a ragged fp32 set, ViT-H/14's b32 spq 264 rows, and the loop form
+LN_CHECK_CASES = ((12800, 768, torch.bfloat16), (591, 768, torch.float32),
+                  (8448, 1280, torch.bfloat16), (591, 2048, torch.bfloat16))
+
+
+def ln_checksums() -> dict:
+    """sha256 prefixes of the LN pair's outputs on seeded inputs: the
+    forward, the backward's dx, and its dγ and dβ."""
+    from vitax_torch.ops import cuda_kernels as ck
+    fwd, dx, dgb = [], [], []
+    with torch.no_grad():
+        for i, (n, d, dtype) in enumerate(LN_CHECK_CASES):
+            [(x, dy)], gamma, beta = _ln_inputs(195 + i, n, d, dtype)
+            fwd.append(_digest((ck.layer_norm(x, gamma, beta, 1e-5),)))
+            outs = ck.layer_norm_bwd(x, gamma, dy, 1e-5)
+            dx.append(_digest(outs[:1]))
+            dgb.append(_digest(outs[1:]))
+    return {"LN fwd": " ".join(fwd), "LN bwd dx": " ".join(dx),
+            "LN bwd dγ dβ": " ".join(dgb)}
+
+
 def repeat_checksums() -> str:
     """K1's and K2's forwards and backwards at ViT-B/16 b8 spq 200, each run
     twice: the two digests of each agree where the kernel is
@@ -176,6 +267,79 @@ def kernel_times() -> dict:
         del head, mlp
     return out
 
+
+HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's 3.35 TB/s
+
+
+def ln_device_times() -> dict:
+    """{case: (device ms, bound ms)} of the LN pair, their library calls
+    and the fused backwards' LN tails at ViT-B/16's widths, and of
+    colsum.cuh's final pass a launch (bound: None)."""
+    import torch.nn.functional as F
+    from vitax_torch.ops import cuda_kernels as ck
+    d, heads, hd, m = B16_WIDTHS
+    eps, bf = 1e-5, torch.bfloat16
+    out = {}
+    for b in (64, 32):
+        n = b * 200
+        rows, gamma, beta = _ln_inputs(196, n, d, bf, copies=4)
+        g, be = gamma.to(bf), beta.to(bf)
+        bound = 2 * 2 * n * d / HBM_BYTES_PER_MS
+        with torch.no_grad():
+            out[f"LN fwd b{b}"] = (device_ms(
+                [lambda x=x: ck.layer_norm(x, gamma, beta, eps)
+                 for x, _ in rows]), bound)
+            out[f"F.layer_norm b{b}"] = (device_ms(
+                [lambda x=x: F.layer_norm(x, (d,), g, be, eps)
+                 for x, _ in rows]), bound)
+        if b == 32:
+            with torch.no_grad():
+                out["LN bwd b32 bf16"] = (device_ms(
+                    [lambda x=x, dy=dy: ck.layer_norm_bwd(x, gamma, dy, eps)
+                     for x, dy in rows]), 3 * 2 * n * d / HBM_BYTES_PER_MS)
+            grads = []
+            for x, dy in rows:
+                xr = x.detach().requires_grad_()
+                gr = g.detach().requires_grad_()
+                br = be.detach().requires_grad_()
+                y = F.layer_norm(xr, (d,), gr, br, eps)
+                grads.append(lambda y=y, xr=xr, gr=gr, br=br, dy=dy:
+                             torch.autograd.grad(y, (xr, gr, br), dy,
+                                                 retain_graph=True))
+            out["autograd F.layer_norm b32"] = (
+                device_ms(grads), 3 * 2 * n * d / HBM_BYTES_PER_MS)
+        del rows
+    # the fused tails: x bf16, dy fp32 (the dx product's output), dx bf16,
+    # and K2's residual R bf16
+    n = 32 * 200
+    calls_k1, calls_k2 = [], []
+    for i in range(4):
+        head, bo, do, mlp = _half_inputs(197 + i, 32, 200, d, 3 * heads * hd,
+                                         heads * hd, m)
+        calls_k1.append(lambda h=head, do=do: ck.fused_ln_qkvo_attention_bwd(
+            *h, do, 1e-5, 197, heads, hd))
+        calls_k2.append(lambda h=head, do=do, w=mlp: ck.fused_ln_mlp_bwd(
+            *h[:3], *w[:3], do, 1e-5))
+    with torch.no_grad():
+        out["LN tail fp32 dy b32 (K1 bwd)"] = (
+            device_ms(calls_k1, reps=5, tail="layer_norm_bwd"),
+            8 * n * d / HBM_BYTES_PER_MS)
+        out["LN tail fp32 dy + R b32 (K2 bwd)"] = (
+            device_ms(calls_k2, reps=5, tail="layer_norm_bwd"),
+            10 * n * d / HBM_BYTES_PER_MS)
+        out["colsum final a launch (K2 bwd b32)"] = (
+            _kernel_ms_per_launch(calls_k2, "colsum_final"), None)
+    return out
+
+
+def _kernel_ms_per_launch(calls, name, reps=5) -> float:
+    """Mean device time of one launch of the kernels whose name holds
+    `name` over `reps` rounds of `calls`."""
+    hits = [e.time_range.elapsed_us() for e in _device_records(calls, reps)
+            if name in e.name]
+    if not hits:
+        raise RuntimeError(f"no device record holds {name!r}")
+    return sum(hits) / len(hits) / 1e3
 
 def _images(image, batch, split="train"):
     from vitax_torch.data import get_dataloader
@@ -293,7 +457,13 @@ def main(argv) -> int:
           f"{smi.stdout.strip().splitlines()[0]}", flush=True)
     for name, digest in checksums().items():
         print(f"{tag}: checksum {name}: {digest}", flush=True)
+    for name, digest in ln_checksums().items():
+        print(f"{tag}: checksum {name}: {digest}", flush=True)
     print(f"{tag}: two runs of each: {repeat_checksums()}", flush=True)
+    for name, (ms, bound) in ln_device_times().items():
+        print(f"{tag}: device {name} {ms:.4f} ms" + (
+            "" if bound is None else
+            f" (bound {bound:.4f}, x{ms / bound:.2f})"), flush=True)
     for name, value in timings().items():
         print(f"{tag}: {name} {value:.3f}" + ("" if "MB" in name else " ms"),
               flush=True)
