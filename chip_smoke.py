@@ -96,8 +96,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              resident batch.
 
 10. h14    — ViT-H/14 (32 layers, D 1280, 16 heads of 80, MLP 5120), whose
-             attention half is K6 (the KV-chunked core; K1's whole-row core
-             does not fit hd 80 or spq 736) and whose MLP backward is K2's
+             attention half is K6 (vitax's K1 gate rejects d > 1024; K6's
+             core is the online one of attention_core.cuh, one walk over
+             64-key tiles) and whose MLP backward is K2's
              :1610 route (d > 1024): `vitax_torch.eval_cli --model-arch h14`
              at its default 384 px (spq 736), b32, 64 Synthetic images,
              counters set to 0 just before and read just after (exact: 32
@@ -270,10 +271,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              one process's run of the same flags.
 
 Phase 3 also holds K6 forward (b32 spq 736 and 264, a ragged spq 40), its
-backward on every output (b32 and b8 spq 264, spq 40) and K2's backward at
-D 1280, MLP 5120 (32 x 264 rows, 3 x 257) against their twins, and K6
-against K1 at ViT-B/16's b32 spq 200, forward and backward, within TOL,
-both timed in turns.
+backward on every output (b32 and b8 spq 264, spq 40; two launches the
+same bits) and K2's backward at D 1280, MLP 5120 (32 x 264 rows, 3 x 257)
+against their twins; K6's online core alone, its forward and its backward
+row pass (head outputs, m, 1/l, dd), against its plain version at head_dim
+64, 80 and 128 (b32 spq 736 and 264, spq 40), timed; and K6 against K1 at
+ViT-B/16's b32 spq 200, forward and backward, within TOL, both timed in
+turns.
 
 Phase 3 also holds the Res-ViT kernels against their twins: K7 (GQA in
 K1, 4 and 6 kv heads) at b64 spq 200; K8 (the rect attention half, bf16
@@ -1399,14 +1403,20 @@ def check_h14_kernels(stats):
         plain = (lambda f=getattr(ck, name + "_ref"), a=args: f(*a))
         with torch.no_grad():
             outs = kern()
+            again = kern() if name == "fused_ln_qkvo_attention_flash_bwd" \
+                else outs
             torch.cuda.synchronize()
             refs = plain()
         if isinstance(outs, torch.Tensor):
-            outs, refs = (outs,), (refs,)
+            outs, again, refs = (outs,), (again,), (refs,)
         errs = _hold_all(name, label, outs, refs, stats)
+        if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+            raise AssertionError(f"{name} {label}: two launches differ")
         line = (f"  {name:34s} {label:24s} max|k-ref| per output "
-                f"[{' '.join(errs)}]: ok")
-        del outs, refs
+                f"[{' '.join(errs)}]: ok"
+                + ("; two launches the same bits" if again is not outs
+                   else ""))
+        del outs, refs, again
         if timed:
             with torch.no_grad():
                 k_ms = _median_ms(kern, warmup=2, iters=10)
@@ -1420,6 +1430,8 @@ def check_h14_kernels(stats):
         print(line, flush=True)
         del t, args, kern, plain
         torch.cuda.empty_cache()
+
+    check_online_core(stats)
 
     t = _inputs(32, 200, seed=170)
     g = torch.Generator(device="cuda").manual_seed(171)
@@ -1455,6 +1467,75 @@ def check_h14_kernels(stats):
           f"{' / '.join(f'{v:.4f}' for v in ms['K6', 1])} ms, K1 "
           f"{' / '.join(f'{v:.4f}' for v in ms['K1', 1])} ms", flush=True)
     return stats
+
+
+# K6's online core alone (ck.flash_online_core: its forward and its
+# backward row pass) at ViT-H/14's spq 736 (@384) and 264 (@224), b32, and
+# a ragged spq 40 (keys masked past 37), at head_dim 64, 80 and 128 with
+# H/14's 1280 columns of heads (ViT-L/16 @384 runs K6 at head_dim 64)
+ONLINE_CASES = [(32, 736, 730), (32, 264, 257), (3, 40, 37)]
+ONLINE_HEAD_DIMS = (64, 80, 128)
+
+
+def check_online_core(stats):
+    """Phase 3: K6's online core alone against its plain version
+    (`flash_online_rows_ref`): the bf16 head outputs and the row pass's dd
+    within TOL (the same 64-key tiles and rounding points; sums in another
+    order), its m·scale·log2e within 1e-4·max(1, |m|) and 1/l within 1e-4
+    relative (ex2.approx and the order of the row sums); the forward timed at b32 spq 736 and the
+    row pass at b32 spq 264 at each head_dim."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    stats["online_core"] = times = {}
+    for hd in ONLINE_HEAD_DIMS:
+        heads = H14[0] // hd
+        for i, (batch, spq, seq) in enumerate(ONLINE_CASES):
+            g = torch.Generator(device="cuda").manual_seed(180 + 10 * i + hd)
+            qkv = torch.randn((batch, spq, 3 * heads * hd), generator=g,
+                              device="cuda").to(torch.bfloat16)
+            dattn = torch.randn((batch, spq, heads * hd), generator=g,
+                                device="cuda").to(torch.bfloat16)
+            args = (qkv, seq, heads, hd)
+            with torch.no_grad():
+                attn = ck.flash_online_core(*args)
+                attn2, st = ck.flash_online_core(*args, dattn=dattn)
+                torch.cuda.synchronize()
+                ref = ck.flash_online_rows_ref(*args)
+                ref2, st_ref = ck.flash_online_rows_ref(*args, dattn=dattn)
+            errs = []
+            for what, a, b in (("out", attn, ref), ("row pass out", attn2,
+                                                    ref2),
+                               ("dd", st[:, :, 2], st_ref[:, :, 2])):
+                err = (a.float() - b.float()).abs().max().item()
+                bound = TOL * max(1.0, b.float().abs().max().item())
+                if not (err <= bound and bool(torch.isfinite(a).all())):
+                    raise AssertionError(f"online core hd {hd} {batch}x{spq}"
+                                         f" {what}: {err} > {bound}")
+                errs.append(f"{what} {err:.2e}<={bound:.2e}")
+            if not torch.equal(attn, attn2):
+                raise AssertionError(f"online core hd {hd} {batch}x{spq}: "
+                                     "the row pass's out is not the forward's")
+            for what, j, floor in (("m", 0, 1.0), ("1/l", 1, 1e-30)):
+                rel = ((st[:, :, j] - st_ref[:, :, j]).abs()
+                       / st_ref[:, :, j].abs().clamp_min(floor)).max().item()
+                if not rel <= 1e-4:
+                    raise AssertionError(f"online core hd {hd} {batch}x{spq}"
+                                         f" {what}: relative {rel}")
+                errs.append(f"{what} rel {rel:.1e}")
+            line = (f"  online core hd {hd:3d} b{batch} spq{spq} seq{seq}: "
+                    f"[{' '.join(errs)}]: ok")
+            if i < 2:
+                with torch.no_grad():
+                    kw = {} if i == 0 else {"dattn": dattn}
+                    ms = _median_ms(lambda: ck.flash_online_core(*args, **kw),
+                                    warmup=2, iters=20)
+                times[f"{'fwd' if i == 0 else 'row pass'} hd{hd} b{batch} "
+                      f"spq{spq}"] = ms
+                line += (f"; {'forward' if i == 0 else 'row pass'} "
+                         f"{ms:.4f} ms (median of 20)")
+            print(line, flush=True)
+            del qkv, dattn, attn, attn2, st, ref, ref2, st_ref
+            torch.cuda.empty_cache()
 
 
 H14_LAYERS = 32

@@ -357,6 +357,23 @@ def test_k1_and_k2_backwards_keep_p_ds_and_a1_out_of_device_memory(dev):
     assert k2 <= k2_rest + 4 * n * m / 3, (k2, k2_rest)
 
 
+def test_k6_backward_keeps_p_ds_out_of_device_memory(dev):
+    """At ViT-H/14's b32 spq 264 the K6 backward allocates no bf16 P and ds
+    (2·b·H·272² bf16, 151 MB): the call's peak stays under its outputs and
+    remaining scratch plus a third of what those would add."""
+    b, spq, d, h, hd = 32, 264, 1280, 16, 80
+    n, w, hhd = b * spq, 3 * h * hd, h * hd
+    _, bwd = _flash_args(dev, b, spq, 257, d, h, hd)
+    peak, _ = _peak_bytes(lambda: ck.fused_ln_qkvo_attention_flash_bwd(*bwd))
+    lib = ck.build.load()
+    rest = (2 * n * d + 4 * (2 * d + d * w + w + hhd * d + d)  # outputs
+            + 2 * (n * d + 2 * n * w + 2 * n * hhd) + 4 * n * d  # scratch
+            + 4 * lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w)
+            + 4 * lib.vitax_attention_core_bwd_ws(b, spq, h))
+    rows = (spq + 15) // 16 * 16
+    assert peak <= rest + 2 * 2 * b * h * rows * rows / 3, (peak, rest)
+
+
 def test_fp32_layer_norm_and_ragged_rows(dev):
     x = torch.randn(3, 197, 768, device=dev)
     g, b = torch.rand(768, device=dev) + 0.5, torch.randn(768, device=dev)
@@ -1021,6 +1038,47 @@ def test_flash_autograd_launches_both_kernels(dev):
         assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
 
 
+# K6's online core alone (ck.flash_online_core, its forward and its
+# backward row pass): (batch, spq, seq_len, head_dim), heads filling
+# ViT-H/14's 1280 columns: spq 736 and 264 and a ragged 40, a whole key
+# tile past seq_len (spq 136, seq 100), at head_dim 64, 80 and 128
+ONLINE_SHAPES = [(2, 736, 730, 64), (2, 736, 730, 80), (2, 264, 257, 80),
+                 (2, 264, 257, 128), (3, 40, 37, 80), (3, 40, 37, 128),
+                 (2, 136, 100, 64)]
+
+
+@pytest.mark.parametrize("shape", ONLINE_SHAPES)
+def test_online_core_matches_plain_version(dev, shape):
+    """The head outputs and dd within the bf16 band of the plain version
+    (the same 64-key tiles and rounding points), m·scale·log2e within
+    1e-4·max(1, |m|) and 1/l within 1e-4 relative (ex2.approx, the order
+    of the row sums); the row pass's out is the forward's, bit for bit, and
+    its statistics past spq are 0."""
+    b, spq, seq, hd = shape
+    heads = 1280 // hd
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    qkv = torch.randn((b, spq, 3 * heads * hd), generator=g,
+                      device=dev).to(torch.bfloat16)
+    dattn = torch.randn((b, spq, heads * hd), generator=g,
+                        device=dev).to(torch.bfloat16)
+    args = (qkv, seq, heads, hd)
+    with torch.no_grad():
+        out = ck.flash_online_core(*args)
+        out2, st = ck.flash_online_core(*args, dattn=dattn)
+        torch.cuda.synchronize()
+        ref = ck.flash_online_rows_ref(*args)
+        _, st_ref = ck.flash_online_rows_ref(*args, dattn=dattn)
+    _assert_close(out, ref)
+    assert torch.equal(out, out2)
+    assert st.shape == st_ref.shape == (b, heads, 3, (spq + 63) // 64 * 64)
+    _assert_close(st[:, :, 2], st_ref[:, :, 2])
+    m, m_ref = st[:, :, 0], st_ref[:, :, 0]
+    assert ((m - m_ref).abs() <= 1e-4 * m_ref.abs().clamp_min(1.0)).all()
+    il, il_ref = st[:, :, 1], st_ref[:, :, 1]
+    assert ((il - il_ref).abs() <= 1e-4 * il_ref.abs()).all()
+    assert not st[..., spq:].any()
+
+
 def test_flash_gates_take_h14_and_k1_does_not(dev):
     for spq in (736, 264):
         x = torch.empty((2, spq, 1280), dtype=torch.bfloat16, device=dev)
@@ -1029,6 +1087,8 @@ def test_flash_gates_take_h14_and_k1_does_not(dev):
         assert ck.qkv_attention_flash_supported(x, w, 16)
         assert ck.qkv_attention_flash_bwd_supported(x, w, 16)
         assert not ck.qkv_attention_flash_supported(x.float(), w, 16)
+    for hd in ck.FLASH_HEAD_DIMS:  # every instance of the online core fits
+        assert ck.online_core_smem_bytes(hd, backward=True) <= ck.SMEM_LIMIT
 
 
 # K2's backward at d > 1024 (the :1610 route): ViT-H/14's widths at b2 spq

@@ -275,17 +275,6 @@ __global__ void __launch_bounds__(32 * kKvWarps) attention_bwd_kv_kernel(AttnBwd
   }
 }
 
-// The key-tile pass alone, over P and DS that a query-tile pass wrote (K1's
-// above, or K6's KV-chunked one, attention_flash.cuh).
-template <int HD>
-cudaError_t launch_attention_bwd_kv(const AttnBwdGeom& g, cudaStream_t stream) {
-  const int k_tiles = (g.f.kv_rows + 15) / 16;
-  attention_bwd_kv_kernel<HD>
-      <<<dim3((k_tiles + kKvWarps - 1) / kKvWarps, g.f.kv_heads, g.f.b), 32 * kKvWarps, 0,
-         stream>>>(g);
-  return cudaGetLastError();
-}
-
 template <int HD>
 cudaError_t launch_attention_bwd(const AttnBwdGeom& g, cudaStream_t stream) {
   const AttnGeom& f = g.f;
@@ -304,7 +293,11 @@ cudaError_t launch_attention_bwd(const AttnBwdGeom& g, cudaStream_t stream) {
       <<<dim3((q_tiles + warps - 1) / warps, f.heads, f.b), 32 * warps, smem, stream>>>(g);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_attention_bwd_kv<HD>(g, stream);
+  const int k_tiles = (f.kv_rows + 15) / 16;  // the key-tile pass over the P and DS just written
+  attention_bwd_kv_kernel<HD>
+      <<<dim3((k_tiles + kKvWarps - 1) / kKvWarps, f.kv_heads, f.b), 32 * kKvWarps, 0, stream>>>(
+          g);
+  return cudaGetLastError();
 }
 
 // The backward core for head_dim 32, 64 or 128 at geometry g.

@@ -64,7 +64,7 @@ cudaError_t launch_core_fwd(const CoreArgs& a, int head_dim, int images, cudaStr
   switch (head_dim) {
 #define VITAX_CASE(HD) \
   case HD:             \
-    return launch_rows<HD, false>(a, images, st);
+    return launch_rows<HD, kRowsFwd>(a, images, st);
     VITAX_K13_HEAD_DIMS(VITAX_CASE)
 #undef VITAX_CASE
     default:

@@ -32,6 +32,10 @@
 // and rounds it to bf16 once (_softmax_rows :75-80), so the kernel needs m
 // and l of the row before it forms the p that P·V consumes; a one-pass
 // online softmax would round the unnormalised p of each tile instead.
+// K6 (vitax's _flash_head_fwd, pallas_kernels.py:3391-3416) does just that:
+// it rounds the unnormalised p = exp(s − m_new) of each key chunk, rescales
+// its fp32 accumulator by α = exp(m − m_new) and divides by l at the end.
+// Its core is the online mode of core_rows_kernel: one pass over the keys.
 //
 // Shared memory tiles are [64 rows, HD] bf16 in wgmma's no-swizzle layout:
 // 8×8 core matrices of 128 contiguous bytes, core (row group rg, column
@@ -98,9 +102,12 @@ __device__ __forceinline__ size_t head_off(const CoreArgs& a, int ld, int img, i
 // The forward (attention_core.cu) and the backward's three passes
 // (attention_core_bwd.cu) on any geometry of CoreArgs, head_dim one of
 // VITAX_K13_HEAD_DIMS, images <= 65535: the forward writes a.o, the
-// backward a.dq, a.dk, a.dv with a.stats as scratch.
+// backward a.dq, a.dk, a.dv with a.stats as scratch. launch_core_bwd_passes
+// runs the backward's key and query passes alone, on the a.stats that a
+// row pass wrote (K6's online one, launch_core_online below).
 cudaError_t launch_core_fwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st);
 cudaError_t launch_core_bwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st);
+cudaError_t launch_core_bwd_passes(const CoreArgs& a, int head_dim, int images, cudaStream_t st);
 
 // ---------------------------------------------------------------- wgmma
 
@@ -336,22 +343,43 @@ constexpr int kRowWgs = 2;
 template <int HD>
 constexpr int kStages = HD <= 80 ? 4 : 3;
 
+// What a block of core_rows_kernel computes
+enum RowsMode : int {
+  kRowsFwd = 0,          // K13's forward: the statistics pass, then p normalised and P·V
+  kRowsStats = 1,        // K13's backward row pass: the statistics pass and dd
+  kRowsOnline = 2,       // K6's forward: one pass, the online recurrence
+  kRowsOnlineStats = 3,  // K6's backward row pass: the online forward, its statistics and dd
+};
+
 // Shared memory of core_rows_kernel: two Q tiles, then kStages K tiles and,
-// in the forward, kStages V tiles (the row pass stages no V)
-template <int HD, bool kRowPass>
-constexpr size_t kRowsSmem = (kRowWgs + (kRowPass ? 1 : 2) * kStages<HD>) * kTileBytes<HD>;
+// but in K13's row pass, kStages V tiles
+template <int HD, int kMode>
+constexpr size_t kRowsSmem =
+    (kRowWgs + (kMode == kRowsStats ? 1 : 2) * kStages<HD>) * kTileBytes<HD>;
 
 // One block a (two 64-row query tiles, head, image), a warpgroup a tile.
-// Pass 1 walks the key tiles for the row statistics: m (of s·scale·log2e)
-// and l by the online recurrence, staging K only. The forward's pass 2
-// walks them again: p = exp2(s·scale·log2e − m)·(1/l), 0 on the keys >=
-// seq, rounded to bf16 once, and O += P·V in fp32 registers, cast once.
-// Step t of pass 2 issues q·kᵀ of tile t, then P·V of tile t − 1, and forms
-// tile t's p while the tensor cores run the latter. The row pass
-// (kRowPass) stops after pass 1 and writes m, 1/l and
-// dd = Σ fp32(dO)·fp32(out) of its rows (0 for the rows >= seq) to a.stats.
-template <int HD, bool kRowPass>
+// kRowsFwd and kRowsStats: pass 1 walks the key tiles for the row
+// statistics: m (of s·scale·log2e) and l by the online recurrence, staging
+// K only. The forward's pass 2 walks them again: p =
+// exp2(s·scale·log2e − m)·(1/l), 0 on the keys >= seq, rounded to bf16
+// once, and O += P·V in fp32 registers, cast once. Step t of pass 2 issues
+// q·kᵀ of tile t, then P·V of tile t − 1, and forms tile t's p while the
+// tensor cores run the latter. The row pass (kRowsStats) stops after pass 1
+// and writes m, 1/l and dd = Σ fp32(dO)·fp32(out) of its rows (0 for the
+// rows >= seq) to a.stats.
+// kRowsOnline and kRowsOnlineStats (K6): one walk over the K and V tiles,
+// with the same overlap: per tile m_new = max(m, rowmax(s)·scale·log2e),
+// α = exp2(m − m_new), p = exp2(s·scale·log2e − m_new) (0 on the keys >=
+// seq), l = l·α + Σp from the unrounded p, and bf16(p) packed as the A of
+// P·V; O is rescaled by α once the previous tile's P·V has landed in it, so
+// O = Σ α-rescaled bf16(p)·V in fp32, and out = O·(1/l), rounded to bf16
+// once. kRowsOnlineStats also writes m, 1/l and dd = Σ fp32(dO)·out with
+// the fp32 out (vitax's :3479), the statistics K13's key and query passes
+// read.
+template <int HD, int kMode>
 __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a) {
+  constexpr bool kRowPass = kMode == kRowsStats;
+  constexpr bool kOnline = kMode == kRowsOnline || kMode == kRowsOnlineStats;
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kT = kRows * HD;
   constexpr int kBlock = kRowWgs * kThreads;
@@ -366,7 +394,7 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
   const bf16* kh = a.k + head_off(a, a.ld_k, img, h, HD);
   const bf16* vh = a.v + head_off(a, a.ld_v, img, h, HD);
   const int nt = (a.seq + kRows - 1) / kRows;
-  const int steps = kRowPass ? nt : 2 * nt;
+  const int steps = kRowPass || kOnline ? nt : 2 * nt;
   const float c = a.scale * kLog2e;
 
   // a tile past the rows (the second of a block) stages zeros
@@ -374,13 +402,15 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
                       a.q + head_off(a, a.ld_q, img, h, HD) +
                           static_cast<size_t>(q0 < a.rows ? q0 : 0) * a.ld_q,
                       a.ld_q, a.rows - q0, threadIdx.x % kThreads);
-  auto issue = [&](int step) {  // step < nt: pass 1, K only; else pass 2, K and V
+  // the two-pass modes: step < nt pass 1, K only; else pass 2, K and V;
+  // the online modes: K and V of tile `step`
+  auto issue = [&](int step) {
     if (step < steps) {
-      const int kt = step < nt ? step : step - nt;
+      const int kt = kOnline || step < nt ? step : step - nt;
       const size_t r0 = static_cast<size_t>(kt) * kRows;
       stage<HD, kBlock>(Ks + step % kS * kT, kh + r0 * a.ld_k, a.ld_k, a.seq - kt * kRows,
                         threadIdx.x);
-      if (step >= nt)
+      if (kOnline || step >= nt)
         stage<HD, kBlock>(Vs + step % kS * kT, vh + r0 * a.ld_v, a.ld_v, a.seq - kt * kRows,
                           threadIdx.x);
     }
@@ -399,68 +429,160 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kS - 3>();
-    fence_async_smem();
-    __syncthreads();  // tile `step` has landed; tile step − 2's buffers are free
-    issue(step + kS - 2);
-    const int k0 = (step < nt ? step : step - nt) * kRows;
-    wg_fence();
-    mma_abt<HD>(s, Qs, Ks + step % kS * kT);
-    wg_commit();
-    if (!kRowPass && step > nt) {  // P·V of the previous tile runs under this tile's softmax
-      mma_pb<HD>(o, pf, Vs + (step - 1) % kS * kT);
+  if constexpr (kOnline) {
+    for (int step = 0; step < nt; ++step) {
+      cp_async_wait<kS - 3>();
+      fence_async_smem();
+      __syncthreads();  // K and V of tile `step` have landed; tile step − 2's slots are free
+      issue(step + kS - 2);
+      const int k0 = step * kRows;
+      wg_fence();
+      mma_abt<HD>(s, Qs, Ks + step % kS * kT);
       wg_commit();
-      wg_wait<1>();
-    } else {
-      wg_wait();
-    }
-    fence_regs<32>(s);
-    const bool edge = k0 + kRows > a.seq;  // the last tile: keys >= seq
-    if (step < nt) {
-      if (edge) {
+      if (step > 0) {  // P·V of the previous tile runs under this tile's softmax
+        mma_pb<HD>(o, pf, Vs + (step - 1) % kS * kT);
+        wg_commit();
+        wg_wait<1>();
+      } else {
+        wg_wait();
+      }
+      fence_regs<32>(s);
+      if (k0 + kRows > a.seq) {  // the last tile: keys >= seq
 #pragma unroll
         for (int i = 0; i < 32; ++i)
           if (k0 + acc_col(i) >= a.seq) s[i] = -INFINITY;
       }
+      float alpha[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {  // the row's registers 4(j/2) + 2r + j%2
         float mx = s[2 * r];
 #pragma unroll
         for (int j = 1; j < 16; ++j) mx = fmaxf(mx, s[4 * (j / 2) + 2 * r + j % 2]);
         const float mn = fmaxf(m[r], quad_max(mx) * c);  // scale > 0: max commutes
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) sum += ex2(fmaf(s[4 * (j / 2) + 2 * r + j % 2], c, -mn));
-        l[r] = l[r] * ex2(m[r] - mn) + sum;
+        alpha[r] = ex2(m[r] - mn);  // 0 at the first tile (m = −inf)
         m[r] = mn;
       }
-      continue;
-    }
-    if (step == nt) {
+      float sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = 1.f / quad_sum(l[r]);  // 1/l, as _softmax_rows
-    }
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ex2(fmaf(s[i], c, -m[(i / 2) % 2]));  // −inf (masked) → 0
+        sum[(i / 2) % 2] += s[i];
+      }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], c, -m[(i / 2) % 2])) * l[(i / 2) % 2];
-    if (edge) {
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];  // a lane's columns
+      wg_wait();  // the previous P·V has landed in o and read pf
+      fence_regs<HD / 2>(o);
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
-        if (k0 + acc_col(i) >= a.seq) s[i] = 0.f;
+      for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      to_frags(s, pf);
     }
-    wg_wait();  // the previous P·V has read pf
-    fence_regs<HD / 2>(o);
-    to_frags(s, pf);
-  }
-  if constexpr (!kRowPass) {  // P·V of the last tile
-    wg_fence();
-    mma_pb<HD>(o, pf, Vs + (steps - 1) % kS * kT);
+    wg_fence();  // P·V of the last tile
+    mma_pb<HD>(o, pf, Vs + (nt - 1) % kS * kT);
     wg_commit();
     wg_wait();
     fence_regs<HD / 2>(o);
+  } else {
+    for (int step = 0; step < steps; ++step) {
+      cp_async_wait<kS - 3>();
+      fence_async_smem();
+      __syncthreads();  // tile `step` has landed; tile step − 2's buffers are free
+      issue(step + kS - 2);
+      const int k0 = (step < nt ? step : step - nt) * kRows;
+      wg_fence();
+      mma_abt<HD>(s, Qs, Ks + step % kS * kT);
+      wg_commit();
+      if (!kRowPass && step > nt) {  // P·V of the previous tile runs under this tile's softmax
+        mma_pb<HD>(o, pf, Vs + (step - 1) % kS * kT);
+        wg_commit();
+        wg_wait<1>();
+      } else {
+        wg_wait();
+      }
+      fence_regs<32>(s);
+      const bool edge = k0 + kRows > a.seq;  // the last tile: keys >= seq
+      if (step < nt) {
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            if (k0 + acc_col(i) >= a.seq) s[i] = -INFINITY;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // the row's registers 4(j/2) + 2r + j%2
+          float mx = s[2 * r];
+#pragma unroll
+          for (int j = 1; j < 16; ++j) mx = fmaxf(mx, s[4 * (j / 2) + 2 * r + j % 2]);
+          const float mn = fmaxf(m[r], quad_max(mx) * c);  // scale > 0: max commutes
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) sum += ex2(fmaf(s[4 * (j / 2) + 2 * r + j % 2], c, -mn));
+          l[r] = l[r] * ex2(m[r] - mn) + sum;
+          m[r] = mn;
+        }
+        continue;
+      }
+      if (step == nt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = 1.f / quad_sum(l[r]);  // 1/l, as _softmax_rows
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], c, -m[(i / 2) % 2])) * l[(i / 2) % 2];
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (k0 + acc_col(i) >= a.seq) s[i] = 0.f;
+      }
+      wg_wait();  // the previous P·V has read pf
+      fence_regs<HD / 2>(o);
+      to_frags(s, pf);
+    }
+    if constexpr (!kRowPass) {  // P·V of the last tile
+      wg_fence();
+      mma_pb<HD>(o, pf, Vs + (steps - 1) % kS * kT);
+      wg_commit();
+      wg_wait();
+      fence_regs<HD / 2>(o);
+    }
   }
 
-  if constexpr (kRowPass) {
+  if constexpr (kOnline) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l[r]);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= inv[(i / 2) % 2];  // the fp32 out
+    store_rows<HD>(o, 1.f, Ks + wg * kRows * (HD + 8),
+                   a.o + head_off(a, a.ld_o, img, h, HD) + static_cast<size_t>(q0) * a.ld_o,
+                   a.ld_o, a.rows - q0);
+    if constexpr (kMode == kRowsOnlineStats) {
+      // m, 1/l, dd of rows g and g + 8 from the t = 0 lane of each quad, dd
+      // summed over the quad's columns from the fp32 out in registers;
+      // nothing from a warpgroup whose tile starts at or past the rows
+      float* st = a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad + q0;
+      const bool tile = q0 < a.rows;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = acc_row(2 * r);
+        const bool ok = q0 + row < a.rows;
+        float dd = 0.f;
+        if (ok) {
+          const bf16* rd = a.dout + head_off(a, a.ld_do, img, h, HD) +
+                           static_cast<size_t>(q0 + row) * a.ld_do;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j) {  // registers 4j + 2r, 4j + 2r + 1: columns 8j + 2t, + 1
+            const float2 d =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rd + acc_col(4 * j)));
+            dd += d.x * o[4 * j + 2 * r] + d.y * o[4 * j + 2 * r + 1];
+          }
+        }
+        dd = quad_sum(dd);
+        if (tile && threadIdx.x % 4 == 0) {
+          st[row] = ok ? m[r] : 0.f;
+          st[a.seq_pad + row] = ok ? inv[r] : 0.f;
+          st[2 * a.seq_pad + row] = dd;
+        }
+      }
+    }
+  } else if constexpr (kRowPass) {
     // m, 1/l of rows g and g + 8 from the t = 0 lane of each quad; dd by
     // two threads a row; nothing from a warpgroup whose tile starts at or
     // past the rows (seq_pad ends there)
@@ -503,20 +625,39 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
   }
 }
 
-template <int HD, bool kRowPass>
+template <int HD, int kMode>
 cudaError_t launch_rows(const CoreArgs& a, int images, cudaStream_t st) {
-  constexpr size_t smem = kRowsSmem<HD, kRowPass>;
-  const cudaError_t e = cudaFuncSetAttribute(core_rows_kernel<HD, kRowPass>,
+  constexpr size_t smem = kRowsSmem<HD, kMode>;
+  const cudaError_t e = cudaFuncSetAttribute(core_rows_kernel<HD, kMode>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid((a.rows + kRowWgs * kRows - 1) / (kRowWgs * kRows), a.heads, images);
-  core_rows_kernel<HD, kRowPass><<<grid, kRowWgs * kThreads, smem, st>>>(a);
+  core_rows_kernel<HD, kMode><<<grid, kRowWgs * kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 // The head dims of the K13 instances: every multiple of 16 up to 128
 #define VITAX_K13_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+// K6's (cuda_kernels.FLASH_HEAD_DIMS), a subset of them
+#define VITAX_K6_HEAD_DIMS(X) X(32) X(64) X(80) X(128)
+
+// K6's online core, kMode kRowsOnline (its forward, ln_qkvo_attention_flash.cu:
+// writes a.o) or kRowsOnlineStats (its backward's row pass,
+// ln_qkvo_attention_flash_bwd.cu: a.o and a.stats), head_dim one of
+// VITAX_K6_HEAD_DIMS; each source instantiates its own mode.
+template <int kMode>
+cudaError_t launch_core_online(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
+  switch (head_dim) {
+#define VITAX_CASE(HD) \
+  case HD:             \
+    return launch_rows<HD, kMode>(a, images, st);
+    VITAX_K6_HEAD_DIMS(VITAX_CASE)
+#undef VITAX_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace k13
 }  // namespace vitax

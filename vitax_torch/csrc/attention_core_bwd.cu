@@ -50,7 +50,11 @@
 // through launch_core_bwd on its packed qkv rows (CoreArgs with a row
 // stride per tensor): query rows to spq, keys masked at seq_len, dq, dk, dv
 // written into dqkv's columns; the key pass writes the rows seq_len..spq of
-// dk and dv as zeros, since p is 0 on those keys.
+// dk and dv as zeros, since p is 0 on those keys. K6's backward
+// (ln_qkvo_attention_flash_bwd.cu) runs its own row pass, the online
+// forward's (attention_core.cuh, kRowsOnlineStats: dd from the fp32 out,
+// vitax's :3479), then the key and query passes alone
+// (launch_core_bwd_passes), which read its statistics as they read these.
 #include "attention_core.cuh"
 
 namespace vitax {
@@ -276,13 +280,12 @@ __global__ void __launch_bounds__(kThreads) core_dq_kernel(CoreArgs a) {
                  a.ld_dq, a.rows - q0);
 }
 
+// The key and query passes
 template <int HD>
-cudaError_t launch_bwd(const CoreArgs& a, int images, cudaStream_t st) {
-  cudaError_t e = launch_rows<HD, true>(a, images, st);
-  if (e != cudaSuccess) return e;
+cudaError_t launch_passes(const CoreArgs& a, int images, cudaStream_t st) {
   const dim3 grid((a.rows + kRows - 1) / kRows, a.heads, images);
-  e = cudaFuncSetAttribute(core_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kDkvSmem<HD>));
+  cudaError_t e = cudaFuncSetAttribute(
+      core_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDkvSmem<HD>));
   if (e != cudaSuccess) return e;
   core_dkv_kernel<HD><<<grid, kThreads, kDkvSmem<HD>, st>>>(a);
   e = cudaGetLastError();
@@ -294,11 +297,29 @@ cudaError_t launch_bwd(const CoreArgs& a, int images, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t launch_bwd(const CoreArgs& a, int images, cudaStream_t st) {
+  const cudaError_t e = launch_rows<HD, kRowsStats>(a, images, st);
+  return e != cudaSuccess ? e : launch_passes<HD>(a, images, st);
+}
+
 cudaError_t launch_core_bwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
   switch (head_dim) {
 #define VITAX_CASE(HD) \
   case HD:             \
     return launch_bwd<HD>(a, images, st);
+    VITAX_K13_HEAD_DIMS(VITAX_CASE)
+#undef VITAX_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_core_bwd_passes(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
+  switch (head_dim) {
+#define VITAX_CASE(HD) \
+  case HD:             \
+    return launch_passes<HD>(a, images, st);
     VITAX_K13_HEAD_DIMS(VITAX_CASE)
 #undef VITAX_CASE
     default:

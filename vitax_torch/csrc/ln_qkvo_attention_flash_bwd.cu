@@ -12,36 +12,42 @@
 //   dbqkv = Σ fp32(dqkv); LN tail dx, dγ = Σ dxn x̂, dβ = Σ dxn   (:3514-3531)
 // Weight and vector grads come out in fp32, as the TPU kernel's outputs.
 //
-// Bound on the H100: the projections' six products and the core's five
-// (the recompute's two, dp, dq, and the key-tile pass's dk and dv), all
-// tensor-core bound. The TPU kernel carries dW, db, dγ, dβ across its
-// sequential grid in VMEM; here, as in K1's backward, every weight grad is
-// one kTN product over all rows (ordered split K) and every vector grad a
-// two-pass column sum: no float atomics, the same bits each run. The core
-// backward keeps shared memory independent of spq: the query-tile pass
-// (attention_flash.cuh) recomputes (m, l) itself, writes the bf16 P and ds
-// rows of each (image, head) to device memory ([b, H, L, L], L = spq rounded
-// up to 16: 76 MB each at b32 spq 264) and dq; the key-tile pass of K1's
-// backward (attention_bwd.cuh) then sums dk and dv over the query tiles in
-// fp32 fragments, one owner per row. The query-tile pass also writes the
-// recomputed bf16 head outputs, the out-projection's weight-grad operand,
-// so the forward's core does not run a second time.
-#include "attention_flash.cuh"
-#include "gemm.cuh"
+// Bound on the H100: the projections' six products and the core's (the
+// recompute's q·kᵀ and P·V, dO·vᵀ, ds·k, dsᵀ·q, pᵀ·dO), all tensor-core
+// bound. K1's backward sequence (ln_qkvo_attention_bwd.cu) with one change
+// in the core: where K1 recomputes attn with K13's forward and then runs
+// K13's row pass, K6 runs one row pass, the online forward's
+// (attention_core.cuh, kRowsOnlineStats): it writes the recomputed bf16
+// head outputs into attn (the out-projection's weight-grad operand) and, to
+// the [b, heads, 3, seq_pad] `stats` scratch, m·scale·log2e, 1/l and dd =
+// Σ fp32(dO)·out from the fp32 out in its registers (vitax's :3479), so it
+// runs after dattn = do·Woᵀ. K13's key pass (dk, dv) and query pass (dq)
+// then read those statistics, p = exp2(s·scale·log2e − m)·(1/l) as vitax's
+// exp(s − m)/l (:3494), and write into dqkv's packed columns. Neither P
+// nor ds reaches device memory. Products on gemm_sm90.cuh (wgmma
+// m64n128k16 on a producer warp's TMA loads): the qkv recompute (the
+// forward's very call, so the same qkv bits), dattn (kNT into bf16), dWo
+// and dWqkv (kTN over all rows, split K with an ordered second pass), dxn
+// (kNT into fp32); every vector grad a two-pass column sum (colsum.cuh).
+// No float atomics: two runs give the same bits.
+#include "attention_core.cuh"
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 // Outputs dx (bf16 [n, d]) and fp32 dgamma, dbeta [d], dwqkv [d, 3 hhd],
 // dbqkv [3 hhd], dwo [hhd, d], dbo [d]. Scratch (bf16 unless noted): xn
-// [n,d], qkv [n,3 hhd], attn and dattn [n,hhd], p and ds [b,heads,L,L] with
-// L = round_up(spq, 16), dqkv [n,3 hhd], dxn fp32 [n,d], ws fp32
-// vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, 3 hhd).
+// [n,d], qkv [n,3 hhd], attn and dattn [n,hhd], stats fp32
+// vitax_attention_core_bwd_ws(b, spq, heads), dqkv [n,3 hhd], dxn fp32
+// [n,d], ws fp32 vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, 3 hhd).
 extern "C" int vitax_ln_qkvo_attention_flash_bwd(
     const void* x, const void* gamma, const void* beta, const void* wqkv, const void* bqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
-    void* dbqkv, void* dwo, void* dbo, void* xn, void* qkv, void* attn, void* dattn, void* p,
-    void* ds, void* dqkv, void* dxn, void* ws, int b, int spq, int d, int seq_len, int heads,
-    int head_dim, float eps, float scale, void* stream) {
+    void* dbqkv, void* dwo, void* dbo, void* xn, void* qkv, void* attn, void* dattn, void* stats,
+    void* dqkv, void* dxn, void* ws, int b, int spq, int d, int seq_len, int heads, int head_dim,
+    float eps, float scale, void* stream) {
   using vitax::bf16;
+  namespace sm90 = vitax::sm90;
+  namespace k13 = vitax::k13;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
@@ -56,38 +62,47 @@ extern "C" int vitax_ln_qkvo_attention_flash_bwd(
   auto* dqkvb = static_cast<bf16*>(dqkv);
   auto* dxnf = static_cast<float*>(dxn);
   auto* wsf = static_cast<float*>(ws);
-  if (n == 0) return cudaErrorInvalidValue;
+  if (n == 0 || b > 65535 || seq_len <= 0 || seq_len > spq) return cudaErrorInvalidValue;
 
   // recompute LN1 and qkv; dattn
   cudaError_t e = vitax::launch_layer_norm(xb, static_cast<const float*>(gamma),
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xnb, wqkvb, static_cast<const float*>(bqkv),
-                                       qkvb, n, w, d, st);
+  e = sm90::gemm_nn<sm90::kEpiBias>(xnb, wqkvb, static_cast<const float*>(bqkv), qkvb, nullptr,
+                                    n, w, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), dattnb,
-                                           nullptr, n, hhd, d, st);
+  e = sm90::gemm_nt<sm90::kEpiStore>(dob, static_cast<const bf16*>(wo), dattnb, nullptr, n, hhd,
+                                     d, st);
   if (e != cudaSuccess) return e;
 
-  // the core's grads -> dqkv, and the recomputed attn
-  const vitax::AttnGeom f =
-      vitax::attn_geom_square(qkvb, b, spq, seq_len, heads, head_dim, scale);
-  const vitax::AttnBwdGeom g{f,     attnb, dattnb, dqkvb,          f.q_ld, dqkvb,
-                             f.q_ld, f.k_off, f.v_off, static_cast<bf16*>(p),
-                             static_cast<bf16*>(ds)};
-  e = vitax::launch_flash_bwd_hd(g, head_dim, attnb, st);
+  // the online row pass: attn and the row statistics
+  k13::CoreArgs a{};
+  a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd;
+  a.o = attnb, a.dout = dattnb;
+  a.dq = dqkvb, a.dk = dqkvb + hhd, a.dv = dqkvb + 2 * hhd;
+  a.stats = static_cast<float*>(stats);
+  a.seq = seq_len, a.rows = spq, a.img_rows = spq, a.heads = heads;
+  a.seq_pad = (spq + k13::kRows - 1) / k13::kRows * k13::kRows;
+  a.scale = scale;
+  a.ld_q = a.ld_k = a.ld_v = a.ld_dq = a.ld_dk = a.ld_dv = w;
+  a.ld_o = a.ld_do = hhd;
+  e = k13::launch_core_online<k13::kRowsOnlineStats>(a, head_dim, b, st);
   if (e != cudaSuccess) return e;
 
   // out-projection grads
-  e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
+  e = sm90::gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, n, d, st);
   if (e != cudaSuccess) return e;
 
-  // QKV projection grads and the LN tail
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqkvb, wqkvb, nullptr, dxnf, n, d, w, st);
+  // attention-core grads -> dqkv (K13's key and query passes)
+  e = k13::launch_core_bwd_passes(a, head_dim, b, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, w, n, st);
+
+  // QKV projection grads and the LN tail
+  e = sm90::gemm_nt<sm90::kEpiF32>(dqkvb, wqkvb, nullptr, dxnf, n, d, w, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, w, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n, w,
                            st);

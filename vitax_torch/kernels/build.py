@@ -49,7 +49,8 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_rect_bwd": [_P] * 33 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int8_bwd": [_P] * 60 + [_I] * 10 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_flash_fwd": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
-    "vitax_ln_qkvo_attention_flash_bwd": [_P] * 23 + [_I] * 6 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_flash_bwd": [_P] * 22 + [_I] * 6 + [_F, _F, _P],
+    "vitax_attention_online": [_P] * 4 + [_I] * 5 + [_F, _P],
     "vitax_attention_core_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
     "vitax_attention_core_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     "vitax_ln_mlp_save_fwd": [_P] * 11 + [_I, _I, _I, _F, _I, _P],

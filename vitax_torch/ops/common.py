@@ -17,6 +17,27 @@ from typing import Optional
 import torch
 
 
+def _first_exp_on_one_thread() -> None:
+    """Runs torch's CPU `exp` (and `erf`, the other vector-math call of
+    the GELU twins) once on this thread, at import.
+
+    On CPU builds linked with MKL, `torch.exp` of fp32 tensors calls MKL's
+    vector math library, split over the intra-op threads in chunks of at
+    least 2048 elements. When the first such call of a process ran on eight
+    threads at once, one worker's chunk came out with a relative error of
+    1.5e-4 (the int8 GELU twins against vitax on 20000 values: the last
+    2500, in about half of the runs after another test had started the
+    thread pool; never with one thread, never after a first call on one
+    thread). A first call here, on one thread and before any op of the port
+    runs, keeps the later ones at the library's accuracy."""
+    x = torch.zeros(8)
+    torch.exp(x)
+    torch.erf(x)
+
+
+_first_exp_on_one_thread()
+
+
 def use_kernels(flag: Optional[bool], x: torch.Tensor) -> bool:
     return x.is_cuda if flag is None else flag
 

@@ -45,8 +45,8 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   `_ln_qkvo_rect_bwd_int8_kernel` :4253, its `int8_grad` and `int8_dw`
   branches
 - `fused_ln_qkvo_attention_flash` -> ln_qkvo_attention_flash.cu ->
-  `_ln_qkvo_fwd_flash_kernel` :3419 (K6, the KV-chunked core of
-  attention_flash.cuh)
+  `_ln_qkvo_fwd_flash_kernel` :3419 (K6: the products on gemm_sm90.cuh,
+  the online core of attention_core.cuh)
 - `fused_ln_qkvo_attention_flash_bwd` -> ln_qkvo_attention_flash_bwd.cu ->
   `_ln_qkvo_bwd_flash_kernel` :3446 (K6 backward)
 - `fused_ln_mlp_bwd_wide` -> ln_mlp_bwd.cu at d > 1024 ->
@@ -163,8 +163,7 @@ from vitax_torch.ops.quant import (int_mm, pack_i8, quant_cols,
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt into (227 KB)
 ATTN_HEAD_DIMS = (32, 64, 128)
-FLASH_HEAD_DIMS = (32, 64, 80, 128)  # K6's KV-chunked core
-FLASH_KV, FLASH_WARPS = 64, 4  # its keys a tile, query tiles a block
+FLASH_HEAD_DIMS = (32, 64, 80, 128)  # K6's online core (VITAX_K6_HEAD_DIMS)
 # vitax's _MLP_MONO_MAX_D: above it K2's backward is the :1610 route
 MLP_MONO_MAX_D = 1024
 
@@ -1219,16 +1218,18 @@ class FusedLnQkvoAttentionFn(torch.autograd.Function):
 # whole-row core cannot hold)
 # =============================================================================
 
-def flash_smem_bytes(head_dim: int, backward: bool = False) -> int:
-    """Shared memory of one block of K6's core (attention_flash.cuh,
-    FlashLayout): a key tile of K and V, and a slice a warp; no term grows
-    with spq."""
-    sw = max(FLASH_KV, head_dim)
-    warp = (16 * head_dim * 2 + 16 * sw * 4 + 16 * FLASH_KV * 2
-            + 16 * head_dim * 4 + 4 * 16 * 4)
-    if backward:  # dO rows and dp
-        warp += 16 * head_dim * 2 + 16 * FLASH_KV * 4
-    return 2 * FLASH_KV * head_dim * 2 + FLASH_WARPS * warp
+def online_core_smem_bytes(head_dim: int, backward: bool = False) -> int:
+    """Shared memory of a block of K6's online core (attention_core.cuh,
+    kRowsSmem: two 64-row Q tiles and a ring of K and V tiles, 4 stages up
+    to head_dim 80 and 3 above) and, in training, of K13's key and query
+    passes that follow its row pass (attention_core_bwd.cu, kDkvSmem and
+    kDqSmem: 8 tiles, the key pass's 3 stages of statistics besides); no
+    term grows with spq."""
+    tile = 64 * head_dim * 2
+    fwd = (2 + 2 * (4 if head_dim <= 80 else 3)) * tile
+    if not backward:
+        return fwd
+    return max(fwd, 8 * tile + 3 * 3 * 64 * 4)
 
 
 def qkv_attention_flash_supported(x, wqkv, heads) -> bool:
@@ -1246,7 +1247,7 @@ def qkv_attention_flash_supported(x, wqkv, heads) -> bool:
     if x.is_cuda and x.dtype != torch.bfloat16:
         return False
     return (hd in FLASH_HEAD_DIMS and d % 32 == 0 and heads * hd % 32 == 0
-            and flash_smem_bytes(hd) <= SMEM_LIMIT)
+            and online_core_smem_bytes(hd) <= SMEM_LIMIT)
 
 
 def qkv_attention_flash_bwd_supported(x, wqkv, heads) -> bool:
@@ -1255,7 +1256,7 @@ def qkv_attention_flash_bwd_supported(x, wqkv, heads) -> bool:
     if not qkv_attention_flash_supported(x, wqkv, heads):
         return False
     hd = wqkv.shape[1] // (3 * heads)
-    return flash_smem_bytes(hd, backward=True) <= SMEM_LIMIT
+    return online_core_smem_bytes(hd, backward=True) <= SMEM_LIMIT
 
 
 _FLASH_KV_CHUNKS = 4  # vitax's _QKVO_FLASH_KV default
@@ -1303,6 +1304,87 @@ def _flash_core(q, k, v, seq_len):
     return acc / l, m, l
 
 
+ONLINE_TILE = 64  # keys a tile of K6's online core
+
+
+def flash_online_core_ref(q, k, v, seq_len):
+    """The plain version of K6's online core (attention_core.cuh,
+    kRowsOnline{,Stats}) at its rounding points: q, k, v [B, H, rows, Hd]
+    bf16, keys masked at seq_len, one walk over 64-key tiles (the tiles
+    wholly past seq_len, which would add p = 0 at α = 1, skipped, as the
+    kernel's grid skips them). Per tile, with c = scale·log2e: m_new =
+    max(m, rowmax(s)·c), α = exp2(m − m_new), p = exp2(s·c − m_new) (0 on
+    the keys >= seq_len), l = l·α + Σp from the unrounded p, O = O·α +
+    bf16(p)·V in fp32; out = O·(1/l). Returns the fp32 out and the
+    statistics the kernel's row pass writes, m (in c units) and 1/l, each
+    [B, H, rows, 1]."""
+    c = math.log2(math.e) / math.sqrt(q.shape[-1])
+    m = torch.full(q.shape[:-1] + (1,), -math.inf, dtype=_F32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape, dtype=_F32, device=q.device)
+    for lo in range(0, seq_len, ONLINE_TILE):
+        hi = min(lo + ONLINE_TILE, seq_len)
+        s = matmul_f32(q, k[..., lo:hi, :].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + matmul_f32(p.to(v.dtype), v[..., lo:hi, :])
+        m = m_new
+    inv = 1.0 / l
+    return o * inv, m, inv
+
+
+def flash_online_rows_ref(qkv, seq_len, heads, head_dim, dattn=None):
+    """The plain version of `flash_online_core`: qkv [B, spq, 3·H·Hd] → the
+    head outputs [B, spq, H·Hd] in qkv's dtype; with dattn [B, spq, H·Hd]
+    also the backward row pass's statistics [B, H, 3, seq_pad] (m·scale·
+    log2e, 1/l, dd = Σ fp32(dO)·out with the fp32 out; 0 past spq, seq_pad
+    = spq rounded up to 64)."""
+    b, spq, _ = qkv.shape
+    q, k, v = (_split_heads(c, heads) for c in qkv.chunk(3, dim=-1))
+    out, m, inv = flash_online_core_ref(q, k, v, seq_len)
+    attn = _heads_to_rows(out.to(qkv.dtype)).view(b, spq, heads * head_dim)
+    if dattn is None:
+        return attn
+    dd = (_split_heads(dattn, heads).float() * out).sum(dim=-1, keepdim=True)
+    stats = torch.cat([m, inv, dd], dim=-1).transpose(-1, -2)
+    return attn, torch.nn.functional.pad(stats, (0, -spq % ONLINE_TILE))
+
+
+def flash_online_core(qkv, seq_len, heads, head_dim, dattn=None):
+    """K6's online core alone (ln_qkvo_attention_flash.cu,
+    `vitax_attention_online`) on the packed qkv rows, query rows to spq and
+    keys masked at seq_len: the bf16 head outputs and, with dattn, the
+    backward row pass's statistics, as `flash_online_rows_ref`. The card
+    checks hold the core against its plain version through it; no path of
+    the port calls it (K6's entry points launch the core themselves)."""
+    if not qkv.is_cuda:
+        return flash_online_rows_ref(qkv, seq_len, heads, head_dim, dattn)
+    name = "flash_online_core"
+    tensors = {"qkv": qkv, **({} if dattn is None else {"dattn": dattn})}
+    dev = _check_cuda(name, tensors, dict.fromkeys(tensors, _BF))
+    b, spq, w = qkv.shape
+    hhd = heads * head_dim
+    if (head_dim not in FLASH_HEAD_DIMS or w != 3 * hhd
+            or not 0 < seq_len <= spq):
+        raise ValueError(f"{name}: unsupported qkv {tuple(qkv.shape)}, "
+                         f"seq_len {seq_len}, {heads} heads of {head_dim}")
+    if dattn is not None:
+        _check_shape(name, "dattn", dattn, (b, spq, hhd))
+    lib = build.load()
+    attn = _bf(dev, b, spq, hhd)
+    stats = (None if dattn is None else
+             _workspace(lib.vitax_attention_core_bwd_ws(b, spq, heads), dev))
+    rc = lib.vitax_attention_online(
+        qkv.data_ptr(), 0 if dattn is None else dattn.data_ptr(),
+        attn.data_ptr(), 0 if stats is None else stats.data_ptr(), b, spq,
+        seq_len, heads, head_dim, 1.0 / math.sqrt(head_dim), _stream(dev))
+    build.check(rc, name)
+    return attn if stats is None else (attn, stats.view(b, heads, 3, -1))
+
+
 def _flash_qkv(xn, wqkv, bqkv, heads):
     """xn [B, spq, D] → qkv → per-head q, k, v [B, H, spq, Hd]."""
     qkv = (matmul_f32(xn, wqkv) + bqkv.float()).to(xn.dtype)
@@ -1326,9 +1408,10 @@ def fused_ln_qkvo_attention_flash_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
 
 def fused_ln_qkvo_attention_flash(x, gamma, beta, wqkv, bqkv, wo, bo, eps,
                                   seq_len, heads, head_dim):
-    """K6 forward: `fused_ln_qkvo_attention`'s function with the KV-chunked
-    core (ln_qkvo_attention_flash.cu), the same arguments (MHA only). Under
-    autograd its backward is `fused_ln_qkvo_attention_flash_bwd`."""
+    """K6 forward: `fused_ln_qkvo_attention`'s function with the online
+    core (ln_qkvo_attention_flash.cu: LN, the qkv product, the online core
+    on the packed rows, the out-projection), the same arguments (MHA only).
+    Under autograd its backward is `fused_ln_qkvo_attention_flash_bwd`."""
     if _needs_grad(x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionFlashFn.apply(x, gamma, beta, wqkv, bqkv,
                                                  wo, bo, eps, seq_len, heads,
@@ -1411,9 +1494,10 @@ def fused_ln_qkvo_attention_flash_bwd_ref(x, gamma, beta, wqkv, bqkv, wo, do,
 
 def fused_ln_qkvo_attention_flash_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
                                       seq_len, heads, head_dim):
-    """K6 backward (ln_qkvo_attention_flash_bwd.cu): dx [B, spq, D] bf16 and
-    fp32 dγ, dβ [D], dWqkv [D, 3·H·Hd], dbqkv [3·H·Hd], dWo [H·Hd, D],
-    dbo [D]."""
+    """K6 backward (ln_qkvo_attention_flash_bwd.cu: the online core's row
+    pass, then K13's key and query passes on its statistics; no P or ds in
+    device memory): dx [B, spq, D] bf16 and fp32 dγ, dβ [D], dWqkv [D,
+    3·H·Hd], dbqkv [3·H·Hd], dWo [H·Hd, D], dbo [D]."""
     if not x.is_cuda:
         return fused_ln_qkvo_attention_flash_bwd_ref(
             x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len, heads, head_dim)
@@ -1430,19 +1514,18 @@ def fused_ln_qkvo_attention_flash_bwd(x, gamma, beta, wqkv, bqkv, wo, do, eps,
     b, spq, d = x.shape
     hhd = heads * head_dim
     n, w = b * spq, 3 * hhd
-    rows = (spq + 15) // 16 * 16
     lib = build.load()
     dx, dg, dbe = torch.empty_like(x), _f32(dev, d), _f32(dev, d)
     dw, db, dwo, dbo = (_f32(dev, d, w), _f32(dev, w), _f32(dev, hhd, d),
                         _f32(dev, d))
     xn, qkv, attn, dattn = (_bf(dev, n, d), _bf(dev, n, w), _bf(dev, n, hhd),
                             _bf(dev, n, hhd))
-    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    stats = _workspace(lib.vitax_attention_core_bwd_ws(b, spq, heads), dev)
     dqkv, dxn = _bf(dev, n, w), _f32(dev, n, d)
     ws = _workspace(lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w), dev)
     rc = lib.vitax_ln_qkvo_attention_flash_bwd(*(t.data_ptr() for t in (
         x, gamma, beta, wqkv, bqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, xn,
-        qkv, attn, dattn, p, ds, dqkv, dxn, ws)), b, spq, d, seq_len, heads,
+        qkv, attn, dattn, stats, dqkv, dxn, ws)), b, spq, d, seq_len, heads,
         head_dim, eps, 1.0 / math.sqrt(head_dim), _stream(dev))
     build.check(rc, name)
     fused_ln_qkvo_attention_flash_bwd.launches += 1

@@ -57,10 +57,10 @@ TRAIN_CONFIGS = {
                              token_keep=0.5)),
 }
 # kernel-name fragment -> group, first match wins
-GROUPS = [("k13::", "attention core, wgmma (K13; K1's forward, backward)"),
-          ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K12's products)"),
+GROUPS = [("k13::", "attention core, wgmma (K13; K1's and K6's forwards, "
+                   "backwards)"),
+          ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K6's, K12's products)"),
           ("attention_core", "attention core (K3/K7/K8)"),
-          ("flash_", "attention core, KV-chunked (K6)"),
           ("attention_bwd", "attention core backward"),
           ("gemm_s8", "s8 GEMM (K3/K4/K8 int8)"),
           ("gemm_bf16", "bf16 GEMM (the fused halves' products)"),

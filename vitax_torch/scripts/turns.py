@@ -8,8 +8,8 @@ file need not belong to), it prints under `tag`:
 
 - checksums (`checksums`): sha256 prefixes of the outputs of K6's forward
   and backward at ViT-H/14's widths, and of K1's forward, K2's forward,
-  K7's backward (4 kv heads) and K3's backward (`--int8-grad`) at
-  ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
+  K7's backward (4 kv heads), K3's backward (`--int8-grad`) and K13's
+  forward and backward at ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
   give the same line where those kernels kept their bits;
 - `ln_checksums`: the same of the LN kernel pair alone (the standalone
   entry points, register path and loop form, bf16 and fp32): the forward,
@@ -33,7 +33,9 @@ file need not belong to), it prints under `tag`:
   with the bf16 step's peak device memory; the bf16 serving forward at b64
   @224 and @384 (K1 at spq 584); `--no-fused-qkv` (K13) forward b64 @384
   and step b32; Res-ViT's `scripts/ft_resvit.sh` (a) step at b32 (teacher
-  and student forward, backward, AdamW); ViT-H/14 @224 step at b32.
+  and student forward, backward, AdamW); ViT-H/14 @224 step at b32 with
+  its peak device memory, and the ViT-H/14 and ViT-L/16 serving forwards at
+  b32 @384 (both on K6).
 
 Run it for two checkouts in the order A, B, B, A in one call on the card
 (each run builds its checkout's kernels into that checkout's `build/`).
@@ -100,8 +102,9 @@ def k6_checksum() -> str:
 
 def checksums() -> dict:
     """{kernel: sha256 prefixes of its outputs} of the kernels that keep
-    their bits: K6 forward and backward, K1 forward, K2 forward, K7 backward
-    and K3 backward."""
+    their bits: K6 forward and backward, K1 forward, K2 forward, K7 backward,
+    K3 backward and K13 forward and backward (b2, 12 heads of 64, seq
+    197)."""
     from vitax_torch.ops import cuda_kernels as ck
     d, heads, hd, m = B16_WIDTHS
     hhd = heads * hd
@@ -119,6 +122,11 @@ def checksums() -> dict:
                                        hhd, m)
         out["K7 bwd"] = _digest(ck.fused_ln_qkvo_attention_gqa_bwd(
             *gqa, do_g, *tail, kv))
+        rnd = _rnd(torch.Generator(device="cuda").manual_seed(193))
+        q, k, v, do_c = (rnd(2, heads, 197, hd) for _ in range(4))
+        o = ck.flash_attention_bhsd(q, k, v)
+        out["K13 fwd+bwd"] = _digest((o,) + tuple(ck.flash_attention_bwd(
+            q, k, v, o, do_c)))
     return out
 
 
@@ -245,7 +253,9 @@ def _median_ms(fn, warmup=2, iters=10) -> float:
 
 def kernel_times() -> dict:
     """{kernel and shape: median ms} of the forwards of K1, K2 and K12 (each
-    MLP half with and without its residual) at ViT-B/16's widths."""
+    MLP half with and without its residual) at ViT-B/16's widths, and of
+    K6's forward (b32 spq 736 and 264) and backward (b32 spq 264) at
+    ViT-H/14's."""
     from vitax_torch.ops import cuda_kernels as ck
     d, heads, hd, m = B16_WIDTHS
     hhd = heads * hd
@@ -265,6 +275,21 @@ def kernel_times() -> dict:
             for name, fn in calls.items():
                 out[f"{name} b{b} spq{spq}"] = _median_ms(fn, 3, 25)
         del head, mlp
+    d, heads, hd = H14_WIDTHS
+    hhd = heads * hd
+    for b, spq, seq in ((32, 736, 730), (32, 264, 257)):
+        head, bo, do, _ = _half_inputs(195, b, spq, d, 3 * hhd, hhd, 4 * d)
+        tail = (1e-5, seq, heads, hd)
+        calls = {"K6 fwd": lambda: ck.fused_ln_qkvo_attention_flash(
+            *head, bo, *tail)}
+        if spq == 264:
+            calls["K6 bwd"] = lambda: ck.fused_ln_qkvo_attention_flash_bwd(
+                *head, do, *tail)
+        with torch.no_grad():
+            for name, fn in calls.items():
+                out[f"{name} b{b} spq{spq}"] = _median_ms(fn, 3, 25)
+        del head, do
+        torch.cuda.empty_cache()
     return out
 
 
@@ -376,16 +401,19 @@ def _vit_step_ms(arch, image, batch, **flags) -> tuple:
     return ms, peak
 
 
-def _vit_forward_ms(image, batch, **flags) -> float:
+def _vit_forward_ms(image, batch, arch="b16", **flags) -> float:
     from vitax_torch.core.config import arch_config
     from vitax_torch.core.prng import set_seed
     from vitax_torch.models import vit
-    cfg = arch_config("b16", image_size=image, num_classes=10,
+    cfg = arch_config(arch, image_size=image, num_classes=10,
                       dtype=torch.bfloat16, **flags)
     params = vit.init_params(set_seed(0), cfg, "cuda")
     images, _ = _images(image, batch, "val")
     with torch.inference_mode():
-        return _median_ms(lambda: vit.apply(params, images, cfg))
+        ms = _median_ms(lambda: vit.apply(params, images, cfg))
+    del params
+    torch.cuda.empty_cache()
+    return ms
 
 
 def _resvit_step_ms(batch=32) -> float:
@@ -437,7 +465,11 @@ def timings() -> dict:
     out["B/16 --no-fused-qkv step b32"] = _vit_step_ms(
         "b16", 224, 32, fused_qkv=False, fused_mlp=True)[0]
     out["Res-ViT (a) step b32"] = _resvit_step_ms()
-    out["H/14 step b32 @224"] = _vit_step_ms("h14", 224, 32, **fused)[0]
+    ms, peak = _vit_step_ms("h14", 224, 32, **fused)
+    out["H/14 step b32 @224"] = ms
+    out["H/14 step b32 @224 peak MB"] = peak
+    out["H/14 forward b32 @384"] = _vit_forward_ms(384, 32, "h14", **fused)
+    out["L/16 forward b32 @384"] = _vit_forward_ms(384, 32, "l16", **fused)
     return out
 
 
