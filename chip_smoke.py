@@ -46,7 +46,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              the grads of every parameter for one batch on the int8 kernel
              path, the int8 twin path (the same autograd Functions with the
              int8 wrappers swapped for their plain twins) and the bf16
-             kernel path; then a device-timed train step on all three;
+             kernel path; the `--int8-dw` grads on the kernel and twin
+             paths; the s8 products inside the `--int8-grad` run's
+             backwards, counted by kind, exact; then device-timed train
+             steps (bf16, `--int8-grad`, `--int8-dw`, in turns, and the
+             twin path);
 7. fast     — vitax's fastest recipe (scripts/FT_CIFAR100_fast.sh:
              --int8-dw --token-keep 0.5 --token-keep-schedule 0.9, b768,
              dense tail b192): `train_cli --int8-dw --token-keep 0.5
@@ -56,7 +60,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              both, exact counts per epoch; `train_cli` with the recipe's own
              flags on 1536 images (9 drop epochs of 2 b768 steps, a dense
              one of 8 b192 steps; its b768 eval batches, 153600 rows, take
-             K5 too), exact counts per epoch; logits and
+             K5 too), exact counts per epoch (and of the s8 products, the
+             group folds of int8_dw included, in the b32 run); logits and
              full-width grads of the
              handoff + int8_dw path against its twin path; device-timed steps
              at b768 keep 0.5 and b192 dense, int8_dw and int8_grad in turns;
@@ -311,6 +316,18 @@ apart in every run. The int8_dw backwards must also land within INT8_REL
 where the int8_grad kernel's bf16 weight grads land outside it (dW, dWo,
 dW1, dW2), so the band shows that their weight grads are int8.
 
+K3's backward (kv_heads == heads) and K4's run their int8 products on
+gemm_sm90.cuh's s8 wgmma path and K3's core grads on K13's passes. Phase 3
+launches each of those s8 products alone (`ck.gemm_sm90_s8`, the rows
+`gemm_sm90_s8:<kind>` of the kernel table: s8_bf16, s8_f32, s8_gelu_pair,
+s8_group) at the backwards' b32 spq 200 shapes and on ragged M, N and K
+(groups whose rows do not fill the 128-code K tile) against exact int32
+products dequantized by its twin: within INT8_REL on every output, the
+fp32 outputs without a bias and the group fold the same bits, two launches
+the same bits; timed beside the twin. The library counts their launches
+by kind where `launch_s8` launches one (`ck.s8_launch_counts`), and phases
+6 and 7 hold the counts of their runs exact.
+
 The line before the last is the JSON kernel table (each kernel's time at
 the main path's shape beside its bound: the larger of its bytes over 3.35
 TB/s and its operations over 989 TFLOP/s bf16, 1979 TOP/s s8, 67 TFLOP/s
@@ -534,6 +551,30 @@ RECT_BWD_KERNELS = ("fused_ln_qkvo_attention_rect_bwd",
 TRAIN_RESVIT_KERNELS = RECT_BWD_KERNELS + ("fused_ln_qkvo_attention_gqa_bwd",)
 DW_KERNELS = ("fused_ln_qkvo_attention_int8_dw_bwd",
               "fused_ln_mlp_int8_dw_bwd")
+# gemm_sm90.cuh's s8 products inside K3's (kv_heads == heads) and K4's
+# int8 backwards, counted by kind where the library launches them
+# (`ck.s8_launch_counts`): their source and the TPU kernels whose bodies
+# hold the product (s8_f32 and s8_group run in both)
+S8_INFO = {f"gemm_sm90_s8:{kind}": ("vitax_torch/csrc/gemm_sm90.cuh",
+                                    f"vitax/ops/pallas_kernels.py:{lines}")
+           for kind, lines in (("s8_bf16", "3252"),
+                               ("s8_f32", "3252 and :1820"),
+                               ("s8_gelu_pair", "1820"),
+                               ("s8_group", "3252 and :1820"))}
+# (kind, m, n, k, bias or the group's columns): the first of each kind at
+# its b32 spq 200 shape, timed (K3's qkv recompute, K3's dxn, K4's dual
+# product, K4's int8_dw dW1 over 50 groups of 128 rows), then ragged M, N
+# and K; K3's dWqkv fold (16 groups of 400 rows in 512) and a tiny one
+S8_CASES = [("s8_bf16", 6400, 2304, 768, True),
+            ("s8_f32", 6400, 768, 2304, False),
+            ("s8_gelu_pair", 6400, 3072, 768, True),
+            ("s8_group", 768, 3072, 50 * 128, 128),
+            ("s8_bf16", 3328, 768, 768, False), ("s8_bf16", 199, 136, 784, True),
+            ("s8_f32", 1, 768, 3072, False), ("s8_f32", 591, 776, 2320, True),
+            ("s8_gelu_pair", 591, 3072, 768, True),
+            ("s8_gelu_pair", 77, 264, 144, True),
+            ("s8_group", 768, 2304, 16 * 512, 512),
+            ("s8_group", 100, 24, 3 * 256, 256)]
 HO_KERNELS = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
 BWD_KERNELS = ("layer_norm_bwd", "fused_ln_qkvo_attention_bwd",
                "fused_ln_mlp_bwd", "fused_ln_qkvo_attention_int8_bwd",
@@ -893,6 +934,71 @@ def check_bwd_kernels(stats):
                 stats[name].update(_layer_norm_bwd_device_ms(*args))
         del t, calls
         torch.cuda.empty_cache()
+    return stats
+
+
+def _s8_work(kind, m, n, k, extra):
+    """(bytes, {"s8": operations}) of one s8 product: its codes and scales
+    read once, its outputs written once."""
+    if kind == "s8_group":
+        return m * k + n * k + 4 * (k // extra) * m + 4 * m * n, \
+            {"s8": 2 * m * n * k}
+    pairs = 2 if kind == "s8_gelu_pair" else 1
+    out = {"s8_bf16": 2, "s8_f32": 4, "s8_gelu_pair": 8}[kind] * m * n
+    return (pairs * ((m + n) * k + 4 * (m + n)) + 4 * n * bool(extra) + out,
+            {"s8": pairs * 2 * m * n * k})
+
+
+def check_s8_products(stats):
+    """Phase 3, gemm_sm90.cuh's s8 path: each epilogue launched alone
+    against exact integer products dequantized by its twin (S8_CASES);
+    every output within INT8_REL, the fp32 outputs without a bias and the
+    group fold the same bits, two launches the same bits; the first case of
+    each kind timed beside the twin."""
+    import torch
+    from vitax_torch.ops import cuda_kernels as ck
+    for i, (kind, m, n, k, extra) in enumerate(S8_CASES):
+        name = f"gemm_sm90_s8:{kind}"
+        inputs = ck.gemm_sm90_s8_inputs(kind, m, n, k, extra,
+                                        seed=60 + i)
+        with torch.no_grad():
+            outs = ck.gemm_sm90_s8(kind, **inputs)
+            again = ck.gemm_sm90_s8(kind, **inputs)
+            torch.cuda.synchronize()
+            refs = ck.gemm_sm90_s8_ref(kind, **inputs)
+        if kind != "s8_gelu_pair":
+            outs, again, refs = (outs,), (again,), (refs,)
+        exact = kind == "s8_group" or (kind == "s8_f32" and not extra)
+        rels, errs, same = [], [], []
+        for out, out2, ref in zip(outs, again, refs):
+            rels.append(_rel(out, ref))
+            errs.append((out.float() - ref.float()).abs().max().item())
+            same.append(torch.equal(out, ref))
+            if not (torch.equal(out, out2) and out.shape == ref.shape
+                    and out.dtype == ref.dtype
+                    and bool(torch.isfinite(out.float()).all())):
+                raise AssertionError(f"{name} {m}x{n}x{k}: two launches "
+                                     "differ, or shape, dtype or finiteness")
+        if max(rels) > INT8_REL or (exact and not all(same)):
+            raise AssertionError(f"{name} {m}x{n}x{k}: ‖k−t‖/‖t‖ {rels}, "
+                                 f"the twin's bits {same}")
+        st = stats.setdefault(name, {"max_abs_err": 0.0})
+        st["max_abs_err"] = max(st["max_abs_err"], *errs)
+        line = (f"  {name:26s} {m}x{n}x{k}{' bias' if extra is True else ''}"
+                f" ‖k−t‖/‖t‖ [{' '.join(f'{r:.2e}' for r in rels)}] <= "
+                f"{INT8_REL}, the twin's bits {same}, two launches the same "
+                "bits")
+        if "ms" not in st:
+            with torch.no_grad():
+                k_ms = _median_ms(lambda: ck.gemm_sm90_s8(kind, **inputs),
+                                  warmup=3, iters=25)
+                p_ms = _median_ms(lambda: ck.gemm_sm90_s8_ref(kind, **inputs),
+                                  warmup=1, iters=5)
+            st.update(ms=k_ms, plain_ms=p_ms, shape=(m, n, k),
+                      work=_s8_work(kind, m, n, k, extra))
+            line += f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
+        print(line, flush=True)
+        del inputs, outs, again, refs
     return stats
 
 
@@ -1977,17 +2083,28 @@ def run_int8_slice(exp_root):
                           fused_ln_qkvo_attention_bwd=12 * TRAIN_STEPS,
                           fused_ln_mlp_bwd=12 * TRAIN_STEPS),
     }
+    # the s8 products inside the --int8-grad run's backwards: K3's two
+    # s8_bf16 and one s8_f32, K4's s8_gelu_pair and s8_f32, a layer a step
+    bwd = 12 * TRAIN_STEPS
+    s8_expect = {"gemm_sm90_s8:s8_bf16": 2 * bwd, "gemm_sm90_s8:s8_f32":
+                 2 * bwd, "gemm_sm90_s8:s8_gelu_pair": bwd,
+                 "gemm_sm90_s8:s8_group": 0}
     counts = {}
     for flag, expect in expects.items():
         ck.reset_launch_counts()
         losses, valid, rate = _run_train(TRAIN_ARGS + ["--exp-root", exp_root,
                                                        flag])
         counts[flag] = ck.launch_counts()
+        s8 = ck.s8_launch_counts()
         print(f"int8: train_cli {flag} losses {[round(v, 4) for v in losses]} "
               f"valid {valid} {rate:.0f} img/s (epoch loop, host-fed) "
-              f"launches {counts[flag]}", flush=True)
-        if counts[flag] != expect:
-            raise AssertionError(f"expected launches {expect}")
+              f"launches {counts[flag]}, s8 products {s8}", flush=True)
+        if counts[flag] != expect or (flag == "--int8-grad"
+                                      and s8 != s8_expect):
+            raise AssertionError(f"expected launches {expect}, s8 "
+                                 f"{s8_expect}")
+        if flag == "--int8-grad":
+            counts[flag].update(s8)
 
     ck.reset_launch_counts()
     result, n_img, rate = _run_eval(EVAL_ARGS + ["--int8"])
@@ -2049,9 +2166,29 @@ def run_int8_slice(exp_root):
         raise AssertionError("int8 grads outside their bands")
     del g_k, g_t, g_b
 
+    # --int8-dw (the int8 weight grads, dense): kernel path vs twin path
+    dw = cfg.replace(int8_dw=True)
+    ck.reset_launch_counts()
+    g_k = _grads(params, images, labels, dw)
+    ran = {k: v for k, v in ck.launch_counts().items() if v}
+    with _int8_twins(ck):
+        g_t = _grads(params, images, labels, dw)
+    rels_dw, key_dw = _grad_distances(names, g_k, g_t)
+    print(f"int8: --int8-dw grads (launches {ran}); worst |g_kernel - "
+          f"g_twin| / |g_twin|: " + ", ".join(
+              f"{r:.3e} ({n})" for r, n in rels_dw[:3])
+          + f" <= {INT8_GRAD_BAND}, key biases {key_dw:.3e}", flush=True)
+    if (ran != dict(layer_norm=1, layer_norm_bwd=1,
+                    **dict.fromkeys(INT8_KERNELS[:2] + DW_KERNELS, 12))
+            or not all(bool(torch.isfinite(g).all()) for g in g_k)
+            or rels_dw[0][0] > INT8_GRAD_BAND or key_dw > INT8_GRAD_BAND):
+        raise AssertionError("--int8-dw grads outside their band")
+    del g_k, g_t
+
     runs = _time_steps(params, images, labels, (
-        ("bf16 kernels", bf16), ("int8 kernels", cfg), ("int8 kernels", cfg),
-        ("bf16 kernels", bf16), ("int8 twins", cfg, _int8_twins(ck))))
+        ("bf16 kernels", bf16), ("int8 kernels", cfg), ("int8-dw kernels", dw),
+        ("int8-dw kernels", dw), ("int8 kernels", cfg), ("bf16 kernels", bf16),
+        ("int8 twins", cfg, _int8_twins(ck))))
     return counts["--int8-grad"], {k: min(ms for n, ms in runs if n == k)
                                    for k, _ in runs}
 
@@ -2143,6 +2280,16 @@ def run_fast_recipe(exp_root):
     if log != expect or counts != {k: sum(c[k] for _, c in expect)
                                    for k in counts}:
         raise AssertionError(f"expected launches per epoch {expect}")
+    # each int8_dw backward folds its two weight grads on gemm_sm90.cuh
+    s8, n_bwd = ck.s8_launch_counts(), dw["fused_ln_mlp_int8_dw_bwd"] * 2
+    s8_expect = {"gemm_sm90_s8:s8_bf16": 2 * n_bwd,
+                 "gemm_sm90_s8:s8_f32": 2 * n_bwd,
+                 "gemm_sm90_s8:s8_gelu_pair": n_bwd,
+                 "gemm_sm90_s8:s8_group": 4 * n_bwd}
+    print(f"fast: s8 products {s8}", flush=True)
+    if s8 != s8_expect:
+        raise AssertionError(f"expected s8 products {s8_expect}")
+    counts.update(s8)
 
     # the recipe's own flags: K5 in every drop-phase step, int8_dw in every
     # backward, the dense tail at b192 through K3/K4
@@ -6024,10 +6171,11 @@ def _resvit_work(name, batch, spq, extra):
     return nbytes, {"s8": proj + out, "bf16": core * extra}
 
 
-def _bound(name, shape, dims=None):
+def _bound(name, shape, dims=None, work=None):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and the
-    operations over their types' peaks."""
-    nbytes, ops = _work(name, *shape, dims=dims)
+    operations over their types' peaks (`work`: (bytes, operations) of the
+    s8 products, which their check computes)."""
+    nbytes, ops = work or _work(name, *shape, dims=dims)
     t_bytes = nbytes / HBM
     t_ops = sum(v / PEAK[k] for k, v in ops.items())
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -6059,6 +6207,9 @@ def main() -> int:
     print("kernels vs plain (bf16):", flush=True)
     stats = check_kernels()
     check_bwd_kernels(stats)
+    print("s8 products of gemm_sm90.cuh (K3's and K4's int8 backwards) vs "
+          "twin:", flush=True)
+    check_s8_products(stats)
     check_handoff_kernels(stats)
     check_resvit_kernels(stats)
     check_resvit_bwd_kernels(stats)
@@ -6377,14 +6528,16 @@ def main() -> int:
             return counts_rv[resvit_runs[name]][name]
         if name in TRAIN_RESVIT_KERNELS:
             return counts_rt[RESVIT_TRAIN_RUNS[train_runs[name]][0]][name]
-        if name in HO_KERNELS + DW_KERNELS:
+        if name in HO_KERNELS + DW_KERNELS or name.endswith("s8_group"):
             return counts_fast[name]
-        return (counts_i8 if name in INT8_KERNELS else counts)[name]
+        return (counts_i8 if name in INT8_KERNELS + tuple(S8_INFO)
+                else counts)[name]
 
     table = []
-    for name, (src, rep) in KERNEL_INFO.items():
+    for name, (src, rep) in {**KERNEL_INFO, **S8_INFO}.items():
         bound_ms, bound_by = _bound(name, stats[name]["shape"],
-                                    stats[name].get("dims"))
+                                    stats[name].get("dims"),
+                                    stats[name].get("work"))
         table.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches(name),
@@ -6394,9 +6547,11 @@ def main() -> int:
     print("kernel table: " + "; ".join(
         f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
         f"{r['bound_by']}, x{r['ms'] / r['bound_ms']:.1f}) at "
-        + "b{} rows {}".format(*stats[r["name"]]["shape"])
+        + ("{}x{}x{}" if r["name"] in S8_INFO else "b{} rows {}").format(
+            *stats[r["name"]]["shape"][:3 if r["name"] in S8_INFO else 2])
         + (" ({})".format(stats[r["name"]]["shape"][2])
-           if len(stats[r["name"]]["shape"]) > 2 else "") for r in table),
+           if len(stats[r["name"]]["shape"]) > 2
+           and r["name"] not in S8_INFO else "") for r in table),
         flush=True)
     print(card)
     print(json.dumps({"kernels": table}))

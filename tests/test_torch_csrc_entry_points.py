@@ -55,3 +55,13 @@ def test_gemm_sm90_kinds_match_the_c_switch():
     src = (build.CSRC / "gemm_sm90.cu").read_text()
     cases = [int(c) for c in re.findall(r"^\s*case (\d+):", src, re.M)]
     assert cases == list(range(len(ck.GEMM_SM90_KINDS)))
+
+
+def test_gemm_sm90_s8_kinds_match_the_c_switch():
+    """`ck.gemm_sm90_s8` passes a kind as its index in GEMM_SM90_S8_KINDS:
+    the C switch of csrc/gemm_sm90_s8.cu must have one case for each, in
+    order."""
+    from vitax_torch.ops import cuda_kernels as ck
+    src = (build.CSRC / "gemm_sm90_s8.cu").read_text()
+    cases = [int(c) for c in re.findall(r"^\s*case (\d+):", src, re.M)]
+    assert cases == list(range(len(ck.GEMM_SM90_S8_KINDS)))

@@ -1884,3 +1884,140 @@ def test_partial_tier_kernels_match_twins_and_residual_kernels(dev, name,
         assert torch.equal(a, b)
     counts = {k: v for k, v in ck.launch_counts().items() if v}
     assert counts[PARTIAL_COUNTERS.get(name, name + "_partial")] == 1, counts
+
+
+# ---------------------------------------------------------------------------
+# The s8 wgmma path of gemm_sm90.cuh (K3's backward with kv_heads == heads,
+# K4's): each epilogue launched alone against exact int32 products
+# dequantized by its twin, on ragged M, N and K; the group fold over groups
+# whose rows do not fill the 128-code K tile (K3's 400-row groups padded to
+# 512, zero past the rows, as dw_int8.cuh packs them). The fp32 outputs
+# without a bias are products and adds of the same exact integers in the
+# same order: the same bits. With a bias the add is fused as the twin's
+# addcmul; the GELU pair's epilogue calls expf where the twin calls
+# torch.exp, so those are held to a tight band and printed.
+
+# (kind, m, n, k, bias or group); the inputs from ck.gemm_sm90_s8_inputs
+S8_CASES = [("s8_bf16", 6400, 2304, 768, True), ("s8_bf16", 6400, 768, 768,
+                                                 False),
+            ("s8_bf16", 199, 136, 784, True), ("s8_f32", 6400, 768, 2304,
+                                               False),
+            ("s8_f32", 1, 768, 3072, False), ("s8_f32", 3328, 776, 2320, True),
+            ("s8_gelu_pair", 6400, 3072, 768, True),
+            ("s8_gelu_pair", 591, 3072, 768, True),
+            ("s8_gelu_pair", 77, 264, 144, True),
+            ("s8_group", 768, 3072, 50 * 128, 128),
+            ("s8_group", 768, 2304, 16 * 512, 512),
+            ("s8_group", 3072, 768, 5 * 128, 128),
+            ("s8_group", 100, 24, 3 * 256, 256)]
+
+
+@pytest.mark.parametrize("case", S8_CASES)
+def test_gemm_sm90_s8_matches_exact_products(dev, case):
+    kind, m, n, k, extra = case
+    inputs = ck.gemm_sm90_s8_inputs(kind, m, n, k, extra, device=dev)
+    with torch.no_grad():
+        outs = ck.gemm_sm90_s8(kind, **inputs)
+        again = ck.gemm_sm90_s8(kind, **inputs)
+        torch.cuda.synchronize()
+        refs = ck.gemm_sm90_s8_ref(kind, **inputs)
+    if kind != "s8_gelu_pair":
+        outs, again, refs = (outs,), (again,), (refs,)
+    exact = kind == "s8_group" or (kind == "s8_f32" and not extra)
+    for out, out2, ref in zip(outs, again, refs):
+        assert out.shape == ref.shape and out.dtype == ref.dtype, kind
+        assert torch.equal(out, out2), kind
+        print(f"{kind} {m}x{n}x{k}: the twin's bits "
+              f"{torch.equal(out, ref)}, max|k - t| "
+              f"{(out.float() - ref.float()).abs().max().item():.3e}")
+        if exact:
+            assert torch.equal(out, ref), kind
+        elif ref.dtype == torch.bfloat16:
+            _assert_close(out, ref, 1e-2)
+        else:
+            rel = ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+            assert rel <= 1e-5, (kind, rel)
+
+
+def test_gemm_sm90_s8_rejects_what_it_does_not_take(dev):
+    a = torch.zeros(64, 100, dtype=torch.int8, device=dev)  # k % 16 != 0
+    s = torch.ones(64, device=dev)
+    with pytest.raises(RuntimeError):
+        ck.gemm_sm90_s8("s8_f32", a, a, s, s)
+    b = torch.zeros(60, 128, dtype=torch.int8, device=dev)  # n % 8 != 0
+    with pytest.raises(RuntimeError):
+        ck.gemm_sm90_s8("s8_f32", b[:, :128].contiguous(), b,
+                        torch.ones(60, device=dev), torch.ones(60, device=dev))
+    c = torch.zeros(64, 256, dtype=torch.int8, device=dev)  # group % 128
+    with pytest.raises(RuntimeError):
+        ck.gemm_sm90_s8("s8_group", c, c, torch.ones(4, 64, device=dev),
+                        group=64)
+
+
+# K3's and K4's int8 backwards on their Hopper design, with int8_dw off and
+# on: train_cli's b32 spq 200, the drop phase's b32 spq 104 and one image;
+# every output within the bf16 tolerance and INT8_REL (chip_smoke.py's) of
+# the twin, the codes within their bands, the s8 products counted, and two
+# launches the same bits.
+HOPPER_INT8_SHAPES = [(32, 200, 197), (32, 104, 99), (1, 200, 197)]
+INT8_REL = 5e-3
+
+
+@pytest.mark.parametrize("int8_dw", [False, True])
+@pytest.mark.parametrize("shape", HOPPER_INT8_SHAPES)
+def test_int8_backwards_on_hopper_match_twins_and_keep_their_bits(dev, shape,
+                                                                  int8_dw):
+    args = _int8_args(dev, *shape, None)
+    ck.reset_launch_counts()
+    for base in INT8_BWD:
+        name = base.replace("_bwd", "_dw_bwd") if int8_dw else base
+        sk, st = {}, {}
+        with torch.no_grad():
+            outs = getattr(ck, name)(*args[base], scratch=sk)
+            again = getattr(ck, name)(*args[base])
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(*args[base], scratch=st)
+        for i, (out, out2, ref) in enumerate(zip(outs, again, refs)):
+            _assert_close(out, ref)
+            assert torch.equal(out, out2), (name, i)
+            rel = ((out.double() - ref.double()).norm()
+                   / ref.double().norm().clamp_min(1e-30)).item()
+            assert rel <= INT8_REL, (name, i, rel)
+        _codes_within_band(name, sk, st)
+    names = [n.replace("_bwd", "_dw_bwd") if int8_dw else n for n in INT8_BWD]
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(names, 2)
+    assert ck.s8_launch_counts() == {
+        "gemm_sm90_s8:s8_bf16": 4, "gemm_sm90_s8:s8_f32": 4,
+        "gemm_sm90_s8:s8_gelu_pair": 2,
+        "gemm_sm90_s8:s8_group": 8 if int8_dw else 0}
+
+
+def test_k3_and_k4_int8_backwards_keep_p_ds_and_a1_out_of_device_memory(dev):
+    """At b32 spq 200 K3's int8 backward allocates no bf16 P and ds
+    (2·b·H·208² bf16, 66 MB) and K4's no fp32 a1 ([n, M], 79 MB): each
+    call's peak stays under its outputs and scratch plus a third of what
+    those would add."""
+    b, spq, d, h, hd, m = 32, 200, 768, 12, 64, 3072
+    n, w, hhd = b * spq, 3 * h * hd, h * hd
+    args = _int8_args(dev, b, spq, 197, None)
+    lib = ck.build.load()
+    k3, _ = _peak_bytes(lambda: ck.fused_ln_qkvo_attention_int8_bwd(
+        *args["fused_ln_qkvo_attention_int8_bwd"]))
+    k3_rest = (2 * n * d + 4 * (2 * d + d * w + w + hhd * d + d)  # outputs
+               + 2 * d * w + hhd * d + 4 * (w + d + hhd)  # the weights' codes
+               + 2 * n * d + 2 * n * w + 2 * 2 * n * hhd  # xn, qkv, attn, dattn
+               + 2 * n * w + 4 * n * d  # dqkv, dxn
+               + 2 * n * d + n * w + 4 * 3 * n  # xq, doq, dqq, their scales
+               + 4 * lib.vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w)
+               + 4 * lib.vitax_attention_core_bwd_ws(b, spq, h))
+    rows = (spq + 15) // 16 * 16
+    assert k3 <= k3_rest + 2 * 2 * b * h * rows * rows / 3, (k3, k3_rest)
+    k4, _ = _peak_bytes(lambda: ck.fused_ln_mlp_int8_bwd(
+        *args["fused_ln_mlp_int8_bwd"]))
+    k4_rest = (2 * n * d + 4 * (2 * d + 2 * d * m + m + d)  # outputs
+               + 3 * d * m + 4 * (2 * m + d)  # the weights' codes
+               + 2 * n * d + 2 * n * d + 4 * n * 3  # xn, xq, doq, scales
+               + 2 * 2 * n * m + 4 * n * m + n * m  # h1, dh1, dh1_32, dh1q
+               + 4 * n * d + 4 * lib.vitax_ln_mlp_bwd_ws(n, d, m))
+    assert k4 <= k4_rest + 4 * n * m / 3, (k4, k4_rest)

@@ -1,0 +1,271 @@
+"""K3's and K4's int8 backwards composed from plain versions in the order
+their Hopper entry points launch them on the card
+(csrc/ln_qkvo_attention_int8_bwd.cu with kv_heads == heads,
+csrc/ln_mlp_int8_bwd.cu), on CPU tensors:
+
+- K3: the weights' codes, the LN-quant recompute, qkv on
+  `gemm_sm90_s8_ref("s8_bf16")` + bias, the core on the packed rows (its
+  forward as the twin's; its grads as K13's three passes run them: the
+  row pass's m, 1/l and dd from the bf16 head outputs, p =
+  exp2(s·scale·log2e − m)·(1/l) in the key and query passes), do's codes,
+  dattn (`s8_bf16`), dWo (`gemm_sm90_ref("tn_f32")`, or under int8_dw
+  dw_int8.cuh's operand packs, each group's rows zero-padded to the
+  128-code K tile, and `s8_group`), dbo, dqkv's codes, dxn (`s8_f32`), dW,
+  dbqkv and the LN tail;
+- K4: the weights' codes, the LN-quant recompute from the bf16 xn, do's
+  codes, the dual product (`s8_gelu_pair`: h1, dh1, dh1_32), db2, db1,
+  dh1_32's codes, dW2 and dW1 (`tn_f32`, or the group fold), dxn
+  (`s8_f32`) and the LN tail, with and without the residual.
+
+The compositions are held against the fused twins (the plain versions the
+card holds the kernels against): to the bit where the design keeps the
+twin's arithmetic (every K4 output; K3's dWo and dbo), and within the bf16
+tolerance 2e-2 (ulp 2^-8: the same rounding points, but p is recomputed
+from the row statistics instead of the softmax's fp32 row) for what K3's
+core grads reach. Then against vitax's Pallas VJPs (`_fused_ln_qkvo_bwd`,
+`_ln_mlp_bwd_int8_call`) under `jax.jit` in interpret mode, within the
+int8 tiers' CPU band (test_torch_int8.py: 2e-2 in bf16, weight grads
+included), K4's int8_dw at vitax's group.
+
+Tiny widths: D 128, 2 heads of 64, M 256, spq 16 with seq_len 10, bf16;
+K3 at b8 (int8_dw groups of 4 images, 64 rows in 128-row tiles), K4 on 10
+images (160 rows: the port's int8_dw groups 128 and 32).
+"""
+
+import functools
+import math
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from vitax.ops import pallas_kernels as pk  # noqa: E402
+from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
+from vitax_torch.ops.common import matmul_f32  # noqa: E402
+from vitax_torch.ops.quant import (quant_cols, quant_cols_host,  # noqa: E402
+                                   quant_rows, quant_rows_host)
+
+D, H, HD, M, SPQ, SEQ, EPS = 128, 2, 64, 256, 16, 10, 1e-5
+BF = torch.bfloat16
+TOL = 2e-2
+TILE = 128  # gemm_sm90.cuh's s8 K tile (kBK8)
+K3_BATCH, K4_BATCH = 8, 10
+QKVO = ("x", "gamma", "beta", "wqkv", "bqkv", "wo")
+MLP = ("x", "gamma", "beta", "w1", "b1", "w2")
+NAMES = {"k3": ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwo", "dbo"),
+         "k4": ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")}
+# (kernel, int8_dw, residual): both int8_dw branches, K4's two residual ones
+CASES = [("k3", False, True), ("k3", True, True), ("k4", False, True),
+         ("k4", True, True), ("k4", False, False), ("k4", True, False)]
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(pk, "_INTERPRET", True)
+
+
+def _arrays(seed, batch):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return dict(x=n(batch, SPQ, D) * 1.5 + 0.3, do=n(batch, SPQ, D),
+                gamma=1 + n(D, scale=0.1), beta=n(D, scale=0.1),
+                wqkv=n(D, 3 * H * HD, scale=D ** -0.5),
+                bqkv=n(3 * H * HD, scale=0.1),
+                wo=n(H * HD, D, scale=(H * HD) ** -0.5),
+                w1=n(D, M, scale=D ** -0.5), b1=n(M, scale=0.1),
+                w2=n(M, D, scale=M ** -0.5))
+
+
+_MATS = ("x", "do", "wqkv", "wo", "w1", "w2")
+
+
+def _torch(arrays):
+    return {k: torch.from_numpy(v).to(BF if k in _MATS else torch.float32)
+            for k, v in arrays.items()}
+
+
+def _jax(arrays):
+    return {k: jnp.asarray(v, jnp.bfloat16 if k in _MATS else jnp.float32)
+            for k, v in arrays.items()}
+
+
+def _ln_quant(t, from_bf16):
+    """The LN-quant prologue: (x̂, rstd, the fp32 xn, its codes and scales),
+    quantized from the bf16-rounded xn with `from_bf16` (K4's backward)."""
+    x2 = t["x"].reshape(-1, D)
+    xhat, rstd = ck._ln_stats(x2.float(), EPS)
+    xn32 = ck._affine(xhat, t["gamma"], t["beta"])
+    xq, sx = quant_rows(xn32.to(BF).float() if from_bf16 else xn32)
+    return xhat, rstd, xn32, xq, sx
+
+
+def _group_fold(a, u, q, group):
+    """An int8_dw weight grad as the card computes it: dw_int8.cuh's packs
+    (the column codes of a·u over each group of `group` rows, and the row
+    codes q, both transposed to [W, kp] with each group's rows zero-padded
+    to whole 128-code K tiles), then `s8_group`'s fold."""
+    gp = -(-group // TILE) * TILE
+    packs, scales, codes = [], [], []
+    for r0 in range(0, a.shape[0], group):
+        ac, sc = quant_cols(a[r0:r0 + group].float() * u[r0:r0 + group])
+        pad = (0, 0, 0, gp - ac.shape[0])
+        packs.append(torch.nn.functional.pad(ac, pad))
+        codes.append(torch.nn.functional.pad(q[r0:r0 + group], pad))
+        scales.append(sc.reshape(-1))
+    at, qt = torch.cat(packs).t().contiguous(), torch.cat(codes).t()
+    return ck.gemm_sm90_s8_ref("s8_group", at, qt.contiguous(),
+                               torch.stack(scales), group=gp)
+
+
+def _k13_core_grads(q, k, v, o, d_o):
+    """K13's three backward passes (attention_core_bwd.cu) on heads [B, H,
+    spq, Hd]: the row pass's m (of s·scale·log2e), 1/l and dd = Σ
+    f32(dO)·f32(o), o the bf16 head outputs; p = exp2(s·c − m)·(1/l), 0 on
+    the keys >= SEQ; ds = bf16(p (dO·vᵀ − dd)); dk = bf16((dsᵀ·q)·scale),
+    dv = bf16(bf16(p)ᵀ·dO) (the key pass), dq = bf16((ds·k)·scale) (the
+    query pass)."""
+    scale = 1.0 / math.sqrt(HD)
+    s = matmul_f32(q, k.transpose(-1, -2)) * (scale * math.log2(math.e))
+    s[..., SEQ:] = -math.inf
+    m = s.amax(dim=-1, keepdim=True)
+    inv = 1.0 / torch.exp2(s - m).sum(dim=-1, keepdim=True)
+    p = torch.exp2(s - m) * inv
+    dd = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (matmul_f32(d_o, v.transpose(-1, -2)) - dd)).to(BF)
+    dq = (matmul_f32(ds, k) * scale).to(BF)
+    dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(BF)
+    dv = matmul_f32(p.to(BF).transpose(-1, -2), d_o).to(BF)
+    return dq, dk, dv
+
+
+def k3_bwd_composed(t, int8_dw, group):
+    """K3's backward in its launch order: (dx, dγ, dβ, dWqkv, dbqkv, dWo,
+    dbo)."""
+    b = t["x"].shape[0]
+    do2 = t["do"].reshape(-1, D)
+    w8, sw = quant_cols_host(t["wqkv"])  # stored [W, D]: its transpose
+    w8r, swr = quant_rows_host(t["wqkv"])
+    wo8r, swor = quant_rows_host(t["wo"])
+    xhat, rstd, xn32, xq, sx = _ln_quant(t, from_bf16=False)
+    qkv = ck.gemm_sm90_s8_ref("s8_bf16", xq, w8.t().contiguous(), sx, sw,
+                              t["bqkv"])
+    q, k, v, _, o32 = ck._attn_core(qkv.view(b, SPQ, -1), SEQ, H, HD)
+    o = o32.to(BF)
+    attn = ck._heads_to_rows(o)
+    doq, sdo = quant_rows(do2.float())
+    dattn = ck.gemm_sm90_s8_ref("s8_bf16", doq, wo8r, sdo, swor)
+    dwo = (_group_fold(attn, sdo, doq, group) if int8_dw
+           else ck.gemm_sm90_ref("tn_f32", attn, do2))
+    dbo = do2.float().sum(dim=0)
+    d_o = ck._split_heads(dattn.view(b, SPQ, -1), H)
+    dqkv = torch.cat([ck._heads_to_rows(g)
+                      for g in _k13_core_grads(q, k, v, o, d_o)], dim=1)
+    dqq, sdq = quant_rows(dqkv.float())
+    dxn = ck.gemm_sm90_s8_ref("s8_f32", dqq, w8r, sdq, swr)
+    dw = (_group_fold(xn32, sdq, dqq, group) if int8_dw
+          else ck.gemm_sm90_ref("tn_f32", xn32.to(BF), dqkv))
+    dbqkv = dqkv.float().sum(dim=0)
+    dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
+    return (dxln.to(BF).view(t["x"].shape), dg, dbe, dw, dbqkv, dwo, dbo)
+
+
+def k4_bwd_composed(t, int8_dw, group, residual):
+    """K4's backward in its launch order: (dx, dγ, dβ, dW1, db1, dW2,
+    db2)."""
+    do2 = t["do"].reshape(-1, D)
+    w1r, s1r = quant_rows_host(t["w1"])
+    w2r, s2r = quant_rows_host(t["w2"])
+    w1c, s1c = quant_cols_host(t["w1"])  # stored [M, D]: its transpose
+    xhat, rstd, xn32, xq, sx = _ln_quant(t, from_bf16=True)
+    xn = xn32.to(BF)
+    doq, sdo = quant_rows(do2.float())
+    h1, dh1, dh1_32 = ck.gemm_sm90_s8_ref(
+        "s8_gelu_pair", xq, w1c.t().contiguous(), sx, s1c, t["b1"], doq,
+        w2r, sdo, s2r)
+    db2, db1 = do2.float().sum(dim=0), dh1_32.sum(dim=0)
+    dh1q, sd = quant_rows(dh1_32)
+    if int8_dw:
+        dw2 = _group_fold(h1, sdo, doq, group)
+        dw1 = _group_fold(xn, sd, dh1q, group)
+    else:
+        dw2 = ck.gemm_sm90_ref("tn_f32", h1, do2)
+        dw1 = ck.gemm_sm90_ref("tn_f32", xn, dh1)
+    dxn = ck.gemm_sm90_s8_ref("s8_f32", dh1q, w1r, sd, s1r)
+    dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
+    dx = do2 + dxln.to(BF) if residual else dxln.to(BF)
+    return dx.view(t["x"].shape), dg, dbe, dw1, db1, dw2, db2
+
+
+def _close(out, ref, what):
+    ref = np.asarray(ref, np.float32)
+    out = out.float().numpy().reshape(ref.shape)
+    bound = TOL * max(1.0, float(np.abs(ref).max()))
+    err = float(np.abs(out - ref).max())
+    assert err <= bound, f"{what}: max error {err:.3e} > {bound:.3e}"
+
+
+def _vitax_mlp_group(n):
+    """vitax's int8_dw group of K4's backward over n rows (one grid step's
+    row chunk of its padded rows)."""
+    rows = pk._ln_mlp_rows(pk._ln_mlp_pad(n, int8=True), int8=True)
+    return rows // pk._bwd_chunks(rows)
+
+
+@pytest.mark.parametrize("kernel,int8_dw,residual", CASES)
+def test_launch_order_equals_the_twins(kernel, int8_dw, residual):
+    if kernel == "k3":
+        t = _torch(_arrays(31, K3_BATCH))
+        args = (*(t[k] for k in QKVO), t["do"], EPS, SEQ, H, HD)
+        group = ck.qkvo_dw_group(K3_BATCH, SPQ)
+        out = k3_bwd_composed(t, int8_dw, group)
+        twin = ck.fused_ln_qkvo_attention_int8_bwd_ref(
+            *args, int8_dw=int8_dw, group=group)
+        exact = ("dwo", "dbo")  # what K3's core grads do not reach
+    else:
+        t = _torch(_arrays(32, K4_BATCH))
+        args = (*(t[k] for k in MLP), t["do"], EPS)
+        out = k4_bwd_composed(t, int8_dw, ck.MLP_DW_GROUP, residual)
+        twin = ck.fused_ln_mlp_int8_bwd_ref(*args, int8_dw=int8_dw,
+                                            residual=residual)
+        exact = NAMES["k4"]
+    for name, o, r in zip(NAMES[kernel], out, twin):
+        assert o.dtype == r.dtype and o.shape == r.shape, name
+        if name in exact:
+            assert torch.equal(o, r), name
+        else:
+            _close(o, r.float().numpy(), name)
+
+
+@pytest.mark.parametrize("kernel,int8_dw,residual", CASES)
+def test_launch_order_matches_vitax_under_jit(kernel, int8_dw, residual):
+    if kernel == "k3":
+        arrays = _arrays(33, K3_BATCH)
+        j, t = _jax(arrays), _torch(arrays)
+        fn = jax.jit(functools.partial(pk._fused_ln_qkvo_bwd, EPS, SEQ, H,
+                                       HD, True, True, int8_dw, False, False,
+                                       None))
+        refs = fn(tuple(j[k] for k in QKVO), j["do"])
+        out = k3_bwd_composed(t, int8_dw, ck.qkvo_dw_group(K3_BATCH, SPQ))
+    else:
+        arrays = _arrays(34, K4_BATCH)
+        j, t = _jax(arrays), _torch(arrays)
+        n = K4_BATCH * SPQ
+        npad = pk._ln_mlp_pad(n, int8=True)
+
+        def pad(a):
+            return jnp.pad(a.reshape(n, D), ((0, npad - n), (0, 0)))
+
+        fn = jax.jit(functools.partial(pk._ln_mlp_bwd_int8_call, eps=EPS,
+                                       residual=residual, int8_dw=int8_dw))
+        refs = fn(pad(j["x"]), j["gamma"], j["beta"], j["w1"], j["b1"],
+                  j["w2"], do2=pad(j["do"]))
+        refs = (refs[0][:n], *refs[1:])
+        out = k4_bwd_composed(t, int8_dw, _vitax_mlp_group(n), residual)
+    for name, o, r in zip(NAMES[kernel], out, refs):
+        _close(o, jnp.asarray(r, jnp.float32), f"{name} vs vitax")

@@ -337,9 +337,12 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 }
 
 // =============================================================================
-// s8 x s8 -> s32 products of the W8A8 tiers (K3, K4; the TPU kernels'
+// s8 x s8 -> s32 products of the W8A8 and A4W4 tiers (the TPU kernels'
 // dot_general(int8, int8, preferred_element_type=int32)), dequantized in the
-// epilogue in the TPU kernels' order: f32(acc) * s_row[m] * s_col[n] (+ bias).
+// epilogue in the TPU kernels' order: f32(acc) * s_row[m] * s_col[n] (+ bias):
+// K3's and K4's forwards, K5, K7's and K8's int8 tiers, K11, K12's int8 pair.
+// K3's backward with kv_heads == heads and K4's run gemm_sm90.cuh's s8 wgmma
+// path instead.
 //
 // One layout: C[M,N] = A[M,K] @ B[N,K]^T, both int8 row-major. mma.sync's
 // int8 shape takes only .row.col, i.e. B with K contiguous, so the forward
@@ -357,7 +360,8 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // accumulator registers directly (two neighbouring columns a thread) and
 // writes bf16x2 / float2. The int32 sums are exact (|acc| <= 127^2 K), so two
 // runs give the same bits. Bound on the H100: the tensor cores, as the bf16
-// GEMM; mma.sync does not reach the int8 wgmma rate (later work).
+// GEMM; mma.sync does not reach the int8 wgmma rate (gemm_sm90.cuh's s8 path
+// runs wgmma, for the two backwards that use it).
 //
 // kS8GroupF32 is the int8_dw weight grad (dw_int8.cuh): K is the rows of the
 // batch cut into groups of gp = group_stages * 64 (each zero-padded to a whole

@@ -1,10 +1,13 @@
-// A Hopper bf16 GEMM on warpgroup MMAs: the products of K1's and K2's
+// A Hopper GEMM on warpgroup MMAs: the bf16 products of K1's and K2's
 // backwards (ln_qkvo_attention_bwd.cu, ln_mlp_bwd.cu) and, since their
 // redesign, of K1's and K2's forwards and K12's (ln_qkvo_attention.cu with
-// kv_heads == heads, ln_mlp.cu, ln_mlp_save.cu); every other kernel keeps
-// gemm.cuh's WMMA products. The TPU kernels compute these products in their
-// own bodies with jnp.dot / dot_general(..., preferred_element_type=f32);
-// here each is one launch over the whole [M, N] output.
+// kv_heads == heads, ln_mlp.cu, ln_mlp_save.cu); and, in its own section
+// below, the s8 products of K3's backward with kv_heads == heads and K4's
+// (ln_qkvo_attention_int8_bwd.cu, ln_mlp_int8_bwd.cu), their bf16 weight
+// grads on the kTN path here. Every other kernel keeps gemm.cuh's WMMA and
+// mma.sync products. The TPU kernels compute these products in their own
+// bodies with jnp.dot / dot_general(..., preferred_element_type=f32 or
+// int32); here each is one launch over the whole [M, N] output.
 //
 // Layouts, all row-major bf16 in memory, none transposed in device memory:
 //   kNN  C[M,N] = A[M,K]   · B[K,N]    xn·Wqkv
@@ -379,20 +382,23 @@ inline decltype(&cuTensorMapEncodeTiled) tensor_map_encoder() {
   return fn;
 }
 
-// The map of a row-major bf16 matrix [rows, cols] (row stride ld elements)
-// in boxes of 64 columns × box_rows rows, 128-byte swizzle; elements past
-// the matrix read as zeros
-inline bool make_map(CUtensorMap* map, const bf16* base, int rows, int cols, int ld,
-                     int box_rows) {
+// The map of a row-major matrix [rows, cols] of bf16 (or, with `s8`, of
+// int8 codes; row stride ld elements) in boxes of 128 bytes (the swizzle
+// width: 64 bf16 or 128 int8 columns) × box_rows rows, 128-byte swizzle;
+// elements past the matrix read as zeros
+inline bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int ld,
+                     int box_rows, bool s8 = false) {
   const auto encode = tensor_map_encoder();
   if (encode == nullptr) return false;
+  const int bytes = s8 ? 1 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, s8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -487,6 +493,365 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
   g.bias = b1, g.C = h1, g.C2 = dh1;
   g.M = n, g.N = m, g.K = d, g.k_chunk = d;
   return launch<kNN, kEpiGeluPair, true>(op, g, 1, st);
+}
+
+// =============================================================================
+// s8 products of the W8A8 backwards (K3's with kv_heads == heads, and K4's):
+// C[M,N] = A[M,K]·B[N,K]ᵀ, both int8 codes read K-major. 8-bit wgmma has no
+// transpose bits, and every int8 product of those backwards already has this
+// layout: the weight quantizers store their codes [N, K] (quant.cuh), the
+// row codes of do, dqkv and dh1 are [rows, K], and dw_int8.cuh transposes the
+// weight grads' operands to [W, kp]. The block is the bf16 products': two
+// consumer warpgroups own a 128×128 tile, the producer warp keeps the TMA
+// ring full; a K tile is 128 codes deep (one 128-byte swizzle row, so a stage
+// is 32 KB a product as the bf16 one), each k-step one
+// wgmma.mma_async m64n128k32.s32.s8.s8 with int32 accumulators in registers
+// (the descriptors are the bf16 kNT ones: 32 bytes a k-step). The int32 sums
+// are exact (|acc| <= 127²·K), so two runs give the same bits. The
+// epilogues dequantize as gemm.cuh's s8 GEMM and the plain twins
+// (ops/cuda_kernels.py `_dequant`) order it, f32(acc)·sr[m]·sc[n], the bias
+// add fused with the last multiply, each step an explicit _rn intrinsic:
+//   kEpiS8Bf16      C = bf16(dq(acc) (+ bias))     K3's qkv recompute, dattn
+//   kEpiS8F32       F = dq(acc) (+ bias)           dxn
+//   kEpiS8GeluPair  K4's dual product, two accumulators over the same K (D):
+//                   a1 = dq(xq·W1cᵀ) + b1 and dh1f = dq2(doq·W2rᵀ) (the
+//                   scales sr2, sc2); C = bf16(gelu_q(a1)) (h1), F = dh1_32 =
+//                   dh1f·gelu_q'(a1) (its row codes and db1 read it) and, for
+//                   the bf16 dW1 (C2 null under int8_dw), C2 = bf16(dh1_32);
+//                   a1 never reaches device memory (vitax :1155-1169;
+//                   gemm.cuh's kS8GeluQAux and kS8GeluQGrad in one)
+//   kEpiS8Group     the int8_dw weight grads: K is groups of group_tiles K
+//                   tiles (each group's rows zero-padded to whole tiles); at
+//                   a group's end its int32 sum is folded into an fp32 one,
+//                   F += f32(acc)·sr[z·M + m] (__fmul_rn, never contracted
+//                   into the add), groups in order, as gemm.cuh's
+//                   kS8GroupF32: no split of K, no partials, no atomics. The
+//                   fold waits for the group's last product, so the tensor
+//                   cores idle through it (K4's groups are one K tile deep).
+// Rows M and K are ragged (the TMA zero-fills), N % 8 == 0 (16-byte stores),
+// K % 16 == 0 (16-byte TMA rows). No file that includes this header may be
+// built with --use_fast_math (quant.cuh).
+// =============================================================================
+
+enum EpiS8 : int {
+  kEpiS8Bf16 = 0,
+  kEpiS8F32 = 1,
+  kEpiS8GeluPair = 2,
+  kEpiS8Group = 3,
+};
+
+// Launches of gemm_s8_sm90_kernel by epilogue, one added where launch_s8
+// launches it (every translation unit that includes this header shares the
+// one array); read and reset through gemm_sm90_s8.cu's
+// vitax_gemm_sm90_s8_launches
+inline long long s8_launches[4] = {};
+
+constexpr int kBK8 = 128;  // codes of a K tile
+
+struct GemmS8Args {
+  const float* sr;    // [M] (kEpiS8Group: [groups, M])
+  const float* sc;    // [N]
+  const float* bias;  // [N] or null
+  const float* sr2;   // kEpiS8GeluPair's second product: [M]
+  const float* sc2;   // [N]
+  bf16* C;
+  bf16* C2;
+  float* F;
+  int M, N, K, group_tiles;
+};
+
+#define VX_S8_R4(i) "+r"(d[(i)]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]), "+r"(d[(i) + 3])
+#define VX_S8_R16(i) VX_S8_R4(i), VX_S8_R4((i) + 4), VX_S8_R4((i) + 8), VX_S8_R4((i) + 12)
+#define VX_S8_R64(i) VX_S8_R16(i), VX_S8_R16((i) + 16), VX_S8_R16((i) + 32), VX_S8_R16((i) + 48)
+
+// d[64] (64×128, int32) += A·B, both K-major int8 in shared memory
+__device__ __forceinline__ void wgmma_s8_m64n128(int* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : VX_S8_R64(0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#undef VX_S8_R4
+#undef VX_S8_R16
+#undef VX_S8_R64
+
+template <int N>
+__device__ __forceinline__ void fence_regs_s32(int* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// f32(acc)·sr·sc, and with a bias fma(f32(acc)·sr, sc, bias)
+__device__ __forceinline__ float dequant(int acc, float sr, float sc) {
+  return __fmul_rn(__fmul_rn(static_cast<float>(acc), sr), sc);
+}
+__device__ __forceinline__ float dequant(int acc, float sr, float sc, float bias) {
+  return __fmaf_rn(__fmul_rn(static_cast<float>(acc), sr), sc, bias);
+}
+
+// One block a 128×128 tile of C (blockIdx.x along N, y along M), all of K;
+// warps 0–7 the consumers, lane 0 of warp 8 the producer, as
+// gemm_sm90_kernel.
+template <int EPI>
+__global__ void __launch_bounds__(kThreads + 32, 1)
+    gemm_s8_sm90_kernel(const __grid_constant__ Maps maps, const GemmS8Args g) {
+  constexpr bool kDual = EPI == kEpiS8GeluPair;
+  constexpr bool kGroups = EPI == kEpiS8Group;
+  constexpr int S = kStages<kDual>;
+  constexpr int kBytes = kStageBytes<kDual>;
+  constexpr int kTile = kBM * kBK8;  // 16 KB: 128 rows × 128 codes
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * kBytes);
+  uint64_t* empty = full + S;
+  const int bm = blockIdx.y * kBM;
+  const int bn = blockIdx.x * kBN;
+  const int nk = (g.K + kBK8 - 1) / kBK8;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kThreads) {  // the producer
+    if (threadIdx.x == kThreads) {
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % S;
+        if (t >= S) mbar_wait(empty + s, (t / S - 1) & 1);
+        unsigned char* st = ring + s * kBytes;
+        const int k0 = t * kBK8;
+        mbar_expect_tx(full + s, kBytes);
+        tma_load(st, &maps.a, k0, bm, full + s);
+        tma_load(st + kTile, &maps.b, k0, bn, full + s);
+        if (kDual) {
+          tma_load(st + 2 * kTile, &maps.a2, k0, bm, full + s);
+          tma_load(st + 3 * kTile, &maps.b2, k0, bn, full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int row0 = bm + wg * 64;
+  int acc[64];
+  int acc2[kDual ? 64 : 1];
+  float facc[kGroups ? 64 : 1];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+#pragma unroll
+  for (int i = 0; i < (kDual ? 64 : 1); ++i) acc2[i] = 0;
+#pragma unroll
+  for (int i = 0; i < (kGroups ? 64 : 1); ++i) facc[i] = 0.f;
+
+  for (int t = 0; t < nk; ++t) {
+    const int s = t % S;
+    mbar_wait(full + s, (t / S) & 1);
+    const unsigned char* st = ring + s * kBytes;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK8 / 32; ++kk)
+      wgmma_s8_m64n128(acc, desc_sw128(st + wg * 8192 + kk * 32, 16),
+                       desc_sw128(st + kTile + kk * 32, 16));
+    if constexpr (kDual) {
+#pragma unroll
+      for (int kk = 0; kk < kBK8 / 32; ++kk)
+        wgmma_s8_m64n128(acc2, desc_sw128(st + 2 * kTile + wg * 8192 + kk * 32, 16),
+                         desc_sw128(st + 3 * kTile + kk * 32, 16));
+    }
+    wg_commit();
+    if (kGroups && (t + 1) % g.group_tiles == 0) {  // the end of group z: fold
+      wg_wait<0>();
+      fence_regs_s32<64>(acc);
+      const size_t z = t / g.group_tiles;
+      const int r = row0 + k13::acc_row(0);  // this thread's rows r and r + 8
+      const float s_lo = r < g.M ? g.sr[z * g.M + r] : 0.f;
+      const float s_hi = r + 8 < g.M ? g.sr[z * g.M + r + 8] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        facc[i] += __fmul_rn(static_cast<float>(acc[i]), (i / 2) % 2 ? s_hi : s_lo);
+        acc[i] = 0;
+      }
+    } else {
+      wg_wait<1>();  // tile t − 1's products are done: release its stage
+    }
+    if (t > 0) mbar_arrive(empty + (t - 1) % S);
+  }
+  wg_wait<0>();
+  fence_regs_s32<64>(acc);
+  if constexpr (kDual) fence_regs_s32<64>(acc2);
+  // both warpgroups are done with the ring: it stages the epilogue
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+
+  const int tid = threadIdx.x % 128;
+  const int ra = row0 + k13::acc_row(0), rb = ra + 8;  // a thread's two rows
+  auto row_scale = [&](const float* v, int i) {
+    const int r = (i / 2) % 2 ? rb : ra;
+    return r < g.M ? v[r] : 0.f;
+  };
+  if constexpr (EPI == kEpiS8F32 || kGroups) {
+    constexpr int kLd = kBN + 4;
+    float* buf = reinterpret_cast<float*>(ring) + wg * 64 * kLd;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int col = k13::acc_col(i);
+      float v0, v1;
+      if constexpr (kGroups) {
+        v0 = facc[i], v1 = facc[i + 1];
+      } else {
+        const bool ok = bn + col < g.N;
+        const float sr = row_scale(g.sr, i);
+        const float c0 = ok ? g.sc[bn + col] : 0.f, c1 = ok ? g.sc[bn + col + 1] : 0.f;
+        if (g.bias != nullptr) {
+          v0 = dequant(acc[i], sr, c0, ok ? g.bias[bn + col] : 0.f);
+          v1 = dequant(acc[i + 1], sr, c1, ok ? g.bias[bn + col + 1] : 0.f);
+        } else {
+          v0 = dequant(acc[i], sr, c0);
+          v1 = dequant(acc[i + 1], sr, c1);
+        }
+      }
+      *reinterpret_cast<float2*>(buf + k13::acc_row(i) * kLd + col) = make_float2(v0, v1);
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+    for (int c = tid; c < 64 * (kBN / 4); c += 128) {
+      const int r = c / (kBN / 4);
+      const int col = (c % (kBN / 4)) * 4;
+      if (row0 + r < g.M && bn + col < g.N)
+        *reinterpret_cast<float4*>(g.F + static_cast<size_t>(row0 + r) * g.N + bn + col) =
+            *reinterpret_cast<const float4*>(buf + r * kLd + col);
+    }
+  } else {
+    // bf16 C (and, for the dual product, bf16 C2 and fp32 F) staged per
+    // warpgroup: F's tiles first, then C's, then C2's
+    constexpr int kLdF = kBN + 4;
+    constexpr int kLd = kBN + 8;
+    float* fbuf = reinterpret_cast<float*>(ring) + wg * 64 * kLdF;
+    bf16* buf = reinterpret_cast<bf16*>(ring + (kDual ? 2 * 64 * kLdF * 4 : 0)) + wg * 64 * kLd;
+    bf16* buf2 = buf + 2 * 64 * kLd;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int col = k13::acc_col(i);
+      const int off = k13::acc_row(i) * kLd + col;
+      const bool ok = bn + col < g.N;
+      const float sr = row_scale(g.sr, i);
+      const float c0 = ok ? g.sc[bn + col] : 0.f, c1 = ok ? g.sc[bn + col + 1] : 0.f;
+      float v0, v1;
+      if (g.bias != nullptr) {
+        v0 = dequant(acc[i], sr, c0, ok ? g.bias[bn + col] : 0.f);
+        v1 = dequant(acc[i + 1], sr, c1, ok ? g.bias[bn + col + 1] : 0.f);
+      } else {
+        v0 = dequant(acc[i], sr, c0);
+        v1 = dequant(acc[i + 1], sr, c1);
+      }
+      if constexpr (kDual) {  // v = a1
+        const float sr2 = row_scale(g.sr2, i);
+        const float d0 = __fmul_rn(dequant(acc2[i], sr2, ok ? g.sc2[bn + col] : 0.f),
+                                   gelu_grad_q(v0));
+        const float d1 = __fmul_rn(dequant(acc2[i + 1], sr2, ok ? g.sc2[bn + col + 1] : 0.f),
+                                   gelu_grad_q(v1));
+        *reinterpret_cast<float2*>(fbuf + k13::acc_row(i) * kLdF + col) = make_float2(d0, d1);
+        *reinterpret_cast<__nv_bfloat162*>(buf2 + off) = __floats2bfloat162_rn(d0, d1);
+        v0 = gelu_q(v0), v1 = gelu_q(v1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(buf + off) = __floats2bfloat162_rn(v0, v1);
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+    for (int c = tid; c < 64 * (kBN / 8); c += 128) {
+      const int r = c / (kBN / 8);
+      const int col = (c % (kBN / 8)) * 8;
+      if (row0 + r < g.M && bn + col < g.N) {
+        const size_t o = static_cast<size_t>(row0 + r) * g.N + bn + col;
+        *reinterpret_cast<uint4*>(g.C + o) = *reinterpret_cast<const uint4*>(buf + r * kLd + col);
+        if constexpr (kDual) {
+          if (g.C2 != nullptr)
+            *reinterpret_cast<uint4*>(g.C2 + o) =
+                *reinterpret_cast<const uint4*>(buf2 + r * kLd + col);
+          const float* f = fbuf + r * kLdF + col;
+          *reinterpret_cast<float4*>(g.F + o) = *reinterpret_cast<const float4*>(f);
+          *reinterpret_cast<float4*>(g.F + o + 4) = *reinterpret_cast<const float4*>(f + 4);
+        }
+      }
+    }
+  }
+}
+
+// The operands (A [M, K], B [N, K], and the dual product's A2 [M, K], B2
+// [N, K], all int8 with row stride K) of a launch of epilogue EPI
+template <int EPI>
+cudaError_t launch_s8(const int8_t* A, const int8_t* B, const int8_t* A2, const int8_t* B2,
+                      const GemmS8Args& g, cudaStream_t st) {
+  constexpr bool kDual = EPI == kEpiS8GeluPair;
+  constexpr bool kGroups = EPI == kEpiS8Group;
+  if (g.M == 0 || g.N == 0) return cudaSuccess;
+  if (g.K <= 0 || g.K % 16 || g.N % 8 ||
+      (kGroups && (g.group_tiles <= 0 || g.K % (g.group_tiles * kBK8))))
+    return cudaErrorInvalidValue;
+  Maps maps{};
+  const bool ok = make_map(&maps.a, A, g.M, g.K, g.K, kBM, true) &&
+                  make_map(&maps.b, B, g.N, g.K, g.K, kBN, true) &&
+                  (!kDual || (make_map(&maps.a2, A2, g.M, g.K, g.K, kBM, true) &&
+                              make_map(&maps.b2, B2, g.N, g.K, g.K, kBN, true)));
+  if (!ok) return cudaErrorInvalidValue;
+  constexpr size_t smem = kSmemBytes<kDual>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      gemm_s8_sm90_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM);
+  gemm_s8_sm90_kernel<EPI><<<grid, kThreads + 32, smem, st>>>(maps, g);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++s8_launches[EPI];
+  return launched;
+}
+
+// C (kEpiS8Bf16, bf16) or F (kEpiS8F32, fp32) [M, N] = f32(A[M,K]·B[N,K]ᵀ)
+// ·sr[M]·sc[N] (+ bias[N]; null: none)
+template <int EPI>
+cudaError_t gemm_s8(const int8_t* A, const int8_t* B, const float* sr, const float* sc,
+                    const float* bias, bf16* C, float* F, int M, int N, int K, cudaStream_t st) {
+  static_assert(EPI == kEpiS8Bf16 || EPI == kEpiS8F32, "gemm_s8: kEpiS8Bf16 or kEpiS8F32");
+  GemmS8Args g{};
+  g.sr = sr, g.sc = sc, g.bias = bias, g.C = C, g.F = F;
+  g.M = M, g.N = N, g.K = K;
+  return launch_s8<EPI>(A, B, nullptr, nullptr, g, st);
+}
+
+// K4's dual product over K = d: a1 = f32(xq[n,d]·W1c[m,d]ᵀ)·sx·s1c + b1,
+// h1 = bf16(gelu_q(a1)), dh1_32 = f32(doq[n,d]·W2r[m,d]ᵀ)·sdo·s2r·gelu_q'(a1),
+// dh1 = bf16(dh1_32) (dh1 null: not written), [n, m] each
+inline cudaError_t gemm_s8_gelu_pair(const int8_t* xq, const int8_t* w1c, const float* sx,
+                                     const float* s1c, const float* b1, const int8_t* doq,
+                                     const int8_t* w2r, const float* sdo, const float* s2r,
+                                     bf16* h1, bf16* dh1, float* dh1_32, int n, int m, int d,
+                                     cudaStream_t st) {
+  GemmS8Args g{};
+  g.sr = sx, g.sc = s1c, g.bias = b1, g.sr2 = sdo, g.sc2 = s2r;
+  g.C = h1, g.C2 = dh1, g.F = dh1_32;
+  g.M = n, g.N = m, g.K = d;
+  return launch_s8<kEpiS8GeluPair>(xq, w1c, doq, w2r, g, st);
+}
+
+// The int8_dw weight grad: F[M,N] = Σ over groups z of f32(A_z·B_zᵀ)·s[z·M + m],
+// A [M, K] and B [N, K] int8 with K = groups·gp, group z the K columns
+// [z·gp, (z + 1)·gp) (zero past its rows); gp % kBK8 == 0.
+inline cudaError_t gemm_s8_groups(const int8_t* A, const int8_t* B, const float* s, float* F,
+                                  int M, int N, int K, int gp, cudaStream_t st) {
+  if (gp <= 0 || gp % kBK8) return cudaErrorInvalidValue;
+  GemmS8Args g{};
+  g.sr = s, g.F = F;
+  g.M = M, g.N = N, g.K = K, g.group_tiles = gp / kBK8;
+  return launch_s8<kEpiS8Group>(A, B, nullptr, nullptr, g, st);
 }
 
 }  // namespace sm90

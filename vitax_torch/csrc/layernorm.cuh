@@ -227,17 +227,113 @@ cudaError_t launch_layer_norm(const T* x, const float* gamma, const float* beta,
   return cudaGetLastError();
 }
 
-// The LN1/LN2 prologue of the W8A8 and A4W4 halves: the row LN of
-// layer_norm_rows_kernel (same statistics, same expression for xn), then the
+// The LN1/LN2 prologue of the W8A8 and A4W4 halves: the row LN (the same
+// statistics and xn as the first design's layer_norm_rows_kernel), then the
 // row's codes q and scale s on the grid of limit L (quant.cuh: 127 int8, 7
-// int4), quantized from the fp32 xn
-// (K3 forward and backward, K4 forward: _quant_rows(xn32),
-// pallas_kernels.py:2706, :3015, :708) or, with FROM_BF16, from the
-// bf16-rounded xn (K4 backward, :1155). xn_out, if not null, receives xn for
-// the weight-grad products: bf16(xn), or with XN_F32 the fp32 xn (K3's
-// backward under int8_dw quantizes it per column, :3081). One warp a row; the
-// row is read four times (statistics twice, amax, codes), all but the first
-// from L1. Also the handoff's row pack (K5, _ln_quant_rows :3660).
+// int4), quantized from the fp32 xn (K3 forward and backward, K4 forward:
+// _quant_rows(xn32), pallas_kernels.py:2706, :3015, :708) or, with
+// FROM_BF16, from the bf16-rounded xn (K4 backward, :1155). xn_out, if not
+// null, receives xn for the weight-grad products: bf16(xn), or with XN_F32
+// the fp32 xn (K3's backward under int8_dw quantizes it per column, :3081).
+// Also the handoff's row pack (K5, _ln_quant_rows :3660). Bound by device
+// memory: it reads 2 bytes and writes 1 (plus xn) an element.
+//
+// Up to kLnRegMaxD columns, layer_norm_rows_reg_kernel's pattern: a lane
+// holds its share of the row in registers (NV 16-byte vectors, columns
+// (lane + 32 k)·8 .. + 7), so x is read once; each warp walks rows over the
+// card's resident blocks with the next row's loads in flight; γ and β sit in
+// shared memory. Each lane's fp32 ops keep the first design's order and
+// rounding as explicit _rn intrinsics (the contractions it compiled to), so
+// the codes, scales and xn keep its bits. Wider rows take the first design:
+// one warp a row, the row read four times (statistics twice, amax, codes).
+template <bool FROM_BF16, bool XN_F32, int L, int NV>
+__global__ void __launch_bounds__(kLnThreads)
+    layer_norm_quant_reg_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                                const float* __restrict__ beta, int8_t* __restrict__ q,
+                                float* __restrict__ s, void* __restrict__ xn_out, int n, int d,
+                                float eps) {
+  constexpr int kMaxD = 32 * 8 * NV;
+  __shared__ __align__(16) float sg[kMaxD];
+  __shared__ __align__(16) float sb[kMaxD];
+  for (int i = threadIdx.x * 4; i < d; i += kLnThreads * 4) {
+    *reinterpret_cast<float4*>(sg + i) = *reinterpret_cast<const float4*>(gamma + i);
+    *reinterpret_cast<float4*>(sb + i) = *reinterpret_cast<const float4*>(beta + i);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int stride = gridDim.x * (kLnThreads / 32);
+  const float fd = static_cast<float>(d);
+  int row = blockIdx.x * (kLnThreads / 32) + threadIdx.x / 32;
+  uint4 cur[NV], nxt[NV];
+  if (row < n) ln_load_row<bf16, NV>(cur, x + static_cast<size_t>(row) * d, lane, d);
+  for (; row < n; row += stride) {
+    if (row + stride < n)
+      ln_load_row<bf16, NV>(nxt, x + static_cast<size_t>(row + stride) * d, lane, d);
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if ((lane + 32 * k) * 8 >= d) continue;
+      const bf16* v = reinterpret_cast<const bf16*>(&cur[k]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum = __fadd_rn(sum, to_float(v[e]));
+    }
+    const float mean = __fdiv_rn(warp_sum(sum), fd);
+    float sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      if ((lane + 32 * k) * 8 >= d) continue;
+      const bf16* v = reinterpret_cast<const bf16*>(&cur[k]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float c = __fsub_rn(to_float(v[e]), mean);
+        sq = __fmaf_rn(c, c, sq);
+      }
+    }
+    const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), fd), eps));
+    float y[NV][8];
+    float amax = 0.f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = (lane + 32 * k) * 8;
+      if (i >= d) continue;
+      const bf16* v = reinterpret_cast<const bf16*>(&cur[k]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xhat = __fmul_rn(__fsub_rn(to_float(v[e]), mean), rstd);
+        y[k][e] = __fmaf_rn(xhat, sg[i + e], sb[i + e]);
+        if (FROM_BF16) y[k][e] = __bfloat162float(__float2bfloat16(y[k][e]));
+        amax = fmaxf(amax, fabsf(y[k][e]));
+      }
+    }
+    const float2 sr = quant_scale<L>(warp_max(amax));
+    const size_t base = static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int i = (lane + 32 * k) * 8;
+      if (i >= d) continue;
+      __align__(8) int8_t o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = quant_i8<L>(y[k][e], sr.y);
+      *reinterpret_cast<uint2*>(q + base + i) = *reinterpret_cast<const uint2*>(o);
+      if (xn_out != nullptr) {
+        if (XN_F32) {
+          float* xo = static_cast<float*>(xn_out) + base + i;
+          store4(xo, y[k]);
+          store4(xo + 4, y[k] + 4);
+        } else {
+          bf16* xo = static_cast<bf16*>(xn_out) + base + i;
+          store4(xo, y[k]);
+          store4(xo + 4, y[k] + 4);
+        }
+      }
+    }
+    if (lane == 0) s[row] = sr.x;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) cur[k] = nxt[k];
+  }
+}
+
+// The first design, for rows wider than kLnRegMaxD: one warp a row.
 template <bool FROM_BF16, bool XN_F32, int L>
 __global__ void __launch_bounds__(256)
     layer_norm_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
@@ -311,6 +407,22 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) s[row] = sr.x;
 }
 
+template <bool FROM_BF16, bool XN_F32, int L, int NV>
+cudaError_t launch_layer_norm_quant_reg(const bf16* x, const float* gamma, const float* beta,
+                                        int8_t* q, float* s, void* xn_out, int n, int d,
+                                        float eps, cudaStream_t stream) {
+  static const int per_sm = ln_blocks_per_sm(layer_norm_quant_reg_kernel<FROM_BF16, XN_F32, L, NV>);
+  if (per_sm == 0) return cudaErrorLaunchOutOfResources;
+  int sms = 0;
+  const cudaError_t e = ln_sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  constexpr int kWarps = kLnThreads / 32;
+  const int blocks = std::min((n + kWarps - 1) / kWarps, per_sm * sms);
+  layer_norm_quant_reg_kernel<FROM_BF16, XN_F32, L, NV>
+      <<<blocks, kLnThreads, 0, stream>>>(x, gamma, beta, q, s, xn_out, n, d, eps);
+  return cudaGetLastError();
+}
+
 // d % 8 == 0. xn_out: null, bf16 [n, d], or with XN_F32 fp32 [n, d].
 template <bool FROM_BF16, bool XN_F32 = false, int L = kQ8>
 cudaError_t launch_layer_norm_quant(const bf16* x, const float* gamma, const float* beta,
@@ -318,6 +430,25 @@ cudaError_t launch_layer_norm_quant(const bf16* x, const float* gamma, const flo
                                     cudaStream_t stream) {
   if (n == 0) return cudaSuccess;
   if (d % 8) return cudaErrorInvalidValue;
+  if (d <= kLnRegMaxD) {
+    switch ((d + 255) / 256) {  // 16-byte vectors a lane
+      case 1:
+        return launch_layer_norm_quant_reg<FROM_BF16, XN_F32, L, 1>(x, gamma, beta, q, s, xn_out,
+                                                                    n, d, eps, stream);
+      case 2:
+        return launch_layer_norm_quant_reg<FROM_BF16, XN_F32, L, 2>(x, gamma, beta, q, s, xn_out,
+                                                                    n, d, eps, stream);
+      case 3:
+        return launch_layer_norm_quant_reg<FROM_BF16, XN_F32, L, 3>(x, gamma, beta, q, s, xn_out,
+                                                                    n, d, eps, stream);
+      case 4:
+        return launch_layer_norm_quant_reg<FROM_BF16, XN_F32, L, 4>(x, gamma, beta, q, s, xn_out,
+                                                                    n, d, eps, stream);
+      default:
+        return launch_layer_norm_quant_reg<FROM_BF16, XN_F32, L, 5>(x, gamma, beta, q, s, xn_out,
+                                                                    n, d, eps, stream);
+    }
+  }
   constexpr int kRowsPerBlock = 8;
   layer_norm_quant_kernel<FROM_BF16, XN_F32, L>
       <<<(n + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, stream>>>(

@@ -39,9 +39,9 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_bwd": [_P] * 22 + [_I] * 6 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_gqa_bwd": [_P] * 23 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_mlp_int8_fwd": [_P] * 17 + [_I, _I, _I, _F, _I, _P],
-    "vitax_ln_mlp_int8_bwd": [_P] * 39 + [_I] * 5 + [_F, _I, _P],
+    "vitax_ln_mlp_int8_bwd": [_P] * 38 + [_I] * 5 + [_F, _I, _P],
     "vitax_ln_qkvo_attention_int8_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
-    "vitax_ln_qkvo_attention_int8_bwd": [_P] * 41 + [_I] * 9 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_int8_bwd": [_P] * 42 + [_I] * 9 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int8_ho_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_mlp_int8_ho_fwd": [_P] * 19 + [_I] * 3 + [_F, _P],
     "vitax_ln_qkvo_attention_rect_fwd": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
@@ -68,6 +68,8 @@ SIGNATURES = {
     "vitax_qkvo_attention_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vitax_qkvo_attention_bwd": [_P] * 17 + [_I] * 6 + [_F, _P],
     "vitax_gemm_sm90": [_P] * 9 + [_I] * 4 + [_P],
+    "vitax_gemm_sm90_s8": [_P] * 12 + [_I] * 5 + [_P],
+    "vitax_gemm_sm90_s8_launches": [_P, _I],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {
@@ -149,6 +151,11 @@ def build() -> Path:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
+
+
+def loaded() -> bool:
+    """Whether `load()` has loaded the library in this process."""
+    return _lib is not None
 
 
 def load() -> ctypes.CDLL:

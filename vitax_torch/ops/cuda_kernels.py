@@ -17,12 +17,17 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
 - `fused_ln_mlp_int8` -> ln_mlp_int8.cu -> `_ln_mlp_fwd_int8_kernel` :683
   (K4)
 - `fused_ln_qkvo_attention_int8_bwd` -> ln_qkvo_attention_int8_bwd.cu ->
-  `_ln_qkvo_bwd_int8_kernel` :2977
+  `_ln_qkvo_bwd_int8_kernel` :2977 (K3 backward: gemm_sm90.cuh's s8 wgmma
+  products and K13's core)
 - `fused_ln_mlp_int8_bwd` -> ln_mlp_int8_bwd.cu -> `_ln_mlp_bwd_int8_kernel`
-  :1122
+  :1122 (K4 backward: gemm_sm90.cuh's s8 wgmma products, fc1's recompute
+  and dh1 as one dual product)
 - `fused_ln_qkvo_attention_int8_dw_bwd`, `fused_ln_mlp_int8_dw_bwd` -> the
-  same two sources with `int8_dw` on (dw_int8.cuh) -> the `int8_dw` branches
-  of those kernels, :3041-3049 and :3077-3084, :1173-1197
+  same two sources with `int8_dw` on (dw_int8.cuh's operand packs,
+  gemm_sm90.cuh's group fold) -> the `int8_dw` branches of those kernels,
+  :3041-3049 and :3077-3084, :1173-1197
+- `gemm_sm90_s8` -> gemm_sm90_s8.cu: the s8 products inside those two
+  backwards launched alone, for the card tests (no path calls it)
 - `fused_ln_qkvo_attention_int8_ho` -> ln_qkvo_attention_int8_ho.cu ->
   `_ln_qkvo_fwd_int8_ho_kernel` :3669 (K5)
 - `fused_ln_mlp_int8_ho` -> ln_mlp_int8_ho.cu -> `_ln_mlp_fwd_int8_ho_kernel`
@@ -146,6 +151,7 @@ and vitax's own gates (ops/gates.py) both pass.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -226,6 +232,7 @@ def _i8(dev, *shape):
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    s8_launch_counts(reset=True)
 
 
 def launch_counts() -> dict:
@@ -715,6 +722,139 @@ def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None, residual=None):
     if kind in ("gelu_pair", "nn_bias_gelu_save"):
         return c, c2
     return f if kind.endswith("f32") else c
+
+
+GEMM_SM90_S8_KINDS = ("s8_bf16", "s8_f32", "s8_gelu_pair", "s8_group")
+
+
+def s8_launch_counts(reset: bool = False) -> dict:
+    """The s8 products of gemm_sm90.cuh launched since the last reset, by
+    kind, as the library counts them where it launches one (`launch_s8`):
+    inside K3's backward (kv_heads == heads) two s8_bf16 (qkv, dattn) and
+    one s8_f32 (dxn), inside K4's one s8_gelu_pair and one s8_f32, and
+    under int8_dw two s8_group in each, besides `gemm_sm90_s8`'s own.
+    `launch_counts` keys the wrappers. Nothing is counted before the
+    library is loaded: no product has launched then."""
+    counts = (ctypes.c_longlong * len(GEMM_SM90_S8_KINDS))()
+    if build.loaded():
+        build.check(build.load().vitax_gemm_sm90_s8_launches(counts,
+                                                             int(reset)),
+                    "s8_launch_counts")
+    return {f"gemm_sm90_s8:{k}": v
+            for k, v in zip(GEMM_SM90_S8_KINDS, counts)}
+
+
+def gemm_sm90_s8_ref(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
+                     sr2=None, sc2=None, group=None):
+    """The plain twin of `gemm_sm90_s8`: exact int32 products (`int_mm`)
+    dequantized in the kernels' order (`_dequant`), the GELU pair's
+    epilogue as K4's backward twin writes it, and the group fold as
+    `_dw_int8` adds it: over each group of `group` columns of K, in order,
+    F += f32(acc)·sr[z, m]."""
+    if kind == "s8_group":
+        f = torch.zeros((a.shape[0], b.shape[0]), dtype=_F32, device=a.device)
+        for z, k0 in enumerate(range(0, a.shape[1], group)):
+            cols = slice(k0, k0 + group)
+            f = f + int_mm(a[:, cols], b[:, cols].t()) * sr[z].reshape(-1, 1)
+        return f
+    y = _dequant(int_mm(a, b.t()), sr.reshape(-1, 1), sc, bias)
+    if kind == "s8_bf16":
+        return y.to(_BF)
+    if kind == "s8_f32":
+        return y
+    if kind == "s8_gelu_pair":
+        dh1_32 = (_dequant(int_mm(a2, b2.t()), sr2.reshape(-1, 1), sc2)
+                  * gelu_grad_q(y))
+        return gelu_q(y).to(_BF), dh1_32.to(_BF), dh1_32
+    raise ValueError(f"gemm_sm90_s8: unknown kind {kind!r}")
+
+
+def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
+    """Keyword arguments of `gemm_sm90_s8` for one product, drawn from a
+    seed: int8 codes in [-127, 127] and fp32 scales, with a bias when
+    `extra` is True; for "s8_group" `extra` is the group's columns, and each
+    group's codes are zero past 25/32 of its rows, as dw_int8.cuh pads
+    them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=device,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(shape, generator=g, device=device) * 1e-3 + 1e-5
+
+    if kind == "s8_group":
+        a, b = codes(m, k), codes(n, k)
+        rows = extra * 25 // 32
+        for z0 in range(0, k, extra):
+            a[:, z0 + rows:z0 + extra] = 0
+            b[:, z0 + rows:z0 + extra] = 0
+        return dict(a=a, b=b, sr=scales(k // extra, m), group=extra)
+    out = dict(a=codes(m, k), b=codes(n, k), sr=scales(m), sc=scales(n))
+    if extra:
+        out["bias"] = torch.randn(n, generator=g, device=device) * 0.1
+    if kind == "s8_gelu_pair":
+        out.update(a2=codes(m, k), b2=codes(n, k), sr2=scales(m),
+                   sc2=scales(n))
+    return out
+
+
+def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
+                 sr2=None, sc2=None, group=None):
+    """One s8 product of gemm_sm90.cuh, the int8 wgmma path inside K3's and
+    K4's int8 backwards, launched alone (csrc/gemm_sm90_s8.cu) so that the
+    card tests hold each epilogue against exact integer products; no path
+    of the port calls it. a [m, k] and b [n, k] int8 codes, k % 16 == 0,
+    n % 8 == 0; sr [m], sc [n] fp32 scales. kind: "s8_bf16"
+    bf16(f32(a·bᵀ)·sr·sc (+ bias)), "s8_f32" the same in fp32,
+    "s8_gelu_pair" (h1, dh1, dh1_32) of K4's dual product with pre =
+    f32(a·bᵀ)·sr·sc + bias and the second product a2 [m, k], b2 [n, k] with
+    sr2, sc2 (bf16(gelu_q(pre)), bf16(dh1_32), dh1_32 =
+    f32(a2·b2ᵀ)·sr2·sc2·gelu_q'(pre)), "s8_group" the int8_dw fold over
+    groups of `group` columns of k (group % 128 == 0), sr [k / group, m]."""
+    if not a.is_cuda:
+        return gemm_sm90_s8_ref(kind, a, b, sr, sc, bias, a2, b2, sr2, sc2,
+                                group)
+    name = "gemm_sm90_s8"
+    if kind not in GEMM_SM90_S8_KINDS:
+        raise ValueError(f"{name}: unknown kind {kind!r}")
+    m, k = a.shape
+    n = b.shape[0]
+    mats = {"a": a, "b": b, **({"a2": a2, "b2": b2}
+                               if kind == "s8_gelu_pair" else {})}
+    vecs = {"sr": sr, **({"sc": sc} if kind != "s8_group" else {}),
+            **({"bias": bias} if bias is not None else {}),
+            **({"sr2": sr2, "sc2": sc2} if kind == "s8_gelu_pair" else {})}
+    dev = _check_cuda(name, {**mats, **vecs},
+                      {**dict.fromkeys(mats, torch.int8),
+                       **dict.fromkeys(vecs, _F32)})
+    for key, t in mats.items():
+        _check_shape(name, key, t, (n if key.startswith("b") else m, k))
+    if kind == "s8_group":
+        if not group or k % group:
+            raise ValueError(f"{name}: k {k} is not whole groups of {group}")
+        _check_shape(name, "sr", sr, (k // group, m))
+    else:
+        for key, t in vecs.items():
+            _check_shape(name, key, t, (m,) if key.startswith("sr") else (n,))
+    lib = build.load()
+    pair = kind == "s8_gelu_pair"  # only the outputs the kind writes
+    c = _bf(dev, m, n) if pair or kind == "s8_bf16" else None
+    c2 = _bf(dev, m, n) if pair else None
+    f = None if kind == "s8_bf16" else _f32(dev, m, n)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    rc = lib.vitax_gemm_sm90_s8(ptr(a), ptr(b), ptr(a2), ptr(b2), ptr(sr),
+                                ptr(sc), ptr(bias), ptr(sr2), ptr(sc2),
+                                ptr(c), ptr(c2), ptr(f), m, n, k, group or 0,
+                                GEMM_SM90_S8_KINDS.index(kind), _stream(dev))
+    build.check(rc, name)
+    if pair:
+        return c, c2, f
+    return c if kind == "s8_bf16" else f
 
 
 class FusedLnMlpFn(torch.autograd.Function):
@@ -1765,7 +1905,11 @@ def _dequant(acc, s_row, s_col, bias=None):
 # its own: K4 fixed groups of MLP_DW_GROUP rows (the last one ragged), K3
 # whole images (`qkvo_dw_group`). The twins take the group as an argument.
 MLP_DW_GROUP = 128
-_DW_PAD = 64  # the kernels pad each group's rows to whole 64-deep s8 K stages
+# the kernels pad each group's rows to whole K tiles of their s8 GEMM:
+# gemm.cuh's 64-deep stages, or gemm_sm90.cuh's 128-code tiles (K3's
+# backward with kv_heads == heads, and K4's)
+_DW_PAD = 64
+_DW_PAD_SM90 = 128
 
 
 def _qkvo_bwd_tile(b: int, spq: int) -> int:
@@ -1872,23 +2016,23 @@ def _pad_rows(t, group):
     return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
 
 
-def _dw_pad(group: int) -> int:
-    return -(-group // _DW_PAD) * _DW_PAD
+def _dw_pad(group: int, pad: int = _DW_PAD) -> int:
+    return -(-group // pad) * pad
 
 
-def _dw_layout(n: int, group: int):
+def _dw_layout(n: int, group: int, pad: int = _DW_PAD):
     """(groups, kp) of the kernels' transposed int8_dw operands [W, kp]:
-    each group's rows zero-padded to a multiple of _DW_PAD."""
+    each group's rows zero-padded to a multiple of `pad`."""
     groups = -(-n // group)
-    return groups, groups * _dw_pad(group)
+    return groups, groups * _dw_pad(group, pad)
 
 
-def _group_codes(qt, n, group):
+def _group_codes(qt, n, group, pad: int = _DW_PAD):
     """A kernel's transposed column codes qt [W, kp] in the twin's layout,
     [n, W]."""
     w = qt.shape[0]
-    return (qt.view(w, -1, _dw_pad(group))[:, :, :group].permute(1, 2, 0)
-            .reshape(-1, w)[:n])
+    return (qt.view(w, -1, _dw_pad(group, pad))[:, :, :group]
+            .permute(1, 2, 0).reshape(-1, w)[:n])
 
 
 def fused_ln_mlp_int8_ref(x, gamma, beta, w1, b1, w2, b2, eps, *,
@@ -2090,7 +2234,8 @@ def fused_ln_mlp_int8_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
 
 def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
                           scratch, int4=False, residual=True):
-    """K4's backward launch (ln_mlp_int8_bwd.cu), or with `int4` K11-B's,
+    """K4's backward launch (ln_mlp_int8_bwd.cu: gemm_sm90.cuh's s8 path, no
+    a1 scratch), or with `int4` K11-B's (the first design, a1 in scratch),
     whose int8_dw runs on the rows padded to whole groups of vitax's
     (`mlp_int4_dw_group`)."""
     dev = _check_cuda(
@@ -2115,6 +2260,7 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
         group = mlp_int4_dw_group(rows)
         x2, do2 = _pad_rows(x2, group), _pad_rows(do2, group)
     n = x2.shape[0]
+    pad = _DW_PAD if int4 else _DW_PAD_SM90
     lib = build.load()
     w1r, s1r = _i8(dev, d, m), _f32(dev, d)  # per row
     w2r, s2r = _i8(dev, m, d), _f32(dev, m)
@@ -2122,8 +2268,11 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     dx, dg, dbe = torch.empty_like(x2), _f32(dev, d), _f32(dev, d)
     dw1, db1 = _f32(dev, d, m), _f32(dev, m)
     dw2, db2 = _f32(dev, m, d), _f32(dev, d)
-    xn, h1, dh1 = _bf(dev, n, d), _bf(dev, n, m), _bf(dev, n, m)
-    a1, dh1f, dxn = _f32(dev, n, m), _f32(dev, n, m), _f32(dev, n, d)
+    xn, h1 = _bf(dev, n, d), _bf(dev, n, m)
+    # dh1 (bf16) feeds the bf16 dW1 only: K4's int8_dw does without it
+    dh1 = _bf(dev, n, m) if int4 or not int8_dw else None
+    dh1f, dxn = _f32(dev, n, m), _f32(dev, n, d)
+    a1 = (_f32(dev, n, m),) if int4 else ()
     xq, doq, dh1q = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, m)
     sx, sdo, sdh = _f32(dev, n), _f32(dev, n), _f32(dev, n)
     ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
@@ -2132,7 +2281,7 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     # for them (K11-B's are the fifth and last)
     dw = [None] * 8
     if int8_dw:
-        groups, kp = _dw_layout(n, group)
+        groups, kp = _dw_layout(n, group, pad)
         dw = [_i8(dev, m, kp), _f32(dev, groups, m), _i8(dev, d, kp),
               _f32(dev, groups, d) if int4 else None, _i8(dev, d, kp),
               _f32(dev, groups, d), _i8(dev, m, kp),
@@ -2141,20 +2290,20 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     if not int4:
         del ptrs[7], ptrs[3]
     fn = lib.vitax_ln_mlp_int4_bwd if int4 else lib.vitax_ln_mlp_int8_bwd
-    rc = fn(*(t.data_ptr() for t in (
+    rc = fn(*(None if t is None else t.data_ptr() for t in (
         x2, gamma, beta, b1, w1, w2, do2, dx, dg, dbe, dw1, db1, dw2, db2, w1r,
-        s1r, w2r, s2r, w1c, s1c, xn, xq, sx, a1, h1, doq, sdo, dh1f, dh1, dh1q,
-        sdh, dxn, ws)), *ptrs, n, d, m, group, int(int8_dw), eps,
+        s1r, w2r, s2r, w1c, s1c, xn, xq, sx, *a1, h1, doq, sdo, dh1f, dh1,
+        dh1q, sdh, dxn, ws)), *ptrs, n, d, m, group, int(int8_dw), eps,
         int(residual), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c.t(), s1c),
           xq=(xq, sx), doq=(doq, sdo), dh1q=(dh1q, sdh))
-    if int8_dw:
-        _keep(scratch, h1c=(_group_codes(dw[0], n, group), dw[1]),
-              xnc=(_group_codes(dw[4], n, group), dw[5]))
-    if int8_dw and int4:
-        _keep(scratch, doc=(_group_codes(dw[2], n, group), dw[3]),
-              dh1c=(_group_codes(dw[6], n, group), dw[7]))
+    if int8_dw and scratch is not None:  # the layout change copies
+        _keep(scratch, h1c=(_group_codes(dw[0], n, group, pad), dw[1]),
+              xnc=(_group_codes(dw[4], n, group, pad), dw[5]))
+        if int4:
+            _keep(scratch, doc=(_group_codes(dw[2], n, group, pad), dw[3]),
+                  dh1c=(_group_codes(dw[6], n, group, pad), dw[7]))
     return dx[:rows].view(x.shape), dg, dbe, dw1, db1, dw2, db2
 
 
@@ -3328,7 +3477,9 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
                            seq_len, heads, head_dim, kv_heads, int8_dw,
                            scratch, int4=False):
     """K3's backward launch (K7's int8 tier with kv_heads < heads), or with
-    `int4` K11-D's."""
+    `int4` K11-D's. K3 with kv_heads == heads runs the Hopper design (K13's
+    core, its row statistics the only attention scratch; gemm_sm90.cuh's s8
+    path); the others keep the first design (bf16 P and ds in scratch)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
@@ -3342,6 +3493,8 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     hhd = heads * head_dim
     n, width = b * spq, wqkv.shape[1]
     rows = (spq + 15) // 16 * 16
+    hopper = kv_heads == heads and not int4
+    pad = _DW_PAD_SM90 if hopper else _DW_PAD
     lib = build.load()
     w8t, sw = _i8(dev, width, d), _f32(dev, width)
     w8r, swr = _i8(dev, d, width), _f32(dev, d)
@@ -3353,7 +3506,14 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     xn = (_f32 if int8_dw else _bf)(dev, n, d)
     qkv, attn, dattn = (_bf(dev, n, width), _bf(dev, n, hhd),
                         _bf(dev, n, hhd))
-    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    # the core's scratch, (p, ds, stats) of the int8 entry point (K11-D's
+    # takes no stats): K13's row statistics, or the whole-row core's P, ds
+    if hopper:
+        core = [None, None, _workspace(
+            lib.vitax_attention_core_bwd_ws(b, spq, heads), dev)]
+    else:
+        core = [_bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)]
+        core += [] if int4 else [None]
     dqkv, dxn = _bf(dev, n, width), _f32(dev, n, d)
     xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, width)
     sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
@@ -3364,7 +3524,7 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     # own for them (K11-D's are the fourth and last)
     dwt = [None] * 8
     if int8_dw:
-        groups, kp = _dw_layout(n, group)
+        groups, kp = _dw_layout(n, group, pad)
         dwt = [_i8(dev, hhd, kp), _f32(dev, groups, hhd), _i8(dev, d, kp),
                _f32(dev, groups, d) if int4 else None, _i8(dev, d, kp),
                _f32(dev, groups, d), _i8(dev, width, kp),
@@ -3374,21 +3534,23 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
         del ptrs[7], ptrs[3]
     fn = (lib.vitax_ln_qkvo_attention_int4_bwd if int4
           else lib.vitax_ln_qkvo_attention_int8_bwd)
-    rc = fn(*(t.data_ptr() for t in (
+    head = (t.data_ptr() for t in (
         x, gamma, beta, bqkv, wqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, w8t,
-        sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p,
-        ds, dqkv, dqq, sdq, dxn, ws)), *ptrs, b, spq, d, seq_len, heads,
-        kv_heads, head_dim, group, int(int8_dw), eps,
-        1.0 / math.sqrt(head_dim), _stream(dev))
+        sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn))
+    tail = (t.data_ptr() for t in (dqkv, dqq, sdq, dxn, ws))
+    rc = fn(*head, *(None if t is None else t.data_ptr() for t in core),
+            *tail, *ptrs, b, spq, d, seq_len, heads,
+            kv_heads, head_dim, group, int(int8_dw), eps,
+            1.0 / math.sqrt(head_dim), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w8=(w8t.t(), sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
           xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
-    if int8_dw:
-        _keep(scratch, atc=(_group_codes(dwt[0], n, group), dwt[1]),
-              xnc=(_group_codes(dwt[4], n, group), dwt[5]))
-    if int8_dw and int4:
-        _keep(scratch, doc=(_group_codes(dwt[2], n, group), dwt[3]),
-              dqc=(_group_codes(dwt[6], n, group), dwt[7]))
+    if int8_dw and scratch is not None:  # the layout change copies
+        _keep(scratch, atc=(_group_codes(dwt[0], n, group, pad), dwt[1]),
+              xnc=(_group_codes(dwt[4], n, group, pad), dwt[5]))
+        if int4:
+            _keep(scratch, doc=(_group_codes(dwt[2], n, group, pad), dwt[3]),
+                  dqc=(_group_codes(dwt[6], n, group, pad), dwt[7]))
     return dx, dg, dbe, dw, db, dwo, dbo
 
 

@@ -62,6 +62,7 @@ GROUPS = [("k13::", "attention core, wgmma (K13; K1's and K6's forwards, "
           ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K6's, K12's products)"),
           ("attention_core", "attention core (K3/K7/K8)"),
           ("attention_bwd", "attention core backward"),
+          ("gemm_s8_sm90", "s8 wgmma GEMM (K3's and K4's int8 backwards)"),
           ("gemm_s8", "s8 GEMM (K3/K4/K8 int8)"),
           ("gemm_bf16", "bf16 GEMM (the fused halves' products)"),
           ("layer_norm_rows", "LN forward"),
@@ -161,9 +162,9 @@ def report(name, prof, wall, iters, unit) -> None:
               f"{g} {ms:.2f} ms ({100 * ms / busy:.1f} %)"
               for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
           flush=True)
-    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    top = sorted(kernels, key=_device_us, reverse=True)[:12]
     print(f"{name}: largest kernels: " + "; ".join(
-        f"{e.key[:60]} {_device_us(e) / 1e3 / iters:.2f} ms x"
+        f"{e.key[:60]} {_device_us(e) / 1e3 / iters:.3f} ms x"
         f"{e.count // iters}" for e in top), flush=True)
 
 

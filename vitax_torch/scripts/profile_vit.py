@@ -7,8 +7,12 @@ Configs, each at full width with random weights from seed 0 and one
 resident batch of Synthetic images: `h14-eval` (ViT-H/14 forward at 384
 px, spq 736, b32: K6 and K2), `h14-train` (ViT-H/14 train step at 224, spq
 264, b32: forward, backward with K2's on the d > 1024 route, SGD with
-momentum), `b16-train` (ViT-B/16 train step at 224, b32: K1 and K2) and
-`b16-eval` (ViT-B/16 serving forward at 224, b64); default: all four.
+momentum), `b16-train` (ViT-B/16 train step at 224, b32: K1 and K2),
+`b16-train-int8grad` (the same step with `--int8-grad`: K3's and K4's
+int8 forwards and their int8 backwards, bf16 weight grads),
+`b16-train-int8dw` (with `--int8-dw`: the same with the int8 weight
+grads) and `b16-eval` (ViT-B/16 serving forward at 224, b64); default:
+all six.
 For each it runs two warm-up iterations, records three with torch.profiler
 and prints, as `profile_resvit` does, the wall time an iteration, the
 device busy time and idle share, the device time by group of kernels and
@@ -29,17 +33,23 @@ from vitax_torch.scripts.profile_resvit import _profiled, report
 from vitax_torch.train import (create_train_state, make_train_step,
                                sgd_momentum)
 
-# config -> (arch, image size, train, batch)
-CONFIGS = {"h14-eval": ("h14", 384, False, 32),
-           "h14-train": ("h14", 224, True, 32),
-           "b16-train": ("b16", 224, True, 32),
-           "b16-eval": ("b16", 224, False, 64)}
+INT8_DW = dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
+               int8_attn_grad=True, int8_dw=True)
+# config -> (arch, image size, train, batch, tier flags)
+CONFIGS = {"h14-eval": ("h14", 384, False, 32, {}),
+           "h14-train": ("h14", 224, True, 32, {}),
+           "b16-train": ("b16", 224, True, 32, {}),
+           "b16-train-int8grad": ("b16", 224, True, 32,
+                                  dict(INT8_DW, int8_dw=False)),
+           "b16-train-int8dw": ("b16", 224, True, 32, INT8_DW),
+           "b16-eval": ("b16", 224, False, 64, {})}
 
 
 def profile(name: str, iters: int = 3) -> None:
-    arch, image, train, batch_size = CONFIGS[name]
+    arch, image, train, batch_size, flags = CONFIGS[name]
     cfg = arch_config(arch, image_size=image, num_classes=10,
-                      dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True)
+                      dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True,
+                      **flags)
     params = vit.init_params(set_seed(0), cfg, "cuda")
     batch = next(iter(get_dataloader(
         "Synthetic", split="train" if train else "val", image_size=image,

@@ -11,6 +11,12 @@ file need not belong to), it prints under `tag`:
   K7's backward (4 kv heads), K3's backward (`--int8-grad`) and K13's
   forward and backward at ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
   give the same line where those kernels kept their bits;
+- `int8_checksums`: the same of the int8 and int4 tiers: K3's and K4's
+  forwards and the two halves of K5 (the LN-quant prologue's codes, scales
+  and xn reach every output), K3's and K4's backwards with and without
+  int8_dw (K4's also without its residual) with the codes they wrote, and
+  the branches kept on the first design: K7's int8 backwards (4 kv heads),
+  K11-B and K11-D with and without int8_dw, and G-B;
 - `ln_checksums`: the same of the LN kernel pair alone (the standalone
   entry points, register path and loop form, bf16 and fp32): the forward,
   the backward's dx, and its dγ/dβ apart (their order of sums may change
@@ -27,10 +33,18 @@ file need not belong to), it prints under `tag`:
 - `kernel_times`: CUDA-event medians of 25 launches of K1's forward at
   ViT-B/16's b64 and b32 spq 200 and b8 spq 584, and of K2's and K12's
   forwards, each with and without the residual, at b64 and b32 spq 200;
+  of K3's and K4's int8 backwards, with and without int8_dw, at b32 spq
+  200 and the drop phase's spq 104;
+- `int8_bwd_device`: where K3's and K4's int8 backwards, with and without
+  int8_dw, spend their device time at ViT-B/16's b32 spq 200: each
+  call's device time and its kernels by name, with their launches a call
+  (torch.profiler's kernel records over 5 calls);
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
-  momentum) at b32 in bf16, `--int8`, `--int8-grad` and `--save-acts`,
-  with the bf16 step's peak device memory; the bf16 serving forward at b64
+  momentum) at b32 in bf16, `--int8`, `--int8-grad`, `--int8-dw` and
+  `--save-acts`, with the bf16 step's peak device memory; the fast
+  recipe's (scripts/FT_CIFAR100_fast.sh) `--int8-dw` steps at its dense
+  tail's b192 and its drop phase's b768 keep 0.5; the bf16 serving forward at b64
   @224 and @384 (K1 at spq 584); `--no-fused-qkv` (K13) forward b64 @384
   and step b32; Res-ViT's `scripts/ft_resvit.sh` (a) step at b32 (teacher
   and student forward, backward, AdamW); ViT-H/14 @224 step at b32 with
@@ -39,6 +53,10 @@ file need not belong to), it prints under `tag`:
 
 Run it for two checkouts in the order A, B, B, A in one call on the card
 (each run builds its checkout's kernels into that checkout's `build/`).
+Names after the tag run only those sections (`checksums`, `int8_checksums`,
+`ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
+`kernel_times`, `int8_bwd_device`), e.g. `turns.py A int8_checksums
+kernel_times`.
 """
 
 from __future__ import annotations
@@ -127,6 +145,73 @@ def checksums() -> dict:
         o = ck.flash_attention_bhsd(q, k, v)
         out["K13 fwd+bwd"] = _digest((o,) + tuple(ck.flash_attention_bwd(
             q, k, v, o, do_c)))
+    return out
+
+
+def _int8_inputs(seed, b, spq, kv=None):
+    """Seeded inputs of the int8 halves at ViT-B/16's widths: the attention
+    half's (x, γ, β, Wqkv, bqkv, Wo) with `kv` kv heads (GQA's packed
+    layout; default all), bo, do and the MLP half's (W1, b1, W2, b2)."""
+    d, heads, hd, m = B16_WIDTHS
+    width = (heads + 2 * (kv or heads)) * hd
+    return _half_inputs(seed, b, spq, d, width, heads * hd, m)
+
+
+def int8_checksums() -> dict:
+    """{kernel: sha256 prefixes} of the int8 and int4 tiers' outputs (and
+    of the codes each backward wrote, from its scratch) at b2 spq 200, seq
+    197: the kernels redesigned for Hopper (K3's and K4's backwards), what
+    their new pieces feed (the LN-quant prologue of K3's, K4's and K5's
+    forwards) and the branches kept on the first design."""
+    from vitax_torch.ops import cuda_kernels as ck
+    _, heads, hd, _ = B16_WIDTHS
+    tail = (1e-5, 197, heads, hd)
+    head, bo, do, mlp = _int8_inputs(196, 2, 200)
+    ln = head[:3]
+    out = {}
+
+    def scratch_digest(outs, sk):
+        return _digest(tuple(outs) + tuple(
+            t for key in sorted(sk) for t in sk[key]))
+
+    with torch.no_grad():
+        out["K3 fwd"] = _digest((ck.fused_ln_qkvo_attention_int8(
+            *head, bo, *tail),))
+        out["K4 fwd"] = _digest((ck.fused_ln_mlp_int8(*ln, *mlp, 1e-5),))
+        r1, *pack1 = ck.fused_ln_qkvo_attention_int8_ho(
+            head[0], None, None, *ln[1:], *ln[1:], *head[3:], bo, 1e-5, 197,
+            heads, hd)
+        out["K5 attn"] = _digest((r1, *pack1))
+        out["K5 mlp"] = _digest(tuple(ck.fused_ln_mlp_int8_ho(
+            r1, *pack1, *ln[1:], *mlp, 1e-5)))
+        mlp_bwd = (*ln, mlp[0], mlp[1], mlp[2], do, 1e-5)
+        for name, fn, args in (
+                ("K3 bwd", ck.fused_ln_qkvo_attention_int8_bwd,
+                 (*head, do, *tail)),
+                ("K3 dw bwd", ck.fused_ln_qkvo_attention_int8_dw_bwd,
+                 (*head, do, *tail)),
+                ("K4 bwd", ck.fused_ln_mlp_int8_bwd, mlp_bwd),
+                ("K4 dw bwd", ck.fused_ln_mlp_int8_dw_bwd, mlp_bwd),
+                ("K4 partial bwd", ck.fused_ln_mlp_int8_partial_bwd, mlp_bwd),
+                ("K4 partial dw bwd", ck.fused_ln_mlp_int8_partial_dw_bwd,
+                 mlp_bwd),
+                ("K11-B bwd", ck.fused_ln_mlp_int4_bwd, mlp_bwd),
+                ("K11-B dw bwd", ck.fused_ln_mlp_int4_dw_bwd, mlp_bwd),
+                ("K11-D bwd", ck.fused_ln_qkvo_attention_int4_bwd,
+                 (*head, do, *tail)),
+                ("K11-D dw bwd", ck.fused_ln_qkvo_attention_int4_dw_bwd,
+                 (*head, do, *tail))):
+            sk = {}
+            out[name] = scratch_digest(fn(*args, scratch=sk), sk)
+        gqa, _, do_g, _ = _int8_inputs(197, 2, 200, kv=4)
+        for name, fn in (
+                ("K7 int8 bwd", ck.fused_ln_qkvo_attention_int8_gqa_bwd),
+                ("K7 int8 dw bwd", ck.fused_ln_qkvo_attention_int8_gqa_dw_bwd),
+                ("G-B bwd", ck.fused_ln_qkvo_attention_int4_gqa_bwd),
+                ("G-B dw bwd", ck.fused_ln_qkvo_attention_int4_gqa_dw_bwd)):
+            sk = {}
+            out[name] = scratch_digest(fn(*gqa, do_g, *tail, 4, scratch=sk),
+                                       sk)
     return out
 
 
@@ -275,6 +360,22 @@ def kernel_times() -> dict:
             for name, fn in calls.items():
                 out[f"{name} b{b} spq{spq}"] = _median_ms(fn, 3, 25)
         del head, mlp
+    for b, spq, seq in ((32, 200, 197), (32, 104, 99)):
+        head, _, do, mlp = _int8_inputs(198, b, spq)
+        tail = (1e-5, seq, heads, hd)
+        mlp_bwd = (*head[:3], mlp[0], mlp[1], mlp[2], do, 1e-5)
+        calls = {
+            "K3 int8 bwd": lambda: ck.fused_ln_qkvo_attention_int8_bwd(
+                *head, do, *tail),
+            "K3 int8_dw bwd": lambda: ck.fused_ln_qkvo_attention_int8_dw_bwd(
+                *head, do, *tail),
+            "K4 int8 bwd": lambda: ck.fused_ln_mlp_int8_bwd(*mlp_bwd),
+            "K4 int8_dw bwd": lambda: ck.fused_ln_mlp_int8_dw_bwd(*mlp_bwd)}
+        with torch.no_grad():
+            for name, fn in calls.items():
+                out[f"{name} b{b} spq{spq}"] = _median_ms(fn, 3, 25)
+        del head, do, mlp
+        torch.cuda.empty_cache()
     d, heads, hd = H14_WIDTHS
     hhd = heads * hd
     for b, spq, seq in ((32, 736, 730), (32, 264, 257)):
@@ -290,6 +391,36 @@ def kernel_times() -> dict:
                 out[f"{name} b{b} spq{spq}"] = _median_ms(fn, 3, 25)
         del head, do
         torch.cuda.empty_cache()
+    return out
+
+
+def int8_bwd_device() -> dict:
+    """{backward: (device ms a call, [(kernel, ms a call, launches a
+    call)], largest first)} of K3's and K4's int8 backwards, with and
+    without int8_dw, at ViT-B/16's b32 spq 200."""
+    from vitax_torch.ops import cuda_kernels as ck
+    _, heads, hd, _ = B16_WIDTHS
+    head, _, do, mlp = _int8_inputs(198, 32, 200)
+    tail = (1e-5, 197, heads, hd)
+    mlp_bwd = (*head[:3], mlp[0], mlp[1], mlp[2], do, 1e-5)
+    calls = {
+        "K3 int8 bwd": lambda: ck.fused_ln_qkvo_attention_int8_bwd(
+            *head, do, *tail),
+        "K3 int8_dw bwd": lambda: ck.fused_ln_qkvo_attention_int8_dw_bwd(
+            *head, do, *tail),
+        "K4 int8 bwd": lambda: ck.fused_ln_mlp_int8_bwd(*mlp_bwd),
+        "K4 int8_dw bwd": lambda: ck.fused_ln_mlp_int8_dw_bwd(*mlp_bwd)}
+    reps, out = 5, {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            per = {}
+            for e in _device_records([fn], reps):
+                ms, n = per.get(e.name, (0.0, 0))
+                per[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / reps,
+                               n + 1)
+            rows = sorted(((k, ms, n / reps) for k, (ms, n) in per.items()),
+                          key=lambda r: -r[1])
+            out[f"{name} b32 spq200"] = (sum(r[1] for r in rows), rows)
     return out
 
 
@@ -375,8 +506,9 @@ def _images(image, batch, split="train"):
             torch.from_numpy(data.labels).cuda())
 
 
-def _vit_step_ms(arch, image, batch, **flags) -> tuple:
-    """(median ms, peak device memory in MB) of a ViT train step."""
+def _vit_step_ms(arch, image, batch, iters=10, **flags) -> tuple:
+    """(median ms, peak device memory in MB) of a ViT train step (token
+    drop: `token_keep` < 1, as the fast recipe's drop phase)."""
     from vitax_torch.core.config import arch_config
     from vitax_torch.core.prng import set_seed
     from vitax_torch.models import vit
@@ -394,7 +526,7 @@ def _vit_step_ms(arch, image, batch, **flags) -> tuple:
     step(state, images, labels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = _median_ms(lambda: step(state, images, labels))
+    ms = _median_ms(lambda: step(state, images, labels), iters=iters)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     del state, params, opt
     torch.cuda.empty_cache()
@@ -456,6 +588,14 @@ def timings() -> dict:
     out["B/16 step b32 --int8-grad"] = _vit_step_ms(
         "b16", 224, 32, **fused, **int8, int8_mlp_grad=True,
         int8_attn_grad=True)[0]
+    int8_dw = dict(**int8, int8_mlp_grad=True, int8_attn_grad=True,
+                   int8_dw=True)
+    out["B/16 step b32 --int8-dw"] = _vit_step_ms("b16", 224, 32, **fused,
+                                                  **int8_dw)[0]
+    out["fast recipe step b192 dense --int8-dw"] = _vit_step_ms(
+        "b16", 224, 192, **fused, **int8_dw)[0]
+    out["fast recipe step b768 keep 0.5 --int8-dw"] = _vit_step_ms(
+        "b16", 224, 768, iters=5, **fused, **int8_dw, token_keep=0.5)[0]
     out["B/16 step b32 --save-acts"] = _vit_step_ms(
         "b16", 224, 32, **fused, fused_mlp_save=True)[0]
     out["B/16 forward b64 bf16"] = _vit_forward_ms(224, 64, **fused)
@@ -487,21 +627,39 @@ def main(argv) -> int:
     build.load()
     print(f"{tag}: {vitax_torch.__file__} on "
           f"{smi.stdout.strip().splitlines()[0]}", flush=True)
-    for name, digest in checksums().items():
-        print(f"{tag}: checksum {name}: {digest}", flush=True)
-    for name, digest in ln_checksums().items():
-        print(f"{tag}: checksum {name}: {digest}", flush=True)
-    print(f"{tag}: two runs of each: {repeat_checksums()}", flush=True)
-    for name, (ms, bound) in ln_device_times().items():
-        print(f"{tag}: device {name} {ms:.4f} ms" + (
-            "" if bound is None else
-            f" (bound {bound:.4f}, x{ms / bound:.2f})"), flush=True)
-    for name, value in timings().items():
-        print(f"{tag}: {name} {value:.3f}" + ("" if "MB" in name else " ms"),
-              flush=True)
-    for name, value in kernel_times().items():
-        print(f"{tag}: {name} {value:.4f} ms", flush=True)
+    sections = set(argv[1:]) or set(SECTIONS)
+    for section in SECTIONS:
+        if section not in sections:
+            continue
+        if section in ("checksums", "int8_checksums", "ln_checksums"):
+            for name, digest in globals()[section]().items():
+                print(f"{tag}: checksum {name}: {digest}", flush=True)
+        elif section == "repeat_checksums":
+            print(f"{tag}: two runs of each: {repeat_checksums()}",
+                  flush=True)
+        elif section == "ln_device_times":
+            for name, (ms, bound) in ln_device_times().items():
+                print(f"{tag}: device {name} {ms:.4f} ms" + (
+                    "" if bound is None else
+                    f" (bound {bound:.4f}, x{ms / bound:.2f})"), flush=True)
+        elif section == "int8_bwd_device":
+            for name, (ms, rows) in int8_bwd_device().items():
+                print(f"{tag}: device {name} {ms:.4f} ms: " + "; ".join(
+                    f"{k[:70]} {t:.4f} x{n:g}" for k, t, n in rows),
+                    flush=True)
+        elif section == "timings":
+            for name, value in timings().items():
+                print(f"{tag}: {name} {value:.3f}"
+                      + ("" if "MB" in name else " ms"), flush=True)
+        else:
+            for name, value in kernel_times().items():
+                print(f"{tag}: {name} {value:.4f} ms", flush=True)
     return 0
+
+
+SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
+            "ln_device_times", "timings", "kernel_times",
+            "int8_bwd_device")
 
 
 if __name__ == "__main__":
