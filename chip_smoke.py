@@ -12,9 +12,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 3. kernels — each hand-written kernel against its plain PyTorch version on the
              card, in bf16: the forward kernels at the ViT-B/16 shapes of the
              serving path (batch 64 at spq 200, as eval_cli gives them), batch
-             8 at spq 200 and 584, a ragged row count and train_cli's b32
-             spq 200 (K1's and K2's forwards timed there too, a step's
-             shape); the backward kernels
+             8 at spq 200 and 584, a ragged row count, train_cli's b32
+             spq 200 (K1's, K2's, K3's and K4's forwards timed there too, a
+             step's shape) and b8 at b16@416's spq 680 (past the first
+             design's whole-row core); the backward kernels
              on every output at train_cli's b32 spq 200, b8 spq 200, the
              token-drop geometry (spq 104) and a ragged row count; max error
              against the stated tolerance, then median CUDA-event times of
@@ -47,8 +48,12 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              path, the int8 twin path (the same autograd Functions with the
              int8 wrappers swapped for their plain twins) and the bf16
              kernel path; the `--int8-dw` grads on the kernel and twin
-             paths; the s8 products inside the `--int8-grad` run's
-             backwards, counted by kind, exact; then device-timed train
+             paths; the s8 products of each run (K3's and K4's forwards,
+             the `--int8-grad` run's backwards), counted by kind, exact, and
+             no gemm.cuh s8 product or whole-row core; a b8 `--int8`
+             forward at 416 px through vit.apply (vitax's K1 gate takes seq
+             677, and so does the port's: exact K3 and K4 launches, logits
+             against the int8 twin path); then device-timed train
              steps (bf16, `--int8-grad`, `--int8-dw`, in turns, and the
              twin path);
 7. fast     — vitax's fastest recipe (scripts/FT_CIFAR100_fast.sh:
@@ -288,9 +293,9 @@ Phase 3 also holds the Res-ViT kernels against their twins: K7 (GQA in
 K1, 4 and 6 kv heads) at b64 spq 200; K8 (the rect attention half, bf16
 and int8) at b64 spq 200 with cpq 128 and 104 and on a ragged case, and
 against the square kernel (K1, K3) followed by the row gather, whose largest
-difference it prints and holds to TOL (the same bits for int8; K1's bf16
-forward runs gemm_sm90.cuh's products and K13's core, K8 gemm.cuh's and the
-whole-row core, so bf16 differs by sums in another order); and their
+difference it prints and holds to TOL (K1's and K3's forwards run
+gemm_sm90.cuh's products and K13's core, K8 gemm.cuh's and the whole-row
+core, so they differ by sums in another order); and their
 backwards on every output: K8's three (bf16, int8_grad, int8_dw; the int8
 ones by codes, INT8_REL and the bf16 stand-in too) at b32 spq 200 cpq 128
 and on a ragged case, K8's bf16 one also against K1's backward on all rows
@@ -314,19 +319,25 @@ skipped quantization would compute) must land outside INT8_REL on every
 output that quantization reaches, so the band is shown to tell the two
 apart in every run. The int8_dw backwards must also land within INT8_REL
 where the int8_grad kernel's bf16 weight grads land outside it (dW, dWo,
-dW1, dW2), so the band shows that their weight grads are int8.
+dW1, dW2), so the band shows that their weight grads are int8. K4's
+forward, with and without the residual, must give the twin's bits from the
+kernel's own LN codes at every case: the weights' codes, h1q and its row
+scales, and out (`fused_ln_mlp_int8_from_codes_ref`).
 
-K3's backward (kv_heads == heads) and K4's run their int8 products on
-gemm_sm90.cuh's s8 wgmma path and K3's core grads on K13's passes. Phase 3
-launches each of those s8 products alone (`ck.gemm_sm90_s8`, the rows
+K3's forward and backward (kv_heads == heads) and K4's run their int8
+products on gemm_sm90.cuh's s8 wgmma path and K3's core on K13's (its
+forward with an fp32 out, its grads on K13's passes). Phase 3 launches each
+of those s8 products alone (`ck.gemm_sm90_s8`, the rows
 `gemm_sm90_s8:<kind>` of the kernel table: s8_bf16, s8_f32, s8_gelu_pair,
-s8_group) at the backwards' b32 spq 200 shapes and on ragged M, N and K
-(groups whose rows do not fill the 128-code K tile) against exact int32
-products dequantized by its twin: within INT8_REL on every output, the
-fp32 outputs without a bias and the group fold the same bits, two launches
-the same bits; timed beside the twin. The library counts their launches
-by kind where `launch_s8` launches one (`ck.s8_launch_counts`), and phases
-6 and 7 hold the counts of their runs exact.
+s8_group, s8_gelu_q_f32, s8_residual) at the b32 spq 200 shapes and on
+ragged M, N and K (groups whose rows do not fill the 128-code K tile)
+against exact int32 products dequantized by its twin: the twin's bits on
+every output, two launches the same bits; timed beside the twin. The library counts
+their launches by kind where `launch_s8` launches one
+(`ck.s8_launch_counts`), and the launches of the first design's gemm.cuh
+s8 products and whole-row core (`ck.first_design_launch_counts`); phases
+6, 7, 8 and 17 hold the s8 counts of their runs exact (`_s8_expect`), 6
+and 7 the first-design ones too (none but K5's).
 
 The line before the last is the JSON kernel table (each kernel's time at
 the main path's shape beside its bound: the larger of its bytes over 3.35
@@ -552,29 +563,17 @@ TRAIN_RESVIT_KERNELS = RECT_BWD_KERNELS + ("fused_ln_qkvo_attention_gqa_bwd",)
 DW_KERNELS = ("fused_ln_qkvo_attention_int8_dw_bwd",
               "fused_ln_mlp_int8_dw_bwd")
 # gemm_sm90.cuh's s8 products inside K3's (kv_heads == heads) and K4's
-# int8 backwards, counted by kind where the library launches them
-# (`ck.s8_launch_counts`): their source and the TPU kernels whose bodies
-# hold the product (s8_f32 and s8_group run in both)
+# int8 forwards and backwards, counted by kind where the library launches
+# them (`ck.s8_launch_counts`): their source and the TPU kernels whose
+# bodies hold the product (s8_bf16, s8_f32 and s8_group run in several)
 S8_INFO = {f"gemm_sm90_s8:{kind}": ("vitax_torch/csrc/gemm_sm90.cuh",
                                     f"vitax/ops/pallas_kernels.py:{lines}")
-           for kind, lines in (("s8_bf16", "3252"),
+           for kind, lines in (("s8_bf16", "3163, :3252 and :1758"),
                                ("s8_f32", "3252 and :1820"),
                                ("s8_gelu_pair", "1820"),
-                               ("s8_group", "3252 and :1820"))}
-# (kind, m, n, k, bias or the group's columns): the first of each kind at
-# its b32 spq 200 shape, timed (K3's qkv recompute, K3's dxn, K4's dual
-# product, K4's int8_dw dW1 over 50 groups of 128 rows), then ragged M, N
-# and K; K3's dWqkv fold (16 groups of 400 rows in 512) and a tiny one
-S8_CASES = [("s8_bf16", 6400, 2304, 768, True),
-            ("s8_f32", 6400, 768, 2304, False),
-            ("s8_gelu_pair", 6400, 3072, 768, True),
-            ("s8_group", 768, 3072, 50 * 128, 128),
-            ("s8_bf16", 3328, 768, 768, False), ("s8_bf16", 199, 136, 784, True),
-            ("s8_f32", 1, 768, 3072, False), ("s8_f32", 591, 776, 2320, True),
-            ("s8_gelu_pair", 591, 3072, 768, True),
-            ("s8_gelu_pair", 77, 264, 144, True),
-            ("s8_group", 768, 2304, 16 * 512, 512),
-            ("s8_group", 100, 24, 3 * 256, 256)]
+                               ("s8_group", "3252 and :1820"),
+                               ("s8_gelu_q_f32", "1758"),
+                               ("s8_residual", "1758"))}
 HO_KERNELS = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
 BWD_KERNELS = ("layer_norm_bwd", "fused_ln_qkvo_attention_bwd",
                "fused_ln_mlp_bwd", "fused_ln_qkvo_attention_int8_bwd",
@@ -604,11 +603,14 @@ CASES = [("b64 spq200 (eval_cli)", 64, 200, 197),
          ("b8 spq584", 8, 584, 577),
          ("ragged", 3, 200, 197),
          ("b32 spq104 (keep 0.5)", 32, 104, 99),
-         ("b32 spq200 (train_cli)", 32, 200, 197)]
+         ("b32 spq200 (train_cli)", 32, 200, 197),
+         ("b8 spq680 (b16@416)", 8, 680, 677)]
 DROP_CASE = "b32 spq104 (keep 0.5)"  # the fast recipe's drop phase at b32
-# K1's and K2's forwards are also timed at train_cli's b32, a step's shape
+# K1's, K2's, K3's and K4's forwards are also timed at train_cli's b32, a
+# step's shape
 STEP_CASE, STEP_TIMED = ("b32 spq200 (train_cli)",
-                         ("fused_ln_qkvo_attention", "fused_ln_mlp"))
+                         ("fused_ln_qkvo_attention", "fused_ln_mlp",
+                          "fused_ln_qkvo_attention_int8", "fused_ln_mlp_int8"))
 # backward: the first is train_cli's (timed); keep 0.5 drops 196 patch tokens
 # to 98 (+ cls = 99, spq 104); "ragged" cuts LN's and K2's rows to 3 x 197
 BWD_CASES = [("b32 spq200 (train_cli)", 32, 200, 197),
@@ -696,6 +698,59 @@ CODE_BAND = {"xq": (1, 1e-3), "h1q": (2, 1e-3), "dh1q": (2, 1e-3),
 # same bf16 input), like h1c
 
 
+def _s8_expect(counts):
+    """The s8 products of gemm_sm90.cuh that the wrappers' launches in
+    `counts` imply: K3's forward (kv_heads == heads) two s8_bf16 (qkv, out);
+    K4's one s8_gelu_q_f32 (fc1) and one s8_residual (fc2), its
+    residual=False branch s8_bf16 in place of the latter; K3's backward two
+    s8_bf16 and one s8_f32, K4's (either branch) one s8_gelu_pair and one
+    s8_f32, and under int8_dw two s8_group more in each. No other wrapper
+    launches one."""
+    def c(*names):
+        return sum(counts.get(n, 0) for n in names)
+    k3f = c("fused_ln_qkvo_attention_int8")
+    k3b = c("fused_ln_qkvo_attention_int8_bwd",
+            "fused_ln_qkvo_attention_int8_dw_bwd")
+    k4f, k4p = c("fused_ln_mlp_int8"), c("fused_ln_mlp_int8_partial")
+    k4b = c("fused_ln_mlp_int8_bwd", "fused_ln_mlp_int8_dw_bwd",
+            "fused_ln_mlp_int8_partial_bwd", "fused_ln_mlp_int8_partial_dw_bwd")
+    dw = c("fused_ln_qkvo_attention_int8_dw_bwd", "fused_ln_mlp_int8_dw_bwd",
+           "fused_ln_mlp_int8_partial_dw_bwd")
+    return {"gemm_sm90_s8:s8_bf16": 2 * k3f + 2 * k3b + k4p,
+            "gemm_sm90_s8:s8_f32": k3b + k4b,
+            "gemm_sm90_s8:s8_gelu_pair": k4b,
+            "gemm_sm90_s8:s8_group": 2 * dw,
+            "gemm_sm90_s8:s8_gelu_q_f32": k4f + k4p,
+            "gemm_sm90_s8:s8_residual": k4f}
+
+
+def _first_design_expect(counts):
+    """The first-design pieces (`ck.first_design_launch_counts`) that a
+    ViT run of LN, K1, K2, K3, K4 (forwards and backwards), K5 and K13
+    launches: K5's halves alone, each two of gemm.cuh's s8 products, the
+    attention half one whole-row core."""
+    ho = counts.get("fused_ln_qkvo_attention_int8_ho", 0)
+    return {"gemm.cuh:s8": 2 * ho + 2 * counts.get("fused_ln_mlp_int8_ho", 0),
+            "attention.cuh:core": ho}
+
+
+def _check_s8(label, counts, first_design=False):
+    """The s8 products (and with `first_design` the first-design pieces)
+    that the library counted in a run, against what its wrappers' launches
+    imply; returns them."""
+    from vitax_torch.ops import cuda_kernels as ck
+    s8 = ck.s8_launch_counts()
+    fd = ck.first_design_launch_counts() if first_design else {}
+    expect = {**_s8_expect(counts),
+              **(_first_design_expect(counts) if first_design else {})}
+    print(f"  {label}: s8 products {_nonzero(s8)}"
+          + (f", first-design pieces {fd}" if first_design else ""),
+          flush=True)
+    if {**s8, **fd} != expect:
+        raise AssertionError(f"{label}: expected {expect}")
+    return s8
+
+
 def _expect(**launches):
     """Every kernel's expected launch count: the given ones, else 0."""
     return {**dict.fromkeys(KERNEL_INFO, 0), **launches}
@@ -779,6 +834,8 @@ def check_kernels():
                 ref = plain()
                 if name in INT8_KERNELS:
                     _check_int8(ck, name, label, args, (out,), (ref,), stats)
+                if name == "fused_ln_mlp_int8":
+                    _check_k4_bits(ck, label, args)
             err = (out.float() - ref.float()).abs().max().item()
             bound = TOL * max(1.0, ref.float().abs().max().item())
             finite = bool(torch.isfinite(out).all())
@@ -944,20 +1001,22 @@ def _s8_work(kind, m, n, k, extra):
         return m * k + n * k + 4 * (k // extra) * m + 4 * m * n, \
             {"s8": 2 * m * n * k}
     pairs = 2 if kind == "s8_gelu_pair" else 1
-    out = {"s8_bf16": 2, "s8_f32": 4, "s8_gelu_pair": 8}[kind] * m * n
+    # bytes an output element: s8_residual reads its bf16 residual too
+    out = {"s8_bf16": 2, "s8_f32": 4, "s8_gelu_pair": 8, "s8_gelu_q_f32": 4,
+           "s8_residual": 4}[kind] * m * n
     return (pairs * ((m + n) * k + 4 * (m + n)) + 4 * n * bool(extra) + out,
             {"s8": pairs * 2 * m * n * k})
 
 
 def check_s8_products(stats):
     """Phase 3, gemm_sm90.cuh's s8 path: each epilogue launched alone
-    against exact integer products dequantized by its twin (S8_CASES);
-    every output within INT8_REL, the fp32 outputs without a bias and the
-    group fold the same bits, two launches the same bits; the first case of
-    each kind timed beside the twin."""
+    against exact integer products dequantized by its twin
+    (`ck.GEMM_SM90_S8_CASES`): every output the twin's bits (the bias add
+    fused as the twin's addcmul; K4's forward rests on it), two launches the
+    same bits; the first case of each kind timed beside the twin."""
     import torch
     from vitax_torch.ops import cuda_kernels as ck
-    for i, (kind, m, n, k, extra) in enumerate(S8_CASES):
+    for i, (kind, m, n, k, extra) in enumerate(ck.GEMM_SM90_S8_CASES):
         name = f"gemm_sm90_s8:{kind}"
         inputs = ck.gemm_sm90_s8_inputs(kind, m, n, k, extra,
                                         seed=60 + i)
@@ -968,7 +1027,6 @@ def check_s8_products(stats):
             refs = ck.gemm_sm90_s8_ref(kind, **inputs)
         if kind != "s8_gelu_pair":
             outs, again, refs = (outs,), (again,), (refs,)
-        exact = kind == "s8_group" or (kind == "s8_f32" and not extra)
         rels, errs, same = [], [], []
         for out, out2, ref in zip(outs, again, refs):
             rels.append(_rel(out, ref))
@@ -979,15 +1037,14 @@ def check_s8_products(stats):
                     and bool(torch.isfinite(out.float()).all())):
                 raise AssertionError(f"{name} {m}x{n}x{k}: two launches "
                                      "differ, or shape, dtype or finiteness")
-        if max(rels) > INT8_REL or (exact and not all(same)):
+        if not all(same):
             raise AssertionError(f"{name} {m}x{n}x{k}: ‖k−t‖/‖t‖ {rels}, "
                                  f"the twin's bits {same}")
         st = stats.setdefault(name, {"max_abs_err": 0.0})
         st["max_abs_err"] = max(st["max_abs_err"], *errs)
         line = (f"  {name:26s} {m}x{n}x{k}{' bias' if extra is True else ''}"
-                f" ‖k−t‖/‖t‖ [{' '.join(f'{r:.2e}' for r in rels)}] <= "
-                f"{INT8_REL}, the twin's bits {same}, two launches the same "
-                "bits")
+                f" ‖k−t‖/‖t‖ [{' '.join(f'{r:.2e}' for r in rels)}], the "
+                f"twin's bits {same}, two launches the same bits")
         if "ms" not in st:
             with torch.no_grad():
                 k_ms = _median_ms(lambda: ck.gemm_sm90_s8(kind, **inputs),
@@ -1113,6 +1170,28 @@ def _check_int8(ck, name, label, args, outs, refs, stats, band=None,
     if min(reached) <= rel:
         raise AssertionError(f"{name} {label}: the bf16 stand-in lands "
                              f"within {rel} ({min(reached)})")
+
+
+def _check_k4_bits(ck, label, args):
+    """Phase 3: K4's forward, with and without the residual, the twin's
+    bits from the kernel's own LN codes (`fused_ln_mlp_int8_from_codes_ref`;
+    the LN's codes are held to CODE_BAND by `_check_int8`): the weights'
+    codes, h1q and its row scales, and out."""
+    import torch
+    for residual in (True, False):
+        sk, st = {}, {}
+        out = ck.fused_ln_mlp_int8(*args, residual=residual, scratch=sk)
+        torch.cuda.synchronize()
+        ref = ck.fused_ln_mlp_int8_from_codes_ref(
+            args[0], *sk["xq"], *args[3:7], residual=residual, scratch=st)
+        same = {k: all(map(torch.equal, sk[k], st[k]))
+                for k in ("w1q", "w2q", "h1q")}
+        same["out"] = torch.equal(out, ref)
+        print(f"  fused_ln_mlp_int8 {label:22s} residual {residual}: the "
+              f"twin's bits from the kernel's LN codes {same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"fused_ln_mlp_int8 {label} residual "
+                                 f"{residual}: not the twin's bits {same}")
 
 
 # K5 at the drop phase's b32 spq 104 (timed) and at b8 spq 200
@@ -2059,6 +2138,47 @@ def _int8_twins(ck):
             setattr(ck, n, f)
 
 
+def _int8_at_416(ck):
+    """Phase 6: ViT-B/16 at 416 px (seq 677, spq 680), where vitax's K1
+    gate passes and the first design's whole-row core cannot take the
+    shapes (the CLIs' --image-size stops at 384, as vitax's): one b8
+    forward through `vit.apply` with `--int8`'s flags, the counters set to
+    0 just before and read just after (exact: 12 K3 and 12 K4, the LN kernel
+    once; their s8 products, no first-design piece), its logits against
+    the int8 twin path's within LOGIT_BAND."""
+    import torch
+    from vitax_torch.core.config import arch_config
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.models import vit
+    cfg = arch_config("b16", image_size=416, num_classes=10,
+                      dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True,
+                      int8_mlp=True, int8_attn=True)
+    params = vit.init_params(set_seed(1), cfg, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(416)
+    images = torch.randn((8, 416, 416, 3), generator=g, device="cuda").to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        ck.reset_launch_counts()
+        lk = vit.apply(params, images, cfg)
+        torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        expect = _expect(layer_norm=1, fused_ln_qkvo_attention_int8=12,
+                         fused_ln_mlp_int8=12)
+        print(f"int8: vit.apply @416 b8 --int8 launches {_nonzero(counts)}",
+              flush=True)
+        if counts != expect:
+            raise AssertionError(f"416 px: expected launches {expect}")
+        _check_s8("vit.apply @416 --int8", counts, first_design=True)
+        with _int8_twins(ck):
+            lt = vit.apply(params, images, cfg)
+    d, band = (lk - lt).abs().max().item(), LOGIT_BAND * max(
+        1.0, lt.abs().max().item())
+    print(f"int8: @416 b8 logits, int8 kernel path vs int8 twin path max|Δ| "
+          f"{d:.3e} <= {band:.3e}", flush=True)
+    if not (torch.isfinite(lk).all() and d <= band):
+        raise AssertionError("416 px: int8 logits outside their band")
+
+
 def run_int8_slice(exp_root):
     """Phase 6: the W8A8 tiers through train_cli and eval_cli with exact
     launch counts; logits and full-width grads on the int8 kernel path, the
@@ -2083,26 +2203,23 @@ def run_int8_slice(exp_root):
                           fused_ln_qkvo_attention_bwd=12 * TRAIN_STEPS,
                           fused_ln_mlp_bwd=12 * TRAIN_STEPS),
     }
-    # the s8 products inside the --int8-grad run's backwards: K3's two
-    # s8_bf16 and one s8_f32, K4's s8_gelu_pair and s8_f32, a layer a step
-    bwd = 12 * TRAIN_STEPS
-    s8_expect = {"gemm_sm90_s8:s8_bf16": 2 * bwd, "gemm_sm90_s8:s8_f32":
-                 2 * bwd, "gemm_sm90_s8:s8_gelu_pair": bwd,
-                 "gemm_sm90_s8:s8_group": 0}
+    # the s8 products of both runs' K3 and K4 forwards (two s8_bf16; an
+    # s8_gelu_q_f32 and an s8_residual, a layer a forward) and of the
+    # --int8-grad run's backwards (K3's two s8_bf16 and one s8_f32, K4's
+    # s8_gelu_pair and s8_f32, a layer a step), no gemm.cuh s8 product and
+    # no whole-row core in either
     counts = {}
     for flag, expect in expects.items():
         ck.reset_launch_counts()
         losses, valid, rate = _run_train(TRAIN_ARGS + ["--exp-root", exp_root,
                                                        flag])
         counts[flag] = ck.launch_counts()
-        s8 = ck.s8_launch_counts()
         print(f"int8: train_cli {flag} losses {[round(v, 4) for v in losses]} "
               f"valid {valid} {rate:.0f} img/s (epoch loop, host-fed) "
-              f"launches {counts[flag]}, s8 products {s8}", flush=True)
-        if counts[flag] != expect or (flag == "--int8-grad"
-                                      and s8 != s8_expect):
-            raise AssertionError(f"expected launches {expect}, s8 "
-                                 f"{s8_expect}")
+              f"launches {_nonzero(counts[flag])}", flush=True)
+        if counts[flag] != expect:
+            raise AssertionError(f"expected launches {expect}")
+        s8 = _check_s8(f"train_cli {flag}", counts[flag], first_design=True)
         if flag == "--int8-grad":
             counts[flag].update(s8)
 
@@ -2113,9 +2230,11 @@ def run_int8_slice(exp_root):
                      fused_ln_qkvo_attention_int8=12 * batches,
                      fused_ln_mlp_int8=12 * batches)
     print(f"int8: eval_cli --int8 {result} {n_img} images {rate:.0f} img/s "
-          f"launches {ck.launch_counts()}", flush=True)
+          f"launches {_nonzero(ck.launch_counts())}", flush=True)
     if n_img != 256 or ck.launch_counts() != expect:
         raise AssertionError(f"expected 256 images and launches {expect}")
+    _check_s8("eval_cli --int8", ck.launch_counts(), first_design=True)
+    _int8_at_416(ck)
 
     cfg = arch_config("b16", image_size=224, num_classes=10,
                       dtype=torch.bfloat16, fused_qkv=True, fused_mlp=True,
@@ -2280,16 +2399,10 @@ def run_fast_recipe(exp_root):
     if log != expect or counts != {k: sum(c[k] for _, c in expect)
                                    for k in counts}:
         raise AssertionError(f"expected launches per epoch {expect}")
-    # each int8_dw backward folds its two weight grads on gemm_sm90.cuh
-    s8, n_bwd = ck.s8_launch_counts(), dw["fused_ln_mlp_int8_dw_bwd"] * 2
-    s8_expect = {"gemm_sm90_s8:s8_bf16": 2 * n_bwd,
-                 "gemm_sm90_s8:s8_f32": 2 * n_bwd,
-                 "gemm_sm90_s8:s8_gelu_pair": n_bwd,
-                 "gemm_sm90_s8:s8_group": 4 * n_bwd}
-    print(f"fast: s8 products {s8}", flush=True)
-    if s8 != s8_expect:
-        raise AssertionError(f"expected s8 products {s8_expect}")
-    counts.update(s8)
+    # each int8_dw backward folds its two weight grads on gemm_sm90.cuh; the
+    # dense epochs' K3 and K4 forwards run their products there too; K5's
+    # halves alone launch first-design pieces
+    counts.update(_check_s8("fast: train_cli", counts, first_design=True))
 
     # the recipe's own flags: K5 in every drop-phase step, int8_dw in every
     # backward, the dense tail at b192 through K3/K4
@@ -2523,6 +2636,7 @@ def run_resvit_slice():
                   + "}", flush=True)
             if counts[label] != expect:
                 raise AssertionError(f"expected launches {expect}")
+            _check_s8(f"resvit_eval_cli {label}", counts[label])
 
         cfg = config_to_model_args(get_eval_config(RESVIT_ARGS), "cuda")
         params = resvit.init_params(set_seed(0), cfg, "cuda")
@@ -3553,8 +3667,9 @@ def check_save_kernels(stats):
     """Phase 12, kernels: K12's four kernels (and :2066's int8_dw branch)
     against their twins on every output, the int8 ones also by their codes
     and INT8_REL (and the bf16 stand-in outside it); each save forward's out
-    the same bits as K2's or K4's; CUDA-event times of the pairs beside K2's
-    and K4's forwards and backwards at b32 spq 200."""
+    the same bits as K2's or K4's (K4 on gemm_sm90.cuh's epilogues, K12-int8
+    on gemm.cuh's, both in the twin's order); CUDA-event times of the pairs beside K2's and K4's forwards and
+    backwards at b32 spq 200."""
     import torch
     from vitax_torch.ops import cuda_kernels as ck
     for name in SAVE_KERNELS:
@@ -5876,7 +5991,8 @@ def _tp17_rank(rank, port, exp_root, queue):
             runs[label] = {
                 "losses": [v for e in out["epochs"]
                            for v in e["train"]["losses"]],
-                "counts": ck.launch_counts(), "seconds": time.time() - t1}
+                "counts": ck.launch_counts(), "s8": ck.s8_launch_counts(),
+                "seconds": time.time() - t1}
         queue.put((rank, {"layers": layers, "layer_seconds": layer_s,
                           "runs": runs}))
         dist.destroy_process_group()
@@ -6004,9 +6120,12 @@ def run_tp_tiers_slice(exp_root):
                   f"{[round(v, 4) for v in one[label]]}, max |Δ| / max(1, "
                   f"|loss|) {d:.3e} <= {_tp17_band(label)}; launches "
                   f"{_nonzero(run['counts'])} (as derived: "
-                  f"{run['counts'] == expect})", flush=True)
+                  f"{run['counts'] == expect}), s8 products "
+                  f"{_nonzero(run['s8'])} (as derived: "
+                  f"{run['s8'] == _s8_expect(run['counts'])})", flush=True)
             dist[f"(c) {label}"] = max(dist.get(f"(c) {label}", 0.0), d)
             if (run["counts"] != expect or len(run["losses"]) != TP17_STEPS
+                    or run["s8"] != _s8_expect(run["counts"])
                     or d > _tp17_band(label)):
                 raise AssertionError(f"phase 17 (c) rank {r} {label}")
     return {label: run["counts"] for label, run in results[0]["runs"].items()
@@ -6207,8 +6326,8 @@ def main() -> int:
     print("kernels vs plain (bf16):", flush=True)
     stats = check_kernels()
     check_bwd_kernels(stats)
-    print("s8 products of gemm_sm90.cuh (K3's and K4's int8 backwards) vs "
-          "twin:", flush=True)
+    print("s8 products of gemm_sm90.cuh (K3's and K4's int8 forwards and "
+          "backwards) vs twin:", flush=True)
     check_s8_products(stats)
     check_handoff_kernels(stats)
     check_resvit_kernels(stats)

@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
+from vitax_torch.ops import gates  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 EPS = 1e-5
@@ -492,10 +493,10 @@ INT8_SHAPES = [(64, 200, 197, None), (32, 200, 197, None),
                (8, 584, 577, None), (3, 200, 197, 197)]
 
 
-def _int8_args(dev, batch, spq, seq, rows, seed=0):
-    _, qkvo, mlp = _args(dev, batch, spq, seq, 768, 12, 64, 3072, seed)
+def _int8_args(dev, batch, spq, seq, rows, seed=0, d=768, h=12, hd=64):
+    _, qkvo, mlp = _args(dev, batch, spq, seq, d, h, hd, 4 * d, seed)
     g = torch.Generator(device=dev).manual_seed(seed + 100)
-    do = torch.randn((batch, spq, 768), generator=g, device=dev).to(
+    do = torch.randn((batch, spq, d), generator=g, device=dev).to(
         torch.bfloat16)
     x, do_r = mlp[0], do
     if rows is not None:
@@ -770,10 +771,10 @@ RECT_SHAPES = [(64, 200, 197, 124), (64, 200, 197, 99), (3, 200, 197, 37)]
 @pytest.mark.parametrize("int8", [False, True])
 def test_rect_kernel_matches_twin_and_square_gather(dev, shape, int8):
     """K8 against its twin, and against the square kernel (K1, K3) on all
-    rows followed by the row gather: for int8 the same bits, since every
-    row's arithmetic is the same; for bf16 within the kernel band, since K1
-    runs gemm_sm90.cuh's products and K13's core while K8 keeps gemm.cuh's
-    and the whole-row core (sums in another order)."""
+    rows followed by the row gather, within the kernel band: K1 and K3 run
+    gemm_sm90.cuh's products and K13's core while K8 keeps gemm.cuh's and
+    the whole-row core (sums in another order; the same bits for int8 until
+    K3's forward moved to K13's core)."""
     xc, qkvo, idx = _rect_args(dev, *shape)
     cap = shape[3]
     name = ("fused_ln_qkvo_attention_rect_int8" if int8
@@ -791,10 +792,7 @@ def test_rect_kernel_matches_twin_and_square_gather(dev, shape, int8):
         full = square(*qkvo)
     assert torch.isfinite(out).all()
     gathered = torch.gather(full, 1, idx[..., None].expand(-1, -1, 768))
-    if int8:
-        assert torch.equal(out[:, :cap], gathered)
-    else:
-        _assert_close(out[:, :cap], gathered)
+    _assert_close(out[:, :cap], gathered)
     if int8:
         _codes_within_band(name, sk, st)
     counts = {k: v for k, v in ck.launch_counts().items() if v}
@@ -1083,7 +1081,10 @@ def test_flash_gates_take_h14_and_k1_does_not(dev):
     for spq in (736, 264):
         x = torch.empty((2, spq, 1280), dtype=torch.bfloat16, device=dev)
         w = torch.empty((1280, 3 * 1280), dtype=torch.bfloat16, device=dev)
-        assert not ck.qkv_attention_supported(x, w, 16)
+        # the K1 family's own gate takes them (K13's core); vitax's does
+        # not (d > 1024), so the model picks K6 (ops/gates.py)
+        assert not (gates.qkv_attention_supported(x, w)
+                    and ck.qkv_attention_supported(x, w, 16))
         assert ck.qkv_attention_flash_supported(x, w, 16)
         assert ck.qkv_attention_flash_bwd_supported(x, w, 16)
         assert not ck.qkv_attention_flash_supported(x.float(), w, 16)
@@ -1891,28 +1892,13 @@ def test_partial_tier_kernels_match_twins_and_residual_kernels(dev, name,
 # K4's): each epilogue launched alone against exact int32 products
 # dequantized by its twin, on ragged M, N and K; the group fold over groups
 # whose rows do not fill the 128-code K tile (K3's 400-row groups padded to
-# 512, zero past the rows, as dw_int8.cuh packs them). The fp32 outputs
-# without a bias are products and adds of the same exact integers in the
-# same order: the same bits. With a bias the add is fused as the twin's
-# addcmul; the GELU pair's epilogue calls expf where the twin calls
-# torch.exp, so those are held to a tight band and printed.
+# 512, zero past the rows, as dw_int8.cuh packs them). Every output is the
+# twin's bits: the int32 sums are exact, the epilogues round where the twin
+# rounds (the bias add fused as its addcmul), and their GELUs' expf and
+# rsqrtf gave torch's exp and rsqrt bits on the card. K4's forward rests on
+# this to give its twin's bits.
 
-# (kind, m, n, k, bias or group); the inputs from ck.gemm_sm90_s8_inputs
-S8_CASES = [("s8_bf16", 6400, 2304, 768, True), ("s8_bf16", 6400, 768, 768,
-                                                 False),
-            ("s8_bf16", 199, 136, 784, True), ("s8_f32", 6400, 768, 2304,
-                                               False),
-            ("s8_f32", 1, 768, 3072, False), ("s8_f32", 3328, 776, 2320, True),
-            ("s8_gelu_pair", 6400, 3072, 768, True),
-            ("s8_gelu_pair", 591, 3072, 768, True),
-            ("s8_gelu_pair", 77, 264, 144, True),
-            ("s8_group", 768, 3072, 50 * 128, 128),
-            ("s8_group", 768, 2304, 16 * 512, 512),
-            ("s8_group", 3072, 768, 5 * 128, 128),
-            ("s8_group", 100, 24, 3 * 256, 256)]
-
-
-@pytest.mark.parametrize("case", S8_CASES)
+@pytest.mark.parametrize("case", ck.GEMM_SM90_S8_CASES)
 def test_gemm_sm90_s8_matches_exact_products(dev, case):
     kind, m, n, k, extra = case
     inputs = ck.gemm_sm90_s8_inputs(kind, m, n, k, extra, device=dev)
@@ -1923,20 +1909,13 @@ def test_gemm_sm90_s8_matches_exact_products(dev, case):
         refs = ck.gemm_sm90_s8_ref(kind, **inputs)
     if kind != "s8_gelu_pair":
         outs, again, refs = (outs,), (again,), (refs,)
-    exact = kind == "s8_group" or (kind == "s8_f32" and not extra)
     for out, out2, ref in zip(outs, again, refs):
         assert out.shape == ref.shape and out.dtype == ref.dtype, kind
         assert torch.equal(out, out2), kind
         print(f"{kind} {m}x{n}x{k}: the twin's bits "
               f"{torch.equal(out, ref)}, max|k - t| "
               f"{(out.float() - ref.float()).abs().max().item():.3e}")
-        if exact:
-            assert torch.equal(out, ref), kind
-        elif ref.dtype == torch.bfloat16:
-            _assert_close(out, ref, 1e-2)
-        else:
-            rel = ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
-            assert rel <= 1e-5, (kind, rel)
+        assert torch.equal(out, ref), kind
 
 
 def test_gemm_sm90_s8_rejects_what_it_does_not_take(dev):
@@ -1990,7 +1969,124 @@ def test_int8_backwards_on_hopper_match_twins_and_keep_their_bits(dev, shape,
     assert ck.s8_launch_counts() == {
         "gemm_sm90_s8:s8_bf16": 4, "gemm_sm90_s8:s8_f32": 4,
         "gemm_sm90_s8:s8_gelu_pair": 2,
-        "gemm_sm90_s8:s8_group": 8 if int8_dw else 0}
+        "gemm_sm90_s8:s8_group": 8 if int8_dw else 0,
+        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0}
+
+
+# K3's and K4's int8 forwards on their Hopper design: LN-quant, the s8
+# wgmma products (K3: two s8_bf16; K4: s8_gelu_q_f32 and s8_residual, or
+# s8_bf16 without the residual) and K13's core with an fp32 out, no gemm.cuh
+# s8 product and no whole-row core; at b32 and b64 spq 200, ragged rows
+# (K4) and b16@416's spq 680 (K3: seq 677, past the whole-row core); every
+# output within INT8_REL of the twin, two launches the same bits; K4's out,
+# with and without the residual, and its h1q codes the twin's bits from the
+# kernel's own LN codes.
+HOPPER_FWD_SHAPES = [(32, 200, 197, None), (64, 200, 197, None),
+                     (3, 200, 197, 197), (4, 680, 677, None)]
+
+
+@pytest.mark.parametrize("shape", HOPPER_FWD_SHAPES)
+def test_int8_forwards_on_hopper_launch_their_products(dev, shape):
+    args = _int8_args(dev, *shape)
+    names = INT8_FWD if shape[3] is None else INT8_FWD[1:]
+    ck.reset_launch_counts()
+    for name in names:
+        with torch.no_grad():
+            out = getattr(ck, name)(*args[name])
+            again = getattr(ck, name)(*args[name])
+            torch.cuda.synchronize()
+            ref = getattr(ck, name + "_ref")(*args[name])
+        _assert_close(out, ref)
+        assert torch.equal(out, again), name
+        rel = ((out.double() - ref.double()).norm()
+               / ref.double().norm().clamp_min(1e-30)).item()
+        print(f"{name} {shape}: ‖k − t‖/‖t‖ {rel:.3e}, the twin's bits "
+              f"{torch.equal(out, ref)}")
+        assert rel <= INT8_REL, (name, rel)
+    k3 = 2 * (names == INT8_FWD)
+    assert ck.s8_launch_counts() == {
+        "gemm_sm90_s8:s8_bf16": 2 * k3, "gemm_sm90_s8:s8_f32": 0,
+        "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
+        "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 2}
+    assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
+                                               "attention.cuh:core": 0}
+    ck.reset_launch_counts()
+    mlp = args["fused_ln_mlp_int8"]
+    for residual in (True, False):
+        sk, st = {}, {}
+        with torch.no_grad():
+            out = ck.fused_ln_mlp_int8(*mlp, residual=residual, scratch=sk)
+            torch.cuda.synchronize()
+            ref = ck.fused_ln_mlp_int8_from_codes_ref(
+                mlp[0], *sk["xq"], *mlp[3:7], residual=residual, scratch=st)
+        for key in ("w1q", "w2q", "h1q"):
+            assert all(map(torch.equal, sk[key], st[key])), (residual, key)
+        assert torch.equal(out, ref), residual
+    assert ck.s8_launch_counts() == {
+        "gemm_sm90_s8:s8_bf16": 1, "gemm_sm90_s8:s8_f32": 0,
+        "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
+        "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 1}
+
+
+# The shapes that K13's limits admit to the K1 family and the whole-row
+# core did not (ops/gates.py): b16@416's seq 677 (spq 680), head dim 80
+# (D 640, 8 heads) and 128 (D 1024, 8 heads, seq 530). K1's forward and
+# backward against their twins; K3's int8 forward, and its backward with
+# and without int8_dw, within INT8_REL of theirs, the codes in their bands,
+# on the s8 wgmma path and K13's core only.
+# (batch, spq, seq_len, D, heads, head_dim)
+K13_GATE_SHAPES = [(8, 680, 677, 768, 12, 64), (4, 200, 197, 640, 8, 80),
+                   (2, 536, 530, 1024, 8, 128)]
+
+
+@pytest.mark.parametrize("shape", K13_GATE_SHAPES)
+def test_k1_family_runs_k13_shapes_the_whole_row_core_cannot(dev, shape):
+    b, spq, seq, d, h, hd = shape
+    bf = _bwd_args(dev, b, spq, seq, d, h, hd, 4 * d)[
+        "fused_ln_qkvo_attention_bwd"]
+    x, w = bf[0], bf[3]
+    assert not ck._core_fits(x, w, h, backward=True)
+    assert ck.qkv_attention_supported(x, w, h)
+    qkvo = _args(dev, b, spq, seq, d, h, hd, 4 * d)[1]
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        _assert_close(ck.fused_ln_qkvo_attention(*qkvo),
+                      ck.fused_ln_qkvo_attention_ref(*qkvo))
+        outs = ck.fused_ln_qkvo_attention_bwd(*bf)
+        torch.cuda.synchronize()
+        refs = ck.fused_ln_qkvo_attention_bwd_ref(*bf)
+    for out, ref in zip(outs, refs):
+        _assert_close(out, ref)
+    del outs, refs
+    args = _int8_args(dev, b, spq, seq, None, d=d, h=h, hd=hd)
+    fwd = "fused_ln_qkvo_attention_int8"
+    names = (fwd, fwd + "_bwd", fwd + "_dw_bwd")
+    for name in names:
+        sk, st = {}, {}
+        with torch.no_grad():
+            outs = getattr(ck, name)(*args[fwd if name == fwd else
+                                          fwd + "_bwd"], scratch=sk)
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(
+                *args[fwd if name == fwd else fwd + "_bwd"], scratch=st)
+        if name == fwd:
+            outs, refs = (outs,), (refs,)
+        for i, (out, ref) in enumerate(zip(outs, refs)):
+            _assert_close(out, ref)
+            rel = ((out.double() - ref.double()).norm()
+                   / ref.double().norm().clamp_min(1e-30)).item()
+            assert rel <= INT8_REL, (name, i, rel)
+        _codes_within_band(name, sk, st)
+        del outs, refs
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_qkvo_attention": 1, "fused_ln_qkvo_attention_bwd": 1,
+        **dict.fromkeys(names, 1)}
+    assert ck.s8_launch_counts() == {
+        "gemm_sm90_s8:s8_bf16": 2 + 2 + 2, "gemm_sm90_s8:s8_f32": 2,
+        "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 2,
+        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0}
+    assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
+                                               "attention.cuh:core": 0}
 
 
 def test_k3_and_k4_int8_backwards_keep_p_ds_and_a1_out_of_device_memory(dev):

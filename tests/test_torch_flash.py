@@ -13,7 +13,9 @@ inputs, with vitax's Pallas kernels in interpret mode.
   small value, within the fp32 tolerance of the sum's order).
 - A tiny ViT-H/14-shaped model (patch 14, image 28, d 640, 8 heads of 80,
   MLP 1280, 2 layers) with vitax's K1 gate shut at d 512
-  (`VITAX_QKVO_MAX_D`) and both packages' mono MLP backward bound at 512,
+  (`VITAX_QKVO_MAX_D`, and `gates.QKVO_MAX_D` in the port's copy of it:
+  the port's K1 gate, K13's limits, takes head dim 80) and both packages'
+  mono MLP backward bound at 512,
   so that both take K6 and the :1610 route as h14 does: logits, every
   parameter's grad and three SGD steps.
 - The dispatch at h14's shapes, the raise for the int8/int4 tiers, and the
@@ -48,6 +50,7 @@ from vitax_torch import train_cli as t_train  # noqa: E402
 from vitax_torch.core import config as t_config  # noqa: E402
 from vitax_torch.models import vit as tvit  # noqa: E402
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
+from vitax_torch.ops import gates  # noqa: E402
 from vitax_torch.train import (create_train_state as t_state,  # noqa: E402
                                cross_entropy as t_ce, make_train_step as t_step,
                                param_leaves, sgd_momentum as t_sgd)
@@ -219,6 +222,7 @@ def h14_routes(monkeypatch):
     """Both packages on K6 and the :1610 route at d 640, as at h14's d 1280;
     returns the call counts of the port's twins on that path."""
     monkeypatch.setenv("VITAX_QKVO_MAX_D", "512")
+    monkeypatch.setattr(gates, "QKVO_MAX_D", 512)
     monkeypatch.setenv("VITAX_NO_CACHE", "1")
     monkeypatch.setattr(pk, "_MLP_MONO_MAX_D", 512)
     monkeypatch.setattr(ck, "MLP_MONO_MAX_D", 512)

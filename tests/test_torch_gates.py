@@ -1,8 +1,12 @@
 """Which fused attention half vitax_torch picks, against vitax's gates, at
-every preset of ARCH_PRESETS and 224 and 384 px, in eval and in training,
-for the ViT (K1 / K6 / plain), Res-ViT's square half (K1, or K10 without
-fused_qkvo / plain) and its rect half (K8 / the square half and a gather). Shapes only: meta
-tensors on the port's side, ShapeDtypeStructs on vitax's.
+every preset of ARCH_PRESETS and 224 and 384 px, and off the presets (image
+sizes up to vitax's seq limit of 1024, (d, heads) pairs (640, 8) with head
+dim 80 and (1024, 8) at seq 353–544), in eval and in training, for the ViT
+(K1 / K6 / plain), Res-ViT's square half (K1, or K10 without fused_qkvo /
+plain) and its rect half (K8 / the square half and a gather). Shapes only:
+meta tensors on the port's side, ShapeDtypeStructs on vitax's. Where the
+pick is a path that keeps the first design's whole-row core (K7, K10, K8,
+K11-C) and that core cannot take the shapes, the path raises by name.
 
 vitax's choices come from its own gate functions
 (vitax/ops/pallas_kernels.py:2185, :3363) composed as its models compose
@@ -21,18 +25,51 @@ from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax_torch.core import config as t_config  # noqa: E402
 from vitax_torch.models import resvit as tr  # noqa: E402
 from vitax_torch.models import vit as tvit  # noqa: E402
+from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
 from vitax_torch.ops import gates  # noqa: E402
 
 PRESETS = sorted(t_config.ARCH_PRESETS)
-CASES = [(a, i, m) for a in PRESETS for i in (224, 384)
-         for m in ("eval", "train")]
+PRESET_CASES = [(a, i, m) for a in PRESETS for i in (224, 384)
+                for m in ("eval", "train")]
+# off the presets: (d, heads) pairs as patch-16 models
+OFF_PRESETS = {"d640h8": dict(patch=16, emb_dim=640, mlp_dim=2560,
+                              num_heads=8),
+               "d1024h8": dict(patch=16, emb_dim=1024, mlp_dim=4096,
+                               num_heads=8)}
+# seq 677 (K1 in vitax, past the whole-row core), 785 and 962 (K6), 1025
+# (past vitax's seq limit); Hd 80 at seq 197 and 577; Hd 128 at seq 362 and
+# 530 (the whole-row backward's limit, vitax's K1)
+WIDE = [("b16", 416), ("b16", 448), ("b16", 512), ("l16", 416),
+        ("b32", 992), ("d640h8", 224), ("d640h8", 384), ("d1024h8", 304),
+        ("d1024h8", 368)]
+CASES = PRESET_CASES + [(a, i, m) for a, i in WIDE
+                        for m in ("eval", "train")]
 CAPACITY = 0.625  # the compacted rows of Res-ViT's rect half
 KV_HEADS = 4      # Res-ViT's GQA runs (--n_kv_heads 4)
 
 
+def _preset(arch):
+    return t_config.ARCH_PRESETS.get(arch) or OFF_PRESETS[arch]
+
+
 def _seq(arch, image):
-    p = t_config.ARCH_PRESETS[arch]
+    p = _preset(arch)
     return (image // p["patch"]) ** 2 + 1, p["emb_dim"], p["num_heads"]
+
+
+def _resvit_cfg(arch, image, **kw):
+    p = _preset(arch)
+    return t_config.resvit_arch_config(
+        "b16", image, dim=p["emb_dim"], mlp_dim=p["mlp_dim"],
+        n_heads=p["num_heads"], **{"n_kv_heads": p["num_heads"], **kw})
+
+
+def _vit_cfg(arch, image, **kw):
+    if arch in t_config.ARCH_PRESETS:
+        return t_config.arch_config(arch, image, 10, **kw)
+    p = OFF_PRESETS[arch]
+    return t_config.arch_config("b16", image, 10, **kw).replace(
+        emb_dim=p["emb_dim"], mlp_dim=p["mlp_dim"], num_heads=p["num_heads"])
 
 
 def _shapes(b, s, d, width):
@@ -70,13 +107,26 @@ def _vitax_square(jx, jw, h, hkv, qkvo):
 
 def _port_square(tx, tw, cfg):
     """The port's square route as `_attention_half` and `attention` take
-    it; "raise" where `attention` raises rather than follow vitax."""
+    it: "k1" (K1's family: K1, K3 on K13's core; K7 with GQA), "k10" or
+    "plain"."""
     if cfg.fused_qkvo and tr.square_half_supported(tx, tw, cfg):
         return "k1"
     if tr.attention_is_fused(tx, cfg):
-        return ("k10" if not cfg.fused_qkvo and tr.k10_supported(tx, tw, cfg)
-                else "raise")
+        return "k10" if not cfg.fused_qkvo else "raise"
     return "plain"
+
+
+def _first_design_takes(route, tx, tw, cfg):
+    """Whether the route's kernel takes the shapes: K1 and K3 with kv_heads
+    == heads run K13's core, whose limits the route gate is; K7 (GQA) and
+    K10 keep the whole-row core, and raise by name where it does not."""
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    train = torch.is_grad_enabled()
+    if route == "k1" and hkv != h:
+        return ck._core_fits(tx, tw, h, hkv, backward=train)
+    if route == "k10":
+        return tr.k10_supported(tx, tw, cfg)
+    return True
 
 
 @pytest.mark.parametrize("kv", ["mha", "gqa"])
@@ -86,20 +136,29 @@ def test_resvit_halves_are_vitaxs(arch, image, mode, kv):
     the rect half on ceil(0.625·N) rows, which declines under GQA; with
     fused_qkvo vitax never reaches K9 on one device (its gate is the square
     one's), and without it runs K10 in `attention` wherever its gate passes
-    without GQA: the port's route is vitax's, and nowhere does the port
-    raise where vitax's gate passes and the port's does not."""
+    without GQA: the port's route is vitax's everywhere. Where the route's
+    kernel keeps the whole-row core and that core cannot take the shapes
+    (K7, K10 at seq 677; K8 there too), the kernel raises by name and never
+    another path runs; on the presets every route's kernel takes them."""
     s, d, h = _seq(arch, image)
     hkv = h if kv == "mha" else KV_HEADS
     hd = d // h
     (jx, jw), (tx, tw) = _shapes(2, s, d, (h + 2 * hkv) * hd)
     for qkvo in (True, False):
-        cfg = t_config.resvit_arch_config(arch, image, n_kv_heads=hkv,
-                                          fused_qkv=True, fused_qkvo=qkvo)
+        cfg = _resvit_cfg(arch, image, n_kv_heads=hkv, fused_qkv=True,
+                          fused_qkvo=qkvo)
         with torch.set_grad_enabled(mode == "train"):
             vitax_square = _vitax_square(jx, jw, h, hkv, qkvo)
-            assert _port_square(tx, tw, cfg) == vitax_square != "k9"
-    cfg = t_config.resvit_arch_config(arch, image, n_kv_heads=hkv,
-                                      fused_qkv=True, fused_qkvo=True)
+            route = _port_square(tx, tw, cfg)
+            assert route == vitax_square != "k9"
+            takes = _first_design_takes(route, tx, tw, cfg)
+            if (arch, image, mode) in PRESET_CASES:
+                assert takes, (arch, image, mode, qkvo)
+            elif not takes and route == "k10":
+                with pytest.raises(NotImplementedError, match="Queue 2"):
+                    tr._k10_attention(tx, _k10_params(d, hkv, hd), cfg)
+    cfg = _resvit_cfg(arch, image, n_kv_heads=hkv, fused_qkv=True,
+                      fused_qkvo=True)
     with torch.set_grad_enabled(mode == "train"):
         cap = int(np.ceil(CAPACITY * s))
         spq, cpq = (s + 7) // 8 * 8, (cap + 7) // 8 * 8
@@ -107,6 +166,17 @@ def test_resvit_halves_are_vitaxs(arch, image, mode, kv):
         xcp = torch.empty((2, cpq, d), dtype=torch.bfloat16, device="meta")
         vitax_rect = hkv == h and pk.qkv_attention_supported(jx, jw)
         assert tr.rect_half_supported(xcp, xp, tw, cfg) == vitax_rect
+
+
+def _k10_params(d, hkv, hd, h=None):
+    """Meta parameters of Res-ViT's attention for `_k10_attention`'s
+    merged weights (no LoRA)."""
+    def lin(n_in, n_out):
+        return {"kernel": torch.empty((n_in, n_out), device="meta",
+                                      dtype=torch.bfloat16),
+                "bias": torch.empty((n_out,), device="meta")}
+    return {"wq": lin(d, d), "wk": lin(d, hkv * hd), "wv": lin(d, hkv * hd),
+            "wo": lin(d, d)}
 
 
 def test_gate_copies_are_vitaxs_arithmetic():
@@ -152,15 +222,136 @@ def test_l16_at_384_runs_k6_and_its_int8_flags_raise(monkeypatch):
             tvit.apply(None, images, cfg)
 
 
+INT8_TIERS = {"--int8": dict(int8_attn=True, int8_mlp=True),
+              "--int8-grad": dict(int8_attn=True, int8_mlp=True,
+                                  int8_attn_grad=True, int8_mlp_grad=True),
+              "--int8-dw": dict(int8_attn=True, int8_mlp=True,
+                                int8_attn_grad=True, int8_mlp_grad=True,
+                                int8_dw=True)}
+
+
+class _PastTheCheck(Exception):
+    pass
+
+
+@pytest.mark.parametrize("tier", sorted(INT8_TIERS))
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_int8_tiers_at_416_run_k3_and_k4(monkeypatch, tier, mode):
+    """ViT-B/16 at 416 px (seq 677): vitax's K1 gate passes, and so does
+    the port's (K13's limits), so the int8 tiers pass `apply`'s check
+    against K6 (`vit.py`, the NotImplementedError of Queue 1 item 8) and
+    run K3 and K4, as vitax does; before K3's forward moved to K13's core,
+    the port's whole-row gate sent them to that raise."""
+    s, d, h = _seq("b16", 416)
+    tx = torch.empty((2, s, d), dtype=torch.bfloat16, device="meta")
+    tw = torch.empty((d, 3 * d), dtype=torch.bfloat16, device="meta")
+    (jx, jw), _ = _shapes(2, s, d, 3 * d)
+    assert _vitax_vit(jx, jw) == "k1"
+    assert not ck._core_fits(tx, tw, h)  # the first design's core cannot
+    monkeypatch.setattr(tvit, "embed", lambda params, images, cfg:
+                        torch.zeros((1, s, d), dtype=torch.bfloat16))
+
+    def past(*args, **kw):
+        raise _PastTheCheck
+
+    monkeypatch.setattr(tvit, "_padded_stream_len", past)
+    cfg = t_config.arch_config("b16", 416, 10, fused_qkv=True,
+                               fused_mlp=True, **INT8_TIERS[tier])
+    with torch.set_grad_enabled(mode == "train"):
+        assert tvit._attention_kernel(tx, tw, h) == "k1"
+        with pytest.raises(_PastTheCheck):
+            tvit.apply(None, torch.zeros((1, 416, 416, 3)), cfg,
+                       train=mode == "train", gen=torch.Generator())
+
+
+def _meta_half(arch, image, kv_heads=None):
+    """Meta tensors of one fused attention half's arguments (x padded to
+    spq) at a preset or an off-preset shape."""
+    s, d, h = _seq(arch, image)
+    hd, hkv = d // h, kv_heads or h
+    spq = (s + 7) // 8 * 8
+    width = (h + 2 * hkv) * hd
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return dict(x=meta(2, spq, d, dtype=torch.bfloat16), gamma=meta(d),
+                beta=meta(d), wqkv=meta(d, width, dtype=torch.bfloat16),
+                bqkv=meta(width), wo=meta(h * hd, d, dtype=torch.bfloat16),
+                bo=meta(d), do=meta(2, spq, d, dtype=torch.bfloat16)), \
+        s, h, hd, hkv
+
+
+# (path, the launch function and its tier, kv heads): every path that keeps
+# the first design's whole-row core, forward and backward
+FIRST_DESIGN = [
+    ("K7", "bf16", KV_HEADS), ("K7's backward", "bf16_bwd", KV_HEADS),
+    ("K7's int8 tier", "int8", KV_HEADS),
+    ("K7's int8 backward", "int8_bwd", KV_HEADS),
+    ("K11-C", "int4", None), ("G-F", "int4", KV_HEADS),
+    ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS),
+    ("K8", "rect", None), ("K5", "ho", None)]
+
+
+def _launch_checks(launch, t, s, h, hd, hkv):
+    """The launch function's checks up to its first allocation, on meta
+    tensors (its device check returns the meta device)."""
+    x, g, be, w, bq, wo = (t[k] for k in ("x", "gamma", "beta", "wqkv",
+                                          "bqkv", "wo"))
+    if launch == "bf16":
+        return ck._ln_qkvo_cuda("k", x, g, be, w, bq, wo, t["bo"], 1e-6, s,
+                                h, hd, hkv)
+    if launch == "bf16_bwd":
+        return ck._ln_qkvo_bwd_cuda("k", x, g, be, w, bq, wo, t["do"], 1e-6,
+                                    s, h, hd, hkv)
+    if launch in ("int8", "int4"):
+        return ck._ln_qkvo_int8_cuda("k", x, g, be, w, bq, wo, t["bo"], 1e-6,
+                                     s, h, hd, hkv, None,
+                                     int4=launch == "int4")
+    if launch in ("int8_bwd", "int4_bwd"):
+        return ck._ln_qkvo_int8_bwd_cuda("k", x, g, be, w, bq, wo, t["do"],
+                                         1e-6, s, h, hd, hkv, False, None,
+                                         int4=launch == "int4_bwd")
+    if launch == "rect":
+        return ck._check_rect("k", x[:, :x.shape[1] // 16 * 8], x, g, be, w, bq,
+                              wo, t["bo"], s, h, hd, backward=True)
+    return ck._check_qkvo("k", x, g, be, w, bq, wo, s, h, hd,
+                          ck.qkv_attention_supported, first_design="K5")
+
+
+@pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
+@pytest.mark.parametrize("path,launch,kv", FIRST_DESIGN)
+def test_first_design_paths_raise_by_name_where_only_k13_fits(
+        monkeypatch, arch, image, path, launch, kv):
+    """Where the K1 family's gate and vitax's take a shape that the whole-row
+    core cannot (seq 677; head dim 80), each path that keeps that core (K7
+    in every tier, K11-C/D and G-F/G-B, K8, K5) raises its named error in
+    its wrapper's checks, before it allocates or launches anything; K1's
+    and K3's Hopper launches pass the same checks."""
+    t, s, h, hd, hkv = _meta_half(arch, image, kv)
+    assert ck.qkv_attention_supported(t["x"], t["wqkv"], h, hkv)
+    assert not ck._core_fits(t["x"], t["wqkv"], h, hkv)
+    monkeypatch.setattr(ck, "_check_cuda",
+                        lambda name, tensors, dtypes: torch.device("meta"))
+    with pytest.raises(NotImplementedError,
+                       match=f"{path} keeps the first design.*Queue 2"):
+        _launch_checks(launch, t, s, h, hd, hkv)
+    # K1 and K3 with kv_heads == heads: K13's core takes the shapes
+    t, s, h, hd, hkv = _meta_half(arch, image)
+    ck._check_qkvo("k", t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                   t["wo"], s, h, hd, ck.qkv_attention_supported)
+
+
 # ------------------------------------------------------------ under a mesh
 
 def test_k9_route_is_vitaxs_under_a_mesh():
     """Res-ViT under a mesh (vitax/models/resvit.py:220-277, 330-331): its
     fused half declines, and `attention` takes K9 where vitax's gate without
     heads passes (fused_qkv, fused_qkvo, no GQA). Wherever vitax takes K9,
-    at every preset × {224, 384}, serving and training, the port's route is
-    K9 and its K9 gate passes, so the port never raises there; elsewhere
-    both run the unfused attention."""
+    serving and training, the port's route is K9; at every preset × {224,
+    384} its K9 gate passes, and off the presets, where K9's whole-row core
+    cannot take the shapes (seq 677, Hd 80), `_k9_attention` raises by
+    name; elsewhere both run the unfused attention."""
     from vitax_torch.parallel.mesh import Mesh
     mesh = Mesh(n_data=1, n_model=1, rank=0, data_group=None,
                 model_group=None)
@@ -168,15 +359,17 @@ def test_k9_route_is_vitaxs_under_a_mesh():
     for arch, image, mode in CASES:
         s, d, h = _seq(arch, image)
         (jx, jw), (tx, tw) = _shapes(2, s, d, 3 * d)
-        cfg = t_config.resvit_arch_config(arch, image, fused_qkv=True,
-                                          fused_qkvo=True)
+        cfg = _resvit_cfg(arch, image, fused_qkv=True, fused_qkvo=True)
         with torch.set_grad_enabled(mode == "train"):
             vitax_k9 = bool(pk.qkv_attention_supported(jx, jw))
             assert tr._fused_attention_half(tx, None, cfg, mesh) is None
             assert tr.attention_is_fused(tx, cfg) == vitax_k9, (arch, image)
-            if vitax_k9:
-                assert tr.k9_supported(tx, tw, cfg), (arch, image, mode)
+            if vitax_k9 and tr.k9_supported(tx, tw, cfg):
                 taken += 1
+            elif vitax_k9:
+                assert (arch, image, mode) not in PRESET_CASES
+                with pytest.raises(NotImplementedError, match="Queue 2"):
+                    tr._k9_attention(tx, _k10_params(d, h, d // h), cfg)
     assert taken >= 8  # b16 and b32 at both sizes, both modes, at least
 
 
@@ -215,10 +408,9 @@ def test_tp_gates_are_vitaxs(tp, monkeypatch):
     declines, runs = set(), 0
     for arch, image, mode in CASES:
         s, d, h = _seq(arch, image)
-        m = t_config.ARCH_PRESETS[arch]["mlp_dim"]
+        m = _preset(arch)["mlp_dim"]
         (jx, _), (tx, _) = _shapes(2, s, d, 3 * d)
-        cfg = t_config.arch_config(arch, image, 10, fused_qkv=True,
-                                   fused_mlp=True)
+        cfg = _vit_cfg(arch, image, fused_qkv=True, fused_mlp=True)
         vitax_attn, vitax_mlp = _vitax_tp(jx, d, h, d // h, m, tp)
         w1 = torch.empty((d, m // tp), device="meta", dtype=torch.bfloat16)
         w2 = torch.empty((m // tp, d), device="meta", dtype=torch.bfloat16)
@@ -278,8 +470,8 @@ def test_tp_tier_gates_are_vitaxs(tp):
         for flags in ({"int8_attn": True, "int8_mlp": True},
                       {"int4_attn": True, "int4_mlp": True,
                        "int8_attn": True, "int8_mlp": True}):
-            cfg = t_config.arch_config(arch, image, 10, fused_qkv=True,
-                                       fused_mlp=True, **flags)
+            cfg = _vit_cfg(arch, image, fused_qkv=True, fused_mlp=True,
+                           **flags)
             with torch.set_grad_enabled(mode == "train"):
                 ran = tvit.tp_attention_supported(tx, cfg, tp)
                 assert ran == bool(vitax_attn), (arch, image, mode, flags)

@@ -305,9 +305,15 @@ def test_hopper_gates():
     assert ck.qkv_attention_supported(x(8, 197, 768), w(768, 2304), 12)
     assert ck.qkv_attention_supported(x(8, 577, 768), w(768, 2304), 12)
     assert ck.qkv_attention_supported(x(3, SEQ, D), w(D, 3 * H * HD), H)
-    # scores + K/V past 227 KB of shared memory; head_dim 80 (ViT-H/14)
-    assert not ck.qkv_attention_supported(x(1, 1024, 768), w(768, 2304), 12)
-    assert not ck.qkv_attention_supported(x(1, 257, 1280), w(1280, 3840), 16)
+    # the first design's whole-row core: scores + K/V past 227 KB of shared
+    # memory; head_dim 80 (ViT-H/14). K13's core, which K1's family gates
+    # on, takes both; S past 1024, a head dim off its instances, does not
+    assert not ck._core_fits(x(1, 1024, 768), w(768, 2304), 12)
+    assert not ck._core_fits(x(1, 257, 1280), w(1280, 3840), 16)
+    assert ck.qkv_attention_supported(x(1, 1024, 768), w(768, 2304), 12)
+    assert ck.qkv_attention_supported(x(1, 257, 1280), w(1280, 3840), 16)
+    assert not ck.qkv_attention_supported(x(1, 1025, 768), w(768, 2304), 12)
+    assert not ck.qkv_attention_supported(x(1, 197, 480), w(480, 1440), 12)
     assert ck.attention_smem_bytes(584, 64) <= ck.SMEM_LIMIT
     assert ck.ln_mlp_supported(x(8, 200, 768), w(768, 3072), w(3072, 768))
     assert not ck.ln_mlp_supported(x(8, 200, 768), w(768, 3000), w(3000, 768))
@@ -368,15 +374,17 @@ def test_gqa_gate_rejects_uneven_kv_groups():
     assert not ck.qkv_attention_supported(x, uneven, 4, 3)
     assert pk.qkv_attention_supported(jnp.zeros((2, SEQ, D)),
                                       jnp.zeros((D, 10 * 32)), 4, 3)
-    # the MHA width is not a GQA width, and the reverse
-    assert not ck.qkv_attention_supported(x, torch.empty((D, 3 * 128),
-                                                         device="meta"), 4, 2)
+    # the MHA width is not a GQA width on K7's core (read as GQA it is Hd
+    # 48, which K13's instances take and the whole-row core does not; the
+    # wrappers also hold the width to their head_dim), and the reverse
+    assert not ck._core_fits(x, torch.empty((D, 3 * 128), device="meta"), 4,
+                             2)
     assert not ck.qkv_attention_supported(x, ok, 4)
-    # the backward's gate takes the head width of the packed GQA layout
-    assert ck.qkv_attention_bwd_supported(x, ok, 4, 2)
-    assert not ck.qkv_attention_bwd_supported(x, uneven, 4, 3)
-    assert ck.qkv_attention_bwd_supported(x, torch.empty((D, 3 * 128),
-                                                         device="meta"), 4)
+    # K7's backward core takes the head width of the packed GQA layout
+    assert ck._core_fits(x, ok, 4, 2, backward=True)
+    assert not ck._core_fits(x, uneven, 4, 3, backward=True)
+    assert ck._core_fits(x, torch.empty((D, 3 * 128), device="meta"), 4,
+                         backward=True)
     # under autograd K7 runs its backward (K1's with kv_heads)
     tq = _both(dict(_weights(5), x=_x(1, SPQ, 5)), "float32")[1]
     xg = tq["x"].requires_grad_()

@@ -251,7 +251,9 @@ cudaError_t launch_attention_core(const AttnGeom& g, OutT* out, cudaStream_t str
   const int tiles = (g.q_rows + 15) / 16;
   const dim3 grid((tiles + warps - 1) / warps, g.heads, g.b);
   attention_core_kernel<HD, OutT><<<grid, 32 * warps, smem, stream>>>(g, out);
-  return cudaGetLastError();
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++first_design_launches[1];
+  return launched;
 }
 
 // The core for head_dim 32, 64 or 128 at geometry g; out is bf16 or fp32

@@ -61,15 +61,7 @@ namespace vitax {
 namespace k13 {
 
 cudaError_t launch_core_fwd(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
-  switch (head_dim) {
-#define VITAX_CASE(HD) \
-  case HD:             \
-    return launch_rows<HD, kRowsFwd>(a, images, st);
-    VITAX_K13_HEAD_DIMS(VITAX_CASE)
-#undef VITAX_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_core_rows<kRowsFwd>(a, head_dim, images, st);
 }
 
 }  // namespace k13

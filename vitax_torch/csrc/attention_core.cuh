@@ -66,7 +66,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Query rows run to `rows`, keys to `seq` (<= rows; keys >= seq masked);
 // stats is the backward's [images, heads, 3, seq_pad] fp32 scratch:
 // m·scale·log2e, 1/l and dd of every query row, seq_pad = rows rounded up
-// to 64.
+// to 64. o32 is the fp32 out of the kRowsFwdF32 mode (K3's forward), with
+// o's row stride ld_o.
 struct CoreArgs {
   const bf16* q;
   const bf16* k;
@@ -78,6 +79,7 @@ struct CoreArgs {
   bf16* dk;
   bf16* dv;
   float* stats;
+  float* o32;
   int seq;
   int heads;
   int seq_pad;
@@ -328,6 +330,31 @@ __device__ __forceinline__ void store_rows(const float* acc, float mul, bf16* bu
   __syncthreads();
 }
 
+// acc of a warpgroup's 64×HD accumulator in fp32 to the rows of dst (row
+// stride ld; rows >= rows_left not written), through `buf` (64·(HD + 4)
+// fp32) so each row goes out in 16-byte stores; block barriers as
+// store_rows.
+template <int HD>
+__device__ __forceinline__ void store_rows_f32(const float* acc, float* buf, float* dst, int ld,
+                                               int rows_left) {
+  constexpr int kLd = HD + 4;
+  constexpr int kGroups = HD / 4;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2)
+    *reinterpret_cast<float2*>(buf + acc_row(i) * kLd + acc_col(i)) =
+        make_float2(acc[i], acc[i + 1]);
+  __syncthreads();
+  for (int c = threadIdx.x % kThreads; c < kRows * kGroups; c += kThreads) {
+    const int r = c / kGroups;
+    const int col = (c % kGroups) * 4;
+    if (r < rows_left)
+      *reinterpret_cast<float4*>(dst + static_cast<size_t>(r) * ld + col) =
+          *reinterpret_cast<const float4*>(buf + r * kLd + col);
+  }
+  __syncthreads();
+}
+
 // ------------------------------------- the forward and the backward's row pass
 
 template <int HD>
@@ -349,6 +376,7 @@ enum RowsMode : int {
   kRowsStats = 1,        // K13's backward row pass: the statistics pass and dd
   kRowsOnline = 2,       // K6's forward: one pass, the online recurrence
   kRowsOnlineStats = 3,  // K6's backward row pass: the online forward, its statistics and dd
+  kRowsFwdF32 = 4,       // K3's forward: kRowsFwd with the fp32 out (a.o32), never rounded
 };
 
 // Shared memory of core_rows_kernel: two Q tiles, then kStages K tiles and,
@@ -618,6 +646,10 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
     }
     dd += __shfl_xor_sync(0xffffffffu, dd, 1);
     if (tile && threadIdx.x % 2 == 0) st[2 * a.seq_pad + row] = dd;
+  } else if constexpr (kMode == kRowsFwdF32) {  // the K and V ring stages it (free by now)
+    store_rows_f32<HD>(o, reinterpret_cast<float*>(Ks) + wg * kRows * (HD + 4),
+                       a.o32 + head_off(a, a.ld_o, img, h, HD) + static_cast<size_t>(q0) * a.ld_o,
+                       a.ld_o, a.rows - q0);
   } else {
     store_rows<HD>(o, 1.f, Ks + wg * kRows * (HD + 8),
                    a.o + head_off(a, a.ld_o, img, h, HD) + static_cast<size_t>(q0) * a.ld_o,
@@ -653,6 +685,23 @@ cudaError_t launch_core_online(const CoreArgs& a, int head_dim, int images, cuda
   case HD:             \
     return launch_rows<HD, kMode>(a, images, st);
     VITAX_K6_HEAD_DIMS(VITAX_CASE)
+#undef VITAX_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// core_rows_kernel in mode kMode, head_dim one of VITAX_K13_HEAD_DIMS,
+// images <= 65535: K13's forward (kRowsFwd, attention_core.cu) and K3's
+// (kRowsFwdF32, ln_qkvo_attention_int8.cu: the fp32 head outputs to a.o32);
+// each source instantiates the modes it launches.
+template <int kMode>
+cudaError_t launch_core_rows(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
+  switch (head_dim) {
+#define VITAX_CASE(HD) \
+  case HD:             \
+    return launch_rows<HD, kMode>(a, images, st);
+    VITAX_K13_HEAD_DIMS(VITAX_CASE)
 #undef VITAX_CASE
     default:
       return cudaErrorInvalidValue;

@@ -12,6 +12,13 @@
 
 namespace vitax {
 
+// Launches of two first-design pieces, one added where each launches
+// (every translation unit shares the one array; read and reset through
+// gemm_sm90_s8.cu's vitax_first_design_launches): [0] gemm.cuh's mma.sync s8
+// products, [1] attention.cuh's whole-row forward core. A card run reads
+// that a path on the Hopper halves launched neither.
+inline long long first_design_launches[2] = {};
+
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }

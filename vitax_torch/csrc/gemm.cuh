@@ -339,10 +339,13 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // =============================================================================
 // s8 x s8 -> s32 products of the W8A8 and A4W4 tiers (the TPU kernels'
 // dot_general(int8, int8, preferred_element_type=int32)), dequantized in the
-// epilogue in the TPU kernels' order: f32(acc) * s_row[m] * s_col[n] (+ bias):
-// K3's and K4's forwards, K5, K7's and K8's int8 tiers, K11, K12's int8 pair.
-// K3's backward with kv_heads == heads and K4's run gemm_sm90.cuh's s8 wgmma
-// path instead.
+// epilogue in the TPU kernels' order: f32(acc) * s_row[m] * s_col[n] (+ bias),
+// the bias add fused with the last multiply (as XLA contracts it, and as the
+// plain twins' torch.addcmul and gemm_sm90.cuh's s8 epilogues do), each step
+// an explicit _rn intrinsic, so nvcc's contraction choices cannot move a bit:
+// K5, K7's and K8's int8 tiers, K11, K12's int8 pair. K3's and K4's forwards
+// and backwards with kv_heads == heads run gemm_sm90.cuh's s8 wgmma path
+// instead, to the same bits.
 //
 // One layout: C[M,N] = A[M,K] @ B[N,K]^T, both int8 row-major. mma.sync's
 // int8 shape takes only .row.col, i.e. B with K contiguous, so the forward
@@ -378,8 +381,8 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // vitax's _ln_mlp_bwd_int4_kernel (pallas_kernels.py:1057-1074) orders it.
 //
 // The int8 save-acts tier (K12): given Q, kS8GeluQF32 also writes the
-// static-grid GELU' codes Q [M,N] of a1 (one instantiation for K4's forward
-// and K12-int8's, so the two compute gelu_q(a1) to the same bits), and
+// static-grid GELU' codes Q [M,N] of a1 (one instantiation for K12-int8's
+// forward and K11-A's), and
 // kS8GpqGrad reads them back, the row scale times 1.13/127 first, as
 // _ln_mlp_bwd_int8_save_kernel (pallas_kernels.py:802-806) orders it.
 // =============================================================================
@@ -550,9 +553,11 @@ __global__ void __launch_bounds__(kGemmThreads)
         const size_t off = static_cast<size_t>(row) * N + col;
         float v[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          v[e] = static_cast<float>(acc[i][j][2 * h + e]) * srow * sc[col + e];
-          if (EPI != kS8GeluQGrad && EPI != kS8GpqGrad && bias != nullptr) v[e] += bias[col + e];
+        for (int e = 0; e < 2; ++e) {  // the twin's order, each step one _rn rounding
+          const float a = __fmul_rn(static_cast<float>(acc[i][j][2 * h + e]), srow);
+          v[e] = EPI != kS8GeluQGrad && EPI != kS8GpqGrad && bias != nullptr
+                     ? __fmaf_rn(a, sc[col + e], bias[col + e])
+                     : __fmul_rn(a, sc[col + e]);
         }
         if (EPI == kS8GeluQF32 && Q != nullptr) {
           const float2 gq = make_float2(gelu_grad_q(v[0]) * kGpQScale,
@@ -614,7 +619,9 @@ cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* B, const float* sr, co
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   gemm_s8_kernel<EPI>
       <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, Aux, C, F, Q, M, N, K, 0);
-  return cudaGetLastError();
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++first_design_launches[0];
+  return launched;
 }
 
 // The int8_dw product: F[M,N] = sum over groups z of f32(A_z @ B_z^T) * s[z*M + m],
@@ -639,7 +646,9 @@ inline cudaError_t launch_gemm_s8_groups(const int8_t* A, const int8_t* B, const
   else
     gemm_s8_kernel<kS8GroupF32><<<grid, kGemmThreads, 0, stream>>>(
         A, B, s, nullptr, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
-  return cudaGetLastError();
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++first_design_launches[0];
+  return launched;
 }
 
 }  // namespace vitax

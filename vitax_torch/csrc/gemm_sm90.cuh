@@ -496,12 +496,13 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
 }
 
 // =============================================================================
-// s8 products of the W8A8 backwards (K3's with kv_heads == heads, and K4's):
+// s8 products of the W8A8 tiers (K3's forward and backward with kv_heads ==
+// heads, and K4's forward and backward):
 // C[M,N] = A[M,K]·B[N,K]ᵀ, both int8 codes read K-major. 8-bit wgmma has no
 // transpose bits, and every int8 product of those backwards already has this
 // layout: the weight quantizers store their codes [N, K] (quant.cuh), the
-// row codes of do, dqkv and dh1 are [rows, K], and dw_int8.cuh transposes the
-// weight grads' operands to [W, kp]. The block is the bf16 products': two
+// row codes of xq, aq, h1q, do, dqkv and dh1 are [rows, K], and dw_int8.cuh
+// transposes the weight grads' operands to [W, kp]. The block is the bf16 products': two
 // consumer warpgroups own a 128×128 tile, the producer warp keeps the TMA
 // ring full; a K tile is 128 codes deep (one 128-byte swizzle row, so a stage
 // is 32 KB a product as the bf16 one), each k-step one
@@ -511,7 +512,9 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
 // epilogues dequantize as gemm.cuh's s8 GEMM and the plain twins
 // (ops/cuda_kernels.py `_dequant`) order it, f32(acc)·sr[m]·sc[n], the bias
 // add fused with the last multiply, each step an explicit _rn intrinsic:
-//   kEpiS8Bf16      C = bf16(dq(acc) (+ bias))     K3's qkv recompute, dattn
+//   kEpiS8Bf16      C = bf16(dq(acc) (+ bias))     K3's qkv (forward and
+//                                                  recompute), out, dattn;
+//                                                  K4's fc2 without residual
 //   kEpiS8F32       F = dq(acc) (+ bias)           dxn
 //   kEpiS8GeluPair  K4's dual product, two accumulators over the same K (D):
 //                   a1 = dq(xq·W1cᵀ) + b1 and dh1f = dq2(doq·W2rᵀ) (the
@@ -528,6 +531,13 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
 //                   kS8GroupF32: no split of K, no partials, no atomics. The
 //                   fold waits for the group's last product, so the tensor
 //                   cores idle through it (K4's groups are one K tile deep).
+//   kEpiS8GeluQF32  K4's forward fc1: F = gelu_q(dq(acc) + b1) in fp32, the
+//                   sigmoid GELU a·σ(1.702a) (gemm.cuh's kS8GeluQF32 without
+//                   its K12 codes)
+//   kEpiS8Residual  K4's forward fc2: C = bf16(R + bf16(dq(acc) + b2)), the
+//                   add of two bf16 values in fp32 and one rounding, as
+//                   gemm.cuh's kS8Residual (vitax :715-721); R [M, N] bf16 is
+//                   read in the store loop, 16 bytes a thread
 // Rows M and K are ragged (the TMA zero-fills), N % 8 == 0 (16-byte stores),
 // K % 16 == 0 (16-byte TMA rows). No file that includes this header may be
 // built with --use_fast_math (quant.cuh).
@@ -538,13 +548,15 @@ enum EpiS8 : int {
   kEpiS8F32 = 1,
   kEpiS8GeluPair = 2,
   kEpiS8Group = 3,
+  kEpiS8GeluQF32 = 4,
+  kEpiS8Residual = 5,
 };
 
 // Launches of gemm_s8_sm90_kernel by epilogue, one added where launch_s8
 // launches it (every translation unit that includes this header shares the
 // one array); read and reset through gemm_sm90_s8.cu's
 // vitax_gemm_sm90_s8_launches
-inline long long s8_launches[4] = {};
+inline long long s8_launches[6] = {};
 
 constexpr int kBK8 = 128;  // codes of a K tile
 
@@ -554,6 +566,7 @@ struct GemmS8Args {
   const float* bias;  // [N] or null
   const float* sr2;   // kEpiS8GeluPair's second product: [M]
   const float* sc2;   // [N]
+  const bf16* R;      // kEpiS8Residual's residual [M, N]
   bf16* C;
   bf16* C2;
   float* F;
@@ -701,7 +714,7 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
     const int r = (i / 2) % 2 ? rb : ra;
     return r < g.M ? v[r] : 0.f;
   };
-  if constexpr (EPI == kEpiS8F32 || kGroups) {
+  if constexpr (EPI == kEpiS8F32 || EPI == kEpiS8GeluQF32 || kGroups) {
     constexpr int kLd = kBN + 4;
     float* buf = reinterpret_cast<float*>(ring) + wg * 64 * kLd;
 #pragma unroll
@@ -721,6 +734,7 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
           v0 = dequant(acc[i], sr, c0);
           v1 = dequant(acc[i + 1], sr, c1);
         }
+        if constexpr (EPI == kEpiS8GeluQF32) v0 = gelu_q(v0), v1 = gelu_q(v1);
       }
       *reinterpret_cast<float2*>(buf + k13::acc_row(i) * kLd + col) = make_float2(v0, v1);
     }
@@ -773,7 +787,18 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       const int col = (c % (kBN / 8)) * 8;
       if (row0 + r < g.M && bn + col < g.N) {
         const size_t o = static_cast<size_t>(row0 + r) * g.N + bn + col;
-        *reinterpret_cast<uint4*>(g.C + o) = *reinterpret_cast<const uint4*>(buf + r * kLd + col);
+        uint4 out = *reinterpret_cast<const uint4*>(buf + r * kLd + col);
+        if constexpr (EPI == kEpiS8Residual) {  // bf16(R + bf16(y)), one rounding
+          const uint4 rr = *reinterpret_cast<const uint4*>(g.R + o);
+          auto* cv = reinterpret_cast<__nv_bfloat162*>(&out);
+          const auto* rv = reinterpret_cast<const __nv_bfloat162*>(&rr);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 a = __bfloat1622float2(rv[j]), y = __bfloat1622float2(cv[j]);
+            cv[j] = __floats2bfloat162_rn(__fadd_rn(a.x, y.x), __fadd_rn(a.y, y.y));
+          }
+        }
+        *reinterpret_cast<uint4*>(g.C + o) = out;
         if constexpr (kDual) {
           if (g.C2 != nullptr)
             *reinterpret_cast<uint4*>(g.C2 + o) =
@@ -816,13 +841,18 @@ cudaError_t launch_s8(const int8_t* A, const int8_t* B, const int8_t* A2, const 
 }
 
 // C (kEpiS8Bf16, bf16) or F (kEpiS8F32, fp32) [M, N] = f32(A[M,K]·B[N,K]ᵀ)
-// ·sr[M]·sc[N] (+ bias[N]; null: none)
+// ·sr[M]·sc[N] (+ bias[N]; null: none); kEpiS8GeluQF32: F = gelu_q(that +
+// bias); kEpiS8Residual: C = bf16(R + bf16(that + bias)), R [M, N] bf16
 template <int EPI>
 cudaError_t gemm_s8(const int8_t* A, const int8_t* B, const float* sr, const float* sc,
-                    const float* bias, bf16* C, float* F, int M, int N, int K, cudaStream_t st) {
-  static_assert(EPI == kEpiS8Bf16 || EPI == kEpiS8F32, "gemm_s8: kEpiS8Bf16 or kEpiS8F32");
+                    const float* bias, bf16* C, float* F, int M, int N, int K, cudaStream_t st,
+                    const bf16* R = nullptr) {
+  static_assert(EPI == kEpiS8Bf16 || EPI == kEpiS8F32 || EPI == kEpiS8GeluQF32 ||
+                    EPI == kEpiS8Residual,
+                "gemm_s8: a single product's epilogue");
+  if (EPI == kEpiS8Residual && R == nullptr) return cudaErrorInvalidValue;
   GemmS8Args g{};
-  g.sr = sr, g.sc = sc, g.bias = bias, g.C = C, g.F = F;
+  g.sr = sr, g.sc = sc, g.bias = bias, g.R = R, g.C = C, g.F = F;
   g.M = M, g.N = N, g.K = K;
   return launch_s8<EPI>(A, B, nullptr, nullptr, g, st);
 }

@@ -2,7 +2,7 @@
 // epilogue held against exact int32 products dequantized by its plain twin
 // (ops/cuda_kernels.py `gemm_sm90_s8_ref`), and two runs against each other.
 // It replaces no TPU kernel (the products live inside K3's and K4's int8
-// backwards); the port's paths never call it. vitax_gemm_sm90_s8_launches
+// forwards and backwards); the port's paths never call it. vitax_gemm_sm90_s8_launches
 // reads how many products of each kind launch_s8 has launched, by
 // whichever caller.
 #include "gemm_sm90.cuh"
@@ -13,11 +13,14 @@
 // fp32; 2: K4's dual product, a = f32(A·Bᵀ)·sr·sc + bias, C = bf16(gelu_q(a)),
 // F = f32(A2·B2ᵀ)·sr2·sc2·gelu_q'(a), C2 = bf16(F); 3: the int8_dw group
 // fold, F = Σ over groups z of f32(A_z·B_zᵀ)·sr[z·m + i], the groups gp
-// columns of K each (gp % 128 == 0).
+// columns of K each (gp % 128 == 0); 4: K4's fc1, F = gelu_q(f32(A·Bᵀ)·sr·sc
+// + bias); 5: K4's fc2, C = bf16(R + bf16(f32(A·Bᵀ)·sr·sc + bias)), R [m, n]
+// bf16.
 extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, const void* b2,
                                   const void* sr, const void* sc, const void* bias,
-                                  const void* sr2, const void* sc2, void* c, void* c2, void* f,
-                                  int m, int n, int k, int gp, int kind, void* stream) {
+                                  const void* sr2, const void* sc2, const void* r, void* c,
+                                  void* c2, void* f, int m, int n, int k, int gp, int kind,
+                                  void* stream) {
   using vitax::bf16;
   namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
@@ -41,6 +44,13 @@ extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, 
                                      static_cast<bf16*>(c2), static_cast<float*>(f), m, n, k, st);
     case 3:
       return sm90::gemm_s8_groups(A, B, SR, static_cast<float*>(f), m, n, k, gp, st);
+    case 4:
+      return sm90::gemm_s8<sm90::kEpiS8GeluQF32>(A, B, SR, SC, bias_f, nullptr,
+                                                 static_cast<float*>(f), m, n, k, st);
+    case 5:
+      return sm90::gemm_s8<sm90::kEpiS8Residual>(A, B, SR, SC, bias_f, static_cast<bf16*>(c),
+                                                 nullptr, m, n, k, st,
+                                                 static_cast<const bf16*>(r));
     default:
       return cudaErrorInvalidValue;
   }
@@ -49,9 +59,20 @@ extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, 
 // counts[kind] = the launches of each kind (the order of the switch above)
 // since the last reset; reset != 0 zeroes them after the read
 extern "C" int vitax_gemm_sm90_s8_launches(long long* counts, int reset) {
-  for (int kind = 0; kind < 4; ++kind) {
+  for (int kind = 0; kind < 6; ++kind) {
     counts[kind] = vitax::sm90::s8_launches[kind];
     if (reset) vitax::sm90::s8_launches[kind] = 0;
+  }
+  return 0;
+}
+
+// counts[0] = gemm.cuh's mma.sync s8 products, counts[1] = attention.cuh's
+// whole-row forward cores launched since the last reset (common.cuh's
+// first_design_launches); reset != 0 zeroes them after the read
+extern "C" int vitax_first_design_launches(long long* counts, int reset) {
+  for (int i = 0; i < 2; ++i) {
+    counts[i] = vitax::first_design_launches[i];
+    if (reset) vitax::first_design_launches[i] = 0;
   }
   return 0;
 }

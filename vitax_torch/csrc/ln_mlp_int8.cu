@@ -15,30 +15,38 @@
 // b2), no x +, the last GEMM's epilogue kS8Bf16 in place of kS8Residual.
 //
 // W1 and W2 are quantized per output column (s1, s2) by the first launches
-// (quant.cuh), written as [N, K], gemm.cuh's s8 layout.
+// (quant.cuh), written as [N, K], the s8 products' layout.
 //
-// Bound on the H100: the two s8 products (4 N D M operations) on the tensor
-// cores. Design of this first version, four launches on one stream after the
-// weights' quantization: the LN with a quantizing epilogue (layernorm.cuh),
-// the s8 GEMM whose epilogue writes gelu_q(a1) in fp32 [N, M], the row
-// quantizer over it (quant.cuh;
-// a row's amax spans all M columns, i.e. 24 GEMM tiles, so it cannot sit in
-// the GEMM epilogue), and the s8 GEMM with the residual epilogue. The TPU
-// kernel keeps a1 and h1q in VMEM; here the fp32 gelu_q(a1) makes a round
-// trip through device memory (8 N M bytes, 79 MB at b32 spq 200), the price
-// of the per-row scale. Fusing the amax into the GEMM (a row-block-wide
-// tile) is later work.
+// Bound on the H100: the two s8 products (4 N D M operations at 1979 TOP/s)
+// on the tensor cores. Design at L = 127, four launches on one stream after
+// the weights' codes, the products on gemm_sm90.cuh's s8 wgmma path:
+//   1. the LN-quant prologue (layernorm.cuh, the row in registers): xq, sx;
+//   2. fc1 with kEpiS8GeluQF32: g = gelu_q(dq(xq·W1ᵀ) + b1), fp32 [N, M];
+//   3. the row quantizer over g (quant.cuh): a row's amax spans all M
+//      columns, i.e. 24 N tiles of the product, so it cannot sit in one
+//      tile's epilogue;
+//   4. fc2 with kEpiS8Residual (out = bf16(x + bf16(dq(h1q·W2ᵀ) + b2))) or,
+//      with residual == 0, kEpiS8Bf16.
+// The int32 sums are exact and the epilogues dequantize in the twin's order
+// with explicit _rn steps, as gemm.cuh's do, so the outputs are the twin's
+// bits from the same codes, and K12-int8's (which keeps gemm.cuh's GEMM)
+// bit for bit.
+// The TPU kernel keeps a1 and h1q in VMEM; here the fp32 gelu_q(a1) makes a
+// round trip through device memory (8 N M bytes, 79 MB at b32 spq 200),
+// the price of the per-row scale.
 //
 // K11-A, the A4W4 forward (vitax_ln_mlp_int4_fwd): replaces
 // _ln_mlp_fwd_int4_kernel (:961), reached through fused_ln_mlp(int4=True)
 // (:2152) -> _ln_mlp_2d_int4 -> _ln_mlp_fwd_int4_call (pallas_call at
 // :1880). Its body (:973-998) is K4's with every quantizer on the int4 grid
-// (_quant_rows4, _quant_cols_host4: limit 7, quant.cuh), so it is the same
-// four launches at L = 7 (its `residual=False` branch :997 as K4's); the
-// codes live in int8 and the s8 products of
-// values in [-7, 7] are the int4 products' int32 sums (|acc| <= 49 K). The
-// H100 has no int4 tensor-core rate: the bound and the design are K4's.
+// (_quant_rows4, _quant_cols_host4: limit 7, quant.cuh). It keeps K4's
+// first design: the same four launches at L = 7 with gemm.cuh's mma.sync s8
+// GEMM (kS8GeluQF32, kS8Residual or kS8Bf16; its `residual=False` branch
+// :997 as K4's); the codes live in int8 and the s8 products of values in
+// [-7, 7] are the int4 products' int32 sums (|acc| <= 49 K). The H100 has no
+// int4 tensor-core rate: the bound is K4's.
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 namespace {
@@ -69,6 +77,25 @@ int ln_mlp_quant_fwd(const void* x, const void* gamma, const void* beta, const v
       xb, static_cast<const float*>(gamma), static_cast<const float*>(beta), xqi, sxf, nullptr, n,
       d, eps, st);
   if (e != cudaSuccess) return e;
+  if constexpr (L == vitax::kQ8) {  // the Hopper design
+    namespace sm90 = vitax::sm90;
+    const auto* w1c = static_cast<const int8_t*>(w1t);
+    const auto* w2c = static_cast<const int8_t*>(w2t);
+    e = sm90::gemm_s8<sm90::kEpiS8GeluQF32>(xqi, w1c, sxf, static_cast<const float*>(s1),
+                                            static_cast<const float*>(b1), nullptr, gf, n, m, d,
+                                            st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_quant_rows<L>(static_cast<const float*>(gf), h1qi, shf, n, m, st);
+    if (e != cudaSuccess) return e;
+    if (!residual)
+      return sm90::gemm_s8<sm90::kEpiS8Bf16>(h1qi, w2c, shf, static_cast<const float*>(s2),
+                                             static_cast<const float*>(b2),
+                                             static_cast<bf16*>(out), nullptr, n, d, m, st);
+    return sm90::gemm_s8<sm90::kEpiS8Residual>(h1qi, w2c, shf, static_cast<const float*>(s2),
+                                               static_cast<const float*>(b2),
+                                               static_cast<bf16*>(out), nullptr, n, d, m, st,
+                                               xb);
+  }
   e = vitax::launch_gemm_s8<vitax::kS8GeluQF32>(
       xqi, static_cast<const int8_t*>(w1t), sxf, static_cast<const float*>(s1),
       static_cast<const float*>(b1), nullptr, nullptr, nullptr, gf, n, m, d, st);

@@ -4,12 +4,14 @@
 // reached through fused_ln_mlp(int8=True, int8_grad=True, save_acts=True)
 // (:2123) -> _ln_mlp_2d_int8s (:2100), with int8_dw off or on.
 //
-// Forward, K4's launches (ln_mlp_int8.cu), fc1's epilogue (kS8GeluQF32)
-// given the codes' buffer: besides gelu_q(a1) in fp32 it writes
-// gpq = clip(rint(gelu_grad_q(a1) * 127/1.13)), GELU' on vitax's static grid
-// (_GP_AMAX :723-729); K4's h1q and its row scales sh are kept as outputs
-// (vitax stores sh as [N, 128] lanes, the port one fp32 a row). out is K4's,
-// bit for bit: the same launches compute it.
+// Forward, K4's first-design launches (gemm.cuh's mma.sync s8 GEMM), fc1's
+// epilogue (kS8GeluQF32) given the codes' buffer: besides gelu_q(a1) in fp32
+// it writes gpq = clip(rint(gelu_grad_q(a1) * 127/1.13)), GELU' on vitax's
+// static grid (_GP_AMAX :723-729); h1q and its row scales sh are kept as
+// outputs (vitax stores sh as [N, 128] lanes, the port one fp32 a row).
+// K4's forward runs on gemm_sm90.cuh since its redesign; both epilogues
+// dequantize in the twin's order with explicit _rn steps, so out is K4's,
+// bit for bit.
 //
 // Backward from the saved codes (:789-864), no fc1 recompute, no LN
 // quantization, no GELU:

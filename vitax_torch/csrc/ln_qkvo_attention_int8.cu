@@ -20,14 +20,34 @@
 // (H + 2·Hkv)·hd, and query head h reads kv group h·Hkv/H; the quantizer,
 // the s8 QKV GEMM and qkv take that width, the core its geometry.
 //
-// Bound on the H100: the two s8 projections on the tensor cores, and the
-// attention core (attention.cuh: whole-row softmax in shared memory, WMMA
-// bf16; the same core as K1's, here writing fp32 attn). Design of this first
-// version, five launches on one stream after the weights' quantization: LN
-// with a quantizing epilogue, the s8 QKV GEMM, the core, the row quantizer
-// over attn (a row spans all heads, i.e. 12 blocks of the core, so its amax
-// cannot be taken inside one), and the s8 out-projection. xq, qkv, fp32 attn and aq go through device memory
-// where the TPU kernel keeps them in VMEM.
+// Bound on the H100: the two s8 projections (2·N·D·W + 2·N·hhd·D
+// operations at 1979 TOP/s) and the attention core (4·spq²·hd a head, bf16
+// on the tensor cores).
+//
+// kv_heads == heads at L = 127, the Hopper design: K1's forward sequence
+// (ln_qkvo_attention.cu) with the int8 tier's arithmetic, five launches on
+// one stream after the weights' column codes (quant.cuh, as [N, K]):
+//   1. the LN-quant prologue (layernorm.cuh, the row in registers): xq, sx;
+//   2. qkv = bf16(dq(xq·W8ᵀ) + bqkv) on gemm_sm90.cuh's s8 wgmma path
+//      (kEpiS8Bf16): the call K3's backward makes for its recompute
+//      (ln_qkvo_attention_int8_bwd.cu), so the two give the same qkv bits;
+//   3. K13's forward core (attention_core.cuh, kRowsFwdF32) on the packed
+//      qkv rows with strided operands, as K1's forward lays them out: query
+//      rows to spq, keys masked at seq_len, p = exp2(s·scale·log2e − m)·(1/l)
+//      rounded to bf16 once, attn = p·v written in fp32, never rounded
+//      (vitax :2731-2737);
+//   4. the row quantizer over the fp32 attn (quant.cuh): a row spans all
+//      heads, i.e. hhd/hd blocks of the core, so its amax cannot be taken
+//      inside one;
+//   5. out = bf16(dq(aq·Wo8ᵀ) + bo) on the s8 path (kEpiS8Bf16).
+// xq, qkv, the fp32 attn and aq go through device memory where the TPU
+// kernel keeps them in VMEM; the scores never do. K13's p differs from the
+// twin's softmax in its last bits, so out moves within the int8 band.
+//
+// kv_heads < heads (K7's int8 tier) keeps the first design in a branch of
+// its own, since K13's core has no walk over a kv group: gemm.cuh's
+// mma.sync s8 GEMM and attention.cuh's whole-row core (the same core as
+// K7's bf16 forward, writing fp32 attn), five launches as above.
 //
 // K11-C, the A4W4 forward (vitax_ln_qkvo_attention_int4_fwd): replaces
 // _ln_qkvo_fwd_int4_kernel (:2745), the int4 branch of
@@ -35,14 +55,44 @@
 // K3's with the two projections' quantizers on the int4 grid
 // (_quant_rows4 of the fp32 LN output and of the fp32 attn,
 // _quant_cols_host4 of Wqkv and Wo: limit 7, quant.cuh); the core stays
-// bf16 with fp32 softmax. So it is K3's launch sequence at L = 7, codes in
-// int8. Its wrapper takes no kv_heads (the int4 kv_heads branch is Res-ViT's,
-// not ported). Bound and design: K3's.
+// bf16 with fp32 softmax. So it is K3's first-design launch sequence at L =
+// 7, codes in int8, with and without kv_heads (G-F). Bound: K3's.
 #include "attention.cuh"
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 namespace {
+
+// kv_heads == heads at L = 127: the Hopper design.
+int ln_qkvo_attention_int8_fwd_sm90(const vitax::bf16* x, const float* gamma, const float* beta,
+                                    const int8_t* w8t, const float* sw, const float* bqkv,
+                                    const int8_t* wo8t, const float* swo, const float* bo,
+                                    int8_t* xq, float* sx, vitax::bf16* qkv, float* attn,
+                                    int8_t* aq, float* sa, vitax::bf16* out, int b, int spq,
+                                    int d, int seq_len, int heads, int head_dim, float eps,
+                                    float scale, cudaStream_t st) {
+  namespace sm90 = vitax::sm90;
+  const int n = b * spq;
+  const int hhd = heads * head_dim;
+  const int w = 3 * hhd;
+  cudaError_t e = vitax::launch_layer_norm_quant<false, false>(x, gamma, beta, xq, sx, nullptr,
+                                                               n, d, eps, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_s8<sm90::kEpiS8Bf16>(xq, w8t, sx, sw, bqkv, qkv, nullptr, n, w, d, st);
+  if (e != cudaSuccess) return e;
+  vitax::k13::CoreArgs a{};
+  a.q = qkv, a.k = qkv + hhd, a.v = qkv + 2 * hhd, a.o32 = attn;
+  a.seq = seq_len, a.rows = spq, a.img_rows = spq, a.heads = heads;
+  a.scale = scale;
+  a.ld_q = a.ld_k = a.ld_v = w;
+  a.ld_o = hhd;
+  e = vitax::k13::launch_core_rows<vitax::k13::kRowsFwdF32>(a, head_dim, b, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_rows(attn, aq, sa, n, hhd, st);
+  if (e != cudaSuccess) return e;
+  return sm90::gemm_s8<sm90::kEpiS8Bf16>(aq, wo8t, sa, swo, bo, out, nullptr, n, d, hhd, st);
+}
 
 // The forward on the grid of limit L (127: K3, 7: K11-C).
 template <int L>
@@ -62,7 +112,9 @@ int ln_qkvo_attention_quant_fwd(
   auto* attnf = static_cast<float*>(attn);
   auto* aqi = static_cast<int8_t*>(aq);
   auto* saf = static_cast<float*>(sa);
+  const bool hopper = L == vitax::kQ8 && kv_heads == heads;
   if (n == 0) return cudaSuccess;
+  if (hopper && (b > 65535 || seq_len <= 0 || seq_len > spq)) return cudaErrorInvalidValue;
   cudaError_t e = vitax::launch_quant_weight_cols_t<L>(static_cast<const bf16*>(wqkv),
                                                        static_cast<int8_t*>(w8t),
                                                        static_cast<float*>(sw), d, w, st);
@@ -71,6 +123,14 @@ int ln_qkvo_attention_quant_fwd(
                                            static_cast<int8_t*>(wo8t), static_cast<float*>(swo),
                                            hhd, d, st);
   if (e != cudaSuccess) return e;
+  if (hopper)
+    return ln_qkvo_attention_int8_fwd_sm90(
+        static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<const int8_t*>(w8t),
+        static_cast<const float*>(sw), static_cast<const float*>(bqkv),
+        static_cast<const int8_t*>(wo8t), static_cast<const float*>(swo),
+        static_cast<const float*>(bo), xqi, sxf, qkvb, attnf, aqi, saf, static_cast<bf16*>(out),
+        b, spq, d, seq_len, heads, head_dim, eps, scale, st);
   e = vitax::launch_layer_norm_quant<false, false, L>(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), xqi, sxf, nullptr, n, d, eps, st);

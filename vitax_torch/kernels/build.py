@@ -68,8 +68,9 @@ SIGNATURES = {
     "vitax_qkvo_attention_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vitax_qkvo_attention_bwd": [_P] * 17 + [_I] * 6 + [_F, _P],
     "vitax_gemm_sm90": [_P] * 9 + [_I] * 4 + [_P],
-    "vitax_gemm_sm90_s8": [_P] * 12 + [_I] * 5 + [_P],
+    "vitax_gemm_sm90_s8": [_P] * 13 + [_I] * 5 + [_P],
     "vitax_gemm_sm90_s8_launches": [_P, _I],
+    "vitax_first_design_launches": [_P, _I],
 }
 # workspace sizes (fp32 elements) of the backward entry points: host code
 WORKSPACE_SIGNATURES = {

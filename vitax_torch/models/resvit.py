@@ -399,8 +399,9 @@ def _k10_attention(x: torch.Tensor, p: Params, cfg: ResViTConfig
     if not k10_supported(x, wqkv, cfg):
         raise NotImplementedError(
             "vitax's gate takes this attention half to its fused_qkv_attention "
-            "(K10) and the port's K10 gate does not (Hopper shared memory, "
-            "head dims)")
+            "(K10) and the port's K10 gate does not: K10 keeps the first "
+            "design's whole-row core (its shared memory, head dims "
+            f"{ck.ATTN_HEAD_DIMS}); {ck.FIRST_DESIGN_ITEM}")
     out = ck.fused_qkv_attention(_pad_rows(x), wqkv, bqkv, s, cfg.n_heads,
                                  cfg.head_dim)[:, :s]
     return _linear(out, p["wo"])
@@ -428,8 +429,9 @@ def _k9_attention(x: torch.Tensor, p: Params, cfg: ResViTConfig
     if not k9_supported(x, wqkv, cfg):
         raise NotImplementedError(
             "vitax's gate takes this attention half to its "
-            "fused_qkvo_attention (K9) and the port's K9 gate does not "
-            "(Hopper shared memory, head dims)")
+            "fused_qkvo_attention (K9) and the port's K9 gate does not: K9 "
+            "keeps the first design's whole-row core (its shared memory, "
+            f"head dims {ck.ATTN_HEAD_DIMS}); {ck.FIRST_DESIGN_ITEM}")
     out = ck.fused_qkvo_attention(_pad_rows(x), wqkv, bqkv,
                                   p["wo"]["kernel"].to(dt).contiguous(),
                                   p["wo"]["bias"].float(), s, cfg.n_heads,
@@ -440,7 +442,9 @@ def _k9_attention(x: torch.Tensor, p: Params, cfg: ResViTConfig
 def square_half_supported(x: torch.Tensor, wqkv: torch.Tensor,
                           cfg: ResViTConfig) -> bool:
     """The fused square half's gate: vitax's with (n_heads, n_kv_heads)
-    (vitax/models/resvit.py:336) and the port's."""
+    (vitax/models/resvit.py:336) and the port's K1 family's; with GQA (K7,
+    the first design) or an int4 tier the kernel raises by name where its
+    whole-row core cannot take the shapes."""
     h, hkv = cfg.n_heads, _kv_heads(cfg)
     return (gates.qkv_attention_supported(x, wqkv, h, hkv)
             and ck.qkv_attention_supported(x, wqkv, h, hkv))

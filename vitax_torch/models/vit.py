@@ -199,17 +199,17 @@ def _merged_qkv(p: Params, dt: torch.dtype):
 
 def _attention_kernel(x: torch.Tensor, wqkv: torch.Tensor, heads: int
                       ) -> Optional[str]:
-    """Which fused attention half takes x: "k1" (the whole-row core) where
-    vitax's gate and the port's pass, else "k6" (the KV-chunked core) where
-    vitax's flash gate and the port's pass, as vitax's
-    _fused_block_attention chooses (vitax/models/vit.py:220-227; vitax's
-    gates copied in ops/gates.py); None where neither does. Under autograd
-    the port's gates are the backward kernels' (the MLP half's backward has
-    its forward's constraints)."""
+    """Which fused attention half takes x: "k1" (K1's family: K1, K3, K11-C,
+    on K13's core or the first design's) where vitax's gate and the port's
+    pass, else "k6" (the KV-chunked core) where vitax's flash gate and the
+    port's pass, as vitax's _fused_block_attention chooses
+    (vitax/models/vit.py:220-227; vitax's gates copied in ops/gates.py);
+    None where neither does. K1's gate is the same in eval and in training;
+    under autograd K6's is its backward kernel's. A first-design tier
+    (K11-C) raises by name where its core cannot take the shapes."""
     train = torch.is_grad_enabled()
-    if gates.qkv_attention_supported(x, wqkv) and (
-            ck.qkv_attention_bwd_supported if train
-            else ck.qkv_attention_supported)(x, wqkv, heads):
+    if (gates.qkv_attention_supported(x, wqkv)
+            and ck.qkv_attention_supported(x, wqkv, heads)):
         return "k1"
     if gates.qkv_attention_flash_supported(x, wqkv) and (
             ck.qkv_attention_flash_bwd_supported if train
@@ -255,13 +255,11 @@ def tp_attention_supported(x: torch.Tensor, cfg: ViTConfig, tp: int
                            ) -> bool:
     """Whether the attention half runs per model shard: K1's gate at the
     shard width 3·(H/tp)·Hd, vitax's (vitax/models/vit.py:190-194) and the
-    port's (its backward's under autograd)."""
+    port's (the same in eval and in training)."""
     d, h, hd = x.shape[-1], cfg.num_heads, cfg.head_dim
     wqkv = torch.empty((d, 3 * (h // tp) * hd), device="meta", dtype=x.dtype)
-    gate = (ck.qkv_attention_bwd_supported if torch.is_grad_enabled()
-            else ck.qkv_attention_supported)
     return (h % tp == 0 and gates.qkv_attention_supported(x, wqkv)
-            and gate(x, wqkv, h // tp))
+            and ck.qkv_attention_supported(x, wqkv, h // tp))
 
 
 def tp_mlp_supported(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor

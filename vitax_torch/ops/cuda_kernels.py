@@ -13,9 +13,10 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   `_ln_qkvo_bwd_kernel` :2898
 - `fused_ln_mlp_bwd` -> ln_mlp_bwd.cu -> `_ln_mlp_bwd_kernel` :1308
 - `fused_ln_qkvo_attention_int8` -> ln_qkvo_attention_int8.cu ->
-  `_ln_qkvo_fwd_int8_kernel` :2690 (K3)
+  `_ln_qkvo_fwd_int8_kernel` :2690 (K3: gemm_sm90.cuh's s8 wgmma products
+  and K13's core with an fp32 out)
 - `fused_ln_mlp_int8` -> ln_mlp_int8.cu -> `_ln_mlp_fwd_int8_kernel` :683
-  (K4)
+  (K4: gemm_sm90.cuh's s8 wgmma products)
 - `fused_ln_qkvo_attention_int8_bwd` -> ln_qkvo_attention_int8_bwd.cu ->
   `_ln_qkvo_bwd_int8_kernel` :2977 (K3 backward: gemm_sm90.cuh's s8 wgmma
   products and K13's core)
@@ -26,8 +27,9 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   same two sources with `int8_dw` on (dw_int8.cuh's operand packs,
   gemm_sm90.cuh's group fold) -> the `int8_dw` branches of those kernels,
   :3041-3049 and :3077-3084, :1173-1197
-- `gemm_sm90_s8` -> gemm_sm90_s8.cu: the s8 products inside those two
-  backwards launched alone, for the card tests (no path calls it)
+- `gemm_sm90_s8` -> gemm_sm90_s8.cu: the s8 products inside K3's and K4's
+  int8 forwards and backwards launched alone, for the card tests (no path
+  calls it)
 - `fused_ln_qkvo_attention_int8_ho` -> ln_qkvo_attention_int8_ho.cu ->
   `_ln_qkvo_fwd_int8_ho_kernel` :3669 (K5)
 - `fused_ln_mlp_int8_ho` -> ln_mlp_int8_ho.cu -> `_ln_mlp_fwd_int8_ho_kernel`
@@ -144,9 +146,11 @@ Each wrapper counts its launches in a plain int attribute, `wrapper.launches`,
 incremented once per launch of its kernel and nowhere else, so a run can
 show that its main path went through the kernels (`launch_counts`).
 
-The `*_supported` gates are this port's own (Hopper shared memory, the GEMM
-tile constraints, bf16 only on the card). The models pick a half where these
-and vitax's own gates (ops/gates.py) both pass.
+The `*_supported` gates are this port's own (the limits of K13's core and
+of the GEMMs, bf16 only on the card). The models pick a half where these
+and vitax's own gates (ops/gates.py) both pass; a path that keeps the first
+design's whole-row core checks that core's limits too and raises by name
+outside them (`_check_first_design`).
 """
 
 from __future__ import annotations
@@ -168,7 +172,10 @@ from vitax_torch.ops.quant import (int_mm, pack_i8, quant_cols,
                                    quant_rows_host4)
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may opt into (227 KB)
-ATTN_HEAD_DIMS = (32, 64, 128)
+ATTN_HEAD_DIMS = (32, 64, 128)  # the first design's whole-row core
+K13_HEAD_DIMS = tuple(range(16, 129, 16))  # VITAX_K13_HEAD_DIMS
+K13_MAX_SEQ = 1024  # vitax's K13 and K1 gates (pallas_kernels.py:63, :2200)
+K13_MAX_IMAGES = 65535  # the core's grid z
 FLASH_HEAD_DIMS = (32, 64, 80, 128)  # K6's online core (VITAX_K6_HEAD_DIMS)
 # vitax's _MLP_MONO_MAX_D: above it K2's backward is the :1610 route
 MLP_MONO_MAX_D = 1024
@@ -233,6 +240,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     s8_launch_counts(reset=True)
+    first_design_launch_counts(reset=True)
 
 
 def launch_counts() -> dict:
@@ -724,15 +732,18 @@ def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None, residual=None):
     return f if kind.endswith("f32") else c
 
 
-GEMM_SM90_S8_KINDS = ("s8_bf16", "s8_f32", "s8_gelu_pair", "s8_group")
+GEMM_SM90_S8_KINDS = ("s8_bf16", "s8_f32", "s8_gelu_pair", "s8_group",
+                      "s8_gelu_q_f32", "s8_residual")
 
 
 def s8_launch_counts(reset: bool = False) -> dict:
     """The s8 products of gemm_sm90.cuh launched since the last reset, by
     kind, as the library counts them where it launches one (`launch_s8`):
-    inside K3's backward (kv_heads == heads) two s8_bf16 (qkv, dattn) and
-    one s8_f32 (dxn), inside K4's one s8_gelu_pair and one s8_f32, and
-    under int8_dw two s8_group in each, besides `gemm_sm90_s8`'s own.
+    inside K3's forward (kv_heads == heads) two s8_bf16 (qkv, out), inside
+    K4's one s8_gelu_q_f32 (fc1) and one s8_residual (fc2; s8_bf16 without
+    the residual), inside K3's backward two s8_bf16 (qkv, dattn) and one
+    s8_f32 (dxn), inside K4's one s8_gelu_pair and one s8_f32, and under
+    int8_dw two s8_group in each backward, besides `gemm_sm90_s8`'s own.
     `launch_counts` keys the wrappers. Nothing is counted before the
     library is loaded: no product has launched then."""
     counts = (ctypes.c_longlong * len(GEMM_SM90_S8_KINDS))()
@@ -744,13 +755,33 @@ def s8_launch_counts(reset: bool = False) -> dict:
             for k, v in zip(GEMM_SM90_S8_KINDS, counts)}
 
 
+FIRST_DESIGN_PIECES = ("gemm.cuh:s8", "attention.cuh:core")
+
+
+def first_design_launch_counts(reset: bool = False) -> dict:
+    """Launches since the last reset of two first-design pieces, as the
+    library counts them where each launches: gemm.cuh's mma.sync s8
+    products ("gemm.cuh:s8": K7's int8 tier, K11, K5, K8, K12-int8) and
+    attention.cuh's whole-row forward core ("attention.cuh:core": K7, K8,
+    K10, K9, K5, K11-C). K3's and K4's forwards and backwards with kv_heads
+    == heads launch neither. Nothing is counted before the library is
+    loaded."""
+    counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
+    if build.loaded():
+        build.check(build.load().vitax_first_design_launches(counts,
+                                                             int(reset)),
+                    "first_design_launch_counts")
+    return dict(zip(FIRST_DESIGN_PIECES, counts))
+
+
 def gemm_sm90_s8_ref(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
-                     sr2=None, sc2=None, group=None):
+                     sr2=None, sc2=None, group=None, residual=None):
     """The plain twin of `gemm_sm90_s8`: exact int32 products (`int_mm`)
     dequantized in the kernels' order (`_dequant`), the GELU pair's
-    epilogue as K4's backward twin writes it, and the group fold as
-    `_dw_int8` adds it: over each group of `group` columns of K, in order,
-    F += f32(acc)·sr[z, m]."""
+    epilogue as K4's backward twin writes it, fc1's and fc2's as K4's
+    forward twin (gelu_q in fp32; residual + bf16(y) in bf16), and the group
+    fold as `_dw_int8` adds it: over each group of `group` columns of K, in
+    order, F += f32(acc)·sr[z, m]."""
     if kind == "s8_group":
         f = torch.zeros((a.shape[0], b.shape[0]), dtype=_F32, device=a.device)
         for z, k0 in enumerate(range(0, a.shape[1], group)):
@@ -762,6 +793,10 @@ def gemm_sm90_s8_ref(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
         return y.to(_BF)
     if kind == "s8_f32":
         return y
+    if kind == "s8_gelu_q_f32":
+        return gelu_q(y)
+    if kind == "s8_residual":
+        return residual + y.to(_BF)
     if kind == "s8_gelu_pair":
         dh1_32 = (_dequant(int_mm(a2, b2.t()), sr2.reshape(-1, 1), sc2)
                   * gelu_grad_q(y))
@@ -774,7 +809,7 @@ def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
     seed: int8 codes in [-127, 127] and fp32 scales, with a bias when
     `extra` is True; for "s8_group" `extra` is the group's columns, and each
     group's codes are zero past 25/32 of its rows, as dw_int8.cuh pads
-    them."""
+    them; "s8_residual" gets a bf16 residual [m, n]."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def codes(*shape):
@@ -794,28 +829,59 @@ def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
     out = dict(a=codes(m, k), b=codes(n, k), sr=scales(m), sc=scales(n))
     if extra:
         out["bias"] = torch.randn(n, generator=g, device=device) * 0.1
+    if kind == "s8_residual":
+        out["residual"] = torch.randn(m, n, generator=g, device=device).to(_BF)
     if kind == "s8_gelu_pair":
         out.update(a2=codes(m, k), b2=codes(n, k), sr2=scales(m),
                    sc2=scales(n))
     return out
 
 
+# (kind, m, n, k, bias or the group's columns) of the card checks of
+# `gemm_sm90_s8` (tests/test_torch_cuda_kernels.py and chip_smoke.py): the
+# first of each kind at its ViT-B/16 b32 spq 200 shape (K3's qkv, K3's dxn,
+# K4's dual product, K4's int8_dw dW1 over 50 groups of 128 rows, K4's
+# forward fc1 and fc2), then ragged M, N and K, K3's dWqkv fold (16 groups
+# of 400 rows in 512) and tiny ones
+GEMM_SM90_S8_CASES = [
+    ("s8_bf16", 6400, 2304, 768, True), ("s8_f32", 6400, 768, 2304, False),
+    ("s8_gelu_pair", 6400, 3072, 768, True),
+    ("s8_group", 768, 3072, 50 * 128, 128),
+    ("s8_gelu_q_f32", 6400, 3072, 768, True),
+    ("s8_residual", 6400, 768, 3072, True),
+    ("s8_bf16", 6400, 768, 768, False), ("s8_bf16", 3328, 768, 768, False),
+    ("s8_bf16", 199, 136, 784, True), ("s8_f32", 1, 768, 3072, False),
+    ("s8_f32", 3328, 776, 2320, True), ("s8_f32", 591, 776, 2320, True),
+    ("s8_gelu_pair", 591, 3072, 768, True),
+    ("s8_gelu_pair", 77, 264, 144, True),
+    ("s8_group", 768, 2304, 16 * 512, 512),
+    ("s8_group", 3072, 768, 5 * 128, 128),
+    ("s8_group", 100, 24, 3 * 256, 256),
+    ("s8_gelu_q_f32", 591, 3072, 768, True),
+    ("s8_gelu_q_f32", 77, 264, 144, True),
+    ("s8_residual", 591, 776, 3072, True),
+    ("s8_residual", 77, 136, 144, True)]
+
+
 def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
-                 sr2=None, sc2=None, group=None):
+                 sr2=None, sc2=None, group=None, residual=None):
     """One s8 product of gemm_sm90.cuh, the int8 wgmma path inside K3's and
-    K4's int8 backwards, launched alone (csrc/gemm_sm90_s8.cu) so that the
-    card tests hold each epilogue against exact integer products; no path
-    of the port calls it. a [m, k] and b [n, k] int8 codes, k % 16 == 0,
+    K4's int8 forwards and backwards, launched alone (csrc/gemm_sm90_s8.cu)
+    so that the card tests hold each epilogue against exact integer
+    products; no path of the port calls it. a [m, k] and b [n, k] int8 codes, k % 16 == 0,
     n % 8 == 0; sr [m], sc [n] fp32 scales. kind: "s8_bf16"
     bf16(f32(a·bᵀ)·sr·sc (+ bias)), "s8_f32" the same in fp32,
     "s8_gelu_pair" (h1, dh1, dh1_32) of K4's dual product with pre =
     f32(a·bᵀ)·sr·sc + bias and the second product a2 [m, k], b2 [n, k] with
     sr2, sc2 (bf16(gelu_q(pre)), bf16(dh1_32), dh1_32 =
     f32(a2·b2ᵀ)·sr2·sc2·gelu_q'(pre)), "s8_group" the int8_dw fold over
-    groups of `group` columns of k (group % 128 == 0), sr [k / group, m]."""
+    groups of `group` columns of k (group % 128 == 0), sr [k / group, m],
+    "s8_gelu_q_f32" K4's fc1, gelu_q(f32(a·bᵀ)·sr·sc + bias) in fp32,
+    "s8_residual" K4's fc2, bf16(residual + bf16(f32(a·bᵀ)·sr·sc + bias))
+    with residual [m, n] bf16."""
     if not a.is_cuda:
         return gemm_sm90_s8_ref(kind, a, b, sr, sc, bias, a2, b2, sr2, sc2,
-                                group)
+                                group, residual)
     name = "gemm_sm90_s8"
     if kind not in GEMM_SM90_S8_KINDS:
         raise ValueError(f"{name}: unknown kind {kind!r}")
@@ -823,6 +889,9 @@ def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
     n = b.shape[0]
     mats = {"a": a, "b": b, **({"a2": a2, "b2": b2}
                                if kind == "s8_gelu_pair" else {})}
+    if kind == "s8_residual":
+        _check_cuda(name, {"residual": residual}, {"residual": _BF})
+        _check_shape(name, "residual", residual, (m, n))
     vecs = {"sr": sr, **({"sc": sc} if kind != "s8_group" else {}),
             **({"bias": bias} if bias is not None else {}),
             **({"sr2": sr2, "sc2": sc2} if kind == "s8_gelu_pair" else {})}
@@ -840,21 +909,23 @@ def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
             _check_shape(name, key, t, (m,) if key.startswith("sr") else (n,))
     lib = build.load()
     pair = kind == "s8_gelu_pair"  # only the outputs the kind writes
-    c = _bf(dev, m, n) if pair or kind == "s8_bf16" else None
+    bf16_out = pair or kind in ("s8_bf16", "s8_residual")
+    c = _bf(dev, m, n) if bf16_out else None
     c2 = _bf(dev, m, n) if pair else None
-    f = None if kind == "s8_bf16" else _f32(dev, m, n)
+    f = _f32(dev, m, n) if pair or not bf16_out else None
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
     rc = lib.vitax_gemm_sm90_s8(ptr(a), ptr(b), ptr(a2), ptr(b2), ptr(sr),
                                 ptr(sc), ptr(bias), ptr(sr2), ptr(sc2),
-                                ptr(c), ptr(c2), ptr(f), m, n, k, group or 0,
-                                GEMM_SM90_S8_KINDS.index(kind), _stream(dev))
+                                ptr(residual), ptr(c), ptr(c2), ptr(f), m, n,
+                                k, group or 0, GEMM_SM90_S8_KINDS.index(kind),
+                                _stream(dev))
     build.check(rc, name)
     if pair:
         return c, c2, f
-    return c if kind == "s8_bf16" else f
+    return c if bf16_out else f
 
 
 class FusedLnMlpFn(torch.autograd.Function):
@@ -923,44 +994,81 @@ def attention_bwd_smem_bytes(spq: int, head_dim: int, warps: int = 1) -> int:
     return 2 * rows * head_dim * 2 + warps * per_warp
 
 
-def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
-    """Gate of the fused attention half: x [B, S, D] (S padded to spq =
-    round_up(S, 8) by the caller), merged wqkv [D, (H + 2·Hkv)·Hd] with
-    Hkv = kv_heads (default heads). Unlike vitax's gate
-    (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0, where
-    query heads would not split evenly into kv groups."""
-    if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
-        return False
-    return _core_fits(x, wqkv, heads, kv_heads)
-
-
-def _core_fits(x, wqkv, heads, kv_heads=None) -> bool:
-    """The shapes the whole-row core and the projections' GEMMs take (head
-    dim, widths a multiple of 32, the core's shared memory), any dtype."""
+def _head_dim(x, wqkv, heads, kv_heads=None):
+    """Hd of the packed [q (H·Hd) | k (Hkv·Hd) | v (Hkv·Hd)] wqkv [D, W] for
+    x [B, S, D] (Hkv = kv_heads, default heads), or None where the shapes
+    are not such a layout or heads % kv_heads != 0 (query heads that would
+    not split evenly into kv groups)."""
     if x.ndim != 3 or wqkv.ndim != 2:
-        return False
-    b, s, d = x.shape
+        return None
     kv_heads = kv_heads or heads
     if kv_heads <= 0 or heads % kv_heads:
-        return False
-    if wqkv.shape[0] != d or wqkv.shape[1] % (heads + 2 * kv_heads):
-        return False
-    hd = wqkv.shape[1] // (heads + 2 * kv_heads)
-    hhd = heads * hd
-    spq = (s + 7) // 8 * 8
-    return (hd in ATTN_HEAD_DIMS and d % 32 == 0 and hhd % 32 == 0
-            and attention_smem_bytes(spq, hd) <= SMEM_LIMIT)
+        return None
+    if wqkv.shape[0] != x.shape[2] or wqkv.shape[1] % (heads + 2 * kv_heads):
+        return None
+    return wqkv.shape[1] // (heads + 2 * kv_heads)
 
 
-def qkv_attention_bwd_supported(x, wqkv, heads, kv_heads=None) -> bool:
-    """Gate of the fused attention half in training: the forward's gate and
-    the attention-core backward's own shared memory (at the head width of
-    the packed [q | k | v] layout, GQA's with kv_heads)."""
-    if not qkv_attention_supported(x, wqkv, heads, kv_heads):
+def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
+    """Gate of the fused attention half, K1's family (K1, K7, K3, K11-C, K5,
+    and K8's key side), in eval and in training: x [B, S, D] (S padded to
+    spq = round_up(S, 8) by the caller), merged wqkv [D, (H + 2·Hkv)·Hd]
+    with Hkv = kv_heads (default heads), bf16 on the card. It takes what
+    the Hopper halves that run with kv_heads == heads (K1 and K3, forward
+    and backward) take: K13's core (S <= 1024, a head dim of
+    VITAX_K13_HEAD_DIMS, at most 65535 images) and gemm_sm90.cuh's products
+    (N % 8, K % 16: d % 16, Hd % 16). The models pick the half where this
+    and vitax's gate pass, in eval and in training alike (K13's backward
+    passes take what its forward takes). A first-design path (the
+    whole-row core: K7, K11-C/D, K5, K8) checks its own limits in its
+    wrapper and raises by name outside them. Unlike vitax's gate
+    (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
+    if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
         return False
+    hd = _head_dim(x, wqkv, heads, kv_heads)
+    if hd is None:
+        return False
+    b, s, d = x.shape
+    return (s <= K13_MAX_SEQ and hd in K13_HEAD_DIMS and d % 16 == 0
+            and b <= K13_MAX_IMAGES)
+
+
+def _core_fits(x, wqkv, heads, kv_heads=None, backward=False) -> bool:
+    """The shapes the first design takes, any dtype: attention.cuh's
+    whole-row core (head dims ATTN_HEAD_DIMS, its shared memory and, with
+    `backward`, its backward's) and gemm.cuh's products (widths a multiple
+    of 32). K7 (kv_heads < heads, every tier), K11-C and K11-D, K5, K8, K10
+    and K9 run it."""
+    hd = _head_dim(x, wqkv, heads, kv_heads)
+    if hd is None:
+        return False
+    d = x.shape[2]
     spq = (x.shape[1] + 7) // 8 * 8
-    hd = wqkv.shape[1] // (heads + 2 * (kv_heads or heads))
-    return attention_bwd_smem_bytes(spq, hd) <= SMEM_LIMIT
+    return (hd in ATTN_HEAD_DIMS and d % 32 == 0 and heads * hd % 32 == 0
+            and attention_smem_bytes(spq, hd) <= SMEM_LIMIT
+            and (not backward
+                 or attention_bwd_smem_bytes(spq, hd) <= SMEM_LIMIT))
+
+
+FIRST_DESIGN_ITEM = ('ROADMAP Queue 2, "the first-design attention paths onto '
+                     "K13's core\"")
+
+
+def _check_first_design(name, path, x, wqkv, heads, kv_heads=None,
+                        backward=False):
+    """Raises where a path on the first design's whole-row core (`path`,
+    e.g. "K7") is asked for shapes its core cannot take though the K1
+    family's gate, and vitax's, take them: it never launches outside its
+    limits and never falls back to another kernel."""
+    if not _core_fits(x, wqkv, heads, kv_heads, backward):
+        hd = _head_dim(x, wqkv, heads, kv_heads)
+        raise NotImplementedError(
+            f"{name}: {path} keeps the first design's whole-row attention "
+            f"core (attention.cuh), which does not take x {tuple(x.shape)} "
+            f"with head_dim {hd} (head dims {ATTN_HEAD_DIMS} and the "
+            f"{'backward' if backward else 'forward'} core's shared memory "
+            f"at spq); K1 and K3 with kv_heads == heads run K13's core there; "
+            f"{FIRST_DESIGN_ITEM}")
 
 
 def _split_heads(t, heads):
@@ -1109,7 +1217,8 @@ def _ln_qkvo_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
     b, spq, d = x.shape
     hhd = heads * head_dim
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, qkv_attention_supported, kv_heads)
+                head_dim, qkv_attention_supported, kv_heads,
+                "K7" if _gqa(heads, kv_heads) else None)
     _check_shape(name, "bo", bo, (d,))
     n = b * spq
     xn = torch.empty((n, d), dtype=_BF, device=dev)
@@ -1127,7 +1236,11 @@ def _ln_qkvo_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
 
 
 def _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, gate, kv_heads=None):
+                head_dim, gate, kv_heads=None, first_design=None,
+                backward=False):
+    """The launch checks of a fused attention half: `gate`'s shapes, and
+    where the path runs the first design's core (`first_design` names it)
+    that core's limits, forward or `backward` (`_check_first_design`)."""
     b, spq, d = x.shape
     hhd = heads * head_dim
     width = (heads + 2 * (kv_heads or heads)) * head_dim
@@ -1139,6 +1252,9 @@ def _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
             f"{name}: unsupported shapes x {tuple(x.shape)} wqkv "
             f"{tuple(wqkv.shape)} seq_len {seq_len} heads {heads} kv_heads "
             f"{kv_heads} head_dim {head_dim}")
+    if first_design:
+        _check_first_design(name, first_design, x, wqkv, heads, kv_heads,
+                            backward)
     for key, t, shape in (("gamma", gamma, (d,)), ("beta", beta, (d,)),
                           ("bqkv", bqkv, (width,)), ("wo", wo, (hhd, d))):
         _check_shape(name, key, t, shape)
@@ -1269,7 +1385,8 @@ def _ln_qkvo_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps, seq_len,
         {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
          "wo": _BF, "do": _BF})
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, qkv_attention_bwd_supported, kv_heads)
+                head_dim, qkv_attention_supported, kv_heads,
+                "K7's backward" if _gqa(heads, kv_heads) else None, True)
     _check_shape(name, "do", do, tuple(x.shape))
     b, spq, d = x.shape
     hhd = heads * head_dim
@@ -2059,13 +2176,31 @@ def _ln_mlp_int8_twin(x, gamma, beta, w1, b1, w2, b2, eps, scratch,
                       int4=False, residual=True):
     """(out, a1, h1q, sh) of K4's twin, or with `int4` of K11-A's (out
     without `x +` when not residual)."""
-    rows, cols_host, _ = _quantizers(int4)
+    rows = _quantizers(int4)[0]
     d = x.shape[-1]
-    x2 = x.reshape(-1, d)
+    xhat, _ = _ln_stats(x.reshape(-1, d).float(), eps)
+    xq, sx = rows(_affine(xhat, gamma, beta))
+    return _mlp_int8_from_codes(x, xq, sx, w1, b1, w2, b2, scratch, int4,
+                                residual)
+
+
+def fused_ln_mlp_int8_from_codes_ref(x, xq, sx, w1, b1, w2, b2, *,
+                                     scratch=None, residual=True):
+    """K4's twin after its LN-quant, from given row codes xq [n, D] and
+    scales sx [n] of the LN output. Given a kernel's own codes (its LN and
+    torch's may put a code one step apart) it holds the rest of the kernel
+    bit for bit: the int32 sums are exact and every later step is rounded
+    where the kernel rounds it."""
+    return _mlp_int8_from_codes(x, xq, sx.reshape(-1, 1), w1, b1, w2, b2,
+                                scratch, residual=residual)[0]
+
+
+def _mlp_int8_from_codes(x, xq, sx, w1, b1, w2, b2, scratch, int4=False,
+                         residual=True):
+    rows, cols_host, _ = _quantizers(int4)
+    x2 = x.reshape(-1, x.shape[-1])
     w1q, s1 = cols_host(w1)
     w2q, s2 = cols_host(w2)
-    xhat, _ = _ln_stats(x2.float(), eps)
-    xq, sx = rows(_affine(xhat, gamma, beta))
     a1 = _dequant(int_mm(xq, w1q), sx, s1, b1)
     h1q, sh = rows(gelu_q(a1))
     y = _dequant(int_mm(h1q, w2q), sh, s2, b2)
@@ -2106,7 +2241,9 @@ def fused_ln_mlp_int8(x, gamma, beta, w1, b1, w2, b2, eps, int8_grad=False,
 
 def _ln_mlp_quant_fwd_cuda(name, int4, x, gamma, beta, w1, b1, w2, b2, eps,
                            scratch, residual=True):
-    """K4's forward launch (ln_mlp_int8.cu), or with `int4` K11-A's."""
+    """K4's forward launch (ln_mlp_int8.cu: LN-quant, fc1 and fc2 on
+    gemm_sm90.cuh's s8 path, the row codes between), or with `int4`
+    K11-A's (gemm.cuh's s8 products)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "w1": w1, "b1": b1, "w2": w2,
@@ -3361,8 +3498,10 @@ def fused_ln_qkvo_attention_int8_gqa_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
 
 def _ln_qkvo_int8_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
                        heads, head_dim, kv_heads, scratch, int4=False):
-    """K3's forward launch (K7's int8 tier with kv_heads < heads), or with
-    `int4` K11-C's."""
+    """K3's forward launch (LN-quant, gemm_sm90.cuh's s8 qkv, K13's core
+    with an fp32 out, the row codes, the s8 out-projection), or K7's int8
+    tier's with kv_heads < heads, or with `int4` K11-C's (both the first
+    design: gemm.cuh's s8 products, the whole-row core)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
@@ -3371,8 +3510,11 @@ def _ln_qkvo_int8_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
          "wo": _BF, "bo": _F32})
     b, spq, d = x.shape
     hhd = heads * head_dim
+    gqa = _gqa(heads, kv_heads)
+    first = (("G-F" if gqa else "K11-C") if int4
+             else "K7's int8 tier" if gqa else None)
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, qkv_attention_supported, kv_heads)
+                head_dim, qkv_attention_supported, kv_heads, first)
     _check_shape(name, "bo", bo, (d,))
     n, width = b * spq, wqkv.shape[1]
     w8t, sw = _i8(dev, width, d), _f32(dev, width)
@@ -3486,14 +3628,16 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
          "wo": wo, "do": do},
         {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
          "wo": _BF, "do": _BF})
+    hopper = kv_heads == heads and not int4
+    first = (None if hopper else ("G-B" if _gqa(heads, kv_heads) else "K11-D")
+             if int4 else "K7's int8 backward")
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, qkv_attention_bwd_supported, kv_heads)
+                head_dim, qkv_attention_supported, kv_heads, first, True)
     _check_shape(name, "do", do, tuple(x.shape))
     b, spq, d = x.shape
     hhd = heads * head_dim
     n, width = b * spq, wqkv.shape[1]
     rows = (spq + 15) // 16 * 16
-    hopper = kv_heads == heads and not int4
     pad = _DW_PAD_SM90 if hopper else _DW_PAD
     lib = build.load()
     w8t, sw = _i8(dev, width, d), _f32(dev, width)
@@ -3737,7 +3881,7 @@ def fused_ln_qkvo_attention_int8_ho(x, xq, sx, g1, be1, g2, be2, wqkv, bqkv,
          "g2": _F32, "be2": _F32, "wqkv": _BF, "bqkv": _F32, "wo": _BF,
          "bo": _F32})
     _check_qkvo(name, x, g2, be2, wqkv, bqkv, wo, seq_len, heads, head_dim,
-                qkv_attention_supported)
+                qkv_attention_supported, first_design="K5")
     for key, t, shape in (("xq", xq, (n, d)), ("sx", sx, (n,)),
                           ("g1", g1, (d,)), ("be1", be1, (d,)),
                           ("bo", bo, (d,))):
@@ -3936,29 +4080,25 @@ def fused_block_int8_handoff_ref(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
 # =============================================================================
 
 def qkv_attention_rect_supported(xc, x, wqkv, heads) -> bool:
-    """Gate of the rect half: K1's gate at x's spq (the core's shared memory
-    is that of the spq keys), and xc [B, cpq, D] on the same batch and
-    width."""
+    """Gate of the rect half: K1's gate at x's spq, and xc [B, cpq, D] on
+    the same batch and width. K8 keeps the first design's whole-row core,
+    whose limits its wrappers check and raise on (`_check_rect`)."""
     return (xc.ndim == 3 and qkv_attention_supported(x, wqkv, heads)
             and xc.shape[0] == x.shape[0] and xc.shape[2] == x.shape[2]
             and (xc.dtype == torch.bfloat16 or not xc.is_cuda))
 
 
-def qkv_attention_rect_bwd_supported(xc, x, wqkv, heads) -> bool:
-    """Gate of the rect half in training: the forward's gate and the
-    attention-core backward's shared memory at x's spq."""
-    return (qkv_attention_rect_supported(xc, x, wqkv, heads)
-            and qkv_attention_bwd_supported(x, wqkv, heads))
-
-
 def _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
-                head_dim, gate=qkv_attention_rect_supported):
+                head_dim, backward=False):
+    """K8's launch checks: the rect gate, then its whole-row core's limits
+    at x's spq (`_check_qkvo`'s first design), forward or `backward`."""
     b, cpq, d = xc.shape
-    if cpq % 8 or not gate(xc, x, wqkv, heads):
+    if cpq % 8 or not qkv_attention_rect_supported(xc, x, wqkv, heads):
         raise ValueError(f"{name}: unsupported shapes xc {tuple(xc.shape)} x "
                          f"{tuple(x.shape)} wqkv {tuple(wqkv.shape)}")
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, qkv_attention_supported)
+                head_dim, qkv_attention_supported, first_design="K8",
+                backward=backward)
     if bo is not None:
         _check_shape(name, "bo", bo, (d,))
 
@@ -4321,7 +4461,7 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
         {"xc": _BF, "x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF,
          "bqkv": _F32, "wo": _BF, "do": _BF})
     _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, None, seq_len, heads,
-                head_dim, qkv_attention_rect_bwd_supported)
+                head_dim, backward=True)
     _check_shape(name, "do", do, tuple(xc.shape))
     b, cpq, d = xc.shape
     spq = x.shape[1]
@@ -4561,20 +4701,16 @@ class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
 
 def fused_qkv_attention_supported(x, wqkv, heads) -> bool:
     """K10's gate: x̂ [B, S, D] (S padded to spq by the caller), wqkv [D,
-    3·H·Hd]: K1's shape and shared-memory gate without its dtype test, so
-    that a CUDA fp32 input reaches the wrapper, which raises
-    (`check_k10_dtype`)."""
+    3·H·Hd]: the first design's shape and shared-memory gate
+    (`_core_fits`, its whole-row core) without a dtype test, so that a CUDA
+    fp32 input reaches the wrapper, which raises (`check_k10_dtype`)."""
     return _core_fits(x, wqkv, heads)
 
 
 def fused_qkv_attention_bwd_supported(x, wqkv, heads) -> bool:
     """K10's gate in training: the forward's and the core backward's shared
     memory."""
-    if not fused_qkv_attention_supported(x, wqkv, heads):
-        return False
-    spq = (x.shape[1] + 7) // 8 * 8
-    return attention_bwd_smem_bytes(spq, wqkv.shape[1] // (3 * heads)) \
-        <= SMEM_LIMIT
+    return _core_fits(x, wqkv, heads, backward=True)
 
 
 def check_k10_dtype(name: str, dtype: torch.dtype) -> None:
@@ -4734,15 +4870,16 @@ class FusedQkvAttentionFn(torch.autograd.Function):
 
 def fused_qkvo_attention_supported(x, wqkv, heads) -> bool:
     """K9's gate: x̂ [B, S, D] (S padded to spq by the caller), wqkv [D,
-    3·H·Hd]: K10's (K1's shapes and shared memory; the out-projection's GEMM
-    takes what K1's does) without a dtype test, so that a CUDA fp32 input
-    reaches the wrapper, which raises (`check_k9_dtype`)."""
+    3·H·Hd]: K10's (the whole-row core's shapes and shared memory; the
+    out-projection's GEMM takes what K10's does) without a dtype test, so
+    that a CUDA fp32 input reaches the wrapper, which raises
+    (`check_k9_dtype`)."""
     return _core_fits(x, wqkv, heads)
 
 
 def fused_qkvo_attention_bwd_supported(x, wqkv, heads) -> bool:
     """K9's gate in training: the forward's and the core backward's shared
-    memory (K10's and K1's)."""
+    memory (K10's)."""
     return fused_qkv_attention_bwd_supported(x, wqkv, heads)
 
 

@@ -12,11 +12,12 @@ file need not belong to), it prints under `tag`:
   forward and backward at ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
   give the same line where those kernels kept their bits;
 - `int8_checksums`: the same of the int8 and int4 tiers: K3's and K4's
-  forwards and the two halves of K5 (the LN-quant prologue's codes, scales
-  and xn reach every output), K3's and K4's backwards with and without
-  int8_dw (K4's also without its residual) with the codes they wrote, and
-  the branches kept on the first design: K7's int8 backwards (4 kv heads),
-  K11-B and K11-D with and without int8_dw, and G-B;
+  forwards (K4's also without its residual) and the two halves of K5 (the
+  LN-quant prologue's codes, scales and xn reach every output), K3's and
+  K4's backwards with and without int8_dw (K4's also without its residual)
+  with the codes they wrote, and the branches kept on the first design:
+  K7's int8 forward and backwards (4 kv heads), K11-A, K11-C, K11-B and
+  K11-D with and without int8_dw, G-F and G-B;
 - `ln_checksums`: the same of the LN kernel pair alone (the standalone
   entry points, register path and loop form, bf16 and fp32): the forward,
   the backward's dx, and its dγ/dβ apart (their order of sums may change
@@ -34,18 +35,27 @@ file need not belong to), it prints under `tag`:
   ViT-B/16's b64 and b32 spq 200 and b8 spq 584, and of K2's and K12's
   forwards, each with and without the residual, at b64 and b32 spq 200;
   of K3's and K4's int8 backwards, with and without int8_dw, at b32 spq
-  200 and the drop phase's spq 104;
+  200 and the drop phase's spq 104; of K3's and K4's int8 forwards at b64
+  and b32 spq 200;
+- `k4_outputs`: K4's int8 forward at b32 spq 200 (out, out without the
+  residual, the h1q codes and their row scales) and b64 (out, row scales),
+  and at b32 the first-design forwards on gemm.cuh's s8 epilogue (K12-int8's
+  out, K11-A's, K7's int8 forward with 4 kv heads),
+  saved under `build/turns_k4/<tag>.pt` from the working directory, and
+  the count of values that differ from each other tag's file there (a
+  tag's earlier file first: two runs of one checkout compare too);
 - `int8_bwd_device`: where K3's and K4's int8 backwards, with and without
   int8_dw, spend their device time at ViT-B/16's b32 spq 200: each
   call's device time and its kernels by name, with their launches a call
-  (torch.profiler's kernel records over 5 calls);
+  (torch.profiler's kernel records over 5 calls); `int8_fwd_device` the
+  same of K3's and K4's int8 forwards at b32 and b64 spq 200;
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
   momentum) at b32 in bf16, `--int8`, `--int8-grad`, `--int8-dw` and
   `--save-acts`, with the bf16 step's peak device memory; the fast
   recipe's (scripts/FT_CIFAR100_fast.sh) `--int8-dw` steps at its dense
-  tail's b192 and its drop phase's b768 keep 0.5; the bf16 serving forward at b64
-  @224 and @384 (K1 at spq 584); `--no-fused-qkv` (K13) forward b64 @384
+  tail's b192 and its drop phase's b768 keep 0.5; the bf16 serving forward
+  at b64 @224 and @384 (K1 at spq 584), and `--int8`'s at b64 @224; `--no-fused-qkv` (K13) forward b64 @384
   and step b32; Res-ViT's `scripts/ft_resvit.sh` (a) step at b32 (teacher
   and student forward, backward, AdamW); ViT-H/14 @224 step at b32 with
   its peak device memory, and the ViT-H/14 and ViT-L/16 serving forwards at
@@ -55,8 +65,8 @@ Run it for two checkouts in the order A, B, B, A in one call on the card
 (each run builds its checkout's kernels into that checkout's `build/`).
 Names after the tag run only those sections (`checksums`, `int8_checksums`,
 `ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
-`kernel_times`, `int8_bwd_device`), e.g. `turns.py A int8_checksums
-kernel_times`.
+`kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`), e.g.
+`turns.py A int8_checksums kernel_times`.
 """
 
 from __future__ import annotations
@@ -178,6 +188,11 @@ def int8_checksums() -> dict:
         out["K3 fwd"] = _digest((ck.fused_ln_qkvo_attention_int8(
             *head, bo, *tail),))
         out["K4 fwd"] = _digest((ck.fused_ln_mlp_int8(*ln, *mlp, 1e-5),))
+        out["K4 partial fwd"] = _digest((ck.fused_ln_mlp_int8_partial(
+            *ln, *mlp, 1e-5),))
+        out["K11-A fwd"] = _digest((ck.fused_ln_mlp_int4(*ln, *mlp, 1e-5),))
+        out["K11-C fwd"] = _digest((ck.fused_ln_qkvo_attention_int4(
+            *head, bo, *tail),))
         r1, *pack1 = ck.fused_ln_qkvo_attention_int8_ho(
             head[0], None, None, *ln[1:], *ln[1:], *head[3:], bo, 1e-5, 197,
             heads, hd)
@@ -203,7 +218,11 @@ def int8_checksums() -> dict:
                  (*head, do, *tail))):
             sk = {}
             out[name] = scratch_digest(fn(*args, scratch=sk), sk)
-        gqa, _, do_g, _ = _int8_inputs(197, 2, 200, kv=4)
+        gqa, bo_g, do_g, _ = _int8_inputs(197, 2, 200, kv=4)
+        out["K7 int8 fwd"] = _digest((ck.fused_ln_qkvo_attention_int8_gqa(
+            *gqa, bo_g, *tail, 4),))
+        out["G-F fwd"] = _digest((ck.fused_ln_qkvo_attention_int4_gqa(
+            *gqa, bo_g, *tail, 4),))
         for name, fn in (
                 ("K7 int8 bwd", ck.fused_ln_qkvo_attention_int8_gqa_bwd),
                 ("K7 int8 dw bwd", ck.fused_ln_qkvo_attention_int8_gqa_dw_bwd),
@@ -376,6 +395,11 @@ def kernel_times() -> dict:
                 out[f"{name} b{b} spq{spq}"] = _median_ms(fn, 3, 25)
         del head, do, mlp
         torch.cuda.empty_cache()
+    for b in (64, 32):
+        with torch.no_grad():
+            for name, fn in _int8_fwd_calls(b).items():
+                out[f"{name} b{b} spq200"] = _median_ms(fn, 3, 25)
+        torch.cuda.empty_cache()
     d, heads, hd = H14_WIDTHS
     hhd = heads * hd
     for b, spq, seq in ((32, 736, 730), (32, 264, 257)):
@@ -394,22 +418,61 @@ def kernel_times() -> dict:
     return out
 
 
-def int8_bwd_device() -> dict:
-    """{backward: (device ms a call, [(kernel, ms a call, launches a
-    call)], largest first)} of K3's and K4's int8 backwards, with and
-    without int8_dw, at ViT-B/16's b32 spq 200."""
+def k4_outputs(tag) -> dict:
+    """{"<tag> vs <other tag> <output>": (values that differ, of)} of K4's
+    int8 forward against every file `k4_outputs` saved before, then this
+    run's outputs saved as build/turns_k4/<tag>.pt."""
+    from pathlib import Path
+    from vitax_torch.ops import cuda_kernels as ck
+    out = {}
+    with torch.no_grad():
+        for b in (32, 64):
+            head, _, _, mlp = _int8_inputs(199, b, 200)
+            args, sk = (*head[:3], *mlp, 1e-5), {}
+            out[f"b{b} out"] = ck.fused_ln_mlp_int8(*args, scratch=sk).cpu()
+            out[f"b{b} sh"] = sk["h1q"][1].cpu()
+            if b == 32:
+                out["b32 h1q"] = sk["h1q"][0].cpu()
+                out["b32 out without the residual"] = \
+                    ck.fused_ln_mlp_int8_partial(*args).cpu()
+                out["b32 K12-int8 out"] = ck.fused_ln_mlp_int8_save(
+                    *args)[0].cpu()
+                out["b32 K11-A out"] = ck.fused_ln_mlp_int4(*args).cpu()
+            del head, mlp, sk
+        _, heads, hd, _ = B16_WIDTHS
+        gqa, bo, _, _ = _int8_inputs(199, 32, 200, kv=4)
+        out["b32 K7 int8 fwd"] = ck.fused_ln_qkvo_attention_int8_gqa(
+            *gqa, bo, 1e-5, 197, heads, hd, 4).cpu()
+        del gqa
+    folder = Path("build/turns_k4")
+    folder.mkdir(parents=True, exist_ok=True)
+    diffs = {}
+    for other in sorted(folder.glob("*.pt")):
+        saved = torch.load(other)
+        for key, t in out.items():
+            if key not in saved:
+                continue
+            diffs[f"{tag} vs {other.stem} {key}"] = (
+                int((saved[key] != t).sum()), t.numel())
+    torch.save(out, folder / f"{tag}.pt")
+    return diffs
+
+
+def _int8_fwd_calls(b) -> dict:
+    """K3's and K4's int8 forwards at ViT-B/16's b`b` spq 200, seq 197."""
     from vitax_torch.ops import cuda_kernels as ck
     _, heads, hd, _ = B16_WIDTHS
-    head, _, do, mlp = _int8_inputs(198, 32, 200)
-    tail = (1e-5, 197, heads, hd)
-    mlp_bwd = (*head[:3], mlp[0], mlp[1], mlp[2], do, 1e-5)
-    calls = {
-        "K3 int8 bwd": lambda: ck.fused_ln_qkvo_attention_int8_bwd(
-            *head, do, *tail),
-        "K3 int8_dw bwd": lambda: ck.fused_ln_qkvo_attention_int8_dw_bwd(
-            *head, do, *tail),
-        "K4 int8 bwd": lambda: ck.fused_ln_mlp_int8_bwd(*mlp_bwd),
-        "K4 int8_dw bwd": lambda: ck.fused_ln_mlp_int8_dw_bwd(*mlp_bwd)}
+    head, bo, _, mlp = _int8_inputs(199, b, 200)
+    return {"K3 int8 fwd": lambda: ck.fused_ln_qkvo_attention_int8(
+                *head, bo, 1e-5, 197, heads, hd),
+            "K4 int8 fwd": lambda: ck.fused_ln_mlp_int8(*head[:3], *mlp,
+                                                        1e-5)}
+
+
+def _by_kernel(calls, label) -> dict:
+    """{name label: (device ms a call, [(kernel, ms a call, launches a
+    call)], largest first)} of each closure in `calls`, from
+    torch.profiler's kernel records over 5 calls."""
     reps, out = 5, {}
     with torch.no_grad():
         for name, fn in calls.items():
@@ -420,7 +483,35 @@ def int8_bwd_device() -> dict:
                                n + 1)
             rows = sorted(((k, ms, n / reps) for k, (ms, n) in per.items()),
                           key=lambda r: -r[1])
-            out[f"{name} b32 spq200"] = (sum(r[1] for r in rows), rows)
+            out[f"{name} {label}"] = (sum(r[1] for r in rows), rows)
+    return out
+
+
+def int8_bwd_device() -> dict:
+    """`_by_kernel` of K3's and K4's int8 backwards, with and without
+    int8_dw, at ViT-B/16's b32 spq 200."""
+    from vitax_torch.ops import cuda_kernels as ck
+    _, heads, hd, _ = B16_WIDTHS
+    head, _, do, mlp = _int8_inputs(198, 32, 200)
+    tail = (1e-5, 197, heads, hd)
+    mlp_bwd = (*head[:3], mlp[0], mlp[1], mlp[2], do, 1e-5)
+    return _by_kernel({
+        "K3 int8 bwd": lambda: ck.fused_ln_qkvo_attention_int8_bwd(
+            *head, do, *tail),
+        "K3 int8_dw bwd": lambda: ck.fused_ln_qkvo_attention_int8_dw_bwd(
+            *head, do, *tail),
+        "K4 int8 bwd": lambda: ck.fused_ln_mlp_int8_bwd(*mlp_bwd),
+        "K4 int8_dw bwd": lambda: ck.fused_ln_mlp_int8_dw_bwd(*mlp_bwd)},
+        "b32 spq200")
+
+
+def int8_fwd_device() -> dict:
+    """`_by_kernel` of K3's and K4's int8 forwards at ViT-B/16's b32 and
+    b64 spq 200."""
+    out = {}
+    for b in (32, 64):
+        out.update(_by_kernel(_int8_fwd_calls(b), f"b{b} spq200"))
+        torch.cuda.empty_cache()
     return out
 
 
@@ -600,6 +691,8 @@ def timings() -> dict:
         "b16", 224, 32, **fused, fused_mlp_save=True)[0]
     out["B/16 forward b64 bf16"] = _vit_forward_ms(224, 64, **fused)
     out["B/16 forward b64 bf16 @384"] = _vit_forward_ms(384, 64, **fused)
+    out["B/16 forward b64 --int8"] = _vit_forward_ms(224, 64, **fused,
+                                                     **int8)
     out["B/16 --no-fused-qkv forward b64 @384"] = _vit_forward_ms(
         384, 64, fused_qkv=False, fused_mlp=True)
     out["B/16 --no-fused-qkv step b32"] = _vit_step_ms(
@@ -642,8 +735,12 @@ def main(argv) -> int:
                 print(f"{tag}: device {name} {ms:.4f} ms" + (
                     "" if bound is None else
                     f" (bound {bound:.4f}, x{ms / bound:.2f})"), flush=True)
-        elif section == "int8_bwd_device":
-            for name, (ms, rows) in int8_bwd_device().items():
+        elif section == "k4_outputs":
+            for name, (n, of) in k4_outputs(tag).items():
+                print(f"{tag}: {name}: {n} of {of} values differ",
+                      flush=True)
+        elif section in ("int8_bwd_device", "int8_fwd_device"):
+            for name, (ms, rows) in globals()[section]().items():
                 print(f"{tag}: device {name} {ms:.4f} ms: " + "; ".join(
                     f"{k[:70]} {t:.4f} x{n:g}" for k, t, n in rows),
                     flush=True)
@@ -658,8 +755,8 @@ def main(argv) -> int:
 
 
 SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
-            "ln_device_times", "timings", "kernel_times",
-            "int8_bwd_device")
+            "ln_device_times", "timings", "kernel_times", "k4_outputs",
+            "int8_bwd_device", "int8_fwd_device")
 
 
 if __name__ == "__main__":
