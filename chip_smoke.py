@@ -66,7 +66,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              flags on 1536 images (9 drop epochs of 2 b768 steps, a dense
              one of 8 b192 steps; its b768 eval batches, 153600 rows, take
              K5 too), exact counts per epoch (and of the s8 products, the
-             group folds of int8_dw included, in the b32 run); logits and
+             group folds of int8_dw and K5's products included, no
+             first-design piece, in the b32 run); logits and
              full-width grads of the
              handoff + int8_dw path against its twin path; device-timed steps
              at b768 keep 0.5 and b192 dense, int8_dw and int8_grad in turns;
@@ -308,10 +309,13 @@ int8_dw backwards and K5's two halves) against their twins: forward at b64
 spq 200, b8 spq 200, b8 spq 584, the ragged rows and the drop phase's b32
 spq 104; backward at b32 spq 200, b8 spq 200, spq 104 (b16 and b32), b8 spq
 584 and the ragged rows (int8_dw at b32 spq 200, b32 spq 104 and the ragged
-rows); K5 at b32 spq 104 and b8 spq 200, the attention half packing its own
-input (the first block) and taking a pack, its output held by the half's
-own contribution (out − in). Besides the bf16 tolerance, each int8 kernel's codes, read
-back from its scratch, are held to the twin's (the weights' the same bits,
+rows); K5 at b32 spq 104, b8 spq 200, a ragged batch (b3 spq 104) and
+b16@416's spq 680, the attention half packing its own input (the first
+block) and taking a pack, its output held by the half's own contribution
+(out − in), its qkv the twin's bits from its own codes, and the MLP half's
+r2 and h1q the twin's bits from the same packed input. Besides the bf16
+tolerance, each int8 kernel's codes, read back from its scratch, are held
+to the twin's (the weights' the same bits,
 each activation code tensor within its CODE_BAND of moved codes), and each
 output's relative distance to the twin to INT8_REL; a bf16 stand-in (the
 twin with every quantizer replaced by a rounding to bf16, as a kernel that
@@ -324,12 +328,14 @@ forward, with and without the residual, must give the twin's bits from the
 kernel's own LN codes at every case: the weights' codes, h1q and its row
 scales, and out (`fused_ln_mlp_int8_from_codes_ref`).
 
-K3's forward and backward (kv_heads == heads) and K4's run their int8
-products on gemm_sm90.cuh's s8 wgmma path and K3's core on K13's (its
-forward with an fp32 out, its grads on K13's passes). Phase 3 launches each
+K3's forward and backward (kv_heads == heads), K4's and K5's two halves
+run their int8 products on gemm_sm90.cuh's s8 wgmma path and K3's and K5's
+cores on K13's (the forwards with an fp32 out, K3's grads on K13's
+passes). Phase 3 launches each
 of those s8 products alone (`ck.gemm_sm90_s8`, the rows
 `gemm_sm90_s8:<kind>` of the kernel table: s8_bf16, s8_f32, s8_gelu_pair,
-s8_group, s8_gelu_q_f32, s8_residual) at the b32 spq 200 shapes and on
+s8_group, s8_gelu_q_f32, s8_residual, s8_residual_f32) at the b32 spq 200
+shapes (s8_residual_f32: K5's fc2 at the drop phase's b32 spq 104) and on
 ragged M, N and K (groups whose rows do not fill the 128-code K tile)
 against exact int32 products dequantized by its twin: the twin's bits on
 every output, two launches the same bits; timed beside the twin. The library counts
@@ -337,7 +343,7 @@ their launches by kind where `launch_s8` launches one
 (`ck.s8_launch_counts`), and the launches of the first design's gemm.cuh
 s8 products and whole-row core (`ck.first_design_launch_counts`); phases
 6, 7, 8 and 17 hold the s8 counts of their runs exact (`_s8_expect`), 6
-and 7 the first-design ones too (none but K5's).
+and 7 the first-design ones too (none).
 
 The line before the last is the JSON kernel table (each kernel's time at
 the main path's shape beside its bound: the larger of its bytes over 3.35
@@ -563,17 +569,19 @@ TRAIN_RESVIT_KERNELS = RECT_BWD_KERNELS + ("fused_ln_qkvo_attention_gqa_bwd",)
 DW_KERNELS = ("fused_ln_qkvo_attention_int8_dw_bwd",
               "fused_ln_mlp_int8_dw_bwd")
 # gemm_sm90.cuh's s8 products inside K3's (kv_heads == heads) and K4's
-# int8 forwards and backwards, counted by kind where the library launches
-# them (`ck.s8_launch_counts`): their source and the TPU kernels whose
-# bodies hold the product (s8_bf16, s8_f32 and s8_group run in several)
+# int8 forwards and backwards and K5's halves, counted by kind where the
+# library launches them (`ck.s8_launch_counts`): their source and the TPU
+# kernels whose bodies hold the product (s8_bf16, s8_f32, s8_group,
+# s8_gelu_q_f32 and s8_residual_f32 run in several)
 S8_INFO = {f"gemm_sm90_s8:{kind}": ("vitax_torch/csrc/gemm_sm90.cuh",
                                     f"vitax/ops/pallas_kernels.py:{lines}")
-           for kind, lines in (("s8_bf16", "3163, :3252 and :1758"),
+           for kind, lines in (("s8_bf16", "3163, :3252, :1758 and :3784"),
                                ("s8_f32", "3252 and :1820"),
                                ("s8_gelu_pair", "1820"),
                                ("s8_group", "3252 and :1820"),
-                               ("s8_gelu_q_f32", "1758"),
-                               ("s8_residual", "1758"))}
+                               ("s8_gelu_q_f32", "1758 and :3817"),
+                               ("s8_residual", "1758"),
+                               ("s8_residual_f32", "3784 and :3817"))}
 HO_KERNELS = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
 BWD_KERNELS = ("layer_norm_bwd", "fused_ln_qkvo_attention_bwd",
                "fused_ln_mlp_bwd", "fused_ln_qkvo_attention_int8_bwd",
@@ -680,8 +688,9 @@ INT8_REL = 5e-3
 # and xq (<= 1.8e-4 measured, one step), atc (K3's bf16 attn recompute ·
 # sdo) like aq (3.6e-4). K5's packed outputs quantize LN of the bf16 r1/r2
 # the kernel computed: xq2 moves where an aq code moved r1 by one bf16 ulp
-# (4.6e-4), xqn, given the twin's r1, not at all (card tests, b32 spq 104 and
-# b8 spq 200).
+# (1.8e-3 at most with the first block's pack, K13's core), xqn, given the
+# twin's r1, only where LN's sums in another order cross a .5 tie (<= 9.6e-7;
+# phase 3 at b32 spq 104, b8 spq 200, ragged b3 and spq 680).
 CODE_BAND = {"xq": (1, 1e-3), "h1q": (2, 1e-3), "dh1q": (2, 1e-3),
              "aq": (2, 5e-3), "dqq": (2, 5e-3), "doq": (0, 0.0),
              "h1c": (2, 1e-3), "xnc": (2, 1e-3), "atc": (2, 5e-3),
@@ -704,8 +713,10 @@ def _s8_expect(counts):
     K4's one s8_gelu_q_f32 (fc1) and one s8_residual (fc2), its
     residual=False branch s8_bf16 in place of the latter; K3's backward two
     s8_bf16 and one s8_f32, K4's (either branch) one s8_gelu_pair and one
-    s8_f32, and under int8_dw two s8_group more in each. No other wrapper
-    launches one."""
+    s8_f32, and under int8_dw two s8_group more in each; K5's attention half
+    one s8_bf16 (qkv) and one s8_residual_f32, its MLP half one
+    s8_gelu_q_f32 and one s8_residual_f32. No other wrapper launches
+    one."""
     def c(*names):
         return sum(counts.get(n, 0) for n in names)
     k3f = c("fused_ln_qkvo_attention_int8")
@@ -716,33 +727,27 @@ def _s8_expect(counts):
             "fused_ln_mlp_int8_partial_bwd", "fused_ln_mlp_int8_partial_dw_bwd")
     dw = c("fused_ln_qkvo_attention_int8_dw_bwd", "fused_ln_mlp_int8_dw_bwd",
            "fused_ln_mlp_int8_partial_dw_bwd")
-    return {"gemm_sm90_s8:s8_bf16": 2 * k3f + 2 * k3b + k4p,
+    k5a, k5m = (c("fused_ln_qkvo_attention_int8_ho"),
+                c("fused_ln_mlp_int8_ho"))
+    return {"gemm_sm90_s8:s8_bf16": 2 * k3f + 2 * k3b + k4p + k5a,
             "gemm_sm90_s8:s8_f32": k3b + k4b,
             "gemm_sm90_s8:s8_gelu_pair": k4b,
             "gemm_sm90_s8:s8_group": 2 * dw,
-            "gemm_sm90_s8:s8_gelu_q_f32": k4f + k4p,
-            "gemm_sm90_s8:s8_residual": k4f}
-
-
-def _first_design_expect(counts):
-    """The first-design pieces (`ck.first_design_launch_counts`) that a
-    ViT run of LN, K1, K2, K3, K4 (forwards and backwards), K5 and K13
-    launches: K5's halves alone, each two of gemm.cuh's s8 products, the
-    attention half one whole-row core."""
-    ho = counts.get("fused_ln_qkvo_attention_int8_ho", 0)
-    return {"gemm.cuh:s8": 2 * ho + 2 * counts.get("fused_ln_mlp_int8_ho", 0),
-            "attention.cuh:core": ho}
+            "gemm_sm90_s8:s8_gelu_q_f32": k4f + k4p + k5m,
+            "gemm_sm90_s8:s8_residual": k4f,
+            "gemm_sm90_s8:s8_residual_f32": k5a + k5m}
 
 
 def _check_s8(label, counts, first_design=False):
-    """The s8 products (and with `first_design` the first-design pieces)
-    that the library counted in a run, against what its wrappers' launches
-    imply; returns them."""
+    """The s8 products that the library counted in a run, against what its
+    wrappers' launches imply, and with `first_design` the first-design
+    pieces (`ck.first_design_launch_counts`), of which a ViT run of LN, K1,
+    K2, K3, K4 (forwards and backwards), K5 and K13 launches none; returns
+    the s8 counts."""
     from vitax_torch.ops import cuda_kernels as ck
     s8 = ck.s8_launch_counts()
     fd = ck.first_design_launch_counts() if first_design else {}
-    expect = {**_s8_expect(counts),
-              **(_first_design_expect(counts) if first_design else {})}
+    expect = {**_s8_expect(counts), **dict.fromkeys(fd, 0)}
     print(f"  {label}: s8 products {_nonzero(s8)}"
           + (f", first-design pieces {fd}" if first_design else ""),
           flush=True)
@@ -1001,9 +1006,9 @@ def _s8_work(kind, m, n, k, extra):
         return m * k + n * k + 4 * (k // extra) * m + 4 * m * n, \
             {"s8": 2 * m * n * k}
     pairs = 2 if kind == "s8_gelu_pair" else 1
-    # bytes an output element: s8_residual reads its bf16 residual too
+    # bytes an output element: the residual kinds read their bf16 residual too
     out = {"s8_bf16": 2, "s8_f32": 4, "s8_gelu_pair": 8, "s8_gelu_q_f32": 4,
-           "s8_residual": 4}[kind] * m * n
+           "s8_residual": 4, "s8_residual_f32": 4}[kind] * m * n
     return (pairs * ((m + n) * k + 4 * (m + n)) + 4 * n * bool(extra) + out,
             {"s8": pairs * 2 * m * n * k})
 
@@ -1194,8 +1199,11 @@ def _check_k4_bits(ck, label, args):
                                  f"{residual}: not the twin's bits {same}")
 
 
-# K5 at the drop phase's b32 spq 104 (timed) and at b8 spq 200
-HO_CASES = [(DROP_CASE, 32, 104, 99), ("b8 spq200", 8, 200, 197)]
+# K5 at the drop phase's b32 spq 104 (timed), at b8 spq 200, on a ragged
+# batch and at b16@416's spq 680 (seq 677, past the whole-row core)
+HO_CASES = [(DROP_CASE, 32, 104, 99), ("b8 spq200", 8, 200, 197),
+            ("ragged b3 spq104", 3, 104, 99),
+            ("b2 spq680 (b16@416)", 2, 680, 677)]
 
 
 def _check_ho(ck, name, label, args, base, stats):
@@ -1203,15 +1211,26 @@ def _check_ho(ck, name, label, args, base, stats):
     bf16 tolerance; the half's own contribution, out − in (the residual
     dominates the stream), within INT8_REL of the twin's, the bf16 stand-in
     outside it; every code it wrote, the packed output too, within its
-    CODE_BAND (weights the same bits)."""
+    CODE_BAND (weights the same bits). The attention half's qkv must be the
+    twin's bits from the kernel's own codes (`s8_bf16`'s dequant of xq·W8),
+    the MLP half's r2 and h1q the twin's bits from the same packed input."""
     import torch
     sk, st = {}, {}
     with torch.no_grad():
-        out = getattr(ck, name)(*args, scratch=sk)[0].float()
+        out_bf = getattr(ck, name)(*args, scratch=sk)[0]
         torch.cuda.synchronize()
-        ref = getattr(ck, name + "_ref")(*args, scratch=st)[0].float()
+        ref_bf = getattr(ck, name + "_ref")(*args, scratch=st)[0]
         with _bf16_stand_in(ck):
             stand = getattr(ck, name + "_ref")(*args)[0].float()
+        if "qkv" in sk:  # the attention half
+            (xq, sx), (w8, sw) = sk["xq"], sk["w8"]
+            qkv_t = ck._dequant(ck.int_mm(xq, w8), sx.reshape(-1, 1), sw,
+                                args[8]).to(torch.bfloat16)
+            bits = {"qkv": torch.equal(sk["qkv"], qkv_t)}
+        else:
+            bits = {"r2": torch.equal(out_bf, ref_bf),
+                    "h1q": all(map(torch.equal, sk["h1q"], st["h1q"]))}
+    out, ref = out_bf.float(), ref_bf.float()
     base = base.float().reshape(ref.shape)
     err = (out - ref).abs().max().item()
     bound = TOL * max(1.0, ref.abs().max().item())
@@ -1220,8 +1239,8 @@ def _check_ho(ck, name, label, args, base, stats):
     print(f"  {name:32s} {label:22s} max|k-ref| {err:.3e} <= {bound:.3e}; "
           f"‖Δk−Δt‖/‖Δt‖ {r_k:.2e} <= {INT8_REL}, bf16 stand-in {r_s:.2e}; "
           "codes moved (max step, share) "
-          + " ".join(f"{k} {m[0]} {m[1]:.2e}" for k, m in moves.items()),
-          flush=True)
+          + " ".join(f"{k} {m[0]} {m[1]:.2e}" for k, m in moves.items())
+          + f"; the twin's bits {bits}", flush=True)
     st_ = stats[name]
     st_["max_abs_err"] = max(st_["max_abs_err"], err)
     st_["worst_rel"] = max(st_.get("worst_rel", 0.0), r_k)
@@ -1236,13 +1255,17 @@ def _check_ho(ck, name, label, args, base, stats):
     if r_k > INT8_REL or r_s <= INT8_REL:
         raise AssertionError(f"{name} {label}: {r_k} from the twin, the "
                              f"stand-in {r_s}")
+    if not all(bits.values()):
+        raise AssertionError(f"{name} {label}: not the twin's bits {bits}")
 
 
 def check_handoff_kernels(stats):
     """Phase 3, K5: the attention half packing its own input (the first
     block) and from the twin's pack, and the MLP half on the twin's
-    attention outputs, each against its twin (`_check_ho`); times at the
-    drop phase's b32 spq 104, the first block's pack included."""
+    attention outputs, each against its twin (`_check_ho`), on
+    gemm_sm90.cuh's s8 path and K13's core only (the library's counts);
+    times at the drop phase's b32 spq 104 (a later block's attention
+    half)."""
     import torch
     from vitax_torch.ops import cuda_kernels as ck
     for name in HO_KERNELS:
@@ -1263,11 +1286,16 @@ def check_handoff_kernels(stats):
             r1, xq2, sx2 = ck.fused_ln_qkvo_attention_int8_ho_ref(*later)
         # the next block's LN1: this one's, as good as any
         mlp = (r1, xq2, sx2, *ln1, t["w1"], t["b1"], t["w2"], t["b2"], EPS)
+        ck.s8_launch_counts(reset=True)
+        ck.first_design_launch_counts(reset=True)
         for name, args, base in (
                 ("fused_ln_qkvo_attention_int8_ho", first, t["x"]),
                 ("fused_ln_qkvo_attention_int8_ho", later, t["x"]),
                 ("fused_ln_mlp_int8_ho", mlp, r1)):
             _check_ho(ck, name, label, args, base, stats)
+        _check_s8(f"K5 {label}", {"fused_ln_qkvo_attention_int8_ho": 2,
+                                  "fused_ln_mlp_int8_ho": 1},
+                  first_design=True)
         if label != DROP_CASE:
             continue
         # timed: a later block's attention half (11 of 12 blocks), whose
@@ -2400,8 +2428,8 @@ def run_fast_recipe(exp_root):
                                    for k in counts}:
         raise AssertionError(f"expected launches per epoch {expect}")
     # each int8_dw backward folds its two weight grads on gemm_sm90.cuh; the
-    # dense epochs' K3 and K4 forwards run their products there too; K5's
-    # halves alone launch first-design pieces
+    # dense epochs' K3 and K4 forwards and the drop epochs' K5 halves run
+    # their products there too; no first-design piece launches
     counts.update(_check_s8("fast: train_cli", counts, first_design=True))
 
     # the recipe's own flags: K5 in every drop-phase step, int8_dw in every
@@ -6543,8 +6571,9 @@ def main() -> int:
           + f"; phase 17 took {time.time() - t17:.1f} s [{card}]", flush=True)
 
     # launches: the bf16 kernels' from the bf16 train slice, K3's and K4's
-    # from the --int8-grad train slice, K5's and the int8_dw backwards' from
-    # the fast recipe's (each runs every kernel of its tier), K7's and K8's
+    # from the --int8-grad train slice, K5's, the int8_dw backwards' and
+    # their s8 products' (s8_group, s8_residual_f32) from the fast recipe's
+    # (each runs every kernel of its tier), K7's and K8's
     # from the Res-ViT serving runs that take them; the eval slices' forward
     # counts are printed in phases 4, 6, 7 and 8. Times at the main path's
     # shapes: forward b64 spq 200 (serving), backward b32 spq 200, K5 b32
@@ -6647,7 +6676,8 @@ def main() -> int:
             return counts_rv[resvit_runs[name]][name]
         if name in TRAIN_RESVIT_KERNELS:
             return counts_rt[RESVIT_TRAIN_RUNS[train_runs[name]][0]][name]
-        if name in HO_KERNELS + DW_KERNELS or name.endswith("s8_group"):
+        if name in HO_KERNELS + DW_KERNELS or name.endswith(
+                ("s8_group", "s8_residual_f32")):
             return counts_fast[name]
         return (counts_i8 if name in INT8_KERNELS + tuple(S8_INFO)
                 else counts)[name]

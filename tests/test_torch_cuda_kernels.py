@@ -667,13 +667,22 @@ def _ho_args(dev, batch, spq, seq):
     return attn, mlp[3:7]
 
 
-@pytest.mark.parametrize("shape", [(32, 104, 99), (8, 200, 197)])
+# (batch, spq, seq_len): the drop phase's b32 spq 104, b8 spq 200, a ragged
+# batch, and b16@416's spq 680 (seq 677, past the whole-row core)
+HO_SHAPES = [(32, 104, 99), (8, 200, 197), (3, 104, 99), (2, 680, 677)]
+
+
+@pytest.mark.parametrize("shape", HO_SHAPES)
 @pytest.mark.parametrize("pack", [True, False])
 def test_handoff_kernels_match_plain_twins(dev, shape, pack):
-    """K5's two kernels: the attention half packing its own input (the first
-    block) or taking the twin's pack, then the MLP half on the attention
-    half's outputs; r1/r2 within the tolerance, the packed codes within
-    their band, every scratch code as K3's/K4's."""
+    """K5's two kernels on their Hopper design (gemm_sm90.cuh's s8 path and
+    K13's core, no gemm.cuh product and no whole-row core): the attention
+    half packing its own input (the first block) or taking the twin's pack,
+    then the MLP half on the twin's attention outputs; r1 within the
+    tolerance and INT8_REL of the twin, qkv the twin's bits from the
+    kernel's own codes; the MLP half's r2 and h1q the twin's bits from the
+    same packed input; the packed codes within their band, every scratch
+    code as K3's/K4's."""
     attn, (w1, b1, w2, b2) = _ho_args(dev, *shape)
     if not pack:
         xq, sx = ck.pack_rows(attn[0], attn[3], attn[4], EPS)
@@ -685,8 +694,18 @@ def test_handoff_kernels_match_plain_twins(dev, shape, pack):
         torch.cuda.synchronize()
         r1_t, xq2_t, sx2_t = ck.fused_ln_qkvo_attention_int8_ho_ref(
             *attn, scratch=st)
+        xq, sx = sk["xq"]
+        w8, sw = sk["w8"]
+        qkv_t = ck._dequant(ck.int_mm(xq, w8), sx.reshape(-1, 1), sw,
+                            attn[8]).to(torch.bfloat16)
     _assert_close(r1, r1_t)
-    _codes_within_band("fused_ln_qkvo_attention_int8_ho", sk, st)
+    x = attn[0].double()
+    rel = ((r1.double() - r1_t.double()).norm()
+           / (r1_t.double() - x).norm()).item()
+    assert rel <= INT8_REL, rel
+    assert torch.equal(sk["qkv"], qkv_t)
+    _codes_within_band("fused_ln_qkvo_attention_int8_ho",
+                       {k: v for k, v in sk.items() if k != "qkv"}, st)
     # the MLP half on the same input: the twin's packed r1
     mlp = (r1_t, xq2_t, sx2_t, attn[5], attn[6], w1, b1, w2, b2, EPS)
     sk, st = {}, {}
@@ -694,10 +713,18 @@ def test_handoff_kernels_match_plain_twins(dev, shape, pack):
         r2, _, _ = ck.fused_ln_mlp_int8_ho(*mlp, scratch=sk)
         torch.cuda.synchronize()
         r2_t, _, _ = ck.fused_ln_mlp_int8_ho_ref(*mlp, scratch=st)
-    _assert_close(r2, r2_t)
+    assert torch.equal(r2, r2_t)
+    assert all(map(torch.equal, sk["h1q"], st["h1q"]))
     _codes_within_band("fused_ln_mlp_int8_ho", sk, st)
     assert {k: v for k, v in ck.launch_counts().items() if v} == \
         dict.fromkeys(HO_NAMES, 1)
+    assert ck.s8_launch_counts() == {
+        "gemm_sm90_s8:s8_bf16": 1, "gemm_sm90_s8:s8_f32": 0,
+        "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
+        "gemm_sm90_s8:s8_gelu_q_f32": 1, "gemm_sm90_s8:s8_residual": 0,
+        "gemm_sm90_s8:s8_residual_f32": 2}
+    assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
+                                               "attention.cuh:core": 0}
 
 
 @pytest.mark.parametrize("int8_dw", [True, False])
@@ -1970,7 +1997,8 @@ def test_int8_backwards_on_hopper_match_twins_and_keep_their_bits(dev, shape,
         "gemm_sm90_s8:s8_bf16": 4, "gemm_sm90_s8:s8_f32": 4,
         "gemm_sm90_s8:s8_gelu_pair": 2,
         "gemm_sm90_s8:s8_group": 8 if int8_dw else 0,
-        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0}
+        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
+        "gemm_sm90_s8:s8_residual_f32": 0}
 
 
 # K3's and K4's int8 forwards on their Hopper design: LN-quant, the s8
@@ -2007,7 +2035,8 @@ def test_int8_forwards_on_hopper_launch_their_products(dev, shape):
     assert ck.s8_launch_counts() == {
         "gemm_sm90_s8:s8_bf16": 2 * k3, "gemm_sm90_s8:s8_f32": 0,
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
-        "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 2}
+        "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 2,
+        "gemm_sm90_s8:s8_residual_f32": 0}
     assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
                                                "attention.cuh:core": 0}
     ck.reset_launch_counts()
@@ -2025,7 +2054,8 @@ def test_int8_forwards_on_hopper_launch_their_products(dev, shape):
     assert ck.s8_launch_counts() == {
         "gemm_sm90_s8:s8_bf16": 1, "gemm_sm90_s8:s8_f32": 0,
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
-        "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 1}
+        "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 1,
+        "gemm_sm90_s8:s8_residual_f32": 0}
 
 
 # The shapes that K13's limits admit to the K1 family and the whole-row
@@ -2084,7 +2114,8 @@ def test_k1_family_runs_k13_shapes_the_whole_row_core_cannot(dev, shape):
     assert ck.s8_launch_counts() == {
         "gemm_sm90_s8:s8_bf16": 2 + 2 + 2, "gemm_sm90_s8:s8_f32": 2,
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 2,
-        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0}
+        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
+        "gemm_sm90_s8:s8_residual_f32": 0}
     assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
                                                "attention.cuh:core": 0}
 

@@ -290,7 +290,7 @@ FIRST_DESIGN = [
     ("K7's int8 backward", "int8_bwd", KV_HEADS),
     ("K11-C", "int4", None), ("G-F", "int4", KV_HEADS),
     ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS),
-    ("K8", "rect", None), ("K5", "ho", None)]
+    ("K8", "rect", None)]
 
 
 def _launch_checks(launch, t, s, h, hd, hkv):
@@ -312,11 +312,9 @@ def _launch_checks(launch, t, s, h, hd, hkv):
         return ck._ln_qkvo_int8_bwd_cuda("k", x, g, be, w, bq, wo, t["do"],
                                          1e-6, s, h, hd, hkv, False, None,
                                          int4=launch == "int4_bwd")
-    if launch == "rect":
-        return ck._check_rect("k", x[:, :x.shape[1] // 16 * 8], x, g, be, w, bq,
-                              wo, t["bo"], s, h, hd, backward=True)
-    return ck._check_qkvo("k", x, g, be, w, bq, wo, s, h, hd,
-                          ck.qkv_attention_supported, first_design="K5")
+    assert launch == "rect", launch
+    return ck._check_rect("k", x[:, :x.shape[1] // 16 * 8], x, g, be, w, bq,
+                          wo, t["bo"], s, h, hd, backward=True)
 
 
 @pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
@@ -325,7 +323,7 @@ def test_first_design_paths_raise_by_name_where_only_k13_fits(
         monkeypatch, arch, image, path, launch, kv):
     """Where the K1 family's gate and vitax's take a shape that the whole-row
     core cannot (seq 677; head dim 80), each path that keeps that core (K7
-    in every tier, K11-C/D and G-F/G-B, K8, K5) raises its named error in
+    in every tier, K11-C/D and G-F/G-B, K8) raises its named error in
     its wrapper's checks, before it allocates or launches anything; K1's
     and K3's Hopper launches pass the same checks."""
     t, s, h, hd, hkv = _meta_half(arch, image, kv)
@@ -340,6 +338,32 @@ def test_first_design_paths_raise_by_name_where_only_k13_fits(
     t, s, h, hd, hkv = _meta_half(arch, image)
     ck._check_qkvo("k", t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
                    t["wo"], s, h, hd, ck.qkv_attention_supported)
+
+
+@pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
+def test_k5_takes_the_shapes_only_k13_fits(monkeypatch, arch, image):
+    """K5's attention half runs K13's core: where the K1 family's gate and
+    vitax's take a shape that the whole-row core cannot (seq 677; head dim
+    80), its wrapper's checks pass before it allocates anything, as K1's
+    and K3's Hopper launches do (the first block's pack checks the buffers
+    the wrapper makes for it, of the same shapes); K5's MLP half takes those
+    widths too."""
+    t, s, h, hd, _ = _meta_half(arch, image)
+    x = t["x"]
+    b, spq, d = x.shape
+    assert ck.qkv_attention_supported(x, t["wqkv"], h)
+    assert not ck._core_fits(x, t["wqkv"], h)
+    monkeypatch.setattr(ck, "_check_cuda",
+                        lambda name, tensors, dtypes: torch.device("meta"))
+    xq = torch.empty((b * spq, d), dtype=torch.int8, device="meta")
+    sx = torch.empty((b * spq,), device="meta")
+    assert ck._check_ho_attention(
+        "k", x, xq, sx, t["gamma"], t["beta"], t["gamma"], t["beta"],
+        t["wqkv"], t["bqkv"], t["wo"], t["bo"], s, h, hd) == \
+        torch.device("meta")
+    w1 = torch.empty((d, 4 * d), dtype=torch.bfloat16, device="meta")
+    w2 = torch.empty((4 * d, d), dtype=torch.bfloat16, device="meta")
+    assert ck.ln_mlp_supported(x.reshape(1, b * spq, d), w1, w2)
 
 
 # ------------------------------------------------------------ under a mesh

@@ -8,10 +8,9 @@
 // ln_qkvo_attention.cu.
 //
 // One core serves three geometries (AttnGeom): the square MHA core reading
-// Q, K and V from one packed qkv row (K3, K5, K9, K10; K1 in its first
-// design); GQA (K7), where the packed row is [q (H·hd) | k (Hkv·hd) | v
-// (Hkv·hd)] and query head h reads kv group
-// g = h·Hkv/H (vitax's _kv_off, pallas_kernels.py:2803); and the rect core
+// Q, K and V from one packed qkv row (K9, K10, K11-C); GQA (K7), where the
+// packed row is [q (H·hd) | k (Hkv·hd) | v (Hkv·hd)] and query head h reads
+// kv group g = h·Hkv/H (vitax's _kv_off, pallas_kernels.py:2803); and the rect core
 // (K8), whose q_rows query rows per image (the compacted cpq) come from their
 // own buffer and attend over kv_rows key rows (spq) of another. Each query
 // row's result depends only on its own Q row and the image's K and V, so the
@@ -271,14 +270,6 @@ cudaError_t launch_attention_core_geom(const AttnGeom& g, int head_dim, OutT* ou
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// The square MHA core over a packed qkv [b·spq, 3·heads·hd].
-template <typename OutT>
-cudaError_t launch_attention_core_hd(const bf16* qkv, OutT* out, int b, int spq, int seq_len,
-                                     int heads, int head_dim, float scale, cudaStream_t stream) {
-  return launch_attention_core_geom(
-      attn_geom_square(qkv, b, spq, seq_len, heads, head_dim, scale), head_dim, out, stream);
 }
 
 }  // namespace vitax

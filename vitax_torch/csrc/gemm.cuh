@@ -343,9 +343,9 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // the bias add fused with the last multiply (as XLA contracts it, and as the
 // plain twins' torch.addcmul and gemm_sm90.cuh's s8 epilogues do), each step
 // an explicit _rn intrinsic, so nvcc's contraction choices cannot move a bit:
-// K5, K7's and K8's int8 tiers, K11, K12's int8 pair. K3's and K4's forwards
-// and backwards with kv_heads == heads run gemm_sm90.cuh's s8 wgmma path
-// instead, to the same bits.
+// K7's and K8's int8 tiers, K11, K12's int8 pair. K3's and K4's forwards
+// and backwards with kv_heads == heads and K5's halves run gemm_sm90.cuh's s8
+// wgmma path instead, to the same bits.
 //
 // One layout: C[M,N] = A[M,K] @ B[N,K]^T, both int8 row-major. mma.sync's
 // int8 shape takes only .row.col, i.e. B with K contiguous, so the forward
@@ -394,7 +394,6 @@ enum EpilogueS8 : int {
   kS8GeluQAux = 3,     // F = acc*sr*sc + bias, C = bf16(gelu_q(F))
   kS8Residual = 4,     // C = R + bf16(acc*sr*sc + bias), the add in bf16
   kS8GeluQGrad = 5,    // F = acc*sr*sc * gelu_grad_q(Aux), C = bf16(F)
-  kS8ResidualF32 = 6,  // C = bf16(f32(R) + acc*sr*sc + bias), the add in fp32
   kS8GroupF32 = 7,     // F = sum over groups z of f32(acc_z) * sr[z*M + m]
   kS8GpqGrad = 8,      // F = acc*(sr*1.13/127)*sc * f32(Q), C = bf16(F); Q the saved gp codes
   kS8GroupF32T = 9,    // kS8GroupF32 stored transposed: F[n*M + m]
@@ -585,18 +584,13 @@ __global__ void __launch_bounds__(kGemmThreads)
           v[0] = f[0], v[1] = f[1];
         }
         if (EPI == kS8Bf16 || EPI == kS8GeluQAux || EPI == kS8Residual || EPI == kS8GeluQGrad ||
-            EPI == kS8ResidualF32 || EPI == kS8GpqGrad) {
+            EPI == kS8GpqGrad) {
           float o[2] = {v[0], v[1]};
           if (EPI == kS8GeluQAux) o[0] = gelu_q(v[0]), o[1] = gelu_q(v[1]);
           if (EPI == kS8Residual) {
             const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(R + off);
             o[0] = __bfloat162float(r.x) + __bfloat162float(__float2bfloat16(v[0]));
             o[1] = __bfloat162float(r.y) + __bfloat162float(__float2bfloat16(v[1]));
-          }
-          if (EPI == kS8ResidualF32) {
-            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(R + off);
-            o[0] = __fadd_rn(__bfloat162float(r.x), v[0]);
-            o[1] = __fadd_rn(__bfloat162float(r.y), v[1]);
           }
           *reinterpret_cast<__nv_bfloat162*>(C + off) = __floats2bfloat162_rn(o[0], o[1]);
         }

@@ -497,7 +497,7 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
 
 // =============================================================================
 // s8 products of the W8A8 tiers (K3's forward and backward with kv_heads ==
-// heads, and K4's forward and backward):
+// heads, K4's forward and backward, and K5's two halves):
 // C[M,N] = A[M,K]·B[N,K]ᵀ, both int8 codes read K-major. 8-bit wgmma has no
 // transpose bits, and every int8 product of those backwards already has this
 // layout: the weight quantizers store their codes [N, K] (quant.cuh), the
@@ -538,6 +538,12 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
 //                   add of two bf16 values in fp32 and one rounding, as
 //                   gemm.cuh's kS8Residual (vitax :715-721); R [M, N] bf16 is
 //                   read in the store loop, 16 bytes a thread
+//   kEpiS8ResidualF32 K5's out-projection and fc2: C = bf16(f32(R) +
+//                   (dq(acc) + bias)), the handoff's rounding: the add in
+//                   fp32, one rounding (vitax :3721-3722, :3760-3761); y
+//                   stays fp32 (staged as kEpiS8F32's) and R [M, N] bf16 is
+//                   read in the store loop only, never through the TMA ring,
+//                   so R may be the stream whose codes are A
 // Rows M and K are ragged (the TMA zero-fills), N % 8 == 0 (16-byte stores),
 // K % 16 == 0 (16-byte TMA rows). No file that includes this header may be
 // built with --use_fast_math (quant.cuh).
@@ -550,13 +556,14 @@ enum EpiS8 : int {
   kEpiS8Group = 3,
   kEpiS8GeluQF32 = 4,
   kEpiS8Residual = 5,
+  kEpiS8ResidualF32 = 6,
 };
 
 // Launches of gemm_s8_sm90_kernel by epilogue, one added where launch_s8
 // launches it (every translation unit that includes this header shares the
 // one array); read and reset through gemm_sm90_s8.cu's
 // vitax_gemm_sm90_s8_launches
-inline long long s8_launches[6] = {};
+inline long long s8_launches[7] = {};
 
 constexpr int kBK8 = 128;  // codes of a K tile
 
@@ -566,7 +573,7 @@ struct GemmS8Args {
   const float* bias;  // [N] or null
   const float* sr2;   // kEpiS8GeluPair's second product: [M]
   const float* sc2;   // [N]
-  const bf16* R;      // kEpiS8Residual's residual [M, N]
+  const bf16* R;      // kEpiS8Residual's and kEpiS8ResidualF32's residual [M, N]
   bf16* C;
   bf16* C2;
   float* F;
@@ -714,7 +721,8 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
     const int r = (i / 2) % 2 ? rb : ra;
     return r < g.M ? v[r] : 0.f;
   };
-  if constexpr (EPI == kEpiS8F32 || EPI == kEpiS8GeluQF32 || kGroups) {
+  if constexpr (EPI == kEpiS8F32 || EPI == kEpiS8GeluQF32 || EPI == kEpiS8ResidualF32 ||
+                kGroups) {
     constexpr int kLd = kBN + 4;
     float* buf = reinterpret_cast<float*>(ring) + wg * 64 * kLd;
 #pragma unroll
@@ -739,12 +747,33 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       *reinterpret_cast<float2*>(buf + k13::acc_row(i) * kLd + col) = make_float2(v0, v1);
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
-    for (int c = tid; c < 64 * (kBN / 4); c += 128) {
-      const int r = c / (kBN / 4);
-      const int col = (c % (kBN / 4)) * 4;
-      if (row0 + r < g.M && bn + col < g.N)
-        *reinterpret_cast<float4*>(g.F + static_cast<size_t>(row0 + r) * g.N + bn + col) =
-            *reinterpret_cast<const float4*>(buf + r * kLd + col);
+    if constexpr (EPI == kEpiS8ResidualF32) {  // bf16(f32(R) + y), one rounding
+      for (int c = tid; c < 64 * (kBN / 8); c += 128) {
+        const int r = c / (kBN / 8);
+        const int col = (c % (kBN / 8)) * 8;
+        if (row0 + r < g.M && bn + col < g.N) {
+          const size_t o = static_cast<size_t>(row0 + r) * g.N + bn + col;
+          const uint4 rr = *reinterpret_cast<const uint4*>(g.R + o);
+          const auto* rv = reinterpret_cast<const __nv_bfloat162*>(&rr);
+          const float* y = buf + r * kLd + col;
+          uint4 out;
+          auto* cv = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 a = __bfloat1622float2(rv[j]);
+            cv[j] = __floats2bfloat162_rn(__fadd_rn(a.x, y[2 * j]), __fadd_rn(a.y, y[2 * j + 1]));
+          }
+          *reinterpret_cast<uint4*>(g.C + o) = out;
+        }
+      }
+    } else {
+      for (int c = tid; c < 64 * (kBN / 4); c += 128) {
+        const int r = c / (kBN / 4);
+        const int col = (c % (kBN / 4)) * 4;
+        if (row0 + r < g.M && bn + col < g.N)
+          *reinterpret_cast<float4*>(g.F + static_cast<size_t>(row0 + r) * g.N + bn + col) =
+              *reinterpret_cast<const float4*>(buf + r * kLd + col);
+      }
     }
   } else {
     // bf16 C (and, for the dual product, bf16 C2 and fp32 F) staged per
@@ -842,15 +871,17 @@ cudaError_t launch_s8(const int8_t* A, const int8_t* B, const int8_t* A2, const 
 
 // C (kEpiS8Bf16, bf16) or F (kEpiS8F32, fp32) [M, N] = f32(A[M,K]·B[N,K]ᵀ)
 // ·sr[M]·sc[N] (+ bias[N]; null: none); kEpiS8GeluQF32: F = gelu_q(that +
-// bias); kEpiS8Residual: C = bf16(R + bf16(that + bias)), R [M, N] bf16
+// bias); kEpiS8Residual: C = bf16(R + bf16(that + bias)), R [M, N] bf16;
+// kEpiS8ResidualF32: C = bf16(f32(R) + (that + bias))
 template <int EPI>
 cudaError_t gemm_s8(const int8_t* A, const int8_t* B, const float* sr, const float* sc,
                     const float* bias, bf16* C, float* F, int M, int N, int K, cudaStream_t st,
                     const bf16* R = nullptr) {
   static_assert(EPI == kEpiS8Bf16 || EPI == kEpiS8F32 || EPI == kEpiS8GeluQF32 ||
-                    EPI == kEpiS8Residual,
+                    EPI == kEpiS8Residual || EPI == kEpiS8ResidualF32,
                 "gemm_s8: a single product's epilogue");
-  if (EPI == kEpiS8Residual && R == nullptr) return cudaErrorInvalidValue;
+  if ((EPI == kEpiS8Residual || EPI == kEpiS8ResidualF32) && R == nullptr)
+    return cudaErrorInvalidValue;
   GemmS8Args g{};
   g.sr = sr, g.sc = sc, g.bias = bias, g.R = R, g.C = C, g.F = F;
   g.M = M, g.N = N, g.K = K;

@@ -2,9 +2,9 @@
 // epilogue held against exact int32 products dequantized by its plain twin
 // (ops/cuda_kernels.py `gemm_sm90_s8_ref`), and two runs against each other.
 // It replaces no TPU kernel (the products live inside K3's and K4's int8
-// forwards and backwards); the port's paths never call it. vitax_gemm_sm90_s8_launches
-// reads how many products of each kind launch_s8 has launched, by
-// whichever caller.
+// forwards and backwards and K5's halves); the port's paths never call it.
+// vitax_gemm_sm90_s8_launches reads how many products of each kind
+// launch_s8 has launched, by whichever caller.
 #include "gemm_sm90.cuh"
 
 // A [m, k], B [n, k] int8 codes (the dual product's A2 [m, k], B2 [n, k]);
@@ -15,7 +15,8 @@
 // fold, F = Σ over groups z of f32(A_z·B_zᵀ)·sr[z·m + i], the groups gp
 // columns of K each (gp % 128 == 0); 4: K4's fc1, F = gelu_q(f32(A·Bᵀ)·sr·sc
 // + bias); 5: K4's fc2, C = bf16(R + bf16(f32(A·Bᵀ)·sr·sc + bias)), R [m, n]
-// bf16.
+// bf16; 6: K5's out-projection and fc2, C = bf16(f32(R) + (f32(A·Bᵀ)·sr·sc +
+// bias)), the add in fp32.
 extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, const void* b2,
                                   const void* sr, const void* sc, const void* bias,
                                   const void* sr2, const void* sc2, const void* r, void* c,
@@ -51,6 +52,10 @@ extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, 
       return sm90::gemm_s8<sm90::kEpiS8Residual>(A, B, SR, SC, bias_f, static_cast<bf16*>(c),
                                                  nullptr, m, n, k, st,
                                                  static_cast<const bf16*>(r));
+    case 6:
+      return sm90::gemm_s8<sm90::kEpiS8ResidualF32>(A, B, SR, SC, bias_f,
+                                                    static_cast<bf16*>(c), nullptr, m, n, k,
+                                                    st, static_cast<const bf16*>(r));
     default:
       return cudaErrorInvalidValue;
   }
@@ -59,7 +64,7 @@ extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, 
 // counts[kind] = the launches of each kind (the order of the switch above)
 // since the last reset; reset != 0 zeroes them after the read
 extern "C" int vitax_gemm_sm90_s8_launches(long long* counts, int reset) {
-  for (int kind = 0; kind < 6; ++kind) {
+  for (int kind = 0; kind < 7; ++kind) {
     counts[kind] = vitax::sm90::s8_launches[kind];
     if (reset) vitax::sm90::s8_launches[kind] = 0;
   }

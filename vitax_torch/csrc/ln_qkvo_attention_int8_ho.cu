@@ -17,14 +17,28 @@
 // which runs in XLA), into xq/sx. vitax carries 8 broadcast scale lanes a row
 // (_HO_SCALE_LANES); the port keeps one fp32 scale a row.
 //
-// Bound on the H100: the two s8 projections and the attention core on the
-// tensor cores. Design of this first version: K3's launches (weight
-// quantizers, s8 QKV GEMM, core, row quantizer, s8 out-projection, whose
-// epilogue adds the residual in fp32: gemm.cuh kS8ResidualF32), then the LN +
-// quant of r1 as a separate row pass (layernorm.cuh), which re-reads r1 from
-// device memory (a row's LN spans all 6 output tiles of the GEMM).
-#include "attention.cuh"
-#include "gemm.cuh"
+// Bound on the H100: the two s8 projections (2·N·D·3hhd + 2·N·hhd·D
+// operations at 1979 TOP/s) and the attention core (4·spq²·hd a head, bf16
+// on the tensor cores). Design: K3's Hopper sequence without its prologue,
+// on one stream after the weights' column codes (quant.cuh, as [N, K]):
+//   1. with `pack` only, the LN-quant of x (layernorm.cuh, row in registers);
+//   2. qkv = bf16(dq(xq·W8ᵀ) + bqkv) on gemm_sm90.cuh's s8 wgmma path
+//      (kEpiS8Bf16): the call K3's forward and K3's backward recompute make,
+//      so qkv keeps their bits;
+//   3. K13's forward core (attention_core.cuh, kRowsFwdF32) on the packed qkv
+//      rows with strided operands, set up as K3's forward sets it up: query
+//      rows to spq, keys masked at seq_len, attn written in fp32, never
+//      rounded;
+//   4. the row quantizer over attn (quant.cuh): a row spans every head;
+//   5. r1 = bf16(f32(x) + (dq(aq·Wo8ᵀ) + bo)) on the s8 path
+//      (kEpiS8ResidualF32: x is read in the epilogue only);
+//   6. the LN-quant row pass over the bf16 r1 into xq2, sx2 (layernorm.cuh):
+//      vitax quantizes the bf16-rounded r1 (:3721-3729), and a row's LN spans
+//      all six N tiles of the out-projection, so it cannot sit in one tile's
+//      epilogue.
+// K13's p differs from the twin's softmax in its last bits, so r1 and the
+// packed LN2 move within the int8 band, as K3's out does.
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 // Inputs x bf16 [n, d] (n = b·spq), xq int8 [n, d] and sx fp32 [n] (written
@@ -40,21 +54,26 @@ extern "C" int vitax_ln_qkvo_attention_int8_ho_fwd(
     void* xq2, void* sx2, int b, int spq, int d, int seq_len, int heads, int head_dim, int pack,
     float eps, float scale, void* stream) {
   using vitax::bf16;
+  namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
+  const int w = 3 * hhd;
   const auto* xb = static_cast<const bf16*>(x);
   auto* xqi = static_cast<int8_t*>(xq);
   auto* sxf = static_cast<float*>(sx);
+  const auto* w8 = static_cast<const int8_t*>(w8t);
+  const auto* wo8 = static_cast<const int8_t*>(wo8t);
   auto* qkvb = static_cast<bf16*>(qkv);
   auto* attnf = static_cast<float*>(attn);
   auto* aqi = static_cast<int8_t*>(aq);
   auto* saf = static_cast<float*>(sa);
   auto* r1b = static_cast<bf16*>(r1);
   if (n == 0) return cudaSuccess;
+  if (b > 65535 || seq_len <= 0 || seq_len > spq) return cudaErrorInvalidValue;
   cudaError_t e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wqkv),
                                                     static_cast<int8_t*>(w8t),
-                                                    static_cast<float*>(sw), d, 3 * hhd, st);
+                                                    static_cast<float*>(sw), d, w, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_weight_cols_t(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8t),
                                         static_cast<float*>(swo), hhd, d, st);
@@ -65,18 +84,22 @@ extern "C" int vitax_ln_qkvo_attention_int8_ho_fwd(
                                               n, d, eps, st);
     if (e != cudaSuccess) return e;
   }
-  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
-                                            static_cast<const float*>(sw),
-                                            static_cast<const float*>(bqkv), nullptr, nullptr,
-                                            qkvb, nullptr, n, 3 * hhd, d, st);
+  e = sm90::gemm_s8<sm90::kEpiS8Bf16>(xqi, w8, sxf, static_cast<const float*>(sw),
+                                      static_cast<const float*>(bqkv), qkvb, nullptr, n, w, d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_attention_core_hd(qkvb, attnf, b, spq, seq_len, heads, head_dim, scale, st);
+  vitax::k13::CoreArgs a{};
+  a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd, a.o32 = attnf;
+  a.seq = seq_len, a.rows = spq, a.img_rows = spq, a.heads = heads;
+  a.scale = scale;
+  a.ld_q = a.ld_k = a.ld_v = w;
+  a.ld_o = hhd;
+  e = vitax::k13::launch_core_rows<vitax::k13::kRowsFwdF32>(a, head_dim, b, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_rows(static_cast<const float*>(attnf), aqi, saf, n, hhd, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_s8<vitax::kS8ResidualF32>(
-      aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
-      static_cast<const float*>(bo), xb, nullptr, r1b, nullptr, n, d, hhd, st);
+  e = sm90::gemm_s8<sm90::kEpiS8ResidualF32>(aqi, wo8, saf, static_cast<const float*>(swo),
+                                             static_cast<const float*>(bo), r1b, nullptr, n, d,
+                                             hhd, st, xb);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_quant<false>(r1b, static_cast<const float*>(g2),
                                                static_cast<const float*>(be2),

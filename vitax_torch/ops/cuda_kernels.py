@@ -28,12 +28,13 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   gemm_sm90.cuh's group fold) -> the `int8_dw` branches of those kernels,
   :3041-3049 and :3077-3084, :1173-1197
 - `gemm_sm90_s8` -> gemm_sm90_s8.cu: the s8 products inside K3's and K4's
-  int8 forwards and backwards launched alone, for the card tests (no path
-  calls it)
+  int8 forwards and backwards and K5's halves launched alone, for the card
+  tests (no path calls it)
 - `fused_ln_qkvo_attention_int8_ho` -> ln_qkvo_attention_int8_ho.cu ->
-  `_ln_qkvo_fwd_int8_ho_kernel` :3669 (K5)
+  `_ln_qkvo_fwd_int8_ho_kernel` :3669 (K5: gemm_sm90.cuh's s8 products and
+  K13's core)
 - `fused_ln_mlp_int8_ho` -> ln_mlp_int8_ho.cu -> `_ln_mlp_fwd_int8_ho_kernel`
-  :3732 (K5)
+  :3732 (K5: gemm_sm90.cuh's s8 products)
 - `fused_ln_qkvo_attention_gqa` -> ln_qkvo_attention.cu with kv_heads < heads
   -> the `kv_heads` branch of `_ln_qkvo_fwd_kernel` (`_kv_off` :2803, K7);
   `fused_ln_qkvo_attention(..., kv_heads=)` routes to it
@@ -733,7 +734,7 @@ def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None, residual=None):
 
 
 GEMM_SM90_S8_KINDS = ("s8_bf16", "s8_f32", "s8_gelu_pair", "s8_group",
-                      "s8_gelu_q_f32", "s8_residual")
+                      "s8_gelu_q_f32", "s8_residual", "s8_residual_f32")
 
 
 def s8_launch_counts(reset: bool = False) -> dict:
@@ -743,7 +744,10 @@ def s8_launch_counts(reset: bool = False) -> dict:
     K4's one s8_gelu_q_f32 (fc1) and one s8_residual (fc2; s8_bf16 without
     the residual), inside K3's backward two s8_bf16 (qkv, dattn) and one
     s8_f32 (dxn), inside K4's one s8_gelu_pair and one s8_f32, and under
-    int8_dw two s8_group in each backward, besides `gemm_sm90_s8`'s own.
+    int8_dw two s8_group in each backward; inside K5's attention half one
+    s8_bf16 (qkv) and one s8_residual_f32 (the out-projection), inside its
+    MLP half one s8_gelu_q_f32 (fc1) and one s8_residual_f32 (fc2), besides
+    `gemm_sm90_s8`'s own.
     `launch_counts` keys the wrappers. Nothing is counted before the
     library is loaded: no product has launched then."""
     counts = (ctypes.c_longlong * len(GEMM_SM90_S8_KINDS))()
@@ -761,11 +765,11 @@ FIRST_DESIGN_PIECES = ("gemm.cuh:s8", "attention.cuh:core")
 def first_design_launch_counts(reset: bool = False) -> dict:
     """Launches since the last reset of two first-design pieces, as the
     library counts them where each launches: gemm.cuh's mma.sync s8
-    products ("gemm.cuh:s8": K7's int8 tier, K11, K5, K8, K12-int8) and
+    products ("gemm.cuh:s8": K7's int8 tier, K11, K8, K12-int8) and
     attention.cuh's whole-row forward core ("attention.cuh:core": K7, K8,
-    K10, K9, K5, K11-C). K3's and K4's forwards and backwards with kv_heads
-    == heads launch neither. Nothing is counted before the library is
-    loaded."""
+    K10, K9, K11-C). K3's and K4's forwards and backwards with kv_heads ==
+    heads and K5's halves launch neither. Nothing is counted before the
+    library is loaded."""
     counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
     if build.loaded():
         build.check(build.load().vitax_first_design_launches(counts,
@@ -779,9 +783,10 @@ def gemm_sm90_s8_ref(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
     """The plain twin of `gemm_sm90_s8`: exact int32 products (`int_mm`)
     dequantized in the kernels' order (`_dequant`), the GELU pair's
     epilogue as K4's backward twin writes it, fc1's and fc2's as K4's
-    forward twin (gelu_q in fp32; residual + bf16(y) in bf16), and the group
-    fold as `_dw_int8` adds it: over each group of `group` columns of K, in
-    order, F += f32(acc)·sr[z, m]."""
+    forward twin (gelu_q in fp32; residual + bf16(y) in bf16), the
+    handoff's as K5's twins (f32(residual) + y in fp32, rounded once), and
+    the group fold as `_dw_int8` adds it: over each group of `group` columns
+    of K, in order, F += f32(acc)·sr[z, m]."""
     if kind == "s8_group":
         f = torch.zeros((a.shape[0], b.shape[0]), dtype=_F32, device=a.device)
         for z, k0 in enumerate(range(0, a.shape[1], group)):
@@ -797,6 +802,8 @@ def gemm_sm90_s8_ref(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
         return gelu_q(y)
     if kind == "s8_residual":
         return residual + y.to(_BF)
+    if kind == "s8_residual_f32":
+        return (residual.float() + y).to(_BF)
     if kind == "s8_gelu_pair":
         dh1_32 = (_dequant(int_mm(a2, b2.t()), sr2.reshape(-1, 1), sc2)
                   * gelu_grad_q(y))
@@ -809,7 +816,7 @@ def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
     seed: int8 codes in [-127, 127] and fp32 scales, with a bias when
     `extra` is True; for "s8_group" `extra` is the group's columns, and each
     group's codes are zero past 25/32 of its rows, as dw_int8.cuh pads
-    them; "s8_residual" gets a bf16 residual [m, n]."""
+    them; "s8_residual" and "s8_residual_f32" get a bf16 residual [m, n]."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def codes(*shape):
@@ -829,7 +836,7 @@ def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
     out = dict(a=codes(m, k), b=codes(n, k), sr=scales(m), sc=scales(n))
     if extra:
         out["bias"] = torch.randn(n, generator=g, device=device) * 0.1
-    if kind == "s8_residual":
+    if kind in ("s8_residual", "s8_residual_f32"):
         out["residual"] = torch.randn(m, n, generator=g, device=device).to(_BF)
     if kind == "s8_gelu_pair":
         out.update(a2=codes(m, k), b2=codes(n, k), sr2=scales(m),
@@ -841,8 +848,9 @@ def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
 # `gemm_sm90_s8` (tests/test_torch_cuda_kernels.py and chip_smoke.py): the
 # first of each kind at its ViT-B/16 b32 spq 200 shape (K3's qkv, K3's dxn,
 # K4's dual product, K4's int8_dw dW1 over 50 groups of 128 rows, K4's
-# forward fc1 and fc2), then ragged M, N and K, K3's dWqkv fold (16 groups
-# of 400 rows in 512) and tiny ones
+# forward fc1 and fc2; the handoff's fc2 at the drop phase's b32 spq 104),
+# then ragged M, N and K, K3's dWqkv fold (16 groups of 400 rows in 512),
+# K5's out-projection, and tiny ones
 GEMM_SM90_S8_CASES = [
     ("s8_bf16", 6400, 2304, 768, True), ("s8_f32", 6400, 768, 2304, False),
     ("s8_gelu_pair", 6400, 3072, 768, True),
@@ -860,7 +868,11 @@ GEMM_SM90_S8_CASES = [
     ("s8_gelu_q_f32", 591, 3072, 768, True),
     ("s8_gelu_q_f32", 77, 264, 144, True),
     ("s8_residual", 591, 776, 3072, True),
-    ("s8_residual", 77, 136, 144, True)]
+    ("s8_residual", 77, 136, 144, True),
+    ("s8_residual_f32", 3328, 768, 3072, True),
+    ("s8_residual_f32", 3328, 768, 768, True),
+    ("s8_residual_f32", 591, 776, 3072, True),
+    ("s8_residual_f32", 77, 136, 144, True)]
 
 
 def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
@@ -878,7 +890,8 @@ def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
     groups of `group` columns of k (group % 128 == 0), sr [k / group, m],
     "s8_gelu_q_f32" K4's fc1, gelu_q(f32(a·bᵀ)·sr·sc + bias) in fp32,
     "s8_residual" K4's fc2, bf16(residual + bf16(f32(a·bᵀ)·sr·sc + bias))
-    with residual [m, n] bf16."""
+    with residual [m, n] bf16, "s8_residual_f32" K5's out-projection and
+    fc2, bf16(f32(residual) + (f32(a·bᵀ)·sr·sc + bias))."""
     if not a.is_cuda:
         return gemm_sm90_s8_ref(kind, a, b, sr, sc, bias, a2, b2, sr2, sc2,
                                 group, residual)
@@ -889,7 +902,8 @@ def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
     n = b.shape[0]
     mats = {"a": a, "b": b, **({"a2": a2, "b2": b2}
                                if kind == "s8_gelu_pair" else {})}
-    if kind == "s8_residual":
+    residual_kind = kind in ("s8_residual", "s8_residual_f32")
+    if residual_kind:
         _check_cuda(name, {"residual": residual}, {"residual": _BF})
         _check_shape(name, "residual", residual, (m, n))
     vecs = {"sr": sr, **({"sc": sc} if kind != "s8_group" else {}),
@@ -909,7 +923,7 @@ def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
             _check_shape(name, key, t, (m,) if key.startswith("sr") else (n,))
     lib = build.load()
     pair = kind == "s8_gelu_pair"  # only the outputs the kind writes
-    bf16_out = pair or kind in ("s8_bf16", "s8_residual")
+    bf16_out = pair or residual_kind or kind == "s8_bf16"
     c = _bf(dev, m, n) if bf16_out else None
     c2 = _bf(dev, m, n) if pair else None
     f = _f32(dev, m, n) if pair or not bf16_out else None
@@ -1015,12 +1029,13 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     spq = round_up(S, 8) by the caller), merged wqkv [D, (H + 2·Hkv)·Hd]
     with Hkv = kv_heads (default heads), bf16 on the card. It takes what
     the Hopper halves that run with kv_heads == heads (K1 and K3, forward
-    and backward) take: K13's core (S <= 1024, a head dim of
-    VITAX_K13_HEAD_DIMS, at most 65535 images) and gemm_sm90.cuh's products
+    and backward, and K5's attention half) take: K13's core (S <= 1024, a
+    head dim of VITAX_K13_HEAD_DIMS, at most 65535 images) and
+    gemm_sm90.cuh's products
     (N % 8, K % 16: d % 16, Hd % 16). The models pick the half where this
     and vitax's gate pass, in eval and in training alike (K13's backward
     passes take what its forward takes). A first-design path (the
-    whole-row core: K7, K11-C/D, K5, K8) checks its own limits in its
+    whole-row core: K7, K11-C/D, K8) checks its own limits in its
     wrapper and raises by name outside them. Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
     if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
@@ -1037,7 +1052,7 @@ def _core_fits(x, wqkv, heads, kv_heads=None, backward=False) -> bool:
     """The shapes the first design takes, any dtype: attention.cuh's
     whole-row core (head dims ATTN_HEAD_DIMS, its shared memory and, with
     `backward`, its backward's) and gemm.cuh's products (widths a multiple
-    of 32). K7 (kv_heads < heads, every tier), K11-C and K11-D, K5, K8, K10
+    of 32). K7 (kv_heads < heads, every tier), K11-C and K11-D, K8, K10
     and K9 run it."""
     hd = _head_dim(x, wqkv, heads, kv_heads)
     if hd is None:
@@ -3862,7 +3877,11 @@ def fused_ln_qkvo_attention_int8_ho(x, xq, sx, g1, be1, g2, be2, wqkv, bqkv,
     `FusedBlockInt8HandoffFn`): x [B, spq, D] bf16 (the padded stream), its
     packed LN1 xq int8 [B·spq, D] and sx fp32 [B·spq] (None: pack x here
     with g1/be1), LN2's g2/be2, the K3 weights. Returns (r1, xq2, sx2), r1
-    with the residual added in fp32."""
+    with the residual added in fp32. On the card: the weights' column codes,
+    (with the pack) the LN-quant of x, gemm_sm90.cuh's s8 qkv, K13's core
+    with an fp32 out, the row codes, the s8 out-projection adding x in fp32
+    (`s8_residual_f32`), the LN2-quant of r1; it takes the shapes K3's
+    forward takes (K13's limits). `scratch` also gets the bf16 qkv."""
     if not x.is_cuda:
         return fused_ln_qkvo_attention_int8_ho_ref(
             x, xq, sx, g1, be1, g2, be2, wqkv, bqkv, wo, bo, eps, seq_len,
@@ -3873,19 +3892,8 @@ def fused_ln_qkvo_attention_int8_ho(x, xq, sx, g1, be1, g2, be2, wqkv, bqkv,
     pack = xq is None
     if pack:
         xq, sx = _i8(x.device, n, d), _f32(x.device, n)
-    dev = _check_cuda(
-        name,
-        {"x": x, "xq": xq, "sx": sx, "g1": g1, "be1": be1, "g2": g2,
-         "be2": be2, "wqkv": wqkv, "bqkv": bqkv, "wo": wo, "bo": bo},
-        {"x": _BF, "xq": torch.int8, "sx": _F32, "g1": _F32, "be1": _F32,
-         "g2": _F32, "be2": _F32, "wqkv": _BF, "bqkv": _F32, "wo": _BF,
-         "bo": _F32})
-    _check_qkvo(name, x, g2, be2, wqkv, bqkv, wo, seq_len, heads, head_dim,
-                qkv_attention_supported, first_design="K5")
-    for key, t, shape in (("xq", xq, (n, d)), ("sx", sx, (n,)),
-                          ("g1", g1, (d,)), ("be1", be1, (d,)),
-                          ("bo", bo, (d,))):
-        _check_shape(name, key, t, shape)
+    dev = _check_ho_attention(name, x, xq, sx, g1, be1, g2, be2, wqkv, bqkv,
+                              wo, bo, seq_len, heads, head_dim)
     hhd = heads * head_dim
     w8t, sw = _i8(dev, 3 * hhd, d), _f32(dev, 3 * hhd)
     wo8t, swo = _i8(dev, d, hhd), _f32(dev, d)
@@ -3902,10 +3910,36 @@ def fused_ln_qkvo_attention_int8_ho(x, xq, sx, g1, be1, g2, be2, wqkv, bqkv,
     fused_ln_qkvo_attention_int8_ho.launches += 1
     _keep(scratch, w8=(w8t.t(), sw), wo8=(wo8t.t(), swo), xq=(xq, sx),
           aq=(aq, sa), xq2=(xq2, sx2))
+    if scratch is not None:
+        scratch["qkv"] = qkv
     return r1, xq2, sx2
 
 
 fused_ln_qkvo_attention_int8_ho.launches = 0
+
+
+def _check_ho_attention(name, x, xq, sx, g1, be1, g2, be2, wqkv, bqkv, wo, bo,
+                        seq_len, heads, head_dim):
+    """The launch checks of K5's attention half, before it allocates
+    anything: dtypes and the card, K3's gate (K13's limits: S <= 1024, a
+    head dim of VITAX_K13_HEAD_DIMS, d % 16, at most 65535 images) and the
+    packed input's shapes; returns the device."""
+    b, spq, d = x.shape
+    n = b * spq
+    dev = _check_cuda(
+        name,
+        {"x": x, "xq": xq, "sx": sx, "g1": g1, "be1": be1, "g2": g2,
+         "be2": be2, "wqkv": wqkv, "bqkv": bqkv, "wo": wo, "bo": bo},
+        {"x": _BF, "xq": torch.int8, "sx": _F32, "g1": _F32, "be1": _F32,
+         "g2": _F32, "be2": _F32, "wqkv": _BF, "bqkv": _F32, "wo": _BF,
+         "bo": _F32})
+    _check_qkvo(name, x, g2, be2, wqkv, bqkv, wo, seq_len, heads, head_dim,
+                qkv_attention_supported)
+    for key, t, shape in (("xq", xq, (n, d)), ("sx", sx, (n,)),
+                          ("g1", g1, (d,)), ("be1", be1, (d,)),
+                          ("bo", bo, (d,))):
+        _check_shape(name, key, t, shape)
+    return dev
 
 
 def fused_ln_mlp_int8_ho_ref(x, xq, sx, gn, ben, w1, b1, w2, b2, eps, *,
@@ -3933,7 +3967,10 @@ def fused_ln_mlp_int8_ho(x, xq, sx, gn, ben, w1, b1, w2, b2, eps, *,
     """K5's MLP half, forward only: x (= r1) [..., D] bf16 with its packed
     LN2 (xq, sx) from the attention half, the next block's LN1 gn/ben (the
     encoder norm's for the last block, whose packed output is not read), the
-    K4 weights. Returns (r2, xqn, sxn), r2 with the residual added in fp32."""
+    K4 weights. Returns (r2, xqn, sxn), r2 with the residual added in fp32.
+    On the card: the weights' column codes, fc1 on gemm_sm90.cuh's s8 path
+    (`s8_gelu_q_f32`), the row codes, fc2 adding x in fp32
+    (`s8_residual_f32`), the LN-quant of r2 with gn/ben."""
     if not x.is_cuda:
         return fused_ln_mlp_int8_ho_ref(x, xq, sx, gn, ben, w1, b1, w2, b2,
                                         eps, scratch=scratch)

@@ -12,12 +12,14 @@ file need not belong to), it prints under `tag`:
   forward and backward at ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
   give the same line where those kernels kept their bits;
 - `int8_checksums`: the same of the int8 and int4 tiers: K3's and K4's
-  forwards (K4's also without its residual) and the two halves of K5 (the
-  LN-quant prologue's codes, scales and xn reach every output), K3's and
-  K4's backwards with and without int8_dw (K4's also without its residual)
-  with the codes they wrote, and the branches kept on the first design:
-  K7's int8 forward and backwards (4 kv heads), K11-A, K11-C, K11-B and
-  K11-D with and without int8_dw, G-F and G-B;
+  forwards (K4's also without its residual; the LN-quant prologue's codes,
+  scales and xn reach every output), the two halves of K5 output by output
+  (r1, its pack, the codes it wrote, qkv where the checkout hands it over;
+  r2, its pack, h1q), K3's and K4's backwards with and without int8_dw
+  (K4's also without its residual) with the codes they wrote, and the
+  branches kept on the first design: K7's int8 forward and backwards (4 kv
+  heads), K11-A, K11-C, K11-B and K11-D with and without int8_dw, G-F and
+  G-B;
 - `ln_checksums`: the same of the LN kernel pair alone (the standalone
   entry points, register path and loop form, bf16 and fp32): the forward,
   the backward's dx, and its dγ/dβ apart (their order of sums may change
@@ -36,7 +38,7 @@ file need not belong to), it prints under `tag`:
   forwards, each with and without the residual, at b64 and b32 spq 200;
   of K3's and K4's int8 backwards, with and without int8_dw, at b32 spq
   200 and the drop phase's spq 104; of K3's and K4's int8 forwards at b64
-  and b32 spq 200;
+  and b32 spq 200; of K5's two halves at the drop phase's b32 spq 104;
 - `k4_outputs`: K4's int8 forward at b32 spq 200 (out, out without the
   residual, the h1q codes and their row scales) and b64 (out, row scales),
   and at b32 the first-design forwards on gemm.cuh's s8 epilogue (K12-int8's
@@ -48,7 +50,8 @@ file need not belong to), it prints under `tag`:
   int8_dw, spend their device time at ViT-B/16's b32 spq 200: each
   call's device time and its kernels by name, with their launches a call
   (torch.profiler's kernel records over 5 calls); `int8_fwd_device` the
-  same of K3's and K4's int8 forwards at b32 and b64 spq 200;
+  same of K3's and K4's int8 forwards at b32 and b64 spq 200, `ho_device`
+  of K5's two halves at spq 104, b32 and the fast recipe's b768;
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
   momentum) at b32 in bf16, `--int8`, `--int8-grad`, `--int8-dw` and
@@ -65,7 +68,8 @@ Run it for two checkouts in the order A, B, B, A in one call on the card
 (each run builds its checkout's kernels into that checkout's `build/`).
 Names after the tag run only those sections (`checksums`, `int8_checksums`,
 `ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
-`kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`), e.g.
+`kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`,
+`ho_device`), e.g.
 `turns.py A int8_checksums kernel_times`.
 """
 
@@ -193,12 +197,22 @@ def int8_checksums() -> dict:
         out["K11-A fwd"] = _digest((ck.fused_ln_mlp_int4(*ln, *mlp, 1e-5),))
         out["K11-C fwd"] = _digest((ck.fused_ln_qkvo_attention_int4(
             *head, bo, *tail),))
+        # K5 output by output (and the codes it wrote), so that a change
+        # shows which of them moved; qkv where the checkout hands it over
+        sk = {}
         r1, *pack1 = ck.fused_ln_qkvo_attention_int8_ho(
             head[0], None, None, *ln[1:], *ln[1:], *head[3:], bo, 1e-5, 197,
-            heads, hd)
-        out["K5 attn"] = _digest((r1, *pack1))
-        out["K5 mlp"] = _digest(tuple(ck.fused_ln_mlp_int8_ho(
-            r1, *pack1, *ln[1:], *mlp, 1e-5)))
+            heads, hd, scratch=sk)
+        out["K5 attn r1"] = _digest((r1,))
+        out["K5 attn xq2 sx2"] = _digest(pack1)
+        out["K5 attn xq sx aq sa"] = _digest((*sk["xq"], *sk["aq"]))
+        out["K5 attn qkv"] = _digest((sk["qkv"],)) if "qkv" in sk else "-"
+        sk = {}
+        r2, *packn = ck.fused_ln_mlp_int8_ho(r1, *pack1, *ln[1:], *mlp, 1e-5,
+                                             scratch=sk)
+        out["K5 mlp r2"] = _digest((r2,))
+        out["K5 mlp xqn sxn"] = _digest(packn)
+        out["K5 mlp h1q sh"] = _digest(sk["h1q"])
         mlp_bwd = (*ln, mlp[0], mlp[1], mlp[2], do, 1e-5)
         for name, fn, args in (
                 ("K3 bwd", ck.fused_ln_qkvo_attention_int8_bwd,
@@ -357,8 +371,9 @@ def _median_ms(fn, warmup=2, iters=10) -> float:
 
 def kernel_times() -> dict:
     """{kernel and shape: median ms} of the forwards of K1, K2 and K12 (each
-    MLP half with and without its residual) at ViT-B/16's widths, and of
-    K6's forward (b32 spq 736 and 264) and backward (b32 spq 264) at
+    MLP half with and without its residual), K3's and K4's int8 backwards
+    and forwards and K5's two halves (b32 spq 104) at ViT-B/16's widths,
+    and of K6's forward (b32 spq 736 and 264) and backward (b32 spq 264) at
     ViT-H/14's."""
     from vitax_torch.ops import cuda_kernels as ck
     d, heads, hd, m = B16_WIDTHS
@@ -400,6 +415,10 @@ def kernel_times() -> dict:
             for name, fn in _int8_fwd_calls(b).items():
                 out[f"{name} b{b} spq200"] = _median_ms(fn, 3, 25)
         torch.cuda.empty_cache()
+    with torch.no_grad():
+        for name, fn in _ho_calls(32).items():
+            out[f"{name} b32 spq104"] = _median_ms(fn, 3, 25)
+    torch.cuda.empty_cache()
     d, heads, hd = H14_WIDTHS
     hhd = heads * hd
     for b, spq, seq in ((32, 736, 730), (32, 264, 257)):
@@ -511,6 +530,34 @@ def int8_fwd_device() -> dict:
     out = {}
     for b in (32, 64):
         out.update(_by_kernel(_int8_fwd_calls(b), f"b{b} spq200"))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ho_calls(b) -> dict:
+    """K5's two halves at ViT-B/16's b`b` spq 104 (seq 99), the fast
+    recipe's drop phase: a later block's attention half (its input packed)
+    and the MLP half on that half's outputs."""
+    from vitax_torch.ops import cuda_kernels as ck
+    _, heads, hd, _ = B16_WIDTHS
+    head, bo, _, mlp = _int8_inputs(200, b, 104)
+    x, g1, be1 = head[:3]
+    with torch.no_grad():
+        xq, sx = ck.pack_rows(x, g1, be1, 1e-5)
+        attn = (x, xq, sx, g1, be1, g1, be1, *head[3:], bo, 1e-5, 99, heads,
+                hd)
+        r1, xq2, sx2 = ck.fused_ln_qkvo_attention_int8_ho(*attn)
+    return {"K5 attn": lambda: ck.fused_ln_qkvo_attention_int8_ho(*attn),
+            "K5 mlp": lambda: ck.fused_ln_mlp_int8_ho(r1, xq2, sx2, g1, be1,
+                                                      *mlp, 1e-5)}
+
+
+def ho_device() -> dict:
+    """`_by_kernel` of K5's two halves at the drop phase's b32 spq 104 and
+    at the fast recipe's b768 spq 104 (79872 rows)."""
+    out = {}
+    for b in (32, 768):
+        out.update(_by_kernel(_ho_calls(b), f"b{b} spq104"))
         torch.cuda.empty_cache()
     return out
 
@@ -739,7 +786,7 @@ def main(argv) -> int:
             for name, (n, of) in k4_outputs(tag).items():
                 print(f"{tag}: {name}: {n} of {of} values differ",
                       flush=True)
-        elif section in ("int8_bwd_device", "int8_fwd_device"):
+        elif section in ("int8_bwd_device", "int8_fwd_device", "ho_device"):
             for name, (ms, rows) in globals()[section]().items():
                 print(f"{tag}: device {name} {ms:.4f} ms: " + "; ".join(
                     f"{k[:70]} {t:.4f} x{n:g}" for k, t, n in rows),
@@ -756,7 +803,7 @@ def main(argv) -> int:
 
 SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
             "ln_device_times", "timings", "kernel_times", "k4_outputs",
-            "int8_bwd_device", "int8_fwd_device")
+            "int8_bwd_device", "int8_fwd_device", "ho_device")
 
 
 if __name__ == "__main__":
