@@ -103,8 +103,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              every trainable tensor for (a), (b), (c) and (e) against the plain
              bf16 path (GRAD_BAND) or the int8 twin path (INT8_GRAD_BAND),
              with the same Gumbel noise and kept tokens injected and the
-             routing replayed; device-timed train steps of (a)-(e) on a
-             resident batch.
+             routing replayed; (c)'s and (d)'s s8 products by kind against
+             their launches (`_s8_expect`) and no first-design piece (K8's
+             int8 tier, K3 and K4 on their Hopper designs); device-timed
+             train steps of (a)-(e) on a resident batch.
 
 10. h14    — ViT-H/14 (32 layers, D 1280, 16 heads of 80, MLP 5120), whose
              attention half is K6 (vitax's K1 gate rejects d > 1024; K6's
@@ -292,14 +294,17 @@ turns.
 
 Phase 3 also holds the Res-ViT kernels against their twins: K7 (GQA in
 K1, 4 and 6 kv heads) at b64 spq 200; K8 (the rect attention half, bf16
-and int8) at b64 spq 200 with cpq 128 and 104 and on a ragged case, and
-against the square kernel (K1, K3) followed by the row gather, whose largest
-difference it prints and holds to TOL (K1's and K3's forwards run
-gemm_sm90.cuh's products and K13's core, K8 gemm.cuh's and the whole-row
-core, so they differ by sums in another order); and their
+and int8) at b64 spq 200 with cpq 128 and 104, on a ragged case and at
+ft_resvit_fast.sh's b192 cpq 64 of spq 104, and against the square kernel
+(K1, K3) followed by the row gather, whose largest difference it prints:
+0 for the int8 tier (K3's launches on K8's two row sets, each per row,
+K13's core in its rect geometry), within TOL for the bf16 K8 (K1's forward
+runs gemm_sm90.cuh's products and K13's core, the bf16 K8 gemm.cuh's and
+the whole-row core, so they differ by sums in another order); and their
 backwards on every output: K8's three (bf16, int8_grad, int8_dw; the int8
-ones by codes, INT8_REL and the bf16 stand-in too) at b32 spq 200 cpq 128
-and on a ragged case, K8's bf16 one also against K1's backward on all rows
+ones by codes, INT8_REL and the bf16 stand-in too) at b32 spq 200 cpq 128,
+on a ragged case and at b192 cpq 64 of spq 104, K8's bf16 one also against
+K1's backward on all rows
 with do scattered to the kept rows plus the gather transpose (the bf16
 tolerance: K1 sums a kept row's two dxn paths in fp32 before one LN
 backward); K7's at b32 spq 200 with 4 kv heads, two launches the same bits.
@@ -328,10 +333,10 @@ forward, with and without the residual, must give the twin's bits from the
 kernel's own LN codes at every case: the weights' codes, h1q and its row
 scales, and out (`fused_ln_mlp_int8_from_codes_ref`).
 
-K3's forward and backward (kv_heads == heads), K4's and K5's two halves
-run their int8 products on gemm_sm90.cuh's s8 wgmma path and K3's and K5's
-cores on K13's (the forwards with an fp32 out, K3's grads on K13's
-passes). Phase 3 launches each
+K3's forward and backward (kv_heads == heads), K4's, K5's two halves and
+K8's int8 forward and backward run their int8 products on gemm_sm90.cuh's
+s8 wgmma path and K3's, K5's and K8's cores on K13's (the forwards with an
+fp32 out, K3's and K8's grads on K13's passes; K8's in the rect geometry). Phase 3 launches each
 of those s8 products alone (`ck.gemm_sm90_s8`, the rows
 `gemm_sm90_s8:<kind>` of the kernel table: s8_bf16, s8_f32, s8_gelu_pair,
 s8_group, s8_gelu_q_f32, s8_residual, s8_residual_f32) at the b32 spq 200
@@ -342,8 +347,8 @@ every output, two launches the same bits; timed beside the twin. The library cou
 their launches by kind where `launch_s8` launches one
 (`ck.s8_launch_counts`), and the launches of the first design's gemm.cuh
 s8 products and whole-row core (`ck.first_design_launch_counts`); phases
-6, 7, 8 and 17 hold the s8 counts of their runs exact (`_s8_expect`), 6
-and 7 the first-design ones too (none).
+6, 7, 8, 9 and 17 hold the s8 counts of their runs exact (`_s8_expect`),
+6, 7 and 9 the first-design ones too (none).
 
 The line before the last is the JSON kernel table (each kernel's time at
 the main path's shape beside its bound: the larger of its bytes over 3.35
@@ -715,8 +720,10 @@ def _s8_expect(counts):
     s8_bf16 and one s8_f32, K4's (either branch) one s8_gelu_pair and one
     s8_f32, and under int8_dw two s8_group more in each; K5's attention half
     one s8_bf16 (qkv) and one s8_residual_f32, its MLP half one
-    s8_gelu_q_f32 and one s8_residual_f32. No other wrapper launches
-    one."""
+    s8_gelu_q_f32 and one s8_residual_f32; K8's int8 forward three s8_bf16
+    (q, kv, out), its backward three s8_bf16 (q, kv, dattn) and two s8_f32
+    (dxnc, dxn), and under int8_dw three s8_group more. No other wrapper
+    launches one."""
     def c(*names):
         return sum(counts.get(n, 0) for n in names)
     k3f = c("fused_ln_qkvo_attention_int8")
@@ -729,10 +736,15 @@ def _s8_expect(counts):
            "fused_ln_mlp_int8_partial_dw_bwd")
     k5a, k5m = (c("fused_ln_qkvo_attention_int8_ho"),
                 c("fused_ln_mlp_int8_ho"))
-    return {"gemm_sm90_s8:s8_bf16": 2 * k3f + 2 * k3b + k4p + k5a,
-            "gemm_sm90_s8:s8_f32": k3b + k4b,
+    k8f = c("fused_ln_qkvo_attention_rect_int8")
+    k8b = c("fused_ln_qkvo_attention_rect_int8_bwd",
+            "fused_ln_qkvo_attention_rect_int8_dw_bwd")
+    k8dw = c("fused_ln_qkvo_attention_rect_int8_dw_bwd")
+    return {"gemm_sm90_s8:s8_bf16": (2 * k3f + 2 * k3b + k4p + k5a
+                                     + 3 * k8f + 3 * k8b),
+            "gemm_sm90_s8:s8_f32": k3b + k4b + 2 * k8b,
             "gemm_sm90_s8:s8_gelu_pair": k4b,
-            "gemm_sm90_s8:s8_group": 2 * dw,
+            "gemm_sm90_s8:s8_group": 2 * dw + 3 * k8dw,
             "gemm_sm90_s8:s8_gelu_q_f32": k4f + k4p + k5m,
             "gemm_sm90_s8:s8_residual": k4f,
             "gemm_sm90_s8:s8_residual_f32": k5a + k5m}
@@ -742,8 +754,8 @@ def _check_s8(label, counts, first_design=False):
     """The s8 products that the library counted in a run, against what its
     wrappers' launches imply, and with `first_design` the first-design
     pieces (`ck.first_design_launch_counts`), of which a ViT run of LN, K1,
-    K2, K3, K4 (forwards and backwards), K5 and K13 launches none; returns
-    the s8 counts."""
+    K2, K3, K4 (forwards and backwards), K5 and K13, and a Res-ViT int8 run
+    of those and K8's int8 tier, launch none; returns the s8 counts."""
     from vitax_torch.ops import cuda_kernels as ck
     s8 = ck.s8_launch_counts()
     fd = ck.first_design_launch_counts() if first_design else {}
@@ -1321,11 +1333,13 @@ def check_handoff_kernels(stats):
 
 
 # Res-ViT serving at b64 (spq 200, seq 197): K8 at capacity 0.625 (124 rows,
-# cpq 128; the timed case) and 0.5 (99, cpq 104), and a ragged case; K7 at
-# 4 (timed) and 6 kv heads
+# cpq 128; the timed case) and 0.5 (99, cpq 104), a ragged case, and
+# ft_resvit_fast.sh's drop geometry at its b192 (keep 0.5: 99 of spq 104;
+# C 0.625: 62 rows, cpq 64); K7 at 4 (timed) and 6 kv heads
 RECT_CASES = [("b64 cap124 cpq128 (C 0.625)", 64, 200, 197, 124),
               ("b64 cap99 cpq104 (C 0.5)", 64, 200, 197, 99),
-              ("ragged b3 cap37", 3, 200, 197, 37)]
+              ("ragged b3 cap37", 3, 200, 197, 37),
+              ("b192 cap62 cpq64 spq104 (fast)", 192, 104, 99, 62)]
 GQA_CASES = [("b64 spq200 kv4", 64, 200, 197, 4),
              ("b64 spq200 kv6", 64, 200, 197, 6)]
 
@@ -1360,8 +1374,10 @@ def _hold(name, label, out, ref, stats):
 
 def check_resvit_kernels(stats):
     """Phase 3, Res-ViT: K8 (bf16, int8) against its twin and against the
-    square kernel + row gather, K8 int8 also by its codes and INT8_REL; K7
-    against its twin; times at the serving path's shapes."""
+    square kernel + row gather (K8 int8 to the bit on the kept rows: it runs
+    K3's launches, each per row, on the two row sets; the bf16 K8 within
+    the bf16 band), K8 int8 also by its codes and INT8_REL; K7 against its
+    twin; times at the serving path's shapes."""
     import torch
     from vitax_torch.ops import cuda_kernels as ck
     for name in RESVIT_KERNELS:
@@ -1394,7 +1410,7 @@ def check_resvit_kernels(stats):
                   f"{sq:.3e}", flush=True)
             stats[name]["square_gather_max_diff"] = max(
                 stats[name].get("square_gather_max_diff", 0.0), sq)
-            if sq > bound:
+            if sq > (0.0 if "int8" in name else bound):
                 raise AssertionError(f"{name} {label}: {sq} from the square "
                                      "kernel + gather")
             if i == 0:
@@ -1448,9 +1464,11 @@ def check_resvit_kernels(stats):
 
 
 # Res-ViT training at b32 (spq 200, seq 197): K8's backwards at capacity
-# 0.625 (124 rows, cpq 128; timed) and a ragged case; K7's at 4 kv heads
+# 0.625 (124 rows, cpq 128; timed), a ragged case and ft_resvit_fast.sh's
+# b192 drop geometry (cpq 64 of spq 104); K7's at 4 kv heads
 RECT_BWD_CASES = [("b32 cap124 cpq128 (C 0.625)", 32, 200, 197, 124),
-                  ("ragged b3 cap37", 3, 200, 197, 37)]
+                  ("ragged b3 cap37", 3, 200, 197, 37),
+                  ("b192 cap62 cpq64 spq104 (fast)", 192, 104, 99, 62)]
 GQA_BWD_CASES = [("b32 spq200 kv4", 32, 200, 197, 4)]
 
 
@@ -3045,6 +3063,12 @@ def run_resvit_train_slice(exp_root):
                       + "}" for _, _, got in train_log[-1:]) + ")"
                   + (f"; routing viz {viz} PNGs" if viz else ""), flush=True)
             shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
+            if label.startswith(("(c)", "(d)")):
+                # the int8 tiers' runs: the s8 products by kind against
+                # the launches, and no first-design piece (K8's int8 tier,
+                # K3, K4 on the Hopper designs)
+                _check_s8(f"resvit_train_cli {label}", counts[label],
+                          first_design=True)
             results[label] = valid
             if (bad or len(train_log) != steps
                     or not all(math.isfinite(v) for v in valid.values())):

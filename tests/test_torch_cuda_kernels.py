@@ -790,18 +790,22 @@ def _rect_args(dev, batch, spq, seq, cap, seed=0):
 
 
 # (batch, spq, seq_len, cap): Res-ViT b16 serving at capacity 0.625 (124 of
-# 197, cpq 128) and 0.5 (99, cpq 104), and a ragged small case
-RECT_SHAPES = [(64, 200, 197, 124), (64, 200, 197, 99), (3, 200, 197, 37)]
+# 197, cpq 128) and 0.5 (99, cpq 104), a ragged small case, and
+# ft_resvit_fast.sh's drop geometry (keep 0.5: 99 of spq 104, C 0.625: 62,
+# cpq 64) at its b192
+RECT_SHAPES = [(64, 200, 197, 124), (64, 200, 197, 99), (3, 200, 197, 37),
+               (192, 104, 99, 62)]
 
 
 @pytest.mark.parametrize("shape", RECT_SHAPES)
 @pytest.mark.parametrize("int8", [False, True])
 def test_rect_kernel_matches_twin_and_square_gather(dev, shape, int8):
     """K8 against its twin, and against the square kernel (K1, K3) on all
-    rows followed by the row gather, within the kernel band: K1 and K3 run
-    gemm_sm90.cuh's products and K13's core while K8 keeps gemm.cuh's and
-    the whole-row core (sums in another order; the same bits for int8 until
-    K3's forward moved to K13's core)."""
+    rows followed by the row gather: the int8 tier to the bit on the kept
+    rows (it runs K3's launches, each per row, on the two row sets:
+    vitax's contract, pallas_kernels.py:4418-4419), the bf16 K8 within the
+    kernel band (K1 runs gemm_sm90.cuh's products and K13's core while the
+    bf16 K8 keeps gemm.cuh's and the whole-row core)."""
     xc, qkvo, idx = _rect_args(dev, *shape)
     cap = shape[3]
     name = ("fused_ln_qkvo_attention_rect_int8" if int8
@@ -821,6 +825,7 @@ def test_rect_kernel_matches_twin_and_square_gather(dev, shape, int8):
     gathered = torch.gather(full, 1, idx[..., None].expand(-1, -1, 768))
     _assert_close(out[:, :cap], gathered)
     if int8:
+        assert torch.equal(out[:, :cap], gathered)
         _codes_within_band(name, sk, st)
     counts = {k: v for k, v in ck.launch_counts().items() if v}
     assert counts == {name: 1, square.__name__: 1}
@@ -2056,6 +2061,73 @@ def test_int8_forwards_on_hopper_launch_their_products(dev, shape):
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
         "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 1,
         "gemm_sm90_s8:s8_residual_f32": 0}
+
+
+# K8's int8 tier on its Hopper design (K3's launches on the two row sets,
+# K13's core in the rect geometry): the forward and both backward branches
+# at Res-ViT's b32 C 0.625 (cpq 128 of spq 200), ft_resvit_fast.sh's b192
+# drop geometry (cpq 64 of spq 104, cap 62), a ragged b3 cap 37 and b16@416
+# (spq 680, seq 677: past the whole-row core); every output within the
+# bf16 tolerance and INT8_REL of the twin, the codes within their bands,
+# two launches the same bits, dk = dv = 0 on the keys >= seq_len (dbkv's
+# share of them), the s8 products by kind and no first-design piece.
+RECT_HOPPER_SHAPES = [(32, 200, 197, 124), (192, 104, 99, 62),
+                      (3, 200, 197, 37), (4, 680, 677, 400)]
+RECT_INT8 = ("fused_ln_qkvo_attention_rect_int8",
+             "fused_ln_qkvo_attention_rect_int8_bwd",
+             "fused_ln_qkvo_attention_rect_int8_dw_bwd")
+
+
+@pytest.mark.parametrize("shape", RECT_HOPPER_SHAPES)
+def test_rect_int8_on_hopper_launch_their_products(dev, shape):
+    args, _ = _rect_bwd_args(dev, *shape)
+    fwd_args = (*args[:7], torch.zeros(768, device=dev) + 0.01, *args[8:])
+    ck.reset_launch_counts()
+    for name in RECT_INT8:
+        a = fwd_args if name == RECT_INT8[0] else args
+        sk, st = {}, {}
+        with torch.no_grad():
+            outs = getattr(ck, name)(*a, scratch=sk)
+            again = getattr(ck, name)(*a)
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(*a, scratch=st)
+        if name == RECT_INT8[0]:
+            outs, again, refs = (outs,), (again,), (refs,)
+        for i, (out, out2, ref) in enumerate(zip(outs, again, refs)):
+            _assert_close(out, ref)
+            assert torch.equal(out, out2), (name, i)
+            rel = ((out.double() - ref.double()).norm()
+                   / ref.double().norm().clamp_min(1e-30)).item()
+            assert rel <= INT8_REL, (name, i, rel)
+        _codes_within_band(name, sk, st)
+        del outs, again, refs
+    counts = ck.s8_launch_counts()
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(RECT_INT8, 2)
+    assert counts == {
+        "gemm_sm90_s8:s8_bf16": 2 * 3 + 2 * 3 * 2, "gemm_sm90_s8:s8_f32": 8,
+        "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 6,
+        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
+        "gemm_sm90_s8:s8_residual_f32": 0}
+    assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
+                                               "attention.cuh:core": 0}
+
+
+@pytest.mark.parametrize("int8_dw", [False, True])
+def test_rect_int8_backward_writes_zero_grads_on_masked_keys(dev, int8_dw):
+    """The key pass in the rect geometry writes dk and dv as 0 on the key
+    rows seq_len..spq (vitax's p is exactly 0 there): their row codes are
+    0, so is dxn, and dx on those rows of x is exactly 0."""
+    args, _ = _rect_bwd_args(dev, 4, 200, 150, 37)
+    name = ("fused_ln_qkvo_attention_rect_int8_dw_bwd" if int8_dw
+            else "fused_ln_qkvo_attention_rect_int8_bwd")
+    sk = {}
+    with torch.no_grad():
+        dx = getattr(ck, name)(*args, scratch=sk)[1]
+    assert torch.isfinite(dx.float()).all()
+    assert dx[:, 150:].abs().max().item() == 0
+    codes = sk["dkvq"][0].view(4, 200, -1)
+    assert codes[:, 150:].abs().max().item() == 0
 
 
 # The shapes that K13's limits admit to the K1 family and the whole-row

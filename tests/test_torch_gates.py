@@ -290,7 +290,8 @@ FIRST_DESIGN = [
     ("K7's int8 backward", "int8_bwd", KV_HEADS),
     ("K11-C", "int4", None), ("G-F", "int4", KV_HEADS),
     ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS),
-    ("K8", "rect", None)]
+    ("K8", "rect", None), ("R-F", "rect_int4", None),
+    ("R-B", "rect_int4_bwd", None)]
 
 
 def _launch_checks(launch, t, s, h, hd, hkv):
@@ -312,6 +313,11 @@ def _launch_checks(launch, t, s, h, hd, hkv):
         return ck._ln_qkvo_int8_bwd_cuda("k", x, g, be, w, bq, wo, t["do"],
                                          1e-6, s, h, hd, hkv, False, None,
                                          int4=launch == "int4_bwd")
+    if launch in ("rect_int4", "rect_int4_bwd"):
+        return ck._check_rect("k", x[:, :x.shape[1] // 16 * 8], x, g, be, w,
+                              bq, wo, t["bo"], s, h, hd,
+                              backward=launch == "rect_int4_bwd", int8=True,
+                              int4=True)
     assert launch == "rect", launch
     return ck._check_rect("k", x[:, :x.shape[1] // 16 * 8], x, g, be, w, bq,
                           wo, t["bo"], s, h, hd, backward=True)
@@ -364,6 +370,30 @@ def test_k5_takes_the_shapes_only_k13_fits(monkeypatch, arch, image):
     w1 = torch.empty((d, 4 * d), dtype=torch.bfloat16, device="meta")
     w2 = torch.empty((4 * d, d), dtype=torch.bfloat16, device="meta")
     assert ck.ln_mlp_supported(x.reshape(1, b * spq, d), w1, w2)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
+def test_k8_int8_takes_the_shapes_only_k13_fits(monkeypatch, arch, image,
+                                                backward):
+    """K8's int8 tier runs K13's core in its rect geometry: where the K1
+    family's gate and vitax's take a shape that the whole-row core cannot
+    (seq 677; head dim 80), its wrappers' checks pass, forward and
+    backward, before they allocate anything, as K5's and K3's Hopper
+    launches do; the bf16 K8 at the same shapes still raises by name."""
+    t, s, h, hd, _ = _meta_half(arch, image)
+    x = t["x"]
+    xc = x[:, :x.shape[1] // 16 * 8]
+    assert ck.qkv_attention_rect_supported(xc, x, t["wqkv"], h)
+    assert not ck._core_fits(x, t["wqkv"], h)
+    monkeypatch.setattr(ck, "_check_cuda",
+                        lambda name, tensors, dtypes: torch.device("meta"))
+    args = ("k", xc, x, t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"],
+            t["bo"], s, h, hd)
+    ck._check_rect(*args, backward=backward, int8=True)
+    with pytest.raises(NotImplementedError,
+                       match="K8 keeps the first design.*Queue 2"):
+        ck._check_rect(*args, backward=backward)
 
 
 # ------------------------------------------------------------ under a mesh

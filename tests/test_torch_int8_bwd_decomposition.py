@@ -33,7 +33,6 @@ images (160 rows: the port's int8_dw groups 128 and 32).
 """
 
 import functools
-import math
 
 import numpy as np
 import pytest
@@ -42,16 +41,15 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+from tests import torch_int8_compose as compose  # noqa: E402
 from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
-from vitax_torch.ops.common import matmul_f32  # noqa: E402
-from vitax_torch.ops.quant import (quant_cols, quant_cols_host,  # noqa: E402
-                                   quant_rows, quant_rows_host)
+from vitax_torch.ops.quant import (quant_cols_host, quant_rows,  # noqa: E402
+                                   quant_rows_host)
 
 D, H, HD, M, SPQ, SEQ, EPS = 128, 2, 64, 256, 16, 10, 1e-5
 BF = torch.bfloat16
 TOL = 2e-2
-TILE = 128  # gemm_sm90.cuh's s8 K tile (kBK8)
 K3_BATCH, K4_BATCH = 8, 10
 QKVO = ("x", "gamma", "beta", "wqkv", "bqkv", "wo")
 MLP = ("x", "gamma", "beta", "w1", "b1", "w2")
@@ -105,43 +103,9 @@ def _ln_quant(t, from_bf16):
     return xhat, rstd, xn32, xq, sx
 
 
-def _group_fold(a, u, q, group):
-    """An int8_dw weight grad as the card computes it: dw_int8.cuh's packs
-    (the column codes of a·u over each group of `group` rows, and the row
-    codes q, both transposed to [W, kp] with each group's rows zero-padded
-    to whole 128-code K tiles), then `s8_group`'s fold."""
-    gp = -(-group // TILE) * TILE
-    packs, scales, codes = [], [], []
-    for r0 in range(0, a.shape[0], group):
-        ac, sc = quant_cols(a[r0:r0 + group].float() * u[r0:r0 + group])
-        pad = (0, 0, 0, gp - ac.shape[0])
-        packs.append(torch.nn.functional.pad(ac, pad))
-        codes.append(torch.nn.functional.pad(q[r0:r0 + group], pad))
-        scales.append(sc.reshape(-1))
-    at, qt = torch.cat(packs).t().contiguous(), torch.cat(codes).t()
-    return ck.gemm_sm90_s8_ref("s8_group", at, qt.contiguous(),
-                               torch.stack(scales), group=gp)
-
-
 def _k13_core_grads(q, k, v, o, d_o):
-    """K13's three backward passes (attention_core_bwd.cu) on heads [B, H,
-    spq, Hd]: the row pass's m (of s·scale·log2e), 1/l and dd = Σ
-    f32(dO)·f32(o), o the bf16 head outputs; p = exp2(s·c − m)·(1/l), 0 on
-    the keys >= SEQ; ds = bf16(p (dO·vᵀ − dd)); dk = bf16((dsᵀ·q)·scale),
-    dv = bf16(bf16(p)ᵀ·dO) (the key pass), dq = bf16((ds·k)·scale) (the
-    query pass)."""
-    scale = 1.0 / math.sqrt(HD)
-    s = matmul_f32(q, k.transpose(-1, -2)) * (scale * math.log2(math.e))
-    s[..., SEQ:] = -math.inf
-    m = s.amax(dim=-1, keepdim=True)
-    inv = 1.0 / torch.exp2(s - m).sum(dim=-1, keepdim=True)
-    p = torch.exp2(s - m) * inv
-    dd = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
-    ds = (p * (matmul_f32(d_o, v.transpose(-1, -2)) - dd)).to(BF)
-    dq = (matmul_f32(ds, k) * scale).to(BF)
-    dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(BF)
-    dv = matmul_f32(p.to(BF).transpose(-1, -2), d_o).to(BF)
-    return dq, dk, dv
+    """K13's three backward passes on the packed rows' heads."""
+    return compose.k13_core_grads(q, k, v, o, d_o, SEQ)
 
 
 def k3_bwd_composed(t, int8_dw, group):
@@ -160,7 +124,7 @@ def k3_bwd_composed(t, int8_dw, group):
     attn = ck._heads_to_rows(o)
     doq, sdo = quant_rows(do2.float())
     dattn = ck.gemm_sm90_s8_ref("s8_bf16", doq, wo8r, sdo, swor)
-    dwo = (_group_fold(attn, sdo, doq, group) if int8_dw
+    dwo = (compose.group_fold(attn, sdo, doq, group) if int8_dw
            else ck.gemm_sm90_ref("tn_f32", attn, do2))
     dbo = do2.float().sum(dim=0)
     d_o = ck._split_heads(dattn.view(b, SPQ, -1), H)
@@ -168,7 +132,7 @@ def k3_bwd_composed(t, int8_dw, group):
                       for g in _k13_core_grads(q, k, v, o, d_o)], dim=1)
     dqq, sdq = quant_rows(dqkv.float())
     dxn = ck.gemm_sm90_s8_ref("s8_f32", dqq, w8r, sdq, swr)
-    dw = (_group_fold(xn32, sdq, dqq, group) if int8_dw
+    dw = (compose.group_fold(xn32, sdq, dqq, group) if int8_dw
           else ck.gemm_sm90_ref("tn_f32", xn32.to(BF), dqkv))
     dbqkv = dqkv.float().sum(dim=0)
     dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
@@ -191,8 +155,8 @@ def k4_bwd_composed(t, int8_dw, group, residual):
     db2, db1 = do2.float().sum(dim=0), dh1_32.sum(dim=0)
     dh1q, sd = quant_rows(dh1_32)
     if int8_dw:
-        dw2 = _group_fold(h1, sdo, doq, group)
-        dw1 = _group_fold(xn, sd, dh1q, group)
+        dw2 = compose.group_fold(h1, sdo, doq, group)
+        dw1 = compose.group_fold(xn, sd, dh1q, group)
     else:
         dw2 = ck.gemm_sm90_ref("tn_f32", h1, do2)
         dw1 = ck.gemm_sm90_ref("tn_f32", xn, dh1)

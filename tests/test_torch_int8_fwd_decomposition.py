@@ -25,8 +25,6 @@ int8 tiers' CPU band 2e-2 (test_torch_int8.py's).
 Tiny widths: D 128, 2 heads of 64, M 256, spq 16 with seq_len 10, bf16.
 """
 
-import math
-
 import numpy as np
 import pytest
 
@@ -34,9 +32,9 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+from tests import torch_int8_compose as compose  # noqa: E402
 from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
-from vitax_torch.ops.common import matmul_f32  # noqa: E402
 from vitax_torch.ops.quant import int_mm, quant_cols_host, quant_rows  # noqa: E402
 
 D, H, HD, M, SPQ, SEQ, EPS = 128, 2, 64, 256, 16, 10, 1e-5
@@ -78,39 +76,12 @@ def _jax(arrays):
 
 def _ln_quant(x2, gamma, beta):
     """The LN-quant prologue: the codes and scales of the fp32 LN output."""
-    xhat, _ = ck._ln_stats(x2.float(), EPS)
-    return quant_rows(ck._affine(xhat, gamma, beta))
-
-
-def _k13_core_f32(qkv, b):
-    """K13's forward core (kRowsFwdF32) on the packed qkv rows [b·SPQ,
-    3·H·HD]: per head, m of s·scale·log2e over the keys < SEQ, 1/l of
-    Σ exp2(s·c − m), p = exp2(s·c − m)·(1/l), 0 on the keys >= SEQ, rounded
-    to bf16 once; the fp32 head outputs p·v side by side, [b·SPQ, H·HD]."""
-    q, k, v = (ck._split_heads(qkv.view(b, SPQ, -1)[..., i * H * HD:
-                                                    (i + 1) * H * HD], H)
-               for i in range(3))
-    s = matmul_f32(q, k.transpose(-1, -2)) * (math.log2(math.e)
-                                              / math.sqrt(HD))
-    s[..., SEQ:] = -math.inf
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp2(s - m)
-    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
-    return ck._heads_to_rows(matmul_f32(p.to(BF), v))
+    return compose.ln_quant(x2, gamma, beta, EPS)
 
 
 def k3_fwd_composed(t):
     """K3's forward in its launch order: (out, qkv)."""
-    b = t["x"].shape[0]
-    w8, sw = quant_cols_host(t["wqkv"])  # stored [W, D]: its transpose
-    wo8, swo = quant_cols_host(t["wo"])
-    xq, sx = _ln_quant(t["x"].reshape(-1, D), t["gamma"], t["beta"])
-    qkv = ck.gemm_sm90_s8_ref("s8_bf16", xq, w8.t().contiguous(), sx, sw,
-                              t["bqkv"])
-    aq, sa = quant_rows(_k13_core_f32(qkv, b))
-    out = ck.gemm_sm90_s8_ref("s8_bf16", aq, wo8.t().contiguous(), sa, swo,
-                              t["bo"])
-    return out.view(t["x"].shape), qkv
+    return compose.k3_fwd_composed(t, SEQ, H, HD, EPS)
 
 
 def k4_fwd_composed(t, residual):

@@ -222,30 +222,16 @@ def test_router_forward_train_matches_vitax(dtype, block_size):
 
 # ---------------------------------------------------------------- apply
 
+# (dtype, path, overrides): dense and compacted on the plain and fused
+# paths; the other routes (overflow, token drop, GQA, --no-fused-qkv,
+# --save-acts) are tests/test_torch_resvit_train_apply.py's cases of the
+# same check, a file of their own so that two workers share the cases
 APPLY_CASES = [
-    # (dtype, path, overrides)
     ("float32", "plain", {}),
     ("float32", "plain", dict(compact_capacity=0.625)),
     ("float32", "fused", {}),
     ("bfloat16", "fused", {}),
     ("float32", "fused", dict(compact_capacity=0.625)),
-    # capacity 0.3 (6 of 17 tokens) overflows: demotion clears path bits
-    ("float32", "fused", dict(compact_capacity=0.3)),
-    ("float32", "fused", dict(token_keep=0.5, compact_capacity=0.625)),
-    # GQA: the rect half declines, the square K7 runs and is gathered
-    ("float32", "fused", dict(n_kv_heads=1, compact_capacity=0.625)),
-    ("float32", "plain", dict(n_kv_heads=1, use_lora=False)),
-    # --no-fused-qkv: K13's twins under autograd, teacher and student
-    ("float32", "k13", {}),
-    ("bfloat16", "k13", {}),
-    ("float32", "k13", dict(n_kv_heads=1, use_lora=False)),
-    # --save-acts: K12's twins in the student, K2's or K4's forward in the
-    # teacher (no grad); the int8 tier as vitax's _ln_mlp_2d_int8s, int8_dw
-    # off and on (one group of the 68 rows in both packages)
-    ("float32", "fused", dict(fused_mlp_save=True)),
-    ("bfloat16", "fused", dict(fused_mlp_save=True)),
-    ("float32", "fused", dict(INT8_GRAD, fused_mlp_save=True)),
-    ("float32", "fused", dict(INT8_GRAD, int8_dw=True, fused_mlp_save=True)),
 ]
 
 
@@ -268,6 +254,11 @@ def test_apply_train_matches_vitax(dtype, path, kw):
     """apply(train=True) with vitax's noise and kept tokens injected: the
     logits, the distill loss, the keep bits, the soft probabilities and the
     grads of the 3-term loss for every trainable leaf."""
+    check_apply_train(dtype, path, kw)
+
+
+def check_apply_train(dtype, path, kw):
+    """`test_apply_train_matches_vitax`'s check of one case."""
     jc, tc = _cfgs(dtype, **PATHS[path], **kw)
     w = _weights(jc)
     img, labels = _batch()

@@ -1,0 +1,116 @@
+"""Plain pieces of the Hopper int8 attention halves, composed on CPU tensors
+by the decomposition tests (test_torch_int8_fwd_decomposition.py,
+test_torch_int8_bwd_decomposition.py, test_torch_rect_int8_decomposition.py):
+the LN-quant prologue, K13's forward core with its fp32 out
+(attention_core.cuh, kRowsFwdF32), K13's three backward passes
+(attention_core_bwd.cu), the int8_dw group fold as the card runs it
+(dw_int8.cuh's packs, `s8_group`), and K3's forward in its launch order.
+Every core piece takes per-head tensors [B, H, rows, Hd] with the query and
+key sides apart, so the square geometry (K3) and K8's rect one (cpq query
+rows against spq key rows) run the same code.
+"""
+
+import math
+
+import torch
+
+from vitax_torch.ops import cuda_kernels as ck
+from vitax_torch.ops.common import matmul_f32
+from vitax_torch.ops.quant import quant_cols, quant_cols_host, quant_rows
+
+BF = torch.bfloat16
+TILE = 128  # gemm_sm90.cuh's s8 K tile (kBK8)
+
+
+def ln_quant(x2, gamma, beta, eps):
+    """The LN-quant prologue: the codes and scales of the fp32 LN output."""
+    xhat, _ = ck._ln_stats(x2.float(), eps)
+    return quant_rows(ck._affine(xhat, gamma, beta))
+
+
+def _scores(q, k, seq_len):
+    """s·scale·log2e of q [B, H, Sq, Hd] against k [B, H, Sk, Hd], the keys
+    >= seq_len at −inf."""
+    s = matmul_f32(q, k.transpose(-1, -2)) * (math.log2(math.e)
+                                              / math.sqrt(q.shape[-1]))
+    s[..., seq_len:] = -math.inf
+    return s
+
+
+def k13_core_f32(q, k, v, seq_len):
+    """K13's forward core (kRowsFwdF32): per query row m of s·scale·log2e
+    over the keys < seq_len, 1/l of Σ exp2(s·c − m), p = exp2(s·c −
+    m)·(1/l), 0 on the keys >= seq_len, rounded to bf16 once; the fp32
+    head outputs p·v [B, H, Sq, Hd], never rounded (the bf16 forward rounds
+    them once)."""
+    s = _scores(q, k, seq_len)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp2(s - m)
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    return matmul_f32(p.to(BF), v)
+
+
+def k13_core_grads(q, k, v, o, d_o, seq_len):
+    """K13's three backward passes on q, o, d_o [B, H, Sq, Hd] and k, v
+    [B, H, Sk, Hd]: the row pass's m (of s·scale·log2e), 1/l and dd = Σ
+    f32(dO)·f32(o) of every query row, o the bf16 head outputs; the key
+    pass's p = exp2(s·c − m)·(1/l), 0 on the keys >= seq_len, ds =
+    bf16(p (dO·vᵀ − dd)), dk = bf16((dsᵀ·q)·scale) and dv =
+    bf16(bf16(p)ᵀ·dO), written as 0 on the key rows >= seq_len; the query
+    pass's dq = bf16((ds·k)·scale). Returns (dq, dk, dv)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    # the row pass
+    s = _scores(q, k, seq_len)
+    m = s.amax(dim=-1, keepdim=True)
+    inv = 1.0 / torch.exp2(s - m).sum(dim=-1, keepdim=True)
+    dd = (d_o.float() * o.float()).sum(dim=-1, keepdim=True)
+    # the key pass
+    p = torch.exp2(s - m) * inv
+    ds = (p * (matmul_f32(d_o, v.transpose(-1, -2)) - dd)).to(BF)
+    dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(BF)
+    dv = matmul_f32(p.to(BF).transpose(-1, -2), d_o).to(BF)
+    dk[..., seq_len:, :] = 0
+    dv[..., seq_len:, :] = 0
+    # the query pass
+    dq = (matmul_f32(ds, k) * scale).to(BF)
+    return dq, dk, dv
+
+
+def group_fold(a, u, q, group):
+    """An int8_dw weight grad as the card computes it: dw_int8.cuh's packs
+    (the column codes of a·u over each group of `group` rows, and the row
+    codes q, both transposed to [W, kp] with each group's rows zero-padded
+    to whole 128-code K tiles), then `s8_group`'s fold."""
+    gp = -(-group // TILE) * TILE
+    packs, scales, codes = [], [], []
+    for r0 in range(0, a.shape[0], group):
+        ac, sc = quant_cols(a[r0:r0 + group].float() * u[r0:r0 + group])
+        pad = (0, 0, 0, gp - ac.shape[0])
+        packs.append(torch.nn.functional.pad(ac, pad))
+        codes.append(torch.nn.functional.pad(q[r0:r0 + group], pad))
+        scales.append(sc.reshape(-1))
+    at, qt = torch.cat(packs).t().contiguous(), torch.cat(codes).t()
+    return ck.gemm_sm90_s8_ref("s8_group", at, qt.contiguous(),
+                               torch.stack(scales), group=gp)
+
+
+def k3_fwd_composed(t, seq_len, heads, head_dim, eps):
+    """K3's forward (ln_qkvo_attention_int8.cu, kv_heads == heads) in its
+    launch order on t["x"] [B, spq, D]: the weights' column codes, the
+    LN-quant prologue, qkv on `gemm_sm90_s8_ref("s8_bf16")` + bias, K13's
+    core with the fp32 out on the packed rows, the attn's row codes, the
+    out-projection on `s8_bf16` + bias. Returns (out, qkv)."""
+    b, spq, d = t["x"].shape
+    hhd = heads * head_dim
+    w8, sw = quant_cols_host(t["wqkv"])  # stored [W, D]: its transpose
+    wo8, swo = quant_cols_host(t["wo"])
+    xq, sx = ln_quant(t["x"].reshape(-1, d), t["gamma"], t["beta"], eps)
+    qkv = ck.gemm_sm90_s8_ref("s8_bf16", xq, w8.t().contiguous(), sx, sw,
+                              t["bqkv"])
+    q, k, v = (ck._split_heads(qkv.view(b, spq, -1)[..., i * hhd:
+                                                    (i + 1) * hhd], heads)
+               for i in range(3))
+    aq, sa = quant_rows(ck._heads_to_rows(k13_core_f32(q, k, v, seq_len)))
+    out = ck.gemm_sm90_s8_ref("s8_bf16", aq, wo8.t().contiguous(), sa, swo,
+                              t["bo"])
+    return out.view(t["x"].shape), qkv

@@ -58,16 +58,21 @@ constexpr int kThreads = 128;  // a warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Everything a K13 kernel reads or writes. Head h of image img of each of
-// q, k, v, out (o), dout and the grads starts at row img·img_rows, column
-// h·HD, with its own row stride (ld_*, in elements): K13's own tensors are
-// [images, seq, heads, HD] (every ld heads·HD, rows = img_rows = seq, the
-// dense_geometry below); K1's backward reads q, k, v as column blocks of its
-// packed qkv rows and writes dq, dk, dv into dqkv's (rows = img_rows = spq).
-// Query rows run to `rows`, keys to `seq` (<= rows; keys >= seq masked);
-// stats is the backward's [images, heads, 3, seq_pad] fp32 scratch:
-// m·scale·log2e, 1/l and dd of every query row, seq_pad = rows rounded up
-// to 64. o32 is the fp32 out of the kRowsFwdF32 mode (K3's forward), with
-// o's row stride ld_o.
+// the query side's tensors (q, out (o, o32), dout, dq) starts at row
+// img·img_rows, and of the key side's (k, v, dk, dv) at row img·kv_img_rows,
+// column h·HD, each with its own row stride (ld_*, in elements): K13's own
+// tensors are [images, seq, heads, HD] (every ld heads·HD, rows = kv_rows =
+// img_rows = kv_img_rows = seq, the dense_geometry below); K1's backward
+// reads q, k, v as column blocks of its packed qkv rows and writes dq, dk,
+// dv into dqkv's (every row count spq). Query rows run to `rows`; the key
+// side holds kv_rows rows an image, of which the keys < `seq` attend (keys
+// >= seq masked, and their dk, dv written as 0): the square geometry has
+// kv_rows = rows; K8's rect one (ln_qkvo_attention_rect_int8*.cu) has
+// rows = cpq query rows against kv_rows = spq key rows, seq <= spq, and
+// seq may pass rows. stats is the backward's [images, heads, 3, seq_pad]
+// fp32 scratch: m·scale·log2e, 1/l and dd of every query row, seq_pad =
+// rows rounded up to 64. o32 is the fp32 out of the kRowsFwdF32 mode (K3's
+// and K8's int8 forwards), with o's row stride ld_o.
 struct CoreArgs {
   const bf16* q;
   const bf16* k;
@@ -86,19 +91,33 @@ struct CoreArgs {
   float scale;
   int rows;
   int img_rows;
+  int kv_rows;
+  int kv_img_rows;
   int ld_q, ld_k, ld_v, ld_o, ld_do, ld_dq, ld_dk, ld_dv;
 };
 
 // K13's own layout: every tensor [images, seq, heads, head_dim]
 inline void dense_geometry(CoreArgs& a, int seq, int heads, int head_dim) {
-  a.seq = a.rows = a.img_rows = seq;
+  a.seq = a.rows = a.img_rows = a.kv_rows = a.kv_img_rows = seq;
   a.heads = heads;
   a.ld_q = a.ld_k = a.ld_v = a.ld_o = a.ld_do = a.ld_dq = a.ld_dk = a.ld_dv = heads * head_dim;
 }
 
-// The element offset of head h of image img in a tensor of row stride ld
+// The element offset of head h of image img in a query-side tensor of row
+// stride ld
 __device__ __forceinline__ size_t head_off(const CoreArgs& a, int ld, int img, int h, int hd) {
   return static_cast<size_t>(img) * a.img_rows * ld + static_cast<size_t>(h) * hd;
+}
+// ... and in a key-side tensor (k, v, dk, dv)
+__device__ __forceinline__ size_t kv_head_off(const CoreArgs& a, int ld, int img, int h, int hd) {
+  return static_cast<size_t>(img) * a.kv_img_rows * ld + static_cast<size_t>(h) * hd;
+}
+
+// A geometry the kernels take: rows on both sides, keys to at most the key
+// side's rows
+inline bool geometry_ok(const CoreArgs& a) {
+  return a.rows > 0 && a.seq > 0 && a.seq <= a.kv_rows && a.kv_rows <= a.kv_img_rows &&
+         a.rows <= a.img_rows;
 }
 
 // The forward (attention_core.cu) and the backward's three passes
@@ -419,8 +438,8 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
   const int img = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = (blockIdx.x * kRowWgs + wg) * kRows;
-  const bf16* kh = a.k + head_off(a, a.ld_k, img, h, HD);
-  const bf16* vh = a.v + head_off(a, a.ld_v, img, h, HD);
+  const bf16* kh = a.k + kv_head_off(a, a.ld_k, img, h, HD);
+  const bf16* vh = a.v + kv_head_off(a, a.ld_v, img, h, HD);
   const int nt = (a.seq + kRows - 1) / kRows;
   const int steps = kRowPass || kOnline ? nt : 2 * nt;
   const float c = a.scale * kLog2e;
@@ -660,6 +679,7 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
 template <int HD, int kMode>
 cudaError_t launch_rows(const CoreArgs& a, int images, cudaStream_t st) {
   constexpr size_t smem = kRowsSmem<HD, kMode>;
+  if (!geometry_ok(a)) return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(core_rows_kernel<HD, kMode>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));

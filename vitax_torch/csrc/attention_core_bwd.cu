@@ -55,6 +55,12 @@
 // forward's (attention_core.cuh, kRowsOnlineStats: dd from the fp32 out,
 // vitax's :3479), then the key and query passes alone
 // (launch_core_bwd_passes), which read its statistics as they read these.
+// K8's int8 backward (ln_qkvo_attention_rect_int8_bwd.cu) runs them in the
+// rect geometry (attention_core.cuh's CoreArgs): the row and query passes
+// over the cpq query rows of q and dO (xc's zero pad rows [cap, cpq)
+// included, as vitax computes them), the key pass over the spq key rows of
+// k and v, which walks the query tiles and writes dk, dv on every key row,
+// 0 on the rows seq_len..spq.
 #include "attention_core.cuh"
 
 namespace vitax {
@@ -92,10 +98,13 @@ __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
   const int nt = (a.rows + kRows - 1) / kRows;  // query tiles
   const float c = a.scale * kLog2e;
 
-  // key rows >= seq (a tile of them past seq in K1's padded rows) stage zeros
-  stage<HD, kThreads>(Ks, a.k + head_off(a, a.ld_k, img, h, HD) + static_cast<size_t>(k0) * a.ld_k,
+  // key rows >= seq (a tile of them past seq in K1's and K8's padded rows)
+  // stage zeros
+  stage<HD, kThreads>(Ks,
+                      a.k + kv_head_off(a, a.ld_k, img, h, HD) + static_cast<size_t>(k0) * a.ld_k,
                       a.ld_k, a.seq - k0, threadIdx.x);
-  stage<HD, kThreads>(Vs, a.v + head_off(a, a.ld_v, img, h, HD) + static_cast<size_t>(k0) * a.ld_v,
+  stage<HD, kThreads>(Vs,
+                      a.v + kv_head_off(a, a.ld_v, img, h, HD) + static_cast<size_t>(k0) * a.ld_v,
                       a.ld_v, a.seq - k0, threadIdx.x);
   auto issue = [&](int qt) {
     if (qt < nt) {
@@ -169,18 +178,18 @@ __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
     fence_regs<HD / 2>(dv);
     fence_regs<HD / 2>(dk);
   }
-  if (k0 + kRows > a.seq) {  // keys >= seq (stored only past K1's seq_len): p is 0, so are dk, dv
+  if (k0 + kRows > a.seq) {  // keys >= seq (stored only past seq_len): p is 0, so are dk, dv
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) {
       if (k0 + acc_row(i) >= a.seq) dk[i] = dv[i] = 0.f;
     }
   }
   store_rows<HD>(dk, a.scale, ring,
-                 a.dk + head_off(a, a.ld_dk, img, h, HD) + static_cast<size_t>(k0) * a.ld_dk,
-                 a.ld_dk, a.rows - k0);
+                 a.dk + kv_head_off(a, a.ld_dk, img, h, HD) + static_cast<size_t>(k0) * a.ld_dk,
+                 a.ld_dk, a.kv_rows - k0);
   store_rows<HD>(dv, 1.f, ring,
-                 a.dv + head_off(a, a.ld_dv, img, h, HD) + static_cast<size_t>(k0) * a.ld_dv,
-                 a.ld_dv, a.rows - k0);
+                 a.dv + kv_head_off(a, a.ld_dv, img, h, HD) + static_cast<size_t>(k0) * a.ld_dv,
+                 a.ld_dv, a.kv_rows - k0);
 }
 
 // One block a (64-row query tile, head, image): dq of its rows, with dQ of
@@ -195,8 +204,8 @@ __global__ void __launch_bounds__(kThreads) core_dq_kernel(CoreArgs a) {
   const int img = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * kRows;
-  const bf16* kh = a.k + head_off(a, a.ld_k, img, h, HD);
-  const bf16* vh = a.v + head_off(a, a.ld_v, img, h, HD);
+  const bf16* kh = a.k + kv_head_off(a, a.ld_k, img, h, HD);
+  const bf16* vh = a.v + kv_head_off(a, a.ld_v, img, h, HD);
   const float* stats =
       a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad + q0;
   const int nt = (a.seq + kRows - 1) / kRows;  // key tiles
@@ -280,20 +289,23 @@ __global__ void __launch_bounds__(kThreads) core_dq_kernel(CoreArgs a) {
                  a.ld_dq, a.rows - q0);
 }
 
-// The key and query passes
+// The key pass over the key side's rows, then the query pass over the
+// query rows
 template <int HD>
 cudaError_t launch_passes(const CoreArgs& a, int images, cudaStream_t st) {
-  const dim3 grid((a.rows + kRows - 1) / kRows, a.heads, images);
+  if (!geometry_ok(a)) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       core_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDkvSmem<HD>));
   if (e != cudaSuccess) return e;
-  core_dkv_kernel<HD><<<grid, kThreads, kDkvSmem<HD>, st>>>(a);
+  core_dkv_kernel<HD><<<dim3((a.kv_rows + kRows - 1) / kRows, a.heads, images), kThreads,
+                        kDkvSmem<HD>, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(core_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(kDqSmem<HD>));
   if (e != cudaSuccess) return e;
-  core_dq_kernel<HD><<<grid, kThreads, kDqSmem<HD>, st>>>(a);
+  core_dq_kernel<HD><<<dim3((a.rows + kRows - 1) / kRows, a.heads, images), kThreads, kDqSmem<HD>,
+                       st>>>(a);
   return cudaGetLastError();
 }
 

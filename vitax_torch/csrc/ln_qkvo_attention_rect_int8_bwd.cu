@@ -33,10 +33,37 @@
 //
 // Bound on the H100: the s8 projections (four, and three more under
 // int8_dw) and two bf16 kTN products on the tensor cores, and the core's
-// recompute and backward. Design: the bf16 tier's launches
-// (ln_qkvo_attention_rect_bwd.cu) with the quantizing LN, the s8 GEMM, the
-// row quantizer and the int8_dw products swapped in. No float atomics: two
-// runs give the same bits.
+// recompute and backward.
+//
+// The Hopper design: K3's backward sequence (ln_qkvo_attention_int8_bwd.cu)
+// on K8's two row sets, after the weights' codes (quant.cuh):
+//   1. the LN-quant recompute of xc and of x (layernorm.cuh, the row in
+//      registers): xqc, sxc, xq, sx and xnc, xn (bf16, or fp32 under
+//      int8_dw);
+//   2. q and kv on gemm_sm90.cuh's s8 wgmma path (kEpiS8Bf16 + bias);
+//   3. K13's forward core (attention_core.cuh) in its rect geometry (the
+//      cpq query rows of q against the spq key rows of kv), attn in bf16 as
+//      vitax's recompute rounds it;
+//   4. doq, sdo; dattn = bf16(f32(doq·Wo8rᵀ)·sdo·swor) on the s8 path;
+//   5. dWo: gemm_sm90.cuh's kTN or, under int8_dw, dw_int8.cuh's operand
+//      packs over group_c rows (each group's rows padded to the 128-code K
+//      tile) and the s8 path's group fold (kEpiS8Group); dbo a column sum;
+//   6. the core grads through K13's three passes in the rect geometry: the
+//      row pass over the cpq query rows (m·scale·log2e, 1/l and dd from the
+//      bf16 attn into the stats scratch), the key pass over the spq key rows
+//      (dk, dv into kv's packed columns of dkv, 0 on the keys >= seq_len),
+//      the query pass (dq): neither P nor ds reaches device memory (the
+//      first design kept 2·B·H·cpq·spq bf16 of them, 61 MB at b192 cpq 64
+//      spq 104);
+//   7. dqq, sdq, then dxnc on the s8 path (kEpiS8F32); dkvq, sdkv, then dxn;
+//   8. dWq over group_c rows and dWkv over group_k (kTN, or the group folds
+//      from the fp32 xnc and xn); dbq, dbkv column sums;
+//   9. the two LN backwards (launch_layer_norm_bwd_two).
+// xc's zero pad rows [cap, cpq) are query rows like any other: vitax
+// computes them, and their dO (zero as the caller cuts it, but whatever it
+// is) enters dk, dv, dWq, dWo and dbq. The core grads are K3's backward's,
+// so they move from the first design within the int8 band. No float
+// atomics: two runs give the same bits.
 //
 // R-B, the int4_grad branch (vitax_ln_qkvo_attention_rect_int4_bwd): the
 // same Pallas body with _qr = _quant_rows4 (:4272) and the int4 weight
@@ -53,20 +80,190 @@
 //   dWkv = Σ_z f32(quant_cols(xn32_z)^T quant_cols(dkv_z)) sxn_z sdkv_z    group_k rows
 // (dw_int8.cuh's launch_dw_int8_cols) over the int8 tier's groups. The pad
 // rows of xc and x (zero rows, whose LN output is beta) enter the column
-// scales as in vitax; nothing masks them. Bound and design: the int8
-// tier's.
+// scales as in vitax; nothing masks them. It keeps the first design in a
+// branch of its own, as K11-D does: the steps above with gemm.cuh's mma.sync
+// s8 GEMM and kTN, the quantizing LN and the row quantizer swapped in, and
+// attention.cuh's whole-row core and its backward in the rect geometry,
+// with bf16 P and ds in device memory. Bound: the int8 tier's.
 #include "attention_bwd.cuh"
 #include "dw_int8.cuh"
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 namespace {
 
-// The rect backward on the grid of limit L (127: K8's int8 tier, 7: R-B).
-// sdoc, sdqc, sdkvc: the column scales of do, dq and dkv under R-B's
-// int8_dw (null otherwise: K8 reuses their row codes).
-template <int L>
-int ln_qkvo_attention_rect_quant_bwd(
+// K8's int8 tier (L = 127), the Hopper design.
+int ln_qkvo_attention_rect_int8_bwd_sm90(
+    const void* xc, const void* x, const void* gamma, const void* beta, const void* bqkv,
+    const void* wqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
+    void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* w8t,
+    void* sw, void* wq8r, void* swqr, void* wkv8r, void* swkvr, void* wo8r, void* swor,
+    void* xnc, void* xqc, void* sxc, void* xn, void* xq, void* sx, void* q, void* kv, void* attn,
+    void* doq, void* sdo, void* dattn, void* stats, void* dq, void* dkv, void* dqq, void* sdq,
+    void* dkvq, void* sdkv, void* dxnc, void* dxn, void* g2, void* b2, void* ws, void* atct,
+    void* sat, void* doqt, void* xnct, void* sxnc, void* dqqt, void* xnkt, void* sxnk,
+    void* dkvqt, int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim,
+    int group_c, int group_k, int int8_dw, float eps, float scale, cudaStream_t st) {
+  using vitax::bf16;
+  namespace sm90 = vitax::sm90;
+  const int nc = b * cpq;
+  const int n = b * spq;
+  const int hhd = heads * head_dim;
+  if (nc == 0 || n == 0 || b > 65535 || seq_len <= 0 || seq_len > spq)
+    return cudaErrorInvalidValue;
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* be = static_cast<const float*>(beta);
+  const auto* bias = static_cast<const float*>(bqkv);
+  const auto* wqkvb = static_cast<const bf16*>(wqkv);
+  const auto* dob = static_cast<const bf16*>(dout);
+  auto* w8 = static_cast<int8_t*>(w8t);
+  auto* swf = static_cast<float*>(sw);
+  auto* xqci = static_cast<int8_t*>(xqc);
+  auto* sxcf = static_cast<float*>(sxc);
+  auto* xqi = static_cast<int8_t*>(xq);
+  auto* sxf = static_cast<float*>(sx);
+  auto* qb = static_cast<bf16*>(q);
+  auto* kvb = static_cast<bf16*>(kv);
+  auto* attnb = static_cast<bf16*>(attn);
+  auto* doqi = static_cast<int8_t*>(doq);
+  auto* sdof = static_cast<float*>(sdo);
+  auto* dattnb = static_cast<bf16*>(dattn);
+  auto* dqb = static_cast<bf16*>(dq);
+  auto* dkvb = static_cast<bf16*>(dkv);
+  auto* dqqi = static_cast<int8_t*>(dqq);
+  auto* sdqf = static_cast<float*>(sdq);
+  auto* dkvqi = static_cast<int8_t*>(dkvq);
+  auto* sdkvf = static_cast<float*>(sdkv);
+  auto* dxncf = static_cast<float*>(dxnc);
+  auto* dxnf = static_cast<float*>(dxn);
+  auto* wsf = static_cast<float*>(ws);
+
+  // the weights' codes
+  cudaError_t e = vitax::launch_quant_weight_cols_t(wqkvb, w8, swf, d, 3 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(wqkvb, static_cast<int8_t*>(wq8r), static_cast<float*>(swqr),
+                                      d, hhd, st, 3 * hhd);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(wqkvb + hhd, static_cast<int8_t*>(wkv8r),
+                                      static_cast<float*>(swkvr), d, 2 * hhd, st, 3 * hhd);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8r),
+                                      static_cast<float*>(swor), hhd, d, st);
+  if (e != cudaSuccess) return e;
+
+  // recompute both LNs (+ codes; xnc and xn for the weight grads, fp32 under
+  // int8_dw), q and kv (s8) and the core (K13's forward, rect geometry)
+  const auto* xcb = static_cast<const bf16*>(xc);
+  const auto* xb = static_cast<const bf16*>(x);
+  e = int8_dw
+          ? vitax::launch_layer_norm_quant<false, true>(xcb, g, be, xqci, sxcf, xnc, nc, d, eps, st)
+          : vitax::launch_layer_norm_quant<false, false>(xcb, g, be, xqci, sxcf, xnc, nc, d, eps,
+                                                         st);
+  if (e != cudaSuccess) return e;
+  e = int8_dw ? vitax::launch_layer_norm_quant<false, true>(xb, g, be, xqi, sxf, xn, n, d, eps, st)
+              : vitax::launch_layer_norm_quant<false, false>(xb, g, be, xqi, sxf, xn, n, d, eps, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_s8<sm90::kEpiS8Bf16>(xqci, w8, sxcf, swf, bias, qb, nullptr, nc, hhd, d, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_s8<sm90::kEpiS8Bf16>(xqi, w8 + static_cast<size_t>(hhd) * d, sxf, swf + hhd,
+                                      bias + hhd, kvb, nullptr, n, 2 * hhd, d, st);
+  if (e != cudaSuccess) return e;
+  vitax::k13::CoreArgs a{};
+  a.q = qb, a.k = kvb, a.v = kvb + hhd;
+  a.o = attnb, a.out = attnb, a.dout = dattnb;
+  a.dq = dqb, a.dk = dkvb, a.dv = dkvb + hhd;
+  a.stats = static_cast<float*>(stats);
+  a.seq = seq_len, a.rows = a.img_rows = cpq, a.kv_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.seq_pad = (cpq + vitax::k13::kRows - 1) / vitax::k13::kRows * vitax::k13::kRows;
+  a.scale = scale;
+  a.ld_q = a.ld_o = a.ld_do = a.ld_dq = hhd;
+  a.ld_k = a.ld_v = a.ld_dk = a.ld_dv = 2 * hhd;
+  e = vitax::k13::launch_core_fwd(a, head_dim, b, st);
+  if (e != cudaSuccess) return e;
+
+  // out-projection grads: dattn in s8, dWo and dbo over the bf16 do
+  e = vitax::launch_quant_rows(dob, doqi, sdof, nc, d, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_s8<sm90::kEpiS8Bf16>(doqi, static_cast<const int8_t*>(wo8r), sdof,
+                                      static_cast<const float*>(swor), nullptr, dattnb, nullptr,
+                                      nc, hhd, d, st);
+  if (e != cudaSuccess) return e;
+  const int gpc = vitax::dw_group_pad(group_c, sm90::kBK8);
+  const int gpk = vitax::dw_group_pad(group_k, sm90::kBK8);
+  const int kpc = vitax::dw_groups(nc, group_c) * gpc;
+  const int kpk = vitax::dw_groups(n, group_k) * gpk;
+  if (!int8_dw) {
+    e = sm90::gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
+  } else {  // row-scale folding into the dx-path's int8 codes
+    e = vitax::launch_dw_int8_operands(attnb, sdof, doqi, nc, hhd, d, group_c, gpc,
+                                       static_cast<int8_t*>(atct), static_cast<float*>(sat),
+                                       static_cast<int8_t*>(doqt), st);
+    if (e == cudaSuccess)
+      e = sm90::gemm_s8_groups(static_cast<const int8_t*>(atct), static_cast<const int8_t*>(doqt),
+                               static_cast<const float*>(sat), static_cast<float*>(dwo), hhd, d,
+                               kpc, gpc, st);
+  }
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, nc, d, st);
+  if (e != cudaSuccess) return e;
+
+  // the core grads: dq on the xc rows, dk and dv on the x rows (K13's passes)
+  e = vitax::k13::launch_core_bwd(a, head_dim, b, st);
+  if (e != cudaSuccess) return e;
+
+  // projection grads of the two row sets (dxn in s8) and the two LN tails
+  e = vitax::launch_quant_rows(static_cast<const bf16*>(dqb), dqqi, sdqf, nc, hhd, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_s8<sm90::kEpiS8F32>(dqqi, static_cast<const int8_t*>(wq8r), sdqf,
+                                     static_cast<const float*>(swqr), nullptr, nullptr, dxncf, nc,
+                                     d, hhd, st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_quant_rows(static_cast<const bf16*>(dkvb), dkvqi, sdkvf, n, 2 * hhd, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_s8<sm90::kEpiS8F32>(dkvqi, static_cast<const int8_t*>(wkv8r), sdkvf,
+                                     static_cast<const float*>(swkvr), nullptr, nullptr, dxnf, n,
+                                     d, 2 * hhd, st);
+  if (e != cudaSuccess) return e;
+  if (!int8_dw) {
+    e = sm90::gemm_tn(static_cast<const bf16*>(xnc), dqb, static_cast<float*>(dwq), wsf, d, hhd,
+                      nc, st);
+    if (e != cudaSuccess) return e;
+    e = sm90::gemm_tn(static_cast<const bf16*>(xn), dkvb, static_cast<float*>(dwkv), wsf, d,
+                      2 * hhd, n, st);
+  } else {
+    e = vitax::launch_dw_int8_operands(static_cast<const float*>(xnc), sdqf, dqqi, nc, d, hhd,
+                                       group_c, gpc, static_cast<int8_t*>(xnct),
+                                       static_cast<float*>(sxnc), static_cast<int8_t*>(dqqt), st);
+    if (e != cudaSuccess) return e;
+    e = sm90::gemm_s8_groups(static_cast<const int8_t*>(xnct), static_cast<const int8_t*>(dqqt),
+                             static_cast<const float*>(sxnc), static_cast<float*>(dwq), d, hhd,
+                             kpc, gpc, st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_dw_int8_operands(static_cast<const float*>(xn), sdkvf, dkvqi, n, d, 2 * hhd,
+                                       group_k, gpk, static_cast<int8_t*>(xnkt),
+                                       static_cast<float*>(sxnk), static_cast<int8_t*>(dkvqt), st);
+    if (e != cudaSuccess) return e;
+    e = sm90::gemm_s8_groups(static_cast<const int8_t*>(xnkt), static_cast<const int8_t*>(dkvqt),
+                             static_cast<const float*>(sxnk), static_cast<float*>(dwkv), d,
+                             2 * hhd, kpk, gpk, st);
+  }
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const bf16*>(dqb), static_cast<float*>(dbq), wsf, nc, hhd,
+                           st);
+  if (e != cudaSuccess) return e;
+  e = vitax::launch_colsum(static_cast<const bf16*>(dkvb), static_cast<float*>(dbkv), wsf, n,
+                           2 * hhd, st);
+  if (e != cudaSuccess) return e;
+  return vitax::launch_layer_norm_bwd_two<bf16, float>(
+      xcb, dxncf, static_cast<bf16*>(dxc), nc, xb, dxnf, static_cast<bf16*>(dx), n, g,
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(g2),
+      static_cast<float*>(b2), wsf, d, eps, st);
+}
+
+// R-B (L = 7), the first design. sdoc, sdqc, sdkvc: the column scales of
+// do, dq and dkv under its int8_dw.
+int ln_qkvo_attention_rect_int4_bwd_first(
     const void* xc, const void* x, const void* gamma, const void* beta, const void* bqkv,
     const void* wqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
     void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* w8t,
@@ -79,6 +276,7 @@ int ln_qkvo_attention_rect_quant_bwd(
     int seq_len, int heads, int head_dim, int group_c, int group_k, int int8_dw, float eps,
     float scale, void* stream) {
   using vitax::bf16;
+  constexpr int L = vitax::kQ4;
   const auto st = static_cast<cudaStream_t>(stream);
   const int nc = b * cpq;
   const int n = b * spq;
@@ -163,14 +361,10 @@ int ln_qkvo_attention_rect_quant_bwd(
   if (e != cudaSuccess) return e;
   if (!int8_dw)
     e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
-  else if (L == vitax::kQ4)  // fresh per-column packs of both operands
+  else  // fresh per-column packs of both operands
     e = vitax::launch_dw_int8_cols<bf16, bf16>(
         attnb, dob, nc, hhd, d, group_c, static_cast<int8_t*>(atct), static_cast<float*>(sat),
         static_cast<int8_t*>(doqt), static_cast<float*>(sdoc), static_cast<float*>(dwo), st);
-  else  // row-scale folding into the dx-path's int8 codes
-    e = vitax::launch_dw_int8<bf16>(attnb, sdof, doqi, nc, hhd, d, group_c,
-                                    static_cast<int8_t*>(atct), static_cast<float*>(sat),
-                                    static_cast<int8_t*>(doqt), static_cast<float*>(dwo), st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, nc, d, st);
   if (e != cudaSuccess) return e;
@@ -195,7 +389,7 @@ int ln_qkvo_attention_rect_quant_bwd(
                                            static_cast<const float*>(swkvr), nullptr, nullptr,
                                            nullptr, nullptr, dxnf, n, d, 2 * hhd, st);
   if (e != cudaSuccess) return e;
-  if (int8_dw && L == vitax::kQ4) {
+  if (int8_dw) {
     e = vitax::launch_dw_int8_cols<float, bf16>(
         static_cast<const float*>(xnc), dqb, nc, d, hhd, group_c, static_cast<int8_t*>(xnct),
         static_cast<float*>(sxnc), static_cast<int8_t*>(dqqt), static_cast<float*>(sdqc),
@@ -205,16 +399,6 @@ int ln_qkvo_attention_rect_quant_bwd(
         static_cast<const float*>(xn), dkvb, n, d, 2 * hhd, group_k, static_cast<int8_t*>(xnkt),
         static_cast<float*>(sxnk), static_cast<int8_t*>(dkvqt), static_cast<float*>(sdkvc),
         static_cast<float*>(dwkv), st);
-  } else if (int8_dw) {
-    e = vitax::launch_dw_int8<float>(static_cast<const float*>(xnc), sdqf, dqqi, nc, d, hhd,
-                                     group_c, static_cast<int8_t*>(xnct),
-                                     static_cast<float*>(sxnc), static_cast<int8_t*>(dqqt),
-                                     static_cast<float*>(dwq), st);
-    if (e != cudaSuccess) return e;
-    e = vitax::launch_dw_int8<float>(static_cast<const float*>(xn), sdkvf, dkvqi, n, d, 2 * hhd,
-                                     group_k, static_cast<int8_t*>(xnkt),
-                                     static_cast<float*>(sxnk), static_cast<int8_t*>(dkvqt),
-                                     static_cast<float*>(dwkv), st);
   } else {
     e = vitax::launch_gemm_tn(static_cast<const bf16*>(xnc), dqb, static_cast<float*>(dwq), wsf,
                               d, hhd, nc, st);
@@ -244,34 +428,36 @@ int ln_qkvo_attention_rect_quant_bwd(
 // [d], wkv8r int8 [d, 2hhd], swkvr [d], wo8r int8 [hhd, d], swor [hhd]; xnc
 // [b·cpq, d] and xn [b·spq, d] (bf16, or fp32 under int8_dw), xqc int8 and
 // sxc, xq int8 and sx; q, kv, attn, dattn, dq, dkv bf16 as the bf16 tier's;
-// doq int8 [b·cpq, d], sdo; p, ds; dqq int8 [b·cpq, hhd], sdq; dkvq int8
-// [b·spq, 2hhd], sdkv; dxnc, dxn fp32; g2, b2 fp32 [d]; ws fp32
+// doq int8 [b·cpq, d], sdo; stats fp32 vitax_attention_core_bwd_ws(b, cpq,
+// heads) (K13's row statistics, padded from cpq); dqq int8 [b·cpq, hhd], sdq;
+// dkvq int8 [b·spq, 2hhd], sdkv; dxnc, dxn fp32; g2, b2 fp32 [d]; ws fp32
 // vitax_ln_qkvo_attention_rect_bwd_ws. With int8_dw (else null), kpc =
-// groups·round_up(group_c, 64), kpk = groups·round_up(group_k, 64): atct int8
-// [hhd, kpc], sat [groups, hhd], doqt int8 [d, kpc], xnct int8 [d, kpc], sxnc
-// [groups, d], dqqt int8 [hhd, kpc], xnkt int8 [d, kpk], sxnk [groups, d],
-// dkvqt int8 [2hhd, kpk].
+// groups·round_up(group_c, 128), kpk = groups·round_up(group_k, 128): atct
+// int8 [hhd, kpc], sat [groups, hhd], doqt int8 [d, kpc], xnct int8 [d, kpc],
+// sxnc [groups, d], dqqt int8 [hhd, kpc], xnkt int8 [d, kpk], sxnk [groups,
+// d], dkvqt int8 [2hhd, kpk].
 extern "C" int vitax_ln_qkvo_attention_rect_int8_bwd(
     const void* xc, const void* x, const void* gamma, const void* beta, const void* bqkv,
     const void* wqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
     void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* w8t,
     void* sw, void* wq8r, void* swqr, void* wkv8r, void* swkvr, void* wo8r, void* swor,
     void* xnc, void* xqc, void* sxc, void* xn, void* xq, void* sx, void* q, void* kv, void* attn,
-    void* doq, void* sdo, void* dattn, void* p, void* ds, void* dq, void* dkv, void* dqq,
-    void* sdq, void* dkvq, void* sdkv, void* dxnc, void* dxn, void* g2, void* b2, void* ws,
-    void* atct, void* sat, void* doqt, void* xnct, void* sxnc, void* dqqt, void* xnkt,
-    void* sxnk, void* dkvqt,
-    int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim, int group_c,
-    int group_k, int int8_dw, float eps, float scale, void* stream) {
-  return ln_qkvo_attention_rect_quant_bwd<vitax::kQ8>(
+    void* doq, void* sdo, void* dattn, void* stats, void* dq, void* dkv, void* dqq, void* sdq,
+    void* dkvq, void* sdkv, void* dxnc, void* dxn, void* g2, void* b2, void* ws, void* atct,
+    void* sat, void* doqt, void* xnct, void* sxnc, void* dqqt, void* xnkt, void* sxnk,
+    void* dkvqt, int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim,
+    int group_c, int group_k, int int8_dw, float eps, float scale, void* stream) {
+  return ln_qkvo_attention_rect_int8_bwd_sm90(
       xc, x, gamma, beta, bqkv, wqkv, wo, dout, dxc, dx, dgamma, dbeta, dwq, dwkv, dbq, dbkv, dwo,
       dbo, w8t, sw, wq8r, swqr, wkv8r, swkvr, wo8r, swor, xnc, xqc, sxc, xn, xq, sx, q, kv, attn,
-      doq, sdo, dattn, p, ds, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2, b2, ws,
-      atct, sat, doqt, nullptr, xnct, sxnc, dqqt, nullptr, xnkt, sxnk, dkvqt, nullptr,
-      b, cpq, spq, d, seq_len, heads, head_dim, group_c, group_k, int8_dw, eps, scale, stream);
+      doq, sdo, dattn, stats, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2, b2, ws, atct, sat,
+      doqt, xnct, sxnc, dqqt, xnkt, sxnk, dkvqt, b, cpq, spq, d, seq_len, heads, head_dim,
+      group_c, group_k, int8_dw, eps, scale, static_cast<cudaStream_t>(stream));
 }
 
-// R-B: the int8 tier's arguments on the int4 grid; with int8_dw (else null)
+// R-B: the int8 tier's arguments on the int4 grid, p and ds [b, heads,
+// round_up(cpq, 16), round_up(spq, 16)] bf16 for the whole-row core's
+// backward in place of stats, kpc and kpk on 64-row pads; with int8_dw (else null)
 // the fresh column packs of both operands of each weight grad: atct and sat,
 // doqt and sdoc [groups, d] (dWo); xnct and sxnc, dqqt and sdqc [groups,
 // hhd] (dWq); xnkt and sxnk, dkvqt and sdkvc [groups, 2hhd] (dWkv).
@@ -287,7 +473,7 @@ extern "C" int vitax_ln_qkvo_attention_rect_int4_bwd(
     void* sdqc, void* xnkt, void* sxnk, void* dkvqt, void* sdkvc,
     int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim, int group_c,
     int group_k, int int8_dw, float eps, float scale, void* stream) {
-  return ln_qkvo_attention_rect_quant_bwd<vitax::kQ4>(
+  return ln_qkvo_attention_rect_int4_bwd_first(
       xc, x, gamma, beta, bqkv, wqkv, wo, dout, dxc, dx, dgamma, dbeta, dwq, dwkv, dbq, dbkv, dwo,
       dbo, w8t, sw, wq8r, swqr, wkv8r, swkvr, wo8r, swor, xnc, xqc, sxc, xn, xq, sx, q, kv, attn,
       doq, sdo, dattn, p, ds, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2, b2, ws,

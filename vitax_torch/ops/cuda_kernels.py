@@ -746,8 +746,10 @@ def s8_launch_counts(reset: bool = False) -> dict:
     s8_f32 (dxn), inside K4's one s8_gelu_pair and one s8_f32, and under
     int8_dw two s8_group in each backward; inside K5's attention half one
     s8_bf16 (qkv) and one s8_residual_f32 (the out-projection), inside its
-    MLP half one s8_gelu_q_f32 (fc1) and one s8_residual_f32 (fc2), besides
-    `gemm_sm90_s8`'s own.
+    MLP half one s8_gelu_q_f32 (fc1) and one s8_residual_f32 (fc2), inside
+    K8's int8 forward three s8_bf16 (q, kv, out), inside its backward three
+    s8_bf16 (q, kv, dattn) and two s8_f32 (dxnc, dxn), and under int8_dw
+    three s8_group, besides `gemm_sm90_s8`'s own.
     `launch_counts` keys the wrappers. Nothing is counted before the
     library is loaded: no product has launched then."""
     counts = (ctypes.c_longlong * len(GEMM_SM90_S8_KINDS))()
@@ -765,11 +767,11 @@ FIRST_DESIGN_PIECES = ("gemm.cuh:s8", "attention.cuh:core")
 def first_design_launch_counts(reset: bool = False) -> dict:
     """Launches since the last reset of two first-design pieces, as the
     library counts them where each launches: gemm.cuh's mma.sync s8
-    products ("gemm.cuh:s8": K7's int8 tier, K11, K8, K12-int8) and
-    attention.cuh's whole-row forward core ("attention.cuh:core": K7, K8,
-    K10, K9, K11-C). K3's and K4's forwards and backwards with kv_heads ==
-    heads and K5's halves launch neither. Nothing is counted before the
-    library is loaded."""
+    products ("gemm.cuh:s8": K7's int8 tier, K11, R-F and R-B, K12-int8)
+    and attention.cuh's whole-row forward core ("attention.cuh:core": K7,
+    the bf16 K8, R-F, K10, K9, K11-C). K3's and K4's forwards and
+    backwards with kv_heads == heads, K5's halves and K8's int8 tier launch
+    neither. Nothing is counted before the library is loaded."""
     counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
     if build.loaded():
         build.check(build.load().vitax_first_design_launches(counts,
@@ -1034,8 +1036,9 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     gemm_sm90.cuh's products
     (N % 8, K % 16: d % 16, Hd % 16). The models pick the half where this
     and vitax's gate pass, in eval and in training alike (K13's backward
-    passes take what its forward takes). A first-design path (the
-    whole-row core: K7, K11-C/D, K8) checks its own limits in its
+    passes take what its forward takes), and so does K8's int8 tier, on
+    K13's core in its rect geometry. A first-design path (the whole-row
+    core: K7, K11-C/D, the bf16 K8, R-F/R-B) checks its own limits in its
     wrapper and raises by name outside them. Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
     if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
@@ -4109,32 +4112,41 @@ def fused_block_int8_handoff_ref(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
 # K8 — the rect (compacted-Q) attention half of Res-ViT's token compaction
 # (fused_ln_qkvo_attention_rect, pallas_kernels.py:4410): LN of the cpq
 # gathered rows xc → Q, LN of all spq rows x → K and V, the core over the spq
-# keys, the out-projection, on the xc rows only; bf16 and W8A8. The same
-# output rows as K1 (K3) on x followed by a row gather, bit for bit on the
-# card. Its backward (:4491-4573) gives dxc on the gathered rows and dx on
+# keys, the out-projection, on the xc rows only; bf16 and W8A8. The W8A8
+# tier gives K3's output rows on x followed by a row gather, bit for bit on
+# the card (K3's launches, each per row, with K13's core in a rect
+# geometry); the bf16 tier, on the first design, K1's within the bf16 band.
+# Its backward (:4491-4573) gives dxc on the gathered rows and dx on
 # all rows (the caller's gather transpose adds them), dγ and dβ over both
 # row sets, dWqkv = [dWq from xc's rows | dWkv from x's rows].
 # =============================================================================
 
 def qkv_attention_rect_supported(xc, x, wqkv, heads) -> bool:
     """Gate of the rect half: K1's gate at x's spq, and xc [B, cpq, D] on
-    the same batch and width. K8 keeps the first design's whole-row core,
-    whose limits its wrappers check and raise on (`_check_rect`)."""
+    the same batch and width. K8's int8 tier runs K13's core in its rect
+    geometry and takes what the gate takes; the bf16 K8 and R-F/R-B keep
+    the first design's whole-row core, whose limits their wrappers check
+    and raise on (`_check_rect`)."""
     return (xc.ndim == 3 and qkv_attention_supported(x, wqkv, heads)
             and xc.shape[0] == x.shape[0] and xc.shape[2] == x.shape[2]
             and (xc.dtype == torch.bfloat16 or not xc.is_cuda))
 
 
 def _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
-                head_dim, backward=False):
-    """K8's launch checks: the rect gate, then its whole-row core's limits
-    at x's spq (`_check_qkvo`'s first design), forward or `backward`."""
+                head_dim, backward=False, int8=False, int4=False):
+    """K8's launch checks, forward or `backward`, for its tier: the rect
+    gate (K13's limits at x's spq), all the int8 tier needs (K13's core in
+    the rect geometry); the bf16 K8 and, with `int4`, R-F and R-B keep the
+    whole-row core, whose limits at x's spq they check too (`_check_qkvo`'s
+    first design)."""
+    first_design = (("R-B" if backward else "R-F") if int4
+                    else None if int8 else "K8")
     b, cpq, d = xc.shape
     if cpq % 8 or not qkv_attention_rect_supported(xc, x, wqkv, heads):
         raise ValueError(f"{name}: unsupported shapes xc {tuple(xc.shape)} x "
                          f"{tuple(x.shape)} wqkv {tuple(wqkv.shape)}")
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, qkv_attention_supported, first_design="K8",
+                head_dim, qkv_attention_supported, first_design=first_design,
                 backward=backward)
     if bo is not None:
         _check_shape(name, "bo", bo, (d,))
@@ -4229,7 +4241,10 @@ def _rect_quant_fwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
 def _rect_fwd(int8, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
               heads, head_dim, int8_grad=False, int8_dw=False, scratch=None,
               int4=False, int4_grad=False):
-    """K8's forward (`int8`: its W8A8 tier; with `int4` too, R-F)."""
+    """K8's forward (`int8`: its W8A8 tier, on the card LN-quant,
+    gemm_sm90.cuh's s8 q and kv, K13's core in the rect geometry with an
+    fp32 out, the row codes, the s8 out-projection; with `int4` too, R-F,
+    the first design)."""
     if _needs_grad(xc, x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionRectFn.apply(xc, x, gamma, beta, wqkv, bqkv,
                                                 wo, bo, eps, seq_len, heads,
@@ -4253,7 +4268,7 @@ def _rect_fwd(int8, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
                 {"xc": _BF, "x": _BF, "gamma": _F32, "beta": _F32,
                  "wqkv": _BF, "bqkv": _F32, "wo": _BF, "bo": _F32})
     _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
-                head_dim)
+                head_dim, int8=int8, int4=int4)
     dev = xc.device
     b, cpq, d = xc.shape
     spq = x.shape[1]
@@ -4491,14 +4506,19 @@ def fused_ln_qkvo_attention_rect_int4_dw_bwd_ref(xc, x, gamma, beta, wqkv,
 def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
                    do, eps, seq_len, heads, head_dim, scratch=None,
                    int4=False):
-    """The launch of K8's backward, any tier (`int4`: R-B's)."""
+    """The launch of K8's backward, any tier (`int4`: R-B's). The int8
+    tier runs the Hopper design (K13's three passes in the rect geometry,
+    their row statistics the only attention scratch; gemm_sm90.cuh's s8
+    path and kTN); the bf16 tier and R-B keep the first design (bf16 P
+    and ds in scratch)."""
     dev = _check_cuda(
         name, {"xc": xc, "x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv,
                "bqkv": bqkv, "wo": wo, "do": do},
         {"xc": _BF, "x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF,
          "bqkv": _F32, "wo": _BF, "do": _BF})
+    hopper = int8 and not int4
     _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, None, seq_len, heads,
-                head_dim, backward=True)
+                head_dim, backward=True, int8=int8, int4=int4)
     _check_shape(name, "do", do, tuple(xc.shape))
     b, cpq, d = xc.shape
     spq = x.shape[1]
@@ -4514,7 +4534,11 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
     outs = (dxc, dx, dg, dbe, dwq, dwkv, dbq, dbkv, dwo, dbo)
     q, kv, attn, dattn = (_bf(dev, nc, hhd), _bf(dev, n, 2 * hhd),
                           _bf(dev, nc, hhd), _bf(dev, nc, hhd))
-    p, ds = _bf(dev, b, heads, lq, lk), _bf(dev, b, heads, lq, lk)
+    # the core's scratch: K13's row statistics (padded from cpq), or the
+    # whole-row core's P and ds
+    core = ((_workspace(lib.vitax_attention_core_bwd_ws(b, cpq, heads), dev),)
+            if hopper else (_bf(dev, b, heads, lq, lk),
+                            _bf(dev, b, heads, lq, lk)))
     dq, dkv = _bf(dev, nc, hhd), _bf(dev, n, 2 * hhd)
     dxnc, dxn, g2, b2 = (_f32(dev, nc, d), _f32(dev, n, d), _f32(dev, d),
                          _f32(dev, d))
@@ -4525,7 +4549,7 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
         xnc, xn = _bf(dev, nc, d), _bf(dev, n, d)
         rc = lib.vitax_ln_qkvo_attention_rect_bwd(*(t.data_ptr() for t in (
             xc, x, gamma, beta, wqkv, bqkv, wo, do, *outs, xnc, xn, q, kv,
-            attn, dattn, p, ds, dq, dkv, dxnc, dxn, g2, b2, ws)), b, cpq, spq,
+            attn, dattn, *core, dq, dkv, dxnc, dxn, g2, b2, ws)), b, cpq, spq,
             d, seq_len, heads, head_dim, eps, scale, _stream(dev))
         build.check(rc, name)
         return outs[:4] + (torch.cat([dwq, dwkv], dim=1),
@@ -4543,14 +4567,15 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
     dqq, sdq, dkvq, sdkv = _i8(dev, nc, hhd), _f32(dev, nc), \
         _i8(dev, n, 2 * hhd), _f32(dev, n)
     group_c, group_k = qkvo_rect_dw_groups(b, cpq, spq)
+    pad = _DW_PAD_SM90 if hopper else _DW_PAD
     # int8_dw: (attn | do) column codes and scales for dWo, (xnc | dq) for
     # dWq, (xn | dkv) for dWkv; K8 reuses do's, dq's and dkv's row codes,
     # so it has no scales of its own for them (R-B's are the fourth, eighth
     # and last)
     dwt = [None] * 12
     if int8_dw:
-        groups, kpc = _dw_layout(nc, group_c)
-        _, kpk = _dw_layout(n, group_k)
+        groups, kpc = _dw_layout(nc, group_c, pad)
+        _, kpk = _dw_layout(n, group_k, pad)
         dwt = [_i8(dev, hhd, kpc), _f32(dev, groups, hhd), _i8(dev, d, kpc),
                _f32(dev, groups, d) if int4 else None,
                _i8(dev, d, kpc), _f32(dev, groups, d), _i8(dev, hhd, kpc),
@@ -4566,7 +4591,7 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
     rc = fn(*(t.data_ptr() for t in (
         xc, x, gamma, beta, bqkv, wqkv, wo, do, *outs, w8t, sw, wq8r, swqr,
         wkv8r, swkvr, wo8r, swor, xnc, xqc, sxc, xn, xqk, sxk, q, kv, attn,
-        doq, sdo, dattn, p, ds, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2,
+        doq, sdo, dattn, *core, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2,
         b2, ws)), *ptrs, b, cpq, spq, d, seq_len, heads, head_dim, group_c,
         group_k, int(int8_dw), eps, scale, _stream(dev))
     build.check(rc, name)
@@ -4574,13 +4599,13 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
           wo8r=(wo8r, swor), xq=(xqc, sxc), xqk=(xqk, sxk), doq=(doq, sdo),
           dqq=(dqq, sdq), dkvq=(dkvq, sdkv))
     if int8_dw:
-        _keep(scratch, atc=(_group_codes(dwt[0], nc, group_c), dwt[1]),
-              xnc=(_group_codes(dwt[4], nc, group_c), dwt[5]),
-              xnk=(_group_codes(dwt[8], n, group_k), dwt[9]))
+        _keep(scratch, atc=(_group_codes(dwt[0], nc, group_c, pad), dwt[1]),
+              xnc=(_group_codes(dwt[4], nc, group_c, pad), dwt[5]),
+              xnk=(_group_codes(dwt[8], n, group_k, pad), dwt[9]))
     if int8_dw and int4:
-        _keep(scratch, doc=(_group_codes(dwt[2], nc, group_c), dwt[3]),
-              dqc=(_group_codes(dwt[6], nc, group_c), dwt[7]),
-              dkvc=(_group_codes(dwt[10], n, group_k), dwt[11]))
+        _keep(scratch, doc=(_group_codes(dwt[2], nc, group_c, pad), dwt[3]),
+              dqc=(_group_codes(dwt[6], nc, group_c, pad), dwt[7]),
+              dkvc=(_group_codes(dwt[10], n, group_k, pad), dwt[11]))
     return outs[:4] + (torch.cat([dwq, dwkv], dim=1), torch.cat([dbq, dbkv]),
                        dwo, dbo)
 

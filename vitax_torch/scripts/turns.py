@@ -16,10 +16,11 @@ file need not belong to), it prints under `tag`:
   scales and xn reach every output), the two halves of K5 output by output
   (r1, its pack, the codes it wrote, qkv where the checkout hands it over;
   r2, its pack, h1q), K3's and K4's backwards with and without int8_dw
-  (K4's also without its residual) with the codes they wrote, and the
-  branches kept on the first design: K7's int8 forward and backwards (4 kv
-  heads), K11-A, K11-C, K11-B and K11-D with and without int8_dw, G-F and
-  G-B;
+  (K4's also without its residual) with the codes they wrote, K8's int8
+  forward and backwards with and without int8_dw (cpq 128 of spq 200), and
+  the branches kept on the first design: K7's int8 forward and backwards
+  (4 kv heads), K11-A, K11-C, K11-B and K11-D with and without int8_dw,
+  G-F and G-B, R-F and R-B with and without int8_dw;
 - `ln_checksums`: the same of the LN kernel pair alone (the standalone
   entry points, register path and loop form, bf16 and fp32): the forward,
   the backward's dx, and its dγ/dβ apart (their order of sums may change
@@ -52,6 +53,12 @@ file need not belong to), it prints under `tag`:
   (torch.profiler's kernel records over 5 calls); `int8_fwd_device` the
   same of K3's and K4's int8 forwards at b32 and b64 spq 200, `ho_device`
   of K5's two halves at spq 104, b32 and the fast recipe's b768;
+- `rect_int8`: K8's int8 forward (b64 cpq 128 of spq 200, the b192 drop
+  geometry cpq 64 of spq 104) and its backward with and without int8_dw
+  (b32 cpq 128, b192 cpq 64): CUDA-event medians of 25 beside each call's
+  device time and kernels (`_by_kernel`); `rect_steps`: CUDA-event medians
+  of 10 of ft_resvit_fast.sh's b192 step (phase 9 (c)) and the compacted
+  `--int8` serving forward at b64 (phase 8);
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
   momentum) at b32 in bf16, `--int8`, `--int8-grad`, `--int8-dw` and
@@ -69,7 +76,7 @@ Run it for two checkouts in the order A, B, B, A in one call on the card
 Names after the tag run only those sections (`checksums`, `int8_checksums`,
 `ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
 `kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`,
-`ho_device`), e.g.
+`ho_device`, `rect_int8`, `rect_steps`), e.g.
 `turns.py A int8_checksums kernel_times`.
 """
 
@@ -232,6 +239,25 @@ def int8_checksums() -> dict:
                  (*head, do, *tail))):
             sk = {}
             out[name] = scratch_digest(fn(*args, scratch=sk), sk)
+        # K8's int8 tier (its Hopper design) and R-F, R-B (the first
+        # design) at Res-ViT's C 0.625: 124 of each image's rows in cpq 128
+        xc, rect_do = _rect_inputs(head[0], 197, 124, 128)
+        rect = (xc, *head)
+        for name, fn in (
+                ("K8 int8 fwd", ck.fused_ln_qkvo_attention_rect_int8),
+                ("R-F fwd", ck.fused_ln_qkvo_attention_rect_int4)):
+            sk = {}
+            out[name] = scratch_digest((fn(*rect, bo, *tail, scratch=sk),),
+                                       sk)
+        for name, fn in (
+                ("K8 int8 bwd", ck.fused_ln_qkvo_attention_rect_int8_bwd),
+                ("K8 int8 dw bwd",
+                 ck.fused_ln_qkvo_attention_rect_int8_dw_bwd),
+                ("R-B bwd", ck.fused_ln_qkvo_attention_rect_int4_bwd),
+                ("R-B dw bwd", ck.fused_ln_qkvo_attention_rect_int4_dw_bwd)):
+            sk = {}
+            out[name] = scratch_digest(fn(*rect, rect_do, *tail, scratch=sk),
+                                       sk)
         gqa, bo_g, do_g, _ = _int8_inputs(197, 2, 200, kv=4)
         out["K7 int8 fwd"] = _digest((ck.fused_ln_qkvo_attention_int8_gqa(
             *gqa, bo_g, *tail, 4),))
@@ -246,6 +272,22 @@ def int8_checksums() -> dict:
             out[name] = scratch_digest(fn(*gqa, do_g, *tail, 4, scratch=sk),
                                        sk)
     return out
+
+
+def _rect_inputs(x, seq_len, cap, cpq, seed=201):
+    """K8's compacted rows of x [B, spq, D]: `cap` of each image's first
+    seq_len rows in a seeded random order, zero-padded to cpq rows, and a
+    seeded cotangent on them, zero on the pad rows as the caller's cut
+    leaves it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, _, d = x.shape
+    idx = torch.stack([torch.randperm(seq_len, generator=g, device="cuda")
+                       [:cap] for _ in range(b)])
+    xc = torch.zeros((b, cpq, d), dtype=x.dtype, device="cuda")
+    xc[:, :cap] = torch.gather(x, 1, idx[..., None].expand(-1, -1, d))
+    do = _rnd(g)(b, cpq, d)
+    do[:, cap:] = 0
+    return xc, do
 
 
 def _device_records(calls, reps):
@@ -552,6 +594,88 @@ def _ho_calls(b) -> dict:
                                                       *mlp, 1e-5)}
 
 
+# K8's int8 tier at its two training and serving geometries: (b, spq,
+# seq_len, cap, cpq). Serving C 0.625 b64 and training b32 (cpq 128 of spq
+# 200), and ft_resvit_fast.sh's b192 drop geometry (keep 0.5: 99 of spq 104,
+# C 0.625: 62 in cpq 64)
+RECT_GEOMETRIES = {"fwd": ((64, 200, 197, 124, 128), (192, 104, 99, 62, 64)),
+                   "bwd": ((32, 200, 197, 124, 128), (192, 104, 99, 62, 64))}
+
+
+def rect_int8() -> dict:
+    """{K8 int8 kernel and shape: (CUDA-event median ms of 25, device ms a
+    call, its kernels)} of K8's int8 forward and of its backward with and
+    without int8_dw at `RECT_GEOMETRIES`; the device time and kernels are
+    `_by_kernel`'s."""
+    from vitax_torch.ops import cuda_kernels as ck
+    _, heads, hd, _ = B16_WIDTHS
+    out = {}
+    for kind, geometries in RECT_GEOMETRIES.items():
+        for b, spq, seq, cap, cpq in geometries:
+            head, bo, _, _ = _int8_inputs(202, b, spq)
+            xc, do = _rect_inputs(head[0], seq, cap, cpq)
+            tail = (1e-5, seq, heads, hd)
+            fwd = ck.fused_ln_qkvo_attention_rect_int8
+            bwd = ck.fused_ln_qkvo_attention_rect_int8_bwd
+            dw_bwd = ck.fused_ln_qkvo_attention_rect_int8_dw_bwd
+            calls = ({"K8 int8 fwd": lambda: fwd(xc, *head, bo, *tail)}
+                     if kind == "fwd" else
+                     {"K8 int8 bwd": lambda: bwd(xc, *head, do, *tail),
+                      "K8 int8_dw bwd": lambda: dw_bwd(xc, *head, do, *tail)})
+            label = f"b{b} cpq{cpq} spq{spq}"
+            device = _by_kernel(calls, label)
+            with torch.no_grad():
+                for name, fn in calls.items():
+                    out[f"{name} {label}"] = (_median_ms(fn, 3, 25),
+                                              *device[f"{name} {label}"])
+            del head, xc, do, calls
+            torch.cuda.empty_cache()
+    return out
+
+
+def rect_steps() -> dict:
+    """{what: CUDA-event median ms} of the Res-ViT paths that run K8's int8
+    tier: ft_resvit_fast.sh's step past its dense warmup (phase 9 (c):
+    b192, `--int8-dw --compact-capacity 0.625 --token-keep 0.5`, teacher
+    and student forward, backward, AdamW) and the compacted `--int8`
+    serving forward at b64 (phase 8), on profile_resvit's model (its
+    recipe, the routers' biases randomized) and resident random images."""
+    from vitax_torch.core.prng import set_seed
+    from vitax_torch.models import resvit
+    from vitax_torch.resvit_eval_cli import get_eval_config
+    from vitax_torch.resvit_train_cli import config_to_model_args
+    from vitax_torch.scripts import profile_resvit as pr
+    from vitax_torch.train.resvit_steps import (Lambdas, create_state,
+                                                make_adamw_for,
+                                                make_train_step)
+    cfg = config_to_model_args(get_eval_config(pr.RECIPE), "cuda")
+    params = resvit.init_params(set_seed(0), cfg, "cuda")
+    pr.randomize_router_biases(params)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    images = torch.randn((64, 224, 224, 3), generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    c = cfg.replace(compact_capacity=0.625, int8_attn=True, int8_mlp=True,
+                    fused_mlp=True)
+    with torch.inference_mode():
+        out["Res-ViT compacted --int8 forward b64"] = _median_ms(
+            lambda: resvit.apply(params, images, c))
+    batch, over = pr.TRAIN_CONFIGS["train-fast"]
+    c = cfg.replace(**over)
+    images = torch.randn((batch, 224, 224, 3), generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    labels = torch.randint(0, 10, (batch,), generator=g, device="cuda")
+    tx = make_adamw_for(c, params, lambda s: 1e-4)
+    state = create_state(params, tx,
+                         torch.Generator(device="cuda").manual_seed(2))
+    step = make_train_step(c, tx, Lambdas(1.0, 10.0, 1.0))
+    out[f"Res-ViT (c) step b{batch}"] = _median_ms(
+        lambda: step(state, images, labels))
+    del state, params, tx
+    torch.cuda.empty_cache()
+    return out
+
+
 def ho_device() -> dict:
     """`_by_kernel` of K5's two halves at the drop phase's b32 spq 104 and
     at the fast recipe's b768 spq 104 (79872 rows)."""
@@ -791,8 +915,13 @@ def main(argv) -> int:
                 print(f"{tag}: device {name} {ms:.4f} ms: " + "; ".join(
                     f"{k[:70]} {t:.4f} x{n:g}" for k, t, n in rows),
                     flush=True)
-        elif section == "timings":
-            for name, value in timings().items():
+        elif section == "rect_int8":
+            for name, (ms, dev, rows) in rect_int8().items():
+                print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms: "
+                      + "; ".join(f"{k[:70]} {t:.4f} x{n:g}"
+                                  for k, t, n in rows), flush=True)
+        elif section in ("timings", "rect_steps"):
+            for name, value in globals()[section]().items():
                 print(f"{tag}: {name} {value:.3f}"
                       + ("" if "MB" in name else " ms"), flush=True)
         else:
@@ -803,7 +932,8 @@ def main(argv) -> int:
 
 SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
             "ln_device_times", "timings", "kernel_times", "k4_outputs",
-            "int8_bwd_device", "int8_fwd_device", "ho_device")
+            "int8_bwd_device", "int8_fwd_device", "ho_device", "rect_int8",
+            "rect_steps")
 
 
 if __name__ == "__main__":
