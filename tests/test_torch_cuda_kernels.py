@@ -723,8 +723,8 @@ def test_handoff_kernels_match_plain_twins(dev, shape, pack):
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
         "gemm_sm90_s8:s8_gelu_q_f32": 1, "gemm_sm90_s8:s8_residual": 0,
         "gemm_sm90_s8:s8_residual_f32": 2}
-    assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
-                                               "attention.cuh:core": 0}
+    assert ck.first_design_launch_counts() == dict.fromkeys(
+        ck.FIRST_DESIGN_PIECES, 0)
 
 
 @pytest.mark.parametrize("int8_dw", [True, False])
@@ -801,11 +801,9 @@ RECT_SHAPES = [(64, 200, 197, 124), (64, 200, 197, 99), (3, 200, 197, 37),
 @pytest.mark.parametrize("int8", [False, True])
 def test_rect_kernel_matches_twin_and_square_gather(dev, shape, int8):
     """K8 against its twin, and against the square kernel (K1, K3) on all
-    rows followed by the row gather: the int8 tier to the bit on the kept
-    rows (it runs K3's launches, each per row, on the two row sets:
-    vitax's contract, pallas_kernels.py:4418-4419), the bf16 K8 within the
-    kernel band (K1 runs gemm_sm90.cuh's products and K13's core while the
-    bf16 K8 keeps gemm.cuh's and the whole-row core)."""
+    rows followed by the row gather, to the bit on the kept rows in both
+    tiers: each runs its square kernel's launches, each per row, on the two
+    row sets (vitax's contract, pallas_kernels.py:3944-3946, :4418-4419)."""
     xc, qkvo, idx = _rect_args(dev, *shape)
     cap = shape[3]
     name = ("fused_ln_qkvo_attention_rect_int8" if int8
@@ -823,9 +821,8 @@ def test_rect_kernel_matches_twin_and_square_gather(dev, shape, int8):
         full = square(*qkvo)
     assert torch.isfinite(out).all()
     gathered = torch.gather(full, 1, idx[..., None].expand(-1, -1, 768))
-    _assert_close(out[:, :cap], gathered)
+    assert torch.equal(out[:, :cap], gathered)
     if int8:
-        assert torch.equal(out[:, :cap], gathered)
         _codes_within_band(name, sk, st)
     counts = {k: v for k, v in ck.launch_counts().items() if v}
     assert counts == {name: 1, square.__name__: 1}
@@ -999,6 +996,74 @@ def test_rect_autograd_picks_the_backward_of_its_tier(dev):
         for t in leaves:
             assert t.grad.dtype == t.dtype
             assert torch.isfinite(t.grad.float()).all()
+
+
+# The bf16 K8 on its Hopper design (K1's launches on the two row sets,
+# K13's core in the rect geometry) at the shapes that the K1 family's gate
+# takes and the whole-row core did not (ops/gates.py): b16@416 (spq 680,
+# seq 677, 400 kept rows) and head dim 80 (D 640, 8 heads).
+# (batch, spq, seq_len, cap, D, heads, head_dim)
+RECT_K13_SHAPES = [(4, 680, 677, 400, 768, 12, 64),
+                   (4, 200, 197, 124, 640, 8, 80)]
+
+
+def _rect_bf16_args(dev, batch, spq, seq, cap, d, h, hd, seed=3):
+    """K8's forward and backward arguments at width d, h heads of hd: xc
+    the first `cap` rows of a random choice of each image's first seq rows,
+    zero-padded to round_up(cap, 8), do zero on those pad rows."""
+    _, qkvo, _ = _args(dev, batch, spq, seq, d, h, hd, 4 * d, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    idx = torch.stack([torch.randperm(seq, generator=g, device=dev)[:cap]
+                       for _ in range(batch)])
+    x = qkvo[0]
+    xc = torch.zeros((batch, (cap + 7) // 8 * 8, d), dtype=x.dtype,
+                     device=dev)
+    xc[:, :cap] = torch.gather(x, 1, idx[..., None].expand(-1, -1, d))
+    do = torch.randn(xc.shape, generator=g, device=dev).to(torch.bfloat16)
+    do[:, cap:] = 0
+    return (xc, *qkvo), (xc, *qkvo[:6], do, *qkvo[7:])
+
+
+@pytest.mark.parametrize("shape", RECT_K13_SHAPES)
+def test_rect_bf16_runs_k13_shapes_the_whole_row_core_cannot(dev, shape):
+    """The bf16 K8, forward and backward, where the whole-row core cannot
+    take the shapes: within the kernel band of the twins on every output,
+    two launches the same bits, and no first-design piece launched."""
+    b, spq, seq, cap, d, h, hd = shape
+    fwd, bwd = _rect_bf16_args(dev, b, spq, seq, cap, d, h, hd)
+    assert not ck._core_fits(fwd[1], fwd[4], h, backward=True)
+    assert ck.qkv_attention_rect_supported(fwd[0], fwd[1], fwd[4], h)
+    ck.reset_launch_counts()
+    for name, args in (("fused_ln_qkvo_attention_rect", fwd),
+                       ("fused_ln_qkvo_attention_rect_bwd", bwd)):
+        with torch.no_grad():
+            outs = getattr(ck, name)(*args)
+            again = getattr(ck, name)(*args)
+            torch.cuda.synchronize()
+            refs = getattr(ck, name + "_ref")(*args)
+        if name == "fused_ln_qkvo_attention_rect":
+            outs, again, refs = (outs,), (again,), (refs,)
+        for i, (out, out2, ref) in enumerate(zip(outs, again, refs)):
+            _assert_close(out, ref)
+            assert torch.equal(out, out2), (name, i)
+        del outs, again, refs
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {
+        "fused_ln_qkvo_attention_rect": 2,
+        "fused_ln_qkvo_attention_rect_bwd": 2}
+    assert ck.first_design_launch_counts() == dict.fromkeys(
+        ck.FIRST_DESIGN_PIECES, 0)
+
+
+def test_rect_bf16_backward_writes_zero_grads_on_masked_keys(dev):
+    """The key pass in the rect geometry writes dk and dv as 0 on the key
+    rows seq_len..spq (vitax's p is exactly 0 there): dxn is 0 on those rows
+    of x, so is dx, exactly."""
+    args, _ = _rect_bwd_args(dev, 4, 200, 150, 37)
+    with torch.no_grad():
+        dx = ck.fused_ln_qkvo_attention_rect_bwd(*args)[1]
+    assert torch.isfinite(dx.float()).all()
+    assert dx[:, 150:].abs().max().item() == 0
+    assert dx[:, :150].abs().max().item() > 0
 
 
 # K6, the KV-chunked attention half: (batch, spq, seq_len, D, heads,
@@ -2042,8 +2107,8 @@ def test_int8_forwards_on_hopper_launch_their_products(dev, shape):
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
         "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 2,
         "gemm_sm90_s8:s8_residual_f32": 0}
-    assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
-                                               "attention.cuh:core": 0}
+    assert ck.first_design_launch_counts() == dict.fromkeys(
+        ck.FIRST_DESIGN_PIECES, 0)
     ck.reset_launch_counts()
     mlp = args["fused_ln_mlp_int8"]
     for residual in (True, False):
@@ -2109,8 +2174,8 @@ def test_rect_int8_on_hopper_launch_their_products(dev, shape):
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 6,
         "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
         "gemm_sm90_s8:s8_residual_f32": 0}
-    assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
-                                               "attention.cuh:core": 0}
+    assert ck.first_design_launch_counts() == dict.fromkeys(
+        ck.FIRST_DESIGN_PIECES, 0)
 
 
 @pytest.mark.parametrize("int8_dw", [False, True])
@@ -2188,8 +2253,8 @@ def test_k1_family_runs_k13_shapes_the_whole_row_core_cannot(dev, shape):
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 2,
         "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
         "gemm_sm90_s8:s8_residual_f32": 0}
-    assert ck.first_design_launch_counts() == {"gemm.cuh:s8": 0,
-                                               "attention.cuh:core": 0}
+    assert ck.first_design_launch_counts() == dict.fromkeys(
+        ck.FIRST_DESIGN_PIECES, 0)
 
 
 def test_k3_and_k4_int8_backwards_keep_p_ds_and_a1_out_of_device_memory(dev):

@@ -5,8 +5,8 @@ dim 80 and (1024, 8) at seq 353–544), in eval and in training, for the ViT
 (K1 / K6 / plain), Res-ViT's square half (K1, or K10 without fused_qkvo /
 plain) and its rect half (K8 / the square half and a gather). Shapes only:
 meta tensors on the port's side, ShapeDtypeStructs on vitax's. Where the
-pick is a path that keeps the first design's whole-row core (K7, K10, K8,
-K11-C) and that core cannot take the shapes, the path raises by name.
+pick is a path that keeps the first design's whole-row core (K7, K10,
+K11-C, R-F) and that core cannot take the shapes, the path raises by name.
 
 vitax's choices come from its own gate functions
 (vitax/ops/pallas_kernels.py:2185, :3363) composed as its models compose
@@ -138,7 +138,7 @@ def test_resvit_halves_are_vitaxs(arch, image, mode, kv):
     one's), and without it runs K10 in `attention` wherever its gate passes
     without GQA: the port's route is vitax's everywhere. Where the route's
     kernel keeps the whole-row core and that core cannot take the shapes
-    (K7, K10 at seq 677; K8 there too), the kernel raises by name and never
+    (K7, K10 at seq 677), the kernel raises by name and never
     another path runs; on the presets every route's kernel takes them."""
     s, d, h = _seq(arch, image)
     hkv = h if kv == "mha" else KV_HEADS
@@ -290,8 +290,7 @@ FIRST_DESIGN = [
     ("K7's int8 backward", "int8_bwd", KV_HEADS),
     ("K11-C", "int4", None), ("G-F", "int4", KV_HEADS),
     ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS),
-    ("K8", "rect", None), ("R-F", "rect_int4", None),
-    ("R-B", "rect_int4_bwd", None)]
+    ("R-F", "rect_int4", None), ("R-B", "rect_int4_bwd", None)]
 
 
 def _launch_checks(launch, t, s, h, hd, hkv):
@@ -313,14 +312,10 @@ def _launch_checks(launch, t, s, h, hd, hkv):
         return ck._ln_qkvo_int8_bwd_cuda("k", x, g, be, w, bq, wo, t["do"],
                                          1e-6, s, h, hd, hkv, False, None,
                                          int4=launch == "int4_bwd")
-    if launch in ("rect_int4", "rect_int4_bwd"):
-        return ck._check_rect("k", x[:, :x.shape[1] // 16 * 8], x, g, be, w,
-                              bq, wo, t["bo"], s, h, hd,
-                              backward=launch == "rect_int4_bwd", int8=True,
-                              int4=True)
-    assert launch == "rect", launch
+    assert launch in ("rect_int4", "rect_int4_bwd"), launch
     return ck._check_rect("k", x[:, :x.shape[1] // 16 * 8], x, g, be, w, bq,
-                          wo, t["bo"], s, h, hd, backward=True)
+                          wo, t["bo"], s, h, hd,
+                          backward=launch == "rect_int4_bwd", int4=True)
 
 
 @pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
@@ -329,8 +324,8 @@ def test_first_design_paths_raise_by_name_where_only_k13_fits(
         monkeypatch, arch, image, path, launch, kv):
     """Where the K1 family's gate and vitax's take a shape that the whole-row
     core cannot (seq 677; head dim 80), each path that keeps that core (K7
-    in every tier, K11-C/D and G-F/G-B, K8) raises its named error in
-    its wrapper's checks, before it allocates or launches anything; K1's
+    in every tier, K11-C/D and G-F/G-B, R-F and R-B) raises its named
+    error in its wrapper's checks, before it allocates or launches anything; K1's
     and K3's Hopper launches pass the same checks."""
     t, s, h, hd, hkv = _meta_half(arch, image, kv)
     assert ck.qkv_attention_supported(t["x"], t["wqkv"], h, hkv)
@@ -380,7 +375,8 @@ def test_k8_int8_takes_the_shapes_only_k13_fits(monkeypatch, arch, image,
     family's gate and vitax's take a shape that the whole-row core cannot
     (seq 677; head dim 80), its wrappers' checks pass, forward and
     backward, before they allocate anything, as K5's and K3's Hopper
-    launches do; the bf16 K8 at the same shapes still raises by name."""
+    launches do; its int4 branches (R-F, R-B) at the same shapes, on the
+    first design, still raise by name."""
     t, s, h, hd, _ = _meta_half(arch, image)
     x = t["x"]
     xc = x[:, :x.shape[1] // 16 * 8]
@@ -390,10 +386,32 @@ def test_k8_int8_takes_the_shapes_only_k13_fits(monkeypatch, arch, image,
                         lambda name, tensors, dtypes: torch.device("meta"))
     args = ("k", xc, x, t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"],
             t["bo"], s, h, hd)
-    ck._check_rect(*args, backward=backward, int8=True)
+    ck._check_rect(*args, backward=backward)
+    path = "R-B" if backward else "R-F"
     with pytest.raises(NotImplementedError,
-                       match="K8 keeps the first design.*Queue 2"):
-        ck._check_rect(*args, backward=backward)
+                       match=f"{path} keeps the first design.*Queue 2"):
+        ck._check_rect(*args, backward=backward, int4=True)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
+def test_k8_bf16_takes_the_shapes_only_k13_fits(monkeypatch, arch, image,
+                                                backward):
+    """The bf16 K8 runs K1's Hopper launches with K13's core in its rect
+    geometry: where the K1 family's gate and vitax's take a shape that the
+    whole-row core cannot (seq 677; head dim 80), its wrappers' checks pass,
+    forward and backward, before they allocate anything, as its int8
+    tier's do."""
+    t, s, h, hd, _ = _meta_half(arch, image)
+    x = t["x"]
+    xc = x[:, :x.shape[1] // 16 * 8]
+    assert ck.qkv_attention_rect_supported(xc, x, t["wqkv"], h)
+    assert not ck._core_fits(x, t["wqkv"], h, backward=backward)
+    monkeypatch.setattr(ck, "_check_cuda",
+                        lambda name, tensors, dtypes: torch.device("meta"))
+    ck._check_rect("k", xc, x, t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                   t["wo"], None if backward else t["bo"], s, h, hd,
+                   backward=backward)
 
 
 # ------------------------------------------------------------ under a mesh

@@ -297,7 +297,9 @@ cudaError_t launch_attention_bwd(const AttnBwdGeom& g, cudaStream_t stream) {
   attention_bwd_kv_kernel<HD>
       <<<dim3((k_tiles + kKvWarps - 1) / kKvWarps, f.kv_heads, f.b), 32 * kKvWarps, 0, stream>>>(
           g);
-  return cudaGetLastError();
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++first_design_launches[2];
+  return launched;
 }
 
 // The backward core for head_dim 32, 64 or 128 at geometry g.

@@ -12,12 +12,14 @@
 
 namespace vitax {
 
-// Launches of two first-design pieces, one added where each launches
+// Launches of four first-design pieces, one added where each launches
 // (every translation unit shares the one array; read and reset through
 // gemm_sm90_s8.cu's vitax_first_design_launches): [0] gemm.cuh's mma.sync s8
-// products, [1] attention.cuh's whole-row forward core. A card run reads
-// that a path on the Hopper halves launched neither.
-inline long long first_design_launches[2] = {};
+// products, [1] attention.cuh's whole-row forward core, [2] attention_bwd.cuh's
+// whole-row backward core, [3] gemm.cuh's bf16 WMMA products. A card run
+// reads that a path on the Hopper halves launched none of them.
+constexpr int kFirstDesignPieces = 4;
+inline long long first_design_launches[kFirstDesignPieces] = {};
 
 using bf16 = __nv_bfloat16;
 

@@ -140,8 +140,8 @@ __device__ __forceinline__ void gemm_load_tile(bf16* As, bf16* Bs, const bf16* _
 }
 
 // Requires N % 8 == 0 and M % 8 == 0 for kTN (checked by the wrappers), and
-// K % 32 == 0 for kNN/kNT; ldb % 8 == 0 (B's row stride: N for kNN/kTN and K
-// for kNT, unless B is a column slice of a wider matrix). blockIdx.z is the K split: K rows
+// K % 32 == 0 for kNN/kNT; ldb is B's row stride (N for kNN/kTN and K for
+// kNT). blockIdx.z is the K split: K rows
 // [z*k_chunk, min(K, (z+1)*k_chunk)); F then points at split z's partial.
 template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -280,37 +280,31 @@ inline size_t gemm_tn_workspace(int M, int N, int K) {
 template <int LAYOUT, int EPI>
 cudaError_t launch_gemm_impl(const bf16* A, const bf16* B, const float* bias, const bf16* G,
                              bf16* C, float* F, int M, int N, int K, int splits,
-                             cudaStream_t stream, int ldb = 0) {
+                             cudaStream_t stream) {
   if (M == 0 || N == 0) return cudaSuccess;
-  const int row = LAYOUT == kNT ? K : N;  // the elements of a row of B
-  if (ldb == 0)
-    ldb = row;
-  else if (ldb % 8 || ldb < row)
-    return cudaErrorInvalidValue;
+  const int ldb = LAYOUT == kNT ? K : N;  // the elements of a row of B
   const int k_chunk = (K + splits * kGemmBK - 1) / (splits * kGemmBK) * kGemmBK;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
   gemm_bf16_kernel<LAYOUT, EPI>
       <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, G, C, F, M, N, K, k_chunk, ldb);
-  return cudaGetLastError();
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++first_design_launches[3];
+  return launched;
 }
 
-// Forward products: C[M,N] = bf16(A[M,K] @ B[K,N] + bias) (kBias); ldb is
-// B's row stride (0: N), so B may be a column slice of a wider weight (K8's
-// Q and KV slices of Wqkv).
+// Forward products: C[M,N] = bf16(A[M,K] @ B[K,N] + bias) (kBias).
 template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, bf16* C, int M, int N,
-                        int K, cudaStream_t stream, int ldb = 0) {
-  return launch_gemm_impl<kNN, EPI>(A, B, bias, nullptr, C, nullptr, M, N, K, 1, stream, ldb);
+                        int K, cudaStream_t stream) {
+  return launch_gemm_impl<kNN, EPI>(A, B, bias, nullptr, C, nullptr, M, N, K, 1, stream);
 }
 
 // dx-path products: C[M,N] = epilogue(A[M,K] @ B[N,K]^T), epilogue kStore
-// (bf16 C) or kStoreF32 (fp32 F); ldb is B's row stride (0: K), so B may be a
-// column slice of a wider weight (K8's backward contracts over the Q and KV
-// slices of Wqkv).
+// (bf16 C) or kStoreF32 (fp32 F).
 template <int EPI>
 cudaError_t launch_gemm_nt(const bf16* A, const bf16* B, bf16* C, float* F, int M, int N, int K,
-                           cudaStream_t stream, int ldb = 0) {
-  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, C, F, M, N, K, 1, stream, ldb);
+                           cudaStream_t stream) {
+  return launch_gemm_impl<kNT, EPI>(A, B, nullptr, nullptr, C, F, M, N, K, 1, stream);
 }
 
 // The save-acts dh1 product: C[M,N] = bf16(f32(A[M,K] @ B[N,K]^T) * f32(G)),

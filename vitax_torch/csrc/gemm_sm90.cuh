@@ -1,8 +1,9 @@
 // A Hopper GEMM on warpgroup MMAs: the bf16 products of K1's and K2's
 // backwards (ln_qkvo_attention_bwd.cu, ln_mlp_bwd.cu) and, since their
 // redesign, of K1's and K2's forwards and K12's (ln_qkvo_attention.cu with
-// kv_heads == heads, ln_mlp.cu, ln_mlp_save.cu); and, in its own section
-// below, the s8 products of K3's backward with kv_heads == heads and K4's
+// kv_heads == heads, ln_mlp.cu, ln_mlp_save.cu) and of K8's bf16 pair on
+// the column slices of Wqkv (ln_qkvo_attention_rect{,_bwd}.cu); and, in its
+// own section below, the s8 products of K3's backward with kv_heads == heads and K4's
 // (ln_qkvo_attention_int8_bwd.cu, ln_mlp_int8_bwd.cu), their bf16 weight
 // grads on the kTN path here. Every other kernel keeps gemm.cuh's WMMA and
 // mma.sync products. The TPU kernels compute these products in their own
@@ -441,23 +442,29 @@ cudaError_t launch(const Operands& op, const GemmArgs& g, int splits, cudaStream
 
 // C = epilogue(A[M,K] · B[K,N]): kEpiBias, kEpiStore, kEpiBiasGelu (C),
 // kEpiBiasGeluSave (C and C2), kEpiBiasResidual (C, residual R [M, N]) or
-// kEpiF32 (F)
+// kEpiF32 (F). ldb is B's row stride (0: N), so B may be a column slice of
+// a wider weight read in place (K8's Q and KV slices of Wqkv); the TMA map
+// is N columns wide, so nothing past the slice is read.
 template <int EPI>
 cudaError_t gemm_nn(const bf16* A, const bf16* B, const float* bias, bf16* C, float* F, int M,
                     int N, int K, cudaStream_t st, const bf16* R = nullptr,
-                    bf16* C2 = nullptr) {
-  const Operands op{A, B, nullptr, nullptr, K, N, 0, 0};
+                    bf16* C2 = nullptr, int ldb = 0) {
+  if (ldb != 0 && ldb < N) return cudaErrorInvalidValue;
+  const Operands op{A, B, nullptr, nullptr, K, ldb == 0 ? N : ldb, 0, 0};
   GemmArgs g{};
   g.bias = bias, g.R = R, g.C = C, g.C2 = C2, g.F = F;
   g.M = M, g.N = N, g.K = K, g.k_chunk = K;
   return launch<kNN, EPI, false>(op, g, 1, st);
 }
 
-// C = epilogue(A[M,K] · B[N,K]ᵀ): kEpiStore (C) or kEpiF32 (F)
+// C = epilogue(A[M,K] · B[N,K]ᵀ): kEpiStore (C) or kEpiF32 (F). ldb is B's
+// row stride (0: K), so B may be a column slice of a wider weight (K8's
+// backward contracts over the Q and KV slices of Wqkv); the map is K wide.
 template <int EPI>
 cudaError_t gemm_nt(const bf16* A, const bf16* B, bf16* C, float* F, int M, int N, int K,
-                    cudaStream_t st) {
-  const Operands op{A, B, nullptr, nullptr, K, K, 0, 0};
+                    cudaStream_t st, int ldb = 0) {
+  if (ldb != 0 && ldb < K) return cudaErrorInvalidValue;
+  const Operands op{A, B, nullptr, nullptr, K, ldb == 0 ? K : ldb, 0, 0};
   GemmArgs g{};
   g.C = C, g.F = F;
   g.M = M, g.N = N, g.K = K, g.k_chunk = K;

@@ -72,10 +72,12 @@ extern "C" int vitax_gemm_sm90_s8_launches(long long* counts, int reset) {
 }
 
 // counts[0] = gemm.cuh's mma.sync s8 products, counts[1] = attention.cuh's
-// whole-row forward cores launched since the last reset (common.cuh's
-// first_design_launches); reset != 0 zeroes them after the read
+// whole-row forward cores, counts[2] = attention_bwd.cuh's whole-row
+// backward cores, counts[3] = gemm.cuh's bf16 WMMA products launched since
+// the last reset (common.cuh's first_design_launches); reset != 0 zeroes
+// them after the read
 extern "C" int vitax_first_design_launches(long long* counts, int reset) {
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < vitax::kFirstDesignPieces; ++i) {
     counts[i] = vitax::first_design_launches[i];
     if (reset) vitax::first_design_launches[i] = 0;
   }

@@ -18,19 +18,30 @@
 // only on its own row and the image's K and V, so the output rows equal K1's
 // for the same tokens, bit for bit (the TPU kernel states it, :3944-3946).
 //
-// Bound on the H100: at b64, cpq 128 of spq 200, the work is ~0.8 of K1's
-// (the KV projection over all rows does not shrink): the projections on the
-// tensor cores and the core as K1's. Design: K1's launches with two changes.
-// The TPU splits Wqkv into Wq and Wkv outside its kernel only because Mosaic
-// could not slice lanes (:4036-4038); here the Q and KV GEMMs read column
-// slices of the one merged Wqkv by offset and row stride (gemm.cuh's ldb),
-// with no copy. The core is attention.cuh's, in its rect geometry: query rows
-// from q [b·cpq, H·hd], K and V staged from kv [b·spq, 2·H·hd], the shared
-// memory of the spq keys, so it takes the shapes K1's gate takes at spq. Six
-// launches on one stream: two LNs, two projections, the core, the out GEMM;
-// xnc, xn, q, kv and attn go through device memory.
-#include "attention.cuh"
-#include "gemm.cuh"
+// Bound on the H100: at b64, cpq 128 of spq 200, the tensor cores (0.055
+// ms): ~0.8 of K1's work, since the KV projection over all rows does not
+// shrink; the core is 4·cpq·spq·hd a head.
+//
+// The Hopper design: K1's forward sequence (ln_qkvo_attention.cu,
+// kv_heads == heads) on K8's two row sets, six launches on one stream:
+//   1-2. LN of xc and of x (layernorm.cuh), bf16 xnc and xn;
+//   3. q = bf16(xnc·Wq + bq) on gemm_sm90.cuh (kEpiBias), Wq the first hhd
+//      columns of Wqkv read in place by row stride 3·hhd;
+//   4. kv = bf16(xn·Wkv + bkv) likewise over the columns [hhd, 3·hhd): the
+//      TPU splits Wqkv outside its kernel only because Mosaic could not
+//      slice lanes (:4036-4038); no weight is copied here;
+//   5. K13's forward core (attention_core.cuh, launch_core_fwd) in its rect
+//      geometry: the cpq query rows of q (row stride hhd) against the spq
+//      key rows of kv (K columns, then V; row stride 2·hhd), keys masked at
+//      seq_len, p normalised in fp32 and rounded to bf16 once before p·v,
+//      the head outputs into attn in bf16;
+//   6. out = bf16(attn·Wo + bo) on gemm_sm90.cuh (kEpiBias).
+// Every launch is per row (LN, the products' epilogues over the same K
+// order and column tiles, K13's row statistics and p·v), and each is K1's
+// own call, so a kept row's out equals K1's forward on x followed by the
+// row gather, bit for bit. xnc, xn, q, kv and attn go through device
+// memory (scratch); the scores never do.
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 // Inputs xc bf16 [b·cpq, d], x bf16 [b·spq, d], gamma, beta fp32 [d], wqkv bf16
@@ -43,10 +54,13 @@ extern "C" int vitax_ln_qkvo_attention_rect_fwd(
     void* attn, void* out, int b, int cpq, int spq, int d, int seq_len, int heads, int head_dim,
     float eps, float scale, void* stream) {
   using vitax::bf16;
+  namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
   const int nc = b * cpq;
   const int n = b * spq;
   const int hhd = heads * head_dim;
+  if (nc == 0) return cudaSuccess;
+  if (b > 65535 || seq_len <= 0 || seq_len > spq) return cudaErrorInvalidValue;
   const auto* g = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
   const auto* w = static_cast<const bf16*>(wqkv);
@@ -61,16 +75,21 @@ extern "C" int vitax_ln_qkvo_attention_rect_fwd(
   if (e != cudaSuccess) return e;
   e = vitax::launch_layer_norm(static_cast<const bf16*>(x), g, be, xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xncb, w, bias, qb, nc, hhd, d, st, 3 * hhd);
+  e = sm90::gemm_nn<sm90::kEpiBias>(xncb, w, bias, qb, nullptr, nc, hhd, d, st, nullptr, nullptr,
+                                    3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xnb, w + hhd, bias + hhd, kvb, n, 2 * hhd, d, st, 3 * hhd);
+  e = sm90::gemm_nn<sm90::kEpiBias>(xnb, w + hhd, bias + hhd, kvb, nullptr, n, 2 * hhd, d, st,
+                                    nullptr, nullptr, 3 * hhd);
   if (e != cudaSuccess) return e;
-  const vitax::AttnGeom geom{qb,  static_cast<size_t>(hhd), cpq,   kvb, 2 * static_cast<size_t>(hhd),
-                             spq, 0,                         hhd,   heads, heads,
-                             b,   seq_len,                   scale};
-  e = vitax::launch_attention_core_geom(geom, head_dim, attnb, st);
+  vitax::k13::CoreArgs a{};
+  a.q = qb, a.k = kvb, a.v = kvb + hhd, a.o = attnb;
+  a.seq = seq_len, a.rows = a.img_rows = cpq, a.kv_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.scale = scale;
+  a.ld_q = a.ld_o = hhd;
+  a.ld_k = a.ld_v = 2 * hhd;
+  e = vitax::k13::launch_core_fwd(a, head_dim, b, st);
   if (e != cudaSuccess) return e;
-  return vitax::launch_gemm<vitax::kBias>(attnb, static_cast<const bf16*>(wo),
-                                          static_cast<const float*>(bo),
-                                          static_cast<bf16*>(out), nc, d, hhd, st);
+  return sm90::gemm_nn<sm90::kEpiBias>(attnb, static_cast<const bf16*>(wo),
+                                       static_cast<const float*>(bo), static_cast<bf16*>(out),
+                                       nullptr, nc, d, hhd, st);
 }

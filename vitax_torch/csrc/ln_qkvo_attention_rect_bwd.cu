@@ -16,24 +16,38 @@
 //   dWq = xnc^T dq, dWkv = xn^T dkv, dbq = Σ dq, dbkv = Σ dkv (fp32)
 // dWqkv = [dWq | dWkv] is concatenated by the caller, as vitax's wrapper does.
 //
-// xc's pad rows (cpq - cap, zero-filled by the caller) get a zero cotangent
-// from the caller's row cut, so their dattn, ds and dq rows are exactly 0 and
-// they add nothing to dWo, dWq, dbq or dγ; x's pad rows (spq - seq_len) are
-// masked key columns, so their P and ds are exactly 0 and their dk, dv rows
-// add nothing to dWkv, dbkv.
+// xc's pad rows (cpq - cap, zero-filled by the caller) are query rows like
+// any other: vitax computes them, and whatever their dO (zero as the caller
+// cuts it) enters dk, dv, dWq, dWo and dbq. x's pad rows (spq - seq_len)
+// are masked key columns, so their P and ds are exactly 0 and their dk, dv
+// rows add nothing to dWkv, dbkv.
 //
 // Bound on the H100: at b32, cpq 128 of spq 200 (Res-ViT b16's compaction at
 // C 0.625), ~77 GFLOP on the tensor cores, 0.08 ms at 989 TFLOP/s: the Q-side
-// products and the core shrink with cpq, the KV-side ones do not. Design:
-// K1's backward (ln_qkvo_attention_bwd.cu) on two row sets, 18 launches on
-// one stream. The GEMMs read the Q and KV column slices of Wqkv in place by
-// row stride (gemm.cuh's ldb, kNN and kNT); the core backward is
-// attention_bwd.cuh's in the rect geometry, its P and ds [b, H, Lq, Lk] with
-// Lq, Lk = cpq, spq rounded up to 16; every weight grad is one split-K kTN
-// product with an ordered second pass, every vector grad a two-pass column
-// sum. No float atomics: two runs give the same bits.
-#include "attention_bwd.cuh"
-#include "gemm.cuh"
+// products and the core shrink with cpq, the KV-side ones do not.
+//
+// The Hopper design: K1's backward sequence (ln_qkvo_attention_bwd.cu,
+// kv_heads == heads) on K8's two row sets, on one stream:
+//   1. the recompute of K8's forward (ln_qkvo_attention_rect.cu): the two
+//      LNs, q and kv on gemm_sm90.cuh over the column slices of Wqkv read in
+//      place by row stride 3·hhd, K13's forward core in its rect geometry
+//      (attn bf16);
+//   2. dattn = bf16(do·Woᵀ) (kNT), dWo = attnᵀ·do (kTN) and dbo, over the
+//      cpq rows;
+//   3. the core grads through K13's three passes in the rect geometry
+//      (attention_core_bwd.cu): the row pass over the cpq query rows
+//      (m·scale·log2e, 1/l and dd from the bf16 attn, 12 bytes a row, into
+//      `stats`), the key pass over the spq key rows (dk, dv into kv's packed
+//      columns of dkv, 0 on the keys >= seq_len), the query pass (dq).
+//      Neither P nor ds reaches device memory (the first design kept
+//      2·B·H·cpq·spq bf16 of them, 41 MB at b32 cpq 128 spq 200);
+//   4. dxnc = dq·Wqᵀ and dxn = dkv·Wkvᵀ in fp32 (kNT through the slices);
+//   5. dWq = xncᵀ·dq over xc's rows and dWkv = xnᵀ·dkv over x's (kTN, split
+//      K with its ordered second pass), dbq and dbkv as two-pass column sums;
+//   6. the two LN backwards (launch_layer_norm_bwd_two), dγ and dβ summed
+//      over both row sets.
+// No float atomics: two runs give the same bits.
+#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
 
 namespace {
@@ -66,26 +80,31 @@ extern "C" long long vitax_ln_qkvo_attention_rect_bwd_ws(int nc, int n, int d, i
 // [b·cpq, d], dx bf16 [b·spq, d], fp32 dgamma, dbeta [d], dwq [d, hhd], dwkv
 // [d, 2hhd], dbq [hhd], dbkv [2hhd], dwo [hhd, d], dbo [d]. Scratch (bf16
 // unless noted): xnc [b·cpq, d], xn [b·spq, d], q [b·cpq, hhd], kv
-// [b·spq, 2hhd], attn, dattn, dq [b·cpq, hhd], p, ds [b, heads, Lq, Lk],
-// dkv [b·spq, 2hhd], dxnc fp32 [b·cpq, d], dxn fp32 [b·spq, d], g2, b2 fp32
-// [d], ws fp32 vitax_ln_qkvo_attention_rect_bwd_ws(b·cpq, b·spq, d, hhd).
+// [b·spq, 2hhd], attn, dattn, dq [b·cpq, hhd], stats fp32
+// vitax_attention_core_bwd_ws(b, cpq, heads), dkv [b·spq, 2hhd], dxnc fp32
+// [b·cpq, d], dxn fp32 [b·spq, d], g2, b2 fp32 [d], ws fp32
+// vitax_ln_qkvo_attention_rect_bwd_ws(b·cpq, b·spq, d, hhd).
 extern "C" int vitax_ln_qkvo_attention_rect_bwd(
     const void* xc, const void* x, const void* gamma, const void* beta, const void* wqkv,
     const void* bqkv, const void* wo, const void* dout, void* dxc, void* dx, void* dgamma,
     void* dbeta, void* dwq, void* dwkv, void* dbq, void* dbkv, void* dwo, void* dbo, void* xnc,
-    void* xn, void* q, void* kv, void* attn, void* dattn, void* p, void* ds, void* dq, void* dkv,
+    void* xn, void* q, void* kv, void* attn, void* dattn, void* stats, void* dq, void* dkv,
     void* dxnc, void* dxn, void* g2, void* b2, void* ws, int b, int cpq, int spq, int d,
     int seq_len, int heads, int head_dim, float eps, float scale, void* stream) {
   using vitax::bf16;
+  namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
   const int nc = b * cpq;
   const int n = b * spq;
   const int hhd = heads * head_dim;
-  if (nc == 0 || n == 0) return cudaErrorInvalidValue;
+  if (nc == 0 || n == 0 || b > 65535 || seq_len <= 0 || seq_len > spq)
+    return cudaErrorInvalidValue;
   const auto* g = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
   const auto* w = static_cast<const bf16*>(wqkv);
   const auto* bias = static_cast<const float*>(bqkv);
+  const auto* xcb = static_cast<const bf16*>(xc);
+  const auto* xb = static_cast<const bf16*>(x);
   const auto* dob = static_cast<const bf16*>(dout);
   auto* xncb = static_cast<bf16*>(xnc);
   auto* xnb = static_cast<bf16*>(xn);
@@ -99,47 +118,51 @@ extern "C" int vitax_ln_qkvo_attention_rect_bwd(
   auto* dxnf = static_cast<float*>(dxn);
   auto* wsf = static_cast<float*>(ws);
 
-  // recompute both LNs, q, kv and the rect core
-  cudaError_t e = vitax::launch_layer_norm(static_cast<const bf16*>(xc), g, be, xncb, nc, d, eps,
-                                           st);
+  // recompute both LNs, q, kv and the core (K13's forward, rect geometry)
+  cudaError_t e = vitax::launch_layer_norm(xcb, g, be, xncb, nc, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_layer_norm(static_cast<const bf16*>(x), g, be, xnb, n, d, eps, st);
+  e = vitax::launch_layer_norm(xb, g, be, xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xncb, w, bias, qb, nc, hhd, d, st, 3 * hhd);
+  e = sm90::gemm_nn<sm90::kEpiBias>(xncb, w, bias, qb, nullptr, nc, hhd, d, st, nullptr, nullptr,
+                                    3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm<vitax::kBias>(xnb, w + hhd, bias + hhd, kvb, n, 2 * hhd, d, st, 3 * hhd);
+  e = sm90::gemm_nn<sm90::kEpiBias>(xnb, w + hhd, bias + hhd, kvb, nullptr, n, 2 * hhd, d, st,
+                                    nullptr, nullptr, 3 * hhd);
   if (e != cudaSuccess) return e;
-  const vitax::AttnGeom geom{qb,  static_cast<size_t>(hhd), cpq,   kvb, 2 * static_cast<size_t>(hhd),
-                             spq, 0,                         hhd,   heads, heads,
-                             b,   seq_len,                   scale};
-  e = vitax::launch_attention_core_geom(geom, head_dim, attnb, st);
+  vitax::k13::CoreArgs a{};
+  a.q = qb, a.k = kvb, a.v = kvb + hhd;
+  a.o = attnb, a.out = attnb, a.dout = dattnb;
+  a.dq = dqb, a.dk = dkvb, a.dv = dkvb + hhd;
+  a.stats = static_cast<float*>(stats);
+  a.seq = seq_len, a.rows = a.img_rows = cpq, a.kv_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.seq_pad = (cpq + vitax::k13::kRows - 1) / vitax::k13::kRows * vitax::k13::kRows;
+  a.scale = scale;
+  a.ld_q = a.ld_o = a.ld_do = a.ld_dq = hhd;
+  a.ld_k = a.ld_v = a.ld_dk = a.ld_dv = 2 * hhd;
+  e = vitax::k13::launch_core_fwd(a, head_dim, b, st);
   if (e != cudaSuccess) return e;
 
   // out-projection grads over the xc rows
-  e = vitax::launch_gemm_nt<vitax::kStore>(dob, static_cast<const bf16*>(wo), dattnb,
-                                           nullptr, nc, hhd, d, st);
+  e = sm90::gemm_nt<sm90::kEpiStore>(dob, static_cast<const bf16*>(wo), dattnb, nullptr, nc, hhd,
+                                     d, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
+  e = sm90::gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, nc, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, nc, d, st);
   if (e != cudaSuccess) return e;
 
-  // rect core grads: dq on the xc rows, dk and dv on the x rows
-  const vitax::AttnBwdGeom bg{geom, attnb, dattnb, dqb, static_cast<size_t>(hhd), dkvb,
-                              2 * static_cast<size_t>(hhd), 0, hhd,
-                              static_cast<bf16*>(p), static_cast<bf16*>(ds)};
-  e = vitax::launch_attention_bwd_geom(bg, head_dim, st);
+  // the core grads: dq on the xc rows, dk and dv on the x rows (K13's passes)
+  e = vitax::k13::launch_core_bwd(a, head_dim, b, st);
   if (e != cudaSuccess) return e;
 
   // projection grads of the two row sets and the two LN tails
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dqb, w, nullptr, dxncf, nc, d, hhd, st, 3 * hhd);
+  e = sm90::gemm_nt<sm90::kEpiF32>(dqb, w, nullptr, dxncf, nc, d, hhd, st, 3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_nt<vitax::kStoreF32>(dkvb, w + hhd, nullptr, dxnf, n, d, 2 * hhd, st,
-                                              3 * hhd);
+  e = sm90::gemm_nt<sm90::kEpiF32>(dkvb, w + hhd, nullptr, dxnf, n, d, 2 * hhd, st, 3 * hhd);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(xncb, dqb, static_cast<float*>(dwq), wsf, d, hhd, nc, st);
+  e = sm90::gemm_tn(xncb, dqb, static_cast<float*>(dwq), wsf, d, hhd, nc, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_tn(xnb, dkvb, static_cast<float*>(dwkv), wsf, d, 2 * hhd, n, st);
+  e = sm90::gemm_tn(xnb, dkvb, static_cast<float*>(dwkv), wsf, d, 2 * hhd, n, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const bf16*>(dqb), static_cast<float*>(dbq), wsf, nc, hhd,
                            st);
@@ -148,8 +171,7 @@ extern "C" int vitax_ln_qkvo_attention_rect_bwd(
                            2 * hhd, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd_two<bf16, float>(
-      static_cast<const bf16*>(xc), dxncf, static_cast<bf16*>(dxc), nc,
-      static_cast<const bf16*>(x), dxnf, static_cast<bf16*>(dx), n, g,
+      xcb, dxncf, static_cast<bf16*>(dxc), nc, xb, dxnf, static_cast<bf16*>(dx), n, g,
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(g2),
       static_cast<float*>(b2), wsf, d, eps, st);
 }

@@ -46,7 +46,7 @@ SIGNATURES = {
     "vitax_ln_mlp_int8_ho_fwd": [_P] * 19 + [_I] * 3 + [_F, _P],
     "vitax_ln_qkvo_attention_rect_fwd": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int8_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
-    "vitax_ln_qkvo_attention_rect_bwd": [_P] * 33 + [_I] * 7 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_rect_bwd": [_P] * 32 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int8_bwd": [_P] * 59 + [_I] * 10 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_flash_fwd": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_flash_bwd": [_P] * 22 + [_I] * 6 + [_F, _F, _P],

@@ -39,7 +39,8 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   -> the `kv_heads` branch of `_ln_qkvo_fwd_kernel` (`_kv_off` :2803, K7);
   `fused_ln_qkvo_attention(..., kv_heads=)` routes to it
 - `fused_ln_qkvo_attention_rect` -> ln_qkvo_attention_rect.cu ->
-  `_ln_qkvo_rect_fwd_kernel` :4033 (K8)
+  `_ln_qkvo_rect_fwd_kernel` :4033 (K8: gemm_sm90.cuh's products on the
+  column slices of Wqkv, K13's core in its rect geometry)
 - `fused_ln_qkvo_attention_rect_int8` -> ln_qkvo_attention_rect_int8.cu ->
   `_ln_qkvo_rect_fwd_int8_kernel` :4067 (K8, W8A8)
 - `fused_ln_qkvo_attention_gqa_bwd` -> ln_qkvo_attention_bwd.cu with kv_heads
@@ -47,7 +48,8 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   (`_attn_core_grads` :2846-2895, K7's backward);
   `fused_ln_qkvo_attention_bwd(..., kv_heads=)` routes to it
 - `fused_ln_qkvo_attention_rect_bwd` -> ln_qkvo_attention_rect_bwd.cu ->
-  `_ln_qkvo_rect_bwd_kernel` :4155 (K8 backward)
+  `_ln_qkvo_rect_bwd_kernel` :4155 (K8 backward: gemm_sm90.cuh's products,
+  K13's three passes in the rect geometry)
 - `fused_ln_qkvo_attention_rect_int8_bwd`, `..._rect_int8_dw_bwd` ->
   ln_qkvo_attention_rect_int8_bwd.cu (+ dw_int8.cuh) ->
   `_ln_qkvo_rect_bwd_int8_kernel` :4253, its `int8_grad` and `int8_dw`
@@ -761,17 +763,23 @@ def s8_launch_counts(reset: bool = False) -> dict:
             for k, v in zip(GEMM_SM90_S8_KINDS, counts)}
 
 
-FIRST_DESIGN_PIECES = ("gemm.cuh:s8", "attention.cuh:core")
+FIRST_DESIGN_PIECES = ("gemm.cuh:s8", "attention.cuh:core",
+                       "attention_bwd.cuh:core", "gemm.cuh:bf16")
 
 
 def first_design_launch_counts(reset: bool = False) -> dict:
-    """Launches since the last reset of two first-design pieces, as the
+    """Launches since the last reset of four first-design pieces, as the
     library counts them where each launches: gemm.cuh's mma.sync s8
-    products ("gemm.cuh:s8": K7's int8 tier, K11, R-F and R-B, K12-int8)
-    and attention.cuh's whole-row forward core ("attention.cuh:core": K7,
-    the bf16 K8, R-F, K10, K9, K11-C). K3's and K4's forwards and
-    backwards with kv_heads == heads, K5's halves and K8's int8 tier launch
-    neither. Nothing is counted before the library is loaded."""
+    products ("gemm.cuh:s8": K7's int8 tier, K11, R-F and R-B, K12-int8),
+    attention.cuh's whole-row forward core ("attention.cuh:core": K7,
+    R-F, K10, K9, K11-C), attention_bwd.cuh's whole-row backward core
+    ("attention_bwd.cuh:core": K7's backwards, R-B, K10's, K9's, K11-D)
+    and gemm.cuh's bf16 WMMA products ("gemm.cuh:bf16": K7, K10, K9, the
+    bf16 weight grads of the first-design int8 and int4 backwards, K12's
+    backwards). LN, K1, K2, K12's forward, K13, K6, K3's and K4's forwards
+    and backwards with kv_heads == heads, K5's halves and K8 in its bf16
+    and int8 tiers launch none of them. Nothing is counted before the
+    library is loaded."""
     counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
     if build.loaded():
         build.check(build.load().vitax_first_design_launches(counts,
@@ -1036,10 +1044,10 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     gemm_sm90.cuh's products
     (N % 8, K % 16: d % 16, Hd % 16). The models pick the half where this
     and vitax's gate pass, in eval and in training alike (K13's backward
-    passes take what its forward takes), and so does K8's int8 tier, on
-    K13's core in its rect geometry. A first-design path (the whole-row
-    core: K7, K11-C/D, the bf16 K8, R-F/R-B) checks its own limits in its
-    wrapper and raises by name outside them. Unlike vitax's gate
+    passes take what its forward takes), and so does K8 in its bf16 and
+    int8 tiers, on K13's core in its rect geometry. A first-design path
+    (the whole-row core: K7, K11-C/D, R-F/R-B) checks its own limits in
+    its wrapper and raises by name outside them. Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
     if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
         return False
@@ -1055,8 +1063,8 @@ def _core_fits(x, wqkv, heads, kv_heads=None, backward=False) -> bool:
     """The shapes the first design takes, any dtype: attention.cuh's
     whole-row core (head dims ATTN_HEAD_DIMS, its shared memory and, with
     `backward`, its backward's) and gemm.cuh's products (widths a multiple
-    of 32). K7 (kv_heads < heads, every tier), K11-C and K11-D, K8, K10
-    and K9 run it."""
+    of 32). K7 (kv_heads < heads, every tier), K11-C and K11-D, R-F and
+    R-B, K10 and K9 run it."""
     hd = _head_dim(x, wqkv, heads, kv_heads)
     if hd is None:
         return False
@@ -4112,10 +4120,10 @@ def fused_block_int8_handoff_ref(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
 # K8 — the rect (compacted-Q) attention half of Res-ViT's token compaction
 # (fused_ln_qkvo_attention_rect, pallas_kernels.py:4410): LN of the cpq
 # gathered rows xc → Q, LN of all spq rows x → K and V, the core over the spq
-# keys, the out-projection, on the xc rows only; bf16 and W8A8. The W8A8
-# tier gives K3's output rows on x followed by a row gather, bit for bit on
-# the card (K3's launches, each per row, with K13's core in a rect
-# geometry); the bf16 tier, on the first design, K1's within the bf16 band.
+# keys, the out-projection, on the xc rows only; bf16 and W8A8. Each tier
+# gives its square kernel's output rows (K1's, K3's) on x followed by a row
+# gather, bit for bit on the card: it runs that kernel's launches, each per
+# row, on the two row sets, with K13's core in a rect geometry.
 # Its backward (:4491-4573) gives dxc on the gathered rows and dx on
 # all rows (the caller's gather transpose adds them), dγ and dβ over both
 # row sets, dWqkv = [dWq from xc's rows | dWkv from x's rows].
@@ -4123,24 +4131,23 @@ def fused_block_int8_handoff_ref(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
 
 def qkv_attention_rect_supported(xc, x, wqkv, heads) -> bool:
     """Gate of the rect half: K1's gate at x's spq, and xc [B, cpq, D] on
-    the same batch and width. K8's int8 tier runs K13's core in its rect
-    geometry and takes what the gate takes; the bf16 K8 and R-F/R-B keep
-    the first design's whole-row core, whose limits their wrappers check
-    and raise on (`_check_rect`)."""
+    the same batch and width. K8 (bf16 and int8) runs K13's core in its
+    rect geometry and takes what the gate takes; R-F/R-B keep the first
+    design's whole-row core, whose limits their wrappers check and raise
+    on (`_check_rect`)."""
     return (xc.ndim == 3 and qkv_attention_supported(x, wqkv, heads)
             and xc.shape[0] == x.shape[0] and xc.shape[2] == x.shape[2]
             and (xc.dtype == torch.bfloat16 or not xc.is_cuda))
 
 
 def _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
-                head_dim, backward=False, int8=False, int4=False):
+                head_dim, backward=False, int4=False):
     """K8's launch checks, forward or `backward`, for its tier: the rect
-    gate (K13's limits at x's spq), all the int8 tier needs (K13's core in
-    the rect geometry); the bf16 K8 and, with `int4`, R-F and R-B keep the
-    whole-row core, whose limits at x's spq they check too (`_check_qkvo`'s
-    first design)."""
-    first_design = (("R-B" if backward else "R-F") if int4
-                    else None if int8 else "K8")
+    gate (K13's limits at x's spq), all the bf16 and int8 tiers need (K13's
+    core in the rect geometry); with `int4`, R-F and R-B keep the whole-row
+    core, whose limits at x's spq they check too (`_check_qkvo`'s first
+    design)."""
+    first_design = ("R-B" if backward else "R-F") if int4 else None
     b, cpq, d = xc.shape
     if cpq % 8 or not qkv_attention_rect_supported(xc, x, wqkv, heads):
         raise ValueError(f"{name}: unsupported shapes xc {tuple(xc.shape)} x "
@@ -4241,10 +4248,11 @@ def _rect_quant_fwd_ref(xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
 def _rect_fwd(int8, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
               heads, head_dim, int8_grad=False, int8_dw=False, scratch=None,
               int4=False, int4_grad=False):
-    """K8's forward (`int8`: its W8A8 tier, on the card LN-quant,
-    gemm_sm90.cuh's s8 q and kv, K13's core in the rect geometry with an
-    fp32 out, the row codes, the s8 out-projection; with `int4` too, R-F,
-    the first design)."""
+    """K8's forward: on the card the two LNs, gemm_sm90.cuh's q and kv on
+    the column slices of Wqkv, K13's core in the rect geometry, the
+    out-projection (`int8`: its W8A8 tier, LN-quant, the s8 q and kv, the
+    core with an fp32 out, the row codes, the s8 out-projection; with
+    `int4` too, R-F, the first design)."""
     if _needs_grad(xc, x, gamma, beta, wqkv, bqkv, wo, bo):
         return FusedLnQkvoAttentionRectFn.apply(xc, x, gamma, beta, wqkv, bqkv,
                                                 wo, bo, eps, seq_len, heads,
@@ -4268,7 +4276,7 @@ def _rect_fwd(int8, xc, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
                 {"xc": _BF, "x": _BF, "gamma": _F32, "beta": _F32,
                  "wqkv": _BF, "bqkv": _F32, "wo": _BF, "bo": _F32})
     _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
-                head_dim, int8=int8, int4=int4)
+                head_dim, int4=int4)
     dev = xc.device
     b, cpq, d = xc.shape
     spq = x.shape[1]
@@ -4506,19 +4514,19 @@ def fused_ln_qkvo_attention_rect_int4_dw_bwd_ref(xc, x, gamma, beta, wqkv,
 def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
                    do, eps, seq_len, heads, head_dim, scratch=None,
                    int4=False):
-    """The launch of K8's backward, any tier (`int4`: R-B's). The int8
-    tier runs the Hopper design (K13's three passes in the rect geometry,
-    their row statistics the only attention scratch; gemm_sm90.cuh's s8
-    path and kTN); the bf16 tier and R-B keep the first design (bf16 P
-    and ds in scratch)."""
+    """The launch of K8's backward, any tier (`int4`: R-B's). The bf16
+    and int8 tiers run the Hopper design (K13's three passes in the rect
+    geometry, their row statistics the only attention scratch;
+    gemm_sm90.cuh's products, the s8 path in the int8 tier); R-B keeps the
+    first design (bf16 P and ds in scratch)."""
     dev = _check_cuda(
         name, {"xc": xc, "x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv,
                "bqkv": bqkv, "wo": wo, "do": do},
         {"xc": _BF, "x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF,
          "bqkv": _F32, "wo": _BF, "do": _BF})
-    hopper = int8 and not int4
+    hopper = not int4
     _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, None, seq_len, heads,
-                head_dim, backward=True, int8=int8, int4=int4)
+                head_dim, backward=True, int4=int4)
     _check_shape(name, "do", do, tuple(xc.shape))
     b, cpq, d = xc.shape
     spq = x.shape[1]

@@ -57,14 +57,15 @@ TRAIN_CONFIGS = {
                              token_keep=0.5)),
 }
 # kernel-name fragment -> group, first match wins
-GROUPS = [("k13::", "attention core, wgmma (K13; K1's and K6's forwards, "
-                   "backwards)"),
-          ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K6's, K12's products)"),
-          ("attention_core", "whole-row attention core (K7/K8/K11-C)"),
+GROUPS = [("k13::", "attention core, wgmma (K13; K1's, K6's and K8's "
+                   "forwards, backwards)"),
+          ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K6's, K8's, K12's "
+                        "products)"),
+          ("attention_core", "whole-row attention core (K7/R-F/K11-C)"),
           ("attention_bwd", "attention core backward"),
           ("gemm_s8_sm90", "s8 wgmma GEMM (K3's, K4's and K5's int8 "
                            "products)"),
-          ("gemm_s8", "s8 mma.sync GEMM (K7/K8/K11/K12 int8)"),
+          ("gemm_s8", "s8 mma.sync GEMM (K7/R-F/R-B/K11/K12 int8)"),
           ("gemm_bf16", "bf16 GEMM (the fused halves' products)"),
           ("layer_norm_rows", "LN forward"),
           ("layer_norm_bwd", "LN backward"),

@@ -8,9 +8,10 @@ file need not belong to), it prints under `tag`:
 
 - checksums (`checksums`): sha256 prefixes of the outputs of K6's forward
   and backward at ViT-H/14's widths, and of K1's forward, K2's forward,
-  K7's backward (4 kv heads), K3's backward (`--int8-grad`) and K13's
-  forward and backward at ViT-B/16's, on inputs made from fixed seeds on the card; two checkouts
-  give the same line where those kernels kept their bits;
+  K7's backward (4 kv heads), K3's backward (`--int8-grad`), K13's
+  forward and backward and the bf16 K8's forward and backward (cpq 128 of
+  spq 200) at ViT-B/16's, on inputs made from fixed seeds on the card;
+  two checkouts give the same line where those kernels kept their bits;
 - `int8_checksums`: the same of the int8 and int4 tiers: K3's and K4's
   forwards (K4's also without its residual; the LN-quant prologue's codes,
   scales and xn reach every output), the two halves of K5 output by output
@@ -56,9 +57,12 @@ file need not belong to), it prints under `tag`:
 - `rect_int8`: K8's int8 forward (b64 cpq 128 of spq 200, the b192 drop
   geometry cpq 64 of spq 104) and its backward with and without int8_dw
   (b32 cpq 128, b192 cpq 64): CUDA-event medians of 25 beside each call's
-  device time and kernels (`_by_kernel`); `rect_steps`: CUDA-event medians
-  of 10 of ft_resvit_fast.sh's b192 step (phase 9 (c)) and the compacted
-  `--int8` serving forward at b64 (phase 8);
+  device time and kernels (`_by_kernel`); `rect_bf16` the same of the
+  bf16 K8's forward (b64 cpq 128 and cpq 104 of spq 200) and backward
+  (b32 cpq 128); `rect_steps`: CUDA-event medians of 10 of the compacted
+  bf16 and `--int8` serving forwards at b64 (phase 8), the compacted bf16
+  step at b32 (phase 9 (b)) and ft_resvit_fast.sh's b192 step (phase 9
+  (c));
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
   momentum) at b32 in bf16, `--int8`, `--int8-grad`, `--int8-dw` and
@@ -76,7 +80,7 @@ Run it for two checkouts in the order A, B, B, A in one call on the card
 Names after the tag run only those sections (`checksums`, `int8_checksums`,
 `ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
 `kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`,
-`ho_device`, `rect_int8`, `rect_steps`), e.g.
+`ho_device`, `rect_int8`, `rect_bf16`, `rect_steps`), e.g.
 `turns.py A int8_checksums kernel_times`.
 """
 
@@ -140,10 +144,10 @@ def k6_checksum() -> str:
 
 
 def checksums() -> dict:
-    """{kernel: sha256 prefixes of its outputs} of the kernels that keep
-    their bits: K6 forward and backward, K1 forward, K2 forward, K7 backward,
-    K3 backward and K13 forward and backward (b2, 12 heads of 64, seq
-    197)."""
+    """{kernel: sha256 prefixes of its outputs} of K6 forward and backward,
+    K1 forward, K2 forward, K7 backward, K3 backward, K13 forward and
+    backward, and the bf16 K8's forward and backward (b2, 12 heads of 64,
+    seq 197; K8 on 124 rows of each image in cpq 128)."""
     from vitax_torch.ops import cuda_kernels as ck
     d, heads, hd, m = B16_WIDTHS
     hhd = heads * hd
@@ -166,6 +170,13 @@ def checksums() -> dict:
         o = ck.flash_attention_bhsd(q, k, v)
         out["K13 fwd+bwd"] = _digest((o,) + tuple(ck.flash_attention_bwd(
             q, k, v, o, do_c)))
+        # the bf16 K8 at Res-ViT's C 0.625: 124 of each image's rows in cpq
+        # 128
+        xc, rect_do = _rect_inputs(head[0], 197, 124, 128)
+        out["K8 fwd"] = _digest((ck.fused_ln_qkvo_attention_rect(
+            xc, *head, bo, *tail),))
+        out["K8 bwd"] = _digest(ck.fused_ln_qkvo_attention_rect_bwd(
+            xc, *head, rect_do, *tail))
     return out
 
 
@@ -602,26 +613,18 @@ RECT_GEOMETRIES = {"fwd": ((64, 200, 197, 124, 128), (192, 104, 99, 62, 64)),
                    "bwd": ((32, 200, 197, 124, 128), (192, 104, 99, 62, 64))}
 
 
-def rect_int8() -> dict:
-    """{K8 int8 kernel and shape: (CUDA-event median ms of 25, device ms a
-    call, its kernels)} of K8's int8 forward and of its backward with and
-    without int8_dw at `RECT_GEOMETRIES`; the device time and kernels are
-    `_by_kernel`'s."""
-    from vitax_torch.ops import cuda_kernels as ck
-    _, heads, hd, _ = B16_WIDTHS
+def _rect_times(geometries, calls_of) -> dict:
+    """{kernel and shape: (CUDA-event median ms of 25, device ms a call, its
+    kernels)} of the closures `calls_of(kind, xc, head, bo, do, tail)`
+    gives at each of `geometries` ({kind: ((b, spq, seq_len, cap, cpq),
+    ...)}); the device time and kernels are `_by_kernel`'s."""
     out = {}
-    for kind, geometries in RECT_GEOMETRIES.items():
-        for b, spq, seq, cap, cpq in geometries:
+    for kind, shapes in geometries.items():
+        for b, spq, seq, cap, cpq in shapes:
             head, bo, _, _ = _int8_inputs(202, b, spq)
             xc, do = _rect_inputs(head[0], seq, cap, cpq)
-            tail = (1e-5, seq, heads, hd)
-            fwd = ck.fused_ln_qkvo_attention_rect_int8
-            bwd = ck.fused_ln_qkvo_attention_rect_int8_bwd
-            dw_bwd = ck.fused_ln_qkvo_attention_rect_int8_dw_bwd
-            calls = ({"K8 int8 fwd": lambda: fwd(xc, *head, bo, *tail)}
-                     if kind == "fwd" else
-                     {"K8 int8 bwd": lambda: bwd(xc, *head, do, *tail),
-                      "K8 int8_dw bwd": lambda: dw_bwd(xc, *head, do, *tail)})
+            calls = calls_of(kind, xc, head, bo, do,
+                             (1e-5, seq) + B16_WIDTHS[1:3])
             label = f"b{b} cpq{cpq} spq{spq}"
             device = _by_kernel(calls, label)
             with torch.no_grad():
@@ -633,13 +636,48 @@ def rect_int8() -> dict:
     return out
 
 
+def rect_int8() -> dict:
+    """`_rect_times` of K8's int8 forward and of its backward with and
+    without int8_dw at `RECT_GEOMETRIES`."""
+    from vitax_torch.ops import cuda_kernels as ck
+    fwd = ck.fused_ln_qkvo_attention_rect_int8
+    bwd = ck.fused_ln_qkvo_attention_rect_int8_bwd
+    dw_bwd = ck.fused_ln_qkvo_attention_rect_int8_dw_bwd
+    return _rect_times(RECT_GEOMETRIES, lambda kind, xc, head, bo, do, tail: (
+        {"K8 int8 fwd": lambda: fwd(xc, *head, bo, *tail)} if kind == "fwd"
+        else {"K8 int8 bwd": lambda: bwd(xc, *head, do, *tail),
+              "K8 int8_dw bwd": lambda: dw_bwd(xc, *head, do, *tail)}))
+
+
+# The bf16 K8 at Res-ViT's serving geometries, b64 C 0.625 (cpq 128 of spq
+# 200) and C 0.5 (99 rows, cpq 104), and its backward at training's b32
+# C 0.625: (b, spq, seq_len, cap, cpq)
+RECT_BF16_GEOMETRIES = {"fwd": ((64, 200, 197, 124, 128),
+                                (64, 200, 197, 99, 104)),
+                        "bwd": ((32, 200, 197, 124, 128),)}
+
+
+def rect_bf16() -> dict:
+    """`_rect_times` of the bf16 K8's forward and backward at
+    `RECT_BF16_GEOMETRIES`."""
+    from vitax_torch.ops import cuda_kernels as ck
+    fwd = ck.fused_ln_qkvo_attention_rect
+    bwd = ck.fused_ln_qkvo_attention_rect_bwd
+    return _rect_times(
+        RECT_BF16_GEOMETRIES, lambda kind, xc, head, bo, do, tail: (
+            {"K8 fwd": lambda: fwd(xc, *head, bo, *tail)} if kind == "fwd"
+            else {"K8 bwd": lambda: bwd(xc, *head, do, *tail)}))
+
+
 def rect_steps() -> dict:
-    """{what: CUDA-event median ms} of the Res-ViT paths that run K8's int8
-    tier: ft_resvit_fast.sh's step past its dense warmup (phase 9 (c):
-    b192, `--int8-dw --compact-capacity 0.625 --token-keep 0.5`, teacher
-    and student forward, backward, AdamW) and the compacted `--int8`
-    serving forward at b64 (phase 8), on profile_resvit's model (its
-    recipe, the routers' biases randomized) and resident random images."""
+    """{what: CUDA-event median ms} of the Res-ViT paths that run K8: the
+    compacted serving forward at b64 in bf16 and with `--int8` (phase 8),
+    the compacted bf16 step at b32 (phase 9 (b) past its warmup:
+    `--compact-capacity 0.625`) and ft_resvit_fast.sh's step past its dense
+    warmup (phase 9 (c): b192, `--int8-dw --compact-capacity 0.625
+    --token-keep 0.5`), each step teacher and student forward, backward,
+    AdamW, on profile_resvit's model (its recipe, the routers' biases
+    randomized) and resident random images."""
     from vitax_torch.core.prng import set_seed
     from vitax_torch.models import resvit
     from vitax_torch.resvit_eval_cli import get_eval_config
@@ -655,23 +693,27 @@ def rect_steps() -> dict:
     out = {}
     images = torch.randn((64, 224, 224, 3), generator=g, device="cuda",
                          dtype=torch.bfloat16)
-    c = cfg.replace(compact_capacity=0.625, int8_attn=True, int8_mlp=True,
-                    fused_mlp=True)
+    compact = cfg.replace(compact_capacity=0.625)
+    int8 = compact.replace(int8_attn=True, int8_mlp=True, fused_mlp=True)
     with torch.inference_mode():
-        out["Res-ViT compacted --int8 forward b64"] = _median_ms(
-            lambda: resvit.apply(params, images, c))
-    batch, over = pr.TRAIN_CONFIGS["train-fast"]
-    c = cfg.replace(**over)
-    images = torch.randn((batch, 224, 224, 3), generator=g, device="cuda",
-                         dtype=torch.bfloat16)
-    labels = torch.randint(0, 10, (batch,), generator=g, device="cuda")
-    tx = make_adamw_for(c, params, lambda s: 1e-4)
-    state = create_state(params, tx,
-                         torch.Generator(device="cuda").manual_seed(2))
-    step = make_train_step(c, tx, Lambdas(1.0, 10.0, 1.0))
-    out[f"Res-ViT (c) step b{batch}"] = _median_ms(
-        lambda: step(state, images, labels))
-    del state, params, tx
+        for name, c in (("bf16", compact), ("--int8", int8)):
+            out[f"Res-ViT compacted {name} forward b64"] = _median_ms(
+                lambda c=c: resvit.apply(params, images, c))
+    for label, config in (("(b)", "train-compact"), ("(c)", "train-fast")):
+        batch, over = pr.TRAIN_CONFIGS[config]
+        c = cfg.replace(**over)
+        images = torch.randn((batch, 224, 224, 3), generator=g,
+                             device="cuda", dtype=torch.bfloat16)
+        labels = torch.randint(0, 10, (batch,), generator=g, device="cuda")
+        tx = make_adamw_for(c, params, lambda s: 1e-4)
+        state = create_state(params, tx,
+                             torch.Generator(device="cuda").manual_seed(2))
+        step = make_train_step(c, tx, Lambdas(1.0, 10.0, 1.0))
+        out[f"Res-ViT {label} step b{batch}"] = _median_ms(
+            lambda: step(state, images, labels))
+        del state, tx, step
+        torch.cuda.empty_cache()
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -915,8 +957,8 @@ def main(argv) -> int:
                 print(f"{tag}: device {name} {ms:.4f} ms: " + "; ".join(
                     f"{k[:70]} {t:.4f} x{n:g}" for k, t, n in rows),
                     flush=True)
-        elif section == "rect_int8":
-            for name, (ms, dev, rows) in rect_int8().items():
+        elif section in ("rect_int8", "rect_bf16"):
+            for name, (ms, dev, rows) in globals()[section]().items():
                 print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms: "
                       + "; ".join(f"{k[:70]} {t:.4f} x{n:g}"
                                   for k, t, n in rows), flush=True)
@@ -933,7 +975,7 @@ def main(argv) -> int:
 SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
             "ln_device_times", "timings", "kernel_times", "k4_outputs",
             "int8_bwd_device", "int8_fwd_device", "ho_device", "rect_int8",
-            "rect_steps")
+            "rect_bf16", "rect_steps")
 
 
 if __name__ == "__main__":
