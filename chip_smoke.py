@@ -141,7 +141,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              line from `vitax_torch/scripts/turns.py` on another
              checkout); K7's int8 tier (forward,
              int8_grad, int8_dw) at b64 spq 200 with 4 kv heads against its
-             twins as phase 3 holds K3, timed; then six paths with exact
+             twins as phase 3 holds K3, timed, the backwards on K3's s8
+             products and no first-design piece; then six paths with exact
              launch counts a batch or step: `eval_cli --no-fused-qkv` at
              384 px (b64) and `train_cli --no-fused-qkv` at 224 b32 (logits
              and grads against the plain path), `resvit_eval_cli
@@ -151,8 +152,10 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              `resvit_train_cli --int8-grad --n_kv_heads 4` and
              ft_resvit_fast.sh's flags with `--n_kv_heads 4` at b32 (logits
              with the routing replayed, grads with the noise and routing
-             replayed, against the plain path or the int8 twin path), and
-             device-timed forwards and steps.
+             replayed, against the plain path or the int8 twin path; the
+             two training runs' s8 products by kind, and first-design
+             pieces only from K7's int8 forward), and device-timed forwards
+             and steps.
 12. save-acts — `--save-acts` (K12, the save pair of the MLP half): its
              bf16 and int8 kernels (the int8 backward with int8_dw off and
              on) against their twins on every output at train_cli's b32 spq
@@ -718,9 +721,10 @@ def _s8_expect(counts):
     """The s8 products of gemm_sm90.cuh that the wrappers' launches in
     `counts` imply: K3's forward (kv_heads == heads) two s8_bf16 (qkv, out);
     K4's one s8_gelu_q_f32 (fc1) and one s8_residual (fc2), its
-    residual=False branch s8_bf16 in place of the latter; K3's backward two
-    s8_bf16 and one s8_f32, K4's (either branch) one s8_gelu_pair and one
-    s8_f32, and under int8_dw two s8_group more in each; K5's attention half
+    residual=False branch s8_bf16 in place of the latter; K3's and K7's
+    backwards two s8_bf16 and one s8_f32, K4's (either branch) one
+    s8_gelu_pair and one s8_f32, and under int8_dw two s8_group more in
+    each; K5's attention half
     one s8_bf16 (qkv) and one s8_residual_f32, its MLP half one
     s8_gelu_q_f32 and one s8_residual_f32; K8's int8 forward three s8_bf16
     (q, kv, out), its backward three s8_bf16 (q, kv, dattn) and two s8_f32
@@ -730,12 +734,15 @@ def _s8_expect(counts):
         return sum(counts.get(n, 0) for n in names)
     k3f = c("fused_ln_qkvo_attention_int8")
     k3b = c("fused_ln_qkvo_attention_int8_bwd",
-            "fused_ln_qkvo_attention_int8_dw_bwd")
+            "fused_ln_qkvo_attention_int8_dw_bwd",
+            "fused_ln_qkvo_attention_int8_gqa_bwd",
+            "fused_ln_qkvo_attention_int8_gqa_dw_bwd")
     k4f, k4p = c("fused_ln_mlp_int8"), c("fused_ln_mlp_int8_partial")
     k4b = c("fused_ln_mlp_int8_bwd", "fused_ln_mlp_int8_dw_bwd",
             "fused_ln_mlp_int8_partial_bwd", "fused_ln_mlp_int8_partial_dw_bwd")
-    dw = c("fused_ln_qkvo_attention_int8_dw_bwd", "fused_ln_mlp_int8_dw_bwd",
-           "fused_ln_mlp_int8_partial_dw_bwd")
+    dw = c("fused_ln_qkvo_attention_int8_dw_bwd",
+           "fused_ln_qkvo_attention_int8_gqa_dw_bwd",
+           "fused_ln_mlp_int8_dw_bwd", "fused_ln_mlp_int8_partial_dw_bwd")
     k5a, k5m = (c("fused_ln_qkvo_attention_int8_ho"),
                 c("fused_ln_mlp_int8_ho"))
     k8f = c("fused_ln_qkvo_attention_rect_int8")
@@ -757,11 +764,16 @@ def _check_s8(label, counts, first_design=False):
     wrappers' launches imply, and with `first_design` the first-design
     pieces (`ck.first_design_launch_counts`), of which a ViT run of LN, K1,
     K2, K3, K4 (forwards and backwards), K5 and K13, and a Res-ViT int8 run
-    of those and K8's int8 tier, launch none; returns the s8 counts."""
+    of those, K8's int8 tier and K7's int8 backwards, launch none, and K7's
+    int8 forward two gemm.cuh s8 products and one whole-row core each;
+    returns the s8 counts."""
     from vitax_torch.ops import cuda_kernels as ck
     s8 = ck.s8_launch_counts()
     fd = ck.first_design_launch_counts() if first_design else {}
+    k7f = counts.get("fused_ln_qkvo_attention_int8_gqa", 0)
     expect = {**_s8_expect(counts), **dict.fromkeys(fd, 0)}
+    if first_design:
+        expect.update({"gemm.cuh:s8": 2 * k7f, "attention.cuh:core": k7f})
     print(f"  {label}: s8 products {_nonzero(s8)}"
           + (f", first-design pieces {fd}" if first_design else ""),
           flush=True)
@@ -2684,8 +2696,9 @@ def run_resvit_slice():
                   + "}", flush=True)
             if counts[label] != expect:
                 raise AssertionError(f"expected launches {expect}")
-            # every run but GQA's (K7 keeps the first design) launches no
-            # first-design piece: K1, K2, K3, K4 and K8 in both tiers
+            # every run but GQA's (K7's forward keeps the first design)
+            # launches no first-design piece: K1, K2, K3, K4 and K8 in both
+            # tiers
             _check_s8(f"resvit_eval_cli {label}", counts[label],
                       first_design="--n_kv_heads" not in label)
 
@@ -3326,8 +3339,13 @@ def check_core_kernels(stats):
         kern = getattr(ck, name)
         twin = getattr(ck, name + "_ref")
         with torch.inference_mode():
+            ck.reset_launch_counts()
             outs = kern(*args)
             torch.cuda.synchronize()
+            if name.endswith("_bwd"):
+                # the backward on its Hopper design: K3's s8 products, no
+                # first-design piece
+                _check_s8(f"{name} {label}", {name: 1}, first_design=True)
             refs = twin(*args)
             if not isinstance(outs, tuple):
                 outs, refs = (outs,), (refs,)
@@ -3542,6 +3560,12 @@ def _resvit_no_fused_qkv(exp_root, times):
             if (bad or sum(e[0] == "train" for e in log) != batch_steps
                     or not all(math.isfinite(v) for v in valid.values())):
                 raise AssertionError(f"{label}: launches {bad}, valid {valid}")
+            if "--n_kv_heads" in extra:
+                # K7's int8 backward on its Hopper design: the s8 products
+                # by kind, and first-design pieces only from K7's int8
+                # forward
+                _check_s8(f"resvit_train_cli {label}", counts[label],
+                          first_design=True)
         params = resvit.init_params(set_seed(0), base, "cuda")
         gqa = base.replace(n_kv_heads=4)
         gqa_params = resvit.init_params(set_seed(0), gqa, "cuda")

@@ -1396,6 +1396,77 @@ def test_int8_gqa_autograd_launches_its_backward(dev, int8_dw):
         assert t.grad.dtype == t.dtype and torch.isfinite(t.grad.float()).all()
 
 
+# K7's int8 backward on its Hopper design (K3's sequence at the packed GQA
+# width, K13's core in its GQA geometry), with int8_dw off and on: Res-ViT
+# training's b32 spq 200 with 4 kv heads and the shapes that the K1
+# family's gate takes and the whole-row core did not, b16@416 (spq 680,
+# seq 677) and head dim 80 (D 640, 8 heads), with 4 kv heads; every output
+# within the bf16 tolerance and INT8_REL of the twin, the codes within their
+# bands, two launches the same bits, its s8 products counted and no
+# first-design piece launched. (batch, spq, seq_len, D, heads, kv_heads,
+# head_dim)
+K7_INT8_BWD_SHAPES = [(32, 200, 197, 768, 12, 4, 64),
+                      (4, 680, 677, 768, 12, 4, 64),
+                      (4, 200, 197, 640, 8, 4, 80)]
+
+
+@pytest.mark.parametrize("int8_dw", [False, True])
+@pytest.mark.parametrize("shape", K7_INT8_BWD_SHAPES)
+def test_k7_int8_backward_on_hopper_matches_twins_and_keeps_its_bits(
+        dev, shape, int8_dw):
+    args = _gqa_bwd_args(dev, *shape)
+    h, hkv = shape[4], shape[5]
+    if shape[1] == 680 or shape[6] == 80:
+        assert not ck._core_fits(args[0], args[3], h, hkv, backward=True)
+    assert ck.qkv_attention_supported(args[0], args[3], h, hkv)
+    name = ("fused_ln_qkvo_attention_int8_gqa_dw_bwd" if int8_dw
+            else "fused_ln_qkvo_attention_int8_gqa_bwd")
+    ck.reset_launch_counts()
+    sk, st = {}, {}
+    with torch.no_grad():
+        outs = getattr(ck, name)(*args, scratch=sk)
+        again = getattr(ck, name)(*args)
+        torch.cuda.synchronize()
+        refs = getattr(ck, name + "_ref")(*args, scratch=st)
+    for i, (out, out2, ref) in enumerate(zip(outs, again, refs)):
+        _assert_close(out, ref)
+        assert torch.equal(out, out2), (name, i)
+        rel = ((out.double() - ref.double()).norm()
+               / ref.double().norm().clamp_min(1e-30)).item()
+        assert rel <= INT8_REL, (name, i, rel)
+    _codes_within_band(name, sk, st)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == {name: 2}
+    assert ck.s8_launch_counts() == {
+        "gemm_sm90_s8:s8_bf16": 4, "gemm_sm90_s8:s8_f32": 2,
+        "gemm_sm90_s8:s8_gelu_pair": 0,
+        "gemm_sm90_s8:s8_group": 4 if int8_dw else 0,
+        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
+        "gemm_sm90_s8:s8_residual_f32": 0}
+    assert ck.first_design_launch_counts() == dict.fromkeys(
+        ck.FIRST_DESIGN_PIECES, 0)
+
+
+@pytest.mark.parametrize("int8_dw", [False, True])
+def test_k7_int8_backward_writes_zero_grads_on_masked_keys(dev, int8_dw):
+    """The key pass in the GQA geometry writes dk and dv as 0 on the key
+    rows seq_len..spq (vitax's p is exactly 0 there) under a cotangent that
+    is nonzero on those rows: their row codes in dqkv's k and v columns are
+    0, while the pad query rows' dq is not."""
+    b, spq, seq, d, h, hkv, hd = 4, 200, 150, 768, 12, 4, 64
+    args = _gqa_bwd_args(dev, b, spq, seq, d, h, hkv, hd)
+    assert args[6][:, seq:].abs().amax().item() > 0
+    name = ("fused_ln_qkvo_attention_int8_gqa_dw_bwd" if int8_dw
+            else "fused_ln_qkvo_attention_int8_gqa_bwd")
+    sk = {}
+    with torch.no_grad():
+        dx = getattr(ck, name)(*args, scratch=sk)[0]
+    assert torch.isfinite(dx.float()).all()
+    codes = sk["dqq"][0].view(b, spq, -1)
+    assert codes[:, seq:, h * hd:].abs().max().item() == 0
+    assert codes[:, :seq, h * hd:].abs().max().item() > 0
+    assert codes[:, seq:, :h * hd].abs().max().item() > 0
+
+
 # ---------------------------------------------------------------------------
 # K12, the save-acts pair, bf16 and int8: each save forward's out is K2's or
 # K4's to the bit (the same launches compute it); every output within the

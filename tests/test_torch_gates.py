@@ -287,7 +287,6 @@ def _meta_half(arch, image, kv_heads=None):
 FIRST_DESIGN = [
     ("K7", "bf16", KV_HEADS), ("K7's backward", "bf16_bwd", KV_HEADS),
     ("K7's int8 tier", "int8", KV_HEADS),
-    ("K7's int8 backward", "int8_bwd", KV_HEADS),
     ("K11-C", "int4", None), ("G-F", "int4", KV_HEADS),
     ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS),
     ("R-F", "rect_int4", None), ("R-B", "rect_int4_bwd", None)]
@@ -323,10 +322,11 @@ def _launch_checks(launch, t, s, h, hd, hkv):
 def test_first_design_paths_raise_by_name_where_only_k13_fits(
         monkeypatch, arch, image, path, launch, kv):
     """Where the K1 family's gate and vitax's take a shape that the whole-row
-    core cannot (seq 677; head dim 80), each path that keeps that core (K7
-    in every tier, K11-C/D and G-F/G-B, R-F and R-B) raises its named
-    error in its wrapper's checks, before it allocates or launches anything; K1's
-    and K3's Hopper launches pass the same checks."""
+    core cannot (seq 677; head dim 80), each path that keeps that core
+    (K7's bf16 pair and int8 forward, K11-C/D and G-F/G-B, R-F and R-B)
+    raises its named error in its wrapper's checks, before it allocates or
+    launches anything; K1's and K3's Hopper launches pass the same
+    checks."""
     t, s, h, hd, hkv = _meta_half(arch, image, kv)
     assert ck.qkv_attention_supported(t["x"], t["wqkv"], h, hkv)
     assert not ck._core_fits(t["x"], t["wqkv"], h, hkv)
@@ -365,6 +365,42 @@ def test_k5_takes_the_shapes_only_k13_fits(monkeypatch, arch, image):
     w1 = torch.empty((d, 4 * d), dtype=torch.bfloat16, device="meta")
     w2 = torch.empty((4 * d, d), dtype=torch.bfloat16, device="meta")
     assert ck.ln_mlp_supported(x.reshape(1, b * spq, d), w1, w2)
+
+
+class _Allocates(Exception):
+    """Raised where a launch function, its checks passed, loads the kernel
+    library to allocate its scratch and launch."""
+
+
+@pytest.mark.parametrize("int8_dw", [False, True])
+@pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
+def test_k7_int8_backward_takes_the_shapes_only_k13_fits(monkeypatch, arch,
+                                                         image, int8_dw):
+    """K7's int8 backward runs K3's Hopper sequence with K13's core in its
+    GQA geometry: where the K1 family's gate and vitax's take a shape that
+    the whole-row core cannot (seq 677; head dim 80) with 4 kv heads, its
+    launch function's checks pass, with int8_dw off and on, and it goes on
+    to load the library for its scratch and launch; K7's int8 forward and
+    G-B at the same shapes, on the first design, still raise by name."""
+    t, s, h, hd, hkv = _meta_half(arch, image, KV_HEADS)
+    assert ck.qkv_attention_supported(t["x"], t["wqkv"], h, hkv)
+    assert not ck._core_fits(t["x"], t["wqkv"], h, hkv, backward=True)
+    monkeypatch.setattr(ck, "_check_cuda",
+                        lambda name, tensors, dtypes: torch.device("meta"))
+
+    def load():
+        raise _Allocates
+
+    monkeypatch.setattr(ck.build, "load", load)
+    x, g, be, w, bq, wo = (t[k] for k in ("x", "gamma", "beta", "wqkv",
+                                          "bqkv", "wo"))
+    with pytest.raises(_Allocates):
+        ck._ln_qkvo_int8_bwd_cuda("k", x, g, be, w, bq, wo, t["do"], 1e-6, s,
+                                  h, hd, hkv, int8_dw, None)
+    for path, launch in (("K7's int8 tier", "int8"), ("G-B", "int4_bwd")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{path} keeps the first design.*Queue 2"):
+            _launch_checks(launch, t, s, h, hd, hkv)
 
 
 @pytest.mark.parametrize("backward", [False, True])

@@ -103,40 +103,11 @@ def _ln_quant(t, from_bf16):
     return xhat, rstd, xn32, xq, sx
 
 
-def _k13_core_grads(q, k, v, o, d_o):
-    """K13's three backward passes on the packed rows' heads."""
-    return compose.k13_core_grads(q, k, v, o, d_o, SEQ)
-
-
 def k3_bwd_composed(t, int8_dw, group):
     """K3's backward in its launch order: (dx, dγ, dβ, dWqkv, dbqkv, dWo,
     dbo)."""
-    b = t["x"].shape[0]
-    do2 = t["do"].reshape(-1, D)
-    w8, sw = quant_cols_host(t["wqkv"])  # stored [W, D]: its transpose
-    w8r, swr = quant_rows_host(t["wqkv"])
-    wo8r, swor = quant_rows_host(t["wo"])
-    xhat, rstd, xn32, xq, sx = _ln_quant(t, from_bf16=False)
-    qkv = ck.gemm_sm90_s8_ref("s8_bf16", xq, w8.t().contiguous(), sx, sw,
-                              t["bqkv"])
-    q, k, v, _, o32 = ck._attn_core(qkv.view(b, SPQ, -1), SEQ, H, HD)
-    o = o32.to(BF)
-    attn = ck._heads_to_rows(o)
-    doq, sdo = quant_rows(do2.float())
-    dattn = ck.gemm_sm90_s8_ref("s8_bf16", doq, wo8r, sdo, swor)
-    dwo = (compose.group_fold(attn, sdo, doq, group) if int8_dw
-           else ck.gemm_sm90_ref("tn_f32", attn, do2))
-    dbo = do2.float().sum(dim=0)
-    d_o = ck._split_heads(dattn.view(b, SPQ, -1), H)
-    dqkv = torch.cat([ck._heads_to_rows(g)
-                      for g in _k13_core_grads(q, k, v, o, d_o)], dim=1)
-    dqq, sdq = quant_rows(dqkv.float())
-    dxn = ck.gemm_sm90_s8_ref("s8_f32", dqq, w8r, sdq, swr)
-    dw = (compose.group_fold(xn32, sdq, dqq, group) if int8_dw
-          else ck.gemm_sm90_ref("tn_f32", xn32.to(BF), dqkv))
-    dbqkv = dqkv.float().sum(dim=0)
-    dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
-    return (dxln.to(BF).view(t["x"].shape), dg, dbe, dw, dbqkv, dwo, dbo)
+    return compose.qkvo_int8_bwd_composed(t, SEQ, H, HD, EPS, int8_dw,
+                                          group)[0]
 
 
 def k4_bwd_composed(t, int8_dw, group, residual):

@@ -1,13 +1,16 @@
 """Plain pieces of the Hopper int8 attention halves, composed on CPU tensors
 by the decomposition tests (test_torch_int8_fwd_decomposition.py,
-test_torch_int8_bwd_decomposition.py, test_torch_rect_int8_decomposition.py):
+test_torch_int8_bwd_decomposition.py, test_torch_rect_int8_decomposition.py,
+test_torch_gqa_int8_bwd_decomposition.py):
 the LN-quant prologue, K13's forward core with its fp32 out
 (attention_core.cuh, kRowsFwdF32), K13's three backward passes
 (attention_core_bwd.cu), the int8_dw group fold as the card runs it
-(dw_int8.cuh's packs, `s8_group`), and K3's forward in its launch order.
+(dw_int8.cuh's packs, `s8_group`), and K3's forward and backward in their
+launch order (the backward also K7's, kv_heads < heads).
 Every core piece takes per-head tensors [B, H, rows, Hd] with the query and
 key sides apart, so the square geometry (K3) and K8's rect one (cpq query
-rows against spq key rows) run the same code.
+rows against spq key rows) run the same code; the core grads also take
+K7's GQA geometry (`kv_heads`).
 """
 
 import math
@@ -16,7 +19,8 @@ import torch
 
 from vitax_torch.ops import cuda_kernels as ck
 from vitax_torch.ops.common import matmul_f32
-from vitax_torch.ops.quant import quant_cols, quant_cols_host, quant_rows
+from vitax_torch.ops.quant import (quant_cols, quant_cols_host, quant_rows,
+                                   quant_rows_host)
 
 BF = torch.bfloat16
 TILE = 128  # gemm_sm90.cuh's s8 K tile (kBK8)
@@ -50,14 +54,18 @@ def k13_core_f32(q, k, v, seq_len):
     return matmul_f32(p.to(BF), v)
 
 
-def k13_core_grads(q, k, v, o, d_o, seq_len):
+def k13_core_grads(q, k, v, o, d_o, seq_len, kv_heads=None):
     """K13's three backward passes on q, o, d_o [B, H, Sq, Hd] and k, v
     [B, H, Sk, Hd]: the row pass's m (of s·scale·log2e), 1/l and dd = Σ
     f32(dO)·f32(o) of every query row, o the bf16 head outputs; the key
     pass's p = exp2(s·c − m)·(1/l), 0 on the keys >= seq_len, ds =
     bf16(p (dO·vᵀ − dd)), dk = bf16((dsᵀ·q)·scale) and dv =
     bf16(bf16(p)ᵀ·dO), written as 0 on the key rows >= seq_len; the query
-    pass's dq = bf16((ds·k)·scale). Returns (dq, dk, dv)."""
+    pass's dq = bf16((ds·k)·scale). Returns (dq, dk, dv). With `kv_heads`
+    < H (the GQA geometry: k, v repeated per query head, each kv group's
+    H/kv_heads heads adjacent) dk and dv are [B, kv_heads, Sk, Hd]: the key
+    pass's fp32 sum over a group's query heads, in head order, scaled and
+    cast once."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     # the row pass
     s = _scores(q, k, seq_len)
@@ -67,8 +75,14 @@ def k13_core_grads(q, k, v, o, d_o, seq_len):
     # the key pass
     p = torch.exp2(s - m) * inv
     ds = (p * (matmul_f32(d_o, v.transpose(-1, -2)) - dd)).to(BF)
-    dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(BF)
-    dv = matmul_f32(p.to(BF).transpose(-1, -2), d_o).to(BF)
+    if kv_heads is None or kv_heads == q.shape[1]:
+        dk = (matmul_f32(ds.transpose(-1, -2), q) * scale).to(BF)
+        dv = matmul_f32(p.to(BF).transpose(-1, -2), d_o).to(BF)
+    else:
+        dk = (ck._group_sum(matmul_f32(ds.transpose(-1, -2), q), kv_heads)
+              * scale).to(BF)
+        dv = ck._group_sum(matmul_f32(p.to(BF).transpose(-1, -2), d_o),
+                        kv_heads).to(BF)
     dk[..., seq_len:, :] = 0
     dv[..., seq_len:, :] = 0
     # the query pass
@@ -114,3 +128,46 @@ def k3_fwd_composed(t, seq_len, heads, head_dim, eps):
     out = ck.gemm_sm90_s8_ref("s8_bf16", aq, wo8.t().contiguous(), sa, swo,
                               t["bo"])
     return out.view(t["x"].shape), qkv
+
+
+def qkvo_int8_bwd_composed(t, seq_len, heads, head_dim, eps, int8_dw, group,
+                           kv_heads=None):
+    """K3's backward (csrc/ln_qkvo_attention_int8_bwd.cu; with `kv_heads` <
+    heads K7's, at the packed width (H + 2·Hkv)·Hd) in its launch order on
+    t["x"], t["do"] [B, spq, D] and the half's weights: the weights' codes,
+    the LN-quant recompute, qkv on `s8_bf16` + bias, the core on the packed
+    rows (its forward as the twin's, its grads as K13's three passes,
+    `k13_core_grads`), do's codes, dattn (`s8_bf16`), dWo (`tn_f32`, or
+    under int8_dw the group fold), dbo, dqkv's codes, dxn (`s8_f32`), dW,
+    dbqkv and the LN tail. Returns ((dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo),
+    dqkv)."""
+    b, spq, d = t["x"].shape
+    do2 = t["do"].reshape(-1, d)
+    w8, sw = quant_cols_host(t["wqkv"])  # stored [W, D]: its transpose
+    w8r, swr = quant_rows_host(t["wqkv"])
+    wo8r, swor = quant_rows_host(t["wo"])
+    xhat, rstd = ck._ln_stats(t["x"].reshape(-1, d).float(), eps)
+    xn32 = ck._affine(xhat, t["gamma"], t["beta"])
+    xq, sx = quant_rows(xn32)
+    qkv = ck.gemm_sm90_s8_ref("s8_bf16", xq, w8.t().contiguous(), sx, sw,
+                              t["bqkv"])
+    q, k, v, _, o32 = ck._attn_core(qkv.view(b, spq, -1), seq_len, heads,
+                                    head_dim, kv_heads)
+    o = o32.to(BF)
+    attn = ck._heads_to_rows(o)
+    doq, sdo = quant_rows(do2.float())
+    dattn = ck.gemm_sm90_s8_ref("s8_bf16", doq, wo8r, sdo, swor)
+    dwo = (group_fold(attn, sdo, doq, group) if int8_dw
+           else ck.gemm_sm90_ref("tn_f32", attn, do2))
+    dbo = do2.float().sum(dim=0)
+    d_o = ck._split_heads(dattn.view(b, spq, -1), heads)
+    dqkv = torch.cat([ck._heads_to_rows(g) for g in k13_core_grads(
+        q, k, v, o, d_o, seq_len, kv_heads)], dim=1)
+    dqq, sdq = quant_rows(dqkv.float())
+    dxn = ck.gemm_sm90_s8_ref("s8_f32", dqq, w8r, sdq, swr)
+    dw = (group_fold(xn32, sdq, dqq, group) if int8_dw
+          else ck.gemm_sm90_ref("tn_f32", xn32.to(BF), dqkv))
+    dbqkv = dqkv.float().sum(dim=0)
+    dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
+    return (dxln.to(BF).view(t["x"].shape), dg, dbe, dw, dbqkv, dwo,
+            dbo), dqkv

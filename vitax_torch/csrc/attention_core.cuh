@@ -72,7 +72,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // seq may pass rows. stats is the backward's [images, heads, 3, seq_pad]
 // fp32 scratch: m·scale·log2e, 1/l and dd of every query row, seq_pad =
 // rows rounded up to 64. o32 is the fp32 out of the kRowsFwdF32 mode (K3's
-// and K8's int8 forwards), with o's row stride ld_o.
+// and K8's int8 forwards), with o's row stride ld_o. The key side holds
+// kv_heads heads (heads a multiple of it): query head h reads key head
+// h·kv_heads/heads (vitax's _kv_off, pallas_kernels.py:2803), and the key
+// pass sums dk, dv of a key head over its heads/kv_heads query heads
+// (attention_core_bwd.cu); every geometry but K7's GQA one (kv_heads <
+// heads, ln_qkvo_attention_int8_bwd.cu) has kv_heads = heads.
 struct CoreArgs {
   const bf16* q;
   const bf16* k;
@@ -87,6 +92,7 @@ struct CoreArgs {
   float* o32;
   int seq;
   int heads;
+  int kv_heads;
   int seq_pad;
   float scale;
   int rows;
@@ -99,7 +105,7 @@ struct CoreArgs {
 // K13's own layout: every tensor [images, seq, heads, head_dim]
 inline void dense_geometry(CoreArgs& a, int seq, int heads, int head_dim) {
   a.seq = a.rows = a.img_rows = a.kv_rows = a.kv_img_rows = seq;
-  a.heads = heads;
+  a.heads = a.kv_heads = heads;
   a.ld_q = a.ld_k = a.ld_v = a.ld_o = a.ld_do = a.ld_dq = a.ld_dk = a.ld_dv = heads * head_dim;
 }
 
@@ -108,16 +114,20 @@ inline void dense_geometry(CoreArgs& a, int seq, int heads, int head_dim) {
 __device__ __forceinline__ size_t head_off(const CoreArgs& a, int ld, int img, int h, int hd) {
   return static_cast<size_t>(img) * a.img_rows * ld + static_cast<size_t>(h) * hd;
 }
-// ... and in a key-side tensor (k, v, dk, dv)
-__device__ __forceinline__ size_t kv_head_off(const CoreArgs& a, int ld, int img, int h, int hd) {
-  return static_cast<size_t>(img) * a.kv_img_rows * ld + static_cast<size_t>(h) * hd;
+// ... and of key head g in a key-side tensor (k, v, dk, dv)
+__device__ __forceinline__ size_t kv_head_off(const CoreArgs& a, int ld, int img, int g, int hd) {
+  return static_cast<size_t>(img) * a.kv_img_rows * ld + static_cast<size_t>(g) * hd;
+}
+// The key head that query head h reads
+__device__ __forceinline__ int kv_group(const CoreArgs& a, int h) {
+  return h * a.kv_heads / a.heads;
 }
 
 // A geometry the kernels take: rows on both sides, keys to at most the key
-// side's rows
+// side's rows, whole groups of query heads a key head
 inline bool geometry_ok(const CoreArgs& a) {
   return a.rows > 0 && a.seq > 0 && a.seq <= a.kv_rows && a.kv_rows <= a.kv_img_rows &&
-         a.rows <= a.img_rows;
+         a.rows <= a.img_rows && a.kv_heads > 0 && a.heads % a.kv_heads == 0;
 }
 
 // The forward (attention_core.cu) and the backward's three passes
@@ -438,8 +448,8 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
   const int img = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = (blockIdx.x * kRowWgs + wg) * kRows;
-  const bf16* kh = a.k + kv_head_off(a, a.ld_k, img, h, HD);
-  const bf16* vh = a.v + kv_head_off(a, a.ld_v, img, h, HD);
+  const bf16* kh = a.k + kv_head_off(a, a.ld_k, img, kv_group(a, h), HD);
+  const bf16* vh = a.v + kv_head_off(a, a.ld_v, img, kv_group(a, h), HD);
   const int nt = (a.seq + kRows - 1) / kRows;
   const int steps = kRowPass || kOnline ? nt : 2 * nt;
   const float c = a.scale * kLog2e;

@@ -60,7 +60,13 @@
 // over the cpq query rows of q and dO (xc's zero pad rows [cap, cpq)
 // included, as vitax computes them), the key pass over the spq key rows of
 // k and v, which walks the query tiles and writes dk, dv on every key row,
-// 0 on the rows seq_len..spq.
+// 0 on the rows seq_len..spq. K7's int8 backward (ln_qkvo_attention_int8_bwd.cu
+// with kv_heads < heads) runs them in the GQA geometry (CoreArgs::kv_heads):
+// the row and query passes per query head, reading k and v of its group
+// h·kv_heads/heads; the key pass one block per (64-key tile, kv group,
+// image), kv_heads·tiles·images blocks where the square geometry has
+// heads·tiles·images, each walking heads/kv_heads times as many query
+// tiles, so its grid shrinks and its blocks lengthen by that factor.
 #include "attention_core.cuh"
 
 namespace vitax {
@@ -78,9 +84,14 @@ constexpr size_t kDkvSmem = (2 + 2 * kBwdStages) * kTileBytes<HD> + kBwdStages *
 template <int HD>
 constexpr size_t kDqSmem = (2 + 2 * kBwdStages) * kTileBytes<HD>;
 
-// One block a (64-key tile, head, image): dk, dv of its keys. Step t issues
-// Sᵀ and dPᵀ of query tile t, then dV and dK of tile t − 1, and forms tile
-// t's p and ds while the tensor cores run the latter.
+// One block a (64-key tile, key head, image): dk, dv of its keys. The
+// block walks the query tiles of each of the key head's heads/kv_heads
+// query heads in turn (one head where kv_heads = heads), as one sequence of
+// steps through the ring, with dK and dV in fp32 registers across the
+// whole walk: a group's sum over its query heads in fp32, scaled and cast
+// once (vitax's _attn_core_grads :2884-2892). Step j issues Sᵀ and dPᵀ of
+// query tile j, then dV and dK of tile j − 1, and forms tile j's p and ds
+// while the tensor cores run the latter.
 template <int HD>
 __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -90,32 +101,37 @@ __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
   bf16* ring = Vs + kT;  // [kBwdStages] × (Q tile, dO tile)
   float* rstats = reinterpret_cast<float*>(ring + kBwdStages * 2 * kT);  // [kBwdStages] × kStatTile
   const int img = blockIdx.z;
-  const int h = blockIdx.y;
+  const int g = blockIdx.y;
   const int k0 = blockIdx.x * kRows;
-  const bf16* qh = a.q + head_off(a, a.ld_q, img, h, HD);
-  const bf16* doh = a.dout + head_off(a, a.ld_do, img, h, HD);
-  const float* stats = a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad;
-  const int nt = (a.rows + kRows - 1) / kRows;  // query tiles
+  const int group = a.heads / a.kv_heads;
+  const int nt = (a.rows + kRows - 1) / kRows;  // query tiles a query head
+  const int steps = group * nt;
   const float c = a.scale * kLog2e;
 
   // key rows >= seq (a tile of them past seq in K1's and K8's padded rows)
   // stage zeros
   stage<HD, kThreads>(Ks,
-                      a.k + kv_head_off(a, a.ld_k, img, h, HD) + static_cast<size_t>(k0) * a.ld_k,
+                      a.k + kv_head_off(a, a.ld_k, img, g, HD) + static_cast<size_t>(k0) * a.ld_k,
                       a.ld_k, a.seq - k0, threadIdx.x);
   stage<HD, kThreads>(Vs,
-                      a.v + kv_head_off(a, a.ld_v, img, h, HD) + static_cast<size_t>(k0) * a.ld_v,
+                      a.v + kv_head_off(a, a.ld_v, img, g, HD) + static_cast<size_t>(k0) * a.ld_v,
                       a.ld_v, a.seq - k0, threadIdx.x);
-  auto issue = [&](int qt) {
-    if (qt < nt) {
+  // step j: query tile j % nt of query head g·group + j / nt
+  auto issue = [&](int j) {
+    if (j < steps) {
+      const int h = g * group + j / nt;
+      const int qt = j % nt;
       const size_t r0 = static_cast<size_t>(qt) * kRows;
-      bf16* dst = ring + qt % kBwdStages * 2 * kT;
-      stage<HD, kThreads>(dst, qh + r0 * a.ld_q, a.ld_q, a.rows - qt * kRows, threadIdx.x);
-      stage<HD, kThreads>(dst + kT, doh + r0 * a.ld_do, a.ld_do, a.rows - qt * kRows, threadIdx.x);
+      bf16* dst = ring + j % kBwdStages * 2 * kT;
+      stage<HD, kThreads>(dst, a.q + head_off(a, a.ld_q, img, h, HD) + r0 * a.ld_q, a.ld_q,
+                          a.rows - qt * kRows, threadIdx.x);
+      stage<HD, kThreads>(dst + kT, a.dout + head_off(a, a.ld_do, img, h, HD) + r0 * a.ld_do,
+                          a.ld_do, a.rows - qt * kRows, threadIdx.x);
       if (threadIdx.x < kStatTile / 4) {  // 16-byte chunks of the three rows
+        const float* stats = a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad;
         const int plane = threadIdx.x / (kRows / 4);
         const int part = threadIdx.x % (kRows / 4) * 4;
-        cp_async16(rstats + qt % kBwdStages * kStatTile + plane * kRows + part,
+        cp_async16(rstats + j % kBwdStages * kStatTile + plane * kRows + part,
                    stats + static_cast<size_t>(plane) * a.seq_pad + qt * kRows + part, 16);
       }
     }
@@ -134,19 +150,19 @@ __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  for (int qt = 0; qt < nt; ++qt) {
+  for (int j = 0; j < steps; ++j) {
     cp_async_wait<0>();
     fence_async_smem();
-    __syncthreads();  // tile qt has landed; tile qt − 2's buffers are free
-    issue(qt + 1);
-    const bf16* Qt = ring + qt % kBwdStages * 2 * kT;
-    const float* rs = rstats + qt % kBwdStages * kStatTile;
+    __syncthreads();  // tile j has landed; tile j − 2's buffers are free
+    issue(j + 1);
+    const bf16* Qt = ring + j % kBwdStages * 2 * kT;
+    const float* rs = rstats + j % kBwdStages * kStatTile;
     wg_fence();
     mma_abt<HD>(st, Ks, Qt);       // Sᵀ: rows keys, columns queries
     mma_abt<HD>(dp, Vs, Qt + kT);  // dPᵀ
     wg_commit();
-    if (qt > 0) {
-      const bf16* Qp = ring + (qt - 1) % kBwdStages * 2 * kT;
+    if (j > 0) {
+      const bf16* Qp = ring + (j - 1) % kBwdStages * 2 * kT;
       mma_pb<HD>(dv, pf, Qp + kT);
       mma_pb<HD>(dk, df, Qp);
       wg_commit();
@@ -169,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
     to_frags(dp, df);  // dsᵀ = bf16(p (dP − dd))ᵀ
   }
   {  // the last tile's dV, dK
-    const bf16* Qp = ring + (nt - 1) % kBwdStages * 2 * kT;
+    const bf16* Qp = ring + (steps - 1) % kBwdStages * 2 * kT;
     wg_fence();
     mma_pb<HD>(dv, pf, Qp + kT);
     mma_pb<HD>(dk, df, Qp);
@@ -185,10 +201,10 @@ __global__ void __launch_bounds__(kThreads) core_dkv_kernel(CoreArgs a) {
     }
   }
   store_rows<HD>(dk, a.scale, ring,
-                 a.dk + kv_head_off(a, a.ld_dk, img, h, HD) + static_cast<size_t>(k0) * a.ld_dk,
+                 a.dk + kv_head_off(a, a.ld_dk, img, g, HD) + static_cast<size_t>(k0) * a.ld_dk,
                  a.ld_dk, a.kv_rows - k0);
   store_rows<HD>(dv, 1.f, ring,
-                 a.dv + kv_head_off(a, a.ld_dv, img, h, HD) + static_cast<size_t>(k0) * a.ld_dv,
+                 a.dv + kv_head_off(a, a.ld_dv, img, g, HD) + static_cast<size_t>(k0) * a.ld_dv,
                  a.ld_dv, a.kv_rows - k0);
 }
 
@@ -204,8 +220,8 @@ __global__ void __launch_bounds__(kThreads) core_dq_kernel(CoreArgs a) {
   const int img = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * kRows;
-  const bf16* kh = a.k + kv_head_off(a, a.ld_k, img, h, HD);
-  const bf16* vh = a.v + kv_head_off(a, a.ld_v, img, h, HD);
+  const bf16* kh = a.k + kv_head_off(a, a.ld_k, img, kv_group(a, h), HD);
+  const bf16* vh = a.v + kv_head_off(a, a.ld_v, img, kv_group(a, h), HD);
   const float* stats =
       a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad + q0;
   const int nt = (a.seq + kRows - 1) / kRows;  // key tiles
@@ -297,7 +313,7 @@ cudaError_t launch_passes(const CoreArgs& a, int images, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       core_dkv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDkvSmem<HD>));
   if (e != cudaSuccess) return e;
-  core_dkv_kernel<HD><<<dim3((a.kv_rows + kRows - 1) / kRows, a.heads, images), kThreads,
+  core_dkv_kernel<HD><<<dim3((a.kv_rows + kRows - 1) / kRows, a.kv_heads, images), kThreads,
                         kDkvSmem<HD>, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;

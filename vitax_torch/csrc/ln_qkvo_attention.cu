@@ -81,6 +81,7 @@ extern "C" int vitax_ln_qkvo_attention_fwd(const void* x, const void* gamma, con
     vitax::k13::CoreArgs a{};
     a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd, a.o = attnb;
     a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
+    a.kv_heads = heads;
     a.scale = scale;
     a.ld_q = a.ld_k = a.ld_v = width;
     a.ld_o = hhd;

@@ -72,6 +72,7 @@ extern "C" int vitax_ln_qkvo_attention_flash_fwd(const void* x, const void* gamm
   k13::CoreArgs a{};
   a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd, a.o = attnb;
   a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.kv_heads = heads;
   a.scale = scale;
   a.ld_q = a.ld_k = a.ld_v = 3 * hhd;
   a.ld_o = hhd;
@@ -100,6 +101,7 @@ extern "C" int vitax_attention_online(const void* qkv, const void* dattn, void* 
   a.o = static_cast<bf16*>(attn), a.dout = static_cast<const bf16*>(dattn);
   a.stats = static_cast<float*>(stats);
   a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.kv_heads = heads;
   a.seq_pad = (spq + k13::kRows - 1) / k13::kRows * k13::kRows;
   a.scale = scale;
   a.ld_q = a.ld_k = a.ld_v = 3 * hhd;

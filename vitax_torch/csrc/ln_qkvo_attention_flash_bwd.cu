@@ -82,6 +82,7 @@ extern "C" int vitax_ln_qkvo_attention_flash_bwd(
   a.dq = dqkvb, a.dk = dqkvb + hhd, a.dv = dqkvb + 2 * hhd;
   a.stats = static_cast<float*>(stats);
   a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.kv_heads = heads;
   a.seq_pad = (spq + k13::kRows - 1) / k13::kRows * k13::kRows;
   a.scale = scale;
   a.ld_q = a.ld_k = a.ld_v = a.ld_dq = a.ld_dk = a.ld_dv = w;

@@ -84,6 +84,7 @@ int ln_qkvo_attention_int8_fwd_sm90(const vitax::bf16* x, const float* gamma, co
   vitax::k13::CoreArgs a{};
   a.q = qkv, a.k = qkv + hhd, a.v = qkv + 2 * hhd, a.o32 = attn;
   a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.kv_heads = heads;
   a.scale = scale;
   a.ld_q = a.ld_k = a.ld_v = w;
   a.ld_o = hhd;

@@ -24,8 +24,7 @@
 // GQA (K7's int8 tier, the kv_heads branch of :2977): kv_heads < heads packs
 // qkv, dqkv and the weights' columns as [q | k | v] at width (H + 2·Hkv)·hd;
 // the core grads sum dK and dV of each kv group over its H/Hkv query heads
-// in fp32 before one cast (attention_bwd.cuh's key-tile pass, as K7's bf16
-// backward), and the rest runs as above at that width.
+// in fp32 before one cast, and the rest runs as above at that width.
 //
 // The first launches quantize the weights (quant.cuh): Wq/sw, Wqkv per
 // output column, as [W, D]; Wr/swr and Wor/swor, Wqkv and Wo per row,
@@ -36,7 +35,7 @@
 // bf16 kTN at 989 TFLOP/s or, with int8_dw, two s8) on the tensor cores,
 // and the attention core's recompute and backward.
 //
-// kv_heads == heads, the Hopper design (K1's backward's sequence,
+// The Hopper design, every kv_heads (K1's backward's sequence,
 // ln_qkvo_attention_bwd.cu, with the int8 pieces swapped in):
 //   1. the LN-quant recompute (layernorm.cuh: the row in registers) writes
 //      xq, sx and xn (bf16, or fp32 under int8_dw);
@@ -51,19 +50,18 @@
 //      writing m·scale·log2e, 1/l and dd from the bf16 attn, a key pass for
 //      dk, dv, a query pass for dq), written straight into dqkv's packed
 //      columns: neither P nor ds reaches device memory (the first design
-//      kept 2·B·H·L² bf16 of them, 66 MB at b32 spq 200);
+//      kept 2·B·H·L² bf16 of them, 66 MB at b32 spq 200). With kv_heads <
+//      heads the core runs in its GQA geometry (attention_core.cuh's
+//      CoreArgs::kv_heads): query head h reads k, v of group h·Hkv/H, and
+//      a key pass block owns a (64-key tile, kv group) and walks the query
+//      tiles of the group's H/Hkv heads in turn, dK and dV in fp32
+//      registers across the walk, scaled and cast once;
 //   7. dqq, sdq (dqkv's row codes), then dxn on the s8 path (kEpiS8F32);
 //   8. dW (kTN, or the group fold from the fp32 xn), dbqkv, the LN tail.
 // The core's grads are K1's backward's, so dqkv and everything downstream
 // of it move from the first design (as K1's did when it took K13's core),
 // within the int8 band; the products' epilogues keep gemm.cuh's fp32
-// operations.
-//
-// kv_heads < heads (K7's int8 tier) keeps the first design in a branch of
-// its own, as K7's bf16 backward: the multi-launch K1 backward with
-// gemm.cuh's mma.sync s8 GEMM, the quantizing LN and the row quantizer
-// swapped in, the whole-row core with bf16 P and ds in device memory. No
-// float atomics in either: two runs give the same bits.
+// operations. No float atomics: two runs give the same bits.
 //
 // K11-D, the int4_grad branch (vitax_ln_qkvo_attention_int4_bwd): the same
 // Pallas body with _qr = _quant_rows4 (:2998) and the int4 weight forms the
@@ -75,8 +73,10 @@
 // operands, with no row-scale folding (:3033-3040, :3071-3076):
 //   dWo = Σ_z f32(quant_cols(attn_z)^T quant_cols(do_z)) sat_z sdo_z
 //   dW  = Σ_z f32(quant_cols(xn32_z)^T quant_cols(dqkv_z)) sxn_z sdq_z
-// (dw_int8.cuh's launch_dw_int8_cols), over K3's groups. Bound and design:
-// K3's backward's.
+// (dw_int8.cuh's launch_dw_int8_cols), over K3's groups. K11-D and G-B (its
+// kv_heads branch) keep the first design: the multi-launch K1 backward with
+// gemm.cuh's mma.sync s8 GEMM, the quantizing LN and the row quantizer
+// swapped in, the whole-row core with bf16 P and ds in device memory.
 #include "attention_bwd.cuh"
 #include "dw_int8.cuh"
 #include "gemm.cuh"
@@ -85,7 +85,7 @@
 
 namespace {
 
-// kv_heads == heads at L = 127: the Hopper design.
+// K3 and K7 at L = 127: the Hopper design.
 int ln_qkvo_attention_int8_bwd_sm90(
     const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
@@ -93,12 +93,14 @@ int ln_qkvo_attention_int8_bwd_sm90(
     void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
     void* dattn, void* stats, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws, void* atct,
     void* sat, void* doqt, void* xnct, void* sxn, void* dqqt, int b, int spq, int d, int seq_len,
-    int heads, int head_dim, int group, int int8_dw, float eps, float scale, cudaStream_t st) {
+    int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps, float scale,
+    cudaStream_t st) {
   using vitax::bf16;
   namespace sm90 = vitax::sm90;
   const int n = b * spq;
   const int hhd = heads * head_dim;
-  const int w = 3 * hhd;
+  const int kvw = kv_heads * head_dim;
+  const int w = hhd + 2 * kvw;
   const auto* xb = static_cast<const bf16*>(x);
   const auto* dob = static_cast<const bf16*>(dout);
   auto* xqi = static_cast<int8_t*>(xq);
@@ -139,11 +141,12 @@ int ln_qkvo_attention_int8_bwd_sm90(
                                       static_cast<const float*>(bqkv), qkvb, nullptr, n, w, d, st);
   if (e != cudaSuccess) return e;
   vitax::k13::CoreArgs a{};
-  a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd;
+  a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + hhd + kvw;
   a.o = attnb, a.out = attnb, a.dout = dattnb;
-  a.dq = dqkvb, a.dk = dqkvb + hhd, a.dv = dqkvb + 2 * hhd;
+  a.dq = dqkvb, a.dk = dqkvb + hhd, a.dv = dqkvb + hhd + kvw;
   a.stats = static_cast<float*>(stats);
   a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.kv_heads = kv_heads;
   a.seq_pad = (spq + vitax::k13::kRows - 1) / vitax::k13::kRows * vitax::k13::kRows;
   a.scale = scale;
   a.ld_q = a.ld_k = a.ld_v = a.ld_dq = a.ld_dk = a.ld_dv = w;
@@ -207,9 +210,8 @@ int ln_qkvo_attention_int8_bwd_sm90(
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d, eps, st);
 }
 
-// The backward on the grid of limit L (127: K3, 7: K11-D).
-template <int L>
-int ln_qkvo_attention_quant_bwd(
+// K11-D and G-B: the first design on the int4 grid.
+int ln_qkvo_attention_int4_bwd(
     const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
     void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
@@ -220,6 +222,7 @@ int ln_qkvo_attention_quant_bwd(
     int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps,
     float scale, void* stream) {
   using vitax::bf16;
+  constexpr int L = vitax::kQ4;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
@@ -280,16 +283,12 @@ int ln_qkvo_attention_quant_bwd(
   if (e != cudaSuccess) return e;
   if (!int8_dw)
     e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
-  else if (L == vitax::kQ4)  // fresh per-column packs of both operands
+  else  // fresh per-column packs of both operands
     e = vitax::launch_dw_int8_cols<bf16, bf16>(attnb, dob, n, hhd, d, group,
                                                static_cast<int8_t*>(atct), static_cast<float*>(sat),
                                                static_cast<int8_t*>(doqt),
                                                static_cast<float*>(sdoc), static_cast<float*>(dwo),
                                                st);
-  else  // row-scale folding into the dx-path's int8 codes
-    e = vitax::launch_dw_int8<bf16>(attnb, sdof, doqi, n, hhd, d, group,
-                                    static_cast<int8_t*>(atct), static_cast<float*>(sat),
-                                    static_cast<int8_t*>(doqt), static_cast<float*>(dwo), st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, n, d, st);
   if (e != cudaSuccess) return e;
@@ -310,15 +309,11 @@ int ln_qkvo_attention_quant_bwd(
   if (!int8_dw)
     e = vitax::launch_gemm_tn(static_cast<const bf16*>(xn), dqkvb, static_cast<float*>(dwqkv), wsf,
                               d, w, n, st);
-  else if (L == vitax::kQ4)
+  else
     e = vitax::launch_dw_int8_cols<float, bf16>(
         static_cast<const float*>(xn), dqkvb, n, d, w, group, static_cast<int8_t*>(xnct),
         static_cast<float*>(sxn), static_cast<int8_t*>(dqqt), static_cast<float*>(sdqc),
         static_cast<float*>(dwqkv), st);
-  else
-    e = vitax::launch_dw_int8<float>(static_cast<const float*>(xn), sdqf, dqqi, n, d, w, group,
-                                     static_cast<int8_t*>(xnct), static_cast<float*>(sxn),
-                                     static_cast<int8_t*>(dqqt), static_cast<float*>(dwqkv), st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n,
                            w, st);
@@ -338,10 +333,9 @@ int ln_qkvo_attention_quant_bwd(
 // xn [n,d], xq int8 [n,d], sx fp32 [n], qkv [n,w], attn [n,hhd], doq int8
 // [n,d], sdo fp32 [n], dattn [n,hhd], dqkv [n,w], dqq int8 [n,w], sdq fp32
 // [n], dxn fp32 [n,d], ws fp32 vitax_ln_qkvo_attention_bwd_ws(n, d, hhd, w);
-// with kv_heads == heads stats fp32 vitax_attention_core_bwd_ws(b, spq,
-// heads) (p, ds null), else p and ds [b,heads,L,L] with L = round_up(spq,
-// 16) (stats null); with int8_dw (else null; xn is then fp32 [n, d]), kp =
-// groups * round_up(group, T), T = 128 with kv_heads == heads, else 64:
+// stats fp32 vitax_attention_core_bwd_ws(b, spq, heads) (heads a multiple
+// of kv_heads); with int8_dw (else null; xn is then fp32 [n, d]), kp =
+// groups * round_up(group, 128):
 // atct int8 [hhd, kp], sat fp32 [groups, hhd], doqt int8 [d, kp], xnct int8
 // [d, kp], sxn fp32 [groups, d], dqqt int8 [w, kp].
 extern "C" int vitax_ln_qkvo_attention_int8_bwd(
@@ -349,21 +343,16 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
     void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
     void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
-    void* dattn, void* p, void* ds, void* stats, void* dqkv, void* dqq, void* sdq, void* dxn,
-    void* ws, void* atct, void* sat, void* doqt, void* xnct, void* sxn, void* dqqt, int b,
-    int spq, int d, int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw,
-    float eps, float scale, void* stream) {
-  if (kv_heads == heads)
-    return ln_qkvo_attention_int8_bwd_sm90(
-        x, gamma, beta, bqkv, wqkv, wo, dout, dx, dgamma, dbeta, dwqkv, dbqkv, dwo, dbo, w8t, sw,
-        w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, stats, dqkv, dqq, sdq, dxn,
-        ws, atct, sat, doqt, xnct, sxn, dqqt, b, spq, d, seq_len, heads, head_dim, group, int8_dw,
-        eps, scale, static_cast<cudaStream_t>(stream));
-  return ln_qkvo_attention_quant_bwd<vitax::kQ8>(
+    void* dattn, void* stats, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws, void* atct,
+    void* sat, void* doqt, void* xnct, void* sxn, void* dqqt, int b, int spq, int d, int seq_len,
+    int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps, float scale,
+    void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads) return cudaErrorInvalidValue;
+  return ln_qkvo_attention_int8_bwd_sm90(
       x, gamma, beta, bqkv, wqkv, wo, dout, dx, dgamma, dbeta, dwqkv, dbqkv, dwo, dbo, w8t, sw,
-      w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p, ds, dqkv, dqq, sdq, dxn,
-      ws, atct, sat, doqt, nullptr, xnct, sxn, dqqt, nullptr,
-      b, spq, d, seq_len, heads, kv_heads, head_dim, group, int8_dw, eps, scale, stream);
+      w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, stats, dqkv, dqq, sdq, dxn,
+      ws, atct, sat, doqt, xnct, sxn, dqqt, b, spq, d, seq_len, heads, kv_heads, head_dim, group,
+      int8_dw, eps, scale, static_cast<cudaStream_t>(stream));
 }
 
 // K11-D: K3's arguments on the int4 grid; with int8_dw (else null) the
@@ -381,7 +370,7 @@ extern "C" int vitax_ln_qkvo_attention_int4_bwd(
     void* sdqc, int b, int spq, int d,
     int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps,
     float scale, void* stream) {
-  return ln_qkvo_attention_quant_bwd<vitax::kQ4>(
+  return ln_qkvo_attention_int4_bwd(
       x, gamma, beta, bqkv, wqkv, wo, dout, dx, dgamma, dbeta, dwqkv, dbqkv, dwo, dbo, w8t, sw,
       w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p, ds, dqkv, dqq, sdq, dxn,
       ws, atct, sat, doqt, sdoc, xnct, sxn, dqqt, sdqc,

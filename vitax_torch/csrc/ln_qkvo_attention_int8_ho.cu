@@ -90,6 +90,7 @@ extern "C" int vitax_ln_qkvo_attention_int8_ho_fwd(
   vitax::k13::CoreArgs a{};
   a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd, a.o32 = attnf;
   a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.kv_heads = heads;
   a.scale = scale;
   a.ld_q = a.ld_k = a.ld_v = w;
   a.ld_o = hhd;

@@ -135,6 +135,7 @@ extern "C" int vitax_ln_qkvo_attention_rect_bwd(
   a.dq = dqb, a.dk = dkvb, a.dv = dkvb + hhd;
   a.stats = static_cast<float*>(stats);
   a.seq = seq_len, a.rows = a.img_rows = cpq, a.kv_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.kv_heads = heads;
   a.seq_pad = (cpq + vitax::k13::kRows - 1) / vitax::k13::kRows * vitax::k13::kRows;
   a.scale = scale;
   a.ld_q = a.ld_o = a.ld_do = a.ld_dq = hhd;

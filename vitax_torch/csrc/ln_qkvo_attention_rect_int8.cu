@@ -110,6 +110,7 @@ int ln_qkvo_attention_rect_int8_fwd_sm90(
   vitax::k13::CoreArgs a{};
   a.q = qb, a.k = kvb, a.v = kvb + hhd, a.o32 = attnf;
   a.seq = seq_len, a.rows = a.img_rows = cpq, a.kv_rows = a.kv_img_rows = spq, a.heads = heads;
+  a.kv_heads = heads;
   a.scale = scale;
   a.ld_q = a.ld_o = hhd;
   a.ld_k = a.ld_v = 2 * hhd;

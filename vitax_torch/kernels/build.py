@@ -41,7 +41,7 @@ SIGNATURES = {
     "vitax_ln_mlp_int8_fwd": [_P] * 17 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_mlp_int8_bwd": [_P] * 38 + [_I] * 5 + [_F, _I, _P],
     "vitax_ln_qkvo_attention_int8_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
-    "vitax_ln_qkvo_attention_int8_bwd": [_P] * 42 + [_I] * 9 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_int8_bwd": [_P] * 40 + [_I] * 9 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int8_ho_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_mlp_int8_ho_fwd": [_P] * 19 + [_I] * 3 + [_F, _P],
     "vitax_ln_qkvo_attention_rect_fwd": [_P] * 14 + [_I] * 7 + [_F, _F, _P],

@@ -744,9 +744,9 @@ def s8_launch_counts(reset: bool = False) -> dict:
     kind, as the library counts them where it launches one (`launch_s8`):
     inside K3's forward (kv_heads == heads) two s8_bf16 (qkv, out), inside
     K4's one s8_gelu_q_f32 (fc1) and one s8_residual (fc2; s8_bf16 without
-    the residual), inside K3's backward two s8_bf16 (qkv, dattn) and one
-    s8_f32 (dxn), inside K4's one s8_gelu_pair and one s8_f32, and under
-    int8_dw two s8_group in each backward; inside K5's attention half one
+    the residual), inside K3's and K7's backwards two s8_bf16 (qkv, dattn)
+    and one s8_f32 (dxn), inside K4's one s8_gelu_pair and one s8_f32, and
+    under int8_dw two s8_group in each backward; inside K5's attention half one
     s8_bf16 (qkv) and one s8_residual_f32 (the out-projection), inside its
     MLP half one s8_gelu_q_f32 (fc1) and one s8_residual_f32 (fc2), inside
     K8's int8 forward three s8_bf16 (q, kv, out), inside its backward three
@@ -770,16 +770,16 @@ FIRST_DESIGN_PIECES = ("gemm.cuh:s8", "attention.cuh:core",
 def first_design_launch_counts(reset: bool = False) -> dict:
     """Launches since the last reset of four first-design pieces, as the
     library counts them where each launches: gemm.cuh's mma.sync s8
-    products ("gemm.cuh:s8": K7's int8 tier, K11, R-F and R-B, K12-int8),
-    attention.cuh's whole-row forward core ("attention.cuh:core": K7,
-    R-F, K10, K9, K11-C), attention_bwd.cuh's whole-row backward core
-    ("attention_bwd.cuh:core": K7's backwards, R-B, K10's, K9's, K11-D)
-    and gemm.cuh's bf16 WMMA products ("gemm.cuh:bf16": K7, K10, K9, the
-    bf16 weight grads of the first-design int8 and int4 backwards, K12's
-    backwards). LN, K1, K2, K12's forward, K13, K6, K3's and K4's forwards
-    and backwards with kv_heads == heads, K5's halves and K8 in its bf16
-    and int8 tiers launch none of them. Nothing is counted before the
-    library is loaded."""
+    products ("gemm.cuh:s8": K7's int8 forward, K11, R-F and R-B,
+    K12-int8), attention.cuh's whole-row forward core
+    ("attention.cuh:core": K7, R-F, K10, K9, K11-C), attention_bwd.cuh's
+    whole-row backward core ("attention_bwd.cuh:core": K7's bf16 backward,
+    R-B, K10's, K9's, K11-D and G-B) and gemm.cuh's bf16 WMMA products
+    ("gemm.cuh:bf16": K7, K10, K9, the bf16 weight grads of the
+    first-design int4 backwards, K12's backwards). LN, K1, K2, K12's
+    forward, K13, K6, K3's and K4's forwards and backwards, K7's int8
+    backwards, K5's halves and K8 in its bf16 and int8 tiers launch none of
+    them. Nothing is counted before the library is loaded."""
     counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
     if build.loaded():
         build.check(build.load().vitax_first_design_launches(counts,
@@ -1038,16 +1038,16 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     and K8's key side), in eval and in training: x [B, S, D] (S padded to
     spq = round_up(S, 8) by the caller), merged wqkv [D, (H + 2·Hkv)·Hd]
     with Hkv = kv_heads (default heads), bf16 on the card. It takes what
-    the Hopper halves that run with kv_heads == heads (K1 and K3, forward
-    and backward, and K5's attention half) take: K13's core (S <= 1024, a
-    head dim of VITAX_K13_HEAD_DIMS, at most 65535 images) and
-    gemm_sm90.cuh's products
-    (N % 8, K % 16: d % 16, Hd % 16). The models pick the half where this
-    and vitax's gate pass, in eval and in training alike (K13's backward
-    passes take what its forward takes), and so does K8 in its bf16 and
-    int8 tiers, on K13's core in its rect geometry. A first-design path
-    (the whole-row core: K7, K11-C/D, R-F/R-B) checks its own limits in
-    its wrapper and raises by name outside them. Unlike vitax's gate
+    the Hopper halves take (K1 and K3, forward and backward, with
+    kv_heads == heads, K7's int8 backward and K5's attention half): K13's
+    core (S <= 1024, a head dim of VITAX_K13_HEAD_DIMS, at most 65535
+    images) and gemm_sm90.cuh's products (N % 8, K % 16: d % 16, Hd % 16).
+    The models pick the half where this and vitax's gate pass, in eval and
+    in training alike (K13's backward passes take what its forward takes),
+    and so does K8 in its bf16 and int8 tiers, on K13's core in its rect
+    geometry. A first-design path (the whole-row core: K7 but its int8
+    backward, K11-C/D, G-F/G-B, R-F/R-B) checks its own limits in its
+    wrapper and raises by name outside them. Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
     if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
         return False
@@ -1063,8 +1063,8 @@ def _core_fits(x, wqkv, heads, kv_heads=None, backward=False) -> bool:
     """The shapes the first design takes, any dtype: attention.cuh's
     whole-row core (head dims ATTN_HEAD_DIMS, its shared memory and, with
     `backward`, its backward's) and gemm.cuh's products (widths a multiple
-    of 32). K7 (kv_heads < heads, every tier), K11-C and K11-D, R-F and
-    R-B, K10 and K9 run it."""
+    of 32). K7 (kv_heads < heads: its bf16 pair and int8 forward), K11-C
+    and K11-D, G-F and G-B, R-F and R-B, K10 and K9 run it."""
     hd = _head_dim(x, wqkv, heads, kv_heads)
     if hd is None:
         return False
@@ -2049,8 +2049,8 @@ def _dequant(acc, s_row, s_col, bias=None):
 # whole images (`qkvo_dw_group`). The twins take the group as an argument.
 MLP_DW_GROUP = 128
 # the kernels pad each group's rows to whole K tiles of their s8 GEMM:
-# gemm.cuh's 64-deep stages, or gemm_sm90.cuh's 128-code tiles (K3's
-# backward with kv_heads == heads, and K4's)
+# gemm.cuh's 64-deep stages, or gemm_sm90.cuh's 128-code tiles (K3's and
+# K7's backwards, and K4's)
 _DW_PAD = 64
 _DW_PAD_SM90 = 128
 
@@ -3645,26 +3645,24 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
                            seq_len, heads, head_dim, kv_heads, int8_dw,
                            scratch, int4=False):
     """K3's backward launch (K7's int8 tier with kv_heads < heads), or with
-    `int4` K11-D's. K3 with kv_heads == heads runs the Hopper design (K13's
-    core, its row statistics the only attention scratch; gemm_sm90.cuh's s8
-    path); the others keep the first design (bf16 P and ds in scratch)."""
+    `int4` K11-D's (G-B's with kv_heads < heads). K3 and K7 run the Hopper
+    design (K13's core, in its GQA geometry for K7, its row statistics the
+    only attention scratch; gemm_sm90.cuh's s8 path) at K13's limits; K11-D
+    and G-B keep the first design (bf16 P and ds in scratch)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
          "wo": wo, "do": do},
         {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
          "wo": _BF, "do": _BF})
-    hopper = kv_heads == heads and not int4
-    first = (None if hopper else ("G-B" if _gqa(heads, kv_heads) else "K11-D")
-             if int4 else "K7's int8 backward")
+    first = ("G-B" if _gqa(heads, kv_heads) else "K11-D") if int4 else None
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
                 head_dim, qkv_attention_supported, kv_heads, first, True)
     _check_shape(name, "do", do, tuple(x.shape))
     b, spq, d = x.shape
     hhd = heads * head_dim
     n, width = b * spq, wqkv.shape[1]
-    rows = (spq + 15) // 16 * 16
-    pad = _DW_PAD_SM90 if hopper else _DW_PAD
+    pad = _DW_PAD if int4 else _DW_PAD_SM90
     lib = build.load()
     w8t, sw = _i8(dev, width, d), _f32(dev, width)
     w8r, swr = _i8(dev, d, width), _f32(dev, d)
@@ -3676,14 +3674,14 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     xn = (_f32 if int8_dw else _bf)(dev, n, d)
     qkv, attn, dattn = (_bf(dev, n, width), _bf(dev, n, hhd),
                         _bf(dev, n, hhd))
-    # the core's scratch, (p, ds, stats) of the int8 entry point (K11-D's
-    # takes no stats): K13's row statistics, or the whole-row core's P, ds
-    if hopper:
-        core = [None, None, _workspace(
-            lib.vitax_attention_core_bwd_ws(b, spq, heads), dev)]
-    else:
+    # the core's scratch: the whole-row core's P and ds (the int4 entry
+    # point's p, ds), or K13's row statistics (the int8 one's stats)
+    if int4:
+        rows = (spq + 15) // 16 * 16
         core = [_bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)]
-        core += [] if int4 else [None]
+    else:
+        core = [_workspace(lib.vitax_attention_core_bwd_ws(b, spq, heads),
+                           dev)]
     dqkv, dxn = _bf(dev, n, width), _f32(dev, n, d)
     xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, width)
     sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
@@ -3708,9 +3706,8 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
         x, gamma, beta, bqkv, wqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, w8t,
         sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn))
     tail = (t.data_ptr() for t in (dqkv, dqq, sdq, dxn, ws))
-    rc = fn(*head, *(None if t is None else t.data_ptr() for t in core),
-            *tail, *ptrs, b, spq, d, seq_len, heads,
-            kv_heads, head_dim, group, int(int8_dw), eps,
+    rc = fn(*head, *(t.data_ptr() for t in core), *tail, *ptrs, b, spq, d,
+            seq_len, heads, kv_heads, head_dim, group, int(int8_dw), eps,
             1.0 / math.sqrt(head_dim), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w8=(w8t.t(), sw), w8r=(w8r, swr), wo8r=(wo8r, swor),

@@ -12,14 +12,17 @@ init's keep bias 5.0 routes every token active), and one resident batch of
 `dense-int8`, `compact-int8` (default: all four); and train steps
 (teacher + student forward, backward, AdamW; λ 1, 10, 1) on a resident
 batch of random images: `train-dense` (b32, bf16, `ft_resvit.sh`),
-`train-compact` (b32, bf16, `--compact-capacity 0.625`) and `train-fast`
+`train-compact` (b32, bf16, `--compact-capacity 0.625`), `train-fast`
 (b192, `--int8-dw --compact-capacity 0.625 --token-keep 0.5`,
-`ft_resvit_fast.sh`'s flags past its dense warmup). For each it runs two
-warm-up iterations, then records three with torch.profiler and prints the
-wall time an iteration (host clock around synchronized iterations), the
-device busy time (the sum of the kernels' device times; one stream, so they
-do not overlap) and idle share, the device time by group of kernels, and
-the largest kernels.
+`ft_resvit_fast.sh`'s flags past its dense warmup), and with 4 kv heads
+(K7's int8 tier; weights of their own, made from seed 0)
+`train-gqa-int8-grad` (b32, `--int8-grad --n_kv_heads 4`) and
+`train-gqa-fast` (b32, the fast flags with `--n_kv_heads 4`). For each it
+runs two warm-up iterations, then records three with torch.profiler and
+prints the wall time an iteration (host clock around synchronized
+iterations), the device busy time (the sum of the kernels' device times;
+one stream, so they do not overlap) and idle share, the device time by
+group of kernels, and the largest kernels.
 """
 
 from __future__ import annotations
@@ -55,6 +58,15 @@ TRAIN_CONFIGS = {
                              int8_mlp=True, int8_mlp_grad=True, int8_dw=True,
                              fused_mlp=True, compact_capacity=0.625,
                              token_keep=0.5)),
+    # chip_smoke.py's phase 11 (h) and (i): K7's int8 tier
+    "train-gqa-int8-grad": (32, dict(n_kv_heads=4, int8_attn=True,
+                                     int8_attn_grad=True, int8_mlp=True,
+                                     int8_mlp_grad=True, fused_mlp=True)),
+    "train-gqa-fast": (32, dict(n_kv_heads=4, int8_attn=True,
+                                int8_attn_grad=True, int8_mlp=True,
+                                int8_mlp_grad=True, int8_dw=True,
+                                fused_mlp=True, compact_capacity=0.625,
+                                token_keep=0.5)),
 }
 # kernel-name fragment -> group, first match wins
 GROUPS = [("k13::", "attention core, wgmma (K13; K1's, K6's and K8's "
@@ -134,6 +146,9 @@ def profile(name: str, params, images, cfg, iters: int = 3) -> None:
 def profile_train(name: str, params, cfg, iters: int = 3) -> None:
     batch, over = TRAIN_CONFIGS[name]
     c = cfg.replace(**over)
+    if c.n_kv_heads != cfg.n_kv_heads:  # GQA: its own packed weights
+        params = resvit.init_params(set_seed(0), c, "cuda")
+        randomize_router_biases(params)
     g = torch.Generator(device="cuda").manual_seed(1)
     images = torch.randn((batch, 224, 224, 3), generator=g, device="cuda",
                          dtype=torch.bfloat16)

@@ -63,6 +63,9 @@ file need not belong to), it prints under `tag`:
   bf16 and `--int8` serving forwards at b64 (phase 8), the compacted bf16
   step at b32 (phase 9 (b)) and ft_resvit_fast.sh's b192 step (phase 9
   (c));
+- `gqa_int8_bwd`: K7's int8 backward with and without int8_dw (4 kv heads)
+  at b64 and b32 spq 200: the CUDA-event median of 25, `device_ms` over four
+  input copies and `_by_kernel`'s device time and kernels;
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
   momentum) at b32 in bf16, `--int8`, `--int8-grad`, `--int8-dw` and
@@ -80,7 +83,7 @@ Run it for two checkouts in the order A, B, B, A in one call on the card
 Names after the tag run only those sections (`checksums`, `int8_checksums`,
 `ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
 `kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`,
-`ho_device`, `rect_int8`, `rect_bf16`, `rect_steps`), e.g.
+`ho_device`, `rect_int8`, `rect_bf16`, `rect_steps`, `gqa_int8_bwd`), e.g.
 `turns.py A int8_checksums kernel_times`.
 """
 
@@ -649,6 +652,35 @@ def rect_int8() -> dict:
               "K8 int8_dw bwd": lambda: dw_bwd(xc, *head, do, *tail)}))
 
 
+def gqa_int8_bwd() -> dict:
+    """{K7's int8 backward, with and without int8_dw, at b`b` spq 200 with 4
+    kv heads: (CUDA-event median ms of 25, `device_ms` over four input
+    copies, `_by_kernel`'s device ms a call and its kernels)} at ViT-B/16's
+    widths (Res-ViT training, `--n_kv_heads 4`), b64 and b32."""
+    from vitax_torch.ops import cuda_kernels as ck
+    _, heads, hd, _ = B16_WIDTHS
+    tail = (1e-5, 197, heads, hd, 4)
+    out = {}
+    for b in (64, 32):
+        copies = [_int8_inputs(203 + i, b, 200, kv=4) for i in range(4)]
+        label = f"b{b} spq200 kv4"
+        for name, fn in (("K7 int8 bwd",
+                          ck.fused_ln_qkvo_attention_int8_gqa_bwd),
+                         ("K7 int8_dw bwd",
+                          ck.fused_ln_qkvo_attention_int8_gqa_dw_bwd)):
+            calls = [lambda c=c, fn=fn: fn(*c[0], c[2], *tail)
+                     for c in copies]
+            with torch.no_grad():
+                dev = device_ms(calls)
+                ms, rows = _by_kernel({name: calls[0]}, label)[
+                    f"{name} {label}"]
+                out[f"{name} {label}"] = (_median_ms(calls[0], 3, 25), dev,
+                                          ms, rows)
+        del copies
+        torch.cuda.empty_cache()
+    return out
+
+
 # The bf16 K8 at Res-ViT's serving geometries, b64 C 0.625 (cpq 128 of spq
 # 200) and C 0.5 (99 rows, cpq 104), and its backward at training's b32
 # C 0.625: (b, spq, seq_len, cap, cpq)
@@ -962,6 +994,12 @@ def main(argv) -> int:
                 print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms: "
                       + "; ".join(f"{k[:70]} {t:.4f} x{n:g}"
                                   for k, t, n in rows), flush=True)
+        elif section == "gqa_int8_bwd":
+            for name, (ms, dev, by, rows) in gqa_int8_bwd().items():
+                print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms "
+                      f"(device_ms), {by:.4f} ms (_by_kernel): " + "; ".join(
+                          f"{k[:70]} {t:.4f} x{n:g}" for k, t, n in rows),
+                      flush=True)
         elif section in ("timings", "rect_steps"):
             for name, value in globals()[section]().items():
                 print(f"{tag}: {name} {value:.3f}"
@@ -975,7 +1013,7 @@ def main(argv) -> int:
 SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
             "ln_device_times", "timings", "kernel_times", "k4_outputs",
             "int8_bwd_device", "int8_fwd_device", "ho_device", "rect_int8",
-            "rect_bf16", "rect_steps")
+            "rect_bf16", "rect_steps", "gqa_int8_bwd")
 
 
 if __name__ == "__main__":
