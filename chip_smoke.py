@@ -337,13 +337,15 @@ forward, with and without the residual, must give the twin's bits from the
 kernel's own LN codes at every case: the weights' codes, h1q and its row
 scales, and out (`fused_ln_mlp_int8_from_codes_ref`).
 
-K3's forward and backward (kv_heads == heads), K4's, K5's two halves and
-K8's int8 forward and backward run their int8 products on gemm_sm90.cuh's
-s8 wgmma path and K3's, K5's and K8's cores on K13's (the forwards with an
-fp32 out, K3's and K8's grads on K13's passes; K8's in the rect geometry). Phase 3 launches each
+K3's forward and backward (kv_heads == heads), K4's, K5's two halves,
+K8's int8 forward and backward and, at L = 7, K11-C, K11-D, G-F and G-B
+run their int8 products on gemm_sm90.cuh's s8 wgmma path and K3's, K5's,
+K8's and K11's cores on K13's (the forwards with an fp32 out, the grads on
+K13's passes; K8's in the rect geometry, G-F's and G-B's in the GQA one).
+Phase 3 launches each
 of those s8 products alone (`ck.gemm_sm90_s8`, the rows
 `gemm_sm90_s8:<kind>` of the kernel table: s8_bf16, s8_f32, s8_gelu_pair,
-s8_group, s8_gelu_q_f32, s8_residual, s8_residual_f32) at the b32 spq 200
+s8_group, s8_gelu_q_f32, s8_residual, s8_residual_f32, s8_group_rc) at the b32 spq 200
 shapes (s8_residual_f32: K5's fc2 at the drop phase's b32 spq 104) and on
 ragged M, N and K (groups whose rows do not fill the 128-code K tile)
 against exact int32 products dequantized by its twin: the twin's bits on
@@ -351,9 +353,11 @@ every output, two launches the same bits; timed beside the twin. The library cou
 their launches by kind where `launch_s8` launches one
 (`ck.s8_launch_counts`), and the launches of the first design's gemm.cuh
 s8 and bf16 WMMA products and whole-row forward and backward cores
-(`ck.first_design_launch_counts`); phases 6, 7, 8, 9 and 17 hold the s8
-counts of their runs exact (`_s8_expect`), 6, 7, 8 (but its GQA run) and
-9's (b), (c), (d) the first-design ones too (none).
+(`ck.first_design_launch_counts`); phases 6, 7, 8, 9, 13 and 17 hold the
+s8 counts of their runs exact (`_s8_expect`), 6, 7, 8 (but its GQA run) and
+9's (b), (c), (d) the first-design ones too (none); phases 13 and 14 read
+the first-design pieces around each call of K11-C, K11-D, G-F and G-B
+(none).
 
 The line before the last is the JSON kernel table (each kernel's time at
 the main path's shape beside its bound: the larger of its bytes over 3.35
@@ -579,7 +583,8 @@ TRAIN_RESVIT_KERNELS = RECT_BWD_KERNELS + ("fused_ln_qkvo_attention_gqa_bwd",)
 DW_KERNELS = ("fused_ln_qkvo_attention_int8_dw_bwd",
               "fused_ln_mlp_int8_dw_bwd")
 # gemm_sm90.cuh's s8 products inside K3's (kv_heads == heads) and K4's
-# int8 forwards and backwards and K5's halves, counted by kind where the
+# int8 forwards and backwards, K5's halves and K11's attention half
+# (s8_group_rc: its int4_grad int8_dw fold), counted by kind where the
 # library launches them (`ck.s8_launch_counts`): their source and the TPU
 # kernels whose bodies hold the product (s8_bf16, s8_f32, s8_group,
 # s8_gelu_q_f32 and s8_residual_f32 run in several)
@@ -591,7 +596,8 @@ S8_INFO = {f"gemm_sm90_s8:{kind}": ("vitax_torch/csrc/gemm_sm90.cuh",
                                ("s8_group", "3252 and :1820"),
                                ("s8_gelu_q_f32", "1758 and :3817"),
                                ("s8_residual", "1758"),
-                               ("s8_residual_f32", "3784 and :3817"))}
+                               ("s8_residual_f32", "3784 and :3817"),
+                               ("s8_group_rc", "3252"))}
 HO_KERNELS = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
 BWD_KERNELS = ("layer_norm_bwd", "fused_ln_qkvo_attention_bwd",
                "fused_ln_mlp_bwd", "fused_ln_qkvo_attention_int8_bwd",
@@ -728,7 +734,9 @@ def _s8_expect(counts):
     one s8_bf16 (qkv) and one s8_residual_f32, its MLP half one
     s8_gelu_q_f32 and one s8_residual_f32; K8's int8 forward three s8_bf16
     (q, kv, out), its backward three s8_bf16 (q, kv, dattn) and two s8_f32
-    (dxnc, dxn), and under int8_dw three s8_group more. No other wrapper
+    (dxnc, dxn), and under int8_dw three s8_group more; K11-C's and G-F's
+    forwards two s8_bf16, K11-D's and G-B's backwards two s8_bf16 and one
+    s8_f32, and under int8_dw two s8_group_rc more. No other wrapper
     launches one."""
     def c(*names):
         return sum(counts.get(n, 0) for n in names)
@@ -749,14 +757,23 @@ def _s8_expect(counts):
     k8b = c("fused_ln_qkvo_attention_rect_int8_bwd",
             "fused_ln_qkvo_attention_rect_int8_dw_bwd")
     k8dw = c("fused_ln_qkvo_attention_rect_int8_dw_bwd")
+    k11f = c("fused_ln_qkvo_attention_int4", "fused_ln_qkvo_attention_int4_gqa")
+    k11b = c("fused_ln_qkvo_attention_int4_bwd",
+             "fused_ln_qkvo_attention_int4_dw_bwd",
+             "fused_ln_qkvo_attention_int4_gqa_bwd",
+             "fused_ln_qkvo_attention_int4_gqa_dw_bwd")
+    k11dw = c("fused_ln_qkvo_attention_int4_dw_bwd",
+              "fused_ln_qkvo_attention_int4_gqa_dw_bwd")
     return {"gemm_sm90_s8:s8_bf16": (2 * k3f + 2 * k3b + k4p + k5a
-                                     + 3 * k8f + 3 * k8b),
-            "gemm_sm90_s8:s8_f32": k3b + k4b + 2 * k8b,
+                                     + 3 * k8f + 3 * k8b + 2 * k11f
+                                     + 2 * k11b),
+            "gemm_sm90_s8:s8_f32": k3b + k4b + 2 * k8b + k11b,
             "gemm_sm90_s8:s8_gelu_pair": k4b,
             "gemm_sm90_s8:s8_group": 2 * dw + 3 * k8dw,
             "gemm_sm90_s8:s8_gelu_q_f32": k4f + k4p + k5m,
             "gemm_sm90_s8:s8_residual": k4f,
-            "gemm_sm90_s8:s8_residual_f32": k5a + k5m}
+            "gemm_sm90_s8:s8_residual_f32": k5a + k5m,
+            "gemm_sm90_s8:s8_group_rc": 2 * k11dw}
 
 
 def _check_s8(label, counts, first_design=False):
@@ -1027,10 +1044,14 @@ def check_bwd_kernels(stats):
 
 def _s8_work(kind, m, n, k, extra):
     """(bytes, {"s8": operations}) of one s8 product: its codes and scales
-    read once, its outputs written once."""
-    if kind == "s8_group":
-        return m * k + n * k + 4 * (k // extra) * m + 4 * m * n, \
-            {"s8": 2 * m * n * k}
+    read once, its outputs written once. A group fold counts its real rows
+    only, 25/32 of each group's (`ck.gemm_sm90_s8_inputs`): the pad rows
+    are zeros that the kernel multiplies and the function does not need."""
+    if kind in ("s8_group", "s8_group_rc"):
+        groups, rows = k // extra, extra * 25 // 32
+        scales = m + (n if kind == "s8_group_rc" else 0)
+        return (m + n) * groups * rows + 4 * groups * scales + 4 * m * n, \
+            {"s8": 2 * m * n * groups * rows}
     pairs = 2 if kind == "s8_gelu_pair" else 1
     # bytes an output element: the residual kinds read their bf16 residual too
     out = {"s8_bf16": 2, "s8_f32": 4, "s8_gelu_pair": 8, "s8_gelu_q_f32": 4,
@@ -4183,15 +4204,25 @@ def _check_int4(ck, name, label, args, stats):
     weights' and do's the same bits, the rest within INT4_CODE_BAND), every
     output finite, of the twin's shape and dtype and within INT4_REL of it,
     the bf16 kernel at least INT4_STAND_IN times farther on every output a
-    quantizer reaches."""
+    quantizer reaches; the attention half's (K11-C, K11-D on K3's Hopper
+    sequences) also two launches the same bits and no first-design piece
+    launched by them."""
     import torch
     sk, st = {}, {}
+    attn = "attention" in name
+    ck.first_design_launch_counts(reset=True)
     outs = getattr(ck, name)(*args, scratch=sk)
+    again = getattr(ck, name)(*args) if attn else outs
     torch.cuda.synchronize()
+    fd = ck.first_design_launch_counts(reset=True)
     refs = getattr(ck, name + "_ref")(*args, scratch=st)
     stand = getattr(ck, INT4_PAIRS[name][1])(*args)
     if not isinstance(outs, tuple):
-        outs, refs, stand = (outs,), (refs,), (stand,)
+        outs, again, refs, stand = (outs,), (again,), (refs,), (stand,)
+    if attn and (any(fd.values()) or not all(
+            torch.equal(a, b) for a, b in zip(outs, again))):
+        raise AssertionError(f"{name} {label}: first-design pieces {fd}, "
+                             "or two launches differ")
     if sk.keys() != st.keys():
         raise AssertionError(f"{name} {label}: codes {sorted(sk)} vs "
                              f"{sorted(st)}")
@@ -4218,6 +4249,8 @@ def _check_int4(ck, name, label, args, stats):
     ratio = min(r_s[i] / max(r_k[i], 1e-30) for i in reached)
     print(f"  {name:36s} {label:22s} codes moved (max step, share) "
           + " ".join(f"{k} {m[0]} {m[1]:.2e}" for k, m in moves.items())
+          + ("; two launches the same bits, no first-design piece"
+             if attn else "")
           + f"; ‖k−t‖/‖t‖ per output [{' '.join(f'{r:.2e}' for r in r_k)}]"
           f" <= {INT4_REL}; bf16 kernel (stand-in) [{' '.join(f'{r:.2e}' for r in r_s)}]"
           f", >= {INT4_STAND_IN}x: {ratio:.1f}x", flush=True)
@@ -4369,6 +4402,8 @@ def run_int4_slice(exp_root):
         if counts[flags] != expect:
             raise AssertionError(f"{flags}: expected launches "
                                  f"{_nonzero(expect)}")
+        # the s8 products of K3's and K11's attention halves, by kind
+        counts[flags].update(_check_s8(f"train_cli {flags}", counts[flags]))
 
     tier8 = dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
                  int8_attn_grad=True, int8_dw=True)
@@ -4561,9 +4596,15 @@ def check_resvit_int4_kernels(stats):
         timed = {}
         for name, args in calls.items():
             with torch.no_grad():
+                ck.first_design_launch_counts(reset=True)
                 outs = getattr(ck, name)(*args)
                 again = getattr(ck, name)(*args)
                 torch.cuda.synchronize()
+                # G-F and G-B run K3's Hopper sequences: no first-design
+                # piece (R-F and R-B keep the first design)
+                fd = ck.first_design_launch_counts(reset=True)
+                if "_gqa" in name and any(fd.values()):
+                    raise AssertionError(f"{name}: first-design pieces {fd}")
                 refs = getattr(ck, name + "_ref")(*args)
                 if not isinstance(outs, tuple):
                     outs, again, refs = (outs,), (again,), (refs,)
@@ -4588,7 +4629,8 @@ def check_resvit_int4_kernels(stats):
                             RESVIT_INT4_CODE_BAND, INT4_REL)
             print(f"  {name:40s} {label:28s} max|k-ref| per output "
                   f"[{' '.join(f'{e:.2e}' for e in errs)}]; two launches "
-                  "the same bits", flush=True)
+                  f"the same bits; first-design pieces {_nonzero(fd)}",
+                  flush=True)
             del outs, again, refs
             int8 = RESVIT_INT4_PAIRS[name]
             timed[name] = lambda n=name, a=args: getattr(ck, n)(*a)
@@ -6719,6 +6761,8 @@ def main() -> int:
             return counts14[resvit_int4_runs[name]][name]
         if name in int4_runs:
             return counts13[int4_runs[name]][name]
+        if name == "gemm_sm90_s8:s8_group_rc":  # K11-D's int8_dw folds
+            return counts13["--int4-attn --int4-grad --int8-dw"][name]
         if name in save_runs:
             return counts12[save_runs[name]][name]
         if name in phase11_runs:

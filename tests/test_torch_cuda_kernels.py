@@ -722,7 +722,8 @@ def test_handoff_kernels_match_plain_twins(dev, shape, pack):
         "gemm_sm90_s8:s8_bf16": 1, "gemm_sm90_s8:s8_f32": 0,
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
         "gemm_sm90_s8:s8_gelu_q_f32": 1, "gemm_sm90_s8:s8_residual": 0,
-        "gemm_sm90_s8:s8_residual_f32": 2}
+        "gemm_sm90_s8:s8_residual_f32": 2,
+        "gemm_sm90_s8:s8_group_rc": 0}
     assert ck.first_design_launch_counts() == dict.fromkeys(
         ck.FIRST_DESIGN_PIECES, 0)
 
@@ -1441,7 +1442,8 @@ def test_k7_int8_backward_on_hopper_matches_twins_and_keeps_its_bits(
         "gemm_sm90_s8:s8_gelu_pair": 0,
         "gemm_sm90_s8:s8_group": 4 if int8_dw else 0,
         "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
-        "gemm_sm90_s8:s8_residual_f32": 0}
+        "gemm_sm90_s8:s8_residual_f32": 0,
+        "gemm_sm90_s8:s8_group_rc": 0}
     assert ck.first_design_launch_counts() == dict.fromkeys(
         ck.FIRST_DESIGN_PIECES, 0)
 
@@ -1752,6 +1754,87 @@ def test_int4_gqa_kernels_match_twins(dev, shape):
         _hold_int4(name, args[:-1], (hkv,))
     assert {k: v for k, v in ck.launch_counts().items() if v} == \
         dict.fromkeys(GQA_INT4, 2)
+
+
+# The A4W4 attention half on K3's Hopper sequences at L = 7 (K11-C, K11-D
+# with int8_dw off and on; G-F, G-B with 4 kv heads, K13's core in its GQA
+# geometry) at the shapes that the K1 family's gate takes and the whole-row
+# core does not: b16@416 (spq 680, seq 677) and head dim 80 (D 640, 8
+# heads). Each against its twin (INT4_REL, the codes in their bands), two
+# launches the same bits, its s8 products counted and no first-design piece
+# launched. (batch, spq, seq_len, D, heads, kv_heads, head_dim)
+INT4_K13_SHAPES = [(4, 680, 677, 768, 12, 12, 64),
+                   (4, 680, 677, 768, 12, 4, 64),
+                   (4, 200, 197, 640, 8, 4, 80)]
+MHA_INT4 = ("fused_ln_qkvo_attention_int4", "fused_ln_qkvo_attention_int4_bwd",
+            "fused_ln_qkvo_attention_int4_dw_bwd")
+
+
+@pytest.mark.parametrize("shape", INT4_K13_SHAPES)
+def test_int4_attention_runs_k13_shapes_the_whole_row_core_cannot(dev,
+                                                                  shape):
+    args = _gqa_bwd_args(dev, *shape)
+    h, hkv = shape[4], shape[5]
+    x, wqkv = args[0], args[3]
+    assert not ck._core_fits(x, wqkv, h, hkv)
+    assert ck.qkv_attention_supported(x, wqkv, h, hkv)
+    names, kv = (GQA_INT4, (hkv,)) if hkv < h else (MHA_INT4, ())
+    fwd = (*args[:6], torch.zeros(shape[3], device=dev), *args[7:-1])
+    ck.reset_launch_counts()
+    _hold_int4(names[0], fwd, kv)
+    for name in names[1:]:
+        _hold_int4(name, args[:-1], kv)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(names, 2)
+    # two launches each: the forward's qkv and out, the backwards' qkv,
+    # dattn and dxn, the int8_dw backward's two two-scale folds
+    assert ck.s8_launch_counts() == {
+        "gemm_sm90_s8:s8_bf16": 2 * 2 + 2 * 2 * 2, "gemm_sm90_s8:s8_f32": 4,
+        "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
+        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
+        "gemm_sm90_s8:s8_residual_f32": 0, "gemm_sm90_s8:s8_group_rc": 4}
+    assert ck.first_design_launch_counts() == dict.fromkeys(
+        ck.FIRST_DESIGN_PIECES, 0)
+
+
+def _fold_first_design(a, b, sa, sb, gp):
+    """gemm.cuh's two-scale group fold (kS8GroupF32RC) on the same
+    operands, launched alone (csrc/gemm_sm90_s8.cu)."""
+    f = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32,
+                    device=a.device)
+    lib = ck.build.load()
+    rc = lib.vitax_gemm_s8_groups_rc(
+        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+        f.data_ptr(), a.shape[0], b.shape[0], a.shape[1], gp,
+        torch.cuda.current_stream().cuda_stream)
+    ck.build.check(rc, "vitax_gemm_s8_groups_rc")
+    return f
+
+
+# (m, n, groups, group rows in gp): K11-D's b32 dWo and dWqkv (16 groups
+# of 400 rows in 512), a ragged one
+GROUP_RC_CASES = [(768, 768, 16, 512), (768, 2304, 16, 512), (100, 24, 3, 256)]
+
+
+@pytest.mark.parametrize("case", GROUP_RC_CASES)
+def test_s8_group_rc_is_the_first_design_fold_to_the_bit(dev, case):
+    """kEpiS8GroupRC (gemm_sm90.cuh) against its twin and gemm.cuh's
+    kS8GroupF32RC on the same packs (each group's rows zero-padded, 25/32
+    of them codes): F += (f32(acc)·sa)·sb, groups in order, in both, so the
+    same bits; two launches the same bits."""
+    m, n, groups, gp = case
+    inputs = ck.gemm_sm90_s8_inputs("s8_group_rc", m, n, groups * gp, gp,
+                                    seed=11, device=dev)
+    with torch.no_grad():
+        out = ck.gemm_sm90_s8("s8_group_rc", **inputs)
+        again = ck.gemm_sm90_s8("s8_group_rc", **inputs)
+        first = _fold_first_design(inputs["a"], inputs["b"], inputs["sr"],
+                                   inputs["sc"], gp)
+        torch.cuda.synchronize()
+        ref = ck.gemm_sm90_s8_ref("s8_group_rc", **inputs)
+    assert torch.equal(out, again)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, first)
 
 
 # (flags, the backward vitax's dispatch picks): R-B / G-B only under
@@ -2139,7 +2222,8 @@ def test_int8_backwards_on_hopper_match_twins_and_keep_their_bits(dev, shape,
         "gemm_sm90_s8:s8_gelu_pair": 2,
         "gemm_sm90_s8:s8_group": 8 if int8_dw else 0,
         "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
-        "gemm_sm90_s8:s8_residual_f32": 0}
+        "gemm_sm90_s8:s8_residual_f32": 0,
+        "gemm_sm90_s8:s8_group_rc": 0}
 
 
 # K3's and K4's int8 forwards on their Hopper design: LN-quant, the s8
@@ -2177,7 +2261,8 @@ def test_int8_forwards_on_hopper_launch_their_products(dev, shape):
         "gemm_sm90_s8:s8_bf16": 2 * k3, "gemm_sm90_s8:s8_f32": 0,
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
         "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 2,
-        "gemm_sm90_s8:s8_residual_f32": 0}
+        "gemm_sm90_s8:s8_residual_f32": 0,
+        "gemm_sm90_s8:s8_group_rc": 0}
     assert ck.first_design_launch_counts() == dict.fromkeys(
         ck.FIRST_DESIGN_PIECES, 0)
     ck.reset_launch_counts()
@@ -2196,7 +2281,8 @@ def test_int8_forwards_on_hopper_launch_their_products(dev, shape):
         "gemm_sm90_s8:s8_bf16": 1, "gemm_sm90_s8:s8_f32": 0,
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
         "gemm_sm90_s8:s8_gelu_q_f32": 2, "gemm_sm90_s8:s8_residual": 1,
-        "gemm_sm90_s8:s8_residual_f32": 0}
+        "gemm_sm90_s8:s8_residual_f32": 0,
+        "gemm_sm90_s8:s8_group_rc": 0}
 
 
 # K8's int8 tier on its Hopper design (K3's launches on the two row sets,
@@ -2244,7 +2330,8 @@ def test_rect_int8_on_hopper_launch_their_products(dev, shape):
         "gemm_sm90_s8:s8_bf16": 2 * 3 + 2 * 3 * 2, "gemm_sm90_s8:s8_f32": 8,
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 6,
         "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
-        "gemm_sm90_s8:s8_residual_f32": 0}
+        "gemm_sm90_s8:s8_residual_f32": 0,
+        "gemm_sm90_s8:s8_group_rc": 0}
     assert ck.first_design_launch_counts() == dict.fromkeys(
         ck.FIRST_DESIGN_PIECES, 0)
 
@@ -2323,7 +2410,8 @@ def test_k1_family_runs_k13_shapes_the_whole_row_core_cannot(dev, shape):
         "gemm_sm90_s8:s8_bf16": 2 + 2 + 2, "gemm_sm90_s8:s8_f32": 2,
         "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 2,
         "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
-        "gemm_sm90_s8:s8_residual_f32": 0}
+        "gemm_sm90_s8:s8_residual_f32": 0,
+        "gemm_sm90_s8:s8_group_rc": 0}
     assert ck.first_design_launch_counts() == dict.fromkeys(
         ck.FIRST_DESIGN_PIECES, 0)
 

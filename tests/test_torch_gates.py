@@ -6,7 +6,7 @@ dim 80 and (1024, 8) at seq 353–544), in eval and in training, for the ViT
 plain) and its rect half (K8 / the square half and a gather). Shapes only:
 meta tensors on the port's side, ShapeDtypeStructs on vitax's. Where the
 pick is a path that keeps the first design's whole-row core (K7, K10,
-K11-C, R-F) and that core cannot take the shapes, the path raises by name.
+R-F) and that core cannot take the shapes, the path raises by name.
 
 vitax's choices come from its own gate functions
 (vitax/ops/pallas_kernels.py:2185, :3363) composed as its models compose
@@ -287,8 +287,6 @@ def _meta_half(arch, image, kv_heads=None):
 FIRST_DESIGN = [
     ("K7", "bf16", KV_HEADS), ("K7's backward", "bf16_bwd", KV_HEADS),
     ("K7's int8 tier", "int8", KV_HEADS),
-    ("K11-C", "int4", None), ("G-F", "int4", KV_HEADS),
-    ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS),
     ("R-F", "rect_int4", None), ("R-B", "rect_int4_bwd", None)]
 
 
@@ -323,8 +321,7 @@ def test_first_design_paths_raise_by_name_where_only_k13_fits(
         monkeypatch, arch, image, path, launch, kv):
     """Where the K1 family's gate and vitax's take a shape that the whole-row
     core cannot (seq 677; head dim 80), each path that keeps that core
-    (K7's bf16 pair and int8 forward, K11-C/D and G-F/G-B, R-F and R-B)
-    raises its named error in its wrapper's checks, before it allocates or
+    (K7's bf16 pair and int8 forward, R-F and R-B) raises its named error in its wrapper's checks, before it allocates or
     launches anything; K1's and K3's Hopper launches pass the same
     checks."""
     t, s, h, hd, hkv = _meta_half(arch, image, kv)
@@ -380,8 +377,8 @@ def test_k7_int8_backward_takes_the_shapes_only_k13_fits(monkeypatch, arch,
     GQA geometry: where the K1 family's gate and vitax's take a shape that
     the whole-row core cannot (seq 677; head dim 80) with 4 kv heads, its
     launch function's checks pass, with int8_dw off and on, and it goes on
-    to load the library for its scratch and launch; K7's int8 forward and
-    G-B at the same shapes, on the first design, still raise by name."""
+    to load the library for its scratch and launch; K7's int8 forward at
+    the same shapes, on the first design, still raises by name."""
     t, s, h, hd, hkv = _meta_half(arch, image, KV_HEADS)
     assert ck.qkv_attention_supported(t["x"], t["wqkv"], h, hkv)
     assert not ck._core_fits(t["x"], t["wqkv"], h, hkv, backward=True)
@@ -397,10 +394,41 @@ def test_k7_int8_backward_takes_the_shapes_only_k13_fits(monkeypatch, arch,
     with pytest.raises(_Allocates):
         ck._ln_qkvo_int8_bwd_cuda("k", x, g, be, w, bq, wo, t["do"], 1e-6, s,
                                   h, hd, hkv, int8_dw, None)
-    for path, launch in (("K7's int8 tier", "int8"), ("G-B", "int4_bwd")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{path} keeps the first design.*Queue 2"):
-            _launch_checks(launch, t, s, h, hd, hkv)
+    with pytest.raises(NotImplementedError,
+                       match="K7's int8 tier keeps the first design.*Queue 2"):
+        _launch_checks("int8", t, s, h, hd, hkv)
+
+
+# (path, the launch function, kv heads): the A4W4 attention half, K3's
+# Hopper sequences at L = 7 on K13's core (in its GQA geometry for G-F and
+# G-B)
+INT4_ATTENTION = [("K11-C", "int4", None), ("G-F", "int4", KV_HEADS),
+                  ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS)]
+
+
+@pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
+@pytest.mark.parametrize("path,launch,kv", INT4_ATTENTION)
+def test_int4_attention_takes_the_shapes_only_k13_fits(monkeypatch, arch,
+                                                       image, path, launch,
+                                                       kv):
+    """K11-C, G-F, K11-D and G-B run K3's Hopper sequences at L = 7 with
+    K13's core: where the K1 family's gate and vitax's take a shape that
+    the whole-row core cannot (seq 677; head dim 80), each launch
+    function's checks pass, and it goes on to load the library for its
+    scratch and launch, as K3's and K7's int8 backward do."""
+    t, s, h, hd, hkv = _meta_half(arch, image, kv)
+    assert ck.qkv_attention_supported(t["x"], t["wqkv"], h, hkv)
+    assert not ck._core_fits(t["x"], t["wqkv"], h, hkv,
+                             backward=launch == "int4_bwd")
+    monkeypatch.setattr(ck, "_check_cuda",
+                        lambda name, tensors, dtypes: torch.device("meta"))
+
+    def load():
+        raise _Allocates
+
+    monkeypatch.setattr(ck.build, "load", load)
+    with pytest.raises(_Allocates):
+        _launch_checks(launch, t, s, h, hd, hkv)
 
 
 @pytest.mark.parametrize("backward", [False, True])

@@ -1,12 +1,15 @@
 """Plain pieces of the Hopper int8 attention halves, composed on CPU tensors
 by the decomposition tests (test_torch_int8_fwd_decomposition.py,
 test_torch_int8_bwd_decomposition.py, test_torch_rect_int8_decomposition.py,
-test_torch_gqa_int8_bwd_decomposition.py):
+test_torch_gqa_int8_bwd_decomposition.py,
+test_torch_int4_attn_decomposition.py):
 the LN-quant prologue, K13's forward core with its fp32 out
 (attention_core.cuh, kRowsFwdF32), K13's three backward passes
-(attention_core_bwd.cu), the int8_dw group fold as the card runs it
-(dw_int8.cuh's packs, `s8_group`), and K3's forward and backward in their
-launch order (the backward also K7's, kv_heads < heads).
+(attention_core_bwd.cu), the int8_dw group folds as the card runs them
+(dw_int8.cuh's packs, `s8_group`, and for the int4_grad tier both
+operands' column packs and `s8_group_rc`), and K3's forward and backward
+in their launch order (the backward also K7's, kv_heads < heads; with
+`int4` both are K11-C's and K11-D's, G-F's and G-B's with kv_heads).
 Every core piece takes per-head tensors [B, H, rows, Hd] with the query and
 key sides apart, so the square geometry (K3) and K8's rect one (cpq query
 rows against spq key rows) run the same code; the core grads also take
@@ -19,17 +22,16 @@ import torch
 
 from vitax_torch.ops import cuda_kernels as ck
 from vitax_torch.ops.common import matmul_f32
-from vitax_torch.ops.quant import (quant_cols, quant_cols_host, quant_rows,
-                                   quant_rows_host)
+from vitax_torch.ops.quant import quant_cols
 
 BF = torch.bfloat16
 TILE = 128  # gemm_sm90.cuh's s8 K tile (kBK8)
 
 
-def ln_quant(x2, gamma, beta, eps):
+def ln_quant(x2, gamma, beta, eps, int4=False):
     """The LN-quant prologue: the codes and scales of the fp32 LN output."""
     xhat, _ = ck._ln_stats(x2.float(), eps)
-    return quant_rows(ck._affine(xhat, gamma, beta))
+    return ck._quantizers(int4)[0](ck._affine(xhat, gamma, beta))
 
 
 def _scores(q, k, seq_len):
@@ -108,30 +110,66 @@ def group_fold(a, u, q, group):
                                torch.stack(scales), group=gp)
 
 
-def k3_fwd_composed(t, seq_len, heads, head_dim, eps):
+def group_fold_cols(a, b, group):
+    """The int4_grad tier's int8_dw weight grad as the card computes it:
+    dw_int8.cuh's column packs of both operands (the column codes of a and
+    of b over each group of `group` rows, no row scale, transposed to
+    [W, kp] with each group's rows zero-padded to whole 128-code K tiles),
+    then `s8_group_rc`'s two-scale fold."""
+    gp = -(-group // TILE) * TILE
+
+    def packs(m):
+        codes, scales = [], []
+        for r0 in range(0, m.shape[0], group):
+            c, sc = quant_cols(m[r0:r0 + group].float())
+            codes.append(torch.nn.functional.pad(c, (0, 0, 0,
+                                                     gp - c.shape[0])))
+            scales.append(sc.reshape(-1))
+        return torch.cat(codes).t().contiguous(), torch.stack(scales)
+
+    (at, sa), (bt, sb) = packs(a), packs(b)
+    return ck.gemm_sm90_s8_ref("s8_group_rc", at, bt, sa, sb, group=gp)
+
+
+def _packed_heads(qkv, b, spq, heads, head_dim, kv_heads):
+    """q [B, H, spq, Hd] and k, v [B, Hkv, spq, Hd] of the packed rows
+    [q (H·Hd) | k (Hkv·Hd) | v (Hkv·Hd)]."""
+    hhd, kvw = heads * head_dim, kv_heads * head_dim
+    rows = qkv.view(b, spq, -1)
+    return (ck._split_heads(rows[..., :hhd], heads),
+            ck._split_heads(rows[..., hhd:hhd + kvw], kv_heads),
+            ck._split_heads(rows[..., hhd + kvw:], kv_heads))
+
+
+def k3_fwd_composed(t, seq_len, heads, head_dim, eps, kv_heads=None,
+                    int4=False):
     """K3's forward (ln_qkvo_attention_int8.cu, kv_heads == heads) in its
     launch order on t["x"] [B, spq, D]: the weights' column codes, the
     LN-quant prologue, qkv on `gemm_sm90_s8_ref("s8_bf16")` + bias, K13's
     core with the fp32 out on the packed rows, the attn's row codes, the
-    out-projection on `s8_bf16` + bias. Returns (out, qkv)."""
+    out-projection on `s8_bf16` + bias. With `int4` K11-C's, every
+    quantizer on the int4 grid, and with `kv_heads` < heads G-F's (the core
+    in its GQA geometry: query head h reads k, v of group h·Hkv/H). Returns
+    (out, qkv)."""
     b, spq, d = t["x"].shape
-    hhd = heads * head_dim
-    w8, sw = quant_cols_host(t["wqkv"])  # stored [W, D]: its transpose
-    wo8, swo = quant_cols_host(t["wo"])
-    xq, sx = ln_quant(t["x"].reshape(-1, d), t["gamma"], t["beta"], eps)
+    kv_heads = kv_heads or heads
+    rows, cols_host, _ = ck._quantizers(int4)
+    w8, sw = cols_host(t["wqkv"])  # stored [W, D]: its transpose
+    wo8, swo = cols_host(t["wo"])
+    xq, sx = ln_quant(t["x"].reshape(-1, d), t["gamma"], t["beta"], eps,
+                      int4)
     qkv = ck.gemm_sm90_s8_ref("s8_bf16", xq, w8.t().contiguous(), sx, sw,
                               t["bqkv"])
-    q, k, v = (ck._split_heads(qkv.view(b, spq, -1)[..., i * hhd:
-                                                    (i + 1) * hhd], heads)
-               for i in range(3))
-    aq, sa = quant_rows(ck._heads_to_rows(k13_core_f32(q, k, v, seq_len)))
+    q, k, v = _packed_heads(qkv, b, spq, heads, head_dim, kv_heads)
+    k, v = (m.repeat_interleave(heads // kv_heads, dim=1) for m in (k, v))
+    aq, sa = rows(ck._heads_to_rows(k13_core_f32(q, k, v, seq_len)))
     out = ck.gemm_sm90_s8_ref("s8_bf16", aq, wo8.t().contiguous(), sa, swo,
                               t["bo"])
     return out.view(t["x"].shape), qkv
 
 
 def qkvo_int8_bwd_composed(t, seq_len, heads, head_dim, eps, int8_dw, group,
-                           kv_heads=None):
+                           kv_heads=None, int4=False):
     """K3's backward (csrc/ln_qkvo_attention_int8_bwd.cu; with `kv_heads` <
     heads K7's, at the packed width (H + 2·Hkv)·Hd) in its launch order on
     t["x"], t["do"] [B, spq, D] and the half's weights: the weights' codes,
@@ -139,34 +177,46 @@ def qkvo_int8_bwd_composed(t, seq_len, heads, head_dim, eps, int8_dw, group,
     rows (its forward as the twin's, its grads as K13's three passes,
     `k13_core_grads`), do's codes, dattn (`s8_bf16`), dWo (`tn_f32`, or
     under int8_dw the group fold), dbo, dqkv's codes, dxn (`s8_f32`), dW,
-    dbqkv and the LN tail. Returns ((dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo),
+    dbqkv and the LN tail. With `int4` K11-D's (G-B's with `kv_heads`):
+    the weights', the recompute's and the dx-path's codes on the int4 grid,
+    and under int8_dw the two-scale fold of both operands' column packs
+    (`group_fold_cols`). Returns ((dx, dγ, dβ, dWqkv, dbqkv, dWo, dbo),
     dqkv)."""
     b, spq, d = t["x"].shape
+    rows, cols_host, rows_host = ck._quantizers(int4)
     do2 = t["do"].reshape(-1, d)
-    w8, sw = quant_cols_host(t["wqkv"])  # stored [W, D]: its transpose
-    w8r, swr = quant_rows_host(t["wqkv"])
-    wo8r, swor = quant_rows_host(t["wo"])
+    w8, sw = cols_host(t["wqkv"])  # stored [W, D]: its transpose
+    w8r, swr = rows_host(t["wqkv"])
+    wo8r, swor = rows_host(t["wo"])
     xhat, rstd = ck._ln_stats(t["x"].reshape(-1, d).float(), eps)
     xn32 = ck._affine(xhat, t["gamma"], t["beta"])
-    xq, sx = quant_rows(xn32)
+    xq, sx = rows(xn32)
     qkv = ck.gemm_sm90_s8_ref("s8_bf16", xq, w8.t().contiguous(), sx, sw,
                               t["bqkv"])
     q, k, v, _, o32 = ck._attn_core(qkv.view(b, spq, -1), seq_len, heads,
                                     head_dim, kv_heads)
     o = o32.to(BF)
     attn = ck._heads_to_rows(o)
-    doq, sdo = quant_rows(do2.float())
+    doq, sdo = rows(do2.float())
     dattn = ck.gemm_sm90_s8_ref("s8_bf16", doq, wo8r, sdo, swor)
-    dwo = (group_fold(attn, sdo, doq, group) if int8_dw
-           else ck.gemm_sm90_ref("tn_f32", attn, do2))
+    if not int8_dw:
+        dwo = ck.gemm_sm90_ref("tn_f32", attn, do2)
+    elif int4:
+        dwo = group_fold_cols(attn, do2, group)
+    else:
+        dwo = group_fold(attn, sdo, doq, group)
     dbo = do2.float().sum(dim=0)
     d_o = ck._split_heads(dattn.view(b, spq, -1), heads)
     dqkv = torch.cat([ck._heads_to_rows(g) for g in k13_core_grads(
         q, k, v, o, d_o, seq_len, kv_heads)], dim=1)
-    dqq, sdq = quant_rows(dqkv.float())
+    dqq, sdq = rows(dqkv.float())
     dxn = ck.gemm_sm90_s8_ref("s8_f32", dqq, w8r, sdq, swr)
-    dw = (group_fold(xn32, sdq, dqq, group) if int8_dw
-          else ck.gemm_sm90_ref("tn_f32", xn32.to(BF), dqkv))
+    if not int8_dw:
+        dw = ck.gemm_sm90_ref("tn_f32", xn32.to(BF), dqkv)
+    elif int4:
+        dw = group_fold_cols(xn32, dqkv, group)
+    else:
+        dw = group_fold(xn32, sdq, dqq, group)
     dbqkv = dqkv.float().sum(dim=0)
     dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
     return (dxln.to(BF).view(t["x"].shape), dg, dbe, dw, dbqkv, dwo,

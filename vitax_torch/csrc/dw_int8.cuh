@@ -43,8 +43,11 @@
 //
 //   dW = sum over z of f32(quant_cols(A_z)^T @ quant_cols(B_z)) * sa_z * sb_z
 //
-// launch_dw_int8_cols runs step 1 on each operand (no row scale) and the s8
-// GEMM with both scale vectors (gemm.cuh kS8GroupF32RC).
+// launch_dw_cols_operands runs step 1 on each operand (no row scale); the
+// s8 GEMM with both scale vectors is gemm.cuh's kS8GroupF32RC (K11-B, R-B:
+// launch_dw_int8_cols, groups padded to 64) or gemm_sm90.cuh's
+// kEpiS8GroupRC (K11-D, G-B: padded to its 128-code K tile), the same
+// arithmetic in the same order.
 #pragma once
 
 #include "gemm.cuh"
@@ -212,29 +215,41 @@ cudaError_t launch_dw_int8(const T* a, const float* u, const int8_t* q, int n, i
                                transpose);
 }
 
-// F [wa, wb] = the int8_dw weight grad of A [n, wa] against B [n, wb] (TA,
-// TB: bf16 or fp32), both quantized per column over each group with no row
-// scale. Scratch: at int8 [wa, kp], sa fp32 [groups, wa], bt int8 [wb, kp],
-// sb fp32 [groups, wb]. wb % 2 == 0.
+// The two operands of the int4_grad int8_dw weight grad of A [n, wa]
+// against B [n, wb] (TA, TB: bf16 or fp32), both quantized per column over
+// each group with no row scale, each group's rows zero-padded to gp (a
+// multiple of 64): at int8 [wa, kp], sa fp32 [groups, wa], bt int8 [wb, kp],
+// sb fp32 [groups, wb], kp = groups * gp. wa % 2 == 0, wb % 2 == 0.
+template <typename TA, typename TB>
+cudaError_t launch_dw_cols_operands(const TA* a, const TB* b, int n, int wa, int wb, int group,
+                                    int gp, int8_t* at, float* sa, int8_t* bt, float* sb,
+                                    cudaStream_t stream) {
+  if (group <= 0 || gp < group || gp % 64 || wa % 2 || wb % 2) return cudaErrorInvalidValue;
+  const int groups = dw_groups(n, group);
+  const int kp = groups * gp;
+  if (groups == 0) return cudaSuccess;
+  dw_quant_cols_t_kernel<TA><<<dim3((wa + 63) / 64, groups), dim3(32, 8), 0, stream>>>(
+      a, nullptr, at, sa, n, wa, group, gp, kp);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dw_quant_cols_t_kernel<TB><<<dim3((wb + 63) / 64, groups), dim3(32, 8), 0, stream>>>(
+      b, nullptr, bt, sb, n, wb, group, gp, kp);
+  return cudaGetLastError();
+}
+
+// F [wa, wb] = that weight grad on gemm.cuh's s8 GEMM (64-deep groups).
+// Scratch as launch_dw_cols_operands' at gp = dw_group_pad(group).
 template <typename TA, typename TB>
 cudaError_t launch_dw_int8_cols(const TA* a, const TB* b, int n, int wa, int wb, int group,
                                 int8_t* at, float* sa, int8_t* bt, float* sb, float* F,
                                 cudaStream_t stream) {
-  if (group <= 0 || wa % 2 || wb % 2) return cudaErrorInvalidValue;
+  if (group <= 0) return cudaErrorInvalidValue;
   const int gp = dw_group_pad(group);
-  const int groups = dw_groups(n, group);
-  const int kp = groups * gp;
-  if (groups > 0) {
-    dw_quant_cols_t_kernel<TA><<<dim3((wa + 63) / 64, groups), dim3(32, 8), 0, stream>>>(
-        a, nullptr, at, sa, n, wa, group, gp, kp);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    dw_quant_cols_t_kernel<TB><<<dim3((wb + 63) / 64, groups), dim3(32, 8), 0, stream>>>(
-        b, nullptr, bt, sb, n, wb, group, gp, kp);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return launch_gemm_s8_groups(at, bt, sa, F, wa, wb, kp, gp, stream, false, sb);
+  const cudaError_t e =
+      launch_dw_cols_operands(a, b, n, wa, wb, group, gp, at, sa, bt, sb, stream);
+  if (e != cudaSuccess) return e;
+  return launch_gemm_s8_groups(at, bt, sa, F, wa, wb, dw_groups(n, group) * gp, gp, stream,
+                               false, sb);
 }
 
 }  // namespace vitax

@@ -538,6 +538,13 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
 //                   kS8GroupF32: no split of K, no partials, no atomics. The
 //                   fold waits for the group's last product, so the tensor
 //                   cores idle through it (K4's groups are one K tile deep).
+//   kEpiS8GroupRC   the int4_grad backwards' int8_dw (K11-D, G-B): both
+//                   operands packed per column over each group, so each
+//                   group folds with two scale vectors, F +=
+//                   (f32(acc)·sr[z·M + m])·sc[z·N + n], each product
+//                   __fmul_rn in that order, as gemm.cuh's kS8GroupF32RC
+//                   (and vitax, pallas_kernels.py:3036-3040): on the same
+//                   packs the same bits
 //   kEpiS8GeluQF32  K4's forward fc1: F = gelu_q(dq(acc) + b1) in fp32, the
 //                   sigmoid GELU a·σ(1.702a) (gemm.cuh's kS8GeluQF32 without
 //                   its K12 codes)
@@ -564,19 +571,20 @@ enum EpiS8 : int {
   kEpiS8GeluQF32 = 4,
   kEpiS8Residual = 5,
   kEpiS8ResidualF32 = 6,
+  kEpiS8GroupRC = 7,
 };
 
 // Launches of gemm_s8_sm90_kernel by epilogue, one added where launch_s8
 // launches it (every translation unit that includes this header shares the
 // one array); read and reset through gemm_sm90_s8.cu's
 // vitax_gemm_sm90_s8_launches
-inline long long s8_launches[7] = {};
+inline long long s8_launches[8] = {};
 
 constexpr int kBK8 = 128;  // codes of a K tile
 
 struct GemmS8Args {
-  const float* sr;    // [M] (kEpiS8Group: [groups, M])
-  const float* sc;    // [N]
+  const float* sr;    // [M] (kEpiS8Group, kEpiS8GroupRC: [groups, M])
+  const float* sc;    // [N] (kEpiS8GroupRC: [groups, N])
   const float* bias;  // [N] or null
   const float* sr2;   // kEpiS8GeluPair's second product: [M]
   const float* sc2;   // [N]
@@ -630,7 +638,7 @@ template <int EPI>
 __global__ void __launch_bounds__(kThreads + 32, 1)
     gemm_s8_sm90_kernel(const __grid_constant__ Maps maps, const GemmS8Args g) {
   constexpr bool kDual = EPI == kEpiS8GeluPair;
-  constexpr bool kGroups = EPI == kEpiS8Group;
+  constexpr bool kGroups = EPI == kEpiS8Group || EPI == kEpiS8GroupRC;
   constexpr int S = kStages<kDual>;
   constexpr int kBytes = kStageBytes<kDual>;
   constexpr int kTile = kBM * kBK8;  // 16 KB: 128 rows × 128 codes
@@ -708,7 +716,12 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
       const float s_hi = r + 8 < g.M ? g.sr[z * g.M + r + 8] : 0.f;
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
-        facc[i] += __fmul_rn(static_cast<float>(acc[i]), (i / 2) % 2 ? s_hi : s_lo);
+        float v = __fmul_rn(static_cast<float>(acc[i]), (i / 2) % 2 ? s_hi : s_lo);
+        if constexpr (EPI == kEpiS8GroupRC) {
+          const int col = bn + k13::acc_col(i);
+          v = __fmul_rn(v, col < g.N ? g.sc[z * g.N + col] : 0.f);
+        }
+        facc[i] += v;
         acc[i] = 0;
       }
     } else {
@@ -854,7 +867,7 @@ template <int EPI>
 cudaError_t launch_s8(const int8_t* A, const int8_t* B, const int8_t* A2, const int8_t* B2,
                       const GemmS8Args& g, cudaStream_t st) {
   constexpr bool kDual = EPI == kEpiS8GeluPair;
-  constexpr bool kGroups = EPI == kEpiS8Group;
+  constexpr bool kGroups = EPI == kEpiS8Group || EPI == kEpiS8GroupRC;
   if (g.M == 0 || g.N == 0) return cudaSuccess;
   if (g.K <= 0 || g.K % 16 || g.N % 8 ||
       (kGroups && (g.group_tiles <= 0 || g.K % (g.group_tiles * kBK8))))
@@ -920,6 +933,19 @@ inline cudaError_t gemm_s8_groups(const int8_t* A, const int8_t* B, const float*
   g.sr = s, g.F = F;
   g.M = M, g.N = N, g.K = K, g.group_tiles = gp / kBK8;
   return launch_s8<kEpiS8Group>(A, B, nullptr, nullptr, g, st);
+}
+
+// The int4_grad backwards' int8_dw weight grad: F[M,N] = Σ over groups z of
+// (f32(A_z·B_zᵀ)·sa[z·M + m])·sb[z·N + n], both operands' column codes
+// packed fresh over each group (dw_int8.cuh); the layout of gemm_s8_groups
+inline cudaError_t gemm_s8_groups_rc(const int8_t* A, const int8_t* B, const float* sa,
+                                     const float* sb, float* F, int M, int N, int K, int gp,
+                                     cudaStream_t st) {
+  if (gp <= 0 || gp % kBK8) return cudaErrorInvalidValue;
+  GemmS8Args g{};
+  g.sr = sa, g.sc = sb, g.F = F;
+  g.M = M, g.N = N, g.K = K, g.group_tiles = gp / kBK8;
+  return launch_s8<kEpiS8GroupRC>(A, B, nullptr, nullptr, g, st);
 }
 
 }  // namespace sm90

@@ -16,7 +16,9 @@
 // columns of K each (gp % 128 == 0); 4: K4's fc1, F = gelu_q(f32(A·Bᵀ)·sr·sc
 // + bias); 5: K4's fc2, C = bf16(R + bf16(f32(A·Bᵀ)·sr·sc + bias)), R [m, n]
 // bf16; 6: K5's out-projection and fc2, C = bf16(f32(R) + (f32(A·Bᵀ)·sr·sc +
-// bias)), the add in fp32.
+// bias)), the add in fp32; 7: the int4_grad backwards' int8_dw fold with two
+// scale vectors, F = Σ over groups z of (f32(A_z·B_zᵀ)·sr[z·m + i])·sc[z·n +
+// j], sr [groups, m], sc [groups, n].
 extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, const void* b2,
                                   const void* sr, const void* sc, const void* bias,
                                   const void* sr2, const void* sc2, const void* r, void* c,
@@ -56,15 +58,33 @@ extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, 
       return sm90::gemm_s8<sm90::kEpiS8ResidualF32>(A, B, SR, SC, bias_f,
                                                     static_cast<bf16*>(c), nullptr, m, n, k,
                                                     st, static_cast<const bf16*>(r));
+    case 7:
+      return sm90::gemm_s8_groups_rc(A, B, SR, SC, static_cast<float*>(f), m, n, k, gp, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// gemm.cuh's two-scale group fold (kS8GroupF32RC, the first design's, which
+// K11-B and R-B keep) on the same operands as kind 7 above, for the card
+// test that holds the two folds to the same bits: F [m, n] = Σ over groups z
+// of (f32(A_z·B_zᵀ)·sa[z·m + i])·sb[z·n + j], A [m, k], B [n, k] int8, the
+// groups gp columns of k each (gp % 64 == 0). Counted as a gemm.cuh s8
+// product.
+extern "C" int vitax_gemm_s8_groups_rc(const void* a, const void* b, const void* sa,
+                                       const void* sb, void* f, int m, int n, int k, int gp,
+                                       void* stream) {
+  return vitax::launch_gemm_s8_groups(static_cast<const int8_t*>(a),
+                                      static_cast<const int8_t*>(b),
+                                      static_cast<const float*>(sa), static_cast<float*>(f), m,
+                                      n, k, gp, static_cast<cudaStream_t>(stream), false,
+                                      static_cast<const float*>(sb));
+}
+
 // counts[kind] = the launches of each kind (the order of the switch above)
 // since the last reset; reset != 0 zeroes them after the read
 extern "C" int vitax_gemm_sm90_s8_launches(long long* counts, int reset) {
-  for (int kind = 0; kind < 7; ++kind) {
+  for (int kind = 0; kind < 8; ++kind) {
     counts[kind] = vitax::sm90::s8_launches[kind];
     if (reset) vitax::sm90::s8_launches[kind] = 0;
   }

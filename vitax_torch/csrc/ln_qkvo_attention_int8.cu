@@ -44,19 +44,23 @@
 // kernel keeps them in VMEM; the scores never do. K13's p differs from the
 // twin's softmax in its last bits, so out moves within the int8 band.
 //
-// kv_heads < heads (K7's int8 tier) keeps the first design in a branch of
-// its own, since K13's core has no walk over a kv group: gemm.cuh's
-// mma.sync s8 GEMM and attention.cuh's whole-row core (the same core as
-// K7's bf16 forward, writing fp32 attn), five launches as above.
-//
 // K11-C, the A4W4 forward (vitax_ln_qkvo_attention_int4_fwd): replaces
 // _ln_qkvo_fwd_int4_kernel (:2745), the int4 branch of
 // fused_ln_qkvo_attention (pallas_call at :3137). Its body (:2756-2798) is
 // K3's with the two projections' quantizers on the int4 grid
 // (_quant_rows4 of the fp32 LN output and of the fp32 attn,
 // _quant_cols_host4 of Wqkv and Wo: limit 7, quant.cuh); the core stays
-// bf16 with fp32 softmax. So it is K3's first-design launch sequence at L =
-// 7, codes in int8, with and without kv_heads (G-F). Bound: K3's.
+// bf16 with fp32 softmax. So it is the Hopper sequence above at L = 7,
+// codes in int8 (the s8 wgmma path takes codes of any range), with and
+// without kv_heads (G-F): with kv_heads < heads the packed width is (H +
+// 2·Hkv)·hd and K13's core runs in its GQA geometry (CoreArgs::kv_heads,
+// query head h reading k, v of group h·Hkv/H; attention_core.cuh's
+// kRowsFwdF32 mode reads them by group as every mode does). Bound: K3's.
+//
+// K7's int8 tier (kv_heads < heads at L = 127) keeps the first design in a
+// branch of its own: gemm.cuh's mma.sync s8 GEMM and attention.cuh's
+// whole-row core (the same core as K7's bf16 forward, writing fp32 attn),
+// five launches as above.
 #include "attention.cuh"
 #include "gemm.cuh"
 #include "gemm_sm90.cuh"
@@ -64,33 +68,36 @@
 
 namespace {
 
-// kv_heads == heads at L = 127: the Hopper design.
-int ln_qkvo_attention_int8_fwd_sm90(const vitax::bf16* x, const float* gamma, const float* beta,
-                                    const int8_t* w8t, const float* sw, const float* bqkv,
-                                    const int8_t* wo8t, const float* swo, const float* bo,
-                                    int8_t* xq, float* sx, vitax::bf16* qkv, float* attn,
-                                    int8_t* aq, float* sa, vitax::bf16* out, int b, int spq,
-                                    int d, int seq_len, int heads, int head_dim, float eps,
-                                    float scale, cudaStream_t st) {
+// The Hopper design on the grid of limit L: K3 (L = 127, kv_heads ==
+// heads), K11-C and G-F (L = 7, any kv_heads).
+template <int L>
+int ln_qkvo_attention_quant_fwd_sm90(const vitax::bf16* x, const float* gamma,
+                                     const float* beta, const int8_t* w8t, const float* sw,
+                                     const float* bqkv, const int8_t* wo8t, const float* swo,
+                                     const float* bo, int8_t* xq, float* sx, vitax::bf16* qkv,
+                                     float* attn, int8_t* aq, float* sa, vitax::bf16* out, int b,
+                                     int spq, int d, int seq_len, int heads, int kv_heads,
+                                     int head_dim, float eps, float scale, cudaStream_t st) {
   namespace sm90 = vitax::sm90;
   const int n = b * spq;
   const int hhd = heads * head_dim;
-  const int w = 3 * hhd;
-  cudaError_t e = vitax::launch_layer_norm_quant<false, false>(x, gamma, beta, xq, sx, nullptr,
-                                                               n, d, eps, st);
+  const int kvw = kv_heads * head_dim;
+  const int w = hhd + 2 * kvw;
+  cudaError_t e = vitax::launch_layer_norm_quant<false, false, L>(x, gamma, beta, xq, sx,
+                                                                  nullptr, n, d, eps, st);
   if (e != cudaSuccess) return e;
   e = sm90::gemm_s8<sm90::kEpiS8Bf16>(xq, w8t, sx, sw, bqkv, qkv, nullptr, n, w, d, st);
   if (e != cudaSuccess) return e;
   vitax::k13::CoreArgs a{};
-  a.q = qkv, a.k = qkv + hhd, a.v = qkv + 2 * hhd, a.o32 = attn;
+  a.q = qkv, a.k = qkv + hhd, a.v = qkv + hhd + kvw, a.o32 = attn;
   a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
-  a.kv_heads = heads;
+  a.kv_heads = kv_heads;
   a.scale = scale;
   a.ld_q = a.ld_k = a.ld_v = w;
   a.ld_o = hhd;
   e = vitax::k13::launch_core_rows<vitax::k13::kRowsFwdF32>(a, head_dim, b, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_rows(attn, aq, sa, n, hhd, st);
+  e = vitax::launch_quant_rows<L>(attn, aq, sa, n, hhd, st);
   if (e != cudaSuccess) return e;
   return sm90::gemm_s8<sm90::kEpiS8Bf16>(aq, wo8t, sa, swo, bo, out, nullptr, n, d, hhd, st);
 }
@@ -113,7 +120,7 @@ int ln_qkvo_attention_quant_fwd(
   auto* attnf = static_cast<float*>(attn);
   auto* aqi = static_cast<int8_t*>(aq);
   auto* saf = static_cast<float*>(sa);
-  const bool hopper = L == vitax::kQ8 && kv_heads == heads;
+  const bool hopper = L == vitax::kQ4 || kv_heads == heads;
   if (n == 0) return cudaSuccess;
   if (hopper && (b > 65535 || seq_len <= 0 || seq_len > spq)) return cudaErrorInvalidValue;
   cudaError_t e = vitax::launch_quant_weight_cols_t<L>(static_cast<const bf16*>(wqkv),
@@ -125,32 +132,35 @@ int ln_qkvo_attention_quant_fwd(
                                            hhd, d, st);
   if (e != cudaSuccess) return e;
   if (hopper)
-    return ln_qkvo_attention_int8_fwd_sm90(
+    return ln_qkvo_attention_quant_fwd_sm90<L>(
         static_cast<const bf16*>(x), static_cast<const float*>(gamma),
         static_cast<const float*>(beta), static_cast<const int8_t*>(w8t),
         static_cast<const float*>(sw), static_cast<const float*>(bqkv),
         static_cast<const int8_t*>(wo8t), static_cast<const float*>(swo),
         static_cast<const float*>(bo), xqi, sxf, qkvb, attnf, aqi, saf, static_cast<bf16*>(out),
-        b, spq, d, seq_len, heads, head_dim, eps, scale, st);
-  e = vitax::launch_layer_norm_quant<false, false, L>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), xqi, sxf, nullptr, n, d, eps, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
-                                            static_cast<const float*>(sw),
-                                            static_cast<const float*>(bqkv), nullptr, nullptr,
-                                            qkvb, nullptr, n, w, d, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_attention_core_geom(
-      vitax::attn_geom_packed(qkvb, b, spq, seq_len, heads, kv_heads, head_dim, scale), head_dim,
-      attnf, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_rows<L>(static_cast<const float*>(attnf), aqi, saf, n, hhd, st);
-  if (e != cudaSuccess) return e;
-  return vitax::launch_gemm_s8<vitax::kS8Bf16>(
-      aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
-      static_cast<const float*>(bo), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
-      hhd, st);
+        b, spq, d, seq_len, heads, kv_heads, head_dim, eps, scale, st);
+  if constexpr (L == vitax::kQ8) {  // K7's int8 forward: the first design
+    e = vitax::launch_layer_norm_quant<false, false, L>(
+        static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), xqi, sxf, nullptr, n, d, eps, st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
+                                              static_cast<const float*>(sw),
+                                              static_cast<const float*>(bqkv), nullptr, nullptr,
+                                              qkvb, nullptr, n, w, d, st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_attention_core_geom(
+        vitax::attn_geom_packed(qkvb, b, spq, seq_len, heads, kv_heads, head_dim, scale), head_dim,
+        attnf, st);
+    if (e != cudaSuccess) return e;
+    e = vitax::launch_quant_rows<L>(static_cast<const float*>(attnf), aqi, saf, n, hhd, st);
+    if (e != cudaSuccess) return e;
+    return vitax::launch_gemm_s8<vitax::kS8Bf16>(
+        aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
+        static_cast<const float*>(bo), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
+        hhd, st);
+  }
+  return cudaErrorInvalidValue;  // unreached: L = 7 always takes the Hopper body
 }
 
 }  // namespace

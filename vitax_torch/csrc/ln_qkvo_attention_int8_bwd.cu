@@ -68,16 +68,18 @@
 // caller passes (_quant_cols_host4 of Wqkv for the recompute,
 // _quant_rows_host4 of Wqkv and Wo for dxn and dattn, :3247-3250): every
 // quantizer of the recompute and the dx-path on the int4 grid (limit 7,
-// quant.cuh), the core grads bf16. Under int8_dw the two weight grads are
-// products of int8 codes packed fresh per column over each group, both
-// operands, with no row-scale folding (:3033-3040, :3071-3076):
+// quant.cuh), the core grads bf16. It runs the Hopper sequence above at
+// L = 7, with and without kv_heads (G-B): the weights' codes, the LN-quant
+// recompute and the row codes of do and dqkv on the int4 grid, codes in
+// int8 on the same s8 products, K13's forward recompute and three passes.
+// Under int8_dw the two weight grads are products of int8 codes packed
+// fresh per column over each group, both operands, with no row-scale
+// folding (:3033-3040, :3071-3076):
 //   dWo = Σ_z f32(quant_cols(attn_z)^T quant_cols(do_z)) sat_z sdo_z
 //   dW  = Σ_z f32(quant_cols(xn32_z)^T quant_cols(dqkv_z)) sxn_z sdq_z
-// (dw_int8.cuh's launch_dw_int8_cols), over K3's groups. K11-D and G-B (its
-// kv_heads branch) keep the first design: the multi-launch K1 backward with
-// gemm.cuh's mma.sync s8 GEMM, the quantizing LN and the row quantizer
-// swapped in, the whole-row core with bf16 P and ds in device memory.
-#include "attention_bwd.cuh"
+// over K3's groups: dw_int8.cuh's column packs of both operands (each
+// group's rows padded to the 128-code K tile), then the s8 path's
+// two-scale group fold (kEpiS8GroupRC), in gemm.cuh's kS8GroupF32RC order.
 #include "dw_int8.cuh"
 #include "gemm.cuh"
 #include "gemm_sm90.cuh"
@@ -85,16 +87,19 @@
 
 namespace {
 
-// K3 and K7 at L = 127: the Hopper design.
-int ln_qkvo_attention_int8_bwd_sm90(
+// The Hopper design on the grid of limit L: K3 and K7 (L = 127), K11-D and
+// G-B (L = 7). sdoc and sdqc, do's and dqkv's column scales, are the int4
+// int8_dw's (null at L = 127, whose fold reuses their row codes).
+template <int L>
+int ln_qkvo_attention_quant_bwd_sm90(
     const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
     void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
     void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
     void* dattn, void* stats, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws, void* atct,
-    void* sat, void* doqt, void* xnct, void* sxn, void* dqqt, int b, int spq, int d, int seq_len,
-    int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps, float scale,
-    cudaStream_t st) {
+    void* sat, void* doqt, void* sdoc, void* xnct, void* sxn, void* dqqt, void* sdqc, int b,
+    int spq, int d, int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw,
+    float eps, float scale, cudaStream_t st) {
   using vitax::bf16;
   namespace sm90 = vitax::sm90;
   const int n = b * spq;
@@ -115,26 +120,28 @@ int ln_qkvo_attention_int8_bwd_sm90(
   auto* sdqf = static_cast<float*>(sdq);
   auto* dxnf = static_cast<float*>(dxn);
   auto* wsf = static_cast<float*>(ws);
+  constexpr bool kCols = L == vitax::kQ4;  // int8_dw on fresh column packs
   if (b > 65535 || seq_len <= 0 || seq_len > spq) return cudaErrorInvalidValue;
 
   const auto* wqkvb = static_cast<const bf16*>(wqkv);
-  cudaError_t e = vitax::launch_quant_weight_cols_t(wqkvb, static_cast<int8_t*>(w8t),
-                                                    static_cast<float*>(sw), d, w, st);
+  cudaError_t e = vitax::launch_quant_weight_cols_t<L>(wqkvb, static_cast<int8_t*>(w8t),
+                                                       static_cast<float*>(sw), d, w, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows(wqkvb, static_cast<int8_t*>(w8r), static_cast<float*>(swr),
-                                      d, w, st);
+  e = vitax::launch_quant_weight_rows<L>(wqkvb, static_cast<int8_t*>(w8r),
+                                         static_cast<float*>(swr), d, w, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows(static_cast<const bf16*>(wo), static_cast<int8_t*>(wo8r),
-                                      static_cast<float*>(swor), hhd, d, st);
+  e = vitax::launch_quant_weight_rows<L>(static_cast<const bf16*>(wo),
+                                         static_cast<int8_t*>(wo8r), static_cast<float*>(swor),
+                                         hhd, d, st);
   if (e != cudaSuccess) return e;
 
   // recompute LN1 (+ codes), qkv (s8) and the attention core (K13's forward)
   const auto* g32 = static_cast<const float*>(gamma);
   const auto* be32 = static_cast<const float*>(beta);
-  e = int8_dw ? vitax::launch_layer_norm_quant<false, true>(xb, g32, be32, xqi, sxf, xn, n, d, eps,
-                                                            st)
-              : vitax::launch_layer_norm_quant<false, false>(xb, g32, be32, xqi, sxf, xn, n, d,
-                                                             eps, st);
+  e = int8_dw ? vitax::launch_layer_norm_quant<false, true, L>(xb, g32, be32, xqi, sxf, xn, n, d,
+                                                               eps, st)
+              : vitax::launch_layer_norm_quant<false, false, L>(xb, g32, be32, xqi, sxf, xn, n, d,
+                                                                eps, st);
   if (e != cudaSuccess) return e;
   e = sm90::gemm_s8<sm90::kEpiS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
                                       static_cast<const float*>(sw),
@@ -155,7 +162,7 @@ int ln_qkvo_attention_int8_bwd_sm90(
   if (e != cudaSuccess) return e;
 
   // out-projection grads: dattn in s8, dWo and dbo
-  e = vitax::launch_quant_rows(dob, doqi, sdof, n, d, st);
+  e = vitax::launch_quant_rows<L>(dob, doqi, sdof, n, d, st);
   if (e != cudaSuccess) return e;
   e = sm90::gemm_s8<sm90::kEpiS8Bf16>(doqi, static_cast<const int8_t*>(wo8r), sdof,
                                       static_cast<const float*>(swor), nullptr, dattnb, nullptr,
@@ -165,6 +172,15 @@ int ln_qkvo_attention_int8_bwd_sm90(
   const int kp = vitax::dw_groups(n, group) * gp;
   if (!int8_dw) {
     e = sm90::gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
+  } else if (kCols) {  // fresh per-column packs of both operands
+    e = vitax::launch_dw_cols_operands(attnb, dob, n, hhd, d, group, gp,
+                                       static_cast<int8_t*>(atct), static_cast<float*>(sat),
+                                       static_cast<int8_t*>(doqt), static_cast<float*>(sdoc), st);
+    if (e == cudaSuccess)
+      e = sm90::gemm_s8_groups_rc(static_cast<const int8_t*>(atct),
+                                  static_cast<const int8_t*>(doqt), static_cast<const float*>(sat),
+                                  static_cast<const float*>(sdoc), static_cast<float*>(dwo), hhd,
+                                  d, kp, gp, st);
   } else {  // row-scale folding into the dx-path's int8 codes
     e = vitax::launch_dw_int8_operands(attnb, sdof, doqi, n, hhd, d, group, gp,
                                        static_cast<int8_t*>(atct), static_cast<float*>(sat),
@@ -183,7 +199,7 @@ int ln_qkvo_attention_int8_bwd_sm90(
   if (e != cudaSuccess) return e;
 
   // QKV projection grads (dxn in s8) and the LN tail
-  e = vitax::launch_quant_rows(static_cast<const bf16*>(dqkvb), dqqi, sdqf, n, w, st);
+  e = vitax::launch_quant_rows<L>(static_cast<const bf16*>(dqkvb), dqqi, sdqf, n, w, st);
   if (e != cudaSuccess) return e;
   e = sm90::gemm_s8<sm90::kEpiS8F32>(dqqi, static_cast<const int8_t*>(w8r), sdqf,
                                      static_cast<const float*>(swr), nullptr, nullptr, dxnf, n, d,
@@ -192,6 +208,16 @@ int ln_qkvo_attention_int8_bwd_sm90(
   if (!int8_dw) {
     e = sm90::gemm_tn(static_cast<const bf16*>(xn), dqkvb, static_cast<float*>(dwqkv), wsf, d, w,
                       n, st);
+  } else if (kCols) {
+    e = vitax::launch_dw_cols_operands(static_cast<const float*>(xn),
+                                       static_cast<const bf16*>(dqkvb), n, d, w, group, gp,
+                                       static_cast<int8_t*>(xnct), static_cast<float*>(sxn),
+                                       static_cast<int8_t*>(dqqt), static_cast<float*>(sdqc), st);
+    if (e == cudaSuccess)
+      e = sm90::gemm_s8_groups_rc(static_cast<const int8_t*>(xnct),
+                                  static_cast<const int8_t*>(dqqt), static_cast<const float*>(sxn),
+                                  static_cast<const float*>(sdqc), static_cast<float*>(dwqkv), d, w,
+                                  kp, gp, st);
   } else {
     e = vitax::launch_dw_int8_operands(static_cast<const float*>(xn), sdqf, dqqi, n, d, w, group,
                                        gp, static_cast<int8_t*>(xnct), static_cast<float*>(sxn),
@@ -201,119 +227,6 @@ int ln_qkvo_attention_int8_bwd_sm90(
                                static_cast<const float*>(sxn), static_cast<float*>(dwqkv), d, w,
                                kp, gp, st);
   }
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n,
-                           w, st);
-  if (e != cudaSuccess) return e;
-  return vitax::launch_layer_norm_bwd<bf16, float>(
-      xb, static_cast<const float*>(gamma), dxnf, nullptr, static_cast<bf16*>(dx),
-      static_cast<float*>(dgamma), static_cast<float*>(dbeta), wsf, n, d, eps, st);
-}
-
-// K11-D and G-B: the first design on the int4 grid.
-int ln_qkvo_attention_int4_bwd(
-    const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
-    const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
-    void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
-    void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
-    void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws,
-    void* atct, void* sat, void* doqt, void* sdoc, void* xnct, void* sxn, void* dqqt,
-    void* sdqc, int b, int spq, int d,
-    int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps,
-    float scale, void* stream) {
-  using vitax::bf16;
-  constexpr int L = vitax::kQ4;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int n = b * spq;
-  const int hhd = heads * head_dim;
-  const int w = (heads + 2 * kv_heads) * head_dim;
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* dob = static_cast<const bf16*>(dout);
-  auto* xqi = static_cast<int8_t*>(xq);
-  auto* sxf = static_cast<float*>(sx);
-  auto* qkvb = static_cast<bf16*>(qkv);
-  auto* attnb = static_cast<bf16*>(attn);
-  auto* doqi = static_cast<int8_t*>(doq);
-  auto* sdof = static_cast<float*>(sdo);
-  auto* dattnb = static_cast<bf16*>(dattn);
-  auto* dqkvb = static_cast<bf16*>(dqkv);
-  auto* dqqi = static_cast<int8_t*>(dqq);
-  auto* sdqf = static_cast<float*>(sdq);
-  auto* dxnf = static_cast<float*>(dxn);
-  auto* wsf = static_cast<float*>(ws);
-  if (n == 0) return cudaErrorInvalidValue;
-
-  const auto* wqkvb = static_cast<const bf16*>(wqkv);
-  cudaError_t e = vitax::launch_quant_weight_cols_t<L>(wqkvb, static_cast<int8_t*>(w8t),
-                                                       static_cast<float*>(sw), d, w, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows<L>(wqkvb, static_cast<int8_t*>(w8r),
-                                         static_cast<float*>(swr), d, w, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_quant_weight_rows<L>(static_cast<const bf16*>(wo),
-                                         static_cast<int8_t*>(wo8r), static_cast<float*>(swor),
-                                         hhd, d, st);
-  if (e != cudaSuccess) return e;
-
-  // recompute LN1 (+ codes; xn for the weight grads, fp32 under int8_dw),
-  // qkv (s8) and the attention core
-  const auto* g32 = static_cast<const float*>(gamma);
-  const auto* be32 = static_cast<const float*>(beta);
-  e = int8_dw ? vitax::launch_layer_norm_quant<false, true, L>(xb, g32, be32, xqi, sxf, xn, n, d,
-                                                               eps, st)
-              : vitax::launch_layer_norm_quant<false, false, L>(xb, g32, be32, xqi, sxf, xn, n, d,
-                                                                eps, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
-                                            static_cast<const float*>(sw),
-                                            static_cast<const float*>(bqkv), nullptr, nullptr,
-                                            qkvb, nullptr, n, w, d, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_attention_core_geom(
-      vitax::attn_geom_packed(qkvb, b, spq, seq_len, heads, kv_heads, head_dim, scale), head_dim,
-      attnb, st);
-  if (e != cudaSuccess) return e;
-
-  // out-projection grads: dattn in s8, dWo and dbo over the bf16 do
-  e = vitax::launch_quant_rows<L>(dob, doqi, sdof, n, d, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(doqi, static_cast<const int8_t*>(wo8r), sdof,
-                                            static_cast<const float*>(swor), nullptr, nullptr,
-                                            nullptr, dattnb, nullptr, n, hhd, d, st);
-  if (e != cudaSuccess) return e;
-  if (!int8_dw)
-    e = vitax::launch_gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
-  else  // fresh per-column packs of both operands
-    e = vitax::launch_dw_int8_cols<bf16, bf16>(attnb, dob, n, hhd, d, group,
-                                               static_cast<int8_t*>(atct), static_cast<float*>(sat),
-                                               static_cast<int8_t*>(doqt),
-                                               static_cast<float*>(sdoc), static_cast<float*>(dwo),
-                                               st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, n, d, st);
-  if (e != cudaSuccess) return e;
-
-  // attention-core grads -> dqkv
-  e = vitax::launch_attention_bwd_packed(qkvb, attnb, dattnb, static_cast<bf16*>(p),
-                                         static_cast<bf16*>(ds), dqkvb, b, spq, seq_len, heads,
-                                         kv_heads, head_dim, scale, st);
-  if (e != cudaSuccess) return e;
-
-  // QKV projection grads (dxn in s8) and the LN tail
-  e = vitax::launch_quant_rows<L>(static_cast<const bf16*>(dqkvb), dqqi, sdqf, n, w, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_s8<vitax::kS8F32>(dqqi, static_cast<const int8_t*>(w8r), sdqf,
-                                           static_cast<const float*>(swr), nullptr, nullptr,
-                                           nullptr, nullptr, dxnf, n, d, w, st);
-  if (e != cudaSuccess) return e;
-  if (!int8_dw)
-    e = vitax::launch_gemm_tn(static_cast<const bf16*>(xn), dqkvb, static_cast<float*>(dwqkv), wsf,
-                              d, w, n, st);
-  else
-    e = vitax::launch_dw_int8_cols<float, bf16>(
-        static_cast<const float*>(xn), dqkvb, n, d, w, group, static_cast<int8_t*>(xnct),
-        static_cast<float*>(sxn), static_cast<int8_t*>(dqqt), static_cast<float*>(sdqc),
-        static_cast<float*>(dwqkv), st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n,
                            w, st);
@@ -348,31 +261,31 @@ extern "C" int vitax_ln_qkvo_attention_int8_bwd(
     int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps, float scale,
     void* stream) {
   if (kv_heads <= 0 || heads % kv_heads) return cudaErrorInvalidValue;
-  return ln_qkvo_attention_int8_bwd_sm90(
+  return ln_qkvo_attention_quant_bwd_sm90<vitax::kQ8>(
       x, gamma, beta, bqkv, wqkv, wo, dout, dx, dgamma, dbeta, dwqkv, dbqkv, dwo, dbo, w8t, sw,
       w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, stats, dqkv, dqq, sdq, dxn,
-      ws, atct, sat, doqt, xnct, sxn, dqqt, b, spq, d, seq_len, heads, kv_heads, head_dim, group,
-      int8_dw, eps, scale, static_cast<cudaStream_t>(stream));
+      ws, atct, sat, doqt, nullptr, xnct, sxn, dqqt, nullptr, b, spq, d, seq_len, heads,
+      kv_heads, head_dim, group, int8_dw, eps, scale, static_cast<cudaStream_t>(stream));
 }
 
-// K11-D: K3's arguments on the int4 grid; with int8_dw (else null) the
-// fresh column packs of both operands of each weight grad: atct int8 [hhd,
-// kp] and sat [groups, hhd], doqt int8 [d, kp] and sdoc [groups, d] (dWo);
-// xnct int8 [d, kp] and sxn [groups, d], dqqt int8 [w, kp] and sdqc
-// [groups, w] (dW).
+// K11-D and G-B: K3's arguments on the int4 grid; with int8_dw (else null)
+// the fresh column packs of both operands of each weight grad, each group's
+// rows padded to 128 (kp as K3's): atct int8 [hhd, kp] and sat [groups,
+// hhd], doqt int8 [d, kp] and sdoc [groups, d] (dWo); xnct int8 [d, kp] and
+// sxn [groups, d], dqqt int8 [w, kp] and sdqc [groups, w] (dW).
 extern "C" int vitax_ln_qkvo_attention_int4_bwd(
     const void* x, const void* gamma, const void* beta, const void* bqkv, const void* wqkv,
     const void* wo, const void* dout, void* dx, void* dgamma, void* dbeta, void* dwqkv,
     void* dbqkv, void* dwo, void* dbo, void* w8t, void* sw, void* w8r, void* swr, void* wo8r,
     void* swor, void* xn, void* xq, void* sx, void* qkv, void* attn, void* doq, void* sdo,
-    void* dattn, void* p, void* ds, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws,
-    void* atct, void* sat, void* doqt, void* sdoc, void* xnct, void* sxn, void* dqqt,
-    void* sdqc, int b, int spq, int d,
-    int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw, float eps,
-    float scale, void* stream) {
-  return ln_qkvo_attention_int4_bwd(
+    void* dattn, void* stats, void* dqkv, void* dqq, void* sdq, void* dxn, void* ws, void* atct,
+    void* sat, void* doqt, void* sdoc, void* xnct, void* sxn, void* dqqt, void* sdqc, int b,
+    int spq, int d, int seq_len, int heads, int kv_heads, int head_dim, int group, int int8_dw,
+    float eps, float scale, void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads) return cudaErrorInvalidValue;
+  return ln_qkvo_attention_quant_bwd_sm90<vitax::kQ4>(
       x, gamma, beta, bqkv, wqkv, wo, dout, dx, dgamma, dbeta, dwqkv, dbqkv, dwo, dbo, w8t, sw,
-      w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, p, ds, dqkv, dqq, sdq, dxn,
-      ws, atct, sat, doqt, sdoc, xnct, sxn, dqqt, sdqc,
-      b, spq, d, seq_len, heads, kv_heads, head_dim, group, int8_dw, eps, scale, stream);
+      w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn, stats, dqkv, dqq, sdq, dxn,
+      ws, atct, sat, doqt, sdoc, xnct, sxn, dqqt, sdqc, b, spq, d, seq_len, heads, kv_heads,
+      head_dim, group, int8_dw, eps, scale, static_cast<cudaStream_t>(stream));
 }

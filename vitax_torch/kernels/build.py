@@ -60,7 +60,7 @@ SIGNATURES = {
     "vitax_ln_mlp_int4_fwd": [_P] * 17 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_mlp_int4_bwd": [_P] * 41 + [_I] * 5 + [_F, _I, _P],
     "vitax_ln_qkvo_attention_int4_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
-    "vitax_ln_qkvo_attention_int4_bwd": [_P] * 43 + [_I] * 9 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_int4_bwd": [_P] * 42 + [_I] * 9 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int4_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int4_bwd": [_P] * 63 + [_I] * 10 + [_F, _F, _P],
     "vitax_qkv_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
@@ -69,6 +69,7 @@ SIGNATURES = {
     "vitax_qkvo_attention_bwd": [_P] * 17 + [_I] * 6 + [_F, _P],
     "vitax_gemm_sm90": [_P] * 9 + [_I] * 4 + [_P],
     "vitax_gemm_sm90_s8": [_P] * 13 + [_I] * 5 + [_P],
+    "vitax_gemm_s8_groups_rc": [_P] * 5 + [_I] * 4 + [_P],
     "vitax_gemm_sm90_s8_launches": [_P, _I],
     "vitax_first_design_launches": [_P, _I],
 }

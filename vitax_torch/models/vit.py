@@ -200,13 +200,12 @@ def _merged_qkv(p: Params, dt: torch.dtype):
 def _attention_kernel(x: torch.Tensor, wqkv: torch.Tensor, heads: int
                       ) -> Optional[str]:
     """Which fused attention half takes x: "k1" (K1's family: K1, K3, K11-C,
-    on K13's core or the first design's) where vitax's gate and the port's
-    pass, else "k6" (the KV-chunked core) where vitax's flash gate and the
-    port's pass, as vitax's _fused_block_attention chooses
+    on K13's core) where vitax's gate and the port's pass, else "k6" (the
+    KV-chunked core) where vitax's flash gate and the port's pass, as
+    vitax's _fused_block_attention chooses
     (vitax/models/vit.py:220-227; vitax's gates copied in ops/gates.py);
     None where neither does. K1's gate is the same in eval and in training;
-    under autograd K6's is its backward kernel's. A first-design tier
-    (K11-C) raises by name where its core cannot take the shapes."""
+    under autograd K6's is its backward kernel's."""
     train = torch.is_grad_enabled()
     if (gates.qkv_attention_supported(x, wqkv)
             and ck.qkv_attention_supported(x, wqkv, heads)):

@@ -736,7 +736,8 @@ def gemm_sm90(kind, a, b, bias=None, a2=None, b2=None, residual=None):
 
 
 GEMM_SM90_S8_KINDS = ("s8_bf16", "s8_f32", "s8_gelu_pair", "s8_group",
-                      "s8_gelu_q_f32", "s8_residual", "s8_residual_f32")
+                      "s8_gelu_q_f32", "s8_residual", "s8_residual_f32",
+                      "s8_group_rc")
 
 
 def s8_launch_counts(reset: bool = False) -> dict:
@@ -746,7 +747,9 @@ def s8_launch_counts(reset: bool = False) -> dict:
     K4's one s8_gelu_q_f32 (fc1) and one s8_residual (fc2; s8_bf16 without
     the residual), inside K3's and K7's backwards two s8_bf16 (qkv, dattn)
     and one s8_f32 (dxn), inside K4's one s8_gelu_pair and one s8_f32, and
-    under int8_dw two s8_group in each backward; inside K5's attention half one
+    under int8_dw two s8_group in each backward; inside K11-C's and G-F's
+    forwards two s8_bf16, inside K11-D's and G-B's backwards two s8_bf16 and
+    one s8_f32, and under int8_dw two s8_group_rc; inside K5's attention half one
     s8_bf16 (qkv) and one s8_residual_f32 (the out-projection), inside its
     MLP half one s8_gelu_q_f32 (fc1) and one s8_residual_f32 (fc2), inside
     K8's int8 forward three s8_bf16 (q, kv, out), inside its backward three
@@ -770,16 +773,16 @@ FIRST_DESIGN_PIECES = ("gemm.cuh:s8", "attention.cuh:core",
 def first_design_launch_counts(reset: bool = False) -> dict:
     """Launches since the last reset of four first-design pieces, as the
     library counts them where each launches: gemm.cuh's mma.sync s8
-    products ("gemm.cuh:s8": K7's int8 forward, K11, R-F and R-B,
-    K12-int8), attention.cuh's whole-row forward core
-    ("attention.cuh:core": K7, R-F, K10, K9, K11-C), attention_bwd.cuh's
+    products ("gemm.cuh:s8": K7's int8 forward, K11-A and K11-B, R-F and
+    R-B, K12-int8), attention.cuh's whole-row forward core
+    ("attention.cuh:core": K7, R-F, K10, K9), attention_bwd.cuh's
     whole-row backward core ("attention_bwd.cuh:core": K7's bf16 backward,
-    R-B, K10's, K9's, K11-D and G-B) and gemm.cuh's bf16 WMMA products
-    ("gemm.cuh:bf16": K7, K10, K9, the bf16 weight grads of the
-    first-design int4 backwards, K12's backwards). LN, K1, K2, K12's
-    forward, K13, K6, K3's and K4's forwards and backwards, K7's int8
-    backwards, K5's halves and K8 in its bf16 and int8 tiers launch none of
-    them. Nothing is counted before the library is loaded."""
+    R-B, K10's, K9's) and gemm.cuh's bf16 WMMA products ("gemm.cuh:bf16":
+    K7, K10, K9, the bf16 weight grads of K11-B and R-B, K12's backwards).
+    LN, K1, K2, K12's forward, K13, K6, K3's and K4's forwards and
+    backwards, K7's int8 backwards, K11-C/D and G-F/G-B, K5's halves and K8
+    in its bf16 and int8 tiers launch none of them. Nothing is counted
+    before the library is loaded."""
     counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
     if build.loaded():
         build.check(build.load().vitax_first_design_launches(counts,
@@ -796,12 +799,14 @@ def gemm_sm90_s8_ref(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
     forward twin (gelu_q in fp32; residual + bf16(y) in bf16), the
     handoff's as K5's twins (f32(residual) + y in fp32, rounded once), and
     the group fold as `_dw_int8` adds it: over each group of `group` columns
-    of K, in order, F += f32(acc)·sr[z, m]."""
-    if kind == "s8_group":
+    of K, in order, F += f32(acc)·sr[z, m], and the two-scale fold as
+    `_dw_int8_cols` adds it, F += (f32(acc)·sr[z, m])·sc[z, n]."""
+    if kind in ("s8_group", "s8_group_rc"):
         f = torch.zeros((a.shape[0], b.shape[0]), dtype=_F32, device=a.device)
         for z, k0 in enumerate(range(0, a.shape[1], group)):
             cols = slice(k0, k0 + group)
-            f = f + int_mm(a[:, cols], b[:, cols].t()) * sr[z].reshape(-1, 1)
+            t = int_mm(a[:, cols], b[:, cols].t()) * sr[z].reshape(-1, 1)
+            f = f + (t * sc[z] if kind == "s8_group_rc" else t)
         return f
     y = _dequant(int_mm(a, b.t()), sr.reshape(-1, 1), sc, bias)
     if kind == "s8_bf16":
@@ -824,9 +829,11 @@ def gemm_sm90_s8_ref(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
 def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
     """Keyword arguments of `gemm_sm90_s8` for one product, drawn from a
     seed: int8 codes in [-127, 127] and fp32 scales, with a bias when
-    `extra` is True; for "s8_group" `extra` is the group's columns, and each
-    group's codes are zero past 25/32 of its rows, as dw_int8.cuh pads
-    them; "s8_residual" and "s8_residual_f32" get a bf16 residual [m, n]."""
+    `extra` is True; for "s8_group" and "s8_group_rc" `extra` is the
+    group's columns, and each group's codes are zero past 25/32 of its rows,
+    as dw_int8.cuh pads them ("s8_group_rc" has column scales of its own a
+    group, sc [groups, n]); "s8_residual" and "s8_residual_f32" get a bf16
+    residual [m, n]."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def codes(*shape):
@@ -836,13 +843,16 @@ def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
     def scales(*shape):
         return torch.rand(shape, generator=g, device=device) * 1e-3 + 1e-5
 
-    if kind == "s8_group":
+    if kind in ("s8_group", "s8_group_rc"):
         a, b = codes(m, k), codes(n, k)
         rows = extra * 25 // 32
         for z0 in range(0, k, extra):
             a[:, z0 + rows:z0 + extra] = 0
             b[:, z0 + rows:z0 + extra] = 0
-        return dict(a=a, b=b, sr=scales(k // extra, m), group=extra)
+        out = dict(a=a, b=b, sr=scales(k // extra, m), group=extra)
+        if kind == "s8_group_rc":
+            out["sc"] = scales(k // extra, n)
+        return out
     out = dict(a=codes(m, k), b=codes(n, k), sr=scales(m), sc=scales(n))
     if extra:
         out["bias"] = torch.randn(n, generator=g, device=device) * 0.1
@@ -860,7 +870,8 @@ def gemm_sm90_s8_inputs(kind, m, n, k, extra, seed=0, device="cuda"):
 # K4's dual product, K4's int8_dw dW1 over 50 groups of 128 rows, K4's
 # forward fc1 and fc2; the handoff's fc2 at the drop phase's b32 spq 104),
 # then ragged M, N and K, K3's dWqkv fold (16 groups of 400 rows in 512),
-# K5's out-projection, and tiny ones
+# K5's out-projection, and tiny ones; the two-scale fold at K11-D's b32 dWo
+# (16 groups of 400 rows in 512), its dWqkv, and ragged ones
 GEMM_SM90_S8_CASES = [
     ("s8_bf16", 6400, 2304, 768, True), ("s8_f32", 6400, 768, 2304, False),
     ("s8_gelu_pair", 6400, 3072, 768, True),
@@ -882,7 +893,10 @@ GEMM_SM90_S8_CASES = [
     ("s8_residual_f32", 3328, 768, 3072, True),
     ("s8_residual_f32", 3328, 768, 768, True),
     ("s8_residual_f32", 591, 776, 3072, True),
-    ("s8_residual_f32", 77, 136, 144, True)]
+    ("s8_residual_f32", 77, 136, 144, True),
+    ("s8_group_rc", 768, 768, 16 * 512, 512),
+    ("s8_group_rc", 768, 2304, 16 * 512, 512),
+    ("s8_group_rc", 100, 24, 3 * 256, 256)]
 
 
 def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
@@ -898,6 +912,7 @@ def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
     sr2, sc2 (bf16(gelu_q(pre)), bf16(dh1_32), dh1_32 =
     f32(a2·b2ᵀ)·sr2·sc2·gelu_q'(pre)), "s8_group" the int8_dw fold over
     groups of `group` columns of k (group % 128 == 0), sr [k / group, m],
+    "s8_group_rc" the int4_grad backwards' fold with sc [k / group, n] too,
     "s8_gelu_q_f32" K4's fc1, gelu_q(f32(a·bᵀ)·sr·sc + bias) in fp32,
     "s8_residual" K4's fc2, bf16(residual + bf16(f32(a·bᵀ)·sr·sc + bias))
     with residual [m, n] bf16, "s8_residual_f32" K5's out-projection and
@@ -924,10 +939,12 @@ def gemm_sm90_s8(kind, a, b, sr, sc=None, bias=None, a2=None, b2=None,
                        **dict.fromkeys(vecs, _F32)})
     for key, t in mats.items():
         _check_shape(name, key, t, (n if key.startswith("b") else m, k))
-    if kind == "s8_group":
+    if kind in ("s8_group", "s8_group_rc"):
         if not group or k % group:
             raise ValueError(f"{name}: k {k} is not whole groups of {group}")
         _check_shape(name, "sr", sr, (k // group, m))
+        if kind == "s8_group_rc":
+            _check_shape(name, "sc", sc, (k // group, n))
     else:
         for key, t in vecs.items():
             _check_shape(name, key, t, (m,) if key.startswith("sr") else (n,))
@@ -1045,9 +1062,10 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     The models pick the half where this and vitax's gate pass, in eval and
     in training alike (K13's backward passes take what its forward takes),
     and so does K8 in its bf16 and int8 tiers, on K13's core in its rect
-    geometry. A first-design path (the whole-row core: K7 but its int8
-    backward, K11-C/D, G-F/G-B, R-F/R-B) checks its own limits in its
-    wrapper and raises by name outside them. Unlike vitax's gate
+    geometry, and so do K11-C/D and G-F/G-B, K3's sequences at L = 7. A
+    first-design path (the whole-row core: K7's bf16 pair and int8
+    forward, R-F/R-B) checks its own limits in its wrapper and raises by
+    name outside them. Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
     if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
         return False
@@ -1063,8 +1081,8 @@ def _core_fits(x, wqkv, heads, kv_heads=None, backward=False) -> bool:
     """The shapes the first design takes, any dtype: attention.cuh's
     whole-row core (head dims ATTN_HEAD_DIMS, its shared memory and, with
     `backward`, its backward's) and gemm.cuh's products (widths a multiple
-    of 32). K7 (kv_heads < heads: its bf16 pair and int8 forward), K11-C
-    and K11-D, G-F and G-B, R-F and R-B, K10 and K9 run it."""
+    of 32). K7 (kv_heads < heads: its bf16 pair and int8 forward), R-F and
+    R-B, K10 and K9 run it."""
     hd = _head_dim(x, wqkv, heads, kv_heads)
     if hd is None:
         return False
@@ -2049,8 +2067,8 @@ def _dequant(acc, s_row, s_col, bias=None):
 # whole images (`qkvo_dw_group`). The twins take the group as an argument.
 MLP_DW_GROUP = 128
 # the kernels pad each group's rows to whole K tiles of their s8 GEMM:
-# gemm.cuh's 64-deep stages, or gemm_sm90.cuh's 128-code tiles (K3's and
-# K7's backwards, and K4's)
+# gemm.cuh's 64-deep stages, or gemm_sm90.cuh's 128-code tiles (K3's, K7's,
+# K11-D's and G-B's backwards, and K4's)
 _DW_PAD = 64
 _DW_PAD_SM90 = 128
 
@@ -3525,9 +3543,11 @@ def fused_ln_qkvo_attention_int8_gqa_ref(x, gamma, beta, wqkv, bqkv, wo, bo,
 def _ln_qkvo_int8_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
                        heads, head_dim, kv_heads, scratch, int4=False):
     """K3's forward launch (LN-quant, gemm_sm90.cuh's s8 qkv, K13's core
-    with an fp32 out, the row codes, the s8 out-projection), or K7's int8
-    tier's with kv_heads < heads, or with `int4` K11-C's (both the first
-    design: gemm.cuh's s8 products, the whole-row core)."""
+    with an fp32 out, the row codes, the s8 out-projection), or with `int4`
+    K11-C's (G-F's with kv_heads < heads: the same sequence at L = 7, K13's
+    core in its GQA geometry), at K13's limits; or K7's int8 tier's with
+    kv_heads < heads (the first design: gemm.cuh's s8 products, the
+    whole-row core)."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
@@ -3536,9 +3556,8 @@ def _ln_qkvo_int8_cuda(name, x, gamma, beta, wqkv, bqkv, wo, bo, eps, seq_len,
          "wo": _BF, "bo": _F32})
     b, spq, d = x.shape
     hhd = heads * head_dim
-    gqa = _gqa(heads, kv_heads)
-    first = (("G-F" if gqa else "K11-C") if int4
-             else "K7's int8 tier" if gqa else None)
+    first = ("K7's int8 tier" if _gqa(heads, kv_heads) and not int4
+             else None)
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
                 head_dim, qkv_attention_supported, kv_heads, first)
     _check_shape(name, "bo", bo, (d,))
@@ -3645,24 +3664,22 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
                            seq_len, heads, head_dim, kv_heads, int8_dw,
                            scratch, int4=False):
     """K3's backward launch (K7's int8 tier with kv_heads < heads), or with
-    `int4` K11-D's (G-B's with kv_heads < heads). K3 and K7 run the Hopper
-    design (K13's core, in its GQA geometry for K7, its row statistics the
-    only attention scratch; gemm_sm90.cuh's s8 path) at K13's limits; K11-D
-    and G-B keep the first design (bf16 P and ds in scratch)."""
+    `int4` K11-D's (G-B's with kv_heads < heads), all on the Hopper design
+    (K13's core, in its GQA geometry where kv_heads < heads, its row
+    statistics the only attention scratch; gemm_sm90.cuh's s8 path) at
+    K13's limits."""
     dev = _check_cuda(
         name,
         {"x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv, "bqkv": bqkv,
          "wo": wo, "do": do},
         {"x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF, "bqkv": _F32,
          "wo": _BF, "do": _BF})
-    first = ("G-B" if _gqa(heads, kv_heads) else "K11-D") if int4 else None
     _check_qkvo(name, x, gamma, beta, wqkv, bqkv, wo, seq_len, heads,
-                head_dim, qkv_attention_supported, kv_heads, first, True)
+                head_dim, qkv_attention_supported, kv_heads)
     _check_shape(name, "do", do, tuple(x.shape))
     b, spq, d = x.shape
     hhd = heads * head_dim
     n, width = b * spq, wqkv.shape[1]
-    pad = _DW_PAD if int4 else _DW_PAD_SM90
     lib = build.load()
     w8t, sw = _i8(dev, width, d), _f32(dev, width)
     w8r, swr = _i8(dev, d, width), _f32(dev, d)
@@ -3674,14 +3691,8 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     xn = (_f32 if int8_dw else _bf)(dev, n, d)
     qkv, attn, dattn = (_bf(dev, n, width), _bf(dev, n, hhd),
                         _bf(dev, n, hhd))
-    # the core's scratch: the whole-row core's P and ds (the int4 entry
-    # point's p, ds), or K13's row statistics (the int8 one's stats)
-    if int4:
-        rows = (spq + 15) // 16 * 16
-        core = [_bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)]
-    else:
-        core = [_workspace(lib.vitax_attention_core_bwd_ws(b, spq, heads),
-                           dev)]
+    # the core's only scratch: K13's row statistics
+    stats = _workspace(lib.vitax_attention_core_bwd_ws(b, spq, heads), dev)
     dqkv, dxn = _bf(dev, n, width), _f32(dev, n, d)
     xq, doq, dqq = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, width)
     sx, sdo, sdq = _f32(dev, n), _f32(dev, n), _f32(dev, n)
@@ -3692,7 +3703,7 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     # own for them (K11-D's are the fourth and last)
     dwt = [None] * 8
     if int8_dw:
-        groups, kp = _dw_layout(n, group, pad)
+        groups, kp = _dw_layout(n, group, _DW_PAD_SM90)
         dwt = [_i8(dev, hhd, kp), _f32(dev, groups, hhd), _i8(dev, d, kp),
                _f32(dev, groups, d) if int4 else None, _i8(dev, d, kp),
                _f32(dev, groups, d), _i8(dev, width, kp),
@@ -3705,19 +3716,17 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     head = (t.data_ptr() for t in (
         x, gamma, beta, bqkv, wqkv, wo, do, dx, dg, dbe, dw, db, dwo, dbo, w8t,
         sw, w8r, swr, wo8r, swor, xn, xq, sx, qkv, attn, doq, sdo, dattn))
-    tail = (t.data_ptr() for t in (dqkv, dqq, sdq, dxn, ws))
-    rc = fn(*head, *(t.data_ptr() for t in core), *tail, *ptrs, b, spq, d,
-            seq_len, heads, kv_heads, head_dim, group, int(int8_dw), eps,
-            1.0 / math.sqrt(head_dim), _stream(dev))
+    tail = (t.data_ptr() for t in (stats, dqkv, dqq, sdq, dxn, ws))
+    rc = fn(*head, *tail, *ptrs, b, spq, d, seq_len, heads, kv_heads,
+            head_dim, group, int(int8_dw), eps, 1.0 / math.sqrt(head_dim),
+            _stream(dev))
     build.check(rc, name)
     _keep(scratch, w8=(w8t.t(), sw), w8r=(w8r, swr), wo8r=(wo8r, swor),
           xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
     if int8_dw and scratch is not None:  # the layout change copies
-        _keep(scratch, atc=(_group_codes(dwt[0], n, group, pad), dwt[1]),
-              xnc=(_group_codes(dwt[4], n, group, pad), dwt[5]))
-        if int4:
-            _keep(scratch, doc=(_group_codes(dwt[2], n, group, pad), dwt[3]),
-                  dqc=(_group_codes(dwt[6], n, group, pad), dwt[7]))
+        kept = dict(atc=0, xnc=4, **(dict(doc=2, dqc=6) if int4 else {}))
+        _keep(scratch, **{k: (_group_codes(dwt[i], n, group, _DW_PAD_SM90),
+                              dwt[i + 1]) for k, i in kept.items()})
     return dx, dg, dbe, dw, db, dwo, dbo
 
 

@@ -16,8 +16,10 @@ batch of random images: `train-dense` (b32, bf16, `ft_resvit.sh`),
 (b192, `--int8-dw --compact-capacity 0.625 --token-keep 0.5`,
 `ft_resvit_fast.sh`'s flags past its dense warmup), and with 4 kv heads
 (K7's int8 tier; weights of their own, made from seed 0)
-`train-gqa-int8-grad` (b32, `--int8-grad --n_kv_heads 4`) and
-`train-gqa-fast` (b32, the fast flags with `--n_kv_heads 4`). For each it
+`train-gqa-int8-grad` (b32, `--int8-grad --n_kv_heads 4`),
+`train-gqa-fast` (b32, the fast flags with `--n_kv_heads 4`) and
+`train-gqa-int4` (b32, `--int4-attn --int4-grad --int8-dw --n_kv_heads 4
+--compact-capacity 0.625`: G-F and G-B on every layer). For each it
 runs two warm-up iterations, then records three with torch.profiler and
 prints the wall time an iteration (host clock around synchronized
 iterations), the device busy time (the sum of the kernels' device times;
@@ -67,17 +69,24 @@ TRAIN_CONFIGS = {
                                 int8_mlp_grad=True, int8_dw=True,
                                 fused_mlp=True, compact_capacity=0.625,
                                 token_keep=0.5)),
+    # chip_smoke.py's phase 14: (e)'s int4 tier
+    "train-gqa-int4": (32, dict(n_kv_heads=4, int8_attn=True,
+                                int8_attn_grad=True, int8_mlp=True,
+                                int8_mlp_grad=True, int8_dw=True,
+                                int4_mlp=True, int4_attn=True,
+                                int4_grad=True, fused_mlp=True,
+                                compact_capacity=0.625)),
 }
 # kernel-name fragment -> group, first match wins
 GROUPS = [("k13::", "attention core, wgmma (K13; K1's, K6's and K8's "
                    "forwards, backwards)"),
           ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K6's, K8's, K12's "
                         "products)"),
-          ("attention_core", "whole-row attention core (K7/R-F/K11-C)"),
+          ("attention_core", "whole-row attention core (K7/R-F/K10/K9)"),
           ("attention_bwd", "attention core backward"),
-          ("gemm_s8_sm90", "s8 wgmma GEMM (K3's, K4's and K5's int8 "
-                           "products)"),
-          ("gemm_s8", "s8 mma.sync GEMM (K7/R-F/R-B/K11/K12 int8)"),
+          ("gemm_s8_sm90", "s8 wgmma GEMM (K3's, K4's, K5's, K8's and "
+                           "K11's attention half's products)"),
+          ("gemm_s8", "s8 mma.sync GEMM (K7/R-F/R-B/K11-A/B/K12 int8)"),
           ("gemm_bf16", "bf16 GEMM (the fused halves' products)"),
           ("layer_norm_rows", "LN forward"),
           ("layer_norm_bwd", "LN backward"),

@@ -11,11 +11,13 @@ momentum), `b16-train` (ViT-B/16 train step at 224, b32: K1 and K2),
 `b16-train-int8grad` (the same step with `--int8-grad`: K3's and K4's
 int8 forwards and their int8 backwards, bf16 weight grads),
 `b16-train-int8dw` (with `--int8-dw`: the same with the int8 weight
-grads), `b16-train-fast` (the fast recipe's drop-phase step,
+grads), `b16-train-int4` (`--int4-attn --int4-grad --int8-dw`: K11's four
+kernels, the attention half's on K3's Hopper sequences at L = 7),
+`b16-train-fast` (the fast recipe's drop-phase step,
 scripts/FT_CIFAR100_fast.sh: `--int8-dw` at b768 keep 0.5, spq 104, K5's
 halves forward), `b16-eval` (ViT-B/16 serving forward at 224, b64) and
 `b16-eval-int8` (the same with `--int8`: K3's and K4's int8 forwards);
-default: all eight.
+default: all nine.
 For each it runs two warm-up iterations, records three with torch.profiler
 and prints, as `profile_resvit` does, the wall time an iteration, the
 device busy time and idle share, the device time by group of kernels and
@@ -45,6 +47,9 @@ CONFIGS = {"h14-eval": ("h14", 384, False, 32, {}),
            "b16-train-int8grad": ("b16", 224, True, 32,
                                   dict(INT8_DW, int8_dw=False)),
            "b16-train-int8dw": ("b16", 224, True, 32, INT8_DW),
+           "b16-train-int4": ("b16", 224, True, 32,
+                              dict(INT8_DW, int4_mlp=True, int4_attn=True,
+                                   int4_grad=True)),
            "b16-train-fast": ("b16", 224, True, 768,
                               dict(INT8_DW, token_keep=0.5)),
            "b16-eval": ("b16", 224, False, 64, {}),

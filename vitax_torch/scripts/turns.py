@@ -19,9 +19,9 @@ file need not belong to), it prints under `tag`:
   r2, its pack, h1q), K3's and K4's backwards with and without int8_dw
   (K4's also without its residual) with the codes they wrote, K8's int8
   forward and backwards with and without int8_dw (cpq 128 of spq 200), and
-  the branches kept on the first design: K7's int8 forward and backwards
-  (4 kv heads), K11-A, K11-C, K11-B and K11-D with and without int8_dw,
-  G-F and G-B, R-F and R-B with and without int8_dw;
+  K7's int8 forward and backwards (4 kv heads), K11-A, K11-C, K11-B and
+  K11-D with and without int8_dw, G-F and G-B, R-F and R-B with and
+  without int8_dw;
 - `ln_checksums`: the same of the LN kernel pair alone (the standalone
   entry points, register path and loop form, bf16 and fp32): the forward,
   the backward's dx, and its dγ/dβ apart (their order of sums may change
@@ -66,6 +66,9 @@ file need not belong to), it prints under `tag`:
 - `gqa_int8_bwd`: K7's int8 backward with and without int8_dw (4 kv heads)
   at b64 and b32 spq 200: the CUDA-event median of 25, `device_ms` over four
   input copies and `_by_kernel`'s device time and kernels;
+- `int4_attn`: the same of the A4W4 attention half at its chip_smoke.py
+  shapes: K11-C at b32 spq 200, G-F at b64 with 4 kv heads, K11-D and G-B
+  (4 kv heads) with and without int8_dw at b32;
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
   momentum) at b32 in bf16, `--int8`, `--int8-grad`, `--int8-dw` and
@@ -83,7 +86,8 @@ Run it for two checkouts in the order A, B, B, A in one call on the card
 Names after the tag run only those sections (`checksums`, `int8_checksums`,
 `ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
 `kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`,
-`ho_device`, `rect_int8`, `rect_bf16`, `rect_steps`, `gqa_int8_bwd`), e.g.
+`ho_device`, `rect_int8`, `rect_bf16`, `rect_steps`, `gqa_int8_bwd`,
+`int4_attn`), e.g.
 `turns.py A int8_checksums kernel_times`.
 """
 
@@ -681,6 +685,42 @@ def gqa_int8_bwd() -> dict:
     return out
 
 
+# The A4W4 attention half at chip_smoke.py's shapes (phases 13 and 14):
+# (label, wrapper, batch, kv heads or None, backward)
+INT4_ATTN = [("K11-C fwd", "fused_ln_qkvo_attention_int4", 32, None, False),
+             ("G-F fwd", "fused_ln_qkvo_attention_int4_gqa", 64, 4, False),
+             ("K11-D bwd", "fused_ln_qkvo_attention_int4_bwd", 32, None, True),
+             ("K11-D dw bwd", "fused_ln_qkvo_attention_int4_dw_bwd", 32, None,
+              True),
+             ("G-B bwd", "fused_ln_qkvo_attention_int4_gqa_bwd", 32, 4, True),
+             ("G-B dw bwd", "fused_ln_qkvo_attention_int4_gqa_dw_bwd", 32, 4,
+              True)]
+
+
+def int4_attn() -> dict:
+    """{INT4_ATTN's label and shape: (CUDA-event median ms of 25,
+    `device_ms` over four input copies, `_by_kernel`'s device ms a call and
+    its kernels)} at ViT-B/16's widths, spq 200, seq 197."""
+    from vitax_torch.ops import cuda_kernels as ck
+    _, heads, hd, _ = B16_WIDTHS
+    out = {}
+    for name, wrapper, b, kv, bwd in INT4_ATTN:
+        fn = getattr(ck, wrapper)
+        tail = (1e-5, 197, heads, hd) + ((kv,) if kv else ())
+        copies = [_int8_inputs(211 + i, b, 200, kv=kv) for i in range(4)]
+        calls = [lambda c=c: fn(*c[0], c[2] if bwd else c[1], *tail)
+                 for c in copies]
+        label = f"b{b} spq200" + (f" kv{kv}" if kv else "")
+        with torch.no_grad():
+            dev = device_ms(calls)
+            ms, rows = _by_kernel({name: calls[0]}, label)[f"{name} {label}"]
+            out[f"{name} {label}"] = (_median_ms(calls[0], 3, 25), dev, ms,
+                                      rows)
+        del copies, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 # The bf16 K8 at Res-ViT's serving geometries, b64 C 0.625 (cpq 128 of spq
 # 200) and C 0.5 (99 rows, cpq 104), and its backward at training's b32
 # C 0.625: (b, spq, seq_len, cap, cpq)
@@ -994,8 +1034,8 @@ def main(argv) -> int:
                 print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms: "
                       + "; ".join(f"{k[:70]} {t:.4f} x{n:g}"
                                   for k, t, n in rows), flush=True)
-        elif section == "gqa_int8_bwd":
-            for name, (ms, dev, by, rows) in gqa_int8_bwd().items():
+        elif section in ("gqa_int8_bwd", "int4_attn"):
+            for name, (ms, dev, by, rows) in globals()[section]().items():
                 print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms "
                       f"(device_ms), {by:.4f} ms (_by_kernel): " + "; ".join(
                           f"{k[:70]} {t:.4f} x{n:g}" for k, t, n in rows),
@@ -1013,7 +1053,7 @@ def main(argv) -> int:
 SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
             "ln_device_times", "timings", "kernel_times", "k4_outputs",
             "int8_bwd_device", "int8_fwd_device", "ho_device", "rect_int8",
-            "rect_bf16", "rect_steps", "gqa_int8_bwd")
+            "rect_bf16", "rect_steps", "gqa_int8_bwd", "int4_attn")
 
 
 if __name__ == "__main__":
