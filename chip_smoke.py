@@ -237,26 +237,34 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
              injected, the routing replayed); resident b64 forwards and b32
              steps beside the K1 path (fused_qkvo on), in turns.
 16. mesh   — K9 (`fused_qkvo_attention`: the QKV projection, the core
-             and the out-projection of the LN'd input), which vitax's
-             Res-ViT runs under any mesh, and K2 without its residual
-             (`fused_ln_mlp_partial`), the MLP half per model shard: K9's
-             forward at b64 spq 200, its backward at b32 (every output, two
-             launches the same bits), both on a ragged spq 40 and at the
-             TP shard width (6 heads: wqkv [768, 1152], wo [384, 768]), K1
-             at that width, K2's partial pair at M 3072 and 1536, against
-             their twins (TOL), timed beside K10, K1 and K2; then (c0)
+             and the out-projection of the LN'd input, K1's Hopper sequence
+             without its LN), which vitax's Res-ViT runs under any mesh,
+             and K2 without its residual (`fused_ln_mlp_partial`), the MLP
+             half per model shard: K9's forward at b64 spq 200, its
+             backward at b32 (every output, two launches the same bits),
+             both on a ragged spq 40, at the TP shard width (6 heads: wqkv
+             [768, 1152], wo [384, 768]), at B/16 @416's spq 680 and at
+             head dim 80 (d 640, 8 heads), no first-design piece in K9's
+             launches; K9 on LN(x) against K1 on x to the bit (out, dWqkv,
+             dbqkv, dWo, dbo) at b32 and the TP shard width; K1 at that
+             width, K2's partial pair at M 3072 and 1536, against their
+             twins (TOL), timed beside K10, K1, K2 and, for K9, the library
+             (`multi_head_attention_forward` and its autograd backward,
+             its real rows within TOL of the twin); then (c0)
              `train_cli` (ViT-B/16 b32, 4 steps and 4 eval batches) in one
              process; this process's NCCL group of one rank and its (1, 1)
              mesh: (b) the b16 Res-ViT of ft_resvit.sh's flags through
              make_eval_step(mesh=) at b64 dense and C 0.625, bf16 and
              --int8 (exact launches: 12 K9 and the LN kernel a forward, no
-             K1 or K8; logits with the routing replayed within LOGIT_BAND
+             K1 or K8, no first-design piece; logits with the routing
+             replayed within LOGIT_BAND
              of one process's K1 path; routing maps), two b32 train steps
-             through make_train_step(mesh=) (exact launches, three
-             all-reduces a step), the grads of every trainable tensor
-             against the plain path, and resident forwards and steps beside
-             one process's in turns; (c) `train_cli --n-gpu 1`, whose
-             losses are (c0)'s bit for bit and its launches (c0)'s; (d) two
+             through make_train_step(mesh=) (exact launches, no
+             first-design piece, three all-reduces a step), the grads of
+             every trainable tensor against the plain path, and resident
+             forwards and steps beside one process's in turns; (c)
+             `train_cli --n-gpu 1`, whose losses are (c0)'s bit for bit and
+             its launches (c0)'s; (d) two
              spawned processes, each a gloo rank on the card, through
              `train_cli --n-gpu 2 --n-model 2` (exact per-shard launches:
              12 K1 and 12 K2 partials a forward; each step's loss within
@@ -357,7 +365,7 @@ s8 and bf16 WMMA products and whole-row forward and backward cores
 s8 counts of their runs exact (`_s8_expect`), 6, 7, 8 (but its GQA run) and
 9's (b), (c), (d) the first-design ones too (none); phases 13 and 14 read
 the first-design pieces around each call of K11-C, K11-D, G-F and G-B
-(none).
+(none), and phase 16 around K9's launches and in (b)'s mesh runs (none).
 
 The line before the last is the JSON kernel table (each kernel's time at
 the main path's shape beside its bound: the larger of its bytes over 3.35
@@ -5223,15 +5231,25 @@ def run_k10_slice(exp_root):
 K9_KERNELS = ("fused_qkvo_attention", "fused_qkvo_attention_bwd")
 PARTIAL_KERNELS = ("fused_ln_mlp_partial", "fused_ln_mlp_partial_bwd")
 TP_SHARD = (768, 6, 64, 1536)  # a rank's shard of ViT-B/16 at --n-model 2
+D640 = 640, 8, 80, 2560  # head dim 80 (d 640 with 8 heads)
 # (label, batch, spq, seq_len, dims, timed): serving's b64 (the table's
 # time), training's b32 (the backward's), a ragged spq 40 (not a multiple of
-# the 16-row tiles; keys masked past 33) and the TP shard width
+# the 16-row tiles; keys masked past 33), the TP shard width, and two shapes
+# only K13's core takes (the first design refused them): B/16 @416 (seq 677
+# in spq 680) and head dim 80
 K9_CASES = [("b64 spq200 (serving)", 64, 200, 197, B16, True),
             ("b4 spq40 (ragged)", 4, 40, 33, B16, False),
-            ("b32 spq200 (TP shard)", 32, 200, 197, TP_SHARD, False)]
+            ("b32 spq200 (TP shard)", 32, 200, 197, TP_SHARD, False),
+            ("b8 spq680 (B/16 @416)", 8, 680, 677, B16, False),
+            ("b32 spq200 Hd80 (d640)", 32, 200, 197, D640, False)]
 K9_BWD_CASES = [("b32 spq200 (training)", 32, 200, 197, B16, True),
                 ("b4 spq40 (ragged)", 4, 40, 33, B16, False),
-                ("b32 spq200 (TP shard)", 32, 200, 197, TP_SHARD, False)]
+                ("b32 spq200 (TP shard)", 32, 200, 197, TP_SHARD, False),
+                ("b8 spq680 (B/16 @416)", 8, 680, 677, B16, False),
+                ("b32 spq200 Hd80 (d640)", 32, 200, 197, D640, False)]
+# where K9 on LN(x) is held to K1 on x to the bit: training's b32 and the TP
+# shard width
+K9_K1_BITS = ("b32 spq200 (training)", "b32 spq200 (TP shard)")
 # K2 without its residual at M 3072 (the table's: forward b64, backward
 # b32, K2's shapes in phase 3) and at the TP shard's M 1536
 PARTIAL_CASES = [("b64 spq200 M3072", 64, 200, B16, True),
@@ -5261,14 +5279,53 @@ def _k9_inputs(batch, rows, seq_len, dims, seed):
     return x, t, do
 
 
+def _no_first_design(name, label):
+    """Raises if a first-design piece launched since the last reset (K9's
+    launches run K1's Hopper sequence, none of them)."""
+    from vitax_torch.ops import cuda_kernels as ck
+    fd = ck.first_design_launch_counts(reset=True)
+    if any(fd.values()):
+        raise AssertionError(f"{name} {label}: first-design pieces {fd}")
+
+
+def _mha_library(x, t, seq_len, heads):
+    """One PyTorch call computing K9's function:
+    `multi_head_attention_forward` on x̂ as (S, B, D), the packed
+    in-projection (wqkvᵀ), scaled_dot_product_attention with the keys >=
+    seq_len masked, the out-projection (woᵀ); need_weights off. Returns the
+    call, its leaves (for the autograd backward) and its output as [B, S,
+    D]."""
+    import torch
+    import torch.nn.functional as F
+    b, spq, d = x.shape
+    mask = torch.arange(spq, device="cuda")[None, :].expand(b, -1) >= seq_len
+    bf = torch.bfloat16
+    leaves = [x.transpose(0, 1).contiguous(), t["wqkv"].t().contiguous(),
+              t["bqkv"].to(bf), t["wo"].t().contiguous(), t["bo"].to(bf)]
+
+    def call(xs, w_in, b_in, w_out, b_out):
+        return F.multi_head_attention_forward(
+            xs, xs, xs, d, heads, w_in, b_in, None, None, False, 0.0, w_out,
+            b_out, training=False, key_padding_mask=mask,
+            need_weights=False)[0]
+
+    with torch.no_grad():
+        out = call(*leaves).transpose(0, 1)
+    return call, leaves, out
+
+
 def check_k9_kernels(stats):
-    """Phase 16, kernels: K9's forward (b64 spq 200, ragged, TP shard) and
-    every output of its backward (b32, ragged, TP shard), K1 forward and
-    backward at the TP shard width, K2 without its residual forward (b64
-    M 3072, b32 M 1536) and backward (b32 at both), against their twins
-    (TOL), two backward launches the same bits; CUDA-event medians of
-    kernel and twin; K9 timed beside K10 and K1, K2's partial beside K2,
-    at the same shapes in one call."""
+    """Phase 16, kernels: K9's forward (b64 spq 200, ragged, TP shard, B/16
+    @416's spq 680, head dim 80) and every output of its backward (b32,
+    ragged, TP shard, spq 680, head dim 80), K1 forward and backward at the
+    TP shard width, K2 without its residual forward (b64 M 3072, b32 M 1536)
+    and backward (b32 at both), against their twins (TOL), two backward
+    launches the same bits, no first-design piece in K9's launches; K9 on
+    x̂ = LN(x) against K1 on x to the bit (the forward out, dWqkv, dbqkv,
+    dWo, dbo) at b32 and the TP shard width; CUDA-event medians of kernel
+    and twin; K9 timed beside K10, K1 and the library call
+    (`multi_head_attention_forward`, held within TOL of the twin on the
+    real rows), K2's partial beside K2, at the same shapes in one call."""
     import torch
     from vitax_torch.ops import cuda_kernels as ck
     for name in K9_KERNELS + PARTIAL_KERNELS:
@@ -5280,15 +5337,24 @@ def check_k9_kernels(stats):
         args = (x, t["wqkv"], t["bqkv"], t["wo"], t["bo"], *meta)
         name = "fused_qkvo_attention"
         with torch.inference_mode():
+            ck.first_design_launch_counts(reset=True)
             out = ck.fused_qkvo_attention(*args)
             torch.cuda.synchronize()
-            err, bound = _hold(name, label, out,
-                               ck.fused_qkvo_attention_ref(*args), stats)
+            _no_first_design(name, label)
+            ref = ck.fused_qkvo_attention_ref(*args)
+            err, bound = _hold(name, label, out, ref, stats)
             line = ""
             if timed:
                 k_ms = _median_ms(lambda: ck.fused_qkvo_attention(*args))
+                _no_first_design(name, label)
                 p_ms = _median_ms(lambda: ck.fused_qkvo_attention_ref(*args))
-                stats[name].update(ms=k_ms, plain_ms=p_ms,
+                call, leaves, lib = _mha_library(x, t, seq, dims[1])
+                l_err, l_bound = _hold(f"{name} library", label,
+                                       lib[:, :seq], ref[:, :seq],
+                                       {f"{name} library": {
+                                           "max_abs_err": 0.0}})
+                l_ms = _median_ms(lambda: call(*leaves))
+                stats[name].update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                    shape=(batch, rows))
                 qkv = (x, t["wqkv"], t["bqkv"], *meta)
                 k1 = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
@@ -5296,11 +5362,17 @@ def check_k9_kernels(stats):
                 beside["forward"] = (
                     k_ms, _median_ms(lambda: ck.fused_qkv_attention(*qkv)),
                     _median_ms(lambda: ck.fused_ln_qkvo_attention(*k1)))
+                beside["library forward"] = (l_ms, l_err, l_bound)
                 line = (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms; K10 "
                         f"{beside['forward'][1]:.4f}, K1 "
-                        f"{beside['forward'][2]:.4f} (medians of 25)")
+                        f"{beside['forward'][2]:.4f}, library "
+                        f"(multi_head_attention_forward) {l_ms:.4f}, its "
+                        f"real rows {l_err:.3e} <= {l_bound:.3e} from the "
+                        "twin (medians of 25)")
+                del call, leaves, lib
         print(f"  {name:32s} {label:22s} {tuple(out.shape)} max|k-ref| "
-              f"{err:.3e} <= {bound:.3e}: ok{line}", flush=True)
+              f"{err:.3e} <= {bound:.3e}, no first-design piece: ok{line}",
+              flush=True)
         if dims == TP_SHARD:  # K1 per model shard at the same width
             k1 = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
                   t["wo"], t["bo"], EPS, *meta)
@@ -5312,16 +5384,19 @@ def check_k9_kernels(stats):
             print(f"  {'fused_ln_qkvo_attention':32s} {label:22s} "
                   f"{tuple(out.shape)} max|k-ref| {err:.3e} <= {bound:.3e}: "
                   "ok", flush=True)
-        del x, t, out
+        del x, t, out, ref
+        torch.cuda.empty_cache()
     for label, batch, rows, seq, dims, timed in K9_BWD_CASES:
         x, t, do = _k9_inputs(batch, rows, seq, dims, seed=161)
         meta = (seq, dims[1], dims[2])
         args = (x, t["wqkv"], t["bqkv"], t["wo"], do, *meta)
         name = "fused_qkvo_attention_bwd"
         with torch.no_grad():
+            ck.first_design_launch_counts(reset=True)
             outs = ck.fused_qkvo_attention_bwd(*args)
             again = ck.fused_qkvo_attention_bwd(*args)
             torch.cuda.synchronize()
+            _no_first_design(name, label)
             errs = _hold_all(name, label, outs,
                              ck.fused_qkvo_attention_bwd_ref(*args), stats)
             if not all(torch.equal(o, a) for o, a in zip(outs, again)):
@@ -5331,11 +5406,10 @@ def check_k9_kernels(stats):
             if timed:
                 k_ms = _median_ms(lambda: ck.fused_qkvo_attention_bwd(*args),
                                   warmup=2, iters=10)
+                _no_first_design(name, label)
                 p_ms = _median_ms(
                     lambda: ck.fused_qkvo_attention_bwd_ref(*args),
                     warmup=1, iters=5)
-                stats[name].update(ms=k_ms, plain_ms=p_ms,
-                                   shape=(batch, rows))
                 dh = torch.zeros((batch, rows, dims[1] * dims[2]),
                                  device="cuda", dtype=torch.bfloat16)
                 qkv = (x, t["wqkv"], t["bqkv"], dh, *meta)
@@ -5346,12 +5420,42 @@ def check_k9_kernels(stats):
                                      warmup=2, iters=10),
                     _median_ms(lambda: ck.fused_ln_qkvo_attention_bwd(*k1),
                                warmup=2, iters=10))
-                line = (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms; K10 "
-                        f"bwd {beside['backward'][1]:.4f}, K1 bwd "
-                        f"{beside['backward'][2]:.4f} (medians of 10 / 5)")
+        if timed:  # the library's autograd backward of the same function
+            call, leaves, _ = _mha_library(x, t, seq, dims[1])
+            leaves = [v.requires_grad_() for v in leaves]
+            dy = do.transpose(0, 1).contiguous()
+            y = call(*leaves)
+            l_ms = _median_ms(lambda: y.backward(dy, retain_graph=True),
+                              warmup=2, iters=10)
+            stats[name].update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                               shape=(batch, rows))
+            beside["library backward"] = l_ms
+            del call, leaves, y, dy
+            line = (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms; K10 "
+                    f"bwd {beside['backward'][1]:.4f}, K1 bwd "
+                    f"{beside['backward'][2]:.4f}, library (autograd of "
+                    f"multi_head_attention_forward) {l_ms:.4f} (medians of "
+                    "10 / 5)")
         print(f"  {name:32s} {label:22s} max|k-ref| per output (dx, dW, db, "
               f"dWo, dbo) [{' '.join(errs)}]: ok, two launches the same "
-              f"bits{line}", flush=True)
+              f"bits, no first-design piece{line}", flush=True)
+        if label in K9_K1_BITS:  # K9 on LN(x) is K1 on x, to the bit
+            k1 = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
+                  t["wo"])
+            with torch.no_grad():
+                xh = ck.layer_norm(t["x"], t["gamma"], t["beta"], EPS)
+                same = [torch.equal(
+                    ck.fused_qkvo_attention(xh, *k1[3:], t["bo"], *meta),
+                    ck.fused_ln_qkvo_attention(*k1, t["bo"], EPS, *meta))]
+                k9g = ck.fused_qkvo_attention_bwd(xh, *k1[3:], do, *meta)
+                k1g = ck.fused_ln_qkvo_attention_bwd(*k1, do, EPS, *meta)
+                same += [torch.equal(a, b) for a, b in zip(k9g[1:], k1g[3:])]
+            if not all(same):
+                raise AssertionError(f"K9 on LN(x) vs K1 {label}: out, dW, "
+                                     f"db, dWo, dbo the same bits: {same}")
+            print(f"  {'K9 on LN(x) vs K1':32s} {label:22s} the forward out "
+                  "and dWqkv, dbqkv, dWo, dbo: the same bits", flush=True)
+            del xh, k9g, k1g
         if dims == TP_SHARD:
             k1 = (t["x"], t["gamma"], t["beta"], t["wqkv"], t["bqkv"],
                   t["wo"], do, EPS, *meta)
@@ -5449,13 +5553,14 @@ def _mesh_resvit(mesh, exp_root):
     """Phase 16 (b): the b16 Res-ViT of ft_resvit.sh's flags under the
     (1, 1) mesh: serving b64 dense and at C 0.625, bf16 and --int8, through
     make_eval_step(mesh=) with exact launches a forward (12 K9, the LN
-    kernel before each, no K1 or K8) and one all-reduce; logits with the
-    routing replayed within LOGIT_BAND of one process's path for the same
-    function (K1, and K8 when compacted; int8_attn off, since it does not
-    reach K9) and the routing maps' agreement; two b32 train steps of (a)
-    through make_train_step(mesh=) with exact launches and three
-    all-reduces a step (the active loss's mean, the grads, the metrics);
-    the grads of every trainable tensor against the plain path (noise
+    kernel before each, no K1 or K8, no first-design piece) and one
+    all-reduce; logits with the routing replayed within LOGIT_BAND of one
+    process's path for the same function (K1, and K8 when compacted;
+    int8_attn off, since it does not reach K9) and the routing maps'
+    agreement; two b32 train steps of (a) through make_train_step(mesh=)
+    with exact launches, no first-design piece, and three all-reduces a
+    step (the active loss's mean, the grads, the metrics); the grads of
+    every trainable tensor against the plain path (noise
     injected, routing replayed); resident b64 forwards and b32 steps beside
     one process's K1 path, in turns."""
     import torch
@@ -5494,6 +5599,9 @@ def _mesh_resvit(mesh, exp_root):
             metrics, _ = make_eval_step(cfg, mesh=mesh)(params, images,
                                                        labels, weight)
             counts[label] = ck.launch_counts()
+            # none: the attention halves are the LN kernel and K9, K1's
+            # Hopper sequence; the MLP halves K2, K4 or plain products
+            fd = ck.first_design_launch_counts()
             reduces = all_reduce.launches
             expect = _mesh_launches(cfg, False)
             log = _RouterLog(resvit)
@@ -5515,8 +5623,9 @@ def _mesh_resvit(mesh, exp_root):
                   f"{counts[label] == expect}), all-reduces {reduces}; "
                   f"logits max|mesh - one process| (routing replayed) "
                   f"{d_log:.3e} <= {band:.3e}; routing maps agree "
-                  f"{min(agree):.5f} >= {ROUTING_AGREE}", flush=True)
-            if (counts[label] != expect or reduces != 1
+                  f"{min(agree):.5f} >= {ROUTING_AGREE}; first-design "
+                  f"pieces {fd}", flush=True)
+            if (counts[label] != expect or reduces != 1 or any(fd.values())
                     or not torch.isfinite(lk).all() or d_log > band
                     or min(agree) < ROUTING_AGREE):
                 raise AssertionError(f"mesh serving {label} failed")
@@ -5540,12 +5649,13 @@ def _mesh_resvit(mesh, exp_root):
         all_reduce.launches = 0
         state, m = step(state, images, labels)
         got = ck.launch_counts()
+        fd = ck.first_design_launch_counts()
         counts[f"train step {i}"] = got
         print(f"mesh: make_train_step(mesh) step {i} b{TRAIN_BATCH} (a): "
               f"loss {float(m['loss']):.4f}; launches {_nonzero(got)} (as "
-              f"derived: {got == expect}), all-reduces {all_reduce.launches}",
-              flush=True)
-        if (got != expect or all_reduce.launches != 3
+              f"derived: {got == expect}), all-reduces {all_reduce.launches}"
+              f", first-design pieces {fd}", flush=True)
+        if (got != expect or all_reduce.launches != 3 or any(fd.values())
                 or not math.isfinite(float(m["loss"]))):
             raise AssertionError(f"mesh train step {i}: expected {expect}")
     del tx, state
@@ -6627,9 +6737,10 @@ def main() -> int:
     print("mesh: kernel / twin ms " + ", ".join(
         f"{n} {stats[n]['ms']:.4f} / {stats[n]['plain_ms']:.4f}"
         for n in K9_KERNELS + PARTIAL_KERNELS)
-        + "; K9 / K10 / K1 forward b64 {:.4f} / {:.4f} / {:.4f}, backward "
-        "b32 {:.4f} / {:.4f} / {:.4f}".format(*beside16["forward"],
-                                            *beside16["backward"])
+        + "; K9 / K10 / K1 / library forward b64 {:.4f} / {:.4f} / {:.4f} / "
+        "{:.4f}, backward b32 {:.4f} / {:.4f} / {:.4f} / {:.4f}".format(
+            *beside16["forward"], beside16["library forward"][0],
+            *beside16["backward"], beside16["library backward"])
         + "; K2 without / with its residual: forward b64 {:.4f} / {:.4f}, "
         "backward b32 {:.4f} / {:.4f}".format(
             *beside16["fused_ln_mlp_partial"],

@@ -1939,11 +1939,14 @@ def test_k10_autograd_launches_both_kernels_and_fp32_raises(dev):
 
 # K9: (batch, spq, seq_len, D, heads, head_dim): Res-ViT serving's b64 spq
 # 200 and training's b32, a ragged seq in a small spq, the TP shard width
-# (6 heads of a 768 model: wqkv [768, 1152], wo [384, 768]) and the
-# head_dim 32 / 128 instantiations of the core
+# (6 heads of a 768 model: wqkv [768, 1152], wo [384, 768]), the head_dim
+# 32 / 128 instantiations of the core, and two shapes only K13's core takes
+# (the first design refused them): B/16 @416 (seq 677 in spq 680) and head
+# dim 80 (d 640 with 8 heads)
 K9_SHAPES = [(64, 200, 197, 768, 12, 64), (32, 200, 197, 768, 12, 64),
              (2, 24, 17, 128, 4, 32), (32, 200, 197, 768, 6, 64),
-             (3, 200, 197, 768, 6, 128)]
+             (3, 200, 197, 768, 6, 128), (8, 680, 677, 768, 12, 64),
+             (32, 200, 197, 640, 8, 80)]
 
 
 def _k9_args(dev, batch, spq, seq, d, h, hd, seed=0):
@@ -2004,6 +2007,51 @@ def test_k9_autograd_launches_both_kernels_and_fp32_raises(dev):
                                 *meta)
     with pytest.raises(ValueError, match="unsupported shapes"):
         ck.fused_qkvo_attention(x[:, :196].contiguous(), w, b, wo, bo, *meta)
+
+
+@pytest.mark.parametrize("shape", [(32, 200, 197, 768, 12, 64),
+                                   (32, 200, 197, 768, 6, 64)])
+def test_k9_on_layer_norm_is_k1_to_the_bit(dev, shape):
+    """K9 runs K1's Hopper launches after its LN (qkvo_sm90.cuh): on x̂ =
+    `ck.layer_norm(x)` its forward output is K1's on x, and its backward's
+    dWqkv, dbqkv, dWo and dbo are K1's backward's, to the bit (b32 spq 200
+    at 12 heads and at the TP shard width of 6)."""
+    batch, spq, seq, d, h, hd = shape
+    _, qkvo, _ = _args(dev, batch, spq, seq, d, h, hd, 4 * d, seed=9)
+    x, gamma, beta, w, b, wo, bo = qkvo[:7]
+    g = torch.Generator(device=dev).manual_seed(19)
+    do = torch.randn((batch, spq, d), generator=g,
+                     device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        xh = ck.layer_norm(x, gamma, beta, EPS)
+        assert torch.equal(ck.fused_qkvo_attention(xh, w, b, wo, bo, seq, h,
+                                                   hd),
+                           ck.fused_ln_qkvo_attention(*qkvo))
+        k9 = ck.fused_qkvo_attention_bwd(xh, w, b, wo, do, seq, h, hd)
+        k1 = ck.fused_ln_qkvo_attention_bwd(*qkvo[:6], do, EPS, seq, h, hd)
+        torch.cuda.synchronize()
+    for name, a, r in zip(("dwqkv", "dbqkv", "dwo", "dbo"), k9[1:], k1[3:]):
+        assert torch.equal(a, r), name
+
+
+def test_k9_launches_no_first_design_piece(dev):
+    """K9's forward and backward, alone and under autograd, launch none of
+    the first design's pieces (gemm.cuh's products, the whole-row core and
+    its backward), at B/16 @416's spq 680 and at head dim 80 too."""
+    for shape in ((32, 200, 197, 768, 12, 64), (8, 680, 677, 768, 12, 64),
+                  (4, 200, 197, 640, 8, 80)):
+        x, w, b, wo, bo, do, *meta = _k9_args(dev, *shape)
+        ck.reset_launch_counts()
+        with torch.no_grad():
+            ck.fused_qkvo_attention(x, w, b, wo, bo, *meta)
+            ck.fused_qkvo_attention_bwd(x, w, b, wo, do, *meta)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b, wo, bo)]
+        ck.fused_qkvo_attention(*leaves, *meta).backward(do)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ck.launch_counts().items() if v} == {
+            "fused_qkvo_attention": 2, "fused_qkvo_attention_bwd": 2}, shape
+        assert ck.first_design_launch_counts() == dict.fromkeys(
+            ck.FIRST_DESIGN_PIECES, 0), shape
 
 
 # K2 without its residual: ViT-B/16's b32 spq 200 at M 3072 and at the TP

@@ -484,10 +484,11 @@ def test_k9_route_is_vitaxs_under_a_mesh():
     """Res-ViT under a mesh (vitax/models/resvit.py:220-277, 330-331): its
     fused half declines, and `attention` takes K9 where vitax's gate without
     heads passes (fused_qkv, fused_qkvo, no GQA). Wherever vitax takes K9,
-    serving and training, the port's route is K9; at every preset × {224,
-    384} its K9 gate passes, and off the presets, where K9's whole-row core
-    cannot take the shapes (seq 677, Hd 80), `_k9_attention` raises by
-    name; elsewhere both run the unfused attention."""
+    serving and training, the port's route is K9 and its K9 gate passes: K9
+    runs K1's Hopper sequence on K13's core, so it takes every preset × {224,
+    384} and the shapes off the presets that the whole-row core refused
+    (seq 677, Hd 80, Hd 128 at seq 362 and 530); elsewhere both run the
+    unfused attention."""
     from vitax_torch.parallel.mesh import Mesh
     mesh = Mesh(n_data=1, n_model=1, rank=0, data_group=None,
                 model_group=None)
@@ -500,13 +501,68 @@ def test_k9_route_is_vitaxs_under_a_mesh():
             vitax_k9 = bool(pk.qkv_attention_supported(jx, jw))
             assert tr._fused_attention_half(tx, None, cfg, mesh) is None
             assert tr.attention_is_fused(tx, cfg) == vitax_k9, (arch, image)
-            if vitax_k9 and tr.k9_supported(tx, tw, cfg):
+            if vitax_k9:
+                assert tr.k9_supported(tx, tw, cfg), (arch, image, mode)
                 taken += 1
-            elif vitax_k9:
-                assert (arch, image, mode) not in PRESET_CASES
-                with pytest.raises(NotImplementedError, match="Queue 2"):
-                    tr._k9_attention(tx, _k10_params(d, h, d // h), cfg)
-    assert taken >= 8  # b16 and b32 at both sizes, both modes, at least
+    # 24 of the 42 cases: b16 and b32 at both sizes, l16 at 224, B/16 @416
+    # and the (d, heads) pairs off the presets, both modes
+    assert taken >= 20
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+@pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
+def test_k9_takes_the_shapes_only_k13_fits(monkeypatch, arch, image, mode):
+    """K9 runs K1's Hopper sequence on K13's core: where vitax's gate takes
+    a shape that the whole-row core cannot (seq 677; head dim 80), the
+    port's K9 gate takes it, serving and training, and its wrapper's checks
+    pass before it allocates anything; K10, which keeps the whole-row core,
+    still refuses the shape and `_k10_attention` raises by name. The K9
+    gate has no dtype test, so a CUDA fp32 input reaches the wrapper's
+    `check_k9_dtype`."""
+    s, d, h = _seq(arch, image)
+    hd = d // h
+    (jx, jw), (tx, tw) = _shapes(2, s, d, 3 * d)
+    cfg = _resvit_cfg(arch, image, fused_qkv=True, fused_qkvo=True)
+    assert pk.qkv_attention_supported(jx, jw)
+    with torch.set_grad_enabled(mode == "train"):
+        assert tr.k9_supported(tx, tw, cfg)
+        assert not tr.k10_supported(tx, tw, cfg)
+        with pytest.raises(NotImplementedError,
+                           match="K10 keeps the first design.*Queue 2"):
+            tr._k10_attention(tx, _k10_params(d, h, hd),
+                              cfg.replace(fused_qkvo=False))
+    t, s, h, hd, _ = _meta_half(arch, image)
+    gate = (ck.fused_qkvo_attention_bwd_supported if mode == "train"
+            else ck.fused_qkvo_attention_supported)
+    assert gate(t["x"], t["wqkv"], h)
+    assert gate(t["x"].float(), t["wqkv"].float(), h)
+    monkeypatch.setattr(ck, "_check_cuda",
+                        lambda name, tensors, dtypes: torch.device("meta"))
+    tensors = {"x": t["x"], "wqkv": t["wqkv"], "bqkv": t["bqkv"],
+               "wo": t["wo"]}
+    tensors.update({"do": t["do"]} if mode == "train" else {"bo": t["bo"]})
+    ck._check_k9("k", tensors, s, h, hd, gate)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        ck.check_k9_dtype("k", torch.float32)
+
+
+def test_k9_raises_by_name_where_k13_does_not_fit():
+    """Where vitax's gate takes K9 at a head dim that K13's core does not
+    (d 640 with 16 heads: head dim 40), `_k9_attention` raises by name
+    rather than run the unfused path or another kernel."""
+    s, d, h = 197, 640, 16
+    (jx, jw), (tx, tw) = _shapes(2, s, d, 3 * d)
+    cfg = t_config.resvit_arch_config("b16", 224, dim=d, mlp_dim=4 * d,
+                                      n_heads=h, n_kv_heads=h,
+                                      fused_qkv=True, fused_qkvo=True)
+    assert pk.qkv_attention_supported(jx, jw)
+    for train in (False, True):
+        with torch.set_grad_enabled(train):
+            assert tr.attention_is_fused(tx, cfg)
+            assert not tr.k9_supported(tx, tw, cfg)
+            with pytest.raises(NotImplementedError,
+                               match="fused_qkvo_attention .K9.*K13's core"):
+                tr._k9_attention(tx, _k10_params(d, h, d // h), cfg)
 
 
 def _vitax_tp(jx, d, h, hd, m, tp):

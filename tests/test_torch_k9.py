@@ -333,9 +333,12 @@ def test_resvit_under_tensor_parallelism_raises():
 def test_k9_gates_and_fp32_raise():
     """The port's K9 gate takes the b16 Res-ViT's shapes in eval and
     training at 224 and 384 px and the TP shard width (6 heads of a 768
-    model) and refuses what the core does not take (hd 80, D % 32); the
-    dtype test's message, unreachable on a CUDA-less machine, is held
-    here."""
+    model), and, on K13's core since K9 runs K1's Hopper sequence, head
+    dim 80 (d 1280 with 16 heads), which K10's whole-row core refuses; it
+    refuses what K13's core and the products do not take (D % 16, head dim
+    40, seq > 1024). It has no dtype test, so a CUDA fp32 input reaches the
+    wrapper's raise, whose message, unreachable on a CUDA-less machine, is
+    held here."""
     for s, grad in ((197, False), (197, True), (577, False), (577, True)):
         x = torch.empty((2, s, 768), device="meta", dtype=torch.bfloat16)
         for heads in (12, 6):
@@ -344,12 +347,20 @@ def test_k9_gates_and_fp32_raise():
             gate = (ck.fused_qkvo_attention_bwd_supported if grad
                     else ck.fused_qkvo_attention_supported)
             assert gate(x, wqkv, heads)
-    assert not ck.fused_qkvo_attention_supported(
-        torch.empty((2, 197, 1280), device="meta"),
-        torch.empty((1280, 3840), device="meta"), 16)
+    hd80 = (torch.empty((2, 197, 1280), device="meta"),
+            torch.empty((1280, 3840), device="meta"), 16)
+    assert ck.fused_qkvo_attention_supported(*hd80)
+    assert ck.fused_qkvo_attention_bwd_supported(*hd80)
+    assert not ck.fused_qkv_attention_supported(*hd80)
     assert not ck.fused_qkvo_attention_supported(
         torch.empty((2, 197, 120), device="meta"),
         torch.empty((120, 384), device="meta"), 2)
+    assert not ck.fused_qkvo_attention_supported(
+        torch.empty((2, 197, 640), device="meta"),
+        torch.empty((640, 1920), device="meta"), 16)
+    assert not ck.fused_qkvo_attention_supported(
+        torch.empty((2, 1032, 768), device="meta"),
+        torch.empty((768, 2304), device="meta"), 12)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ck.check_k9_dtype("fused_qkvo_attention", torch.float32)
     ck.check_k9_dtype("fused_qkvo_attention", torch.bfloat16)

@@ -8,7 +8,7 @@
 // ln_qkvo_attention.cu.
 //
 // One core serves three geometries (AttnGeom): the square MHA core reading
-// Q, K and V from one packed qkv row (K9, K10, K11-C); GQA (K7), where the
+// Q, K and V from one packed qkv row (K10); GQA (K7), where the
 // packed row is [q (H·hd) | k (Hkv·hd) | v (Hkv·hd)] and query head h reads
 // kv group g = h·Hkv/H (vitax's _kv_off, pallas_kernels.py:2803); and the rect core
 // (K8), whose q_rows query rows per image (the compacted cpq) come from their

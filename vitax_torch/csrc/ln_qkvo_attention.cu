@@ -18,17 +18,17 @@
 //
 // kv_heads == heads (K1), the Hopper design, four launches:
 //   1. LN1 (layernorm.cuh), bf16 xn;
-//   2. qkv = bf16(xn·Wqkv + bqkv) on gemm_sm90.cuh (wgmma m64n128k16 fed by
-//      a producer warp's TMA loads, kEpiBias): the very call K1's backward
-//      makes for its recompute (ln_qkvo_attention_bwd.cu), so the two give
-//      the same qkv bits;
-//   3. the core on K13's (attention_core.cuh, launch_core_fwd) with strided
+//   2.-4. qkvo_sm90.cuh's forward on xn, the sequence K9 runs on its x̂:
+//      qkv = bf16(xn·Wqkv + bqkv) on gemm_sm90.cuh (wgmma m64n128k16 fed by
+//      a producer warp's TMA loads, kEpiBias), the very call K1's backward
+//      makes for its recompute, so the two give the same qkv bits; the core
+//      on K13's (attention_core.cuh, launch_core_fwd) with strided
 //      operands: q, k, v the column blocks 0, hhd, 2·hhd of the packed rows
 //      (row stride 3·hhd), the head outputs into attn (row stride hhd),
 //      query rows to spq (the pad rows computed as vitax computes them,
 //      :2670-2671) and keys masked at seq_len; p normalised in fp32 and
 //      rounded to bf16 once before p·v, as _softmax_rows (:75-80);
-//   4. out = bf16(attn·Wo + bo) on gemm_sm90.cuh (kEpiBias).
+//      out = bf16(attn·Wo + bo) on gemm_sm90.cuh (kEpiBias).
 // The scores never reach device memory; xn, qkv and attn do (scratch). The
 // TMA's zero fill masks the ragged edges on the way in and the epilogues
 // mask their stores.
@@ -46,8 +46,8 @@
 // rescaling); scores and P·V on WMMA bf16 tiles; the host picks the warps a
 // block holds from the shared memory it needs (4 at spq 200, 1 at spq 584).
 #include "attention.cuh"
-#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
+#include "qkvo_sm90.cuh"
 
 extern "C" int vitax_ln_qkvo_attention_fwd(const void* x, const void* gamma, const void* beta,
                                            const void* wqkv, const void* bqkv, const void* wo,
@@ -56,7 +56,6 @@ extern "C" int vitax_ln_qkvo_attention_fwd(const void* x, const void* gamma, con
                                            int heads, int kv_heads, int head_dim, float eps,
                                            float scale, void* stream) {
   using vitax::bf16;
-  namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
   const int hhd = heads * head_dim;
@@ -70,25 +69,14 @@ extern "C" int vitax_ln_qkvo_attention_fwd(const void* x, const void* gamma, con
   auto* attnb = static_cast<bf16*>(attn);
   auto* outb = static_cast<bf16*>(out);
   const bool mha = kv_heads == heads;
-  if (mha && (b > 65535 || seq_len <= 0 || seq_len > spq)) return cudaErrorInvalidValue;
+  if (mha && !vitax::qkvo::shapes_ok(b, spq, seq_len)) return cudaErrorInvalidValue;
   cudaError_t e = vitax::launch_layer_norm(static_cast<const bf16*>(x),
                                            static_cast<const float*>(gamma),
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  if (mha) {
-    e = sm90::gemm_nn<sm90::kEpiBias>(xnb, wqkvb, bqkvf, qkvb, nullptr, n, width, d, st);
-    if (e != cudaSuccess) return e;
-    vitax::k13::CoreArgs a{};
-    a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd, a.o = attnb;
-    a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
-    a.kv_heads = heads;
-    a.scale = scale;
-    a.ld_q = a.ld_k = a.ld_v = width;
-    a.ld_o = hhd;
-    e = vitax::k13::launch_core_fwd(a, head_dim, b, st);
-    if (e != cudaSuccess) return e;
-    return sm90::gemm_nn<sm90::kEpiBias>(attnb, wob, bof, outb, nullptr, n, d, hhd, st);
-  }
+  if (mha)
+    return vitax::qkvo::fwd(xnb, wqkvb, bqkvf, wob, bof, qkvb, attnb, outb, b, spq, d, seq_len,
+                            heads, head_dim, scale, st);
   e = vitax::launch_gemm<vitax::kBias>(xnb, wqkvb, bqkvf, qkvb, n, width, d, st);
   if (e != cudaSuccess) return e;
   const vitax::AttnGeom g{qkvb, static_cast<size_t>(width), spq, qkvb,

@@ -24,16 +24,17 @@
 // (colsum.cuh). Nothing uses float atomics.
 //
 // kv_heads == heads (vitax_ln_qkvo_attention_bwd), the Hopper design: the
-// five products on gemm_sm90.cuh (wgmma m64n128k16 fed by a producer
+// LN recompute, qkvo_sm90.cuh's backward on xn (the sequence K9's backward
+// runs on its x̂, with dxn in fp32 here for the LN tail), the LN tail. Its
+// five products are on gemm_sm90.cuh (wgmma m64n128k16 fed by a producer
 // warp's TMA loads, 128×128 tiles in two warpgroups), and the attention
-// core on K13's
-// (attention_core.cuh) with strided operands: its forward recomputes attn
-// from the packed qkv rows (query rows to spq, keys masked at seq_len), and
-// its three backward passes (a row pass writing m·scale·log2e, 1/l and dd,
-// 12 bytes a row, to `stats`; a key pass for dk, dv; a query pass for dq)
-// write straight into dqkv's packed columns. Neither P nor ds reaches
-// device memory; the query rows seq_len..spq are computed as vitax computes
-// them, and their dk, dv rows are 0.
+// core on K13's (attention_core.cuh) with strided operands: its forward
+// recomputes attn from the packed qkv rows (query rows to spq, keys masked
+// at seq_len), and its three backward passes (a row pass writing
+// m·scale·log2e, 1/l and dd, 12 bytes a row, to `stats`; a key pass for dk,
+// dv; a query pass for dq) write straight into dqkv's packed columns.
+// Neither P nor ds reaches device memory; the query rows seq_len..spq are
+// computed as vitax computes them, and their dk, dv rows are 0.
 //
 // kv_heads < heads (vitax_ln_qkvo_attention_gqa_bwd, K7's backward) keeps
 // the first design: gemm.cuh's WMMA products and the whole-row core, whose
@@ -61,19 +62,16 @@
 // and V columns; the core's work does not.
 #include "attention_bwd.cuh"
 #include "gemm.cuh"
-#include "gemm_sm90.cuh"
 #include "layernorm.cuh"
+#include "qkvo_sm90.cuh"
 
 // fp32 workspace of either backward over n rows, qkv width w ((H + 2·Hkv)·hd)
 // (also K6's backward's).
 extern "C" long long vitax_ln_qkvo_attention_bwd_ws(int n, int d, int hhd, int w) {
   using namespace vitax;
-  const size_t sizes[] = {layer_norm_bwd_workspace(n, d), colsum_workspace(n, d),
-                          colsum_workspace(n, w), gemm_tn_workspace(hhd, d, n),
-                          gemm_tn_workspace(d, w, n)};
-  size_t m = 0;
-  for (size_t s : sizes) m = s > m ? s : m;
-  return static_cast<long long>(m);
+  const size_t ln = layer_norm_bwd_workspace(n, d);
+  const size_t rest = qkvo::bwd_workspace(n, d, hhd, w);
+  return static_cast<long long>(ln > rest ? ln : rest);
 }
 
 // kv_heads == heads. Outputs dx (bf16 [n, d]) and fp32 dgamma, dbeta [d],
@@ -88,11 +86,8 @@ extern "C" int vitax_ln_qkvo_attention_bwd(
     void* dqkv, void* dxn, void* ws, int b, int spq, int d, int seq_len, int heads, int head_dim,
     float eps, float scale, void* stream) {
   using vitax::bf16;
-  namespace sm90 = vitax::sm90;
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = b * spq;
-  const int hhd = heads * head_dim;
-  const int w = 3 * hhd;
   const auto* xb = static_cast<const bf16*>(x);
   const auto* wqkvb = static_cast<const bf16*>(wqkv);
   const auto* dob = static_cast<const bf16*>(dout);
@@ -103,49 +98,19 @@ extern "C" int vitax_ln_qkvo_attention_bwd(
   auto* dqkvb = static_cast<bf16*>(dqkv);
   auto* dxnf = static_cast<float*>(dxn);
   auto* wsf = static_cast<float*>(ws);
-  if (n == 0 || b > 65535 || seq_len <= 0 || seq_len > spq) return cudaErrorInvalidValue;
+  if (n == 0 || !vitax::qkvo::shapes_ok(b, spq, seq_len)) return cudaErrorInvalidValue;
 
-  // recompute LN1, qkv and the attention core (K13's forward on the packed rows)
+  // recompute LN1, then qkvo_sm90.cuh's backward on xn (the recompute of
+  // qkv and attn, the out-projection's grads, K13's three passes, dxn in
+  // fp32, dWqkv, dbqkv), then the LN tail
   cudaError_t e = vitax::launch_layer_norm(xb, static_cast<const float*>(gamma),
                                            static_cast<const float*>(beta), xnb, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = sm90::gemm_nn<sm90::kEpiBias>(xnb, wqkvb, static_cast<const float*>(bqkv), qkvb, nullptr,
-                                    n, w, d, st);
-  if (e != cudaSuccess) return e;
-  vitax::k13::CoreArgs a{};
-  a.q = qkvb, a.k = qkvb + hhd, a.v = qkvb + 2 * hhd;
-  a.o = attnb, a.out = attnb, a.dout = dattnb;
-  a.dq = dqkvb, a.dk = dqkvb + hhd, a.dv = dqkvb + 2 * hhd;
-  a.stats = static_cast<float*>(stats);
-  a.seq = seq_len, a.rows = a.kv_rows = spq, a.img_rows = a.kv_img_rows = spq, a.heads = heads;
-  a.kv_heads = heads;
-  a.seq_pad = (spq + vitax::k13::kRows - 1) / vitax::k13::kRows * vitax::k13::kRows;
-  a.scale = scale;
-  a.ld_q = a.ld_k = a.ld_v = a.ld_dq = a.ld_dk = a.ld_dv = w;
-  a.ld_o = a.ld_do = hhd;
-  e = vitax::k13::launch_core_fwd(a, head_dim, b, st);
-  if (e != cudaSuccess) return e;
-
-  // out-projection grads
-  e = sm90::gemm_nt<sm90::kEpiStore>(dob, static_cast<const bf16*>(wo), dattnb, nullptr, n, hhd,
-                                     d, st);
-  if (e != cudaSuccess) return e;
-  e = sm90::gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_colsum(dob, static_cast<float*>(dbo), wsf, n, d, st);
-  if (e != cudaSuccess) return e;
-
-  // attention-core grads -> dqkv (K13's three passes)
-  e = vitax::k13::launch_core_bwd(a, head_dim, b, st);
-  if (e != cudaSuccess) return e;
-
-  // QKV projection grads and the LN tail
-  e = sm90::gemm_nt<sm90::kEpiF32>(dqkvb, wqkvb, nullptr, dxnf, n, d, w, st);
-  if (e != cudaSuccess) return e;
-  e = sm90::gemm_tn(xnb, dqkvb, static_cast<float*>(dwqkv), wsf, d, w, n, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_colsum(static_cast<const bf16*>(dqkvb), static_cast<float*>(dbqkv), wsf, n, w,
-                           st);
+  e = vitax::qkvo::bwd(xnb, wqkvb, static_cast<const float*>(bqkv), static_cast<const bf16*>(wo),
+                       dob, nullptr, dxnf, static_cast<float*>(dwqkv),
+                       static_cast<float*>(dbqkv), static_cast<float*>(dwo),
+                       static_cast<float*>(dbo), qkvb, attnb, dattnb, static_cast<float*>(stats),
+                       dqkvb, wsf, b, spq, d, seq_len, heads, head_dim, scale, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(
       xb, static_cast<const float*>(gamma), dxnf, nullptr, static_cast<bf16*>(dx),

@@ -12,20 +12,22 @@
 //   out  = bf16(attn @ Wo + bo), bo added in fp32          (:2427-2428)
 //
 // x̂ is the LN output, [B, spq, D] with the padded pad rows (zeros); there is
-// no LN and no residual. It is K10's forward (qkv_attention.cu) followed by
-// an out-projection, so it is K1's first-design forward (which K7's branch of
-// ln_qkvo_attention.cu still runs) without its first launch.
+// no LN and no residual. It is K1's forward without its first launch: the
+// three launches of qkvo_sm90.cuh's forward, which K1 runs after its LN, so
+// K9 on x̂ = LN(x) gives K1's output to the bit.
 //
 // Bound on the H100: at b64 spq 200 it does 2·N·D·3HHd + 4·B·H·spq²·hd +
 // 2·N·HHd·D ≈ 68 GFLOP on 26 MB, so the tensor cores bound it (≈ 0.069 ms at
-// 989 TFLOP/s bf16). Design: both projections are gemm.cuh's bf16
-// tensor-core GEMM with the fp32 bias added in its epilogue before the one
-// rounding to bf16; the core is K1's whole-row attention core (attention.cuh)
-// with bf16 head outputs. qkv and attn make one bf16 round trip each through
-// device memory (the TPU kernel keeps an image's in VMEM, which a Hopper block
-// cannot hold beside the scores); the scores never leave the chip.
-#include "attention.cuh"
-#include "gemm.cuh"
+// 989 TFLOP/s bf16). Design (qkvo_sm90.cuh): qkv = bf16(x̂·Wqkv + bqkv) on
+// gemm_sm90.cuh's TMA-fed wgmma product (kEpiBias: the fp32 bias added
+// before the one rounding); K13's core (attention_core.cuh) on the packed
+// rows with strided operands, query rows to spq and keys masked at seq_len,
+// p normalised in fp32 and rounded to bf16 once before p·v; out =
+// bf16(attn·Wo + bo) on kEpiBias. qkv and attn make one bf16 round trip
+// each through device memory (the TPU kernel keeps a grid step's images in
+// VMEM, its `tile` of 2 or 4, which is TPU geometry and not copied); the
+// scores never leave the chip.
+#include "qkvo_sm90.cuh"
 
 // x̂ [b·spq, d] bf16, wqkv [d, 3·heads·hd] bf16, bqkv [3·heads·hd] fp32, wo
 // [heads·hd, d] bf16, bo [d] fp32 -> out [b·spq, d] bf16; qkv [b·spq,
@@ -35,20 +37,9 @@ extern "C" int vitax_qkvo_attention_fwd(const void* x, const void* wqkv, const v
                                         void* out, int b, int spq, int d, int seq_len, int heads,
                                         int head_dim, float scale, void* stream) {
   using vitax::bf16;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int n = b * spq;
-  const int hhd = heads * head_dim;
-  auto* qkvb = static_cast<bf16*>(qkv);
-  auto* attnb = static_cast<bf16*>(attn);
-  cudaError_t e = vitax::launch_gemm<vitax::kBias>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), qkvb, n, 3 * hhd, d, st);
-  if (e != cudaSuccess) return e;
-  e = vitax::launch_attention_core_geom(
-      vitax::attn_geom_square(qkvb, b, spq, seq_len, heads, head_dim, scale), head_dim, attnb,
-      st);
-  if (e != cudaSuccess) return e;
-  return vitax::launch_gemm<vitax::kBias>(attnb, static_cast<const bf16*>(wo),
-                                          static_cast<const float*>(bo),
-                                          static_cast<bf16*>(out), n, d, hhd, st);
+  return vitax::qkvo::fwd(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+                          static_cast<const float*>(bqkv), static_cast<const bf16*>(wo),
+                          static_cast<const float*>(bo), static_cast<bf16*>(qkv),
+                          static_cast<bf16*>(attn), static_cast<bf16*>(out), b, spq, d, seq_len,
+                          heads, head_dim, scale, static_cast<cudaStream_t>(stream));
 }

@@ -66,7 +66,7 @@ SIGNATURES = {
     "vitax_qkv_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
     "vitax_qkv_attention_bwd": [_P] * 13 + [_I] * 6 + [_F, _P],
     "vitax_qkvo_attention_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
-    "vitax_qkvo_attention_bwd": [_P] * 17 + [_I] * 6 + [_F, _P],
+    "vitax_qkvo_attention_bwd": [_P] * 16 + [_I] * 6 + [_F, _P],
     "vitax_gemm_sm90": [_P] * 9 + [_I] * 4 + [_P],
     "vitax_gemm_sm90_s8": [_P] * 13 + [_I] * 5 + [_P],
     "vitax_gemm_s8_groups_rc": [_P] * 5 + [_I] * 4 + [_P],

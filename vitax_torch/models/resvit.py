@@ -430,8 +430,10 @@ def _k9_attention(x: torch.Tensor, p: Params, cfg: ResViTConfig
         raise NotImplementedError(
             "vitax's gate takes this attention half to its "
             "fused_qkvo_attention (K9) and the port's K9 gate does not: K9 "
-            "keeps the first design's whole-row core (its shared memory, "
-            f"head dims {ck.ATTN_HEAD_DIMS}); {ck.FIRST_DESIGN_ITEM}")
+            "runs K1's Hopper sequence on K13's core, which takes head dims "
+            f"{ck.K13_HEAD_DIMS[0]}..{ck.K13_HEAD_DIMS[-1]} in steps of 16 "
+            f"and at most {ck.K13_MAX_SEQ} rows (head_dim {cfg.head_dim}, "
+            f"x {tuple(x.shape)}); no fallback")
     out = ck.fused_qkvo_attention(_pad_rows(x), wqkv, bqkv,
                                   p["wo"]["kernel"].to(dt).contiguous(),
                                   p["wo"]["bias"].float(), s, cfg.n_heads,

@@ -105,11 +105,13 @@ wrapper -> CUDA source (csrc/) -> the Pallas kernel it replaces
   out-projection; Res-ViT's `attention` with fused_qkv and not fused_qkvo)
 - `fused_qkv_attention_bwd` -> qkv_attention_bwd.cu -> `_qkv_attn_bwd_kernel`
   :2239 (K10 backward, pallas_call :2334)
-- `fused_qkvo_attention` -> qkvo_attention.cu -> `_qkvo_attn_fwd_kernel`
-  :2396 (K9, pallas_call :2559: K10 plus the out-projection; Res-ViT's
-  `attention` under a mesh, and per model shard under tensor parallelism)
-- `fused_qkvo_attention_bwd` -> qkvo_attention_bwd.cu ->
-  `_qkvo_attn_bwd_kernel` :2432 (K9 backward, pallas_call :2593)
+- `fused_qkvo_attention` -> qkvo_attention.cu (+ qkvo_sm90.cuh) ->
+  `_qkvo_attn_fwd_kernel` :2396 (K9, pallas_call :2559: K1's Hopper
+  sequence without its LN; Res-ViT's `attention` under a mesh, and per
+  model shard under tensor parallelism)
+- `fused_qkvo_attention_bwd` -> qkvo_attention_bwd.cu (+ qkvo_sm90.cuh) ->
+  `_qkvo_attn_bwd_kernel` :2432 (K9 backward, pallas_call :2593: K1's
+  Hopper backward without its LN recompute and tail)
 - `fused_ln_mlp_partial`, `fused_ln_mlp_partial_bwd` -> ln_mlp.cu and
   ln_mlp_bwd.cu with the residual off -> the `residual=False` branches of
   `_ln_mlp_fwd_kernel` :587 (:614) and `_ln_mlp_bwd_kernel` :1308 (K2 per
@@ -775,13 +777,14 @@ def first_design_launch_counts(reset: bool = False) -> dict:
     library counts them where each launches: gemm.cuh's mma.sync s8
     products ("gemm.cuh:s8": K7's int8 forward, K11-A and K11-B, R-F and
     R-B, K12-int8), attention.cuh's whole-row forward core
-    ("attention.cuh:core": K7, R-F, K10, K9), attention_bwd.cuh's
-    whole-row backward core ("attention_bwd.cuh:core": K7's bf16 backward,
-    R-B, K10's, K9's) and gemm.cuh's bf16 WMMA products ("gemm.cuh:bf16":
-    K7, K10, K9, the bf16 weight grads of K11-B and R-B, K12's backwards).
-    LN, K1, K2, K12's forward, K13, K6, K3's and K4's forwards and
-    backwards, K7's int8 backwards, K11-C/D and G-F/G-B, K5's halves and K8
-    in its bf16 and int8 tiers launch none of them. Nothing is counted
+    ("attention.cuh:core": K7, R-F, K10), attention_bwd.cuh's whole-row
+    backward core ("attention_bwd.cuh:core": K7's bf16 backward, R-B,
+    K10's) and gemm.cuh's bf16 WMMA products ("gemm.cuh:bf16": K7, K10, the
+    bf16 weight grads of K11-B and R-B, K12's backwards). LN, K1, K2,
+    K12's forward, K13, K6, K3's and K4's forwards and backwards, K7's int8
+    backwards, K11-C/D and G-F/G-B, K5's halves, K8 in its bf16 and int8
+    tiers and, since it runs K1's Hopper sequence, K9 launch none of
+    them. Nothing is counted
     before the library is loaded."""
     counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
     if build.loaded():
@@ -1056,19 +1059,26 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     spq = round_up(S, 8) by the caller), merged wqkv [D, (H + 2·Hkv)·Hd]
     with Hkv = kv_heads (default heads), bf16 on the card. It takes what
     the Hopper halves take (K1 and K3, forward and backward, with
-    kv_heads == heads, K7's int8 backward and K5's attention half): K13's
-    core (S <= 1024, a head dim of VITAX_K13_HEAD_DIMS, at most 65535
-    images) and gemm_sm90.cuh's products (N % 8, K % 16: d % 16, Hd % 16).
-    The models pick the half where this and vitax's gate pass, in eval and
-    in training alike (K13's backward passes take what its forward takes),
-    and so does K8 in its bf16 and int8 tiers, on K13's core in its rect
-    geometry, and so do K11-C/D and G-F/G-B, K3's sequences at L = 7. A
-    first-design path (the whole-row core: K7's bf16 pair and int8
-    forward, R-F/R-B) checks its own limits in its wrapper and raises by
-    name outside them. Unlike vitax's gate
+    kv_heads == heads, K7's int8 backward and K5's attention half):
+    `_k13_shapes_fit`, K13's core and gemm_sm90.cuh's products. The models
+    pick the half where this and vitax's gate pass, in eval and in training
+    alike (K13's backward passes take what its forward takes), and so does
+    K8 in its bf16 and int8 tiers, on K13's core in its rect geometry, and
+    so do K11-C/D and G-F/G-B, K3's sequences at L = 7; K9, K1's sequence
+    without its LN, takes the same shapes (`fused_qkvo_attention_supported`).
+    A first-design path (the whole-row core: K7's bf16 pair and int8
+    forward, R-F/R-B, K10) checks its own limits in its wrapper and raises
+    by name outside them. Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
     if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
         return False
+    return _k13_shapes_fit(x, wqkv, heads, kv_heads)
+
+
+def _k13_shapes_fit(x, wqkv, heads, kv_heads=None) -> bool:
+    """The shapes of the Hopper attention halves, any dtype: K13's core (S
+    <= 1024, a head dim of VITAX_K13_HEAD_DIMS, at most 65535 images) and
+    gemm_sm90.cuh's products (N % 8, K % 16: d % 16, Hd % 16)."""
     hd = _head_dim(x, wqkv, heads, kv_heads)
     if hd is None:
         return False
@@ -1082,7 +1092,7 @@ def _core_fits(x, wqkv, heads, kv_heads=None, backward=False) -> bool:
     whole-row core (head dims ATTN_HEAD_DIMS, its shared memory and, with
     `backward`, its backward's) and gemm.cuh's products (widths a multiple
     of 32). K7 (kv_heads < heads: its bf16 pair and int8 forward), R-F and
-    R-B, K10 and K9 run it."""
+    R-B and K10 run it."""
     hd = _head_dim(x, wqkv, heads, kv_heads)
     if hd is None:
         return False
@@ -1111,7 +1121,8 @@ def _check_first_design(name, path, x, wqkv, heads, kv_heads=None,
             f"core (attention.cuh), which does not take x {tuple(x.shape)} "
             f"with head_dim {hd} (head dims {ATTN_HEAD_DIMS} and the "
             f"{'backward' if backward else 'forward'} core's shared memory "
-            f"at spq); K1 and K3 with kv_heads == heads run K13's core there; "
+            f"at spq); K1, K3 and K9 with kv_heads == heads run K13's core "
+            f"there; "
             f"{FIRST_DESIGN_ITEM}")
 
 
@@ -4938,25 +4949,24 @@ class FusedQkvAttentionFn(torch.autograd.Function):
 
 # =============================================================================
 # K9 — the QKV projection, the attention core and the out-projection of the
-# LN'd input (fused_qkvo_attention :2551, pallas_calls :2559 and :2593):
-# what vitax's Res-ViT `attention` runs under a mesh (vitax/models/
-# resvit.py:266-277), and per model shard under tensor parallelism
-# (vitax/parallel/tp_kernels.py:75-103)
+# LN'd input (fused_qkvo_attention :2551, pallas_calls :2559 and :2593), on
+# K1's Hopper sequence without its LN: what vitax's Res-ViT `attention` runs
+# under a mesh (vitax/models/resvit.py:266-277), and per model shard under
+# tensor parallelism (vitax/parallel/tp_kernels.py:75-103)
 # =============================================================================
 
 def fused_qkvo_attention_supported(x, wqkv, heads) -> bool:
     """K9's gate: x̂ [B, S, D] (S padded to spq by the caller), wqkv [D,
-    3·H·Hd]: K10's (the whole-row core's shapes and shared memory; the
-    out-projection's GEMM takes what K10's does) without a dtype test, so
-    that a CUDA fp32 input reaches the wrapper, which raises
-    (`check_k9_dtype`)."""
-    return _core_fits(x, wqkv, heads)
+    3·H·Hd]: the shapes of K1's Hopper sequence (`_k13_shapes_fit`: K13's
+    core and gemm_sm90.cuh's products) without a dtype test, so that a
+    CUDA fp32 input reaches the wrapper, which raises (`check_k9_dtype`)."""
+    return _k13_shapes_fit(x, wqkv, heads)
 
 
 def fused_qkvo_attention_bwd_supported(x, wqkv, heads) -> bool:
-    """K9's gate in training: the forward's and the core backward's shared
-    memory (K10's)."""
-    return fused_qkv_attention_bwd_supported(x, wqkv, heads)
+    """K9's gate in training: the forward's (K13's backward passes take
+    what its forward takes)."""
+    return fused_qkvo_attention_supported(x, wqkv, heads)
 
 
 def check_k9_dtype(name: str, dtype: torch.dtype) -> None:
@@ -4984,10 +4994,12 @@ def fused_qkvo_attention_ref(x, wqkv, bqkv, wo, bo, seq_len, heads,
 
 
 def fused_qkvo_attention(x, wqkv, bqkv, wo, bo, seq_len, heads, head_dim):
-    """K9 forward (csrc/qkvo_attention.cu): x̂ [B, spq, D] (the LN output,
-    pad rows past seq_len allowed) bf16, wqkv [D, 3·H·Hd] bf16 with columns
-    [q heads | k heads | v heads], bqkv [3·H·Hd] fp32, wo [H·Hd, D] bf16, bo
-    [D] fp32 → the projected attention output [B, spq, D], no residual. CPU
+    """K9 forward (csrc/qkvo_attention.cu: K1's Hopper sequence after its
+    LN, qkvo_sm90.cuh, so that K9 on LN(x) is K1 on x to the bit): x̂ [B,
+    spq, D] (the LN output, pad rows past seq_len allowed) bf16, wqkv [D,
+    3·H·Hd] bf16 with columns [q heads | k heads | v heads], bqkv [3·H·Hd]
+    fp32, wo [H·Hd, D] bf16, bo [D] fp32 → the projected attention output
+    [B, spq, D], no residual. CPU
     tensors take the twin; CUDA bf16 tensors inside the gate the kernel; a
     CUDA fp32 input raises (`check_k9_dtype`). Under autograd the backward
     is `fused_qkvo_attention_bwd` (`FusedQkvoAttentionFn`)."""
@@ -5069,9 +5081,11 @@ def fused_qkvo_attention_bwd_ref(x, wqkv, bqkv, wo, do, seq_len, heads,
 
 def fused_qkvo_attention_bwd(x, wqkv, bqkv, wo, do, seq_len, heads,
                              head_dim):
-    """K9 backward (csrc/qkvo_attention_bwd.cu): from the saved (x̂, Wqkv,
-    bqkv, Wo) and dY [B, spq, D] bf16, dx [B, spq, D] bf16 and fp32 dWqkv
-    [D, 3·H·Hd], dbqkv [3·H·Hd], dWo [H·Hd, D] and dbo [D]."""
+    """K9 backward (csrc/qkvo_attention_bwd.cu: K1's Hopper backward without
+    its LN recompute and tail, qkvo_sm90.cuh; K13's row statistics its only
+    attention scratch, no P or ds): from the saved (x̂, Wqkv, bqkv, Wo) and
+    dY [B, spq, D] bf16, dx [B, spq, D] bf16 and fp32 dWqkv [D, 3·H·Hd],
+    dbqkv [3·H·Hd], dWo [H·Hd, D] and dbo [D]."""
     if not x.is_cuda:
         return fused_qkvo_attention_bwd_ref(x, wqkv, bqkv, wo, do, seq_len,
                                             heads, head_dim)
@@ -5082,16 +5096,15 @@ def fused_qkvo_attention_bwd(x, wqkv, bqkv, wo, do, seq_len, heads,
     b, spq, d = x.shape
     n, hhd = b * spq, heads * head_dim
     w = 3 * hhd
-    rows = (spq + 15) // 16 * 16
     lib = build.load()
     dx, dw, db = torch.empty_like(x), _f32(dev, d, w), _f32(dev, w)
     dwo, dbo = _f32(dev, hhd, d), _f32(dev, d)
     qkv, attn, dattn = _bf(dev, n, w), _bf(dev, n, hhd), _bf(dev, n, hhd)
-    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
+    stats = _workspace(lib.vitax_attention_core_bwd_ws(b, spq, heads), dev)
     dqkv = _bf(dev, n, w)
     ws = _workspace(lib.vitax_qkvo_attention_bwd_ws(n, d, hhd, w), dev)
     rc = lib.vitax_qkvo_attention_bwd(*(t.data_ptr() for t in (
-        x, wqkv, bqkv, wo, do, dx, dw, db, dwo, dbo, qkv, attn, dattn, p, ds,
+        x, wqkv, bqkv, wo, do, dx, dw, db, dwo, dbo, qkv, attn, dattn, stats,
         dqkv, ws)), b, spq, d, seq_len, heads, head_dim,
         1.0 / math.sqrt(head_dim), _stream(dev))
     build.check(rc, name)

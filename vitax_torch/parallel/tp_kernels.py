@@ -6,7 +6,8 @@ the weights each device holds (attention: heads column-parallel, the
 out-projection row-parallel; MLP: fc1 column-, fc2 row-parallel), and sums
 the shards' bf16 partials with one psum per half-block. Here each rank runs
 the same hand-written kernel on its shards, K1 (`fused_ln_qkvo_attention`)
-or its int8/int4 tiers K3 and K11-C, K9 (`fused_qkvo_attention`), or the
+or its int8/int4 tiers K3 and K11-C, K9 (`fused_qkvo_attention`: K1's
+Hopper sequence without its LN, on K13's core), or the
 MLP half without its residual (`fused_ln_mlp(..., residual=False)`, K4's
 and K11-A's `*_partial` wrappers with the tiers), with the output bias
 zero, then one all-reduce (SUM) of the partials over the mesh's model

@@ -19,7 +19,11 @@ batch of random images: `train-dense` (b32, bf16, `ft_resvit.sh`),
 `train-gqa-int8-grad` (b32, `--int8-grad --n_kv_heads 4`),
 `train-gqa-fast` (b32, the fast flags with `--n_kv_heads 4`) and
 `train-gqa-int4` (b32, `--int4-attn --int4-grad --int8-dw --n_kv_heads 4
---compact-capacity 0.625`: G-F and G-B on every layer). For each it
+--compact-capacity 0.625`: G-F and G-B on every layer); and under a (1, 1)
+mesh of this process's NCCL group of one rank (tcp on 127.0.0.1), where
+every attention half is the LN kernel and K9 (vitax's dispatch under any
+mesh), `dense-mesh` (the b64 serving forward) and `train-mesh` (the b32
+step of `train-dense`). For each it
 runs two warm-up iterations, then records three with torch.profiler and
 prints the wall time an iteration (host clock around synchronized
 iterations), the device busy time (the sum of the kernels' device times;
@@ -51,7 +55,8 @@ RECIPE = ["--model-arch", "b16", "--image-size", "224", "--dataset",
           "0.4"]
 CONFIGS = {"dense": [], "compact": ["--compact-capacity", "0.625"],
            "dense-int8": ["--int8"],
-           "compact-int8": ["--compact-capacity", "0.625", "--int8"]}
+           "compact-int8": ["--compact-capacity", "0.625", "--int8"],
+           "dense-mesh": []}
 # train configs: (batch, overrides of the serving config)
 TRAIN_CONFIGS = {
     "train-dense": (32, {}),
@@ -76,13 +81,15 @@ TRAIN_CONFIGS = {
                                 int4_mlp=True, int4_attn=True,
                                 int4_grad=True, fused_mlp=True,
                                 compact_capacity=0.625)),
+    # chip_smoke.py's phase 16 (b): (a) under the (1, 1) mesh
+    "train-mesh": (32, {}),
 }
 # kernel-name fragment -> group, first match wins
 GROUPS = [("k13::", "attention core, wgmma (K13; K1's, K6's and K8's "
                    "forwards, backwards)"),
           ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K6's, K8's, K12's "
                         "products)"),
-          ("attention_core", "whole-row attention core (K7/R-F/K10/K9)"),
+          ("attention_core", "whole-row attention core (K7/R-F/K10)"),
           ("attention_bwd", "attention core backward"),
           ("gemm_s8_sm90", "s8 wgmma GEMM (K3's, K4's, K5's, K8's and "
                            "K11's attention half's products)"),
@@ -141,14 +148,36 @@ def _profiled(fn, iters):
     return prof, wall
 
 
+def _mesh(name: str):
+    """None, or for a `-mesh` config the (1, 1) mesh of this process's NCCL
+    group of one rank, which the first such config starts."""
+    if not name.endswith("-mesh"):
+        return None
+    import os
+    import socket
+    import torch.distributed as dist
+    from vitax_torch.parallel import make_mesh
+    if not dist.is_initialized():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+    return make_mesh(1, 1)
+
+
 def profile(name: str, params, images, cfg, iters: int = 3) -> None:
     c = cfg
+    mesh = _mesh(name)
     if "--compact-capacity" in CONFIGS[name]:
         c = c.replace(compact_capacity=0.625)
     if "--int8" in CONFIGS[name]:
         c = c.replace(int8_attn=True, int8_mlp=True, fused_mlp=True)
     with torch.inference_mode():
-        prof, wall = _profiled(lambda: resvit.apply(params, images, c), iters)
+        prof, wall = _profiled(
+            lambda: resvit.apply(params, images, c, mesh=mesh), iters)
     report(name, prof, wall, iters, "a forward")
 
 
@@ -165,7 +194,7 @@ def profile_train(name: str, params, cfg, iters: int = 3) -> None:
     tx = make_adamw_for(c, params, lambda s: 1e-4)
     state = create_state(params, tx, torch.Generator(device="cuda")
                          .manual_seed(2))
-    step = make_train_step(c, tx, Lambdas(1.0, 10.0, 1.0))
+    step = make_train_step(c, tx, Lambdas(1.0, 10.0, 1.0), mesh=_mesh(name))
     prof, wall = _profiled(lambda: step(state, images, labels), iters)
     report(f"{name} b{batch}", prof, wall, iters, "a step")
 
@@ -195,7 +224,8 @@ def report(name, prof, wall, iters, unit) -> None:
 
 
 def main(argv=None) -> None:
-    names = (argv if argv is not None else sys.argv[1:]) or list(CONFIGS)
+    names = ((argv if argv is not None else sys.argv[1:])
+             or [n for n in CONFIGS if not n.endswith("-mesh")])
     unknown = set(names) - set(CONFIGS) - set(TRAIN_CONFIGS)
     if unknown:
         raise SystemExit(f"profile_resvit: unknown configs {sorted(unknown)}; "
@@ -216,6 +246,9 @@ def main(argv=None) -> None:
             profile_train(name, params, cfg)
         else:
             profile(name, params, images, cfg)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
