@@ -222,20 +222,26 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 15. k10    — K10 (`fused_qkv_attention`, the QKV projection and the core
              without LN or out-projection), which vitax's Res-ViT `attention`
              runs with fused_qkv and not fused_qkvo (a config built in code:
-             the CLIs tie the two): its forward at b64 spq 200 and every
+             the CLIs tie the two), since its redesign the first launches
+             of K1's Hopper sequence: its forward at b64 spq 200 and every
              output of its backward at b32 spq 200 against the twins (TOL),
-             timed beside them; the b16 Res-ViT of ft_resvit.sh's flags with
-             fused_qkvo off through make_eval_step at b64, dense and at C
-             0.625, bf16 and --int8 (exact launches a forward: 12 K10, the
-             LN kernel before each; int8_attn does not reach K10, as in
-             vitax), logits with the routing replayed within LOGIT_BAND of
+             timed beside them, both also at B/16 @416's spq 680 and at
+             head dim 80 (d 640, 8 heads), two backward launches the same
+             bits, no first-design piece in K10's launches, its forward
+             against K9's with Wo = I and bo = 0 to the bit; the b16
+             Res-ViT of ft_resvit.sh's flags with fused_qkvo off through
+             make_eval_step at b64, dense and at C 0.625, bf16 and --int8
+             (exact launches a forward: 12 K10, the LN kernel before each;
+             int8_attn does not reach K10, as in vitax; no first-design
+             piece), logits with the routing replayed within LOGIT_BAND of
              the plain path (the K4 and K10 twin path for --int8) and the
              routing maps' agreement; two b32 train steps of (a) through
              make_train_step (exact launches a step: 12 + 11 K10 forwards,
-             the teacher's included, 12 backwards); the grads of every
-             trainable tensor against the plain path (GRAD_BAND, the noise
-             injected, the routing replayed); resident b64 forwards and b32
-             steps beside the K1 path (fused_qkvo on), in turns.
+             the teacher's included, 12 backwards; no first-design piece);
+             the grads of every trainable tensor against the plain path
+             (GRAD_BAND, the noise injected, the routing replayed); resident
+             b64 forwards and b32 steps beside the K1 path (fused_qkvo on),
+             in turns.
 16. mesh   — K9 (`fused_qkvo_attention`: the QKV projection, the core
              and the out-projection of the LN'd input, K1's Hopper sequence
              without its LN), which vitax's Res-ViT runs under any mesh,
@@ -4981,8 +4987,18 @@ def run_resvit_int4_slice(exp_root):
 # b16 Res-ViT built from ft_resvit.sh's flags with fused_qkvo off in code
 # (both CLIs tie fused_qkvo to fused_qkv, as vitax's)
 K10_KERNELS = ("fused_qkv_attention", "fused_qkv_attention_bwd")
-K10_FWD_CASE = ("b64 spq200 (serving)", 64, 200, 197)
-K10_BWD_CASE = ("b32 spq200 (training)", 32, 200, 197)
+D640 = 640, 8, 80, 2560  # head dim 80 (d 640 with 8 heads)
+# (label, batch, spq, seq_len, dims, timed): serving's b64 (the table's
+# forward time), training's b32 (the backward's), and two shapes only K13's
+# core takes (the first design refused them): B/16 @416 (seq 677 in spq
+# 680) and head dim 80; each has D = H·Hd, so K9's inputs (`_k9_inputs`)
+# serve, their dY as K10's dO on the heads' outputs
+K10_CASES = [("b64 spq200 (serving)", 64, 200, 197, B16, True),
+             ("b8 spq680 (B/16 @416)", 8, 680, 677, B16, False),
+             ("b32 spq200 Hd80 (d640)", 32, 200, 197, D640, False)]
+K10_BWD_CASES = [("b32 spq200 (training)", 32, 200, 197, B16, True),
+                 ("b8 spq680 (B/16 @416)", 8, 680, 677, B16, False),
+                 ("b32 spq200 Hd80 (d640)", 32, 200, 197, D640, False)]
 # routing maps of the K10 path against the plain (or twin) path, share of
 # keep bits that agree: both round at the same points, so only a token whose
 # keep and skip logits sit within a few bf16 ulps of each other can flip:
@@ -4991,70 +5007,82 @@ K10_BWD_CASE = ("b32 spq200 (training)", 32, 200, 197)
 ROUTING_AGREE = 0.998
 
 
-def _k10_inputs(batch, rows, seq_len, seed):
-    """K10's x̂ (an LN output's scale, zero pad rows past seq_len), the b16
-    Res-ViT's wqkv and bqkv (`_inputs`), and do on the heads' outputs, zero
-    on the pad rows as the model's row cut leaves it."""
-    import torch
-    t = _inputs(batch, rows, seed)
-    x = t["x"].clone()
-    x[:, seq_len:] = 0
-    g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    do = torch.randn((batch, rows, HEADS * HEAD_DIM), generator=g,
-                     device="cuda").to(torch.bfloat16)
-    do[:, seq_len:] = 0
-    return x, t["wqkv"], t["bqkv"], do
-
-
 def check_k10_kernels(stats):
-    """Phase 15, kernels: K10's forward at b64 spq 200 and every output of
-    its backward at b32 spq 200 against the twins (TOL, as phase 3 holds K1
-    and its backward), two backward launches the same bits; CUDA-event
-    medians of kernel and twin."""
+    """Phase 15, kernels: K10's forward (b64 spq 200, B/16 @416's spq 680,
+    head dim 80) and every output of its backward (b32 spq 200, spq 680,
+    head dim 80) against the twins (TOL, as phase 3 holds K1 and its
+    backward), two backward launches the same bits, no first-design piece
+    in K10's launches; K10's forward against K9's with Wo = I and bo = 0
+    (an exact out-projection) to the bit; CUDA-event medians of kernel and
+    twin."""
     import torch
     from vitax_torch.ops import cuda_kernels as ck
     for name in K10_KERNELS:
         stats[name] = {"max_abs_err": 0.0}
-    label, batch, rows, seq = K10_FWD_CASE
-    x, w, b, _ = _k10_inputs(batch, rows, seq, seed=150)
-    meta = (seq, HEADS, HEAD_DIM)
     name = "fused_qkv_attention"
-    with torch.inference_mode():
-        out = ck.fused_qkv_attention(x, w, b, *meta)
-        torch.cuda.synchronize()
-        ref = ck.fused_qkv_attention_ref(x, w, b, *meta)
-        err, bound = _hold(name, label, out, ref, stats)
-        k_ms = _median_ms(lambda: ck.fused_qkv_attention(x, w, b, *meta))
-        p_ms = _median_ms(lambda: ck.fused_qkv_attention_ref(x, w, b, *meta))
-    stats[name].update(ms=k_ms, plain_ms=p_ms, shape=(batch, rows))
-    print(f"  {name:32s} {label:22s} {tuple(out.shape)} max|k-ref| "
-          f"{err:.3e} <= {bound:.3e}: ok; kernel {k_ms:.4f} ms  plain "
-          f"{p_ms:.4f} ms (median of 25)", flush=True)
-    del x, w, b, out, ref
-    label, batch, rows, seq = K10_BWD_CASE
-    x, w, b, do = _k10_inputs(batch, rows, seq, seed=151)
+    for label, batch, rows, seq, dims, timed in K10_CASES:
+        x, t, _ = _k9_inputs(batch, rows, seq, dims, seed=150)
+        args = (x, t["wqkv"], t["bqkv"], seq, dims[1], dims[2])
+        with torch.inference_mode():
+            ck.first_design_launch_counts(reset=True)
+            out = ck.fused_qkv_attention(*args)
+            torch.cuda.synchronize()
+            _no_first_design(name, label)
+            err, bound = _hold(name, label, out,
+                               ck.fused_qkv_attention_ref(*args), stats)
+            eye = torch.eye(dims[0], device="cuda", dtype=torch.bfloat16)
+            k9 = ck.fused_qkvo_attention(*args[:3], eye,
+                                         torch.zeros(dims[0], device="cuda"),
+                                         *args[3:])
+            if not torch.equal(out, k9):
+                raise AssertionError(f"{name} {label}: not K9's output with "
+                                     "Wo = I, bo = 0")
+            line = ""
+            if timed:
+                k_ms = _median_ms(lambda: ck.fused_qkv_attention(*args))
+                _no_first_design(name, label)
+                p_ms = _median_ms(lambda: ck.fused_qkv_attention_ref(*args))
+                stats[name].update(ms=k_ms, plain_ms=p_ms,
+                                   shape=(batch, rows))
+                line = (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms "
+                        "(median of 25)")
+        print(f"  {name:32s} {label:22s} {tuple(out.shape)} max|k-ref| "
+              f"{err:.3e} <= {bound:.3e}, K9 with Wo = I to the bit, no "
+              f"first-design piece: ok{line}", flush=True)
+        del x, t, out, k9
+        torch.cuda.empty_cache()
     name = "fused_qkv_attention_bwd"
-    with torch.no_grad():
-        outs = ck.fused_qkv_attention_bwd(x, w, b, do, *meta)
-        again = ck.fused_qkv_attention_bwd(x, w, b, do, *meta)
-        torch.cuda.synchronize()
-        refs = ck.fused_qkv_attention_bwd_ref(x, w, b, do, *meta)
-        errs = _hold_all(name, label, outs, refs, stats)
-        if not all(torch.equal(o, a) for o, a in zip(outs, again)):
-            raise AssertionError(f"{name}: two launches differ")
-        del outs, again, refs
-        k_ms = _median_ms(lambda: ck.fused_qkv_attention_bwd(x, w, b, do,
-                                                             *meta),
-                          warmup=2, iters=10)
-        p_ms = _median_ms(lambda: ck.fused_qkv_attention_bwd_ref(x, w, b, do,
-                                                                 *meta),
-                          warmup=1, iters=5)
-    stats[name].update(ms=k_ms, plain_ms=p_ms, shape=(batch, rows))
-    print(f"  {name:32s} {label:22s} max|k-ref| per output (dx, dW, db) "
-          f"[{' '.join(errs)}]: ok, two launches the same bits; kernel "
-          f"{k_ms:.4f} ms  plain {p_ms:.4f} ms (medians of 10 / 5)",
-          flush=True)
-    torch.cuda.empty_cache()
+    for label, batch, rows, seq, dims, timed in K10_BWD_CASES:
+        x, t, do = _k9_inputs(batch, rows, seq, dims, seed=151)
+        args = (x, t["wqkv"], t["bqkv"], do, seq, dims[1], dims[2])
+        with torch.no_grad():
+            ck.first_design_launch_counts(reset=True)
+            outs = ck.fused_qkv_attention_bwd(*args)
+            again = ck.fused_qkv_attention_bwd(*args)
+            torch.cuda.synchronize()
+            _no_first_design(name, label)
+            errs = _hold_all(name, label, outs,
+                             ck.fused_qkv_attention_bwd_ref(*args), stats)
+            if not all(torch.equal(o, a) for o, a in zip(outs, again)):
+                raise AssertionError(f"{name} {label}: two launches differ")
+            del outs, again
+            line = ""
+            if timed:
+                k_ms = _median_ms(lambda: ck.fused_qkv_attention_bwd(*args),
+                                  warmup=2, iters=10)
+                _no_first_design(name, label)
+                p_ms = _median_ms(
+                    lambda: ck.fused_qkv_attention_bwd_ref(*args), warmup=1,
+                    iters=5)
+                stats[name].update(ms=k_ms, plain_ms=p_ms,
+                                   shape=(batch, rows))
+                line = (f"; kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms "
+                        "(medians of 10 / 5)")
+        print(f"  {name:32s} {label:22s} max|k-ref| per output (dx, dW, db) "
+              f"[{' '.join(errs)}]: ok, two launches the same bits, no "
+              f"first-design piece{line}", flush=True)
+        del x, t, do
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -5073,9 +5101,10 @@ def run_k10_slice(exp_root):
     """Phase 15, paths: the b16 Res-ViT of ft_resvit.sh's flags with
     fused_qkvo off (config_to_model_args, then .replace), serving b64 dense
     and at C 0.625, bf16 and --int8, through make_eval_step with exact
-    launches a forward; logits (the routing replayed) within LOGIT_BAND of
+    launches a forward and no first-design piece (`_check_s8`); logits (the routing replayed) within LOGIT_BAND of
     the plain path (the twin path for --int8) and the routing maps; two b32
-    train steps of (a) through make_train_step with exact launches a step;
+    train steps of (a) through make_train_step with exact launches a step
+    and no first-design piece;
     the grads of every trainable tensor against the plain path (noise
     injected, routing replayed); resident b64 forwards and b32 steps beside
     the K1 path (fused_qkvo on), in turns."""
@@ -5114,6 +5143,7 @@ def run_k10_slice(exp_root):
             ck.reset_launch_counts()
             metrics, _ = make_eval_step(cfg)(params, images, labels, weight)
             counts[label] = ck.launch_counts()
+            _check_s8(f"k10 {label}", counts[label], first_design=True)
             expect = _resvit_launches(cfg, False)
             log = _RouterLog(resvit)
             with torch.inference_mode():
@@ -5165,6 +5195,7 @@ def run_k10_slice(exp_root):
         state, m = step(state, images, labels)
         got = ck.launch_counts()
         counts[f"train step {i}"] = got
+        _check_s8(f"k10 train step {i}", got, first_design=True)
         print(f"k10: train step {i} b{TRAIN_BATCH} (a): loss "
               f"{float(m['loss']):.4f}; launches {_nonzero(got)} (as "
               f"derived: {got == expect})", flush=True)
@@ -5231,7 +5262,6 @@ def run_k10_slice(exp_root):
 K9_KERNELS = ("fused_qkvo_attention", "fused_qkvo_attention_bwd")
 PARTIAL_KERNELS = ("fused_ln_mlp_partial", "fused_ln_mlp_partial_bwd")
 TP_SHARD = (768, 6, 64, 1536)  # a rank's shard of ViT-B/16 at --n-model 2
-D640 = 640, 8, 80, 2560  # head dim 80 (d 640 with 8 heads)
 # (label, batch, spq, seq_len, dims, timed): serving's b64 (the table's
 # time), training's b32 (the backward's), a ragged spq 40 (not a multiple of
 # the 16-row tiles; keys masked past 33), the TP shard width, and two shapes

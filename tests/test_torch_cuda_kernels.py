@@ -1876,10 +1876,13 @@ def test_resvit_int4_autograd_picks_the_backward_of_its_tier(dev, half,
 
 # ---------------------------------------------------------------- K10
 # (batch, spq, seq_len, D, heads, head_dim): Res-ViT serving's b64 spq 200
-# and training's b32, a ragged seq in a small spq, and the head_dim 32 / 128
-# instantiations of the core
+# and training's b32, a ragged seq in a small spq, the head_dim 32 / 128
+# instantiations of the core, and two shapes only K13's core takes (the
+# first design refused them): B/16 @416 (seq 677 in spq 680) and head dim
+# 80 (d 640 with 8 heads)
 K10_SHAPES = [(64, 200, 197, 768, 12, 64), (32, 200, 197, 768, 12, 64),
-              (2, 24, 17, 128, 4, 32), (3, 200, 197, 768, 6, 128)]
+              (2, 24, 17, 128, 4, 32), (3, 200, 197, 768, 6, 128),
+              (8, 680, 677, 768, 12, 64), (32, 200, 197, 640, 8, 80)]
 
 
 def _k10_args(dev, batch, spq, seq, d, h, hd, seed=0):
@@ -1935,6 +1938,46 @@ def test_k10_autograd_launches_both_kernels_and_fp32_raises(dev):
         ck.fused_qkv_attention(x.float(), w.float(), b, *meta)
     with pytest.raises(ValueError, match="unsupported shapes"):
         ck.fused_qkv_attention(x[:, :196].contiguous(), w, b, *meta)
+
+
+@pytest.mark.parametrize("shape", [(32, 200, 197, 768, 12, 64),
+                                   (8, 680, 677, 768, 12, 64),
+                                   (4, 200, 197, 640, 8, 80)])
+def test_k10_is_k9_with_an_identity_out_projection(dev, shape):
+    """K10's forward is the first two launches of K9's (qkvo_sm90.cuh's
+    `qkv_core`): with Wo = I and bo = 0 at d = H·Hd, K9's out-projection
+    is exact (each bf16 head output times 1, plus 0, rounded once), so K9's
+    output is K10's to the bit."""
+    x, w, b, _, *meta = _k10_args(dev, *shape, seed=3)
+    d = x.shape[-1]
+    assert d == meta[1] * meta[2]
+    eye = torch.eye(d, device=dev, dtype=torch.bfloat16)
+    zero = torch.zeros(d, device=dev)
+    with torch.no_grad():
+        k10 = ck.fused_qkv_attention(x, w, b, *meta)
+        k9 = ck.fused_qkvo_attention(x, w, b, eye, zero, *meta)
+        torch.cuda.synchronize()
+    assert torch.equal(k10, k9)
+
+
+def test_k10_launches_no_first_design_piece(dev):
+    """K10's forward and backward, alone and under autograd, launch none of
+    the first design's pieces (gemm.cuh's products, the whole-row core and
+    its backward), at B/16 @416's spq 680 and at head dim 80 too."""
+    for shape in ((32, 200, 197, 768, 12, 64), (8, 680, 677, 768, 12, 64),
+                  (4, 200, 197, 640, 8, 80)):
+        x, w, b, do, *meta = _k10_args(dev, *shape)
+        ck.reset_launch_counts()
+        with torch.no_grad():
+            ck.fused_qkv_attention(x, w, b, *meta)
+            ck.fused_qkv_attention_bwd(x, w, b, do, *meta)
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        ck.fused_qkv_attention(*leaves, *meta).backward(do)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ck.launch_counts().items() if v} == {
+            "fused_qkv_attention": 2, "fused_qkv_attention_bwd": 2}, shape
+        assert ck.first_design_launch_counts() == dict.fromkeys(
+            ck.FIRST_DESIGN_PIECES, 0), shape
 
 
 # K9: (batch, spq, seq_len, D, heads, head_dim): Res-ViT serving's b64 spq

@@ -118,8 +118,9 @@ def _port_square(tx, tw, cfg):
 
 def _first_design_takes(route, tx, tw, cfg):
     """Whether the route's kernel takes the shapes: K1 and K3 with kv_heads
-    == heads run K13's core, whose limits the route gate is; K7 (GQA) and
-    K10 keep the whole-row core, and raise by name where it does not."""
+    == heads run K13's core, whose limits the route gate is, and so does
+    K10 (its own gate, K13's limits); K7 (GQA) keeps the whole-row core,
+    and raises by name where it does not."""
     h, hkv = cfg.n_heads, cfg.n_kv_heads
     train = torch.is_grad_enabled()
     if route == "k1" and hkv != h:
@@ -138,8 +139,9 @@ def test_resvit_halves_are_vitaxs(arch, image, mode, kv):
     one's), and without it runs K10 in `attention` wherever its gate passes
     without GQA: the port's route is vitax's everywhere. Where the route's
     kernel keeps the whole-row core and that core cannot take the shapes
-    (K7, K10 at seq 677), the kernel raises by name and never
-    another path runs; on the presets every route's kernel takes them."""
+    (K7 at seq 677), the kernel raises by name and never another path
+    runs; on the presets every route's kernel takes them, and K10, on
+    K13's core, takes every shape vitax routes to it."""
     s, d, h = _seq(arch, image)
     hkv = h if kv == "mha" else KV_HEADS
     hd = d // h
@@ -154,9 +156,8 @@ def test_resvit_halves_are_vitaxs(arch, image, mode, kv):
             takes = _first_design_takes(route, tx, tw, cfg)
             if (arch, image, mode) in PRESET_CASES:
                 assert takes, (arch, image, mode, qkvo)
-            elif not takes and route == "k10":
-                with pytest.raises(NotImplementedError, match="Queue 2"):
-                    tr._k10_attention(tx, _k10_params(d, hkv, hd), cfg)
+            elif route == "k10":
+                assert takes, (arch, image, mode)
     cfg = _resvit_cfg(arch, image, n_kv_heads=hkv, fused_qkv=True,
                       fused_qkvo=True)
     with torch.set_grad_enabled(mode == "train"):
@@ -512,38 +513,43 @@ def test_k9_route_is_vitaxs_under_a_mesh():
 @pytest.mark.parametrize("mode", ["eval", "train"])
 @pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
 def test_k9_takes_the_shapes_only_k13_fits(monkeypatch, arch, image, mode):
-    """K9 runs K1's Hopper sequence on K13's core: where vitax's gate takes
-    a shape that the whole-row core cannot (seq 677; head dim 80), the
-    port's K9 gate takes it, serving and training, and its wrapper's checks
-    pass before it allocates anything; K10, which keeps the whole-row core,
-    still refuses the shape and `_k10_attention` raises by name. The K9
-    gate has no dtype test, so a CUDA fp32 input reaches the wrapper's
-    `check_k9_dtype`."""
+    """K9 runs K1's Hopper sequence on K13's core, and K10 its first
+    launches: where vitax's gate takes a shape that the whole-row core
+    cannot (seq 677; head dim 80), the port's K9 and K10 gates take it,
+    serving and training, and their wrappers' checks pass before they
+    allocate anything. Neither gate has a dtype test, so a CUDA fp32 input
+    reaches the wrapper's `check_k9_dtype` or `check_k10_dtype`."""
     s, d, h = _seq(arch, image)
-    hd = d // h
     (jx, jw), (tx, tw) = _shapes(2, s, d, 3 * d)
     cfg = _resvit_cfg(arch, image, fused_qkv=True, fused_qkvo=True)
     assert pk.qkv_attention_supported(jx, jw)
     with torch.set_grad_enabled(mode == "train"):
         assert tr.k9_supported(tx, tw, cfg)
-        assert not tr.k10_supported(tx, tw, cfg)
-        with pytest.raises(NotImplementedError,
-                           match="K10 keeps the first design.*Queue 2"):
-            tr._k10_attention(tx, _k10_params(d, h, hd),
-                              cfg.replace(fused_qkvo=False))
+        assert tr.k10_supported(tx, tw, cfg.replace(fused_qkvo=False))
     t, s, h, hd, _ = _meta_half(arch, image)
-    gate = (ck.fused_qkvo_attention_bwd_supported if mode == "train"
+    train = mode == "train"
+    gate = (ck.fused_qkvo_attention_bwd_supported if train
             else ck.fused_qkvo_attention_supported)
-    assert gate(t["x"], t["wqkv"], h)
-    assert gate(t["x"].float(), t["wqkv"].float(), h)
+    k10_gate = (ck.fused_qkv_attention_bwd_supported if train
+                else ck.fused_qkv_attention_supported)
+    for g in (gate, k10_gate):
+        assert g(t["x"], t["wqkv"], h)
+        assert g(t["x"].float(), t["wqkv"].float(), h)
     monkeypatch.setattr(ck, "_check_cuda",
                         lambda name, tensors, dtypes: torch.device("meta"))
     tensors = {"x": t["x"], "wqkv": t["wqkv"], "bqkv": t["bqkv"],
                "wo": t["wo"]}
-    tensors.update({"do": t["do"]} if mode == "train" else {"bo": t["bo"]})
+    tensors.update({"do": t["do"]} if train else {"bo": t["bo"]})
     ck._check_k9("k", tensors, s, h, hd, gate)
+    k10 = {"x": t["x"], "wqkv": t["wqkv"], "bqkv": t["bqkv"]}
+    if train:
+        k10["do"] = torch.empty((*t["x"].shape[:2], h * hd), device="meta",
+                                dtype=torch.bfloat16)
+    ck._check_k10("k", k10, s, h, hd, k10_gate)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ck.check_k9_dtype("k", torch.float32)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        ck.check_k10_dtype("k", torch.float32)
 
 
 def test_k9_raises_by_name_where_k13_does_not_fit():
@@ -563,6 +569,27 @@ def test_k9_raises_by_name_where_k13_does_not_fit():
             with pytest.raises(NotImplementedError,
                                match="fused_qkvo_attention .K9.*K13's core"):
                 tr._k9_attention(tx, _k10_params(d, h, d // h), cfg)
+
+
+def test_k10_raises_by_name_where_k13_does_not_fit():
+    """Where vitax's gate takes K10 at a head dim that K13's core does not
+    (d 640 with 16 heads: head dim 40), `_k10_attention` raises by name
+    (K13's limits), serving and training, rather than run the unfused path
+    or another kernel."""
+    s, d, h = 197, 640, 16
+    (jx, jw), (tx, tw) = _shapes(2, s, d, 3 * d)
+    cfg = t_config.resvit_arch_config("b16", 224, dim=d, mlp_dim=4 * d,
+                                      n_heads=h, n_kv_heads=h,
+                                      fused_qkv=True, fused_qkvo=False)
+    assert pk.qkv_attention_supported(jx, jw)
+    assert _vitax_square(jx, jw, h, h, False) == "k10"
+    for train in (False, True):
+        with torch.set_grad_enabled(train):
+            assert tr.attention_is_fused(tx, cfg)
+            assert not tr.k10_supported(tx, tw, cfg)
+            with pytest.raises(NotImplementedError,
+                               match="fused_qkv_attention .K10.*K13's core"):
+                tr._k10_attention(tx, _k10_params(d, h, d // h), cfg)
 
 
 def _vitax_tp(jx, d, h, hd, m, tp):

@@ -334,9 +334,9 @@ def test_k9_gates_and_fp32_raise():
     """The port's K9 gate takes the b16 Res-ViT's shapes in eval and
     training at 224 and 384 px and the TP shard width (6 heads of a 768
     model), and, on K13's core since K9 runs K1's Hopper sequence, head
-    dim 80 (d 1280 with 16 heads), which K10's whole-row core refuses; it
-    refuses what K13's core and the products do not take (D % 16, head dim
-    40, seq > 1024). It has no dtype test, so a CUDA fp32 input reaches the
+    dim 80 (d 1280 with 16 heads), which K10, on K13's core too, takes as
+    well; it refuses what K13's core and the products do not take (D % 16,
+    head dim 40, seq > 1024). It has no dtype test, so a CUDA fp32 input reaches the
     wrapper's raise, whose message, unreachable on a CUDA-less machine, is
     held here."""
     for s, grad in ((197, False), (197, True), (577, False), (577, True)):
@@ -351,7 +351,7 @@ def test_k9_gates_and_fp32_raise():
             torch.empty((1280, 3840), device="meta"), 16)
     assert ck.fused_qkvo_attention_supported(*hd80)
     assert ck.fused_qkvo_attention_bwd_supported(*hd80)
-    assert not ck.fused_qkv_attention_supported(*hd80)
+    assert ck.fused_qkv_attention_supported(*hd80)
     assert not ck.fused_qkvo_attention_supported(
         torch.empty((2, 197, 120), device="meta"),
         torch.empty((120, 384), device="meta"), 2)

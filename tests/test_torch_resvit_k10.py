@@ -201,21 +201,26 @@ def test_apply_train_without_fused_qkvo_matches_vitax(dtype, kw,
 
 def test_k10_gates_and_fp32_raise():
     """The port's K10 gate takes the b16 Res-ViT's shapes in eval and
-    training at 224 and 384 px and refuses what the core does not take
-    (hd 80, D % 32); on a CUDA-less machine the dtype test cannot be
-    reached, so the message it raises is held here."""
-    for s, grad in ((197, False), (197, True), (577, False), (577, True)):
-        x = torch.empty((2, s, 768), device="meta", dtype=torch.bfloat16)
-        wqkv = torch.empty((768, 3 * 768), device="meta", dtype=torch.bfloat16)
+    training at 224 and 384 px and, on K13's core since K10 runs K1's
+    Hopper launches, B/16 @416 (seq 677) and head dim 80 (d 1280 with 16
+    heads), which the whole-row core refused; it refuses what K13's core
+    and the products do not take (head dim 40, seq > 1024, D % 16); on a
+    CUDA-less machine the dtype test cannot be reached, so the message it
+    raises is held here."""
+    def meta(*shape):
+        return torch.empty(shape, device="meta", dtype=torch.bfloat16)
+
+    for s, grad in ((197, False), (197, True), (577, False), (577, True),
+                    (677, False), (677, True)):
         gate = (ck.fused_qkv_attention_bwd_supported if grad
                 else ck.fused_qkv_attention_supported)
-        assert gate(x, wqkv, 12)
-    x = torch.empty((2, 197, 1280), device="meta")
-    assert not ck.fused_qkv_attention_supported(
-        x, torch.empty((1280, 3840), device="meta"), 16)
-    assert not ck.fused_qkv_attention_supported(
-        torch.empty((2, 197, 120), device="meta"),
-        torch.empty((120, 384), device="meta"), 2)
+        assert gate(meta(2, s, 768), meta(768, 3 * 768), 12)
+        assert gate(meta(2, s, 1280), meta(1280, 3840), 16)  # head dim 80
+    for gate in (ck.fused_qkv_attention_supported,
+                 ck.fused_qkv_attention_bwd_supported):
+        assert not gate(meta(2, 197, 640), meta(640, 1920), 16)  # hd 40
+        assert not gate(meta(2, 1032, 768), meta(768, 2304), 12)
+        assert not gate(meta(2, 197, 120), meta(120, 384), 2)  # D % 16
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ck.check_k10_dtype("fused_qkv_attention", torch.float32)
     ck.check_k10_dtype("fused_qkv_attention", torch.bfloat16)

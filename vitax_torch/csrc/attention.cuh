@@ -7,10 +7,9 @@
 // bf16 before quantizing it, pallas_kernels.py:2732-2737). Design notes:
 // ln_qkvo_attention.cu.
 //
-// One core serves three geometries (AttnGeom): the square MHA core reading
-// Q, K and V from one packed qkv row (K10); GQA (K7), where the
+// One core serves two geometries (AttnGeom): GQA (K7), where the
 // packed row is [q (H·hd) | k (Hkv·hd) | v (Hkv·hd)] and query head h reads
-// kv group g = h·Hkv/H (vitax's _kv_off, pallas_kernels.py:2803); and the rect core
+// kv group g = h·Hkv/H (vitax's _kv_off, pallas_kernels.py:2803), and the rect core
 // (K8), whose q_rows query rows per image (the compacted cpq) come from their
 // own buffer and attend over kv_rows key rows (spq) of another. Each query
 // row's result depends only on its own Q row and the image's K and V, so the
@@ -153,12 +152,6 @@ inline AttnGeom attn_geom_packed(const bf16* qkv, int b, int spq, int seq_len, i
   const size_t width = static_cast<size_t>(hhd + 2 * kvw);
   return AttnGeom{qkv, width, spq, qkv, width, spq, hhd, hhd + kvw,
                   heads, kv_heads, b, seq_len, scale};
-}
-
-// The square MHA core over a packed qkv [b·spq, 3·H·HD].
-inline AttnGeom attn_geom_square(const bf16* qkv, int b, int spq, int seq_len, int heads,
-                                 int head_dim, float scale) {
-  return attn_geom_packed(qkv, b, spq, seq_len, heads, heads, head_dim, scale);
 }
 
 template <int HD, typename OutT>

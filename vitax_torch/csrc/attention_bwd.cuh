@@ -21,9 +21,7 @@ namespace vitax {
 // head h at column h·HD of row b·q_rows + r of dq (row stride dq_ld); dK and
 // dV of kv group g at columns dk_off + g·HD and dv_off + g·HD of row
 // b·kv_rows + r of dkv (row stride dkv_ld), dV in its own tensor dv where
-// that is set (K13); P and DS [b, heads, Lq, Lk]. Where o32 is set (K10,
-// whose VJP takes dd from the fp32 P·V before its cast, pallas_kernels.py:
-// 2263-2268) dd reads the fp32 head outputs o32 [b·q_rows, H·HD] instead of o.
+// that is set (K13); P and DS [b, heads, Lq, Lk].
 struct AttnBwdGeom {
   AttnGeom f;
   const bf16* o;
@@ -36,7 +34,6 @@ struct AttnBwdGeom {
   bf16* P;
   bf16* DS;
   bf16* dv = nullptr;
-  const float* o32 = nullptr;
 };
 
 __host__ __device__ inline size_t attn_bwd_warp_bytes(int kv_rows, int hd) {
@@ -100,8 +97,7 @@ __global__ void attention_bwd_q_kernel(AttnBwdGeom g) {
     if (q0 + r < f.q_rows) {
       const size_t row = o_off + static_cast<size_t>(q0 + r) * hhd;
       for (int c = lane; c < HD; c += 32)
-        acc += __bfloat162float(dOs[r * HD + c]) *
-               (g.o32 ? g.o32[row + c] : __bfloat162float(g.o[row + c]));
+        acc += __bfloat162float(dOs[r * HD + c]) * __bfloat162float(g.o[row + c]);
     }
     acc = warp_sum(acc);
     if (lane == 0) dd[r] = acc;

@@ -406,6 +406,7 @@ enum RowsMode : int {
   kRowsOnline = 2,       // K6's forward: one pass, the online recurrence
   kRowsOnlineStats = 3,  // K6's backward row pass: the online forward, its statistics and dd
   kRowsFwdF32 = 4,       // K3's forward: kRowsFwd with the fp32 out (a.o32), never rounded
+  kRowsFwdStats = 5,     // K10's backward row pass: kRowsFwd's two passes, statistics, dd
 };
 
 // Shared memory of core_rows_kernel: two Q tiles, then kStages K tiles and,
@@ -432,7 +433,44 @@ constexpr size_t kRowsSmem =
 // O = Σ α-rescaled bf16(p)·V in fp32, and out = O·(1/l), rounded to bf16
 // once. kRowsOnlineStats also writes m, 1/l and dd = Σ fp32(dO)·out with
 // the fp32 out (vitax's :3479), the statistics K13's key and query passes
-// read.
+// read. kRowsFwdStats (K10's backward) runs kRowsFwd's two passes and, in
+// place of the out, writes kRowsStats' m and 1/l (the same pass 1) and dd
+// from the fp32 out in its registers, as kRowsOnlineStats does: vitax's
+// K10 takes dd from the fp32 bf16(p)·v (pallas_kernels.py:2263-2268),
+// where K1's and K9's take it from the bf16 head output.
+template <int HD>
+__device__ __forceinline__ void store_stats_f32(const CoreArgs& a, const float (&o)[HD / 2],
+                                                const float (&m)[2], const float (&inv)[2],
+                                                int img, int h, int q0) {
+  // m, 1/l, dd of rows g and g + 8 from the t = 0 lane of each quad, dd
+  // summed over the quad's columns from the fp32 out in registers;
+  // nothing from a warpgroup whose tile starts at or past the rows
+  float* st = a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad + q0;
+  const bool tile = q0 < a.rows;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = acc_row(2 * r);
+    const bool ok = q0 + row < a.rows;
+    float dd = 0.f;
+    if (ok) {
+      const bf16* rd =
+          a.dout + head_off(a, a.ld_do, img, h, HD) + static_cast<size_t>(q0 + row) * a.ld_do;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {  // registers 4j + 2r, 4j + 2r + 1: columns 8j + 2t, + 1
+        const float2 d =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rd + acc_col(4 * j)));
+        dd += d.x * o[4 * j + 2 * r] + d.y * o[4 * j + 2 * r + 1];
+      }
+    }
+    dd = quad_sum(dd);
+    if (tile && threadIdx.x % 4 == 0) {
+      st[row] = ok ? m[r] : 0.f;
+      st[a.seq_pad + row] = ok ? inv[r] : 0.f;
+      st[2 * a.seq_pad + row] = dd;
+    }
+  }
+}
+
 template <int HD, int kMode>
 __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a) {
   constexpr bool kRowPass = kMode == kRowsStats;
@@ -610,35 +648,9 @@ __global__ void __launch_bounds__(kRowWgs* kThreads) core_rows_kernel(CoreArgs a
     store_rows<HD>(o, 1.f, Ks + wg * kRows * (HD + 8),
                    a.o + head_off(a, a.ld_o, img, h, HD) + static_cast<size_t>(q0) * a.ld_o,
                    a.ld_o, a.rows - q0);
-    if constexpr (kMode == kRowsOnlineStats) {
-      // m, 1/l, dd of rows g and g + 8 from the t = 0 lane of each quad, dd
-      // summed over the quad's columns from the fp32 out in registers;
-      // nothing from a warpgroup whose tile starts at or past the rows
-      float* st = a.stats + (static_cast<size_t>(img) * a.heads + h) * 3 * a.seq_pad + q0;
-      const bool tile = q0 < a.rows;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = acc_row(2 * r);
-        const bool ok = q0 + row < a.rows;
-        float dd = 0.f;
-        if (ok) {
-          const bf16* rd = a.dout + head_off(a, a.ld_do, img, h, HD) +
-                           static_cast<size_t>(q0 + row) * a.ld_do;
-#pragma unroll
-          for (int j = 0; j < HD / 8; ++j) {  // registers 4j + 2r, 4j + 2r + 1: columns 8j + 2t, + 1
-            const float2 d =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(rd + acc_col(4 * j)));
-            dd += d.x * o[4 * j + 2 * r] + d.y * o[4 * j + 2 * r + 1];
-          }
-        }
-        dd = quad_sum(dd);
-        if (tile && threadIdx.x % 4 == 0) {
-          st[row] = ok ? m[r] : 0.f;
-          st[a.seq_pad + row] = ok ? inv[r] : 0.f;
-          st[2 * a.seq_pad + row] = dd;
-        }
-      }
-    }
+    if constexpr (kMode == kRowsOnlineStats) store_stats_f32<HD>(a, o, m, inv, img, h, q0);
+  } else if constexpr (kMode == kRowsFwdStats) {
+    store_stats_f32<HD>(a, o, m, l, img, h, q0);  // l holds 1/l since pass 2 began
   } else if constexpr (kRowPass) {
     // m, 1/l of rows g and g + 8 from the t = 0 lane of each quad; dd by
     // two threads a row; nothing from a warpgroup whose tile starts at or
@@ -722,9 +734,11 @@ cudaError_t launch_core_online(const CoreArgs& a, int head_dim, int images, cuda
 }
 
 // core_rows_kernel in mode kMode, head_dim one of VITAX_K13_HEAD_DIMS,
-// images <= 65535: K13's forward (kRowsFwd, attention_core.cu) and K3's
-// (kRowsFwdF32, ln_qkvo_attention_int8.cu: the fp32 head outputs to a.o32);
-// each source instantiates the modes it launches.
+// images <= 65535: K13's forward (kRowsFwd, attention_core.cu), K3's
+// (kRowsFwdF32, ln_qkvo_attention_int8.cu: the fp32 head outputs to a.o32)
+// and K10's backward row pass (kRowsFwdStats, qkv_attention_bwd.cu: a.stats
+// with dd from the fp32 head outputs); each source instantiates the modes it
+// launches.
 template <int kMode>
 cudaError_t launch_core_rows(const CoreArgs& a, int head_dim, int images, cudaStream_t st) {
   switch (head_dim) {

@@ -1,6 +1,6 @@
 // Tiled bf16 GEMM with fp32 accumulation and a fused epilogue: the products
-// inside the fused attention halves other than K1's (K6, K7, K8, K10,
-// forward and backward) and K12's backward (the TPU kernels compute them in
+// inside the fused attention halves other than K1's (K6, K7, K8, forward
+// and backward) and K12's backward (the TPU kernels compute them in
 // their own bodies with jnp.dot / dot_general(..., preferred_element_type=
 // f32)); K1's and K2's products and K12's forward run on gemm_sm90.cuh.
 //

@@ -10,22 +10,23 @@
 //
 // x̂ is the LN output, [B, spq, D] with the padded-stream pad rows (zeros);
 // there is no LN and no out-projection (the model applies Wo as a plain
-// product). It is K1's first-design forward (which K7's branch of
-// ln_qkvo_attention.cu still runs) without its first and last launches.
+// product). It is K9's forward without its last launch: the first two
+// launches of qkvo_sm90.cuh's sequence (`qkv_core`), so on the same x̂ its
+// head outputs are the ones K9 projects, to the bit.
 //
 // Bound on the H100: at b64 spq 200 it does 2·N·D·3HHd + 4·B·H·spq²·hd ≈ 53
 // GFLOP on 26 MB, so the tensor cores bound it (≈ 0.054 ms at 989 TFLOP/s
-// bf16). Design: the QKV product is gemm.cuh's bf16 tensor-core GEMM with the
-// fp32 bias added in its epilogue before the one rounding to bf16; the core is
-// K1's whole-row attention core (attention.cuh): one block per (image, head,
-// group of 16-row query tiles), K and V of the head in shared memory, each
-// warp's whole fp32 score rows in shared memory, so the softmax is exact over
-// the row and rounds where the TPU kernel rounds; the scores never reach
-// device memory. qkv does (one bf16 [N, 3HHd] round trip): the TPU kernel
-// keeps an image's qkv in VMEM, which a Hopper block cannot hold beside the
-// scores. The core writes the kernel's output directly.
-#include "attention.cuh"
-#include "gemm.cuh"
+// bf16). Design: qkv = bf16(x̂·Wqkv + bqkv) on gemm_sm90.cuh's TMA-fed wgmma
+// product (kEpiBias: the fp32 bias added before the one rounding); K13's
+// core (attention_core.cuh, kRowsFwd) on the packed rows with strided
+// operands, query rows to spq (the pad rows computed as vitax computes
+// them) and keys masked at seq_len: the row statistics m and l by exp2 in a
+// first pass over the key tiles, then p = exp2(s·scale·log2e − m)·(1/l)
+// rounded to bf16 once and P·V summed in fp32 registers, the head outputs
+// rounded once and written straight into the kernel's output. qkv makes one
+// bf16 round trip through device memory (the TPU kernel keeps an image's
+// qkv in VMEM); the scores never leave the chip.
+#include "qkvo_sm90.cuh"
 
 // x̂ [b·spq, d] bf16, wqkv [d, 3·heads·hd] bf16, bqkv [3·heads·hd] fp32 ->
 // out [b·spq, heads·hd] bf16; qkv [b·spq, 3·heads·hd] bf16 scratch.
@@ -33,14 +34,9 @@ extern "C" int vitax_qkv_attention_fwd(const void* x, const void* wqkv, const vo
                                        void* qkv, void* out, int b, int spq, int d, int seq_len,
                                        int heads, int head_dim, float scale, void* stream) {
   using vitax::bf16;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int n = b * spq;
-  auto* qkvb = static_cast<bf16*>(qkv);
-  cudaError_t e = vitax::launch_gemm<vitax::kBias>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), qkvb, n, 3 * heads * head_dim, d, st);
-  if (e != cudaSuccess) return e;
-  return vitax::launch_attention_core_geom(
-      vitax::attn_geom_square(qkvb, b, spq, seq_len, heads, head_dim, scale), head_dim,
-      static_cast<bf16*>(out), st);
+  if (b * spq == 0 || !vitax::qkvo::shapes_ok(b, spq, seq_len)) return cudaErrorInvalidValue;
+  return vitax::qkvo::qkv_core(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+                               static_cast<const float*>(bqkv), static_cast<bf16*>(qkv),
+                               static_cast<bf16*>(out), b, spq, d, seq_len, heads, head_dim,
+                               scale, static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,10 @@
 // and backward. K1 (ln_qkvo_attention.cu, ln_qkvo_attention_bwd.cu) runs it
 // after its LN launch and before its LN tail; K9 (qkvo_attention.cu,
 // qkvo_attention_bwd.cu) runs it on the caller's x̂. One sequence, so K9 on
-// x̂ = LN(x) gives K1's output and weight grads to the bit.
+// x̂ = LN(x) gives K1's output and weight grads to the bit. K10
+// (qkv_attention.cu, qkv_attention_bwd.cu: no out-projection) runs its
+// first two launches (`qkv_core`) as its forward, and its backward ends in
+// the same QKV projection grads (`proj_bwd`).
 //
 // Forward, three launches:
 //   1. qkv = bf16(xn·Wqkv + bqkv) on gemm_sm90.cuh (kEpiBias: the fp32 bias
@@ -20,10 +23,11 @@
 // the split-K kTN product, dbo a two-pass column sum); K13's three passes
 // (a row pass writing m·scale·log2e, 1/l and dd from the bf16 head output,
 // 12 bytes a row, to `stats`; a key pass for dk, dv; a query pass for dq)
-// into dqkv's packed columns; the QKV projection's grads: dxn = dqkv·Wqkvᵀ
-// in fp32 (K1, whose LN tail follows) or dx = bf16(dqkv·Wqkvᵀ) (K9), dWqkv
-// = xnᵀ·dqkv in fp32, dbqkv a column sum. Neither P nor ds reaches device
-// memory; no float atomics, so two runs give the same bits.
+// into dqkv's packed columns; the QKV projection's grads (`proj_bwd`):
+// dxn = dqkv·Wqkvᵀ in fp32 (K1, whose LN tail follows) or dx =
+// bf16(dqkv·Wqkvᵀ) (K9, K10), dWqkv = xnᵀ·dqkv in fp32, dbqkv a column
+// sum. Neither P nor ds reaches device memory; no float atomics, so two
+// runs give the same bits.
 #pragma once
 
 #include "attention_core.cuh"
@@ -54,7 +58,8 @@ inline k13::CoreArgs packed_args(const bf16* qkv, bf16* attn, int spq, int seq_l
   return a;
 }
 
-// Launches 1 and 2: qkv and the head outputs attn from xn [b·spq, d]
+// Launches 1 and 2: qkv and the head outputs attn from xn [b·spq, d] (K10's
+// forward, attn its output)
 inline cudaError_t qkv_core(const bf16* xn, const bf16* wqkv, const float* bqkv, bf16* qkv,
                             bf16* attn, int b, int spq, int d, int seq_len, int heads,
                             int head_dim, float scale, cudaStream_t st) {
@@ -79,14 +84,37 @@ inline cudaError_t fwd(const bf16* xn, const bf16* wqkv, const float* bqkv, cons
                                        heads * head_dim, st);
 }
 
+// fp32 workspace of `proj_bwd` over n rows, d inputs and qkv width w
+inline size_t proj_bwd_workspace(int n, int d, int w) {
+  const size_t a = colsum_workspace(n, w), c = gemm_tn_workspace(d, w, n);
+  return a > c ? a : c;
+}
+
 // fp32 workspace of `bwd` over n rows, d inputs, hhd head columns and qkv
 // width w (3·hhd)
 inline size_t bwd_workspace(int n, int d, int hhd, int w) {
-  const size_t sizes[] = {colsum_workspace(n, d), colsum_workspace(n, w),
-                          gemm_tn_workspace(hhd, d, n), gemm_tn_workspace(d, w, n)};
+  const size_t sizes[] = {colsum_workspace(n, d), gemm_tn_workspace(hhd, d, n),
+                          proj_bwd_workspace(n, d, w)};
   size_t m = 0;
   for (size_t s : sizes) m = s > m ? s : m;
   return m;
+}
+
+// The QKV projection's grads from xn and dqkv [n, w] (the backward's last
+// three launches in K1, K9 and K10): dxn = dqkv·Wqkvᵀ in fp32 where dxn is
+// given, else dx = bf16(dqkv·Wqkvᵀ), one rounding; dWqkv [d, w] = xnᵀ·dqkv
+// in fp32 on the split-K kTN product; dbqkv [w] a two-pass column sum. ws
+// fp32 proj_bwd_workspace(n, d, w).
+inline cudaError_t proj_bwd(const bf16* xn, const bf16* wqkv, const bf16* dqkv, bf16* dx,
+                            float* dxn, float* dwqkv, float* dbqkv, float* ws, int n, int d,
+                            int w, cudaStream_t st) {
+  cudaError_t e = dxn != nullptr
+                      ? sm90::gemm_nt<sm90::kEpiF32>(dqkv, wqkv, nullptr, dxn, n, d, w, st)
+                      : sm90::gemm_nt<sm90::kEpiStore>(dqkv, wqkv, dx, nullptr, n, d, w, st);
+  if (e != cudaSuccess) return e;
+  e = sm90::gemm_tn(xn, dqkv, dwqkv, ws, d, w, n, st);
+  if (e != cudaSuccess) return e;
+  return launch_colsum(dqkv, dbqkv, ws, n, w, st);
 }
 
 // The backward from xn and dY [b·spq, d]: dWqkv [d, w], dbqkv [w], dWo
@@ -129,12 +157,7 @@ inline cudaError_t bwd(const bf16* xn, const bf16* wqkv, const float* bqkv, cons
   if (e != cudaSuccess) return e;
 
   // QKV projection grads
-  e = dxn != nullptr ? sm90::gemm_nt<sm90::kEpiF32>(dqkv, wqkv, nullptr, dxn, n, d, w, st)
-                     : sm90::gemm_nt<sm90::kEpiStore>(dqkv, wqkv, dx, nullptr, n, d, w, st);
-  if (e != cudaSuccess) return e;
-  e = sm90::gemm_tn(xn, dqkv, dwqkv, ws, d, w, n, st);
-  if (e != cudaSuccess) return e;
-  return launch_colsum(static_cast<const bf16*>(dqkv), dbqkv, ws, n, w, st);
+  return proj_bwd(xn, wqkv, dqkv, dx, dxn, dwqkv, dbqkv, ws, n, d, w, st);
 }
 
 }  // namespace qkvo

@@ -64,7 +64,7 @@ SIGNATURES = {
     "vitax_ln_qkvo_attention_rect_int4_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int4_bwd": [_P] * 63 + [_I] * 10 + [_F, _F, _P],
     "vitax_qkv_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
-    "vitax_qkv_attention_bwd": [_P] * 13 + [_I] * 6 + [_F, _P],
+    "vitax_qkv_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _P],
     "vitax_qkvo_attention_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],
     "vitax_qkvo_attention_bwd": [_P] * 16 + [_I] * 6 + [_F, _P],
     "vitax_gemm_sm90": [_P] * 9 + [_I] * 4 + [_P],

@@ -393,15 +393,18 @@ def _k10_attention(x: torch.Tensor, p: Params, cfg: ResViTConfig
     227-268, 278-279): the merged qkv weight with LoRA folded (autograd
     carries dA and dB through the fold), K10 on the rows padded to spq, the
     real rows, then the plain out-projection. Raises where the port's K10
-    gate refuses what vitax's takes, rather than run the unfused path."""
+    gate refuses what vitax's takes (K13's limits), rather than run the
+    unfused path."""
     s = x.shape[1]
     wqkv, bqkv = _merged_qkv(p, cfg, x.dtype)
     if not k10_supported(x, wqkv, cfg):
         raise NotImplementedError(
             "vitax's gate takes this attention half to its fused_qkv_attention "
-            "(K10) and the port's K10 gate does not: K10 keeps the first "
-            "design's whole-row core (its shared memory, head dims "
-            f"{ck.ATTN_HEAD_DIMS}); {ck.FIRST_DESIGN_ITEM}")
+            "(K10) and the port's K10 gate does not: K10 runs the first "
+            "launches of K1's Hopper sequence on K13's core, which takes head "
+            f"dims {ck.K13_HEAD_DIMS[0]}..{ck.K13_HEAD_DIMS[-1]} in steps of "
+            f"16 and at most {ck.K13_MAX_SEQ} rows (head_dim {cfg.head_dim}, "
+            f"x {tuple(x.shape)}); no fallback")
     out = ck.fused_qkv_attention(_pad_rows(x), wqkv, bqkv, s, cfg.n_heads,
                                  cfg.head_dim)[:, :s]
     return _linear(out, p["wo"])

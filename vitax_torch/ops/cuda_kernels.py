@@ -777,15 +777,14 @@ def first_design_launch_counts(reset: bool = False) -> dict:
     library counts them where each launches: gemm.cuh's mma.sync s8
     products ("gemm.cuh:s8": K7's int8 forward, K11-A and K11-B, R-F and
     R-B, K12-int8), attention.cuh's whole-row forward core
-    ("attention.cuh:core": K7, R-F, K10), attention_bwd.cuh's whole-row
-    backward core ("attention_bwd.cuh:core": K7's bf16 backward, R-B,
-    K10's) and gemm.cuh's bf16 WMMA products ("gemm.cuh:bf16": K7, K10, the
-    bf16 weight grads of K11-B and R-B, K12's backwards). LN, K1, K2,
-    K12's forward, K13, K6, K3's and K4's forwards and backwards, K7's int8
-    backwards, K11-C/D and G-F/G-B, K5's halves, K8 in its bf16 and int8
-    tiers and, since it runs K1's Hopper sequence, K9 launch none of
-    them. Nothing is counted
-    before the library is loaded."""
+    ("attention.cuh:core": K7, R-F), attention_bwd.cuh's whole-row
+    backward core ("attention_bwd.cuh:core": K7's bf16 backward, R-B) and
+    gemm.cuh's bf16 WMMA products ("gemm.cuh:bf16": K7, the bf16 weight
+    grads of K11-B and R-B, K12's backwards). LN, K1, K2, K12's forward,
+    K13, K6, K3's and K4's forwards and backwards, K7's int8 backwards,
+    K11-C/D and G-F/G-B, K5's halves, K8 in its bf16 and int8 tiers and,
+    since they run pieces of K1's Hopper sequence, K9 and K10 launch none
+    of them. Nothing is counted before the library is loaded."""
     counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
     if build.loaded():
         build.check(build.load().vitax_first_design_launches(counts,
@@ -1065,10 +1064,11 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     alike (K13's backward passes take what its forward takes), and so does
     K8 in its bf16 and int8 tiers, on K13's core in its rect geometry, and
     so do K11-C/D and G-F/G-B, K3's sequences at L = 7; K9, K1's sequence
-    without its LN, takes the same shapes (`fused_qkvo_attention_supported`).
+    without its LN, and K10, its first launches, take the same shapes
+    (`fused_qkvo_attention_supported`, `fused_qkv_attention_supported`).
     A first-design path (the whole-row core: K7's bf16 pair and int8
-    forward, R-F/R-B, K10) checks its own limits in its wrapper and raises
-    by name outside them. Unlike vitax's gate
+    forward, R-F/R-B) checks its own limits in its wrapper and raises by
+    name outside them. Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
     if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
         return False
@@ -1092,7 +1092,7 @@ def _core_fits(x, wqkv, heads, kv_heads=None, backward=False) -> bool:
     whole-row core (head dims ATTN_HEAD_DIMS, its shared memory and, with
     `backward`, its backward's) and gemm.cuh's products (widths a multiple
     of 32). K7 (kv_heads < heads: its bf16 pair and int8 forward), R-F and
-    R-B and K10 run it."""
+    R-B run it."""
     hd = _head_dim(x, wqkv, heads, kv_heads)
     if hd is None:
         return False
@@ -1121,8 +1121,8 @@ def _check_first_design(name, path, x, wqkv, heads, kv_heads=None,
             f"core (attention.cuh), which does not take x {tuple(x.shape)} "
             f"with head_dim {hd} (head dims {ATTN_HEAD_DIMS} and the "
             f"{'backward' if backward else 'forward'} core's shared memory "
-            f"at spq); K1, K3 and K9 with kv_heads == heads run K13's core "
-            f"there; "
+            f"at spq); K1, K3, K9 and K10 with kv_heads == heads run K13's "
+            f"core there; "
             f"{FIRST_DESIGN_ITEM}")
 
 
@@ -4781,23 +4781,24 @@ class FusedLnQkvoAttentionRectFn(torch.autograd.Function):
 
 # =============================================================================
 # K10 — fused QKV projection + attention core, no LN and no out-projection
-# (fused_qkv_attention :2369, pallas_calls :2307 and :2334): what vitax's
-# Res-ViT `attention` runs for fused_qkv without fused_qkvo
-# (vitax/models/resvit.py:278)
+# (fused_qkv_attention :2369, pallas_calls :2307 and :2334), on the first
+# launches of K1's Hopper sequence: what vitax's Res-ViT `attention` runs
+# for fused_qkv without fused_qkvo (vitax/models/resvit.py:278)
 # =============================================================================
 
 def fused_qkv_attention_supported(x, wqkv, heads) -> bool:
     """K10's gate: x̂ [B, S, D] (S padded to spq by the caller), wqkv [D,
-    3·H·Hd]: the first design's shape and shared-memory gate
-    (`_core_fits`, its whole-row core) without a dtype test, so that a CUDA
-    fp32 input reaches the wrapper, which raises (`check_k10_dtype`)."""
-    return _core_fits(x, wqkv, heads)
+    3·H·Hd]: the shapes of K1's Hopper sequence, as K9's
+    (`_k13_shapes_fit`: K13's core and gemm_sm90.cuh's products), without a
+    dtype test, so that a CUDA fp32 input reaches the wrapper, which raises
+    (`check_k10_dtype`)."""
+    return _k13_shapes_fit(x, wqkv, heads)
 
 
 def fused_qkv_attention_bwd_supported(x, wqkv, heads) -> bool:
-    """K10's gate in training: the forward's and the core backward's shared
-    memory."""
-    return _core_fits(x, wqkv, heads, backward=True)
+    """K10's gate in training: the forward's (K13's backward passes take
+    what its forward takes)."""
+    return fused_qkv_attention_supported(x, wqkv, heads)
 
 
 def check_k10_dtype(name: str, dtype: torch.dtype) -> None:
@@ -4824,7 +4825,9 @@ def fused_qkv_attention_ref(x, wqkv, bqkv, seq_len, heads, head_dim):
 
 
 def fused_qkv_attention(x, wqkv, bqkv, seq_len, heads, head_dim):
-    """K10 forward (csrc/qkv_attention.cu): x̂ [B, spq, D] (the LN output,
+    """K10 forward (csrc/qkv_attention.cu: the qkv product and K13's core,
+    qkvo_sm90.cuh's `qkv_core`, so that its head outputs are the ones K9
+    projects on the same input): x̂ [B, spq, D] (the LN output,
     pad rows past seq_len allowed) bf16, wqkv [D, 3·H·Hd] bf16 with columns
     [q heads | k heads | v heads], bqkv [3·H·Hd] fp32 → the heads' attention
     outputs side by side, [B, spq, H·Hd], before the out-projection. CPU
@@ -4897,9 +4900,12 @@ def fused_qkv_attention_bwd_ref(x, wqkv, bqkv, do, seq_len, heads,
 
 
 def fused_qkv_attention_bwd(x, wqkv, bqkv, do, seq_len, heads, head_dim):
-    """K10 backward (csrc/qkv_attention_bwd.cu): from the saved (x̂, W, b)
-    and dO [B, spq, H·Hd] bf16, dx [B, spq, D] bf16 and fp32 dWqkv [D,
-    3·H·Hd] and dbqkv [3·H·Hd]."""
+    """K10 backward (csrc/qkv_attention_bwd.cu: the qkv recompute, K13's
+    row pass with dd from the fp32 head outputs, its key and query passes,
+    the QKV projection's grads as K9's; K13's row statistics its only
+    attention scratch, no P, ds or fp32 head outputs): from the saved
+    (x̂, W, b) and dO [B, spq, H·Hd] bf16, dx [B, spq, D] bf16 and fp32
+    dWqkv [D, 3·H·Hd] and dbqkv [3·H·Hd]."""
     if not x.is_cuda:
         return fused_qkv_attention_bwd_ref(x, wqkv, bqkv, do, seq_len, heads,
                                            head_dim)
@@ -4909,15 +4915,13 @@ def fused_qkv_attention_bwd(x, wqkv, bqkv, do, seq_len, heads, head_dim):
                      fused_qkv_attention_bwd_supported)
     b, spq, d = x.shape
     n, w = b * spq, 3 * heads * head_dim
-    rows = (spq + 15) // 16 * 16
     lib = build.load()
     dx, dw, db = torch.empty_like(x), _f32(dev, d, w), _f32(dev, w)
-    qkv, o32 = _bf(dev, n, w), _f32(dev, n, heads * head_dim)
-    p, ds = _bf(dev, b, heads, rows, rows), _bf(dev, b, heads, rows, rows)
-    dqkv = _bf(dev, n, w)
+    qkv, dqkv = _bf(dev, n, w), _bf(dev, n, w)
+    stats = _workspace(lib.vitax_attention_core_bwd_ws(b, spq, heads), dev)
     ws = _workspace(lib.vitax_qkv_attention_bwd_ws(n, d, w), dev)
     rc = lib.vitax_qkv_attention_bwd(*(t.data_ptr() for t in (
-        x, wqkv, bqkv, do, dx, dw, db, qkv, o32, p, ds, dqkv, ws)), b, spq, d,
+        x, wqkv, bqkv, do, dx, dw, db, qkv, stats, dqkv, ws)), b, spq, d,
         seq_len, heads, head_dim, 1.0 / math.sqrt(head_dim), _stream(dev))
     build.check(rc, name)
     fused_qkv_attention_bwd.launches += 1

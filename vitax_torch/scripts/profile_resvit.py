@@ -23,7 +23,10 @@ batch of random images: `train-dense` (b32, bf16, `ft_resvit.sh`),
 mesh of this process's NCCL group of one rank (tcp on 127.0.0.1), where
 every attention half is the LN kernel and K9 (vitax's dispatch under any
 mesh), `dense-mesh` (the b64 serving forward) and `train-mesh` (the b32
-step of `train-dense`). For each it
+step of `train-dense`); and with fused_qkvo off (a config built in code,
+the CLIs tie it to fused_qkv), where every attention half is the LN
+kernel, K10 and the plain out-projection, `dense-k10` and `train-k10`
+(the same forward and step). For each it
 runs two warm-up iterations, then records three with torch.profiler and
 prints the wall time an iteration (host clock around synchronized
 iterations), the device busy time (the sum of the kernels' device times;
@@ -56,7 +59,7 @@ RECIPE = ["--model-arch", "b16", "--image-size", "224", "--dataset",
 CONFIGS = {"dense": [], "compact": ["--compact-capacity", "0.625"],
            "dense-int8": ["--int8"],
            "compact-int8": ["--compact-capacity", "0.625", "--int8"],
-           "dense-mesh": []}
+           "dense-mesh": [], "dense-k10": []}
 # train configs: (batch, overrides of the serving config)
 TRAIN_CONFIGS = {
     "train-dense": (32, {}),
@@ -83,13 +86,15 @@ TRAIN_CONFIGS = {
                                 compact_capacity=0.625)),
     # chip_smoke.py's phase 16 (b): (a) under the (1, 1) mesh
     "train-mesh": (32, {}),
+    # chip_smoke.py's phase 15: (a) with fused_qkvo off (K10)
+    "train-k10": (32, dict(fused_qkvo=False)),
 }
 # kernel-name fragment -> group, first match wins
-GROUPS = [("k13::", "attention core, wgmma (K13; K1's, K6's and K8's "
-                   "forwards, backwards)"),
-          ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K6's, K8's, K12's "
-                        "products)"),
-          ("attention_core", "whole-row attention core (K7/R-F/K10)"),
+GROUPS = [("k13::", "attention core, wgmma (K13; K1's, K6's, K8's, K9's "
+                   "and K10's forwards, backwards)"),
+          ("gemm_sm90", "bf16 wgmma GEMM (K1's, K2's, K6's, K8's, K9's, "
+                        "K10's, K12's products)"),
+          ("attention_core", "whole-row attention core (K7/R-F)"),
           ("attention_bwd", "attention core backward"),
           ("gemm_s8_sm90", "s8 wgmma GEMM (K3's, K4's, K5's, K8's and "
                            "K11's attention half's products)"),
@@ -175,6 +180,8 @@ def profile(name: str, params, images, cfg, iters: int = 3) -> None:
         c = c.replace(compact_capacity=0.625)
     if "--int8" in CONFIGS[name]:
         c = c.replace(int8_attn=True, int8_mlp=True, fused_mlp=True)
+    if name.endswith("-k10"):
+        c = c.replace(fused_qkvo=False)
     with torch.inference_mode():
         prof, wall = _profiled(
             lambda: resvit.apply(params, images, c, mesh=mesh), iters)
@@ -225,7 +232,7 @@ def report(name, prof, wall, iters, unit) -> None:
 
 def main(argv=None) -> None:
     names = ((argv if argv is not None else sys.argv[1:])
-             or [n for n in CONFIGS if not n.endswith("-mesh")])
+             or [n for n in CONFIGS if not n.endswith(("-mesh", "-k10"))])
     unknown = set(names) - set(CONFIGS) - set(TRAIN_CONFIGS)
     if unknown:
         raise SystemExit(f"profile_resvit: unknown configs {sorted(unknown)}; "

@@ -10,8 +10,8 @@ file need not belong to), it prints under `tag`:
   and backward at ViT-H/14's widths, and of K1's forward, K2's forward,
   K7's backward (4 kv heads), K3's backward (`--int8-grad`), K13's
   forward and backward, the bf16 K8's forward and backward (cpq 128 of
-  spq 200) and K9's forward and backward (on x̂ = LN(x) of K1's inputs) at
-  ViT-B/16's, on inputs made from fixed seeds on the card;
+  spq 200) and K9's and K10's forward and backward (on x̂ = LN(x) of K1's
+  inputs) at ViT-B/16's, on inputs made from fixed seeds on the card;
   two checkouts give the same line where those kernels kept their bits;
 - `int8_checksums`: the same of the int8 and int4 tiers: K3's and K4's
   forwards (K4's also without its residual; the LN-quant prologue's codes,
@@ -72,7 +72,8 @@ file need not belong to), it prints under `tag`:
   (4 kv heads) with and without int8_dw at b32;
 - `k9`: K9's forward at ViT-B/16's b64 spq 200 and its backward at b32,
   beside K1's at the same shapes (K9 on x̂ = LN(x) of K1's x): the
-  CUDA-event median of 25 and `device_ms` over four input copies;
+  CUDA-event median of 25 and `device_ms` over four input copies; `k10`
+  the same of K10's forward and backward beside K9's and K1's;
 - CUDA-event medians of 10 on a resident Synthetic batch, random weights
   from seed 0: ViT-B/16 @224 train steps (forward, backward, SGD with
   momentum) at b32 in bf16, `--int8`, `--int8-grad`, `--int8-dw` and
@@ -91,7 +92,7 @@ Names after the tag run only those sections (`checksums`, `int8_checksums`,
 `ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
 `kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`,
 `ho_device`, `rect_int8`, `rect_bf16`, `rect_steps`, `gqa_int8_bwd`,
-`int4_attn`, `k9`), e.g.
+`int4_attn`, `k9`, `k10`), e.g.
 `turns.py A int8_checksums kernel_times`.
 """
 
@@ -157,9 +158,10 @@ def k6_checksum() -> str:
 def checksums() -> dict:
     """{kernel: sha256 prefixes of its outputs} of K6 forward and backward,
     K1 forward, K2 forward, K7 backward, K3 backward, K13 forward and
-    backward, the bf16 K8's forward and backward and K9's forward and
-    backward (b2, 12 heads of 64, seq 197; K8 on 124 rows of each image in
-    cpq 128; K9 on LN(x) of K1's x, with K1's weights)."""
+    backward, the bf16 K8's forward and backward and K9's and K10's
+    forward and backward (b2, 12 heads of 64, seq 197; K8 on 124 rows of
+    each image in cpq 128; K9 and K10 on LN(x) of K1's x, with K1's
+    weights)."""
     from vitax_torch.ops import cuda_kernels as ck
     d, heads, hd, m = B16_WIDTHS
     hhd = heads * hd
@@ -194,6 +196,10 @@ def checksums() -> dict:
             xh, *head[3:], bo, *tail[1:]),))
         out["K9 bwd"] = _digest(ck.fused_qkvo_attention_bwd(
             xh, *head[3:], do, *tail[1:]))
+        out["K10 fwd"] = _digest((ck.fused_qkv_attention(
+            xh, *head[3:5], *tail[1:]),))
+        out["K10 bwd"] = _digest(ck.fused_qkv_attention_bwd(
+            xh, *head[3:5], do, *tail[1:]))
     return out
 
 
@@ -738,29 +744,42 @@ K9_TIMES = [("K9 fwd", 64, False), ("K1 fwd", 64, False),
 
 
 def _k9_call(label, bwd, head, bo, do):
-    """One call of K9 (on x̂ = LN(x)) or K1 (on x) at ViT-B/16's widths,
-    spq 200, seq 197."""
+    """One call of K9 or K10 (on x̂ = LN(x)) or K1 (on x) at ViT-B/16's
+    widths, spq 200, seq 197 (K10's dO [b, spq, H·Hd] is K1's dY: D =
+    H·Hd)."""
     from vitax_torch.ops import cuda_kernels as ck
     _, heads, hd, _ = B16_WIDTHS
     tail = (197, heads, hd)
-    if label.startswith("K1"):
+    if label.startswith("K1 "):
         if bwd:
             return lambda: ck.fused_ln_qkvo_attention_bwd(*head, do, 1e-5,
                                                           *tail)
         return lambda: ck.fused_ln_qkvo_attention(*head, bo, 1e-5, *tail)
     xh = ck.layer_norm(*head[:3], 1e-5)
+    if label.startswith("K10"):
+        if bwd:
+            return lambda: ck.fused_qkv_attention_bwd(xh, *head[3:5], do,
+                                                      *tail)
+        return lambda: ck.fused_qkv_attention(xh, *head[3:5], *tail)
     if bwd:
         return lambda: ck.fused_qkvo_attention_bwd(xh, *head[3:], do, *tail)
     return lambda: ck.fused_qkvo_attention(xh, *head[3:], bo, *tail)
 
 
-def k9() -> dict:
-    """{K9_TIMES's label and shape: (CUDA-event median ms of 25,
+# K10's forward at serving's b64 and its backward at training's b32, each
+# beside K9's and K1's at the same shape: (label, batch, backward)
+K10_TIMES = [("K10 fwd", 64, False), ("K9 fwd", 64, False),
+             ("K1 fwd", 64, False), ("K10 bwd", 32, True),
+             ("K9 bwd", 32, True), ("K1 bwd", 32, True)]
+
+
+def k9(times=K9_TIMES) -> dict:
+    """{`times`' label and shape: (CUDA-event median ms of 25,
     `device_ms` over four input copies)}."""
     d, heads, hd, m = B16_WIDTHS
     hhd = heads * hd
     out = {}
-    for label, b, bwd in K9_TIMES:
+    for label, b, bwd in times:
         with torch.no_grad():
             calls = [_k9_call(label, bwd, head, bo, do) for head, bo, do, _ in
                      (_half_inputs(221 + i, b, 200, d, 3 * hhd, hhd, m)
@@ -1091,8 +1110,9 @@ def main(argv) -> int:
                       f"(device_ms), {by:.4f} ms (_by_kernel): " + "; ".join(
                           f"{k[:70]} {t:.4f} x{n:g}" for k, t, n in rows),
                       flush=True)
-        elif section == "k9":
-            for name, (ms, dev) in k9().items():
+        elif section in ("k9", "k10"):
+            times = K9_TIMES if section == "k9" else K10_TIMES
+            for name, (ms, dev) in k9(times).items():
                 print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms",
                       flush=True)
         elif section in ("timings", "rect_steps"):
@@ -1108,7 +1128,8 @@ def main(argv) -> int:
 SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
             "ln_device_times", "timings", "kernel_times", "k4_outputs",
             "int8_bwd_device", "int8_fwd_device", "ho_device", "rect_int8",
-            "rect_bf16", "rect_steps", "gqa_int8_bwd", "int4_attn", "k9")
+            "rect_bf16", "rect_steps", "gqa_int8_bwd", "int4_attn", "k9",
+            "k10")
 
 
 if __name__ == "__main__":
