@@ -367,11 +367,13 @@ every output, two launches the same bits; timed beside the twin. The library cou
 their launches by kind where `launch_s8` launches one
 (`ck.s8_launch_counts`), and the launches of the first design's gemm.cuh
 s8 and bf16 WMMA products and whole-row forward and backward cores
-(`ck.first_design_launch_counts`); phases 6, 7, 8, 9, 13 and 17 hold the
-s8 counts of their runs exact (`_s8_expect`), 6, 7, 8 (but its GQA run) and
-9's (b), (c), (d) the first-design ones too (none); phases 13 and 14 read
-the first-design pieces around each call of K11-C, K11-D, G-F and G-B
-(none), and phase 16 around K9's launches and in (b)'s mesh runs (none).
+(`ck.first_design_launch_counts`); phases 6, 7, 8, 9, 13, 14 and 17 hold
+the s8 counts of their runs exact (`_s8_expect`), 6, 7, 8 (but its GQA
+run), 9's (b), (c), (d), 13's and 14's (but where K7's bf16 pair runs) the
+first-design ones too (none, but what R-F, K7's int8 forward and K11-A
+launch); phases 13 and 14 read the first-design pieces around each call of
+K11-B, K11-C, K11-D, G-F, G-B and R-B (none), and phase 16 around K9's
+launches and in (b)'s mesh runs (none).
 
 The line before the last is the JSON kernel table (each kernel's time at
 the main path's shape beside its bound: the larger of its bytes over 3.35
@@ -597,21 +599,23 @@ TRAIN_RESVIT_KERNELS = RECT_BWD_KERNELS + ("fused_ln_qkvo_attention_gqa_bwd",)
 DW_KERNELS = ("fused_ln_qkvo_attention_int8_dw_bwd",
               "fused_ln_mlp_int8_dw_bwd")
 # gemm_sm90.cuh's s8 products inside K3's (kv_heads == heads) and K4's
-# int8 forwards and backwards, K5's halves and K11's attention half
-# (s8_group_rc: its int4_grad int8_dw fold), counted by kind where the
-# library launches them (`ck.s8_launch_counts`): their source and the TPU
-# kernels whose bodies hold the product (s8_bf16, s8_f32, s8_group,
-# s8_gelu_q_f32 and s8_residual_f32 run in several)
+# int8 forwards and backwards, K5's halves, K8's int8 tier and the int4
+# backwards (s8_group_rc: their int4_grad int8_dw fold), counted by kind
+# where the library launches them (`ck.s8_launch_counts`): their source
+# and the TPU kernels whose bodies hold the product (s8_bf16, s8_f32,
+# s8_gelu_pair, s8_group, s8_gelu_q_f32, s8_residual_f32 and s8_group_rc
+# run in several)
 S8_INFO = {f"gemm_sm90_s8:{kind}": ("vitax_torch/csrc/gemm_sm90.cuh",
                                     f"vitax/ops/pallas_kernels.py:{lines}")
-           for kind, lines in (("s8_bf16", "3163, :3252, :1758 and :3784"),
-                               ("s8_f32", "3252 and :1820"),
-                               ("s8_gelu_pair", "1820"),
+           for kind, lines in (("s8_bf16",
+                                "3163, :3252, :1758, :3784 and :4534"),
+                               ("s8_f32", "3252, :1820, :1914 and :4534"),
+                               ("s8_gelu_pair", "1820 and :1914"),
                                ("s8_group", "3252 and :1820"),
                                ("s8_gelu_q_f32", "1758 and :3817"),
                                ("s8_residual", "1758"),
                                ("s8_residual_f32", "3784 and :3817"),
-                               ("s8_group_rc", "3252"))}
+                               ("s8_group_rc", "3252, :1914 and :4534"))}
 HO_KERNELS = ("fused_ln_qkvo_attention_int8_ho", "fused_ln_mlp_int8_ho")
 BWD_KERNELS = ("layer_norm_bwd", "fused_ln_qkvo_attention_bwd",
                "fused_ln_mlp_bwd", "fused_ln_qkvo_attention_int8_bwd",
@@ -750,8 +754,10 @@ def _s8_expect(counts):
     (q, kv, out), its backward three s8_bf16 (q, kv, dattn) and two s8_f32
     (dxnc, dxn), and under int8_dw three s8_group more; K11-C's and G-F's
     forwards two s8_bf16, K11-D's and G-B's backwards two s8_bf16 and one
-    s8_f32, and under int8_dw two s8_group_rc more. No other wrapper
-    launches one."""
+    s8_f32, and under int8_dw two s8_group_rc more; K11-B's (either
+    branch) K4's, one s8_gelu_pair and one s8_f32, and under int8_dw two
+    s8_group_rc more; R-B's K8's, three s8_bf16 and two s8_f32, and under
+    int8_dw three s8_group_rc more. No other wrapper launches one."""
     def c(*names):
         return sum(counts.get(n, 0) for n in names)
     k3f = c("fused_ln_qkvo_attention_int8")
@@ -778,33 +784,46 @@ def _s8_expect(counts):
              "fused_ln_qkvo_attention_int4_gqa_dw_bwd")
     k11dw = c("fused_ln_qkvo_attention_int4_dw_bwd",
               "fused_ln_qkvo_attention_int4_gqa_dw_bwd")
+    k11bb = c("fused_ln_mlp_int4_bwd", "fused_ln_mlp_int4_dw_bwd",
+              "fused_ln_mlp_int4_partial_bwd",
+              "fused_ln_mlp_int4_partial_dw_bwd")
+    k11bdw = c("fused_ln_mlp_int4_dw_bwd", "fused_ln_mlp_int4_partial_dw_bwd")
+    rb = c("fused_ln_qkvo_attention_rect_int4_bwd",
+           "fused_ln_qkvo_attention_rect_int4_dw_bwd")
+    rbdw = c("fused_ln_qkvo_attention_rect_int4_dw_bwd")
     return {"gemm_sm90_s8:s8_bf16": (2 * k3f + 2 * k3b + k4p + k5a
                                      + 3 * k8f + 3 * k8b + 2 * k11f
-                                     + 2 * k11b),
-            "gemm_sm90_s8:s8_f32": k3b + k4b + 2 * k8b + k11b,
-            "gemm_sm90_s8:s8_gelu_pair": k4b,
+                                     + 2 * k11b + 3 * rb),
+            "gemm_sm90_s8:s8_f32": (k3b + k4b + 2 * k8b + k11b + k11bb
+                                    + 2 * rb),
+            "gemm_sm90_s8:s8_gelu_pair": k4b + k11bb,
             "gemm_sm90_s8:s8_group": 2 * dw + 3 * k8dw,
             "gemm_sm90_s8:s8_gelu_q_f32": k4f + k4p + k5m,
             "gemm_sm90_s8:s8_residual": k4f,
             "gemm_sm90_s8:s8_residual_f32": k5a + k5m,
-            "gemm_sm90_s8:s8_group_rc": 2 * k11dw}
+            "gemm_sm90_s8:s8_group_rc": 2 * k11dw + 2 * k11bdw + 3 * rbdw}
 
 
 def _check_s8(label, counts, first_design=False):
     """The s8 products that the library counted in a run, against what its
     wrappers' launches imply, and with `first_design` the first-design
     pieces (`ck.first_design_launch_counts`), of which a ViT run of LN, K1,
-    K2, K3, K4 (forwards and backwards), K5 and K13, and a Res-ViT int8 run
-    of those, K8's int8 tier and K7's int8 backwards, launch none, and K7's
-    int8 forward two gemm.cuh s8 products and one whole-row core each;
-    returns the s8 counts."""
+    K2, K3, K4 (forwards and backwards), K5 and K13, a Res-ViT int8 run of
+    those, K8's int8 tier and K7's int8 backwards, and an int4 run's
+    backwards (K11-B, K11-D, G-B, R-B) launch none; K7's int8 forward two
+    gemm.cuh s8 products and one whole-row core each, R-F three and one,
+    K11-A (either branch) two s8 products; returns the s8 counts."""
     from vitax_torch.ops import cuda_kernels as ck
     s8 = ck.s8_launch_counts()
     fd = ck.first_design_launch_counts() if first_design else {}
     k7f = counts.get("fused_ln_qkvo_attention_int8_gqa", 0)
+    rf = counts.get("fused_ln_qkvo_attention_rect_int4", 0)
+    k11a = (counts.get("fused_ln_mlp_int4", 0)
+            + counts.get("fused_ln_mlp_int4_partial", 0))
     expect = {**_s8_expect(counts), **dict.fromkeys(fd, 0)}
     if first_design:
-        expect.update({"gemm.cuh:s8": 2 * k7f, "attention.cuh:core": k7f})
+        expect.update({"gemm.cuh:s8": 2 * k7f + 3 * rf + 2 * k11a,
+                       "attention.cuh:core": k7f + rf})
     print(f"  {label}: s8 products {_nonzero(s8)}"
           + (f", first-design pieces {fd}" if first_design else ""),
           flush=True)
@@ -4218,22 +4237,22 @@ def _check_int4(ck, name, label, args, stats):
     weights' and do's the same bits, the rest within INT4_CODE_BAND), every
     output finite, of the twin's shape and dtype and within INT4_REL of it,
     the bf16 kernel at least INT4_STAND_IN times farther on every output a
-    quantizer reaches; the attention half's (K11-C, K11-D on K3's Hopper
-    sequences) also two launches the same bits and no first-design piece
-    launched by them."""
+    quantizer reaches; all but K11-A (K11-C, K11-D on K3's Hopper sequences,
+    K11-B on K4's) also two launches the same bits and no first-design
+    piece launched by them."""
     import torch
     sk, st = {}, {}
-    attn = "attention" in name
+    hopper = name != "fused_ln_mlp_int4"
     ck.first_design_launch_counts(reset=True)
     outs = getattr(ck, name)(*args, scratch=sk)
-    again = getattr(ck, name)(*args) if attn else outs
+    again = getattr(ck, name)(*args) if hopper else outs
     torch.cuda.synchronize()
     fd = ck.first_design_launch_counts(reset=True)
     refs = getattr(ck, name + "_ref")(*args, scratch=st)
     stand = getattr(ck, INT4_PAIRS[name][1])(*args)
     if not isinstance(outs, tuple):
         outs, again, refs, stand = (outs,), (again,), (refs,), (stand,)
-    if attn and (any(fd.values()) or not all(
+    if hopper and (any(fd.values()) or not all(
             torch.equal(a, b) for a, b in zip(outs, again))):
         raise AssertionError(f"{name} {label}: first-design pieces {fd}, "
                              "or two launches differ")
@@ -4264,7 +4283,7 @@ def _check_int4(ck, name, label, args, stats):
     print(f"  {name:36s} {label:22s} codes moved (max step, share) "
           + " ".join(f"{k} {m[0]} {m[1]:.2e}" for k, m in moves.items())
           + ("; two launches the same bits, no first-design piece"
-             if attn else "")
+             if hopper else "")
           + f"; ‖k−t‖/‖t‖ per output [{' '.join(f'{r:.2e}' for r in r_k)}]"
           f" <= {INT4_REL}; bf16 kernel (stand-in) [{' '.join(f'{r:.2e}' for r in r_s)}]"
           f", >= {INT4_STAND_IN}x: {ratio:.1f}x", flush=True)
@@ -4416,8 +4435,11 @@ def run_int4_slice(exp_root):
         if counts[flags] != expect:
             raise AssertionError(f"{flags}: expected launches "
                                  f"{_nonzero(expect)}")
-        # the s8 products of K3's and K11's attention halves, by kind
-        counts[flags].update(_check_s8(f"train_cli {flags}", counts[flags]))
+        # the s8 products of K3's, K4's and K11's halves by kind, and the
+        # first design's pieces: K11-A's forward alone launches them (K11-B
+        # and K11-D, the backwards, none)
+        counts[flags].update(_check_s8(f"train_cli {flags}", counts[flags],
+                                       first_design=True))
 
     tier8 = dict(int8_mlp=True, int8_attn=True, int8_mlp_grad=True,
                  int8_attn_grad=True, int8_dw=True)
@@ -4614,10 +4636,10 @@ def check_resvit_int4_kernels(stats):
                 outs = getattr(ck, name)(*args)
                 again = getattr(ck, name)(*args)
                 torch.cuda.synchronize()
-                # G-F and G-B run K3's Hopper sequences: no first-design
-                # piece (R-F and R-B keep the first design)
+                # G-F and G-B run K3's Hopper sequences and R-B K8's int8
+                # one: no first-design piece (R-F keeps the first design)
                 fd = ck.first_design_launch_counts(reset=True)
-                if "_gqa" in name and any(fd.values()):
+                if name != RESVIT_INT4_KERNELS[0] and any(fd.values()):
                     raise AssertionError(f"{name}: first-design pieces {fd}")
                 refs = getattr(ck, name + "_ref")(*args)
                 if not isinstance(outs, tuple):
@@ -4795,6 +4817,14 @@ def _resvit_int4_launch_runs(exp_root):
         with _step_launches(ck, log), contextlib.redirect_stdout(buf):
             out = resvit_train_cli.main(args)
         counts[label] = ck.launch_counts()
+        # the s8 products by kind and, but where K7's bf16 pair runs (the
+        # kv4 runs without int8_grad), the first design's pieces: R-F's,
+        # K7's int8 forward's and K11-A's alone (R-B, G-B, K11-B and
+        # K11-D, the backwards, launch none)
+        k7 = any(counts[label].get(n) for n in (
+            "fused_ln_qkvo_attention_gqa", "fused_ln_qkvo_attention_gqa_bwd"))
+        _check_s8(f"resvit_train_cli {label}", counts[label],
+                  first_design=not k7)
         shutil.rmtree(out["checkpoint_dir"], ignore_errors=True)
         bad = [(kind, {k: v for k, v in got.items() if v})
                for kind, c, got in log

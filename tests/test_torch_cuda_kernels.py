@@ -1743,6 +1743,34 @@ def test_rect_int4_kernels_match_twins(dev, shape):
         dict.fromkeys(RECT_INT4, 2)
 
 
+@pytest.mark.parametrize("shape", RECT_K13_SHAPES)
+def test_rect_int4_backward_runs_k13_shapes_the_whole_row_core_cannot(
+        dev, shape):
+    """R-B and R-B dw, K8's int8 sequence at L = 7 on K13's core in its rect
+    geometry, where the whole-row core cannot take the shapes (B/16 @416,
+    head dim 80): each against its twin (the codes in their bands,
+    INT4_REL, two launches the same bits), their s8 products counted, no
+    first-design piece launched."""
+    b, spq, seq, cap, d, h, hd = shape
+    _, bwd = _rect_bf16_args(dev, b, spq, seq, cap, d, h, hd)
+    assert not ck._core_fits(bwd[1], bwd[4], h, backward=True)
+    assert ck.qkv_attention_rect_supported(bwd[0], bwd[1], bwd[4], h)
+    ck.reset_launch_counts()
+    for name in RECT_INT4[1:]:
+        _hold_int4(name, bwd)
+    assert {k: v for k, v in ck.launch_counts().items() if v} == \
+        dict.fromkeys(RECT_INT4[1:], 2)
+    # four launches: q, kv and dattn, dxnc and dxn; the two int8_dw ones
+    # three two-scale folds
+    assert ck.s8_launch_counts() == {
+        "gemm_sm90_s8:s8_bf16": 3 * 4, "gemm_sm90_s8:s8_f32": 2 * 4,
+        "gemm_sm90_s8:s8_gelu_pair": 0, "gemm_sm90_s8:s8_group": 0,
+        "gemm_sm90_s8:s8_gelu_q_f32": 0, "gemm_sm90_s8:s8_residual": 0,
+        "gemm_sm90_s8:s8_residual_f32": 0, "gemm_sm90_s8:s8_group_rc": 3 * 2}
+    assert ck.first_design_launch_counts() == dict.fromkeys(
+        ck.FIRST_DESIGN_PIECES, 0)
+
+
 @pytest.mark.parametrize("shape", INT8_GQA_SHAPES[1:])
 def test_int4_gqa_kernels_match_twins(dev, shape):
     args = _gqa_bwd_args(dev, *shape)

@@ -287,8 +287,7 @@ def _meta_half(arch, image, kv_heads=None):
 # the first design's whole-row core, forward and backward
 FIRST_DESIGN = [
     ("K7", "bf16", KV_HEADS), ("K7's backward", "bf16_bwd", KV_HEADS),
-    ("K7's int8 tier", "int8", KV_HEADS),
-    ("R-F", "rect_int4", None), ("R-B", "rect_int4_bwd", None)]
+    ("K7's int8 tier", "int8", KV_HEADS), ("R-F", "rect_int4", None)]
 
 
 def _launch_checks(launch, t, s, h, hd, hkv):
@@ -310,10 +309,14 @@ def _launch_checks(launch, t, s, h, hd, hkv):
         return ck._ln_qkvo_int8_bwd_cuda("k", x, g, be, w, bq, wo, t["do"],
                                          1e-6, s, h, hd, hkv, False, None,
                                          int4=launch == "int4_bwd")
-    assert launch in ("rect_int4", "rect_int4_bwd"), launch
-    return ck._check_rect("k", x[:, :x.shape[1] // 16 * 8], x, g, be, w, bq,
-                          wo, t["bo"], s, h, hd,
-                          backward=launch == "rect_int4_bwd", int4=True)
+    xc = x[:, :x.shape[1] // 16 * 8]
+    if launch == "rect_int4_bwd":
+        return ck._rect_bwd_cuda("k", True, False, xc, x, g, be, w, bq, wo,
+                                 t["do"][:, :xc.shape[1]], 1e-6, s, h, hd,
+                                 int4=True)
+    assert launch == "rect_int4", launch
+    return ck._check_rect("k", xc, x, g, be, w, bq, wo, t["bo"], s, h, hd,
+                          int4=True)
 
 
 @pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
@@ -322,9 +325,9 @@ def test_first_design_paths_raise_by_name_where_only_k13_fits(
         monkeypatch, arch, image, path, launch, kv):
     """Where the K1 family's gate and vitax's take a shape that the whole-row
     core cannot (seq 677; head dim 80), each path that keeps that core
-    (K7's bf16 pair and int8 forward, R-F and R-B) raises its named error in its wrapper's checks, before it allocates or
-    launches anything; K1's and K3's Hopper launches pass the same
-    checks."""
+    (K7's bf16 pair and int8 forward, R-F) raises its named error in its
+    wrapper's checks, before it allocates or launches anything; K1's and
+    K3's Hopper launches pass the same checks."""
     t, s, h, hd, hkv = _meta_half(arch, image, kv)
     assert ck.qkv_attention_supported(t["x"], t["wqkv"], h, hkv)
     assert not ck._core_fits(t["x"], t["wqkv"], h, hkv)
@@ -402,9 +405,11 @@ def test_k7_int8_backward_takes_the_shapes_only_k13_fits(monkeypatch, arch,
 
 # (path, the launch function, kv heads): the A4W4 attention half, K3's
 # Hopper sequences at L = 7 on K13's core (in its GQA geometry for G-F and
-# G-B)
+# G-B), and R-B, K8's int8 backward at L = 7 (K13's core in its rect
+# geometry)
 INT4_ATTENTION = [("K11-C", "int4", None), ("G-F", "int4", KV_HEADS),
-                  ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS)]
+                  ("K11-D", "int4_bwd", None), ("G-B", "int4_bwd", KV_HEADS),
+                  ("R-B", "rect_int4_bwd", None)]
 
 
 @pytest.mark.parametrize("arch,image", [("b16", 416), ("d640h8", 224)])
@@ -413,10 +418,11 @@ def test_int4_attention_takes_the_shapes_only_k13_fits(monkeypatch, arch,
                                                        image, path, launch,
                                                        kv):
     """K11-C, G-F, K11-D and G-B run K3's Hopper sequences at L = 7 with
-    K13's core: where the K1 family's gate and vitax's take a shape that
-    the whole-row core cannot (seq 677; head dim 80), each launch
-    function's checks pass, and it goes on to load the library for its
-    scratch and launch, as K3's and K7's int8 backward do."""
+    K13's core, and R-B K8's int8 backward's: where the K1 family's gate
+    and vitax's take a shape that the whole-row core cannot (seq 677; head
+    dim 80), each launch function's checks pass, and it goes on to load the
+    library for its scratch and launch, as K3's and K7's int8 backward
+    do."""
     t, s, h, hd, hkv = _meta_half(arch, image, kv)
     assert ck.qkv_attention_supported(t["x"], t["wqkv"], h, hkv)
     assert not ck._core_fits(t["x"], t["wqkv"], h, hkv,
@@ -440,8 +446,8 @@ def test_k8_int8_takes_the_shapes_only_k13_fits(monkeypatch, arch, image,
     family's gate and vitax's take a shape that the whole-row core cannot
     (seq 677; head dim 80), its wrappers' checks pass, forward and
     backward, before they allocate anything, as K5's and K3's Hopper
-    launches do; its int4 branches (R-F, R-B) at the same shapes, on the
-    first design, still raise by name."""
+    launches do, and so do R-B's (K8's int8 backward at L = 7); R-F, its
+    int4 forward on the first design, still raises by name."""
     t, s, h, hd, _ = _meta_half(arch, image)
     x = t["x"]
     xc = x[:, :x.shape[1] // 16 * 8]
@@ -452,10 +458,12 @@ def test_k8_int8_takes_the_shapes_only_k13_fits(monkeypatch, arch, image,
     args = ("k", xc, x, t["gamma"], t["beta"], t["wqkv"], t["bqkv"], t["wo"],
             t["bo"], s, h, hd)
     ck._check_rect(*args, backward=backward)
-    path = "R-B" if backward else "R-F"
+    if backward:  # R-B
+        ck._check_rect(*args, backward=True, int4=True)
+        return
     with pytest.raises(NotImplementedError,
-                       match=f"{path} keeps the first design.*Queue 2"):
-        ck._check_rect(*args, backward=backward, int4=True)
+                       match="R-F keeps the first design.*Queue 2"):
+        ck._check_rect(*args, int4=True)
 
 
 @pytest.mark.parametrize("backward", [False, True])

@@ -44,8 +44,6 @@ import jax.numpy as jnp  # noqa: E402
 from tests import torch_int8_compose as compose  # noqa: E402
 from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
-from vitax_torch.ops.quant import (quant_cols_host, quant_rows,  # noqa: E402
-                                   quant_rows_host)
 
 D, H, HD, M, SPQ, SEQ, EPS = 128, 2, 64, 256, 16, 10, 1e-5
 BF = torch.bfloat16
@@ -93,16 +91,6 @@ def _jax(arrays):
             for k, v in arrays.items()}
 
 
-def _ln_quant(t, from_bf16):
-    """The LN-quant prologue: (x̂, rstd, the fp32 xn, its codes and scales),
-    quantized from the bf16-rounded xn with `from_bf16` (K4's backward)."""
-    x2 = t["x"].reshape(-1, D)
-    xhat, rstd = ck._ln_stats(x2.float(), EPS)
-    xn32 = ck._affine(xhat, t["gamma"], t["beta"])
-    xq, sx = quant_rows(xn32.to(BF).float() if from_bf16 else xn32)
-    return xhat, rstd, xn32, xq, sx
-
-
 def k3_bwd_composed(t, int8_dw, group):
     """K3's backward in its launch order: (dx, dγ, dβ, dWqkv, dbqkv, dWo,
     dbo)."""
@@ -113,28 +101,7 @@ def k3_bwd_composed(t, int8_dw, group):
 def k4_bwd_composed(t, int8_dw, group, residual):
     """K4's backward in its launch order: (dx, dγ, dβ, dW1, db1, dW2,
     db2)."""
-    do2 = t["do"].reshape(-1, D)
-    w1r, s1r = quant_rows_host(t["w1"])
-    w2r, s2r = quant_rows_host(t["w2"])
-    w1c, s1c = quant_cols_host(t["w1"])  # stored [M, D]: its transpose
-    xhat, rstd, xn32, xq, sx = _ln_quant(t, from_bf16=True)
-    xn = xn32.to(BF)
-    doq, sdo = quant_rows(do2.float())
-    h1, dh1, dh1_32 = ck.gemm_sm90_s8_ref(
-        "s8_gelu_pair", xq, w1c.t().contiguous(), sx, s1c, t["b1"], doq,
-        w2r, sdo, s2r)
-    db2, db1 = do2.float().sum(dim=0), dh1_32.sum(dim=0)
-    dh1q, sd = quant_rows(dh1_32)
-    if int8_dw:
-        dw2 = compose.group_fold(h1, sdo, doq, group)
-        dw1 = compose.group_fold(xn, sd, dh1q, group)
-    else:
-        dw2 = ck.gemm_sm90_ref("tn_f32", h1, do2)
-        dw1 = ck.gemm_sm90_ref("tn_f32", xn, dh1)
-    dxn = ck.gemm_sm90_s8_ref("s8_f32", dh1q, w1r, sd, s1r)
-    dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
-    dx = do2 + dxln.to(BF) if residual else dxln.to(BF)
-    return dx.view(t["x"].shape), dg, dbe, dw1, db1, dw2, db2
+    return compose.mlp_int8_bwd_composed(t, EPS, int8_dw, group, residual)
 
 
 def _close(out, ref, what):

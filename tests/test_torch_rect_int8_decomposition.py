@@ -25,8 +25,8 @@ seq_len).
   vitax's VJP (`_fused_ln_qkvo_rect_bwd`, int8 and int8_grad) under
   `jax.jit` in interpret mode, within 2e-2; with do nonzero on xc's pad
   rows, and dk = dv = 0 on the keys >= seq_len.
-- A source check that the L = 127 entry points reach only the Hopper
-  pieces this file composes.
+- A source check that the L = 127 entry points, and R-B's at L = 7, reach
+  only the Hopper pieces this file composes.
 
 Tiny widths: D 128, 2 heads of 64, spq 16 with seq_len 10, cap 6 in cpq 8,
 bf16, 8 images (int8_dw groups of 4 images: 32 rows of xc, 64 of x, each
@@ -34,7 +34,6 @@ padded to one 128-code K tile).
 """
 
 import functools
-import re
 
 import numpy as np
 import pytest
@@ -47,7 +46,7 @@ from tests import torch_int8_compose as compose  # noqa: E402
 from vitax.ops import pallas_kernels as pk  # noqa: E402
 from vitax_torch.ops import cuda_kernels as ck  # noqa: E402
 from vitax_torch.ops.quant import (int_mm, quant_cols_host,  # noqa: E402
-                                   quant_rows, quant_rows_host)
+                                   quant_rows)
 
 D, H, HD, SPQ, SEQ, CAP, CPQ, EPS = 128, 2, 64, 16, 10, 6, 8, 1e-5
 HHD = H * HD
@@ -93,13 +92,6 @@ def _jax(arrays):
             for k, v in arrays.items()}
 
 
-def _ln(t2, t):
-    """The LN-quant recompute: (x̂, rstd, the fp32 xn, its codes, scales)."""
-    xhat, rstd = ck._ln_stats(t2.float(), EPS)
-    xn32 = ck._affine(xhat, t["gamma"], t["beta"])
-    return (xhat, rstd, xn32) + quant_rows(xn32)
-
-
 def _q_kv(t, xqc, sxc, xq, sx):
     """q and kv on the s8 path over the Q and the KV rows of Wqkv's codes."""
     w8, sw = quant_cols_host(t["wqkv"])
@@ -129,42 +121,7 @@ def rect_fwd_composed(t):
 def rect_bwd_composed(t, int8_dw):
     """K8's int8 backward in its launch order: its eight outputs, and the
     core's dk, dv [B, H, SPQ, HD]."""
-    group_c, group_k = ck.qkvo_rect_dw_groups(B, CPQ, SPQ)
-    do2 = t["do"].reshape(-1, D)
-    wq8r, swqr = quant_rows_host(t["wqkv"][:, :HHD])
-    wkv8r, swkvr = quant_rows_host(t["wqkv"][:, HHD:])
-    wo8r, swor = quant_rows_host(t["wo"])
-    xhat_c, rstd_c, xnc32, xqc, sxc = _ln(t["xc"].reshape(-1, D), t)
-    xhat_k, rstd_k, xn32, xq, sx = _ln(t["x"].reshape(-1, D), t)
-    q, kv = _q_kv(t, xqc, sxc, xq, sx)
-    qh, k, v = ck._rect_heads(q.view(B, CPQ, -1), kv.view(B, SPQ, -1), H)
-    o = compose.k13_core_f32(qh, k, v, SEQ).to(BF)  # the bf16 recompute
-    attn = ck._heads_to_rows(o)
-    doq, sdo = quant_rows(do2.float())
-    dattn = ck.gemm_sm90_s8_ref("s8_bf16", doq, wo8r, sdo, swor)
-    dwo = (compose.group_fold(attn, sdo, doq, group_c) if int8_dw
-           else ck.gemm_sm90_ref("tn_f32", attn, do2))
-    dbo = do2.float().sum(dim=0)
-    d_o = ck._split_heads(dattn.view(B, CPQ, -1), H)
-    dqh, dk, dv = compose.k13_core_grads(qh, k, v, o, d_o, SEQ)
-    dq = ck._heads_to_rows(dqh)
-    dkv = torch.cat([ck._heads_to_rows(dk), ck._heads_to_rows(dv)], dim=1)
-    dqq, sdq = quant_rows(dq.float())
-    dxnc = ck.gemm_sm90_s8_ref("s8_f32", dqq, wq8r, sdq, swqr)
-    dkvq, sdkv = quant_rows(dkv.float())
-    dxn = ck.gemm_sm90_s8_ref("s8_f32", dkvq, wkv8r, sdkv, swkvr)
-    if int8_dw:
-        dwq = compose.group_fold(xnc32, sdq, dqq, group_c)
-        dwkv = compose.group_fold(xn32, sdkv, dkvq, group_k)
-    else:
-        dwq = ck.gemm_sm90_ref("tn_f32", xnc32.to(BF), dq)
-        dwkv = ck.gemm_sm90_ref("tn_f32", xn32.to(BF), dkv)
-    dxc, dg, dbe = ck._ln_bwd_tail(dxnc, xhat_c, rstd_c, t["gamma"])
-    dx, dg2, dbe2 = ck._ln_bwd_tail(dxn, xhat_k, rstd_k, t["gamma"])
-    return (dxc.to(BF).view(B, CPQ, D), dx.to(BF).view(B, SPQ, D), dg + dg2,
-            dbe + dbe2, torch.cat([dwq, dwkv], dim=1),
-            torch.cat([dq.float().sum(dim=0), dkv.float().sum(dim=0)]), dwo,
-            dbo), dk, dv
+    return compose.rect_int8_bwd_composed(t, SEQ, H, HD, EPS, int8_dw)
 
 
 def _close(out, ref, what):
@@ -250,11 +207,17 @@ def test_backward_launch_order_matches_vitax_under_jit(int8_dw):
         _close(o, jnp.asarray(r, jnp.float32), f"{name} vs vitax")
 
 
-def _body(src, name):
-    """The text of the function `name` of a source, up to its closing
-    brace at column 0."""
-    start = re.search(rf"^\S.* {name}\(", src, re.M).start()
-    return src[start:src.index("\n}\n", start)]
+# the launches of the rect backward's Hopper body at either grid, and what
+# its int8_dw adds at each: the row-scale folds (L = 127), the column packs
+# of both operands and the two-scale fold (L = 7)
+_RECT_BWD = ("launch_quant_weight_cols_t<L>(", "launch_quant_weight_rows<L>(",
+             "launch_layer_norm_quant<false, true, L>(",
+             "launch_layer_norm_quant<false, false, L>(",
+             "sm90::gemm_s8<sm90::kEpiS8Bf16>(",
+             "sm90::gemm_s8<sm90::kEpiS8F32>(", "k13::launch_core_fwd(",
+             "k13::launch_core_bwd(", "sm90::gemm_tn(", "launch_quant_rows<L>(",
+             "launch_colsum(", "launch_layer_norm_bwd_two<",
+             "a.kv_rows = a.kv_img_rows = spq")
 
 
 @pytest.mark.parametrize("source,hopper,entry,launches", [
@@ -265,35 +228,21 @@ def _body(src, name):
       "k13::launch_core_rows<vitax::k13::kRowsFwdF32>(",
       "launch_quant_rows(", "a.kv_rows = a.kv_img_rows = spq")),
     ("ln_qkvo_attention_rect_int8_bwd.cu",
-     "ln_qkvo_attention_rect_int8_bwd_sm90",
+     "ln_qkvo_attention_rect_quant_bwd_sm90",
      "vitax_ln_qkvo_attention_rect_int8_bwd",
-     ("launch_quant_weight_cols_t(", "launch_quant_weight_rows(",
-      "launch_layer_norm_quant<false, true>(",
-      "launch_layer_norm_quant<false, false>(",
-      "sm90::gemm_s8<sm90::kEpiS8Bf16>(", "sm90::gemm_s8<sm90::kEpiS8F32>(",
-      "k13::launch_core_fwd(", "k13::launch_core_bwd(", "sm90::gemm_tn(",
-      "launch_dw_int8_operands(", "sm90::gemm_s8_groups(",
-      "launch_quant_rows(", "launch_colsum(", "launch_layer_norm_bwd_two<",
-      "a.kv_rows = a.kv_img_rows = spq")),
+     _RECT_BWD + ("launch_dw_int8_operands(", "sm90::gemm_s8_groups(")),
+    ("ln_qkvo_attention_rect_int8_bwd.cu",
+     "ln_qkvo_attention_rect_quant_bwd_sm90",
+     "vitax_ln_qkvo_attention_rect_int4_bwd",
+     _RECT_BWD + ("launch_dw_cols_operands(", "sm90::gemm_s8_groups_rc(")),
 ])
 def test_k8_int8_sources_launch_the_hopper_pieces_only(source, hopper, entry,
                                                        launches):
-    """The L = 127 entry point calls its Hopper function alone, which
-    launches gemm_sm90.cuh's s8 products (and kTN for the bf16 weight
-    grads), K13's core in the rect geometry, quant.cuh's and layernorm.cuh's
-    row passes, dw_int8.cuh's operand packs and the column sums that this
-    file composes; no gemm.cuh product (s8, kTN, the group fold) and no
-    whole-row core. R-F and R-B keep the first design in their own
-    functions."""
-    from vitax_torch.kernels import build
-    src = (build.CSRC / source).read_text()
-    calls = set(re.findall(r"(\w+)\(", _body(src, entry).split("{", 1)[1]))
-    assert calls == {hopper}, calls
-    body = _body(src, hopper)
-    for call in launches:
-        assert call in body, call
-    for first_design in ("launch_gemm_s8", "launch_attention_core_geom",
-                         "launch_attention_bwd_geom", "launch_gemm_tn",
-                         "launch_dw_int8(", "launch_dw_int8<",
-                         "launch_dw_int8_cols", "AttnGeom"):
-        assert first_design not in body, first_design
+    """The L = 127 entry points, and R-B's at L = 7, call their Hopper
+    function alone, which launches gemm_sm90.cuh's s8 products (and kTN
+    for the bf16 weight grads), K13's core in the rect geometry, quant.cuh's
+    and layernorm.cuh's row passes, dw_int8.cuh's operand packs and the
+    column sums that this file composes; no gemm.cuh product (s8, kTN, the
+    group fold) and no whole-row core. R-F keeps the first design in its
+    own function."""
+    compose.check_hopper_body(source, hopper, entry, launches)

@@ -2,7 +2,7 @@
 by the decomposition tests (test_torch_int8_fwd_decomposition.py,
 test_torch_int8_bwd_decomposition.py, test_torch_rect_int8_decomposition.py,
 test_torch_gqa_int8_bwd_decomposition.py,
-test_torch_int4_attn_decomposition.py):
+test_torch_int4_attn_decomposition.py, test_torch_int4_bwd_decomposition.py):
 the LN-quant prologue, K13's forward core with its fp32 out
 (attention_core.cuh, kRowsFwdF32), K13's three backward passes
 (attention_core_bwd.cu), the int8_dw group folds as the card runs them
@@ -13,10 +13,12 @@ in their launch order (the backward also K7's, kv_heads < heads; with
 Every core piece takes per-head tensors [B, H, rows, Hd] with the query and
 key sides apart, so the square geometry (K3) and K8's rect one (cpq query
 rows against spq key rows) run the same code; the core grads also take
-K7's GQA geometry (`kv_heads`).
+K7's GQA geometry (`kv_heads`). `check_hopper_body` scans a source for
+the pieces an entry point's Hopper body launches.
 """
 
 import math
+import re
 
 import torch
 
@@ -26,6 +28,35 @@ from vitax_torch.ops.quant import quant_cols
 
 BF = torch.bfloat16
 TILE = 128  # gemm_sm90.cuh's s8 K tile (kBK8)
+# what a Hopper body may not name: the first design's products (gemm.cuh's
+# s8 and bf16 WMMA GEMMs, its group folds) and its whole-row cores
+FIRST_DESIGN_CALLS = ("launch_gemm_s8", "launch_attention_core_geom",
+                      "launch_attention_bwd_geom", "launch_gemm_tn",
+                      "launch_dw_int8(", "launch_dw_int8<",
+                      "launch_dw_int8_cols", "AttnGeom")
+
+
+def _body(src, name):
+    """The text of the function `name` of a source, up to its closing
+    brace at column 0."""
+    start = re.search(rf"^\S.* {name}\(", src, re.M).start()
+    return src[start:src.index("\n}\n", start)]
+
+
+def check_hopper_body(source, hopper, entry, launches):
+    """csrc/`source`'s entry point `entry` calls the function `hopper`
+    alone (a template's name without its arguments), whose body holds each
+    of `launches` and names none of FIRST_DESIGN_CALLS."""
+    from vitax_torch.kernels import build
+    src = (build.CSRC / source).read_text()
+    called = set(re.findall(r"(\w+)(?:<[\w:, ]+>)?\(",
+                            _body(src, entry).split("{", 1)[1]))
+    assert called - {"static_cast"} == {hopper}, called
+    body = _body(src, hopper)
+    for call in launches:
+        assert call in body, call
+    for first_design in FIRST_DESIGN_CALLS:
+        assert first_design not in body, first_design
 
 
 def ln_quant(x2, gamma, beta, eps, int4=False):
@@ -221,3 +252,117 @@ def qkvo_int8_bwd_composed(t, seq_len, heads, head_dim, eps, int8_dw, group,
     dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
     return (dxln.to(BF).view(t["x"].shape), dg, dbe, dw, dbqkv, dwo,
             dbo), dqkv
+
+
+def rect_int8_bwd_composed(t, seq_len, heads, head_dim, eps, int8_dw,
+                           int4=False):
+    """K8's int8 backward (csrc/ln_qkvo_attention_rect_int8_bwd.cu) in its
+    launch order on t["xc"], t["do"] [B, cpq, D], t["x"] [B, spq, D] and
+    the half's weights: the weights' codes (Wqkv's columns whole, the rows
+    of the slices Wq and Wkv), the LN-quant recompute of xc and x, q and kv
+    on `s8_bf16`, K13's forward (attn bf16), do's codes, dattn (`s8_bf16`),
+    dWo (`tn_f32`, or the group fold over group_c rows), dbo, K13's three
+    passes in the rect geometry, dq's and dkv's codes, dxnc and dxn
+    (`s8_f32`), dWq and dWkv (`tn_f32`, or the folds over group_c and
+    group_k rows), dbq, dbkv and the two LN tails. With `int4` R-B's: the
+    weights', the recompute's and the dx-path's codes on the int4 grid, and
+    under int8_dw the two-scale folds of both operands' column packs
+    (`group_fold_cols`). Returns ((dxc, dx, dγ, dβ, dWqkv, dbqkv, dWo,
+    dbo), dk, dv), dk and dv the core's [B, H, spq, Hd]."""
+    b, cpq, d = t["xc"].shape
+    spq = t["x"].shape[1]
+    hhd = heads * head_dim
+    group_c, group_k = ck.qkvo_rect_dw_groups(b, cpq, spq)
+    rows, cols_host, rows_host = ck._quantizers(int4)
+    do2 = t["do"].reshape(-1, d)
+    w8, sw = cols_host(t["wqkv"])
+    w8t = w8.t().contiguous()  # stored [3·hhd, D]
+    wq8r, swqr = rows_host(t["wqkv"][:, :hhd])
+    wkv8r, swkvr = rows_host(t["wqkv"][:, hhd:])
+    wo8r, swor = rows_host(t["wo"])
+
+    def ln(key):
+        xhat, rstd = ck._ln_stats(t[key].reshape(-1, d).float(), eps)
+        xn32 = ck._affine(xhat, t["gamma"], t["beta"])
+        return (xhat, rstd, xn32) + rows(xn32)
+
+    xhat_c, rstd_c, xnc32, xqc, sxc = ln("xc")
+    xhat_k, rstd_k, xn32, xq, sx = ln("x")
+    q = ck.gemm_sm90_s8_ref("s8_bf16", xqc, w8t[:hhd], sxc, sw[:hhd],
+                            t["bqkv"][:hhd])
+    kv = ck.gemm_sm90_s8_ref("s8_bf16", xq, w8t[hhd:], sx, sw[hhd:],
+                             t["bqkv"][hhd:])
+    qh, k, v = ck._rect_heads(q.view(b, cpq, -1), kv.view(b, spq, -1),
+                              heads)
+    o = k13_core_f32(qh, k, v, seq_len).to(BF)  # the bf16 recompute
+    attn = ck._heads_to_rows(o)
+    doq, sdo = rows(do2.float())
+    dattn = ck.gemm_sm90_s8_ref("s8_bf16", doq, wo8r, sdo, swor)
+
+    def fold(a, s, codes, m, group):
+        if not int8_dw:
+            return ck.gemm_sm90_ref("tn_f32", a.to(BF), m)
+        if int4:
+            return group_fold_cols(a, m, group)
+        return group_fold(a, s, codes, group)
+
+    dwo = fold(attn, sdo, doq, do2, group_c)
+    dbo = do2.float().sum(dim=0)
+    d_o = ck._split_heads(dattn.view(b, cpq, -1), heads)
+    dqh, dk, dv = k13_core_grads(qh, k, v, o, d_o, seq_len)
+    dq = ck._heads_to_rows(dqh)
+    dkv = torch.cat([ck._heads_to_rows(dk), ck._heads_to_rows(dv)], dim=1)
+    dqq, sdq = rows(dq.float())
+    dxnc = ck.gemm_sm90_s8_ref("s8_f32", dqq, wq8r, sdq, swqr)
+    dkvq, sdkv = rows(dkv.float())
+    dxn = ck.gemm_sm90_s8_ref("s8_f32", dkvq, wkv8r, sdkv, swkvr)
+    dwq = fold(xnc32, sdq, dqq, dq, group_c)
+    dwkv = fold(xn32, sdkv, dkvq, dkv, group_k)
+    dxc, dg, dbe = ck._ln_bwd_tail(dxnc, xhat_c, rstd_c, t["gamma"])
+    dx, dg2, dbe2 = ck._ln_bwd_tail(dxn, xhat_k, rstd_k, t["gamma"])
+    return (dxc.to(BF).view(t["xc"].shape), dx.to(BF).view(t["x"].shape),
+            dg + dg2, dbe + dbe2, torch.cat([dwq, dwkv], dim=1),
+            torch.cat([dq.float().sum(dim=0), dkv.float().sum(dim=0)]), dwo,
+            dbo), dk, dv
+
+
+def mlp_int8_bwd_composed(t, eps, int8_dw, group, residual, int4=False):
+    """K4's backward (csrc/ln_mlp_int8_bwd.cu) in its launch order on
+    t["x"], t["do"] [..., D] and the half's weights: the weights' codes, the
+    LN-quant recompute from the bf16 xn, do's codes, the dual product
+    (`s8_gelu_pair`: h1, dh1, dh1_32), db2, db1, dh1_32's codes, dW2 and dW1
+    (`tn_f32`, or the group folds over `group` rows), dxn (`s8_f32`) and
+    the LN tail, dx without `do +` when not `residual`. With `int4` K11-B's:
+    every code of the recompute and the dx-path on the int4 grid, and under
+    int8_dw the two-scale folds of the column packs of h1 | do and of the
+    bf16 xn | dh1_32 (`group_fold_cols`) over the rows as given (the
+    caller pads them to whole groups). Returns (dx, dγ, dβ, dW1, db1, dW2,
+    db2)."""
+    d = t["x"].shape[-1]
+    rows, cols_host, rows_host = ck._quantizers(int4)
+    x2, do2 = t["x"].reshape(-1, d), t["do"].reshape(-1, d)
+    w1r, s1r = rows_host(t["w1"])
+    w2r, s2r = rows_host(t["w2"])
+    w1c, s1c = cols_host(t["w1"])  # stored [M, D]: its transpose
+    xhat, rstd = ck._ln_stats(x2.float(), eps)
+    xn = ck._affine(xhat, t["gamma"], t["beta"]).to(BF)
+    xq, sx = rows(xn.float())
+    doq, sdo = rows(do2.float())
+    h1, dh1, dh1_32 = ck.gemm_sm90_s8_ref(
+        "s8_gelu_pair", xq, w1c.t().contiguous(), sx, s1c, t["b1"], doq,
+        w2r, sdo, s2r)
+    db2, db1 = do2.float().sum(dim=0), dh1_32.sum(dim=0)
+    dh1q, sd = rows(dh1_32)
+    if int8_dw and int4:
+        dw2 = group_fold_cols(h1, do2, group)
+        dw1 = group_fold_cols(xn, dh1_32, group)
+    elif int8_dw:
+        dw2 = group_fold(h1, sdo, doq, group)
+        dw1 = group_fold(xn, sd, dh1q, group)
+    else:
+        dw2 = ck.gemm_sm90_ref("tn_f32", h1, do2)
+        dw1 = ck.gemm_sm90_ref("tn_f32", xn, dh1)
+    dxn = ck.gemm_sm90_s8_ref("s8_f32", dh1q, w1r, sd, s1r)
+    dxln, dg, dbe = ck._ln_bwd_tail(dxn, xhat, rstd, t["gamma"])
+    dx = do2 + dxln.to(BF) if residual else dxln.to(BF)
+    return dx.view(t["x"].shape), dg, dbe, dw1, db1, dw2, db2

@@ -1,15 +1,16 @@
-// The attention-core backward of the fused attention half (K1's, K3's, K7's
-// and K8's: vitax's _attn_core_grads, pallas_kernels.py:2846-2895, and
-// _rect_core_grads :3977-4022), in two passes, query tiles then key tiles.
-// Design notes: ln_qkvo_attention_bwd.cu.
+// The whole-row attention-core backward of the first design (K7's bf16
+// backward: vitax's _attn_core_grads, pallas_kernels.py:2846-2895), in two
+// passes, query tiles then key tiles. Design notes:
+// ln_qkvo_attention_bwd.cu.
 //
 // It takes the forward core's geometry (AttnGeom, attention.cuh) and where
-// the grads go (AttnBwdGeom): the square MHA core (K1, K3), GQA (K7: query
-// head h reads kv group h·Hkv/H, and dK, dV of a group sum over its H/Hkv
-// query heads), and the rect core (K8: q_rows query rows per image, the
-// compacted cpq, against kv_rows key rows, spq; dq lands on the query row
-// set, dK and dV on the key row set). P and ds are staged in device memory as
-// [b, heads, Lq, Lk] bf16, Lq and Lk the two row counts rounded up to 16.
+// the grads go (AttnBwdGeom): the square core on packed rows, MHA or GQA
+// (query head h reads kv group h·Hkv/H, and dK, dV of a group sum over its
+// H/Hkv query heads). The geometry also spans the rect core (q_rows query
+// rows per image against kv_rows key rows; dq on the query row set, dK and
+// dV on the key row set), which no backward runs since K8's tiers and R-B
+// took K13's passes. P and ds are staged in device memory as [b, heads, Lq,
+// Lk] bf16, Lq and Lk the two row counts rounded up to 16.
 #pragma once
 
 #include "attention.cuh"

@@ -17,9 +17,10 @@
 // whole images, tile*spq rows with vitax's tile rule) and passes it in.
 //
 // Three launches a weight grad (steps 1 and 2 are launch_dw_int8_operands;
-// K3's backward with kv_heads == heads and K4's run step 3 on gemm_sm90.cuh's
-// s8 wgmma path, kEpiS8Group, with each group padded to its 128-code K
-// tile; the other int8_dw backwards on gemm.cuh's, padded to 64):
+// K3's, K4's and K8's int8 backwards run step 3 on gemm_sm90.cuh's s8 wgmma
+// path, kEpiS8Group, and K12-int8's on gemm.cuh's; each group's rows are
+// padded to kDwPad, gemm_sm90.cuh's 128-code K tile, which gemm.cuh's
+// 64-deep stages divide):
 //   1. dw_quant_cols_t_kernel: a block per (group, 64 columns) takes the
 //      columns' amax over the group's rows, then writes the codes transposed,
 //      At [wa, kp], through a shared tile of 64 rows; each group's rows are
@@ -44,10 +45,9 @@
 //   dW = sum over z of f32(quant_cols(A_z)^T @ quant_cols(B_z)) * sa_z * sb_z
 //
 // launch_dw_cols_operands runs step 1 on each operand (no row scale); the
-// s8 GEMM with both scale vectors is gemm.cuh's kS8GroupF32RC (K11-B, R-B:
-// launch_dw_int8_cols, groups padded to 64) or gemm_sm90.cuh's
-// kEpiS8GroupRC (K11-D, G-B: padded to its 128-code K tile), the same
-// arithmetic in the same order.
+// s8 GEMM with both scale vectors is gemm_sm90.cuh's kEpiS8GroupRC (K11-B,
+// K11-D, G-B, R-B), in the order of gemm.cuh's kS8GroupF32RC, which stays
+// as the fold's second implementation (vitax_gemm_s8_groups_rc).
 #pragma once
 
 #include "gemm.cuh"
@@ -55,9 +55,11 @@
 
 namespace vitax {
 
-// a group's rows zero-padded to whole K tiles of the s8 GEMM: gemm.cuh's
-// 64-deep stages, or gemm_sm90.cuh's 128-deep tiles (tile = sm90::kBK8)
-inline int dw_group_pad(int group, int tile = kS8BK) { return (group + tile - 1) / tile * tile; }
+// a group's rows zero-padded to whole K tiles of the s8 GEMMs: gemm_sm90.cuh's
+// kBK8, a whole number of gemm.cuh's kS8BK
+constexpr int kDwPad = 128;
+static_assert(kDwPad % kS8BK == 0, "gemm.cuh's stages divide the pad");
+inline int dw_group_pad(int group) { return (group + kDwPad - 1) / kDwPad * kDwPad; }
 
 inline int dw_groups(int n, int group) { return (n + group - 1) / group; }
 
@@ -235,21 +237,6 @@ cudaError_t launch_dw_cols_operands(const TA* a, const TB* b, int n, int wa, int
   dw_quant_cols_t_kernel<TB><<<dim3((wb + 63) / 64, groups), dim3(32, 8), 0, stream>>>(
       b, nullptr, bt, sb, n, wb, group, gp, kp);
   return cudaGetLastError();
-}
-
-// F [wa, wb] = that weight grad on gemm.cuh's s8 GEMM (64-deep groups).
-// Scratch as launch_dw_cols_operands' at gp = dw_group_pad(group).
-template <typename TA, typename TB>
-cudaError_t launch_dw_int8_cols(const TA* a, const TB* b, int n, int wa, int wb, int group,
-                                int8_t* at, float* sa, int8_t* bt, float* sb, float* F,
-                                cudaStream_t stream) {
-  if (group <= 0) return cudaErrorInvalidValue;
-  const int gp = dw_group_pad(group);
-  const cudaError_t e =
-      launch_dw_cols_operands(a, b, n, wa, wb, group, gp, at, sa, bt, sb, stream);
-  if (e != cudaSuccess) return e;
-  return launch_gemm_s8_groups(at, bt, sa, F, wa, wb, dw_groups(n, group) * gp, gp, stream,
-                               false, sb);
 }
 
 }  // namespace vitax

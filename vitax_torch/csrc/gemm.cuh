@@ -337,9 +337,9 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // the bias add fused with the last multiply (as XLA contracts it, and as the
 // plain twins' torch.addcmul and gemm_sm90.cuh's s8 epilogues do), each step
 // an explicit _rn intrinsic, so nvcc's contraction choices cannot move a bit:
-// K7's and K8's int8 tiers, K11, K12's int8 pair. K3's and K4's forwards
-// and backwards with kv_heads == heads and K5's halves run gemm_sm90.cuh's s8
-// wgmma path instead, to the same bits.
+// K7's int8 forward, R-F, K11-A and K12's int8 pair. The int8 and int4
+// backwards, K3's, K4's and K8's int8 forwards and K5's halves run
+// gemm_sm90.cuh's s8 wgmma path instead, to the same bits.
 //
 // One layout: C[M,N] = A[M,K] @ B[N,K]^T, both int8 row-major. mma.sync's
 // int8 shape takes only .row.col, i.e. B with K contiguous, so the forward
@@ -372,7 +372,10 @@ inline cudaError_t launch_gemm_tn(const bf16* A, const bf16* B, float* F, float*
 // int8_dw weight grad of the int4_grad backwards, whose two operands are
 // both quantized per column over the group (no row-scale folding): F +=
 // (f32(acc) * sr[z][m]) * sc[z][n], each product rounded on its own, as
-// vitax's _ln_mlp_bwd_int4_kernel (pallas_kernels.py:1057-1074) orders it.
+// vitax's _ln_mlp_bwd_int4_kernel (pallas_kernels.py:1057-1074) orders it;
+// the backwards run gemm_sm90.cuh's kEpiS8GroupRC, and this one stays as
+// its second implementation (vitax_gemm_s8_groups_rc), which the tests
+// hold it against.
 //
 // The int8 save-acts tier (K12): given Q, kS8GeluQF32 also writes the
 // static-grid GELU' codes Q [M,N] of a1 (one instantiation for K12-int8's
@@ -385,9 +388,7 @@ enum EpilogueS8 : int {
   kS8Bf16 = 0,         // C = bf16(acc*sr*sc (+ bias))
   kS8F32 = 1,          // F = acc*sr*sc (+ bias)
   kS8GeluQF32 = 2,     // F = gelu_q(a), a = acc*sr*sc + bias; Q (if set) = gp codes of gelu_grad_q(a)
-  kS8GeluQAux = 3,     // F = acc*sr*sc + bias, C = bf16(gelu_q(F))
   kS8Residual = 4,     // C = R + bf16(acc*sr*sc + bias), the add in bf16
-  kS8GeluQGrad = 5,    // F = acc*sr*sc * gelu_grad_q(Aux), C = bf16(F)
   kS8GroupF32 = 7,     // F = sum over groups z of f32(acc_z) * sr[z*M + m]
   kS8GpqGrad = 8,      // F = acc*(sr*1.13/127)*sc * f32(Q), C = bf16(F); Q the saved gp codes
   kS8GroupF32T = 9,    // kS8GroupF32 stored transposed: F[n*M + m]
@@ -432,7 +433,7 @@ __global__ void __launch_bounds__(kGemmThreads)
     gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
                    const float* __restrict__ sr, const float* __restrict__ sc,
                    const float* __restrict__ bias, const bf16* __restrict__ R,
-                   const float* __restrict__ Aux, bf16* __restrict__ C, float* __restrict__ F,
+                   bf16* __restrict__ C, float* __restrict__ F,
                    int8_t* __restrict__ Q, int M, int N, int K, int group_stages) {
   constexpr bool kGroups = EPI == kS8GroupF32 || EPI == kS8GroupF32T || EPI == kS8GroupF32RC;
   __shared__ __align__(128) int8_t smem[4 * kS8Tile];  // A[2], B[2]
@@ -548,7 +549,7 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {  // the twin's order, each step one _rn rounding
           const float a = __fmul_rn(static_cast<float>(acc[i][j][2 * h + e]), srow);
-          v[e] = EPI != kS8GeluQGrad && EPI != kS8GpqGrad && bias != nullptr
+          v[e] = EPI != kS8GpqGrad && bias != nullptr
                      ? __fmaf_rn(a, sc[col + e], bias[col + e])
                      : __fmul_rn(a, sc[col + e]);
         }
@@ -560,8 +561,7 @@ __global__ void __launch_bounds__(kGemmThreads)
           q2.y = static_cast<signed char>(fminf(fmaxf(rintf(gq.y), -127.f), 127.f));
           *reinterpret_cast<char2*>(Q + off) = q2;
         }
-        if (EPI == kS8F32 || EPI == kS8GeluQF32 || EPI == kS8GeluQAux || EPI == kS8GeluQGrad ||
-            EPI == kS8GpqGrad) {
+        if (EPI == kS8F32 || EPI == kS8GeluQF32 || EPI == kS8GpqGrad) {
           float f[2] = {v[0], v[1]};
           if (EPI == kS8GeluQF32) f[0] = gelu_q(v[0]), f[1] = gelu_q(v[1]);
           if (EPI == kS8GpqGrad) {
@@ -569,18 +569,11 @@ __global__ void __launch_bounds__(kGemmThreads)
             f[0] = v[0] * static_cast<float>(q2.x);
             f[1] = v[1] * static_cast<float>(q2.y);
           }
-          if (EPI == kS8GeluQGrad) {
-            const float2 a = *reinterpret_cast<const float2*>(Aux + off);
-            f[0] = v[0] * gelu_grad_q(a.x);
-            f[1] = v[1] * gelu_grad_q(a.y);
-          }
           *reinterpret_cast<float2*>(F + off) = make_float2(f[0], f[1]);
           v[0] = f[0], v[1] = f[1];
         }
-        if (EPI == kS8Bf16 || EPI == kS8GeluQAux || EPI == kS8Residual || EPI == kS8GeluQGrad ||
-            EPI == kS8GpqGrad) {
+        if (EPI == kS8Bf16 || EPI == kS8Residual || EPI == kS8GpqGrad) {
           float o[2] = {v[0], v[1]};
-          if (EPI == kS8GeluQAux) o[0] = gelu_q(v[0]), o[1] = gelu_q(v[1]);
           if (EPI == kS8Residual) {
             const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(R + off);
             o[0] = __bfloat162float(r.x) + __bfloat162float(__float2bfloat16(v[0]));
@@ -594,19 +587,19 @@ __global__ void __launch_bounds__(kGemmThreads)
 }
 
 // C/F[M,N] = epilogue(f32(A[M,K] @ B[N,K]^T) * sr[M] * sc[N] (+ bias[N])).
-// bias may be null (no bias); R, Aux, C, F, Q as the epilogue reads/writes
+// bias may be null (no bias); R, C, F, Q as the epilogue reads/writes
 // them (Q: the int8 GELU' codes [M,N] of kS8GeluQF32, optional, and of
 // kS8GpqGrad).
 template <int EPI>
 cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* B, const float* sr, const float* sc,
-                           const float* bias, const bf16* R, const float* Aux, bf16* C, float* F,
+                           const float* bias, const bf16* R, bf16* C, float* F,
                            int M, int N, int K, cudaStream_t stream, int8_t* Q = nullptr) {
   if (M == 0 || N == 0) return cudaSuccess;
   if (K % 16 || N % 2 || EPI == kS8GroupF32 || EPI == kS8GroupF32T || EPI == kS8GroupF32RC)
     return cudaErrorInvalidValue;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   gemm_s8_kernel<EPI>
-      <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, Aux, C, F, Q, M, N, K, 0);
+      <<<grid, kGemmThreads, 0, stream>>>(A, B, sr, sc, bias, R, C, F, Q, M, N, K, 0);
   const cudaError_t launched = cudaGetLastError();
   if (launched == cudaSuccess) ++first_design_launches[0];
   return launched;
@@ -627,13 +620,13 @@ inline cudaError_t launch_gemm_s8_groups(const int8_t* A, const int8_t* B, const
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   if (sc != nullptr)
     gemm_s8_kernel<kS8GroupF32RC><<<grid, kGemmThreads, 0, stream>>>(
-        A, B, s, sc, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
+        A, B, s, sc, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
   else if (transpose)
     gemm_s8_kernel<kS8GroupF32T><<<grid, kGemmThreads, 0, stream>>>(
-        A, B, s, nullptr, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
+        A, B, s, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
   else
     gemm_s8_kernel<kS8GroupF32><<<grid, kGemmThreads, 0, stream>>>(
-        A, B, s, nullptr, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
+        A, B, s, nullptr, nullptr, nullptr, nullptr, F, nullptr, M, N, K, gp / kS8BK);
   const cudaError_t launched = cudaGetLastError();
   if (launched == cudaSuccess) ++first_design_launches[0];
   return launched;

@@ -528,8 +528,8 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
 //                   scales sr2, sc2); C = bf16(gelu_q(a1)) (h1), F = dh1_32 =
 //                   dh1f·gelu_q'(a1) (its row codes and db1 read it) and, for
 //                   the bf16 dW1 (C2 null under int8_dw), C2 = bf16(dh1_32);
-//                   a1 never reaches device memory (vitax :1155-1169;
-//                   gemm.cuh's kS8GeluQAux and kS8GeluQGrad in one)
+//                   a1 never reaches device memory (vitax :1155-1169,
+//                   and K11-B's :1017-1040 on the int4 grid's codes)
 //   kEpiS8Group     the int8_dw weight grads: K is groups of group_tiles K
 //                   tiles (each group's rows zero-padded to whole tiles); at
 //                   a group's end its int32 sum is folded into an fp32 one,
@@ -538,9 +538,9 @@ inline cudaError_t gemm_gelu_pair(const bf16* xn, const bf16* w1, const float* b
 //                   kS8GroupF32: no split of K, no partials, no atomics. The
 //                   fold waits for the group's last product, so the tensor
 //                   cores idle through it (K4's groups are one K tile deep).
-//   kEpiS8GroupRC   the int4_grad backwards' int8_dw (K11-D, G-B): both
-//                   operands packed per column over each group, so each
-//                   group folds with two scale vectors, F +=
+//   kEpiS8GroupRC   the int4_grad backwards' int8_dw (K11-B, K11-D, G-B,
+//                   R-B): both operands packed per column over each group,
+//                   so each group folds with two scale vectors, F +=
 //                   (f32(acc)·sr[z·M + m])·sc[z·N + n], each product
 //                   __fmul_rn in that order, as gemm.cuh's kS8GroupF32RC
 //                   (and vitax, pallas_kernels.py:3036-3040): on the same
@@ -708,19 +708,28 @@ __global__ void __launch_bounds__(kThreads + 32, 1)
     }
     wg_commit();
     if (kGroups && (t + 1) % g.group_tiles == 0) {  // the end of group z: fold
-      wg_wait<0>();
-      fence_regs_s32<64>(acc);
+      // the group's scales, loaded while its last products run: the fold
+      // waits on them, and one K tile's products take about an L2 round trip
       const size_t z = t / g.group_tiles;
       const int r = row0 + k13::acc_row(0);  // this thread's rows r and r + 8
       const float s_lo = r < g.M ? g.sr[z * g.M + r] : 0.f;
       const float s_hi = r + 8 < g.M ? g.sr[z * g.M + r + 8] : 0.f;
+      float2 sc[EPI == kEpiS8GroupRC ? 16 : 1];  // columns acc_col(4j), + 1
+      if constexpr (EPI == kEpiS8GroupRC) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = bn + k13::acc_col(4 * j);  // even, and N % 8 == 0
+          sc[j] = col < g.N ? *reinterpret_cast<const float2*>(g.sc + z * g.N + col)
+                            : make_float2(0.f, 0.f);
+        }
+      }
+      wg_wait<0>();
+      fence_regs_s32<64>(acc);
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         float v = __fmul_rn(static_cast<float>(acc[i]), (i / 2) % 2 ? s_hi : s_lo);
-        if constexpr (EPI == kEpiS8GroupRC) {
-          const int col = bn + k13::acc_col(i);
-          v = __fmul_rn(v, col < g.N ? g.sc[z * g.N + col] : 0.f);
-        }
+        if constexpr (EPI == kEpiS8GroupRC)
+          v = __fmul_rn(v, i % 2 ? sc[i / 4].y : sc[i / 4].x);
         facc[i] += v;
         acc[i] = 0;
       }

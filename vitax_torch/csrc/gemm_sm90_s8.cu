@@ -65,8 +65,8 @@ extern "C" int vitax_gemm_sm90_s8(const void* a, const void* b, const void* a2, 
   }
 }
 
-// gemm.cuh's two-scale group fold (kS8GroupF32RC, the first design's, which
-// K11-B and R-B keep) on the same operands as kind 7 above, for the card
+// gemm.cuh's two-scale group fold (kS8GroupF32RC, the first design's) on
+// the same operands as kind 7 above, for the card
 // test that holds the two folds to the same bits: F [m, n] = Σ over groups z
 // of (f32(A_z·B_zᵀ)·sa[z·m + i])·sb[z·n + j], A [m, k], B [n, k] int8, the
 // groups gp columns of k each (gp % 64 == 0). Counted as a gemm.cuh s8

@@ -98,18 +98,18 @@ int ln_mlp_quant_fwd(const void* x, const void* gamma, const void* beta, const v
   }
   e = vitax::launch_gemm_s8<vitax::kS8GeluQF32>(
       xqi, static_cast<const int8_t*>(w1t), sxf, static_cast<const float*>(s1),
-      static_cast<const float*>(b1), nullptr, nullptr, nullptr, gf, n, m, d, st);
+      static_cast<const float*>(b1), nullptr, nullptr, gf, n, m, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_rows<L>(static_cast<const float*>(gf), h1qi, shf, n, m, st);
   if (e != cudaSuccess) return e;
   if (!residual)
     return vitax::launch_gemm_s8<vitax::kS8Bf16>(
         h1qi, static_cast<const int8_t*>(w2t), shf, static_cast<const float*>(s2),
-        static_cast<const float*>(b2), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
+        static_cast<const float*>(b2), nullptr, static_cast<bf16*>(out), nullptr, n, d,
         m, st);
   return vitax::launch_gemm_s8<vitax::kS8Residual>(
       h1qi, static_cast<const int8_t*>(w2t), shf, static_cast<const float*>(s2),
-      static_cast<const float*>(b2), xb, nullptr, static_cast<bf16*>(out), nullptr, n, d, m, st);
+      static_cast<const float*>(b2), xb, static_cast<bf16*>(out), nullptr, n, d, m, st);
 }
 
 }  // namespace

@@ -128,7 +128,7 @@ extern "C" int vitax_ln_mlp_int8_save_fwd(const void* x, const void* gamma, cons
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8GeluQF32>(
       xqi, static_cast<const int8_t*>(w1t), sxf, static_cast<const float*>(s1),
-      static_cast<const float*>(b1), nullptr, nullptr, nullptr, gf, n, m, d, st,
+      static_cast<const float*>(b1), nullptr, nullptr, gf, n, m, d, st,
       static_cast<int8_t*>(gpq));
   if (e != cudaSuccess) return e;
   e = vitax::launch_quant_rows(static_cast<const float*>(gf), h1qi, shf, n, m, st);
@@ -136,11 +136,11 @@ extern "C" int vitax_ln_mlp_int8_save_fwd(const void* x, const void* gamma, cons
   if (!residual)
     return vitax::launch_gemm_s8<vitax::kS8Bf16>(
         h1qi, static_cast<const int8_t*>(w2t), shf, static_cast<const float*>(s2),
-        static_cast<const float*>(b2), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
+        static_cast<const float*>(b2), nullptr, static_cast<bf16*>(out), nullptr, n, d,
         m, st);
   return vitax::launch_gemm_s8<vitax::kS8Residual>(
       h1qi, static_cast<const int8_t*>(w2t), shf, static_cast<const float*>(s2),
-      static_cast<const float*>(b2), xb, nullptr, static_cast<bf16*>(out), nullptr, n, d, m, st);
+      static_cast<const float*>(b2), xb, static_cast<bf16*>(out), nullptr, n, d, m, st);
 }
 
 // Inputs x, dout bf16 [n, d], gamma, beta fp32 [d], w1 bf16 [d, m], w2 bf16
@@ -190,7 +190,7 @@ extern "C" int vitax_ln_mlp_int8_save_bwd(
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8GpqGrad>(
       doqi, static_cast<const int8_t*>(w2r), sdof, static_cast<const float*>(s2r), nullptr,
-      nullptr, nullptr, dh1b, dh1ff, n, m, d, st,
+      nullptr, dh1b, dh1ff, n, m, d, st,
       const_cast<int8_t*>(static_cast<const int8_t*>(gpq)));
   if (e != cudaSuccess) return e;
   if (!int8_dw) {
@@ -224,7 +224,7 @@ extern "C" int vitax_ln_mlp_int8_save_bwd(
   }
   e = vitax::launch_gemm_s8<vitax::kS8F32>(dh1qi, static_cast<const int8_t*>(w1r), sdhf,
                                            static_cast<const float*>(s1r), nullptr, nullptr,
-                                           nullptr, nullptr, dxnf, n, d, m, st);
+                                           nullptr, dxnf, n, d, m, st);
   if (e != cudaSuccess) return e;
   return vitax::launch_layer_norm_bwd<bf16, float>(
       xb, static_cast<const float*>(gamma), dxnf, residual ? dob : nullptr,

@@ -146,7 +146,7 @@ int ln_qkvo_attention_quant_fwd(
     if (e != cudaSuccess) return e;
     e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, static_cast<const int8_t*>(w8t), sxf,
                                               static_cast<const float*>(sw),
-                                              static_cast<const float*>(bqkv), nullptr, nullptr,
+                                              static_cast<const float*>(bqkv), nullptr,
                                               qkvb, nullptr, n, w, d, st);
     if (e != cudaSuccess) return e;
     e = vitax::launch_attention_core_geom(
@@ -157,7 +157,7 @@ int ln_qkvo_attention_quant_fwd(
     if (e != cudaSuccess) return e;
     return vitax::launch_gemm_s8<vitax::kS8Bf16>(
         aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
-        static_cast<const float*>(bo), nullptr, nullptr, static_cast<bf16*>(out), nullptr, n, d,
+        static_cast<const float*>(bo), nullptr, static_cast<bf16*>(out), nullptr, n, d,
         hhd, st);
   }
   return cudaErrorInvalidValue;  // unreached: L = 7 always takes the Hopper body

@@ -168,7 +168,7 @@ int ln_qkvo_attention_quant_bwd_sm90(
                                       static_cast<const float*>(swor), nullptr, dattnb, nullptr,
                                       n, hhd, d, st);
   if (e != cudaSuccess) return e;
-  const int gp = vitax::dw_group_pad(group, sm90::kBK8);
+  const int gp = vitax::dw_group_pad(group);
   const int kp = vitax::dw_groups(n, group) * gp;
   if (!int8_dw) {
     e = sm90::gemm_tn(attnb, dob, static_cast<float*>(dwo), wsf, hhd, d, n, st);

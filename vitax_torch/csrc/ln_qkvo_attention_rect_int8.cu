@@ -165,11 +165,11 @@ int ln_qkvo_attention_rect_int4_fwd_first(
   e = vitax::launch_layer_norm_quant<false, false, L>(static_cast<const bf16*>(x), g, be, xqi, sxf,
                                                       nullptr, n, d, eps, st);
   if (e != cudaSuccess) return e;
-  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqci, w8, sxcf, swf, bias, nullptr, nullptr, qb,
+  e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqci, w8, sxcf, swf, bias, nullptr, qb,
                                             nullptr, nc, hhd, d, st);
   if (e != cudaSuccess) return e;
   e = vitax::launch_gemm_s8<vitax::kS8Bf16>(xqi, w8 + static_cast<size_t>(hhd) * d, sxf,
-                                            swf + hhd, bias + hhd, nullptr, nullptr, kvb, nullptr,
+                                            swf + hhd, bias + hhd, nullptr, kvb, nullptr,
                                             n, 2 * hhd, d, st);
   if (e != cudaSuccess) return e;
   const vitax::AttnGeom geom{qb,  static_cast<size_t>(hhd), cpq,   kvb, 2 * static_cast<size_t>(hhd),
@@ -181,7 +181,7 @@ int ln_qkvo_attention_rect_int4_fwd_first(
   if (e != cudaSuccess) return e;
   return vitax::launch_gemm_s8<vitax::kS8Bf16>(
       aqi, static_cast<const int8_t*>(wo8t), saf, static_cast<const float*>(swo),
-      static_cast<const float*>(bo), nullptr, nullptr, static_cast<bf16*>(out), nullptr, nc, d,
+      static_cast<const float*>(bo), nullptr, static_cast<bf16*>(out), nullptr, nc, d,
       hhd, st);
 }
 

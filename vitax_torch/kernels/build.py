@@ -58,11 +58,11 @@ SIGNATURES = {
     "vitax_ln_mlp_int8_save_fwd": [_P] * 18 + [_I, _I, _I, _F, _I, _P],
     "vitax_ln_mlp_int8_save_bwd": [_P] * 37 + [_I] * 5 + [_F, _I, _P],
     "vitax_ln_mlp_int4_fwd": [_P] * 17 + [_I, _I, _I, _F, _I, _P],
-    "vitax_ln_mlp_int4_bwd": [_P] * 41 + [_I] * 5 + [_F, _I, _P],
+    "vitax_ln_mlp_int4_bwd": [_P] * 40 + [_I] * 5 + [_F, _I, _P],
     "vitax_ln_qkvo_attention_int4_fwd": [_P] * 18 + [_I] * 7 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_int4_bwd": [_P] * 42 + [_I] * 9 + [_F, _F, _P],
     "vitax_ln_qkvo_attention_rect_int4_fwd": [_P] * 22 + [_I] * 7 + [_F, _F, _P],
-    "vitax_ln_qkvo_attention_rect_int4_bwd": [_P] * 63 + [_I] * 10 + [_F, _F, _P],
+    "vitax_ln_qkvo_attention_rect_int4_bwd": [_P] * 62 + [_I] * 10 + [_F, _F, _P],
     "vitax_qkv_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
     "vitax_qkv_attention_bwd": [_P] * 11 + [_I] * 6 + [_F, _P],
     "vitax_qkvo_attention_fwd": [_P] * 8 + [_I] * 6 + [_F, _P],

@@ -775,16 +775,16 @@ FIRST_DESIGN_PIECES = ("gemm.cuh:s8", "attention.cuh:core",
 def first_design_launch_counts(reset: bool = False) -> dict:
     """Launches since the last reset of four first-design pieces, as the
     library counts them where each launches: gemm.cuh's mma.sync s8
-    products ("gemm.cuh:s8": K7's int8 forward, K11-A and K11-B, R-F and
-    R-B, K12-int8), attention.cuh's whole-row forward core
-    ("attention.cuh:core": K7, R-F), attention_bwd.cuh's whole-row
-    backward core ("attention_bwd.cuh:core": K7's bf16 backward, R-B) and
-    gemm.cuh's bf16 WMMA products ("gemm.cuh:bf16": K7, the bf16 weight
-    grads of K11-B and R-B, K12's backwards). LN, K1, K2, K12's forward,
-    K13, K6, K3's and K4's forwards and backwards, K7's int8 backwards,
-    K11-C/D and G-F/G-B, K5's halves, K8 in its bf16 and int8 tiers and,
-    since they run pieces of K1's Hopper sequence, K9 and K10 launch none
-    of them. Nothing is counted before the library is loaded."""
+    products ("gemm.cuh:s8": K7's int8 forward, K11-A, R-F, K12-int8),
+    attention.cuh's whole-row forward core ("attention.cuh:core": K7,
+    R-F), attention_bwd.cuh's whole-row backward core
+    ("attention_bwd.cuh:core": K7's bf16 backward) and gemm.cuh's bf16
+    WMMA products ("gemm.cuh:bf16": K7, K12's backwards). LN, K1, K2,
+    K12's forward, K13, K6, K3's and K4's forwards and backwards, K7's int8
+    backwards, K11-B, K11-C/D and G-F/G-B, K5's halves, K8 in its bf16 and
+    int8 tiers, R-B and, since they run pieces of K1's Hopper sequence, K9
+    and K10 launch none of them. Nothing is counted before the library is
+    loaded."""
     counts = (ctypes.c_longlong * len(FIRST_DESIGN_PIECES))()
     if build.loaded():
         build.check(build.load().vitax_first_design_launches(counts,
@@ -1067,7 +1067,7 @@ def qkv_attention_supported(x, wqkv, heads, kv_heads=None) -> bool:
     without its LN, and K10, its first launches, take the same shapes
     (`fused_qkvo_attention_supported`, `fused_qkv_attention_supported`).
     A first-design path (the whole-row core: K7's bf16 pair and int8
-    forward, R-F/R-B) checks its own limits in its wrapper and raises by
+    forward, R-F) checks its own limits in its wrapper and raises by
     name outside them. Unlike vitax's gate
     (pallas_kernels.py:2189-2193) it rejects heads % kv_heads != 0."""
     if x.ndim == 3 and x.is_cuda and x.dtype != torch.bfloat16:
@@ -1091,8 +1091,8 @@ def _core_fits(x, wqkv, heads, kv_heads=None, backward=False) -> bool:
     """The shapes the first design takes, any dtype: attention.cuh's
     whole-row core (head dims ATTN_HEAD_DIMS, its shared memory and, with
     `backward`, its backward's) and gemm.cuh's products (widths a multiple
-    of 32). K7 (kv_heads < heads: its bf16 pair and int8 forward), R-F and
-    R-B run it."""
+    of 32). K7 (kv_heads < heads: its bf16 pair and int8 forward) and R-F
+    run it."""
     hd = _head_dim(x, wqkv, heads, kv_heads)
     if hd is None:
         return False
@@ -2077,11 +2077,10 @@ def _dequant(acc, s_row, s_col, bias=None):
 # its own: K4 fixed groups of MLP_DW_GROUP rows (the last one ragged), K3
 # whole images (`qkvo_dw_group`). The twins take the group as an argument.
 MLP_DW_GROUP = 128
-# the kernels pad each group's rows to whole K tiles of their s8 GEMM:
-# gemm.cuh's 64-deep stages, or gemm_sm90.cuh's 128-code tiles (K3's, K7's,
-# K11-D's and G-B's backwards, and K4's)
-_DW_PAD = 64
-_DW_PAD_SM90 = 128
+# the kernels pad each group's rows to whole 128-code K tiles of
+# gemm_sm90.cuh's s8 path (dw_int8.cuh's kDwPad; gemm.cuh's 64-deep stages,
+# K12-int8's, divide it)
+_DW_PAD = 128
 
 
 def _qkvo_bwd_tile(b: int, spq: int) -> int:
@@ -2188,22 +2187,22 @@ def _pad_rows(t, group):
     return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
 
 
-def _dw_pad(group: int, pad: int = _DW_PAD) -> int:
-    return -(-group // pad) * pad
+def _dw_pad(group: int) -> int:
+    return -(-group // _DW_PAD) * _DW_PAD
 
 
-def _dw_layout(n: int, group: int, pad: int = _DW_PAD):
+def _dw_layout(n: int, group: int):
     """(groups, kp) of the kernels' transposed int8_dw operands [W, kp]:
-    each group's rows zero-padded to a multiple of `pad`."""
+    each group's rows zero-padded to a multiple of _DW_PAD."""
     groups = -(-n // group)
-    return groups, groups * _dw_pad(group, pad)
+    return groups, groups * _dw_pad(group)
 
 
-def _group_codes(qt, n, group, pad: int = _DW_PAD):
+def _group_codes(qt, n, group):
     """A kernel's transposed column codes qt [W, kp] in the twin's layout,
     [n, W]."""
     w = qt.shape[0]
-    return (qt.view(w, -1, _dw_pad(group, pad))[:, :, :group]
+    return (qt.view(w, -1, _dw_pad(group))[:, :, :group]
             .permute(1, 2, 0).reshape(-1, w)[:n])
 
 
@@ -2427,8 +2426,8 @@ def fused_ln_mlp_int8_dw_bwd_ref(x, gamma, beta, w1, b1, w2, do, eps, *,
 def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
                           scratch, int4=False, residual=True):
     """K4's backward launch (ln_mlp_int8_bwd.cu: gemm_sm90.cuh's s8 path, no
-    a1 scratch), or with `int4` K11-B's (the first design, a1 in scratch),
-    whose int8_dw runs on the rows padded to whole groups of vitax's
+    a1 scratch), or with `int4` K11-B's (the same sequence at L = 7), whose
+    int8_dw runs on the rows padded to whole groups of vitax's
     (`mlp_int4_dw_group`)."""
     dev = _check_cuda(
         name,
@@ -2452,7 +2451,6 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
         group = mlp_int4_dw_group(rows)
         x2, do2 = _pad_rows(x2, group), _pad_rows(do2, group)
     n = x2.shape[0]
-    pad = _DW_PAD if int4 else _DW_PAD_SM90
     lib = build.load()
     w1r, s1r = _i8(dev, d, m), _f32(dev, d)  # per row
     w2r, s2r = _i8(dev, m, d), _f32(dev, m)
@@ -2462,9 +2460,8 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     dw2, db2 = _f32(dev, m, d), _f32(dev, d)
     xn, h1 = _bf(dev, n, d), _bf(dev, n, m)
     # dh1 (bf16) feeds the bf16 dW1 only: K4's int8_dw does without it
-    dh1 = _bf(dev, n, m) if int4 or not int8_dw else None
+    dh1 = None if int8_dw else _bf(dev, n, m)
     dh1f, dxn = _f32(dev, n, m), _f32(dev, n, d)
-    a1 = (_f32(dev, n, m),) if int4 else ()
     xq, doq, dh1q = _i8(dev, n, d), _i8(dev, n, d), _i8(dev, n, m)
     sx, sdo, sdh = _f32(dev, n), _f32(dev, n), _f32(dev, n)
     ws = _workspace(lib.vitax_ln_mlp_bwd_ws(n, d, m), dev)
@@ -2473,7 +2470,7 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     # for them (K11-B's are the fifth and last)
     dw = [None] * 8
     if int8_dw:
-        groups, kp = _dw_layout(n, group, pad)
+        groups, kp = _dw_layout(n, group)
         dw = [_i8(dev, m, kp), _f32(dev, groups, m), _i8(dev, d, kp),
               _f32(dev, groups, d) if int4 else None, _i8(dev, d, kp),
               _f32(dev, groups, d), _i8(dev, m, kp),
@@ -2484,18 +2481,18 @@ def _ln_mlp_int8_bwd_cuda(name, x, gamma, beta, w1, b1, w2, do, eps, int8_dw,
     fn = lib.vitax_ln_mlp_int4_bwd if int4 else lib.vitax_ln_mlp_int8_bwd
     rc = fn(*(None if t is None else t.data_ptr() for t in (
         x2, gamma, beta, b1, w1, w2, do2, dx, dg, dbe, dw1, db1, dw2, db2, w1r,
-        s1r, w2r, s2r, w1c, s1c, xn, xq, sx, *a1, h1, doq, sdo, dh1f, dh1,
+        s1r, w2r, s2r, w1c, s1c, xn, xq, sx, h1, doq, sdo, dh1f, dh1,
         dh1q, sdh, dxn, ws)), *ptrs, n, d, m, group, int(int8_dw), eps,
         int(residual), _stream(dev))
     build.check(rc, name)
     _keep(scratch, w1r=(w1r, s1r), w2r=(w2r, s2r), w1c=(w1c.t(), s1c),
           xq=(xq, sx), doq=(doq, sdo), dh1q=(dh1q, sdh))
     if int8_dw and scratch is not None:  # the layout change copies
-        _keep(scratch, h1c=(_group_codes(dw[0], n, group, pad), dw[1]),
-              xnc=(_group_codes(dw[4], n, group, pad), dw[5]))
+        _keep(scratch, h1c=(_group_codes(dw[0], n, group), dw[1]),
+              xnc=(_group_codes(dw[4], n, group), dw[5]))
         if int4:
-            _keep(scratch, doc=(_group_codes(dw[2], n, group, pad), dw[3]),
-                  dh1c=(_group_codes(dw[6], n, group, pad), dw[7]))
+            _keep(scratch, doc=(_group_codes(dw[2], n, group), dw[3]),
+                  dh1c=(_group_codes(dw[6], n, group), dw[7]))
     return dx[:rows].view(x.shape), dg, dbe, dw1, db1, dw2, db2
 
 
@@ -3714,7 +3711,7 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
     # own for them (K11-D's are the fourth and last)
     dwt = [None] * 8
     if int8_dw:
-        groups, kp = _dw_layout(n, group, _DW_PAD_SM90)
+        groups, kp = _dw_layout(n, group)
         dwt = [_i8(dev, hhd, kp), _f32(dev, groups, hhd), _i8(dev, d, kp),
                _f32(dev, groups, d) if int4 else None, _i8(dev, d, kp),
                _f32(dev, groups, d), _i8(dev, width, kp),
@@ -3736,7 +3733,7 @@ def _ln_qkvo_int8_bwd_cuda(name, x, gamma, beta, wqkv, bqkv, wo, do, eps,
           xq=(xq, sx), doq=(doq, sdo), dqq=(dqq, sdq))
     if int8_dw and scratch is not None:  # the layout change copies
         kept = dict(atc=0, xnc=4, **(dict(doc=2, dqc=6) if int4 else {}))
-        _keep(scratch, **{k: (_group_codes(dwt[i], n, group, _DW_PAD_SM90),
+        _keep(scratch, **{k: (_group_codes(dwt[i], n, group),
                               dwt[i + 1]) for k, i in kept.items()})
     return dx, dg, dbe, dw, db, dwo, dbo
 
@@ -4148,10 +4145,10 @@ def fused_block_int8_handoff_ref(x, xq, sx, g1, be1, wqkv, bqkv, wo, bo, g2,
 
 def qkv_attention_rect_supported(xc, x, wqkv, heads) -> bool:
     """Gate of the rect half: K1's gate at x's spq, and xc [B, cpq, D] on
-    the same batch and width. K8 (bf16 and int8) runs K13's core in its
-    rect geometry and takes what the gate takes; R-F/R-B keep the first
-    design's whole-row core, whose limits their wrappers check and raise
-    on (`_check_rect`)."""
+    the same batch and width. K8 (bf16 and int8) and R-B run K13's core in
+    its rect geometry and take what the gate takes; R-F keeps the first
+    design's whole-row core, whose limits its wrapper checks and raises on
+    (`_check_rect`)."""
     return (xc.ndim == 3 and qkv_attention_supported(x, wqkv, heads)
             and xc.shape[0] == x.shape[0] and xc.shape[2] == x.shape[2]
             and (xc.dtype == torch.bfloat16 or not xc.is_cuda))
@@ -4160,11 +4157,11 @@ def qkv_attention_rect_supported(xc, x, wqkv, heads) -> bool:
 def _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, bo, seq_len, heads,
                 head_dim, backward=False, int4=False):
     """K8's launch checks, forward or `backward`, for its tier: the rect
-    gate (K13's limits at x's spq), all the bf16 and int8 tiers need (K13's
-    core in the rect geometry); with `int4`, R-F and R-B keep the whole-row
-    core, whose limits at x's spq they check too (`_check_qkvo`'s first
-    design)."""
-    first_design = ("R-B" if backward else "R-F") if int4 else None
+    gate (K13's limits at x's spq), all that the bf16, int8 and int4
+    backwards (R-B) need (K13's core in the rect geometry); with `int4` the
+    forward, R-F, keeps the whole-row core, whose limits at x's spq it
+    checks too (`_check_qkvo`'s first design)."""
+    first_design = "R-F" if int4 and not backward else None
     b, cpq, d = xc.shape
     if cpq % 8 or not qkv_attention_rect_supported(xc, x, wqkv, heads):
         raise ValueError(f"{name}: unsupported shapes xc {tuple(xc.shape)} x "
@@ -4531,25 +4528,22 @@ def fused_ln_qkvo_attention_rect_int4_dw_bwd_ref(xc, x, gamma, beta, wqkv,
 def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
                    do, eps, seq_len, heads, head_dim, scratch=None,
                    int4=False):
-    """The launch of K8's backward, any tier (`int4`: R-B's). The bf16
-    and int8 tiers run the Hopper design (K13's three passes in the rect
-    geometry, their row statistics the only attention scratch;
-    gemm_sm90.cuh's products, the s8 path in the int8 tier); R-B keeps the
-    first design (bf16 P and ds in scratch)."""
+    """The launch of K8's backward, any tier (`int4`: R-B's, the int8
+    tier's sequence at L = 7): the Hopper design (K13's three passes in the
+    rect geometry, their row statistics the only attention scratch;
+    gemm_sm90.cuh's products, the s8 path in the int8 and int4 tiers)."""
     dev = _check_cuda(
         name, {"xc": xc, "x": x, "gamma": gamma, "beta": beta, "wqkv": wqkv,
                "bqkv": bqkv, "wo": wo, "do": do},
         {"xc": _BF, "x": _BF, "gamma": _F32, "beta": _F32, "wqkv": _BF,
          "bqkv": _F32, "wo": _BF, "do": _BF})
-    hopper = not int4
     _check_rect(name, xc, x, gamma, beta, wqkv, bqkv, wo, None, seq_len, heads,
-                head_dim, backward=True, int4=int4)
+                head_dim, backward=True)
     _check_shape(name, "do", do, tuple(xc.shape))
     b, cpq, d = xc.shape
     spq = x.shape[1]
     hhd = heads * head_dim
     nc, n = b * cpq, b * spq
-    lq, lk = (cpq + 15) // 16 * 16, (spq + 15) // 16 * 16
     lib = build.load()
     dxc, dx, dg, dbe = (torch.empty_like(xc), torch.empty_like(x),
                         _f32(dev, d), _f32(dev, d))
@@ -4559,11 +4553,8 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
     outs = (dxc, dx, dg, dbe, dwq, dwkv, dbq, dbkv, dwo, dbo)
     q, kv, attn, dattn = (_bf(dev, nc, hhd), _bf(dev, n, 2 * hhd),
                           _bf(dev, nc, hhd), _bf(dev, nc, hhd))
-    # the core's scratch: K13's row statistics (padded from cpq), or the
-    # whole-row core's P and ds
-    core = ((_workspace(lib.vitax_attention_core_bwd_ws(b, cpq, heads), dev),)
-            if hopper else (_bf(dev, b, heads, lq, lk),
-                            _bf(dev, b, heads, lq, lk)))
+    # the core's only scratch: K13's row statistics (padded from cpq)
+    stats = _workspace(lib.vitax_attention_core_bwd_ws(b, cpq, heads), dev)
     dq, dkv = _bf(dev, nc, hhd), _bf(dev, n, 2 * hhd)
     dxnc, dxn, g2, b2 = (_f32(dev, nc, d), _f32(dev, n, d), _f32(dev, d),
                          _f32(dev, d))
@@ -4574,7 +4565,7 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
         xnc, xn = _bf(dev, nc, d), _bf(dev, n, d)
         rc = lib.vitax_ln_qkvo_attention_rect_bwd(*(t.data_ptr() for t in (
             xc, x, gamma, beta, wqkv, bqkv, wo, do, *outs, xnc, xn, q, kv,
-            attn, dattn, *core, dq, dkv, dxnc, dxn, g2, b2, ws)), b, cpq, spq,
+            attn, dattn, stats, dq, dkv, dxnc, dxn, g2, b2, ws)), b, cpq, spq,
             d, seq_len, heads, head_dim, eps, scale, _stream(dev))
         build.check(rc, name)
         return outs[:4] + (torch.cat([dwq, dwkv], dim=1),
@@ -4592,15 +4583,14 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
     dqq, sdq, dkvq, sdkv = _i8(dev, nc, hhd), _f32(dev, nc), \
         _i8(dev, n, 2 * hhd), _f32(dev, n)
     group_c, group_k = qkvo_rect_dw_groups(b, cpq, spq)
-    pad = _DW_PAD_SM90 if hopper else _DW_PAD
     # int8_dw: (attn | do) column codes and scales for dWo, (xnc | dq) for
     # dWq, (xn | dkv) for dWkv; K8 reuses do's, dq's and dkv's row codes,
     # so it has no scales of its own for them (R-B's are the fourth, eighth
     # and last)
     dwt = [None] * 12
     if int8_dw:
-        groups, kpc = _dw_layout(nc, group_c, pad)
-        _, kpk = _dw_layout(n, group_k, pad)
+        groups, kpc = _dw_layout(nc, group_c)
+        _, kpk = _dw_layout(n, group_k)
         dwt = [_i8(dev, hhd, kpc), _f32(dev, groups, hhd), _i8(dev, d, kpc),
                _f32(dev, groups, d) if int4 else None,
                _i8(dev, d, kpc), _f32(dev, groups, d), _i8(dev, hhd, kpc),
@@ -4616,7 +4606,7 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
     rc = fn(*(t.data_ptr() for t in (
         xc, x, gamma, beta, bqkv, wqkv, wo, do, *outs, w8t, sw, wq8r, swqr,
         wkv8r, swkvr, wo8r, swor, xnc, xqc, sxc, xn, xqk, sxk, q, kv, attn,
-        doq, sdo, dattn, *core, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2,
+        doq, sdo, dattn, stats, dq, dkv, dqq, sdq, dkvq, sdkv, dxnc, dxn, g2,
         b2, ws)), *ptrs, b, cpq, spq, d, seq_len, heads, head_dim, group_c,
         group_k, int(int8_dw), eps, scale, _stream(dev))
     build.check(rc, name)
@@ -4624,13 +4614,13 @@ def _rect_bwd_cuda(name, int8, int8_dw, xc, x, gamma, beta, wqkv, bqkv, wo,
           wo8r=(wo8r, swor), xq=(xqc, sxc), xqk=(xqk, sxk), doq=(doq, sdo),
           dqq=(dqq, sdq), dkvq=(dkvq, sdkv))
     if int8_dw:
-        _keep(scratch, atc=(_group_codes(dwt[0], nc, group_c, pad), dwt[1]),
-              xnc=(_group_codes(dwt[4], nc, group_c, pad), dwt[5]),
-              xnk=(_group_codes(dwt[8], n, group_k, pad), dwt[9]))
+        _keep(scratch, atc=(_group_codes(dwt[0], nc, group_c), dwt[1]),
+              xnc=(_group_codes(dwt[4], nc, group_c), dwt[5]),
+              xnk=(_group_codes(dwt[8], n, group_k), dwt[9]))
     if int8_dw and int4:
-        _keep(scratch, doc=(_group_codes(dwt[2], nc, group_c, pad), dwt[3]),
-              dqc=(_group_codes(dwt[6], nc, group_c, pad), dwt[7]),
-              dkvc=(_group_codes(dwt[10], n, group_k, pad), dwt[11]))
+        _keep(scratch, doc=(_group_codes(dwt[2], nc, group_c), dwt[3]),
+              dqc=(_group_codes(dwt[6], nc, group_c), dwt[7]),
+              dkvc=(_group_codes(dwt[10], n, group_k), dwt[11]))
     return outs[:4] + (torch.cat([dwq, dwkv], dim=1), torch.cat([dbq, dbkv]),
                        dwo, dbo)
 

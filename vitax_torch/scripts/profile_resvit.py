@@ -19,7 +19,10 @@ batch of random images: `train-dense` (b32, bf16, `ft_resvit.sh`),
 `train-gqa-int8-grad` (b32, `--int8-grad --n_kv_heads 4`),
 `train-gqa-fast` (b32, the fast flags with `--n_kv_heads 4`) and
 `train-gqa-int4` (b32, `--int4-attn --int4-grad --int8-dw --n_kv_heads 4
---compact-capacity 0.625`: G-F and G-B on every layer); and under a (1, 1)
+--compact-capacity 0.625`: G-F and G-B on every layer), and
+`train-c-int4` (b32, `--int4-attn --int4-grad --int8-dw
+--compact-capacity 0.625`, the CLI's `--compact-warmup 0`: R-F and R-B dw
+on the routed layers); and under a (1, 1)
 mesh of this process's NCCL group of one rank (tcp on 127.0.0.1), where
 every attention half is the LN kernel and K9 (vitax's dispatch under any
 mesh), `dense-mesh` (the b64 serving forward) and `train-mesh` (the b32
@@ -84,6 +87,14 @@ TRAIN_CONFIGS = {
                                 int4_mlp=True, int4_attn=True,
                                 int4_grad=True, fused_mlp=True,
                                 compact_capacity=0.625)),
+    # chip_smoke.py's phase 14: resvit_train_cli --int4-attn --int4-grad
+    # --int8-dw --compact-capacity 0.625 --compact-warmup 0 (R-F and R-B dw
+    # on the routed layers, K11-C and K11-D dw on the others, K11-A and
+    # K11-B dw on every MLP half)
+    "train-c-int4": (32, dict(int8_attn=True, int8_attn_grad=True,
+                              int8_mlp=True, int8_mlp_grad=True, int8_dw=True,
+                              int4_mlp=True, int4_attn=True, int4_grad=True,
+                              fused_mlp=True, compact_capacity=0.625)),
     # chip_smoke.py's phase 16 (b): (a) under the (1, 1) mesh
     "train-mesh": (32, {}),
     # chip_smoke.py's phase 15: (a) with fused_qkvo off (K10)
@@ -96,9 +107,9 @@ GROUPS = [("k13::", "attention core, wgmma (K13; K1's, K6's, K8's, K9's "
                         "K10's, K12's products)"),
           ("attention_core", "whole-row attention core (K7/R-F)"),
           ("attention_bwd", "attention core backward"),
-          ("gemm_s8_sm90", "s8 wgmma GEMM (K3's, K4's, K5's, K8's and "
-                           "K11's attention half's products)"),
-          ("gemm_s8", "s8 mma.sync GEMM (K7/R-F/R-B/K11-A/B/K12 int8)"),
+          ("gemm_s8_sm90", "s8 wgmma GEMM (K3's, K4's, K5's, K8's, "
+                           "K11-B's, K11-C/D's and R-B's products)"),
+          ("gemm_s8", "s8 mma.sync GEMM (K7/R-F/K11-A/K12 int8)"),
           ("gemm_bf16", "bf16 GEMM (the fused halves' products)"),
           ("layer_norm_rows", "LN forward"),
           ("layer_norm_bwd", "LN backward"),

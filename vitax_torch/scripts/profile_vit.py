@@ -12,7 +12,7 @@ momentum), `b16-train` (ViT-B/16 train step at 224, b32: K1 and K2),
 int8 forwards and their int8 backwards, bf16 weight grads),
 `b16-train-int8dw` (with `--int8-dw`: the same with the int8 weight
 grads), `b16-train-int4` (`--int4-attn --int4-grad --int8-dw`: K11's four
-kernels, the attention half's on K3's Hopper sequences at L = 7),
+kernels, all but K11-A on K3's and K4's Hopper sequences at L = 7),
 `b16-train-fast` (the fast recipe's drop-phase step,
 scripts/FT_CIFAR100_fast.sh: `--int8-dw` at b768 keep 0.5, spq 104, K5's
 halves forward), `b16-eval` (ViT-B/16 serving forward at 224, b64) and

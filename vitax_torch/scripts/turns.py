@@ -20,9 +20,9 @@ file need not belong to), it prints under `tag`:
   r2, its pack, h1q), K3's and K4's backwards with and without int8_dw
   (K4's also without its residual) with the codes they wrote, K8's int8
   forward and backwards with and without int8_dw (cpq 128 of spq 200), and
-  K7's int8 forward and backwards (4 kv heads), K11-A, K11-C, K11-B and
-  K11-D with and without int8_dw, G-F and G-B, R-F and R-B with and
-  without int8_dw;
+  K7's int8 forward and backwards (4 kv heads), K11-A, K11-C, K11-B
+  (also without its residual) and K11-D with and without int8_dw, G-F and
+  G-B, R-F and R-B with and without int8_dw;
 - `ln_checksums`: the same of the LN kernel pair alone (the standalone
   entry points, register path and loop form, bf16 and fp32): the forward,
   the backward's dx, and its dγ/dβ apart (their order of sums may change
@@ -69,7 +69,10 @@ file need not belong to), it prints under `tag`:
   input copies and `_by_kernel`'s device time and kernels;
 - `int4_attn`: the same of the A4W4 attention half at its chip_smoke.py
   shapes: K11-C at b32 spq 200, G-F at b64 with 4 kv heads, K11-D and G-B
-  (4 kv heads) with and without int8_dw at b32;
+  (4 kv heads) with and without int8_dw at b32; `int4_bwd` of the int4_grad
+  backwards beside their int8 siblings: R-B and R-B dw beside K8's int8
+  backwards at b32 cpq 128 of spq 200, K11-B (int8_dw off and on, with and
+  without the residual) beside K4's at b32 spq 200;
 - `k9`: K9's forward at ViT-B/16's b64 spq 200 and its backward at b32,
   beside K1's at the same shapes (K9 on x̂ = LN(x) of K1's x): the
   CUDA-event median of 25 and `device_ms` over four input copies; `k10`
@@ -92,7 +95,7 @@ Names after the tag run only those sections (`checksums`, `int8_checksums`,
 `ln_checksums`, `repeat_checksums`, `ln_device_times`, `timings`,
 `kernel_times`, `k4_outputs`, `int8_bwd_device`, `int8_fwd_device`,
 `ho_device`, `rect_int8`, `rect_bf16`, `rect_steps`, `gqa_int8_bwd`,
-`int4_attn`, `k9`, `k10`), e.g.
+`int4_attn`, `int4_bwd`, `k9`, `k10`), e.g.
 `turns.py A int8_checksums kernel_times`.
 """
 
@@ -267,14 +270,19 @@ def int8_checksums() -> dict:
                  mlp_bwd),
                 ("K11-B bwd", ck.fused_ln_mlp_int4_bwd, mlp_bwd),
                 ("K11-B dw bwd", ck.fused_ln_mlp_int4_dw_bwd, mlp_bwd),
+                ("K11-B partial bwd", ck.fused_ln_mlp_int4_partial_bwd,
+                 mlp_bwd),
+                ("K11-B partial dw bwd", ck.fused_ln_mlp_int4_partial_dw_bwd,
+                 mlp_bwd),
                 ("K11-D bwd", ck.fused_ln_qkvo_attention_int4_bwd,
                  (*head, do, *tail)),
                 ("K11-D dw bwd", ck.fused_ln_qkvo_attention_int4_dw_bwd,
                  (*head, do, *tail))):
             sk = {}
             out[name] = scratch_digest(fn(*args, scratch=sk), sk)
-        # K8's int8 tier (its Hopper design) and R-F, R-B (the first
-        # design) at Res-ViT's C 0.625: 124 of each image's rows in cpq 128
+        # K8's int8 tier and R-B (its Hopper design at L = 7) and R-F (the
+        # first design) at Res-ViT's C 0.625: 124 of each image's rows in
+        # cpq 128
         xc, rect_do = _rect_inputs(head[0], 197, 124, 128)
         rect = (xc, *head)
         for name, fn in (
@@ -737,6 +745,54 @@ def int4_attn() -> dict:
     return out
 
 
+# The int4_grad backwards at chip_smoke.py's shapes (phases 13 and 14), each
+# beside its int8 sibling: R-B at Res-ViT training's b32 cpq 128 of spq 200
+# (C 0.625), K11-B with both int8_dw branches and without the residual at
+# ViT-B/16's b32 spq 200. (label, wrapper, rect)
+INT4_BWD = [
+    ("R-B bwd", "fused_ln_qkvo_attention_rect_int4_bwd", True),
+    ("K8 int8 bwd", "fused_ln_qkvo_attention_rect_int8_bwd", True),
+    ("R-B dw bwd", "fused_ln_qkvo_attention_rect_int4_dw_bwd", True),
+    ("K8 int8 dw bwd", "fused_ln_qkvo_attention_rect_int8_dw_bwd", True),
+    ("K11-B bwd", "fused_ln_mlp_int4_bwd", False),
+    ("K4 int8 bwd", "fused_ln_mlp_int8_bwd", False),
+    ("K11-B dw bwd", "fused_ln_mlp_int4_dw_bwd", False),
+    ("K4 int8 dw bwd", "fused_ln_mlp_int8_dw_bwd", False),
+    ("K11-B partial bwd", "fused_ln_mlp_int4_partial_bwd", False),
+    ("K4 partial bwd", "fused_ln_mlp_int8_partial_bwd", False),
+    ("K11-B partial dw bwd", "fused_ln_mlp_int4_partial_dw_bwd", False),
+    ("K4 partial dw bwd", "fused_ln_mlp_int8_partial_dw_bwd", False)]
+
+
+def int4_bwd() -> dict:
+    """{INT4_BWD's label and shape: (CUDA-event median ms of 25,
+    `device_ms` over four input copies, `_by_kernel`'s device ms a call and
+    its kernels)} at ViT-B/16's widths, seq 197."""
+    from vitax_torch.ops import cuda_kernels as ck
+    _, heads, hd, _ = B16_WIDTHS
+    out = {}
+    for name, wrapper, rect in INT4_BWD:
+        fn = getattr(ck, wrapper)
+        copies = []
+        for i in range(4):
+            head, _, do, mlp = _int8_inputs(221 + i, 32, 200)
+            if rect:
+                xc, rect_do = _rect_inputs(head[0], 197, 124, 128)
+                copies.append((xc, *head, rect_do, 1e-5, 197, heads, hd))
+            else:
+                copies.append((*head[:3], *mlp[:3], do, 1e-5))
+        calls = [lambda c=c: fn(*c) for c in copies]
+        label = "b32 cpq128 spq200" if rect else "b32 spq200"
+        with torch.no_grad():
+            dev = device_ms(calls)
+            ms, rows = _by_kernel({name: calls[0]}, label)[f"{name} {label}"]
+            out[f"{name} {label}"] = (_median_ms(calls[0], 3, 25), dev, ms,
+                                      rows)
+        del copies, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 # K9's forward at serving's b64 and its backward at training's b32, each
 # beside K1's at the same shape: (label, batch, backward)
 K9_TIMES = [("K9 fwd", 64, False), ("K1 fwd", 64, False),
@@ -1104,7 +1160,7 @@ def main(argv) -> int:
                 print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms: "
                       + "; ".join(f"{k[:70]} {t:.4f} x{n:g}"
                                   for k, t, n in rows), flush=True)
-        elif section in ("gqa_int8_bwd", "int4_attn"):
+        elif section in ("gqa_int8_bwd", "int4_attn", "int4_bwd"):
             for name, (ms, dev, by, rows) in globals()[section]().items():
                 print(f"{tag}: {name} {ms:.4f} ms, device {dev:.4f} ms "
                       f"(device_ms), {by:.4f} ms (_by_kernel): " + "; ".join(
@@ -1128,8 +1184,8 @@ def main(argv) -> int:
 SECTIONS = ("checksums", "int8_checksums", "ln_checksums", "repeat_checksums",
             "ln_device_times", "timings", "kernel_times", "k4_outputs",
             "int8_bwd_device", "int8_fwd_device", "ho_device", "rect_int8",
-            "rect_bf16", "rect_steps", "gqa_int8_bwd", "int4_attn", "k9",
-            "k10")
+            "rect_bf16", "rect_steps", "gqa_int8_bwd", "int4_attn",
+            "int4_bwd", "k9", "k10")
 
 
 if __name__ == "__main__":
